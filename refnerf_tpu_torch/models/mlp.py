@@ -1,0 +1,354 @@
+"""The Ref-NeRF MLP, evaluation forward (counterpart of refnerf_tpu/models/mlp.py).
+
+One module for the proposal and NeRF MLPs, with the JAX module's fields and
+layer names (`spatial_i`, `raw_density`, ..., `viewdir_i`, `rgb`), so a flax
+parameter tree maps onto the state_dict one transpose per layer
+(refnerf_tpu_torch/convert.py).
+
+Both dense trunks always run in the fused formulation of the JAX package's
+`fused_trunk='on'` path (mlp.py:252-333, :599-642): the spatial trunk through
+`fused_mlp.fused_encoded_trunk` (K1), the directional trunk through
+`fused_mlp.fused_trunk` (K2). On CUDA tensors those are the hand-written
+kernels; on the CPU, or with `fused_trunk='off'`, their plain versions.
+
+Ported: the evaluation path (`train=False`) with predicted normals, the IDE,
+reflections, roughness, diffuse/specular/tint and n.v. Not ported, and
+refused with NotImplementedError: training (density noise, density-gradient
+normals, the backward kernels), `use_viewdirs=False`, the positional
+direction encoding, a trunk that ends in a skip concat, and the `fuse_*`
+kernel modes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from refnerf_tpu.ops import geopoly
+from refnerf_tpu.utils import ginlite
+from refnerf_tpu_torch.ops import coord
+from refnerf_tpu_torch.ops import fused_mlp
+from refnerf_tpu_torch.ops import image as image_ops
+from refnerf_tpu_torch.ops import ref_utils
+
+# The activations of the MLP's defaults; gin may name them as references.
+ACTIVATIONS = {'relu': torch.relu, 'softplus': F.softplus,
+               'sigmoid': torch.sigmoid}
+
+
+def activation(v):
+  """An activation by name; gin references resolve by their last part."""
+  if callable(v) and not isinstance(v, ginlite.Ref):
+    return v
+  name = v.name if isinstance(v, ginlite.Ref) else str(v)
+  name = name.split('.')[-1]
+  if name not in ACTIVATIONS:
+    raise ValueError(f'unknown activation {v!r}; known: {sorted(ACTIVATIONS)}')
+  return ACTIVATIONS[name]
+
+
+@dataclasses.dataclass
+class MLPConfig:
+  """The JAX MLP's fields and defaults (mlp.py:70-158)."""
+  net_depth: int = 8
+  net_width: int = 256
+  bottleneck_width: int = 256
+  net_depth_viewdirs: int = 1
+  net_width_viewdirs: int = 128
+  net_activation: Any = 'relu'
+  min_deg_point: int = 0
+  max_deg_point: int = 12
+  weight_init: str = 'torch_uniform'
+  skip_layer: int = 4
+  skip_layer_dir: int = 4  # unused, as in the JAX MLP and the reference
+  num_rgb_channels: int = 3
+  deg_view: int = 4
+  use_reflections: bool = False
+  use_directional_enc: bool = False
+  enable_pred_roughness: bool = False
+  roughness_activation: Any = 'softplus'
+  roughness_bias: float = -1.0
+  use_diffuse_color: bool = False
+  use_specular_tint: bool = False
+  use_n_dot_v: bool = False
+  enable_pred_specular_density: bool = False
+  bottleneck_noise: float = 0.0
+  density_activation: Any = 'softplus'
+  density_bias: float = -1.0
+  density_noise: float = 0.0
+  fuse_compositing: bool = False
+  fuse_dir_enc: bool = False
+  fuse_dir_rgb: bool = False
+  fuse_dir_geo: bool = False
+  fuse_lift: bool = False
+  fuse_ipe_trig: bool = False
+  rgb_premultiplier: float = 1.0
+  rgb_activation: Any = 'sigmoid'
+  rgb_bias: float = 0.0
+  rgb_padding: float = 0.001
+  enable_pred_normals: bool = False
+  disable_density_normals: bool = False
+  disable_rgb: bool = False
+  srgb_mapping: bool = True
+  srgb_mapping_normalization: bool = True
+  warp_fn: Any = None
+  basis_shape: str = 'icosahedron'
+  basis_subdivisions: int = 2
+  compute_dtype: str = 'float32'
+  # 'auto' and 'on': the CUDA kernels for CUDA tensors; 'off': the plain
+  # versions everywhere. CPU tensors always take the plain versions.
+  fused_trunk: str = 'auto'
+  fused_block: int = 0  # the TPU kernels' block size; no meaning here
+
+
+class MLP(nn.Module):
+  """Spatial trunk + density/normal/roughness/colour heads + directional trunk."""
+
+  def __init__(self, **kwargs):
+    super().__init__()
+    self.cfg = c = MLPConfig(**kwargs)
+    fused_on = [f for f in ('fuse_compositing', 'fuse_dir_enc', 'fuse_dir_rgb',
+                            'fuse_dir_geo', 'fuse_lift', 'fuse_ipe_trig')
+                if getattr(c, f)]
+    if fused_on:
+      raise NotImplementedError(
+          f'{fused_on}: these kernel modes (K6-K10) are not ported')
+    if c.warp_fn is not None:
+      raise NotImplementedError('warp_fn is not ported')
+    if c.weight_init != 'torch_uniform':
+      raise NotImplementedError(f'weight_init {c.weight_init!r} is not ported')
+    if c.use_reflections and not (c.enable_pred_normals or
+                                  not c.disable_density_normals):
+      raise ValueError('Normals must be computed for reflection directions.')
+    if c.use_n_dot_v and c.disable_density_normals and not (
+        c.enable_pred_normals):
+      raise ValueError('use_n_dot_v needs a normals source (density '
+                       'normals or predicted normals).')
+    if c.enable_pred_specular_density and not c.use_diffuse_color:
+      raise ValueError('Specular density is useless if not using diffuse '
+                       'color.')
+    if not c.use_directional_enc:
+      raise NotImplementedError(
+          'only the integrated directional encoding is ported')
+    if c.net_depth_viewdirs < 1:
+      raise NotImplementedError('a directional trunk of depth 0 is not ported')
+    self.net_activation = activation(c.net_activation)
+    self.density_activation = activation(c.density_activation)
+    self.roughness_activation = activation(c.roughness_activation)
+    self.rgb_activation = activation(c.rgb_activation)
+
+    basis = np.array(
+        geopoly.generate_basis(c.basis_shape, c.basis_subdivisions)).T
+    self.register_buffer('pos_basis_t', torch.tensor(basis, dtype=torch.float32),
+                         persistent=False)
+    self.scales = 2.0**np.arange(c.min_deg_point, c.max_deg_point)
+    self.dir_enc_fn = ref_utils.generate_ide_fn(c.deg_view)
+
+    w, fin = c.net_width, 2 * basis.shape[1] * len(self.scales)
+    skips = fused_mlp.skip_input_layers(c.net_depth, c.skip_layer)
+    for i in range(c.net_depth):
+      d_in = fin if i == 0 else w + (fin if i in skips else 0)
+      self.add_module(f'spatial_{i}', nn.Linear(d_in, w))
+    self.raw_density = nn.Linear(w, 1)
+    self._heads = []  # (name, layer name, width) of the f32 head block
+    if c.enable_pred_specular_density:
+      self.raw_specular_density = nn.Linear(w, 1)
+      self._heads.append(('specular_density', 'raw_specular_density', 1))
+    if c.enable_pred_normals:
+      self.grad_pred = nn.Linear(w, 3)
+      self._heads.append(('grad_pred', 'grad_pred', 3))
+    if c.enable_pred_roughness:
+      self.raw_roughness = nn.Linear(w, 1)
+      self._heads.append(('roughness', 'raw_roughness', 1))
+    if c.use_diffuse_color:
+      self.raw_rgb_diffuse = nn.Linear(w, c.num_rgb_channels)
+      self._heads.append(('diffuse', 'raw_rgb_diffuse', c.num_rgb_channels))
+    if c.use_specular_tint:
+      self.raw_tint = nn.Linear(w, 3)
+      self._heads.append(('tint', 'raw_tint', 3))
+    if c.bottleneck_width > 0:
+      self.bottleneck = nn.Linear(w, c.bottleneck_width)
+
+    n_ide = ref_utils.ide_constants(c.deg_view)[0].shape[1]
+    dir_in = c.bottleneck_width + 2 * n_ide + int(c.use_n_dot_v)
+    wv = c.net_width_viewdirs
+    skips = fused_mlp.skip_input_layers(c.net_depth_viewdirs, c.skip_layer)
+    for i in range(c.net_depth_viewdirs):
+      d_in = dir_in if i == 0 else wv + (dir_in if i in skips else 0)
+      self.add_module(f'viewdir_{i}', nn.Linear(d_in, wv))
+    self.rgb = nn.Linear(wv, c.num_rgb_channels)
+    self._packs = {}
+
+  def reset_parameters(self, generator: torch.Generator):
+    """Initialise as the JAX MLP does with 'torch_uniform' (mlp.py:49-64):
+    kernels uniform in +-1/sqrt(fan_in), zero biases."""
+    with torch.no_grad():
+      for layer in self.children():
+        if isinstance(layer, nn.Linear):
+          lim = 1 / math.sqrt(layer.in_features)
+          layer.weight.uniform_(-lim, lim, generator=generator)
+          layer.bias.zero_()
+
+  def _stack(self, prefix, depth):
+    layers = [getattr(self, f'{prefix}_{i}') for i in range(depth)]
+    return [l.weight for l in layers], [l.bias for l in layers]
+
+  def _pack(self, name, build):
+    """The kernel's weight layout of one trunk, cached until a weight changes."""
+    key = (name, self.cfg.compute_dtype)
+    sig = tuple((p.data_ptr(), p._version) for p in self.parameters())
+    hit = self._packs.get(key)
+    if hit is None or hit[0] != sig:
+      hit = self._packs[key] = (sig, build())
+    return hit[1]
+
+  def _spatial(self, lm, lv, rgb_heads):
+    """K1: raw density, the f32 heads and the bottleneck (mlp.py:252-333)."""
+    c = self.cfg
+    ws, bs = self._stack('spatial', c.net_depth)
+    heads = [h for h in self._heads
+             if rgb_heads or h[0] in ('specular_density', 'grad_pred')]
+    head_f32 = None
+    if heads:
+      layers = [getattr(self, h[1]) for h in heads]
+      head_f32 = (torch.cat([l.weight for l in layers]),
+                  torch.cat([l.bias for l in layers]))
+    head_cdt = None
+    if rgb_heads and c.bottleneck_width > 0:
+      head_cdt = (self.bottleneck.weight, self.bottleneck.bias)
+    kw = dict(wd=self.raw_density.weight, head_f32=head_f32, head_cdt=head_cdt)
+    pack = None
+    if fused_mlp.use_kernel(lm, c.fused_trunk):
+      f = lm.shape[-1] * len(self.scales)
+      pack = self._pack('spatial', lambda: fused_mlp.pack_trunk(
+          ws, bs, (f, f), skip_period=c.skip_layer,
+          compute_dtype=c.compute_dtype, **kw))
+    outs = list(fused_mlp.fused_encoded_trunk(
+        lm, lv, self.scales, ws, bs, bd=self.raw_density.bias,
+        skip_period=c.skip_layer, compute_dtype=c.compute_dtype,
+        mode=c.fused_trunk, activation=self.net_activation, pack=pack, **kw))
+    raw_density = outs.pop(0)
+    fh = {}
+    if head_f32 is not None:
+      hout, off = outs.pop(0), 0
+      for name, _, dim in heads:
+        fh[name] = hout[..., off:off + dim]
+        off += dim
+    if head_cdt is not None:
+      fh['bottleneck'] = outs.pop(0)
+    return raw_density, fh
+
+  def _directional(self, segs):
+    """K2: raw rgb of the directional trunk and the rgb head (mlp.py:599-642)."""
+    c = self.cfg
+    ws, bs = self._stack('viewdir', c.net_depth_viewdirs)
+    head_f32 = (self.rgb.weight, self.rgb.bias)
+    pack = None
+    if fused_mlp.use_kernel(segs[0], c.fused_trunk):
+      pack = self._pack('directional', lambda: fused_mlp.pack_trunk(
+          ws, bs, [s.shape[-1] for s in segs], skip_period=c.skip_layer,
+          head_f32=head_f32, compute_dtype=c.compute_dtype))
+    return fused_mlp.fused_trunk(
+        segs, ws, bs, head_f32, skip_period=c.skip_layer,
+        compute_dtype=c.compute_dtype, mode=c.fused_trunk,
+        activation=self.net_activation, pack=pack)
+
+  def forward(self, gaussians, viewdirs: Optional[torch.Tensor] = None):
+    """Evaluate the MLP on sample Gaussians (means [..., s, 3], covs
+    [..., s, 3, 3]) seen from viewdirs [..., 3]; eval mode (train=False).
+
+    Returns a dict of per-sample results, as the JAX MLP does.
+    """
+    c = self.cfg
+    means, covs = gaussians
+    compute_density_normals = (
+        not c.disable_density_normals
+        and (c.use_reflections or c.use_n_dot_v)
+        and not c.enable_pred_normals)
+    if compute_density_normals:
+      raise NotImplementedError(
+          'density-gradient normals need the K3 kernel mode, not ported')
+    if viewdirs is None and not c.disable_rgb:
+      raise NotImplementedError(
+          'use_viewdirs=False needs the trunk-features output (K11)')
+    rgb_heads = not c.disable_rgb
+
+    lm, lv = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
+    raw_density, fh = self._spatial(lm, lv, rgb_heads)
+
+    normals_pred = grad_pred = None
+    if c.enable_pred_normals:
+      grad_pred = fh['grad_pred']
+      normals_pred = -ref_utils.l2_normalize(grad_pred)
+    density = self.density_activation(raw_density + c.density_bias)
+
+    roughness = 0.0
+    tint = diffuse = specular = None
+    if c.disable_rgb:
+      rgb = torch.zeros_like(means)
+    else:
+      if c.use_specular_tint:
+        tint = torch.sigmoid(fh['tint'])
+      if c.enable_pred_roughness:
+        roughness = self.roughness_activation(fh['roughness'] + c.roughness_bias)
+
+      lead = means.shape[:-1]
+      n = math.prod(lead)
+      segs = []
+      if c.bottleneck_width > 0:
+        segs.append(fh['bottleneck'].reshape(n, -1))
+      vb = viewdirs[..., None, :].expand(means.shape)
+      if c.use_reflections:
+        # viewdirs point camera->point; flip so refdirs point outward.
+        dir_enc = self.dir_enc_fn(ref_utils.reflect(-vb, normals_pred),
+                                  roughness)
+      else:
+        dir_enc = self.dir_enc_fn(vb, roughness)
+      dir_enc = dir_enc.to(fused_mlp.DTYPES[c.compute_dtype])
+      if c.use_n_dot_v:
+        # n.v rides as one extra plane on the encoding segment (mlp.py:584).
+        dotprod = torch.sum(normals_pred * vb, dim=-1, keepdim=True)
+        dir_enc = torch.cat([dir_enc, dotprod.to(dir_enc.dtype)], dim=-1)
+      segs.append(dir_enc.reshape(n, -1))
+      raw_rgb = self._directional(segs).reshape(*lead, c.num_rgb_channels)
+      rgb = self.rgb_activation(c.rgb_premultiplier * raw_rgb + c.rgb_bias)
+
+      if c.use_diffuse_color:
+        # Linear diffuse starts near 0.25 so the combined colour starts ~0.5.
+        diffuse_linear = torch.sigmoid(fh['diffuse'] - math.log(3.0))
+        specular_linear = tint * rgb if c.use_specular_tint else 0.5 * rgb
+        rgb = specular_linear + diffuse_linear
+        if c.srgb_mapping:
+          if c.srgb_mapping_normalization:
+            rgb = rgb / torch.clamp(rgb.amax(dim=-1, keepdim=True), min=1.0)
+          rgb = torch.clip(image_ops.linear_to_srgb(rgb), 0.0, 1.0)
+          diffuse = torch.clip(image_ops.linear_to_srgb(diffuse_linear), 0, 1)
+          specular = torch.clip(image_ops.linear_to_srgb(specular_linear), 0, 1)
+        else:
+          diffuse, specular = diffuse_linear, specular_linear
+      # Map colour to [-rgb_padding, 1 + rgb_padding].
+      rgb = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding
+
+    out = dict(density=density, rgb=rgb)
+    if not c.disable_density_normals:
+      out['normals'] = None  # density-gradient normals are a training output
+    if c.enable_pred_normals:
+      out['normals_pred'] = normals_pred
+      out['grad_pred'] = grad_pred
+    if c.use_specular_tint:
+      out['tint'] = tint
+    if c.use_diffuse_color:
+      out['diffuse'] = diffuse
+      out['specular'] = specular
+      if c.enable_pred_specular_density:
+        out['specular_density'] = self.density_activation(
+            fh['specular_density'][..., 0] + c.density_bias)
+    if c.enable_pred_roughness:
+      out['roughness'] = roughness
+    return out

@@ -1,0 +1,95 @@
+"""Volume rendering: frustum Gaussians, transmittance, compositing.
+
+Counterpart of refnerf_tpu/models/render.py:39-92, :150-171 and :201-228 for
+serving: full covariances (`diag=False`), no extras buffers and the 'none'
+sRGB mapping.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_EPS = float(np.finfo(np.float32).eps)
+
+
+def lift_gaussian(d, t_mean, t_var, r_var):
+  """Lift a per-ray 1D Gaussian to 3D along direction d (full covariance)."""
+  mean = d[..., None, :] * t_mean[..., None]
+  d_mag_sq = torch.clamp(torch.sum(d**2, dim=-1, keepdim=True), min=1e-10)
+  d_outer = d[..., :, None] * d[..., None, :]
+  eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
+  null_outer = eye - d[..., :, None] * (d / d_mag_sq)[..., None, :]
+  t_cov = t_var[..., None, None] * d_outer[..., None, :, :]
+  xy_cov = r_var[..., None, None] * null_outer[..., None, :, :]
+  return mean, t_cov + xy_cov
+
+
+def conical_frustum_to_gaussian(d, t0, t1, base_radius):
+  """Moment-match a conical frustum with a Gaussian (mip-NeRF Eq 7).
+
+  The numerically stable form in the frustum midpoint and half-width.
+  """
+  mu = (t0 + t1) / 2
+  hw = (t1 - t0) / 2
+  denom = torch.clamp(3 * mu**2 + hw**2, min=_EPS)
+  t_mean = mu + (2 * mu * hw**2) / denom
+  t_var = (hw**2) / 3 - (4 / 15) * hw**4 * (12 * mu**2 - hw**2) / denom**2
+  r_var = (mu**2) / 4 + (5 / 12) * hw**2 - (4 / 15) * (hw**4) / denom
+  return lift_gaussian(d, t_mean, t_var, r_var * base_radius**2)
+
+
+def cylinder_to_gaussian(d, t0, t1, radius):
+  """Moment-match a cylinder segment with a Gaussian."""
+  t_mean = (t0 + t1) / 2
+  r_var = radius**2 / 4
+  t_var = (t1 - t0)**2 / 12
+  return lift_gaussian(d, t_mean, t_var, r_var)
+
+
+def cast_rays(tdist, origins, directions, radii, ray_shape):
+  """Fencepost distances along each ray -> sample Gaussians (means, covs)."""
+  t0 = tdist[..., :-1]
+  t1 = tdist[..., 1:]
+  if ray_shape == 'cone':
+    gaussian_fn = conical_frustum_to_gaussian
+  elif ray_shape == 'cylinder':
+    gaussian_fn = cylinder_to_gaussian
+  else:
+    raise ValueError("ray_shape must be 'cone' or 'cylinder'")
+  means, covs = gaussian_fn(directions, t0, t1, radii)
+  return means + origins[..., None, :], covs
+
+
+def compute_alpha_weights(density, tdist, dirs, opaque_background=False):
+  """Compositing weights alpha * transmittance; returns (weights, alpha, trans)."""
+  t_delta = tdist[..., 1:] - tdist[..., :-1]
+  delta = t_delta * torch.linalg.norm(dirs[..., None, :], dim=-1)
+  density_delta = density * delta
+  if opaque_background:
+    # The final interval is infinitely wide.
+    density_delta = torch.cat([
+        density_delta[..., :-1],
+        torch.full_like(density_delta[..., -1:], float('inf'))], dim=-1)
+  alpha = 1 - torch.exp(-density_delta)
+  trans = torch.exp(-torch.cat([
+      torch.zeros_like(density_delta[..., :1]),
+      torch.cumsum(density_delta[..., :-1], dim=-1)], dim=-1))
+  return alpha * trans, alpha, trans
+
+
+def volumetric_rendering(rgbs, diffuse_rgbs, specular_rgbs, weights, tdist,
+                         bg_rgbs):
+  """Composite per-sample colors into per-ray rgb, diffuse, specular,
+  distance and acc (no extras; sRGB mapping 'none')."""
+  acc = weights.sum(dim=-1)
+  bg_w = torch.clamp(1 - acc[..., None], min=0)
+  composite = lambda c: (weights[..., None] * c).sum(dim=-2) + bg_w * bg_rgbs
+  t_mids = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
+  return {
+      'rgb': composite(rgbs),
+      'diffuse': composite(diffuse_rgbs),
+      'specular': composite(specular_rgbs),
+      'distance': (weights[..., None] * t_mids[..., None]).sum(dim=-2),
+      'acc': acc,
+  }
