@@ -1,9 +1,10 @@
-"""Ray bundles as dataclasses of tensors (counterpart of cameras/rays.py:38-119)."""
+"""Ray bundles and batches as dataclasses of tensors (counterpart of
+cameras/rays.py:38-74)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -36,6 +37,13 @@ class Rays:
 
   def __getitem__(self, s) -> 'Rays':
     return self.map(lambda x: x[s])
+
+
+@dataclasses.dataclass
+class Batch:
+  """A training or evaluation batch: rays and their pixels' values."""
+  rays: Rays
+  rgb: Optional[torch.Tensor] = None      # [..., 3] (or 4) ground truth
 
 
 def dummy_rays(n: int = 1, device=None) -> Rays:

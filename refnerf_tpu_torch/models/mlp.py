@@ -1,4 +1,4 @@
-"""The Ref-NeRF MLP, evaluation forward (counterpart of refnerf_tpu/models/mlp.py).
+"""The Ref-NeRF MLP (counterpart of refnerf_tpu/models/mlp.py).
 
 One module for the proposal and NeRF MLPs, with the JAX module's fields and
 layer names (`spatial_i`, `raw_density`, ..., `viewdir_i`, `rgb`), so a flax
@@ -7,16 +7,17 @@ parameter tree maps onto the state_dict one transpose per layer
 
 Both dense trunks always run in the fused formulation of the JAX package's
 `fused_trunk='on'` path (mlp.py:252-333, :599-642): the spatial trunk through
-`fused_mlp.fused_encoded_trunk` (K1), the directional trunk through
-`fused_mlp.fused_trunk` (K2). On CUDA tensors those are the hand-written
-kernels; on the CPU, or with `fused_trunk='off'`, their plain versions.
+`fused_mlp.fused_encoded_trunk` (K1; K3 with density-gradient normals; K4
+backward), the directional trunk through `fused_mlp.fused_trunk` (K2; K5
+backward). On CUDA tensors those are the hand-written kernels; on the CPU,
+or with `fused_trunk='off'`, their plain versions.
 
-Ported: the evaluation path (`train=False`) with predicted normals, the IDE,
-reflections, roughness, diffuse/specular/tint and n.v. Not ported, and
-refused with NotImplementedError: training (density noise, density-gradient
-normals, the backward kernels), `use_viewdirs=False`, the positional
-direction encoding, a trunk that ends in a skip concat, and the `fuse_*`
-kernel modes.
+Ported: evaluation and training (`train=True`: density-gradient normals,
+differentiable through u) with predicted normals, the IDE, reflections,
+roughness, diffuse/specular/tint and n.v. Not ported, and refused with
+NotImplementedError: density and bottleneck noise, `use_viewdirs=False`,
+the positional direction encoding, a trunk that ends in a skip concat, and
+the `fuse_*` kernel modes.
 """
 
 from __future__ import annotations
@@ -208,8 +209,9 @@ class MLP(nn.Module):
       hit = self._packs[key] = (sig, build())
     return hit[1]
 
-  def _spatial(self, lm, lv, rgb_heads):
-    """K1: raw density, the f32 heads and the bottleneck (mlp.py:252-333)."""
+  def _spatial(self, lm, lv, rgb_heads, density_grad):
+    """K1/K3: raw density, the f32 heads, the bottleneck and, with
+    `density_grad`, the density-gradient normals (mlp.py:252-333)."""
     c = self.cfg
     ws, bs = self._stack('spatial', c.net_depth)
     heads = [h for h in self._heads
@@ -232,7 +234,8 @@ class MLP(nn.Module):
     outs = list(fused_mlp.fused_encoded_trunk(
         lm, lv, self.scales, ws, bs, bd=self.raw_density.bias,
         skip_period=c.skip_layer, compute_dtype=c.compute_dtype,
-        mode=c.fused_trunk, activation=self.net_activation, pack=pack, **kw))
+        mode=c.fused_trunk, activation=self.net_activation, pack=pack,
+        density_grad=density_grad, **kw))
     raw_density = outs.pop(0)
     fh = {}
     if head_f32 is not None:
@@ -242,7 +245,11 @@ class MLP(nn.Module):
         off += dim
     if head_cdt is not None:
       fh['bottleneck'] = outs.pop(0)
-    return raw_density, fh
+    normals = None
+    if density_grad:
+      u_lm = outs.pop(0)  # d sigma / d lifted-means, [..., n_basis]
+      normals = -ref_utils.l2_normalize(u_lm @ self.pos_basis_t.t())
+    return raw_density, fh, normals
 
   def _directional(self, segs):
     """K2: raw rgb of the directional trunk and the rgb head (mlp.py:599-642)."""
@@ -259,33 +266,38 @@ class MLP(nn.Module):
         compute_dtype=c.compute_dtype, mode=c.fused_trunk,
         activation=self.net_activation, pack=pack)
 
-  def forward(self, gaussians, viewdirs: Optional[torch.Tensor] = None):
+  def forward(self, gaussians, viewdirs: Optional[torch.Tensor] = None,
+              train: bool = False):
     """Evaluate the MLP on sample Gaussians (means [..., s, 3], covs
-    [..., s, 3, 3]) seen from viewdirs [..., 3]; eval mode (train=False).
+    [..., s, 3, 3]) seen from viewdirs [..., 3].
 
+    `train` turns on the density-gradient normals (mlp.py:389-392).
     Returns a dict of per-sample results, as the JAX MLP does.
     """
     c = self.cfg
     means, covs = gaussians
     compute_density_normals = (
         not c.disable_density_normals
-        and (c.use_reflections or c.use_n_dot_v)
-        and not c.enable_pred_normals)
-    if compute_density_normals:
+        and (train or ((c.use_reflections or c.use_n_dot_v)
+                       and not c.enable_pred_normals)))
+    if train and (c.density_noise > 0 or c.bottleneck_noise > 0):
       raise NotImplementedError(
-          'density-gradient normals need the K3 kernel mode, not ported')
+          'density_noise / bottleneck_noise > 0 draw noise from an rng; '
+          'stochastic training is not ported (ROADMAP queue 1, item 14)')
     if viewdirs is None and not c.disable_rgb:
       raise NotImplementedError(
           'use_viewdirs=False needs the trunk-features output (K11)')
     rgb_heads = not c.disable_rgb
 
     lm, lv = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
-    raw_density, fh = self._spatial(lm, lv, rgb_heads)
+    raw_density, fh, normals = self._spatial(lm, lv, rgb_heads,
+                                             compute_density_normals)
 
     normals_pred = grad_pred = None
+    normals_to_use = normals
     if c.enable_pred_normals:
       grad_pred = fh['grad_pred']
-      normals_pred = -ref_utils.l2_normalize(grad_pred)
+      normals_pred = normals_to_use = -ref_utils.l2_normalize(grad_pred)
     density = self.density_activation(raw_density + c.density_bias)
 
     roughness = 0.0
@@ -306,14 +318,14 @@ class MLP(nn.Module):
       vb = viewdirs[..., None, :].expand(means.shape)
       if c.use_reflections:
         # viewdirs point camera->point; flip so refdirs point outward.
-        dir_enc = self.dir_enc_fn(ref_utils.reflect(-vb, normals_pred),
+        dir_enc = self.dir_enc_fn(ref_utils.reflect(-vb, normals_to_use),
                                   roughness)
       else:
         dir_enc = self.dir_enc_fn(vb, roughness)
       dir_enc = dir_enc.to(fused_mlp.DTYPES[c.compute_dtype])
       if c.use_n_dot_v:
         # n.v rides as one extra plane on the encoding segment (mlp.py:584).
-        dotprod = torch.sum(normals_pred * vb, dim=-1, keepdim=True)
+        dotprod = torch.sum(normals_to_use * vb, dim=-1, keepdim=True)
         dir_enc = torch.cat([dir_enc, dotprod.to(dir_enc.dtype)], dim=-1)
       segs.append(dir_enc.reshape(n, -1))
       raw_rgb = self._directional(segs).reshape(*lead, c.num_rgb_channels)
@@ -325,11 +337,17 @@ class MLP(nn.Module):
         specular_linear = tint * rgb if c.use_specular_tint else 0.5 * rgb
         rgb = specular_linear + diffuse_linear
         if c.srgb_mapping:
+          # Written as maximum/minimum against tensor constants: the ties at
+          # the gamut bound (rgb / max(rgb) = 1 and linear_to_srgb(1) = 1)
+          # are hit at every normalised sample, and there JAX passes half
+          # the gradient to each side (mlp.py:669-675).
           if c.srgb_mapping_normalization:
-            rgb = rgb / torch.clamp(rgb.amax(dim=-1, keepdim=True), min=1.0)
-          rgb = torch.clip(image_ops.linear_to_srgb(rgb), 0.0, 1.0)
-          diffuse = torch.clip(image_ops.linear_to_srgb(diffuse_linear), 0, 1)
-          specular = torch.clip(image_ops.linear_to_srgb(specular_linear), 0, 1)
+            mx = rgb.amax(dim=-1, keepdim=True)
+            rgb = rgb / torch.maximum(mx, torch.ones_like(mx))
+          rgb = image_ops.clip01(image_ops.linear_to_srgb(rgb))
+          diffuse = image_ops.clip01(image_ops.linear_to_srgb(diffuse_linear))
+          specular = image_ops.clip01(
+              image_ops.linear_to_srgb(specular_linear))
         else:
           diffuse, specular = diffuse_linear, specular_linear
       # Map colour to [-rgb_padding, 1 + rgb_padding].
@@ -337,7 +355,7 @@ class MLP(nn.Module):
 
     out = dict(density=density, rgb=rgb)
     if not c.disable_density_normals:
-      out['normals'] = None  # density-gradient normals are a training output
+      out['normals'] = normals
     if c.enable_pred_normals:
       out['normals_pred'] = normals_pred
       out['grad_pred'] = grad_pred

@@ -1,7 +1,9 @@
 """The sampling cascade (counterpart of refnerf_tpu/models/model.py:56-268).
 
-Evaluation only: deterministic resampling, no extras buffers. Each level
-resamples, casts frustum Gaussians, runs the MLP and composites.
+Deterministic resampling, no extras buffers. Each level resamples (not
+differentiated: sdist is detached, model.py:123-127), casts frustum
+Gaussians, runs the MLP and composites. `train=True` asks the MLP for its
+training outputs (density-gradient normals).
 """
 
 from __future__ import annotations
@@ -66,8 +68,8 @@ class Model(nn.Module):
       return self.nerf_mlp
     return self.prop_mlp if is_prop else self.nerf_mlp
 
-  def forward(self, rays, train_frac: float = 1.0):
-    """Render a bundle of rays through the cascade (eval mode).
+  def forward(self, rays, train_frac: float = 1.0, train: bool = False):
+    """Render a bundle of rays through the cascade.
 
     Returns (renderings, ray_history): per level, the rendering dict (rgb,
     diffuse, specular, distance, acc) and the MLP outputs plus sdist and
@@ -96,8 +98,10 @@ class Model(nn.Module):
           sdist[..., 1:] > sdist[..., :-1],
           anneal * torch.log(weights + c.resample_padding),
           torch.full_like(weights, -float('inf')))
+      # Sampling is not differentiated through (model.py:123-127).
       sdist = stepfun.sample_intervals(
-          sdist, logits, num_samples, domain=(c.init_s_near, c.init_s_far))
+          sdist, logits, num_samples,
+          domain=(c.init_s_near, c.init_s_far)).detach()
       tdist = s_to_t(sdist)
 
       means, covs = render.cast_rays(tdist, rays.origins, rays.directions,
@@ -105,7 +109,8 @@ class Model(nn.Module):
       if c.disable_integration:
         covs = torch.zeros_like(covs)
       ray_results = self._level_mlp(is_prop)(
-          (means, covs), rays.viewdirs if c.use_viewdirs else None)
+          (means, covs), rays.viewdirs if c.use_viewdirs else None,
+          train=train)
 
       weights = render.compute_alpha_weights(
           ray_results['density'], tdist, rays.directions,

@@ -3,6 +3,9 @@
 Counterpart of refnerf_tpu/models/render.py:39-92, :150-171 and :201-228 for
 serving: full covariances (`diag=False`), no extras buffers and the 'none'
 sRGB mapping.
+
+Every clamp on a differentiated path is `torch.maximum` against a tensor
+constant, so a tie splits its gradient 0.5/0.5 as JAX's `jnp.maximum` does.
 """
 
 from __future__ import annotations
@@ -13,10 +16,15 @@ import torch
 _EPS = float(np.finfo(np.float32).eps)
 
 
+def _at_least(lo, x):
+  """max(lo, x) with JAX's tie subgradient (jnp.maximum)."""
+  return torch.maximum(x.new_tensor(lo), x)
+
+
 def lift_gaussian(d, t_mean, t_var, r_var):
   """Lift a per-ray 1D Gaussian to 3D along direction d (full covariance)."""
   mean = d[..., None, :] * t_mean[..., None]
-  d_mag_sq = torch.clamp(torch.sum(d**2, dim=-1, keepdim=True), min=1e-10)
+  d_mag_sq = _at_least(1e-10, torch.sum(d**2, dim=-1, keepdim=True))
   d_outer = d[..., :, None] * d[..., None, :]
   eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
   null_outer = eye - d[..., :, None] * (d / d_mag_sq)[..., None, :]
@@ -32,7 +40,7 @@ def conical_frustum_to_gaussian(d, t0, t1, base_radius):
   """
   mu = (t0 + t1) / 2
   hw = (t1 - t0) / 2
-  denom = torch.clamp(3 * mu**2 + hw**2, min=_EPS)
+  denom = _at_least(_EPS, 3 * mu**2 + hw**2)
   t_mean = mu + (2 * mu * hw**2) / denom
   t_var = (hw**2) / 3 - (4 / 15) * hw**4 * (12 * mu**2 - hw**2) / denom**2
   r_var = (mu**2) / 4 + (5 / 12) * hw**2 - (4 / 15) * (hw**4) / denom
@@ -83,7 +91,7 @@ def volumetric_rendering(rgbs, diffuse_rgbs, specular_rgbs, weights, tdist,
   """Composite per-sample colors into per-ray rgb, diffuse, specular,
   distance and acc (no extras; sRGB mapping 'none')."""
   acc = weights.sum(dim=-1)
-  bg_w = torch.clamp(1 - acc[..., None], min=0)
+  bg_w = _at_least(0.0, 1 - acc[..., None])
   composite = lambda c: (weights[..., None] * c).sum(dim=-2) + bg_w * bg_rgbs
   t_mids = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
   return {

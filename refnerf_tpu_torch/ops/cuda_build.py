@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA kernels (nvcc into a plain-C shared library).
+"""Build and load the port's CUDA kernels (nvcc into plain-C shared libraries).
 
-The sources under `refnerf_tpu_torch/csrc/` expose `extern "C"` entry points
-and include no PyTorch header, so one `nvcc` call builds them in seconds. The
-library lands in `build/refnerf_tpu_torch/` at the root of the checkout, named
-by a hash of the sources and flags, and is loaded with ctypes. Nothing here
-runs at import time: the first kernel launch builds.
+Each source `refnerf_tpu_torch/csrc/<name>.cu` exposes `extern "C"` entry
+points, includes no PyTorch header and becomes a library of its own, so one
+`nvcc` per source builds in seconds and all of them run at once. The
+libraries land in `build/refnerf_tpu_torch/` at the root of the checkout,
+named by a hash of the sources and flags, and are loaded with ctypes. Nothing
+here runs at import time: the first kernel launch builds.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import pathlib
 import shutil
 import subprocess
 import time
+from typing import Dict
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
@@ -26,10 +28,32 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# refnerf_trunk_fwd(dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip,
-#                   w, b, wd, wh, bh, hf, wc, bc, sig, hout, cout, stream)
-_TRUNK_FWD_ARGTYPES = [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
+# The entry points of each library and their ctypes signatures (every
+# pointer and the stream as c_void_p, every int as c_int).
+EXPORTS = {
+    'trunk_fwd': {
+        # (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
+        #  wd, wh, bh, hf, wc, bc, fold, nb, sig, hout, cout, u, stream)
+        'refnerf_trunk_fwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                              _P, _P, _P, _P, _P],
+        'refnerf_trunk_supports': [_I, _I],
+    },
+    'trunk_bwd': {
+        # (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
+        #  wd, wh, hf, wct, sbar, hbar, cbar, ubar, fold, nb, dx0, dx1, dxs,
+        #  rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec, stream)
+        'refnerf_trunk_bwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                              _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _I, _P],
+        # (dtype, M, N, ncut, rp, ksplit, z, a, x, s, pa, tx, out, stream)
+        'refnerf_wgrad': [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P],
+        # (parts, nparts, rows, k, k_out, dst, accumulate, stream)
+        'refnerf_reduce': [_P, _I, _I, _I, _I, _P, _I, _P],
+    },
+}
 
 
 def _nvcc() -> str:
@@ -48,48 +72,61 @@ def _sources():
   return sorted(p for p in CSRC.iterdir() if p.suffix in ('.cu', '.cuh'))
 
 
-def library_path() -> pathlib.Path:
-  """Where the library for the current sources and flags lives."""
+def library_path(name: str) -> pathlib.Path:
+  """Where the library of `csrc/<name>.cu` for the current sources and flags
+  lives (the hash covers every source, headers included)."""
   h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
   for src in _sources():
     h.update(src.name.encode())
     h.update(src.read_bytes())
-  return BUILD_DIR / f'librefnerf_kernels_{h.hexdigest()[:16]}.so'
+  return BUILD_DIR / f'librefnerf_{name}_{h.hexdigest()[:16]}.so'
 
 
-def build() -> pathlib.Path:
-  """Compile the kernels unless this exact build exists; returns the .so path.
+def build() -> Dict[str, pathlib.Path]:
+  """Compile every library that does not exist yet, one nvcc process per
+  source, all started together; returns {name: .so path}.
 
   The compiler's output (register and shared-memory use per kernel, from
-  `-Xptxas=-v`) is kept beside the library as `<name>.log`. Raises
-  RuntimeError with nvcc's stderr when the build fails.
+  `-Xptxas=-v`) is kept beside each library as `<name>.log`. Raises
+  RuntimeError with nvcc's stderr when a build fails.
   """
-  out = library_path()
-  if out.exists():
-    return out
+  outs = {name: library_path(name) for name in EXPORTS}
+  todo = {name: out for name, out in outs.items() if not out.exists()}
+  if not todo:
+    return outs
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-  cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-         *[str(s) for s in _sources() if s.suffix == '.cu']]
-  t0 = time.perf_counter()
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  if proc.returncode != 0:
-    tmp.unlink(missing_ok=True)
-    raise RuntimeError(
-        f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{proc.stderr}')
-  out.with_suffix('.log').write_text(
-      f'# {" ".join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n'
-      f'{proc.stdout}{proc.stderr}')
-  os.replace(tmp, out)
-  return out
+  nvcc = _nvcc()
+  jobs = {}
+  for name, out in todo.items():
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    jobs[name] = (cmd, tmp, proc, time.perf_counter())
+  failed = []
+  for name, (cmd, tmp, proc, t0) in jobs.items():
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+      tmp.unlink(missing_ok=True)
+      failed.append(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n'
+                    f'{stderr}')
+      continue
+    out = todo[name]
+    out.with_suffix('.log').write_text(
+        f'# {" ".join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n'
+        f'{stdout}{stderr}')
+    os.replace(tmp, out)
+  if failed:
+    raise RuntimeError('\n'.join(failed))
+  return outs
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-  """The loaded kernel library, built on first call."""
-  lib = ctypes.CDLL(str(build()))
-  lib.refnerf_trunk_fwd.argtypes = _TRUNK_FWD_ARGTYPES
-  lib.refnerf_trunk_fwd.restype = ctypes.c_int
-  lib.refnerf_trunk_supports.argtypes = [_I, _I]
-  lib.refnerf_trunk_supports.restype = ctypes.c_int
+def library(name: str) -> ctypes.CDLL:
+  """The loaded library of `csrc/<name>.cu`, built (with the others) on
+  first call."""
+  lib = ctypes.CDLL(str(build()[name]))
+  for fn, argtypes in EXPORTS[name].items():
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
   return lib

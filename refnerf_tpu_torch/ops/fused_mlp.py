@@ -1,49 +1,66 @@
 """Layer-fused dense trunks: the CUDA kernel wrappers and their plain versions.
 
-Counterpart of refnerf_tpu/ops/pallas/fused_mlp.py in its two forward
-serving modes (the Pallas `_fwd_kernel`, fused_mlp.py:612, built per
-`TrunkCfg` by `_make_op` :880):
+Counterpart of refnerf_tpu/ops/pallas/fused_mlp.py: the Pallas kernel pair
+`_fwd_kernel` (:612) and `_bwd_kernel` (:668), built per `TrunkCfg` by
+`_make_op` (:880) and wrapped there as a custom VJP. Here each trunk kind is
+one `torch.autograd.Function`:
 
-- `fused_encoded_trunk` (K1, the spatial trunk, fused_mlp.py:1326): the IPE
-  encoding xs = e sin(m), xc = e cos(m) is made here, outside the kernel
-  (:1412-1434); the kernel runs the trunk over the two segments, the density
-  head, the f32 head block and the compute-dtype bottleneck head.
-- `fused_trunk` (K2, the directional trunk, fused_mlp.py:1178): the trunk over
-  [bottleneck, IDE + n.v] and the f32 rgb head.
+- `SpatialTrunk` (`fused_encoded_trunk`, :1326): the IPE segments
+  xs = e sin(m), xc = e cos(m) are made here, outside the kernel
+  (:1412-1434), from lifted means/vars that enter detached (:1396). The
+  forward runs the trunk over the two segments, the density head, the f32
+  head block and the compute-dtype bottleneck head (K1); with
+  `density_grad` it also runs the inner reverse chain and returns
+  u = d sigma / d lifted-means (K3, :589-609, :651-665). The backward (K4)
+  recomputes the trunk and returns every first- and second-order parameter
+  gradient in one pass (:668-853).
+- `DirectionalTrunk` (`fused_trunk`, :1178): the trunk over [bottleneck,
+  IDE + n.v] and the f32 rgb head (K2); its backward (K5) also returns each
+  segment's cotangent in the segment's dtype (`needs_dx`, :1009-1015).
 
-Both reach one hand-written kernel, `csrc/trunk_fwd.cu` (its header gives
-the design). On the H100 it is bound by compute, not memory: a flagship trunk
-does ~0.57 TFLOP per 524,288 samples against a few hundred MB of segments in
-and heads out, so the tensor-core rate (bf16) or the FMA rate (f32) bounds
-it. Weights use nn.Linear's layout,
-[out, in]. Each wrapper launches the kernel for CUDA tensors unless
-`mode='off'`; a CPU tensor or `mode='off'` takes `trunk_reference`, the plain
-PyTorch version written in the Pallas kernel's order of operations:
+Both backwards are `once_differentiable`: autograd never differentiates
+through a kernel, and the second-order terms of u come out of the one
+backward pass, as in the Pallas contract.
+
+Kernels (`csrc/trunk_fwd.cu`: K1-K3; `csrc/trunk_bwd.cu`: K4, K5) run for
+CUDA tensors unless `mode='off'`. A CPU tensor or `mode='off'` takes the
+plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
+written in the Pallas kernels' order of operations and casts:
 
     h = relu(cdt(f32 sum of segment/activation products) + cdt(bias))
     sigma = f32(y) @ wd,  hf = f32(y) @ wh + bh,  hc = cdt(y @ wc) + cdt(bc)
 
 For a CUDA tensor a wrapper launches its kernel or raises; it never falls
-back to the plain version. The backward kernels (Pallas `_bwd_kernel`) are
-not ported, so the kernel path refuses inputs that require grad.
-
-Each wrapper counts its kernel launches in its `launches` attribute.
+back to the plain version. Each launch through a wrapper adds one to
+`launches[K]`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from refnerf_tpu_torch.ops import mathx
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 MODES = ('auto', 'on', 'off')
-_KS = 32  # the kernel streams weights in K-slices of this many rows
+_KS = 32  # the kernels stream weights in K-slices of this many rows
+_TILE = 64  # samples per CTA of the trunk kernels
+# Rows per slab of the backward kernels: the per-sample operands of the
+# weight-gradient products (feature-major, compute dtype) are kept for one
+# slab at a time, about 1.1 GB for the spatial trunk in bf16.
+BWD_SLAB = 65536
+_KSPLIT = 1024  # samples per partial sum of the weight-gradient kernel
+
+# Launches through the wrappers, by kernel: K1 spatial forward, K2
+# directional forward, K3 spatial forward with the density gradient, K4
+# spatial backward, K5 directional backward.
+launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0}
 
 Head = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (weight [out, in], bias)
 
@@ -59,6 +76,13 @@ def _check_trunk(depth: int, skip_period: int):
     raise NotImplementedError(
         f'a trunk of depth {depth} with skip_layer {skip_period} ends in a '
         'skip concat; the fused trunk does not model it (mlp.py:234-240)')
+
+
+def ipe_scale_fold(scales, n_basis) -> np.ndarray:
+  """The [deg * n_basis, n_basis] scale fold S of fused_mlp.py:1317:
+  S[d * n_basis + j, j] = scales[d]; d sigma/d lifted-means = u_m @ S."""
+  scales = np.asarray(scales, np.float32)
+  return np.kron(scales[:, None], np.eye(n_basis, dtype=np.float32))
 
 
 def encode_ipe(lm, lv, scales, compute_dtype='float32'):
@@ -84,13 +108,100 @@ def _dot(a, w):
   return a.float() @ w.float().t()
 
 
+def _dot_t(a, w):
+  """a [n, out] @ w [out, k]: the reverse product, in f32."""
+  return a.float() @ w.float()
+
+
+def _outer(a, b):
+  """a [n, p]^T @ b [n, q] -> [p, q]: a sum over samples, in f32."""
+  return a.float().t() @ b.float()
+
+
+def _mask(h):
+  """relu' of a stored activation, in its dtype (`_mask` :174)."""
+  return (h > 0).to(h.dtype)
+
+
+class _Trunk(NamedTuple):
+  """A trunk's parameters cast as the Pallas kernels read them (`_wrefs`)."""
+  ws: List[torch.Tensor]       # per layer [width, in], compute dtype
+  bs: List[torch.Tensor]       # per layer [width], compute dtype
+  bounds: np.ndarray           # segment column bounds of the trunk input
+  skips: Tuple[int, ...]
+  width: int
+  cdt: torch.dtype
+
+
+def _trunk(weights, biases, seg_dims, skip_period, cdt) -> _Trunk:
+  return _Trunk([w.to(cdt) for w in weights], [b.to(cdt) for b in biases],
+                np.cumsum([0] + [int(d) for d in seg_dims]),
+                skip_input_layers(len(weights), skip_period),
+                int(weights[-1].shape[0]), cdt)
+
+
+def _seg_cols(t: _Trunk, w, j, off=0):
+  return w[:, off + t.bounds[j]:off + t.bounds[j + 1]]
+
+
+def _forward_acts(t: _Trunk, segs, act):
+  """Every layer's activation, in the compute dtype (`_forward_trunk` :566)."""
+  def seg_sum(w, off):
+    hb = _dot(segs[0], _seg_cols(t, w, 0, off))
+    for j in range(1, len(segs)):
+      hb = hb + _dot(segs[j], _seg_cols(t, w, j, off))
+    return hb
+
+  acts, h = [], None
+  for l, (w, b) in enumerate(zip(t.ws, t.bs)):
+    if l == 0:
+      hb = seg_sum(w, 0)
+    else:
+      hb = _dot(h, w[:, :t.width])
+      if l in t.skips:
+        hb = hb + seg_sum(w, t.width)
+    h = act(hb.to(t.cdt) + b)
+    acts.append(h)
+  return acts
+
+
+def _inner_chain(t: _Trunk, acts, wd, n_segs):
+  """The density-gradient reverse chain (`_inner_chain` :589).
+
+  Returns (u per segment [n, d_j] f32, s_l per layer in the compute dtype).
+  """
+  n = acts[0].shape[0]
+  us = [acts[0].new_zeros((n, int(t.bounds[j + 1] - t.bounds[j])),
+                          dtype=torch.float32) for j in range(n_segs)]
+  ss = [None] * len(t.ws)
+  q = wd.float().reshape(1, -1).expand(n, t.width).to(t.cdt)
+  for l in reversed(range(len(t.ws))):
+    s = _mask(acts[l]) * q
+    ss[l] = s
+    if l == 0 or l in t.skips:
+      off = 0 if l == 0 else t.width
+      for j in range(n_segs):
+        us[j] = us[j] + _dot_t(s, _seg_cols(t, t.ws[l], j, off))
+    if l > 0:
+      q = _dot_t(s, t.ws[l][:, :t.width]).to(t.cdt)
+  return us, ss
+
+
+def fold_density_grad(us, xs, xc, fold):
+  """d sigma / d lifted-means from the segment gradients (:653-662):
+  u_m = f32(xc) u_xs - f32(xs) u_xc, then u = u_m @ S."""
+  u_m = xc.float() * us[0] - xs.float() * us[1]
+  return u_m @ fold
+
+
 def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
                     skip_period: int = 4, wd: Optional[torch.Tensor] = None,
                     head_f32: Optional[Head] = None,
                     head_cdt: Optional[Head] = None,
                     compute_dtype: str = 'float32',
-                    activation: Optional[Callable] = None):
-  """The plain version of the trunk kernel, in the Pallas order (:566, :628).
+                    activation: Optional[Callable] = None,
+                    density_grad: bool = False):
+  """The plain version of the forward kernel, in the Pallas order (:612).
 
   Args:
     segs: input segments [n, d_j]; their concatenation is the trunk input.
@@ -100,33 +211,19 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     head_f32: (wh [hf, width], bh [hf]) evaluated in f32.
     head_cdt: (wc [hc, width], bc [hc]) evaluated in the compute dtype.
     activation: the trunk nonlinearity; None is ReLU.
+    density_grad: also run the inner chain (needs wd and ReLU).
 
   Returns:
-    list [sigma [n]][, hf [n, hf]][, hc [n, hc]].
+    list [sigma [n]][, hf [n, hf]][, hc [n, hc]][, u_j [n, d_j] per segment].
+    Every step is a differentiable torch op, so autograd through this
+    function is an independent reference for the backward.
   """
   cdt = DTYPES[compute_dtype]
   act = torch.relu if activation is None else activation
-  width = weights[-1].shape[0]
-  bounds = np.cumsum([0] + [int(s.shape[-1]) for s in segs])
-  skips = skip_input_layers(len(weights), skip_period)
+  t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
   segs = [s.to(cdt) for s in segs]
-
-  def seg_sum(w, off):
-    hb = _dot(segs[0], w[:, off + bounds[0]:off + bounds[1]])
-    for j in range(1, len(segs)):
-      hb = hb + _dot(segs[j], w[:, off + bounds[j]:off + bounds[j + 1]])
-    return hb
-
-  h = None
-  for l, (w, b) in enumerate(zip(weights, biases)):
-    if l == 0:
-      hb = seg_sum(w, 0)
-    else:
-      hb = _dot(h, w[:, :width])
-      if l in skips:
-        hb = hb + seg_sum(w, width)
-    h = act(hb.to(cdt) + b.to(cdt))
-
+  acts = _forward_acts(t, segs, act)
+  h = acts[-1]
   outs = []
   y32 = h.float()
   if wd is not None:
@@ -136,18 +233,134 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     outs.append(y32 @ wh.float().t() + bh.float())
   if head_cdt is not None:
     wc, bc = head_cdt
-    outs.append(_dot(h, wc).to(cdt) + bc.to(cdt))
+    outs.append(_dot(h, wc.to(cdt)).to(cdt) + bc.to(cdt))
+  if density_grad:
+    if wd is None or act not in (torch.relu, F.relu):
+      raise NotImplementedError('the density gradient needs the density '
+                                'head and a ReLU trunk')
+    outs += _inner_chain(t, acts, wd, len(segs))[0]
   return outs
 
 
+def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
+                             wd=None, head_f32=None, head_cdt=None,
+                             compute_dtype='float32', fold=None,
+                             needs_dx=False):
+  """The plain version of the backward kernel, step by step in the Pallas
+  order (`_bwd_kernel` :668-853), not by autograd.
+
+  Args:
+    segs, weights, biases, wd, head_f32, head_cdt: as for trunk_reference.
+    cots: cotangents (sigma [n] f32, hf [n, hf] f32, hc [n, hc], u [n, nb]
+      f32), each None when absent or zero. u needs `fold`, the [F, nb]
+      scale fold of the two IPE segments.
+    needs_dx: also return each segment's cotangent.
+
+  Returns:
+    (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs): f32 gradients in the layout of
+    the parameters ([out, in] weights; dwd [1, width]); dxs per segment in
+    the segment's dtype, or None.
+  """
+  cdt = DTYPES[compute_dtype]
+  sbar, hbar, cbar, ubar = cots
+  t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
+  dtypes = [s.dtype for s in segs]
+  segs = [s.to(cdt) for s in segs]
+  n, W, L, G = segs[0].shape[0], t.width, len(t.ws), len(segs)
+  acts = _forward_acts(t, segs, torch.relu)
+  y = acts[-1]
+  y32 = y.float()
+  ss = None
+  if ubar is not None:
+    ss = _inner_chain(t, acts, wd, G)[1]
+
+  # Head backward: the cotangent g on y and the head gradients (:714-775).
+  dwd = dwh = dbh = dwc = dbc = None
+  g = torch.zeros_like(y)
+  g32 = None
+  if wd is not None:
+    sb = y32.new_zeros(n) if sbar is None else sbar.float()
+    g32 = sb[:, None] * wd.float().reshape(1, -1)
+    dwd = (sb @ y32).reshape(1, W)
+  if head_f32 is not None:
+    wh = head_f32[0].float()
+    hb = y32.new_zeros((n, wh.shape[0])) if hbar is None else hbar.float()
+    back = hb @ wh
+    g32 = back if g32 is None else g32 + back
+    dwh = _outer(hb, y32)
+    dbh = hb.sum(0)
+  if head_cdt is not None:
+    wc = head_cdt[0].to(cdt)
+    cb = (y.new_zeros((n, wc.shape[0])) if cbar is None else cbar.to(cdt))
+    g = g + _dot_t(cb, wc).to(cdt)
+    dwc = _outer(cb, y)
+    dbc = cb.float().sum(0)
+  if g32 is not None:
+    g = g + g32.to(cdt)
+
+  # First-order reverse through the trunk (:777-801).
+  dws = [torch.zeros(w.shape, dtype=torch.float32, device=y.device)
+         for w in t.ws]
+  dbs = [None] * L
+  dxs = [y32.new_zeros((n, s.shape[-1])) for s in segs] if needs_dx else None
+
+  def seg_grads(dw, off, left, rights):
+    for j in range(G):
+      dw[:, off + t.bounds[j]:off + t.bounds[j + 1]] += _outer(left, rights[j])
+
+  for l in reversed(range(L)):
+    zeta = _mask(acts[l]) * g
+    if l == 0:
+      seg_grads(dws[0], 0, zeta, segs)
+    else:
+      dws[l][:, :W] += _outer(zeta, acts[l - 1])
+      if l in t.skips:
+        seg_grads(dws[l], W, zeta, segs)
+    dbs[l] = zeta.float().sum(0)
+    if needs_dx and (l == 0 or l in t.skips):
+      off = 0 if l == 0 else W
+      for j in range(G):
+        dxs[j] = dxs[j] + _dot_t(zeta, _seg_cols(t, t.ws[l], j, off))
+    if l > 0:
+      g = _dot_t(zeta, t.ws[l][:, :W]).to(cdt)
+
+  # Second-order pass from the cotangent of u: the tangent chain p (:823-853).
+  if ubar is not None:
+    if fold is None or G != 2:
+      raise ValueError('the cotangent of u needs the IPE scale fold')
+    tp = ubar.float() @ fold.float().t()
+    ts = [(tp * segs[1].float()).to(cdt), (-(tp * segs[0].float())).to(cdt)]
+    p = None
+    for l in range(L):
+      if l == 0:
+        tt = _dot(ts[0], _seg_cols(t, t.ws[0], 0))
+        for j in range(1, G):
+          tt = tt + _dot(ts[j], _seg_cols(t, t.ws[0], j))
+        seg_grads(dws[0], 0, ss[0], ts)
+      else:
+        tt = _dot(p, t.ws[l][:, :W])
+        dws[l][:, :W] += _outer(ss[l], p)
+        if l in t.skips:
+          for j in range(G):
+            tt = tt + _dot(ts[j], _seg_cols(t, t.ws[l], j, W))
+          seg_grads(dws[l], W, ss[l], ts)
+      p = _mask(acts[l]) * tt.to(cdt)
+    dwd = dwd + p.float().sum(0).reshape(1, W)
+  if dxs is not None:
+    dxs = [d.to(dt) for d, dt in zip(dxs, dtypes)]
+  return dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs
+
+
 class TrunkPack(NamedTuple):
-  """A trunk's weights laid out for the kernel: built once per model."""
+  """A trunk's weights laid out for the kernels: built once per model."""
   w: torch.Tensor             # per layer [width, K_l], K contiguous, flat
+  wt: torch.Tensor            # per layer [K_l, width] (W_l^T), flat
   b: torch.Tensor             # [depth, width]
   wd: Optional[torch.Tensor]  # [width] f32
   wh: Optional[torch.Tensor]  # [hf, width] f32
   bh: Optional[torch.Tensor]  # [hf] f32
   wc: Optional[torch.Tensor]  # [hc, width]
+  wct: Optional[torch.Tensor]  # [width, hc] (wc^T)
   bc: Optional[torch.Tensor]  # [hc]
   seg_dims: Tuple[int, ...]
   kin: int                    # sum(seg_dims) rounded up to the K-slice
@@ -156,15 +369,23 @@ class TrunkPack(NamedTuple):
   skip: int                   # the one skip-input layer, or -1
   compute_dtype: str
 
+  def k_dims(self) -> Tuple[int, ...]:
+    """Each layer's packed input width K_l (kin | width | width + kin)."""
+    return tuple(self.kin if l == 0 else
+                 self.width + (self.kin if l == self.skip else 0)
+                 for l in range(self.depth))
+
 
 def pack_trunk(weights, biases, seg_dims, *, skip_period=4, wd=None,
                head_f32=None, head_cdt=None,
                compute_dtype='float32') -> TrunkPack:
-  """Re-lay a trunk's weights for the kernel (the split of `_canonicalize`).
+  """Re-lay a trunk's weights for the kernels (the split of `_canonicalize`).
 
   The segments' weight columns stay contiguous and are zero-padded to
-  `kin`, matching the kernel's shared-memory input tile; the skip layer
-  keeps its activation columns first.
+  `kin`, matching the kernels' shared-memory input tile; the skip layer
+  keeps its activation columns first. `wt` holds each layer transposed, the
+  B operand of the reverse products (s W, zeta W), whose zero-padded rows
+  give zero-padded columns.
   """
   cdt = DTYPES[compute_dtype]
   depth, width = len(weights), int(weights[-1].shape[0])
@@ -174,7 +395,7 @@ def pack_trunk(weights, biases, seg_dims, *, skip_period=4, wd=None,
   if len(skips) > 1:
     raise NotImplementedError(
         f'the trunk kernel models one skip layer, got {skips}')
-  blocks = []
+  blocks, tblocks = [], []
   with torch.no_grad():
     for l, w in enumerate(weights):
       w = w.detach().float()
@@ -185,16 +406,18 @@ def pack_trunk(weights, biases, seg_dims, *, skip_period=4, wd=None,
       if l == 0 or l in skips:
         w = F.pad(w, (0, kin - fin))
       blocks.append(w.reshape(-1))
+      tblocks.append(w.t().reshape(-1))
     f32 = lambda t: None if t is None else t.detach().float().contiguous()
     wh, bh = head_f32 if head_f32 is not None else (None, None)
     wc, bc = head_cdt if head_cdt is not None else (None, None)
+    c = lambda t: None if t is None else t.detach().to(cdt).contiguous()
     return TrunkPack(
         w=torch.cat(blocks).to(cdt).contiguous(),
+        wt=torch.cat(tblocks).to(cdt).contiguous(),
         b=torch.stack([b.detach() for b in biases]).to(cdt).contiguous(),
         wd=None if wd is None else f32(wd.reshape(-1)),
-        wh=f32(wh), bh=f32(bh),
-        wc=None if wc is None else wc.detach().to(cdt).contiguous(),
-        bc=None if bc is None else bc.detach().to(cdt).contiguous(),
+        wh=f32(wh), bh=f32(bh), wc=c(wc),
+        wct=None if wc is None else c(wc.t()), bc=c(bc),
         seg_dims=tuple(int(d) for d in seg_dims), kin=kin, depth=depth,
         width=width, skip=skips[0] if skips else -1,
         compute_dtype=compute_dtype)
@@ -207,12 +430,7 @@ def use_kernel(x: torch.Tensor, mode: str) -> bool:
   return x.is_cuda and mode != 'off'
 
 
-def _kernel_guard(tensors, activation, n_segs):
-  if torch.is_grad_enabled() and any(
-      t is not None and t.requires_grad for t in tensors):
-    raise NotImplementedError(
-        'the trunk kernels are forward-only: the backward kernels (Pallas '
-        '_bwd_kernel) are not ported; run under torch.no_grad()')
+def _kernel_guard(activation, n_segs):
   if activation is not None and activation not in (torch.relu, F.relu):
     raise NotImplementedError(
         f'the trunk kernel models ReLU only, got {activation!r}')
@@ -221,111 +439,415 @@ def _kernel_guard(tensors, activation, n_segs):
         f'the trunk kernel takes one or two input segments, got {n_segs}')
 
 
-def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack):
-  """Launch the CUDA trunk kernel; outputs as `trunk_reference` returns them."""
+def _ptr(t):
+  return None if t is None else t.data_ptr()
+
+
+def _library(name: str, pack: TrunkPack, hc: int):
   from refnerf_tpu_torch.ops import cuda_build  # builds on first use
-  lib = cuda_build.library()
-  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
-  if not lib.refnerf_trunk_supports(pack.width, hc):
+  if not cuda_build.library('trunk_fwd').refnerf_trunk_supports(pack.width,
+                                                                 hc):
     raise NotImplementedError(
         f'no trunk kernel instance for width {pack.width} and compute-dtype '
         f'head {hc} (built: width 256, head 0 or 128)')
-  cdt = DTYPES[pack.compute_dtype]
+  return cuda_build.library(name)
+
+
+def _check_launch(err, what):
+  if err != 0:
+    raise RuntimeError(f'{what} launch failed with cudaError {err}')
+
+
+def _check_inputs(segs, pack: TrunkPack):
   dev = segs[0].device
-  n = int(segs[0].shape[0])
   dims = tuple(int(s.shape[-1]) for s in segs)
   if dims != pack.seg_dims:
     raise ValueError(f'segments {dims} do not match the pack {pack.seg_dims}')
-  for t in (pack.w, pack.b, pack.wd, pack.wh, pack.wc):
+  for t in (pack.w, pack.wt, pack.b, pack.wd, pack.wh, pack.wc):
     if t is not None and t.device != dev:
       raise ValueError(f'weights on {t.device}, inputs on {dev}')
-  segs = [s.to(cdt).contiguous() for s in segs]
+  cdt = DTYPES[pack.compute_dtype]
+  return [s.to(cdt).contiguous() for s in segs], dims
+
+
+def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
+                 fold: Optional[torch.Tensor] = None):
+  """Launch the CUDA forward kernel; outputs as `trunk_reference` returns
+  them, except that with `fold` ([F, nb] f32, two IPE segments) the density
+  gradient comes out folded: the last output is u [n, nb] f32 (K3)."""
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  lib = _library('trunk_fwd', pack, hc)
+  cdt = DTYPES[pack.compute_dtype]
+  segs, dims = _check_inputs(segs, pack)
+  dev = segs[0].device
+  n = int(segs[0].shape[0])
   x1 = segs[1] if len(segs) > 1 else None
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   sig = torch.empty(n, device=dev) if pack.wd is not None else None
   hout = torch.empty(n, hf, device=dev) if hf else None
   cout = torch.empty(n, hc, device=dev, dtype=cdt) if hc else None
-  ptr = lambda t: None if t is None else t.data_ptr()
+  u = nb = None
+  if fold is not None:
+    if pack.wd is None or len(segs) != 2 or fold.shape[0] != dims[0]:
+      raise ValueError('the density gradient needs the density head and two '
+                       f'IPE segments matching the fold {tuple(fold.shape)}')
+    fold = fold.float().contiguous()
+    nb = int(fold.shape[1])
+    u = torch.empty(n, nb, device=dev)
   with torch.cuda.device(dev):
     err = lib.refnerf_trunk_fwd(
         1 if cdt == torch.bfloat16 else 0, pack.width, hc,
-        ptr(segs[0]), dims[0], ptr(x1), dims[1] if x1 is not None else 0,
-        n, pack.kin, pack.depth, pack.skip, ptr(pack.w), ptr(pack.b),
-        ptr(pack.wd), ptr(pack.wh), ptr(pack.bh), hf, ptr(pack.wc),
-        ptr(pack.bc), ptr(sig), ptr(hout), ptr(cout),
+        _ptr(segs[0]), dims[0], _ptr(x1), dims[1] if x1 is not None else 0,
+        n, pack.kin, pack.depth, pack.skip, _ptr(pack.w), _ptr(pack.wt),
+        _ptr(pack.b), _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf,
+        _ptr(pack.wc), _ptr(pack.bc), _ptr(fold), nb or 0, _ptr(sig),
+        _ptr(hout), _ptr(cout), _ptr(u),
         torch.cuda.current_stream(dev).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f'trunk kernel launch failed with cudaError {err}')
-  return [t for t in (sig, hout, cout) if t is not None]
+  _check_launch(err, 'trunk forward kernel')
+  return [t for t in (sig, hout, cout, u) if t is not None]
+
+
+def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
+                          needs_dx=False, slab=BWD_SLAB):
+  """Launch the CUDA backward kernels (K4, K5); returns what
+  `trunk_backward_reference` returns.
+
+  Per slab of samples: the per-tile kernel recomputes the trunk and runs the
+  inner chain, the head backward, the first-order reverse and (with the
+  cotangent of u) the tangent chain, writing each layer's weight-gradient
+  operands feature-major into a scratch buffer and per-tile sums of the
+  vector gradients; then a split-K product over samples forms each weight
+  gradient's partials, and fixed-order reductions sum them (no atomics: the
+  result does not depend on the schedule).
+  """
+  sbar, hbar, cbar, ubar = cots
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  lib = _library('trunk_bwd', pack, hc)
+  cdt = DTYPES[pack.compute_dtype]
+  seg_dtypes = [s.dtype for s in segs]
+  segs, dims = _check_inputs(segs, pack)
+  dev = segs[0].device
+  n = int(segs[0].shape[0])
+  W, L, kin = pack.width, pack.depth, pack.kin
+  hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  dg = ubar is not None
+  if dg and (fold is None or len(segs) != 2 or pack.wd is None):
+    raise ValueError('the cotangent of u needs the density head, two IPE '
+                     'segments and the scale fold')
+  if dg and needs_dx:
+    raise NotImplementedError('the backward kernel emits segment cotangents '
+                              'only without the density gradient')
+  nb = int(fold.shape[1]) if dg else 0
+  fold = fold.float().contiguous() if dg else None
+  rows_of = lambda t, w: None if t is None else (
+      t.float().reshape(n, w).contiguous())
+  sbar = rows_of(sbar, 1) if pack.wd is not None else None
+  hbar = rows_of(hbar, hf) if hf else None
+  ubar = rows_of(ubar, nb) if dg else None
+  cbar = (cbar.to(cdt).reshape(n, hc).contiguous()
+          if cbar is not None and hc else None)
+
+  fin = sum(dims)
+  k_pack = pack.k_dims()
+  k_out = [fin if l == 0 else W + (fin if l == pack.skip else 0)
+           for l in range(L)]
+  dws = [torch.empty(W, k, device=dev) for k in k_out]
+  dwc = torch.empty(hc, W, device=dev) if hc else None
+  # The vector gradients, one f32 row: db [L, W] | dwd [W] | dwh [hf, W] |
+  # dbh [hf] | dbc [hc].
+  nvec = L * W + (W if pack.wd is not None else 0) + hf * W + hf + hc
+  vec = torch.empty(nvec, device=dev)
+  dxs = ([torch.empty(n, d, device=dev, dtype=cdt) for d in dims]
+         if needs_dx else None)
+
+  slab = n if n <= slab else slab // _TILE * _TILE
+  rp_max = -(-slab // _TILE) * _TILE
+  # Scratch, feature-major [features][rows], rows padded to the tile:
+  # h_l and zeta_l (and s_l, p_l with the density gradient) [L][W], the
+  # padded input x (and its tangent ts) [kin], cbar [hc].
+  regions = [('hs', L * W), ('zs', L * W)]
+  regions += [('ss', L * W), ('ps', L * W)] if dg else []
+  regions += [('xs', kin)] + ([('ts', kin)] if dg else [])
+  regions += [('cs', hc)] if hc else []
+  scratch = torch.empty(sum(f for _, f in regions) * rp_max, device=dev,
+                        dtype=cdt)
+  dx_keep = torch.empty(rp_max * kin, device=dev) if needs_dx else None
+  vec_part = torch.empty(rp_max // _TILE * nvec, device=dev)
+  wpart = torch.empty(-(-rp_max // _KSPLIT) * W * max(max(k_pack), W),
+                      device=dev)
+  es = scratch.element_size()
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  flag = 1 if cdt == torch.bfloat16 else 0
+
+  def at(t, row, width):
+    return None if t is None else t.data_ptr() + row * width * t.element_size()
+
+  with torch.cuda.device(dev):
+    for start in range(0, n, slab):
+      rows = min(slab, n - start)
+      rp = -(-rows // _TILE) * _TILE
+      reg, off = {}, 0
+      for name, feats in regions:
+        reg[name] = scratch.data_ptr() + off * rp * es
+        off += feats
+      layer = lambda name, l: reg[name] + l * W * rp * es
+      err = lib.refnerf_trunk_bwd(
+          flag, W, hc, at(segs[0], start, dims[0]), dims[0],
+          at(segs[1], start, dims[1]) if len(segs) > 1 else None,
+          dims[1] if len(segs) > 1 else 0, rows, kin, L, pack.skip,
+          _ptr(pack.w), _ptr(pack.wt), _ptr(pack.b), _ptr(pack.wd),
+          _ptr(pack.wh), hf, _ptr(pack.wct), at(sbar, start, 1),
+          at(hbar, start, hf), at(cbar, start, hc), at(ubar, start, nb),
+          _ptr(fold), nb, at(dxs[0], start, dims[0]) if dxs else None,
+          at(dxs[1], start, dims[1]) if dxs and len(dxs) > 1 else None,
+          _ptr(dx_keep), rp, reg['hs'], reg['zs'], reg.get('ss'),
+          reg.get('ps'), reg['xs'], reg.get('ts'), reg.get('cs'),
+          vec_part.data_ptr(), nvec, stream)
+      _check_launch(err, 'trunk backward kernel')
+      acc = int(start > 0)
+      nsplit = -(-rp // _KSPLIT)
+      for l in range(L):
+        ncut = 0 if l == 0 else W
+        err = lib.refnerf_wgrad(
+            flag, W, k_pack[l], ncut, rp, _KSPLIT, layer('zs', l),
+            reg['xs'] if l == 0 else layer('hs', l - 1), reg['xs'],
+            layer('ss', l) if dg else None,
+            (reg['ts'] if l == 0 else layer('ps', l - 1)) if dg else None,
+            reg.get('ts'), wpart.data_ptr(), stream)
+        _check_launch(err, 'weight-gradient kernel')
+        err = lib.refnerf_reduce(wpart.data_ptr(), nsplit, W, k_pack[l],
+                                 k_out[l], dws[l].data_ptr(), acc, stream)
+        _check_launch(err, 'reduction kernel')
+      if hc:
+        err = lib.refnerf_wgrad(flag, hc, W, W, rp, _KSPLIT, reg['cs'],
+                                layer('hs', L - 1), None, None, None, None,
+                                wpart.data_ptr(), stream)
+        _check_launch(err, 'weight-gradient kernel')
+        err = lib.refnerf_reduce(wpart.data_ptr(), nsplit, hc, W, W,
+                                 dwc.data_ptr(), acc, stream)
+        _check_launch(err, 'reduction kernel')
+      err = lib.refnerf_reduce(vec_part.data_ptr(), rp // _TILE, 1, nvec,
+                               nvec, vec.data_ptr(), acc, stream)
+      _check_launch(err, 'reduction kernel')
+
+  off = 0
+
+  def take(size, shape):
+    nonlocal off
+    out = vec[off:off + size].reshape(shape)
+    off += size
+    return out
+
+  dbs = list(take(L * W, (L, W)))
+  dwd = take(W, (1, W)) if pack.wd is not None else None
+  dwh = take(hf * W, (hf, W)) if hf else None
+  dbh = take(hf, (hf,)) if hf else None
+  dbc = take(hc, (hc,)) if hc else None
+  if dxs is not None:
+    dxs = [d.to(dt) for d, dt in zip(dxs, seg_dtypes)]
+  return dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs
+
+
+class _Spec(NamedTuple):
+  """What one trunk call is: static for the autograd Functions."""
+  depth: int
+  skip_period: int
+  compute_dtype: str
+  kernel: bool                 # launch the CUDA kernels
+  pack: Optional[TrunkPack]
+  fold: Optional[torch.Tensor]  # [F, nb]: emit u (spatial)
+  has: Tuple[bool, ...]        # wd, head_f32, head_cdt present
+  needs_dx: bool
+
+
+def _unflatten(spec: _Spec, params):
+  L = spec.depth
+  ws, bs = list(params[:L]), list(params[L:2 * L])
+  wd, wh, bh, wc, bc = params[2 * L:]
+  return ws, bs, wd, (wh, bh) if spec.has[1] else None, \
+      (wc, bc) if spec.has[2] else None
+
+
+def _forward(spec: _Spec, segs, params, which):
+  ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
+  if spec.kernel:
+    outs = trunk_kernel(segs, spec.pack, spec.fold)
+    launches[which] += 1
+    return outs
+  outs = trunk_reference(segs, ws, bs, skip_period=spec.skip_period, wd=wd,
+                         head_f32=head_f32, head_cdt=head_cdt,
+                         compute_dtype=spec.compute_dtype,
+                         density_grad=spec.fold is not None)
+  if spec.fold is not None:
+    outs = outs[:-2] + [fold_density_grad(outs[-2:], segs[0], segs[1],
+                                          spec.fold)]
+  return outs
+
+
+def _backward(spec: _Spec, segs, params, grads, which):
+  """Parameter (and segment) gradients from the output cotangents."""
+  ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
+  grads = list(grads)
+  cots = [grads.pop(0) if h else None for h in spec.has]
+  ubar = grads.pop(0) if spec.fold is not None else None
+  sbar, hbar, cbar = cots
+  if spec.kernel:
+    res = trunk_backward_kernel(segs, spec.pack, (sbar, hbar, cbar, ubar),
+                                spec.fold, spec.needs_dx)
+    launches[which] += 1
+  else:
+    res = trunk_backward_reference(
+        segs, ws, bs, (sbar, hbar, cbar, ubar),
+        skip_period=spec.skip_period, wd=wd, head_f32=head_f32,
+        head_cdt=head_cdt, compute_dtype=spec.compute_dtype, fold=spec.fold,
+        needs_dx=spec.needs_dx)
+  dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs = res
+  cast = lambda g, p: None if (g is None or p is None) else g.to(p.dtype)
+  pg = [cast(g, p) for g, p in zip(dws + dbs, ws + bs)]
+  pg += [cast(dwd, wd),
+         cast(dwh, head_f32[0] if head_f32 else None),
+         cast(dbh, head_f32[1] if head_f32 else None),
+         cast(dwc, head_cdt[0] if head_cdt else None),
+         cast(dbc, head_cdt[1] if head_cdt else None)]
+  return pg, dxs
+
+
+class SpatialTrunk(torch.autograd.Function):
+  """The spatial trunk: forward K1 (K3 with the density gradient), backward
+  K4. Inputs (spec, xs, xc, *params); the IPE segments take no gradient."""
+
+  @staticmethod
+  def forward(ctx, spec, xs, xc, *params):
+    ctx.spec = spec
+    ctx.save_for_backward(xs, xc, *[p for p in params if p is not None])
+    ctx.present = [p is not None for p in params]
+    return tuple(_forward(spec, [xs, xc], params,
+                          'K1' if spec.fold is None else 'K3'))
+
+  @staticmethod
+  @once_differentiable
+  def backward(ctx, *grads):
+    xs, xc, *saved = ctx.saved_tensors
+    params = [saved.pop(0) if p else None for p in ctx.present]
+    pg, _ = _backward(ctx.spec, [xs, xc], params, grads, 'K4')
+    return (None, None, None, *pg)
+
+
+class DirectionalTrunk(torch.autograd.Function):
+  """The directional trunk: forward K2, backward K5 with segment
+  cotangents. Inputs (spec, n_segs, *segs, *params)."""
+
+  @staticmethod
+  def forward(ctx, spec, n_segs, *args):
+    segs, params = list(args[:n_segs]), args[n_segs:]
+    ctx.spec, ctx.n_segs = spec, n_segs
+    ctx.save_for_backward(*segs, *[p for p in params if p is not None])
+    ctx.present = [p is not None for p in params]
+    return tuple(_forward(spec, segs, params, 'K2'))
+
+  @staticmethod
+  @once_differentiable
+  def backward(ctx, *grads):
+    saved = list(ctx.saved_tensors)
+    segs, saved = saved[:ctx.n_segs], saved[ctx.n_segs:]
+    params = [saved.pop(0) if p else None for p in ctx.present]
+    pg, dxs = _backward(ctx.spec, segs, params, grads, 'K5')
+    return (None, None, *(dxs or [None] * len(segs)), *pg)
+
+
+def _params(weights, biases, wd, head_f32, head_cdt):
+  wh, bh = head_f32 if head_f32 is not None else (None, None)
+  wc, bc = head_cdt if head_cdt is not None else (None, None)
+  return [*weights, *biases, wd, wh, bh, wc, bc]
+
+
+def _needs_grad(tensors):
+  return torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in tensors)
 
 
 def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
-                        skip_period=4, head_f32: Optional[Head] = None,
+                        skip_period=4, density_grad=False,
+                        head_f32: Optional[Head] = None,
                         head_cdt: Optional[Head] = None,
                         compute_dtype='float32', mode='auto',
                         activation=None, pack: Optional[TrunkPack] = None):
-  """K1: the IPE trunk of lifted means/vars lm, lv [..., nb] (:1326).
+  """K1/K3 forward, K4 backward: the IPE trunk of lifted means/vars
+  lm, lv [..., nb] (:1326). lm and lv enter detached (:1396-1397).
 
-  `pack` is the kernel's weight layout (pack_trunk); the MLP caches it.
+  `pack` is the kernels' weight layout (pack_trunk); the MLP caches it.
   Without one the kernel path packs on every call.
 
-  Returns (sigma [...], [h_f32 [..., hf],] [h_cdt [..., hc]]), sigma with
-  `bd` added (:1460).
+  Returns (sigma [...], [h_f32 [..., hf],] [h_cdt [..., hc],] [u [..., nb]]),
+  sigma with `bd` added (:1460), u = d sigma / d lm with `density_grad`.
   """
   lead = lm.shape[:-1]
   nb = lm.shape[-1]
   n = math.prod(lead)
   _check_trunk(len(weights), skip_period)
-  xs, xc = encode_ipe(lm.reshape(n, nb), lv.reshape(n, nb), scales,
-                      compute_dtype)
-  if use_kernel(xs, mode):
-    head_w = [t for h in (head_f32, head_cdt) if h is not None for t in h]
-    _kernel_guard([lm, lv, wd, *weights, *biases, *head_w], activation, 2)
-    if pack is None:
-      pack = pack_trunk(weights, biases, (xs.shape[-1], xc.shape[-1]),
-                        skip_period=skip_period, wd=wd, head_f32=head_f32,
-                        head_cdt=head_cdt, compute_dtype=compute_dtype)
-    outs = trunk_kernel([xs, xc], pack)
-    fused_encoded_trunk.launches += 1
+  xs, xc = encode_ipe(lm.detach().reshape(n, nb), lv.detach().reshape(n, nb),
+                      scales, compute_dtype)
+  params = _params(weights, biases, wd, head_f32, head_cdt)
+  kernel = use_kernel(xs, mode)
+  if kernel:
+    _kernel_guard(activation, 2)
+  if not (activation is None or activation in (torch.relu, F.relu)):
+    if density_grad or _needs_grad(params):
+      raise NotImplementedError('the trunk backward and the density '
+                                'gradient model ReLU only')
+    outs = trunk_reference([xs, xc], weights, biases, skip_period=skip_period,
+                           wd=wd, head_f32=head_f32, head_cdt=head_cdt,
+                           compute_dtype=compute_dtype, activation=activation)
   else:
-    outs = trunk_reference(
-        [xs, xc], weights, biases, skip_period=skip_period, wd=wd,
-        head_f32=head_f32, head_cdt=head_cdt, compute_dtype=compute_dtype,
-        activation=activation)
+    if kernel:
+      if pack is None:
+        pack = pack_trunk(weights, biases, (xs.shape[-1], xc.shape[-1]),
+                          skip_period=skip_period, wd=wd, head_f32=head_f32,
+                          head_cdt=head_cdt, compute_dtype=compute_dtype)
+    fold = None
+    if density_grad:
+      fold = torch.as_tensor(ipe_scale_fold(scales, nb), device=xs.device)
+    spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
+                 pack if kernel else None, fold,
+                 (wd is not None, head_f32 is not None, head_cdt is not None),
+                 False)
+    outs = list(SpatialTrunk.apply(spec, xs, xc, *params))
   sig = outs[0] if bd is None else outs[0] + bd.float()
   res = [sig.reshape(lead)]
   res += [o.reshape(*lead, o.shape[-1]) for o in outs[1:]]
   return tuple(res)
 
 
-fused_encoded_trunk.launches = 0
-
-
 def fused_trunk(segs: Sequence[torch.Tensor], weights, biases, head_f32: Head,
                 *, skip_period=4, compute_dtype='float32', mode='auto',
                 activation=None, pack: Optional[TrunkPack] = None):
-  """K2: a trunk over input segments [..., d_j] and its f32 head (:1178).
+  """K2 forward, K5 backward: a trunk over input segments [..., d_j] and its
+  f32 head (:1178), with segment cotangents in the compute dtype.
 
   Returns the head output [..., hf]. `pack` as for fused_encoded_trunk.
   """
   lead = segs[0].shape[:-1]
   n = math.prod(lead)
   _check_trunk(len(weights), skip_period)
-  flat = [s.reshape(n, s.shape[-1]) for s in segs]
-  if use_kernel(flat[0], mode):
-    _kernel_guard([*flat, *weights, *biases, *head_f32], activation,
-                  len(flat))
+  cdt = DTYPES[compute_dtype]
+  flat = [s.reshape(n, s.shape[-1]).to(cdt) for s in segs]
+  params = _params(weights, biases, None, head_f32, None)
+  kernel = use_kernel(flat[0], mode)
+  if kernel:
+    _kernel_guard(activation, len(flat))
+  if not (activation is None or activation in (torch.relu, F.relu)):
+    if _needs_grad(flat + params):
+      raise NotImplementedError('the trunk backward models ReLU only')
+    out, = trunk_reference(flat, weights, biases, skip_period=skip_period,
+                           head_f32=head_f32, compute_dtype=compute_dtype,
+                           activation=activation)
+    return out.reshape(*lead, out.shape[-1])
+  if kernel:
     if pack is None:
       pack = pack_trunk(weights, biases, [s.shape[-1] for s in flat],
                         skip_period=skip_period, head_f32=head_f32,
                         compute_dtype=compute_dtype)
-    out, = trunk_kernel(flat, pack)
-    fused_trunk.launches += 1
-  else:
-    out, = trunk_reference(
-        flat, weights, biases, skip_period=skip_period, head_f32=head_f32,
-        compute_dtype=compute_dtype, activation=activation)
+  spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
+               pack if kernel else None, None, (False, True, False), True)
+  out, = DirectionalTrunk.apply(spec, len(flat), *flat, *params)
   return out.reshape(*lead, out.shape[-1])
-
-
-fused_trunk.launches = 0

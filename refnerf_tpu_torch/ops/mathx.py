@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _TRIG_T = 100 * math.pi
@@ -48,3 +49,24 @@ def sorted_interp(x, xp, fp):
   xp0, xp1 = find_interval(xp)
   offset = torch.clip(torch.nan_to_num((x - xp0) / (xp1 - xp0)), 0, 1)
   return fp0 + offset * (fp1 - fp0)
+
+
+def learning_rate_decay(step, lr_init, lr_final, max_steps, lr_delay_steps=0,
+                        lr_delay_mult=1.0):
+  """Log-linear LR decay with a reverse-cosine warmup (mathx.py:46-63).
+
+  The absolute learning rate at `step` (a number or a float tensor), in the
+  JAX function's order of operations.
+  """
+  xp = torch if isinstance(step, torch.Tensor) else np
+  clip = ((lambda v: torch.clamp(v, 0, 1)) if xp is torch
+          else (lambda v: np.clip(v, 0, 1)))
+  if lr_delay_steps > 0:
+    delay_rate = lr_delay_mult + (1 - lr_delay_mult) * xp.sin(
+        0.5 * np.pi * clip(step / lr_delay_steps))
+  else:
+    delay_rate = 1.0
+  t = clip(step / max_steps)
+  log_lerped = xp.exp(t * (math.log(lr_final) - math.log(lr_init))
+                      + math.log(lr_init))
+  return delay_rate * log_lerped

@@ -1,6 +1,6 @@
 """Reflections and the integrated directional encoding (IDE).
 
-Counterpart of refnerf_tpu/ops/ref_utils.py:23-144. The spherical-harmonic
+Counterpart of refnerf_tpu/ops/ref_utils.py:23-164. The spherical-harmonic
 constants are recomputed here in numpy (that module imports jax); the IDE is
 the same real re/im recurrence.
 """
@@ -25,8 +25,15 @@ def reflect(viewdirs, normals):
 
 def l2_normalize(x, eps=_EPS):
   """Normalize x to unit length along the last axis."""
-  return x / torch.sqrt(
-      torch.clamp(torch.sum(x**2, dim=-1, keepdim=True), min=eps))
+  sq = torch.sum(x**2, dim=-1, keepdim=True)
+  return x / torch.sqrt(torch.maximum(sq.new_tensor(eps), sq))
+
+
+def orientation_loss_terms(w, n, v):
+  """Per-sample back-facing penalty w * min(0, n.v)^2 (Ref-NeRF Eq 15);
+  v [..., 3] points from the surface toward the camera."""
+  n_dot_v = (n * v[..., None, :]).sum(dim=-1)
+  return w * torch.minimum(n_dot_v.new_zeros(()), n_dot_v)**2
 
 
 def generalized_binomial_coeff(a, k):

@@ -6,10 +6,14 @@ tests/conftest.py (it imports jax):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 
-Tolerances, as in chip_smoke.py: max |kernel - plain| <= bound *
-max(1, max|plain|), with bound 1e-4 in float32 (one arithmetic, another
-summation order) and 5e-2 in bfloat16 (a per-layer bf16 rounding flip of
-2^-8, carried by later layers). TF32 is off for the plain versions.
+Tolerances, as in chip_smoke.py. Values (sigma, heads, bottleneck, rgb):
+max |kernel - plain| <= bound * max(1, max|plain|), with bound 1e-4 in
+float32 (one arithmetic, another summation order) and 5e-2 in bfloat16 (a
+per-layer bf16 rounding flip of 2^-8, carried by later layers). Derivatives
+(u, gradients, dx): |kernel - plain|_2 / |plain|_2 <= 5e-3 in float32 and
+5e-2 in bfloat16, since a pre-activation within the summation-order noise
+of 0 flips a relu' mask and moves its sample's derivative by ~10%.
+TF32 is off for the plain versions.
 """
 
 import math
@@ -24,16 +28,19 @@ from refnerf_tpu_torch.cameras import rays as rays_lib
 from refnerf_tpu_torch.models import construct
 from refnerf_tpu_torch.models import renderer
 from refnerf_tpu_torch.ops import fused_mlp
+from refnerf_tpu_torch.train import step as step_lib
 
 BOUND = {'float32': 1e-4, 'bfloat16': 5e-2}
+GRAD_BOUND = {'float32': 5e-3, 'bfloat16': 5e-2}
 GIN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    'configs', 'blender_refnerf.gin')
+SCALES = 2.0**np.arange(0, 16)  # the flagship's IPE degrees
 
 
 @pytest.fixture
 def dev():
   if not torch.cuda.is_available():
-    pytest.skip('needs a CUDA card: the trunk kernel has no CPU mode')
+    pytest.skip('needs a CUDA card: the trunk kernels have no CPU mode')
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   return torch.device('cuda')
@@ -41,7 +48,8 @@ def dev():
 
 def _case(which, dev, n=1000, seed=0, width=256):
   """Flagship widths: K1 segments (48, 48), heads 10 + 128; K2 (128, 73), 3.
-  n = 1000 rows is not a multiple of the kernel's 64-row tile."""
+  n = 1000 rows is not a multiple of the kernel's 64-row tile. The K1
+  segments are the IPE encoding of random lifted means and variances."""
   gen = torch.Generator().manual_seed(seed)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
   seg_dims, hf, hc = ((48, 48), 10, 128) if which == 'K1' else ((128, 73), 3, 0)
@@ -56,17 +64,30 @@ def _case(which, dev, n=1000, seed=0, width=256):
             head_f32=(rand(hf, width) / math.sqrt(width), rand(hf) * 0.1),
             head_cdt=((rand(hc, width) / math.sqrt(width), rand(hc) * 0.1)
                       if hc else None))
-  segs = [torch.rand(n, d, generator=gen).to(dev) * 2 - 1 for d in seg_dims]
+  if which == 'K1':
+    lm = torch.rand(n, 3, generator=gen).to(dev) * 3 - 1.5
+    lv = 10.0**(torch.rand(n, 3, generator=gen).to(dev) * 4 - 6)
+    segs = list(fused_mlp.encode_ipe(lm, lv, SCALES))
+  else:
+    segs = [torch.rand(n, d, generator=gen).to(dev) * 2 - 1 for d in seg_dims]
   return segs, ws, bs, kw
 
 
-def _assert_close(got, want, cdt):
-  assert len(got) == len(want)
-  for a, b in zip(got, want):
-    assert a.dtype == b.dtype and a.shape == b.shape
-    scale = max(1.0, b.float().abs().max().item())
-    err = (a.float() - b.float()).abs().max().item()
-    assert err <= BOUND[cdt] * scale, (err, BOUND[cdt] * scale)
+def _assert_close(got, want, cdt, what='', n_values=None):
+  """The first n_values outputs (all by default) are values, the rest
+  derivatives."""
+  assert len(got) == len(want), what
+  n_values = len(got) if n_values is None else n_values
+  for i, (a, b) in enumerate(zip(got, want)):
+    assert a.dtype == b.dtype and a.shape == b.shape, (what, i)
+    d, b = a.float() - b.float(), b.float()
+    if i < n_values:
+      scale = max(1.0, b.abs().max().item())
+      err = d.abs().max().item()
+      assert err <= BOUND[cdt] * scale, (what, i, err, BOUND[cdt] * scale)
+    else:
+      err = d.norm().item() / max(b.norm().item(), 1e-30)
+      assert err <= GRAD_BOUND[cdt], (what, i, err, GRAD_BOUND[cdt])
 
 
 @pytest.mark.cuda
@@ -84,30 +105,97 @@ def test_kernel_matches_plain(dev, which, cdt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_density_grad_kernel_matches_plain(dev, cdt):
+  # K3: sigma, the heads and u = d sigma / d lifted-means.
+  segs, ws, bs, kw = _case('K1', dev)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype=cdt, **kw)
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack, fold)
+    want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt,
+                                     density_grad=True, **kw)
+    want = want[:-2] + [fused_mlp.fold_density_grad(want[-2:], *segs, fold)]
+  torch.cuda.synchronize()
+  _assert_close(got, want, cdt, 'K3', n_values=3)
+
+
+def _cotangents(which, dev, n, seed=1):
+  gen = torch.Generator().manual_seed(seed)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  if which == 'K1':
+    return rand(n), rand(n, 10), rand(n, 128), rand(n, 3)
+  return None, rand(n, 3), None, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('which', ['K1', 'K2'])
+def test_backward_kernel_matches_plain(dev, which, cdt):
+  # K4 (spatial, with the cotangent of u) and K5 (directional, with dx):
+  # every weight, bias and segment gradient. A slab of 256 rows splits the
+  # 1000 samples into four, so the slab accumulation runs too.
+  n = 1000
+  segs, ws, bs, kw = _case(which, dev, n=n)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  cots = _cotangents(which, dev, n)
+  fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+          if which == 'K1' else None)
+  needs_dx = which == 'K2'
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype=cdt, **kw)
+  with torch.no_grad():
+    got = fused_mlp.trunk_backward_kernel(segs, pack, cots, fold, needs_dx,
+                                          slab=256)
+    want = fused_mlp.trunk_backward_reference(
+        segs, ws, bs, cots, compute_dtype=cdt, fold=fold, needs_dx=needs_dx,
+        **kw)
+  torch.cuda.synchronize()
+  flat = lambda r: [t for x in r for t in (x if isinstance(x, list) else [x])
+                    if t is not None]
+  _assert_close(flat(got), flat(want), cdt, which, n_values=0)
+
+
+@pytest.mark.cuda
 def test_wrappers_count_launches_and_honour_off(dev):
   segs, ws, bs, kw = _case('K2', dev, n=77)
   kw.pop('wd'), kw.pop('head_cdt')
-  before = fused_mlp.fused_trunk.launches
-  with torch.no_grad():
-    on = fused_mlp.fused_trunk(segs, ws, bs, **kw)
-    off = fused_mlp.fused_trunk(segs, ws, bs, mode='off', **kw)
-  assert fused_mlp.fused_trunk.launches == before + 1
-  _assert_close([on], [off], 'float32')
+  ws = [w.requires_grad_(True) for w in ws]
+  before = dict(fused_mlp.launches)
+  on = fused_mlp.fused_trunk(segs, ws, bs, **kw)
+  on.sum().backward()
+  grad_on = ws[0].grad.clone()
+  ws[0].grad = None
+  off = fused_mlp.fused_trunk(segs, ws, bs, mode='off', **kw)
+  off.sum().backward()
+  assert fused_mlp.launches['K2'] == before['K2'] + 1
+  assert fused_mlp.launches['K5'] == before['K5'] + 1
+  _assert_close([on, grad_on], [off, ws[0].grad], 'float32', n_values=1)
 
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_model(dev):
   segs, ws, bs, kw = _case('K2', dev, n=8)
   kw.pop('wd'), kw.pop('head_cdt')
-  w0 = ws[0].clone().requires_grad_(True)
-  with pytest.raises(NotImplementedError, match='forward-only'):
-    fused_mlp.fused_trunk(segs, [w0] + ws[1:], bs, **kw)
   with torch.no_grad(), pytest.raises(NotImplementedError, match='ReLU'):
     fused_mlp.fused_trunk(segs, ws, bs, activation=torch.tanh, **kw)
   segs, ws, bs, kw = _case('K2', dev, n=8, width=64)
   kw.pop('wd'), kw.pop('head_cdt')
   with torch.no_grad(), pytest.raises(NotImplementedError, match='width 64'):
     fused_mlp.fused_trunk(segs, ws, bs, **kw)
+
+
+def _rays(n, dev):
+  rng = np.random.default_rng(0)
+  d = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)
+  rays = rays_lib.dummy_rays(n, dev)
+  rays.directions, rays.viewdirs = d, d / d.norm(dim=-1, keepdim=True)
+  rays.radii = rays.radii + 1e-3
+  rays.near, rays.far = rays.near + 2, rays.far + 5
+  rays.lossmult = rays.lossmult + 1
+  return rays
 
 
 @pytest.mark.cuda
@@ -118,18 +206,38 @@ def test_model_kernels_match_plain_path(dev, cdt):
       ['Model.num_prop_samples = 16', 'Model.num_nerf_samples = 16',
        f"NerfMLP.compute_dtype = '{cdt}'"])
   model = construct.construct_model(config, gin, dev)
-  rng = np.random.default_rng(0)
-  d = torch.tensor(rng.normal(size=(100, 3)).astype(np.float32), device=dev)
-  rays = rays_lib.dummy_rays(100, dev)
-  rays.directions, rays.viewdirs = d, d / d.norm(dim=-1, keepdim=True)
-  rays.radii = rays.radii + 1e-3
-  rays.near, rays.far = rays.near + 2, rays.far + 5
-  before = fused_mlp.fused_encoded_trunk.launches
-  out = renderer.render_rays(model, rays, 64)
-  assert fused_mlp.fused_encoded_trunk.launches == before + 2 * 2
-  model.nerf_mlp.cfg.fused_trunk = 'off'
-  plain = renderer.render_rays(model, rays, 64)
+  rays = _rays(100, dev)
+  before = fused_mlp.launches['K1']
+  with torch.no_grad():
+    out = renderer.render_rays(model, rays, 64)
+    assert fused_mlp.launches['K1'] == before + 2 * 2
+    model.nerf_mlp.cfg.fused_trunk = 'off'
+    plain = renderer.render_rays(model, rays, 64)
   for k in out:
     assert torch.isfinite(out[k]).all()
     err = (out[k] - plain[k]).abs().max().item()
     assert err <= BOUND[cdt], (k, err)
+
+
+@pytest.mark.cuda
+def test_train_step_kernels_match_plain_path(dev):
+  # The flagship's train step at full width and 16 samples per level, f32:
+  # the loss and every gradient through K2-K5 against fused_trunk='off'.
+  config, gin = configs.parse(
+      [GIN], ['Model.num_prop_samples = 16', 'Model.num_nerf_samples = 16',
+              'Config.sample_noise_size = 0'])
+  model = construct.construct_model(config, gin, dev)
+  batch = rays_lib.Batch(rays=_rays(100, dev),
+                         rgb=torch.rand(100, 3, generator=torch.Generator()
+                                        .manual_seed(0)).to(dev))
+  state = step_lib.create_train_state(config, model)
+  train = step_lib.make_train_step(model, config)
+  before = dict(fused_mlp.launches)
+  loss, _, grads = train.loss_and_grads(state, batch)
+  for k in ('K2', 'K3', 'K4', 'K5'):
+    assert fused_mlp.launches[k] == before[k] + 2, k
+  model.nerf_mlp.cfg.fused_trunk = 'off'
+  loss_off, _, grads_off = train.loss_and_grads(state, batch)
+  assert abs(loss.item() - loss_off.item()) <= 1e-4 * abs(loss_off.item())
+  for k in grads:
+    _assert_close([grads[k]], [grads_off[k]], 'float32', k, n_values=0)

@@ -265,7 +265,7 @@ def test_unported_paths_are_refused():
     configs.parse([GIN], ['Config.batch_sizee = 2'])
   config, _ = configs.parse([GIN], [])
   assert (config.near, config.far, config.render_chunk_size) == (2, 6, 4096)
-  assert config.unread['batch_size'] == 1024 and not config.randomized
+  assert config.batch_size == 1024 and not config.randomized
 
 
 def test_port_imports_no_jax_and_renders_on_cpu():

@@ -91,9 +91,9 @@ def test_encoded_trunk_matches_pallas_and_reference(cdt):
                                       compute_dtype=cdt, block=32, **heads)
   oracle = jfused.reference_encoded_trunk(*args, skip_period=SKIP,
                                           compute_dtype=cdt, **heads)
-  launches = fused_mlp.fused_encoded_trunk.launches
+  launches = fused_mlp.launches["K1"]
   port = _run_k1(lm, lv, _torch_params(p), cdt)
-  assert fused_mlp.fused_encoded_trunk.launches == launches  # CPU: plain
+  assert fused_mlp.launches["K1"] == launches  # CPU: plain
   assert [tuple(o.shape) for o in port] == [(5, 13), (5, 13, 10), (5, 13, 16)]
   assert port[2].dtype == fused_mlp.DTYPES[cdt]
   for name, a, b, c in zip(('sigma', 'h_f32', 'h_cdt'), port, pallas, oracle):
@@ -186,10 +186,10 @@ def test_mode_off_and_cpu_take_the_plain_version():
   rng = np.random.default_rng(3)
   lm, lv = _lifted(rng, (4,))
   tp = _torch_params(_trunk_params(rng, fin=96))
-  before = fused_mlp.fused_encoded_trunk.launches
+  before = fused_mlp.launches["K1"]
   on, off = _run_k1(lm, lv, tp, 'float32', 'on'), _run_k1(lm, lv, tp,
                                                           'float32', 'off')
-  assert fused_mlp.fused_encoded_trunk.launches == before
+  assert fused_mlp.launches["K1"] == before
   for a, b in zip(on, off):
     assert torch.equal(a, b)
   with pytest.raises(ValueError):
