@@ -27,10 +27,24 @@ Phases, each printed on its own line:
      JAX step (3 warm-up steps, then 10 timed ones); check every loss term is
      finite, the parameters moved, and K2-K5 each ran levels x steps times;
      take one more step's gradients with fused_trunk='off' from the same
-     state and compare the loss and the global gradient norm.
-The line before the last is a JSON list of the kernels; the last line is
-{"ok": true, "device": {...}}. Any failure raises: the exit code is not 0 and
-no result line is printed.
+     state and compare the loss and the global gradient norm;
+  7. hold the fused directional stages against their plain versions at the
+     same N, in float32 and bfloat16, forward and backward, and time both:
+     K8 (the IDE in the directional trunk), K8+K9 (with the direction
+     geometry), K10 (the colour epilogue) and all three;
+  8. the flagship with NerfMLP.fuse_dir_enc, fuse_dir_geo and fuse_dir_rgb:
+     three served requests and 10 train steps through the kernels (K8-K10
+     each counted levels times per request, twice that per step), each
+     against fused_trunk='off'; a 4096-ray request and a train step timed in
+     turns against the same model unfused (phases 4 and 6), and one of each
+     under torch.profiler (device busy share, device time by kernel).
+The line before the last is a JSON list of the kernels, each with its
+launches on the main path (phases 4, 6 and 8), its time and its plain
+version's at N, and its bound: the larger of the bytes it must move (each
+input read once, each output written once) at 3.35 TB/s and its operations
+at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32).
+The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
+code is not 0 and no result line is printed.
 """
 
 import json
@@ -72,6 +86,12 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 4096, 3, 10
 TRAIN_LOSS_BOUND, TRAIN_GNORM_BOUND = 1e-3, 1e-2
 # Served rgb of the kernel path vs fused_trunk='off' (both bf16 trunks).
 PATH_BOUND = 2e-2
+# The flags of the fused directional stage (K8-K10), phase 8.
+FUSE = ['NerfMLP.fuse_dir_enc = True', 'NerfMLP.fuse_dir_geo = True',
+        'NerfMLP.fuse_dir_rgb = True']
+# Peak rates of one H100 SXM (dense) and its memory rate, for the bounds.
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+MEM_RATE = 3.35e12
 
 
 def log(msg):
@@ -151,29 +171,69 @@ def errors(got, want, cdt, n_values):
   return rows
 
 
-def compare(which, cdt, kernel, plain, n_values, iters=5):
+def nbytes(tensors):
+  """Bytes of the tensors (Nones and duplicates skipped), each counted once."""
+  seen, total = set(), 0
+  for t in flatten(tensors):
+    if t.data_ptr() not in seen:
+      seen.add(t.data_ptr())
+      total += t.numel() * t.element_size()
+  return total
+
+
+def trunk_flops(ws, n, heads, passes):
+  """`_make_op`'s count (fused_mlp.py:925): 2 n (the trunk's weights + width
+  x head outputs) per pass."""
+  width = ws[0].shape[0]
+  return 2 * n * (sum(w.numel() for w in ws) + width * heads) * passes
+
+
+def bound(cdt, flops, nbytes_moved, f32_flops=0):
+  """(ms, 'bytes' or 'operations'): the least time the card could take."""
+  t_ops = flops / PEAK_FLOPS[cdt] + f32_flops / PEAK_FLOPS['float32']
+  t_bytes = nbytes_moved / MEM_RATE
+  return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
+            flops=0, f32_flops=0):
   """Run kernel() and plain() once and compare every output (see errors());
-  then time both in turns. Returns (max abs err, kernel ms, plain ms)."""
-  phase = 5 if which in ('K3', 'K4', 'K5') else 3
+  then time both in turns. Returns a dict: max_abs_err, ms, plain_ms, and
+  the bound from `flops` (in the compute dtype), `f32_flops` and the bytes
+  of `inputs` and of the kernel's outputs."""
   with torch.no_grad():
     got, want = flatten(kernel()), flatten(plain())
     torch.cuda.synchronize()
     rows = errors(got, want, cdt, n_values)
+    moved = nbytes(list(inputs) + got)
     del got, want
     p1, k1 = cuda_ms(plain, iters), cuda_ms(kernel, iters)
     k2, p2 = cuda_ms(kernel, iters), cuda_ms(plain, iters)
   ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
   err, worst = max(r[0] for r in rows), max(r[3] for r in rows)
+  bound_ms, bound_by = bound(cdt, flops, moved, f32_flops)
   detail = '; '.join(f'{i}: {r[1]:.2e} max, {r[2]:.2e} l2'
                      for i, r in enumerate(rows))
   log(f'phase {phase}: {which} {cdt} N={N_SAMPLES}: max_abs_err {err:.3e} '
       f'({worst:.3f} of its bound), kernel {ms:.3f} ms, plain '
-      f'{plain_ms:.3f} ms; per output (relative to max|plain|, relative L2, '
-      f'derivatives from output {n_values}): {detail}')
+      f'{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; '
+      f'{moved / 1e6:.1f} MB); per output (relative to max|plain|, relative '
+      f'L2, derivatives from output {n_values}): {detail}')
   if not worst <= 1.0:
     raise AssertionError(f'{which} {cdt}: an output is {worst:.3f} times '
                          'its bound')
-  return err, ms, plain_ms
+  return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by)
+
+
+def pack_tensors(pack):
+  return [pack.w, pack.b, pack.wd, pack.wh, pack.bh, pack.wc, pack.bc]
+
+
+def n_heads(kw):
+  """Outputs of the heads on y: density, the f32 block, the cdt block."""
+  return (sum(h[0].shape[0] for h in (kw.get('head_f32'), kw.get('head_cdt'))
+              if h is not None) + int(kw.get('wd') is not None))
 
 
 def check_kernels(fused_mlp, dev):
@@ -188,7 +248,10 @@ def check_kernels(fused_mlp, dev):
       kernel = lambda: fused_mlp.trunk_kernel(segs, pack)
       plain = lambda: fused_mlp.trunk_reference(segs, ws, bs,
                                                 compute_dtype=cdt, **kw)
-      results[which, cdt] = compare(which, cdt, kernel, plain, n_values=3)
+      results[which, cdt] = compare(
+          which, cdt, kernel, plain, n_values=3,
+          inputs=segs + pack_tensors(pack),
+          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 1))
   return results
 
 
@@ -246,24 +309,41 @@ def check_rendering(out, shape, config, pad):
           f'acc [{acc.min().item():.4f}, {acc.max().item():.4f}]')
 
 
-def serve(fused_mlp, dev):
-  """Phase 4: the flagship model answers three requests through the kernels."""
+def flagship(dev, bindings=()):
+  """The model of configs/blender_refnerf.gin with bf16 trunks and weights
+  from Config.seed, and its Config."""
   from refnerf_tpu_torch import configs
-  from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import construct
-  from refnerf_tpu_torch.models import renderer
-
   gin_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           'configs', 'blender_refnerf.gin')
   config, gin = configs.parse(
       [gin_file], [f'Config.seed = {SEED}',
-                   "NerfMLP.compute_dtype = 'bfloat16'"])
-  model = construct.construct_model(config, gin, dev)
+                   "NerfMLP.compute_dtype = 'bfloat16'", *bindings])
+  return construct.construct_model(config, gin, dev), config
+
+
+def set_mode(model, **fields):
+  """Set MLPConfig fields (fused_trunk, fuse_dir_*) on every MLP."""
+  for mlp in (model.nerf_mlp, model.prop_mlp):
+    if mlp is not None:
+      for k, v in fields.items():
+        setattr(mlp.cfg, k, v)
+
+
+def serve(fused_mlp, dev, bindings=(), phase=4, kernels=('K1', 'K2')):
+  """Phase 4 (8 with the fused directional stage): the flagship model
+  answers three requests through the kernels; each kernel in `kernels`
+  must run levels x chunks times a request, and no training kernel. Then
+  the first request again with fused_trunk='off'. Returns the launches."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+
+  model, config = flagship(dev, bindings)
   levels, chunk = model.cfg.num_levels, config.render_chunk_size
   pad = model.nerf_mlp.cfg.rgb_padding
   n_params = sum(p.numel() for p in model.parameters())
-  log(f'phase 4: model {os.path.basename(gin_file)} bf16 trunks, '
-      f'{n_params} parameters, {levels} levels x '
+  log(f'phase {phase}: model blender_refnerf.gin {" ".join(bindings)} bf16 '
+      f'trunks, {n_params} parameters, {levels} levels x '
       f'{model.cfg.num_nerf_samples} samples, chunk {chunk}')
 
   requests = [
@@ -283,7 +363,7 @@ def serve(fused_mlp, dev):
   for name, make in requests:
     rays = make()
     n = math.prod(rays.shape)
-    before = [counts['K1'], counts['K2']]
+    before = [counts[k] for k in kernels]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if len(rays.shape) == 2:
@@ -294,12 +374,13 @@ def serve(fused_mlp, dev):
     dt = time.perf_counter() - t0
     ranges = check_rendering(out, tuple(rays.shape), config, pad)
     want = levels * -(-n // chunk)
-    got = [counts[k] - b for k, b in zip(('K1', 'K2'), before)]
-    if got != [want, want]:
-      raise AssertionError(f'{name}: launches {got}, expected {want} each')
-    log(f'phase 4: request {name}: {dt * 1e3:.1f} ms, {n / dt:.0f} rays/s, '
-        f'{ranges}, launches K1 {got[0]} K2 {got[1]} (= {levels} levels x '
-        f'{want // levels} chunks)')
+    got = [counts[k] - b for k, b in zip(kernels, before)]
+    if got != [want] * len(kernels):
+      raise AssertionError(f'{name}: launches {got} of {kernels}, expected '
+                           f'{want} each')
+    log(f'phase {phase}: request {name}: {dt * 1e3:.1f} ms, {n / dt:.0f} '
+        f'rays/s, {ranges}, launches {dict(zip(kernels, got))} (= {levels} '
+        f'levels x {want // levels} chunks each)')
     if first is None:
       first = (rays, out)
   launches = dict(counts)
@@ -307,17 +388,16 @@ def serve(fused_mlp, dev):
     raise AssertionError(f'serving launched a training kernel: {launches}')
 
   # The same request through the plain versions on the card.
-  for mlp in (model.nerf_mlp, model.prop_mlp):
-    if mlp is not None:
-      mlp.cfg.fused_trunk = 'off'
+  set_mode(model, fused_trunk='off')
   plain = renderer.render_rays(model, first[0], chunk)
   torch.cuda.synchronize()
   if counts != launches:
     raise AssertionError("fused_trunk='off' launched a kernel")
   diff = (plain['rgb'] - first[1]['rgb']).abs().max().item()
   acc_diff = (plain['acc'] - first[1]['acc']).abs().max().item()
-  log(f"phase 4: request 4096 rays, kernels vs fused_trunk='off': max |rgb| "
-      f'diff {diff:.3e}, max |acc| diff {acc_diff:.3e} (bound {PATH_BOUND})')
+  log(f"phase {phase}: request 4096 rays, kernels vs fused_trunk='off': max "
+      f'|rgb| diff {diff:.3e}, max |acc| diff {acc_diff:.3e} (bound '
+      f'{PATH_BOUND})')
   if not (diff <= PATH_BOUND and acc_diff <= PATH_BOUND):
     raise AssertionError('kernel path disagrees with the plain path')
   return launches
@@ -350,7 +430,10 @@ def check_train_kernels(fused_mlp, dev):
           return out[:-2] + [fused_mlp.fold_density_grad(out[-2:], *cs,
                                                          fold)]
         # sigma, the two heads, then u.
-        results[which, cdt] = compare(which, cdt, kernel, plain, n_values=3)
+        results[which, cdt] = compare(
+            which, cdt, kernel, plain, n_values=3, phase=5,
+            inputs=cs + pack_tensors(pack) + [fold],
+            flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 2))
       else:
         f = fold if spatial else None
         kernel = lambda: fused_mlp.trunk_backward_kernel(
@@ -358,31 +441,25 @@ def check_train_kernels(fused_mlp, dev):
         plain = lambda: fused_mlp.trunk_backward_reference(
             cs, ws, bs, cots, compute_dtype=cdt, fold=f,
             needs_dx=not spatial, **kw)
-        results[which, cdt] = compare(which, cdt, kernel, plain, n_values=0,
-                                      iters=3)
+        results[which, cdt] = compare(
+            which, cdt, kernel, plain, n_values=0, iters=3, phase=5,
+            inputs=cs + pack_tensors(pack) + list(cots) + [f],
+            flops=trunk_flops(ws, N_SAMPLES, n_heads(kw),
+                              6 if spatial else 4))
       del pack
     del segs, ws, bs, kw, cots
     torch.cuda.empty_cache()
   return results
 
 
-def train(fused_mlp, dev):
-  """Phase 6: train steps of the flagship through the kernels."""
-  from refnerf_tpu_torch import configs
+def train_setup(dev, bindings=()):
+  """The flagship at batch TRAIN_BATCH as bench.py trains it: model, train
+  state, step and a batch of rays and pixels made as bench.py makes them."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
-  from refnerf_tpu_torch.models import construct
   from refnerf_tpu_torch.train import step as step_lib
-
-  gin_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          'configs', 'blender_refnerf.gin')
-  config, gin = configs.parse(
-      [gin_file], [f'Config.seed = {SEED}',
-                   f'Config.batch_size = {TRAIN_BATCH}',
-                   'Config.randomized = False', 'Config.sample_noise_size = 0',
-                   "NerfMLP.compute_dtype = 'bfloat16'"])
-  model = construct.construct_model(config, gin, dev)
-  levels = model.cfg.num_levels
-  # Rays and pixels as bench.py makes them.
+  model, config = flagship(dev, [
+      f'Config.batch_size = {TRAIN_BATCH}', 'Config.randomized = False',
+      'Config.sample_noise_size = 0', *bindings])
   rng = np.random.RandomState(0)
   d = rng.randn(TRAIN_BATCH, 3).astype(np.float32)
   rays = rays_from(rays_lib, rng.randn(TRAIN_BATCH, 3).astype(np.float32) * 0.1,
@@ -392,11 +469,21 @@ def train(fused_mlp, dev):
       rng.uniform(0, 1, (TRAIN_BATCH, 3)).astype(np.float32)).to(dev)
   batch = rays_lib.Batch(rays=rays, rgb=rgb)
   state = step_lib.create_train_state(config, model)
-  train_step = step_lib.make_train_step(model, config)
+  return model, state, step_lib.make_train_step(model, config), batch
+
+
+def train(fused_mlp, dev, bindings=(), phase=6, per_step=None):
+  """Phase 6 (8 with the fused directional stage): train steps of the
+  flagship through the kernels; `per_step` are the launches each kernel
+  must make a step. Then one step's gradients against fused_trunk='off'.
+  Returns (launches, seconds per step, (model, state, step, batch))."""
+  from refnerf_tpu_torch.train import step as step_lib
+  model, state, train_step, batch = train_setup(dev, bindings)
+  levels = model.cfg.num_levels
   start = {k: p.detach().clone() for k, p in model.named_parameters()}
-  log(f'phase 6: model {os.path.basename(gin_file)} bf16 trunks, batch '
-      f'{TRAIN_BATCH}, {levels} levels x {model.cfg.num_nerf_samples} '
-      'samples')
+  log(f'phase {phase}: model blender_refnerf.gin {" ".join(bindings)} bf16 '
+      f'trunks, batch {TRAIN_BATCH}, {levels} levels x '
+      f'{model.cfg.num_nerf_samples} samples')
 
   def check(stats, step):
     for k, v in [('loss', stats['loss']), *stats['losses'].items()]:
@@ -420,8 +507,8 @@ def train(fused_mlp, dev):
   launches = dict(fused_mlp.launches)
   for i, stats in enumerate(all_stats):
     check(stats, TRAIN_WARMUP + i)
-  want = {'K1': 0, 'K2': levels * TRAIN_STEPS, 'K3': levels * TRAIN_STEPS,
-          'K4': levels * TRAIN_STEPS, 'K5': levels * TRAIN_STEPS}
+  per_step = per_step or {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1}
+  want = {k: levels * TRAIN_STEPS * per_step.get(k, 0) for k in launches}
   if launches != want:
     raise AssertionError(f'train launches {launches}, expected {want}')
   moved = max((p.detach() - start[k]).abs().max().item()
@@ -430,7 +517,7 @@ def train(fused_mlp, dev):
     raise AssertionError('the parameters did not change')
   last = all_stats[-1]
   terms = ', '.join(f'{k} {v.item():.6g}' for k, v in last['losses'].items())
-  log(f'phase 6: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: '
+  log(f'phase {phase}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: '
       f'{dt * 1e3:.2f} ms/step, {TRAIN_BATCH / dt:.0f} train rays/s, peak '
       f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; step '
       f'{state.step}: loss {last["loss"].item():.6g} ({terms}), psnr '
@@ -441,21 +528,201 @@ def train(fused_mlp, dev):
   loss_k, _, grads_k = train_step.loss_and_grads(state, batch)
   norm_k = step_lib.global_norm(grads_k.values()).item()
   del grads_k
-  model.nerf_mlp.cfg.fused_trunk = 'off'
+  set_mode(model, fused_trunk='off')
   before = dict(fused_mlp.launches)
   loss_p, _, grads_p = train_step.loss_and_grads(state, batch)
   norm_p = step_lib.global_norm(grads_p.values()).item()
+  del grads_p
+  set_mode(model, fused_trunk='auto')
   if fused_mlp.launches != before:
     raise AssertionError("fused_trunk='off' launched a kernel")
   dl = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
   dn = abs(norm_k - norm_p) / norm_p
-  log(f"phase 6: step {state.step} kernels vs fused_trunk='off': loss "
+  log(f"phase {phase}: step {state.step} kernels vs fused_trunk='off': loss "
       f'{loss_k.item():.6g} vs {loss_p.item():.6g} (rel {dl:.2e}, bound '
       f'{TRAIN_LOSS_BOUND}), grad norm {norm_k:.6g} vs {norm_p:.6g} (rel '
       f'{dn:.2e}, bound {TRAIN_GNORM_BOUND})')
   if not (dl <= TRAIN_LOSS_BOUND and dn <= TRAIN_GNORM_BOUND):
     raise AssertionError('the kernel train step disagrees with the plain one')
-  return launches, dt
+  return launches, dt, (model, state, train_step, batch)
+
+
+# Phase 7: (name, (IDE, geometry, colour epilogue)) of each fused mode; K9
+# runs with K8, as it does in the model.
+DIR_CASES = (('K8', (True, False, False)), ('K9', (True, True, False)),
+             ('K10', (False, False, True)), ('K8+K9+K10', (True, True, True)))
+
+
+def dir_case(fused_mlp, gen, dev, ide, geo, rgb):
+  """The flagship directional trunk (trunk_case 'K2') on the raw inputs of a
+  mode, N_SAMPLES rows: bottleneck 128 | refdirs, kappa_inv, n.v (K8), or
+  grad_pred, viewdirs, kappa_inv (K8+K9), or the 73-wide encoding (K10
+  alone); kappa_inv in [0.05, 0.5], as the model's roughness (below 0.05
+  the f32 IDE at deg_view 5 depends on the summation order, ROADMAP H9)."""
+  segs, ws, bs, kw = trunk_case('K2', gen, dev)
+  n = N_SAMPLES
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  unit = lambda v: v / v.norm(dim=-1, keepdim=True)
+  ki = 0.05 + 0.45 * torch.rand(n, 1, generator=gen).to(dev)
+  if ide and geo:
+    segs = [segs[0], rand(n, 3), unit(rand(n, 3)), ki]
+  elif ide:
+    segs = [segs[0], unit(rand(n, 3)), ki, segs[1][:, :1].contiguous()]
+  dm = fused_mlp.DirModes(5 if ide else 0, 1, geo,
+                          (1.0, 0.0, 0.001) if rgb else None)
+  rgbx = (rand(n, 3), rand(n, 3)) if rgb else None
+  return segs, ws, bs, kw['head_f32'], dm, rgbx
+
+
+def check_dir_kernels(fused_mlp, dev):
+  """Phase 7: K8, K8+K9, K10 and all three against their plain versions,
+  forward and backward, f32 and bf16."""
+  gen = torch.Generator().manual_seed(SEED + 2)
+  results = {}
+  for which, (ide, geo, rgb) in DIR_CASES:
+    segs, ws, bs, head, dm, rgbx = dir_case(fused_mlp, gen, dev, ide, geo,
+                                            rgb)
+    raw = range(1, 1 + dm.n_raw())
+    rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    cots = (None, rand(N_SAMPLES, 3), None, None)
+    rgb_bar = rand(N_SAMPLES, 3) if rgb else None
+    mat = fused_mlp.ref_utils.ide_tables(5)[0]
+    # The IDE's three [l_max + 1] x P contractions a sample, in f32; twice
+    # in the backward (the recompute and the transposed contractions).
+    ide_flops = 2 * 3 * mat.size * N_SAMPLES if ide else 0
+    kw = dict(dir_modes=dm, rgbx=rgbx)
+    for cdt in ('float32', 'bfloat16'):
+      cs = [s if j in raw else s.to(fused_mlp.DTYPES[cdt])
+            for j, s in enumerate(segs)]
+      pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(cs, dm),
+                                  head_f32=head, compute_dtype=cdt)
+      inputs = cs + pack_tensors(pack) + list(rgbx or [])
+      results[which, cdt] = compare(
+          which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, **kw),
+          lambda: fused_mlp.trunk_reference(cs, ws, bs, head_f32=head,
+                                            compute_dtype=cdt, **kw),
+          n_values=2 if rgb else 1, phase=7, inputs=inputs,
+          flops=trunk_flops(ws, N_SAMPLES, 3, 1), f32_flops=ide_flops)
+      results[which + ' backward', cdt] = compare(
+          which + ' backward', cdt,
+          lambda: fused_mlp.trunk_backward_kernel(
+              cs, pack, cots, needs_dx=True, rgb_bar=rgb_bar, **kw),
+          lambda: fused_mlp.trunk_backward_reference(
+              cs, ws, bs, cots, head_f32=head, compute_dtype=cdt,
+              needs_dx=True, rgb_bar=rgb_bar, **kw),
+          n_values=0, iters=3, phase=7,
+          inputs=inputs + [cots[1], rgb_bar],
+          flops=trunk_flops(ws, N_SAMPLES, 3, 4), f32_flops=2 * ide_flops)
+      del pack
+    del segs, ws, bs, cots, rgbx
+    torch.cuda.empty_cache()
+  return results
+
+
+FUSE_FLAGS = ('fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb')
+
+
+def in_turns(run, arms, blocks=2, reps=5):
+  """Seconds of run() per call under each arm (a dict of MLPConfig fields),
+  timed in turns a, b, b, a, ... over `blocks` pairs of `reps` calls each.
+  Returns {arm: [seconds, ...]}."""
+  names = list(arms)
+  order = []
+  for i in range(blocks):
+    order += names if i % 2 == 0 else names[::-1]
+  times = {a: [] for a in names}
+  for a in order:
+    set_mode(arms[a][0], **arms[a][1])
+    run()  # the first call after a switch packs the weights: not timed
+    for _ in range(reps):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      run()
+      torch.cuda.synchronize()
+      times[a].append(time.perf_counter() - t0)
+  return times
+
+
+def profile(run, what, calls):
+  """One torch.profiler window over `calls` calls of run(): wall, device
+  busy and idle share, kernels launched, device time by kernel name."""
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile as torch_profile
+  run()
+  torch.cuda.synchronize()
+  with torch_profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(calls):
+      run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  dev_us = lambda e: getattr(e, 'self_device_time_total',
+                             getattr(e, 'self_cuda_time_total', 0))
+  busy = sum(dev_us(e) for e in kernels) / 1e6
+  if busy <= 0:
+    log(f'phase 8: profile {what}: the profiler saw no device time')
+    return
+  top = sorted(kernels, key=dev_us, reverse=True)[:8]
+  log(f'phase 8: profile {what} ({calls} calls): wall {wall * 1e3:.2f} ms, '
+      f'device busy {busy * 1e3:.2f} ms, idle {100 * (1 - busy / wall):.1f}%, '
+      f'{sum(e.count for e in kernels) / calls:.0f} kernel launches a call; '
+      'device ms a call by kernel: ' + '; '.join(
+          f'{e.key[:60]} {dev_us(e) / 1e3 / calls:.3f}' for e in top))
+
+
+def fused_stage(fused_mlp, dev):
+  """Phase 8: the flagship with the fused directional stage, served and
+  trained through the kernels, against fused_trunk='off' and timed in
+  turns against the same model unfused."""
+  from refnerf_tpu_torch.models import renderer
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  serve_launches = serve(fused_mlp, dev, FUSE, phase=8,
+                         kernels=('K1', 'K2', 'K8', 'K9', 'K10'))
+  per_step = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K8': 2, 'K9': 2,
+              'K10': 2}
+  train_launches, step_s, (model, state, train_step, batch) = train(
+      fused_mlp, dev, FUSE, phase=8, per_step=per_step)
+
+  fused = {f: True for f in FUSE_FLAGS}
+  unfused = {f: False for f in FUSE_FLAGS}
+  box = {'state': state}
+
+  def step():
+    box['state'], _ = train_step(box['state'], batch)
+
+  times = in_turns(step, {'fused': (model, fused),
+                          'unfused': (model, unfused)})
+  # A 4096-ray request (one chunk) on the same weights.
+  _, config = flagship(dev)
+  rays = random_rays(rays_lib, 4096, config, 1, dev)
+  request = lambda: renderer.render_rays(model, rays,
+                                         config.render_chunk_size)
+  with torch.no_grad():
+    rtimes = in_turns(request, {
+        'fused': (model, {**fused, 'fused_trunk': 'auto'}),
+        'unfused': (model, {**unfused, 'fused_trunk': 'auto'}),
+        'off': (model, {**fused, 'fused_trunk': 'off'})})
+  med = lambda v: float(np.median(v)) * 1e3
+  log('phase 8: train step in turns (fused, unfused, unfused, fused; 5 steps '
+      'a block): ' + ', '.join(
+          f'{a} {med(v):.2f} ms median [{min(v) * 1e3:.2f}, '
+          f'{max(v) * 1e3:.2f}]' for a, v in times.items()))
+  log('phase 8: 4096-ray request in turns (5 requests a block): ' + ', '.join(
+      f'{a} {med(v):.2f} ms median [{min(v) * 1e3:.2f}, {max(v) * 1e3:.2f}]'
+      for a, v in rtimes.items()))
+  set_mode(model, fused_trunk='auto', **fused)
+  with torch.no_grad():
+    profile(request, 'fused 4096-ray request', 3)
+  profile(step, 'fused train step', 2)
+  return serve_launches, train_launches, step_s, {
+      'step_fused_ms': med(times['fused']),
+      'step_unfused_ms': med(times['unfused']),
+      'request_fused_ms': med(rtimes['fused']),
+      'request_unfused_ms': med(rtimes['unfused']),
+      'request_off_ms': med(rtimes['off'])}
 
 
 def main():
@@ -490,34 +757,58 @@ def main():
   kernels = check_kernels(fused_mlp, dev)
   launches = serve(fused_mlp, dev)
   kernels.update(check_train_kernels(fused_mlp, dev))
-  train_launches, step_s = train(fused_mlp, dev)
+  train_launches, step_s, _ = train(fused_mlp, dev)
+  kernels.update(check_dir_kernels(fused_mlp, dev))
+  dir_serve, dir_train, dir_step_s, ab = fused_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
+  dir_src = 'refnerf_tpu_torch/csrc/trunk_common.cuh'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
+  # name: (description, source, line of the TPU kernel, launches on the
+  # main path: phase 4's requests, phase 6's steps, or both of phase 8).
   names = {
-      'K1': ('spatial trunk (fused_encoded_trunk)', fwd_src, 612, launches),
-      'K2': ('directional trunk (fused_trunk)', fwd_src, 612, launches),
+      'K1': ('spatial trunk (fused_encoded_trunk)', fwd_src, 612,
+             launches['K1']),
+      'K2': ('directional trunk (fused_trunk)', fwd_src, 612, launches['K2']),
       'K3': ('spatial trunk with the density gradient', fwd_src, 589,
-             train_launches),
-      'K4': ('spatial trunk backward', bwd_src, 668, train_launches),
+             train_launches['K3']),
+      'K4': ('spatial trunk backward', bwd_src, 668, train_launches['K4']),
       'K5': ('directional trunk backward with dx', bwd_src, 668,
-             train_launches)}
+             train_launches['K5']),
+      'K8': ('in-kernel IDE in the directional trunk, fwd and bwd', dir_src,
+             402, dir_serve['K8'] + dir_train['K8']),
+      'K9': ('in-kernel direction geometry (with K8), fwd and bwd', dir_src,
+             355, dir_serve['K9'] + dir_train['K9']),
+      'K10': ('in-kernel colour epilogue, fwd and bwd', dir_src, 283,
+              dir_serve['K10'] + dir_train['K10'])}
   line = []
-  for which, (desc, src, at, counts) in names.items():
-    err, ms, plain_ms = kernels[which, 'bfloat16']
-    err32, ms32, plain32 = kernels[which, 'float32']
+  for which, (desc, src, at, count) in names.items():
+    b16, f32 = kernels[which, 'bfloat16'], kernels[which, 'float32']
     entry = {
         'name': f'{which} {desc}', 'route': 'cuda', 'source': src,
-        'replaces': f'{pallas}:{at}', 'launches': counts[which],
-        'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+        'replaces': f'{pallas}:{at}', 'launches': count,
+        'max_abs_err': b16['max_abs_err'], 'ms': b16['ms'],
+        'plain_ms': b16['plain_ms'], 'bound_ms': b16['bound_ms'],
+        'bound_by': b16['bound_by'], 'library_ms': None,
         'dtype': 'bfloat16', 'n_samples': N_SAMPLES,
-        'f32_max_abs_err': err32, 'f32_ms': ms32, 'f32_plain_ms': plain32}
+        'f32_max_abs_err': f32['max_abs_err'], 'f32_ms': f32['ms'],
+        'f32_plain_ms': f32['plain_ms'], 'f32_bound_ms': f32['bound_ms']}
+    if which in ('K8', 'K9', 'K10'):
+      entry['serve_launches'] = dir_serve[which]
+      entry['train_launches'] = dir_train[which]
+      for cdt, pre in (('bfloat16', 'bwd_'), ('float32', 'f32_bwd_')):
+        bw = kernels[which + ' backward', cdt]
+        entry.update({pre + 'ms': bw['ms'], pre + 'plain_ms': bw['plain_ms'],
+                      pre + 'bound_ms': bw['bound_ms'],
+                      pre + 'max_abs_err': bw['max_abs_err']})
     if which == 'K2':
       entry['train_launches'] = train_launches['K2']
     line.append(entry)
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
-      f'{TRAIN_BATCH / step_s:.0f} train rays/s')
+      f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
+      f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '
+      f'train rays/s; in turns {json.dumps(ab)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional
 
-from refnerf_tpu.utils import ginlite
+from refnerf_tpu_torch.utils import ginlite
 
 _CONFIGS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs')

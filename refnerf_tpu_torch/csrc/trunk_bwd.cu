@@ -1,12 +1,21 @@
 // Layer-fused dense trunk backward for Hopper (sm_90a).
 //
 // Replaces the backward Pallas kernel `_bwd_kernel` (:668-853) of
-// refnerf_tpu/ops/pallas/fused_mlp.py in two modes:
+// refnerf_tpu/ops/pallas/fused_mlp.py in these modes:
 //   K4  spatial trunk (`fused_encoded_trunk` with `density_grad`): cotangents
 //       of sigma, the f32 head block, the compute-dtype bottleneck and u;
 //       first- and second-order parameter gradients in one pass;
 //   K5  directional trunk (`fused_trunk`, `needs_dx`): cotangent of the f32
-//       rgb head; parameter gradients and each segment's cotangent.
+//       rgb head; parameter gradients and each segment's cotangent;
+//   K8  K5 with `ide` (:802-809, `_ide_bwd` :423): the IDE recomputed into
+//       the input tile; the f32 cotangents of its 72 columns go through the
+//       closed-form IDE backward in the CTA, so d refdirs and d kappa_inv
+//       (4 f32 a sample) leave instead of 73 compute-dtype columns;
+//   K9  K8 with `ide_geo` (:810-816): further through the geometry's vjp to
+//       d grad_pred;
+//   K10 K5 with `rgbe` (:752-764): the head is recomputed and the cotangent
+//       of the final rgb pulled back through the colour epilogue (JAX's tie
+//       rules) onto the head's cotangent, d raw diffuse and d raw tint.
 //
 // What it computes, in the Pallas order and casts (fused_mlp.py :705-853):
 //   recompute h_l (and, with u, the inner chain s_l = relu'(h_l) q_l);
@@ -63,6 +72,7 @@ struct BwdParams {
   const void* b;    // [depth][W]
   const float* wd;  // [W] density head, or null
   const float* wh;  // [hf][W] f32 head block, or null
+  const float* bh;  // [hf]
   int hf;
   const void* wct;    // [W][HC] compute-dtype head, transposed
   const float* sbar;  // [n] cotangent of sigma, or null
@@ -84,6 +94,13 @@ struct BwdParams {
   void* cs;           // [HC][rp] cbar
   float* vec;         // [rp / kRows][nvec] per-tile vector gradients:
   int nvec;           //   db [depth][W] | dwd [W] | dwh [hf][W] | dbh [hf] | dbc [HC]
+  DirIn dir;          // K8/K9: the IDE block between x0 and x1 (dir.p > 0)
+  float* ddg;         // [n][3] out: d refdirs, or d grad_pred in geo mode (K8)
+  float* ddk;         // [n] out: d kappa_inv (K8)
+  Rgbe rgbe;          // K10, with rgb_bar non-null
+  const float* rgb_bar;  // [n][3] cotangent of the final rgb
+  float* drawd;       // [n][3] out: d raw diffuse
+  float* drawt;       // [n][3] out: d raw tint
 };
 
 // The accumulator of a [kRows][NOUT] gemm, rounded to the compute dtype and
@@ -145,6 +162,9 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   float* sb = reinterpret_cast<float*>(bits + p.depth * kRows * MW);        // [kRows]
   float* hb = sb + kRows;                                                   // [kRows][hf]
   float* ub = hb + kRows * p.hf;                                            // [kRows][nb]
+  // K8: the IDE block's f32 cotangents [kRows][dir.width()], in the input
+  // tile's space once the first-order reverse no longer reads x.
+  float* dsh = reinterpret_cast<float*>(inb);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -176,19 +196,9 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     }
   }
 
-  // 1. The segments (zero-padded to kin and past the last row) and the
-  // cotangents; x to the scratch.
-  for (int i = tid; i < kRows * p.kin; i += kThreads) {
-    const int r = i / p.kin, c = i % p.kin, gr = row0 + r;
-    T v = from_f<T>(0.f);
-    if (gr < p.n) {
-      if (c < p.d0)
-        v = x0[static_cast<size_t>(gr) * p.d0 + c];
-      else if (c < p.d0 + p.d1)
-        v = x1[static_cast<size_t>(gr) * p.d1 + (c - p.d0)];
-    }
-    inb[r * ldi + c] = v;
-  }
+  // 1. The segments (with K8 the IDE block; zero-padded to kin and past the
+  // last row) and the cotangents; x to the scratch.
+  load_input<T>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
   for (int r = tid; r < kRows; r += kThreads)
     sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
   for (int i = tid; i < kRows * p.hf; i += kThreads)
@@ -224,6 +234,36 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     __syncthreads();
     save_mask<T, W>(bits + l * kRows * MW, act, LDA);
     store_fm<T>(hs + l * W * rp, rp, act, LDA, W);
+  }
+
+  // 2b. K10: the head recomputed on y and the cotangent of the final rgb
+  // pulled back through the colour epilogue onto the head's cotangent.
+  if (p.rgb_bar != nullptr) {
+    for (int r = warp; r < kRows; r += kThreads / 32) {
+      const int gr = row0 + r;
+      if (gr >= p.n) break;
+      float hv[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < W / 32; ++i)
+          s = fmaf(to_f(act[r * LDA + lane + 32 * i]), p.wh[j * W + lane + 32 * i], s);
+        hv[j] = warp_sum(s) + p.bh[j];
+      }
+      if (lane == 0) {
+        const size_t o = static_cast<size_t>(gr) * 3;
+        float out[3], drd[3], drt[3];
+        rgb_epilogue(hv, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, p.rgb_bar + o,
+                     hb + r * 3, drd, drt);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          p.drawd[o + c] = drd[c];
+          p.drawt[o + c] = drt[c];
+        }
+      }
+    }
+    __syncthreads();
   }
 
   // 3. The head gradients that read y (still resident): dwd, dwh, dbh.
@@ -313,9 +353,11 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     column_sums<T>(vec + l * W, act, LDA, W, false);
     if (p.dx0 != nullptr && (l == 0 || l == p.skip)) {
       // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0, accumulated in f32 in the
-      // Pallas order; the skip layer's share waits in the f32 scratch.
+      // Pallas order; the skip layer's share waits in the f32 scratch. With
+      // K8 the IDE block's f32 cotangents go to dsh (the input tile's space,
+      // free now) for the IDE backward below.
       const int base = l == 0 ? 0 : W;
-      const int fin = p.d0 + p.d1;
+      const int dide = p.dir.width(), fin = p.d0 + dide + p.d1;
       for (int c0 = 0; c0 < p.kin; c0 += 32) {
         float acc[2][1][4];
         gemm<T, 32>(acc, act, LDA, W, act, LDA, wt + off[l] + static_cast<size_t>(base + c0) * W,
@@ -333,11 +375,16 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
             }
             const float v = p.skip >= 0 ? *keep + acc[mt][0][i] : acc[mt][0][i];
             const size_t gr = static_cast<size_t>(row0 + r);
+            const int ci = c - p.d0;
+            if (ci >= 0 && ci < dide) {
+              dsh[r * dide + ci] = v;
+              continue;
+            }
             if (row0 + r >= p.n || c >= fin) continue;
             if (c < p.d0)
               static_cast<T*>(p.dx0)[gr * p.d0 + c] = from_f<T>(v);
             else
-              static_cast<T*>(p.dx1)[gr * p.d1 + (c - p.d0)] = from_f<T>(v);
+              static_cast<T*>(p.dx1)[gr * p.d1 + (ci - dide)] = from_f<T>(v);
           }
       }
     }
@@ -348,6 +395,9 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     }
     __syncthreads();
   }
+
+  // 6b. K8/K9: the IDE block's cotangents back to the raw inputs.
+  if (p.dir.p) ide_backward(p.dir, dsh, p.dir.width(), row0, p.n, p.ddg, p.ddk);
 
   // 7. With the cotangent of u: the tangent chain (:823-853). ts replaces x
   // in the input tile, element by element.
@@ -548,16 +598,38 @@ __global__ void reduce_kernel(const float* parts, int nparts, int rows, int k, i
 // not synchronise; all run on `stream`.
 
 // The per-tile backward over one slab of n samples (K4 with ubar, K5 with dx).
+// With ide_p > 0 (K8; K9 with geo) the columns between x0 and x1 are the
+// IDE of g and k as in refnerf_trunk_fwd, and d g, d k go to ddg [n][3] and
+// ddk [n] (needs dx); with rgb_bar non-null (K10) the cotangent of the final
+// rgb adds to the rgb head's, and d rawd, d rawt go to drawd, drawt [n][3].
 extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, int d0,
                                  const void* x1, int d1, int n, int kin, int depth, int skip,
                                  const void* w, const void* wt, const void* b, const float* wd,
-                                 const float* wh, int hf, const void* wct, const float* sbar,
-                                 const float* hbar, const void* cbar, const float* ubar,
-                                 const float* fold, int nb, void* dx0, void* dx1, float* dxs,
-                                 int rp, void* hs, void* zs, void* ss, void* ps, void* xs,
-                                 void* ts, void* cs, float* vec, int nvec, void* stream) {
-  if (n <= 0 || rp < n || rp % kRows != 0 || kin % kKS != 0 || d0 + d1 > kin || depth > 16 ||
-      depth < 1 || skip >= depth || (hf > 0 && wh == nullptr))
+                                 const float* wh, const float* bh, int hf, const void* wct,
+                                 const float* sbar, const float* hbar, const void* cbar,
+                                 const float* ubar, const float* fold, int nb, void* dx0,
+                                 void* dx1, float* dxs, int rp, void* hs, void* zs, void* ss,
+                                 void* ps, void* xs, void* ts, void* cs, float* vec, int nvec,
+                                 const float* g, const float* v, const float* k, int ide_p,
+                                 int lmax, int geo, const float* mat, const float* sg,
+                                 const float* gm, float* ddg, float* ddk, const float* rawd,
+                                 const float* rawt, const float* rgb_bar, float* drawd,
+                                 float* drawt, float premult, float rbias, float pad,
+                                 void* stream) {
+  const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
+  const int esize = dtype == 1 ? 2 : 4;
+  if (n <= 0 || rp < n || rp % kRows != 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin ||
+      depth > 16 || depth < 1 || skip >= depth || (hf > 0 && wh == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // K8 needs dx, and its f32 cotangents must fit in the input tile.
+  if (ide_p != 0 &&
+      (ide_p < 0 || lmax < 0 || lmax > 16 || g == nullptr || k == nullptr || mat == nullptr ||
+       sg == nullptr || gm == nullptr || (geo && v == nullptr) || dx0 == nullptr ||
+       ddg == nullptr || ddk == nullptr || ubar != nullptr ||
+       4 * dir.width() > (kin + 16 / esize) * esize))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rgb_bar != nullptr && (hf != 3 || bh == nullptr || rawd == nullptr || rawt == nullptr ||
+                             drawd == nullptr || drawt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (ubar != nullptr && (wd == nullptr || fold == nullptr || d0 != d1 || nb <= 0 || nb > 4 ||
                           ss == nullptr || ps == nullptr || ts == nullptr))
@@ -566,8 +638,9 @@ extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, i
     return static_cast<int>(cudaErrorInvalidValue);
   const int nvec_need = depth * width + (wd != nullptr ? width : 0) + hf * width + hf + hc;
   if (nvec != nvec_need) return static_cast<int>(cudaErrorInvalidValue);
-  BwdParams p{x0, x1, d0, d1, n, kin, depth, skip, w, wt, b, wd, wh, hf, wct, sbar, hbar,
-              cbar, ubar, fold, nb, dx0, dx1, dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec};
+  BwdParams p{x0, x1, d0, d1, n, kin, depth, skip, w, wt, b, wd, wh, bh, hf, wct, sbar, hbar,
+              cbar, ubar, fold, nb, dx0, dx1, dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
+              dir, ddg, ddk, Rgbe{rawd, rawt, premult, rbias, pad}, rgb_bar, drawd, drawt};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_bwd<float>(width, hc, p, s);
   if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(width, hc, p, s);

@@ -218,4 +218,283 @@ __device__ __forceinline__ bool mask_at(const uint32_t* bits, int r, int c) {
   return (bits[r * (W / 32) + (c >> 5)] >> (c & 31)) & 1u;
 }
 
+// ---------------------------------------------------------------------------
+// The fused directional stages of the directional trunk (fused_mlp.py
+// `ide`, `ide_geo`, `rgbe` modes): K8 the integrated directional encoding
+// (IDE) from refdirs and kappa_inv, K9 the direction geometry from grad_pred
+// and viewdirs, K10 the colour epilogue after the rgb head. All in f32, per
+// sample; ~2 kFLOP a sample against the trunk's ~1.1 MFLOP, so they ride in
+// the trunk kernels for the device-memory traffic they save (the 73-wide
+// encoding and its cotangent never leave the CTA), not for their own time.
+//
+// The products and sums of the running powers, the geometry and the
+// epilogue go through __fmul_rn/__fadd_rn/__fsub_rn, so nvcc does not fuse
+// them into FMAs and they round as the plain PyTorch version does.
+
+constexpr float kEps = 1.1920928955078125e-07f;  // float32 eps (`_L2N_EPS`)
+constexpr float kLog3 = 1.0986123f;               // float32(log 3)
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float sigm(float x) { return 1.f / add(1.f, expf(-x)); }
+// d maximum(x, c)/dx with JAX's tie rule: 1 above, 1/2 at the tie, 0 below.
+__device__ __forceinline__ float above(float x, float c) {
+  return x > c ? 1.f : (x == c ? 0.5f : 0.f);
+}
+
+struct DirIn {
+  const float* g;    // [n][3] refdirs; grad_pred in geo mode
+  const float* v;    // [n][3] viewdirs (geo mode)
+  const float* k;    // [n] kappa_inv
+  const float* mat;  // [lmax + 1][p] z-polynomial coefficients (ide_tables)
+  const float* sg;   // [p] vMF attenuation sigmas
+  const float* gm;   // [lmax + 1][p] {0, 1}: harmonic i takes power m_i of x + iy
+  int p;             // harmonics; 0: no fused IDE
+  int lmax, geo;
+  // Columns of the IDE block in the trunk input: re p | im p | n.v (geo).
+  __host__ __device__ int width() const { return p ? 2 * p + geo : 0; }
+};
+
+// K9 forward intermediates of one sample.
+struct Geo {
+  float n[3], mv[3], dnm, den, s;
+};
+
+// refdirs and n.v from grad_pred g and viewdirs v (`_dir_geometry` :355):
+// n = -g / sqrt(max(|g|^2, eps)), refdirs = 2 (n.(-v)) n + v, n.v.
+__device__ __forceinline__ void dir_geometry(const float g[3], const float v[3], float r[3],
+                                             float& nd, Geo& q) {
+  q.s = add(add(mul(g[0], g[0]), mul(g[1], g[1])), mul(g[2], g[2]));
+  q.den = sqrtf(fmaxf(q.s, kEps));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q.n[c] = __fdiv_rn(-g[c], q.den);
+    q.mv[c] = -v[c];
+  }
+  q.dnm = add(add(mul(q.n[0], q.mv[0]), mul(q.n[1], q.mv[1])), mul(q.n[2], q.mv[2]));
+  const float a = mul(2.f, q.dnm);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) r[c] = sub(mul(a, q.n[c]), q.mv[c]);
+  nd = add(add(mul(q.n[0], v[0]), mul(q.n[1], v[1])), mul(q.n[2], v[2]));
+}
+
+// d grad_pred from the cotangents of refdirs and n.v (the vjp of :810-816),
+// with JAX's tie rule at |g|^2 = eps.
+__device__ __forceinline__ void dir_geometry_vjp(const float g[3], const float v[3], const Geo& q,
+                                                 const float dr[3], float dnd, float dg[3]) {
+  const float a = 2.f * q.dnm;
+  const float ddnm = 2.f * (dr[0] * q.n[0] + dr[1] * q.n[1] + dr[2] * q.n[2]);
+  float dn[3], dden = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    dn[c] = dr[c] * a + ddnm * q.mv[c] + dnd * v[c];
+    dden += dn[c] * g[c];
+  }
+  // n = (-g) / den: d den = sum(dn g) / den^2; den = sqrt(max(s, eps)).
+  const float ds = dden / (q.den * q.den) * 0.5f / q.den * above(q.s, kEps);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) dg[c] = -dn[c] / q.den + 2.f * g[c] * ds;
+}
+
+// One harmonic i of the IDE at direction (x, y, z): the running powers z^k
+// and (x + iy)^k of `_ide_powers` :382, contracted with column i of `mat`
+// and gathered by `gm`. Also the derivative of the z-polynomial and the
+// power m_i - 1 of x + iy, for the closed-form backward.
+struct Harm {
+  float zp, dzp, re, im, re1, im1, m;
+};
+
+__device__ __forceinline__ Harm ide_harmonic(const DirIn& d, float x, float y, float z, int i) {
+  Harm h{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float zk = 1.f, zk1 = 0.f, re = 1.f, im = 0.f, re1 = 0.f, im1 = 0.f;
+  for (int k = 0; k <= d.lmax; ++k) {
+    const float c = __ldg(d.mat + k * d.p + i);
+    h.zp = fmaf(c, zk, h.zp);
+    h.dzp = fmaf(c * static_cast<float>(k), zk1, h.dzp);
+    if (__ldg(d.gm + k * d.p + i) != 0.f) {
+      h.re = re, h.im = im, h.re1 = re1, h.im1 = im1, h.m = static_cast<float>(k);
+    }
+    zk1 = zk;
+    zk = mul(zk, z);
+    const float nre = sub(mul(re, x), mul(im, y));
+    const float nim = add(mul(re, y), mul(im, x));
+    re1 = re, im1 = im, re = nre, im = nim;
+  }
+  return h;
+}
+
+// A sample's direction (refdirs, or made from grad_pred and viewdirs), its
+// kappa_inv and n.v (geo mode); rows at or past n read as zeros.
+struct DirSample {
+  float g[3], v[3], rd[3], ki, nd;
+  Geo q;
+  bool live;
+};
+
+__device__ __forceinline__ DirSample load_dir(const DirIn& d, int gr, int n) {
+  DirSample s{};
+  s.live = gr < n;
+  if (!s.live) return s;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s.g[c] = d.g[static_cast<size_t>(gr) * 3 + c];
+    s.v[c] = d.geo ? d.v[static_cast<size_t>(gr) * 3 + c] : 0.f;
+    s.rd[c] = s.g[c];
+  }
+  s.ki = d.k[gr];
+  if (d.geo) dir_geometry(s.g, s.v, s.rd, s.nd, s.q);
+  return s;
+}
+
+// K8/K9 forward: the IDE block of rows [row0, row0 + kRows) into columns
+// [c0, c0 + d.width()) of the input tile, in the compute dtype (the
+// rounding of :540-544). Four threads per row, each a quarter of the
+// harmonics.
+template <typename T>
+__device__ void ide_fill(const DirIn& d, T* inb, int ldi, int c0, int row0, int n) {
+  static_assert(kRows * 4 == kThreads, "four threads per row");
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const DirSample s = load_dir(d, row0 + r, n);
+  T* row = inb + r * ldi + c0;
+  for (int i = q; i < d.p; i += 4) {
+    const Harm h = ide_harmonic(d, s.rd[0], s.rd[1], s.rd[2], i);
+    const float zpat = h.zp * expf(mul(-s.ki, __ldg(d.sg + i)));
+    row[i] = from_f<T>(s.live ? h.re * zpat : 0.f);
+    row[d.p + i] = from_f<T>(s.live ? h.im * zpat : 0.f);
+  }
+  if (d.geo && q == 0) row[2 * d.p] = from_f<T>(s.live ? s.nd : 0.f);
+}
+
+// K8/K9 backward: from the f32 cotangents of the IDE block, dsh [kRows][ld]
+// (re p | im p | n.v), the closed-form IDE backward (`_ide_bwd` :423):
+//   d kappa_inv = -sum_i gmix_i zpat_i sigma_i,   gmix = g_re Re + g_im Im,
+//   d z = sum_i gmix_i at_i zp'_i,
+//   d x = sum_i m_i (g_re_i zpat_i Re^(m_i - 1) + g_im_i zpat_i Im^(m_i - 1)),
+//   d y = sum_i m_i (g_im_i zpat_i Re^(m_i - 1) - g_re_i zpat_i Im^(m_i - 1));
+// then in geo mode the geometry's vjp to d grad_pred. Writes dg [n][3] (d
+// refdirs or d grad_pred) and dk [n] in f32.
+__device__ void ide_backward(const DirIn& d, const float* dsh, int ld, int row0, int n, float* dg,
+                             float* dk) {
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3, gr = row0 + r;
+  const DirSample s = load_dir(d, gr, n);
+  const float* cot = dsh + r * ld;
+  float dx = 0.f, dy = 0.f, dz = 0.f, dki = 0.f;
+  for (int i = q; i < d.p; i += 4) {
+    const Harm h = ide_harmonic(d, s.rd[0], s.rd[1], s.rd[2], i);
+    const float sgi = __ldg(d.sg + i);
+    const float at = expf(mul(-s.ki, sgi));
+    const float zpat = h.zp * at;
+    const float gre = cot[i], gim = cot[d.p + i];
+    const float gmix = gre * h.re + gim * h.im;
+    dki -= gmix * zpat * sgi;
+    dz += gmix * at * h.dzp;
+    const float dre = gre * zpat, dim = gim * zpat;
+    dx += h.m * (dre * h.re1 + dim * h.im1);
+    dy += h.m * (dim * h.re1 - dre * h.im1);
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    dx += __shfl_xor_sync(0xffffffffu, dx, o);
+    dy += __shfl_xor_sync(0xffffffffu, dy, o);
+    dz += __shfl_xor_sync(0xffffffffu, dz, o);
+    dki += __shfl_xor_sync(0xffffffffu, dki, o);
+  }
+  if (!s.live || q != 0) return;
+  float out[3] = {dx, dy, dz};
+  if (d.geo) {
+    const float drd[3] = {dx, dy, dz};
+    dir_geometry_vjp(s.g, s.v, s.q, drd, cot[2 * d.p], out);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) dg[static_cast<size_t>(gr) * 3 + c] = out[c];
+  dk[gr] = dki;
+}
+
+// K10: the colour epilogue (`_rgb_epilogue` :283-299).
+struct Rgbe {
+  const float* rawd;  // [n][3] raw diffuse
+  const float* rawt;  // [n][3] raw tint
+  float premult, bias, pad;
+};
+
+__device__ __forceinline__ float linear_to_srgb(float x) {
+  return x <= 0.0031308f ? mul(12.92f, x)
+                         : (211.f * powf(fmaxf(kEps, x), 5.f / 12.f) - 11.f) / 200.f;
+}
+
+// rgb = clip(srgb(q / max(max_c q_c, 1)), 0, 1) (1 + 2 pad) - pad with
+// q = sigmoid(premult raw + bias) sigmoid(raw tint) + sigmoid(raw diffuse -
+// log 3); with `ct` non-null also the vjp with JAX's tie rules (a max tied
+// between channels splits equally; maximum(max, 1) and the clip at 0 and 1
+// pass half at their ties): adds d raw to draw, writes d raw diffuse and d
+// raw tint.
+__device__ __forceinline__ void rgb_epilogue(const float raw[3], const float rd[3],
+                                             const float rt[3], const Rgbe& e, float out[3],
+                                             const float* ct, float draw[3], float drd[3],
+                                             float drt[3]) {
+  float s[3], t[3], dl[3], qv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s[c] = sigm(add(mul(e.premult, raw[c]), e.bias));
+    dl[c] = sigm(sub(rd[c], kLog3));
+    t[c] = sigm(rt[c]);
+    qv[c] = add(mul(t[c], s[c]), dl[c]);
+  }
+  const float mx = fmaxf(fmaxf(qv[0], qv[1]), qv[2]);
+  const float nrm = fmaxf(mx, 1.f);
+  const float scale = add(1.f, mul(2.f, e.pad));
+  float rr[3], lin[3], cl[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    rr[c] = __fdiv_rn(qv[c], nrm);
+    lin[c] = linear_to_srgb(rr[c]);
+    cl[c] = fmaxf(lin[c], 0.f);
+    out[c] = sub(mul(fminf(cl[c], 1.f), scale), e.pad);
+  }
+  if (ct == nullptr) return;
+  float dq[3], dnrm = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    // minimum(maximum(L, 0), 1): half at either tie.
+    const float dlin = ct[c] * scale * (cl[c] < 1.f ? 1.f : (cl[c] == 1.f ? 0.5f : 0.f)) *
+                       above(lin[c], 0.f);
+    const float dr = rr[c] <= 0.0031308f
+                         ? dlin * 12.92f
+                         : dlin / 200.f * 211.f * (5.f / 12.f) * powf(rr[c], 5.f / 12.f - 1.f);
+    dq[c] = dr / nrm;
+    dnrm -= dr * qv[c] / (nrm * nrm);
+  }
+  const float dmx = dnrm * above(mx, 1.f);
+  const float ties = (qv[0] == mx) + (qv[1] == mx) + (qv[2] == mx);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (qv[c] == mx) dq[c] += dmx / ties;
+    draw[c] += dq[c] * t[c] * s[c] * (1.f - s[c]) * e.premult;
+    drd[c] = dq[c] * dl[c] * (1.f - dl[c]);
+    drt[c] = dq[c] * s[c] * t[c] * (1.f - t[c]);
+  }
+}
+
+// The trunk input tile of rows [row0, row0 + kRows): columns [x0 (d0) |
+// fused IDE block | x1 (d1)], zero-padded to kin and past row n.
+template <typename T>
+__device__ void load_input(T* inb, int ldi, const T* x0, int d0, const T* x1, int d1, int kin,
+                           int row0, int n, const DirIn& dir) {
+  const int dide = dir.width();
+  for (int i = threadIdx.x; i < kRows * kin; i += kThreads) {
+    const int r = i / kin, c = i % kin, gr = row0 + r, c1 = c - d0 - dide;
+    if (c >= d0 && c1 < 0) continue;  // the IDE block, filled below
+    T v = from_f<T>(0.f);
+    if (gr < n) {
+      if (c < d0)
+        v = x0[static_cast<size_t>(gr) * d0 + c];
+      else if (c1 < d1)
+        v = x1[static_cast<size_t>(gr) * d1 + c1];
+    }
+    inb[r * ldi + c] = v;
+  }
+  if (dir.p) ide_fill<T>(dir, inb, ldi, d0, row0, n);
+}
+
 }  // namespace

@@ -1,13 +1,22 @@
 // Layer-fused dense trunk forward for Hopper (sm_90a).
 //
 // Replaces the forward Pallas kernel `_fwd_kernel` of
-// refnerf_tpu/ops/pallas/fused_mlp.py in three modes:
+// refnerf_tpu/ops/pallas/fused_mlp.py in these modes:
 //   K1  spatial trunk (`fused_encoded_trunk`): segments (xs, xc), density
 //       head, f32 head block, compute-dtype bottleneck head;
 //   K2  directional trunk (`fused_trunk`): segments (bottleneck, IDE + n.v),
 //       f32 rgb head;
 //   K3  K1 with `density_grad` (`_inner_chain` :589-609, :651-665): the
-//       density gradient folded onto the lifted means, u [n, nb].
+//       density gradient folded onto the lifted means, u [n, nb];
+//   K8  K2 with `ide` (`_segments` :531-547, `_ide_fwd` :402): the IDE made
+//       in the CTA from refdirs and kappa_inv (7 f32 a sample in instead of
+//       the 73-wide encoding), written into the input tile;
+//   K9  K8 with `ide_geo` (`_dir_geometry` :355): refdirs and n.v from
+//       grad_pred and viewdirs;
+//   K10 K2 with `rgbe` (:646-647, `_rgb_epilogue` :283): the colour epilogue
+//       after the rgb head, the final rgb stored beside the raw rgb.
+// K8-K10 are runtime flags of the one kernel (trunk_common.cuh), not
+// template instances: their ~2 kFLOP a sample do not pay for a longer build.
 //
 // What it computes (fused_mlp.py `_forward_trunk`, `_fwd_kernel`):
 //   h_0 = relu(cdt(x @ W0) + cdt(b0)),  x = [seg0 | seg1] read in place
@@ -47,9 +56,9 @@ namespace {
 
 struct Params {
   const void* x0;   // [n][d0] segment 0, compute dtype
-  const void* x1;   // [n][d1] segment 1 (d1 may be 0)
+  const void* x1;   // [n][d1] the last segment (d1 may be 0)
   int d0, d1, n;
-  int kin;          // d0 + d1 rounded up to kKS
+  int kin;          // d0 + dir.width() + d1 rounded up to kKS
   int depth, skip;  // skip: index of the layer fed [act | segments], or -1
   const void* w;    // per layer [W][K_l] (K_l = kin | W | W + kin), concatenated
   const void* b;    // [depth][W] compute dtype
@@ -66,6 +75,9 @@ struct Params {
   void* cout;       // [n][HC] out, compute dtype
   float* u;         // [n][nb] out (K3), or null
   const void* wt;   // per layer [K_l][W] (W_l transposed), concatenated
+  DirIn dir;        // K8/K9: the IDE block between x0 and x1 (dir.p > 0)
+  Rgbe rgbe;        // K10, with rgb non-null
+  float* rgb;       // [n][3] out: the final rgb (K10), or null
 };
 
 // K3: the density-gradient reverse chain on the resident tile, then the
@@ -169,19 +181,9 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   const T* x1 = static_cast<const T*>(p.x1);
   const T* bias = static_cast<const T*>(p.b);
 
-  // The segments, read in place from their own tensors, zero-padded to kin
-  // and past the last row.
-  for (int i = tid; i < kRows * p.kin; i += kThreads) {
-    const int r = i / p.kin, c = i % p.kin, gr = row0 + r;
-    T v = from_f<T>(0.f);
-    if (gr < p.n) {
-      if (c < p.d0)
-        v = x0[static_cast<size_t>(gr) * p.d0 + c];
-      else if (c < p.d0 + p.d1)
-        v = x1[static_cast<size_t>(gr) * p.d1 + (c - p.d0)];
-    }
-    inb[r * ldi + c] = v;
-  }
+  // The segments, read in place from their own tensors (with K8 the IDE
+  // block made here), zero-padded to kin and past the last row.
+  load_input<T>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
 
   const T* wl = static_cast<const T*>(p.w);
   for (int l = 0; l < p.depth; ++l) {
@@ -235,6 +237,14 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
         for (int i = 0; i < W / 32; ++i) s = fmaf(y[i], p.wh[j * W + lane + 32 * i], s);
         s = warp_sum(s);
         if (lane == 0) p.hout[static_cast<size_t>(gr) * p.hf + j] = s + p.bh[j];
+      }
+      if (p.rgb != nullptr && lane == 0) {  // K10 on the rgb head just stored
+        const size_t o = static_cast<size_t>(gr) * 3;
+        float out[3], unused[3];
+        rgb_epilogue(p.hout + o, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, nullptr,
+                     unused, unused, unused);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) p.rgb[o + c] = out[c];
       }
     }
   }
@@ -296,19 +306,33 @@ int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
 // cudaError_t of the launch (0 on success). Allocates nothing and does not
 // synchronise; runs on `stream`. With u non-null (K3) the density gradient
 // is folded through fold [d0][nb] and written to u [n][nb].
+// With ide_p > 0 (K8; K9 with geo) the columns between x0 and x1 are the
+// IDE of g (refdirs, or grad_pred with viewdirs v) and kappa_inv k through
+// the tables mat, sg, gm; with rgb non-null (K10) the colour epilogue of the
+// rgb head (hf = 3) and rawd, rawt goes to rgb [n][3].
 extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, int d0,
                                  const void* x1, int d1, int n, int kin, int depth, int skip,
                                  const void* w, const void* wt, const void* b, const float* wd,
                                  const float* wh, const float* bh, int hf, const void* wc,
                                  const void* bc, const float* fold, int nb, float* sig,
-                                 float* hout, void* cout, float* u, void* stream) {
-  if (n <= 0 || kin % kKS != 0 || d0 + d1 > kin || depth > 16)
+                                 float* hout, void* cout, float* u, const float* g,
+                                 const float* v, const float* k, int ide_p, int lmax, int geo,
+                                 const float* mat, const float* sg, const float* gm,
+                                 const float* rawd, const float* rawt, float* rgb, float premult,
+                                 float rbias, float pad, void* stream) {
+  const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
+  if (n <= 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin || depth > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (u != nullptr && (wd == nullptr || wt == nullptr || fold == nullptr || d0 != d1 ||
-                       nb <= 0 || nb > 4))
+                       nb <= 0 || nb > 4 || ide_p != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ide_p != 0 && (ide_p < 0 || lmax < 0 || lmax > 16 || g == nullptr || k == nullptr ||
+                     mat == nullptr || sg == nullptr || gm == nullptr || (geo && v == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rgb != nullptr && (hf != 3 || hout == nullptr || rawd == nullptr || rawt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x0, x1, d0, d1, n, kin, depth, skip, w, b, wd, wh, bh, hf, wc, bc,
-           fold, nb, sig, hout, cout, u, wt};
+           fold, nb, sig, hout, cout, u, wt, dir, Rgbe{rawd, rawt, premult, rbias, pad}, rgb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(width, hc, p, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(width, hc, p, s);

@@ -6,16 +6,26 @@ from typing import Optional
 
 import torch
 
-from refnerf_tpu.utils import ginlite
 from refnerf_tpu_torch import configs as configs_lib
 from refnerf_tpu_torch.models.mlp import MLP
 from refnerf_tpu_torch.models.model import Model
+from refnerf_tpu_torch.utils import ginlite
 
 
 def construct_model(config, gin: Optional[ginlite.GinConfig] = None,
-                    device=None, scope: Optional[str] = None) -> Model:
+                    device='cuda', scope: Optional[str] = None) -> Model:
   """Build the Model from Config + gin, initialise it from `config.seed`
-  with a torch.Generator, and move it to `device` in eval mode."""
+  with a torch.Generator, and move it to `device` in eval mode.
+
+  The model goes to the GPU unless the caller names another device
+  (`device='cpu'`); without a GPU that default raises rather than falling
+  back to the CPU.
+  """
+  device = torch.device(device)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError(
+        f"construct_model: device {device} asked for, but no CUDA device is "
+        "available; pass device='cpu' to build the model on the CPU")
   gin = gin or ginlite.GinConfig()
   m_kwargs = dict(configs_lib.model_kwargs(gin, scope=scope))
   single_mlp = bool(m_kwargs.pop('single_mlp', False))

@@ -6,23 +6,27 @@ parameter tree maps onto the state_dict one transpose per layer
 (refnerf_tpu_torch/convert.py).
 
 Both dense trunks always run in the fused formulation of the JAX package's
-`fused_trunk='on'` path (mlp.py:252-333, :599-642): the spatial trunk through
+`fused_trunk='on'` path (mlp.py:252-333, :499-642): the spatial trunk through
 `fused_mlp.fused_encoded_trunk` (K1; K3 with density-gradient normals; K4
 backward), the directional trunk through `fused_mlp.fused_trunk` (K2; K5
-backward). On CUDA tensors those are the hand-written kernels; on the CPU,
-or with `fused_trunk='off'`, their plain versions.
+backward). The flags `fuse_dir_enc`, `fuse_dir_geo` and `fuse_dir_rgb` move
+the IDE (K8), the direction geometry (K9) and the colour epilogue (K10) into
+the directional trunk, under JAX's gates; a flag that is set but cannot act
+is logged once. On CUDA tensors those are the hand-written kernels; on the
+CPU, or with `fused_trunk='off'`, their plain versions.
 
 Ported: evaluation and training (`train=True`: density-gradient normals,
 differentiable through u) with predicted normals, the IDE, reflections,
 roughness, diffuse/specular/tint and n.v. Not ported, and refused with
 NotImplementedError: density and bottleneck noise, `use_viewdirs=False`,
 the positional direction encoding, a trunk that ends in a skip concat, and
-the `fuse_*` kernel modes.
+`fuse_compositing` (K6), `fuse_ipe_trig` (K7) and `fuse_lift`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any, Optional
 
@@ -31,16 +35,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from refnerf_tpu.ops import geopoly
-from refnerf_tpu.utils import ginlite
 from refnerf_tpu_torch.ops import coord
 from refnerf_tpu_torch.ops import fused_mlp
+from refnerf_tpu_torch.ops import geopoly
 from refnerf_tpu_torch.ops import image as image_ops
 from refnerf_tpu_torch.ops import ref_utils
+from refnerf_tpu_torch.utils import ginlite
 
 # The activations of the MLP's defaults; gin may name them as references.
 ACTIVATIONS = {'relu': torch.relu, 'softplus': F.softplus,
                'sigmoid': torch.sigmoid}
+
+# Once per process and (reason, detail): a fusion flag that is set but
+# cannot act (mlp.py:34-46).
+_FALLBACK_WARNED = set()
+
+
+def _warn_fused_fallback(reason: str, detail: str):
+  if (reason, detail) not in _FALLBACK_WARNED:
+    _FALLBACK_WARNED.add((reason, detail))
+    logging.warning('fused_trunk: %s (%s); the plain chain runs instead.',
+                    reason, detail)
 
 
 def activation(v):
@@ -114,12 +129,12 @@ class MLP(nn.Module):
   def __init__(self, **kwargs):
     super().__init__()
     self.cfg = c = MLPConfig(**kwargs)
-    fused_on = [f for f in ('fuse_compositing', 'fuse_dir_enc', 'fuse_dir_rgb',
-                            'fuse_dir_geo', 'fuse_lift', 'fuse_ipe_trig')
+    fused_on = [f for f in ('fuse_compositing', 'fuse_lift', 'fuse_ipe_trig')
                 if getattr(c, f)]
     if fused_on:
       raise NotImplementedError(
-          f'{fused_on}: these kernel modes (K6-K10) are not ported')
+          f'{fused_on} are not ported: the compositing epilogue (K6), the '
+          'in-kernel IPE trig (K7) and its fuse_lift producer')
     if c.warp_fn is not None:
       raise NotImplementedError('warp_fn is not ported')
     if c.weight_init != 'torch_uniform':
@@ -251,20 +266,49 @@ class MLP(nn.Module):
       normals = -ref_utils.l2_normalize(u_lm @ self.pos_basis_t.t())
     return raw_density, fh, normals
 
-  def _directional(self, segs):
-    """K2: raw rgb of the directional trunk and the rgb head (mlp.py:599-642)."""
+  def _directional(self, segs, **fuse):
+    """K2 (with K8-K10 by `fuse`, fused_trunk's keywords): raw rgb of the
+    directional trunk and its rgb head, and with the colour epilogue the
+    final rgb (mlp.py:599-642)."""
     c = self.cfg
     ws, bs = self._stack('viewdir', c.net_depth_viewdirs)
     head_f32 = (self.rgb.weight, self.rgb.bias)
     pack = None
     if fused_mlp.use_kernel(segs[0], c.fused_trunk):
-      pack = self._pack('directional', lambda: fused_mlp.pack_trunk(
-          ws, bs, [s.shape[-1] for s in segs], skip_period=c.skip_layer,
-          head_f32=head_f32, compute_dtype=c.compute_dtype))
+      flat = [t for s in segs for t in (s if isinstance(s, tuple) else (s,))]
+      dims = fused_mlp.visible_dims(flat, fused_mlp.DirModes(
+          fuse.get('ide_deg', 0), fuse.get('ide_at', 0),
+          fuse.get('ide_geo', False)))
+      pack = self._pack(f'directional{dims}', lambda: fused_mlp.pack_trunk(
+          ws, bs, dims, skip_period=c.skip_layer, head_f32=head_f32,
+          compute_dtype=c.compute_dtype))
     return fused_mlp.fused_trunk(
         segs, ws, bs, head_f32, skip_period=c.skip_layer,
         compute_dtype=c.compute_dtype, mode=c.fused_trunk,
-        activation=self.net_activation, pack=pack)
+        activation=self.net_activation, pack=pack, **fuse)
+
+  def _dir_fusions(self):
+    """Which directional stages run in the trunk (mlp.py:499-613), each
+    flag that is set but cannot act logged once."""
+    c = self.cfg
+    ide = c.fuse_dir_enc and c.use_directional_enc
+    if c.fuse_dir_enc and not ide:
+      _warn_fused_fallback('fuse_dir_enc inactive', 'needs use_directional_enc')
+    geo = (ide and c.fuse_dir_geo and c.use_reflections and c.use_n_dot_v
+           and c.enable_pred_normals)
+    if c.fuse_dir_geo and not geo:
+      _warn_fused_fallback(
+          'fuse_dir_geo inactive',
+          'needs fuse_dir_enc + reflections + n_dot_v + pred normals')
+    rgb = (c.fuse_dir_rgb and c.use_diffuse_color and c.use_specular_tint
+           and c.srgb_mapping and c.srgb_mapping_normalization
+           and self.rgb_activation is torch.sigmoid
+           and c.num_rgb_channels == 3)
+    if c.fuse_dir_rgb and not rgb:
+      _warn_fused_fallback(
+          'fuse_dir_rgb inactive',
+          'needs diffuse+tint+srgb+norm with sigmoid rgb_activation')
+    return ide, geo, rgb
 
   def forward(self, gaussians, viewdirs: Optional[torch.Tensor] = None,
               train: bool = False):
@@ -312,23 +356,50 @@ class MLP(nn.Module):
 
       lead = means.shape[:-1]
       n = math.prod(lead)
+      fuse_ide, fuse_geo, fuse_rgb = self._dir_fusions()
       segs = []
       if c.bottleneck_width > 0:
         segs.append(fh['bottleneck'].reshape(n, -1))
       vb = viewdirs[..., None, :].expand(means.shape)
-      if c.use_reflections:
-        # viewdirs point camera->point; flip so refdirs point outward.
-        dir_enc = self.dir_enc_fn(ref_utils.reflect(-vb, normals_to_use),
-                                  roughness)
+      fuse = {}
+      if fuse_ide:
+        # K8/K9: the raw inputs of the IDE go in; the 2P-wide encoding
+        # never leaves the trunk (mlp.py:526-597).
+        kappa_inv = (roughness if c.enable_pred_roughness
+                     else torch.zeros_like(means[..., :1]))
+        fuse = dict(ide_deg=c.deg_view, ide_at=len(segs), ide_geo=fuse_geo)
+        if fuse_geo:
+          segs.append((grad_pred.reshape(n, 3), vb.reshape(n, 3),
+                       kappa_inv.reshape(n, 1)))
+        else:
+          dirs = (ref_utils.reflect(-vb, normals_to_use) if c.use_reflections
+                  else vb)
+          segs.append((dirs.reshape(n, 3), kappa_inv.reshape(n, 1)))
+          if c.use_n_dot_v:
+            segs.append(torch.sum(normals_to_use * vb, dim=-1,
+                                  keepdim=True).reshape(n, 1))
       else:
-        dir_enc = self.dir_enc_fn(vb, roughness)
-      dir_enc = dir_enc.to(fused_mlp.DTYPES[c.compute_dtype])
-      if c.use_n_dot_v:
-        # n.v rides as one extra plane on the encoding segment (mlp.py:584).
-        dotprod = torch.sum(normals_to_use * vb, dim=-1, keepdim=True)
-        dir_enc = torch.cat([dir_enc, dotprod.to(dir_enc.dtype)], dim=-1)
-      segs.append(dir_enc.reshape(n, -1))
-      raw_rgb = self._directional(segs).reshape(*lead, c.num_rgb_channels)
+        if c.use_reflections:
+          # viewdirs point camera->point; flip so refdirs point outward.
+          dir_enc = self.dir_enc_fn(ref_utils.reflect(-vb, normals_to_use),
+                                    roughness)
+        else:
+          dir_enc = self.dir_enc_fn(vb, roughness)
+        dir_enc = dir_enc.to(fused_mlp.DTYPES[c.compute_dtype])
+        if c.use_n_dot_v:
+          # n.v rides as one extra plane on the encoding segment (mlp.py:584).
+          dotprod = torch.sum(normals_to_use * vb, dim=-1, keepdim=True)
+          dir_enc = torch.cat([dir_enc, dotprod.to(dir_enc.dtype)], dim=-1)
+        segs.append(dir_enc.reshape(n, -1))
+      if fuse_rgb:
+        # K10: the colour epilogue runs after the rgb head, in the trunk.
+        fuse['rgb_epilogue'] = (fh['diffuse'], fh['tint'],
+                                c.rgb_premultiplier, c.rgb_bias,
+                                c.rgb_padding)
+        raw_rgb, fused_rgb = self._directional(segs, **fuse)
+      else:
+        raw_rgb = self._directional(segs, **fuse)
+      raw_rgb = raw_rgb.reshape(*lead, c.num_rgb_channels)
       rgb = self.rgb_activation(c.rgb_premultiplier * raw_rgb + c.rgb_bias)
 
       if c.use_diffuse_color:
@@ -337,21 +408,27 @@ class MLP(nn.Module):
         specular_linear = tint * rgb if c.use_specular_tint else 0.5 * rgb
         rgb = specular_linear + diffuse_linear
         if c.srgb_mapping:
-          # Written as maximum/minimum against tensor constants: the ties at
-          # the gamut bound (rgb / max(rgb) = 1 and linear_to_srgb(1) = 1)
-          # are hit at every normalised sample, and there JAX passes half
-          # the gradient to each side (mlp.py:669-675).
-          if c.srgb_mapping_normalization:
-            mx = rgb.amax(dim=-1, keepdim=True)
-            rgb = rgb / torch.maximum(mx, torch.ones_like(mx))
-          rgb = image_ops.clip01(image_ops.linear_to_srgb(rgb))
+          if not fuse_rgb:  # else K10 ran this in the trunk
+            # Written as maximum/minimum against tensor constants: the ties
+            # at the gamut bound (rgb / max(rgb) = 1, linear_to_srgb(1) = 1)
+            # are hit at every normalised sample, and there JAX passes half
+            # the gradient to each side (mlp.py:669-675).
+            if c.srgb_mapping_normalization:
+              mx = rgb.amax(dim=-1, keepdim=True)
+              rgb = rgb / torch.maximum(mx, torch.ones_like(mx))
+            rgb = image_ops.clip01(image_ops.linear_to_srgb(rgb))
           diffuse = image_ops.clip01(image_ops.linear_to_srgb(diffuse_linear))
           specular = image_ops.clip01(
               image_ops.linear_to_srgb(specular_linear))
         else:
           diffuse, specular = diffuse_linear, specular_linear
-      # Map colour to [-rgb_padding, 1 + rgb_padding].
-      rgb = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding
+      if fuse_rgb:
+        # The epilogue, padding included, ran in the trunk; the chain above
+        # gives only the diffuse and specular extras (mlp.py:681-684).
+        rgb = fused_rgb.reshape(*lead, 3)
+      else:
+        # Map colour to [-rgb_padding, 1 + rgb_padding].
+        rgb = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding
 
     out = dict(density=density, rgb=rgb)
     if not c.disable_density_normals:

@@ -28,25 +28,35 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # The entry points of each library and their ctypes signatures (every
-# pointer and the stream as c_void_p, every int as c_int).
+# pointer and the stream as c_void_p, every int as c_int, every float as
+# c_float).
 EXPORTS = {
     'trunk_fwd': {
         # (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
-        #  wd, wh, bh, hf, wc, bc, fold, nb, sig, hout, cout, u, stream)
+        #  wd, wh, bh, hf, wc, bc, fold, nb, sig, hout, cout, u,
+        #  g, v, k, ide_p, lmax, geo, mat, sg, gm, rawd, rawt, rgb,
+        #  premult, rbias, pad, stream)
         'refnerf_trunk_fwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-                              _P, _P, _P, _P, _P],
+                              _P, _P, _P, _P,
+                              _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                              _F, _F, _F, _P],
         'refnerf_trunk_supports': [_I, _I],
     },
     'trunk_bwd': {
         # (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
-        #  wd, wh, hf, wct, sbar, hbar, cbar, ubar, fold, nb, dx0, dx1, dxs,
-        #  rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec, stream)
+        #  wd, wh, bh, hf, wct, sbar, hbar, cbar, ubar, fold, nb, dx0, dx1,
+        #  dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
+        #  g, v, k, ide_p, lmax, geo, mat, sg, gm, ddg, ddk,
+        #  rawd, rawt, rgb_bar, drawd, drawt, premult, rbias, pad, stream)
         'refnerf_trunk_bwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                              _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _I, _P],
+                              _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                              _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _I,
+                              _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _F, _F, _F, _P],
         # (dtype, M, N, ncut, rp, ksplit, z, a, x, s, pa, tx, out, stream)
         'refnerf_wgrad': [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P],

@@ -17,12 +17,19 @@ one `torch.autograd.Function`:
 - `DirectionalTrunk` (`fused_trunk`, :1178): the trunk over [bottleneck,
   IDE + n.v] and the f32 rgb head (K2); its backward (K5) also returns each
   segment's cotangent in the segment's dtype (`needs_dx`, :1009-1015).
+  `DirModes` fuses the directional stages into both (:531-547, :646-647,
+  :752-764, :802-819): the IDE from refdirs and kappa_inv (K8), with the
+  normalize/reflect/n.v geometry from grad_pred and viewdirs (K9), and the
+  colour epilogue after the rgb head (K10). Their plain versions are
+  `dir_geometry`, `ide_forward`/`ide_backward` (the closed form) and
+  `rgb_epilogue`.
 
 Both backwards are `once_differentiable`: autograd never differentiates
 through a kernel, and the second-order terms of u come out of the one
 backward pass, as in the Pallas contract.
 
-Kernels (`csrc/trunk_fwd.cu`: K1-K3; `csrc/trunk_bwd.cu`: K4, K5) run for
+Kernels (`csrc/trunk_fwd.cu`: K1-K3, K8-K10; `csrc/trunk_bwd.cu`: K4, K5,
+K8-K10) run for
 CUDA tensors unless `mode='off'`. A CPU tensor or `mode='off'` takes the
 plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
@@ -37,6 +44,7 @@ back to the plain version. Each launch through a wrapper adds one to
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -45,7 +53,9 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from refnerf_tpu_torch.ops import image as image_ops
 from refnerf_tpu_torch.ops import mathx
+from refnerf_tpu_torch.ops import ref_utils
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 MODES = ('auto', 'on', 'off')
@@ -59,8 +69,11 @@ _KSPLIT = 1024  # samples per partial sum of the weight-gradient kernel
 
 # Launches through the wrappers, by kernel: K1 spatial forward, K2
 # directional forward, K3 spatial forward with the density gradient, K4
-# spatial backward, K5 directional backward.
-launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0}
+# spatial backward, K5 directional backward. A launch of K2 or K5 with fused
+# directional stages also counts under each stage it runs: K8 the IDE, K9
+# the direction geometry, K10 the colour epilogue.
+launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0, 'K8': 0, 'K9': 0,
+            'K10': 0}
 
 Head = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (weight [out, in], bias)
 
@@ -194,17 +207,176 @@ def fold_density_grad(us, xs, xc, fold):
   return u_m @ fold
 
 
+class DirModes(NamedTuple):
+  """The fused stages of a directional trunk (K8-K10).
+
+  ide_deg > 0 (K8): the IDE of that degree is computed from raw inputs at
+  position `ide_at` of the segments, (refdirs [n, 3], kappa_inv [n, 1]),
+  and stands there as two segments (re, im), P wide each. With `geo` (K9)
+  the raw inputs are (grad_pred [n, 3], viewdirs [n, 3], kappa_inv [n, 1]):
+  n = -normalize(grad_pred), refdirs = reflect(-viewdirs, n), and n.v
+  follows the IDE as a width-1 segment. `rgbe` (K10) is (premultiplier,
+  bias, padding) of the colour epilogue after the f32 rgb head.
+  """
+  ide_deg: int = 0
+  ide_at: int = 0
+  geo: bool = False
+  rgbe: Optional[Tuple[float, float, float]] = None
+
+  def n_raw(self) -> int:
+    """How many raw inputs stand in for the IDE segments."""
+    return 0 if not self.ide_deg else (3 if self.geo else 2)
+
+
+_EPS = float(np.finfo(np.float32).eps)
+_LOG3 = float(np.float32(np.log(3.0)))
+
+
+def dir_geometry(grad, v):
+  """(refdirs [n, 3], n.v [n, 1]) from grad_pred and viewdirs, in f32
+  (`_dir_geometry` :355): n = -grad / sqrt(max(|grad|^2, eps)),
+  refdirs = 2 (n.(-v)) n + v."""
+  sq = torch.sum(grad * grad, dim=-1, keepdim=True)
+  n = -grad / torch.sqrt(torch.maximum(sq, sq.new_tensor(_EPS)))
+  mv = -v
+  r = 2.0 * torch.sum(n * mv, dim=-1, keepdim=True) * n - mv
+  return r, torch.sum(n * v, dim=-1, keepdim=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _ide_tables(deg: int, device: torch.device):
+  return tuple(torch.as_tensor(a, device=device)
+               for a in ref_utils.ide_tables(deg))
+
+
+def _ide_powers(rd, l_max):
+  """Columns k = 0..l_max of z^k, Re((x+iy)^k), Im((x+iy)^k), by the
+  running products of `_ide_powers` :382; each [n, l_max + 1]."""
+  x, y, z = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
+  vmz, re, im = [torch.ones_like(z)], [torch.ones_like(x)], [torch.zeros_like(x)]
+  for _ in range(l_max):
+    re_p, im_p = re[-1], im[-1]
+    vmz.append(vmz[-1] * z)
+    re.append(re_p * x - im_p * y)
+    im.append(re_p * y + im_p * x)
+  return torch.cat(vmz, 1), torch.cat(re, 1), torch.cat(im, 1)
+
+
+def _ide_parts(rd, ki, deg):
+  mat, sg, gm = _ide_tables(deg, rd.device)
+  vmz, re, im = _ide_powers(rd, mat.shape[0] - 1)
+  zp, at = vmz @ mat, torch.exp(-ki * sg)
+  return (mat, sg, gm), (vmz, re, im), re @ gm, im @ gm, zp, at
+
+
+def ide_forward(rd, ki, deg):
+  """The IDE's (re [n, P], im [n, P]) in f32 from refdirs [n, 3] and
+  kappa_inv [n, 1] (`_ide_fwd` :402): the power stacks gathered and
+  contracted through `ref_utils.ide_tables`, times exp(-sigma kappa_inv)."""
+  _, _, rev, imv, zp, at = _ide_parts(rd.float(), ki.float(), deg)
+  zpat = zp * at
+  return rev * zpat, imv * zpat
+
+
+def ide_backward(rd, ki, deg, g_re, g_im):
+  """(d refdirs [n, 3], d kappa_inv [n, 1]) from the f32 cotangents of the
+  IDE's re and im halves, in closed form (`_ide_bwd` :423-460):
+  d Re(w^m)/dx = m Re(w^(m-1)), d Re(w^m)/dy = -m Im(w^(m-1)),
+  d Im(w^m)/dx = m Im(w^(m-1)), d Im(w^m)/dy = m Re(w^(m-1)) for
+  w = x + iy; d z^k/dz = k z^(k-1); d atten/d kappa_inv = -sigma atten."""
+  (mat, sg, gm), (vmz, re, im), rev, imv, zp, at = _ide_parts(
+      rd.float(), ki.float(), deg)
+  zpat = zp * at
+  gmix = g_re * rev + g_im * imv
+  d_ki = -((gmix * zpat) @ sg.t())
+  d_vmz = (gmix * at) @ mat.t()
+  d_re = (g_re * zpat) @ gm.t()
+  d_im = (g_im * zpat) @ gm.t()
+  ramp = torch.arange(mat.shape[0], dtype=torch.float32, device=rd.device)
+  shift = lambda a: F.pad(a[:, :-1], (1, 0))  # column m holds power m - 1
+  re_s, im_s = shift(re), shift(im)
+  d_x = torch.sum((d_re * re_s + d_im * im_s) * ramp, -1, keepdim=True)
+  d_y = torch.sum((d_im * re_s - d_re * im_s) * ramp, -1, keepdim=True)
+  d_z = torch.sum(d_vmz * shift(vmz) * ramp, -1, keepdim=True)
+  return torch.cat([d_x, d_y, d_z], 1), d_ki
+
+
+def rgb_epilogue(raw, rawd, rawt, premult, bias, pad):
+  """The Ref-NeRF colour epilogue in f32 (`_rgb_epilogue` :283-299):
+  sigmoid specular x sigmoid tint + sigmoid diffuse, normalised by
+  max(max channel, 1), linear_to_srgb (`_linear_to_srgb` :305, the same
+  ops as image.linear_to_srgb), clipped to [0, 1], padded. `amax` and the
+  maximum/minimum against tensor constants give JAX's tie subgradients,
+  which every gamut-normalised sample hits."""
+  rgb = torch.sigmoid(premult * raw + bias)
+  rgb = torch.sigmoid(rawt) * rgb + torch.sigmoid(rawd - _LOG3)
+  mx = rgb.amax(dim=-1, keepdim=True)
+  rgb = rgb / torch.maximum(mx, torch.ones_like(mx))
+  rgb = image_ops.clip01(image_ops.linear_to_srgb(rgb))
+  return rgb * (1 + 2 * pad) - pad
+
+
+def _vjp(fn, primals, cots):
+  """Cotangents of fn's inputs by autograd on detached copies, as the
+  Pallas kernel takes jax.vjp of the same plain function."""
+  with torch.enable_grad():
+    xs = [p.detach().float().requires_grad_(True) for p in primals]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, xs, [c.float() for c in cots])
+
+
+def dir_segments(segs, dm: DirModes, cdt):
+  """The trunk's segments from the raw inputs: at `ide_at` the IDE's re and
+  im (f32, rounded to the compute dtype as the Pallas kernel rounds them,
+  :531-547) and, with geo, n.v."""
+  if not dm.ide_deg:
+    return [s.to(cdt) for s in segs]
+  j = dm.ide_at
+  raw = [s.float() for s in segs[j:j + dm.n_raw()]]
+  tail = []
+  if dm.geo:
+    rd, nd = dir_geometry(raw[0], raw[1])
+    tail = [nd.to(cdt)]
+  else:
+    rd = raw[0]
+  re, im = ide_forward(rd, raw[-1], dm.ide_deg)
+  return ([s.to(cdt) for s in segs[:j]] + [re.to(cdt), im.to(cdt)] + tail
+          + [s.to(cdt) for s in segs[j + dm.n_raw():]])
+
+
+def _dir_dx(segs, dm: DirModes, dxs):
+  """The raw inputs' f32 cotangents from those of the trunk's segments
+  (:802-819); the viewdirs of geo mode get None."""
+  if not dm.ide_deg:
+    return dxs
+  j, nr = dm.ide_at, dm.n_raw()
+  raw = [s.float() for s in segs[j:j + nr]]
+  rd = dir_geometry(raw[0], raw[1])[0] if dm.geo else raw[0]
+  d_rd, d_ki = ide_backward(rd, raw[-1], dm.ide_deg, dxs[j], dxs[j + 1])
+  if dm.geo:
+    d_g, = _vjp(lambda g: dir_geometry(g, raw[1]), [raw[0]],
+                [d_rd, dxs[j + 2]])
+    mid = [d_g, None, d_ki]
+  else:
+    mid = [d_rd, d_ki]
+  return dxs[:j] + mid + dxs[j + 2 + int(dm.geo):]
+
+
 def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
                     skip_period: int = 4, wd: Optional[torch.Tensor] = None,
                     head_f32: Optional[Head] = None,
                     head_cdt: Optional[Head] = None,
                     compute_dtype: str = 'float32',
                     activation: Optional[Callable] = None,
-                    density_grad: bool = False):
+                    density_grad: bool = False,
+                    dir_modes: Optional[DirModes] = None, rgbx=None):
   """The plain version of the forward kernel, in the Pallas order (:612).
 
   Args:
     segs: input segments [n, d_j]; their concatenation is the trunk input.
+      With `dir_modes.ide_deg` the IDE's raw inputs stand in for its two
+      segments (DirModes).
     weights, biases: per layer, [width, in] and [width]. The skip layer's
       input columns are [activation, segments] in that order.
     wd: density head weight [1, width]; gives sigma without its bias.
@@ -212,16 +384,20 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     head_cdt: (wc [hc, width], bc [hc]) evaluated in the compute dtype.
     activation: the trunk nonlinearity; None is ReLU.
     density_grad: also run the inner chain (needs wd and ReLU).
+    dir_modes: the fused directional stages (K8-K10), or None.
+    rgbx: with `dir_modes.rgbe`, (raw diffuse [n, 3], raw tint [n, 3]).
 
   Returns:
-    list [sigma [n]][, hf [n, hf]][, hc [n, hc]][, u_j [n, d_j] per segment].
-    Every step is a differentiable torch op, so autograd through this
-    function is an independent reference for the backward.
+    list [sigma [n]][, hf [n, hf]][, hc [n, hc]][, u_j [n, d_j] per segment]
+    [, rgb [n, 3] f32 with the colour epilogue]. Every step is a
+    differentiable torch op, so autograd through this function is an
+    independent reference for the backward.
   """
   cdt = DTYPES[compute_dtype]
   act = torch.relu if activation is None else activation
+  dm = dir_modes or DirModes()
+  segs = dir_segments(segs, dm, cdt)
   t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
-  segs = [s.to(cdt) for s in segs]
   acts = _forward_acts(t, segs, act)
   h = acts[-1]
   outs = []
@@ -230,7 +406,8 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     outs.append(y32 @ wd.float().reshape(-1))
   if head_f32 is not None:
     wh, bh = head_f32
-    outs.append(y32 @ wh.float().t() + bh.float())
+    hval = y32 @ wh.float().t() + bh.float()
+    outs.append(hval)
   if head_cdt is not None:
     wc, bc = head_cdt
     outs.append(_dot(h, wc.to(cdt)).to(cdt) + bc.to(cdt))
@@ -239,33 +416,47 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
       raise NotImplementedError('the density gradient needs the density '
                                 'head and a ReLU trunk')
     outs += _inner_chain(t, acts, wd, len(segs))[0]
+  if dm.rgbe is not None:
+    outs.append(rgb_epilogue(hval, rgbx[0].float(), rgbx[1].float(),
+                             *dm.rgbe))
   return outs
 
 
 def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
                              wd=None, head_f32=None, head_cdt=None,
                              compute_dtype='float32', fold=None,
-                             needs_dx=False):
+                             needs_dx=False,
+                             dir_modes: Optional[DirModes] = None, rgbx=None,
+                             rgb_bar=None):
   """The plain version of the backward kernel, step by step in the Pallas
   order (`_bwd_kernel` :668-853), not by autograd.
 
   Args:
-    segs, weights, biases, wd, head_f32, head_cdt: as for trunk_reference.
+    segs, weights, biases, wd, head_f32, head_cdt, dir_modes, rgbx: as for
+      trunk_reference.
     cots: cotangents (sigma [n] f32, hf [n, hf] f32, hc [n, hc], u [n, nb]
       f32), each None when absent or zero. u needs `fold`, the [F, nb]
       scale fold of the two IPE segments.
-    needs_dx: also return each segment's cotangent.
+    needs_dx: also return each segment's cotangent; with the fused IDE,
+      those of its raw inputs (None for the viewdirs of geo mode).
+    rgb_bar: with the colour epilogue, the cotangent of rgb [n, 3] f32 (None
+      is zero). Its pull-back through the epilogue (autograd of
+      `rgb_epilogue`, as the Pallas kernel takes jax.vjp, :752-764) adds to
+      the head's cotangent.
 
   Returns:
-    (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs): f32 gradients in the layout of
-    the parameters ([out, in] weights; dwd [1, width]); dxs per segment in
-    the segment's dtype, or None.
+    (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx): f32 gradients in the
+    layout of the parameters ([out, in] weights; dwd [1, width]); dxs per
+    segment in the segment's dtype, or None; drgbx (d raw diffuse, d raw
+    tint) f32 with the colour epilogue, else None.
   """
   cdt = DTYPES[compute_dtype]
   sbar, hbar, cbar, ubar = cots
-  t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
+  dm = dir_modes or DirModes()
+  raw = list(segs)
   dtypes = [s.dtype for s in segs]
-  segs = [s.to(cdt) for s in segs]
+  segs = dir_segments(segs, dm, cdt)
+  t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
   n, W, L, G = segs[0].shape[0], t.width, len(t.ws), len(segs)
   acts = _forward_acts(t, segs, torch.relu)
   y = acts[-1]
@@ -282,9 +473,16 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
     sb = y32.new_zeros(n) if sbar is None else sbar.float()
     g32 = sb[:, None] * wd.float().reshape(1, -1)
     dwd = (sb @ y32).reshape(1, W)
+  drgbx = None
   if head_f32 is not None:
     wh = head_f32[0].float()
     hb = y32.new_zeros((n, wh.shape[0])) if hbar is None else hbar.float()
+    if dm.rgbe is not None:
+      hval = y32 @ wh.t() + head_f32[1].float()
+      rb = torch.zeros_like(hval) if rgb_bar is None else rgb_bar
+      d_raw, *drgbx = _vjp(lambda a, b, c: rgb_epilogue(a, b, c, *dm.rgbe),
+                           [hval, rgbx[0], rgbx[1]], [rb])
+      hb = hb + d_raw
     back = hb @ wh
     g32 = back if g32 is None else g32 + back
     dwh = _outer(hb, y32)
@@ -347,8 +545,9 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
       p = _mask(acts[l]) * tt.to(cdt)
     dwd = dwd + p.float().sum(0).reshape(1, W)
   if dxs is not None:
-    dxs = [d.to(dt) for d, dt in zip(dxs, dtypes)]
-  return dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs
+    dxs = [None if d is None else d.to(dt)
+           for d, dt in zip(_dir_dx(raw, dm, dxs), dtypes)]
+  return dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx
 
 
 class TrunkPack(NamedTuple):
@@ -430,13 +629,10 @@ def use_kernel(x: torch.Tensor, mode: str) -> bool:
   return x.is_cuda and mode != 'off'
 
 
-def _kernel_guard(activation, n_segs):
+def _kernel_guard(activation):
   if activation is not None and activation not in (torch.relu, F.relu):
     raise NotImplementedError(
         f'the trunk kernel models ReLU only, got {activation!r}')
-  if not 1 <= n_segs <= 2:
-    raise NotImplementedError(
-        f'the trunk kernel takes one or two input segments, got {n_segs}')
 
 
 def _ptr(t):
@@ -458,59 +654,133 @@ def _check_launch(err, what):
     raise RuntimeError(f'{what} launch failed with cudaError {err}')
 
 
-def _check_inputs(segs, pack: TrunkPack):
+def visible_dims(segs, dm: DirModes) -> Tuple[int, ...]:
+  """The widths of the trunk's segments: with the fused IDE its raw inputs
+  give way to (P, P) and, in geo mode, n.v's 1."""
+  dims = [int(s.shape[-1]) for s in segs]
+  if dm.ide_deg:
+    p = int(ref_utils.ide_constants(dm.ide_deg)[0].shape[1])
+    j = dm.ide_at
+    dims[j:j + dm.n_raw()] = [p, p] + ([1] if dm.geo else [])
+  return tuple(dims)
+
+
+class _KernelIn(NamedTuple):
+  """A trunk input as the kernels take it: the columns are [x0 | the fused
+  IDE block (re P | im P | n.v in geo mode) | x1], the IDE block made in the
+  kernel from the raw f32 inputs g (refdirs or grad_pred), v (viewdirs, geo
+  mode) and k (kappa_inv)."""
+  x0: torch.Tensor
+  x1: Optional[torch.Tensor]
+  g: Optional[torch.Tensor]
+  v: Optional[torch.Tensor]
+  k: Optional[torch.Tensor]
+  p: int            # IDE harmonics, 0 without the fused IDE
+  lmax: int
+  geo: bool
+  tables: tuple     # (mat, sigma_row, gather) f32 on the device, or Nones
+
+
+def _cols(x):
+  return 0 if x is None else int(x.shape[1])
+
+
+def _kernel_inputs(segs, pack: TrunkPack, dm: DirModes) -> _KernelIn:
   dev = segs[0].device
-  dims = tuple(int(s.shape[-1]) for s in segs)
-  if dims != pack.seg_dims:
-    raise ValueError(f'segments {dims} do not match the pack {pack.seg_dims}')
   for t in (pack.w, pack.wt, pack.b, pack.wd, pack.wh, pack.wc):
     if t is not None and t.device != dev:
       raise ValueError(f'weights on {t.device}, inputs on {dev}')
+  dims = visible_dims(segs, dm)
+  if dims != pack.seg_dims:
+    raise ValueError(f'segments {dims} do not match the pack {pack.seg_dims}')
   cdt = DTYPES[pack.compute_dtype]
-  return [s.to(cdt).contiguous() for s in segs], dims
+  c = lambda s: s.to(cdt).contiguous()
+  if not dm.ide_deg:
+    if not 1 <= len(segs) <= 2:
+      raise NotImplementedError('the trunk kernel takes one or two input '
+                                f'segments, got {len(segs)}')
+    return _KernelIn(c(segs[0]), c(segs[1]) if len(segs) > 1 else None,
+                     None, None, None, 0, 0, False, (None,) * 3)
+  nr = dm.n_raw()
+  if dm.ide_at != 1 or len(segs) > 2 + nr:
+    raise NotImplementedError(
+        'the trunk kernel takes the fused IDE after exactly one segment and '
+        f'before at most one more, got {dims}')
+  n = int(segs[0].shape[0])
+  raw = [s.float().contiguous() for s in segs[1:1 + nr]]
+  for r, w in zip(raw, (3, 3, 1) if dm.geo else (3, 1)):
+    if tuple(r.shape) != (n, w):
+      raise ValueError(f'raw IDE input of shape {tuple(r.shape)}, expected '
+                       f'{(n, w)}')
+  tables = _ide_tables(dm.ide_deg, dev)
+  return _KernelIn(c(segs[0]), c(segs[-1]) if len(segs) > 1 + nr else None,
+                   raw[0], raw[1] if dm.geo else None, raw[-1],
+                   int(tables[0].shape[1]), int(tables[0].shape[0]) - 1,
+                   dm.geo, tables)
+
+
+def _rgbe_inputs(dm: DirModes, rgbx, pack: TrunkPack, n):
+  """(raw diffuse, raw tint) f32 and (premult, bias, pad) of the epilogue."""
+  if dm.rgbe is None:
+    return None, None, (0.0, 0.0, 0.0)
+  if pack.wh is None or pack.wh.shape[0] != 3 or pack.wd is not None:
+    raise ValueError('the colour epilogue needs the rgb head (3 wide) as '
+                     'the only f32 head')
+  rawd, rawt = (r.float().reshape(n, 3).contiguous() for r in rgbx)
+  return rawd, rawt, dm.rgbe
 
 
 def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
-                 fold: Optional[torch.Tensor] = None):
+                 fold: Optional[torch.Tensor] = None,
+                 dir_modes: Optional[DirModes] = None, rgbx=None):
   """Launch the CUDA forward kernel; outputs as `trunk_reference` returns
   them, except that with `fold` ([F, nb] f32, two IPE segments) the density
-  gradient comes out folded: the last output is u [n, nb] f32 (K3)."""
+  gradient comes out folded: the last output is u [n, nb] f32 (K3).
+  `dir_modes` and `rgbx` as for trunk_reference (K8-K10)."""
+  dm = dir_modes or DirModes()
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
   lib = _library('trunk_fwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
-  segs, dims = _check_inputs(segs, pack)
-  dev = segs[0].device
-  n = int(segs[0].shape[0])
-  x1 = segs[1] if len(segs) > 1 else None
+  ki = _kernel_inputs(segs, pack, dm)
+  dev = ki.x0.device
+  n = int(ki.x0.shape[0])
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   sig = torch.empty(n, device=dev) if pack.wd is not None else None
   hout = torch.empty(n, hf, device=dev) if hf else None
   cout = torch.empty(n, hc, device=dev, dtype=cdt) if hc else None
   u = nb = None
   if fold is not None:
-    if pack.wd is None or len(segs) != 2 or fold.shape[0] != dims[0]:
+    if (pack.wd is None or ki.x1 is None or ki.p
+        or fold.shape[0] != _cols(ki.x0)):
       raise ValueError('the density gradient needs the density head and two '
                        f'IPE segments matching the fold {tuple(fold.shape)}')
     fold = fold.float().contiguous()
     nb = int(fold.shape[1])
     u = torch.empty(n, nb, device=dev)
+  rawd, rawt, (premult, rbias, pad) = _rgbe_inputs(dm, rgbx, pack, n)
+  rgb = torch.empty(n, 3, device=dev) if rawd is not None else None
+  mat, sg, gm = ki.tables
   with torch.cuda.device(dev):
     err = lib.refnerf_trunk_fwd(
         1 if cdt == torch.bfloat16 else 0, pack.width, hc,
-        _ptr(segs[0]), dims[0], _ptr(x1), dims[1] if x1 is not None else 0,
+        _ptr(ki.x0), _cols(ki.x0), _ptr(ki.x1), _cols(ki.x1),
         n, pack.kin, pack.depth, pack.skip, _ptr(pack.w), _ptr(pack.wt),
         _ptr(pack.b), _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf,
         _ptr(pack.wc), _ptr(pack.bc), _ptr(fold), nb or 0, _ptr(sig),
-        _ptr(hout), _ptr(cout), _ptr(u),
+        _ptr(hout), _ptr(cout), _ptr(u), _ptr(ki.g), _ptr(ki.v), _ptr(ki.k),
+        ki.p, ki.lmax, int(ki.geo), _ptr(mat), _ptr(sg), _ptr(gm),
+        _ptr(rawd), _ptr(rawt), _ptr(rgb), premult, rbias, pad,
         torch.cuda.current_stream(dev).cuda_stream)
   _check_launch(err, 'trunk forward kernel')
-  return [t for t in (sig, hout, cout, u) if t is not None]
+  return [t for t in (sig, hout, cout, u, rgb) if t is not None]
 
 
 def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
-                          needs_dx=False, slab=BWD_SLAB):
-  """Launch the CUDA backward kernels (K4, K5); returns what
-  `trunk_backward_reference` returns.
+                          needs_dx=False, slab=BWD_SLAB,
+                          dir_modes: Optional[DirModes] = None, rgbx=None,
+                          rgb_bar=None):
+  """Launch the CUDA backward kernels (K4, K5; K8-K10 with `dir_modes`);
+  returns what `trunk_backward_reference` returns.
 
   Per slab of samples: the per-tile kernel recomputes the trunk and runs the
   inner chain, the head backward, the first-order reverse and (with the
@@ -520,23 +790,27 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   gradient's partials, and fixed-order reductions sum them (no atomics: the
   result does not depend on the schedule).
   """
+  dm = dir_modes or DirModes()
   sbar, hbar, cbar, ubar = cots
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
   lib = _library('trunk_bwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
   seg_dtypes = [s.dtype for s in segs]
-  segs, dims = _check_inputs(segs, pack)
-  dev = segs[0].device
-  n = int(segs[0].shape[0])
+  ki = _kernel_inputs(segs, pack, dm)
+  dev = ki.x0.device
+  n = int(ki.x0.shape[0])
+  d0, d1 = _cols(ki.x0), _cols(ki.x1)
   W, L, kin = pack.width, pack.depth, pack.kin
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = ubar is not None
-  if dg and (fold is None or len(segs) != 2 or pack.wd is None):
+  if dg and (fold is None or ki.x1 is None or ki.p or pack.wd is None):
     raise ValueError('the cotangent of u needs the density head, two IPE '
                      'segments and the scale fold')
   if dg and needs_dx:
     raise NotImplementedError('the backward kernel emits segment cotangents '
                               'only without the density gradient')
+  if ki.p and not needs_dx:
+    raise NotImplementedError('the fused IDE backward comes with needs_dx')
   nb = int(fold.shape[1]) if dg else 0
   fold = fold.float().contiguous() if dg else None
   rows_of = lambda t, w: None if t is None else (
@@ -546,9 +820,16 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   ubar = rows_of(ubar, nb) if dg else None
   cbar = (cbar.to(cdt).reshape(n, hc).contiguous()
           if cbar is not None and hc else None)
+  rawd, rawt, (premult, rbias, pad) = _rgbe_inputs(dm, rgbx, pack, n)
+  rgbe = rawd is not None
+  if rgbe:
+    rgb_bar = (torch.zeros(n, 3, device=dev) if rgb_bar is None
+               else rows_of(rgb_bar, 3))
+  drawd, drawt = ((torch.empty(n, 3, device=dev), torch.empty(n, 3, device=dev))
+                  if rgbe else (None, None))
 
-  fin = sum(dims)
   k_pack = pack.k_dims()
+  fin = sum(pack.seg_dims)
   k_out = [fin if l == 0 else W + (fin if l == pack.skip else 0)
            for l in range(L)]
   dws = [torch.empty(W, k, device=dev) for k in k_out]
@@ -557,8 +838,12 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   # dbh [hf] | dbc [hc].
   nvec = L * W + (W if pack.wd is not None else 0) + hf * W + hf + hc
   vec = torch.empty(nvec, device=dev)
-  dxs = ([torch.empty(n, d, device=dev, dtype=cdt) for d in dims]
-         if needs_dx else None)
+  dx0 = dx1 = ddg = ddk = None
+  if needs_dx:
+    dx0 = torch.empty(n, d0, device=dev, dtype=cdt)
+    dx1 = torch.empty(n, d1, device=dev, dtype=cdt) if d1 else None
+    if ki.p:
+      ddg, ddk = torch.empty(n, 3, device=dev), torch.empty(n, 1, device=dev)
 
   slab = n if n <= slab else slab // _TILE * _TILE
   rp_max = -(-slab // _TILE) * _TILE
@@ -578,6 +863,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   es = scratch.element_size()
   stream = torch.cuda.current_stream(dev).cuda_stream
   flag = 1 if cdt == torch.bfloat16 else 0
+  mat, sg, gm = ki.tables
 
   def at(t, row, width):
     return None if t is None else t.data_ptr() + row * width * t.element_size()
@@ -592,17 +878,19 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
         off += feats
       layer = lambda name, l: reg[name] + l * W * rp * es
       err = lib.refnerf_trunk_bwd(
-          flag, W, hc, at(segs[0], start, dims[0]), dims[0],
-          at(segs[1], start, dims[1]) if len(segs) > 1 else None,
-          dims[1] if len(segs) > 1 else 0, rows, kin, L, pack.skip,
-          _ptr(pack.w), _ptr(pack.wt), _ptr(pack.b), _ptr(pack.wd),
-          _ptr(pack.wh), hf, _ptr(pack.wct), at(sbar, start, 1),
-          at(hbar, start, hf), at(cbar, start, hc), at(ubar, start, nb),
-          _ptr(fold), nb, at(dxs[0], start, dims[0]) if dxs else None,
-          at(dxs[1], start, dims[1]) if dxs and len(dxs) > 1 else None,
-          _ptr(dx_keep), rp, reg['hs'], reg['zs'], reg.get('ss'),
-          reg.get('ps'), reg['xs'], reg.get('ts'), reg.get('cs'),
-          vec_part.data_ptr(), nvec, stream)
+          flag, W, hc, at(ki.x0, start, d0), d0, at(ki.x1, start, d1), d1,
+          rows, kin, L, pack.skip, _ptr(pack.w), _ptr(pack.wt), _ptr(pack.b),
+          _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf, _ptr(pack.wct),
+          at(sbar, start, 1), at(hbar, start, hf), at(cbar, start, hc),
+          at(ubar, start, nb), _ptr(fold), nb, at(dx0, start, d0),
+          at(dx1, start, d1), _ptr(dx_keep), rp, reg['hs'], reg['zs'],
+          reg.get('ss'), reg.get('ps'), reg['xs'], reg.get('ts'),
+          reg.get('cs'), vec_part.data_ptr(), nvec, at(ki.g, start, 3),
+          at(ki.v, start, 3), at(ki.k, start, 1), ki.p, ki.lmax, int(ki.geo),
+          _ptr(mat), _ptr(sg), _ptr(gm), at(ddg, start, 3), at(ddk, start, 1),
+          at(rawd, start, 3), at(rawt, start, 3), at(rgb_bar, start, 3),
+          at(drawd, start, 3), at(drawt, start, 3), premult, rbias, pad,
+          stream)
       _check_launch(err, 'trunk backward kernel')
       acc = int(start > 0)
       nsplit = -(-rp // _KSPLIT)
@@ -643,9 +931,13 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   dwh = take(hf * W, (hf, W)) if hf else None
   dbh = take(hf, (hf,)) if hf else None
   dbc = take(hc, (hc,)) if hc else None
-  if dxs is not None:
-    dxs = [d.to(dt) for d, dt in zip(dxs, seg_dtypes)]
-  return dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs
+  dxs = None
+  if needs_dx:
+    mid = ([] if not ki.p else [ddg, None, ddk] if ki.geo else [ddg, ddk])
+    dxs = [dx0] + mid + ([dx1] if dx1 is not None else [])
+    dxs = [None if d is None else d.to(dt) for d, dt in zip(dxs, seg_dtypes)]
+  return (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs,
+          (drawd, drawt) if rgbe else None)
 
 
 class _Spec(NamedTuple):
@@ -658,6 +950,7 @@ class _Spec(NamedTuple):
   fold: Optional[torch.Tensor]  # [F, nb]: emit u (spatial)
   has: Tuple[bool, ...]        # wd, head_f32, head_cdt present
   needs_dx: bool
+  dir_modes: DirModes = DirModes()
 
 
 def _unflatten(spec: _Spec, params):
@@ -668,40 +961,52 @@ def _unflatten(spec: _Spec, params):
       (wc, bc) if spec.has[2] else None
 
 
-def _forward(spec: _Spec, segs, params, which):
+def _count(which, dm: DirModes):
+  """One launch of kernel `which`, also counted under each fused mode."""
+  launches[which] += 1
+  for k, on in (('K8', dm.ide_deg), ('K9', dm.geo), ('K10', dm.rgbe)):
+    if on:
+      launches[k] += 1
+
+
+def _forward(spec: _Spec, segs, params, which, rgbx=None):
   ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
   if spec.kernel:
-    outs = trunk_kernel(segs, spec.pack, spec.fold)
-    launches[which] += 1
+    outs = trunk_kernel(segs, spec.pack, spec.fold, spec.dir_modes, rgbx)
+    _count(which, spec.dir_modes)
     return outs
   outs = trunk_reference(segs, ws, bs, skip_period=spec.skip_period, wd=wd,
                          head_f32=head_f32, head_cdt=head_cdt,
                          compute_dtype=spec.compute_dtype,
-                         density_grad=spec.fold is not None)
+                         density_grad=spec.fold is not None,
+                         dir_modes=spec.dir_modes, rgbx=rgbx)
   if spec.fold is not None:
     outs = outs[:-2] + [fold_density_grad(outs[-2:], segs[0], segs[1],
                                           spec.fold)]
   return outs
 
 
-def _backward(spec: _Spec, segs, params, grads, which):
-  """Parameter (and segment) gradients from the output cotangents."""
+def _backward(spec: _Spec, segs, params, grads, which, rgbx=None):
+  """Parameter, segment and epilogue-input gradients from the output
+  cotangents."""
   ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
   grads = list(grads)
   cots = [grads.pop(0) if h else None for h in spec.has]
   ubar = grads.pop(0) if spec.fold is not None else None
+  rgb_bar = grads.pop(0) if spec.dir_modes.rgbe is not None else None
   sbar, hbar, cbar = cots
+  kw = dict(dir_modes=spec.dir_modes, rgbx=rgbx, rgb_bar=rgb_bar)
   if spec.kernel:
     res = trunk_backward_kernel(segs, spec.pack, (sbar, hbar, cbar, ubar),
-                                spec.fold, spec.needs_dx)
-    launches[which] += 1
+                                spec.fold, spec.needs_dx, **kw)
+    _count(which, spec.dir_modes)
   else:
     res = trunk_backward_reference(
         segs, ws, bs, (sbar, hbar, cbar, ubar),
         skip_period=spec.skip_period, wd=wd, head_f32=head_f32,
         head_cdt=head_cdt, compute_dtype=spec.compute_dtype, fold=spec.fold,
-        needs_dx=spec.needs_dx)
-  dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs = res
+        needs_dx=spec.needs_dx, **kw)
+  dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx = res
   cast = lambda g, p: None if (g is None or p is None) else g.to(p.dtype)
   pg = [cast(g, p) for g, p in zip(dws + dbs, ws + bs)]
   pg += [cast(dwd, wd),
@@ -709,7 +1014,7 @@ def _backward(spec: _Spec, segs, params, grads, which):
          cast(dbh, head_f32[1] if head_f32 else None),
          cast(dwc, head_cdt[0] if head_cdt else None),
          cast(dbc, head_cdt[1] if head_cdt else None)]
-  return pg, dxs
+  return pg, dxs, drgbx
 
 
 class SpatialTrunk(torch.autograd.Function):
@@ -729,21 +1034,27 @@ class SpatialTrunk(torch.autograd.Function):
   def backward(ctx, *grads):
     xs, xc, *saved = ctx.saved_tensors
     params = [saved.pop(0) if p else None for p in ctx.present]
-    pg, _ = _backward(ctx.spec, [xs, xc], params, grads, 'K4')
+    pg, _, _ = _backward(ctx.spec, [xs, xc], params, grads, 'K4')
     return (None, None, None, *pg)
 
 
 class DirectionalTrunk(torch.autograd.Function):
   """The directional trunk: forward K2, backward K5 with segment
-  cotangents. Inputs (spec, n_segs, *segs, *params)."""
+  cotangents; with the spec's DirModes also K8-K10 in both. Inputs (spec,
+  n_segs, *segs, *params, *rgbx), rgbx = (raw diffuse, raw tint) with the
+  colour epilogue, else empty."""
 
   @staticmethod
   def forward(ctx, spec, n_segs, *args):
-    segs, params = list(args[:n_segs]), args[n_segs:]
+    n_par = 2 * spec.depth + 5
+    segs = list(args[:n_segs])
+    params = args[n_segs:n_segs + n_par]
+    rgbx = list(args[n_segs + n_par:]) or None
     ctx.spec, ctx.n_segs = spec, n_segs
-    ctx.save_for_backward(*segs, *[p for p in params if p is not None])
+    ctx.save_for_backward(*segs, *[p for p in params if p is not None],
+                          *(rgbx or []))
     ctx.present = [p is not None for p in params]
-    return tuple(_forward(spec, segs, params, 'K2'))
+    return tuple(_forward(spec, segs, params, 'K2', rgbx))
 
   @staticmethod
   @once_differentiable
@@ -751,8 +1062,9 @@ class DirectionalTrunk(torch.autograd.Function):
     saved = list(ctx.saved_tensors)
     segs, saved = saved[:ctx.n_segs], saved[ctx.n_segs:]
     params = [saved.pop(0) if p else None for p in ctx.present]
-    pg, dxs = _backward(ctx.spec, segs, params, grads, 'K5')
-    return (None, None, *(dxs or [None] * len(segs)), *pg)
+    rgbx = saved or None
+    pg, dxs, drgbx = _backward(ctx.spec, segs, params, grads, 'K5', rgbx)
+    return (None, None, *(dxs or [None] * len(segs)), *pg, *(drgbx or []))
 
 
 def _params(weights, biases, wd, head_f32, head_cdt):
@@ -790,7 +1102,7 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
   params = _params(weights, biases, wd, head_f32, head_cdt)
   kernel = use_kernel(xs, mode)
   if kernel:
-    _kernel_guard(activation, 2)
+    _kernel_guard(activation)
   if not (activation is None or activation in (torch.relu, F.relu)):
     if density_grad or _needs_grad(params):
       raise NotImplementedError('the trunk backward and the density '
@@ -818,36 +1130,62 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
   return tuple(res)
 
 
-def fused_trunk(segs: Sequence[torch.Tensor], weights, biases, head_f32: Head,
-                *, skip_period=4, compute_dtype='float32', mode='auto',
-                activation=None, pack: Optional[TrunkPack] = None):
-  """K2 forward, K5 backward: a trunk over input segments [..., d_j] and its
-  f32 head (:1178), with segment cotangents in the compute dtype.
 
-  Returns the head output [..., hf]. `pack` as for fused_encoded_trunk.
+
+def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,
+                skip_period=4, compute_dtype='float32', mode='auto',
+                activation=None, pack: Optional[TrunkPack] = None,
+                ide_deg=0, ide_at=0, ide_geo=False, rgb_epilogue=None):
+  """K2 forward, K5 backward: a trunk over input segments [..., d_j] and its
+  f32 head (:1178-1314), with segment cotangents in the compute dtype.
+
+  With `ide_deg` (K8), segs[ide_at] is the tuple of the IDE's raw inputs,
+  (refdirs [..., 3], kappa_inv [..., 1]); with `ide_geo` (K9) it is
+  (grad_pred [..., 3], viewdirs [..., 3], kappa_inv [..., 1]) and n.v
+  follows the IDE in the trunk input. Their cotangents come out in f32, the
+  viewdirs' as None. `rgb_epilogue` (K10) is (raw_diffuse [..., 3],
+  raw_tint [..., 3], rgb_premultiplier, rgb_bias, rgb_padding): the colour
+  epilogue runs after the rgb head, which `head_f32` must be.
+
+  Returns the head output [..., hf], or (head output, rgb [..., 3]) with
+  `rgb_epilogue`. `pack` as for fused_encoded_trunk.
   """
+  segs = list(segs)
+  dm = DirModes()
+  if ide_deg:
+    segs[ide_at:ide_at + 1] = list(segs[ide_at])
+    dm = DirModes(int(ide_deg), ide_at, bool(ide_geo))
+  rgbx = []
+  if rgb_epilogue is not None:
+    rawd, rawt, premult, bias, pad = rgb_epilogue
+    dm = dm._replace(rgbe=(float(premult), float(bias), float(pad)))
   lead = segs[0].shape[:-1]
   n = math.prod(lead)
   _check_trunk(len(weights), skip_period)
   cdt = DTYPES[compute_dtype]
-  flat = [s.reshape(n, s.shape[-1]).to(cdt) for s in segs]
+  raw = range(dm.ide_at, dm.ide_at + dm.n_raw())
+  flat = [s.reshape(n, s.shape[-1]) for s in segs]
+  flat = [s.float() if j in raw else s.to(cdt) for j, s in enumerate(flat)]
+  if rgb_epilogue is not None:
+    rgbx = [rawd.reshape(n, 3).float(), rawt.reshape(n, 3).float()]
   params = _params(weights, biases, None, head_f32, None)
   kernel = use_kernel(flat[0], mode)
   if kernel:
-    _kernel_guard(activation, len(flat))
+    _kernel_guard(activation)
   if not (activation is None or activation in (torch.relu, F.relu)):
-    if _needs_grad(flat + params):
+    if _needs_grad(flat + params + rgbx):
       raise NotImplementedError('the trunk backward models ReLU only')
-    out, = trunk_reference(flat, weights, biases, skip_period=skip_period,
+    outs = trunk_reference(flat, weights, biases, skip_period=skip_period,
                            head_f32=head_f32, compute_dtype=compute_dtype,
-                           activation=activation)
-    return out.reshape(*lead, out.shape[-1])
-  if kernel:
-    if pack is None:
-      pack = pack_trunk(weights, biases, [s.shape[-1] for s in flat],
+                           activation=activation, dir_modes=dm, rgbx=rgbx)
+  else:
+    if kernel and pack is None:
+      pack = pack_trunk(weights, biases, visible_dims(flat, dm),
                         skip_period=skip_period, head_f32=head_f32,
                         compute_dtype=compute_dtype)
-  spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
-               pack if kernel else None, None, (False, True, False), True)
-  out, = DirectionalTrunk.apply(spec, len(flat), *flat, *params)
-  return out.reshape(*lead, out.shape[-1])
+    spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
+                 pack if kernel else None, None, (False, True, False), True,
+                 dm)
+    outs = DirectionalTrunk.apply(spec, len(flat), *flat, *params, *rgbx)
+  outs = [o.reshape(*lead, o.shape[-1]) for o in outs]
+  return outs[0] if len(outs) == 1 else tuple(outs)

@@ -2,7 +2,8 @@
 
 Counterpart of refnerf_tpu/ops/ref_utils.py:23-164. The spherical-harmonic
 constants are recomputed here in numpy (that module imports jax); the IDE is
-the same real re/im recurrence.
+the same real re/im recurrence. `ide_tables` lays the constants out for the
+fused IDE of ops/fused_mlp.py.
 """
 
 from __future__ import annotations
@@ -77,6 +78,17 @@ def ide_constants(deg_view):
   sigma = 0.5 * ml_array[1, :] * (ml_array[1, :] + 1)
   return (ml_array.astype(np.int32), mat.astype(np.float32),
           sigma.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def ide_tables(deg_view):
+  """(mat [l_max+1, P], sigma_row [1, P], gather [l_max+1, P]) f32: the
+  tables of the fused IDE (fused_mlp.py:1161-1175). `gather` is the {0, 1}
+  matrix that picks power m_i of (x + iy) for harmonic i."""
+  ml_array, mat, sigma = ide_constants(deg_view)
+  gather = np.zeros_like(mat)
+  gather[ml_array[0], np.arange(ml_array.shape[1])] = 1.0
+  return mat, sigma.reshape(1, -1), gather
 
 
 def generate_ide_fn(deg_view):

@@ -1,6 +1,7 @@
 """The CUDA trunk kernels against their plain versions, on the card.
 
-Every test here needs an NVIDIA GPU (marker `cuda`) and skips elsewhere. This
+Every test here needs an NVIDIA GPU (marker `cuda`) and skips elsewhere:
+K1-K5, and K8-K10 (the fused directional stages) in both directions. This
 file imports no jax, so it also runs where jax is not installed; there, skip
 tests/conftest.py (it imports jax):
 
@@ -187,6 +188,75 @@ def test_kernel_refuses_what_it_does_not_model(dev):
     fused_mlp.fused_trunk(segs, ws, bs, **kw)
 
 
+# The fused directional stages (K8 the IDE, K9 the direction geometry, K10
+# the colour epilogue) in the directional trunk's forward and backward.
+DIR_CASES = {'K8': (True, False, False), 'K8+K9': (True, True, False),
+             'K10': (False, False, True), 'K8+K9+K10': (True, True, True)}
+
+
+def _dir_case(dev, case, n=1000, seed=3):
+  """Flagship directional trunk (8 x 256, skip at 5, rgb head) on the raw
+  inputs of a mode: bottleneck 128 | refdirs, kappa_inv, n.v (K8), or
+  grad_pred, viewdirs, kappa_inv (K9), or the 73-wide encoding (K10 alone);
+  kappa_inv in [0.05, 0.5] as the model's roughness (ROADMAP H9)."""
+  ide, geo, rgb = DIR_CASES[case]
+  gen = torch.Generator().manual_seed(seed)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  unit = lambda v: v / v.norm(dim=-1, keepdim=True)
+  skips = fused_mlp.skip_input_layers(8, 4)
+  ws = [rand(256, 201 if l == 0 else 256 + (201 if l in skips else 0))
+        for l in range(8)]
+  ws = [w * math.sqrt(2 / w.shape[1]) for w in ws]
+  bs = [rand(256) * 0.05 for _ in range(8)]
+  head = (rand(3, 256) / 16, rand(3) * 0.1)
+  ki = 0.05 + 0.45 * torch.rand(n, 1, generator=gen).to(dev)
+  segs = [rand(n, 128)]
+  if not ide:
+    segs.append(torch.rand(n, 73, generator=gen).to(dev) * 2 - 1)
+  elif geo:
+    segs += [rand(n, 3), unit(rand(n, 3)), ki]
+  else:
+    segs += [unit(rand(n, 3)), ki, torch.rand(n, 1, generator=gen).to(dev)]
+  dm = fused_mlp.DirModes(5 if ide else 0, 1, geo,
+                          (1.0, 0.0, 0.001) if rgb else None)
+  rgbx = (rand(n, 3), rand(n, 3)) if rgb else None
+  return segs, ws, bs, head, dm, rgbx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('case', sorted(DIR_CASES))
+def test_dir_modes_match_plain(dev, case, cdt):
+  # Forward: raw rgb (and rgb with K10) as values; backward, given random
+  # cotangents of both: every parameter gradient, the segments' and raw
+  # inputs' cotangents and d raw diffuse / tint, as derivatives.
+  n = 1000
+  segs, ws, bs, head, dm, rgbx = _dir_case(dev, case, n)
+  segs = [s if dm.ide_deg and 1 <= j < 1 + dm.n_raw()
+          else s.to(fused_mlp.DTYPES[cdt]) for j, s in enumerate(segs)]
+  pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(segs, dm),
+                              head_f32=head, compute_dtype=cdt)
+  gen = torch.Generator().manual_seed(4)
+  hbar = torch.randn(n, 3, generator=gen).to(dev)
+  rgb_bar = torch.randn(n, 3, generator=gen).to(dev) if rgbx else None
+  kw = dict(dir_modes=dm, rgbx=rgbx)
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack, **kw)
+    want = fused_mlp.trunk_reference(segs, ws, bs, head_f32=head,
+                                     compute_dtype=cdt, **kw)
+    gb = fused_mlp.trunk_backward_kernel(
+        segs, pack, (None, hbar, None, None), needs_dx=True, slab=256,
+        rgb_bar=rgb_bar, **kw)
+    wb = fused_mlp.trunk_backward_reference(
+        segs, ws, bs, (None, hbar, None, None), head_f32=head,
+        compute_dtype=cdt, needs_dx=True, rgb_bar=rgb_bar, **kw)
+  torch.cuda.synchronize()
+  _assert_close(got, want, cdt, case)
+  flat = lambda r: [t for x in r for t in (x if isinstance(x, (list, tuple))
+                                           else [x]) if t is not None]
+  _assert_close(flat(gb), flat(wb), cdt, case, n_values=0)
+
+
 def _rays(n, dev):
   rng = np.random.default_rng(0)
   d = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)
@@ -217,6 +287,46 @@ def test_model_kernels_match_plain_path(dev, cdt):
     assert torch.isfinite(out[k]).all()
     err = (out[k] - plain[k]).abs().max().item()
     assert err <= BOUND[cdt], (k, err)
+
+
+FUSE = ['NerfMLP.fuse_dir_enc = True', 'NerfMLP.fuse_dir_geo = True',
+        'NerfMLP.fuse_dir_rgb = True']
+
+
+@pytest.mark.cuda
+def test_model_with_dir_fusions_matches_plain_path(dev):
+  # The flagship with K8-K10 at 16 samples per level, f32: a served request
+  # (each of K2, K8, K9, K10 once per level) and one step's loss and
+  # gradients (forward and backward each once per level) against
+  # fused_trunk='off'.
+  config, gin = configs.parse(
+      [GIN], ['Model.num_prop_samples = 16', 'Model.num_nerf_samples = 16',
+              'Config.sample_noise_size = 0'] + FUSE)
+  model = construct.construct_model(config, gin, dev)
+  rays = _rays(100, dev)
+  before = dict(fused_mlp.launches)
+  with torch.no_grad():
+    out = renderer.render_rays(model, rays, 128)
+  for k in ('K2', 'K8', 'K9', 'K10'):
+    assert fused_mlp.launches[k] == before[k] + 2, k
+  batch = rays_lib.Batch(rays=rays, rgb=torch.rand(100, 3, generator=torch
+                                                   .Generator().manual_seed(0)).to(dev))
+  state = step_lib.create_train_state(config, model)
+  train = step_lib.make_train_step(model, config)
+  before = dict(fused_mlp.launches)
+  loss, _, grads = train.loss_and_grads(state, batch)
+  for k in ('K8', 'K9', 'K10'):
+    assert fused_mlp.launches[k] == before[k] + 4, k
+  model.nerf_mlp.cfg.fused_trunk = 'off'
+  with torch.no_grad():
+    plain = renderer.render_rays(model, rays, 128)
+  loss_off, _, grads_off = train.loss_and_grads(state, batch)
+  for k in out:
+    err = (out[k] - plain[k]).abs().max().item()
+    assert err <= BOUND['float32'], (k, err)
+  assert abs(loss.item() - loss_off.item()) <= 1e-4 * abs(loss_off.item())
+  for k in grads:
+    _assert_close([grads[k]], [grads_off[k]], 'float32', k, n_values=0)
 
 
 @pytest.mark.cuda

@@ -258,7 +258,7 @@ def test_render_rays_pads_onto_the_chunk(params):
 
 def test_unported_paths_are_refused():
   with pytest.raises(NotImplementedError):
-    _port_model(_bindings() + ['NerfMLP.fuse_dir_enc = True'])
+    _port_model(_bindings() + ['NerfMLP.fuse_compositing = True'])
   with pytest.raises(NotImplementedError):
     _port_model(_bindings() + ['Model.dilation_bias = 0.0025'])
   with pytest.raises(ValueError, match='batch_sizee'):
@@ -271,7 +271,7 @@ def test_unported_paths_are_refused():
 def test_port_imports_no_jax_and_renders_on_cpu():
   script = textwrap.dedent(f'''
       import sys
-      for name in ('jax', 'flax', 'optax', 'absl'):
+      for name in ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu'):
         sys.modules[name] = None
       import numpy as np, torch
       from refnerf_tpu_torch import configs
@@ -287,7 +287,8 @@ def test_port_imports_no_jax_and_renders_on_cpu():
       out = renderer.render_rays(model, rays, 4)
       assert torch.isfinite(out['rgb']).all() and out['rgb'].shape == (5, 3)
       bad = [m for m in sys.modules if m.split('.')[0] in
-             ('jax', 'flax', 'optax', 'absl') and sys.modules[m] is not None]
+             ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu')
+             and sys.modules[m] is not None]
       assert not bad, bad
       print('rendered', tuple(out['rgb'].shape))
   ''')

@@ -548,7 +548,7 @@ def test_unported_training_options_are_refused():
 def test_port_takes_a_train_step_without_jax():
   script = textwrap.dedent(f'''
       import sys
-      for name in ('jax', 'flax', 'optax', 'absl'):
+      for name in ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu'):
         sys.modules[name] = None
       import numpy as np, torch
       from refnerf_tpu_torch import configs
@@ -570,7 +570,8 @@ def test_port_takes_a_train_step_without_jax():
       assert torch.isfinite(stats['loss']) and state.step == 1
       assert not torch.equal(before, model.nerf_mlp.spatial_0.weight)
       bad = [m for m in sys.modules if m.split('.')[0] in
-             ('jax', 'flax', 'optax', 'absl') and sys.modules[m] is not None]
+             ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu')
+             and sys.modules[m] is not None]
       assert not bad, bad
       print('trained', sorted(stats['losses']))
   ''')
