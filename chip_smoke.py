@@ -42,7 +42,8 @@ The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6 and 8), its time and its plain
 version's at N, and its bound: the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its operations
-at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32).
+at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
+the fused directional stages' f32 work overlaps bf16 tensor work).
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
 """
@@ -189,8 +190,15 @@ def trunk_flops(ws, n, heads, passes):
 
 
 def bound(cdt, flops, nbytes_moved, f32_flops=0):
-  """(ms, 'bytes' or 'operations'): the least time the card could take."""
-  t_ops = flops / PEAK_FLOPS[cdt] + f32_flops / PEAK_FLOPS['float32']
+  """(ms, 'bytes' or 'operations'): the least time the card could take.
+  `flops` run in the compute dtype (bf16 on the tensor cores, f32 on the FMA
+  pipes), `f32_flops` on the FMA pipes: in f32 the two share the pipes and
+  add up; in bf16 they run on separate units that can overlap, so the
+  longer of the two counts."""
+  if cdt == 'float32':
+    t_ops = (flops + f32_flops) / PEAK_FLOPS['float32']
+  else:
+    t_ops = max(flops / PEAK_FLOPS[cdt], f32_flops / PEAK_FLOPS['float32'])
   t_bytes = nbytes_moved / MEM_RATE
   return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
@@ -453,8 +461,9 @@ def check_train_kernels(fused_mlp, dev):
 
 
 def train_setup(dev, bindings=()):
-  """The flagship at batch TRAIN_BATCH as bench.py trains it: model, train
-  state, step and a batch of rays and pixels made as bench.py makes them."""
+  """The flagship at batch TRAIN_BATCH as bench.py trains it: model, its
+  Config, train state, step and a batch of rays and pixels made as bench.py
+  makes them."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.train import step as step_lib
   model, config = flagship(dev, [
@@ -469,16 +478,16 @@ def train_setup(dev, bindings=()):
       rng.uniform(0, 1, (TRAIN_BATCH, 3)).astype(np.float32)).to(dev)
   batch = rays_lib.Batch(rays=rays, rgb=rgb)
   state = step_lib.create_train_state(config, model)
-  return model, state, step_lib.make_train_step(model, config), batch
+  return model, config, state, step_lib.make_train_step(model, config), batch
 
 
 def train(fused_mlp, dev, bindings=(), phase=6, per_step=None):
   """Phase 6 (8 with the fused directional stage): train steps of the
   flagship through the kernels; `per_step` are the launches each kernel
   must make a step. Then one step's gradients against fused_trunk='off'.
-  Returns (launches, seconds per step, (model, state, step, batch))."""
+  Returns (launches, seconds per step, train_setup's five)."""
   from refnerf_tpu_torch.train import step as step_lib
-  model, state, train_step, batch = train_setup(dev, bindings)
+  model, config, state, train_step, batch = train_setup(dev, bindings)
   levels = model.cfg.num_levels
   start = {k: p.detach().clone() for k, p in model.named_parameters()}
   log(f'phase {phase}: model blender_refnerf.gin {" ".join(bindings)} bf16 '
@@ -544,13 +553,38 @@ def train(fused_mlp, dev, bindings=(), phase=6, per_step=None):
       f'{dn:.2e}, bound {TRAIN_GNORM_BOUND})')
   if not (dl <= TRAIN_LOSS_BOUND and dn <= TRAIN_GNORM_BOUND):
     raise AssertionError('the kernel train step disagrees with the plain one')
-  return launches, dt, (model, state, train_step, batch)
+  return launches, dt, (model, config, state, train_step, batch)
 
 
 # Phase 7: (name, (IDE, geometry, colour epilogue)) of each fused mode; K9
 # runs with K8, as it does in the model.
 DIR_CASES = (('K8', (True, False, False)), ('K9', (True, True, False)),
              ('K10', (False, False, True)), ('K8+K9+K10', (True, True, True)))
+
+
+def dir_flops(mat, ide, geo, rgb, backward):
+  """f32 operations of the fused directional stages over N_SAMPLES, as the
+  function needs them (not as the kernel happens to compute them; a
+  transcendental counts as one). A sample's IDE forward: the powers z^k and
+  (x + iy)^m up to l_max (1 and 6 a step), a multiply-add for each non-zero
+  of `mat` (the z-polynomials; taking power m_i through `gather` is a pick,
+  no arithmetic), and kappa_inv sigma, its exp and three products a
+  harmonic. Its backward: the forward again (the trunk's recompute needs
+  the encoding), a multiply-add for each non-zero of mat's rows k >= 1 (the
+  derivative polynomials) and 19 a harmonic for the closed form. The
+  geometry: 27 forward, 27 + 46 backward. The colour epilogue: 74 forward,
+  150 backward."""
+  lmax, p = mat.shape[0] - 1, mat.shape[1]
+  n = 0
+  if ide:
+    n += 7 * (lmax - 1) + 2 * np.count_nonzero(mat) + 5 * p
+    if backward:
+      n += 2 * np.count_nonzero(mat[1:]) + 19 * p
+  if geo:
+    n += 27 + (46 if backward else 0)
+  if rgb:
+    n += 150 if backward else 74
+  return int(n) * N_SAMPLES
 
 
 def dir_case(fused_mlp, gen, dev, ide, geo, rgb):
@@ -587,9 +621,6 @@ def check_dir_kernels(fused_mlp, dev):
     cots = (None, rand(N_SAMPLES, 3), None, None)
     rgb_bar = rand(N_SAMPLES, 3) if rgb else None
     mat = fused_mlp.ref_utils.ide_tables(5)[0]
-    # The IDE's three [l_max + 1] x P contractions a sample, in f32; twice
-    # in the backward (the recompute and the transposed contractions).
-    ide_flops = 2 * 3 * mat.size * N_SAMPLES if ide else 0
     kw = dict(dir_modes=dm, rgbx=rgbx)
     for cdt in ('float32', 'bfloat16'):
       cs = [s if j in raw else s.to(fused_mlp.DTYPES[cdt])
@@ -602,7 +633,8 @@ def check_dir_kernels(fused_mlp, dev):
           lambda: fused_mlp.trunk_reference(cs, ws, bs, head_f32=head,
                                             compute_dtype=cdt, **kw),
           n_values=2 if rgb else 1, phase=7, inputs=inputs,
-          flops=trunk_flops(ws, N_SAMPLES, 3, 1), f32_flops=ide_flops)
+          flops=trunk_flops(ws, N_SAMPLES, 3, 1),
+          f32_flops=dir_flops(mat, ide, geo, rgb, backward=False))
       results[which + ' backward', cdt] = compare(
           which + ' backward', cdt,
           lambda: fused_mlp.trunk_backward_kernel(
@@ -612,7 +644,8 @@ def check_dir_kernels(fused_mlp, dev):
               needs_dx=True, rgb_bar=rgb_bar, **kw),
           n_values=0, iters=3, phase=7,
           inputs=inputs + [cots[1], rgb_bar],
-          flops=trunk_flops(ws, N_SAMPLES, 3, 4), f32_flops=2 * ide_flops)
+          flops=trunk_flops(ws, N_SAMPLES, 3, 4),
+          f32_flops=dir_flops(mat, ide, geo, rgb, backward=True))
       del pack
     del segs, ws, bs, cots, rgbx
     torch.cuda.empty_cache()
@@ -683,7 +716,7 @@ def fused_stage(fused_mlp, dev):
                          kernels=('K1', 'K2', 'K8', 'K9', 'K10'))
   per_step = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K8': 2, 'K9': 2,
               'K10': 2}
-  train_launches, step_s, (model, state, train_step, batch) = train(
+  train_launches, step_s, (model, config, state, train_step, batch) = train(
       fused_mlp, dev, FUSE, phase=8, per_step=per_step)
 
   fused = {f: True for f in FUSE_FLAGS}
@@ -696,7 +729,6 @@ def fused_stage(fused_mlp, dev):
   times = in_turns(step, {'fused': (model, fused),
                           'unfused': (model, unfused)})
   # A 4096-ray request (one chunk) on the same weights.
-  _, config = flagship(dev)
   rays = random_rays(rays_lib, 4096, config, 1, dev)
   request = lambda: renderer.render_rays(model, rays,
                                          config.render_chunk_size)

@@ -148,7 +148,7 @@ __device__ __forceinline__ void column_sums(float* out, const T* src, int lds, i
   }
 }
 
-template <typename T, int W, int HC>
+template <typename T, int W, int HC, bool DIR>
 __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PAD = Pad<T>::v;
@@ -164,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   float* ub = hb + kRows * p.hf;                                            // [kRows][nb]
   // K8: the IDE block's f32 cotangents [kRows][dir.width()], in the input
   // tile's space once the first-order reverse no longer reads x.
-  float* dsh = reinterpret_cast<float*>(inb);
+  [[maybe_unused]] float* dsh = reinterpret_cast<float*>(inb);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
 
   // 1. The segments (with K8 the IDE block; zero-padded to kin and past the
   // last row) and the cotangents; x to the scratch.
-  load_input<T>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
+  load_input<T, DIR>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
   for (int r = tid; r < kRows; r += kThreads)
     sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
   for (int i = tid; i < kRows * p.hf; i += kThreads)
@@ -238,32 +238,34 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
 
   // 2b. K10: the head recomputed on y and the cotangent of the final rgb
   // pulled back through the colour epilogue onto the head's cotangent.
-  if (p.rgb_bar != nullptr) {
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      const int gr = row0 + r;
-      if (gr >= p.n) break;
-      float hv[3];
+  if constexpr (DIR) {
+    if (p.rgb_bar != nullptr) {
+      for (int r = warp; r < kRows; r += kThreads / 32) {
+        const int gr = row0 + r;
+        if (gr >= p.n) break;
+        float hv[3];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float s = 0.f;
+        for (int j = 0; j < 3; ++j) {
+          float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < W / 32; ++i)
-          s = fmaf(to_f(act[r * LDA + lane + 32 * i]), p.wh[j * W + lane + 32 * i], s);
-        hv[j] = warp_sum(s) + p.bh[j];
-      }
-      if (lane == 0) {
-        const size_t o = static_cast<size_t>(gr) * 3;
-        float out[3], drd[3], drt[3];
-        rgb_epilogue(hv, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, p.rgb_bar + o,
-                     hb + r * 3, drd, drt);
+          for (int i = 0; i < W / 32; ++i)
+            s = fmaf(to_f(act[r * LDA + lane + 32 * i]), p.wh[j * W + lane + 32 * i], s);
+          hv[j] = warp_sum(s) + p.bh[j];
+        }
+        if (lane == 0) {
+          const size_t o = static_cast<size_t>(gr) * 3;
+          float out[3], drd[3], drt[3];
+          rgb_epilogue(hv, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, p.rgb_bar + o,
+                       hb + r * 3, drd, drt);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          p.drawd[o + c] = drd[c];
-          p.drawt[o + c] = drt[c];
+          for (int c = 0; c < 3; ++c) {
+            p.drawd[o + c] = drd[c];
+            p.drawt[o + c] = drt[c];
+          }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // 3. The head gradients that read y (still resident): dwd, dwh, dbh.
@@ -357,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
       // K8 the IDE block's f32 cotangents go to dsh (the input tile's space,
       // free now) for the IDE backward below.
       const int base = l == 0 ? 0 : W;
-      const int dide = p.dir.width(), fin = p.d0 + dide + p.d1;
+      const int dide = DIR ? p.dir.width() : 0, fin = p.d0 + dide + p.d1;
       for (int c0 = 0; c0 < p.kin; c0 += 32) {
         float acc[2][1][4];
         gemm<T, 32>(acc, act, LDA, W, act, LDA, wt + off[l] + static_cast<size_t>(base + c0) * W,
@@ -376,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
             const float v = p.skip >= 0 ? *keep + acc[mt][0][i] : acc[mt][0][i];
             const size_t gr = static_cast<size_t>(row0 + r);
             const int ci = c - p.d0;
-            if (ci >= 0 && ci < dide) {
+            if (DIR && ci >= 0 && ci < dide) {
               dsh[r * dide + ci] = v;
               continue;
             }
@@ -397,7 +399,9 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   }
 
   // 6b. K8/K9: the IDE block's cotangents back to the raw inputs.
-  if (p.dir.p) ide_backward(p.dir, dsh, p.dir.width(), row0, p.n, p.ddg, p.ddk);
+  if constexpr (DIR) {
+    if (p.dir.p) ide_backward(p.dir, dsh, p.dir.width(), row0, p.n, p.ddg, p.ddk);
+  }
 
   // 7. With the cotangent of u: the tangent chain (:823-853). ts replaces x
   // in the input tile, element by element.
@@ -429,7 +433,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   }
 }
 
-template <typename T, int W, int HC>
+template <typename T, int W, int HC, bool DIR>
 int launch_bwd(const BwdParams& p, cudaStream_t stream) {
   constexpr int PAD = Pad<T>::v;
   const size_t smem = sizeof(T) * (static_cast<size_t>(kRows) * (W + PAD) +
@@ -438,18 +442,22 @@ int launch_bwd(const BwdParams& p, cudaStream_t stream) {
                       4 * (static_cast<size_t>(p.depth) * kRows * (W / 32) +
                            static_cast<size_t>(kRows) * (1 + p.hf + p.nb));
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_kernel<T, W, HC>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_kernel<T, W, HC, DIR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_kernel<T, W, HC><<<p.rp / kRows, kThreads, smem, stream>>>(p);
+  trunk_bwd_kernel<T, W, HC, DIR><<<p.rp / kRows, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8-K10 run on the directional trunk only (no compute-dtype head); their
+// code is built into the DIR instance alone.
 template <typename T>
 int dispatch_bwd(int width, int hc, const BwdParams& p, cudaStream_t stream) {
-  if (width == 256 && hc == 0) return launch_bwd<T, 256, 0>(p, stream);
-  if (width == 256 && hc == 128) return launch_bwd<T, 256, 128>(p, stream);
+  const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
+  if (width == 256 && hc == 0)
+    return dir ? launch_bwd<T, 256, 0, true>(p, stream) : launch_bwd<T, 256, 0, false>(p, stream);
+  if (width == 256 && hc == 128 && !dir) return launch_bwd<T, 256, 128, false>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

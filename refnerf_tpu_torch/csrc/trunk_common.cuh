@@ -226,6 +226,8 @@ __device__ __forceinline__ bool mask_at(const uint32_t* bits, int r, int c) {
 // sample; ~2 kFLOP a sample against the trunk's ~1.1 MFLOP, so they ride in
 // the trunk kernels for the device-memory traffic they save (the 73-wide
 // encoding and its cotangent never leave the CTA), not for their own time.
+// The trunk kernels take them in a template instance of their own (DIR), so
+// the other modes' code is the same as without them.
 //
 // The products and sums of the running powers, the geometry and the
 // epilogue go through __fmul_rn/__fadd_rn/__fsub_rn, so nvcc does not fuse
@@ -477,14 +479,15 @@ __device__ __forceinline__ void rgb_epilogue(const float raw[3], const float rd[
 }
 
 // The trunk input tile of rows [row0, row0 + kRows): columns [x0 (d0) |
-// fused IDE block | x1 (d1)], zero-padded to kin and past row n.
-template <typename T>
+// fused IDE block | x1 (d1)], zero-padded to kin and past row n. Without
+// DIR (every mode but K8-K10) there is no IDE block and none of its code.
+template <typename T, bool DIR>
 __device__ void load_input(T* inb, int ldi, const T* x0, int d0, const T* x1, int d1, int kin,
                            int row0, int n, const DirIn& dir) {
-  const int dide = dir.width();
+  const int dide = DIR ? dir.width() : 0;
   for (int i = threadIdx.x; i < kRows * kin; i += kThreads) {
     const int r = i / kin, c = i % kin, gr = row0 + r, c1 = c - d0 - dide;
-    if (c >= d0 && c1 < 0) continue;  // the IDE block, filled below
+    if (DIR && c >= d0 && c1 < 0) continue;  // the IDE block, filled below
     T v = from_f<T>(0.f);
     if (gr < n) {
       if (c < d0)
@@ -494,7 +497,9 @@ __device__ void load_input(T* inb, int ldi, const T* x0, int d0, const T* x1, in
     }
     inb[r * ldi + c] = v;
   }
-  if (dir.p) ide_fill<T>(dir, inb, ldi, d0, row0, n);
+  if constexpr (DIR) {
+    if (dir.p) ide_fill<T>(dir, inb, ldi, d0, row0, n);
+  }
 }
 
 }  // namespace

@@ -15,8 +15,8 @@
 //       grad_pred and viewdirs;
 //   K10 K2 with `rgbe` (:646-647, `_rgb_epilogue` :283): the colour epilogue
 //       after the rgb head, the final rgb stored beside the raw rgb.
-// K8-K10 are runtime flags of the one kernel (trunk_common.cuh), not
-// template instances: their ~2 kFLOP a sample do not pay for a longer build.
+// K8-K10 (trunk_common.cuh) run in the directional instance with DIR set;
+// every other instance is built without their code.
 //
 // What it computes (fused_mlp.py `_forward_trunk`, `_fwd_kernel`):
 //   h_0 = relu(cdt(x @ W0) + cdt(b0)),  x = [seg0 | seg1] read in place
@@ -158,7 +158,7 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
   }
 }
 
-template <typename T, int W, int HC>
+template <typename T, int W, int HC, bool DIR>
 __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PAD = Pad<T>::v;
@@ -183,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
 
   // The segments, read in place from their own tensors (with K8 the IDE
   // block made here), zero-padded to kin and past the last row.
-  load_input<T>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
+  load_input<T, DIR>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
 
   const T* wl = static_cast<const T*>(p.w);
   for (int l = 0; l < p.depth; ++l) {
@@ -238,13 +238,15 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
         s = warp_sum(s);
         if (lane == 0) p.hout[static_cast<size_t>(gr) * p.hf + j] = s + p.bh[j];
       }
-      if (p.rgb != nullptr && lane == 0) {  // K10 on the rgb head just stored
-        const size_t o = static_cast<size_t>(gr) * 3;
-        float out[3], unused[3];
-        rgb_epilogue(p.hout + o, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, nullptr,
-                     unused, unused, unused);
+      if constexpr (DIR) {
+        if (p.rgb != nullptr && lane == 0) {  // K10 on the rgb head just stored
+          const size_t o = static_cast<size_t>(gr) * 3;
+          float out[3], unused[3];
+          rgb_epilogue(p.hout + o, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, nullptr,
+                       unused, unused, unused);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) p.rgb[o + c] = out[c];
+          for (int c = 0; c < 3; ++c) p.rgb[o + c] = out[c];
+        }
       }
     }
   }
@@ -273,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   if (dg) inner_chain<T, W>(p, act, LDA, inb, ldi, ring, bits, uacc, row0);
 }
 
-template <typename T, int W, int HC>
+template <typename T, int W, int HC, bool DIR>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int PAD = Pad<T>::v;
   constexpr int NMAX = W > HC ? W : HC;
@@ -284,19 +286,22 @@ int launch(const Params& p, cudaStream_t stream) {
     smem += 4 * (static_cast<size_t>(p.depth) * kRows * (W / 32) +
                  static_cast<size_t>(kRows) * p.kin);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_kernel<T, W, HC>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_kernel<T, W, HC, DIR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (p.n + kRows - 1) / kRows;
-  trunk_fwd_kernel<T, W, HC><<<grid, kThreads, smem, stream>>>(p);
+  trunk_fwd_kernel<T, W, HC, DIR><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8-K10 run on the directional trunk only (no compute-dtype head).
 template <typename T>
 int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
-  if (width == 256 && hc == 0) return launch<T, 256, 0>(p, stream);
-  if (width == 256 && hc == 128) return launch<T, 256, 128>(p, stream);
+  const bool dir = p.dir.p != 0 || p.rgb != nullptr;
+  if (width == 256 && hc == 0)
+    return dir ? launch<T, 256, 0, true>(p, stream) : launch<T, 256, 0, false>(p, stream);
+  if (width == 256 && hc == 128 && !dir) return launch<T, 256, 128, false>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

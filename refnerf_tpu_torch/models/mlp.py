@@ -275,10 +275,7 @@ class MLP(nn.Module):
     head_f32 = (self.rgb.weight, self.rgb.bias)
     pack = None
     if fused_mlp.use_kernel(segs[0], c.fused_trunk):
-      flat = [t for s in segs for t in (s if isinstance(s, tuple) else (s,))]
-      dims = fused_mlp.visible_dims(flat, fused_mlp.DirModes(
-          fuse.get('ide_deg', 0), fuse.get('ide_at', 0),
-          fuse.get('ide_geo', False)))
+      dims = fused_mlp.trunk_dims(segs, **fuse)
       pack = self._pack(f'directional{dims}', lambda: fused_mlp.pack_trunk(
           ws, bs, dims, skip_period=c.skip_layer, head_f32=head_f32,
           compute_dtype=c.compute_dtype))

@@ -665,6 +665,23 @@ def visible_dims(segs, dm: DirModes) -> Tuple[int, ...]:
   return tuple(dims)
 
 
+def _dir_segments(segs, ide_deg=0, ide_at=0, ide_geo=False):
+  """fused_trunk's segments with the IDE's raw-input tuple at `ide_at`
+  spread out, and the DirModes of its IDE keywords."""
+  segs = list(segs)
+  if not ide_deg:
+    return segs, DirModes()
+  segs[ide_at:ide_at + 1] = list(segs[ide_at])
+  return segs, DirModes(int(ide_deg), ide_at, bool(ide_geo))
+
+
+def trunk_dims(segs, ide_deg=0, ide_at=0, ide_geo=False, rgb_epilogue=None):
+  """The segment widths of the pack fused_trunk needs for `segs` and its
+  keywords (the colour epilogue changes none)."""
+  del rgb_epilogue
+  return visible_dims(*_dir_segments(segs, ide_deg, ide_at, ide_geo))
+
+
 class _KernelIn(NamedTuple):
   """A trunk input as the kernels take it: the columns are [x0 | the fused
   IDE block (re P | im P | n.v in geo mode) | x1], the IDE block made in the
@@ -1150,11 +1167,7 @@ def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,
   Returns the head output [..., hf], or (head output, rgb [..., 3]) with
   `rgb_epilogue`. `pack` as for fused_encoded_trunk.
   """
-  segs = list(segs)
-  dm = DirModes()
-  if ide_deg:
-    segs[ide_at:ide_at + 1] = list(segs[ide_at])
-    dm = DirModes(int(ide_deg), ide_at, bool(ide_geo))
+  segs, dm = _dir_segments(segs, ide_deg, ide_at, ide_geo)
   rgbx = []
   if rgb_epilogue is not None:
     rawd, rawt, premult, bias, pad = rgb_epilogue
