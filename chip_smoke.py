@@ -37,13 +37,23 @@ Phases, each printed on its own line:
      each counted levels times per request, twice that per step), each
      against fused_trunk='off'; a 4096-ray request and a train step timed in
      turns against the same model unfused (phases 4 and 6), and one of each
-     under torch.profiler (device busy share, device time by kernel).
+     under torch.profiler (device busy share, device time by kernel);
+  9. hold the fused spatial stages against their plain versions at the
+     same N, in float32 and bfloat16, and time both: K7 (the IPE made in
+     the kernel) on K1 and on K3, K6 (the compositing weights) on K3, and
+     K6+K7 on K3 and on K4 (the backward, with d bsig);
+ 10. the flagship with all six fuse flags (phase 8's and
+     NerfMLP.fuse_ipe_trig, fuse_compositing, fuse_lift): three served
+     requests and 10 train steps through the kernels (K6 and K7 each
+     counted levels x chunks per request, twice that per step), each
+     against fused_trunk='off'; a 4096-ray request and a train step timed
+     in turns against phase 8's model, and one of each profiled.
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6 and 8), its time and its plain
+launches on the main path (phases 4, 6, 8 and 10), its time and its plain
 version's at N, and its bound: the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its operations
 at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
-the fused directional stages' f32 work overlaps bf16 tensor work).
+the fused stages' f32 work overlaps bf16 tensor work).
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
 """
@@ -87,9 +97,13 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 4096, 3, 10
 TRAIN_LOSS_BOUND, TRAIN_GNORM_BOUND = 1e-3, 1e-2
 # Served rgb of the kernel path vs fused_trunk='off' (both bf16 trunks).
 PATH_BOUND = 2e-2
-# The flags of the fused directional stage (K8-K10), phase 8.
+# The flags of the fused directional stage (K8-K10), phase 8, and of the
+# fused spatial stage (K6, K7 and the closed-form lift), phase 10.
 FUSE = ['NerfMLP.fuse_dir_enc = True', 'NerfMLP.fuse_dir_geo = True',
         'NerfMLP.fuse_dir_rgb = True']
+SPATIAL = ['NerfMLP.fuse_ipe_trig = True', 'NerfMLP.fuse_compositing = True',
+           'NerfMLP.fuse_lift = True']
+SAMPLES = 128  # a ray's samples at every level of the flagship
 # Peak rates of one H100 SXM (dense) and its memory rate, for the bounds.
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 MEM_RATE = 3.35e12
@@ -152,11 +166,11 @@ def flatten(outs):
   return flat
 
 
-def errors(got, want, cdt, n_values):
+def errors(got, want, cdt, n_values, values=()):
   """Per output: (max abs err, that relative to max(1, max|plain|), relative
-  L2 err, share of its bound). The first n_values outputs are values, held
-  by KERNEL_BOUND on the max error; the rest are derivatives, held by
-  GRAD_BOUND on the L2 error."""
+  L2 err, share of its bound). The first n_values outputs, and those at the
+  indices `values`, are values, held by KERNEL_BOUND on the max error; the
+  rest are derivatives, held by GRAD_BOUND on the L2 error."""
   if len(got) != len(want) or not all(
       a.dtype == b.dtype and a.shape == b.shape for a, b in zip(got, want)):
     raise AssertionError('outputs differ in number, dtype or shape')
@@ -166,7 +180,7 @@ def errors(got, want, cdt, n_values):
     e = d.abs().max().item()
     rel = e / max(1.0, b.abs().max().item())
     l2 = d.norm().item() / max(b.norm().item(), 1e-30)
-    share = (rel / KERNEL_BOUND[cdt] if i < n_values
+    share = (rel / KERNEL_BOUND[cdt] if i < n_values or i in values
              else l2 / GRAD_BOUND[cdt])
     rows.append((e, rel, l2, share))
   return rows
@@ -204,7 +218,7 @@ def bound(cdt, flops, nbytes_moved, f32_flops=0):
 
 
 def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
-            flops=0, f32_flops=0):
+            flops=0, f32_flops=0, values=()):
   """Run kernel() and plain() once and compare every output (see errors());
   then time both in turns. Returns a dict: max_abs_err, ms, plain_ms, and
   the bound from `flops` (in the compute dtype), `f32_flops` and the bytes
@@ -212,7 +226,7 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   with torch.no_grad():
     got, want = flatten(kernel()), flatten(plain())
     torch.cuda.synchronize()
-    rows = errors(got, want, cdt, n_values)
+    rows = errors(got, want, cdt, n_values, values)
     moved = nbytes(list(inputs) + got)
     del got, want
     p1, k1 = cuda_ms(plain, iters), cuda_ms(kernel, iters)
@@ -222,11 +236,13 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   bound_ms, bound_by = bound(cdt, flops, moved, f32_flops)
   detail = '; '.join(f'{i}: {r[1]:.2e} max, {r[2]:.2e} l2'
                      for i, r in enumerate(rows))
+  kinds = f'derivatives from output {n_values}' + (
+      f' but for {list(values)}' if values else '')
   log(f'phase {phase}: {which} {cdt} N={N_SAMPLES}: max_abs_err {err:.3e} '
       f'({worst:.3f} of its bound), kernel {ms:.3f} ms, plain '
       f'{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; '
       f'{moved / 1e6:.1f} MB); per output (relative to max|plain|, relative '
-      f'L2, derivatives from output {n_values}): {detail}')
+      f'L2, {kinds}): {detail}')
   if not worst <= 1.0:
     raise AssertionError(f'{which} {cdt}: an output is {worst:.3f} times '
                          'its bound')
@@ -676,7 +692,7 @@ def in_turns(run, arms, blocks=2, reps=5):
   return times
 
 
-def profile(run, what, calls):
+def profile(run, what, calls, phase=8):
   """One torch.profiler window over `calls` calls of run(): wall, device
   busy and idle share, kernels launched, device time by kernel name."""
   from torch.profiler import ProfilerActivity
@@ -696,10 +712,10 @@ def profile(run, what, calls):
                              getattr(e, 'self_cuda_time_total', 0))
   busy = sum(dev_us(e) for e in kernels) / 1e6
   if busy <= 0:
-    log(f'phase 8: profile {what}: the profiler saw no device time')
+    log(f'phase {phase}: profile {what}: the profiler saw no device time')
     return
   top = sorted(kernels, key=dev_us, reverse=True)[:8]
-  log(f'phase 8: profile {what} ({calls} calls): wall {wall * 1e3:.2f} ms, '
+  log(f'phase {phase}: profile {what} ({calls} calls): wall {wall * 1e3:.2f} ms, '
       f'device busy {busy * 1e3:.2f} ms, idle {100 * (1 - busy / wall):.1f}%, '
       f'{sum(e.count for e in kernels) / calls:.0f} kernel launches a call; '
       'device ms a call by kernel: ' + '; '.join(
@@ -757,6 +773,162 @@ def fused_stage(fused_mlp, dev):
       'request_off_ms': med(rtimes['off'])}
 
 
+# Phase 9: (name, (IPE in the kernel, compositing, density gradient,
+# backward)) of each fused spatial mode.
+SPA_CASES = (('K7', (True, False, False, False)),
+             ('K7+K3', (True, False, True, False)),
+             ('K6+K3', (False, True, True, False)),
+             ('K6+K7+K3', (True, True, True, False)),
+             ('K6+K7+K4', (True, True, True, True)))
+
+
+def spa_flops(enc, comp, dg, backward):
+  """f32 operations of the fused spatial stages over N_SAMPLES, as the
+  function needs them (a transcendental counts as one). A column of the
+  IPE (48 a sample): m = lm s, v = lv s^2, -v/2, exp, sin, cos, e sin m,
+  e cos m (8); with the density gradient the chain rule e (cos u - sin u)
+  (4) and the factors again (8); its backward: the IPE for the recompute
+  and the tangent (tp e) cos m, (tp e) sin m (3) with the factors again.
+  The compositing weights: 10 a sample (softplus as exp, log1p and an add,
+  the bias, times delta, the scan's add, two exps, 1 - and the product);
+  backward 20 (the forward, the sigmoid, ct and the suffix)."""
+  n = 0
+  if enc:
+    n += 48 * 8
+    if dg and not backward:
+      n += 48 * (4 + 8)
+    if backward:
+      n += 48 * (3 + 8)
+  if comp:
+    n += 20 if backward else 10
+  return n * N_SAMPLES
+
+
+def spa_case(fused_mlp, gen, dev, enc, comp):
+  """The flagship spatial trunk (trunk_case 'K1') on N_SAMPLES rows of
+  random lifted means and variances (lm in [-1.5, 1.5], lv in [1e-6,
+  1e-2]), the segments (lm, lv) with K7, else their IPE; with K6 rays of
+  SAMPLES rows, delta in [0.01, 0.09] (the flagship's t-intervals, 4 / 128,
+  times |direction|) and bsig 0.5 (its density bias)."""
+  _, ws, bs, kw = trunk_case('K1', gen, dev)
+  rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
+  lm, lv = rand(N_SAMPLES, 3) * 3 - 1.5, 10.0**(rand(N_SAMPLES, 3) * 4 - 6)
+  segs = [lm, lv] if enc else list(fused_mlp.encode_ipe(lm, lv, SCALES))
+  cp = (rand(N_SAMPLES) * 0.08 + 0.01, torch.full((1,), 0.5, device=dev))
+  sp = fused_mlp.SpaModes(tuple(float(s) for s in SCALES) if enc else (),
+                          SAMPLES if comp else 0)
+  return segs, ws, bs, kw, sp, cp if comp else None
+
+
+def check_spa_kernels(fused_mlp, dev):
+  """Phase 9: K7 on K1 and K3, K6 on K3, K6+K7 on K3 and K4 against their
+  plain versions, f32 and bf16."""
+  gen = torch.Generator().manual_seed(SEED + 3)
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  results = {}
+  for which, (enc, comp, dg, backward) in SPA_CASES:
+    segs, ws, bs, kw, sp, cp = spa_case(fused_mlp, gen, dev, enc, comp)
+    f = fold if dg else None
+    for cdt in ('float32', 'bfloat16'):
+      cs = segs if enc else [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+      pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+      inputs = cs + pack_tensors(pack) + [f] + list(cp or [])
+      f32_flops = spa_flops(enc, comp, dg, backward)
+      kws = dict(spa_modes=sp, comp=cp)
+      if not backward:
+        # sigma, the two heads and the weights are values, u a derivative.
+        results[which, cdt] = compare(
+            which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, f, **kws),
+            lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                              density_grad=dg, fold=f,
+                                              **kws, **kw),
+            n_values=3, phase=9, inputs=inputs,
+            flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 2 if dg else 1),
+            f32_flops=f32_flops, values=(4,) if comp else ())
+        continue
+      # Cotangents of (sigma, the f32 heads, the bottleneck, u, weights);
+      # the forward's sigma from each side's own forward.
+      cots = (rand(N_SAMPLES), rand(N_SAMPLES, 10), rand(N_SAMPLES, 128),
+              rand(N_SAMPLES, 3), rand(N_SAMPLES))
+      with torch.no_grad():
+        sk = fused_mlp.trunk_kernel(cs, pack, f, **kws)[0]
+        sr = fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt, **kws,
+                                       **kw)[0]
+      results[which, cdt] = compare(
+          which, cdt,
+          lambda: fused_mlp.trunk_backward_kernel(
+              cs, pack, cots, f, spa_modes=sp, comp=cp + (sk,)),
+          lambda: fused_mlp.trunk_backward_reference(
+              cs, ws, bs, cots, compute_dtype=cdt, fold=f, spa_modes=sp,
+              comp=cp + (sr,), **kw),
+          n_values=0, iters=3, phase=9, inputs=inputs + list(cots) + [sk],
+          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 6),
+          f32_flops=f32_flops)
+      del pack, sk, sr
+    del segs, ws, bs, kw, cp
+    torch.cuda.empty_cache()
+  return results
+
+
+SPATIAL_FLAGS = ('fuse_ipe_trig', 'fuse_compositing', 'fuse_lift')
+
+
+def spatial_stage(fused_mlp, dev):
+  """Phase 10: the flagship with all six fuse flags, served and trained
+  through the kernels, against fused_trunk='off' and timed in turns
+  against phase 8's model (the fused directional stage alone)."""
+  from refnerf_tpu_torch.models import renderer
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  flags = FUSE + SPATIAL
+  serve_launches = serve(fused_mlp, dev, flags, phase=10,
+                         kernels=('K1', 'K2', 'K6', 'K7', 'K8', 'K9', 'K10'))
+  per_step = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K6': 2, 'K7': 2, 'K8': 2,
+              'K9': 2, 'K10': 2}
+  train_launches, step_s, (model, config, state, train_step, batch) = train(
+      fused_mlp, dev, flags, phase=10, per_step=per_step)
+
+  six = {f: True for f in SPATIAL_FLAGS}
+  dir_only = {f: False for f in SPATIAL_FLAGS}
+  box = {'state': state}
+
+  def step():
+    box['state'], _ = train_step(box['state'], batch)
+
+  times = in_turns(step, {'all six': (model, six),
+                          'phase 8': (model, dir_only)})
+  rays = random_rays(rays_lib, 4096, config, 1, dev)
+  request = lambda: renderer.render_rays(model, rays,
+                                         config.render_chunk_size)
+  with torch.no_grad():
+    rtimes = in_turns(request, {
+        'all six': (model, {**six, 'fused_trunk': 'auto'}),
+        'phase 8': (model, {**dir_only, 'fused_trunk': 'auto'}),
+        'off': (model, {**six, 'fused_trunk': 'off'})})
+  med = lambda v: float(np.median(v)) * 1e3
+  log('phase 10: train step in turns (all six, phase 8, phase 8, all six; '
+      '5 steps a block): ' + ', '.join(
+          f'{a} {med(v):.2f} ms median [{min(v) * 1e3:.2f}, '
+          f'{max(v) * 1e3:.2f}]' for a, v in times.items()))
+  log('phase 10: 4096-ray request in turns (5 requests a block): ' +
+      ', '.join(f'{a} {med(v):.2f} ms median [{min(v) * 1e3:.2f}, '
+                f'{max(v) * 1e3:.2f}]' for a, v in rtimes.items()))
+  set_mode(model, fused_trunk='auto', **six)
+  with torch.no_grad():
+    profile(request, 'all-six 4096-ray request', 3, phase=10)
+  profile(step, 'all-six train step', 2, phase=10)
+  set_mode(model, **dir_only)
+  with torch.no_grad():
+    profile(request, 'phase-8 4096-ray request', 3, phase=10)
+  profile(step, 'phase-8 train step', 2, phase=10)
+  return serve_launches, train_launches, step_s, {
+      'step_six_ms': med(times['all six']),
+      'step_phase8_ms': med(times['phase 8']),
+      'request_six_ms': med(rtimes['all six']),
+      'request_phase8_ms': med(rtimes['phase 8']),
+      'request_off_ms': med(rtimes['off'])}
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -792,13 +964,16 @@ def main():
   train_launches, step_s, _ = train(fused_mlp, dev)
   kernels.update(check_dir_kernels(fused_mlp, dev))
   dir_serve, dir_train, dir_step_s, ab = fused_stage(fused_mlp, dev)
+  kernels.update(check_spa_kernels(fused_mlp, dev))
+  spa_serve, spa_train, spa_step_s, ab6 = spatial_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
   dir_src = 'refnerf_tpu_torch/csrc/trunk_common.cuh'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
   # name: (description, source, line of the TPU kernel, launches on the
-  # main path: phase 4's requests, phase 6's steps, or both of phase 8).
+  # main path: phase 4's requests, phase 6's steps, or both of phase 8 or
+  # of phase 10), each with its phase-3/5/7/9 case.
   names = {
       'K1': ('spatial trunk (fused_encoded_trunk)', fwd_src, 612,
              launches['K1']),
@@ -808,6 +983,10 @@ def main():
       'K4': ('spatial trunk backward', bwd_src, 668, train_launches['K4']),
       'K5': ('directional trunk backward with dx', bwd_src, 668,
              train_launches['K5']),
+      'K6': ('in-kernel compositing weights (K3 fwd; K1, K4)', dir_src, 498,
+             spa_serve['K6'] + spa_train['K6']),
+      'K7': ('in-kernel IPE (K1 fwd; K3, K4)', dir_src, 550,
+             spa_serve['K7'] + spa_train['K7']),
       'K8': ('in-kernel IDE in the directional trunk, fwd and bwd', dir_src,
              402, dir_serve['K8'] + dir_train['K8']),
       'K9': ('in-kernel direction geometry (with K8), fwd and bwd', dir_src,
@@ -815,8 +994,14 @@ def main():
       'K10': ('in-kernel colour epilogue, fwd and bwd', dir_src, 283,
               dir_serve['K10'] + dir_train['K10'])}
   line = []
+  # K6 and K7 stand for their phase-9 cases; each entry also lists the
+  # others it runs in.
+  main_case = {'K6': 'K6+K3', 'K7': 'K7'}
+  more_cases = {'K6': ('K6+K7+K3', 'K6+K7+K4'),
+                'K7': ('K7+K3', 'K6+K7+K3', 'K6+K7+K4')}
   for which, (desc, src, at, count) in names.items():
-    b16, f32 = kernels[which, 'bfloat16'], kernels[which, 'float32']
+    case = main_case.get(which, which)
+    b16, f32 = kernels[case, 'bfloat16'], kernels[case, 'float32']
     entry = {
         'name': f'{which} {desc}', 'route': 'cuda', 'source': src,
         'replaces': f'{pallas}:{at}', 'launches': count,
@@ -836,11 +1021,22 @@ def main():
                       pre + 'max_abs_err': bw['max_abs_err']})
     if which == 'K2':
       entry['train_launches'] = train_launches['K2']
+    if which in main_case:
+      entry['case'] = case
+      entry['serve_launches'] = spa_serve[which]
+      entry['train_launches'] = spa_train[which]
+      keys = ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')
+      entry['more'] = {c: {**{k: kernels[c, 'bfloat16'][k] for k in keys},
+                           **{'f32_' + k: kernels[c, 'float32'][k]
+                              for k in keys}}
+                       for c in more_cases[which]}
     line.append(entry)
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '
-      f'train rays/s; in turns {json.dumps(ab)}')
+      f'train rays/s; in turns {json.dumps(ab)}; phase 10 (all six): '
+      f'{spa_step_s * 1e3:.2f} ms, {TRAIN_BATCH / spa_step_s:.0f} train '
+      f'rays/s; in turns {json.dumps(ab6)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -15,7 +15,13 @@
 //       d grad_pred;
 //   K10 K5 with `rgbe` (:752-764): the head is recomputed and the cotangent
 //       of the final rgb pulled back through the colour epilogue (JAX's tie
-//       rules) onto the head's cotangent, d raw diffuse and d raw tint.
+//       rules) onto the head's cotangent, d raw diffuse and d raw tint;
+//   K7  K4 with `encode` (:705-707, :829-831): the IPE recomputed into the
+//       input tile from the lifted means and variances, the second-order
+//       tangent ts from the f32 e cos m and e sin m;
+//   K6  K4 with `weights` (:719-742): the cotangent of the compositing
+//       weights becomes one of the raw density before the head backward,
+//       and d bsig joins the vector gradients.
 //
 // What it computes, in the Pallas order and casts (fused_mlp.py :705-853):
 //   recompute h_l (and, with u, the inner chain s_l = relu'(h_l) q_l);
@@ -47,6 +53,11 @@
 //      partials (and the per-tile vector rows) in a fixed order. No float
 //      atomics anywhere, so the gradients do not depend on the schedule.
 // The wrapper runs this per slab of samples so the scratch stays bounded.
+// K6's backward needs sums over a whole ray, before and after each sample,
+// while a 64-row tile may hold part of a ray: each CTA reads its rays' raw
+// density (the forward's output), delta and weights' cotangent from device
+// memory (L2-resident, 12 B a sample), scans each ray with one warp, and
+// keeps the cotangents of its own rows. A slab holds whole rays.
 //
 // Bound on the H100: at N = 524,288 samples the spatial backward is ~6
 // trunk passes (0.57 TFLOP each, `_make_op`'s own count), about 3.4 TFLOP, on
@@ -101,6 +112,12 @@ struct BwdParams {
   const float* rgb_bar;  // [n][3] cotangent of the final rgb
   float* drawd;       // [n][3] out: d raw diffuse
   float* drawt;       // [n][3] out: d raw tint
+  Ipe ipe;            // K7 with ipe.lm non-null: (lm, lv) in place of x0, x1
+  const float* delta;  // [n] K6, with sig and wbar
+  const float* bsig;   // [1]
+  const float* sig;    // [n] the forward's raw density
+  const float* wbar;   // [n] cotangent of the weights
+  int samples;         // samples a ray
 };
 
 // The accumulator of a [kRows][NOUT] gemm, rounded to the compute dtype and
@@ -148,7 +165,7 @@ __device__ __forceinline__ void column_sums(float* out, const T* src, int lds, i
   }
 }
 
-template <typename T, int W, int HC, bool DIR>
+template <typename T, int W, int HC, bool DIR, bool SPA>
 __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PAD = Pad<T>::v;
@@ -186,6 +203,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   const int o_dwh = o_dwd + (p.wd != nullptr ? W : 0);
   const int o_dbh = o_dwh + p.hf * W;
   const int o_dbc = o_dbh + p.hf;
+  [[maybe_unused]] const int o_dbsig = o_dbc + HC;
 
   size_t off[16];  // each layer's block in the packs
   {
@@ -196,9 +214,16 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     }
   }
 
-  // 1. The segments (with K8 the IDE block; zero-padded to kin and past the
-  // last row) and the cotangents; x to the scratch.
-  load_input<T, DIR>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
+  // 1. The segments (with K8 the IDE block, with K7 the IPE; zero-padded to
+  // kin and past the last row) and the cotangents; x to the scratch.
+  if constexpr (SPA) {
+    if (p.ipe.lm != nullptr)
+      load_ipe<T>(inb, ldi, p.ipe, p.d0, p.kin, row0, p.n);
+    else
+      load_input<T, false>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
+  } else {
+    load_input<T, DIR>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
+  }
   for (int r = tid; r < kRows; r += kThreads)
     sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
   for (int i = tid; i < kRows * p.hf; i += kThreads)
@@ -209,6 +234,34 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
       ub[i] = row0 + i / p.nb < p.n ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
   __syncthreads();
   store_fm<T>(static_cast<T*>(p.xs) + row0, rp, inb, ldi, p.kin);
+
+  // 1b. K6: sbar += ct_raw of this tile's rows and d bsig, their sum in row
+  // order. The rays that overlap the tile, one warp a ray, with S floats of
+  // scratch a warp and the tile's ct_raw in the activation tile's space
+  // (free until the recompute).
+  if constexpr (SPA) {
+    if (p.wbar != nullptr) {
+      const int S = p.samples, hi = min(row0 + kRows, p.n);
+      float* ct = reinterpret_cast<float*>(act);  // [kRows]
+      float* tr = ct + kRows + warp * S;          // [S] a warp
+      for (int r = tid; r < kRows; r += kThreads) ct[r] = 0.f;
+      __syncthreads();
+      const float bsig = __ldg(p.bsig);
+      for (int q = row0 / S + warp; q * S < hi; q += kThreads / 32) {
+        const int r0 = q * S;
+        ray_weights_vjp(p.sig + r0, p.delta + r0, p.wbar + r0, bsig, S, tr,
+                        max(row0, r0) - r0, min(hi, r0 + S) - r0, ct + (r0 - row0));
+      }
+      __syncthreads();
+      for (int r = tid; r < kRows; r += kThreads) sb[r] = add(sb[r], ct[r]);
+      if (tid == 0) {
+        float s = 0.f;
+        for (int r = 0; r < kRows; ++r) s = add(s, ct[r]);
+        vec[o_dbsig] = s;
+      }
+      __syncthreads();
+    }
+  }
 
   // 2. Recompute the trunk: h_l to the scratch, relu' masks as bits.
   for (int l = 0; l < p.depth; ++l) {
@@ -411,6 +464,16 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     const int r = i / F, c = i % F;
     float tp = 0.f;
     for (int j = 0; j < p.nb; ++j) tp = fmaf(ub[r * p.nb + j], p.fold[c * p.nb + j], tp);
+    if constexpr (SPA) {
+      if (p.ipe.lm != nullptr) {  // K7: ts = (tp e cos m, -(tp e sin m)), f32 factors
+        float e = 0.f, sn = 0.f, cs = 0.f;
+        if (row0 + r < p.n) ipe_trig(p.ipe, row0 + r, c, e, sn, cs);
+        const float te = mul(tp, e);
+        inb[r * ldi + c] = from_f<T>(mul(te, cs));
+        inb[r * ldi + F + c] = from_f<T>(-mul(te, sn));
+        continue;
+      }
+    }
     const float xs = to_f(inb[r * ldi + c]), xc = to_f(inb[r * ldi + F + c]);
     inb[r * ldi + c] = from_f<T>(tp * xc);
     inb[r * ldi + F + c] = from_f<T>(-(tp * xs));
@@ -433,7 +496,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   }
 }
 
-template <typename T, int W, int HC, bool DIR>
+template <typename T, int W, int HC, bool DIR, bool SPA>
 int launch_bwd(const BwdParams& p, cudaStream_t stream) {
   constexpr int PAD = Pad<T>::v;
   const size_t smem = sizeof(T) * (static_cast<size_t>(kRows) * (W + PAD) +
@@ -442,22 +505,32 @@ int launch_bwd(const BwdParams& p, cudaStream_t stream) {
                       4 * (static_cast<size_t>(p.depth) * kRows * (W / 32) +
                            static_cast<size_t>(kRows) * (1 + p.hf + p.nb));
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_kernel<T, W, HC, DIR>,
+  // K6's scratch: [kRows] + [8 warps][S] floats in the activation tile.
+  if (SPA && p.wbar != nullptr &&
+      4 * (kRows + (kThreads / 32) * static_cast<size_t>(p.samples)) >
+          sizeof(T) * kRows * (W + PAD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_kernel<T, W, HC, DIR, SPA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_kernel<T, W, HC, DIR><<<p.rp / kRows, kThreads, smem, stream>>>(p);
+  trunk_bwd_kernel<T, W, HC, DIR, SPA><<<p.rp / kRows, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8-K10 run on the directional trunk only (no compute-dtype head); their
-// code is built into the DIR instance alone.
+// K8-K10 run on the directional trunk only (no compute-dtype head), K6 and
+// K7 on the spatial trunk with its bottleneck head; their code is built into
+// the DIR and SPA instances alone.
 template <typename T>
 int dispatch_bwd(int width, int hc, const BwdParams& p, cudaStream_t stream) {
   const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
-  if (width == 256 && hc == 0)
-    return dir ? launch_bwd<T, 256, 0, true>(p, stream) : launch_bwd<T, 256, 0, false>(p, stream);
-  if (width == 256 && hc == 128 && !dir) return launch_bwd<T, 256, 128, false>(p, stream);
+  const bool spa = p.ipe.lm != nullptr || p.wbar != nullptr;
+  if (width == 256 && hc == 0 && !spa)
+    return dir ? launch_bwd<T, 256, 0, true, false>(p, stream)
+               : launch_bwd<T, 256, 0, false, false>(p, stream);
+  if (width == 256 && hc == 128 && !dir)
+    return spa ? launch_bwd<T, 256, 128, false, true>(p, stream)
+               : launch_bwd<T, 256, 128, false, false>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -610,6 +683,11 @@ __global__ void reduce_kernel(const float* parts, int nparts, int rows, int k, i
 // IDE of g and k as in refnerf_trunk_fwd, and d g, d k go to ddg [n][3] and
 // ddk [n] (needs dx); with rgb_bar non-null (K10) the cotangent of the final
 // rgb adds to the rgb head's, and d rawd, d rawt go to drawd, drawt [n][3].
+// With lm non-null (K7) x0 and x1 are null and the segments are the IPE of
+// lm, lv [n][nb] with the scales of fold, as in refnerf_trunk_fwd; with wbar
+// non-null (K6) the cotangent of the weights of rays of `samples` rows (from
+// the forward's raw density sig [n], delta [n] and bsig [1]) adds to sbar's,
+// and d bsig is the last entry of the vector row (nvec one longer).
 extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, int d0,
                                  const void* x1, int d1, int n, int kin, int depth, int skip,
                                  const void* w, const void* wt, const void* b, const float* wd,
@@ -623,7 +701,9 @@ extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, i
                                  const float* gm, float* ddg, float* ddk, const float* rawd,
                                  const float* rawt, const float* rgb_bar, float* drawd,
                                  float* drawt, float premult, float rbias, float pad,
-                                 void* stream) {
+                                 const float* lm, const float* lv, const float* delta,
+                                 const float* bsig, const float* sig, const float* wbar,
+                                 int samples, void* stream) {
   const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
   const int esize = dtype == 1 ? 2 : 4;
   if (n <= 0 || rp < n || rp % kRows != 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin ||
@@ -644,11 +724,19 @@ extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, i
     return static_cast<int>(cudaErrorInvalidValue);
   if (dx0 != nullptr && (dxs == nullptr || (d1 > 0 && dx1 == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nvec_need = depth * width + (wd != nullptr ? width : 0) + hf * width + hf + hc;
+  if (lm != nullptr && (lv == nullptr || fold == nullptr || x0 != nullptr || x1 != nullptr ||
+                        d0 != d1 || nb <= 0 || d0 % nb != 0 || ide_p != 0 || dx0 != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wbar != nullptr && (samples <= 0 || n % samples != 0 || wd == nullptr ||
+                          delta == nullptr || bsig == nullptr || sig == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nvec_need = depth * width + (wd != nullptr ? width : 0) + hf * width + hf + hc +
+                        (wbar != nullptr ? 1 : 0);
   if (nvec != nvec_need) return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p{x0, x1, d0, d1, n, kin, depth, skip, w, wt, b, wd, wh, bh, hf, wct, sbar, hbar,
               cbar, ubar, fold, nb, dx0, dx1, dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
-              dir, ddg, ddk, Rgbe{rawd, rawt, premult, rbias, pad}, rgb_bar, drawd, drawt};
+              dir, ddg, ddk, Rgbe{rawd, rawt, premult, rbias, pad}, rgb_bar, drawd, drawt,
+              Ipe{lm, lv, fold, nb}, delta, bsig, sig, wbar, samples};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_bwd<float>(width, hc, p, s);
   if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(width, hc, p, s);

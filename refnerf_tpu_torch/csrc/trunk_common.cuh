@@ -502,4 +502,134 @@ __device__ void load_input(T* inb, int ldi, const T* x0, int d0, const T* x1, in
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fused spatial stages of the spatial trunk (fused_mlp.py `encode` and
+// `weights` modes): K7 the IPE made in the CTA from the lifted means and
+// variances, K6 the compositing weights after the density head. Both in
+// f32. K7 reads 24 B a sample instead of the 192 B of the bf16 encoding (96
+// columns) and costs 48 sincos + exp a sample on the FMA pipes, against the
+// trunk's ~1.1 MFLOP on the tensor cores; K6 is a scan of S values a ray.
+// The trunk kernels take them in a template instance of their own (SPA).
+
+constexpr float kTrigT = 314.159265358979323846f;  // float32(100 pi) (`_TRIG_T`)
+
+// K7: the raw inputs. Column c of either segment is degree c / nb of basis
+// vector c % nb, scaled by fold[c][c % nb] (the scale fold S, a power of two).
+struct Ipe {
+  const float* lm;    // [n][nb] lifted means
+  const float* lv;    // [n][nb] lifted variances
+  const float* fold;  // [F][nb]
+  int nb;
+};
+
+// e = exp(-v / 2), sin m, cos m of column c of row gr (`_segments` :550-563):
+// m = lm s, v = lv s^2, exact products of powers of two; m range-reduced as
+// `_safe_trig_arg` :191 and torch.remainder do (fmod, plus t where the sign
+// differs), in full precision (sincosf, expf; no fast-math intrinsics).
+__device__ __forceinline__ void ipe_trig(const Ipe& q, int gr, int c, float& e, float& sn,
+                                         float& cs) {
+  const int j = c % q.nb;
+  const float s = __ldg(q.fold + c * q.nb + j);
+  const size_t o = static_cast<size_t>(gr) * q.nb + j;
+  float m = mul(q.lm[o], s);
+  e = expf(mul(-0.5f, mul(q.lv[o], mul(s, s))));
+  if (!(fabsf(m) < kTrigT)) {
+    float r = fmodf(m, kTrigT);
+    if (r != 0.f && r < 0.f) r = add(r, kTrigT);
+    m = r;
+  }
+  sincosf(m, &sn, &cs);
+}
+
+// K7 forward: the input tile of rows [row0, row0 + kRows): columns [xs F |
+// xc F], xs = cdt(e sin m), xc = cdt(e cos m), zero-padded to kin and past
+// row n.
+template <typename T>
+__device__ void load_ipe(T* inb, int ldi, const Ipe& q, int F, int kin, int row0, int n) {
+  for (int i = threadIdx.x; i < kRows * kin; i += kThreads) {
+    const int r = i / kin, c = i % kin, gr = row0 + r;
+    if (gr < n && c < F) {
+      float e, sn, cs;
+      ipe_trig(q, gr, c, e, sn, cs);
+      inb[r * ldi + c] = from_f<T>(mul(e, sn));
+      inb[r * ldi + F + c] = from_f<T>(mul(e, cs));
+    } else if (gr >= n || c >= 2 * F) {
+      inb[r * ldi + c] = from_f<T>(0.f);
+    }
+  }
+}
+
+// K6: sigma = softplus(raw + bsig), dd = sigma delta, T = exp(-excl) with
+// excl the exclusive prefix sum of dd along the ray, w = (1 - exp(-dd)) T
+// (`_epilogue_fwd` :498). One warp a ray: lane L owns the consecutive
+// samples [L k, L k + k), k = ceil(S / 32), and the lanes' sums are scanned
+// by shuffles. softplus as torch's (threshold 20).
+__device__ __forceinline__ float softplus(float x) { return x > 20.f ? x : log1pf(expf(x)); }
+
+// The sum of v over the lanes below this one.
+__device__ __forceinline__ float warp_prefix(float v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v = add(v, u);
+  }
+  const float ex = __shfl_up_sync(0xffffffffu, v, 1);
+  return lane == 0 ? 0.f : ex;
+}
+
+// The sum of v over the lanes above this one.
+__device__ __forceinline__ float warp_suffix(float v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_down_sync(0xffffffffu, v, o);
+    if (lane + o < 32) v = add(v, u);
+  }
+  const float ex = __shfl_down_sync(0xffffffffu, v, 1);
+  return lane == 31 ? 0.f : ex;
+}
+
+__device__ __forceinline__ float ray_dd(const float* raw, const float* delta, float bsig, int i) {
+  return mul(softplus(add(raw[i], bsig)), delta[i]);
+}
+
+// The weights of one ray of S samples into w[0, S); with tr non-null also
+// T into tr[0, S). raw may lie in shared or device memory. Returns this
+// lane's sum of wbar w over its samples when wbar is non-null.
+__device__ __forceinline__ float ray_weights(const float* raw, const float* delta, float bsig,
+                                             int S, float* w, float* tr, const float* wbar) {
+  const int lane = threadIdx.x & 31, k = (S + 31) / 32;
+  const int i0 = min(S, lane * k), i1 = min(S, i0 + k);
+  float tot = 0.f;
+  for (int i = i0; i < i1; ++i) tot = add(tot, ray_dd(raw, delta, bsig, i));
+  float excl = warp_prefix(tot), xw = 0.f;
+  for (int i = i0; i < i1; ++i) {
+    const float dd = ray_dd(raw, delta, bsig, i), t = expf(-excl);
+    const float wi = mul(sub(1.f, expf(-dd)), t);
+    if (w != nullptr) w[i] = wi;
+    if (tr != nullptr) tr[i] = t;
+    if (wbar != nullptr) xw = add(xw, mul(wbar[i], wi));
+    excl = add(excl, dd);
+  }
+  return xw;
+}
+
+// K6 backward (:719-741) of one ray: ct_dd = wbar (T - w) - suffix(wbar w),
+// suffix the sum over the later samples, ct_raw = ct_dd delta
+// sigmoid(raw + bsig). tr is S floats of scratch; ct_raw of samples
+// [lo, hi) goes to ct[i].
+__device__ __forceinline__ void ray_weights_vjp(const float* raw, const float* delta,
+                                                const float* wbar, float bsig, int S, float* tr,
+                                                int lo, int hi, float* ct) {
+  const int lane = threadIdx.x & 31, k = (S + 31) / 32;
+  const int i0 = min(S, lane * k), i1 = min(S, i0 + k);
+  float suf = warp_suffix(ray_weights(raw, delta, bsig, S, nullptr, tr, wbar));
+  for (int i = i1 - 1; i >= i0; --i) {
+    const float x = add(raw[i], bsig), dd = mul(softplus(x), delta[i]);
+    const float t = tr[i], wi = mul(sub(1.f, expf(-dd)), t);
+    if (i >= lo && i < hi)
+      ct[i] = mul(mul(sub(mul(wbar[i], sub(t, wi)), suf), delta[i]), sigm(x));
+    suf = add(suf, mul(wbar[i], wi));
+  }
+}
+
 }  // namespace

@@ -14,9 +14,16 @@
 //   K9  K8 with `ide_geo` (`_dir_geometry` :355): refdirs and n.v from
 //       grad_pred and viewdirs;
 //   K10 K2 with `rgbe` (:646-647, `_rgb_epilogue` :283): the colour epilogue
-//       after the rgb head, the final rgb stored beside the raw rgb.
-// K8-K10 (trunk_common.cuh) run in the directional instance with DIR set;
-// every other instance is built without their code.
+//       after the rgb head, the final rgb stored beside the raw rgb;
+//   K7  K1/K3 with `encode` (`_segments` :550-563, `_safe_trig_arg` :191):
+//       the IPE made in the CTA from the lifted means and variances (24 B a
+//       sample in instead of the 96-column encoding); K3's fold takes the
+//       f32 e cos m and e sin m (:657-659);
+//   K6  K1/K3 with `weights` (`_epilogue_fwd` :498): the compositing
+//       weights of whole rays after the density head.
+// K8-K10 (trunk_common.cuh) run in the directional instance with DIR set,
+// K6 and K7 in the spatial instance with SPA set; every other instance is
+// built without their code.
 //
 // What it computes (fused_mlp.py `_forward_trunk`, `_fwd_kernel`):
 //   h_0 = relu(cdt(x @ W0) + cdt(b0)),  x = [seg0 | seg1] read in place
@@ -42,6 +49,13 @@
 // reverse chain reads the transposed copy [K][out] the same way. For K3 the
 // relu' masks of all layers stay in shared memory as bits (2 KB per layer)
 // and the segment gradients as an f32 [kRows][kin] tile.
+//
+// K6 needs a ray's S samples in one CTA, and a ray may be longer than the
+// 64-row tile (S = 128 on the flagship). So with K6 a CTA owns the smallest
+// run of whole tiles that holds whole rays (lcm(S, 64) rows, at most 1,024),
+// runs the trunk over its tiles in turn, keeps each row's raw density in
+// shared memory, and then scans each ray with one warp. The weights never
+// need a second kernel or a round trip of sigma through device memory.
 //
 // Bound on the H100: at N = 524,288 samples a flagship trunk is ~0.57 TFLOP
 // per pass (K3 runs two), and the only device-memory traffic is the segments
@@ -78,12 +92,18 @@ struct Params {
   DirIn dir;        // K8/K9: the IDE block between x0 and x1 (dir.p > 0)
   Rgbe rgbe;        // K10, with rgb non-null
   float* rgb;       // [n][3] out: the final rgb (K10), or null
+  Ipe ipe;          // K7 with ipe.lm non-null: (lm, lv) in place of x0, x1
+  const float* delta;  // [n] K6: t-interval x |direction|
+  const float* bsig;   // [1] K6: the density head's bias + the activation's
+  int samples;      // K6: samples a ray (consecutive rows)
+  int tiles;        // tiles a CTA runs: lcm(samples, kRows) / kRows with K6, else 1
+  float* wts;       // [n] out: the compositing weights (K6), or null
 };
 
 // K3: the density-gradient reverse chain on the resident tile, then the
 // fold of the segment gradients onto the lifted means (fused_mlp.py
 // :589-609, :651-662). Runs after the heads; overwrites the activation tile.
-template <typename T, int W>
+template <typename T, int W, bool SPA>
 __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int ldi, T* ring,
                             const uint32_t* bits, float* uacc, int row0) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -145,6 +165,29 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
   }
   __syncthreads();
   const int F = p.d0;
+  if constexpr (SPA) {
+    if (p.ipe.lm != nullptr) {
+      // K7: u_m = e (cos m u_xs - sin m u_xc) in f32 (:657-659), in place of
+      // u_xs, then the fold.
+      for (int i = tid; i < kRows * F; i += kThreads) {
+        const int r = i / F, c = i % F, gr = row0 + r;
+        if (gr >= p.n) continue;
+        float e, sn, cs;
+        ipe_trig(p.ipe, gr, c, e, sn, cs);
+        float* ux = uacc + r * p.kin + c;
+        *ux = mul(e, sub(mul(cs, ux[0]), mul(sn, ux[F])));
+      }
+      __syncthreads();
+      for (int i = tid; i < kRows * p.nb; i += kThreads) {
+        const int r = i / p.nb, j = i % p.nb, gr = row0 + r;
+        if (gr >= p.n) continue;
+        float s = 0.f;
+        for (int c = 0; c < F; ++c) s = fmaf(uacc[r * p.kin + c], p.fold[c * p.nb + j], s);
+        p.u[static_cast<size_t>(gr) * p.nb + j] = s;
+      }
+      return;
+    }
+  }
   for (int i = tid; i < kRows * p.nb; i += kThreads) {
     const int r = i / p.nb, j = i % p.nb, gr = row0 + r;
     if (gr >= p.n) continue;
@@ -158,7 +201,7 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
   }
 }
 
-template <typename T, int W, int HC, bool DIR>
+template <typename T, int W, int HC, bool DIR, bool SPA>
 __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PAD = Pad<T>::v;
@@ -172,110 +215,144 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   uint32_t* bits = reinterpret_cast<uint32_t*>(ring + 2 * NMAX * (kKS + PAD));
   float* uacc = reinterpret_cast<float*>(bits + p.depth * kRows * (W / 32));
   const bool dg = p.u != nullptr;
+  // K6 only: the raw density of the CTA's rows [tiles * kRows], after the
+  // K3 region when there is one.
+  [[maybe_unused]] float* sraw =
+      dg ? uacc + kRows * p.kin : reinterpret_cast<float*>(bits);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
-  const int row0 = blockIdx.x * kRows;
   const T* x0 = static_cast<const T*>(p.x0);
   const T* x1 = static_cast<const T*>(p.x1);
   const T* bias = static_cast<const T*>(p.b);
+  const int tiles = SPA ? p.tiles : 1;
 
-  // The segments, read in place from their own tensors (with K8 the IDE
-  // block made here), zero-padded to kin and past the last row.
-  load_input<T, DIR>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int row0 = (blockIdx.x * tiles + tile) * kRows;
+    if (SPA && tile > 0) __syncthreads();  // the last tile's reads are done
 
-  const T* wl = static_cast<const T*>(p.w);
-  for (int l = 0; l < p.depth; ++l) {
-    float acc[2][W / 32][4];
-    int K;
-    if (l == 0) {
-      K = p.kin;
-      gemm<T, W>(acc, inb, ldi, K, inb, ldi, wl, K, ring);
+    // The segments, read in place from their own tensors (with K8 the IDE
+    // block made here, with K7 the IPE), zero-padded to kin and past the last
+    // row.
+    if constexpr (SPA) {
+      if (p.ipe.lm != nullptr)
+        load_ipe<T>(inb, ldi, p.ipe, p.d0, p.kin, row0, p.n);
+      else
+        load_input<T, false>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
     } else {
-      K = (l == p.skip) ? W + p.kin : W;
-      gemm<T, W>(acc, act, LDA, W, inb, ldi, wl, K, ring);
+      load_input<T, DIR>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
     }
-    wl += static_cast<size_t>(W) * K;
-    // gemm() ended synchronised: the activation tile may be overwritten.
+
+    const T* wl = static_cast<const T*>(p.w);
+    for (int l = 0; l < p.depth; ++l) {
+      float acc[2][W / 32][4];
+      int K;
+      if (l == 0) {
+        K = p.kin;
+        gemm<T, W>(acc, inb, ldi, K, inb, ldi, wl, K, ring);
+      } else {
+        K = (l == p.skip) ? W + p.kin : W;
+        gemm<T, W>(acc, act, LDA, W, inb, ldi, wl, K, ring);
+      }
+      wl += static_cast<size_t>(W) * K;
+      // gemm() ended synchronised: the activation tile may be overwritten.
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < W / 32; ++nt) {
-        const int col = wn * (W / 4) + nt * 8 + 2 * t;
-        const T b0 = bias[l * W + col], b1 = bias[l * W + col + 1];
+        for (int nt = 0; nt < W / 32; ++nt) {
+          const int col = wn * (W / 4) + nt * 8 + 2 * t;
+          const T b0 = bias[l * W + col], b1 = bias[l * W + col + 1];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm * 32 + mt * 16 + g + 8 * h;
-          const float z0 = fmaxf(bias_add<T>(acc[mt][nt][2 * h], b0), 0.f);
-          const float z1 = fmaxf(bias_add<T>(acc[mt][nt][2 * h + 1], b1), 0.f);
-          store2<T>(act + r * LDA + col, z0, z1);
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + mt * 16 + g + 8 * h;
+            const float z0 = fmaxf(bias_add<T>(acc[mt][nt][2 * h], b0), 0.f);
+            const float z1 = fmaxf(bias_add<T>(acc[mt][nt][2 * h + 1], b1), 0.f);
+            store2<T>(act + r * LDA + col, z0, z1);
+          }
+        }
+      __syncthreads();
+      if (dg) save_mask<T, W>(bits + l * kRows * (W / 32), act, LDA);
+    }
+
+    // f32 heads on y = act: one warp per row, lanes across the width.
+    if (p.wd != nullptr || p.hf > 0) {
+      for (int r = warp; r < kRows; r += kThreads / 32) {
+        const int gr = row0 + r;
+        if (gr >= p.n) break;
+        float y[W / 32];
+#pragma unroll
+        for (int i = 0; i < W / 32; ++i) y[i] = to_f(act[r * LDA + lane + 32 * i]);
+        if (p.wd != nullptr) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < W / 32; ++i) s = fmaf(y[i], p.wd[lane + 32 * i], s);
+          s = warp_sum(s);
+          if (lane == 0) p.sig[gr] = s;
+          if constexpr (SPA) {
+            if (p.wts != nullptr && lane == 0) sraw[tile * kRows + r] = s;
+          }
+        }
+        for (int j = 0; j < p.hf; ++j) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < W / 32; ++i) s = fmaf(y[i], p.wh[j * W + lane + 32 * i], s);
+          s = warp_sum(s);
+          if (lane == 0) p.hout[static_cast<size_t>(gr) * p.hf + j] = s + p.bh[j];
+        }
+        if constexpr (DIR) {
+          if (p.rgb != nullptr && lane == 0) {  // K10 on the rgb head just stored
+            const size_t o = static_cast<size_t>(gr) * 3;
+            float out[3], unused[3];
+            rgb_epilogue(p.hout + o, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, nullptr,
+                         unused, unused, unused);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) p.rgb[o + c] = out[c];
+          }
         }
       }
-    __syncthreads();
-    if (dg) save_mask<T, W>(bits + l * kRows * (W / 32), act, LDA);
+    }
+
+    // Compute-dtype head (the bottleneck): one more GEMM on the resident y.
+    if constexpr (HC > 0) {
+      float acc[2][HC / 32][4];
+      gemm<T, HC>(acc, act, LDA, W, act, LDA, static_cast<const T*>(p.wc), W, ring);
+      const T* bc = static_cast<const T*>(p.bc);
+      T* out = static_cast<T*>(p.cout);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < HC / 32; ++nt) {
+          const int col = wn * (HC / 4) + nt * 8 + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gr = row0 + wm * 32 + mt * 16 + g + 8 * h;
+            if (gr < p.n)
+              store2<T>(out + static_cast<size_t>(gr) * HC + col,
+                        bias_add<T>(acc[mt][nt][2 * h], bc[col]),
+                        bias_add<T>(acc[mt][nt][2 * h + 1], bc[col + 1]));
+          }
+        }
+    }
+    if (dg) inner_chain<T, W, SPA>(p, act, LDA, inb, ldi, ring, bits, uacc, row0);
   }
 
-  // f32 heads on y = act: one warp per row, lanes across the width.
-  if (p.wd != nullptr || p.hf > 0) {
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      const int gr = row0 + r;
-      if (gr >= p.n) break;
-      float y[W / 32];
-#pragma unroll
-      for (int i = 0; i < W / 32; ++i) y[i] = to_f(act[r * LDA + lane + 32 * i]);
-      if (p.wd != nullptr) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < W / 32; ++i) s = fmaf(y[i], p.wd[lane + 32 * i], s);
-        s = warp_sum(s);
-        if (lane == 0) p.sig[gr] = s;
-      }
-      for (int j = 0; j < p.hf; ++j) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < W / 32; ++i) s = fmaf(y[i], p.wh[j * W + lane + 32 * i], s);
-        s = warp_sum(s);
-        if (lane == 0) p.hout[static_cast<size_t>(gr) * p.hf + j] = s + p.bh[j];
-      }
-      if constexpr (DIR) {
-        if (p.rgb != nullptr && lane == 0) {  // K10 on the rgb head just stored
-          const size_t o = static_cast<size_t>(gr) * 3;
-          float out[3], unused[3];
-          rgb_epilogue(p.hout + o, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, nullptr,
-                       unused, unused, unused);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) p.rgb[o + c] = out[c];
-        }
+  // K6: the weights of the CTA's rays, one warp a ray.
+  if constexpr (SPA) {
+    if (p.wts != nullptr) {
+      __syncthreads();
+      const int base = blockIdx.x * tiles * kRows, S = p.samples;
+      const float bsig = __ldg(p.bsig);
+      for (int q = warp; q < tiles * kRows / S; q += kThreads / 32) {
+        const int r0 = base + q * S;
+        if (r0 >= p.n) break;
+        ray_weights(sraw + q * S, p.delta + r0, bsig, S, p.wts + r0, nullptr, nullptr);
       }
     }
   }
-
-  // Compute-dtype head (the bottleneck): one more GEMM on the resident y.
-  if constexpr (HC > 0) {
-    float acc[2][HC / 32][4];
-    gemm<T, HC>(acc, act, LDA, W, act, LDA, static_cast<const T*>(p.wc), W, ring);
-    const T* bc = static_cast<const T*>(p.bc);
-    T* out = static_cast<T*>(p.cout);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < HC / 32; ++nt) {
-        const int col = wn * (HC / 4) + nt * 8 + 2 * t;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int gr = row0 + wm * 32 + mt * 16 + g + 8 * h;
-          if (gr < p.n)
-            store2<T>(out + static_cast<size_t>(gr) * HC + col,
-                      bias_add<T>(acc[mt][nt][2 * h], bc[col]),
-                      bias_add<T>(acc[mt][nt][2 * h + 1], bc[col + 1]));
-        }
-      }
-  }
-  if (dg) inner_chain<T, W>(p, act, LDA, inb, ldi, ring, bits, uacc, row0);
 }
 
-template <typename T, int W, int HC, bool DIR>
+template <typename T, int W, int HC, bool DIR, bool SPA>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int PAD = Pad<T>::v;
   constexpr int NMAX = W > HC ? W : HC;
@@ -285,23 +362,30 @@ int launch(const Params& p, cudaStream_t stream) {
   if (p.u != nullptr)
     smem += 4 * (static_cast<size_t>(p.depth) * kRows * (W / 32) +
                  static_cast<size_t>(kRows) * p.kin);
+  if (SPA && p.wts != nullptr) smem += 4 * static_cast<size_t>(p.tiles) * kRows;
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_kernel<T, W, HC, DIR>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_kernel<T, W, HC, DIR, SPA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (p.n + kRows - 1) / kRows;
-  trunk_fwd_kernel<T, W, HC, DIR><<<grid, kThreads, smem, stream>>>(p);
+  const int rows = (SPA ? p.tiles : 1) * kRows;
+  const int grid = (p.n + rows - 1) / rows;
+  trunk_fwd_kernel<T, W, HC, DIR, SPA><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8-K10 run on the directional trunk only (no compute-dtype head).
+// K8-K10 run on the directional trunk only (no compute-dtype head), K6 and
+// K7 on the spatial trunk with its bottleneck head.
 template <typename T>
 int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
-  if (width == 256 && hc == 0)
-    return dir ? launch<T, 256, 0, true>(p, stream) : launch<T, 256, 0, false>(p, stream);
-  if (width == 256 && hc == 128 && !dir) return launch<T, 256, 128, false>(p, stream);
+  const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
+  if (width == 256 && hc == 0 && !spa)
+    return dir ? launch<T, 256, 0, true, false>(p, stream)
+               : launch<T, 256, 0, false, false>(p, stream);
+  if (width == 256 && hc == 128 && !dir)
+    return spa ? launch<T, 256, 128, false, true>(p, stream)
+               : launch<T, 256, 128, false, false>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -315,6 +399,10 @@ int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
 // IDE of g (refdirs, or grad_pred with viewdirs v) and kappa_inv k through
 // the tables mat, sg, gm; with rgb non-null (K10) the colour epilogue of the
 // rgb head (hf = 3) and rawd, rawt goes to rgb [n][3].
+// With lm non-null (K7) x0 and x1 are null and the two segments (d0 = d1
+// columns each) are the IPE of lm, lv [n][nb] with the scales of fold; with
+// wts non-null (K6) the compositing weights of rays of `samples` rows, from
+// delta [n] and bsig [1], go to wts [n].
 extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, int d0,
                                  const void* x1, int d1, int n, int kin, int depth, int skip,
                                  const void* w, const void* wt, const void* b, const float* wd,
@@ -324,7 +412,9 @@ extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, i
                                  const float* v, const float* k, int ide_p, int lmax, int geo,
                                  const float* mat, const float* sg, const float* gm,
                                  const float* rawd, const float* rawt, float* rgb, float premult,
-                                 float rbias, float pad, void* stream) {
+                                 float rbias, float pad, const float* lm, const float* lv,
+                                 const float* delta, const float* bsig, int samples, float* wts,
+                                 void* stream) {
   const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
   if (n <= 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin || depth > 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -336,8 +426,26 @@ extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, i
     return static_cast<int>(cudaErrorInvalidValue);
   if (rgb != nullptr && (hf != 3 || hout == nullptr || rawd == nullptr || rawt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (lm != nullptr && (lv == nullptr || fold == nullptr || x0 != nullptr || x1 != nullptr ||
+                        d0 != d1 || nb <= 0 || d0 % nb != 0 || ide_p != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int tiles = 1;
+  if (wts != nullptr) {
+    if (samples <= 0 || n % samples != 0 || wd == nullptr || delta == nullptr ||
+        bsig == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    int a = samples, r = kRows;  // tiles = lcm(samples, kRows) / kRows
+    while (r != 0) {
+      const int q = a % r;
+      a = r;
+      r = q;
+    }
+    tiles = samples / a;
+    if (tiles * kRows > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p{x0, x1, d0, d1, n, kin, depth, skip, w, b, wd, wh, bh, hf, wc, bc,
-           fold, nb, sig, hout, cout, u, wt, dir, Rgbe{rawd, rawt, premult, rbias, pad}, rgb};
+           fold, nb, sig, hout, cout, u, wt, dir, Rgbe{rawd, rawt, premult, rbias, pad}, rgb,
+           Ipe{lm, lv, fold, nb}, delta, bsig, samples, tiles, wts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(width, hc, p, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(width, hc, p, s);

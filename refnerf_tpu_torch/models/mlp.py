@@ -11,16 +11,18 @@ Both dense trunks always run in the fused formulation of the JAX package's
 backward), the directional trunk through `fused_mlp.fused_trunk` (K2; K5
 backward). The flags `fuse_dir_enc`, `fuse_dir_geo` and `fuse_dir_rgb` move
 the IDE (K8), the direction geometry (K9) and the colour epilogue (K10) into
-the directional trunk, under JAX's gates; a flag that is set but cannot act
-is logged once. On CUDA tensors those are the hand-written kernels; on the
-CPU, or with `fused_trunk='off'`, their plain versions.
+the directional trunk; `fuse_ipe_trig` moves the IPE (K7) and
+`fuse_compositing` the compositing weights (K6) into the spatial trunk, and
+`fuse_lift` takes the lifted Gaussians in closed form (`lifted`, from
+render.cast_rays_lifted). All under JAX's gates; a flag that is set but
+cannot act is logged once. On CUDA tensors those are the hand-written
+kernels; on the CPU, or with `fused_trunk='off'`, their plain versions.
 
 Ported: evaluation and training (`train=True`: density-gradient normals,
 differentiable through u) with predicted normals, the IDE, reflections,
 roughness, diffuse/specular/tint and n.v. Not ported, and refused with
 NotImplementedError: density and bottleneck noise, `use_viewdirs=False`,
-the positional direction encoding, a trunk that ends in a skip concat, and
-`fuse_compositing` (K6), `fuse_ipe_trig` (K7) and `fuse_lift`.
+the positional direction encoding and a trunk that ends in a skip concat.
 """
 
 from __future__ import annotations
@@ -120,7 +122,10 @@ class MLPConfig:
   # 'auto' and 'on': the CUDA kernels for CUDA tensors; 'off': the plain
   # versions everywhere. CPU tensors always take the plain versions.
   fused_trunk: str = 'auto'
-  fused_block: int = 0  # the TPU kernels' block size; no meaning here
+  # The TPU kernels' block size (0: 512 in bf16, 256 in f32). The kernels
+  # here do not take it; it is read only for the fuse_compositing gate,
+  # which JAX sets by it (samples per ray must divide it).
+  fused_block: int = 0
 
 
 class MLP(nn.Module):
@@ -129,12 +134,6 @@ class MLP(nn.Module):
   def __init__(self, **kwargs):
     super().__init__()
     self.cfg = c = MLPConfig(**kwargs)
-    fused_on = [f for f in ('fuse_compositing', 'fuse_lift', 'fuse_ipe_trig')
-                if getattr(c, f)]
-    if fused_on:
-      raise NotImplementedError(
-          f'{fused_on} are not ported: the compositing epilogue (K6), the '
-          'in-kernel IPE trig (K7) and its fuse_lift producer')
     if c.warp_fn is not None:
       raise NotImplementedError('warp_fn is not ported')
     if c.weight_init != 'torch_uniform':
@@ -224,9 +223,27 @@ class MLP(nn.Module):
       hit = self._packs[key] = (sig, build())
     return hit[1]
 
-  def _spatial(self, lm, lv, rgb_heads, density_grad):
-    """K1/K3: raw density, the f32 heads, the bottleneck and, with
-    `density_grad`, the density-gradient normals (mlp.py:252-333)."""
+  def _block(self):
+    """The block of the fuse_compositing gate (mlp.py:216-219)."""
+    if self.cfg.fused_block:
+      return self.cfg.fused_block
+    return 512 if self.cfg.compute_dtype == 'bfloat16' else 256
+
+  def spatial_fused(self) -> bool:
+    """Whether the spatial trunk runs the formulation that fuse_lift,
+    fuse_ipe_trig and fuse_compositing act in: a ReLU trunk (JAX's `_fused`,
+    mlp.py:221-241). A set flag that cannot act is logged once."""
+    if self.net_activation in (torch.relu, F.relu):
+      return True
+    for f in ('fuse_lift', 'fuse_ipe_trig', 'fuse_compositing'):
+      if getattr(self.cfg, f):
+        _warn_fused_fallback(f'{f} inactive', 'non-relu net_activation')
+    return False
+
+  def _spatial(self, lm, lv, rgb_heads, density_grad, delta=None):
+    """K1/K3 (K6, K7 by the fuse flags): raw density, the f32 heads, the
+    bottleneck, with `density_grad` the density-gradient normals
+    (mlp.py:252-333) and with `delta` the compositing weights."""
     c = self.cfg
     ws, bs = self._stack('spatial', c.net_depth)
     heads = [h for h in self._heads
@@ -250,7 +267,9 @@ class MLP(nn.Module):
         lm, lv, self.scales, ws, bs, bd=self.raw_density.bias,
         skip_period=c.skip_layer, compute_dtype=c.compute_dtype,
         mode=c.fused_trunk, activation=self.net_activation, pack=pack,
-        density_grad=density_grad, **kw))
+        density_grad=density_grad,
+        in_kernel_trig=c.fuse_ipe_trig and self.spatial_fused(), delta=delta,
+        act_bias=c.density_bias, **kw))
     raw_density = outs.pop(0)
     fh = {}
     if head_f32 is not None:
@@ -264,6 +283,8 @@ class MLP(nn.Module):
     if density_grad:
       u_lm = outs.pop(0)  # d sigma / d lifted-means, [..., n_basis]
       normals = -ref_utils.l2_normalize(u_lm @ self.pos_basis_t.t())
+    if delta is not None:
+      fh['weights'] = outs.pop(0)
     return raw_density, fh, normals
 
   def _directional(self, segs, **fuse):
@@ -308,11 +329,16 @@ class MLP(nn.Module):
     return ide, geo, rgb
 
   def forward(self, gaussians, viewdirs: Optional[torch.Tensor] = None,
-              train: bool = False):
+              train: bool = False, delta: Optional[torch.Tensor] = None,
+              lifted=None):
     """Evaluate the MLP on sample Gaussians (means [..., s, 3], covs
     [..., s, 3, 3]) seen from viewdirs [..., 3].
 
-    `train` turns on the density-gradient normals (mlp.py:389-392).
+    `train` turns on the density-gradient normals (mlp.py:389-392). `delta`
+    [..., s]: each sample's t-interval times |direction|; with
+    `fuse_compositing`, under JAX's gates (mlp.py:394-408), the results
+    then hold the compositing weights. `lifted`: (lm, lv) [..., s, nb] from
+    render.cast_rays_lifted (`fuse_lift`), in place of covs (may be None).
     Returns a dict of per-sample results, as the JAX MLP does.
     """
     c = self.cfg
@@ -329,10 +355,27 @@ class MLP(nn.Module):
       raise NotImplementedError(
           'use_viewdirs=False needs the trunk-features output (K11)')
     rgb_heads = not c.disable_rgb
+    if delta is not None and not (
+        c.fuse_compositing and c.density_noise == 0
+        and self.density_activation is F.softplus and delta.shape[-1] > 0
+        and self._block() % delta.shape[-1] == 0 and self.spatial_fused()):
+      if c.fuse_compositing:
+        _warn_fused_fallback(
+            'fuse_compositing inactive',
+            f'needs density_noise == 0, softplus density, and num_samples '
+            f'({delta.shape[-1]}) dividing fused_block ({self._block()})')
+      delta = None
 
-    lm, lv = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
+    if lifted is None:
+      lm, lv = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
+    elif not self.spatial_fused():
+      raise ValueError(
+          'lifted (fuse_lift) inputs require the fused spatial path; the '
+          'model must gate cast_rays_lifted on the same predicate')
+    else:
+      lm, lv = lifted
     raw_density, fh, normals = self._spatial(lm, lv, rgb_heads,
-                                             compute_density_normals)
+                                             compute_density_normals, delta)
 
     normals_pred = grad_pred = None
     normals_to_use = normals
@@ -428,6 +471,10 @@ class MLP(nn.Module):
         rgb = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding
 
     out = dict(density=density, rgb=rgb)
+    if 'weights' in fh:
+      # The compositing weights of the trunk (K6), used by the model in
+      # place of render.compute_alpha_weights.
+      out['weights'] = fh['weights']
     if not c.disable_density_normals:
       out['normals'] = normals
     if c.enable_pred_normals:

@@ -4,6 +4,13 @@ Deterministic resampling, no extras buffers. Each level resamples (not
 differentiated: sdist is detached, model.py:123-127), casts frustum
 Gaussians, runs the MLP and composites. `train=True` asks the MLP for its
 training outputs (density-gradient normals).
+
+The fused spatial stage (model.py:131-187): with `NerfMLP.fuse_lift` the
+Gaussians come lifted in closed form (`render.cast_rays_lifted`); with
+`fuse_compositing` the MLP gets each sample's delta = dt |d| and returns the
+compositing weights from its spatial trunk (K6), except under
+`opaque_background`, whose infinite last interval the trunk does not model
+(logged once; the weights are then composited here).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import nn
 
+from refnerf_tpu_torch.models import mlp as mlp_lib
 from refnerf_tpu_torch.models import render
 from refnerf_tpu_torch.models.mlp import MLP
 from refnerf_tpu_torch.ops import coord
@@ -104,17 +112,39 @@ class Model(nn.Module):
           domain=(c.init_s_near, c.init_s_far)).detach()
       tdist = s_to_t(sdist)
 
-      means, covs = render.cast_rays(tdist, rays.origins, rays.directions,
-                                     rays.radii, c.ray_shape)
-      if c.disable_integration:
-        covs = torch.zeros_like(covs)
-      ray_results = self._level_mlp(is_prop)(
-          (means, covs), rays.viewdirs if c.use_viewdirs else None,
-          train=train)
+      mlp = self._level_mlp(is_prop)
+      lifted = None
+      if mlp.cfg.fuse_lift and mlp.spatial_fused():
+        # The closed-form lift: the [..., s, 3, 3] covariances are never
+        # formed (model.py:133-143).
+        means, lm, lv = render.cast_rays_lifted(
+            tdist, rays.origins, rays.directions, rays.radii, c.ray_shape,
+            mlp.pos_basis_t)
+        if c.disable_integration:
+          lv = torch.zeros_like(lv)
+        covs, lifted = None, (lm, lv)
+      else:
+        means, covs = render.cast_rays(tdist, rays.origins, rays.directions,
+                                       rays.radii, c.ray_shape)
+        if c.disable_integration:
+          covs = torch.zeros_like(covs)
+      delta = None
+      if mlp.cfg.fuse_compositing:
+        if c.opaque_background:
+          mlp_lib._warn_fused_fallback(
+              'fuse_compositing inactive', 'opaque_background=True needs the '
+              'exact infinite final interval; compositing stays outside')
+        else:
+          delta = (tdist[..., 1:] - tdist[..., :-1]) * torch.linalg.norm(
+              rays.directions[..., None, :], dim=-1)
+      ray_results = mlp((means, covs), rays.viewdirs if c.use_viewdirs
+                        else None, train=train, delta=delta, lifted=lifted)
 
-      weights = render.compute_alpha_weights(
-          ray_results['density'], tdist, rays.directions,
-          opaque_background=c.opaque_background)[0]
+      weights = ray_results.pop('weights', None)
+      if weights is None:
+        weights = render.compute_alpha_weights(
+            ray_results['density'], tdist, rays.directions,
+            opaque_background=c.opaque_background)[0]
       if c.render_with_specular_density:
         if 'specular_density' not in ray_results:
           raise ValueError(

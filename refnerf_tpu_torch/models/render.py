@@ -1,8 +1,8 @@
 """Volume rendering: frustum Gaussians, transmittance, compositing.
 
-Counterpart of refnerf_tpu/models/render.py:39-92, :150-171 and :201-228 for
-serving: full covariances (`diag=False`), no extras buffers and the 'none'
-sRGB mapping.
+Counterpart of refnerf_tpu/models/render.py:39-147, :150-171 and :201-228 for
+serving: full covariances (`diag=False`) or their closed-form lift
+(`cast_rays_lifted`), no extras buffers and the 'none' sRGB mapping.
 
 Every clamp on a differentiated path is `torch.maximum` against a tensor
 constant, so a tie splits its gradient 0.5/0.5 as JAX's `jnp.maximum` does.
@@ -33,17 +33,22 @@ def lift_gaussian(d, t_mean, t_var, r_var):
   return mean, t_cov + xy_cov
 
 
-def conical_frustum_to_gaussian(d, t0, t1, base_radius):
-  """Moment-match a conical frustum with a Gaussian (mip-NeRF Eq 7).
-
-  The numerically stable form in the frustum midpoint and half-width.
-  """
+def _cone_moments(t0, t1):
+  """(t_mean, t_var, r_var per unit base radius squared) of a conical
+  frustum, in the numerically stable form in its midpoint and half-width
+  (mip-NeRF Eq 7)."""
   mu = (t0 + t1) / 2
   hw = (t1 - t0) / 2
   denom = _at_least(_EPS, 3 * mu**2 + hw**2)
   t_mean = mu + (2 * mu * hw**2) / denom
   t_var = (hw**2) / 3 - (4 / 15) * hw**4 * (12 * mu**2 - hw**2) / denom**2
   r_var = (mu**2) / 4 + (5 / 12) * hw**2 - (4 / 15) * (hw**4) / denom
+  return t_mean, t_var, r_var
+
+
+def conical_frustum_to_gaussian(d, t0, t1, base_radius):
+  """Moment-match a conical frustum with a Gaussian (mip-NeRF Eq 7)."""
+  t_mean, t_var, r_var = _cone_moments(t0, t1)
   return lift_gaussian(d, t_mean, t_var, r_var * base_radius**2)
 
 
@@ -67,6 +72,41 @@ def cast_rays(tdist, origins, directions, radii, ray_shape):
     raise ValueError("ray_shape must be 'cone' or 'cylinder'")
   means, covs = gaussian_fn(directions, t0, t1, radii)
   return means + origins[..., None, :], covs
+
+
+def cast_rays_lifted(tdist, origins, directions, radii, ray_shape, basis):
+  """Sample Gaussians already lifted onto `basis` [3, nb]: (means [..., s, 3],
+  lifted means [..., s, nb], lifted variances [..., s, nb]) (JAX
+  render.py:95-147, the `fuse_lift` producer).
+
+  Equal to `coord.lift_and_diagonalize(*cast_rays(...), basis)` in closed
+  form: with cov = t_var d d^T + r_var (I - d d^T / |d|^2), the lifted
+  variance of basis vector p is t_var (d.p)^2 + r_var (|p|^2 - (d.p)^2 /
+  |d|^2). Only per-ray dot products and per-sample 1D moments are formed;
+  the [..., s, 3, 3] covariances never are.
+  """
+  t0 = tdist[..., :-1]
+  t1 = tdist[..., 1:]
+  if ray_shape == 'cone':
+    t_mean, t_var, r_var = _cone_moments(t0, t1)
+  elif ray_shape == 'cylinder':
+    t_mean = (t0 + t1) / 2
+    t_var = (t1 - t0)**2 / 12
+    r_var = torch.full_like(t_mean, 0.25)
+  else:
+    raise ValueError("ray_shape must be 'cone' or 'cylinder'")
+  r_var = r_var * radii**2
+  dp = torch.matmul(directions, basis)  # [..., nb] direction . p_j
+  op = torch.matmul(origins, basis)     # [..., nb] origin . p_j
+  pp = torch.sum(basis * basis, dim=0)  # [nb] |p_j|^2
+  d_mag_sq = _at_least(1e-10, torch.sum(directions**2, dim=-1, keepdim=True))
+  dp2 = dp**2
+  null_p = pp - dp2 / d_mag_sq
+  lm = op[..., None, :] + t_mean[..., None] * dp[..., None, :]
+  lv = (t_var[..., None] * dp2[..., None, :]
+        + r_var[..., None] * null_p[..., None, :])
+  means = origins[..., None, :] + directions[..., None, :] * t_mean[..., None]
+  return means, lm, lv
 
 
 def compute_alpha_weights(density, tdist, dirs, opaque_background=False):

@@ -13,7 +13,12 @@ one `torch.autograd.Function`:
   `density_grad` it also runs the inner reverse chain and returns
   u = d sigma / d lifted-means (K3, :589-609, :651-665). The backward (K4)
   recomputes the trunk and returns every first- and second-order parameter
-  gradient in one pass (:668-853).
+  gradient in one pass (:668-853). `SpaModes` fuses the spatial stages
+  into the three: the IPE made in the kernel from the lifted means and
+  variances (K7, `encode`: `_segments` :550-563, the chain rule :657-660,
+  :829-831) and the compositing weights after the density head (K6,
+  `weights`: `_epilogue_fwd` :498, backward :719-741). Their plain versions
+  are `ipe_trig` and `composite_weights` / `composite_weights_backward`.
 - `DirectionalTrunk` (`fused_trunk`, :1178): the trunk over [bottleneck,
   IDE + n.v] and the f32 rgb head (K2); its backward (K5) also returns each
   segment's cotangent in the segment's dtype (`needs_dx`, :1009-1015).
@@ -28,8 +33,8 @@ Both backwards are `once_differentiable`: autograd never differentiates
 through a kernel, and the second-order terms of u come out of the one
 backward pass, as in the Pallas contract.
 
-Kernels (`csrc/trunk_fwd.cu`: K1-K3, K8-K10; `csrc/trunk_bwd.cu`: K4, K5,
-K8-K10) run for
+Kernels (`csrc/trunk_fwd.cu`: K1-K3, K6-K10; `csrc/trunk_bwd.cu`: K4-K10)
+run for
 CUDA tensors unless `mode='off'`. A CPU tensor or `mode='off'` takes the
 plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
@@ -69,11 +74,13 @@ _KSPLIT = 1024  # samples per partial sum of the weight-gradient kernel
 
 # Launches through the wrappers, by kernel: K1 spatial forward, K2
 # directional forward, K3 spatial forward with the density gradient, K4
-# spatial backward, K5 directional backward. A launch of K2 or K5 with fused
-# directional stages also counts under each stage it runs: K8 the IDE, K9
-# the direction geometry, K10 the colour epilogue.
-launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0, 'K8': 0, 'K9': 0,
-            'K10': 0}
+# spatial backward, K5 directional backward. A launch of K1, K3 or K4 with
+# fused spatial stages also counts under each stage it runs: K6 the
+# compositing weights, K7 the IPE. A launch of K2 or K5 with fused
+# directional stages likewise: K8 the IDE, K9 the direction geometry, K10
+# the colour epilogue.
+launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0, 'K6': 0, 'K7': 0,
+            'K8': 0, 'K9': 0, 'K10': 0}
 
 Head = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (weight [out, in], bias)
 
@@ -98,22 +105,66 @@ def ipe_scale_fold(scales, n_basis) -> np.ndarray:
   return np.kron(scales[:, None], np.eye(n_basis, dtype=np.float32))
 
 
-def encode_ipe(lm, lv, scales, compute_dtype='float32'):
-  """The IPE segments (xs, xc) of lifted means/vars [n, nb] (:1412-1434).
+def ipe_trig(lm, lv, scales):
+  """(e, sin m, cos m), each [n, deg * nb] f32, of lifted means/vars
+  [n, nb] (`_segments` :550-563): m = lm s_d, v = lv s_d^2, e = exp(-v/2).
 
   Degree-major, basis-minor columns. The scales are powers of two, so the
   scaling is an exact elementwise multiply; large arguments are range
-  reduced as mathx.safe_sin does. Returns two [n, deg * nb] tensors in the
-  compute dtype.
+  reduced as mathx.safe_sin does (a floor-mod, ROADMAP H2).
   """
-  cdt = DTYPES[compute_dtype]
   s = torch.as_tensor(np.asarray(scales, np.float32), device=lm.device)
   n = lm.shape[0]
   m = (lm.float()[:, None, :] * s[:, None]).reshape(n, -1)
   v = (lv.float()[:, None, :] * (s * s)[:, None]).reshape(n, -1)
   m = mathx.safe_trig_arg(m)
-  e = torch.exp(-0.5 * v)
-  return (e * torch.sin(m)).to(cdt), (e * torch.cos(m)).to(cdt)
+  return torch.exp(-0.5 * v), torch.sin(m), torch.cos(m)
+
+
+def encode_ipe(lm, lv, scales, compute_dtype='float32'):
+  """The IPE segments (xs, xc) = (e sin m, e cos m) of lifted means/vars
+  [n, nb] (:1412-1434), two [n, deg * nb] tensors in the compute dtype."""
+  cdt = DTYPES[compute_dtype]
+  e, sinm, cosm = ipe_trig(lm, lv, scales)
+  return (e * sinm).to(cdt), (e * cosm).to(cdt)
+
+
+def _by_ray(x, samples):
+  """[n] -> [rays, samples] f32."""
+  return x.float().reshape(-1, samples)
+
+
+def _composite(raw, delta, bsig, samples):
+  x = _by_ray(raw, samples) + bsig.float()
+  dd = F.softplus(x) * _by_ray(delta, samples)
+  excl = F.pad(torch.cumsum(dd[:, :-1], 1), (1, 0))
+  trans = torch.exp(-excl)
+  return x, (1 - torch.exp(-dd)) * trans, trans
+
+
+def composite_weights(raw, delta, bsig, samples):
+  """K6 forward, in f32 (`_epilogue_fwd` :498): the compositing weights
+  [n] of rays of `samples` consecutive rows. sigma = softplus(raw + bsig),
+  dd = sigma delta, w = (1 - exp(-dd)) exp(-excl), excl the exclusive
+  prefix sum of dd along the ray (render.compute_alpha_weights' order).
+  raw [n] is the density head without its bias, bsig [1] the density
+  head's bias plus the activation bias."""
+  return _composite(raw, delta, bsig, samples)[1].reshape(-1)
+
+
+def composite_weights_backward(raw, delta, bsig, samples, wbar):
+  """K6 backward in closed form (:719-741): with T = exp(-excl),
+  ct_dd = wbar (T - w) - suffix(wbar w), suffix the exclusive suffix sum
+  along the ray, and ct_raw = ct_dd delta sigmoid(raw + bsig).
+  Returns (ct_raw [n], d bsig [1])."""
+  x, w, trans = _composite(raw, delta, bsig, samples)
+  wb = _by_ray(wbar, samples)
+  xw = wb * w
+  incl = torch.flip(torch.cumsum(torch.flip(xw, [1]), 1), [1])
+  suffix = F.pad(incl[:, 1:], (0, 1))
+  ct_raw = ((wb * (trans - w) - suffix) * _by_ray(delta, samples)
+            * torch.sigmoid(x))
+  return ct_raw.reshape(-1), ct_raw.sum().reshape(1)
 
 
 def _dot(a, w):
@@ -200,10 +251,16 @@ def _inner_chain(t: _Trunk, acts, wd, n_segs):
   return us, ss
 
 
-def fold_density_grad(us, xs, xc, fold):
+def fold_density_grad(us, xs, xc, fold, trig=None):
   """d sigma / d lifted-means from the segment gradients (:653-662):
-  u_m = f32(xc) u_xs - f32(xs) u_xc, then u = u_m @ S."""
-  u_m = xc.float() * us[0] - xs.float() * us[1]
+  u_m = f32(xc) u_xs - f32(xs) u_xc, then u = u_m @ S. With K7's f32
+  `trig` = (e, sin m, cos m), u_m = e (cos m u_xs - sin m u_xc) (:657-659);
+  in bf16 the two differ by the rounding of xs and xc."""
+  if trig is None:
+    u_m = xc.float() * us[0] - xs.float() * us[1]
+  else:
+    e, sinm, cosm = trig
+    u_m = e * (cosm * us[0] - sinm * us[1])
   return u_m @ fold
 
 
@@ -226,6 +283,30 @@ class DirModes(NamedTuple):
   def n_raw(self) -> int:
     """How many raw inputs stand in for the IDE segments."""
     return 0 if not self.ide_deg else (3 if self.geo else 2)
+
+
+class SpaModes(NamedTuple):
+  """The fused stages of the spatial trunk (K6, K7).
+
+  `scales` non-empty (K7): the two segments are made in the kernel from
+  the lifted means and variances (lm, lv) [n, nb] f32 that stand in for
+  them, with these per-degree scales (`ipe_trig`); the density-gradient
+  fold and the second-order tangent take the f32 factors e cos m and
+  e sin m (:657-660, :829-831), not the rounded segments. `samples` > 0
+  (K6): the compositing weights of rays of that many consecutive rows
+  follow the density head, from comp = (delta [n] f32, bsig [1] f32).
+  """
+  scales: Tuple[float, ...] = ()
+  samples: int = 0
+
+
+def _spatial_segments(segs, sp: SpaModes, cdt):
+  """The trunk's segments and, with K7, the f32 (e, sin m, cos m)."""
+  if not sp.scales:
+    return [s.to(cdt) for s in segs], None
+  trig = ipe_trig(segs[0], segs[1], sp.scales)
+  e, sinm, cosm = trig
+  return [(e * sinm).to(cdt), (e * cosm).to(cdt)], trig
 
 
 _EPS = float(np.finfo(np.float32).eps)
@@ -370,13 +451,16 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
                     compute_dtype: str = 'float32',
                     activation: Optional[Callable] = None,
                     density_grad: bool = False,
-                    dir_modes: Optional[DirModes] = None, rgbx=None):
+                    dir_modes: Optional[DirModes] = None, rgbx=None,
+                    fold=None, spa_modes: Optional[SpaModes] = None,
+                    comp=None):
   """The plain version of the forward kernel, in the Pallas order (:612).
 
   Args:
     segs: input segments [n, d_j]; their concatenation is the trunk input.
       With `dir_modes.ide_deg` the IDE's raw inputs stand in for its two
-      segments (DirModes).
+      segments (DirModes); with `spa_modes.scales` (lm, lv) stand in for
+      the two IPE segments (SpaModes).
     weights, biases: per layer, [width, in] and [width]. The skip layer's
       input columns are [activation, segments] in that order.
     wd: density head weight [1, width]; gives sigma without its bias.
@@ -386,17 +470,28 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     density_grad: also run the inner chain (needs wd and ReLU).
     dir_modes: the fused directional stages (K8-K10), or None.
     rgbx: with `dir_modes.rgbe`, (raw diffuse [n, 3], raw tint [n, 3]).
+    fold: with `density_grad`, the [F, nb] scale fold of the two IPE
+      segments: u comes out folded onto the lifted means, as the kernel
+      gives it (K3).
+    spa_modes: the fused spatial stages (K6, K7), or None.
+    comp: with `spa_modes.samples`, (delta [n], bsig [1]) f32.
 
   Returns:
-    list [sigma [n]][, hf [n, hf]][, hc [n, hc]][, u_j [n, d_j] per segment]
-    [, rgb [n, 3] f32 with the colour epilogue]. Every step is a
+    list [sigma [n]][, hf [n, hf]][, hc [n, hc]][, u_j [n, d_j] per segment,
+    or u [n, nb] with `fold`][, rgb [n, 3] f32 with the colour epilogue]
+    [, weights [n] f32 with the compositing epilogue]. Every step is a
     differentiable torch op, so autograd through this function is an
     independent reference for the backward.
   """
   cdt = DTYPES[compute_dtype]
   act = torch.relu if activation is None else activation
   dm = dir_modes or DirModes()
-  segs = dir_segments(segs, dm, cdt)
+  sp = spa_modes or SpaModes()
+  trig = None
+  if sp.scales:
+    segs, trig = _spatial_segments(segs, sp, cdt)
+  else:
+    segs = dir_segments(segs, dm, cdt)
   t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
   acts = _forward_acts(t, segs, act)
   h = acts[-1]
@@ -415,10 +510,16 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     if wd is None or act not in (torch.relu, F.relu):
       raise NotImplementedError('the density gradient needs the density '
                                 'head and a ReLU trunk')
-    outs += _inner_chain(t, acts, wd, len(segs))[0]
+    us = _inner_chain(t, acts, wd, len(segs))[0]
+    if fold is None:
+      outs += us
+    else:
+      outs.append(fold_density_grad(us, segs[0], segs[1], fold, trig))
   if dm.rgbe is not None:
     outs.append(rgb_epilogue(hval, rgbx[0].float(), rgbx[1].float(),
                              *dm.rgbe))
+  if sp.samples:
+    outs.append(composite_weights(outs[0], comp[0], comp[1], sp.samples))
   return outs
 
 
@@ -427,16 +528,22 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
                              compute_dtype='float32', fold=None,
                              needs_dx=False,
                              dir_modes: Optional[DirModes] = None, rgbx=None,
-                             rgb_bar=None):
+                             rgb_bar=None,
+                             spa_modes: Optional[SpaModes] = None,
+                             comp=None):
   """The plain version of the backward kernel, step by step in the Pallas
   order (`_bwd_kernel` :668-853), not by autograd.
 
   Args:
-    segs, weights, biases, wd, head_f32, head_cdt, dir_modes, rgbx: as for
-      trunk_reference.
+    segs, weights, biases, wd, head_f32, head_cdt, dir_modes, rgbx,
+      spa_modes: as for trunk_reference.
     cots: cotangents (sigma [n] f32, hf [n, hf] f32, hc [n, hc], u [n, nb]
-      f32), each None when absent or zero. u needs `fold`, the [F, nb]
-      scale fold of the two IPE segments.
+      f32[, weights [n] f32]), each None when absent or zero. u needs
+      `fold`, the [F, nb] scale fold of the two IPE segments; the weights'
+      cotangent goes with the compositing epilogue.
+    comp: with `spa_modes.samples`, (delta [n], bsig [1], sigma [n]) f32,
+      sigma the forward's output (the density head without its bias). The
+      weights' cotangent becomes one of sigma, added to `cots`' (:719-742).
     needs_dx: also return each segment's cotangent; with the fused IDE,
       those of its raw inputs (None for the viewdirs of geo mode).
     rgb_bar: with the colour epilogue, the cotangent of rgb [n, 3] f32 (None
@@ -445,17 +552,30 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
       the head's cotangent.
 
   Returns:
-    (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx): f32 gradients in the
-    layout of the parameters ([out, in] weights; dwd [1, width]); dxs per
-    segment in the segment's dtype, or None; drgbx (d raw diffuse, d raw
-    tint) f32 with the colour epilogue, else None.
+    (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx, dbsig): f32 gradients
+    in the layout of the parameters ([out, in] weights; dwd [1, width]);
+    dxs per segment in the segment's dtype, or None; drgbx (d raw diffuse,
+    d raw tint) f32 with the colour epilogue, else None; dbsig [1] with the
+    compositing epilogue, else None.
   """
   cdt = DTYPES[compute_dtype]
-  sbar, hbar, cbar, ubar = cots
+  sbar, hbar, cbar, ubar, *wbar = cots
   dm = dir_modes or DirModes()
+  sp = spa_modes or SpaModes()
   raw = list(segs)
   dtypes = [s.dtype for s in segs]
-  segs = dir_segments(segs, dm, cdt)
+  trig = None
+  if sp.scales:
+    segs, trig = _spatial_segments(segs, sp, cdt)
+  else:
+    segs = dir_segments(segs, dm, cdt)
+  dbsig = None
+  if sp.samples:
+    delta, bsig, sig = comp
+    wb = wbar[0] if wbar and wbar[0] is not None else torch.zeros_like(sig)
+    ct_raw, dbsig = composite_weights_backward(sig, delta, bsig, sp.samples,
+                                               wb)
+    sbar = ct_raw if sbar is None else sbar.float() + ct_raw
   t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
   n, W, L, G = segs[0].shape[0], t.width, len(t.ws), len(segs)
   acts = _forward_acts(t, segs, torch.relu)
@@ -527,7 +647,12 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
     if fold is None or G != 2:
       raise ValueError('the cotangent of u needs the IPE scale fold')
     tp = ubar.float() @ fold.float().t()
-    ts = [(tp * segs[1].float()).to(cdt), (-(tp * segs[0].float())).to(cdt)]
+    if trig is None:
+      ts = [(tp * segs[1].float()).to(cdt),
+            (-(tp * segs[0].float())).to(cdt)]
+    else:
+      e, sinm, cosm = trig
+      ts = [(tp * e * cosm).to(cdt), (-(tp * e * sinm)).to(cdt)]
     p = None
     for l in range(L):
       if l == 0:
@@ -547,7 +672,7 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
   if dxs is not None:
     dxs = [None if d is None else d.to(dt)
            for d, dt in zip(_dir_dx(raw, dm, dxs), dtypes)]
-  return dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx
+  return dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx, dbsig
 
 
 class TrunkPack(NamedTuple):
@@ -683,11 +808,12 @@ def trunk_dims(segs, ide_deg=0, ide_at=0, ide_geo=False, rgb_epilogue=None):
 
 
 class _KernelIn(NamedTuple):
-  """A trunk input as the kernels take it: the columns are [x0 | the fused
-  IDE block (re P | im P | n.v in geo mode) | x1], the IDE block made in the
-  kernel from the raw f32 inputs g (refdirs or grad_pred), v (viewdirs, geo
-  mode) and k (kappa_inv)."""
-  x0: torch.Tensor
+  """A trunk input as the kernels take it: the columns are [x0 (d0) | the
+  fused IDE block (re P | im P | n.v in geo mode) | x1 (d1)], the IDE block
+  made in the kernel from the raw f32 inputs g (refdirs or grad_pred), v
+  (viewdirs, geo mode) and k (kappa_inv). With K7 x0 and x1 are None: the
+  kernel makes both segments (SpaModes)."""
+  x0: Optional[torch.Tensor]
   x1: Optional[torch.Tensor]
   g: Optional[torch.Tensor]
   v: Optional[torch.Tensor]
@@ -696,6 +822,8 @@ class _KernelIn(NamedTuple):
   lmax: int
   geo: bool
   tables: tuple     # (mat, sigma_row, gather) f32 on the device, or Nones
+  d0: int
+  d1: int
 
 
 def _cols(x):
@@ -716,8 +844,9 @@ def _kernel_inputs(segs, pack: TrunkPack, dm: DirModes) -> _KernelIn:
     if not 1 <= len(segs) <= 2:
       raise NotImplementedError('the trunk kernel takes one or two input '
                                 f'segments, got {len(segs)}')
-    return _KernelIn(c(segs[0]), c(segs[1]) if len(segs) > 1 else None,
-                     None, None, None, 0, 0, False, (None,) * 3)
+    x0, x1 = c(segs[0]), c(segs[1]) if len(segs) > 1 else None
+    return _KernelIn(x0, x1, None, None, None, 0, 0, False, (None,) * 3,
+                     _cols(x0), _cols(x1))
   nr = dm.n_raw()
   if dm.ide_at != 1 or len(segs) > 2 + nr:
     raise NotImplementedError(
@@ -730,10 +859,71 @@ def _kernel_inputs(segs, pack: TrunkPack, dm: DirModes) -> _KernelIn:
       raise ValueError(f'raw IDE input of shape {tuple(r.shape)}, expected '
                        f'{(n, w)}')
   tables = _ide_tables(dm.ide_deg, dev)
-  return _KernelIn(c(segs[0]), c(segs[-1]) if len(segs) > 1 + nr else None,
-                   raw[0], raw[1] if dm.geo else None, raw[-1],
+  x0, x1 = c(segs[0]), c(segs[-1]) if len(segs) > 1 + nr else None
+  return _KernelIn(x0, x1, raw[0], raw[1] if dm.geo else None, raw[-1],
                    int(tables[0].shape[1]), int(tables[0].shape[0]) - 1,
-                   dm.geo, tables)
+                   dm.geo, tables, _cols(x0), _cols(x1))
+
+
+_MAX_RAY_ROWS = 1024  # rows a forward CTA may own so that it holds whole rays
+
+
+def ray_rows(samples: int) -> int:
+  """Rows of the smallest run of whole 64-row tiles that holds whole rays of
+  `samples` rows: a K6 forward CTA owns that many, a backward slab a
+  multiple of it."""
+  return samples * _TILE // math.gcd(samples, _TILE)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_fold(scales, nb, device):
+  return torch.as_tensor(ipe_scale_fold(scales, nb), device=device)
+
+
+class _SpaIn(NamedTuple):
+  """The fused spatial stages as the kernels take them: with K7 the raw
+  (lm, lv) f32 and the scale fold that carries the scales; with K6 delta,
+  bsig and the samples per ray."""
+  lm: Optional[torch.Tensor]
+  lv: Optional[torch.Tensor]
+  fold: Optional[torch.Tensor]
+  delta: Optional[torch.Tensor]
+  bsig: Optional[torch.Tensor]
+  samples: int
+
+
+def _spa_inputs(segs, pack: TrunkPack, sp: SpaModes, comp, fold) -> _SpaIn:
+  """Check the K6/K7 inputs against the pack; (lm, lv) are then the two
+  segments, [n, nb] each, and pack.seg_dims (nb deg, nb deg)."""
+  n = int(segs[0].shape[0])
+  dev = segs[0].device
+  lm = lv = enc_fold = delta = bsig = None
+  if (sp.scales or sp.samples) and (pack.wc is None or pack.wd is None):
+    raise NotImplementedError(
+        'the fused spatial stages run in the spatial trunk with its density '
+        'head and the compute-dtype bottleneck head (built: head 128)')
+  if sp.scales:
+    if len(segs) != 2 or any(s.dim() != 2 or s.shape[1] != segs[0].shape[1]
+                             for s in segs):
+      raise ValueError('the in-kernel IPE takes (lm, lv), [n, nb] each')
+    nb = int(segs[0].shape[1])
+    f = nb * len(sp.scales)
+    if pack.seg_dims != (f, f):
+      raise ValueError(f'IPE of {nb} x {len(sp.scales)} columns does not '
+                       f'match the pack {pack.seg_dims}')
+    lm, lv = (s.float().contiguous() for s in segs)
+    enc_fold = (fold.float().contiguous() if fold is not None
+                else _scale_fold(tuple(sp.scales), nb, dev))
+  if sp.samples:
+    if ray_rows(sp.samples) > _MAX_RAY_ROWS or n % sp.samples:
+      raise NotImplementedError(
+          f'the compositing epilogue takes whole rays of a number of samples '
+          f'whose rows and 64-row tiles meet within {_MAX_RAY_ROWS} rows; '
+          f'got {n} rows of {sp.samples}')
+    delta, bsig = comp[0], comp[1]
+    delta = delta.float().reshape(n).contiguous()
+    bsig = bsig.float().reshape(1).contiguous()
+  return _SpaIn(lm, lv, enc_fold, delta, bsig, sp.samples)
 
 
 def _rgbe_inputs(dm: DirModes, rgbx, pack: TrunkPack, n):
@@ -747,57 +937,79 @@ def _rgbe_inputs(dm: DirModes, rgbx, pack: TrunkPack, n):
   return rawd, rawt, dm.rgbe
 
 
+def _launch_inputs(segs, pack: TrunkPack, dm: DirModes, sp: SpaModes, comp,
+                   fold):
+  """(_KernelIn, _SpaIn) of a launch; with K7 the segments are (lm, lv)
+  and the two segments' widths come from the pack."""
+  if not (sp.scales or sp.samples):
+    return _kernel_inputs(segs, pack, dm), _SpaIn(*(None,) * 5, 0)
+  si = _spa_inputs(segs, pack, sp, comp, fold)
+  if not sp.scales:
+    return _kernel_inputs(segs, pack, dm), si
+  for t in (pack.w, pack.wt, pack.b, pack.wd, pack.wc):
+    if t.device != si.lm.device:
+      raise ValueError(f'weights on {t.device}, inputs on {si.lm.device}')
+  return _KernelIn(None, None, None, None, None, 0, 0, False, (None,) * 3,
+                   *pack.seg_dims), si
+
+
 def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
                  fold: Optional[torch.Tensor] = None,
-                 dir_modes: Optional[DirModes] = None, rgbx=None):
+                 dir_modes: Optional[DirModes] = None, rgbx=None,
+                 spa_modes: Optional[SpaModes] = None, comp=None):
   """Launch the CUDA forward kernel; outputs as `trunk_reference` returns
-  them, except that with `fold` ([F, nb] f32, two IPE segments) the density
-  gradient comes out folded: the last output is u [n, nb] f32 (K3).
-  `dir_modes` and `rgbx` as for trunk_reference (K8-K10)."""
+  them with `fold` ([F, nb] f32, two IPE segments): the density gradient
+  comes out folded, u [n, nb] f32 (K3). `dir_modes` and `rgbx` (K8-K10),
+  `spa_modes` and `comp` (K6, K7) as for trunk_reference."""
   dm = dir_modes or DirModes()
+  sp = spa_modes or SpaModes()
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
   lib = _library('trunk_fwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
-  ki = _kernel_inputs(segs, pack, dm)
-  dev = ki.x0.device
-  n = int(ki.x0.shape[0])
+  ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
+  dev, n, d0, d1 = segs[0].device, int(segs[0].shape[0]), ki.d0, ki.d1
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   sig = torch.empty(n, device=dev) if pack.wd is not None else None
   hout = torch.empty(n, hf, device=dev) if hf else None
   cout = torch.empty(n, hc, device=dev, dtype=cdt) if hc else None
   u = nb = None
   if fold is not None:
-    if (pack.wd is None or ki.x1 is None or ki.p
-        or fold.shape[0] != _cols(ki.x0)):
+    if (pack.wd is None or not d1 or ki.p or fold.shape[0] != d0):
       raise ValueError('the density gradient needs the density head and two '
                        f'IPE segments matching the fold {tuple(fold.shape)}')
     fold = fold.float().contiguous()
     nb = int(fold.shape[1])
     u = torch.empty(n, nb, device=dev)
+  if si.lm is not None:
+    fold, nb = si.fold, int(si.fold.shape[1])
   rawd, rawt, (premult, rbias, pad) = _rgbe_inputs(dm, rgbx, pack, n)
   rgb = torch.empty(n, 3, device=dev) if rawd is not None else None
+  wts = torch.empty(n, device=dev) if si.samples else None
   mat, sg, gm = ki.tables
   with torch.cuda.device(dev):
     err = lib.refnerf_trunk_fwd(
         1 if cdt == torch.bfloat16 else 0, pack.width, hc,
-        _ptr(ki.x0), _cols(ki.x0), _ptr(ki.x1), _cols(ki.x1),
+        _ptr(ki.x0), d0, _ptr(ki.x1), d1,
         n, pack.kin, pack.depth, pack.skip, _ptr(pack.w), _ptr(pack.wt),
         _ptr(pack.b), _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf,
         _ptr(pack.wc), _ptr(pack.bc), _ptr(fold), nb or 0, _ptr(sig),
         _ptr(hout), _ptr(cout), _ptr(u), _ptr(ki.g), _ptr(ki.v), _ptr(ki.k),
         ki.p, ki.lmax, int(ki.geo), _ptr(mat), _ptr(sg), _ptr(gm),
         _ptr(rawd), _ptr(rawt), _ptr(rgb), premult, rbias, pad,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(si.lm), _ptr(si.lv), _ptr(si.delta), _ptr(si.bsig), si.samples,
+        _ptr(wts), torch.cuda.current_stream(dev).cuda_stream)
   _check_launch(err, 'trunk forward kernel')
-  return [t for t in (sig, hout, cout, u, rgb) if t is not None]
+  return [t for t in (sig, hout, cout, u, rgb, wts) if t is not None]
 
 
 def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
                           needs_dx=False, slab=BWD_SLAB,
                           dir_modes: Optional[DirModes] = None, rgbx=None,
-                          rgb_bar=None):
-  """Launch the CUDA backward kernels (K4, K5; K8-K10 with `dir_modes`);
-  returns what `trunk_backward_reference` returns.
+                          rgb_bar=None, spa_modes: Optional[SpaModes] = None,
+                          comp=None):
+  """Launch the CUDA backward kernels (K4, K5; K8-K10 with `dir_modes`, K6
+  and K7 with `spa_modes`); returns what `trunk_backward_reference`
+  returns.
 
   Per slab of samples: the per-tile kernel recomputes the trunk and runs the
   inner chain, the head backward, the first-order reverse and (with the
@@ -805,31 +1017,38 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   operands feature-major into a scratch buffer and per-tile sums of the
   vector gradients; then a split-K product over samples forms each weight
   gradient's partials, and fixed-order reductions sum them (no atomics: the
-  result does not depend on the schedule).
+  result does not depend on the schedule). With K6 a slab holds whole rays.
   """
   dm = dir_modes or DirModes()
-  sbar, hbar, cbar, ubar = cots
+  sp = spa_modes or SpaModes()
+  sbar, hbar, cbar, ubar, *wbar = cots
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
   lib = _library('trunk_bwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
   seg_dtypes = [s.dtype for s in segs]
-  ki = _kernel_inputs(segs, pack, dm)
-  dev = ki.x0.device
-  n = int(ki.x0.shape[0])
-  d0, d1 = _cols(ki.x0), _cols(ki.x1)
+  ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
+  dev, n, d0, d1 = segs[0].device, int(segs[0].shape[0]), ki.d0, ki.d1
   W, L, kin = pack.width, pack.depth, pack.kin
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = ubar is not None
-  if dg and (fold is None or ki.x1 is None or ki.p or pack.wd is None):
+  if dg and (fold is None or not d1 or ki.p or pack.wd is None):
     raise ValueError('the cotangent of u needs the density head, two IPE '
                      'segments and the scale fold')
-  if dg and needs_dx:
+  if (dg or si.lm is not None or si.samples) and needs_dx:
     raise NotImplementedError('the backward kernel emits segment cotangents '
-                              'only without the density gradient')
+                              'only without the density gradient and the '
+                              'fused spatial stages')
   if ki.p and not needs_dx:
     raise NotImplementedError('the fused IDE backward comes with needs_dx')
   nb = int(fold.shape[1]) if dg else 0
   fold = fold.float().contiguous() if dg else None
+  if si.lm is not None:
+    fold, nb = si.fold, int(si.fold.shape[1])
+  sig = wb = None
+  if si.samples:
+    sig = comp[2].float().reshape(n).contiguous()
+    wb = (wbar[0].float().reshape(n).contiguous()
+          if wbar and wbar[0] is not None else torch.zeros(n, device=dev))
   rows_of = lambda t, w: None if t is None else (
       t.float().reshape(n, w).contiguous())
   sbar = rows_of(sbar, 1) if pack.wd is not None else None
@@ -852,8 +1071,9 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   dws = [torch.empty(W, k, device=dev) for k in k_out]
   dwc = torch.empty(hc, W, device=dev) if hc else None
   # The vector gradients, one f32 row: db [L, W] | dwd [W] | dwh [hf, W] |
-  # dbh [hf] | dbc [hc].
-  nvec = L * W + (W if pack.wd is not None else 0) + hf * W + hf + hc
+  # dbh [hf] | dbc [hc] | d bsig [1] (K6).
+  nvec = (L * W + (W if pack.wd is not None else 0) + hf * W + hf + hc
+          + int(si.samples > 0))
   vec = torch.empty(nvec, device=dev)
   dx0 = dx1 = ddg = ddk = None
   if needs_dx:
@@ -862,7 +1082,8 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
     if ki.p:
       ddg, ddk = torch.empty(n, 3, device=dev), torch.empty(n, 1, device=dev)
 
-  slab = n if n <= slab else slab // _TILE * _TILE
+  whole = ray_rows(si.samples) if si.samples else _TILE
+  slab = n if n <= slab else slab // whole * whole
   rp_max = -(-slab // _TILE) * _TILE
   # Scratch, feature-major [features][rows], rows padded to the tile:
   # h_l and zeta_l (and s_l, p_l with the density gradient) [L][W], the
@@ -907,6 +1128,8 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
           _ptr(mat), _ptr(sg), _ptr(gm), at(ddg, start, 3), at(ddk, start, 1),
           at(rawd, start, 3), at(rawt, start, 3), at(rgb_bar, start, 3),
           at(drawd, start, 3), at(drawt, start, 3), premult, rbias, pad,
+          at(si.lm, start, nb), at(si.lv, start, nb), at(si.delta, start, 1),
+          _ptr(si.bsig), at(sig, start, 1), at(wb, start, 1), si.samples,
           stream)
       _check_launch(err, 'trunk backward kernel')
       acc = int(start > 0)
@@ -948,13 +1171,14 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   dwh = take(hf * W, (hf, W)) if hf else None
   dbh = take(hf, (hf,)) if hf else None
   dbc = take(hc, (hc,)) if hc else None
+  dbsig = take(1, (1,)) if si.samples else None
   dxs = None
   if needs_dx:
     mid = ([] if not ki.p else [ddg, None, ddk] if ki.geo else [ddg, ddk])
     dxs = [dx0] + mid + ([dx1] if dx1 is not None else [])
     dxs = [None if d is None else d.to(dt) for d, dt in zip(dxs, seg_dtypes)]
   return (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs,
-          (drawd, drawt) if rgbe else None)
+          (drawd, drawt) if rgbe else None, dbsig)
 
 
 class _Spec(NamedTuple):
@@ -968,6 +1192,7 @@ class _Spec(NamedTuple):
   has: Tuple[bool, ...]        # wd, head_f32, head_cdt present
   needs_dx: bool
   dir_modes: DirModes = DirModes()
+  spa_modes: SpaModes = SpaModes()
 
 
 def _unflatten(spec: _Spec, params):
@@ -978,52 +1203,54 @@ def _unflatten(spec: _Spec, params):
       (wc, bc) if spec.has[2] else None
 
 
-def _count(which, dm: DirModes):
+def _count(which, spec: _Spec):
   """One launch of kernel `which`, also counted under each fused mode."""
   launches[which] += 1
-  for k, on in (('K8', dm.ide_deg), ('K9', dm.geo), ('K10', dm.rgbe)):
+  dm, sp = spec.dir_modes, spec.spa_modes
+  for k, on in (('K6', sp.samples), ('K7', sp.scales), ('K8', dm.ide_deg),
+                ('K9', dm.geo), ('K10', dm.rgbe)):
     if on:
       launches[k] += 1
 
 
-def _forward(spec: _Spec, segs, params, which, rgbx=None):
+def _forward(spec: _Spec, segs, params, which, rgbx=None, comp=None):
   ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
+  kw = dict(dir_modes=spec.dir_modes, rgbx=rgbx, spa_modes=spec.spa_modes,
+            comp=comp)
   if spec.kernel:
-    outs = trunk_kernel(segs, spec.pack, spec.fold, spec.dir_modes, rgbx)
-    _count(which, spec.dir_modes)
+    outs = trunk_kernel(segs, spec.pack, spec.fold, **kw)
+    _count(which, spec)
     return outs
-  outs = trunk_reference(segs, ws, bs, skip_period=spec.skip_period, wd=wd,
+  return trunk_reference(segs, ws, bs, skip_period=spec.skip_period, wd=wd,
                          head_f32=head_f32, head_cdt=head_cdt,
                          compute_dtype=spec.compute_dtype,
-                         density_grad=spec.fold is not None,
-                         dir_modes=spec.dir_modes, rgbx=rgbx)
-  if spec.fold is not None:
-    outs = outs[:-2] + [fold_density_grad(outs[-2:], segs[0], segs[1],
-                                          spec.fold)]
-  return outs
+                         density_grad=spec.fold is not None, fold=spec.fold,
+                         **kw)
 
 
-def _backward(spec: _Spec, segs, params, grads, which, rgbx=None):
-  """Parameter, segment and epilogue-input gradients from the output
+def _backward(spec: _Spec, segs, params, grads, which, rgbx=None, comp=None):
+  """Parameter, segment, epilogue-input and bsig gradients from the output
   cotangents."""
   ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
   grads = list(grads)
   cots = [grads.pop(0) if h else None for h in spec.has]
   ubar = grads.pop(0) if spec.fold is not None else None
   rgb_bar = grads.pop(0) if spec.dir_modes.rgbe is not None else None
-  sbar, hbar, cbar = cots
-  kw = dict(dir_modes=spec.dir_modes, rgbx=rgbx, rgb_bar=rgb_bar)
+  wbar = grads.pop(0) if spec.spa_modes.samples else None
+  cots = (*cots, ubar, wbar)
+  kw = dict(dir_modes=spec.dir_modes, rgbx=rgbx, rgb_bar=rgb_bar,
+            spa_modes=spec.spa_modes, comp=comp)
   if spec.kernel:
-    res = trunk_backward_kernel(segs, spec.pack, (sbar, hbar, cbar, ubar),
-                                spec.fold, spec.needs_dx, **kw)
-    _count(which, spec.dir_modes)
+    res = trunk_backward_kernel(segs, spec.pack, cots, spec.fold,
+                                spec.needs_dx, **kw)
+    _count(which, spec)
   else:
     res = trunk_backward_reference(
-        segs, ws, bs, (sbar, hbar, cbar, ubar),
-        skip_period=spec.skip_period, wd=wd, head_f32=head_f32,
-        head_cdt=head_cdt, compute_dtype=spec.compute_dtype, fold=spec.fold,
+        segs, ws, bs, cots, skip_period=spec.skip_period, wd=wd,
+        head_f32=head_f32, head_cdt=head_cdt,
+        compute_dtype=spec.compute_dtype, fold=spec.fold,
         needs_dx=spec.needs_dx, **kw)
-  dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx = res
+  dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx, dbsig = res
   cast = lambda g, p: None if (g is None or p is None) else g.to(p.dtype)
   pg = [cast(g, p) for g, p in zip(dws + dbs, ws + bs)]
   pg += [cast(dwd, wd),
@@ -1031,28 +1258,39 @@ def _backward(spec: _Spec, segs, params, grads, which, rgbx=None):
          cast(dbh, head_f32[1] if head_f32 else None),
          cast(dwc, head_cdt[0] if head_cdt else None),
          cast(dbc, head_cdt[1] if head_cdt else None)]
-  return pg, dxs, drgbx
+  return pg, dxs, drgbx, dbsig
 
 
 class SpatialTrunk(torch.autograd.Function):
   """The spatial trunk: forward K1 (K3 with the density gradient), backward
-  K4. Inputs (spec, xs, xc, *params); the IPE segments take no gradient."""
+  K4; with the spec's SpaModes also K6 and K7 in both. Inputs (spec, a, b,
+  delta, bsig, *params): (a, b) the IPE segments (xs, xc), or with K7 the
+  lifted means and variances (lm, lv), which take no gradient; delta [n]
+  and bsig [1] with K6, else None, of which bsig takes a gradient. K6's
+  backward reads the forward's sigma, saved here."""
 
   @staticmethod
-  def forward(ctx, spec, xs, xc, *params):
+  def forward(ctx, spec, a, b, delta, bsig, *params):
+    comp = (delta, bsig) if spec.spa_modes.samples else None
+    outs = _forward(spec, [a, b], params,
+                    'K1' if spec.fold is None else 'K3', comp=comp)
     ctx.spec = spec
-    ctx.save_for_backward(xs, xc, *[p for p in params if p is not None])
+    ctx.save_for_backward(a, b, *(comp + (outs[0],) if comp else ()),
+                          *[p for p in params if p is not None])
     ctx.present = [p is not None for p in params]
-    return tuple(_forward(spec, [xs, xc], params,
-                          'K1' if spec.fold is None else 'K3'))
+    return tuple(outs)
 
   @staticmethod
   @once_differentiable
   def backward(ctx, *grads):
-    xs, xc, *saved = ctx.saved_tensors
+    a, b, *saved = ctx.saved_tensors
+    comp = None
+    if ctx.spec.spa_modes.samples:
+      comp, saved = tuple(saved[:3]), saved[3:]
     params = [saved.pop(0) if p else None for p in ctx.present]
-    pg, _, _ = _backward(ctx.spec, [xs, xc], params, grads, 'K4')
-    return (None, None, None, *pg)
+    pg, _, _, dbsig = _backward(ctx.spec, [a, b], params, grads, 'K4',
+                                comp=comp)
+    return (None, None, None, None, dbsig, *pg)
 
 
 class DirectionalTrunk(torch.autograd.Function):
@@ -1080,7 +1318,8 @@ class DirectionalTrunk(torch.autograd.Function):
     segs, saved = saved[:ctx.n_segs], saved[ctx.n_segs:]
     params = [saved.pop(0) if p else None for p in ctx.present]
     rgbx = saved or None
-    pg, dxs, drgbx = _backward(ctx.spec, segs, params, grads, 'K5', rgbx)
+    pg, dxs, drgbx, _ = _backward(ctx.spec, segs, params, grads, 'K5',
+                                  rgbx)
     return (None, None, *(dxs or [None] * len(segs)), *pg, *(drgbx or []))
 
 
@@ -1100,53 +1339,77 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
                         head_f32: Optional[Head] = None,
                         head_cdt: Optional[Head] = None,
                         compute_dtype='float32', mode='auto',
-                        activation=None, pack: Optional[TrunkPack] = None):
+                        activation=None, pack: Optional[TrunkPack] = None,
+                        in_kernel_trig=False, delta=None, act_bias=0.0):
   """K1/K3 forward, K4 backward: the IPE trunk of lifted means/vars
   lm, lv [..., nb] (:1326). lm and lv enter detached (:1396-1397).
 
   `pack` is the kernels' weight layout (pack_trunk); the MLP caches it.
   Without one the kernel path packs on every call.
 
-  Returns (sigma [...], [h_f32 [..., hf],] [h_cdt [..., hc],] [u [..., nb]]),
-  sigma with `bd` added (:1460), u = d sigma / d lm with `density_grad`.
+  `in_kernel_trig` (K7): the kernels make the IPE from lm and lv, and the
+  density gradient's fold and its second-order tangent take the f32 trig
+  factors (SpaModes). `delta` (K6): the per-sample [..., S] t-interval
+  length times |direction| of rays of S consecutive samples; the kernels
+  then also emit the compositing weights of
+  sigma = softplus(raw + bd + act_bias) (:1352-1360). delta takes no
+  gradient; bd takes the weights' through bsig = bd + act_bias, a device
+  tensor.
+
+  Returns (sigma [...], [h_f32 [..., hf],] [h_cdt [..., hc],] [u [..., nb],]
+  [weights [...]]), sigma with `bd` added (:1460), u = d sigma / d lm with
+  `density_grad`.
   """
   lead = lm.shape[:-1]
   nb = lm.shape[-1]
   n = math.prod(lead)
   _check_trunk(len(weights), skip_period)
-  xs, xc = encode_ipe(lm.detach().reshape(n, nb), lv.detach().reshape(n, nb),
-                      scales, compute_dtype)
+  lm2, lv2 = (t.detach().reshape(n, nb).float().contiguous() for t in (lm, lv))
   params = _params(weights, biases, wd, head_f32, head_cdt)
-  kernel = use_kernel(xs, mode)
+  kernel = use_kernel(lm2, mode)
   if kernel:
     _kernel_guard(activation)
+  if delta is not None and wd is None:
+    raise ValueError('the compositing epilogue needs the density head')
   if not (activation is None or activation in (torch.relu, F.relu)):
-    if density_grad or _needs_grad(params):
-      raise NotImplementedError('the trunk backward and the density '
-                                'gradient model ReLU only')
-    outs = trunk_reference([xs, xc], weights, biases, skip_period=skip_period,
+    if density_grad or delta is not None or _needs_grad(params):
+      raise NotImplementedError('the trunk backward, the density gradient '
+                                'and the compositing epilogue model ReLU '
+                                'only')
+    outs = trunk_reference(list(encode_ipe(lm2, lv2, scales, compute_dtype)),
+                           weights, biases, skip_period=skip_period,
                            wd=wd, head_f32=head_f32, head_cdt=head_cdt,
                            compute_dtype=compute_dtype, activation=activation)
   else:
-    if kernel:
-      if pack is None:
-        pack = pack_trunk(weights, biases, (xs.shape[-1], xc.shape[-1]),
-                          skip_period=skip_period, wd=wd, head_f32=head_f32,
-                          head_cdt=head_cdt, compute_dtype=compute_dtype)
+    spa = SpaModes(tuple(float(s) for s in scales) if in_kernel_trig else (),
+                   0 if delta is None else int(delta.shape[-1]))
+    segs = ([lm2, lv2] if in_kernel_trig
+            else list(encode_ipe(lm2, lv2, scales, compute_dtype)))
+    if kernel and pack is None:
+      f = nb * len(scales)
+      pack = pack_trunk(weights, biases, (f, f), skip_period=skip_period,
+                        wd=wd, head_f32=head_f32, head_cdt=head_cdt,
+                        compute_dtype=compute_dtype)
     fold = None
     if density_grad:
-      fold = torch.as_tensor(ipe_scale_fold(scales, nb), device=xs.device)
+      fold = _scale_fold(tuple(float(s) for s in scales), nb, lm2.device)
+    dcol = bsig = None
+    if spa.samples:
+      dcol = delta.detach().float().reshape(n).contiguous()
+      bsig = (torch.zeros(1, device=lm2.device) if bd is None
+              else bd.float().reshape(1)) + float(act_bias)
     spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
                  pack if kernel else None, fold,
                  (wd is not None, head_f32 is not None, head_cdt is not None),
-                 False)
-    outs = list(SpatialTrunk.apply(spec, xs, xc, *params))
+                 False, spa_modes=spa)
+    outs = list(SpatialTrunk.apply(spec, *segs, dcol, bsig, *params))
+  wts = outs.pop() if delta is not None else None
   sig = outs[0] if bd is None else outs[0] + bd.float()
   res = [sig.reshape(lead)]
   res += [o.reshape(*lead, o.shape[-1]) for o in outs[1:]]
+  if wts is not None:
+    res.append(wts.reshape(lead))
   return tuple(res)
-
-
 
 
 def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,

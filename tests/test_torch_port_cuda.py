@@ -1,7 +1,8 @@
 """The CUDA trunk kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips elsewhere:
-K1-K5, and K8-K10 (the fused directional stages) in both directions. This
+K1-K5, K6 and K7 (the fused spatial stages) and K8-K10 (the fused
+directional stages) in both directions. This
 file imports no jax, so it also runs where jax is not installed; there, skip
 tests/conftest.py (it imports jax):
 
@@ -257,6 +258,64 @@ def test_dir_modes_match_plain(dev, case, cdt):
   _assert_close(flat(gb), flat(wb), cdt, case, n_values=0)
 
 
+# The fused spatial stages (K7 the IPE, K6 the compositing weights) in the
+# spatial trunk's forward (K1, K3) and backward (K4): (IPE in the kernel,
+# samples a ray, density gradient and backward). 128 samples a ray is the
+# flagship's (a forward CTA owns two tiles); 24 makes CTAs of three tiles
+# whose rays do not align with the tiles.
+SPA_CASES = {'K7': (True, 0, False), 'K7+K3': (True, 0, True),
+             'K6+K3': (False, 128, True), 'K6+K7+K3': (True, 128, True),
+             'K6+K7+K3 S24': (True, 24, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('case', sorted(SPA_CASES))
+def test_spatial_modes_match_plain(dev, case, cdt):
+  # Forward: sigma, the heads and the weights as values, u as a derivative;
+  # backward (slabs of 512 rows, whole rays), given random cotangents of
+  # every output: every parameter gradient and d bsig, as derivatives.
+  enc, samples, dg = SPA_CASES[case]
+  n = {0: 1000, 128: 1536, 24: 1440}[samples]
+  _, ws, bs, kw = _case('K1', dev, n=8)
+  gen = torch.Generator().manual_seed(6)
+  rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
+  lm, lv = rand(n, 3) * 3 - 1.5, 10.0**(rand(n, 3) * 4 - 6)
+  comp = (rand(n) * 0.05 + 1e-3, torch.tensor([-0.5], device=dev))
+  comp = comp if samples else None
+  sp = fused_mlp.SpaModes(tuple(float(s) for s in SCALES) if enc else (),
+                          samples)
+  segs = ([lm, lv] if enc else [s.to(fused_mlp.DTYPES[cdt]) for s in
+                                fused_mlp.encode_ipe(lm, lv, SCALES)])
+  fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+          if dg else None)
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  kws = dict(spa_modes=sp, comp=comp)
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack, fold, **kws)
+    want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt,
+                                     density_grad=dg, fold=fold, **kws, **kw)
+  torch.cuda.synchronize()
+  values = lambda r: r[:3] + r[4:] if dg else r
+  _assert_close(values(got), values(want), cdt, case)
+  if dg:
+    _assert_close(got[3:4], want[3:4], cdt, case, n_values=0)
+  if not dg:
+    return
+  cots = _cotangents('K1', dev, n) + ((rand(n) - 0.5,) if samples else ())
+  with torch.no_grad():
+    gb = fused_mlp.trunk_backward_kernel(
+        segs, pack, cots, fold, slab=512, spa_modes=sp,
+        comp=comp + (got[0],) if samples else None)
+    wb = fused_mlp.trunk_backward_reference(
+        segs, ws, bs, cots, compute_dtype=cdt, fold=fold, spa_modes=sp,
+        comp=comp + (want[0],) if samples else None, **kw)
+  torch.cuda.synchronize()
+  flat = lambda r: [t for x in r for t in (x if isinstance(x, list) else [x])
+                    if t is not None]
+  _assert_close(flat(gb), flat(wb), cdt, case, n_values=0)
+
+
 def _rays(n, dev):
   rng = np.random.default_rng(0)
   d = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)
@@ -348,6 +407,48 @@ def test_train_step_kernels_match_plain_path(dev):
     assert fused_mlp.launches[k] == before[k] + 2, k
   model.nerf_mlp.cfg.fused_trunk = 'off'
   loss_off, _, grads_off = train.loss_and_grads(state, batch)
+  assert abs(loss.item() - loss_off.item()) <= 1e-4 * abs(loss_off.item())
+  for k in grads:
+    _assert_close([grads[k]], [grads_off[k]], 'float32', k, n_values=0)
+
+
+SPATIAL = ['NerfMLP.fuse_ipe_trig = True', 'NerfMLP.fuse_compositing = True',
+           'NerfMLP.fuse_lift = True']
+
+
+@pytest.mark.cuda
+def test_model_with_all_fusions_matches_plain_path(dev):
+  # The flagship with the six fuse flags at 16 samples per level, f32: a
+  # served request (K1, K6, K7 once per level) and one step's loss and
+  # gradients (K3 and K4 with K6 and K7 once each per level) against
+  # fused_trunk='off'.
+  config, gin = configs.parse(
+      [GIN], ['Model.num_prop_samples = 16', 'Model.num_nerf_samples = 16',
+              'Config.sample_noise_size = 0'] + FUSE + SPATIAL)
+  model = construct.construct_model(config, gin, dev)
+  rays = _rays(100, dev)
+  before = dict(fused_mlp.launches)
+  with torch.no_grad():
+    out = renderer.render_rays(model, rays, 128)
+  for k in ('K1', 'K6', 'K7'):
+    assert fused_mlp.launches[k] == before[k] + 2, k
+  batch = rays_lib.Batch(rays=rays, rgb=torch.rand(100, 3, generator=torch
+                                                   .Generator().manual_seed(0)).to(dev))
+  state = step_lib.create_train_state(config, model)
+  train = step_lib.make_train_step(model, config)
+  before = dict(fused_mlp.launches)
+  loss, _, grads = train.loss_and_grads(state, batch)
+  for k in ('K3', 'K4'):
+    assert fused_mlp.launches[k] == before[k] + 2, k
+  for k in ('K6', 'K7'):
+    assert fused_mlp.launches[k] == before[k] + 4, k
+  model.nerf_mlp.cfg.fused_trunk = 'off'
+  with torch.no_grad():
+    plain = renderer.render_rays(model, rays, 128)
+  loss_off, _, grads_off = train.loss_and_grads(state, batch)
+  for k in out:
+    err = (out[k] - plain[k]).abs().max().item()
+    assert err <= BOUND['float32'], (k, err)
   assert abs(loss.item() - loss_off.item()) <= 1e-4 * abs(loss_off.item())
   for k in grads:
     _assert_close([grads[k]], [grads_off[k]], 'float32', k, n_values=0)

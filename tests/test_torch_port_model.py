@@ -258,7 +258,7 @@ def test_render_rays_pads_onto_the_chunk(params):
 
 def test_unported_paths_are_refused():
   with pytest.raises(NotImplementedError):
-    _port_model(_bindings() + ['NerfMLP.fuse_compositing = True'])
+    _port_model(_bindings() + ['NerfMLP.use_directional_enc = False'])
   with pytest.raises(NotImplementedError):
     _port_model(_bindings() + ['Model.dilation_bias = 0.0025'])
   with pytest.raises(ValueError, match='batch_sizee'):
