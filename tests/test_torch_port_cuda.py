@@ -316,6 +316,28 @@ def test_spatial_modes_match_plain(dev, case, cdt):
   _assert_close(flat(gb), flat(wb), cdt, case, n_values=0)
 
 
+@pytest.mark.cuda
+def test_in_kernel_ipe_range_reduction_matches_plain(dev):
+  # K7 with lv = 0 and lm in [-3, 3]: at degree 15 |m| reaches ~1e5, where
+  # an ulp of m is ~8e-3 and every degree is undamped, so the kernel's
+  # reduction must round as torch.remainder does (fmodf plus t): float32,
+  # values 1e-4 as above (a reduction x - t floor(x / t) moves sin by up
+  # to ~1e-2 there).
+  n = 1000
+  _, ws, bs, kw = _case('K1', dev, n=8)
+  gen = torch.Generator().manual_seed(7)
+  lm = (torch.rand(n, 3, generator=gen) * 6 - 3).to(dev)
+  lv = torch.zeros(n, 3, device=dev)
+  assert (lm.abs().max() * SCALES[-1]).item() > 5e4
+  sp = fused_mlp.SpaModes(tuple(float(s) for s in SCALES))
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype='float32', **kw)
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel([lm, lv], pack, spa_modes=sp)
+    want = fused_mlp.trunk_reference([lm, lv], ws, bs, spa_modes=sp, **kw)
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'float32', 'K7 range reduction')
+
+
 def _rays(n, dev):
   rng = np.random.default_rng(0)
   d = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)

@@ -188,10 +188,13 @@ def test_encoded_trunk_modes_match_pallas(case):
 
 
 def test_in_kernel_trig_range_reduction_near_2_15():
-  # |lm 2^15| ~ 3e5 >> 100 pi (tests/test_fused_mlp.py:198-222): the IPE of
-  # `ipe_trig` against JAX's safe_sin / safe_cos of the same scaled means
-  # (1e-6: one f32 ulp of sin after the same exact floor-mod), and the
-  # trunk's sigma with in_kernel_trig against JAX's (1e-5 of its largest).
+  # |lm 2^15| ~ 3e5 >> 100 pi (tests/test_fused_mlp.py:198-222): sin m and
+  # cos m of `ipe_trig` against JAX's safe_sin / safe_cos of the same scaled
+  # means, undamped (1e-6: one f32 ulp of sin after the same exact
+  # floor-mod; a reduction that rounds otherwise is off by up to ~1e-2
+  # here), the damped IPE likewise, and the trunk's sigma with
+  # in_kernel_trig against JAX's with lv = 0, every degree undamped (1e-5
+  # of its largest).
   rng = np.random.default_rng(30)
   scales = tuple(float(2**d) for d in range(16))
   lm = (rng.normal(size=(33, NB)) * 10.0).astype(np.float32)
@@ -202,15 +205,18 @@ def test_in_kernel_trig_range_reduction_near_2_15():
   assert float(jnp.max(jnp.abs(m_s))) > 1e5
   e = jnp.exp(-0.5 * v_s)
   ee, sn, cs = fused_mlp.ipe_trig(_t(lm), _t(lv), scales)
+  _assert_grads(sn, _np(jmathx.safe_sin(m_s)), 1e-6, 'sin m')
+  _assert_grads(cs, _np(jmathx.safe_cos(m_s)), 1e-6, 'cos m')
   _assert_grads(ee * sn, _np(e * jmathx.safe_sin(m_s)), 1e-6, 'xs')
   _assert_grads(ee * cs, _np(e * jmathx.safe_cos(m_s)), 1e-6, 'xc')
   prm = _trunk_params(rng, 2 * NB * len(scales))
+  lv0 = np.zeros_like(lv)
   jsig = jfused.fused_encoded_trunk(
-      jnp.asarray(lm), jnp.asarray(lv), scales, prm['ks'], prm['bs'],
+      jnp.asarray(lm), jnp.asarray(lv0), scales, prm['ks'], prm['bs'],
       prm['wd'], prm['bd'], skip_period=SKIP, block=16, out_y=False,
       in_kernel_trig=True)
   sig, = fused_mlp.fused_encoded_trunk(
-      _t(lm), _t(lv), scales, [_t(k.T) for k in prm['ks']],
+      _t(lm), _t(lv0), scales, [_t(k.T) for k in prm['ks']],
       [_t(b) for b in prm['bs']], _t(prm['wd'].T), _t(prm['bd']),
       skip_period=SKIP, in_kernel_trig=True)
   assert torch.isfinite(sig).all()
