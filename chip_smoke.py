@@ -41,13 +41,16 @@ Phases, each printed on its own line:
   9. hold the fused spatial stages against their plain versions at the
      same N, in float32 and bfloat16, and time both: K7 (the IPE made in
      the kernel) on K1 and on K3, K6 (the compositing weights) on K3, and
-     K6+K7 on K3 and on K4 (the backward, with d bsig);
+     K6+K7 on K1 (the served launch), on K3 and on K4 (the backward, with
+     d bsig); the weights within an absolute bound that two faults of the
+     scan (inclusive, no density bias) would exceed;
  10. the flagship with all six fuse flags (phase 8's and
      NerfMLP.fuse_ipe_trig, fuse_compositing, fuse_lift): three served
      requests and 10 train steps through the kernels (K6 and K7 each
      counted levels x chunks per request, twice that per step), each
      against fused_trunk='off'; a 4096-ray request and a train step timed
-     in turns against phase 8's model, and one of each profiled.
+     in turns against phase 8's model, and one of each profiled (phase 8
+     profiles phase 8's model).
 The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6, 8 and 10), its time and its plain
 version's at N, and its bound: the larger of the bytes it must move (each
@@ -87,6 +90,13 @@ KERNEL_BOUND = {'float32': 1e-4, 'bfloat16': 5e-2}
 # L2 error weighs the flips by how rare they are. bf16: both sides also
 # round the cotangents (g, zeta, q, p) to bf16 at the same places.
 GRAD_BOUND = {'float32': 5e-3, 'bfloat16': 5e-2}
+# K6's compositing weights (f32 in either dtype, each below 1 and a ray's
+# summing to at most 1): max |kernel - plain|, absolute. They move with the
+# raw density, so by 1e-7 in f32 and, where a bf16 flip moves it, by a few
+# 1e-4 in bf16. Phase 9 also reads two faults on the plain weights (an
+# inclusive scan, a dropped density bias) and fails unless both lie above
+# this bound.
+WEIGHT_BOUND = {'float32': 1e-5, 'bfloat16': 5e-3}
 SCALES = 2.0**np.arange(0, 16)  # the flagship's IPE degrees (max_deg_point 16)
 # The train step (phase 6), as bench.py times it.
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 4096, 3, 10
@@ -166,11 +176,12 @@ def flatten(outs):
   return flat
 
 
-def errors(got, want, cdt, n_values, values=()):
+def errors(got, want, cdt, n_values, weights=None):
   """Per output: (max abs err, that relative to max(1, max|plain|), relative
-  L2 err, share of its bound). The first n_values outputs, and those at the
-  indices `values`, are values, held by KERNEL_BOUND on the max error; the
-  rest are derivatives, held by GRAD_BOUND on the L2 error."""
+  L2 err, share of its bound). The first n_values outputs are values, held
+  by KERNEL_BOUND on the max error; the output at index `weights` is K6's
+  weights, held by WEIGHT_BOUND on the max abs error; the rest are
+  derivatives, held by GRAD_BOUND on the L2 error."""
   if len(got) != len(want) or not all(
       a.dtype == b.dtype and a.shape == b.shape for a, b in zip(got, want)):
     raise AssertionError('outputs differ in number, dtype or shape')
@@ -180,7 +191,8 @@ def errors(got, want, cdt, n_values, values=()):
     e = d.abs().max().item()
     rel = e / max(1.0, b.abs().max().item())
     l2 = d.norm().item() / max(b.norm().item(), 1e-30)
-    share = (rel / KERNEL_BOUND[cdt] if i < n_values or i in values
+    share = (e / WEIGHT_BOUND[cdt] if i == weights
+             else rel / KERNEL_BOUND[cdt] if i < n_values
              else l2 / GRAD_BOUND[cdt])
     rows.append((e, rel, l2, share))
   return rows
@@ -218,7 +230,7 @@ def bound(cdt, flops, nbytes_moved, f32_flops=0):
 
 
 def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
-            flops=0, f32_flops=0, values=()):
+            flops=0, f32_flops=0, weights=None):
   """Run kernel() and plain() once and compare every output (see errors());
   then time both in turns. Returns a dict: max_abs_err, ms, plain_ms, and
   the bound from `flops` (in the compute dtype), `f32_flops` and the bytes
@@ -226,7 +238,7 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   with torch.no_grad():
     got, want = flatten(kernel()), flatten(plain())
     torch.cuda.synchronize()
-    rows = errors(got, want, cdt, n_values, values)
+    rows = errors(got, want, cdt, n_values, weights)
     moved = nbytes(list(inputs) + got)
     del got, want
     p1, k1 = cuda_ms(plain, iters), cuda_ms(kernel, iters)
@@ -237,7 +249,8 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   detail = '; '.join(f'{i}: {r[1]:.2e} max, {r[2]:.2e} l2'
                      for i, r in enumerate(rows))
   kinds = f'derivatives from output {n_values}' + (
-      f' but for {list(values)}' if values else '')
+      f' but for the weights {weights}, absolute' if weights is not None
+      else '')
   log(f'phase {phase}: {which} {cdt} N={N_SAMPLES}: max_abs_err {err:.3e} '
       f'({worst:.3f} of its bound), kernel {ms:.3f} ms, plain '
       f'{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; '
@@ -774,9 +787,11 @@ def fused_stage(fused_mlp, dev):
 
 
 # Phase 9: (name, (IPE in the kernel, compositing, density gradient,
-# backward)) of each fused spatial mode.
+# backward)) of each fused spatial mode. 'K6+K7' on K1 is the served
+# request's launch.
 SPA_CASES = (('K7', (True, False, False, False)),
              ('K7+K3', (True, False, True, False)),
+             ('K6+K7', (True, True, False, False)),
              ('K6+K3', (False, True, True, False)),
              ('K6+K7+K3', (True, True, True, False)),
              ('K6+K7+K4', (True, True, True, True)))
@@ -820,9 +835,27 @@ def spa_case(fused_mlp, gen, dev, enc, comp):
   return segs, ws, bs, kw, sp, cp if comp else None
 
 
+def weight_faults(fused_mlp, which, cdt, raw, delta, bsig):
+  """What two faults of K6 would read on the plain raw density: an
+  inclusive scan (w e^-dd in place of w) and a dropped density bias (bsig
+  0). Fails unless both read above WEIGHT_BOUND, so that the weights'
+  check would see either."""
+  w = fused_mlp.composite_weights(raw, delta, bsig, SAMPLES)
+  dd = torch.nn.functional.softplus(raw.float() + bsig) * delta
+  incl = (w * torch.exp(-dd) - w).abs().max().item()
+  nobias = (fused_mlp.composite_weights(raw, delta, bsig * 0, SAMPLES)
+            - w).abs().max().item()
+  log(f'phase 9: {which} {cdt}: a fault in the weights would read '
+      f'{incl:.3e} (inclusive scan), {nobias:.3e} (no density bias); '
+      f'max weight {w.max().item():.3e}, bound {WEIGHT_BOUND[cdt]:.0e}')
+  if not min(incl, nobias) > WEIGHT_BOUND[cdt]:
+    raise AssertionError(f'{which} {cdt}: the weights\' bound does not see '
+                         'a fault of K6')
+
+
 def check_spa_kernels(fused_mlp, dev):
-  """Phase 9: K7 on K1 and K3, K6 on K3, K6+K7 on K3 and K4 against their
-  plain versions, f32 and bf16."""
+  """Phase 9: K7 on K1 and K3, K6 on K3, K6+K7 on K1, K3 and K4 against
+  their plain versions, f32 and bf16."""
   gen = torch.Generator().manual_seed(SEED + 3)
   fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
@@ -837,15 +870,19 @@ def check_spa_kernels(fused_mlp, dev):
       f32_flops = spa_flops(enc, comp, dg, backward)
       kws = dict(spa_modes=sp, comp=cp)
       if not backward:
-        # sigma, the two heads and the weights are values, u a derivative.
+        # sigma and the two heads are values, u a derivative, the weights
+        # (after u) held by WEIGHT_BOUND.
+        plain = lambda: fused_mlp.trunk_reference(
+            cs, ws, bs, compute_dtype=cdt, density_grad=dg, fold=f, **kws,
+            **kw)
         results[which, cdt] = compare(
             which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, f, **kws),
-            lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
-                                              density_grad=dg, fold=f,
-                                              **kws, **kw),
-            n_values=3, phase=9, inputs=inputs,
+            plain, n_values=3, phase=9, inputs=inputs,
             flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 2 if dg else 1),
-            f32_flops=f32_flops, values=(4,) if comp else ())
+            f32_flops=f32_flops, weights=(4 if dg else 3) if comp else None)
+        if comp:
+          with torch.no_grad():
+            weight_faults(fused_mlp, which, cdt, plain()[0], *cp)
         continue
       # Cotangents of (sigma, the f32 heads, the bottleneck, u, weights);
       # the forward's sigma from each side's own forward.
@@ -917,10 +954,6 @@ def spatial_stage(fused_mlp, dev):
   with torch.no_grad():
     profile(request, 'all-six 4096-ray request', 3, phase=10)
   profile(step, 'all-six train step', 2, phase=10)
-  set_mode(model, **dir_only)
-  with torch.no_grad():
-    profile(request, 'phase-8 4096-ray request', 3, phase=10)
-  profile(step, 'phase-8 train step', 2, phase=10)
   return serve_launches, train_launches, step_s, {
       'step_six_ms': med(times['all six']),
       'step_phase8_ms': med(times['phase 8']),
@@ -997,8 +1030,8 @@ def main():
   # K6 and K7 stand for their phase-9 cases; each entry also lists the
   # others it runs in.
   main_case = {'K6': 'K6+K3', 'K7': 'K7'}
-  more_cases = {'K6': ('K6+K7+K3', 'K6+K7+K4'),
-                'K7': ('K7+K3', 'K6+K7+K3', 'K6+K7+K4')}
+  more_cases = {'K6': ('K6+K7', 'K6+K7+K3', 'K6+K7+K4'),
+                'K7': ('K7+K3', 'K6+K7', 'K6+K7+K3', 'K6+K7+K4')}
   for which, (desc, src, at, count) in names.items():
     case = main_case.get(which, which)
     b16, f32 = kernels[case, 'bfloat16'], kernels[case, 'float32']

@@ -14,7 +14,10 @@ float32 (one arithmetic, another summation order) and 5e-2 in bfloat16 (a
 per-layer bf16 rounding flip of 2^-8, carried by later layers). Derivatives
 (u, gradients, dx): |kernel - plain|_2 / |plain|_2 <= 5e-3 in float32 and
 5e-2 in bfloat16, since a pre-activation within the summation-order noise
-of 0 flips a relu' mask and moves its sample's derivative by ~10%.
+of 0 flips a relu' mask and moves its sample's derivative by ~10%. K6's
+compositing weights (f32, each below 1): max |kernel - plain| <= 1e-5 in
+float32 and 5e-3 in bfloat16, absolute, below what an inclusive scan or a
+dropped density bias reads on the same inputs (checked too).
 TF32 is off for the plain versions.
 """
 
@@ -34,6 +37,7 @@ from refnerf_tpu_torch.train import step as step_lib
 
 BOUND = {'float32': 1e-4, 'bfloat16': 5e-2}
 GRAD_BOUND = {'float32': 5e-3, 'bfloat16': 5e-2}
+WEIGHT_BOUND = {'float32': 1e-5, 'bfloat16': 5e-3}
 GIN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    'configs', 'blender_refnerf.gin')
 SCALES = 2.0**np.arange(0, 16)  # the flagship's IPE degrees
@@ -262,26 +266,44 @@ def test_dir_modes_match_plain(dev, case, cdt):
 # spatial trunk's forward (K1, K3) and backward (K4): (IPE in the kernel,
 # samples a ray, density gradient and backward). 128 samples a ray is the
 # flagship's (a forward CTA owns two tiles); 24 makes CTAs of three tiles
-# whose rays do not align with the tiles.
+# whose rays do not align with the tiles. K6+K7 on K1 is the served launch,
+# where the ray scratch shares the shared memory of the relu' bits.
 SPA_CASES = {'K7': (True, 0, False), 'K7+K3': (True, 0, True),
+             'K6+K7': (True, 128, False),
              'K6+K3': (False, 128, True), 'K6+K7+K3': (True, 128, True),
              'K6+K7+K3 S24': (True, 24, True)}
+
+
+def _assert_weights(got, want, raw, comp, samples, cdt, what):
+  """K6's weights within WEIGHT_BOUND, and two faults of the scan (an
+  inclusive one, a dropped density bias) read on the plain raw density
+  above it."""
+  delta, bsig = comp
+  err = (got - want).abs().max().item()
+  assert err <= WEIGHT_BOUND[cdt], (what, err, WEIGHT_BOUND[cdt])
+  dd = torch.nn.functional.softplus(raw + bsig) * delta
+  incl = (want * torch.exp(-dd) - want).abs().max().item()
+  nobias = (fused_mlp.composite_weights(raw, delta, bsig * 0, samples)
+            - want).abs().max().item()
+  assert min(incl, nobias) > WEIGHT_BOUND[cdt], (what, incl, nobias)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('case', sorted(SPA_CASES))
 def test_spatial_modes_match_plain(dev, case, cdt):
-  # Forward: sigma, the heads and the weights as values, u as a derivative;
-  # backward (slabs of 512 rows, whole rays), given random cotangents of
-  # every output: every parameter gradient and d bsig, as derivatives.
+  # Forward: sigma and the heads as values, u as a derivative, the weights
+  # by WEIGHT_BOUND; backward (slabs of 512 rows, whole rays), given random
+  # cotangents of every output: every parameter gradient and d bsig, as
+  # derivatives.
   enc, samples, dg = SPA_CASES[case]
   n = {0: 1000, 128: 1536, 24: 1440}[samples]
   _, ws, bs, kw = _case('K1', dev, n=8)
   gen = torch.Generator().manual_seed(6)
   rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
   lm, lv = rand(n, 3) * 3 - 1.5, 10.0**(rand(n, 3) * 4 - 6)
-  comp = (rand(n) * 0.05 + 1e-3, torch.tensor([-0.5], device=dev))
+  # delta and bsig as chip_smoke.py's phase 9 makes them (the flagship's).
+  comp = (rand(n) * 0.08 + 0.01, torch.tensor([0.5], device=dev))
   comp = comp if samples else None
   sp = fused_mlp.SpaModes(tuple(float(s) for s in SCALES) if enc else (),
                           samples)
@@ -296,10 +318,12 @@ def test_spatial_modes_match_plain(dev, case, cdt):
     want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt,
                                      density_grad=dg, fold=fold, **kws, **kw)
   torch.cuda.synchronize()
-  values = lambda r: r[:3] + r[4:] if dg else r
-  _assert_close(values(got), values(want), cdt, case)
+  assert len(got) == len(want) == 3 + dg + bool(samples), case
+  _assert_close(got[:3], want[:3], cdt, case)
   if dg:
     _assert_close(got[3:4], want[3:4], cdt, case, n_values=0)
+  if samples:
+    _assert_weights(got[-1], want[-1], want[0], comp, samples, cdt, case)
   if not dg:
     return
   cots = _cotangents('K1', dev, n) + ((rand(n) - 0.5,) if samples else ())
