@@ -50,10 +50,22 @@ Phases, each printed on its own line:
      counted levels x chunks per request, twice that per step), each
      against fused_trunk='off'; a 4096-ray request and a train step timed
      in turns against phase 8's model, and one of each profiled (phase 8
-     profiles phase 8's model).
+     profiles phase 8's model);
+ 11. hold mip-NeRF's kernels against their plain versions at the same N, in
+     float32 and bfloat16, and time both: K11 (the spatial trunk with its
+     features y out) forward and backward (the cotangent of y in), K2 and
+     K5 at width 128 on segments (128, 33), K1 with the bottleneck head
+     alone (hf = 0) and the first-order K4 (no cotangent of u); K11's y
+     within a relative L2 bound that two faults of its store (the last
+     bias dropped, y before the last ReLU) would exceed;
+ 12. configs/blender_mipnerf.gin at full width (bf16 trunks), as shipped and
+     with Model.use_viewdirs = False: each answers three requests and takes
+     10 train steps through the kernels (K1, K2 and K4, K5 at width 128; or
+     K1 with K11 and K4 with K11), each against fused_trunk='off', and one
+     request and one step of each profiled.
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8 and 10), its time and its plain
-version's at N, and its bound: the larger of the bytes it must move (each
+launches on the main path (phases 4, 6, 8, 10 and 12), its time and its
+plain version's at N, and its bound: the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its operations
 at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
 the fused stages' f32 work overlaps bf16 tensor work).
@@ -97,6 +109,12 @@ GRAD_BOUND = {'float32': 5e-3, 'bfloat16': 5e-2}
 # inclusive scan, a dropped density bias) and fails unless both lie above
 # this bound.
 WEIGHT_BOUND = {'float32': 1e-5, 'bfloat16': 5e-3}
+# K11's trunk features y [N, 256] in the compute dtype: relative L2 error,
+# as the derivatives. A rounding flip moves one of 134M values by a bf16
+# ulp; a fault of the store moves all of them. Phase 11 also reads two
+# faults on the plain y (the last bias dropped, y before the last ReLU) and
+# fails unless both lie above this bound.
+Y_BOUND = {'float32': 1e-5, 'bfloat16': 1e-2}
 SCALES = 2.0**np.arange(0, 16)  # the flagship's IPE degrees (max_deg_point 16)
 # The train step (phase 6), as bench.py times it.
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 4096, 3, 10
@@ -136,32 +154,52 @@ def cuda_ms(fn, iters=5):
   return start.elapsed_time(end) / iters
 
 
+# The trunks of the kernel cases, 8 layers with the skip at layer 5:
+# (segment widths, width, f32 head outputs, compute-dtype head outputs,
+# density head). 'K1' and 'K2' are the flagship's spatial and directional
+# trunks; 'mip K1' is mip-NeRF's spatial trunk with its bottleneck and no
+# f32 head (hf = 0), 'mip K11' the same without the bottleneck (y out), and
+# 'mip K2' its directional trunk on [bottleneck 128 | positional encoding
+# 33].
+TRUNKS = {'K1': ((48, 48), 256, 10, 128, True),
+          'K2': ((128, 73), 256, 3, 0, False),
+          'mip K1': ((48, 48), 256, 0, 128, True),
+          'mip K11': ((48, 48), 256, 0, 0, True),
+          'mip K2': ((128, 33), 128, 3, 0, False)}
+
+
 def trunk_case(which, gen, dev, ipe=False):
-  """Flagship-width trunk weights (He-scaled so activations stay O(1)) and
-  segments of N_SAMPLES rows: K1 segments (48, 48), heads 10 f32 + 128
-  bottleneck; K2 segments (128, 73), head 3 (rgb). With `ipe` the K1
-  segments are the IPE encoding of random lifted means and variances."""
-  seg_dims, hf, hc = ((48, 48), 10, 128) if which == 'K1' else ((128, 73), 3, 0)
-  fin, width, depth = sum(seg_dims), 256, 8
+  """TRUNKS[which]'s weights (He-scaled so activations stay O(1)) and
+  segments of N_SAMPLES rows in [-1, 1]. With `ipe` the (48, 48) segments
+  are the IPE encoding of random lifted means and variances; a 33-wide
+  segment is the positional encoding (deg_view 5) of random unit
+  directions."""
+  seg_dims, width, hf, hc, density = TRUNKS[which]
+  fin = sum(seg_dims)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
   ws, bs = [], []
-  for l in range(depth):
+  for l in range(8):
     k_in = fin if l == 0 else width + (fin if l == 5 else 0)
     ws.append(rand(width, k_in) * math.sqrt(2 / k_in))
     bs.append(rand(width) * 0.05)
+  head = lambda k: (rand(k, width) / math.sqrt(width), rand(k) * 0.1)
   kw = dict(skip_period=4,
-            wd=rand(1, width) / math.sqrt(width) if which == 'K1' else None,
-            head_f32=(rand(hf, width) / math.sqrt(width), rand(hf) * 0.1),
-            head_cdt=((rand(hc, width) / math.sqrt(width), rand(hc) * 0.1)
-                      if hc else None))
+            wd=rand(1, width) / math.sqrt(width) if density else None,
+            head_f32=head(hf) if hf else None,
+            head_cdt=head(hc) if hc else None)
+  uniform = lambda d: torch.rand(N_SAMPLES, d, generator=gen).to(dev) * 2 - 1
   if ipe:
     from refnerf_tpu_torch.ops import fused_mlp
     lm = torch.rand(N_SAMPLES, 3, generator=gen).to(dev) * 3 - 1.5
     lv = 10.0**(torch.rand(N_SAMPLES, 3, generator=gen).to(dev) * 4 - 6)
     segs = list(fused_mlp.encode_ipe(lm, lv, SCALES))
+  elif seg_dims[-1] == 33:
+    from refnerf_tpu_torch.ops import coord
+    d = rand(N_SAMPLES, 3)
+    segs = [uniform(seg_dims[0]),
+            coord.pos_enc(d / d.norm(dim=-1, keepdim=True), 0, 5)]
   else:
-    segs = [torch.rand(N_SAMPLES, d, generator=gen).to(dev) * 2 - 1
-            for d in seg_dims]
+    segs = [uniform(d) for d in seg_dims]
   return segs, ws, bs, kw
 
 
@@ -176,12 +214,13 @@ def flatten(outs):
   return flat
 
 
-def errors(got, want, cdt, n_values, weights=None):
+def errors(got, want, cdt, n_values, weights=None, y=None):
   """Per output: (max abs err, that relative to max(1, max|plain|), relative
   L2 err, share of its bound). The first n_values outputs are values, held
   by KERNEL_BOUND on the max error; the output at index `weights` is K6's
-  weights, held by WEIGHT_BOUND on the max abs error; the rest are
-  derivatives, held by GRAD_BOUND on the L2 error."""
+  weights, held by WEIGHT_BOUND on the max abs error; the one at index `y`
+  is K11's y, held by Y_BOUND on the L2 error; the rest are derivatives,
+  held by GRAD_BOUND on the L2 error."""
   if len(got) != len(want) or not all(
       a.dtype == b.dtype and a.shape == b.shape for a, b in zip(got, want)):
     raise AssertionError('outputs differ in number, dtype or shape')
@@ -192,6 +231,7 @@ def errors(got, want, cdt, n_values, weights=None):
     rel = e / max(1.0, b.abs().max().item())
     l2 = d.norm().item() / max(b.norm().item(), 1e-30)
     share = (e / WEIGHT_BOUND[cdt] if i == weights
+             else l2 / Y_BOUND[cdt] if i == y
              else rel / KERNEL_BOUND[cdt] if i < n_values
              else l2 / GRAD_BOUND[cdt])
     rows.append((e, rel, l2, share))
@@ -208,11 +248,34 @@ def nbytes(tensors):
   return total
 
 
-def trunk_flops(ws, n, heads, passes):
-  """`_make_op`'s count (fused_mlp.py:925): 2 n (the trunk's weights + width
-  x head outputs) per pass."""
+def trunk_flops(ws, n, heads, density_grad=False, backward=False,
+                needs_dx=False):
+  """Operations (2 a multiply-add) of the trunk function over n rows, as it
+  needs them: counted product by product, not as the 1, 2, 4 or 6 forward
+  passes of `_make_op`'s estimate (fused_mlp.py:925, :1052). T: the
+  trunk's weights; X: those that read the input segments (layer 0 and the
+  skip layer's input columns); H: width x the heads' outputs.
+  - forward: the trunk and heads, T + H; with the density gradient u also
+    the reverse from the density head through every layer, T + width.
+  - backward: the trunk's recompute, T (a head is linear: its output is
+    not needed); the reverse zeta_l W_l from the heads through every layer,
+    T + H, less X without dx (those columns give only dx); the weight
+    gradients zeta_l^T [h | x], T + H. With u's cotangent (second order)
+    also the reverse g of the forward's u, T - X (u itself is not needed),
+    the tangent pushed forward from the input, T, and the second
+    weight-gradient product delta_l^T t, T."""
   width = ws[0].shape[0]
-  return 2 * n * (sum(w.numel() for w in ws) + width * heads) * passes
+  t = sum(w.numel() for w in ws)
+  x = sum(w.shape[0] * (w.shape[1] - (width if l else 0))
+          for l, w in enumerate(ws))
+  h = width * heads
+  if not backward:
+    per = t + h + (t + width if density_grad else 0)
+  else:
+    per = 3 * t + 2 * h - (0 if needs_dx else x)
+    if density_grad:
+      per += 3 * t - x
+  return 2 * n * per
 
 
 def bound(cdt, flops, nbytes_moved, f32_flops=0):
@@ -230,7 +293,7 @@ def bound(cdt, flops, nbytes_moved, f32_flops=0):
 
 
 def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
-            flops=0, f32_flops=0, weights=None):
+            flops=0, f32_flops=0, weights=None, y=None):
   """Run kernel() and plain() once and compare every output (see errors());
   then time both in turns. Returns a dict: max_abs_err, ms, plain_ms, and
   the bound from `flops` (in the compute dtype), `f32_flops` and the bytes
@@ -238,7 +301,7 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   with torch.no_grad():
     got, want = flatten(kernel()), flatten(plain())
     torch.cuda.synchronize()
-    rows = errors(got, want, cdt, n_values, weights)
+    rows = errors(got, want, cdt, n_values, weights, y)
     moved = nbytes(list(inputs) + got)
     del got, want
     p1, k1 = cuda_ms(plain, iters), cuda_ms(kernel, iters)
@@ -250,7 +313,7 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
                      for i, r in enumerate(rows))
   kinds = f'derivatives from output {n_values}' + (
       f' but for the weights {weights}, absolute' if weights is not None
-      else '')
+      else '') + (f', y {y} by L2' if y is not None else '')
   log(f'phase {phase}: {which} {cdt} N={N_SAMPLES}: max_abs_err {err:.3e} '
       f'({worst:.3f} of its bound), kernel {ms:.3f} ms, plain '
       f'{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; '
@@ -288,7 +351,7 @@ def check_kernels(fused_mlp, dev):
       results[which, cdt] = compare(
           which, cdt, kernel, plain, n_values=3,
           inputs=segs + pack_tensors(pack),
-          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 1))
+          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw)))
   return results
 
 
@@ -346,13 +409,16 @@ def check_rendering(out, shape, config, pad):
           f'acc [{acc.min().item():.4f}, {acc.max().item():.4f}]')
 
 
-def flagship(dev, bindings=()):
-  """The model of configs/blender_refnerf.gin with bf16 trunks and weights
-  from Config.seed, and its Config."""
+FLAGSHIP, MIPNERF = 'blender_refnerf.gin', 'blender_mipnerf.gin'
+
+
+def flagship(dev, bindings=(), gin_name=FLAGSHIP):
+  """The model of configs/<gin_name> (the flagship by default) with bf16
+  trunks and weights from Config.seed, and its Config."""
   from refnerf_tpu_torch import configs
   from refnerf_tpu_torch.models import construct
   gin_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          'configs', 'blender_refnerf.gin')
+                          'configs', gin_name)
   config, gin = configs.parse(
       [gin_file], [f'Config.seed = {SEED}',
                    "NerfMLP.compute_dtype = 'bfloat16'", *bindings])
@@ -367,19 +433,21 @@ def set_mode(model, **fields):
         setattr(mlp.cfg, k, v)
 
 
-def serve(fused_mlp, dev, bindings=(), phase=4, kernels=('K1', 'K2')):
-  """Phase 4 (8 with the fused directional stage): the flagship model
-  answers three requests through the kernels; each kernel in `kernels`
-  must run levels x chunks times a request, and no training kernel. Then
-  the first request again with fused_trunk='off'. Returns the launches."""
+def serve(fused_mlp, dev, bindings=(), phase=4, kernels=('K1', 'K2'),
+          gin_name=FLAGSHIP, timings=None):
+  """Phase 4 (8 with the fused directional stage, 12 with mip-NeRF): the
+  model of `gin_name` answers three requests through the kernels; each
+  kernel in `kernels` must run levels x chunks times a request, and no
+  training kernel. Then the first request again with fused_trunk='off'.
+  Returns the launches; `timings`, a dict, gets each request's ms."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import renderer
 
-  model, config = flagship(dev, bindings)
+  model, config = flagship(dev, bindings, gin_name)
   levels, chunk = model.cfg.num_levels, config.render_chunk_size
   pad = model.nerf_mlp.cfg.rgb_padding
   n_params = sum(p.numel() for p in model.parameters())
-  log(f'phase {phase}: model blender_refnerf.gin {" ".join(bindings)} bf16 '
+  log(f'phase {phase}: model {gin_name} {" ".join(bindings)} bf16 '
       f'trunks, {n_params} parameters, {levels} levels x '
       f'{model.cfg.num_nerf_samples} samples, chunk {chunk}')
 
@@ -418,6 +486,8 @@ def serve(fused_mlp, dev, bindings=(), phase=4, kernels=('K1', 'K2')):
     log(f'phase {phase}: request {name}: {dt * 1e3:.1f} ms, {n / dt:.0f} '
         f'rays/s, {ranges}, launches {dict(zip(kernels, got))} (= {levels} '
         f'levels x {want // levels} chunks each)')
+    if timings is not None:
+      timings[name] = dt * 1e3
     if first is None:
       first = (rays, out)
   launches = dict(counts)
@@ -470,7 +540,8 @@ def check_train_kernels(fused_mlp, dev):
         results[which, cdt] = compare(
             which, cdt, kernel, plain, n_values=3, phase=5,
             inputs=cs + pack_tensors(pack) + [fold],
-            flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 2))
+            flops=trunk_flops(ws, N_SAMPLES, n_heads(kw),
+                              density_grad=True))
       else:
         f = fold if spatial else None
         kernel = lambda: fused_mlp.trunk_backward_kernel(
@@ -482,22 +553,23 @@ def check_train_kernels(fused_mlp, dev):
             which, cdt, kernel, plain, n_values=0, iters=3, phase=5,
             inputs=cs + pack_tensors(pack) + list(cots) + [f],
             flops=trunk_flops(ws, N_SAMPLES, n_heads(kw),
-                              6 if spatial else 4))
+                              density_grad=spatial, backward=True,
+                              needs_dx=not spatial))
       del pack
     del segs, ws, bs, kw, cots
     torch.cuda.empty_cache()
   return results
 
 
-def train_setup(dev, bindings=()):
-  """The flagship at batch TRAIN_BATCH as bench.py trains it: model, its
-  Config, train state, step and a batch of rays and pixels made as bench.py
-  makes them."""
+def train_setup(dev, bindings=(), gin_name=FLAGSHIP):
+  """The model of `gin_name` at batch TRAIN_BATCH as bench.py trains it:
+  model, its Config, train state, step and a batch of rays and pixels made
+  as bench.py makes them."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.train import step as step_lib
   model, config = flagship(dev, [
       f'Config.batch_size = {TRAIN_BATCH}', 'Config.randomized = False',
-      'Config.sample_noise_size = 0', *bindings])
+      'Config.sample_noise_size = 0', *bindings], gin_name)
   rng = np.random.RandomState(0)
   d = rng.randn(TRAIN_BATCH, 3).astype(np.float32)
   rays = rays_from(rays_lib, rng.randn(TRAIN_BATCH, 3).astype(np.float32) * 0.1,
@@ -510,16 +582,19 @@ def train_setup(dev, bindings=()):
   return model, config, state, step_lib.make_train_step(model, config), batch
 
 
-def train(fused_mlp, dev, bindings=(), phase=6, per_step=None):
-  """Phase 6 (8 with the fused directional stage): train steps of the
-  flagship through the kernels; `per_step` are the launches each kernel
-  must make a step. Then one step's gradients against fused_trunk='off'.
-  Returns (launches, seconds per step, train_setup's five)."""
+def train(fused_mlp, dev, bindings=(), phase=6, per_step=None,
+          gin_name=FLAGSHIP):
+  """Phase 6 (8 with the fused directional stage, 12 with mip-NeRF): train
+  steps of the model of `gin_name` through the kernels; `per_step` are the
+  launches each kernel must make a level and step. Then one step's
+  gradients against fused_trunk='off'. Returns (launches, seconds per step,
+  train_setup's five)."""
   from refnerf_tpu_torch.train import step as step_lib
-  model, config, state, train_step, batch = train_setup(dev, bindings)
+  model, config, state, train_step, batch = train_setup(dev, bindings,
+                                                        gin_name)
   levels = model.cfg.num_levels
   start = {k: p.detach().clone() for k, p in model.named_parameters()}
-  log(f'phase {phase}: model blender_refnerf.gin {" ".join(bindings)} bf16 '
+  log(f'phase {phase}: model {gin_name} {" ".join(bindings)} bf16 '
       f'trunks, batch {TRAIN_BATCH}, {levels} levels x '
       f'{model.cfg.num_nerf_samples} samples')
 
@@ -662,7 +737,7 @@ def check_dir_kernels(fused_mlp, dev):
           lambda: fused_mlp.trunk_reference(cs, ws, bs, head_f32=head,
                                             compute_dtype=cdt, **kw),
           n_values=2 if rgb else 1, phase=7, inputs=inputs,
-          flops=trunk_flops(ws, N_SAMPLES, 3, 1),
+          flops=trunk_flops(ws, N_SAMPLES, 3),
           f32_flops=dir_flops(mat, ide, geo, rgb, backward=False))
       results[which + ' backward', cdt] = compare(
           which + ' backward', cdt,
@@ -673,7 +748,8 @@ def check_dir_kernels(fused_mlp, dev):
               needs_dx=True, rgb_bar=rgb_bar, **kw),
           n_values=0, iters=3, phase=7,
           inputs=inputs + [cots[1], rgb_bar],
-          flops=trunk_flops(ws, N_SAMPLES, 3, 4),
+          flops=trunk_flops(ws, N_SAMPLES, 3, backward=True,
+                            needs_dx=True),
           f32_flops=dir_flops(mat, ide, geo, rgb, backward=True))
       del pack
     del segs, ws, bs, cots, rgbx
@@ -728,11 +804,14 @@ def profile(run, what, calls, phase=8):
     log(f'phase {phase}: profile {what}: the profiler saw no device time')
     return
   top = sorted(kernels, key=dev_us, reverse=True)[:8]
+  # The trunk kernels' names with their template arguments (the instance).
+  name = lambda e: e.key.replace('void ', '').replace(
+      '(anonymous namespace)::', '')[:64]
   log(f'phase {phase}: profile {what} ({calls} calls): wall {wall * 1e3:.2f} ms, '
       f'device busy {busy * 1e3:.2f} ms, idle {100 * (1 - busy / wall):.1f}%, '
       f'{sum(e.count for e in kernels) / calls:.0f} kernel launches a call; '
       'device ms a call by kernel: ' + '; '.join(
-          f'{e.key[:60]} {dev_us(e) / 1e3 / calls:.3f}' for e in top))
+          f'{name(e)} {dev_us(e) / 1e3 / calls:.3f}' for e in top))
 
 
 def fused_stage(fused_mlp, dev):
@@ -878,7 +957,7 @@ def check_spa_kernels(fused_mlp, dev):
         results[which, cdt] = compare(
             which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, f, **kws),
             plain, n_values=3, phase=9, inputs=inputs,
-            flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 2 if dg else 1),
+            flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), density_grad=dg),
             f32_flops=f32_flops, weights=(4 if dg else 3) if comp else None)
         if comp:
           with torch.no_grad():
@@ -900,7 +979,8 @@ def check_spa_kernels(fused_mlp, dev):
               cs, ws, bs, cots, compute_dtype=cdt, fold=f, spa_modes=sp,
               comp=cp + (sr,), **kw),
           n_values=0, iters=3, phase=9, inputs=inputs + list(cots) + [sk],
-          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), 6),
+          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), density_grad=True,
+                            backward=True),
           f32_flops=f32_flops)
       del pack, sk, sr
     del segs, ws, bs, kw, cp
@@ -962,6 +1042,129 @@ def spatial_stage(fused_mlp, dev):
       'request_off_ms': med(rtimes['off'])}
 
 
+# Phase 11: (name, (trunk in TRUNKS, backward)) of each mip-NeRF case.
+# 'K11' is the spatial trunk with y out; 'K1 hf=0' and 'K4 first-order'
+# the shipped gin's spatial trunk with its bottleneck.
+MIP_CASES = (('K11', ('mip K11', False)),
+             ('K11 backward', ('mip K11', True)),
+             ('K2 W128', ('mip K2', False)),
+             ('K5 W128', ('mip K2', True)),
+             ('K1 hf=0', ('mip K1', False)),
+             ('K4 first-order', ('mip K1', True)))
+
+
+def y_faults(fused_mlp, cdt, cs, ws, bs, kw, y):
+  """What two faults of K11's y would read on the plain y, by relative L2:
+  the last layer's bias dropped, and y stored before the last ReLU. Fails
+  unless both read above Y_BOUND, so that y's check would see either."""
+  ref = lambda w, b: fused_mlp.trunk_reference(cs, w, b, compute_dtype=cdt,
+                                               out_y=True, **kw)[0]
+  l2 = lambda f: ((f.float() - y.float()).norm() / y.float().norm()).item()
+  nobias = l2(ref(ws, bs[:-1] + [bs[-1] * 0]))
+  pre = l2(ref(ws[:-1], bs[:-1]).float() @ ws[-1].t() + bs[-1])
+  log(f'phase 11: K11 {cdt}: a fault in y would read {nobias:.3e} (no last '
+      f'bias), {pre:.3e} (before the last ReLU), relative L2; rms y '
+      f'{y.float().square().mean().sqrt().item():.3e}, max |y| '
+      f'{y.float().abs().max().item():.3e}, bound {Y_BOUND[cdt]:.0e}')
+  if not min(nobias, pre) > Y_BOUND[cdt]:
+    raise AssertionError(f'K11 {cdt}: y\'s bound does not see a fault of '
+                         'its store')
+
+
+def check_mip_kernels(fused_mlp, dev):
+  """Phase 11: K11 forward and backward, K2 and K5 at width 128, K1 with
+  hf = 0 and the first-order K4 against their plain versions, f32 and
+  bf16. Forward values by KERNEL_BOUND, K11's y by Y_BOUND, derivatives by
+  GRAD_BOUND."""
+  gen = torch.Generator().manual_seed(SEED + 4)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  results = {}
+  for which, (trunk, backward) in MIP_CASES:
+    spatial = trunk != 'mip K2'
+    segs, ws, bs, kw = trunk_case(trunk, gen, dev, ipe=spatial)
+    out_y = trunk == 'mip K11'
+    heads = n_heads(kw)
+    # Cotangents of (sigma, the f32 head, the bottleneck, u) and of y.
+    if spatial:
+      cots = (rand(N_SAMPLES), None,
+              rand(N_SAMPLES, 128) if kw['head_cdt'] else None, None)
+    else:
+      cots = (None, rand(N_SAMPLES, 3), None, None)
+    ybar = rand(N_SAMPLES, 256) if out_y and backward else None
+    for cdt in ('float32', 'bfloat16'):
+      cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+      pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in cs],
+                                  compute_dtype=cdt, **kw)
+      inputs = cs + pack_tensors(pack)
+      if not backward:
+        plain = lambda: fused_mlp.trunk_reference(
+            cs, ws, bs, compute_dtype=cdt, out_y=out_y, **kw)
+        results[which, cdt] = compare(
+            which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, out_y=out_y),
+            plain, n_values=3, phase=11, inputs=inputs,
+            flops=trunk_flops(ws, N_SAMPLES, heads),
+            y=0 if out_y else None)
+        if out_y:
+          with torch.no_grad():
+            y_faults(fused_mlp, cdt, cs, ws, bs, kw, plain()[0])
+        continue
+      yb = None if ybar is None else ybar.to(fused_mlp.DTYPES[cdt])
+      results[which, cdt] = compare(
+          which, cdt,
+          lambda: fused_mlp.trunk_backward_kernel(
+              cs, pack, cots, needs_dx=not spatial, ybar=yb),
+          lambda: fused_mlp.trunk_backward_reference(
+              cs, ws, bs, cots, compute_dtype=cdt, needs_dx=not spatial,
+              ybar=yb, **kw),
+          n_values=0, iters=3, phase=11,
+          inputs=inputs + list(cots) + [yb],
+          flops=trunk_flops(ws, N_SAMPLES, heads, backward=True,
+                            needs_dx=not spatial))
+      del pack
+    del segs, ws, bs, kw, cots, ybar
+    torch.cuda.empty_cache()
+  return results
+
+
+NO_VIEWDIRS = ['Model.use_viewdirs = False']
+
+
+def mip_stage(fused_mlp, dev):
+  """Phase 12: configs/blender_mipnerf.gin as shipped and with
+  Model.use_viewdirs = False, each served (three requests) and trained
+  (10 steps) through the kernels against fused_trunk='off', and one
+  4096-ray request and one step of each profiled. Returns, per run,
+  (request launches, step launches, seconds a step, request ms)."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  runs = {'shipped': ((), ('K1', 'K2'), {'K1': 1, 'K2': 1, 'K4': 1, 'K5': 1}),
+          'no viewdirs': (NO_VIEWDIRS, ('K1', 'K11'),
+                          {'K1': 1, 'K4': 1, 'K11': 2})}
+  out = {}
+  for run, (bindings, kernels, per_step) in runs.items():
+    timings = {}
+    serve_launches = serve(fused_mlp, dev, bindings, phase=12,
+                           kernels=kernels, gin_name=MIPNERF, timings=timings)
+    train_launches, step_s, (model, config, state, train_step, batch) = train(
+        fused_mlp, dev, bindings, phase=12, per_step=per_step,
+        gin_name=MIPNERF)
+    box = {'state': state}
+
+    def step():
+      box['state'], _ = train_step(box['state'], batch)
+
+    rays = random_rays(rays_lib, 4096, config, 1, dev)
+    request = lambda: renderer.render_rays(model, rays,
+                                           config.render_chunk_size)
+    with torch.no_grad():
+      profile(request, f'mip-NeRF {run} 4096-ray request', 3, phase=12)
+    profile(step, f'mip-NeRF {run} train step', 2, phase=12)
+    out[run] = (serve_launches, train_launches, step_s, timings)
+    del model, state, train_step, batch, box
+    torch.cuda.empty_cache()
+  return out
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -999,6 +1202,10 @@ def main():
   dir_serve, dir_train, dir_step_s, ab = fused_stage(fused_mlp, dev)
   kernels.update(check_spa_kernels(fused_mlp, dev))
   spa_serve, spa_train, spa_step_s, ab6 = spatial_stage(fused_mlp, dev)
+  kernels.update(check_mip_kernels(fused_mlp, dev))
+  mip = mip_stage(fused_mlp, dev)
+  (mip_serve, mip_train, _, _), (y_serve, y_train, _, _) = (
+      mip['shipped'], mip['no viewdirs'])
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -1025,7 +1232,18 @@ def main():
       'K9': ('in-kernel direction geometry (with K8), fwd and bwd', dir_src,
              355, dir_serve['K9'] + dir_train['K9']),
       'K10': ('in-kernel colour epilogue, fwd and bwd', dir_src, 283,
-              dir_serve['K10'] + dir_train['K10'])}
+              dir_serve['K10'] + dir_train['K10']),
+      # Phase 12's: mip-NeRF as shipped, and without view directions (K11).
+      'K11': ('trunk features y out (K1), their cotangent in (K4)', fwd_src,
+              629, y_serve['K11'] + y_train['K11']),
+      'K2 W128': ('directional trunk at width 128 (mip-NeRF)', fwd_src, 612,
+                  mip_serve['K2'] + mip_train['K2']),
+      'K5 W128': ('directional trunk backward at width 128, dx', bwd_src,
+                  668, mip_train['K5']),
+      'K1 hf=0': ('spatial trunk with the bottleneck head alone', fwd_src,
+                  612, mip_serve['K1'] + mip_train['K1']),
+      'K4 first-order': ('spatial trunk backward without the cotangent of '
+                         'u', bwd_src, 668, mip_train['K4'])}
   line = []
   # K6 and K7 stand for their phase-9 cases; each entry also lists the
   # others it runs in.
@@ -1044,9 +1262,11 @@ def main():
         'dtype': 'bfloat16', 'n_samples': N_SAMPLES,
         'f32_max_abs_err': f32['max_abs_err'], 'f32_ms': f32['ms'],
         'f32_plain_ms': f32['plain_ms'], 'f32_bound_ms': f32['bound_ms']}
-    if which in ('K8', 'K9', 'K10'):
-      entry['serve_launches'] = dir_serve[which]
-      entry['train_launches'] = dir_train[which]
+    if which in ('K8', 'K9', 'K10', 'K11'):
+      entry['serve_launches'] = (y_serve if which == 'K11'
+                                 else dir_serve)[which]
+      entry['train_launches'] = (y_train if which == 'K11'
+                                 else dir_train)[which]
       for cdt, pre in (('bfloat16', 'bwd_'), ('float32', 'f32_bwd_')):
         bw = kernels[which + ' backward', cdt]
         entry.update({pre + 'ms': bw['ms'], pre + 'plain_ms': bw['plain_ms'],
@@ -1069,7 +1289,11 @@ def main():
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '
       f'train rays/s; in turns {json.dumps(ab)}; phase 10 (all six): '
       f'{spa_step_s * 1e3:.2f} ms, {TRAIN_BATCH / spa_step_s:.0f} train '
-      f'rays/s; in turns {json.dumps(ab6)}')
+      f'rays/s; in turns {json.dumps(ab6)}; phase 12 (mip-NeRF): ' + '; '.join(
+          f'{run} {r[2] * 1e3:.2f} ms a step, {TRAIN_BATCH / r[2]:.0f} train '
+          f'rays/s, requests ' + ', '.join(f'{k} {v:.1f} ms'
+                                           for k, v in r[3].items())
+          for run, r in mip.items()))
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

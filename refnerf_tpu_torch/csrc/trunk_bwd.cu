@@ -21,11 +21,17 @@
 //       tangent ts from the f32 e cos m and e sin m;
 //   K6  K4 with `weights` (:719-742): the cotangent of the compositing
 //       weights becomes one of the raw density before the head backward,
-//       and d bsig joins the vector gradients.
+//       and d bsig joins the vector gradients;
+//   K11 K4 with `out_y` (:675, :717-718), first order, without the
+//       compute-dtype head: the cotangent of y [n, W] (compute dtype) is
+//       the first term of y's cotangent, in an instance of its own (YO).
+// The directional trunk (K5) runs at width 256 and 128 (mip-NeRF), and the
+// spatial trunk (K4) also first order (no ū: mip-NeRF has no density
+// normals), in the instances K4 already has.
 //
 // What it computes, in the Pallas order and casts (fused_mlp.py :705-853):
 //   recompute h_l (and, with u, the inner chain s_l = relu'(h_l) q_l);
-//   g = cdt(cbar wc^T) + cdt(sbar wd + hbar wh^T)                 (:714-775)
+//   g = [ybar +] cdt(cbar wc^T) + cdt(sbar wd + hbar wh^T)        (:714-775)
 //   zeta_l = relu'(h_l) g,  g = cdt(zeta_l Wa_l)        l = L-1 .. 0 (:777-801)
 //   dx_j = sum over the input-consuming layers of zeta_l Wx_l  (f32, :794-821)
 //   t = ubar S^T;  ts = (cdt(t xc), cdt(-t xs));  p_l = relu'(h_l) cdt(t_l),
@@ -118,6 +124,7 @@ struct BwdParams {
   const float* sig;    // [n] the forward's raw density
   const float* wbar;   // [n] cotangent of the weights
   int samples;         // samples a ray
+  const void* ybar;    // [n][W] cotangent of y, compute dtype (K11)
 };
 
 // The accumulator of a [kRows][NOUT] gemm, rounded to the compute dtype and
@@ -165,7 +172,7 @@ __device__ __forceinline__ void column_sums(float* out, const T* src, int lds, i
   }
 }
 
-template <typename T, int W, int HC, bool DIR, bool SPA>
+template <typename T, int W, int HC, bool DIR, bool SPA, bool YO = false>
 __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PAD = Pad<T>::v;
@@ -361,7 +368,8 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   }
 
   // 5. The head backward: g = cdt(cbar wc^T) + cdt(g32), g32 = sbar wd +
-  // hbar wh^T (in f32 mode, exactly acc + g32).
+  // hbar wh^T (in f32 mode, exactly acc + g32); with K11 (no cbar) g =
+  // cdt(ybar + cdt(g32)), ybar first as in :717-718.
   auto g32 = [&](int r, int c) {
     float back = 0.f;
     for (int j = 0; j < p.hf; ++j) back = fmaf(hb[r * p.hf + j], p.wh[j * W + c], back);
@@ -395,7 +403,14 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   } else {
     for (int i = tid; i < kRows * W; i += kThreads) {
       const int r = i / W, c = i % W;
-      act[r * LDA + c] = from_f<T>(g32(r, c));
+      if constexpr (YO) {
+        const float yb = row0 + r < p.n
+            ? to_f(static_cast<const T*>(p.ybar)[static_cast<size_t>(row0 + r) * W + c])
+            : 0.f;
+        act[r * LDA + c] = from_f<T>(yb + round_t<T>(g32(r, c)));
+      } else {
+        act[r * LDA + c] = from_f<T>(g32(r, c));
+      }
     }
   }
   __syncthreads();
@@ -496,7 +511,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
   }
 }
 
-template <typename T, int W, int HC, bool DIR, bool SPA>
+template <typename T, int W, int HC, bool DIR, bool SPA, bool YO = false>
 int launch_bwd(const BwdParams& p, cudaStream_t stream) {
   constexpr int PAD = Pad<T>::v;
   const size_t smem = sizeof(T) * (static_cast<size_t>(kRows) * (W + PAD) +
@@ -510,21 +525,32 @@ int launch_bwd(const BwdParams& p, cudaStream_t stream) {
       4 * (kRows + (kThreads / 32) * static_cast<size_t>(p.samples)) >
           sizeof(T) * kRows * (W + PAD))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_kernel<T, W, HC, DIR, SPA>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_kernel<T, W, HC, DIR, SPA, YO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_kernel<T, W, HC, DIR, SPA><<<p.rp / kRows, kThreads, smem, stream>>>(p);
+  trunk_bwd_kernel<T, W, HC, DIR, SPA, YO><<<p.rp / kRows, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K8-K10 run on the directional trunk only (no compute-dtype head), K6 and
-// K7 on the spatial trunk with its bottleneck head; their code is built into
-// the DIR and SPA instances alone.
+// K7 on the spatial trunk with its bottleneck head, K11 on the spatial trunk
+// without it and without ū; their code is built into the DIR, SPA and YO
+// instances alone. Width 128 is the plain directional trunk (K5) alone: no
+// density head, ū, compute-dtype head or fused stage, which were never
+// checked there.
 template <typename T>
 int dispatch_bwd(int width, int hc, const BwdParams& p, cudaStream_t stream) {
   const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wbar != nullptr;
+  if (p.ybar != nullptr)
+    return width == 256 && hc == 0 && !dir && !spa && p.ubar == nullptr
+               ? launch_bwd<T, 256, 0, false, false, true>(p, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (width == 128)
+    return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr
+               ? launch_bwd<T, 128, 0, false, false>(p, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (width == 256 && hc == 0 && !spa)
     return dir ? launch_bwd<T, 256, 0, true, false>(p, stream)
                : launch_bwd<T, 256, 0, false, false>(p, stream);
@@ -687,7 +713,9 @@ __global__ void reduce_kernel(const float* parts, int nparts, int rows, int k, i
 // lm, lv [n][nb] with the scales of fold, as in refnerf_trunk_fwd; with wbar
 // non-null (K6) the cotangent of the weights of rays of `samples` rows (from
 // the forward's raw density sig [n], delta [n] and bsig [1]) adds to sbar's,
-// and d bsig is the last entry of the vector row (nvec one longer).
+// and d bsig is the last entry of the vector row (nvec one longer). With
+// ybar non-null (K11; width 256, hc 0, no ubar, no fused stage) the
+// cotangent of y [n][width] in the compute dtype joins y's.
 extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, int d0,
                                  const void* x1, int d1, int n, int kin, int depth, int skip,
                                  const void* w, const void* wt, const void* b, const float* wd,
@@ -703,7 +731,7 @@ extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, i
                                  float* drawt, float premult, float rbias, float pad,
                                  const float* lm, const float* lv, const float* delta,
                                  const float* bsig, const float* sig, const float* wbar,
-                                 int samples, void* stream) {
+                                 int samples, const void* ybar, void* stream) {
   const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
   const int esize = dtype == 1 ? 2 : 4;
   if (n <= 0 || rp < n || rp % kRows != 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin ||
@@ -736,7 +764,7 @@ extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, i
   BwdParams p{x0, x1, d0, d1, n, kin, depth, skip, w, wt, b, wd, wh, bh, hf, wct, sbar, hbar,
               cbar, ubar, fold, nb, dx0, dx1, dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
               dir, ddg, ddk, Rgbe{rawd, rawt, premult, rbias, pad}, rgb_bar, drawd, drawt,
-              Ipe{lm, lv, fold, nb}, delta, bsig, sig, wbar, samples};
+              Ipe{lm, lv, fold, nb}, delta, bsig, sig, wbar, samples, ybar};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_bwd<float>(width, hc, p, s);
   if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(width, hc, p, s);

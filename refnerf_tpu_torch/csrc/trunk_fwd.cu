@@ -20,10 +20,17 @@
 //       sample in instead of the 96-column encoding); K3's fold takes the
 //       f32 e cos m and e sin m (:657-659);
 //   K6  K1/K3 with `weights` (`_epilogue_fwd` :498): the compositing
-//       weights of whole rays after the density head.
+//       weights of whole rays after the density head;
+//   K11 K1 with `out_y` (:617, :629-630): the trunk's last activation y
+//       [n, W] stored in the compute dtype beside sigma (mip-NeRF without
+//       view directions, whose rgb head reads y outside the kernel).
 // K8-K10 (trunk_common.cuh) run in the directional instance with DIR set,
-// K6 and K7 in the spatial instance with SPA set; every other instance is
-// built without their code.
+// K6 and K7 in the spatial instance with SPA set, K11 in the instance with
+// YO set; every other instance is built without their code. The
+// directional trunk runs at width 256 (Ref-NeRF) and 128 (mip-NeRF, segments
+// (128, 33)); every width-dependent shape below is written in W: the ring
+// 2 x [max(W, HC)][kKS + PAD], the 2 x 4 warp layout with W / 32 n-tiles of
+// 8 a warp, and the f32 heads' W / 32 values a lane.
 //
 // What it computes (fused_mlp.py `_forward_trunk`, `_fwd_kernel`):
 //   h_0 = relu(cdt(x @ W0) + cdt(b0)),  x = [seg0 | seg1] read in place
@@ -62,7 +69,11 @@
 // in and the heads out (~0.2-0.26 GB; the weights stay in L2), about 2,000
 // FLOP per byte, so the kernel is bound by the tensor-core (bf16) or FMA
 // (f32) throughput. This first version uses mma.sync m16n8k16 (bf16) and
-// plain FMA (f32); wgmma/TMA and a deeper pipeline are later work.
+// plain FMA (f32); wgmma/TMA and a deeper pipeline are later work. K11's y
+// (512 B a sample in bf16, 268 MB at that N, 0.08 ms at 3.35 TB/s) stays
+// under the 0.54 ms of its trunk's tensor work. The width-128 directional
+// trunk is ~0.31 MFLOP a sample (kin 161 padded to 192 is the kernel's own
+// cost), in the same tiles with half the accumulators a thread.
 
 #include "trunk_common.cuh"
 
@@ -98,7 +109,21 @@ struct Params {
   int samples;      // K6: samples a ray (consecutive rows)
   int tiles;        // tiles a CTA runs: lcm(samples, kRows) / kRows with K6, else 1
   float* wts;       // [n] out: the compositing weights (K6), or null
+  void* y;          // [n][W] out, compute dtype: the last activation (K11)
 };
+
+// K11: the resident activation tile to y [n][W], 16 bytes a thread and
+// consecutive threads on consecutive addresses; rows past n are skipped.
+template <typename T, int W>
+__device__ __forceinline__ void store_rows(T* y, const T* act, int lda, int row0, int n) {
+  constexpr int EPC = 16 / sizeof(T), CPR = W / EPC;  // elements, copies a row
+  for (int i = threadIdx.x; i < kRows * CPR; i += kThreads) {
+    const int r = i / CPR, c = (i % CPR) * EPC, gr = row0 + r;
+    if (gr < n)
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(gr) * W + c) =
+          *reinterpret_cast<const uint4*>(act + r * lda + c);
+  }
+}
 
 // K3: the density-gradient reverse chain on the resident tile, then the
 // fold of the segment gradients onto the lifted means (fused_mlp.py
@@ -201,7 +226,7 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
   }
 }
 
-template <typename T, int W, int HC, bool DIR, bool SPA>
+template <typename T, int W, int HC, bool DIR, bool SPA, bool YO = false>
 __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PAD = Pad<T>::v;
@@ -274,6 +299,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
       __syncthreads();
       if (dg) save_mask<T, W>(bits + l * kRows * (W / 32), act, LDA);
     }
+    if constexpr (YO) store_rows<T, W>(static_cast<T*>(p.y), act, LDA, row0, p.n);
 
     // f32 heads on y = act: one warp per row, lanes across the width.
     if (p.wd != nullptr || p.hf > 0) {
@@ -352,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int W, int HC, bool DIR, bool SPA>
+template <typename T, int W, int HC, bool DIR, bool SPA, bool YO = false>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int PAD = Pad<T>::v;
   constexpr int NMAX = W > HC ? W : HC;
@@ -364,22 +390,33 @@ int launch(const Params& p, cudaStream_t stream) {
                  static_cast<size_t>(kRows) * p.kin);
   if (SPA && p.wts != nullptr) smem += 4 * static_cast<size_t>(p.tiles) * kRows;
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_kernel<T, W, HC, DIR, SPA>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_kernel<T, W, HC, DIR, SPA, YO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = (SPA ? p.tiles : 1) * kRows;
   const int grid = (p.n + rows - 1) / rows;
-  trunk_fwd_kernel<T, W, HC, DIR, SPA><<<grid, kThreads, smem, stream>>>(p);
+  trunk_fwd_kernel<T, W, HC, DIR, SPA, YO><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K8-K10 run on the directional trunk only (no compute-dtype head), K6 and
-// K7 on the spatial trunk with its bottleneck head.
+// K7 on the spatial trunk with its bottleneck head, K11 on the spatial
+// trunk without it and without the density gradient; width 128 is the
+// plain directional trunk (K2) alone: no density head, density gradient,
+// compute-dtype head or fused stage, which were never checked there.
 template <typename T>
 int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
+  if (p.y != nullptr)
+    return width == 256 && hc == 0 && !dir && !spa && p.u == nullptr
+               ? launch<T, 256, 0, false, false, true>(p, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (width == 128)
+    return hc == 0 && !dir && !spa && p.u == nullptr && p.wd == nullptr
+               ? launch<T, 128, 0, false, false>(p, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (width == 256 && hc == 0 && !spa)
     return dir ? launch<T, 256, 0, true, false>(p, stream)
                : launch<T, 256, 0, false, false>(p, stream);
@@ -402,7 +439,9 @@ int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
 // With lm non-null (K7) x0 and x1 are null and the two segments (d0 = d1
 // columns each) are the IPE of lm, lv [n][nb] with the scales of fold; with
 // wts non-null (K6) the compositing weights of rays of `samples` rows, from
-// delta [n] and bsig [1], go to wts [n].
+// delta [n] and bsig [1], go to wts [n]. With y non-null (K11; width 256,
+// hc 0, no u, no fused stage) the last activation goes to y [n][width] in
+// the compute dtype.
 extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, int d0,
                                  const void* x1, int d1, int n, int kin, int depth, int skip,
                                  const void* w, const void* wt, const void* b, const float* wd,
@@ -414,7 +453,7 @@ extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, i
                                  const float* rawd, const float* rawt, float* rgb, float premult,
                                  float rbias, float pad, const float* lm, const float* lv,
                                  const float* delta, const float* bsig, int samples, float* wts,
-                                 void* stream) {
+                                 void* y, void* stream) {
   const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
   if (n <= 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin || depth > 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -445,7 +484,7 @@ extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, i
   }
   Params p{x0, x1, d0, d1, n, kin, depth, skip, w, b, wd, wh, bh, hf, wc, bc,
            fold, nb, sig, hout, cout, u, wt, dir, Rgbe{rawd, rawt, premult, rbias, pad}, rgb,
-           Ipe{lm, lv, fold, nb}, delta, bsig, samples, tiles, wts};
+           Ipe{lm, lv, fold, nb}, delta, bsig, samples, tiles, wts, y};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(width, hc, p, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(width, hc, p, s);
@@ -454,5 +493,5 @@ extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, i
 
 // Lets the wrapper refuse shapes before launching.
 extern "C" int refnerf_trunk_supports(int width, int hc) {
-  return width == 256 && (hc == 0 || hc == 128);
+  return (width == 256 && (hc == 0 || hc == 128)) || (width == 128 && hc == 0);
 }

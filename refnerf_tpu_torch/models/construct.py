@@ -34,9 +34,13 @@ def construct_model(config, gin: Optional[ginlite.GinConfig] = None,
   if isinstance(m_kwargs.get('raydist_fn'), ginlite.Ref):
     m_kwargs['raydist_fn'] = m_kwargs['raydist_fn'].name.split('.')[-1]
 
-  nerf_mlp = MLP(**configs_lib.mlp_kwargs(gin, 'NerfMLP', scope=scope))
+  # The MLPs build the parameter tree of the view directions they will get
+  # (Model.use_viewdirs): without them, no bottleneck or directional trunk.
+  use_viewdirs = bool(m_kwargs.get('use_viewdirs', True))
+  nerf_mlp = MLP(use_viewdirs,
+                 **configs_lib.mlp_kwargs(gin, 'NerfMLP', scope=scope))
   prop_mlp = None if single_mlp else MLP(
-      **configs_lib.mlp_kwargs(gin, 'PropMLP', scope=scope))
+      use_viewdirs, **configs_lib.mlp_kwargs(gin, 'PropMLP', scope=scope))
   model = Model(
       nerf_mlp, prop_mlp,
       render_with_specular_density=config.render_with_specular_density,

@@ -19,10 +19,13 @@ cannot act is logged once. On CUDA tensors those are the hand-written
 kernels; on the CPU, or with `fused_trunk='off'`, their plain versions.
 
 Ported: evaluation and training (`train=True`: density-gradient normals,
-differentiable through u) with predicted normals, the IDE, reflections,
-roughness, diffuse/specular/tint and n.v. Not ported, and refused with
-NotImplementedError: density and bottleneck noise, `use_viewdirs=False`,
-the positional direction encoding and a trunk that ends in a skip concat.
+differentiable through u) with predicted normals, the IDE or the positional
+direction encoding, reflections, roughness, diffuse/specular/tint and n.v;
+without view directions (`Model.use_viewdirs = False`, passed in at build
+time as `use_viewdirs`) the spatial trunk also returns its features y (K11)
+and the rgb head runs on them, outside the trunk (mlp.py:295, :652-656).
+Not ported, and refused with NotImplementedError: density and bottleneck
+noise and a trunk that ends in a skip concat.
 """
 
 from __future__ import annotations
@@ -129,11 +132,19 @@ class MLPConfig:
 
 
 class MLP(nn.Module):
-  """Spatial trunk + density/normal/roughness/colour heads + directional trunk."""
+  """Spatial trunk + density/normal/roughness/colour heads + directional trunk.
 
-  def __init__(self, **kwargs):
+  `use_viewdirs` (the Model's field) says whether the MLP will be given view
+  directions. The JAX module creates its layers when they are first called,
+  so without view directions its tree has no bottleneck, no directional
+  trunk and no roughness or tint head, and its rgb head reads the spatial
+  trunk's features; this module builds that tree.
+  """
+
+  def __init__(self, use_viewdirs: bool = True, **kwargs):
     super().__init__()
     self.cfg = c = MLPConfig(**kwargs)
+    self.use_viewdirs = use_viewdirs
     if c.warp_fn is not None:
       raise NotImplementedError('warp_fn is not ported')
     if c.weight_init != 'torch_uniform':
@@ -148,10 +159,11 @@ class MLP(nn.Module):
     if c.enable_pred_specular_density and not c.use_diffuse_color:
       raise ValueError('Specular density is useless if not using diffuse '
                        'color.')
-    if not c.use_directional_enc:
-      raise NotImplementedError(
-          'only the integrated directional encoding is ported')
-    if c.net_depth_viewdirs < 1:
+    if not use_viewdirs and c.use_diffuse_color and not c.disable_rgb:
+      # The reference hits an UnboundLocalError here (mlp.py:469-475).
+      raise ValueError('use_diffuse_color requires view directions '
+                       '(Model.use_viewdirs = True).')
+    if use_viewdirs and c.net_depth_viewdirs < 1:
       raise NotImplementedError('a directional trunk of depth 0 is not ported')
     self.net_activation = activation(c.net_activation)
     self.density_activation = activation(c.density_activation)
@@ -163,7 +175,12 @@ class MLP(nn.Module):
     self.register_buffer('pos_basis_t', torch.tensor(basis, dtype=torch.float32),
                          persistent=False)
     self.scales = 2.0**np.arange(c.min_deg_point, c.max_deg_point)
-    self.dir_enc_fn = ref_utils.generate_ide_fn(c.deg_view)
+    if c.use_directional_enc:
+      self.dir_enc_fn = ref_utils.generate_ide_fn(c.deg_view)
+      dir_width = 2 * ref_utils.ide_constants(c.deg_view)[0].shape[1]
+    else:
+      self.dir_enc_fn = lambda d, _: coord.pos_enc(d, 0, c.deg_view)
+      dir_width = 3 + 6 * c.deg_view
 
     w, fin = c.net_width, 2 * basis.shape[1] * len(self.scales)
     skips = fused_mlp.skip_input_layers(c.net_depth, c.skip_layer)
@@ -178,6 +195,10 @@ class MLP(nn.Module):
     if c.enable_pred_normals:
       self.grad_pred = nn.Linear(w, 3)
       self._heads.append(('grad_pred', 'grad_pred', 3))
+    self._packs = {}
+    if not use_viewdirs:
+      self.rgb = nn.Linear(w, c.num_rgb_channels)
+      return
     if c.enable_pred_roughness:
       self.raw_roughness = nn.Linear(w, 1)
       self._heads.append(('roughness', 'raw_roughness', 1))
@@ -190,15 +211,13 @@ class MLP(nn.Module):
     if c.bottleneck_width > 0:
       self.bottleneck = nn.Linear(w, c.bottleneck_width)
 
-    n_ide = ref_utils.ide_constants(c.deg_view)[0].shape[1]
-    dir_in = c.bottleneck_width + 2 * n_ide + int(c.use_n_dot_v)
+    dir_in = c.bottleneck_width + dir_width + int(c.use_n_dot_v)
     wv = c.net_width_viewdirs
     skips = fused_mlp.skip_input_layers(c.net_depth_viewdirs, c.skip_layer)
     for i in range(c.net_depth_viewdirs):
       d_in = dir_in if i == 0 else wv + (dir_in if i in skips else 0)
       self.add_module(f'viewdir_{i}', nn.Linear(d_in, wv))
     self.rgb = nn.Linear(wv, c.num_rgb_channels)
-    self._packs = {}
 
   def reset_parameters(self, generator: torch.Generator):
     """Initialise as the JAX MLP does with 'torch_uniform' (mlp.py:49-64):
@@ -240,10 +259,12 @@ class MLP(nn.Module):
         _warn_fused_fallback(f'{f} inactive', 'non-relu net_activation')
     return False
 
-  def _spatial(self, lm, lv, rgb_heads, density_grad, delta=None):
-    """K1/K3 (K6, K7 by the fuse flags): raw density, the f32 heads, the
-    bottleneck, with `density_grad` the density-gradient normals
-    (mlp.py:252-333) and with `delta` the compositing weights."""
+  def _spatial(self, lm, lv, rgb_heads, density_grad, delta=None,
+               out_y=False):
+    """K1/K3 (K6, K7 by the fuse flags, K11 with `out_y`): the trunk's
+    features y or None, raw density, the f32 heads, the bottleneck, with
+    `density_grad` the density-gradient normals (mlp.py:252-333) and with
+    `delta` the compositing weights."""
     c = self.cfg
     ws, bs = self._stack('spatial', c.net_depth)
     heads = [h for h in self._heads
@@ -269,7 +290,8 @@ class MLP(nn.Module):
         mode=c.fused_trunk, activation=self.net_activation, pack=pack,
         density_grad=density_grad,
         in_kernel_trig=c.fuse_ipe_trig and self.spatial_fused(), delta=delta,
-        act_bias=c.density_bias, **kw))
+        act_bias=c.density_bias, out_y=out_y, **kw))
+    y = outs.pop(0) if out_y else None
     raw_density = outs.pop(0)
     fh = {}
     if head_f32 is not None:
@@ -285,7 +307,7 @@ class MLP(nn.Module):
       normals = -ref_utils.l2_normalize(u_lm @ self.pos_basis_t.t())
     if delta is not None:
       fh['weights'] = outs.pop(0)
-    return raw_density, fh, normals
+    return y, raw_density, fh, normals
 
   def _directional(self, segs, **fuse):
     """K2 (with K8-K10 by `fuse`, fused_trunk's keywords): raw rgb of the
@@ -328,6 +350,64 @@ class MLP(nn.Module):
           'needs diffuse+tint+srgb+norm with sigmoid rgb_activation')
     return ide, geo, rgb
 
+  def _view_rgb(self, means, viewdirs, fh, grad_pred, normals, roughness):
+    """The directional branch (mlp.py:476-642): the direction encoding (the
+    IDE or the positional encoding, or with K8/K9 its raw inputs) beside the
+    bottleneck, through the directional trunk and its rgb head (K2). Returns
+    (raw rgb [..., s, C], the colour epilogue's rgb [..., s, 3] with K10 or
+    None)."""
+    c = self.cfg
+    lead = means.shape[:-1]
+    n = math.prod(lead)
+    fuse_ide, fuse_geo, fuse_rgb = self._dir_fusions()
+    segs = []
+    if c.bottleneck_width > 0:
+      segs.append(fh['bottleneck'].reshape(n, -1))
+    vb = viewdirs[..., None, :].expand(means.shape)
+    fuse = {}
+    if fuse_ide:
+      # K8/K9: the raw inputs of the IDE go in; the 2P-wide encoding never
+      # leaves the trunk (mlp.py:526-597).
+      kappa_inv = (roughness if c.enable_pred_roughness
+                   else torch.zeros_like(means[..., :1]))
+      fuse = dict(ide_deg=c.deg_view, ide_at=len(segs), ide_geo=fuse_geo)
+      if fuse_geo:
+        segs.append((grad_pred.reshape(n, 3), vb.reshape(n, 3),
+                     kappa_inv.reshape(n, 1)))
+      else:
+        dirs = (ref_utils.reflect(-vb, normals) if c.use_reflections else vb)
+        segs.append((dirs.reshape(n, 3), kappa_inv.reshape(n, 1)))
+        if c.use_n_dot_v:
+          segs.append(torch.sum(normals * vb, dim=-1,
+                                keepdim=True).reshape(n, 1))
+    else:
+      if c.use_reflections:
+        # viewdirs point camera->point; flip so refdirs point outward.
+        dir_enc = self.dir_enc_fn(ref_utils.reflect(-vb, normals), roughness)
+      elif c.enable_pred_roughness:
+        dir_enc = self.dir_enc_fn(vb, roughness)
+      else:
+        # One encoding a ray, broadcast to its samples (mlp.py:557-561).
+        dir_enc = self.dir_enc_fn(viewdirs, roughness)
+        dir_enc = dir_enc[..., None, :].expand(*lead, dir_enc.shape[-1])
+      # In the compute dtype at its producer (mlp.py:562-568).
+      dir_enc = dir_enc.to(fused_mlp.DTYPES[c.compute_dtype])
+      if c.use_n_dot_v:
+        # n.v rides as one extra plane on the encoding segment (mlp.py:584).
+        dotprod = torch.sum(normals * vb, dim=-1, keepdim=True)
+        dir_enc = torch.cat([dir_enc, dotprod.to(dir_enc.dtype)], dim=-1)
+      segs.append(dir_enc.reshape(n, -1))
+    fused_rgb = None
+    if fuse_rgb:
+      # K10: the colour epilogue runs after the rgb head, in the trunk.
+      fuse['rgb_epilogue'] = (fh['diffuse'], fh['tint'], c.rgb_premultiplier,
+                              c.rgb_bias, c.rgb_padding)
+      raw_rgb, fused_rgb = self._directional(segs, **fuse)
+      fused_rgb = fused_rgb.reshape(*lead, 3)
+    else:
+      raw_rgb = self._directional(segs, **fuse)
+    return raw_rgb.reshape(*lead, c.num_rgb_channels), fused_rgb
+
   def forward(self, gaussians, viewdirs: Optional[torch.Tensor] = None,
               train: bool = False, delta: Optional[torch.Tensor] = None,
               lifted=None):
@@ -351,10 +431,14 @@ class MLP(nn.Module):
       raise NotImplementedError(
           'density_noise / bottleneck_noise > 0 draw noise from an rng; '
           'stochastic training is not ported (ROADMAP queue 1, item 14)')
-    if viewdirs is None and not c.disable_rgb:
-      raise NotImplementedError(
-          'use_viewdirs=False needs the trunk-features output (K11)')
-    rgb_heads = not c.disable_rgb
+    if not c.disable_rgb and (viewdirs is None) == self.use_viewdirs:
+      raise ValueError(
+          f'an MLP built with use_viewdirs={self.use_viewdirs} was called '
+          f'{"without" if viewdirs is None else "with"} view directions')
+    # Without view directions the rgb head reads the trunk's features (K11,
+    # mlp.py:277, :295).
+    rgb_heads = not c.disable_rgb and viewdirs is not None
+    need_y = not c.disable_rgb and viewdirs is None
     if delta is not None and not (
         c.fuse_compositing and c.density_noise == 0
         and self.density_activation is F.softplus and delta.shape[-1] > 0
@@ -374,8 +458,8 @@ class MLP(nn.Module):
           'model must gate cast_rays_lifted on the same predicate')
     else:
       lm, lv = lifted
-    raw_density, fh, normals = self._spatial(lm, lv, rgb_heads,
-                                             compute_density_normals, delta)
+    y, raw_density, fh, normals = self._spatial(
+        lm, lv, rgb_heads, compute_density_normals, delta, need_y)
 
     normals_pred = grad_pred = None
     normals_to_use = normals
@@ -386,60 +470,23 @@ class MLP(nn.Module):
 
     roughness = 0.0
     tint = diffuse = specular = None
+    fuse_rgb = False
     if c.disable_rgb:
       rgb = torch.zeros_like(means)
     else:
-      if c.use_specular_tint:
-        tint = torch.sigmoid(fh['tint'])
-      if c.enable_pred_roughness:
-        roughness = self.roughness_activation(fh['roughness'] + c.roughness_bias)
-
-      lead = means.shape[:-1]
-      n = math.prod(lead)
-      fuse_ide, fuse_geo, fuse_rgb = self._dir_fusions()
-      segs = []
-      if c.bottleneck_width > 0:
-        segs.append(fh['bottleneck'].reshape(n, -1))
-      vb = viewdirs[..., None, :].expand(means.shape)
-      fuse = {}
-      if fuse_ide:
-        # K8/K9: the raw inputs of the IDE go in; the 2P-wide encoding
-        # never leaves the trunk (mlp.py:526-597).
-        kappa_inv = (roughness if c.enable_pred_roughness
-                     else torch.zeros_like(means[..., :1]))
-        fuse = dict(ide_deg=c.deg_view, ide_at=len(segs), ide_geo=fuse_geo)
-        if fuse_geo:
-          segs.append((grad_pred.reshape(n, 3), vb.reshape(n, 3),
-                       kappa_inv.reshape(n, 1)))
-        else:
-          dirs = (ref_utils.reflect(-vb, normals_to_use) if c.use_reflections
-                  else vb)
-          segs.append((dirs.reshape(n, 3), kappa_inv.reshape(n, 1)))
-          if c.use_n_dot_v:
-            segs.append(torch.sum(normals_to_use * vb, dim=-1,
-                                  keepdim=True).reshape(n, 1))
+      if viewdirs is None:
+        # The rgb head on y, outside the trunk: flax's Dense promotes the
+        # compute-dtype y and its f32 parameters to f32 (mlp.py:652-653).
+        raw_rgb = self.rgb(y.float())
       else:
-        if c.use_reflections:
-          # viewdirs point camera->point; flip so refdirs point outward.
-          dir_enc = self.dir_enc_fn(ref_utils.reflect(-vb, normals_to_use),
-                                    roughness)
-        else:
-          dir_enc = self.dir_enc_fn(vb, roughness)
-        dir_enc = dir_enc.to(fused_mlp.DTYPES[c.compute_dtype])
-        if c.use_n_dot_v:
-          # n.v rides as one extra plane on the encoding segment (mlp.py:584).
-          dotprod = torch.sum(normals_to_use * vb, dim=-1, keepdim=True)
-          dir_enc = torch.cat([dir_enc, dotprod.to(dir_enc.dtype)], dim=-1)
-        segs.append(dir_enc.reshape(n, -1))
-      if fuse_rgb:
-        # K10: the colour epilogue runs after the rgb head, in the trunk.
-        fuse['rgb_epilogue'] = (fh['diffuse'], fh['tint'],
-                                c.rgb_premultiplier, c.rgb_bias,
-                                c.rgb_padding)
-        raw_rgb, fused_rgb = self._directional(segs, **fuse)
-      else:
-        raw_rgb = self._directional(segs, **fuse)
-      raw_rgb = raw_rgb.reshape(*lead, c.num_rgb_channels)
+        if c.use_specular_tint:
+          tint = torch.sigmoid(fh['tint'])
+        if c.enable_pred_roughness:
+          roughness = self.roughness_activation(
+              fh['roughness'] + c.roughness_bias)
+        raw_rgb, fused_rgb = self._view_rgb(means, viewdirs, fh, grad_pred,
+                                            normals_to_use, roughness)
+        fuse_rgb = fused_rgb is not None
       rgb = self.rgb_activation(c.rgb_premultiplier * raw_rgb + c.rgb_bias)
 
       if c.use_diffuse_color:
@@ -465,7 +512,7 @@ class MLP(nn.Module):
       if fuse_rgb:
         # The epilogue, padding included, ran in the trunk; the chain above
         # gives only the diffuse and specular extras (mlp.py:681-684).
-        rgb = fused_rgb.reshape(*lead, 3)
+        rgb = fused_rgb
       else:
         # Map colour to [-rgb_padding, 1 + rgb_padding].
         rgb = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding

@@ -1,9 +1,12 @@
-"""Ray-distance warps and the basis lift (counterpart of refnerf_tpu/ops/coord.py).
+"""Ray-distance warps, the basis lift and the positional encoding
+(counterpart of refnerf_tpu/ops/coord.py).
 
 Only the identity warp (`raydist_fn=None`, coord.py:67-93) is ported.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,3 +29,16 @@ def lift_and_diagonalize(mean, cov, basis):
   fn_mean = torch.matmul(mean, basis)
   fn_cov_diag = torch.sum(basis * torch.matmul(cov, basis), dim=-2)
   return fn_mean, fn_cov_diag
+
+
+def pos_enc(x, min_deg, max_deg, append_identity=True):
+  """The NeRF positional encoding (coord.py:134-143): sin of the scaled
+  coordinates and of them shifted by pi/2 (the cosines, written as JAX
+  writes them so that they round alike), degree-major, basis-minor, after
+  x itself with `append_identity`."""
+  scales = 2.0**torch.arange(min_deg, max_deg, dtype=x.dtype, device=x.device)
+  scaled = (x[..., None, :] * scales[:, None]).reshape(*x.shape[:-1], -1)
+  four_feat = torch.sin(torch.cat([scaled, scaled + 0.5 * math.pi], dim=-1))
+  if append_identity:
+    return torch.cat([x, four_feat], dim=-1)
+  return four_feat

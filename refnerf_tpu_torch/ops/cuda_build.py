@@ -37,12 +37,12 @@ EXPORTS = {
         # (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
         #  wd, wh, bh, hf, wc, bc, fold, nb, sig, hout, cout, u,
         #  g, v, k, ide_p, lmax, geo, mat, sg, gm, rawd, rawt, rgb,
-        #  premult, rbias, pad, lm, lv, delta, bsig, samples, wts, stream)
+        #  premult, rbias, pad, lm, lv, delta, bsig, samples, wts, y, stream)
         'refnerf_trunk_fwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                               _P, _P, _P, _P,
                               _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                              _F, _F, _F, _P, _P, _P, _P, _I, _P, _P],
+                              _F, _F, _F, _P, _P, _P, _P, _I, _P, _P, _P],
         'refnerf_trunk_supports': [_I, _I],
     },
     'trunk_bwd': {
@@ -51,14 +51,14 @@ EXPORTS = {
         #  dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
         #  g, v, k, ide_p, lmax, geo, mat, sg, gm, ddg, ddk,
         #  rawd, rawt, rgb_bar, drawd, drawt, premult, rbias, pad,
-        #  lm, lv, delta, bsig, sig, wbar, samples, stream)
+        #  lm, lv, delta, bsig, sig, wbar, samples, ybar, stream)
         'refnerf_trunk_bwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                               _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                               _P, _P, _P, _P, _I,
                               _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _F, _F, _F,
-                              _P, _P, _P, _P, _P, _P, _I, _P],
+                              _P, _P, _P, _P, _P, _P, _I, _P, _P],
         # (dtype, M, N, ncut, rp, ksplit, z, a, x, s, pa, tx, out, stream)
         'refnerf_wgrad': [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P],

@@ -19,6 +19,9 @@ one `torch.autograd.Function`:
   :829-831) and the compositing weights after the density head (K6,
   `weights`: `_epilogue_fwd` :498, backward :719-741). Their plain versions
   are `ipe_trig` and `composite_weights` / `composite_weights_backward`.
+  With `out_y` the forward also returns the trunk's last activation y in
+  the compute dtype and the backward takes its cotangent (K11, :617,
+  :629-630, :717-718), as mip-NeRF without view directions needs.
 - `DirectionalTrunk` (`fused_trunk`, :1178): the trunk over [bottleneck,
   IDE + n.v] and the f32 rgb head (K2); its backward (K5) also returns each
   segment's cotangent in the segment's dtype (`needs_dx`, :1009-1015).
@@ -33,9 +36,9 @@ Both backwards are `once_differentiable`: autograd never differentiates
 through a kernel, and the second-order terms of u come out of the one
 backward pass, as in the Pallas contract.
 
-Kernels (`csrc/trunk_fwd.cu`: K1-K3, K6-K10; `csrc/trunk_bwd.cu`: K4-K10)
-run for
-CUDA tensors unless `mode='off'`. A CPU tensor or `mode='off'` takes the
+Kernels (`csrc/trunk_fwd.cu`: K1-K3, K6-K11; `csrc/trunk_bwd.cu`: K4-K11),
+at width 256 and, for the directional trunk, 128, run for CUDA tensors
+unless `mode='off'`. A CPU tensor or `mode='off'` takes the
 plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
 
@@ -78,9 +81,10 @@ _KSPLIT = 1024  # samples per partial sum of the weight-gradient kernel
 # fused spatial stages also counts under each stage it runs: K6 the
 # compositing weights, K7 the IPE. A launch of K2 or K5 with fused
 # directional stages likewise: K8 the IDE, K9 the direction geometry, K10
-# the colour epilogue.
+# the colour epilogue. A launch of K1 or K4 with the trunk's features out
+# (y, and its cotangent back) also counts under K11.
 launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0, 'K6': 0, 'K7': 0,
-            'K8': 0, 'K9': 0, 'K10': 0}
+            'K8': 0, 'K9': 0, 'K10': 0, 'K11': 0}
 
 Head = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (weight [out, in], bias)
 
@@ -453,7 +457,7 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
                     density_grad: bool = False,
                     dir_modes: Optional[DirModes] = None, rgbx=None,
                     fold=None, spa_modes: Optional[SpaModes] = None,
-                    comp=None):
+                    comp=None, out_y: bool = False):
   """The plain version of the forward kernel, in the Pallas order (:612).
 
   Args:
@@ -475,13 +479,15 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
       gives it (K3).
     spa_modes: the fused spatial stages (K6, K7), or None.
     comp: with `spa_modes.samples`, (delta [n], bsig [1]) f32.
+    out_y: also return the trunk's last activation y (K11, :617, :629-630).
 
   Returns:
-    list [sigma [n]][, hf [n, hf]][, hc [n, hc]][, u_j [n, d_j] per segment,
-    or u [n, nb] with `fold`][, rgb [n, 3] f32 with the colour epilogue]
-    [, weights [n] f32 with the compositing epilogue]. Every step is a
-    differentiable torch op, so autograd through this function is an
-    independent reference for the backward.
+    list [y [n, width] in the compute dtype with `out_y`][, sigma [n]]
+    [, hf [n, hf]][, hc [n, hc]][, u_j [n, d_j] per segment, or u [n, nb]
+    with `fold`][, rgb [n, 3] f32 with the colour epilogue][, weights [n] f32
+    with the compositing epilogue]. Every step is a differentiable torch
+    op, so autograd through this function is an independent reference for
+    the backward.
   """
   cdt = DTYPES[compute_dtype]
   act = torch.relu if activation is None else activation
@@ -495,10 +501,12 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
   t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
   acts = _forward_acts(t, segs, act)
   h = acts[-1]
-  outs = []
+  outs = [h] if out_y else []
   y32 = h.float()
+  sig = None
   if wd is not None:
-    outs.append(y32 @ wd.float().reshape(-1))
+    sig = y32 @ wd.float().reshape(-1)
+    outs.append(sig)
   if head_f32 is not None:
     wh, bh = head_f32
     hval = y32 @ wh.float().t() + bh.float()
@@ -519,7 +527,7 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     outs.append(rgb_epilogue(hval, rgbx[0].float(), rgbx[1].float(),
                              *dm.rgbe))
   if sp.samples:
-    outs.append(composite_weights(outs[0], comp[0], comp[1], sp.samples))
+    outs.append(composite_weights(sig, comp[0], comp[1], sp.samples))
   return outs
 
 
@@ -530,7 +538,7 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
                              dir_modes: Optional[DirModes] = None, rgbx=None,
                              rgb_bar=None,
                              spa_modes: Optional[SpaModes] = None,
-                             comp=None):
+                             comp=None, ybar=None):
   """The plain version of the backward kernel, step by step in the Pallas
   order (`_bwd_kernel` :668-853), not by autograd.
 
@@ -550,6 +558,9 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
       is zero). Its pull-back through the epilogue (autograd of
       `rgb_epilogue`, as the Pallas kernel takes jax.vjp, :752-764) adds to
       the head's cotangent.
+    ybar: the cotangent of y [n, width] (K11, `trunk_reference`'s out_y),
+      or None. It enters y's cotangent first, in the compute dtype, ahead of
+      the heads' (:717-718).
 
   Returns:
     (dws, dbs, dwd, dwh, dbh, dwc, dbc, dxs, drgbx, dbsig): f32 gradients
@@ -588,6 +599,8 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
   # Head backward: the cotangent g on y and the head gradients (:714-775).
   dwd = dwh = dbh = dwc = dbc = None
   g = torch.zeros_like(y)
+  if ybar is not None:
+    g = g + ybar.to(cdt)
   g32 = None
   if wd is not None:
     sb = y32.new_zeros(n) if sbar is None else sbar.float()
@@ -770,8 +783,35 @@ def _library(name: str, pack: TrunkPack, hc: int):
                                                                  hc):
     raise NotImplementedError(
         f'no trunk kernel instance for width {pack.width} and compute-dtype '
-        f'head {hc} (built: width 256, head 0 or 128)')
+        f'head {hc} (built: width 256, head 0 or 128; width 128, head 0)')
   return cuda_build.library(name)
+
+
+def _instance_guard(pack: TrunkPack, hc, fold, dm: DirModes, sp: SpaModes,
+                    y: bool):
+  """Refuses, before anything is built or launched, what mip-NeRF's
+  instances do not run. K11 (y out, ybar in) runs in an instance of its
+  own: the spatial trunk at width 256 without the compute-dtype head, the
+  density gradient (K3) or a fused stage (K6-K10). Width 128 runs only the
+  plain directional trunk (K2, K5): no density head, density gradient or
+  fused stage."""
+  fused = (('the density gradient (K3)', fold is not None),
+           ('the compositing weights (K6)', sp.samples),
+           ('the in-kernel IPE (K7)', sp.scales),
+           ('a fused directional stage (K8-K10)', dm.ide_deg or dm.rgbe))
+  if y:
+    what = 'the trunk-features output (K11)'
+    modes = ((f'width {pack.width}', pack.width != 256),
+             (f'the compute-dtype head ({hc})', hc)) + fused
+  elif pack.width == 128:
+    what = 'the width-128 trunk'
+    modes = (('the density head', pack.wd is not None),) + fused
+  else:
+    return
+  off = [name for name, on in modes if on]
+  if off:
+    raise NotImplementedError(
+        f'{what} has no kernel with ' + ', '.join(off) + ' (ROADMAP queue 2)')
 
 
 def _check_launch(err, what):
@@ -956,14 +996,16 @@ def _launch_inputs(segs, pack: TrunkPack, dm: DirModes, sp: SpaModes, comp,
 def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
                  fold: Optional[torch.Tensor] = None,
                  dir_modes: Optional[DirModes] = None, rgbx=None,
-                 spa_modes: Optional[SpaModes] = None, comp=None):
+                 spa_modes: Optional[SpaModes] = None, comp=None,
+                 out_y: bool = False):
   """Launch the CUDA forward kernel; outputs as `trunk_reference` returns
   them with `fold` ([F, nb] f32, two IPE segments): the density gradient
   comes out folded, u [n, nb] f32 (K3). `dir_modes` and `rgbx` (K8-K10),
-  `spa_modes` and `comp` (K6, K7) as for trunk_reference."""
+  `spa_modes` and `comp` (K6, K7), `out_y` (K11) as for trunk_reference."""
   dm = dir_modes or DirModes()
   sp = spa_modes or SpaModes()
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  _instance_guard(pack, hc, fold, dm, sp, out_y)
   lib = _library('trunk_fwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
   ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
@@ -985,6 +1027,7 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
   rawd, rawt, (premult, rbias, pad) = _rgbe_inputs(dm, rgbx, pack, n)
   rgb = torch.empty(n, 3, device=dev) if rawd is not None else None
   wts = torch.empty(n, device=dev) if si.samples else None
+  y = torch.empty(n, pack.width, device=dev, dtype=cdt) if out_y else None
   mat, sg, gm = ki.tables
   with torch.cuda.device(dev):
     err = lib.refnerf_trunk_fwd(
@@ -997,19 +1040,19 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
         ki.p, ki.lmax, int(ki.geo), _ptr(mat), _ptr(sg), _ptr(gm),
         _ptr(rawd), _ptr(rawt), _ptr(rgb), premult, rbias, pad,
         _ptr(si.lm), _ptr(si.lv), _ptr(si.delta), _ptr(si.bsig), si.samples,
-        _ptr(wts), torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(wts), _ptr(y), torch.cuda.current_stream(dev).cuda_stream)
   _check_launch(err, 'trunk forward kernel')
-  return [t for t in (sig, hout, cout, u, rgb, wts) if t is not None]
+  return [t for t in (y, sig, hout, cout, u, rgb, wts) if t is not None]
 
 
 def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
                           needs_dx=False, slab=BWD_SLAB,
                           dir_modes: Optional[DirModes] = None, rgbx=None,
                           rgb_bar=None, spa_modes: Optional[SpaModes] = None,
-                          comp=None):
+                          comp=None, ybar=None):
   """Launch the CUDA backward kernels (K4, K5; K8-K10 with `dir_modes`, K6
-  and K7 with `spa_modes`); returns what `trunk_backward_reference`
-  returns.
+  and K7 with `spa_modes`, K11 with `ybar`); returns what
+  `trunk_backward_reference` returns.
 
   Per slab of samples: the per-tile kernel recomputes the trunk and runs the
   inner chain, the head backward, the first-order reverse and (with the
@@ -1023,6 +1066,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   sp = spa_modes or SpaModes()
   sbar, hbar, cbar, ubar, *wbar = cots
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  _instance_guard(pack, hc, fold, dm, sp, ybar is not None)
   lib = _library('trunk_bwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
   seg_dtypes = [s.dtype for s in segs]
@@ -1056,6 +1100,8 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   ubar = rows_of(ubar, nb) if dg else None
   cbar = (cbar.to(cdt).reshape(n, hc).contiguous()
           if cbar is not None and hc else None)
+  if ybar is not None:
+    ybar = ybar.to(cdt).reshape(n, W).contiguous()
   rawd, rawt, (premult, rbias, pad) = _rgbe_inputs(dm, rgbx, pack, n)
   rgbe = rawd is not None
   if rgbe:
@@ -1130,7 +1176,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
           at(drawd, start, 3), at(drawt, start, 3), premult, rbias, pad,
           at(si.lm, start, nb), at(si.lv, start, nb), at(si.delta, start, 1),
           _ptr(si.bsig), at(sig, start, 1), at(wb, start, 1), si.samples,
-          stream)
+          at(ybar, start, W), stream)
       _check_launch(err, 'trunk backward kernel')
       acc = int(start > 0)
       nsplit = -(-rp // _KSPLIT)
@@ -1189,7 +1235,7 @@ class _Spec(NamedTuple):
   kernel: bool                 # launch the CUDA kernels
   pack: Optional[TrunkPack]
   fold: Optional[torch.Tensor]  # [F, nb]: emit u (spatial)
-  has: Tuple[bool, ...]        # wd, head_f32, head_cdt present
+  has: Tuple[bool, ...]        # y (K11), wd, head_f32, head_cdt present
   needs_dx: bool
   dir_modes: DirModes = DirModes()
   spa_modes: SpaModes = SpaModes()
@@ -1199,8 +1245,8 @@ def _unflatten(spec: _Spec, params):
   L = spec.depth
   ws, bs = list(params[:L]), list(params[L:2 * L])
   wd, wh, bh, wc, bc = params[2 * L:]
-  return ws, bs, wd, (wh, bh) if spec.has[1] else None, \
-      (wc, bc) if spec.has[2] else None
+  return ws, bs, wd, (wh, bh) if spec.has[2] else None, \
+      (wc, bc) if spec.has[3] else None
 
 
 def _count(which, spec: _Spec):
@@ -1208,7 +1254,7 @@ def _count(which, spec: _Spec):
   launches[which] += 1
   dm, sp = spec.dir_modes, spec.spa_modes
   for k, on in (('K6', sp.samples), ('K7', sp.scales), ('K8', dm.ide_deg),
-                ('K9', dm.geo), ('K10', dm.rgbe)):
+                ('K9', dm.geo), ('K10', dm.rgbe), ('K11', spec.has[0])):
     if on:
       launches[k] += 1
 
@@ -1216,7 +1262,7 @@ def _count(which, spec: _Spec):
 def _forward(spec: _Spec, segs, params, which, rgbx=None, comp=None):
   ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
   kw = dict(dir_modes=spec.dir_modes, rgbx=rgbx, spa_modes=spec.spa_modes,
-            comp=comp)
+            comp=comp, out_y=spec.has[0])
   if spec.kernel:
     outs = trunk_kernel(segs, spec.pack, spec.fold, **kw)
     _count(which, spec)
@@ -1233,13 +1279,13 @@ def _backward(spec: _Spec, segs, params, grads, which, rgbx=None, comp=None):
   cotangents."""
   ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
   grads = list(grads)
-  cots = [grads.pop(0) if h else None for h in spec.has]
+  ybar, *cots = [grads.pop(0) if h else None for h in spec.has]
   ubar = grads.pop(0) if spec.fold is not None else None
   rgb_bar = grads.pop(0) if spec.dir_modes.rgbe is not None else None
   wbar = grads.pop(0) if spec.spa_modes.samples else None
   cots = (*cots, ubar, wbar)
   kw = dict(dir_modes=spec.dir_modes, rgbx=rgbx, rgb_bar=rgb_bar,
-            spa_modes=spec.spa_modes, comp=comp)
+            spa_modes=spec.spa_modes, comp=comp, ybar=ybar)
   if spec.kernel:
     res = trunk_backward_kernel(segs, spec.pack, cots, spec.fold,
                                 spec.needs_dx, **kw)
@@ -1263,11 +1309,12 @@ def _backward(spec: _Spec, segs, params, grads, which, rgbx=None, comp=None):
 
 class SpatialTrunk(torch.autograd.Function):
   """The spatial trunk: forward K1 (K3 with the density gradient), backward
-  K4; with the spec's SpaModes also K6 and K7 in both. Inputs (spec, a, b,
-  delta, bsig, *params): (a, b) the IPE segments (xs, xc), or with K7 the
-  lifted means and variances (lm, lv), which take no gradient; delta [n]
-  and bsig [1] with K6, else None, of which bsig takes a gradient. K6's
-  backward reads the forward's sigma, saved here."""
+  K4; with the spec's SpaModes also K6 and K7 in both, with y out (the
+  spec's has[0]) also K11. Inputs (spec, a, b, delta, bsig, *params): (a,
+  b) the IPE segments (xs, xc), or with K7 the lifted means and variances
+  (lm, lv), which take no gradient; delta [n] and bsig [1] with K6, else
+  None, of which bsig takes a gradient. K6's backward reads the forward's
+  sigma, saved here."""
 
   @staticmethod
   def forward(ctx, spec, a, b, delta, bsig, *params):
@@ -1275,7 +1322,8 @@ class SpatialTrunk(torch.autograd.Function):
     outs = _forward(spec, [a, b], params,
                     'K1' if spec.fold is None else 'K3', comp=comp)
     ctx.spec = spec
-    ctx.save_for_backward(a, b, *(comp + (outs[0],) if comp else ()),
+    sig = outs[int(spec.has[0])]
+    ctx.save_for_backward(a, b, *(comp + (sig,) if comp else ()),
                           *[p for p in params if p is not None])
     ctx.present = [p is not None for p in params]
     return tuple(outs)
@@ -1340,7 +1388,8 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
                         head_cdt: Optional[Head] = None,
                         compute_dtype='float32', mode='auto',
                         activation=None, pack: Optional[TrunkPack] = None,
-                        in_kernel_trig=False, delta=None, act_bias=0.0):
+                        in_kernel_trig=False, delta=None, act_bias=0.0,
+                        out_y=False):
   """K1/K3 forward, K4 backward: the IPE trunk of lifted means/vars
   lm, lv [..., nb] (:1326). lm and lv enter detached (:1396-1397).
 
@@ -1354,10 +1403,12 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
   then also emit the compositing weights of
   sigma = softplus(raw + bd + act_bias) (:1352-1360). delta takes no
   gradient; bd takes the weights' through bsig = bd + act_bias, a device
-  tensor.
+  tensor. `out_y` (K11): also return the trunk's last activation y, in the
+  compute dtype; its cotangent enters the backward.
 
-  Returns (sigma [...], [h_f32 [..., hf],] [h_cdt [..., hc],] [u [..., nb],]
-  [weights [...]]), sigma with `bd` added (:1460), u = d sigma / d lm with
+  Returns ([y [..., width],] sigma [...], [h_f32 [..., hf],]
+  [h_cdt [..., hc],] [u [..., nb],] [weights [...]]), in the Pallas order
+  (:1456-1472), sigma with `bd` added (:1460), u = d sigma / d lm with
   `density_grad`.
   """
   lead = lm.shape[:-1]
@@ -1379,7 +1430,8 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
     outs = trunk_reference(list(encode_ipe(lm2, lv2, scales, compute_dtype)),
                            weights, biases, skip_period=skip_period,
                            wd=wd, head_f32=head_f32, head_cdt=head_cdt,
-                           compute_dtype=compute_dtype, activation=activation)
+                           compute_dtype=compute_dtype, activation=activation,
+                           out_y=out_y)
   else:
     spa = SpaModes(tuple(float(s) for s in scales) if in_kernel_trig else (),
                    0 if delta is None else int(delta.shape[-1]))
@@ -1400,12 +1452,14 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
               else bd.float().reshape(1)) + float(act_bias)
     spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
                  pack if kernel else None, fold,
-                 (wd is not None, head_f32 is not None, head_cdt is not None),
+                 (bool(out_y), wd is not None, head_f32 is not None,
+                  head_cdt is not None),
                  False, spa_modes=spa)
     outs = list(SpatialTrunk.apply(spec, *segs, dcol, bsig, *params))
   wts = outs.pop() if delta is not None else None
+  res = [outs.pop(0).reshape(*lead, -1)] if out_y else []
   sig = outs[0] if bd is None else outs[0] + bd.float()
-  res = [sig.reshape(lead)]
+  res.append(sig.reshape(lead))
   res += [o.reshape(*lead, o.shape[-1]) for o in outs[1:]]
   if wts is not None:
     res.append(wts.reshape(lead))
@@ -1460,8 +1514,8 @@ def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,
                         skip_period=skip_period, head_f32=head_f32,
                         compute_dtype=compute_dtype)
     spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
-                 pack if kernel else None, None, (False, True, False), True,
-                 dm)
+                 pack if kernel else None, None, (False, False, True, False),
+                 True, dm)
     outs = DirectionalTrunk.apply(spec, len(flat), *flat, *params, *rgbx)
   outs = [o.reshape(*lead, o.shape[-1]) for o in outs]
   return outs[0] if len(outs) == 1 else tuple(outs)

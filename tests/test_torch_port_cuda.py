@@ -1,8 +1,9 @@
 """The CUDA trunk kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips elsewhere:
-K1-K5, K6 and K7 (the fused spatial stages) and K8-K10 (the fused
-directional stages) in both directions. This
+K1-K5, K6 and K7 (the fused spatial stages), K8-K10 (the fused
+directional stages) and mip-NeRF's K11 (the trunk's features out) and
+128-wide directional trunk, in both directions. This
 file imports no jax, so it also runs where jax is not installed; there, skip
 tests/conftest.py (it imports jax):
 
@@ -17,7 +18,9 @@ per-layer bf16 rounding flip of 2^-8, carried by later layers). Derivatives
 of 0 flips a relu' mask and moves its sample's derivative by ~10%. K6's
 compositing weights (f32, each below 1): max |kernel - plain| <= 1e-5 in
 float32 and 5e-3 in bfloat16, absolute, below what an inclusive scan or a
-dropped density bias reads on the same inputs (checked too).
+dropped density bias reads on the same inputs (checked too). K11's y
+(compute dtype): |kernel - plain|_2 / |plain|_2 <= 1e-5 in float32 and
+1e-2 in bfloat16, below what a dropped last bias reads (checked too).
 TF32 is off for the plain versions.
 """
 
@@ -38,6 +41,7 @@ from refnerf_tpu_torch.train import step as step_lib
 BOUND = {'float32': 1e-4, 'bfloat16': 5e-2}
 GRAD_BOUND = {'float32': 5e-3, 'bfloat16': 5e-2}
 WEIGHT_BOUND = {'float32': 1e-5, 'bfloat16': 5e-3}
+Y_BOUND = {'float32': 1e-5, 'bfloat16': 1e-2}
 GIN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    'configs', 'blender_refnerf.gin')
 SCALES = 2.0**np.arange(0, 16)  # the flagship's IPE degrees
@@ -52,25 +56,38 @@ def dev():
   return torch.device('cuda')
 
 
-def _case(which, dev, n=1000, seed=0, width=256):
-  """Flagship widths: K1 segments (48, 48), heads 10 + 128; K2 (128, 73), 3.
-  n = 1000 rows is not a multiple of the kernel's 64-row tile. The K1
-  segments are the IPE encoding of random lifted means and variances."""
+# (segment widths, width, f32 head outputs, compute-dtype head outputs,
+# density head): the flagship's spatial (K1) and directional (K2) trunks;
+# mip-NeRF's spatial trunk without heads but the density (K11) and its
+# directional trunk at width 128 on [bottleneck 128 | positional encoding
+# 33] (mip K2).
+TRUNKS = {'K1': ((48, 48), 256, 10, 128, True),
+          'K2': ((128, 73), 256, 3, 0, False),
+          'K11': ((48, 48), 256, 0, 0, True),
+          'mip K2': ((128, 33), 128, 3, 0, False)}
+
+
+def _case(which, dev, n=1000, seed=0, width=None):
+  """The trunk TRUNKS[which] (8 layers, skip at 5; `width` overrides its
+  width). n = 1000 rows is not a multiple of the kernel's 64-row tile. The
+  (48, 48) segments are the IPE encoding of random lifted means and
+  variances, the others uniform in [-1, 1]."""
   gen = torch.Generator().manual_seed(seed)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
-  seg_dims, hf, hc = ((48, 48), 10, 128) if which == 'K1' else ((128, 73), 3, 0)
+  seg_dims, w0, hf, hc, density = TRUNKS[which]
+  width = width or w0
   fin = sum(seg_dims)
   skips = fused_mlp.skip_input_layers(8, 4)
   ws = [rand(width, fin if l == 0 else width + (fin if l in skips else 0))
         for l in range(8)]
   ws = [w * math.sqrt(2 / w.shape[1]) for w in ws]
   bs = [rand(width) * 0.05 for _ in range(8)]
+  head = lambda k: (rand(k, width) / math.sqrt(width), rand(k) * 0.1)
   kw = dict(skip_period=4,
-            wd=rand(1, width) / math.sqrt(width) if which == 'K1' else None,
-            head_f32=(rand(hf, width) / math.sqrt(width), rand(hf) * 0.1),
-            head_cdt=((rand(hc, width) / math.sqrt(width), rand(hc) * 0.1)
-                      if hc else None))
-  if which == 'K1':
+            wd=rand(1, width) / math.sqrt(width) if density else None,
+            head_f32=head(hf) if hf else None,
+            head_cdt=head(hc) if hc else None)
+  if seg_dims == (48, 48):
     lm = torch.rand(n, 3, generator=gen).to(dev) * 3 - 1.5
     lv = 10.0**(torch.rand(n, 3, generator=gen).to(dev) * 4 - 6)
     segs = list(fused_mlp.encode_ipe(lm, lv, SCALES))
@@ -191,6 +208,14 @@ def test_kernel_refuses_what_it_does_not_model(dev):
   kw.pop('wd'), kw.pop('head_cdt')
   with torch.no_grad(), pytest.raises(NotImplementedError, match='width 64'):
     fused_mlp.fused_trunk(segs, ws, bs, **kw)
+  # Width 128 runs the plain directional trunk alone.
+  segs, ws, bs, kw = _case('K1', dev, n=8, width=128)
+  kw.pop('head_cdt')
+  with torch.no_grad(), pytest.raises(NotImplementedError,
+                                      match='width-128.*density head'):
+    fused_mlp.fused_encoded_trunk(
+        torch.zeros(8, 3, device=dev), torch.full((8, 3), 1e-4, device=dev),
+        SCALES, ws, bs, **kw)
 
 
 # The fused directional stages (K8 the IDE, K9 the direction geometry, K10
@@ -488,6 +513,118 @@ def test_model_with_all_fusions_matches_plain_path(dev):
     assert fused_mlp.launches[k] == before[k] + 2, k
   for k in ('K6', 'K7'):
     assert fused_mlp.launches[k] == before[k] + 4, k
+  model.nerf_mlp.cfg.fused_trunk = 'off'
+  with torch.no_grad():
+    plain = renderer.render_rays(model, rays, 128)
+  loss_off, _, grads_off = train.loss_and_grads(state, batch)
+  for k in out:
+    err = (out[k] - plain[k]).abs().max().item()
+    assert err <= BOUND['float32'], (k, err)
+  assert abs(loss.item() - loss_off.item()) <= 1e-4 * abs(loss_off.item())
+  for k in grads:
+    _assert_close([grads[k]], [grads_off[k]], 'float32', k, n_values=0)
+
+
+# mip-NeRF (configs/blender_mipnerf.gin): K11, the spatial trunk with its
+# features y out and their cotangent in (Model.use_viewdirs = False), and
+# the 128-wide directional trunk on [bottleneck 128 | positional encoding
+# 33] (K2, K5), as shipped.
+MIP_GIN = os.path.join(os.path.dirname(GIN), 'blender_mipnerf.gin')
+
+
+def _flat(r):
+  return [t for x in r for t in (x if isinstance(x, (list, tuple)) else [x])
+          if t is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_k11_matches_plain(dev, cdt):
+  # Forward: y (compute dtype) by relative L2 (Y_BOUND, below what a
+  # dropped last bias reads, checked too) and sigma as a value. Backward
+  # (slabs of 256 rows), given random cotangents of sigma and y: every
+  # parameter gradient as a derivative.
+  n = 1000
+  segs, ws, bs, kw = _case('K11', dev, n, seed=8)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  gen = torch.Generator().manual_seed(9)
+  cots = (torch.randn(n, generator=gen).to(dev), None, None, None)
+  ybar = torch.randn(n, 256, generator=gen).to(dev).to(fused_mlp.DTYPES[cdt])
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack, out_y=True)
+    want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt,
+                                     out_y=True, **kw)
+    gb = fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=256,
+                                         ybar=ybar)
+    wb = fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
+                                            compute_dtype=cdt, ybar=ybar, **kw)
+  torch.cuda.synchronize()
+  assert got[0].dtype == fused_mlp.DTYPES[cdt] and got[0].shape == (n, 256)
+  l2 = lambda a: ((a.float() - want[0].float()).norm()
+                  / want[0].float().norm()).item()
+  assert l2(got[0]) <= Y_BOUND[cdt], (l2(got[0]), Y_BOUND[cdt])
+  nobias = fused_mlp.trunk_reference(segs, ws, bs[:-1] + [bs[-1] * 0],
+                                     compute_dtype=cdt, out_y=True, **kw)[0]
+  assert l2(nobias) > Y_BOUND[cdt]
+  _assert_close(got[1:], want[1:], cdt, 'K11')
+  _assert_close(_flat(gb), _flat(wb), cdt, 'K11 backward', n_values=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_width_128_matches_plain(dev, cdt):
+  # K2 at width 128: the raw rgb as a value; K5 (slabs of 256 rows), given a
+  # random cotangent of it: every parameter gradient and both segments'
+  # cotangents as derivatives.
+  n = 1000
+  segs, ws, bs, kw = _case('mip K2', dev, n, seed=8)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (128, 33), compute_dtype=cdt, **kw)
+  assert pack.kin == 192
+  hbar = torch.randn(n, 3, generator=torch.Generator().manual_seed(10)).to(dev)
+  cots = (None, hbar, None, None)
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack)
+    want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt, **kw)
+    gb = fused_mlp.trunk_backward_kernel(segs, pack, cots, needs_dx=True,
+                                         slab=256)
+    wb = fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
+                                            compute_dtype=cdt, needs_dx=True,
+                                            **kw)
+  torch.cuda.synchronize()
+  _assert_close(got, want, cdt, 'K2 W128')
+  _assert_close(_flat(gb), _flat(wb), cdt, 'K5 W128', n_values=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('viewdirs', [True, False])
+def test_mipnerf_kernels_match_plain_path(dev, viewdirs):
+  # The gin at full width and 16 samples per level, f32, as shipped (K1, K2;
+  # K4, K5 at width 128) and without view directions (K1 and K4 with K11):
+  # a served request and one step's loss and gradients against
+  # fused_trunk='off', each kernel once per level.
+  config, gin = configs.parse(
+      [MIP_GIN], ['Model.num_prop_samples = 16', 'Model.num_nerf_samples = 16',
+                  'Config.sample_noise_size = 0']
+      + ([] if viewdirs else ['Model.use_viewdirs = False']))
+  model = construct.construct_model(config, gin, dev)
+  rays = _rays(100, dev)
+  before = dict(fused_mlp.launches)
+  with torch.no_grad():
+    out = renderer.render_rays(model, rays, 128)
+  for k in ('K1', 'K2') if viewdirs else ('K1', 'K11'):
+    assert fused_mlp.launches[k] == before[k] + 2, k
+  batch = rays_lib.Batch(rays=rays, rgb=torch.rand(100, 3, generator=torch
+                                                   .Generator().manual_seed(0)).to(dev))
+  state = step_lib.create_train_state(config, model)
+  train = step_lib.make_train_step(model, config)
+  before = dict(fused_mlp.launches)
+  loss, _, grads = train.loss_and_grads(state, batch)
+  for k in ('K1', 'K4') + (('K2', 'K5') if viewdirs else ()):
+    assert fused_mlp.launches[k] == before[k] + 2, k
+  if not viewdirs:
+    assert fused_mlp.launches['K11'] == before['K11'] + 4
   model.nerf_mlp.cfg.fused_trunk = 'off'
   with torch.no_grad():
     plain = renderer.render_rays(model, rays, 128)

@@ -257,10 +257,14 @@ def test_render_rays_pads_onto_the_chunk(params):
 
 
 def test_unported_paths_are_refused():
-  with pytest.raises(NotImplementedError):
-    _port_model(_bindings() + ['NerfMLP.use_directional_enc = False'])
+  with pytest.raises(NotImplementedError, match='raydist_fn'):
+    _port_model(_bindings() + ['Model.raydist_fn = @jnp.reciprocal'])
   with pytest.raises(NotImplementedError):
     _port_model(_bindings() + ['Model.dilation_bias = 0.0025'])
+  # As the JAX MLP (mlp.py:469-475): no diffuse colour without view
+  # directions.
+  with pytest.raises(ValueError, match='use_diffuse_color'):
+    _port_model(_bindings() + ['Model.use_viewdirs = False'])
   with pytest.raises(ValueError, match='batch_sizee'):
     configs.parse([GIN], ['Config.batch_sizee = 2'])
   config, _ = configs.parse([GIN], [])
