@@ -8,7 +8,10 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit:
 
 Phases, each printed on its own line:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels of refnerf_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels of refnerf_tpu_torch/csrc with nvcc; print each
+     kernel's registers and spills, and check that every kernel of the
+     bf16 width-256 backward (csrc/trunk_bwd_tma.cu) holds wgmma (HGMMA)
+     and TMA loads (UTMALDG) and no mma.sync (HMMA) in its SASS;
   3. hold each trunk kernel (K1 spatial, K2 directional) against its plain
      PyTorch version at the serving shape N = 4096 rays x 128 samples, in
      float32 and bfloat16, and time both;
@@ -22,7 +25,8 @@ Phases, each printed on its own line:
      density gradient) on every output and u, K4 (the spatial backward) on
      every weight and bias gradient given random cotangents of sigma, the
      heads, the bottleneck and u, K5 (the directional backward) on every
-     parameter gradient and both segment cotangents;
+     parameter gradient and both segment cotangents; K4 and K5 in bf16 run
+     twice more and must give bit-identical gradients;
   6. train the flagship at batch 4096 with bf16 trunks as bench.py drives the
      JAX step (3 warm-up steps, then 10 timed ones); check every loss term is
      finite, the parameters moved, and K2-K5 each ran levels x steps times;
@@ -42,8 +46,9 @@ Phases, each printed on its own line:
      same N, in float32 and bfloat16, and time both: K7 (the IPE made in
      the kernel) on K1 and on K3, K6 (the compositing weights) on K3, and
      K6+K7 on K1 (the served launch), on K3 and on K4 (the backward, with
-     d bsig); the weights within an absolute bound that two faults of the
-     scan (inclusive, no density bias) would exceed;
+     d bsig), and on mip-NeRF's spatial trunk (hf = 0: served, and trained
+     in first-order K4); the weights within an absolute bound that two
+     faults of the scan (inclusive, no density bias) would exceed;
  10. the flagship with all six fuse flags (phase 8's and
      NerfMLP.fuse_ipe_trig, fuse_compositing, fuse_lift): three served
      requests and 10 train steps through the kernels (K6 and K7 each
@@ -76,6 +81,8 @@ code is not 0 and no result line is printed.
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -336,6 +343,23 @@ def n_heads(kw):
               if h is not None) + int(kw.get('wd') is not None))
 
 
+def check_sass(lib):
+  """Phase 2: each kernel of the wgmma/TMA library (the bf16 width-256
+  backward) holds wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
+  (HMMA) in its SASS (cuobjdump -sass), or this fails."""
+  tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+  sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                        text=True, check=True, timeout=300).stdout
+  for block in re.split(r'\n\s*Function : ', sass)[1:]:
+    name = block.split('\n', 1)[0]
+    counts = {op: len(re.findall(rf'\b{op}\b', block))
+              for op in ('HGMMA', 'UTMALDG', 'UTMASTG', 'HMMA')}
+    log(f'phase 2: SASS {name}: ' + ', '.join(
+        f'{op} {k}' for op, k in counts.items()))
+    if not counts['HGMMA'] or not counts['UTMALDG'] or counts['HMMA']:
+      raise AssertionError(f'{name}: not a wgmma + TMA kernel: {counts}')
+
+
 def check_kernels(fused_mlp, dev):
   """Phase 3: each kernel against its plain version, f32 and bf16."""
   gen = torch.Generator().manual_seed(SEED)
@@ -353,6 +377,19 @@ def check_kernels(fused_mlp, dev):
           inputs=segs + pack_tensors(pack),
           flops=trunk_flops(ws, N_SAMPLES, n_heads(kw)))
   return results
+
+
+def deterministic(which, kernel):
+  """Phase 5 (H4): two runs of a backward on the same inputs give
+  bit-identical gradients (fixed-order sums, no float atomics), or this
+  fails."""
+  with torch.no_grad():
+    a, b = flatten(kernel()), flatten(kernel())
+  same = all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+  log(f'phase 5: {which} bfloat16: two runs bit-identical: {same} '
+      f'({len(a)} outputs)')
+  if not same:
+    raise AssertionError(f'{which}: the gradients differ between two runs')
 
 
 def random_rays(rays_lib, n, config, seed, dev):
@@ -555,6 +592,8 @@ def check_train_kernels(fused_mlp, dev):
             flops=trunk_flops(ws, N_SAMPLES, n_heads(kw),
                               density_grad=spatial, backward=True,
                               needs_dx=not spatial))
+        if cdt == 'bfloat16':
+          deterministic(which, kernel)
       del pack
     del segs, ws, bs, kw, cots
     torch.cuda.empty_cache()
@@ -866,14 +905,17 @@ def fused_stage(fused_mlp, dev):
 
 
 # Phase 9: (name, (IPE in the kernel, compositing, density gradient,
-# backward)) of each fused spatial mode. 'K6+K7' on K1 is the served
-# request's launch.
-SPA_CASES = (('K7', (True, False, False, False)),
-             ('K7+K3', (True, False, True, False)),
-             ('K6+K7', (True, True, False, False)),
-             ('K6+K3', (False, True, True, False)),
-             ('K6+K7+K3', (True, True, True, False)),
-             ('K6+K7+K4', (True, True, True, True)))
+# backward, trunk)) of each fused spatial mode. 'K6+K7' on K1 is the served
+# request's launch; the 'mip' cases are mip-NeRF's spatial trunk (hf = 0)
+# with the spatial fuse flags: served, and trained in first-order K4.
+SPA_CASES = (('K7', (True, False, False, False, 'K1')),
+             ('K7+K3', (True, False, True, False, 'K1')),
+             ('K6+K7', (True, True, False, False, 'K1')),
+             ('K6+K3', (False, True, True, False, 'K1')),
+             ('K6+K7+K3', (True, True, True, False, 'K1')),
+             ('K6+K7+K4', (True, True, True, True, 'K1')),
+             ('mip K6+K7', (True, True, False, False, 'mip K1')),
+             ('mip K6+K7+K4 first-order', (True, True, False, True, 'mip K1')))
 
 
 def spa_flops(enc, comp, dg, backward):
@@ -898,13 +940,14 @@ def spa_flops(enc, comp, dg, backward):
   return n * N_SAMPLES
 
 
-def spa_case(fused_mlp, gen, dev, enc, comp):
-  """The flagship spatial trunk (trunk_case 'K1') on N_SAMPLES rows of
+def spa_case(fused_mlp, gen, dev, enc, comp, trunk='K1'):
+  """The spatial trunk `trunk` (trunk_case 'K1', the flagship's, or 'mip
+  K1', mip-NeRF's) on N_SAMPLES rows of
   random lifted means and variances (lm in [-1.5, 1.5], lv in [1e-6,
   1e-2]), the segments (lm, lv) with K7, else their IPE; with K6 rays of
   SAMPLES rows, delta in [0.01, 0.09] (the flagship's t-intervals, 4 / 128,
   times |direction|) and bsig 0.5 (its density bias)."""
-  _, ws, bs, kw = trunk_case('K1', gen, dev)
+  _, ws, bs, kw = trunk_case(trunk, gen, dev)
   rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
   lm, lv = rand(N_SAMPLES, 3) * 3 - 1.5, 10.0**(rand(N_SAMPLES, 3) * 4 - 6)
   segs = [lm, lv] if enc else list(fused_mlp.encode_ipe(lm, lv, SCALES))
@@ -939,8 +982,9 @@ def check_spa_kernels(fused_mlp, dev):
   fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
   results = {}
-  for which, (enc, comp, dg, backward) in SPA_CASES:
-    segs, ws, bs, kw, sp, cp = spa_case(fused_mlp, gen, dev, enc, comp)
+  for which, (enc, comp, dg, backward, trunk) in SPA_CASES:
+    segs, ws, bs, kw, sp, cp = spa_case(fused_mlp, gen, dev, enc, comp, trunk)
+    hf = kw['head_f32'][0].shape[0] if kw['head_f32'] else 0
     f = fold if dg else None
     for cdt in ('float32', 'bfloat16'):
       cs = segs if enc else [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
@@ -949,24 +993,26 @@ def check_spa_kernels(fused_mlp, dev):
       f32_flops = spa_flops(enc, comp, dg, backward)
       kws = dict(spa_modes=sp, comp=cp)
       if not backward:
-        # sigma and the two heads are values, u a derivative, the weights
+        # sigma and the heads are values, u a derivative, the weights
         # (after u) held by WEIGHT_BOUND.
+        nv = 2 + int(hf > 0)
         plain = lambda: fused_mlp.trunk_reference(
             cs, ws, bs, compute_dtype=cdt, density_grad=dg, fold=f, **kws,
             **kw)
         results[which, cdt] = compare(
             which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, f, **kws),
-            plain, n_values=3, phase=9, inputs=inputs,
+            plain, n_values=nv, phase=9, inputs=inputs,
             flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), density_grad=dg),
-            f32_flops=f32_flops, weights=(4 if dg else 3) if comp else None)
+            f32_flops=f32_flops, weights=nv + int(dg) if comp else None)
         if comp:
           with torch.no_grad():
             weight_faults(fused_mlp, which, cdt, plain()[0], *cp)
         continue
       # Cotangents of (sigma, the f32 heads, the bottleneck, u, weights);
       # the forward's sigma from each side's own forward.
-      cots = (rand(N_SAMPLES), rand(N_SAMPLES, 10), rand(N_SAMPLES, 128),
-              rand(N_SAMPLES, 3), rand(N_SAMPLES))
+      cots = (rand(N_SAMPLES), rand(N_SAMPLES, hf) if hf else None,
+              rand(N_SAMPLES, 128), rand(N_SAMPLES, 3) if dg else None,
+              rand(N_SAMPLES))
       with torch.no_grad():
         sk = fused_mlp.trunk_kernel(cs, pack, f, **kws)[0]
         sr = fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt, **kws,
@@ -979,7 +1025,7 @@ def check_spa_kernels(fused_mlp, dev):
               cs, ws, bs, cots, compute_dtype=cdt, fold=f, spa_modes=sp,
               comp=cp + (sr,), **kw),
           n_values=0, iters=3, phase=9, inputs=inputs + list(cots) + [sk],
-          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), density_grad=True,
+          flops=trunk_flops(ws, N_SAMPLES, n_heads(kw), density_grad=dg,
                             backward=True),
           f32_flops=f32_flops)
       del pack, sk, sr
@@ -1191,8 +1237,10 @@ def main():
       f'{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)')
   for path in libs.values():
     for line in path.with_suffix('.log').read_text().splitlines():
-      if 'registers' in line or 'spill' in line or 'Compiling' in line:
+      if ('Used' in line or 'spill' in line or 'Compiling' in line) and (
+          'C75' not in line):
         log(f'phase 2: ptxas {line.strip()}')
+  check_sass(libs['trunk_bwd_tma'])
 
   kernels = check_kernels(fused_mlp, dev)
   launches = serve(fused_mlp, dev)
@@ -1209,6 +1257,7 @@ def main():
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
+  tma_src = 'refnerf_tpu_torch/csrc/trunk_bwd_tma.cu'  # bf16 at width 256
   dir_src = 'refnerf_tpu_torch/csrc/trunk_common.cuh'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
   # name: (description, source, line of the TPU kernel, launches on the
@@ -1220,8 +1269,8 @@ def main():
       'K2': ('directional trunk (fused_trunk)', fwd_src, 612, launches['K2']),
       'K3': ('spatial trunk with the density gradient', fwd_src, 589,
              train_launches['K3']),
-      'K4': ('spatial trunk backward', bwd_src, 668, train_launches['K4']),
-      'K5': ('directional trunk backward with dx', bwd_src, 668,
+      'K4': ('spatial trunk backward', tma_src, 668, train_launches['K4']),
+      'K5': ('directional trunk backward with dx', tma_src, 668,
              train_launches['K5']),
       'K6': ('in-kernel compositing weights (K3 fwd; K1, K4)', dir_src, 498,
              spa_serve['K6'] + spa_train['K6']),
@@ -1243,13 +1292,14 @@ def main():
       'K1 hf=0': ('spatial trunk with the bottleneck head alone', fwd_src,
                   612, mip_serve['K1'] + mip_train['K1']),
       'K4 first-order': ('spatial trunk backward without the cotangent of '
-                         'u', bwd_src, 668, mip_train['K4'])}
+                         'u', tma_src, 668, mip_train['K4'])}
   line = []
   # K6 and K7 stand for their phase-9 cases; each entry also lists the
   # others it runs in.
   main_case = {'K6': 'K6+K3', 'K7': 'K7'}
-  more_cases = {'K6': ('K6+K7', 'K6+K7+K3', 'K6+K7+K4'),
-                'K7': ('K7+K3', 'K6+K7', 'K6+K7+K3', 'K6+K7+K4')}
+  mip6 = ('mip K6+K7', 'mip K6+K7+K4 first-order')
+  more_cases = {'K6': ('K6+K7', 'K6+K7+K3', 'K6+K7+K4') + mip6,
+                'K7': ('K7+K3', 'K6+K7', 'K6+K7+K3', 'K6+K7+K4') + mip6}
   for which, (desc, src, at, count) in names.items():
     case = main_case.get(which, which)
     b16, f32 = kernels[case, 'bfloat16'], kernels[case, 'float32']
@@ -1262,6 +1312,8 @@ def main():
         'dtype': 'bfloat16', 'n_samples': N_SAMPLES,
         'f32_max_abs_err': f32['max_abs_err'], 'f32_ms': f32['ms'],
         'f32_plain_ms': f32['plain_ms'], 'f32_bound_ms': f32['bound_ms']}
+    if src == tma_src:
+      entry['f32_source'] = bwd_src
     if which in ('K8', 'K9', 'K10', 'K11'):
       entry['serve_launches'] = (y_serve if which == 'K11'
                                  else dir_serve)[which]

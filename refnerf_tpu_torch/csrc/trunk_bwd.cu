@@ -27,7 +27,10 @@
 //       the first term of y's cotangent, in an instance of its own (YO).
 // The directional trunk (K5) runs at width 256 and 128 (mip-NeRF), and the
 // spatial trunk (K4) also first order (no ū: mip-NeRF has no density
-// normals), in the instances K4 already has.
+// normals), in the instances K4 already has. bf16 at width 256 runs the
+// wgmma/TMA kernels of trunk_bwd_tma.cu (the same arguments) for trunks of
+// up to 8 layers and 256 input columns; this file's bf16 instances run the
+// deeper or wider ones (fused_mlp.tma_backward chooses by shape).
 //
 // What it computes, in the Pallas order and casts (fused_mlp.py :705-853):
 //   recompute h_l (and, with u, the inner chain s_l = relu'(h_l) q_l);
@@ -65,67 +68,26 @@
 // memory (L2-resident, 12 B a sample), scans each ray with one warp, and
 // keeps the cotangents of its own rows. A slab holds whole rays.
 //
-// Bound on the H100: at N = 524,288 samples the spatial backward is ~6
-// trunk passes (0.57 TFLOP each, `_make_op`'s own count), about 3.4 TFLOP, on
-// mma.sync (bf16) or FMA (f32); the scratch adds ~17 KB per sample written
-// and read back in bf16 (~9 GB at N = 524,288), a few ms at 3.35 TB/s. So
-// the tensor-core throughput bounds it. wgmma/TMA, and keeping the operands
-// out of device memory, are later work.
+// Bound on the H100: at N = 524,288 samples K4 with ū needs 3.2 TFLOP
+// (chip_smoke.py `trunk_flops`, product by product: the recompute, the
+// reverse of u, the first-order reverse and the tangent, and two weight-
+// gradient products), K5 1.8; in f32 on the FMA pipes that is 47 and 26 ms
+// at 67 TFLOP/s. The scratch adds ~17 KB (K4) and ~8.6 KB (K5) a sample,
+// written once and read about twice by wgrad_kernel (Z once per 128 output
+// columns, A once per 128 rows): ~27 and ~13.5 GB a launch in bf16, ~8 and
+// ~4 ms at 3.35 TB/s, and twice that in f32. The products bound f32. In
+// bf16 at width 256 (up to 8 layers and 256 input columns)
+// trunk_bwd_tma.cu runs the products on wgmma fed by TMA
+// and writes the operands sample-major for a wgmma weight-gradient product
+// that reads each from device memory about once (its design note).
 
-#include "trunk_common.cuh"
+#include "trunk_bwd_args.cuh"
+
+#define PHASE_SYNC() __syncthreads()  // closes a stamped segment (-DREFNERF_PHASES)
 
 namespace {
 
 constexpr int kTile = 128;  // output tile (rows x columns) of the weight-gradient product
-
-struct BwdParams {
-  const void* x0;   // [n][d0] segment 0 of this slab, compute dtype
-  const void* x1;   // [n][d1] segment 1 (d1 may be 0)
-  int d0, d1, n;
-  int kin;          // d0 + d1 rounded up to kKS
-  int depth, skip;  // skip: the layer fed [act | segments], or -1
-  const void* w;    // per layer [W][K_l], concatenated (the forward pack)
-  const void* wt;   // per layer [K_l][W] (W_l transposed), concatenated
-  const void* b;    // [depth][W]
-  const float* wd;  // [W] density head, or null
-  const float* wh;  // [hf][W] f32 head block, or null
-  const float* bh;  // [hf]
-  int hf;
-  const void* wct;    // [W][HC] compute-dtype head, transposed
-  const float* sbar;  // [n] cotangent of sigma, or null
-  const float* hbar;  // [n][hf] cotangent of the f32 heads, or null
-  const void* cbar;   // [n][HC] cotangent of the compute-dtype head, or null
-  const float* ubar;  // [n][nb] cotangent of u, or null (no second-order pass)
-  const float* fold;  // [d0][nb] scale fold S
-  int nb;
-  void* dx0;          // [n][d0] out, compute dtype, or null (no dx)
-  void* dx1;          // [n][d1] out
-  float* dxs;         // [rp][kin] f32 scratch: the skip layer's share of dx
-  int rp;             // scratch row stride: n rounded up to kRows
-  void* hs;           // [depth][W][rp] activations h_l
-  void* zs;           // [depth][W][rp] zeta_l
-  void* ss;           // [depth][W][rp] s_l (with ubar)
-  void* ps;           // [depth][W][rp] p_l (with ubar)
-  void* xs;           // [kin][rp] trunk input
-  void* ts;           // [kin][rp] its tangent ts (with ubar)
-  void* cs;           // [HC][rp] cbar
-  float* vec;         // [rp / kRows][nvec] per-tile vector gradients:
-  int nvec;           //   db [depth][W] | dwd [W] | dwh [hf][W] | dbh [hf] | dbc [HC]
-  DirIn dir;          // K8/K9: the IDE block between x0 and x1 (dir.p > 0)
-  float* ddg;         // [n][3] out: d refdirs, or d grad_pred in geo mode (K8)
-  float* ddk;         // [n] out: d kappa_inv (K8)
-  Rgbe rgbe;          // K10, with rgb_bar non-null
-  const float* rgb_bar;  // [n][3] cotangent of the final rgb
-  float* drawd;       // [n][3] out: d raw diffuse
-  float* drawt;       // [n][3] out: d raw tint
-  Ipe ipe;            // K7 with ipe.lm non-null: (lm, lv) in place of x0, x1
-  const float* delta;  // [n] K6, with sig and wbar
-  const float* bsig;   // [1]
-  const float* sig;    // [n] the forward's raw density
-  const float* wbar;   // [n] cotangent of the weights
-  int samples;         // samples a ray
-  const void* ybar;    // [n][W] cotangent of y, compute dtype (K11)
-};
 
 // The accumulator of a [kRows][NOUT] gemm, rounded to the compute dtype and
 // stored into a row-major shared-memory tile; `mask` keeps only relu'(h) > 0.
@@ -221,6 +183,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     }
   }
 
+  PHASE_START;
   // 1. The segments (with K8 the IDE block, with K7 the IPE; zero-padded to
   // kin and past the last row) and the cotangents; x to the scratch.
   if constexpr (SPA) {
@@ -240,7 +203,9 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     for (int i = tid; i < kRows * p.nb; i += kThreads)
       ub[i] = row0 + i / p.nb < p.n ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
   __syncthreads();
+  PHASE_MARK(0, kScal);
   store_fm<T>(static_cast<T*>(p.xs) + row0, rp, inb, ldi, p.kin);
+  PHASE_MARK(0, kStore);
 
   // 1b. K6: sbar += ct_raw of this tile's rows and d bsig, their sum in row
   // order. The rays that overlap the tile, one warp a ray, with S floats of
@@ -267,6 +232,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
         vec[o_dbsig] = s;
       }
       __syncthreads();
+      PHASE_MARK(0, kScal);
     }
   }
 
@@ -278,6 +244,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
       gemm<T, W>(acc, inb, ldi, K, inb, ldi, w + off[l], K, ring);
     else
       gemm<T, W>(acc, act, LDA, W, inb, ldi, w + off[l], K, ring);
+    PHASE_MARK(1, kProd);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -293,7 +260,9 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
       }
     __syncthreads();
     save_mask<T, W>(bits + l * kRows * MW, act, LDA);
+    PHASE_MARK(1, kScal);
     store_fm<T>(hs + l * W * rp, rp, act, LDA, W);
+    PHASE_MARK(1, kStore);
   }
 
   // 2b. K10: the head recomputed on y and the cotangent of the final rgb
@@ -347,6 +316,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     vec[o_dbh + j] = s;
   }
   __syncthreads();
+  PHASE_MARK(2, kScal);
 
   // 4. With the cotangent of u: the inner chain's s_l to the scratch
   // (q = cdt(wd); s_l = relu'(h_l) q; q = cdt(s_l Wa_l)).
@@ -357,13 +327,17 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     for (int l = p.depth - 1; l >= 0; --l) {
       apply_mask<T, W>(act, LDA, bits + l * kRows * MW);
       __syncthreads();
+      PHASE_MARK(3, kScal);
       store_fm<T>(ss + l * W * rp, rp, act, LDA, W);
+      PHASE_MARK(3, kStore);
       if (l > 0) {
         float acc[2][W / 32][4];
         gemm<T, W>(acc, act, LDA, W, act, LDA, wt + off[l], W, ring);
+        PHASE_MARK(3, kProd);
         store_acc<T, W>(act, LDA, acc, nullptr);
       }
       __syncthreads();
+      PHASE_MARK(3, kScal);
     }
   }
 
@@ -383,10 +357,14 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
                              ? cbar[static_cast<size_t>(row0 + r) * HC + c] : from_f<T>(0.f);
     }
     __syncthreads();
+    PHASE_MARK(4, kScal);
     store_fm<T>(static_cast<T*>(p.cs) + row0, rp, act, LDA, HC);
+    PHASE_MARK(4, kStore);
     column_sums<T>(vec + o_dbc, act, LDA, HC, false);
+    PHASE_MARK(4, kScal);
     float acc[2][W / 32][4];
     gemm<T, W>(acc, act, LDA, HC, act, LDA, static_cast<const T*>(p.wct), HC, ring);
+    PHASE_MARK(4, kProd);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -414,13 +392,17 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     }
   }
   __syncthreads();
+  PHASE_MARK(4, kScal);
 
   // 6. The first-order reverse: zeta_l, db_l, dx, g.
   for (int l = p.depth - 1; l >= 0; --l) {
     apply_mask<T, W>(act, LDA, bits + l * kRows * MW);
     __syncthreads();
+    PHASE_MARK(5, kScal);
     store_fm<T>(zs + l * W * rp, rp, act, LDA, W);
+    PHASE_MARK(5, kStore);
     column_sums<T>(vec + l * W, act, LDA, W, false);
+    PHASE_MARK(5, kScal);
     if (p.dx0 != nullptr && (l == 0 || l == p.skip)) {
       // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0, accumulated in f32 in the
       // Pallas order; the skip layer's share waits in the f32 scratch. With
@@ -432,6 +414,7 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
         float acc[2][1][4];
         gemm<T, 32>(acc, act, LDA, W, act, LDA, wt + off[l] + static_cast<size_t>(base + c0) * W,
                     W, ring);
+        PHASE_MARK(5, kProd);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -456,20 +439,24 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
             else
               static_cast<T*>(p.dx1)[gr * p.d1 + (ci - dide)] = from_f<T>(v);
           }
+        PHASE_MARK(5, kScal);
       }
     }
     if (l > 0) {
       float acc[2][W / 32][4];
       gemm<T, W>(acc, act, LDA, W, act, LDA, wt + off[l], W, ring);
+      PHASE_MARK(5, kProd);
       store_acc<T, W>(act, LDA, acc, nullptr);
     }
     __syncthreads();
+    PHASE_MARK(5, kScal);
   }
 
   // 6b. K8/K9: the IDE block's cotangents back to the raw inputs.
   if constexpr (DIR) {
     if (p.dir.p) ide_backward(p.dir, dsh, p.dir.width(), row0, p.n, p.ddg, p.ddk);
   }
+  PHASE_MARK(5, kScal);
 
   // 7. With the cotangent of u: the tangent chain (:823-853). ts replaces x
   // in the input tile, element by element.
@@ -494,7 +481,9 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
     inb[r * ldi + F + c] = from_f<T>(-(tp * xs));
   }
   __syncthreads();
+  PHASE_MARK(6, kScal);
   store_fm<T>(static_cast<T*>(p.ts) + row0, rp, inb, ldi, p.kin);
+  PHASE_MARK(6, kStore);
   for (int l = 0; l < p.depth; ++l) {
     float acc[2][W / 32][4];
     const int K = l == 0 ? p.kin : (l == p.skip ? W + p.kin : W);
@@ -502,12 +491,17 @@ __global__ void __launch_bounds__(kThreads) trunk_bwd_kernel(BwdParams p) {
       gemm<T, W>(acc, inb, ldi, K, inb, ldi, w + off[l], K, ring);
     else
       gemm<T, W>(acc, act, LDA, W, inb, ldi, w + off[l], K, ring);
+    PHASE_MARK(6, kProd);
     store_acc<T, W>(act, LDA, acc, bits + l * kRows * MW);
     __syncthreads();
-    if (l + 1 < p.depth)
+    PHASE_MARK(6, kScal);
+    if (l + 1 < p.depth) {
       store_fm<T>(ps + l * W * rp, rp, act, LDA, W);
-    else
+      PHASE_MARK(6, kStore);
+    } else {
       column_sums<T>(vec + o_dwd, act, LDA, W, true);
+      PHASE_MARK(6, kScal);
+    }
   }
 }
 
@@ -538,18 +532,19 @@ int launch_bwd(const BwdParams& p, cudaStream_t stream) {
 // without it and without ū; their code is built into the DIR, SPA and YO
 // instances alone. Width 128 is the plain directional trunk (K5) alone: no
 // density head, ū, compute-dtype head or fused stage, which were never
-// checked there.
+// checked there. bf16 at width 256 runs trunk_bwd_tma.cu's kernels up to
+// 8 layers and 256 input columns (fused_mlp.tma_backward), these past them.
 template <typename T>
 int dispatch_bwd(int width, int hc, const BwdParams& p, cudaStream_t stream) {
   const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wbar != nullptr;
+  if (width == 128)
+    return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr && p.ybar == nullptr
+               ? launch_bwd<T, 128, 0, false, false>(p, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (p.ybar != nullptr)
     return width == 256 && hc == 0 && !dir && !spa && p.ubar == nullptr
                ? launch_bwd<T, 256, 0, false, false, true>(p, stream)
-               : static_cast<int>(cudaErrorInvalidValue);
-  if (width == 128)
-    return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr
-               ? launch_bwd<T, 128, 0, false, false>(p, stream)
                : static_cast<int>(cudaErrorInvalidValue);
   if (width == 256 && hc == 0 && !spa)
     return dir ? launch_bwd<T, 256, 0, true, false>(p, stream)
@@ -716,55 +711,10 @@ __global__ void reduce_kernel(const float* parts, int nparts, int rows, int k, i
 // and d bsig is the last entry of the vector row (nvec one longer). With
 // ybar non-null (K11; width 256, hc 0, no ubar, no fused stage) the
 // cotangent of y [n][width] in the compute dtype joins y's.
-extern "C" int refnerf_trunk_bwd(int dtype, int width, int hc, const void* x0, int d0,
-                                 const void* x1, int d1, int n, int kin, int depth, int skip,
-                                 const void* w, const void* wt, const void* b, const float* wd,
-                                 const float* wh, const float* bh, int hf, const void* wct,
-                                 const float* sbar, const float* hbar, const void* cbar,
-                                 const float* ubar, const float* fold, int nb, void* dx0,
-                                 void* dx1, float* dxs, int rp, void* hs, void* zs, void* ss,
-                                 void* ps, void* xs, void* ts, void* cs, float* vec, int nvec,
-                                 const float* g, const float* v, const float* k, int ide_p,
-                                 int lmax, int geo, const float* mat, const float* sg,
-                                 const float* gm, float* ddg, float* ddk, const float* rawd,
-                                 const float* rawt, const float* rgb_bar, float* drawd,
-                                 float* drawt, float premult, float rbias, float pad,
-                                 const float* lm, const float* lv, const float* delta,
-                                 const float* bsig, const float* sig, const float* wbar,
-                                 int samples, const void* ybar, void* stream) {
-  const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
-  const int esize = dtype == 1 ? 2 : 4;
-  if (n <= 0 || rp < n || rp % kRows != 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin ||
-      depth > 16 || depth < 1 || skip >= depth || (hf > 0 && wh == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // K8 needs dx, and its f32 cotangents must fit in the input tile.
-  if (ide_p != 0 &&
-      (ide_p < 0 || lmax < 0 || lmax > 16 || g == nullptr || k == nullptr || mat == nullptr ||
-       sg == nullptr || gm == nullptr || (geo && v == nullptr) || dx0 == nullptr ||
-       ddg == nullptr || ddk == nullptr || ubar != nullptr ||
-       4 * dir.width() > (kin + 16 / esize) * esize))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rgb_bar != nullptr && (hf != 3 || bh == nullptr || rawd == nullptr || rawt == nullptr ||
-                             drawd == nullptr || drawt == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (ubar != nullptr && (wd == nullptr || fold == nullptr || d0 != d1 || nb <= 0 || nb > 4 ||
-                          ss == nullptr || ps == nullptr || ts == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dx0 != nullptr && (dxs == nullptr || (d1 > 0 && dx1 == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (lm != nullptr && (lv == nullptr || fold == nullptr || x0 != nullptr || x1 != nullptr ||
-                        d0 != d1 || nb <= 0 || d0 % nb != 0 || ide_p != 0 || dx0 != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (wbar != nullptr && (samples <= 0 || n % samples != 0 || wd == nullptr ||
-                          delta == nullptr || bsig == nullptr || sig == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nvec_need = depth * width + (wd != nullptr ? width : 0) + hf * width + hf + hc +
-                        (wbar != nullptr ? 1 : 0);
-  if (nvec != nvec_need) return static_cast<int>(cudaErrorInvalidValue);
-  BwdParams p{x0, x1, d0, d1, n, kin, depth, skip, w, wt, b, wd, wh, bh, hf, wct, sbar, hbar,
-              cbar, ubar, fold, nb, dx0, dx1, dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
-              dir, ddg, ddk, Rgbe{rawd, rawt, premult, rbias, pad}, rgb_bar, drawd, drawt,
-              Ipe{lm, lv, fold, nb}, delta, bsig, sig, wbar, samples, ybar};
+extern "C" int refnerf_trunk_bwd(REFNERF_BWD_ARGS) {
+  BwdParams p;
+  const int err = bwd_params(p, REFNERF_BWD_NAMES);
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_bwd<float>(width, hc, p, s);
   if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(width, hc, p, s);

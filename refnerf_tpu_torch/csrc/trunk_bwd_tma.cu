@@ -1,0 +1,1154 @@
+// The bf16 width-256 trunk backward for Hopper (sm_90a): wgmma products fed
+// by a TMA weight ring, and a wgmma weight-gradient product.
+//
+// Replaces, for the compute dtype bfloat16 at width 256, the backward Pallas
+// kernel `_bwd_kernel` (:668-853) of refnerf_tpu/ops/pallas/fused_mlp.py in
+// the modes of trunk_bwd.cu (K4 with and without u's cotangent, K5 with dx,
+// K6/K7 in K4, K8-K10 in K5, K11's y cotangent), with the same arithmetic
+// and bf16 roundings (trunk_bwd.cu:32-40) and the same C arguments. The
+// float32 and width-128 instances stay in trunk_bwd.cu.
+//
+// Bound on the H100: the per-tile work is ~2.6 GFLOP of bf16 products a
+// 64-sample tile for K4 with u's cotangent (3.2 TFLOP at N = 524,288 with
+// the weight gradients; 3.2 ms at 989 TFLOP/s); the weight-gradient
+// operands (h, zeta, s, p, x, ts, cbar: ~17 KB a sample for K4, ~8.6 KB for
+// K5) cross device memory twice, written here and read once by
+// wgrad_tma_kernel: ~5.3 ms (K4) and ~2.7 ms (K5) at 3.35 TB/s, the floor
+// of this data flow, above the products' bound. (That kernel's 128 x 128
+// output tiles read Z and A twice for a 256-row gradient; the tiles of one
+// split of samples are adjacent in its grid, so the second read comes from
+// L2.) A 64-row tile reads each layer's weights (128 KB) from L2 for 8.4
+// MFLOP, 64 FLOP a byte.
+//
+// Design.
+//  - Two consumer warpgroups and one producer warp a CTA of 64 samples.
+//    Each product acc[64][256] = A[64][K] B[256][K]^T runs as
+//    wgmma m64n128k16, warpgroup g owning output columns [128 g, 128 g +
+//    128): 64 f32 accumulators a thread, in the wgmma layout (acc[4 j + 2 h
+//    + e] at row 16 w + lane / 4 + 8 h, column 128 g + 8 j + 2 (lane % 4) +
+//    e, w the warp of the warpgroup).
+//  - A (the activation tile, the input tile) lives in shared memory in
+//    wgmma's K-major 128-byte-swizzled layout: 64-column blocks of 64 rows x
+//    128 bytes, 16-byte chunk q of row r at chunk q ^ (r % 8). Every access
+//    goes through `sw_off`.
+//  - B, the weights, come by TMA (cp.async.bulk.tensor) from the forward
+//    pack `w` and the transposed pack `wt` (one tensor map a layer, its K
+//    extent exact: slices past it read zeros) and `wct`, in 64-deep K-slices
+//    of 256 rows (32 KB), through a ring of kStages stages with full/empty
+//    mbarriers. The producer warp walks the same schedule of products as the
+//    consumers (`schedule`), so the next layer's weights arrive while the
+//    consumers run an epilogue; no CTA-wide barrier per K-slice.
+//  - The scalar passes live in the products' epilogues, in registers: the
+//    bias, ReLU and rounding; the relu' masks, 64 bits a thread and layer
+//    in the accumulator's own order (no ballot, no lookup by column); the
+//    column sums of the bias gradients by shuffles over the 8 lanes of a
+//    column and a fixed-order sum over the 4 warps.
+//  - The weight-gradient operands leave sample-major ([rows][features],
+//    the tile as it sits in shared memory) by TMA stores; wgrad_tma_kernel
+//    reads them by TMA as the MN-major (transposed) operands of wgmma, on
+//    128 x 128 output tiles per split of samples, and writes each split's
+//    partial; reduce_kernel (trunk_bwd.cu) sums the partials in a fixed
+//    order. No float atomics: the gradients do not depend on the schedule.
+// One CTA an SM (~200 KB of shared memory; 168 registers a thread, as
+// ptxas allots a 288-thread block in whole warpgroups): the ring's four
+// stages hold a whole 256-deep layer, so the weights of the next product
+// load during the epilogue, while the epilogue itself leaves the tensor
+// cores idle. With no other CTA to hide latency, the scalar loops keep
+// kBatch loads in flight a thread.
+
+#include <cuda.h>
+#include <string.h>
+
+#define PHASE_SYNC() cons_sync()  // closes a stamped segment
+#include "trunk_bwd_args.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kW = 256;                  // trunk width of every instance here
+constexpr int kCons = 256;               // consumer threads: two warpgroups
+constexpr int kTmaThreads = kCons + 32;  // and one producer warp
+constexpr int kBK = 64;                  // K-slice: 64 bf16, one swizzled row
+constexpr int kStages = 4;
+constexpr int kSlice = kW * 128;   // bytes of a [256][64] weight slice
+constexpr int kBlk = kRows * 128;  // bytes of a [64][64] block of a tile
+constexpr int kMaxDepth = 8;       // tensor maps a pack (kernel parameter space)
+constexpr long long kHang = 1ll << 33;  // cycles (~4 s) before a wait traps
+
+struct TmaMaps {
+  CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 64 x 256
+  CUtensorMap wt[kMaxDepth];  // layer l of `wt`: [K_l][W], box 64 x 256
+  CUtensorMap wct;            // [W][HC]
+  CUtensorMap hs, zs, ss, ps;  // [depth * rp][W] scratch, box 64 x 64
+  CUtensorMap xs, ts;          // [rp][kin]
+  CUtensorMap cs;              // [rp][HC]
+};
+
+// ---------------------------------------------------------------------------
+// PTX: mbarriers, TMA, wgmma.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cons_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// Waits for the phase of parity `parity` to complete; traps (an error, not
+// a hang) if that takes seconds, which only a fault can make it do.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (t0 == 0)
+      t0 = now;
+    else if (now - t0 > kHang)
+      __trap();
+  }
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (K-major: the stride is 8 rows,
+// 1024 bytes; MN-major: the leading offset steps 64 MN elements, the stride
+// 8 K rows).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products.
+__device__ __forceinline__ void acc_fence(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B^T on one k16 step, A [64][16] and B [128][16] bf16 from shared
+// memory, f32 accumulation; TA / TB: the operand is MN-major (transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// The ring of weight slices: the producer fills stages in order, the
+// consumers empty them in the same order.
+
+struct Ring {
+  uint32_t base;   // shared address of stage 0
+  uint32_t full;   // n mbarriers: the stage has landed
+  uint32_t empty;  // n mbarriers: all 8 consumer warps are done with it
+  int n;           // stages
+  int stage;
+  uint32_t phase;
+  __device__ void advance() {
+    if (++stage == n) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Byte offset of element (r, c) of a [64][cols] tile in 64-column swizzled
+// blocks.
+__device__ __forceinline__ uint32_t sw_off(int r, int c) {
+  return static_cast<uint32_t>((c >> 6) * kBlk + r * 128 +
+                               ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1));
+}
+
+struct Tile {
+  unsigned char* p;
+  __device__ bf16& operator()(int r, int c) const {
+    return *reinterpret_cast<bf16*>(p + sw_off(r, c));
+  }
+};
+
+// acc = A[64][K] B^T with B the next ceil(K / 64) slices of the ring. A's
+// K-slices s < n0 are the blocks of a0, the rest those of a1 (the skip
+// layer's [activation | input]). Consumer warps only.
+__device__ __forceinline__ void product(float (&acc)[64], uint32_t a0, int n0, uint32_t a1, int K,
+                                        Ring& r) {
+  const int wg = threadIdx.x >> 7;
+  const int ns = (K + kBK - 1) / kBK;
+  int prev = 0;
+  wg_fence();
+  for (int s = 0; s < ns; ++s) {
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+    const uint32_t a = s < n0 ? a0 + s * kBlk : a1 + (s - n0) * kBlk;
+    const uint32_t b = r.base + r.stage * kSlice + wg * (kSlice / 2);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma128<0, 0>(acc, sw128_desc(a + 32 * kk, 16, 1024), sw128_desc(b + 32 * kk, 16, 1024),
+                     s | kk);
+    wg_commit();
+    if (s > 0) {
+      wg_wait<1>();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * prev);
+    }
+    prev = r.stage;
+    r.advance();
+  }
+  wg_wait<0>();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * prev);
+  acc_fence(acc);
+}
+
+__device__ __forceinline__ int k_dim(const BwdParams& p, int l) {
+  return l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+}
+
+// The products of one tile in order, as (tensor map, first B row, K); the
+// producer loads their slices, and the kernel below runs them in this order.
+template <int HC, typename F>
+__device__ void schedule(const BwdParams& p, const TmaMaps& m, F&& load) {
+  const bool dg = p.ubar != nullptr, dx = p.dx0 != nullptr;
+  for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim(p, l));  // recompute
+  if (dg)
+    for (int l = p.depth - 1; l > 0; --l) load(&m.wt[l], 0, kW);  // inner chain
+  if (HC > 0) load(&m.wct, 0, HC);                                // head backward
+  for (int l = p.depth - 1; l >= 0; --l) {                        // first-order reverse
+    if (dx && (l == 0 || l == p.skip)) load(&m.wt[l], l == 0 ? 0 : kW, kW);
+    if (l > 0) load(&m.wt[l], 0, kW);
+  }
+  if (dg)
+    for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim(p, l));  // tangent
+}
+
+// Column sums over the tile's rows of the values each thread holds for its
+// two rows, cs[j][e] for column 128 g + 8 j + 2 (lane % 4) + e: shuffles over
+// the 8 lanes of a column, then the 4 warps in order through `red`.
+// out[c] = (add ? out[c] : 0) + sum for c < ncols. All consumers call it.
+__device__ void col_sums(float (&cs)[16][2], float* red, float* out, int ncols, bool add) {
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, w4 = (tid >> 5) & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = cs[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[w4 * kCons + 128 * wg + 8 * j + 2 * lane + e] = v;
+    }
+  cons_sync();
+  if (tid < ncols) {
+    const float s = ((red[tid] + red[kCons + tid]) + red[2 * kCons + tid]) + red[3 * kCons + tid];
+    out[tid] = add ? out[tid] + s : s;
+  }
+  cons_sync();
+}
+
+__device__ __forceinline__ bool bit_at(uint2 m, int i) {
+  return ((i < 32 ? m.x >> i : m.y >> (i - 32)) & 1u) != 0;
+}
+
+// Loads a thread keeps in flight in the scalar loops over a tile: with one
+// CTA an SM no other warps hide their latency, so a loop that waits for
+// each load in turn costs a round trip an element.
+constexpr int kBatch = 8;
+
+// The trunk input tile (trunk_common.cuh `load_input`) in the swizzled
+// layout, zero-padded to kp columns.
+template <bool DIR>
+__device__ void load_input_sw(const Tile& t, const bf16* x0, int d0, const bf16* x1, int d1, int kp,
+                              int row0, int n, const DirIn& dir) {
+  const int dide = DIR ? dir.width() : 0, total = kRows * kp;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+    bf16 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, r = i / kp, c = i % kp, gr = row0 + r, c1 = c - d0 - dide;
+      v[u] = from_f<bf16>(0.f);
+      if (i < total && gr < n) {
+        if (c < d0)
+          v[u] = __ldg(x0 + static_cast<size_t>(gr) * d0 + c);
+        else if (c1 >= 0 && c1 < d1)
+          v[u] = __ldg(x1 + static_cast<size_t>(gr) * d1 + c1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, r = i / kp, c = i % kp;
+      if (i < total && !(DIR && c >= d0 && c - d0 - dide < 0)) t(r, c) = v[u];
+    }
+  }
+  if constexpr (DIR) {
+    if (dir.p) {  // the IDE block (trunk_common.cuh `ide_fill`)
+      const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+      const DirSample s = load_dir(dir, row0 + r, n);
+      for (int i = q; i < dir.p; i += 4) {
+        const Harm h = ide_harmonic(dir, s.rd[0], s.rd[1], s.rd[2], i);
+        const float zpat = h.zp * expf(mul(-s.ki, __ldg(dir.sg + i)));
+        t(r, d0 + i) = from_f<bf16>(s.live ? h.re * zpat : 0.f);
+        t(r, d0 + dir.p + i) = from_f<bf16>(s.live ? h.im * zpat : 0.f);
+      }
+      if (dir.geo && q == 0) t(r, d0 + 2 * dir.p) = from_f<bf16>(s.live ? s.nd : 0.f);
+    }
+  }
+}
+
+// K7's input tile (trunk_common.cuh `load_ipe`) in the swizzled layout.
+__device__ void load_ipe_sw(const Tile& t, const Ipe& q, int F, int kp, int row0, int n) {
+  for (int i = threadIdx.x; i < kRows * kp; i += kCons) {
+    const int r = i / kp, c = i % kp, gr = row0 + r;
+    if (gr < n && c < F) {
+      float e, sn, cs;
+      ipe_trig(q, gr, c, e, sn, cs);
+      t(r, c) = from_f<bf16>(mul(e, sn));
+      t(r, F + c) = from_f<bf16>(mul(e, cs));
+    } else if (gr >= n || c >= 2 * F) {
+      t(r, c) = from_f<bf16>(0.f);
+    }
+  }
+}
+
+template <int HC, bool DIR, bool SPA, bool YO>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    trunk_bwd_tma_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ TmaMaps m) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int kp = (p.kin + kBK - 1) / kBK * kBK;
+  unsigned char* ring = smem;                    // kStages x [256][64]
+  unsigned char* act = ring + kStages * kSlice;  // [64][256]: h, s, zeta, p in turn
+  unsigned char* inb = act + (kW / 64) * kBlk;   // [64][kp]: x, then ts
+  uint2* masks = reinterpret_cast<uint2*>(inb + (kp / 64) * kBlk);  // [depth][256]
+  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);   // [4][256]
+  float* sb = red + 4 * kCons;                                      // [kRows]
+  float* hb = sb + kRows;                                           // [kRows][hf]
+  float* ub = hb + kRows * p.hf;                                    // [kRows][nb]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(ub + kRows * p.nb) + 7) & ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + kStages), kStages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring_st.full + 8 * s, 1);
+      mbar_init(ring_st.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {  // the producer warp: weight slices, in order
+    if (lane == 0) {
+      schedule<HC>(p, m, [&](const CUtensorMap* map, int row, int K) {
+        for (int k = 0; k < K; k += kBK) {
+          mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
+          mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
+          tma_load(ring_st.base + ring_st.stage * kSlice, map, ring_st.full + 8 * ring_st.stage, k,
+                   row);
+          ring_st.advance();
+        }
+      });
+    }
+    return;
+  }
+
+  // The consumers.
+  PHASE_START;
+  const int wg = tid >> 7, w4 = warp & 3;
+  const int fr = 16 * w4 + (lane >> 2);      // acc[4 j + 2 h + e]: row fr + 8 h,
+  const int fc = 128 * wg + 2 * (lane & 3);  // column fc + 8 j + e
+  const int row0 = blockIdx.x * kRows;
+  const int rp = p.rp;
+  const bool dg = p.ubar != nullptr;
+  const Tile A{act}, X{inb};
+  const uint32_t act_s = smem_u32(act), inb_s = smem_u32(inb);
+  const bf16* bias = static_cast<const bf16*>(p.b);
+  float* vec = p.vec + static_cast<size_t>(blockIdx.x) * p.nvec;
+  const int o_dwd = p.depth * kW;
+  const int o_dwh = o_dwd + (p.wd != nullptr ? kW : 0);
+  const int o_dbh = o_dwh + p.hf * kW;
+  const int o_dbc = o_dbh + p.hf;
+  [[maybe_unused]] const int o_dbsig = o_dbc + HC;
+  float acc[64];
+
+  // Before an epilogue overwrites a tile: the TMA stores have read it, and
+  // every consumer is done with it.
+  auto settle = [&]() {
+    if (tid == 0) bulk_wait_read();
+    cons_sync();
+  };
+  // After the consumers wrote a tile: visible to TMA and wgmma.
+  auto publish = [&]() {
+    fence_async_smem();
+    cons_sync();
+  };
+  // The activation tile's 4 blocks to rows [row, row + 64) of a
+  // [rows][256] scratch map.
+  auto store_act = [&](const CUtensorMap* map, int row) {
+    if (tid == 0) {
+      for (int b = 0; b < kW / 64; ++b) tma_store(map, act_s + b * kBlk, 64 * b, row);
+      bulk_commit();
+    }
+  };
+  auto store_in = [&](const CUtensorMap* map) {
+    if (tid == 0) {
+      for (int b = 0; b < kp / 64; ++b) tma_store(map, inb_s + b * kBlk, 64 * b, row0);
+      bulk_commit();
+    }
+  };
+  auto put2 = [&](int r, int c, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(act + sw_off(r, c)) = __floats2bfloat162_rn(a, b);
+  };
+
+  // 1. The segments (K8 the IDE block, K7 the IPE) and the cotangents.
+  if constexpr (SPA) {
+    if (p.ipe.lm != nullptr)
+      load_ipe_sw(X, p.ipe, p.d0, kp, row0, p.n);
+    else
+      load_input_sw<false>(X, static_cast<const bf16*>(p.x0), p.d0,
+                           static_cast<const bf16*>(p.x1), p.d1, kp, row0, p.n, p.dir);
+  } else {
+    load_input_sw<DIR>(X, static_cast<const bf16*>(p.x0), p.d0, static_cast<const bf16*>(p.x1),
+                       p.d1, kp, row0, p.n, p.dir);
+  }
+  for (int r = tid; r < kRows; r += kCons)
+    sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
+  for (int i = tid; i < kRows * p.hf; i += kCons)
+    hb[i] = (p.hbar != nullptr && row0 + i / p.hf < p.n)
+                ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
+  if (dg)
+    for (int i = tid; i < kRows * p.nb; i += kCons)
+      ub[i] = row0 + i / p.nb < p.n ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
+  publish();
+  PHASE_MARK(0, kScal);
+  store_in(&m.xs);
+  PHASE_MARK(0, kStore);
+
+  // 1b. K6: sbar += ct_raw of this tile's rows, and d bsig (trunk_bwd.cu).
+  if constexpr (SPA) {
+    if (p.wbar != nullptr) {
+      const int S = p.samples, hi = min(row0 + kRows, p.n);
+      float* ct = reinterpret_cast<float*>(act);  // [kRows]
+      float* tr = ct + kRows + warp * S;          // [S] a warp
+      for (int r = tid; r < kRows; r += kCons) ct[r] = 0.f;
+      cons_sync();
+      const float bsig = __ldg(p.bsig);
+      for (int q = row0 / S + warp; q * S < hi; q += kCons / 32) {
+        const int r0 = q * S;
+        ray_weights_vjp(p.sig + r0, p.delta + r0, p.wbar + r0, bsig, S, tr,
+                        max(row0, r0) - r0, min(hi, r0 + S) - r0, ct + (r0 - row0));
+      }
+      cons_sync();
+      for (int r = tid; r < kRows; r += kCons) sb[r] = add(sb[r], ct[r]);
+      if (tid == 0) {
+        float s = 0.f;
+        for (int r = 0; r < kRows; ++r) s = add(s, ct[r]);
+        vec[o_dbsig] = s;
+      }
+      cons_sync();
+    }
+  }
+  PHASE_MARK(0, kScal);
+
+  // 2. Recompute: h_l = relu(cdt(acc) + cdt(b_l)) to the scratch, relu'
+  // masks as bits in the accumulators' order.
+  for (int l = 0; l < p.depth; ++l) {
+    if (l == 0)
+      product(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
+    else
+      product(acc, act_s, kW / 64, inb_s, k_dim(p, l), ring_st);
+    PHASE_MARK(1, kProd);
+    settle();
+    uint32_t mk[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = fc + 8 * j;
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + l * kW + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        const float v0 = fmaxf(bias_add<bf16>(acc[i], bb.x), 0.f);
+        const float v1 = fmaxf(bias_add<bf16>(acc[i + 1], bb.y), 0.f);
+        mk[i >> 5] |= (v0 > 0.f ? 1u : 0u) << (i & 31);
+        mk[i >> 5] |= (v1 > 0.f ? 1u : 0u) << ((i + 1) & 31);
+        put2(fr + 8 * h, c, v0, v1);
+      }
+    }
+    masks[l * kCons + tid] = make_uint2(mk[0], mk[1]);
+    publish();
+    PHASE_MARK(1, kScal);
+    store_act(&m.hs, l * rp + row0);
+    PHASE_MARK(1, kStore);
+  }
+
+  // 2b. K10: the head recomputed on y, the final rgb's cotangent pulled back
+  // through the colour epilogue onto the head's.
+  if constexpr (DIR) {
+    if (p.rgb_bar != nullptr) {
+      // The head on each row by a warp (its weights in registers, loaded
+      // once), into hv [kRows][3] over `red`; then the epilogue, a thread a
+      // row.
+      float whr[3][kW / 32];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int i = 0; i < kW / 32; ++i) whr[j][i] = __ldg(p.wh + j * kW + lane + 32 * i);
+      float* hv = red;
+      for (int r = warp; r < kRows; r += kCons / 32) {
+        if (row0 + r >= p.n) break;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < kW / 32; ++i) s = fmaf(to_f(A(r, lane + 32 * i)), whr[j][i], s);
+          s = warp_sum(s) + p.bh[j];
+          if (lane == 0) hv[r * 3 + j] = s;
+        }
+      }
+      cons_sync();
+      if (tid < kRows && row0 + tid < p.n) {
+        const size_t o = static_cast<size_t>(row0 + tid) * 3;
+        float out[3], drd[3], drt[3];
+        rgb_epilogue(hv + tid * 3, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, p.rgb_bar + o,
+                     hb + tid * 3, drd, drt);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          p.drawd[o + c] = drd[c];
+          p.drawt[o + c] = drt[c];
+        }
+      }
+      cons_sync();
+    }
+  }
+
+  // 3. The head gradients that read y: dwd, dwh, dbh.
+  {
+    const int c = tid;
+    if (p.wd != nullptr) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s = fmaf(sb[r], to_f(A(r, c)), s);
+      vec[o_dwd + c] = s;
+    }
+    for (int j = 0; j < p.hf; ++j) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s = fmaf(hb[r * p.hf + j], to_f(A(r, c)), s);
+      vec[o_dwh + j * kW + c] = s;
+    }
+    if (c < p.hf) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s += hb[r * p.hf + c];
+      vec[o_dbh + c] = s;
+    }
+  }
+  PHASE_MARK(2, kScal);
+
+  // 4. With u's cotangent, the inner chain: s_{L-1} = relu'(h) cdt(wd),
+  // s_{l-1} = relu'(h_{l-1}) cdt(s_l Wa_l), each to the scratch.
+  if (dg) {
+    settle();
+    {
+      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = fc + 8 * j;
+        const float q0 = round_t<bf16>(p.wd[c]), q1 = round_t<bf16>(p.wd[c + 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          put2(fr + 8 * h, c, bit_at(mk, i) ? q0 : 0.f, bit_at(mk, i + 1) ? q1 : 0.f);
+        }
+      }
+    }
+    publish();
+    store_act(&m.ss, (p.depth - 1) * rp + row0);
+    PHASE_MARK(3, kScal);
+    for (int l = p.depth - 1; l > 0; --l) {
+      product(acc, act_s, kW / 64, act_s, kW, ring_st);
+      PHASE_MARK(3, kProd);
+      settle();
+      const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          put2(fr + 8 * h, fc + 8 * j, bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f,
+                 bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f);
+        }
+      publish();
+      store_act(&m.ss, (l - 1) * rp + row0);
+      PHASE_MARK(3, kScal);
+    }
+  }
+
+  // 5. The head backward: g = cdt(cbar wc^T) + cdt(g32), g32 = sbar wd +
+  // hbar wh^T; with K11 g = cdt(ybar + cdt(g32)). zeta_{L-1} = relu'(h) g,
+  // and db_{L-1} its column sums. g32 of this thread's 64 elements goes head
+  // by head (each head weight loaded once a thread, not once an element),
+  // in trunk_bwd.cu's order of operations.
+  float g3[64];
+  {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) g3[i] = 0.f;
+    for (int j = 0; j < p.hf; ++j) {
+      const float h0 = hb[fr * p.hf + j], h1 = hb[(fr + 8) * p.hf + j];
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float wv = __ldg(p.wh + j * kW + fc + 8 * q + e);
+          g3[4 * q + e] = fmaf(h0, wv, g3[4 * q + e]);
+          g3[4 * q + 2 + e] = fmaf(h1, wv, g3[4 * q + 2 + e]);
+        }
+    }
+    if (p.wd != nullptr) {
+      const float s0 = sb[fr], s1 = sb[fr + 8];
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float wv = __ldg(p.wd + fc + 8 * q + e);
+          g3[4 * q + e] = s0 * wv + g3[4 * q + e];
+          g3[4 * q + 2 + e] = s1 * wv + g3[4 * q + 2 + e];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) g3[i] = round_t<bf16>(g3[i]);
+  }
+  float cs[16][2];
+  settle();
+  if constexpr (HC > 0) {
+    const bf16* cbar = static_cast<const bf16*>(p.cbar);
+    for (int i = tid; i < kRows * (HC / 8); i += kCons) {  // 16-byte chunks
+      const int r = i / (HC / 8), q = i % (HC / 8);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (cbar != nullptr && row0 + r < p.n)
+        v = *reinterpret_cast<const uint4*>(cbar + static_cast<size_t>(row0 + r) * HC + 8 * q);
+      *reinterpret_cast<uint4*>(act + sw_off(r, 8 * q)) = v;
+    }
+    publish();
+    PHASE_MARK(4, kScal);
+    if (tid == 0) {
+      for (int b = 0; b < HC / 64; ++b) tma_store(&m.cs, act_s + b * kBlk, 64 * b, row0);
+      bulk_commit();
+    }
+    PHASE_MARK(4, kStore);
+    if (tid < HC) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s += to_f(A(r, tid));
+      vec[o_dbc + tid] = s;
+    }
+    product(acc, act_s, HC / 64, act_s, HC, ring_st);
+    PHASE_MARK(4, kProd);
+    settle();
+  }
+  {
+    const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h, r = fr + 8 * h, c = fc + 8 * j;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float gv;
+          if constexpr (HC > 0) {
+            gv = round_t<bf16>(round_t<bf16>(acc[i + e]) + g3[i + e]);
+          } else if constexpr (YO) {
+            const float yb = row0 + r < p.n
+                ? to_f(static_cast<const bf16*>(p.ybar)[static_cast<size_t>(row0 + r) * kW + c + e])
+                : 0.f;
+            gv = round_t<bf16>(yb + g3[i + e]);
+          } else {
+            gv = g3[i + e];
+          }
+          v[e] = bit_at(mk, i + e) ? gv : 0.f;
+          cs[j][e] += v[e];
+        }
+        put2(r, c, v[0], v[1]);
+      }
+    }
+  }
+  publish();
+  store_act(&m.zs, (p.depth - 1) * rp + row0);
+  col_sums(cs, red, vec + (p.depth - 1) * kW, kW, false);
+  PHASE_MARK(4, kScal);
+
+  // 6. The first-order reverse: dx, zeta_{l-1} = relu'(h_{l-1}) cdt(zeta_l
+  // Wa_l), db_{l-1}.
+  [[maybe_unused]] float* dsh = reinterpret_cast<float*>(inb);  // K8: [kRows][dide]
+  for (int l = p.depth - 1; l >= 0; --l) {
+    if (p.dx0 != nullptr && (l == 0 || l == p.skip)) {
+      // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0 in f32, the skip layer's
+      // share in the f32 scratch; with K8 the IDE block's cotangents to dsh.
+      product(acc, act_s, kW / 64, act_s, kW, ring_st);
+      PHASE_MARK(5, kProd);
+      const int dide = DIR ? p.dir.width() : 0, fin = p.d0 + dide + p.d1;
+      if (l == 0 && DIR) settle();  // dsh overwrites the input tile
+      // Element pairs (i, i + 1) sit at columns (c, c + 1) of one row; at l
+      // = 0 the skip layer's share of 8 pairs is loaded before any is used.
+#pragma unroll
+      for (int q = 0; q < 64; q += 16) {
+        float2 kv[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = q + 2 * u, r = fr + 8 * ((i >> 1) & 1), c = fc + 8 * (i >> 2);
+          kv[u] = make_float2(0.f, 0.f);
+          if (l == 0 && p.skip >= 0 && c < p.kin)
+            kv[u] = *reinterpret_cast<const float2*>(p.dxs + static_cast<size_t>(row0 + r) * p.kin + c);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = q + 2 * u, r = fr + 8 * ((i >> 1) & 1), c = fc + 8 * (i >> 2);
+          if (c >= p.kin) continue;
+          if (l != 0) {
+            *reinterpret_cast<float2*>(p.dxs + static_cast<size_t>(row0 + r) * p.kin + c) =
+                make_float2(acc[i], acc[i + 1]);
+            continue;
+          }
+          const size_t gr = static_cast<size_t>(row0 + r);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = p.skip >= 0 ? (e ? kv[u].y : kv[u].x) + acc[i + e] : acc[i + e];
+            const int ce = c + e, ci = ce - p.d0;
+            if (DIR && ci >= 0 && ci < dide) {
+              dsh[r * dide + ci] = v;
+              continue;
+            }
+            if (row0 + r >= p.n || ce >= fin) continue;
+            if (ce < p.d0)
+              static_cast<bf16*>(p.dx0)[gr * p.d0 + ce] = from_f<bf16>(v);
+            else
+              static_cast<bf16*>(p.dx1)[gr * p.d1 + (ci - dide)] = from_f<bf16>(v);
+          }
+        }
+      }
+      PHASE_MARK(5, kStore);
+    }
+    if (l > 0) {
+      product(acc, act_s, kW / 64, act_s, kW, ring_st);
+      PHASE_MARK(5, kProd);
+      settle();
+      const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const float v0 = bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f;
+          const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f;
+          cs[j][0] += v0;
+          cs[j][1] += v1;
+          put2(fr + 8 * h, fc + 8 * j, v0, v1);
+        }
+      }
+      publish();
+      store_act(&m.zs, (l - 1) * rp + row0);
+      col_sums(cs, red, vec + (l - 1) * kW, kW, false);
+      PHASE_MARK(5, kScal);
+    }
+  }
+
+  // 6b. K8/K9: the IDE block's cotangents back to the raw inputs.
+  if constexpr (DIR) {
+    if (p.dir.p) {
+      cons_sync();
+      ide_backward(p.dir, dsh, p.dir.width(), row0, p.n, p.ddg, p.ddk);
+    }
+  }
+  PHASE_MARK(5, kScal);
+
+  // 7. With u's cotangent, the tangent chain: ts = (cdt(t xc), cdt(-t xs))
+  // replaces x in the input tile; p_l = relu'(h_l) cdt([p_{l-1} | ts] W_l),
+  // to the scratch but the last, whose column sums add to dwd.
+  if (dg) {
+    settle();
+    const int F = p.d0;
+    for (int i = tid; i < kRows * F; i += kCons) {
+      const int r = i / F, c = i % F;
+      float tp = 0.f;
+      for (int j = 0; j < p.nb; ++j) tp = fmaf(ub[r * p.nb + j], p.fold[c * p.nb + j], tp);
+      if constexpr (SPA) {
+        if (p.ipe.lm != nullptr) {  // K7: the f32 factors
+          float e = 0.f, sn = 0.f, cs_ = 0.f;
+          if (row0 + r < p.n) ipe_trig(p.ipe, row0 + r, c, e, sn, cs_);
+          const float te = mul(tp, e);
+          X(r, c) = from_f<bf16>(mul(te, cs_));
+          X(r, F + c) = from_f<bf16>(-mul(te, sn));
+          continue;
+        }
+      }
+      const float xs = to_f(X(r, c)), xc = to_f(X(r, F + c));
+      X(r, c) = from_f<bf16>(tp * xc);
+      X(r, F + c) = from_f<bf16>(-(tp * xs));
+    }
+    publish();
+    PHASE_MARK(6, kScal);
+    store_in(&m.ts);
+    PHASE_MARK(6, kStore);
+    for (int l = 0; l < p.depth; ++l) {
+      if (l == 0)
+        product(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
+      else
+        product(acc, act_s, kW / 64, inb_s, k_dim(p, l), ring_st);
+      PHASE_MARK(6, kProd);
+      settle();
+      const uint2 mk = masks[l * kCons + tid];
+      const bool last = l + 1 == p.depth;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const float v0 = bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f;
+          const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f;
+          cs[j][0] += v0;
+          cs[j][1] += v1;
+          if (!last) put2(fr + 8 * h, fc + 8 * j, v0, v1);
+        }
+      }
+      if (!last) {
+        publish();
+        store_act(&m.ps, l * rp + row0);
+        PHASE_MARK(6, kStore);
+      } else {
+        col_sums(cs, red, vec + o_dwd, kW, true);
+        PHASE_MARK(6, kScal);
+      }
+    }
+  }
+  if (tid == 0) bulk_wait();
+}
+
+// ---------------------------------------------------------------------------
+// Host side: tensor maps through the driver entry point (no -lcuda).
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A tensor map of a row-major bf16 matrix [rows][cols] (row stride `ld`
+// elements) in boxes of box_rows x 64 columns, 128-byte swizzled; reads
+// past the matrix give zeros. Returns false on failure.
+bool make_map(CUtensorMap* map, const void* base, int cols, int rows, int ld, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || base == nullptr || cols <= 0 || rows <= 0) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+size_t tma_smem(const BwdParams& p) {
+  const int kp = (p.kin + kBK - 1) / kBK * kBK;
+  return 1024 + static_cast<size_t>(kStages) * kSlice + (kW / 64 + kp / 64) * kBlk +
+         8 * static_cast<size_t>(p.depth) * kCons + 4 * 4 * kCons +
+         4 * static_cast<size_t>(kRows) * (1 + p.hf + p.nb) + 8 + 16 * kStages;
+}
+
+template <int HC, bool DIR, bool SPA, bool YO>
+int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
+  if (p.depth > kMaxDepth || p.kin > kW || hc != HC) return static_cast<int>(cudaErrorInvalidValue);
+  // K6's scratch ([kRows] + [8 warps][S] floats) and K8's f32 cotangents
+  // must fit in the activation and input tiles.
+  const int kp = (p.kin + kBK - 1) / kBK * kBK;
+  if (SPA && p.wbar != nullptr && 4 * (kRows + (kCons / 32) * p.samples) > (kW / 64) * kBlk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (DIR && p.dir.p && 4 * p.dir.width() > 2 * kp) return static_cast<int>(cudaErrorInvalidValue);
+  TmaMaps m;
+  memset(&m, 0, sizeof(m));
+  const bf16* w = static_cast<const bf16*>(p.w);
+  const bf16* wt = static_cast<const bf16*>(p.wt);
+  size_t off = 0;
+  bool ok = true;
+  for (int l = 0; l < p.depth; ++l) {
+    const int K = l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+    ok = ok && make_map(&m.w[l], w + off, K, kW, K, kW) && make_map(&m.wt[l], wt + off, kW, K, kW, kW);
+    off += static_cast<size_t>(kW) * K;
+  }
+  const int rows = p.depth * p.rp;
+  ok = ok && make_map(&m.hs, p.hs, kW, rows, kW, kRows) && make_map(&m.zs, p.zs, kW, rows, kW, kRows) &&
+       make_map(&m.xs, p.xs, p.kin, p.rp, p.kin, kRows);
+  if (HC > 0)
+    ok = ok && make_map(&m.wct, p.wct, HC, kW, HC, kW) && make_map(&m.cs, p.cs, HC, p.rp, HC, kRows);
+  if (p.ubar != nullptr)
+    ok = ok && make_map(&m.ss, p.ss, kW, rows, kW, kRows) &&
+         make_map(&m.ps, p.ps, kW, rows, kW, kRows) &&
+         make_map(&m.ts, p.ts, p.kin, p.rp, p.kin, kRows);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tma_smem(p);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trunk_bwd_tma_kernel<HC, DIR, SPA, YO><<<p.rp / kRows, kTmaThreads, smem, stream>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The weight-gradient product: out[split][M][N] = sum over the split's
+// samples of Z^T [A | X] (+ S^T [PA | TX]), every operand sample-major
+// [rp][features] in device memory. A CTA: a 128 x 128 output tile, two
+// consumer warpgroups of 64 rows each, one producer warp; the samples are
+// wgmma's K, 64 a stage, and both operands enter MN-major (transposed).
+
+constexpr int kWgStages = 3;
+constexpr int kBox = 64 * 128;  // bytes of a [64 samples][64 features] box
+
+struct WgradMaps {
+  CUtensorMap z, a, x, s, pa, tx;
+};
+
+struct WgradTma {
+  int M, N, ncut, rp, ksplit, tiles_m;
+  bool two;
+  float* out;
+};
+
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    wgrad_tma_kernel(const __grid_constant__ WgradTma p, const __grid_constant__ WgradMaps m) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  constexpr int kStage = 8 * kBox;  // Z (2 boxes) | A (2) | S (2) | PA (2)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kWgStages * kStage);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring r{smem_u32(smem), smem_u32(bars), smem_u32(bars + kWgStages), kWgStages, 0, 0u};
+  const int m0 = (blockIdx.x % p.tiles_m) * 128, n0 = (blockIdx.x / p.tiles_m) * 128;
+  const int kb = blockIdx.y * p.ksplit;
+  const int ke = min(kb + p.ksplit, p.rp);
+  const int ns = (ke - kb) / 64;
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(r.full + 8 * s, 1);
+      mbar_init(r.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {
+    if (lane == 0) {
+      const bool in_a = n0 < p.ncut;
+      const CUtensorMap* b1 = in_a ? &m.a : &m.x;
+      const CUtensorMap* b2 = in_a ? &m.pa : &m.tx;
+      const int bc = in_a ? n0 : n0 - p.ncut;
+      const uint32_t bytes = (p.two ? 8 : 4) * kBox;
+      for (int s = 0; s < ns; ++s) {
+        const int k0 = kb + 64 * s;
+        mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1u);
+        const uint32_t full = r.full + 8 * r.stage, dst = r.base + r.stage * kStage;
+        mbar_expect_tx(full, bytes);
+        for (int h = 0; h < 2; ++h) {
+          tma_load(dst + h * kBox, &m.z, full, m0 + 64 * h, k0);
+          tma_load(dst + (2 + h) * kBox, b1, full, bc + 64 * h, k0);
+          if (p.two) {
+            tma_load(dst + (4 + h) * kBox, &m.s, full, m0 + 64 * h, k0);
+            tma_load(dst + (6 + h) * kBox, b2, full, bc + 64 * h, k0);
+          }
+        }
+        r.advance();
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int prev = 0;
+  wg_fence();
+  for (int s = 0; s < ns; ++s) {
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+    const uint32_t st = r.base + r.stage * kStage;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma128<1, 1>(acc, sw128_desc(st + wg * kBox + kk * 2048, kBox, 1024),
+                     sw128_desc(st + 2 * kBox + kk * 2048, kBox, 1024), 1);
+      if (p.two)
+        wgmma128<1, 1>(acc, sw128_desc(st + (4 + wg) * kBox + kk * 2048, kBox, 1024),
+                       sw128_desc(st + 6 * kBox + kk * 2048, kBox, 1024), 1);
+    }
+    wg_commit();
+    if (s > 0) {
+      wg_wait<1>();
+      if (lane == 0) mbar_arrive(r.empty + 8 * prev);
+    }
+    prev = r.stage;
+    r.advance();
+  }
+  wg_wait<0>();
+  acc_fence(acc);
+
+  const int row = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  float* out = p.out + static_cast<size_t>(blockIdx.y) * p.M * p.N;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 8 * j + 2 * (lane & 3), rr = row + 8 * h;
+      if (rr < p.M && col < p.N)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(rr) * p.N + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+}
+
+}  // namespace
+
+// Plain C entries for ctypes, as trunk_bwd.cu's: each returns the
+// cudaError_t of its launch (0 on success), allocates nothing and does not
+// synchronise; all run on `stream`.
+
+// The per-tile backward of refnerf_trunk_bwd (the same arguments), for the
+// bf16 trunk at width 256 (dtype 1) and at most 8 layers: K4 (hc 128; with
+// K6/K7, SPA), K5 (hc 0; with K8-K10, DIR) and K11's y cotangent (YO). The
+// weight-gradient operands go to the scratch sample-major, [rp][features]
+// per region (h, zeta, s, p: [depth][rp][W]; x, ts: [rp][kin]; cbar:
+// [rp][hc]), for refnerf_wgrad_tma.
+extern "C" int refnerf_trunk_bwd_tma(REFNERF_BWD_ARGS) {
+  BwdParams p;
+  const int err = bwd_params(p, REFNERF_BWD_NAMES);
+  if (err != 0) return err;
+  if (dtype != 1 || width != kW) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
+  const bool spa = p.ipe.lm != nullptr || p.wbar != nullptr;
+  if (p.ybar != nullptr)
+    return hc == 0 && !dir && !spa && p.ubar == nullptr
+               ? launch_tma<0, false, false, true>(p, hc, s)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (hc == 0 && !spa)
+    return dir ? launch_tma<0, true, false, false>(p, hc, s)
+               : launch_tma<0, false, false, false>(p, hc, s);
+  if (hc == 128 && !dir)
+    return spa ? launch_tma<128, false, true, false>(p, hc, s)
+               : launch_tma<128, false, false, false>(p, hc, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Per-split partials out[split][M][N] of dW = Z^T [A | X] (+ S^T [PA | TX])
+// over rp samples, as refnerf_wgrad (the same arguments) but every operand
+// sample-major: z [rp][M], a [rp][ncut], x [rp][N - ncut], s [rp][M], pa
+// [rp][ncut], tx [rp][N - ncut]. bf16 (dtype 1) only; M and ncut multiples
+// of 128, rp and ksplit of 64.
+extern "C" int refnerf_wgrad_tma(int dtype, int M, int N, int ncut, int rp, int ksplit,
+                                 const void* z, const void* a, const void* x, const void* s,
+                                 const void* pa, const void* tx, float* out, void* stream) {
+  if (dtype != 1 || M <= 0 || M % 128 != 0 || N <= 0 || ncut < 0 || ncut > N || ncut % 128 != 0 ||
+      rp <= 0 || rp % 64 != 0 || ksplit <= 0 || ksplit % 64 != 0 || z == nullptr ||
+      (ncut > 0 && a == nullptr) || (ncut < N && x == nullptr) ||
+      (s != nullptr && ((ncut > 0 && pa == nullptr) || (ncut < N && tx == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WgradMaps m;
+  memset(&m, 0, sizeof(m));
+  bool ok = make_map(&m.z, z, M, rp, M, 64);
+  if (ncut > 0) ok = ok && make_map(&m.a, a, ncut, rp, ncut, 64);
+  if (ncut < N) ok = ok && make_map(&m.x, x, N - ncut, rp, N - ncut, 64);
+  if (s != nullptr) {
+    ok = ok && make_map(&m.s, s, M, rp, M, 64);
+    if (ncut > 0) ok = ok && make_map(&m.pa, pa, ncut, rp, ncut, 64);
+    if (ncut < N) ok = ok && make_map(&m.tx, tx, N - ncut, rp, N - ncut, 64);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_m = M / 128, tiles_n = (N + 127) / 128;
+  const WgradTma p{M, N, ncut, rp, ksplit, tiles_m, s != nullptr, out};
+  const size_t smem = 1024 + static_cast<size_t>(kWgStages) * 8 * kBox + 16 * kWgStages;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_tma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(tiles_m * tiles_n, (rp + ksplit - 1) / ksplit);
+  wgrad_tma_kernel<<<grid, kTmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+

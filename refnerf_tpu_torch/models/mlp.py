@@ -17,6 +17,14 @@ the directional trunk; `fuse_ipe_trig` moves the IPE (K7) and
 render.cast_rays_lifted). All under JAX's gates; a flag that is set but
 cannot act is logged once. On CUDA tensors those are the hand-written
 kernels; on the CPU, or with `fused_trunk='off'`, their plain versions.
+Under `fused_trunk='auto'` a trunk whose shape has no kernel instance runs
+the plain versions too, logged once (under 'on' it raises).
+
+A trunk with a non-ReLU activation, or one that ends in a skip concat,
+runs the plain layer stack instead (JAX's `_fused`, mlp.py:221-241): dense
+layers in the compute dtype under torch autograd, the heads as separate
+f32 layers on its output, the density normals by autograd (second order in
+training), logged once where the kernels would have run.
 
 Ported: evaluation and training (`train=True`: density-gradient normals,
 differentiable through u) with predicted normals, the IDE or the positional
@@ -25,12 +33,13 @@ without view directions (`Model.use_viewdirs = False`, passed in at build
 time as `use_viewdirs`) the spatial trunk also returns its features y (K11)
 and the rgb head runs on them, outside the trunk (mlp.py:295, :652-656).
 Not ported, and refused with NotImplementedError: density and bottleneck
-noise and a trunk that ends in a skip concat.
+noise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 from typing import Any, Optional
@@ -49,7 +58,7 @@ from refnerf_tpu_torch.utils import ginlite
 
 # The activations of the MLP's defaults; gin may name them as references.
 ACTIVATIONS = {'relu': torch.relu, 'softplus': F.softplus,
-               'sigmoid': torch.sigmoid}
+               'sigmoid': torch.sigmoid, 'elu': F.elu}
 
 # Once per process and (reason, detail): a fusion flag that is set but
 # cannot act (mlp.py:34-46).
@@ -61,6 +70,25 @@ def _warn_fused_fallback(reason: str, detail: str):
     _FALLBACK_WARNED.add((reason, detail))
     logging.warning('fused_trunk: %s (%s); the plain chain runs instead.',
                     reason, detail)
+
+
+def trailing_concat(depth: int, skip: int) -> bool:
+  """Whether a trunk of `depth` layers ends in a skip concat (mlp.py:234)."""
+  return depth > 1 and (depth - 1) % skip == 0
+
+
+def plain_stack(x, layers, act, skip, cdt):
+  """The plain trunk (mlp.py:334-344, :644-649): each dense layer in the
+  compute dtype, as flax's Dense with dtype=cdt casts its inputs and f32
+  parameters, then the activation; after every skip-th layer the trunk's
+  input is appended (promoted to the wider dtype, as jnp.concatenate)."""
+  inputs = x
+  for i, layer in enumerate(layers):
+    x = act(F.linear(x.to(cdt), layer.weight.to(cdt), layer.bias.to(cdt)))
+    if i % skip == 0 and i > 0:
+      dt = torch.promote_types(x.dtype, inputs.dtype)
+      x = torch.cat([x.to(dt), inputs.to(dt)], dim=-1)
+  return x
 
 
 def activation(v):
@@ -187,29 +215,31 @@ class MLP(nn.Module):
     for i in range(c.net_depth):
       d_in = fin if i == 0 else w + (fin if i in skips else 0)
       self.add_module(f'spatial_{i}', nn.Linear(d_in, w))
-    self.raw_density = nn.Linear(w, 1)
+    # The heads read the trunk's output, which a trailing skip concat widens.
+    wo = w + (fin if trailing_concat(c.net_depth, c.skip_layer) else 0)
+    self.raw_density = nn.Linear(wo, 1)
     self._heads = []  # (name, layer name, width) of the f32 head block
     if c.enable_pred_specular_density:
-      self.raw_specular_density = nn.Linear(w, 1)
+      self.raw_specular_density = nn.Linear(wo, 1)
       self._heads.append(('specular_density', 'raw_specular_density', 1))
     if c.enable_pred_normals:
-      self.grad_pred = nn.Linear(w, 3)
+      self.grad_pred = nn.Linear(wo, 3)
       self._heads.append(('grad_pred', 'grad_pred', 3))
     self._packs = {}
     if not use_viewdirs:
-      self.rgb = nn.Linear(w, c.num_rgb_channels)
+      self.rgb = nn.Linear(wo, c.num_rgb_channels)
       return
     if c.enable_pred_roughness:
-      self.raw_roughness = nn.Linear(w, 1)
+      self.raw_roughness = nn.Linear(wo, 1)
       self._heads.append(('roughness', 'raw_roughness', 1))
     if c.use_diffuse_color:
-      self.raw_rgb_diffuse = nn.Linear(w, c.num_rgb_channels)
+      self.raw_rgb_diffuse = nn.Linear(wo, c.num_rgb_channels)
       self._heads.append(('diffuse', 'raw_rgb_diffuse', c.num_rgb_channels))
     if c.use_specular_tint:
-      self.raw_tint = nn.Linear(w, 3)
+      self.raw_tint = nn.Linear(wo, 3)
       self._heads.append(('tint', 'raw_tint', 3))
     if c.bottleneck_width > 0:
-      self.bottleneck = nn.Linear(w, c.bottleneck_width)
+      self.bottleneck = nn.Linear(wo, c.bottleneck_width)
 
     dir_in = c.bottleneck_width + dir_width + int(c.use_n_dot_v)
     wv = c.net_width_viewdirs
@@ -217,7 +247,9 @@ class MLP(nn.Module):
     for i in range(c.net_depth_viewdirs):
       d_in = dir_in if i == 0 else wv + (dir_in if i in skips else 0)
       self.add_module(f'viewdir_{i}', nn.Linear(d_in, wv))
-    self.rgb = nn.Linear(wv, c.num_rgb_channels)
+    self.rgb = nn.Linear(
+        wv + (dir_in if trailing_concat(c.net_depth_viewdirs, c.skip_layer)
+              else 0), c.num_rgb_channels)
 
   def reset_parameters(self, generator: torch.Generator):
     """Initialise as the JAX MLP does with 'torch_uniform' (mlp.py:49-64):
@@ -248,16 +280,71 @@ class MLP(nn.Module):
       return self.cfg.fused_block
     return 512 if self.cfg.compute_dtype == 'bfloat16' else 256
 
+  def _plain_reason(self, depth):
+    """Why a trunk of `depth` layers runs the plain layer stack, as
+    (reason, detail) in JAX's words (`_fused`, mlp.py:221-241), or None: a
+    non-ReLU activation, or a trunk that ends in a skip concat."""
+    if self.net_activation not in (torch.relu, F.relu):
+      return 'non-relu net_activation', repr(self.net_activation)
+    if trailing_concat(depth, self.cfg.skip_layer):
+      return ('trailing skip concat',
+              f'depth={depth}, skip_layer={self.cfg.skip_layer}')
+    return None
+
+  def _fused(self, depth, x) -> bool:
+    """Whether a trunk of `depth` layers on x runs the fused formulation;
+    if not, logged once where the kernels would have run."""
+    why = self._plain_reason(depth)
+    if why is not None and fused_mlp.use_kernel(x, self.cfg.fused_trunk):
+      _warn_fused_fallback(*why)
+    return why is None
+
   def spatial_fused(self) -> bool:
     """Whether the spatial trunk runs the formulation that fuse_lift,
-    fuse_ipe_trig and fuse_compositing act in: a ReLU trunk (JAX's `_fused`,
-    mlp.py:221-241). A set flag that cannot act is logged once."""
-    if self.net_activation in (torch.relu, F.relu):
+    fuse_ipe_trig and fuse_compositing act in (`_plain_reason`). A set flag
+    that cannot act is logged once."""
+    why = self._plain_reason(self.cfg.net_depth)
+    if why is None:
       return True
     for f in ('fuse_lift', 'fuse_ipe_trig', 'fuse_compositing'):
       if getattr(self.cfg, f):
-        _warn_fused_fallback(f'{f} inactive', 'non-relu net_activation')
+        _warn_fused_fallback(f'{f} inactive', why[0])
     return False
+
+  def _spatial_plain(self, means, covs, rgb_heads, density_grad, out_y):
+    """The spatial trunk as the plain layer stack (mlp.py:346-362,
+    :432-441): the IPE of the lifted Gaussians, the trunk, the heads on its
+    output; the density normals by autograd w.r.t. the means, with the
+    graph kept when the caller differentiates (training). Returns what
+    `_spatial` does."""
+    c = self.cfg
+    cdt = fused_mlp.DTYPES[c.compute_dtype]
+    layers = [getattr(self, f'spatial_{i}') for i in range(c.net_depth)]
+
+    def trunk(m):
+      lm, lv = coord.lift_and_diagonalize(m, covs, self.pos_basis_t)
+      x = coord.integrated_pos_enc(lm, lv, c.min_deg_point, c.max_deg_point)
+      x = plain_stack(x, layers, self.net_activation, c.skip_layer, cdt)
+      return x, self.raw_density(x.float())[..., 0]
+
+    normals = None
+    if density_grad:
+      outer = torch.is_grad_enabled()
+      with torch.enable_grad():
+        m = means.detach().requires_grad_(True)
+        x, raw_density = trunk(m)
+        grad, = torch.autograd.grad(raw_density.sum(), m, create_graph=outer)
+      if not outer:
+        x, raw_density, grad = x.detach(), raw_density.detach(), grad.detach()
+      normals = -ref_utils.l2_normalize(grad)
+    else:
+      x, raw_density = trunk(means)
+    fh = {name: getattr(self, layer)(x.float()) for name, layer, _ in self._heads
+          if rgb_heads or name in ('specular_density', 'grad_pred')}
+    if rgb_heads and c.bottleneck_width > 0:
+      b = self.bottleneck
+      fh['bottleneck'] = F.linear(x.to(cdt), b.weight.to(cdt), b.bias.to(cdt))
+    return (x if out_y else None), raw_density, fh, normals
 
   def _spatial(self, lm, lv, rgb_heads, density_grad, delta=None,
                out_y=False):
@@ -287,7 +374,7 @@ class MLP(nn.Module):
     outs = list(fused_mlp.fused_encoded_trunk(
         lm, lv, self.scales, ws, bs, bd=self.raw_density.bias,
         skip_period=c.skip_layer, compute_dtype=c.compute_dtype,
-        mode=c.fused_trunk, activation=self.net_activation, pack=pack,
+        mode=c.fused_trunk, pack=pack,
         density_grad=density_grad,
         in_kernel_trig=c.fuse_ipe_trig and self.spatial_fused(), delta=delta,
         act_bias=c.density_bias, out_y=out_y, **kw))
@@ -325,7 +412,7 @@ class MLP(nn.Module):
     return fused_mlp.fused_trunk(
         segs, ws, bs, head_f32, skip_period=c.skip_layer,
         compute_dtype=c.compute_dtype, mode=c.fused_trunk,
-        activation=self.net_activation, pack=pack, **fuse)
+        pack=pack, **fuse)
 
   def _dir_fusions(self):
     """Which directional stages run in the trunk (mlp.py:499-613), each
@@ -359,7 +446,9 @@ class MLP(nn.Module):
     c = self.cfg
     lead = means.shape[:-1]
     n = math.prod(lead)
-    fuse_ide, fuse_geo, fuse_rgb = self._dir_fusions()
+    fused_dir = self._fused(c.net_depth_viewdirs, means)
+    fuse_ide, fuse_geo, fuse_rgb = (self._dir_fusions() if fused_dir
+                                    else (False, False, False))
     segs = []
     if c.bottleneck_width > 0:
       segs.append(fh['bottleneck'].reshape(n, -1))
@@ -391,10 +480,23 @@ class MLP(nn.Module):
         dir_enc = self.dir_enc_fn(viewdirs, roughness)
         dir_enc = dir_enc[..., None, :].expand(*lead, dir_enc.shape[-1])
       # In the compute dtype at its producer (mlp.py:562-568).
-      dir_enc = dir_enc.to(fused_mlp.DTYPES[c.compute_dtype])
-      if c.use_n_dot_v:
+      cdt = fused_mlp.DTYPES[c.compute_dtype]
+      dir_enc = dir_enc.to(cdt)
+      dotprod = (torch.sum(normals * vb, dim=-1, keepdim=True)
+                 if c.use_n_dot_v else None)
+      if not fused_dir:
+        # The plain layer stack on the concatenated input (mlp.py:643-651).
+        pieces = ([fh['bottleneck']] if c.bottleneck_width > 0 else []) + [
+            dir_enc] + ([dotprod] if dotprod is not None else [])
+        dt = functools.reduce(torch.promote_types, [p.dtype for p in pieces])
+        x = plain_stack(
+            torch.cat([p.to(dt) for p in pieces], dim=-1),
+            [getattr(self, f'viewdir_{i}')
+             for i in range(c.net_depth_viewdirs)],
+            self.net_activation, c.skip_layer, cdt)
+        return self.rgb(x.float()), None
+      if dotprod is not None:
         # n.v rides as one extra plane on the encoding segment (mlp.py:584).
-        dotprod = torch.sum(normals * vb, dim=-1, keepdim=True)
         dir_enc = torch.cat([dir_enc, dotprod.to(dir_enc.dtype)], dim=-1)
       segs.append(dir_enc.reshape(n, -1))
     fused_rgb = None
@@ -450,16 +552,19 @@ class MLP(nn.Module):
             f'({delta.shape[-1]}) dividing fused_block ({self._block()})')
       delta = None
 
-    if lifted is None:
-      lm, lv = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
-    elif not self.spatial_fused():
-      raise ValueError(
-          'lifted (fuse_lift) inputs require the fused spatial path; the '
-          'model must gate cast_rays_lifted on the same predicate')
+    if not self.spatial_fused():
+      if lifted is not None:
+        raise ValueError(
+            'lifted (fuse_lift) inputs require the fused spatial path; the '
+            'model must gate cast_rays_lifted on the same predicate')
+      self._fused(c.net_depth, means)
+      y, raw_density, fh, normals = self._spatial_plain(
+          means, covs, rgb_heads, compute_density_normals, need_y)
     else:
-      lm, lv = lifted
-    y, raw_density, fh, normals = self._spatial(
-        lm, lv, rgb_heads, compute_density_normals, delta, need_y)
+      lm, lv = (coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
+                if lifted is None else lifted)
+      y, raw_density, fh, normals = self._spatial(
+          lm, lv, rgb_heads, compute_density_normals, delta, need_y)
 
     normals_pred = grad_pred = None
     normals_to_use = normals

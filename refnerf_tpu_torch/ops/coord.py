@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from refnerf_tpu_torch.ops import mathx
+
 
 def construct_ray_warps(fn, t_near, t_far):
   """Bijection between metric distance t and normalized distance s in [0,1].
@@ -22,6 +24,24 @@ def construct_ray_warps(fn, t_near, t_far):
   t_to_s = lambda t: (t - t_near) / (t_far - t_near)
   s_to_t = lambda s: s * t_far + (1 - s) * t_near
   return t_to_s, s_to_t
+
+
+def integrated_pos_enc(mean, var, min_deg, max_deg):
+  """The integrated positional encoding (coord.py:100-120) of coordinate
+  means and diagonal variances [..., d]: E[sin] of the 2^k-scaled
+  coordinates and of them shifted by pi/2, degree-major, basis-minor, as
+  JAX's plain MLP path writes it. The fused trunks' fused_mlp.encode_ipe
+  takes cos(m) instead of sin(m + pi/2); the two differ by the f32
+  rounding of m + pi/2, up to ~5e-4 at 2^15 (max_deg_point 16), above the
+  plain path's f32 parity with JAX, so the plain layer stack uses this
+  form (tests/test_torch_port_plainstack.py)."""
+  scales = 2.0**torch.arange(min_deg, max_deg, dtype=mean.dtype,
+                             device=mean.device)
+  shape = (*mean.shape[:-1], -1)
+  scaled_mean = (mean[..., None, :] * scales[:, None]).reshape(shape)
+  scaled_var = (var[..., None, :] * (scales**2)[:, None]).reshape(shape)
+  return torch.exp(-0.5 * torch.cat([scaled_var] * 2, dim=-1)) * mathx.safe_sin(
+      torch.cat([scaled_mean, scaled_mean + 0.5 * math.pi], dim=-1))
 
 
 def lift_and_diagonalize(mean, cov, basis):

@@ -29,6 +29,23 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# The per-tile backward's arguments:
+# (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
+#  wd, wh, bh, hf, wct, sbar, hbar, cbar, ubar, fold, nb, dx0, dx1,
+#  dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
+#  g, v, k, ide_p, lmax, geo, mat, sg, gm, ddg, ddk,
+#  rawd, rawt, rgb_bar, drawd, drawt, premult, rbias, pad,
+#  lm, lv, delta, bsig, sig, wbar, samples, ybar, stream)
+_BWD_ARGS = [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+             _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+             _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+             _P, _P, _P, _P, _I,
+             _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+             _P, _P, _P, _P, _P, _F, _F, _F,
+             _P, _P, _P, _P, _P, _P, _I, _P, _P]
+# The weight-gradient product's: (dtype, M, N, ncut, rp, ksplit, z, a, x, s,
+# pa, tx, out, stream).
+_WGRAD_ARGS = [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
 # The entry points of each library and their ctypes signatures (every
 # pointer and the stream as c_void_p, every int as c_int, every float as
 # c_float).
@@ -46,24 +63,16 @@ EXPORTS = {
         'refnerf_trunk_supports': [_I, _I],
     },
     'trunk_bwd': {
-        # (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
-        #  wd, wh, bh, hf, wct, sbar, hbar, cbar, ubar, fold, nb, dx0, dx1,
-        #  dxs, rp, hs, zs, ss, ps, xs, ts, cs, vec, nvec,
-        #  g, v, k, ide_p, lmax, geo, mat, sg, gm, ddg, ddk,
-        #  rawd, rawt, rgb_bar, drawd, drawt, premult, rbias, pad,
-        #  lm, lv, delta, bsig, sig, wbar, samples, ybar, stream)
-        'refnerf_trunk_bwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                              _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _I,
-                              _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _P, _F, _F, _F,
-                              _P, _P, _P, _P, _P, _P, _I, _P, _P],
-        # (dtype, M, N, ncut, rp, ksplit, z, a, x, s, pa, tx, out, stream)
-        'refnerf_wgrad': [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P],
+        'refnerf_trunk_bwd': _BWD_ARGS,
+        'refnerf_wgrad': _WGRAD_ARGS,
         # (parts, nparts, rows, k, k_out, dst, accumulate, stream)
         'refnerf_reduce': [_P, _I, _I, _I, _I, _P, _I, _P],
+    },
+    # The bf16 width-256 backward (wgmma, TMA): the same arguments, the
+    # weight-gradient operands sample-major.
+    'trunk_bwd_tma': {
+        'refnerf_trunk_bwd_tma': _BWD_ARGS,
+        'refnerf_wgrad_tma': _WGRAD_ARGS,
     },
 }
 

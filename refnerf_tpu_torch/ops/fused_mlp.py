@@ -36,8 +36,9 @@ Both backwards are `once_differentiable`: autograd never differentiates
 through a kernel, and the second-order terms of u come out of the one
 backward pass, as in the Pallas contract.
 
-Kernels (`csrc/trunk_fwd.cu`: K1-K3, K6-K11; `csrc/trunk_bwd.cu`: K4-K11),
-at width 256 and, for the directional trunk, 128, run for CUDA tensors
+Kernels (`csrc/trunk_fwd.cu`: K1-K3, K6-K11; `csrc/trunk_bwd_tma.cu` or
+`csrc/trunk_bwd.cu` by shape, `tma_backward`: K4-K11), at width 256 and,
+for the directional trunk, 128, run for CUDA tensors
 unless `mode='off'`. A CPU tensor or `mode='off'` takes the
 plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
@@ -53,8 +54,9 @@ back to the plain version. Each launch through a wrapper adds one to
 from __future__ import annotations
 
 import functools
+import logging
 import math
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,10 +72,21 @@ MODES = ('auto', 'on', 'off')
 _KS = 32  # the kernels stream weights in K-slices of this many rows
 _TILE = 64  # samples per CTA of the trunk kernels
 # Rows per slab of the backward kernels: the per-sample operands of the
-# weight-gradient products (feature-major, compute dtype) are kept for one
-# slab at a time, about 1.1 GB for the spatial trunk in bf16.
+# weight-gradient products (compute dtype; feature-major, or sample-major
+# for the bf16 width-256 instances of csrc/trunk_bwd_tma.cu) are kept for
+# one slab at a time, about 1.1 GB for the spatial trunk in bf16.
 BWD_SLAB = 65536
-_KSPLIT = 1024  # samples per partial sum of the weight-gradient kernel
+# Samples per partial sum of the weight-gradient kernel: trunk_bwd.cu's
+# (128 x 128 tiles, each operand read twice), and trunk_bwd_tma.cu's, whose
+# 2048 give 32 partials a slab (half the reduction's reads) and 128 CTAs for
+# a 256 x 256 gradient.
+_KSPLIT = 1024
+_KSPLIT_TMA = 2048
+# The trunk_bwd_tma.cu kernels take at most this many layers (a tensor map
+# a layer in the launch's parameters) and input columns (one input tile);
+# a bf16 width-256 backward past either runs trunk_bwd.cu's instances.
+_TMA_DEPTH = 8
+_TMA_KIN = 256
 
 # Launches through the wrappers, by kernel: K1 spatial forward, K2
 # directional forward, K3 spatial forward with the density gradient, K4
@@ -212,7 +225,7 @@ def _seg_cols(t: _Trunk, w, j, off=0):
   return w[:, off + t.bounds[j]:off + t.bounds[j + 1]]
 
 
-def _forward_acts(t: _Trunk, segs, act):
+def _forward_acts(t: _Trunk, segs):
   """Every layer's activation, in the compute dtype (`_forward_trunk` :566)."""
   def seg_sum(w, off):
     hb = _dot(segs[0], _seg_cols(t, w, 0, off))
@@ -228,7 +241,7 @@ def _forward_acts(t: _Trunk, segs, act):
       hb = _dot(h, w[:, :t.width])
       if l in t.skips:
         hb = hb + seg_sum(w, t.width)
-    h = act(hb.to(t.cdt) + b)
+    h = torch.relu(hb.to(t.cdt) + b)
     acts.append(h)
   return acts
 
@@ -453,7 +466,6 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
                     head_f32: Optional[Head] = None,
                     head_cdt: Optional[Head] = None,
                     compute_dtype: str = 'float32',
-                    activation: Optional[Callable] = None,
                     density_grad: bool = False,
                     dir_modes: Optional[DirModes] = None, rgbx=None,
                     fold=None, spa_modes: Optional[SpaModes] = None,
@@ -470,8 +482,7 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     wd: density head weight [1, width]; gives sigma without its bias.
     head_f32: (wh [hf, width], bh [hf]) evaluated in f32.
     head_cdt: (wc [hc, width], bc [hc]) evaluated in the compute dtype.
-    activation: the trunk nonlinearity; None is ReLU.
-    density_grad: also run the inner chain (needs wd and ReLU).
+    density_grad: also run the inner chain (needs wd).
     dir_modes: the fused directional stages (K8-K10), or None.
     rgbx: with `dir_modes.rgbe`, (raw diffuse [n, 3], raw tint [n, 3]).
     fold: with `density_grad`, the [F, nb] scale fold of the two IPE
@@ -490,7 +501,6 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     the backward.
   """
   cdt = DTYPES[compute_dtype]
-  act = torch.relu if activation is None else activation
   dm = dir_modes or DirModes()
   sp = spa_modes or SpaModes()
   trig = None
@@ -499,7 +509,7 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
   else:
     segs = dir_segments(segs, dm, cdt)
   t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
-  acts = _forward_acts(t, segs, act)
+  acts = _forward_acts(t, segs)
   h = acts[-1]
   outs = [h] if out_y else []
   y32 = h.float()
@@ -515,9 +525,9 @@ def trunk_reference(segs: Sequence[torch.Tensor], weights, biases, *,
     wc, bc = head_cdt
     outs.append(_dot(h, wc.to(cdt)).to(cdt) + bc.to(cdt))
   if density_grad:
-    if wd is None or act not in (torch.relu, F.relu):
+    if wd is None:
       raise NotImplementedError('the density gradient needs the density '
-                                'head and a ReLU trunk')
+                                'head')
     us = _inner_chain(t, acts, wd, len(segs))[0]
     if fold is None:
       outs += us
@@ -589,7 +599,7 @@ def trunk_backward_reference(segs, weights, biases, cots, *, skip_period=4,
     sbar = ct_raw if sbar is None else sbar.float() + ct_raw
   t = _trunk(weights, biases, [s.shape[-1] for s in segs], skip_period, cdt)
   n, W, L, G = segs[0].shape[0], t.width, len(t.ws), len(segs)
-  acts = _forward_acts(t, segs, torch.relu)
+  acts = _forward_acts(t, segs)
   y = acts[-1]
   y32 = y.float()
   ss = None
@@ -767,12 +777,6 @@ def use_kernel(x: torch.Tensor, mode: str) -> bool:
   return x.is_cuda and mode != 'off'
 
 
-def _kernel_guard(activation):
-  if activation is not None and activation not in (torch.relu, F.relu):
-    raise NotImplementedError(
-        f'the trunk kernel models ReLU only, got {activation!r}')
-
-
 def _ptr(t):
   return None if t is None else t.data_ptr()
 
@@ -787,18 +791,21 @@ def _library(name: str, pack: TrunkPack, hc: int):
   return cuda_build.library(name)
 
 
-def _instance_guard(pack: TrunkPack, hc, fold, dm: DirModes, sp: SpaModes,
-                    y: bool):
-  """Refuses, before anything is built or launched, what mip-NeRF's
-  instances do not run. K11 (y out, ybar in) runs in an instance of its
-  own: the spatial trunk at width 256 without the compute-dtype head, the
-  density gradient (K3) or a fused stage (K6-K10). Width 128 runs only the
-  plain directional trunk (K2, K5): no density head, density gradient or
-  fused stage."""
+def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
+                     sp: SpaModes = SpaModes(),
+                     y: bool = False) -> Optional[str]:
+  """Why no built kernel instance runs this trunk, or None; decided from
+  the pack's shape and the modes alone, before anything is built or
+  launched. K11 (y out, ybar in) runs in an instance of its own: the
+  spatial trunk at width 256 without the compute-dtype head, the density
+  gradient (K3) or a fused stage (K6-K10). Width 128 runs only the plain
+  directional trunk (K2, K5): no density head, density gradient or fused
+  stage."""
   fused = (('the density gradient (K3)', fold is not None),
            ('the compositing weights (K6)', sp.samples),
            ('the in-kernel IPE (K7)', sp.scales),
            ('a fused directional stage (K8-K10)', dm.ide_deg or dm.rgbe))
+  modes = ()
   if y:
     what = 'the trunk-features output (K11)'
     modes = ((f'width {pack.width}', pack.width != 256),
@@ -806,12 +813,52 @@ def _instance_guard(pack: TrunkPack, hc, fold, dm: DirModes, sp: SpaModes,
   elif pack.width == 128:
     what = 'the width-128 trunk'
     modes = (('the density head', pack.wd is not None),) + fused
-  else:
-    return
   off = [name for name, on in modes if on]
   if off:
-    raise NotImplementedError(
-        f'{what} has no kernel with ' + ', '.join(off) + ' (ROADMAP queue 2)')
+    return f'{what} has no kernel with ' + ', '.join(off) + ' (ROADMAP queue 2)'
+  if not ((pack.width == 256 and hc in (0, 128)) or
+          (pack.width == 128 and hc == 0)):
+    return (f'no trunk kernel instance for width {pack.width} and '
+            f'compute-dtype head {hc} (built: width 256, head 0 or 128; '
+            'width 128, head 0)')
+  return None
+
+
+def _instance_guard(pack: TrunkPack, hc, fold, dm: DirModes, sp: SpaModes,
+                    y: bool):
+  """Refuses, before anything is built or launched, what no instance runs
+  (`missing_instance`)."""
+  why = missing_instance(pack, hc, fold, dm, sp, y)
+  if why:
+    raise NotImplementedError(why)
+
+
+def tma_backward(pack: TrunkPack) -> bool:
+  """Whether the backward of `pack` runs trunk_bwd_tma.cu's kernels (bf16
+  at width 256, within `_TMA_DEPTH` layers and `_TMA_KIN` input columns)
+  rather than trunk_bwd.cu's; decided from the shape alone."""
+  return (pack.compute_dtype == 'bfloat16' and pack.width == 256 and
+          pack.depth <= _TMA_DEPTH and pack.kin <= _TMA_KIN)
+
+
+# Once per process and reason: a trunk shape without a kernel instance.
+_NO_INSTANCE_LOGGED = set()
+
+
+def _kernel_for(pack, hc, mode, **modes) -> bool:
+  """Under mode 'auto', whether a shape without a kernel instance runs the
+  plain versions instead (False, logged once); under 'on' it raises. True
+  when an instance runs it."""
+  why = missing_instance(pack, hc, **modes)
+  if why is None:
+    return True
+  if mode == 'on':
+    raise NotImplementedError(why)
+  if why not in _NO_INSTANCE_LOGGED:
+    _NO_INSTANCE_LOGGED.add(why)
+    logging.warning('fused_trunk: no kernel instance (%s); the plain '
+                    'versions run instead.', why)
+  return False
 
 
 def _check_launch(err, what):
@@ -1057,7 +1104,8 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   Per slab of samples: the per-tile kernel recomputes the trunk and runs the
   inner chain, the head backward, the first-order reverse and (with the
   cotangent of u) the tangent chain, writing each layer's weight-gradient
-  operands feature-major into a scratch buffer and per-tile sums of the
+  operands into a scratch buffer (sample-major for trunk_bwd_tma.cu,
+  feature-major for trunk_bwd.cu: `tma_backward`) and per-tile sums of the
   vector gradients; then a split-K product over samples forms each weight
   gradient's partials, and fixed-order reductions sum them (no atomics: the
   result does not depend on the schedule). With K6 a slab holds whole rays.
@@ -1069,6 +1117,15 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   _instance_guard(pack, hc, fold, dm, sp, ybar is not None)
   lib = _library('trunk_bwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
+  # wgmma and TMA, the scratch sample-major (`tma_backward`).
+  tma = tma_backward(pack)
+  if tma:
+    from refnerf_tpu_torch.ops import cuda_build
+    tlib = cuda_build.library('trunk_bwd_tma')
+    tile_fn, wgrad_fn = tlib.refnerf_trunk_bwd_tma, tlib.refnerf_wgrad_tma
+  else:
+    tile_fn, wgrad_fn = lib.refnerf_trunk_bwd, lib.refnerf_wgrad
+  ksplit = _KSPLIT_TMA if tma else _KSPLIT
   seg_dtypes = [s.dtype for s in segs]
   ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
   dev, n, d0, d1 = segs[0].device, int(segs[0].shape[0]), ki.d0, ki.d1
@@ -1142,7 +1199,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
                         dtype=cdt)
   dx_keep = torch.empty(rp_max * kin, device=dev) if needs_dx else None
   vec_part = torch.empty(rp_max // _TILE * nvec, device=dev)
-  wpart = torch.empty(-(-rp_max // _KSPLIT) * W * max(max(k_pack), W),
+  wpart = torch.empty(-(-rp_max // ksplit) * W * max(max(k_pack), W),
                       device=dev)
   es = scratch.element_size()
   stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1161,7 +1218,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
         reg[name] = scratch.data_ptr() + off * rp * es
         off += feats
       layer = lambda name, l: reg[name] + l * W * rp * es
-      err = lib.refnerf_trunk_bwd(
+      err = tile_fn(
           flag, W, hc, at(ki.x0, start, d0), d0, at(ki.x1, start, d1), d1,
           rows, kin, L, pack.skip, _ptr(pack.w), _ptr(pack.wt), _ptr(pack.b),
           _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf, _ptr(pack.wct),
@@ -1179,11 +1236,11 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
           at(ybar, start, W), stream)
       _check_launch(err, 'trunk backward kernel')
       acc = int(start > 0)
-      nsplit = -(-rp // _KSPLIT)
+      nsplit = -(-rp // ksplit)
       for l in range(L):
         ncut = 0 if l == 0 else W
-        err = lib.refnerf_wgrad(
-            flag, W, k_pack[l], ncut, rp, _KSPLIT, layer('zs', l),
+        err = wgrad_fn(
+            flag, W, k_pack[l], ncut, rp, ksplit, layer('zs', l),
             reg['xs'] if l == 0 else layer('hs', l - 1), reg['xs'],
             layer('ss', l) if dg else None,
             (reg['ts'] if l == 0 else layer('ps', l - 1)) if dg else None,
@@ -1193,7 +1250,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
                                  k_out[l], dws[l].data_ptr(), acc, stream)
         _check_launch(err, 'reduction kernel')
       if hc:
-        err = lib.refnerf_wgrad(flag, hc, W, W, rp, _KSPLIT, reg['cs'],
+        err = wgrad_fn(flag, hc, W, W, rp, ksplit, reg['cs'],
                                 layer('hs', L - 1), None, None, None, None,
                                 wpart.data_ptr(), stream)
         _check_launch(err, 'weight-gradient kernel')
@@ -1387,7 +1444,7 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
                         head_f32: Optional[Head] = None,
                         head_cdt: Optional[Head] = None,
                         compute_dtype='float32', mode='auto',
-                        activation=None, pack: Optional[TrunkPack] = None,
+                        pack: Optional[TrunkPack] = None,
                         in_kernel_trig=False, delta=None, act_bias=0.0,
                         out_y=False):
   """K1/K3 forward, K4 backward: the IPE trunk of lifted means/vars
@@ -1404,7 +1461,9 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
   sigma = softplus(raw + bd + act_bias) (:1352-1360). delta takes no
   gradient; bd takes the weights' through bsig = bd + act_bias, a device
   tensor. `out_y` (K11): also return the trunk's last activation y, in the
-  compute dtype; its cotangent enters the backward.
+  compute dtype; its cotangent enters the backward. Under mode 'auto' a
+  trunk without a kernel instance (`missing_instance`) takes the plain
+  versions, logged once; under 'on' it raises.
 
   Returns ([y [..., width],] sigma [...], [h_f32 [..., hf],]
   [h_cdt [..., hc],] [u [..., nb],] [weights [...]]), in the Pallas order
@@ -1418,44 +1477,35 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
   lm2, lv2 = (t.detach().reshape(n, nb).float().contiguous() for t in (lm, lv))
   params = _params(weights, biases, wd, head_f32, head_cdt)
   kernel = use_kernel(lm2, mode)
-  if kernel:
-    _kernel_guard(activation)
   if delta is not None and wd is None:
     raise ValueError('the compositing epilogue needs the density head')
-  if not (activation is None or activation in (torch.relu, F.relu)):
-    if density_grad or delta is not None or _needs_grad(params):
-      raise NotImplementedError('the trunk backward, the density gradient '
-                                'and the compositing epilogue model ReLU '
-                                'only')
-    outs = trunk_reference(list(encode_ipe(lm2, lv2, scales, compute_dtype)),
-                           weights, biases, skip_period=skip_period,
-                           wd=wd, head_f32=head_f32, head_cdt=head_cdt,
-                           compute_dtype=compute_dtype, activation=activation,
-                           out_y=out_y)
-  else:
-    spa = SpaModes(tuple(float(s) for s in scales) if in_kernel_trig else (),
-                   0 if delta is None else int(delta.shape[-1]))
-    segs = ([lm2, lv2] if in_kernel_trig
-            else list(encode_ipe(lm2, lv2, scales, compute_dtype)))
-    if kernel and pack is None:
-      f = nb * len(scales)
-      pack = pack_trunk(weights, biases, (f, f), skip_period=skip_period,
-                        wd=wd, head_f32=head_f32, head_cdt=head_cdt,
-                        compute_dtype=compute_dtype)
-    fold = None
-    if density_grad:
-      fold = _scale_fold(tuple(float(s) for s in scales), nb, lm2.device)
-    dcol = bsig = None
-    if spa.samples:
-      dcol = delta.detach().float().reshape(n).contiguous()
-      bsig = (torch.zeros(1, device=lm2.device) if bd is None
-              else bd.float().reshape(1)) + float(act_bias)
-    spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
-                 pack if kernel else None, fold,
-                 (bool(out_y), wd is not None, head_f32 is not None,
-                  head_cdt is not None),
-                 False, spa_modes=spa)
-    outs = list(SpatialTrunk.apply(spec, *segs, dcol, bsig, *params))
+  spa = SpaModes(tuple(float(s) for s in scales) if in_kernel_trig else (),
+                 0 if delta is None else int(delta.shape[-1]))
+  segs = ([lm2, lv2] if in_kernel_trig
+          else list(encode_ipe(lm2, lv2, scales, compute_dtype)))
+  if kernel and pack is None:
+    f = nb * len(scales)
+    pack = pack_trunk(weights, biases, (f, f), skip_period=skip_period,
+                      wd=wd, head_f32=head_f32, head_cdt=head_cdt,
+                      compute_dtype=compute_dtype)
+  fold = None
+  if density_grad:
+    fold = _scale_fold(tuple(float(s) for s in scales), nb, lm2.device)
+  if kernel:
+    kernel = _kernel_for(
+        pack, 0 if head_cdt is None else int(head_cdt[0].shape[0]), mode,
+        fold=fold, sp=spa, y=bool(out_y))
+  dcol = bsig = None
+  if spa.samples:
+    dcol = delta.detach().float().reshape(n).contiguous()
+    bsig = (torch.zeros(1, device=lm2.device) if bd is None
+            else bd.float().reshape(1)) + float(act_bias)
+  spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
+               pack if kernel else None, fold,
+               (bool(out_y), wd is not None, head_f32 is not None,
+                head_cdt is not None),
+               False, spa_modes=spa)
+  outs = list(SpatialTrunk.apply(spec, *segs, dcol, bsig, *params))
   wts = outs.pop() if delta is not None else None
   res = [outs.pop(0).reshape(*lead, -1)] if out_y else []
   sig = outs[0] if bd is None else outs[0] + bd.float()
@@ -1468,7 +1518,7 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
 
 def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,
                 skip_period=4, compute_dtype='float32', mode='auto',
-                activation=None, pack: Optional[TrunkPack] = None,
+                pack: Optional[TrunkPack] = None,
                 ide_deg=0, ide_at=0, ide_geo=False, rgb_epilogue=None):
   """K2 forward, K5 backward: a trunk over input segments [..., d_j] and its
   f32 head (:1178-1314), with segment cotangents in the compute dtype.
@@ -1482,7 +1532,8 @@ def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,
   epilogue runs after the rgb head, which `head_f32` must be.
 
   Returns the head output [..., hf], or (head output, rgb [..., 3]) with
-  `rgb_epilogue`. `pack` as for fused_encoded_trunk.
+  `rgb_epilogue`. `pack` and the shapes without an instance as for
+  fused_encoded_trunk.
   """
   segs, dm = _dir_segments(segs, ide_deg, ide_at, ide_geo)
   rgbx = []
@@ -1500,22 +1551,15 @@ def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,
     rgbx = [rawd.reshape(n, 3).float(), rawt.reshape(n, 3).float()]
   params = _params(weights, biases, None, head_f32, None)
   kernel = use_kernel(flat[0], mode)
+  if kernel and pack is None:
+    pack = pack_trunk(weights, biases, visible_dims(flat, dm),
+                      skip_period=skip_period, head_f32=head_f32,
+                      compute_dtype=compute_dtype)
   if kernel:
-    _kernel_guard(activation)
-  if not (activation is None or activation in (torch.relu, F.relu)):
-    if _needs_grad(flat + params + rgbx):
-      raise NotImplementedError('the trunk backward models ReLU only')
-    outs = trunk_reference(flat, weights, biases, skip_period=skip_period,
-                           head_f32=head_f32, compute_dtype=compute_dtype,
-                           activation=activation, dir_modes=dm, rgbx=rgbx)
-  else:
-    if kernel and pack is None:
-      pack = pack_trunk(weights, biases, visible_dims(flat, dm),
-                        skip_period=skip_period, head_f32=head_f32,
-                        compute_dtype=compute_dtype)
-    spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
-                 pack if kernel else None, None, (False, False, True, False),
-                 True, dm)
-    outs = DirectionalTrunk.apply(spec, len(flat), *flat, *params, *rgbx)
+    kernel = _kernel_for(pack, 0, mode, dm=dm)
+  spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
+               pack if kernel else None, None, (False, False, True, False),
+               True, dm)
+  outs = DirectionalTrunk.apply(spec, len(flat), *flat, *params, *rgbx)
   outs = [o.reshape(*lead, o.shape[-1]) for o in outs]
   return outs[0] if len(outs) == 1 else tuple(outs)

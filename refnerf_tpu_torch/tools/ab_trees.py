@@ -1,18 +1,27 @@
-"""Time phase 5 of chip_smoke.py (K3, K4, K5 against their plain versions)
-from several checkouts, in turns on one card, and compare the SASS that each
-checkout's build gives each kernel.
+"""Time kernel phases of chip_smoke.py (by default phase 5: K3, K4, K5
+against their plain versions) from several checkouts, in turns on one card,
+and compare the SASS that each checkout's build gives each kernel.
 
 From the root of a checkout, on a machine with an H100 and the CUDA toolkit,
 with the checkouts to compare unpacked (git archive) in ignored directories:
 
     python3 -m refnerf_tpu_torch.tools.ab_trees --arm p=_chip/p \\
-        --arm c=_chip/c --order p,c,p,c,p,c --out chiprun_out/ab
+        --arm c=_chip/c --order p,c,p,c,p,c --out chiprun_out/ab \\
+        [--checks check_train_kernels,check_dir_kernels,check_spa_kernels,
+                  serve_requests]
 
 First every checkout builds its kernels into its own build/, all at once.
 Then each run of --order (none without it) is a process of its own in its
-checkout's root: it imports that checkout's chip_smoke.py and runs its
-check_train_kernels. Each run's output goes to --out. Printed: every case's
-kernel and plain times per arm in run order and their medians; then, per
+checkout's root: it imports that checkout's chip_smoke.py and runs the
+functions of --checks (phase 5's check_train_kernels by default; phase 7's
+check_dir_kernels and phase 9's check_spa_kernels time K5 with K8-K10 and K4
+with K6/K7). `serve_requests` is this tool's own, the same code in every
+checkout: phase 10's model (all six fuse flags) and phase 12's two mip-NeRF
+models each answer a 4096-ray request, timed on the host clock under
+fused_trunk='auto' ("kernel") and 'off' ("plain"), with one request's
+device-busy time from torch.profiler. Each run's output goes to --out.
+Printed: every case's kernel and plain times (and device busy, where
+measured) per arm in run order and their medians; then, per
 library, whether each kernel instance of the first arm has the same SASS
 instructions in each other arm (an instance that gained trailing template
 flags, all false, is the same instance).
@@ -20,6 +29,7 @@ flags, all false, is the same instance).
 
 import argparse
 import difflib
+import inspect
 import json
 import pathlib
 import re
@@ -28,6 +38,7 @@ import statistics
 import subprocess
 import sys
 
+# A run: CHECKS, then this tool's own checks' source (OWN), then this.
 RUN = '''
 import sys, torch
 sys.path.insert(0, '.')
@@ -35,12 +46,73 @@ import chip_smoke
 from refnerf_tpu_torch.ops import fused_mlp
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-chip_smoke.check_train_kernels(fused_mlp, torch.device('cuda'))
+for check in CHECKS:
+  fn = globals()[check] if check in OWN else getattr(chip_smoke, check)
+  fn(fused_mlp, torch.device('cuda'))
 '''
+
+
+def serve_requests(fused_mlp, dev, reps=15, reps_off=3):
+  """Phase 10's and phase 12's models, each answering one 4096-ray request
+  `reps` times under fused_trunk='auto' and `reps_off` times under 'off'
+  after a warm-up of each; prints the median wall ms of each and the
+  device-busy ms of one 'auto' request, in chip_smoke's line format. Run
+  in a checkout's root, with its chip_smoke imported: it uses only what
+  every checkout's chip_smoke has (flagship, random_rays, set_mode and the
+  binding lists)."""
+  import statistics
+  import time
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  import chip_smoke
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  models = (('phase 10', 'all six', chip_smoke.FLAGSHIP,
+             chip_smoke.FUSE + chip_smoke.SPATIAL),
+            ('phase 12', 'mip-NeRF shipped', chip_smoke.MIPNERF, []),
+            ('phase 12', 'mip-NeRF no viewdirs', chip_smoke.MIPNERF,
+             chip_smoke.NO_VIEWDIRS))
+  for phase, name, gin, bindings in models:
+    model, config = chip_smoke.flagship(dev, bindings, gin)
+    rays = chip_smoke.random_rays(rays_lib, 4096, config, 1, dev)
+    request = lambda: renderer.render_rays(model, rays,
+                                           config.render_chunk_size)
+    wall = {}
+    with torch.no_grad():
+      for mode, n in (('auto', reps), ('off', reps_off)):
+        chip_smoke.set_mode(model, fused_trunk=mode)
+        request()
+        times = []
+        for _ in range(n):
+          torch.cuda.synchronize()
+          t0 = time.perf_counter()
+          request()
+          torch.cuda.synchronize()
+          times.append((time.perf_counter() - t0) * 1e3)
+        wall[mode] = statistics.median(times)
+      chip_smoke.set_mode(model, fused_trunk='auto')
+      with profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f'{phase}: request {name} bfloat16 N=4096: kernel '
+          f'{wall["auto"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
+          f'{busy:.3f} ms', flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+OWN = {f.__name__: f for f in (serve_requests,)}  # run in every checkout
 BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
 FALSE = ('false', '(bool)0')  # a false template flag, as cu++filt prints it
-TIMES = re.compile(r'^phase \d+: (\S+) (float32|bfloat16) N=\d+: .*?kernel '
+TIMES = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?kernel '
                    r'([\d.]+) ms, plain ([\d.]+) ms', re.M)
+BUSY = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?device '
+                  r'busy ([\d.]+) ms', re.M)
 SASS = re.compile(r'/\*[0-9a-f]{4,}\*/\s+(.*?;)')
 NAME = re.compile(r'(\w+)<(.*)>\(')
 
@@ -65,20 +137,26 @@ def build(arms):
                          f'{log[-3000:]}')
 
 
-def run_arms(arms, order, out):
-  """{(case, dtype): {arm: [(kernel ms, plain ms) per run]}}."""
+def run_arms(arms, order, out, checks):
+  """{(case, dtype): {arm: [(kernel ms, plain ms[, device busy ms]) per
+  run]}}."""
   times = {}
+  run = (f'CHECKS = {checks!r}\nOWN = {sorted(OWN)!r}\n' +
+         ''.join(inspect.getsource(f) + '\n' for f in OWN.values()) + RUN)
   for i, arm in enumerate(order):
-    proc = subprocess.run([sys.executable, '-c', RUN],
+    proc = subprocess.run([sys.executable, '-c', run],
                           cwd=arms[arm], capture_output=True, text=True,
-                          timeout=1200)
+                          timeout=1800)
     (out / f'run{i}_{arm}.log').write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
       raise RuntimeError(f'run {i} ({arm}) exited {proc.returncode}:\n'
                          f'{proc.stderr[-3000:]}')
+    busy = {(case, cdt): float(b)
+            for case, cdt, b in BUSY.findall(proc.stdout)}
     for case, cdt, k, p in TIMES.findall(proc.stdout):
       times.setdefault((case, cdt), {}).setdefault(arm, []).append(
-          (float(k), float(p)))
+          (float(k), float(p)) + ((busy[case, cdt],)
+                                  if (case, cdt) in busy else ()))
     print(f'run {i} ({arm}) done', flush=True)
   return times
 
@@ -121,8 +199,8 @@ def compare_sass(arms, out):
     stem = lib.name.rsplit('_', 1)[0]
     base = functions(lib)
     for arm in rest:
-      libs = list((arms[arm] / 'build' / 'refnerf_tpu_torch').glob(
-          stem + '_*.so'))
+      libs = [l for l in (arms[arm] / 'build' / 'refnerf_tpu_torch').glob(
+          stem + '_*.so') if l.name.rsplit('_', 1)[0] == stem]
       if len(libs) != 1:
         raise RuntimeError(f'{arm}: {len(libs)} builds of {stem}')
       other = functions(libs[0])
@@ -152,6 +230,8 @@ def main():
   ap.add_argument('--order', default='',
                   help='arm names, comma-separated (none: only the SASS)')
   ap.add_argument('--out', default='chiprun_out/ab')
+  ap.add_argument('--checks', default='check_train_kernels',
+                  help='chip_smoke functions a run calls, comma-separated')
   a = ap.parse_args()
   arms = {k: pathlib.Path(v).resolve()
           for k, v in (s.split('=', 1) for s in a.arm)}
@@ -161,19 +241,24 @@ def main():
   out = pathlib.Path(a.out)
   out.mkdir(parents=True, exist_ok=True)
   build(arms)
-  times = run_arms(arms, order, out)
+  times = run_arms(arms, order, out, a.checks.split(','))
   summary = {}
   for (case, cdt), by_arm in times.items():
     row = {}
     for arm, runs in by_arm.items():
       ks, ps = [r[0] for r in runs], [r[1] for r in runs]
+      bs = [r[2] for r in runs if len(r) > 2]
       row[arm] = {'kernel_ms': ks, 'plain_ms': ps,
                   'kernel_median': statistics.median(ks),
                   'plain_median': statistics.median(ps)}
+      if bs:
+        row[arm].update(busy_ms=bs, busy_median=statistics.median(bs))
       print(f'{case} {cdt} {arm}: kernel ' + ' '.join(f'{k:.3f}' for k in ks)
             + f' (median {row[arm]["kernel_median"]:.3f}) ms, plain '
             + ' '.join(f'{p:.3f}' for p in ps)
-            + f' (median {row[arm]["plain_median"]:.3f}) ms')
+            + f' (median {row[arm]["plain_median"]:.3f}) ms' + (
+                ', device busy ' + ' '.join(f'{b:.3f}' for b in bs) +
+                f' (median {row[arm]["busy_median"]:.3f}) ms' if bs else ''))
     summary[f'{case} {cdt}'] = row
   sass = compare_sass(arms, out)
   for label, verdicts in sass.items():

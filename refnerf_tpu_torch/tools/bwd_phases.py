@@ -1,0 +1,199 @@
+"""Break the backward trunk kernels' time down by phase, on one card.
+
+From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
+
+    python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
+        [--lib trunk_bwd] [--dtype float32]
+
+Builds a backward library a second time with -DREFNERF_PHASES (its own
+file in build/, never loaded on the main path): by default the bf16
+width-256 kernels of csrc/trunk_bwd_tma.cu; with --lib trunk_bwd the
+mma.sync kernels of csrc/trunk_bwd.cu, which then also run the bf16
+flagship shapes (fused_mlp.tma_backward is patched to refuse them): the
+design that trunk_bwd_tma.cu replaced there, and f32 with --dtype float32.
+Thread 0 of every CTA of
+the per-tile kernel adds the clock64() cycles of each segment, closed by a
+barrier, to a (phase, kind) sum; kinds are the products, the scalar passes
+and the scratch stores. Then, at N = 524,288 samples in --dtype and for each
+case (K4 with the cotangent of u, alone and with K6+K7; K5 with dx, alone
+and with K8+K9+K10), it runs the backward once through the phase build and
+reads the sums, and times the per-tile, weight-gradient and reduction
+kernels under torch.profiler through the phase build and through the
+normal one. Each (phase, kind) gets its share of all CTAs' cycles and that
+share of the per-tile kernel's time in the phase build (whose barriers add
+their own cost: compare its time with the normal build's).
+Prints one line per case and writes <out>/phases.json.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+PHASES = ('input and K6', 'recompute', 'heads', 'inner chain',
+          'head backward', 'first-order reverse with dx', 'tangent')
+KINDS = ('products', 'scalar passes', 'scratch stores')
+KERNELS = ('trunk_bwd', 'wgrad', 'reduce')
+
+
+def build_phase_library(name):
+  """csrc/<name>.cu with -DREFNERF_PHASES, its ctypes signatures set."""
+  from refnerf_tpu_torch.ops import cuda_build
+  out = cuda_build.library_path(name)
+  out = out.with_name(out.name.replace(f'_{name}_', f'_{name}_phases_'))
+  if not out.exists():
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-DREFNERF_PHASES',
+           '-o', str(out), str(cuda_build.CSRC / f'{name}.cu')]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+      raise RuntimeError(f'nvcc failed: {" ".join(cmd)}\n{proc.stderr}')
+  lib = ctypes.CDLL(str(out))
+  for fn, argtypes in cuda_build.EXPORTS[name].items():
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
+  lib.refnerf_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+  lib.refnerf_phase_cycles.restype = ctypes.c_int
+  return lib
+
+
+def read_cycles(lib, reset=True):
+  buf = (ctypes.c_ulonglong * (len(PHASES) * len(KINDS)))()
+  err = lib.refnerf_phase_cycles(ctypes.addressof(buf), int(reset))
+  if err:
+    raise RuntimeError(f'refnerf_phase_cycles failed with cudaError {err}')
+  return [list(buf[i * len(KINDS):(i + 1) * len(KINDS)])
+          for i in range(len(PHASES))]
+
+
+def device_ms(run, calls=2):
+  """Device ms a call of each backward kernel (by name) under
+  torch.profiler, over `calls` calls after one warm-up."""
+  from torch.profiler import ProfilerActivity, profile
+  run()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    for _ in range(calls):
+      run()
+    torch.cuda.synchronize()
+  out = {k: 0.0 for k in KERNELS}
+  for e in p.key_averages():
+    if e.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    us = getattr(e, 'self_device_time_total',
+                 getattr(e, 'self_cuda_time_total', 0))
+    for k in KERNELS:
+      if f'{k}_kernel' in e.key or f'{k}_tma_kernel' in e.key:
+        out[k] += us / 1e3 / calls
+  return out
+
+
+def cases(chip_smoke, fused_mlp, dev, cdt):
+  """(name, backward call) at chip_smoke's N in `cdt`: phase 5's K4 and K5,
+  phase 9's K6+K7+K4 and phase 7's K8+K9+K10 backward."""
+  tdt = fused_mlp.DTYPES[cdt]
+  gen = torch.Generator().manual_seed(chip_smoke.SEED + 1)
+  n = chip_smoke.N_SAMPLES
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(chip_smoke.SCALES, 3),
+                         device=dev)
+  segs, ws, bs, kw = chip_smoke.trunk_case('K1', gen, dev, ipe=True)
+  cs = [s.to(tdt) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  cots = (rand(n), rand(n, 10), rand(n, 128), rand(n, 3))
+  yield 'K4', lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots, fold)
+  segs, ws, bs, kw, sp, cp = chip_smoke.spa_case(fused_mlp, gen, dev, True,
+                                                  True)
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  with torch.no_grad():
+    sk = fused_mlp.trunk_kernel(segs, pack, fold, spa_modes=sp, comp=cp)[0]
+  cots6 = cots + (rand(n),)
+  yield 'K6+K7+K4', lambda: fused_mlp.trunk_backward_kernel(
+      segs, pack, cots6, fold, spa_modes=sp, comp=cp + (sk,))
+  segs, ws, bs, kw = chip_smoke.trunk_case('K2', gen, dev)
+  cs = [s.to(tdt) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (128, 73), compute_dtype=cdt, **kw)
+  cots5 = (None, rand(n, 3), None, None)
+  yield 'K5', lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots5,
+                                                       needs_dx=True)
+  segs, ws, bs, head, dm, rgbx = chip_smoke.dir_case(fused_mlp, gen, dev,
+                                                     True, True, True)
+  raw = range(1, 1 + dm.n_raw())
+  cs = [s if j in raw else s.to(tdt) for j, s in enumerate(segs)]
+  pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(cs, dm),
+                              head_f32=head, compute_dtype=cdt)
+  rgb_bar = rand(n, 3)
+  yield 'K8+K9+K10 backward', lambda: fused_mlp.trunk_backward_kernel(
+      cs, pack, cots5, needs_dx=True, rgb_bar=rgb_bar, dir_modes=dm,
+      rgbx=rgbx)
+
+
+def main():
+  ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  ap.add_argument('--out', default='chiprun_out/phases')
+  ap.add_argument('--lib', default='trunk_bwd_tma',
+                  choices=('trunk_bwd_tma', 'trunk_bwd'))
+  ap.add_argument('--dtype', default='bfloat16',
+                  choices=('bfloat16', 'float32'))
+  a = ap.parse_args()
+  if not torch.cuda.is_available():
+    raise SystemExit('bwd_phases: no CUDA device')
+  sys.path.insert(0, os.getcwd())
+  import chip_smoke
+  from refnerf_tpu_torch.ops import cuda_build
+  from refnerf_tpu_torch.ops import fused_mlp
+  dev = torch.device('cuda')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                        '--format=csv,noheader'], capture_output=True,
+                       text=True, timeout=60).stdout.strip()
+  print(smi, flush=True)
+  t0 = time.perf_counter()
+  cuda_build.build()
+  normal = cuda_build.library
+  phased = build_phase_library(a.lib)
+  print(f'built in {time.perf_counter() - t0:.1f} s', flush=True)
+  patched = lambda name: phased if name == a.lib else normal(name)
+  if a.lib == 'trunk_bwd':
+    fused_mlp.tma_backward = lambda pack: False
+  report = {'card': smi, 'n_samples': chip_smoke.N_SAMPLES, 'lib': a.lib,
+            'dtype': a.dtype, 'cases': {}}
+  for name, run in cases(chip_smoke, fused_mlp, dev, a.dtype):
+    base = device_ms(run)
+    cuda_build.library = patched
+    try:
+      stamped = device_ms(run)
+      read_cycles(phased)
+      run()
+      torch.cuda.synchronize()
+      cyc = read_cycles(phased)
+    finally:
+      cuda_build.library = normal
+    total = sum(map(sum, cyc)) or 1
+    rows = {f'{PHASES[i]} / {KINDS[j]}': {
+        'share': cyc[i][j] / total,
+        'ms': cyc[i][j] / total * stamped['trunk_bwd']}
+            for i in range(len(PHASES)) for j in range(len(KINDS))
+            if cyc[i][j]}
+    report['cases'][name] = {'normal_ms': base, 'phase_build_ms': stamped,
+                             'phases': rows}
+    print(f'{name}: normal build ms ' + ', '.join(
+        f'{k} {v:.3f}' for k, v in base.items()) + '; phase build ms ' +
+          ', '.join(f'{k} {v:.3f}' for k, v in stamped.items()), flush=True)
+    for k, r in rows.items():
+      print(f'  {name}: {k}: {100 * r["share"]:.1f}% = {r["ms"]:.3f} ms',
+            flush=True)
+  out = pathlib.Path(a.out)
+  out.mkdir(parents=True, exist_ok=True)
+  (out / 'phases.json').write_text(json.dumps(report, indent=1))
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

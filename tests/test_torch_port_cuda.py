@@ -3,7 +3,11 @@
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips elsewhere:
 K1-K5, K6 and K7 (the fused spatial stages), K8-K10 (the fused
 directional stages) and mip-NeRF's K11 (the trunk's features out) and
-128-wide directional trunk, in both directions. This
+128-wide directional trunk, in both directions; the bf16 width-256
+backward's weight-gradient product and its determinism, and its shapes
+past the wgmma/TMA kernels (trunk_bwd.cu's instances); mip-NeRF with the
+spatial fuse flags; the plain layer stack and the shapes without an
+instance under fused_trunk='auto'. This
 file imports no jax, so it also runs where jax is not installed; there, skip
 tests/conftest.py (it imports jax):
 
@@ -34,6 +38,7 @@ import torch
 from refnerf_tpu_torch import configs
 from refnerf_tpu_torch.cameras import rays as rays_lib
 from refnerf_tpu_torch.models import construct
+from refnerf_tpu_torch.models import mlp as mlp_lib
 from refnerf_tpu_torch.models import renderer
 from refnerf_tpu_torch.ops import fused_mlp
 from refnerf_tpu_torch.train import step as step_lib
@@ -67,23 +72,25 @@ TRUNKS = {'K1': ((48, 48), 256, 10, 128, True),
           'mip K2': ((128, 33), 128, 3, 0, False)}
 
 
-def _case(which, dev, n=1000, seed=0, width=None):
-  """The trunk TRUNKS[which] (8 layers, skip at 5; `width` overrides its
-  width). n = 1000 rows is not a multiple of the kernel's 64-row tile. The
-  (48, 48) segments are the IPE encoding of random lifted means and
-  variances, the others uniform in [-1, 1]."""
+def _case(which, dev, n=1000, seed=0, width=None, depth=8, skip=4,
+          seg_dims=None):
+  """The trunk TRUNKS[which] (`depth` layers, skip at skip + 1; `width` and
+  `seg_dims` override its own). n = 1000 rows is not a multiple of the
+  kernel's 64-row tile. The (48, 48) segments are the IPE encoding of
+  random lifted means and variances, the others uniform in [-1, 1]."""
   gen = torch.Generator().manual_seed(seed)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
-  seg_dims, w0, hf, hc, density = TRUNKS[which]
+  dims, w0, hf, hc, density = TRUNKS[which]
+  seg_dims = seg_dims or dims
   width = width or w0
   fin = sum(seg_dims)
-  skips = fused_mlp.skip_input_layers(8, 4)
+  skips = fused_mlp.skip_input_layers(depth, skip)
   ws = [rand(width, fin if l == 0 else width + (fin if l in skips else 0))
-        for l in range(8)]
+        for l in range(depth)]
   ws = [w * math.sqrt(2 / w.shape[1]) for w in ws]
-  bs = [rand(width) * 0.05 for _ in range(8)]
+  bs = [rand(width) * 0.05 for _ in range(depth)]
   head = lambda k: (rand(k, width) / math.sqrt(width), rand(k) * 0.1)
-  kw = dict(skip_period=4,
+  kw = dict(skip_period=skip,
             wd=rand(1, width) / math.sqrt(width) if density else None,
             head_f32=head(hf) if hf else None,
             head_cdt=head(hc) if hc else None)
@@ -200,22 +207,24 @@ def test_wrappers_count_launches_and_honour_off(dev):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_model(dev):
-  segs, ws, bs, kw = _case('K2', dev, n=8)
-  kw.pop('wd'), kw.pop('head_cdt')
-  with torch.no_grad(), pytest.raises(NotImplementedError, match='ReLU'):
-    fused_mlp.fused_trunk(segs, ws, bs, activation=torch.tanh, **kw)
+  # A width without an instance raises under 'on' and runs the plain
+  # versions under 'auto', as 'off' does.
   segs, ws, bs, kw = _case('K2', dev, n=8, width=64)
   kw.pop('wd'), kw.pop('head_cdt')
   with torch.no_grad(), pytest.raises(NotImplementedError, match='width 64'):
-    fused_mlp.fused_trunk(segs, ws, bs, **kw)
-  # Width 128 runs the plain directional trunk alone.
+    fused_mlp.fused_trunk(segs, ws, bs, mode='on', **kw)
+  with torch.no_grad():
+    assert torch.equal(fused_mlp.fused_trunk(segs, ws, bs, **kw),
+                       fused_mlp.fused_trunk(segs, ws, bs, mode='off', **kw))
+  # Width 128 runs the plain directional trunk alone; under 'on' the rest
+  # raises.
   segs, ws, bs, kw = _case('K1', dev, n=8, width=128)
   kw.pop('head_cdt')
   with torch.no_grad(), pytest.raises(NotImplementedError,
                                       match='width-128.*density head'):
     fused_mlp.fused_encoded_trunk(
         torch.zeros(8, 3, device=dev), torch.full((8, 3), 1e-4, device=dev),
-        SCALES, ws, bs, **kw)
+        SCALES, ws, bs, mode='on', **kw)
 
 
 # The fused directional stages (K8 the IDE, K9 the direction geometry, K10
@@ -635,3 +644,209 @@ def test_mipnerf_kernels_match_plain_path(dev, viewdirs):
   assert abs(loss.item() - loss_off.item()) <= 1e-4 * abs(loss_off.item())
   for k in grads:
     _assert_close([grads[k]], [grads_off[k]], 'float32', k, n_values=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['M256 N256', 'M256 N96 two', 'M256 N352 two',
+                                  'M128 N256'])
+def test_wgrad_tma_matches_matmul(dev, case):
+  # The bf16 weight-gradient product (wgmma, operands sample-major) against
+  # f32 matmul of the same bf16 operands over 4096 samples in two splits:
+  # the f32 sums differ in order only, 1e-5 relative L2.
+  from refnerf_tpu_torch.ops import cuda_build
+  M, N, ncut, two = {'M256 N256': (256, 256, 256, False),
+                     'M256 N96 two': (256, 96, 0, True),
+                     'M256 N352 two': (256, 352, 256, True),
+                     'M128 N256': (128, 256, 256, False)}[case]
+  gen = torch.Generator().manual_seed(11)
+  rp, ks = 4096, fused_mlp._KSPLIT_TMA
+  bf = lambda *s: torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+  z, a, x = bf(rp, M), bf(rp, max(ncut, 1)), bf(rp, max(N - ncut, 1))
+  s, pa, tx = (bf(rp, M), bf(rp, max(ncut, 1)), bf(rp, max(N - ncut, 1))) \
+      if two else (None, None, None)
+  out = torch.empty(rp // ks, M, N, device=dev)
+  ptr = lambda t: None if t is None else t.data_ptr()
+  err = cuda_build.library('trunk_bwd_tma').refnerf_wgrad_tma(
+      1, M, N, ncut, rp, ks, ptr(z), ptr(a), ptr(x), ptr(s), ptr(pa), ptr(tx),
+      out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+  torch.cuda.synchronize()
+  assert err == 0
+  cat = lambda u, v: torch.cat(([u[:, :ncut]] if ncut else [])
+                               + ([v[:, :N - ncut]] if ncut < N else []), 1)
+  want = z.float().t() @ cat(a, x).float()
+  if two:
+    want += s.float().t() @ cat(pa, tx).float()
+  got = out.sum(0)
+  assert ((got - want).norm() / want.norm()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['K4', 'K5'])
+def test_bf16_backward_is_deterministic(dev, which):
+  # H4: the bf16 width-256 backward (wgmma, TMA) sums its partials in a
+  # fixed order, with no float atomics: two runs on the same inputs (two
+  # slabs, several splits) give bit-identical gradients.
+  n = 4500
+  segs, ws, bs, kw = _case('K1' if which == 'K4' else 'K2', dev, n, seed=12)
+  segs = [s.to(torch.bfloat16) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[1] for s in segs],
+                              compute_dtype='bfloat16', **kw)
+  cots = _cotangents('K1' if which == 'K4' else 'K2', dev, n)
+  fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+          if which == 'K4' else None)
+  run = lambda: _flat(fused_mlp.trunk_backward_kernel(
+      segs, pack, cots, fold, needs_dx=which == 'K5', slab=4096))
+  with torch.no_grad():
+    a, b = run(), run()
+  assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K4 depth 10', 'K5 depth 10',
+                                  'K5 kin 320'])
+def test_bf16_backward_past_the_tma_shapes_matches_plain(dev, case):
+  # A bf16 width-256 trunk deeper than 8 layers or wider than 256 input
+  # columns runs trunk_bwd.cu's bf16 instances (fused_mlp.tma_backward);
+  # under fused_trunk='auto' it launches them, it does not go plain.
+  which = 'K1' if case.startswith('K4') else 'K2'
+  n = 1000
+  shape = (dict(depth=10, skip=5) if 'depth' in case
+           else dict(seg_dims=(128, 161)))
+  segs, ws, bs, kw = _case(which, dev, n=n, seed=13, **shape)
+  segs = [s.to(torch.bfloat16) for s in segs]
+  cots = _cotangents(which, dev, n)
+  fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+          if which == 'K1' else None)
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype='bfloat16', **kw)
+  assert not fused_mlp.tma_backward(pack)
+  assert fused_mlp.missing_instance(pack, 128 if which == 'K1' else 0) is None
+  with torch.no_grad():
+    got = fused_mlp.trunk_backward_kernel(segs, pack, cots, fold,
+                                          which == 'K2', slab=512)
+    want = fused_mlp.trunk_backward_reference(
+        segs, ws, bs, cots, compute_dtype='bfloat16', fold=fold,
+        needs_dx=which == 'K2', **kw)
+  torch.cuda.synchronize()
+  _assert_close(_flat(got), _flat(want), 'bfloat16', case, n_values=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_mipnerf_spatial_fusions_match_plain(dev, cdt):
+  # mip-NeRF's spatial trunk (hf = 0, the bottleneck head) with K6 and K7:
+  # the served forward (sigma and the bottleneck as values, the weights by
+  # WEIGHT_BOUND and two faults of the scan above it) and the first-order
+  # K4 with K6/K7 (slabs of 512 rows, whole rays; every parameter gradient
+  # and d bsig as derivatives).
+  n, samples = 1536, 128
+  _, ws, bs, kw = _case('K11', dev, n=8)
+  gen = torch.Generator().manual_seed(13)
+  kw['head_cdt'] = (torch.randn(128, 256, generator=gen).to(dev) / 16,
+                    torch.randn(128, generator=gen).to(dev) * 0.1)
+  rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
+  lm, lv = rand(n, 3) * 3 - 1.5, 10.0**(rand(n, 3) * 4 - 6)
+  comp = (rand(n) * 0.08 + 0.01, torch.tensor([0.5], device=dev))
+  sp = fused_mlp.SpaModes(tuple(float(s) for s in SCALES), samples)
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel([lm, lv], pack, spa_modes=sp, comp=comp)
+    want = fused_mlp.trunk_reference([lm, lv], ws, bs, compute_dtype=cdt,
+                                     spa_modes=sp, comp=comp, **kw)
+  torch.cuda.synchronize()
+  assert len(got) == len(want) == 3
+  _assert_close(got[:2], want[:2], cdt, 'mip K6+K7')
+  _assert_weights(got[2], want[2], want[0], comp, samples, cdt, 'mip K6+K7')
+  cots = (rand(n) - 0.5, None, rand(n, 128) - 0.5, None, rand(n) - 0.5)
+  with torch.no_grad():
+    gb = fused_mlp.trunk_backward_kernel(
+        [lm, lv], pack, cots, slab=512, spa_modes=sp, comp=comp + (got[0],))
+    wb = fused_mlp.trunk_backward_reference(
+        [lm, lv], ws, bs, cots, compute_dtype=cdt, spa_modes=sp,
+        comp=comp + (want[0],), **kw)
+  torch.cuda.synchronize()
+  _assert_close(_flat(gb), _flat(wb), cdt, 'mip K6+K7+K4', n_values=0)
+
+
+@pytest.mark.cuda
+def test_mipnerf_with_spatial_fusions_matches_plain_path(dev):
+  # configs/blender_mipnerf.gin with fuse_ipe_trig, fuse_compositing and
+  # fuse_lift at 16 samples per level, f32: a served request (K1 with K6
+  # and K7 once per level) and one step's loss and gradients (first-order
+  # K4 with K6 and K7) against fused_trunk='off'.
+  config, gin = configs.parse(
+      [MIP_GIN], ['Model.num_prop_samples = 16', 'Model.num_nerf_samples = 16',
+                  'Config.sample_noise_size = 0'] + SPATIAL)
+  model = construct.construct_model(config, gin, dev)
+  rays = _rays(100, dev)
+  before = dict(fused_mlp.launches)
+  with torch.no_grad():
+    out = renderer.render_rays(model, rays, 128)
+  for k in ('K1', 'K6', 'K7'):
+    assert fused_mlp.launches[k] == before[k] + 2, k
+  batch = rays_lib.Batch(rays=rays, rgb=torch.rand(100, 3, generator=torch
+                                                   .Generator().manual_seed(0)).to(dev))
+  state = step_lib.create_train_state(config, model)
+  train = step_lib.make_train_step(model, config)
+  before = dict(fused_mlp.launches)
+  loss, _, grads = train.loss_and_grads(state, batch)
+  assert fused_mlp.launches['K4'] == before['K4'] + 2
+  model.nerf_mlp.cfg.fused_trunk = 'off'
+  with torch.no_grad():
+    plain = renderer.render_rays(model, rays, 128)
+  loss_off, _, grads_off = train.loss_and_grads(state, batch)
+  for k in out:
+    err = (out[k] - plain[k]).abs().max().item()
+    assert err <= BOUND['float32'], (k, err)
+  assert abs(loss.item() - loss_off.item()) <= 1e-4 * abs(loss_off.item())
+  for k in grads:
+    _assert_close([grads[k]], [grads_off[k]], 'float32', k, n_values=0)
+
+
+TINY = ['NerfMLP.net_depth = 2', 'NerfMLP.net_width = 16',
+        'NerfMLP.net_depth_viewdirs = 1', 'NerfMLP.net_width_viewdirs = 16',
+        'NerfMLP.bottleneck_width = 8', 'NerfMLP.max_deg_point = 4',
+        'NerfMLP.deg_view = 2', 'Model.num_prop_samples = 8',
+        'Model.num_nerf_samples = 8']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['tiny', 'elu'])
+def test_plain_paths_under_auto_match_off(dev, case, caplog):
+  # Under fused_trunk='auto' on the card: the verify skill's tiny gin (width
+  # 16, no kernel instance) runs the plain versions, and an ELU trunk the
+  # plain layer stack; each logs once and serves and trains as 'off' does
+  # (the same operations on the same device).
+  import logging
+  extra = ["NerfMLP.net_activation = 'elu'"] if case == 'elu' else []
+  config, gin = configs.parse([GIN], TINY + extra + [
+      'Config.sample_noise_size = 0'])
+  model = construct.construct_model(config, gin, dev)
+  rays = _rays(50, dev)
+  batch = rays_lib.Batch(rays=rays, rgb=torch.rand(50, 3, generator=torch
+                                                   .Generator().manual_seed(0)).to(dev))
+  state = step_lib.create_train_state(config, model)
+  train = step_lib.make_train_step(model, config)
+  before = dict(fused_mlp.launches)
+  with caplog.at_level(logging.WARNING):
+    with torch.no_grad():
+      out = renderer.render_rays(model, rays, 128)
+    loss, _, grads = train.loss_and_grads(state, batch)
+  assert fused_mlp.launches == before
+  # Logged here, or once already by an earlier test of this process.
+  if case == 'elu':
+    assert any('non-relu' in r.getMessage() for r in caplog.records) or (
+        'non-relu' in str(mlp_lib._FALLBACK_WARNED))
+  else:
+    assert any('no kernel instance' in r.getMessage()
+               for r in caplog.records) or (
+        'width 16' in str(fused_mlp._NO_INSTANCE_LOGGED))
+  model.nerf_mlp.cfg.fused_trunk = 'off'
+  with torch.no_grad():
+    plain = renderer.render_rays(model, rays, 128)
+  loss_off, _, grads_off = train.loss_and_grads(state, batch)
+  for k in out:
+    assert torch.equal(out[k], plain[k]), k
+  assert loss.item() == loss_off.item()
+  for k in grads:
+    assert torch.equal(grads[k], grads_off[k]), k

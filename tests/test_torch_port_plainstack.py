@@ -1,0 +1,283 @@
+"""The plain layer stack and the shape dispatch of the port's MLP, against JAX.
+
+JAX's MLP runs its plain flax layer stack, not the fused trunk, for a
+non-ReLU activation and for a trunk that ends in a skip concat (`_fused`,
+refnerf_tpu/models/mlp.py:221-241), and its kernels take any width. The
+port does the same: those two cases run the plain stack under torch
+autograd (logged once where the kernels would have run), and under
+fused_trunk='auto' a trunk shape without a kernel instance runs the plain
+versions (logged once; 'on' raises). Held here, on the CPU:
+- an ELU trunk on the verify skill's tiny gin, served (Model.apply, eval)
+  and trained (the loss and every gradient, density normals included:
+  second order), against JAX;
+- a depth-5, skip-4 trunk (both trunks end in a skip concat; the heads read
+  the widened output), served and trained, against JAX;
+- the tiny gin under a stubbed `fused_mlp.use_kernel` (as on a card): plain
+  and logged once under 'auto', raising under 'on'; the ELU trunk logged.
+
+Tolerances, float32, as tests/test_torch_port_model.py and
+test_torch_port_train.py: served outputs 1e-4 (the level-1 samples follow
+the level-0 weights, summed in another order); the loss 1e-5 relative; each
+gradient 2e-4 of its largest entry (the normals' second-order chain
+amplifies the summation order). JAX builds the IPE cosine as sin(m + pi/2)
+and so does the port's plain stack (coord.integrated_pos_enc).
+"""
+
+import logging
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from refnerf_tpu import configs as jconfigs
+from refnerf_tpu.cameras import rays as jrays
+from refnerf_tpu.models import construct as jconstruct
+from refnerf_tpu.train import losses as jlosses
+from refnerf_tpu_torch import configs
+from refnerf_tpu_torch import convert
+from refnerf_tpu_torch.cameras import rays as rays_lib
+from refnerf_tpu_torch.models import construct
+from refnerf_tpu_torch.models import mlp as mlp_lib
+from refnerf_tpu_torch.ops import fused_mlp
+from refnerf_tpu_torch.train import step as step_lib
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GIN = os.path.join(REPO, 'configs', 'blender_refnerf.gin')
+# The verify skill's tiny gin (.claude/skills/verify/SKILL.md).
+TINY = ['NerfMLP.net_depth = 2', 'NerfMLP.net_width = 16',
+        'NerfMLP.net_depth_viewdirs = 1', 'NerfMLP.net_width_viewdirs = 16',
+        'NerfMLP.bottleneck_width = 8', 'NerfMLP.max_deg_point = 4',
+        'NerfMLP.deg_view = 2', 'Model.num_prop_samples = 8',
+        'Model.num_nerf_samples = 8']
+# Both trunks of depth 5 with skip_layer 4: each ends in a skip concat.
+SKIP5 = ['NerfMLP.net_depth = 5', 'NerfMLP.net_width = 32',
+         'NerfMLP.net_depth_viewdirs = 5', 'NerfMLP.net_width_viewdirs = 32',
+         'NerfMLP.skip_layer = 4', 'NerfMLP.bottleneck_width = 16',
+         'Model.num_prop_samples = 16', 'Model.num_nerf_samples = 16']
+CASES = {'elu': TINY, 'trailing_concat': SKIP5}
+
+
+def _jax_model(bindings, elu):
+  config, gin = jconfigs.parse([GIN], bindings)
+  model = jconstruct.construct_model(config, gin)
+  if elu:  # JAX's gin keeps the activation a callable: set it on the module
+    model = model.clone(nerf_mlp=model.nerf_mlp.clone(
+        net_activation=jax.nn.elu))
+  return config, model
+
+
+def _port_model(bindings, elu):
+  config, gin = configs.parse(
+      [GIN], bindings + (["NerfMLP.net_activation = 'elu'"] if elu else []))
+  return config, construct.construct_model(config, gin, 'cpu')
+
+
+def _init_params(model, seed=0):
+  """JAX parameters with random biases, as numpy."""
+  p = jax.device_get(jconstruct.init_params(jax.random.PRNGKey(seed), model))
+  rng = np.random.default_rng(seed)
+  return jax.tree_util.tree_map_with_path(
+      lambda path, x: np.asarray(x) + (
+          rng.normal(size=x.shape).astype(np.float32) * 0.1
+          if path[-1].key == 'bias' else 0.0), p)
+
+
+def _rays_np(n, seed):
+  rng = np.random.RandomState(seed)
+  d = rng.randn(n, 3).astype(np.float32)
+  return dict(origins=rng.randn(n, 3).astype(np.float32) * 0.1, directions=d,
+              viewdirs=d / np.linalg.norm(d, axis=-1, keepdims=True),
+              radii=np.full((n, 1), 0.001, np.float32),
+              lossmult=np.ones((n, 1), np.float32),
+              near=np.full((n, 1), 2.0, np.float32),
+              far=np.full((n, 1), 6.0, np.float32))
+
+
+def _port_rays(r):
+  rays = rays_lib.dummy_rays(r['origins'].shape[0])
+  for k, v in r.items():
+    setattr(rays, k, torch.tensor(v))
+  return rays
+
+
+def _jax_rays(r):
+  n = r['origins'].shape[0]
+  return jrays.dummy_rays(n).replace(**{k: jnp.asarray(v) for k, v in r.items()})
+
+
+def _close(a, b, tol):
+  np.testing.assert_allclose(a.detach().float().numpy(),
+                             np.asarray(b, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_stack_serves_like_jax(case):
+  elu = case == 'elu'
+  _, jmodel = _jax_model(CASES[case], elu)
+  params = _init_params(jmodel)
+  r = _rays_np(8, seed=2)
+  renderings, _ = jax.jit(lambda p, rays: jmodel.apply(
+      {'params': p}, rays, train_frac=1.0, compute_extras=False,
+      train=False))(params, _jax_rays(r))
+  _, model = _port_model(CASES[case], elu)
+  convert.load_jax_params(model, params)
+  with torch.no_grad():
+    port, _ = model(_port_rays(r))
+  for level in range(2):
+    assert set(port[level]) == set(renderings[level])
+    for k, v in port[level].items():
+      _close(v, renderings[level][k], 1e-4)
+  assert torch.isfinite(port[-1]['rgb']).all()
+
+
+def _jax_loss_fn(model, config, batch):
+  """The loss of JAX make_train_step at step 0 (train_frac 0) for the
+  flagship's terms: data, orientation, predicted normals."""
+  def loss_fn(params):
+    renderings, hist = model.apply({'params': params}, batch.rays,
+                                   train_frac=0.0, compute_extras=False,
+                                   train=True, rng=None)
+    data, _ = jlosses.compute_data_loss(batch, renderings, batch.rays, config)
+    return (data + jlosses.orientation_loss(batch.rays, 2, hist, config) +
+            jlosses.predicted_normal_loss(2, hist, config))
+  return loss_fn
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_stack_trains_like_jax(case):
+  elu = case == 'elu'
+  bindings = CASES[case] + ['Config.batch_size = 12']
+  jconfig, jmodel = _jax_model(bindings, elu)
+  params = _init_params(jmodel, seed=1)
+  r = _rays_np(12, seed=0)
+  rgb = np.random.RandomState(1).uniform(0, 1, (12, 3)).astype(np.float32)
+  jbatch = jrays.Batch(rays=_jax_rays(r), rgb=jnp.asarray(rgb))
+  loss_fn = _jax_loss_fn(jmodel, jconfig, jbatch)
+  jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+
+  config, model = _port_model(bindings, elu)
+  convert.load_jax_params(model, params)
+  batch = rays_lib.Batch(rays=_port_rays(r), rgb=torch.tensor(rgb))
+  state = step_lib.create_train_state(config, model)
+  loss, _, grads = step_lib.make_train_step(model, config).loss_and_grads(
+      state, batch)
+  np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+  want = {k: v.numpy() for k, v in
+          convert.params_to_state_dict(jax.device_get(jgrads)).items()}
+  assert set(grads) == set(want)
+  for k, g in grads.items():
+    scale = max(float(np.abs(want[k]).max()), 1e-12)
+    np.testing.assert_allclose(g.detach().numpy(), want[k], rtol=0,
+                               atol=2e-4 * scale, err_msg=k)
+  # The heads read the trunk's widened output after a trailing concat.
+  if case == 'trailing_concat':
+    fin = model.nerf_mlp.spatial_0.in_features
+    assert model.nerf_mlp.raw_density.in_features == 32 + fin
+
+
+@pytest.mark.parametrize('deg', [4, 16])
+def test_plain_ipe_matches_jax(deg):
+  # The plain stack's IPE against JAX's coord.integrated_pos_enc at the tiny
+  # gin's degree and the flagship's (max_deg_point 16). At 16 the fused
+  # trunks' encode_ipe (cos(m) for sin(m + pi/2)) would miss JAX by far more
+  # than the served 1e-4, which is why the plain stack has its own form.
+  from refnerf_tpu.ops import coord as jcoord
+  from refnerf_tpu_torch.ops import coord
+  rng = np.random.default_rng(deg)
+  lm = rng.uniform(-1.5, 1.5, (4096, 21)).astype(np.float32)
+  lv = rng.uniform(0, 1e-6, (4096, 21)).astype(np.float32)
+  want = np.asarray(jcoord.integrated_pos_enc(jnp.asarray(lm),
+                                              jnp.asarray(lv), 0, deg))
+  got = coord.integrated_pos_enc(torch.tensor(lm), torch.tensor(lv), 0, deg)
+  np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+  if deg == 16:
+    fused = torch.cat(fused_mlp.encode_ipe(
+        torch.tensor(lm), torch.tensor(lv), 2.0**np.arange(deg)), -1)
+    assert np.abs(fused.numpy() - want).max() > 1e-4
+
+
+def _pack(depth, kin, width=256, cdt='bfloat16'):
+  ws = [torch.zeros(width, kin if l == 0 else width) for l in range(depth)]
+  bs = [torch.zeros(width) for _ in range(depth)]
+  return fused_mlp.pack_trunk(ws, bs, (kin,), skip_period=depth + 1,
+                              compute_dtype=cdt)
+
+
+@pytest.mark.parametrize('depth,kin,cdt,tma', [
+    (8, 96, 'bfloat16', True), (8, 224, 'bfloat16', True),
+    (8, 256, 'bfloat16', True), (9, 96, 'bfloat16', False),
+    (16, 96, 'bfloat16', False), (8, 288, 'bfloat16', False),
+    (8, 96, 'float32', False)])
+def test_backward_route_by_shape(depth, kin, cdt, tma):
+  # The bf16 width-256 backward runs trunk_bwd_tma.cu's kernels within their
+  # tensor maps (8 layers) and input tile (256 columns), trunk_bwd.cu's
+  # instances past either; every one of these shapes has an instance.
+  pack = _pack(depth, kin, cdt=cdt)
+  assert fused_mlp.tma_backward(pack) == tma
+  assert fused_mlp.missing_instance(pack, 0) is None
+  assert fused_mlp.missing_instance(pack, 128) is None
+
+
+def _stub_kernels(monkeypatch):
+  """use_kernel as on a card: every mode but 'off' asks for the kernels."""
+  monkeypatch.setattr(fused_mlp, 'use_kernel',
+                      lambda x, mode: fused_mlp.MODES.index(mode) < 2)
+  monkeypatch.setattr(mlp_lib, '_FALLBACK_WARNED', set())
+  monkeypatch.setattr(fused_mlp, '_NO_INSTANCE_LOGGED', set())
+
+
+def _tiny(mode, extra=()):
+  return _port_model(TINY + [f"NerfMLP.fused_trunk = '{mode}'", *extra],
+                     False)[1]
+
+
+def test_shape_without_instance_runs_plain_under_auto(monkeypatch, caplog):
+  _stub_kernels(monkeypatch)
+  r = _rays_np(6, seed=3)
+  off = _tiny('off')
+  auto = _tiny('auto')
+  auto.load_state_dict(off.state_dict())
+  with torch.no_grad():
+    want, _ = off(_port_rays(r))
+    with caplog.at_level(logging.WARNING):
+      got, _ = auto(_port_rays(r))
+      got2, _ = auto(_port_rays(r))
+  for k in ('rgb', 'acc', 'distance'):
+    assert torch.equal(got[-1][k], want[-1][k])
+    assert torch.equal(got2[-1][k], want[-1][k])
+  hits = [m.getMessage() for m in caplog.records
+          if 'no kernel instance' in m.getMessage()]
+  # One line per trunk shape (spatial, directional), each logged once.
+  assert len(hits) == len(set(hits)) == 2
+  assert all('width 16' in h for h in hits)
+
+
+def test_shape_without_instance_raises_under_on(monkeypatch):
+  _stub_kernels(monkeypatch)
+  model = _tiny('on')
+  with torch.no_grad(), pytest.raises(NotImplementedError, match='width 16'):
+    model(_port_rays(_rays_np(4, seed=4)))
+
+
+def test_plain_stack_logged_once_where_kernels_would_run(monkeypatch, caplog):
+  _stub_kernels(monkeypatch)
+  model = _tiny('on', ["NerfMLP.net_activation = 'elu'"])
+  with torch.no_grad(), caplog.at_level(logging.WARNING):
+    model(_port_rays(_rays_np(4, seed=5)))
+    model(_port_rays(_rays_np(4, seed=6)))
+  hits = [m.getMessage() for m in caplog.records
+          if 'non-relu net_activation' in m.getMessage()]
+  assert len(hits) == 1 and 'elu' in hits[0]
+  # Not on the plain path ('off'): the kernels would not have run there.
+  monkeypatch.setattr(mlp_lib, '_FALLBACK_WARNED', set())
+  caplog.clear()
+  model = _tiny('off', ["NerfMLP.net_activation = 'elu'"])
+  with torch.no_grad(), caplog.at_level(logging.WARNING):
+    model(_port_rays(_rays_np(4, seed=5)))
+  assert not [m for m in caplog.records
+              if 'non-relu' in m.getMessage()]
