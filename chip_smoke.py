@@ -10,11 +10,14 @@ Phases, each printed on its own line:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels of refnerf_tpu_torch/csrc with nvcc; print each
      kernel's registers and spills, and check that every kernel of the
-     bf16 width-256 backward (csrc/trunk_bwd_tma.cu) holds wgmma (HGMMA)
-     and TMA loads (UTMALDG) and no mma.sync (HMMA) in its SASS;
+     bf16 width-256 forward and backward (csrc/trunk_fwd_tma.cu,
+     csrc/trunk_bwd_tma.cu) holds wgmma (HGMMA) and TMA loads (UTMALDG) and
+     no mma.sync (HMMA) in its SASS;
   3. hold each trunk kernel (K1 spatial, K2 directional) against its plain
      PyTorch version at the serving shape N = 4096 rays x 128 samples, in
-     float32 and bfloat16, and time both;
+     float32 and bfloat16, and time both (in bf16 the wgmma/TMA forward);
+     and the bf16 directional trunk at 288 input columns, past that
+     kernel's shapes, on trunk_fwd.cu's instance;
   4. build the model of configs/blender_refnerf.gin at full width (bf16
      trunks, weights from a seeded torch.Generator) and answer three
      requests: 4096 rays, 5000 rays (two chunks) and a 64x64 pinhole image;
@@ -25,8 +28,8 @@ Phases, each printed on its own line:
      density gradient) on every output and u, K4 (the spatial backward) on
      every weight and bias gradient given random cotangents of sigma, the
      heads, the bottleneck and u, K5 (the directional backward) on every
-     parameter gradient and both segment cotangents; K4 and K5 in bf16 run
-     twice more and must give bit-identical gradients;
+     parameter gradient and both segment cotangents; K3, K4 and K5 in bf16
+     run twice more and must give bit-identical outputs;
   6. train the flagship at batch 4096 with bf16 trunks as bench.py drives the
      JAX step (3 warm-up steps, then 10 timed ones); check every loss term is
      finite, the parameters moved, and K2-K5 each ran levels x steps times;
@@ -48,7 +51,9 @@ Phases, each printed on its own line:
      K6+K7 on K1 (the served launch), on K3 and on K4 (the backward, with
      d bsig), and on mip-NeRF's spatial trunk (hf = 0: served, and trained
      in first-order K4); the weights within an absolute bound that two
-     faults of the scan (inclusive, no density bias) would exceed;
+     faults of the scan (inclusive, no density bias) would exceed; the bf16
+     forwards of K8+K9+K10 (phase 7) and K6+K7+K3 (phase 9) run twice more
+     and must give bit-identical outputs;
  10. the flagship with all six fuse flags (phase 8's and
      NerfMLP.fuse_ipe_trig, fuse_compositing, fuse_lift): three served
      requests and 10 train steps through the kernels (K6 and K7 each
@@ -167,9 +172,11 @@ def cuda_ms(fn, iters=5):
 # trunks; 'mip K1' is mip-NeRF's spatial trunk with its bottleneck and no
 # f32 head (hf = 0), 'mip K11' the same without the bottleneck (y out), and
 # 'mip K2' its directional trunk on [bottleneck 128 | positional encoding
-# 33].
+# 33]. 'K2 kin 288' is the directional trunk on 288 input columns, past
+# the wgmma/TMA forward's input tile (trunk_fwd.cu's bf16 instance runs it).
 TRUNKS = {'K1': ((48, 48), 256, 10, 128, True),
           'K2': ((128, 73), 256, 3, 0, False),
+          'K2 kin 288': ((128, 160), 256, 3, 0, False),
           'mip K1': ((48, 48), 256, 0, 128, True),
           'mip K11': ((48, 48), 256, 0, 0, True),
           'mip K2': ((128, 33), 128, 3, 0, False)}
@@ -344,9 +351,9 @@ def n_heads(kw):
 
 
 def check_sass(lib):
-  """Phase 2: each kernel of the wgmma/TMA library (the bf16 width-256
-  backward) holds wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
-  (HMMA) in its SASS (cuobjdump -sass), or this fails."""
+  """Phase 2: each kernel of a wgmma/TMA library (the bf16 width-256
+  forward or backward) holds wgmma (HGMMA) and TMA loads (UTMALDG) and no
+  mma.sync (HMMA) in its SASS (cuobjdump -sass), or this fails."""
   tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
   sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                         text=True, check=True, timeout=300).stdout
@@ -361,14 +368,20 @@ def check_sass(lib):
 
 
 def check_kernels(fused_mlp, dev):
-  """Phase 3: each kernel against its plain version, f32 and bf16."""
+  """Phase 3: each kernel against its plain version, f32 and bf16; the
+  bf16 trunk past the wgmma/TMA forward's shapes on trunk_fwd.cu."""
   gen = torch.Generator().manual_seed(SEED)
   results = {}
-  for which in ('K1', 'K2'):
+  for which in ('K1', 'K2', 'K2 kin 288'):
     segs, ws, bs, kw = trunk_case(which, gen, dev)
     for cdt in ('float32', 'bfloat16'):
+      if which == 'K2 kin 288' and cdt == 'float32':
+        continue
       pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
                                   compute_dtype=cdt, **kw)
+      if fused_mlp.tma_forward(pack) != (cdt == 'bfloat16' and
+                                         which != 'K2 kin 288'):
+        raise AssertionError(f'{which} {cdt}: routed to the wrong forward')
       kernel = lambda: fused_mlp.trunk_kernel(segs, pack)
       plain = lambda: fused_mlp.trunk_reference(segs, ws, bs,
                                                 compute_dtype=cdt, **kw)
@@ -379,17 +392,17 @@ def check_kernels(fused_mlp, dev):
   return results
 
 
-def deterministic(which, kernel):
-  """Phase 5 (H4): two runs of a backward on the same inputs give
-  bit-identical gradients (fixed-order sums, no float atomics), or this
+def deterministic(which, kernel, phase=5):
+  """Phases 5, 7, 9 (H4): two runs of a kernel on the same inputs give
+  bit-identical outputs (fixed-order sums, no float atomics), or this
   fails."""
   with torch.no_grad():
     a, b = flatten(kernel()), flatten(kernel())
   same = all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
-  log(f'phase 5: {which} bfloat16: two runs bit-identical: {same} '
+  log(f'phase {phase}: {which} bfloat16: two runs bit-identical: {same} '
       f'({len(a)} outputs)')
   if not same:
-    raise AssertionError(f'{which}: the gradients differ between two runs')
+    raise AssertionError(f'{which}: the outputs differ between two runs')
 
 
 def random_rays(rays_lib, n, config, seed, dev):
@@ -579,6 +592,8 @@ def check_train_kernels(fused_mlp, dev):
             inputs=cs + pack_tensors(pack) + [fold],
             flops=trunk_flops(ws, N_SAMPLES, n_heads(kw),
                               density_grad=True))
+        if cdt == 'bfloat16':
+          deterministic(which, kernel)
       else:
         f = fold if spatial else None
         kernel = lambda: fused_mlp.trunk_backward_kernel(
@@ -778,6 +793,9 @@ def check_dir_kernels(fused_mlp, dev):
           n_values=2 if rgb else 1, phase=7, inputs=inputs,
           flops=trunk_flops(ws, N_SAMPLES, 3),
           f32_flops=dir_flops(mat, ide, geo, rgb, backward=False))
+      if cdt == 'bfloat16' and which == 'K8+K9+K10':
+        deterministic(which, lambda: fused_mlp.trunk_kernel(cs, pack, **kw),
+                      phase=7)
       results[which + ' backward', cdt] = compare(
           which + ' backward', cdt,
           lambda: fused_mlp.trunk_backward_kernel(
@@ -1007,6 +1025,9 @@ def check_spa_kernels(fused_mlp, dev):
         if comp:
           with torch.no_grad():
             weight_faults(fused_mlp, which, cdt, plain()[0], *cp)
+        if cdt == 'bfloat16' and which == 'K6+K7+K3':
+          deterministic(which, lambda: fused_mlp.trunk_kernel(
+              cs, pack, f, **kws), phase=9)
         continue
       # Cotangents of (sigma, the f32 heads, the bottleneck, u, weights);
       # the forward's sigma from each side's own forward.
@@ -1240,6 +1261,7 @@ def main():
       if ('Used' in line or 'spill' in line or 'Compiling' in line) and (
           'C75' not in line):
         log(f'phase 2: ptxas {line.strip()}')
+  check_sass(libs['trunk_fwd_tma'])
   check_sass(libs['trunk_bwd_tma'])
 
   kernels = check_kernels(fused_mlp, dev)
@@ -1257,30 +1279,33 @@ def main():
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
-  tma_src = 'refnerf_tpu_torch/csrc/trunk_bwd_tma.cu'  # bf16 at width 256
-  dir_src = 'refnerf_tpu_torch/csrc/trunk_common.cuh'
+  # bf16 at width 256: the wgmma/TMA forward and backward.
+  ftma_src = 'refnerf_tpu_torch/csrc/trunk_fwd_tma.cu'
+  tma_src = 'refnerf_tpu_torch/csrc/trunk_bwd_tma.cu'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
   # name: (description, source, line of the TPU kernel, launches on the
   # main path: phase 4's requests, phase 6's steps, or both of phase 8 or
-  # of phase 10), each with its phase-3/5/7/9 case.
+  # of phase 10), each with its phase-3/5/7/9 case. K6-K10's source is
+  # their forward's (the backward's is `bwd_source`).
   names = {
-      'K1': ('spatial trunk (fused_encoded_trunk)', fwd_src, 612,
+      'K1': ('spatial trunk (fused_encoded_trunk)', ftma_src, 612,
              launches['K1']),
-      'K2': ('directional trunk (fused_trunk)', fwd_src, 612, launches['K2']),
-      'K3': ('spatial trunk with the density gradient', fwd_src, 589,
+      'K2': ('directional trunk (fused_trunk)', ftma_src, 612,
+             launches['K2']),
+      'K3': ('spatial trunk with the density gradient', ftma_src, 589,
              train_launches['K3']),
       'K4': ('spatial trunk backward', tma_src, 668, train_launches['K4']),
       'K5': ('directional trunk backward with dx', tma_src, 668,
              train_launches['K5']),
-      'K6': ('in-kernel compositing weights (K3 fwd; K1, K4)', dir_src, 498,
-             spa_serve['K6'] + spa_train['K6']),
-      'K7': ('in-kernel IPE (K1 fwd; K3, K4)', dir_src, 550,
+      'K6': ('in-kernel compositing weights (K3 fwd; K1, K4)', ftma_src,
+             498, spa_serve['K6'] + spa_train['K6']),
+      'K7': ('in-kernel IPE (K1 fwd; K3, K4)', ftma_src, 550,
              spa_serve['K7'] + spa_train['K7']),
-      'K8': ('in-kernel IDE in the directional trunk, fwd and bwd', dir_src,
+      'K8': ('in-kernel IDE in the directional trunk, fwd and bwd', ftma_src,
              402, dir_serve['K8'] + dir_train['K8']),
-      'K9': ('in-kernel direction geometry (with K8), fwd and bwd', dir_src,
+      'K9': ('in-kernel direction geometry (with K8), fwd and bwd', ftma_src,
              355, dir_serve['K9'] + dir_train['K9']),
-      'K10': ('in-kernel colour epilogue, fwd and bwd', dir_src, 283,
+      'K10': ('in-kernel colour epilogue, fwd and bwd', ftma_src, 283,
               dir_serve['K10'] + dir_train['K10']),
       # Phase 12's: mip-NeRF as shipped, and without view directions (K11).
       'K11': ('trunk features y out (K1), their cotangent in (K4)', fwd_src,
@@ -1289,7 +1314,7 @@ def main():
                   mip_serve['K2'] + mip_train['K2']),
       'K5 W128': ('directional trunk backward at width 128, dx', bwd_src,
                   668, mip_train['K5']),
-      'K1 hf=0': ('spatial trunk with the bottleneck head alone', fwd_src,
+      'K1 hf=0': ('spatial trunk with the bottleneck head alone', ftma_src,
                   612, mip_serve['K1'] + mip_train['K1']),
       'K4 first-order': ('spatial trunk backward without the cotangent of '
                          'u', tma_src, 668, mip_train['K4'])}
@@ -1314,6 +1339,10 @@ def main():
         'f32_plain_ms': f32['plain_ms'], 'f32_bound_ms': f32['bound_ms']}
     if src == tma_src:
       entry['f32_source'] = bwd_src
+    if src == ftma_src:
+      entry['f32_source'] = fwd_src
+    if which in ('K6', 'K7', 'K8', 'K9', 'K10'):
+      entry['bwd_source'] = tma_src
     if which in ('K8', 'K9', 'K10', 'K11'):
       entry['serve_launches'] = (y_serve if which == 'K11'
                                  else dir_serve)[which]

@@ -1,38 +1,13 @@
 // The per-tile backward's parameters and the checks of its C entries
 // (refnerf_trunk_bwd in trunk_bwd.cu, refnerf_trunk_bwd_tma in
-// trunk_bwd_tma.cu), which take the same arguments; and the phase stamps of
-// both kernels.
+// trunk_bwd_tma.cu), which take the same arguments.
 
 #pragma once
 
+#include "phase_stamps.cuh"
 #include "trunk_common.cuh"
 
 namespace {
-
-// The phase-breakdown build (-DREFNERF_PHASES, tools/bwd_phases.py; never
-// loaded on the main path): thread 0 of each CTA adds the clock64() cycles
-// of each segment of the per-tile kernel, closed by the barrier PHASE_SYNC()
-// that each kernel's file defines, to g_phase_cycles[phase][kind], kind 0
-// products, 1 scalar passes, 2 scratch stores. Phases: 0 input and K6, 1
-// recompute, 2 heads, 3 inner chain, 4 head backward, 5 first-order reverse
-// with dx, 6 tangent.
-#ifdef REFNERF_PHASES
-__device__ unsigned long long g_phase_cycles[7][3];
-#define PHASE_START long long ph_t = clock64()
-#define PHASE_MARK(ph, kind)                                                   \
-  do {                                                                         \
-    PHASE_SYNC();                                                              \
-    if (threadIdx.x == 0) {                                                    \
-      const long long t_ = clock64();                                          \
-      atomicAdd(&g_phase_cycles[ph][kind], static_cast<unsigned long long>(t_ - ph_t)); \
-      ph_t = t_;                                                               \
-    }                                                                          \
-  } while (0)
-#else
-#define PHASE_START do {} while (0)
-#define PHASE_MARK(ph, kind) do {} while (0)
-#endif
-enum { kProd = 0, kScal = 1, kStore = 2 };
 
 struct BwdParams {
   const void* x0;   // [n][d0] segment 0 of this slab, compute dtype
@@ -147,15 +122,3 @@ inline int bwd_params(BwdParams& out, REFNERF_BWD_ARGS) {
 }
 
 }  // namespace
-
-#ifdef REFNERF_PHASES
-// The phase build's cycle sums [7][3] into out, then zeroed when `reset`.
-extern "C" int refnerf_phase_cycles(unsigned long long* out, int reset) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
-  if (err == cudaSuccess && reset) {
-    static const unsigned long long zero[7][3] = {};
-    err = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
-  }
-  return static_cast<int>(err);
-}
-#endif

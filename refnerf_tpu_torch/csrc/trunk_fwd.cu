@@ -75,42 +75,10 @@
 // trunk is ~0.31 MFLOP a sample (kin 161 padded to 192 is the kernel's own
 // cost), in the same tiles with half the accumulators a thread.
 
-#include "trunk_common.cuh"
+#define PHASE_SYNC() __syncthreads()  // closes a stamped segment (-DREFNERF_PHASES)
+#include "trunk_fwd_args.cuh"
 
 namespace {
-
-struct Params {
-  const void* x0;   // [n][d0] segment 0, compute dtype
-  const void* x1;   // [n][d1] the last segment (d1 may be 0)
-  int d0, d1, n;
-  int kin;          // d0 + dir.width() + d1 rounded up to kKS
-  int depth, skip;  // skip: index of the layer fed [act | segments], or -1
-  const void* w;    // per layer [W][K_l] (K_l = kin | W | W + kin), concatenated
-  const void* b;    // [depth][W] compute dtype
-  const float* wd;  // [W] density head, or null
-  const float* wh;  // [hf][W] f32 head block, or null
-  const float* bh;  // [hf]
-  int hf;
-  const void* wc;   // [HC][W] compute-dtype head
-  const void* bc;   // [HC]
-  const float* fold;  // [d0][nb] scale fold S (K3), or null
-  int nb;
-  float* sig;       // [n] out
-  float* hout;      // [n][hf] out
-  void* cout;       // [n][HC] out, compute dtype
-  float* u;         // [n][nb] out (K3), or null
-  const void* wt;   // per layer [K_l][W] (W_l transposed), concatenated
-  DirIn dir;        // K8/K9: the IDE block between x0 and x1 (dir.p > 0)
-  Rgbe rgbe;        // K10, with rgb non-null
-  float* rgb;       // [n][3] out: the final rgb (K10), or null
-  Ipe ipe;          // K7 with ipe.lm non-null: (lm, lv) in place of x0, x1
-  const float* delta;  // [n] K6: t-interval x |direction|
-  const float* bsig;   // [1] K6: the density head's bias + the activation's
-  int samples;      // K6: samples a ray (consecutive rows)
-  int tiles;        // tiles a CTA runs: lcm(samples, kRows) / kRows with K6, else 1
-  float* wts;       // [n] out: the compositing weights (K6), or null
-  void* y;          // [n][W] out, compute dtype: the last activation (K11)
-};
 
 // K11: the resident activation tile to y [n][W], 16 bytes a thread and
 // consecutive threads on consecutive addresses; rows past n are skipped.
@@ -129,8 +97,8 @@ __device__ __forceinline__ void store_rows(T* y, const T* act, int lda, int row0
 // fold of the segment gradients onto the lifted means (fused_mlp.py
 // :589-609, :651-662). Runs after the heads; overwrites the activation tile.
 template <typename T, int W, bool SPA>
-__device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int ldi, T* ring,
-                            const uint32_t* bits, float* uacc, int row0) {
+__device__ void inner_chain(const FwdParams& p, T* act, int lda, const T* inb, int ldi, T* ring,
+                            const uint32_t* bits, float* uacc, int row0 PHASE_PARAM) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
@@ -147,6 +115,7 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
     o += static_cast<size_t>(W) * (l == 0 ? p.kin : (l == p.skip ? W + p.kin : W));
   }
   __syncthreads();
+  PHASE_MARK(3, kScal);
   for (int l = p.depth - 1; l >= 0; --l) {
     const uint32_t* bl = bits + l * kRows * (W / 32);
     for (int i = tid; i < kRows * W; i += kThreads) {
@@ -154,12 +123,14 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
       if (!mask_at<W>(bl, r, c)) act[r * lda + c] = from_f<T>(0.f);
     }
     __syncthreads();
+    PHASE_MARK(3, kScal);
     if (l == 0 || l == p.skip) {
       const int base = l == 0 ? 0 : W;
       for (int c0 = 0; c0 < p.kin; c0 += 32) {
         float acc[2][1][4];
         gemm<T, 32>(acc, act, lda, W, act, lda, wt + off[l] + static_cast<size_t>(base + c0) * W,
                     W, ring);
+        PHASE_MARK(3, kProd);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -168,11 +139,13 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
             uacc[r * p.kin + col] += acc[mt][0][2 * h];
             uacc[r * p.kin + col + 1] += acc[mt][0][2 * h + 1];
           }
+        PHASE_MARK(3, kScal);
       }
     }
     if (l > 0) {
       float acc[2][W / 32][4];
       gemm<T, W>(acc, act, lda, W, act, lda, wt + off[l], W, ring);
+      PHASE_MARK(3, kProd);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -186,6 +159,7 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
           }
         }
       __syncthreads();
+      PHASE_MARK(3, kScal);
     }
   }
   __syncthreads();
@@ -210,6 +184,7 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
         for (int c = 0; c < F; ++c) s = fmaf(uacc[r * p.kin + c], p.fold[c * p.nb + j], s);
         p.u[static_cast<size_t>(gr) * p.nb + j] = s;
       }
+      PHASE_MARK(3, kScal);
       return;
     }
   }
@@ -224,10 +199,11 @@ __device__ void inner_chain(const Params& p, T* act, int lda, const T* inb, int 
     }
     p.u[static_cast<size_t>(gr) * p.nb + j] = s;
   }
+  PHASE_MARK(3, kScal);
 }
 
 template <typename T, int W, int HC, bool DIR, bool SPA, bool YO = false>
-__global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PAD = Pad<T>::v;
   constexpr int LDA = W + PAD;
@@ -252,6 +228,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
   const T* x1 = static_cast<const T*>(p.x1);
   const T* bias = static_cast<const T*>(p.b);
   const int tiles = SPA ? p.tiles : 1;
+  PHASE_START;
 
   for (int tile = 0; tile < tiles; ++tile) {
     const int row0 = (blockIdx.x * tiles + tile) * kRows;
@@ -268,6 +245,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
     } else {
       load_input<T, DIR>(inb, ldi, x0, p.d0, x1, p.d1, p.kin, row0, p.n, p.dir);
     }
+    PHASE_MARK(0, kScal);
 
     const T* wl = static_cast<const T*>(p.w);
     for (int l = 0; l < p.depth; ++l) {
@@ -281,6 +259,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
         gemm<T, W>(acc, act, LDA, W, inb, ldi, wl, K, ring);
       }
       wl += static_cast<size_t>(W) * K;
+      PHASE_MARK(1, kProd);
       // gemm() ended synchronised: the activation tile may be overwritten.
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -298,6 +277,7 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
         }
       __syncthreads();
       if (dg) save_mask<T, W>(bits + l * kRows * (W / 32), act, LDA);
+      PHASE_MARK(1, kScal);
     }
     if constexpr (YO) store_rows<T, W>(static_cast<T*>(p.y), act, LDA, row0, p.n);
 
@@ -338,11 +318,13 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
         }
       }
     }
+    PHASE_MARK(2, kScal);
 
     // Compute-dtype head (the bottleneck): one more GEMM on the resident y.
     if constexpr (HC > 0) {
       float acc[2][HC / 32][4];
       gemm<T, HC>(acc, act, LDA, W, act, LDA, static_cast<const T*>(p.wc), W, ring);
+      PHASE_MARK(2, kProd);
       const T* bc = static_cast<const T*>(p.bc);
       T* out = static_cast<T*>(p.cout);
 #pragma unroll
@@ -359,8 +341,9 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
                         bias_add<T>(acc[mt][nt][2 * h + 1], bc[col + 1]));
           }
         }
+      PHASE_MARK(2, kStore);
     }
-    if (dg) inner_chain<T, W, SPA>(p, act, LDA, inb, ldi, ring, bits, uacc, row0);
+    if (dg) inner_chain<T, W, SPA>(p, act, LDA, inb, ldi, ring, bits, uacc, row0 PHASE_ARG);
   }
 
   // K6: the weights of the CTA's rays, one warp a ray.
@@ -374,12 +357,13 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(Params p) {
         if (r0 >= p.n) break;
         ray_weights(sraw + q * S, p.delta + r0, bsig, S, p.wts + r0, nullptr, nullptr);
       }
+      PHASE_MARK(4, kScal);
     }
   }
 }
 
 template <typename T, int W, int HC, bool DIR, bool SPA, bool YO = false>
-int launch(const Params& p, cudaStream_t stream) {
+int launch(const FwdParams& p, cudaStream_t stream) {
   constexpr int PAD = Pad<T>::v;
   constexpr int NMAX = W > HC ? W : HC;
   size_t smem = sizeof(T) * (static_cast<size_t>(kRows) * (W + PAD) +
@@ -406,7 +390,7 @@ int launch(const Params& p, cudaStream_t stream) {
 // plain directional trunk (K2) alone: no density head, density gradient,
 // compute-dtype head or fused stage, which were never checked there.
 template <typename T>
-int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
+int dispatch(int width, int hc, const FwdParams& p, cudaStream_t stream) {
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
   if (p.y != nullptr)
@@ -442,49 +426,10 @@ int dispatch(int width, int hc, const Params& p, cudaStream_t stream) {
 // delta [n] and bsig [1], go to wts [n]. With y non-null (K11; width 256,
 // hc 0, no u, no fused stage) the last activation goes to y [n][width] in
 // the compute dtype.
-extern "C" int refnerf_trunk_fwd(int dtype, int width, int hc, const void* x0, int d0,
-                                 const void* x1, int d1, int n, int kin, int depth, int skip,
-                                 const void* w, const void* wt, const void* b, const float* wd,
-                                 const float* wh, const float* bh, int hf, const void* wc,
-                                 const void* bc, const float* fold, int nb, float* sig,
-                                 float* hout, void* cout, float* u, const float* g,
-                                 const float* v, const float* k, int ide_p, int lmax, int geo,
-                                 const float* mat, const float* sg, const float* gm,
-                                 const float* rawd, const float* rawt, float* rgb, float premult,
-                                 float rbias, float pad, const float* lm, const float* lv,
-                                 const float* delta, const float* bsig, int samples, float* wts,
-                                 void* y, void* stream) {
-  const DirIn dir{g, v, k, mat, sg, gm, ide_p, lmax, geo ? 1 : 0};
-  if (n <= 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin || depth > 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (u != nullptr && (wd == nullptr || wt == nullptr || fold == nullptr || d0 != d1 ||
-                       nb <= 0 || nb > 4 || ide_p != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (ide_p != 0 && (ide_p < 0 || lmax < 0 || lmax > 16 || g == nullptr || k == nullptr ||
-                     mat == nullptr || sg == nullptr || gm == nullptr || (geo && v == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rgb != nullptr && (hf != 3 || hout == nullptr || rawd == nullptr || rawt == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (lm != nullptr && (lv == nullptr || fold == nullptr || x0 != nullptr || x1 != nullptr ||
-                        d0 != d1 || nb <= 0 || d0 % nb != 0 || ide_p != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int tiles = 1;
-  if (wts != nullptr) {
-    if (samples <= 0 || n % samples != 0 || wd == nullptr || delta == nullptr ||
-        bsig == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    int a = samples, r = kRows;  // tiles = lcm(samples, kRows) / kRows
-    while (r != 0) {
-      const int q = a % r;
-      a = r;
-      r = q;
-    }
-    tiles = samples / a;
-    if (tiles * kRows > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params p{x0, x1, d0, d1, n, kin, depth, skip, w, b, wd, wh, bh, hf, wc, bc,
-           fold, nb, sig, hout, cout, u, wt, dir, Rgbe{rawd, rawt, premult, rbias, pad}, rgb,
-           Ipe{lm, lv, fold, nb}, delta, bsig, samples, tiles, wts, y};
+extern "C" int refnerf_trunk_fwd(REFNERF_FWD_ARGS) {
+  FwdParams p;
+  const int err = fwd_params(p, REFNERF_FWD_NAMES);
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(width, hc, p, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(width, hc, p, s);

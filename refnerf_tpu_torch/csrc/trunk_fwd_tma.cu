@@ -1,0 +1,791 @@
+// The bf16 width-256 trunk forward for Hopper (sm_90a): wgmma products fed
+// by a TMA weight ring.
+//
+// Replaces, for the compute dtype bfloat16 at width 256, the forward Pallas
+// kernel `_fwd_kernel` (:612-666) of refnerf_tpu/ops/pallas/fused_mlp.py in
+// the modes of trunk_fwd.cu but K11: K1 (the spatial trunk and its heads),
+// K2 (the directional trunk), K3 (K1 with the density gradient,
+// `_inner_chain` :589-609 and the fold :651-662), K6 and K7 on K1/K3 (the
+// compositing weights `_epilogue_fwd` :498, the IPE `_segments` :550-563),
+// K8-K10 on K2 (the IDE `_ide_fwd` :402, the direction geometry
+// `_dir_geometry` :355, the colour epilogue `_rgb_epilogue` :283). It
+// computes what trunk_fwd.cu computes, with the same arithmetic and bf16
+// roundings (trunk_fwd.cu:35-47: each f32 sum rounded to bf16 before the
+// bf16 bias add, then ReLU; sigma and the f32 heads on f32(y); the
+// bottleneck cdt(y wc^T) + cdt(bc); K3's chain q = cdt(s_l Wa_l) with u_x
+// summed in f32 over the skip layer and layer 0), from the same C arguments.
+// The float32, width-128 and K11 instances, and trunks past kMaxDepth
+// layers or kW input columns, stay in trunk_fwd.cu.
+//
+// Bound on the H100: the products, ~1.09 MFLOP a sample for K1 and ~2.10
+// for K3 (0.57 / 1.10 TFLOP at N = 524,288; 0.58 / 1.12 ms at 989 TFLOP/s);
+// device memory carries only the inputs and outputs (~0.1-0.3 GB, under
+// 0.1 ms). A 64-row tile reads each layer's weights (128 KB) from L2 for
+// 8.4 MFLOP, 64 FLOP a byte.
+//
+// Design (trunk_bwd_tma.cu's, whose building blocks are in hopper_tma.cuh).
+//  - Two consumer warpgroups and a producer warpgroup, one warp of which
+//    issues the TMA loads; setmaxnreg gives the producer 40 registers a
+//    thread and the consumers' code 232 (ptxas reports the launch's 168). The CTAs are persistent, one an SM, each
+//    walking units of 64-row tiles, so the producer loads a unit's first
+//    weights during the last epilogues of the one before. Each product runs
+//    as wgmma m64n128k16, warpgroup g owning output columns [128 g, 128 g +
+//    128): 64 f32 accumulators a thread and tile, acc[t][4 j + 2 h + e] at
+//    row 16 w + lane / 4 + 8 h, column 128 g + 8 j + 2 (lane % 4) + e.
+//  - Two tiles at a time (NT = 2) but with K3: each weight slice serves the
+//    products of both, so a sample reads half the weights from L2, which
+//    bounds the one-tile design; units of two tiles, or with K6 of whole
+//    rays in an even number of tiles. K3 runs one tile at a time (NT = 1):
+//    its relu' bits and its chain's state do not fit twice.
+//  - The activation and input tiles stay in shared memory in wgmma's
+//    128-byte-swizzled K-major layout; the weights come by TMA from the
+//    forward pack `w`, `wc` and, for K3's chain, the transposed pack `wt`,
+//    in [256][64] slices through a ring of 2-4 stages (the most that fits
+//    beside NT tiles). The producer walks the consumers' `schedule`, so the
+//    next layer's weights arrive during an epilogue.
+//  - The raw inputs of a tile are staged in shared memory first, every
+//    load in flight at once (16-byte loads of the segments, which a tile
+//    holds as one contiguous block; K7's lm, lv; K8's directions), and the
+//    input tile is made from there: with one CTA an SM nothing else hides a
+//    load's latency.
+//  - The epilogues work in registers: bias, ReLU and rounding on bf16 pairs
+//    (one rounding of the exact sum of two bf16 values is the rounding of
+//    their f32 sum), K3's relu' bits in the accumulator's own order; sigma
+//    and the f32 heads as dot products of the thread's 32 columns of y with
+//    the heads' weights (in shared memory where they fit), summed over a
+//    quad's 4 lanes by shuffles and over the two warpgroups through shared
+//    memory; the bottleneck head straight from its accumulators; K3's u_x
+//    summed in an f32 tile as each of its two products comes out, then
+//    folded as trunk_fwd.cu folds it. No wgmma sits on a branch.
+// What bounds it on the card (PERF.md): the weights stream from L2 at 64
+// FLOP a byte for a 64-row tile (~1.1 MB a tile for K1, ~2.2 MB for K3),
+// and the epilogues leave the tensor cores idle.
+
+#include <string.h>
+
+#define PHASE_SYNC() cons_sync()  // closes a stamped segment
+#include "hopper_tma.cuh"
+#include "trunk_fwd_args.cuh"
+
+namespace {
+
+constexpr int kStages = 4;
+constexpr int kMaxHeads = 16;  // f32 heads: their partial sums fit in `red`
+constexpr int kXst = 8 * kRows;  // floats of staged raw inputs: K7's lm, lv; K8's g, v, k
+// Two consumer warpgroups and a producer warpgroup (one warp of it issues
+// the TMA loads): whole warpgroups, so that setmaxnreg can move registers
+// from the producer (kProdRegs) to the consumers (kConsRegs).
+constexpr int kFwdThreads = kCons + 128;
+constexpr int kProdRegs = 40, kConsRegs = 232;
+
+struct FwdMaps {
+  CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 64 x 256
+  CUtensorMap wt[kMaxDepth];  // layer l of `wt`: [K_l][W] (K3's chain)
+  CUtensorMap wc;             // [HC][W]
+  int stages;                 // of the weight ring
+  int tiles;                  // 64-row tiles of a unit, a multiple of NT
+  int heads_in_smem;          // the f32 heads' weights fit in shared memory
+  int small_in_act;           // xst and red live in the activation tiles
+};
+
+// acc[t] = A_t[64][K] B^T for the NT tiles t with B the next ceil(K / 64)
+// slices of the ring: each slice serves all NT tiles. A_t's K-slices s < n0
+// are the blocks of a0[t], the rest those of a1[t]. Otherwise as `product`
+// (hopper_tma.cuh). No wgmma sits on a branch: a warpgroup whose output
+// columns lie past a product's (the 128-wide bottleneck, u_x of kin <= 128)
+// multiplies the zero rows that TMA fills past a tensor map's extent.
+template <int NT>
+__device__ __forceinline__ void product_n(float (&acc)[NT][64], const uint32_t (&a0)[NT], int n0,
+                                          const uint32_t (&a1)[NT], int K, Ring& r) {
+  const int wg = threadIdx.x >> 7;
+  const int ns = (K + kBK - 1) / kBK;
+  int prev = 0;
+  wg_fence();
+  for (int s = 0; s < ns; ++s) {
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+    const uint32_t b = r.base + r.stage * kSlice + wg * (kSlice / 2);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const uint32_t a = s < n0 ? a0[t] + s * kBlk : a1[t] + (s - n0) * kBlk;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma128<0, 0>(acc[t], sw128_desc(a + 32 * kk, 16, 1024),
+                       sw128_desc(b + 32 * kk, 16, 1024), s | kk);
+    }
+    wg_commit();
+    if (s > 0) {
+      wg_wait<1>();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * prev);
+    }
+    prev = r.stage;
+    r.advance();
+  }
+  wg_wait<0>();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * prev);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc_fence(acc[t]);
+}
+
+__device__ __forceinline__ int k_dim(const FwdParams& p, int l) {
+  return l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+}
+
+// The products of one tile in order, as (tensor map, first B row, K); the
+// producer loads their slices, and the kernel below runs them in this order.
+template <int HC, typename F>
+__device__ void schedule(const FwdParams& p, const FwdMaps& m, F&& load) {
+  for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim(p, l));  // the layers
+  if (HC > 0) load(&m.wc, 0, kW);                                    // the bottleneck
+  if (p.u != nullptr)                                                // K3's chain
+    for (int l = p.depth - 1; l >= 0; --l) {
+      if (l == p.skip) load(&m.wt[l], kW, kW);  // u_x: the skip layer's input columns
+      load(&m.wt[l], 0, kW);                    // s_{l-1}; at l = 0, u_x of layer 0
+    }
+}
+
+// One f32 head on y (the thread's 32 columns of its two rows, in registers)
+// with its weights wv (shared or device memory): the dot products summed
+// over the quad's 4 lanes, to rw[row][slot].
+__device__ __forceinline__ void head_part(const float (&y)[64], const float* wv, int fc, int fr,
+                                          float* rw, int nred, int slot) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 w = *reinterpret_cast<const float2*>(wv + fc + 8 * j);
+    s0 = fmaf(y[4 * j], w.x, s0);
+    s0 = fmaf(y[4 * j + 1], w.y, s0);
+    s1 = fmaf(y[4 * j + 2], w.x, s1);
+    s1 = fmaf(y[4 * j + 3], w.y, s1);
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if ((threadIdx.x & 3) == 0) {
+    rw[fr * nred + slot] = s0;
+    rw[(fr + 8) * nred + slot] = s1;
+  }
+}
+
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The tile's rows [row0, row0 + rows) of a [n][d] segment, one contiguous
+// block of rows * d values, to `st` in shared memory: 16-byte loads where
+// the block is 16-byte aligned, kStage of them in flight a thread.
+constexpr int kStage = 4;
+__device__ void stage_block(bf16* st, const bf16* x, int d, int row0, int rows) {
+  if (x == nullptr || d == 0) return;
+  const bf16* src = x + static_cast<size_t>(row0) * d;
+  const int count = rows * d;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const int nv = count >> 3;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(st);
+    for (int i0 = threadIdx.x; i0 < nv; i0 += kStage * kCons) {
+      uint4 v[kStage];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u)
+        if (i0 + u * kCons < nv) v[u] = __ldg(s4 + i0 + u * kCons);
+#pragma unroll
+      for (int u = 0; u < kStage; ++u)
+        if (i0 + u * kCons < nv) d4[i0 + u * kCons] = v[u];
+    }
+    done = nv << 3;
+  }
+  for (int i = done + threadIdx.x; i < count; i += kCons) st[i] = src[i];
+}
+
+// The input tile from the staged segments s0 [rows][d0], s1 [rows][d1]:
+// columns [x0 | the IDE block (dide columns, left for ide_fill_staged) |
+// x1], zeros past them and past `rows`, 16 bytes of a row a store.
+__device__ void fill_input(unsigned char* tile, const bf16* s0, int d0, const bf16* s1, int d1,
+                           int dide, int kp, int rows) {
+  const int cpr = kp >> 3;
+  const unsigned short* h0 = reinterpret_cast<const unsigned short*>(s0);
+  const unsigned short* h1 = reinterpret_cast<const unsigned short*>(s1);
+  for (int q = threadIdx.x; q < kRows * cpr; q += kCons) {
+    const int r = q / cpr, c0 = (q - r * cpr) << 3;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (r < rows) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = c0 + e, c1 = c - d0 - dide;
+        uint32_t v = 0u;
+        if (c < d0)
+          v = h0[r * d0 + c];
+        else if (c1 >= 0 && c1 < d1)
+          v = h1[r * d1 + c1];
+        w[e >> 1] |= v << (16 * (e & 1));
+      }
+    }
+    *reinterpret_cast<uint4*>(tile + sw_off(r, c0)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// K8/K9: the IDE block of the tile (trunk_common.cuh `ide_fill`) from its
+// raw inputs staged in shared memory, g [kRows][3], v [kRows][3] (geo), k
+// [kRows]; four threads a row.
+__device__ void ide_fill_staged(const Tile& t, const DirIn& d, const float* g, const float* v,
+                                const float* k, int d0, int rows) {
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+  DirSample s{};
+  s.live = r < rows;
+  if (s.live) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s.g[c] = g[r * 3 + c];
+      s.v[c] = d.geo ? v[r * 3 + c] : 0.f;
+      s.rd[c] = s.g[c];
+    }
+    s.ki = k[r];
+    if (d.geo) dir_geometry(s.g, s.v, s.rd, s.nd, s.q);
+  }
+  for (int i = q; i < d.p; i += 4) {
+    const Harm h = ide_harmonic(d, s.rd[0], s.rd[1], s.rd[2], i);
+    const float zpat = h.zp * expf(mul(-s.ki, __ldg(d.sg + i)));
+    t(r, d0 + i) = from_f<bf16>(s.live ? h.re * zpat : 0.f);
+    t(r, d0 + d.p + i) = from_f<bf16>(s.live ? h.im * zpat : 0.f);
+  }
+  if (d.geo && q == 0) t(r, d0 + 2 * d.p) = from_f<bf16>(s.live ? s.nd : 0.f);
+}
+
+// K7: the input tile (trunk_common.cuh `load_ipe`) from lm, lv staged in
+// shared memory: q's lm, lv point there, [kRows][nb] each, and its rows are
+// the tile's. Columns [xs F | xc F], zeros past them and past `rows`.
+__device__ void ipe_fill_staged(const Tile& t, const Ipe& q, int F, int kp, int rows) {
+  for (int i = threadIdx.x; i < kRows * F; i += kCons) {
+    const int r = i / F, c = i - r * F;
+    float e = 0.f, sn = 0.f, cs = 0.f;
+    if (r < rows) ipe_trig(q, r, c, e, sn, cs);
+    t(r, c) = from_f<bf16>(mul(e, sn));
+    t(r, F + c) = from_f<bf16>(mul(e, cs));
+  }
+  const int pad = kp - 2 * F;
+  for (int i = threadIdx.x; i < kRows * pad; i += kCons) {
+    const int r = i / pad;
+    t(r, 2 * F + i - r * pad) = from_f<bf16>(0.f);
+  }
+}
+
+// K3 on one tile (the consumers; act, inb its tiles, acc its accumulators,
+// ut an f32 [kRows][kin] tile): the chain s_{L-1} = relu'(h) cdt(wd),
+// s_{l-1} = relu'(h_{l-1}) cdt(s_l Wa_l), with u_x = s_skip Wx_skip + s_0
+// Wx_0 in f32; then the fold u = (f32(xc) u_xs - f32(xs) u_xc) S (K7: e
+// (cos m u_xs - sin m u_xc) S).
+template <bool SPA>
+__device__ __forceinline__ void chain(const FwdParams& p, float (&acc)[1][64], unsigned char* act,
+                                      unsigned char* inb, const uint2* masks, const float* xst,
+                                      float* ut, int row0, int rows, Ring& ring_st PHASE_PARAM) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7, w4 = warp & 3;
+  const int fr = 16 * w4 + (lane >> 2), fc = 128 * wg + 2 * (lane & 3);
+  const Tile X{inb};
+  const uint32_t act_s[1] = {smem_u32(act)};
+  auto publish = [&]() {
+    fence_async_smem();
+    cons_sync();
+  };
+  auto put2 = [&](int r, int c, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(act + sw_off(r, c)) = v;
+  };
+  cons_sync();  // the bottleneck head's product has read y
+  {
+    const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = fc + 8 * j;
+      const float q0 = round_t<bf16>(p.wd[c]), q1 = round_t<bf16>(p.wd[c + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        put2(fr + 8 * h, c, bits2(__floats2bfloat162_rn(bit_at(mk, i) ? q0 : 0.f,
+                                                         bit_at(mk, i + 1) ? q1 : 0.f)));
+      }
+    }
+  }
+  publish();
+  PHASE_MARK(3, kScal);
+  // u_x = s_skip Wx_skip + s_0 Wx_0 in f32 in the [kRows][kin] tile ut, in
+  // trunk_fwd.cu's order, each product's share as it comes out of acc (no
+  // second set of accumulators lives through the chain).
+  auto take_ux = [&](bool first) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = fc + 8 * j, i = 4 * j + 2 * h;
+        if (c >= p.kin) continue;
+        float2* q = reinterpret_cast<float2*>(ut + (fr + 8 * h) * p.kin + c);
+        const float2 o = first ? make_float2(0.f, 0.f) : *q;
+        *q = make_float2(o.x + acc[0][i], o.y + acc[0][i + 1]);
+      }
+  };
+  for (int l = p.depth - 1; l > 0; --l) {
+    if (l == p.skip) {
+      product_n<1>(acc, act_s, kW / 64, act_s, kW, ring_st);
+      take_ux(true);
+    }
+    product_n<1>(acc, act_s, kW / 64, act_s, kW, ring_st);
+    PHASE_MARK(3, kProd);
+    cons_sync();
+    const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // cdt(acc) on bf16 pairs, masked by the two relu' bits.
+        const int i = 4 * j + 2 * h;
+        const uint32_t b = ((i < 32 ? mk.x >> i : mk.y >> (i - 32)) & 3u);
+        const uint32_t keep = ((0u - (b & 1u)) & 0xffffu) | ((0u - (b >> 1)) & 0xffff0000u);
+        put2(fr + 8 * h, fc + 8 * j,
+             bits2(__floats2bfloat162_rn(acc[0][i], acc[0][i + 1])) & keep);
+      }
+    publish();
+    PHASE_MARK(3, kScal);
+  }
+  product_n<1>(acc, act_s, kW / 64, act_s, kW, ring_st);
+  take_ux(p.skip <= 0);
+  PHASE_MARK(3, kProd);
+
+  // The fold, as trunk_fwd.cu: u_m in place of u_xs, then u = u_m S, a
+  // thread a (row, basis vector).
+  const int F = p.d0, nb = p.nb;
+  bool k7 = false;
+  if constexpr (SPA) k7 = p.ipe.lm != nullptr;
+  cons_sync();
+  for (int i = tid; i < kRows * F; i += kCons) {
+    const int r = i / F, c = i % F;
+    if (r >= rows) continue;
+    float* u0 = ut + r * p.kin + c;
+    if (k7) {  // e (cos m u_xs - sin m u_xc) in f32 (:657-659), lm, lv staged
+      float e, sn, cs;
+      ipe_trig(Ipe{xst, xst + kRows * nb, p.fold, nb}, r, c, e, sn, cs);
+      *u0 = mul(e, sub(mul(cs, u0[0]), mul(sn, u0[F])));
+    } else {  // f32(xc) u_xs - f32(xs) u_xc
+      *u0 = to_f(X(r, F + c)) * u0[0] - to_f(X(r, c)) * u0[F];
+    }
+  }
+  cons_sync();
+  for (int i = tid; i < kRows * nb; i += kCons) {
+    const int r = i / nb, j = i % nb, gr = row0 + r;
+    if (gr >= p.n) continue;
+    float s = 0.f;
+    for (int c = 0; c < F; ++c) s = fmaf(ut[r * p.kin + c], p.fold[c * nb + j], s);
+    p.u[static_cast<size_t>(gr) * nb + j] = s;
+  }
+  PHASE_MARK(3, kScal);
+}
+
+template <int HC, bool DIR, bool SPA, int NT>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    trunk_fwd_tma_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ FwdMaps m) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int kp = (p.kin + kBK - 1) / kBK * kBK;
+  const bool dg = NT == 1 && p.u != nullptr;
+  const int tiles = m.tiles, stages = m.stages;
+  const int units = (p.n + tiles * kRows - 1) / (tiles * kRows);
+  const int nred = max(1 + p.hf, 4);
+  unsigned char* ring = smem;                      // stages x [256][64]
+  unsigned char* act0 = ring + stages * kSlice;    // NT x [64][256]: h_l, then K3's s_l
+  unsigned char* inb0 = act0 + NT * (kW / 64) * kBlk;  // NT x [64][kp]: the trunk input
+  uint2* masks = reinterpret_cast<uint2*>(inb0 + NT * (kp / 64) * kBlk);  // K3: [depth][256]
+  // Without the bottleneck head a tile's activations are dead from its
+  // last product to its next input, and its raw inputs' staging uses the
+  // front of it: there (small_in_act) xst lives at its end and red at its
+  // front, which buys the directional trunk a third stage of the ring.
+  const bool in_act = m.small_in_act;
+  float* xst0 = reinterpret_cast<float*>(masks + (dg ? p.depth * kCons : 0));  // NT x [kXst]
+  float* hw = xst0 + (in_act ? 0 : NT * kXst);  // [1 + hf][W]: wd (or zeros), wh, where they fit
+  float* red0 = hw + (m.heads_in_smem ? (1 + p.hf) * kW : 0);  // NT x [2][kRows][nred]
+  float* ut = red0 + (in_act ? 0 : NT * 2 * kRows * nred);  // K3: u_x [kRows][kin] f32
+  float* sraw = ut + (dg ? kRows * p.kin : 0);  // K6: the
+  const int nsraw = SPA && p.wts != nullptr ? tiles * kRows : 0;  // unit's raw density
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(sraw + nsraw) + 7) & ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + stages), stages, 0, 0u};
+  auto act = [&](int t) { return act0 + t * (kW / 64) * kBlk; };
+  auto inb = [&](int t) { return inb0 + t * (kp / 64) * kBlk; };
+  auto xst = [&](int t) {
+    return in_act ? reinterpret_cast<float*>(act(t) + (kW / 64) * kBlk) - kXst : xst0 + t * kXst;
+  };
+  auto red = [&](int t) {
+    return in_act ? reinterpret_cast<float*>(act(t)) : red0 + t * 2 * kRows * nred;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring_st.full + 8 * s, 1);
+      mbar_init(ring_st.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kCons / 32) {  // the producer: weight slices, in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProdRegs));
+    if (warp == kCons / 32 && lane == 0) {
+      for (int unit = blockIdx.x; unit < units; unit += gridDim.x)
+        for (int t = 0; t < tiles; t += NT)
+          schedule<HC>(p, m, [&](const CUtensorMap* map, int row, int K) {
+            for (int k = 0; k < K; k += kBK) {
+              mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
+              mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
+              tma_load(ring_st.base + ring_st.stage * kSlice, map,
+                       ring_st.full + 8 * ring_st.stage, k, row);
+              ring_st.advance();
+            }
+          });
+    }
+    return;
+  }
+
+  // The consumers.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsRegs));
+  PHASE_START;
+  const int wg = tid >> 7, w4 = warp & 3;
+  const int fr = 16 * w4 + (lane >> 2);      // acc[t][4 j + 2 h + e]: row fr + 8 h,
+  const int fc = 128 * wg + 2 * (lane & 3);  // column fc + 8 j + e
+  const bf16* bias = static_cast<const bf16*>(p.b);
+  uint32_t act_s[NT], inb_s[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    act_s[t] = smem_u32(act(t));
+    inb_s[t] = smem_u32(inb(t));
+  }
+  float acc[NT][64];
+
+  // After the consumers wrote a tile: visible to wgmma.
+  auto publish = [&]() {
+    fence_async_smem();
+    cons_sync();
+  };
+  auto put2 = [&](int t, int r, int c, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(act(t) + sw_off(r, c)) = v;
+  };
+
+  // The f32 heads' weights, once a CTA.
+  const float* wdp = p.wd;
+  const float* whp = p.wh;
+  if (m.heads_in_smem) {
+    for (int i = tid; i < (1 + p.hf) * kW; i += kCons)
+      hw[i] = i < kW ? (p.wd != nullptr ? p.wd[i] : 0.f) : p.wh[i - kW];
+    wdp = hw;
+    whp = hw + kW;
+  }
+
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    for (int tp = 0; tp < tiles; tp += NT) {
+      int row0[NT], rows[NT];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        row0[t] = (unit * tiles + tp + t) * kRows;
+        rows[t] = max(0, min(kRows, p.n - row0[t]));
+      }
+      cons_sync();  // the last tiles' reads of every tile and buffer are done
+
+      // 1. The input tiles, their raw inputs staged first with every load in
+      // flight (the segments over the activation tiles; K7's lm, lv and K8's
+      // directions in xst); K7 the IPE, K8/K9 the IDE block made here.
+      bool ipe = false;
+      if constexpr (SPA) ipe = p.ipe.lm != nullptr;
+      if (ipe) {
+        const int nb = p.ipe.nb;
+        for (int t = 0; t < NT; ++t)
+          for (int i = tid; i < rows[t] * nb; i += kCons) {
+            xst(t)[i] = p.ipe.lm[static_cast<size_t>(row0[t]) * nb + i];
+            xst(t)[kRows * nb + i] = p.ipe.lv[static_cast<size_t>(row0[t]) * nb + i];
+          }
+        cons_sync();
+        for (int t = 0; t < NT; ++t)
+          ipe_fill_staged(Tile{inb(t)}, Ipe{xst(t), xst(t) + kRows * nb, p.fold, nb}, p.d0, kp,
+                          rows[t]);
+      } else {
+        const bool ide = DIR && p.dir.p != 0;
+        for (int t = 0; t < NT; ++t) {
+          bf16* s0 = reinterpret_cast<bf16*>(act(t));
+          stage_block(s0, static_cast<const bf16*>(p.x0), p.d0, row0[t], rows[t]);
+          stage_block(s0 + kRows * p.d0, static_cast<const bf16*>(p.x1), p.d1, row0[t], rows[t]);
+          if (ide) {
+            float* x = xst(t);
+            for (int i = tid; i < rows[t] * 3; i += kCons) {
+              x[i] = p.dir.g[static_cast<size_t>(row0[t]) * 3 + i];
+              if (p.dir.geo) x[3 * kRows + i] = p.dir.v[static_cast<size_t>(row0[t]) * 3 + i];
+            }
+            for (int i = tid; i < rows[t]; i += kCons) x[6 * kRows + i] = p.dir.k[row0[t] + i];
+          }
+        }
+        cons_sync();
+        for (int t = 0; t < NT; ++t) {
+          const bf16* s0 = reinterpret_cast<const bf16*>(act(t));
+          fill_input(inb(t), s0, p.d0, s0 + kRows * p.d0, p.d1, DIR ? p.dir.width() : 0, kp,
+                     rows[t]);
+        }
+        if constexpr (DIR) {
+          if (ide) {
+            cons_sync();  // the chunks of fill_input that hold IDE columns are written
+            for (int t = 0; t < NT; ++t)
+              ide_fill_staged(Tile{inb(t)}, p.dir, xst(t), xst(t) + 3 * kRows, xst(t) + 6 * kRows,
+                              p.d0, rows[t]);
+          }
+        }
+      }
+      publish();
+      PHASE_MARK(0, kScal);
+
+      // 2. The layers: h_l = relu(cdt(cdt(acc) + b_l)) on bf16 pairs to the
+      // activation tiles (the last one, y, only for the bottleneck head) and
+      // kept in acc; with the density gradient the relu' bits in the
+      // accumulators' order.
+      for (int l = 0; l < p.depth; ++l) {
+        if (l == 0)
+          product_n<NT>(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
+        else
+          product_n<NT>(acc, act_s, kW / 64, inb_s, k_dim(p, l), ring_st);
+        PHASE_MARK(1, kProd);
+        cons_sync();  // both warpgroups' products have read the tiles
+        const bool keep = l + 1 < p.depth || HC > 0;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          uint32_t mk[2] = {0u, 0u};
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int c = fc + 8 * j;
+            const __nv_bfloat162 bb =
+                *reinterpret_cast<const __nv_bfloat162*>(bias + l * kW + c);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h;
+              // cdt(acc) + cdt(b) in one rounding (the exact sum of two bf16
+              // values rounds as their f32 sum does), then ReLU.
+              const uint32_t v = bits2(__hmax2(__hadd2(__floats2bfloat162_rn(acc[t][i],
+                                                                             acc[t][i + 1]),
+                                                       bb),
+                                               __float2bfloat162_rn(0.f)));
+              mk[i >> 5] |= ((v & 0x7fffu) != 0u ? 1u : 0u) << (i & 31);
+              mk[i >> 5] |= ((v & 0x7fff0000u) != 0u ? 1u : 0u) << ((i + 1) & 31);
+              if (keep) put2(t, fr + 8 * h, c, v);
+              acc[t][i] = __uint_as_float(v << 16);
+              acc[t][i + 1] = __uint_as_float(v & 0xffff0000u);
+            }
+          }
+          if (dg) masks[l * kCons + tid] = make_uint2(mk[0], mk[1]);
+        }
+        publish();
+        PHASE_MARK(1, kScal);
+      }
+
+      // 3. sigma = f32(y) wd and the f32 heads f32(y) wh^T + bh from the
+      // registers; then a thread an output sums the two warpgroups' halves
+      // and stores it (K6 keeps sigma), and with K10 a thread a row runs the
+      // colour epilogue on the rgb head.
+      {
+        const int nh = 1 + p.hf;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          float* rw = red(t) + wg * kRows * nred;
+          if (p.wd != nullptr) head_part(acc[t], wdp, fc, fr, rw, nred, 0);
+          for (int k = 0; k < p.hf; ++k)
+            head_part(acc[t], whp + k * kW, fc, fr, rw, nred, 1 + k);
+        }
+        cons_sync();
+        for (int t = 0; t < NT; ++t) {
+          float* rd = red(t);
+          for (int i = tid; i < rows[t] * nh; i += kCons) {
+            const int r = i / nh, k = i - r * nh;
+            const size_t gr = static_cast<size_t>(row0[t] + r);
+            const float s = rd[r * nred + k] + rd[(kRows + r) * nred + k];
+            if (k == 0) {
+              if (p.wd != nullptr) {
+                p.sig[gr] = s;
+                if constexpr (SPA) {
+                  if (p.wts != nullptr) sraw[(tp + t) * kRows + r] = s;
+                }
+              }
+            } else {
+              const float v = s + p.bh[k - 1];
+              p.hout[gr * p.hf + k - 1] = v;
+              rd[r * nred + k] = v;
+            }
+          }
+        }
+        if constexpr (DIR) {
+          if (p.rgb != nullptr) {  // K10 on the rgb head just summed
+            cons_sync();
+            for (int t = 0; t < NT; ++t)
+              if (tid < rows[t]) {
+                const size_t o = static_cast<size_t>(row0[t] + tid) * 3;
+                float out[3], unused[3];
+                rgb_epilogue(red(t) + tid * nred + 1, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe,
+                             out, nullptr, unused, unused, unused);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) p.rgb[o + c] = out[c];
+              }
+          }
+        }
+        PHASE_MARK(2, kScal);
+      }
+
+      // 4. The bottleneck head hc = cdt(y wc^T) + cdt(bc), from its
+      // accumulators to device memory.
+      if constexpr (HC > 0) {
+        product_n<NT>(acc, act_s, kW / 64, act_s, kW, ring_st);
+        PHASE_MARK(2, kProd);
+        if (128 * wg < HC) {
+          const bf16* bc = static_cast<const bf16*>(p.bc);
+          bf16* out = static_cast<bf16*>(p.cout);
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int c = fc + 8 * j;
+              if (c >= HC) continue;
+              const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bc + c);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int gr = row0[t] + fr + 8 * h, i = 4 * j + 2 * h;
+                if (gr < p.n)
+                  *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(gr) * HC + c) =
+                      __floats2bfloat162_rn(bias_add<bf16>(acc[t][i], bb.x),
+                                            bias_add<bf16>(acc[t][i + 1], bb.y));
+              }
+            }
+        }
+        PHASE_MARK(2, kStore);
+      }
+
+      // 5. K3 (one tile at a time): the chain s_{L-1} = relu'(h) cdt(wd),
+      // s_{l-1} = relu'(h_{l-1}) cdt(s_l Wa_l), with u_x = s_skip Wx_skip +
+      // s_0 Wx_0 in f32 in its own accumulators; then the fold u = (f32(xc)
+      // u_xs - f32(xs) u_xc) S.
+      if constexpr (NT == 1) {
+        if (dg)
+          chain<SPA>(p, acc, act0, inb0, masks, xst0, ut, row0[0], rows[0], ring_st PHASE_ARG);
+      }
+    }
+
+    // K6: the weights of the unit's rays, one warp a ray.
+    if constexpr (SPA) {
+      if (p.wts != nullptr) {
+        cons_sync();
+        const int base = unit * tiles * kRows, S = p.samples;
+        const float bsig = __ldg(p.bsig);
+        for (int q = warp; q < tiles * kRows / S; q += kCons / 32) {
+          const int r0 = base + q * S;
+          if (r0 >= p.n) break;
+          ray_weights(sraw + q * S, p.delta + r0, bsig, S, p.wts + r0, nullptr, nullptr);
+        }
+        PHASE_MARK(4, kScal);
+      }
+    }
+  }
+}
+
+// Shared memory of a launch of NT tiles at a time through a ring of
+// `stages` slices, without the f32 heads' weights (`heads`).
+size_t fwd_smem(const FwdParams& p, int nt, int stages, int tiles, bool in_act, size_t& heads) {
+  const int kp = (p.kin + kBK - 1) / kBK * kBK;
+  const int nred = 1 + p.hf > 4 ? 1 + p.hf : 4;
+  heads = 4 * static_cast<size_t>(1 + p.hf) * kW;
+  return 1024 + static_cast<size_t>(stages) * kSlice + nt * (kW / 64 + kp / 64) * kBlk +
+         (nt == 1 && p.u != nullptr ? 8 * static_cast<size_t>(p.depth) * kCons : 0) +
+         (nt == 1 && p.u != nullptr ? 4 * static_cast<size_t>(kRows) * p.kin : 0) +
+         (in_act ? 0 : 4 * static_cast<size_t>(nt) * (kXst + 2 * kRows * nred)) +
+         (p.wts != nullptr ? 4 * static_cast<size_t>(tiles) * kRows : 0) + 8 + 16 * stages;
+}
+
+// A launch that runs NT tiles at a time, units of `tiles` tiles: the
+// deepest ring (kStages down to 2) that fits, then the heads' weights if
+// they fit too.
+template <int HC, bool DIR, bool SPA, int NT>
+int launch_fwd_tma(const FwdParams& p, int tiles, cudaStream_t stream) {
+  FwdMaps m;
+  memset(&m, 0, sizeof(m));
+  const bf16* w = static_cast<const bf16*>(p.w);
+  const bf16* wt = static_cast<const bf16*>(p.wt);
+  size_t off = 0;
+  bool ok = true;
+  for (int l = 0; l < p.depth; ++l) {
+    const int K = l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+    ok = ok && make_map(&m.w[l], w + off, K, kW, K, kW);
+    if (p.u != nullptr) ok = ok && make_map(&m.wt[l], wt + off, kW, K, kW, kW);
+    off += static_cast<size_t>(kW) * K;
+  }
+  if (HC > 0) ok = ok && make_map(&m.wc, p.wc, kW, HC, kW, kW);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  // xst and red in the activation tiles: without the bottleneck head, and
+  // where the staged segments leave room for xst.
+  const int nred = 1 + p.hf > 4 ? 1 + p.hf : 4;
+  const int tile_bytes = (kW / 64) * kBlk;
+  const bool in_act = HC == 0 && NT == 2 &&
+                      2 * kRows * (p.d0 + p.d1) + 4 * kXst <= tile_bytes &&
+                      4 * 2 * kRows * nred + 4 * kXst <= tile_bytes;
+  size_t heads = 0, smem = 0;
+  int stages = kStages;
+  for (; stages >= 2; --stages) {
+    smem = fwd_smem(p, NT, stages, tiles, in_act, heads);
+    if (smem <= 232448) break;
+  }
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
+  m.stages = stages;
+  m.tiles = tiles;
+  m.small_in_act = in_act;
+  m.heads_in_smem = smem + heads <= 232448;
+  if (m.heads_in_smem) smem += heads;
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_tma_kernel<HC, DIR, SPA, NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Persistent: a CTA an SM, each walking units of `tiles` tiles (whole
+  // rays with K6), so the producer loads the next unit's first weights
+  // during this one's last epilogues.
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = (p.n + tiles * kRows - 1) / (tiles * kRows);
+  const int grid = units < sms ? units : sms;
+  trunk_fwd_tma_kernel<HC, DIR, SPA, NT><<<grid, kFwdThreads, smem, stream>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry for ctypes, with refnerf_trunk_fwd's arguments (trunk_fwd.cu):
+// the bf16 trunk (dtype 1) at width 256, at most kMaxDepth layers, kW input
+// columns and kMaxHeads f32 heads, without K11's y; K1/K3 (hc 128 or 0;
+// with K6/K7, hc 128) and K2 (hc 0; with K8-K10). Returns the cudaError_t of
+// the launch (0 on success); allocates nothing and does not synchronise.
+extern "C" int refnerf_trunk_fwd_tma(REFNERF_FWD_ARGS) {
+  FwdParams p;
+  const int err = fwd_params(p, REFNERF_FWD_NAMES);
+  if (err != 0) return err;
+  if (dtype != 1 || width != kW || depth < 1 || depth > kMaxDepth || kin > kW ||
+      hf > kMaxHeads || y != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dir = p.dir.p != 0 || p.rgb != nullptr;
+  const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
+  // Two tiles at a time but with K3 (one at a time: its chain's state does
+  // not fit twice); with K6 a unit of whole rays and an even number of tiles.
+  const int t1 = p.wts != nullptr ? p.tiles : 1;
+  const int t2 = p.wts != nullptr ? (p.tiles % 2 ? 2 * p.tiles : p.tiles) : 2;
+  const bool two = p.u == nullptr && t2 * kRows <= 1024;
+  if (hc == 0 && !spa && dir)  // never with K3 or K6
+    return two ? launch_fwd_tma<0, true, false, 2>(p, t2, s)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (hc == 0 && !spa)
+    return two ? launch_fwd_tma<0, false, false, 2>(p, t2, s)
+               : launch_fwd_tma<0, false, false, 1>(p, t1, s);
+  if (hc == 128 && !dir && spa)
+    return two ? launch_fwd_tma<128, false, true, 2>(p, t2, s)
+               : launch_fwd_tma<128, false, true, 1>(p, t1, s);
+  if (hc == 128 && !dir)
+    return two ? launch_fwd_tma<128, false, false, 2>(p, t2, s)
+               : launch_fwd_tma<128, false, false, 1>(p, t1, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -49,18 +49,24 @@ _WGRAD_ARGS = [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
 # The entry points of each library and their ctypes signatures (every
 # pointer and the stream as c_void_p, every int as c_int, every float as
 # c_float).
+# The forward's arguments:
+# (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
+#  wd, wh, bh, hf, wc, bc, fold, nb, sig, hout, cout, u,
+#  g, v, k, ide_p, lmax, geo, mat, sg, gm, rawd, rawt, rgb,
+#  premult, rbias, pad, lm, lv, delta, bsig, samples, wts, y, stream)
+_FWD_ARGS = [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+             _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+             _P, _P, _P, _P,
+             _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+             _F, _F, _F, _P, _P, _P, _P, _I, _P, _P, _P]
 EXPORTS = {
     'trunk_fwd': {
-        # (dtype, width, hc, x0, d0, x1, d1, n, kin, depth, skip, w, wt, b,
-        #  wd, wh, bh, hf, wc, bc, fold, nb, sig, hout, cout, u,
-        #  g, v, k, ide_p, lmax, geo, mat, sg, gm, rawd, rawt, rgb,
-        #  premult, rbias, pad, lm, lv, delta, bsig, samples, wts, y, stream)
-        'refnerf_trunk_fwd': [_I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-                              _P, _P, _P, _P,
-                              _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                              _F, _F, _F, _P, _P, _P, _P, _I, _P, _P, _P],
+        'refnerf_trunk_fwd': _FWD_ARGS,
         'refnerf_trunk_supports': [_I, _I],
+    },
+    # The bf16 width-256 forward (wgmma, TMA): the same arguments.
+    'trunk_fwd_tma': {
+        'refnerf_trunk_fwd_tma': _FWD_ARGS,
     },
     'trunk_bwd': {
         'refnerf_trunk_bwd': _BWD_ARGS,

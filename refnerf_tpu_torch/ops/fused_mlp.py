@@ -36,8 +36,10 @@ Both backwards are `once_differentiable`: autograd never differentiates
 through a kernel, and the second-order terms of u come out of the one
 backward pass, as in the Pallas contract.
 
-Kernels (`csrc/trunk_fwd.cu`: K1-K3, K6-K11; `csrc/trunk_bwd_tma.cu` or
-`csrc/trunk_bwd.cu` by shape, `tma_backward`: K4-K11), at width 256 and,
+Kernels (`csrc/trunk_fwd_tma.cu` or `csrc/trunk_fwd.cu` by shape,
+`tma_forward`: K1-K3, K6-K10, and K11 in trunk_fwd.cu;
+`csrc/trunk_bwd_tma.cu` or `csrc/trunk_bwd.cu` by shape, `tma_backward`:
+K4-K11), at width 256 and,
 for the directional trunk, 128, run for CUDA tensors
 unless `mode='off'`. A CPU tensor or `mode='off'` takes the
 plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
@@ -82,11 +84,14 @@ BWD_SLAB = 65536
 # a 256 x 256 gradient.
 _KSPLIT = 1024
 _KSPLIT_TMA = 2048
-# The trunk_bwd_tma.cu kernels take at most this many layers (a tensor map
-# a layer in the launch's parameters) and input columns (one input tile);
-# a bf16 width-256 backward past either runs trunk_bwd.cu's instances.
+# The trunk_fwd_tma.cu and trunk_bwd_tma.cu kernels take at most this many
+# layers (a tensor map a layer in the launch's parameters) and input
+# columns (one input tile), the forward also at most _TMA_HEADS f32 heads
+# (their partial sums in shared memory); a bf16 width-256 trunk past them
+# runs trunk_fwd.cu's and trunk_bwd.cu's instances.
 _TMA_DEPTH = 8
 _TMA_KIN = 256
+_TMA_HEADS = 16
 
 # Launches through the wrappers, by kernel: K1 spatial forward, K2
 # directional forward, K3 spatial forward with the density gradient, K4
@@ -833,6 +838,15 @@ def _instance_guard(pack: TrunkPack, hc, fold, dm: DirModes, sp: SpaModes,
     raise NotImplementedError(why)
 
 
+def tma_forward(pack: TrunkPack, out_y: bool = False) -> bool:
+  """Whether the forward of `pack` runs trunk_fwd_tma.cu's kernel (bf16 at
+  width 256, within `_TMA_DEPTH` layers, `_TMA_KIN` input columns and
+  `_TMA_HEADS` f32 heads, without K11's y) rather than trunk_fwd.cu's;
+  decided from the shape alone."""
+  hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  return tma_backward(pack) and hf <= _TMA_HEADS and not out_y
+
+
 def tma_backward(pack: TrunkPack) -> bool:
   """Whether the backward of `pack` runs trunk_bwd_tma.cu's kernels (bf16
   at width 256, within `_TMA_DEPTH` layers and `_TMA_KIN` input columns)
@@ -1045,15 +1059,22 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
                  dir_modes: Optional[DirModes] = None, rgbx=None,
                  spa_modes: Optional[SpaModes] = None, comp=None,
                  out_y: bool = False):
-  """Launch the CUDA forward kernel; outputs as `trunk_reference` returns
-  them with `fold` ([F, nb] f32, two IPE segments): the density gradient
-  comes out folded, u [n, nb] f32 (K3). `dir_modes` and `rgbx` (K8-K10),
-  `spa_modes` and `comp` (K6, K7), `out_y` (K11) as for trunk_reference."""
+  """Launch the CUDA forward kernel (trunk_fwd_tma.cu's or trunk_fwd.cu's:
+  `tma_forward`); outputs as `trunk_reference` returns them with `fold`
+  ([F, nb] f32, two IPE segments): the density gradient comes out folded,
+  u [n, nb] f32 (K3). `dir_modes` and `rgbx` (K8-K10), `spa_modes` and
+  `comp` (K6, K7), `out_y` (K11) as for trunk_reference."""
   dm = dir_modes or DirModes()
   sp = spa_modes or SpaModes()
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
   _instance_guard(pack, hc, fold, dm, sp, out_y)
   lib = _library('trunk_fwd', pack, hc)
+  # wgmma and TMA (`tma_forward`), else mma.sync: the same arguments.
+  if tma_forward(pack, out_y):
+    from refnerf_tpu_torch.ops import cuda_build
+    fwd_fn = cuda_build.library('trunk_fwd_tma').refnerf_trunk_fwd_tma
+  else:
+    fwd_fn = lib.refnerf_trunk_fwd
   cdt = DTYPES[pack.compute_dtype]
   ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
   dev, n, d0, d1 = segs[0].device, int(segs[0].shape[0]), ki.d0, ki.d1
@@ -1077,7 +1098,7 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
   y = torch.empty(n, pack.width, device=dev, dtype=cdt) if out_y else None
   mat, sg, gm = ki.tables
   with torch.cuda.device(dev):
-    err = lib.refnerf_trunk_fwd(
+    err = fwd_fn(
         1 if cdt == torch.bfloat16 else 0, pack.width, hc,
         _ptr(ki.x0), d0, _ptr(ki.x1), d1,
         n, pack.kin, pack.depth, pack.skip, _ptr(pack.w), _ptr(pack.wt),

@@ -8,18 +8,22 @@ with the checkouts to compare unpacked (git archive) in ignored directories:
     python3 -m refnerf_tpu_torch.tools.ab_trees --arm p=_chip/p \\
         --arm c=_chip/c --order p,c,p,c,p,c --out chiprun_out/ab \\
         [--checks check_train_kernels,check_dir_kernels,check_spa_kernels,
-                  serve_requests]
+                  serve_requests,train_steps,forward_kernels]
 
 First every checkout builds its kernels into its own build/, all at once.
 Then each run of --order (none without it) is a process of its own in its
 checkout's root: it imports that checkout's chip_smoke.py and runs the
 functions of --checks (phase 5's check_train_kernels by default; phase 7's
 check_dir_kernels and phase 9's check_spa_kernels time K5 with K8-K10 and K4
-with K6/K7). `serve_requests` is this tool's own, the same code in every
-checkout: phase 10's model (all six fuse flags) and phase 12's two mip-NeRF
-models each answer a 4096-ray request, timed on the host clock under
-fused_trunk='auto' ("kernel") and 'off' ("plain"), with one request's
-device-busy time from torch.profiler. Each run's output goes to --out.
+with K6/K7). `serve_requests`, `train_steps` and `forward_kernels` are this
+tool's own, the same code in every checkout: in `serve_requests` phase 10's
+model (all six fuse flags) and phase 12's two mip-NeRF models each answer
+a 4096-ray request, timed on the host clock under fused_trunk='auto'
+("kernel") and 'off' ("plain"), with one request's device-busy time from
+torch.profiler; in `train_steps` phase 10's model takes train steps at
+batch 4096 the same way; `forward_kernels` holds every bf16 forward case of
+phases 3, 5, 7, 9 and 11 against its plain version (chip_smoke.compare)
+without their backward cases. Each run's output goes to --out.
 Printed: every case's kernel and plain times (and device busy, where
 measured) per arm in run order and their medians; then, per
 library, whether each kernel instance of the first arm has the same SASS
@@ -106,7 +110,124 @@ def serve_requests(fused_mlp, dev, reps=15, reps_off=3):
     torch.cuda.empty_cache()
 
 
-OWN = {f.__name__: f for f in (serve_requests,)}  # run in every checkout
+def train_steps(fused_mlp, dev, reps=10, reps_off=2):
+  """Phase 10's model (all six fuse flags, bf16 trunks) at batch 4096, as
+  chip_smoke.train_setup makes it: after 3 warm-up steps, the median wall
+  ms of `reps` steps under fused_trunk='auto' and of `reps_off` under
+  'off', and the device-busy ms of one 'auto' step, in chip_smoke's line
+  format. Uses only what every checkout's chip_smoke has."""
+  import statistics
+  import time
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  import chip_smoke
+  model, _, state, train_step, batch = chip_smoke.train_setup(
+      dev, chip_smoke.FUSE + chip_smoke.SPATIAL)
+  box = {'state': state}
+
+  def step():
+    box['state'], _ = train_step(box['state'], batch)
+
+  wall = {}
+  for mode, n in (('auto', reps), ('off', reps_off)):
+    chip_smoke.set_mode(model, fused_trunk=mode)
+    for _ in range(3 if mode == 'auto' else 1):
+      step()
+    times = []
+    for _ in range(n):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      step()
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+    wall[mode] = statistics.median(times)
+  chip_smoke.set_mode(model, fused_trunk='auto')
+  step()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    step()
+    torch.cuda.synchronize()
+  busy = sum(getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+  print(f'phase 10: train step all six bfloat16 N=4096: kernel '
+        f'{wall["auto"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
+        f'{busy:.3f} ms', flush=True)
+
+
+def forward_kernels(fused_mlp, dev):
+  """Every bf16 forward case of chip_smoke's phases 3 (K1, K2), 5 (K3), 7
+  (K8, K8+K9, K10, all three), 9 (K7, K7+K3, K6+K7, K6+K3, K6+K7+K3) and 11
+  (K1 hf=0) against its plain version at chip_smoke's N, through
+  chip_smoke.compare (which prints each case's kernel and plain ms). Uses
+  only what every checkout's chip_smoke has."""
+  import torch
+  import chip_smoke as cs
+  cdt = 'bfloat16'
+  bf = fused_mlp.DTYPES[cdt]
+  n = cs.N_SAMPLES
+  gen = torch.Generator().manual_seed(cs.SEED)
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(cs.SCALES, 3), device=dev)
+  for which, trunk, dg in (('K1', 'K1', False), ('K2', 'K2', False),
+                           ('K3', 'K1', True), ('K1 hf=0', 'mip K1', False)):
+    segs, ws, bs, kw = cs.trunk_case(trunk, gen, dev, ipe=trunk != 'K2')
+    segs = [s.to(bf) for s in segs]
+    pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                                compute_dtype=cdt, **kw)
+    f = fold if dg else None
+    cs.compare(which, cdt, lambda: fused_mlp.trunk_kernel(segs, pack, f),
+               lambda: fused_mlp.trunk_reference(
+                   segs, ws, bs, compute_dtype=cdt, density_grad=dg, fold=f,
+                   **kw),
+               n_values=1 + (kw['head_f32'] is not None) +
+               (kw['head_cdt'] is not None), phase=3,
+               inputs=segs + cs.pack_tensors(pack),
+               flops=cs.trunk_flops(ws, n, cs.n_heads(kw), density_grad=dg))
+    del segs, ws, bs, kw, pack
+  mat = fused_mlp.ref_utils.ide_tables(5)[0]
+  for which, (ide, geo, rgb) in cs.DIR_CASES:
+    segs, ws, bs, head, dm, rgbx = cs.dir_case(fused_mlp, gen, dev, ide, geo,
+                                               rgb)
+    raw = range(1, 1 + dm.n_raw())
+    segs = [s if j in raw else s.to(bf) for j, s in enumerate(segs)]
+    pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(segs, dm),
+                                head_f32=head, compute_dtype=cdt)
+    kws = dict(dir_modes=dm, rgbx=rgbx)
+    cs.compare(which, cdt, lambda: fused_mlp.trunk_kernel(segs, pack, **kws),
+               lambda: fused_mlp.trunk_reference(
+                   segs, ws, bs, head_f32=head, compute_dtype=cdt, **kws),
+               n_values=2 if rgb else 1, phase=7,
+               inputs=segs + cs.pack_tensors(pack) + list(rgbx or []),
+               flops=cs.trunk_flops(ws, n, 3),
+               f32_flops=cs.dir_flops(mat, ide, geo, rgb, backward=False))
+    del segs, ws, bs, pack
+  for which, (enc, comp, dg, backward, trunk) in cs.SPA_CASES:
+    if backward or trunk != 'K1':
+      continue
+    segs, ws, bs, kw, sp, cp = cs.spa_case(fused_mlp, gen, dev, enc, comp,
+                                           trunk)
+    segs = segs if enc else [s.to(bf) for s in segs]
+    pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+    f = fold if dg else None
+    kws = dict(spa_modes=sp, comp=cp)
+    cs.compare(which, cdt,
+               lambda: fused_mlp.trunk_kernel(segs, pack, f, **kws),
+               lambda: fused_mlp.trunk_reference(
+                   segs, ws, bs, compute_dtype=cdt, density_grad=dg, fold=f,
+                   **kws, **kw),
+               n_values=3, phase=9,
+               inputs=segs + cs.pack_tensors(pack) + [f] + list(cp or []),
+               flops=cs.trunk_flops(ws, n, cs.n_heads(kw), density_grad=dg),
+               f32_flops=cs.spa_flops(enc, comp, dg, False),
+               weights=3 + int(dg) if comp else None)
+    del segs, ws, bs, kw, pack
+  torch.cuda.empty_cache()
+
+
+# Run in every checkout.
+OWN = {f.__name__: f for f in (serve_requests, train_steps, forward_kernels)}
 BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
 FALSE = ('false', '(bool)0')  # a false template flag, as cu++filt prints it
 TIMES = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?kernel '

@@ -1,27 +1,33 @@
-"""Break the backward trunk kernels' time down by phase, on one card.
+"""Break the trunk kernels' time down by phase, on one card.
 
 From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
     python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
-        [--lib trunk_bwd] [--dtype float32]
+        [--lib trunk_bwd_tma|trunk_bwd|trunk_fwd_tma|trunk_fwd] \
+        [--dtype float32]
 
-Builds a backward library a second time with -DREFNERF_PHASES (its own
-file in build/, never loaded on the main path): by default the bf16
-width-256 kernels of csrc/trunk_bwd_tma.cu; with --lib trunk_bwd the
-mma.sync kernels of csrc/trunk_bwd.cu, which then also run the bf16
-flagship shapes (fused_mlp.tma_backward is patched to refuse them): the
-design that trunk_bwd_tma.cu replaced there, and f32 with --dtype float32.
-Thread 0 of every CTA of
-the per-tile kernel adds the clock64() cycles of each segment, closed by a
-barrier, to a (phase, kind) sum; kinds are the products, the scalar passes
-and the scratch stores. Then, at N = 524,288 samples in --dtype and for each
-case (K4 with the cotangent of u, alone and with K6+K7; K5 with dx, alone
-and with K8+K9+K10), it runs the backward once through the phase build and
-reads the sums, and times the per-tile, weight-gradient and reduction
-kernels under torch.profiler through the phase build and through the
-normal one. Each (phase, kind) gets its share of all CTAs' cycles and that
-share of the per-tile kernel's time in the phase build (whose barriers add
-their own cost: compare its time with the normal build's).
+Builds a trunk library a second time with -DREFNERF_PHASES (its own file
+in build/, never loaded on the main path): by default the bf16 width-256
+backward of csrc/trunk_bwd_tma.cu; with --lib trunk_bwd the mma.sync
+kernels of csrc/trunk_bwd.cu, which then also run the bf16 flagship shapes
+(fused_mlp.tma_backward is patched to refuse them): the design that
+trunk_bwd_tma.cu replaced there, and f32 with --dtype float32. Likewise
+for the forward: --lib trunk_fwd_tma the bf16 width-256 forward of
+csrc/trunk_fwd_tma.cu, --lib trunk_fwd the mma.sync forward of
+csrc/trunk_fwd.cu (fused_mlp.tma_forward patched to refuse every shape).
+Thread 0 of every CTA of the per-tile kernel adds the clock64() cycles of
+each segment, closed by a barrier, to a (phase, kind) sum; kinds are the
+products, the scalar passes and the stores (the backward's scratch, the
+forward's outputs). Then, at N = 524,288 samples in --dtype and for each
+case (backward: K4 with the cotangent of u, alone and with K6+K7; K5 with
+dx, alone and with K8+K9+K10; forward: K3 alone and with K6+K7, K1 alone
+and with K6+K7, K2 alone and with K8+K9+K10), it runs the kernel once
+through the phase build and reads the sums, and times the per-tile (and
+for the backward the weight-gradient and reduction) kernels under
+torch.profiler through the phase build and through the normal one. Each
+(phase, kind) gets its share of all CTAs' cycles and that share of the
+per-tile kernel's time in the phase build (whose barriers add their own
+cost: compare its time with the normal build's).
 Prints one line per case and writes <out>/phases.json.
 """
 
@@ -38,8 +44,11 @@ import torch
 
 PHASES = ('input and K6', 'recompute', 'heads', 'inner chain',
           'head backward', 'first-order reverse with dx', 'tangent')
-KINDS = ('products', 'scalar passes', 'scratch stores')
+FWD_PHASES = ('input (K7, K8)', 'layers', 'heads (K10, bottleneck)',
+              'inner chain and fold (K3)', 'K6 scan')
+KINDS = ('products', 'scalar passes', 'stores')
 KERNELS = ('trunk_bwd', 'wgrad', 'reduce')
+FWD_KERNELS = ('trunk_fwd',)
 
 
 def build_phase_library(name):
@@ -72,8 +81,8 @@ def read_cycles(lib, reset=True):
           for i in range(len(PHASES))]
 
 
-def device_ms(run, calls=2):
-  """Device ms a call of each backward kernel (by name) under
+def device_ms(run, kernels=KERNELS, calls=2):
+  """Device ms a call of each trunk kernel in `kernels` (by name) under
   torch.profiler, over `calls` calls after one warm-up."""
   from torch.profiler import ProfilerActivity, profile
   run()
@@ -82,13 +91,13 @@ def device_ms(run, calls=2):
     for _ in range(calls):
       run()
     torch.cuda.synchronize()
-  out = {k: 0.0 for k in KERNELS}
+  out = {k: 0.0 for k in kernels}
   for e in p.key_averages():
     if e.device_type != torch.autograd.DeviceType.CUDA:
       continue
     us = getattr(e, 'self_device_time_total',
                  getattr(e, 'self_cuda_time_total', 0))
-    for k in KERNELS:
+    for k in kernels:
       if f'{k}_kernel' in e.key or f'{k}_tma_kernel' in e.key:
         out[k] += us / 1e3 / calls
   return out
@@ -134,11 +143,46 @@ def cases(chip_smoke, fused_mlp, dev, cdt):
       rgbx=rgbx)
 
 
+def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
+  """(name, forward call) at chip_smoke's N in `cdt`: phase 9's K6+K7+K3,
+  phase 5's K3, the served K6+K7 on K1, phase 3's K1 and K2, and phase 7's
+  K8+K9+K10."""
+  tdt = fused_mlp.DTYPES[cdt]
+  gen = torch.Generator().manual_seed(chip_smoke.SEED + 1)
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(chip_smoke.SCALES, 3),
+                         device=dev)
+  lmv, ws, bs, kw, sp, cp = chip_smoke.spa_case(fused_mlp, gen, dev, True,
+                                                 True)
+  pack7 = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  yield 'K6+K7+K3', lambda: fused_mlp.trunk_kernel(lmv, pack7, fold,
+                                                   spa_modes=sp, comp=cp)
+  yield 'K6+K7 on K1', lambda: fused_mlp.trunk_kernel(lmv, pack7,
+                                                      spa_modes=sp, comp=cp)
+  segs, ws, bs, kw = chip_smoke.trunk_case('K1', gen, dev, ipe=True)
+  cs = [s.to(tdt) for s in segs]
+  pack1 = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  yield 'K3', lambda: fused_mlp.trunk_kernel(cs, pack1, fold)
+  yield 'K1', lambda: fused_mlp.trunk_kernel(cs, pack1)
+  segs, ws, bs, kw = chip_smoke.trunk_case('K2', gen, dev)
+  cs2 = [s.to(tdt) for s in segs]
+  pack2 = fused_mlp.pack_trunk(ws, bs, (128, 73), compute_dtype=cdt, **kw)
+  yield 'K2', lambda: fused_mlp.trunk_kernel(cs2, pack2)
+  segs, ws, bs, head, dm, rgbx = chip_smoke.dir_case(fused_mlp, gen, dev,
+                                                     True, True, True)
+  raw = range(1, 1 + dm.n_raw())
+  cs3 = [s if j in raw else s.to(tdt) for j, s in enumerate(segs)]
+  pack3 = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(cs3, dm),
+                               head_f32=head, compute_dtype=cdt)
+  yield 'K8+K9+K10', lambda: fused_mlp.trunk_kernel(cs3, pack3, dir_modes=dm,
+                                                    rgbx=rgbx)
+
+
 def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument('--out', default='chiprun_out/phases')
   ap.add_argument('--lib', default='trunk_bwd_tma',
-                  choices=('trunk_bwd_tma', 'trunk_bwd'))
+                  choices=('trunk_bwd_tma', 'trunk_bwd', 'trunk_fwd_tma',
+                           'trunk_fwd'))
   ap.add_argument('--dtype', default='bfloat16',
                   choices=('bfloat16', 'float32'))
   a = ap.parse_args()
@@ -162,13 +206,19 @@ def main():
   patched = lambda name: phased if name == a.lib else normal(name)
   if a.lib == 'trunk_bwd':
     fused_mlp.tma_backward = lambda pack: False
+  if a.lib == 'trunk_fwd':
+    fused_mlp.tma_forward = lambda pack, out_y=False: False
+  forward = a.lib.startswith('trunk_fwd')
+  phases = FWD_PHASES if forward else PHASES
+  kernels = FWD_KERNELS if forward else KERNELS
   report = {'card': smi, 'n_samples': chip_smoke.N_SAMPLES, 'lib': a.lib,
             'dtype': a.dtype, 'cases': {}}
-  for name, run in cases(chip_smoke, fused_mlp, dev, a.dtype):
-    base = device_ms(run)
+  for name, run in (fwd_cases if forward else cases)(chip_smoke, fused_mlp,
+                                                      dev, a.dtype):
+    base = device_ms(run, kernels)
     cuda_build.library = patched
     try:
-      stamped = device_ms(run)
+      stamped = device_ms(run, kernels)
       read_cycles(phased)
       run()
       torch.cuda.synchronize()
@@ -176,10 +226,10 @@ def main():
     finally:
       cuda_build.library = normal
     total = sum(map(sum, cyc)) or 1
-    rows = {f'{PHASES[i]} / {KINDS[j]}': {
+    rows = {f'{phases[i]} / {KINDS[j]}': {
         'share': cyc[i][j] / total,
-        'ms': cyc[i][j] / total * stamped['trunk_bwd']}
-            for i in range(len(PHASES)) for j in range(len(KINDS))
+        'ms': cyc[i][j] / total * stamped[kernels[0]]}
+            for i in range(len(phases)) for j in range(len(KINDS))
             if cyc[i][j]}
     report['cases'][name] = {'normal_ms': base, 'phase_build_ms': stamped,
                              'phases': rows}

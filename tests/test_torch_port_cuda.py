@@ -5,9 +5,11 @@ K1-K5, K6 and K7 (the fused spatial stages), K8-K10 (the fused
 directional stages) and mip-NeRF's K11 (the trunk's features out) and
 128-wide directional trunk, in both directions; the bf16 width-256
 backward's weight-gradient product and its determinism, and its shapes
-past the wgmma/TMA kernels (trunk_bwd.cu's instances); mip-NeRF with the
-spatial fuse flags; the plain layer stack and the shapes without an
-instance under fused_trunk='auto'. This
+past the wgmma/TMA kernels (trunk_bwd.cu's instances); the bf16 width-256
+forward on wgmma/TMA (trunk_fwd_tma.cu) in every mode it runs, its
+determinism, and its shapes past it (trunk_fwd.cu's instances); mip-NeRF
+with the spatial fuse flags; the plain layer stack and the shapes without
+an instance under fused_trunk='auto'. This
 file imports no jax, so it also runs where jax is not installed; there, skip
 tests/conftest.py (it imports jax):
 
@@ -850,3 +852,129 @@ def test_plain_paths_under_auto_match_off(dev, case, caplog):
   assert loss.item() == loss_off.item()
   for k in grads:
     assert torch.equal(grads[k], grads_off[k]), k
+
+
+# The bf16 width-256 forward on wgmma and TMA (csrc/trunk_fwd_tma.cu, chosen
+# by fused_mlp.tma_forward): the flagship's spatial trunk with and without
+# its f32 heads, the bottleneck and the density gradient (K1, K3), with K7
+# and K6 (rays of 128 samples: two tiles a CTA), its directional trunk alone
+# and with K8-K10, and K3 at 256 input columns (4 basis vectors x 32
+# scales, F = 128: both warpgroups hold u_x; with K7 the f32 fold tile spans
+# the activation and input tiles).
+TMA_FWD_CASES = ('K1', 'K1 hf=0', 'K2', 'K3', 'K3 hc=0', 'K3 F128',
+                 'K7+K3 F128', 'K6+K7', 'K6+K7+K3', 'K8+K9+K10')
+SCALES32 = 2.0**(np.arange(32) % 16)
+
+
+def _tma_fwd_case(dev, case):
+  """(kernel, plain, pack, n_values, weights): the forward of `case` in
+  bf16 through trunk_kernel and trunk_reference; outputs before n_values
+  are values, the one at `weights` (or None) K6's weights, the rest u."""
+  bf = fused_mlp.DTYPES['bfloat16']
+  gen = torch.Generator().manual_seed(14)
+  rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
+  if case == 'K8+K9+K10':
+    segs, ws, bs, head, dm, rgbx = _dir_case(dev, case)
+    segs = [s if 1 <= j < 1 + dm.n_raw() else s.to(bf)
+            for j, s in enumerate(segs)]
+    pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(segs, dm),
+                                head_f32=head, compute_dtype='bfloat16')
+    kw = dict(dir_modes=dm, rgbx=rgbx)
+    return (lambda: fused_mlp.trunk_kernel(segs, pack, **kw),
+            lambda: fused_mlp.trunk_reference(segs, ws, bs, head_f32=head,
+                                              compute_dtype='bfloat16', **kw),
+            pack, 2, None)
+  if case == 'K2':
+    segs, ws, bs, kw = _case('K2', dev, seed=15)
+    segs = [s.to(bf) for s in segs]
+    pack = fused_mlp.pack_trunk(ws, bs, (128, 73), compute_dtype='bfloat16',
+                                **kw)
+    return (lambda: fused_mlp.trunk_kernel(segs, pack),
+            lambda: fused_mlp.trunk_reference(
+                segs, ws, bs, compute_dtype='bfloat16', **kw), pack, 1, None)
+  wide = 'F128' in case
+  nb, scales = (4, SCALES32) if wide else (3, SCALES)
+  samples = 128 if 'K6' in case else 0
+  n = 1536 if samples else 1000
+  _, ws, bs, kw = _case('K1', dev, n=8, seed=16,
+                        seg_dims=(128, 128) if wide else None)
+  if case == 'K1 hf=0':
+    kw['head_f32'] = None
+  if case == 'K3 hc=0':
+    kw['head_cdt'] = None
+  lm, lv = rand(n, nb) * 3 - 1.5, 10.0**(rand(n, nb) * 4 - 6)
+  enc = 'K7' in case
+  sp = fused_mlp.SpaModes(tuple(float(s) for s in scales) if enc else (),
+                          samples)
+  comp = ((rand(n) * 0.08 + 0.01, torch.tensor([0.5], device=dev))
+          if samples else None)
+  segs = [lm, lv] if enc else [s.to(bf) for s in
+                               fused_mlp.encode_ipe(lm, lv, scales)]
+  dg = 'K3' in case
+  fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(scales, nb), device=dev)
+          if dg else None)
+  f = nb * len(scales)
+  pack = fused_mlp.pack_trunk(ws, bs, (f, f), compute_dtype='bfloat16', **kw)
+  kws = dict(spa_modes=sp, comp=comp)
+  nv = 1 + (kw['head_f32'] is not None) + (kw['head_cdt'] is not None)
+  return (lambda: fused_mlp.trunk_kernel(segs, pack, fold, **kws),
+          lambda: fused_mlp.trunk_reference(
+              segs, ws, bs, compute_dtype='bfloat16', density_grad=dg,
+              fold=fold, **kws, **kw),
+          pack, nv, nv + dg if samples else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', TMA_FWD_CASES)
+def test_tma_forward_matches_plain(dev, case):
+  # Values (sigma, the heads, the bottleneck, rgb) by BOUND, u by GRAD_BOUND,
+  # K6's weights by WEIGHT_BOUND; each case routes to trunk_fwd_tma.cu.
+  kernel, plain, pack, nv, weights = _tma_fwd_case(dev, case)
+  assert fused_mlp.tma_forward(pack)
+  with torch.no_grad():
+    got, want = kernel(), plain()
+  torch.cuda.synchronize()
+  if weights is not None:
+    err = (got[weights] - want[weights]).abs().max().item()
+    assert err <= WEIGHT_BOUND['bfloat16'], (case, err)
+    got, want = got[:weights], want[:weights]
+  _assert_close(got, want, 'bfloat16', case, n_values=nv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K6+K7+K3', 'K8+K9+K10'])
+def test_tma_forward_is_deterministic(dev, case):
+  # The forward sums in a fixed order (no atomics): two runs on the same
+  # inputs give bit-identical outputs.
+  kernel = _tma_fwd_case(dev, case)[0]
+  with torch.no_grad():
+    a, b = kernel(), kernel()
+  assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K1 depth 10', 'K3 depth 10',
+                                  'K2 kin 288'])
+def test_bf16_forward_past_the_tma_shapes_matches_plain(dev, case):
+  # A bf16 width-256 trunk deeper than 8 layers or wider than 256 input
+  # columns runs trunk_fwd.cu's bf16 instances (fused_mlp.tma_forward);
+  # under fused_trunk='auto' it launches them, it does not go plain.
+  which = 'K2' if case.startswith('K2') else 'K1'
+  shape = (dict(depth=10, skip=5) if 'depth' in case
+           else dict(seg_dims=(128, 160)))
+  segs, ws, bs, kw = _case(which, dev, seed=17, **shape)
+  segs = [s.to(torch.bfloat16) for s in segs]
+  fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+          if case.startswith('K3') else None)
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype='bfloat16', **kw)
+  assert not fused_mlp.tma_forward(pack)
+  assert fused_mlp.missing_instance(pack, 128 if which == 'K1' else 0) is None
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack, fold)
+    want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype='bfloat16',
+                                     density_grad=fold is not None,
+                                     fold=fold, **kw)
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'bfloat16', case,
+                n_values=len(got) - (fold is not None))

@@ -223,6 +223,76 @@ def test_backward_route_by_shape(depth, kin, cdt, tma):
   assert fused_mlp.missing_instance(pack, 128) is None
 
 
+@pytest.mark.parametrize('depth,kin,cdt,width,tma', [
+    (8, 96, 'bfloat16', 256, True), (8, 224, 'bfloat16', 256, True),
+    (8, 256, 'bfloat16', 256, True), (9, 96, 'bfloat16', 256, False),
+    (16, 96, 'bfloat16', 256, False), (8, 288, 'bfloat16', 256, False),
+    (8, 96, 'float32', 256, False), (8, 192, 'bfloat16', 128, False),
+    (8, 192, 'float32', 128, False)])
+def test_forward_route_by_shape(depth, kin, cdt, width, tma):
+  # The bf16 width-256 forward runs trunk_fwd_tma.cu's kernel within its
+  # tensor maps (8 layers) and input tile (256 columns), trunk_fwd.cu's
+  # instances past either, in f32 and at width 128; every one of these
+  # shapes has an instance, so none runs the plain versions. K11 (y out)
+  # stays in trunk_fwd.cu.
+  pack = _pack(depth, kin, width, cdt)
+  assert fused_mlp.tma_forward(pack) == tma
+  assert not fused_mlp.tma_forward(pack, out_y=True)
+  assert fused_mlp.missing_instance(pack, 0) is None
+  if width == 256:
+    assert fused_mlp.missing_instance(pack, 128) is None
+
+
+def _pack_weights(pack):
+  """A TrunkPack's layers and biases as trunk_reference takes them (each
+  layer without the zero columns that pad its segments to kin)."""
+  fin, W = sum(pack.seg_dims), pack.width
+  ws, off = [], 0
+  for l, k in enumerate(pack.k_dims()):
+    w = pack.w[off:off + W * k].reshape(W, k)
+    off += W * k
+    ws.append(w[:, :fin] if l == 0 else w[:, :W + fin] if l == pack.skip
+              else w)
+  return ws, list(pack.b)
+
+
+@pytest.mark.parametrize('flags', ['none', 'all six'])
+def test_served_flagship_trunks_take_the_tma_forward(monkeypatch, flags):
+  # The flagship in bf16, served with use_kernel stubbed as on a card: every
+  # trunk launch (the proposal and NeRF spatial trunks, the directional
+  # trunk; with all six fuse flags K6-K10 in them) goes to trunk_fwd_tma.cu.
+  # The stubbed kernel records the route and answers with trunk_reference
+  # on the pack's own weights.
+  routes = []
+
+  def kernel(segs, pack, fold=None, dir_modes=None, rgbx=None,
+             spa_modes=None, comp=None, out_y=False):
+    routes.append((pack.seg_dims, fused_mlp.tma_forward(pack, out_y)))
+    ws, bs = _pack_weights(pack)
+    head = lambda w, b: None if w is None else (w, b)
+    return fused_mlp.trunk_reference(
+        segs, ws, bs, skip_period=pack.skip - 1 if pack.skip > 0 else 99,
+        wd=pack.wd, head_f32=head(pack.wh, pack.bh),
+        head_cdt=head(pack.wc, pack.bc), compute_dtype=pack.compute_dtype,
+        density_grad=fold is not None, fold=fold, dir_modes=dir_modes,
+        rgbx=rgbx, spa_modes=spa_modes, comp=comp, out_y=out_y)
+
+  monkeypatch.setattr(fused_mlp, 'use_kernel',
+                      lambda x, mode: fused_mlp.MODES.index(mode) < 2)
+  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  six = [f'NerfMLP.{f} = True' for f in (
+      'fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb', 'fuse_ipe_trig',
+      'fuse_compositing', 'fuse_lift')] if flags == 'all six' else []
+  config, model = _port_model(["NerfMLP.compute_dtype = 'bfloat16'"] + six,
+                              False)
+  with torch.no_grad():
+    out, _ = model(_port_rays(_rays_np(2, seed=7)))
+  assert torch.isfinite(out[-1]['rgb']).all()
+  kinds = {dims for dims, _ in routes}
+  assert (48, 48) in kinds and len(kinds) >= 2, kinds
+  assert routes and all(tma for _, tma in routes), routes
+
+
 def _stub_kernels(monkeypatch):
   """use_kernel as on a card: every mode but 'off' asks for the kernels."""
   monkeypatch.setattr(fused_mlp, 'use_kernel',
