@@ -12,7 +12,9 @@ Phases, each printed on its own line:
      kernel's registers and spills, and check that every kernel of the
      bf16 width-256 forward and backward (csrc/trunk_fwd_tma.cu,
      csrc/trunk_bwd_tma.cu) holds wgmma (HGMMA) and TMA loads (UTMALDG) and
-     no mma.sync (HMMA) in its SASS;
+     no mma.sync (HMMA) in its SASS, and that every kernel of the f32
+     width-256 backward (csrc/trunk_bwd_f32.cu) holds FFMA and UTMALDG and
+     no tensor-core product (HMMA, HGMMA: no TF32);
   3. hold each trunk kernel (K1 spatial, K2 directional) against its plain
      PyTorch version at the serving shape N = 4096 rays x 128 samples, in
      float32 and bfloat16, and time both (in bf16 the wgmma/TMA forward);
@@ -28,7 +30,8 @@ Phases, each printed on its own line:
      density gradient) on every output and u, K4 (the spatial backward) on
      every weight and bias gradient given random cotangents of sigma, the
      heads, the bottleneck and u, K5 (the directional backward) on every
-     parameter gradient and both segment cotangents; K3, K4 and K5 in bf16
+     parameter gradient and both segment cotangents (f32 K4 and K5 on
+     csrc/trunk_bwd_f32.cu); K3, K4 and K5 in bf16, and K4 and K5 in f32,
      run twice more and must give bit-identical outputs;
   6. train the flagship at batch 4096 with bf16 trunks as bench.py drives the
      JAX step (3 warm-up steps, then 10 timed ones); check every loss term is
@@ -72,9 +75,13 @@ Phases, each printed on its own line:
      with Model.use_viewdirs = False: each answers three requests and takes
      10 train steps through the kernels (K1, K2 and K4, K5 at width 128; or
      K1 with K11 and K4 with K11), each against fused_trunk='off', and one
-     request and one step of each profiled.
+     request and one step of each profiled;
+ 13. the flagship gin in its own float32 (no compute_dtype binding) with all
+     six fuse flags, trained at batch 4096 as phase 10 (3 warm-up steps, 10
+     timed ones; K2-K10 counted, the backwards on csrc/trunk_bwd_f32.cu),
+     one more step against fused_trunk='off', and one step profiled.
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8, 10 and 12), its time and its
+launches on the main path (phases 4, 6, 8, 10, 12 and 13), its time and its
 plain version's at N, and its bound: the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its operations
 at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -350,21 +357,24 @@ def n_heads(kw):
               if h is not None) + int(kw.get('wd') is not None))
 
 
-def check_sass(lib):
-  """Phase 2: each kernel of a wgmma/TMA library (the bf16 width-256
-  forward or backward) holds wgmma (HGMMA) and TMA loads (UTMALDG) and no
-  mma.sync (HMMA) in its SASS (cuobjdump -sass), or this fails."""
+def check_sass(lib, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
+  """Phase 2: each kernel of a TMA library holds every instruction of
+  `need` and none of `refuse` in its SASS (cuobjdump -sass), or this
+  fails: the bf16 width-256 forward and backward wgmma (HGMMA) and TMA
+  loads (UTMALDG) and no mma.sync (HMMA); the f32 backward FFMA and TMA
+  loads and no tensor-core product (HMMA, HGMMA)."""
   tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
   sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                         text=True, check=True, timeout=300).stdout
   for block in re.split(r'\n\s*Function : ', sass)[1:]:
     name = block.split('\n', 1)[0]
     counts = {op: len(re.findall(rf'\b{op}\b', block))
-              for op in ('HGMMA', 'UTMALDG', 'UTMASTG', 'HMMA')}
+              for op in dict.fromkeys(need + ('UTMASTG',) + refuse)}
     log(f'phase 2: SASS {name}: ' + ', '.join(
         f'{op} {k}' for op, k in counts.items()))
-    if not counts['HGMMA'] or not counts['UTMALDG'] or counts['HMMA']:
-      raise AssertionError(f'{name}: not a wgmma + TMA kernel: {counts}')
+    if not all(counts[op] for op in need) or any(counts[op] for op in refuse):
+      raise AssertionError(f'{name}: needs {need}, refuses {refuse}: '
+                           f'{counts}')
 
 
 def check_kernels(fused_mlp, dev):
@@ -392,14 +402,14 @@ def check_kernels(fused_mlp, dev):
   return results
 
 
-def deterministic(which, kernel, phase=5):
+def deterministic(which, kernel, phase=5, cdt='bfloat16'):
   """Phases 5, 7, 9 (H4): two runs of a kernel on the same inputs give
   bit-identical outputs (fixed-order sums, no float atomics), or this
   fails."""
   with torch.no_grad():
     a, b = flatten(kernel()), flatten(kernel())
   same = all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
-  log(f'phase {phase}: {which} bfloat16: two runs bit-identical: {same} '
+  log(f'phase {phase}: {which} {cdt}: two runs bit-identical: {same} '
       f'({len(a)} outputs)')
   if not same:
     raise AssertionError(f'{which}: the outputs differ between two runs')
@@ -462,16 +472,18 @@ def check_rendering(out, shape, config, pad):
 FLAGSHIP, MIPNERF = 'blender_refnerf.gin', 'blender_mipnerf.gin'
 
 
-def flagship(dev, bindings=(), gin_name=FLAGSHIP):
-  """The model of configs/<gin_name> (the flagship by default) with bf16
-  trunks and weights from Config.seed, and its Config."""
+def flagship(dev, bindings=(), gin_name=FLAGSHIP, dtype='bfloat16'):
+  """The model of configs/<gin_name> (the flagship by default) with
+  trunks in `dtype` (None: the gin's own, float32) and weights from
+  Config.seed, and its Config."""
   from refnerf_tpu_torch import configs
   from refnerf_tpu_torch.models import construct
   gin_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           'configs', gin_name)
   config, gin = configs.parse(
-      [gin_file], [f'Config.seed = {SEED}',
-                   "NerfMLP.compute_dtype = 'bfloat16'", *bindings])
+      [gin_file], [f'Config.seed = {SEED}'] + (
+          [f"NerfMLP.compute_dtype = '{dtype}'"] if dtype else []) +
+      list(bindings))
   return construct.construct_model(config, gin, dev), config
 
 
@@ -596,6 +608,9 @@ def check_train_kernels(fused_mlp, dev):
           deterministic(which, kernel)
       else:
         f = fold if spatial else None
+        route = 'trunk_bwd_tma' if cdt == 'bfloat16' else 'trunk_bwd_f32'
+        if fused_mlp.backward_library(pack) != route:
+          raise AssertionError(f'{which} {cdt}: routed to the wrong backward')
         kernel = lambda: fused_mlp.trunk_backward_kernel(
             cs, pack, cots, f, needs_dx=not spatial)
         plain = lambda: fused_mlp.trunk_backward_reference(
@@ -607,23 +622,22 @@ def check_train_kernels(fused_mlp, dev):
             flops=trunk_flops(ws, N_SAMPLES, n_heads(kw),
                               density_grad=spatial, backward=True,
                               needs_dx=not spatial))
-        if cdt == 'bfloat16':
-          deterministic(which, kernel)
+        deterministic(which, kernel, cdt=cdt)
       del pack
     del segs, ws, bs, kw, cots
     torch.cuda.empty_cache()
   return results
 
 
-def train_setup(dev, bindings=(), gin_name=FLAGSHIP):
-  """The model of `gin_name` at batch TRAIN_BATCH as bench.py trains it:
-  model, its Config, train state, step and a batch of rays and pixels made
-  as bench.py makes them."""
+def train_setup(dev, bindings=(), gin_name=FLAGSHIP, dtype='bfloat16'):
+  """The model of `gin_name` (trunks in `dtype`, as `flagship`) at batch
+  TRAIN_BATCH as bench.py trains it: model, its Config, train state, step
+  and a batch of rays and pixels made as bench.py makes them."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.train import step as step_lib
   model, config = flagship(dev, [
       f'Config.batch_size = {TRAIN_BATCH}', 'Config.randomized = False',
-      'Config.sample_noise_size = 0', *bindings], gin_name)
+      'Config.sample_noise_size = 0', *bindings], gin_name, dtype)
   rng = np.random.RandomState(0)
   d = rng.randn(TRAIN_BATCH, 3).astype(np.float32)
   rays = rays_from(rays_lib, rng.randn(TRAIN_BATCH, 3).astype(np.float32) * 0.1,
@@ -637,19 +651,21 @@ def train_setup(dev, bindings=(), gin_name=FLAGSHIP):
 
 
 def train(fused_mlp, dev, bindings=(), phase=6, per_step=None,
-          gin_name=FLAGSHIP):
-  """Phase 6 (8 with the fused directional stage, 12 with mip-NeRF): train
-  steps of the model of `gin_name` through the kernels; `per_step` are the
+          gin_name=FLAGSHIP, dtype='bfloat16'):
+  """Phase 6 (8 with the fused directional stage, 12 with mip-NeRF, 13 in
+  the gin's own float32): train steps of the model of `gin_name` (trunks
+  in `dtype`, as `flagship`) through the kernels; `per_step` are the
   launches each kernel must make a level and step. Then one step's
   gradients against fused_trunk='off'. Returns (launches, seconds per step,
   train_setup's five)."""
   from refnerf_tpu_torch.train import step as step_lib
   model, config, state, train_step, batch = train_setup(dev, bindings,
-                                                        gin_name)
+                                                        gin_name, dtype)
   levels = model.cfg.num_levels
   start = {k: p.detach().clone() for k, p in model.named_parameters()}
-  log(f'phase {phase}: model {gin_name} {" ".join(bindings)} bf16 '
-      f'trunks, batch {TRAIN_BATCH}, {levels} levels x '
+  log(f'phase {phase}: model {gin_name} {" ".join(bindings)} '
+      f'{model.nerf_mlp.cfg.compute_dtype} trunks, batch {TRAIN_BATCH}, '
+      f'{levels} levels x '
       f'{model.cfg.num_nerf_samples} samples')
 
   def check(stats, step):
@@ -1067,10 +1083,8 @@ def spatial_stage(fused_mlp, dev):
   flags = FUSE + SPATIAL
   serve_launches = serve(fused_mlp, dev, flags, phase=10,
                          kernels=('K1', 'K2', 'K6', 'K7', 'K8', 'K9', 'K10'))
-  per_step = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K6': 2, 'K7': 2, 'K8': 2,
-              'K9': 2, 'K10': 2}
   train_launches, step_s, (model, config, state, train_step, batch) = train(
-      fused_mlp, dev, flags, phase=10, per_step=per_step)
+      fused_mlp, dev, flags, phase=10, per_step=SIX_PER_STEP)
 
   six = {f: True for f in SPATIAL_FLAGS}
   dir_only = {f: False for f in SPATIAL_FLAGS}
@@ -1194,6 +1208,10 @@ def check_mip_kernels(fused_mlp, dev):
 
 
 NO_VIEWDIRS = ['Model.use_viewdirs = False']
+# Launches a level and train step of phase 10's and phase 13's model (all six
+# fuse flags).
+SIX_PER_STEP = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K6': 2, 'K7': 2,
+                'K8': 2, 'K9': 2, 'K10': 2}
 
 
 def mip_stage(fused_mlp, dev):
@@ -1232,6 +1250,28 @@ def mip_stage(fused_mlp, dev):
   return out
 
 
+def f32_stage(fused_mlp, dev):
+  """Phase 13: configs/blender_refnerf.gin in its own float32 (no
+  compute_dtype binding) with all six fuse flags, trained at batch
+  TRAIN_BATCH through the kernels (the backwards on trunk_bwd_f32.cu)
+  against fused_trunk='off', and one step profiled. Returns (launches,
+  seconds a step)."""
+  launches, step_s, (model, _, state, train_step, batch) = train(
+      fused_mlp, dev, FUSE + SPATIAL, phase=13, per_step=SIX_PER_STEP,
+      dtype=None)
+  if model.nerf_mlp.cfg.compute_dtype != 'float32':
+    raise AssertionError('phase 13: the shipped gin did not train in float32')
+  box = {'state': state}
+
+  def step():
+    box['state'], _ = train_step(box['state'], batch)
+
+  profile(step, 'float32 all-six train step', 2, phase=13)
+  del model, state, train_step, batch, box
+  torch.cuda.empty_cache()
+  return launches, step_s
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -1263,6 +1303,8 @@ def main():
         log(f'phase 2: ptxas {line.strip()}')
   check_sass(libs['trunk_fwd_tma'])
   check_sass(libs['trunk_bwd_tma'])
+  check_sass(libs['trunk_bwd_f32'], need=('FFMA', 'UTMALDG'),
+             refuse=('HMMA', 'HGMMA'))
 
   kernels = check_kernels(fused_mlp, dev)
   launches = serve(fused_mlp, dev)
@@ -1276,12 +1318,15 @@ def main():
   mip = mip_stage(fused_mlp, dev)
   (mip_serve, mip_train, _, _), (y_serve, y_train, _, _) = (
       mip['shipped'], mip['no viewdirs'])
+  f32_train, f32_step_s = f32_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
   # bf16 at width 256: the wgmma/TMA forward and backward.
   ftma_src = 'refnerf_tpu_torch/csrc/trunk_fwd_tma.cu'
   tma_src = 'refnerf_tpu_torch/csrc/trunk_bwd_tma.cu'
+  # f32 at width 256: the FMA/TMA backward.
+  f32_src = 'refnerf_tpu_torch/csrc/trunk_bwd_f32.cu'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
   # name: (description, source, line of the TPU kernel, launches on the
   # main path: phase 4's requests, phase 6's steps, or both of phase 8 or
@@ -1317,17 +1362,32 @@ def main():
       'K1 hf=0': ('spatial trunk with the bottleneck head alone', ftma_src,
                   612, mip_serve['K1'] + mip_train['K1']),
       'K4 first-order': ('spatial trunk backward without the cotangent of '
-                         'u', tma_src, 668, mip_train['K4'])}
+                         'u', tma_src, 668, mip_train['K4']),
+      # Phase 13's: the shipped gin's own float32 step, all six flags.
+      'K4 f32': ('spatial trunk backward with K6/K7 in float32', f32_src,
+                 668, f32_train['K4']),
+      'K5 f32': ('directional trunk backward with K8-K10 in float32',
+                 f32_src, 668, f32_train['K5'])}
   line = []
   # K6 and K7 stand for their phase-9 cases; each entry also lists the
   # others it runs in.
-  main_case = {'K6': 'K6+K3', 'K7': 'K7'}
+  main_case = {'K6': 'K6+K3', 'K7': 'K7', 'K4 f32': 'K6+K7+K4',
+               'K5 f32': 'K8+K9+K10 backward'}
   mip6 = ('mip K6+K7', 'mip K6+K7+K4 first-order')
   more_cases = {'K6': ('K6+K7', 'K6+K7+K3', 'K6+K7+K4') + mip6,
                 'K7': ('K7+K3', 'K6+K7', 'K6+K7+K3', 'K6+K7+K4') + mip6}
   for which, (desc, src, at, count) in names.items():
     case = main_case.get(which, which)
     b16, f32 = kernels[case, 'bfloat16'], kernels[case, 'float32']
+    if src == f32_src:
+      line.append({
+          'name': f'{which} {desc}', 'route': 'cuda', 'source': src,
+          'replaces': f'{pallas}:{at}', 'launches': count,
+          'max_abs_err': f32['max_abs_err'], 'ms': f32['ms'],
+          'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_ms'],
+          'bound_by': f32['bound_by'], 'library_ms': None,
+          'dtype': 'float32', 'n_samples': N_SAMPLES, 'case': case})
+      continue
     entry = {
         'name': f'{which} {desc}', 'route': 'cuda', 'source': src,
         'replaces': f'{pallas}:{at}', 'launches': count,
@@ -1338,11 +1398,15 @@ def main():
         'f32_max_abs_err': f32['max_abs_err'], 'f32_ms': f32['ms'],
         'f32_plain_ms': f32['plain_ms'], 'f32_bound_ms': f32['bound_ms']}
     if src == tma_src:
-      entry['f32_source'] = bwd_src
+      entry['f32_source'] = f32_src
     if src == ftma_src:
       entry['f32_source'] = fwd_src
     if which in ('K6', 'K7', 'K8', 'K9', 'K10'):
       entry['bwd_source'] = tma_src
+    if which in ('K6', 'K7', 'K8', 'K9', 'K10', 'K11'):
+      entry['f32_bwd_source'] = f32_src
+    if f32_train.get(which):
+      entry['f32_train_launches'] = f32_train[which]
     if which in ('K8', 'K9', 'K10', 'K11'):
       entry['serve_launches'] = (y_serve if which == 'K11'
                                  else dir_serve)[which]
@@ -1374,7 +1438,9 @@ def main():
           f'{run} {r[2] * 1e3:.2f} ms a step, {TRAIN_BATCH / r[2]:.0f} train '
           f'rays/s, requests ' + ', '.join(f'{k} {v:.1f} ms'
                                            for k, v in r[3].items())
-          for run, r in mip.items()))
+          for run, r in mip.items()) + f'; phase 13 (float32, all six): '
+      f'{f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / f32_step_s:.0f} train '
+      'rays/s')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

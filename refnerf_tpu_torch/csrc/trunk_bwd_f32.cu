@@ -1,0 +1,1018 @@
+// The f32 width-256 trunk backward for Hopper (sm_90a): register-blocked FMA
+// products fed by a TMA weight ring, and a register-blocked FMA
+// weight-gradient product fed by TMA.
+//
+// Replaces, for the compute dtype float32 at width 256 (up to 8 layers and
+// 256 input columns), the backward Pallas kernel `_bwd_kernel` (:668-853)
+// of refnerf_tpu/ops/pallas/fused_mlp.py in the modes of trunk_bwd.cu (K4
+// with and without u's cotangent, K5 with dx, K6/K7 in K4, K8-K10 in K5,
+// K11's y cotangent), with the same arithmetic (trunk_bwd.cu:35-43) and the
+// same C arguments, but for the head: this library reads the compute-dtype
+// head untransposed, wc [HC][W], through the `wct` argument. Every product
+// runs in full f32 on the FMA pipes (no TF32: trunk_common.cuh). The
+// width-128 instances and the trunks past these shapes stay in
+// trunk_bwd.cu.
+//
+// Bound on the H100: K4 with u's cotangent needs 3.2 TFLOP at N = 524,288
+// samples (chip_smoke.py `trunk_flops`), 47 ms at 67 TFLOP/s; K5 1.8 TFLOP,
+// 26 ms. The weight-gradient operands (h, zeta, s, p, x, ts, cbar: ~34 KB a
+// sample for K4 with u's cotangent in f32, ~17 KB for K5) are written once
+// and read about once: ~36 GB and ~18 GB a launch, 11 and 5.4 ms at 3.35
+// TB/s, under the products' bound. A 64-row tile reads each layer's f32
+// weights (256 KB) from L2 for 8.4 MFLOP, 32 FLOP a byte: ~2.1 TB/s at the
+// FMA peak, within L2's reach, so one tile a CTA.
+//
+// Design.
+//  - Two consumer warpgroups and one producer warp a CTA of 64 samples.
+//    Each product acc[64][256] = A[64][K] B[K][256] is an outer product
+//    over K: each consumer thread owns an 8 x 8 block of outputs (rows
+//    R(i) = rb + i % 4 + 16 (i / 4), columns C(j) = cb + j % 4 + 32 (j / 4);
+//    a warp 32 rows x 64 columns), and each k step reads its 8 values of A
+//    and of B as four LDS.128 for 64 FFMA.
+//  - Every operand sits with the contraction index outermost ("k-major"):
+//    the activation and input tiles feature-major, [feature][64 samples]
+//    (rows padded to kLD = 68 floats, so that neither an epilogue's column
+//    stores nor a product's row loads conflict in the banks), and the
+//    weights as the pack whose rows are the contraction: `wt` [K_l][W] for
+//    the forward products (recompute, tangent), `w` [W][K_l] for the reverse
+//    ones (zeta_l W_l, s_l W_l, dx), wc [HC][W] for the head. Each epilogue
+//    writes its tile feature-major for the next product.
+//  - The weights come by TMA (cp.async.bulk.tensor, one tensor map a layer
+//    and pack, its extent exact: a box past it reads zeros) in 16-deep
+//    slices of 256 columns (16 KB) through a ring of as many stages as
+//    shared memory holds (4 to 8) with full/empty mbarriers. The producer
+//    warp walks the consumers' schedule of products (`schedule`), so no CTA
+//    barrier paces a slice and the next product's weights load during an
+//    epilogue.
+//  - The scalar passes live in the products' epilogues, in registers: the
+//    bias, ReLU, relu' masks (64 bits a thread and layer, in the block's own
+//    order), the bias gradients' column sums (shuffles over the 4 lanes of
+//    a column, then the two warp rows in order: no serial 64-row loop), the
+//    density and f32 heads' gradients from y. With one CTA an SM no other
+//    warps hide a load's latency, so the loops that read device memory
+//    (dx's skip share, K7's lifted inputs) issue every load before using
+//    one.
+//  - The weight-gradient operands leave sample-major ([rows][features])
+//    from registers, two 16-byte stores a row; wgrad_f32_kernel reads them by
+//    TMA, 32 samples a stage, and runs the same 8 x 8 register-blocked outer
+//    product over samples on 128 x 128 output tiles, a partial per split of
+//    samples; reduce_kernel (trunk_bwd.cu) sums the partials in a fixed
+//    order. No float atomics: the gradients do not depend on the schedule.
+// One CTA an SM (~120-230 KB of shared memory).
+
+#include <string.h>
+
+#define PHASE_SYNC() cons_sync()  // closes a stamped segment
+#include "hopper_tma.cuh"
+#include "trunk_bwd_args.cuh"
+
+namespace {
+
+constexpr int kSD = 16;                  // contraction rows of a weight slice
+constexpr int kSliceF = kSD * kW * 4;    // bytes of a [16][256] f32 slice
+constexpr int kLD = kRows + 4;           // floats a row of a k-major tile
+constexpr int kMaxStages = 8;
+constexpr int kMinStages = 4;
+
+struct MapsF32 {
+  CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 256 x 16
+  CUtensorMap wt[kMaxDepth];  // layer l of `wt`: [K_l][W], box 256 x 16
+  CUtensorMap wc;             // [HC][W], box 256 x 16
+  int stages;                 // of the ring
+};
+
+__device__ __forceinline__ int k_dim(const BwdParams& p, int l) {
+  return l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+}
+
+// The products of one tile in order, as (tensor map, first column, K rows);
+// the producer loads their slices, and the kernel below runs them in this
+// order.
+template <int HC, typename F>
+__device__ void schedule(const BwdParams& p, const MapsF32& m, F&& load) {
+  const bool dg = p.ubar != nullptr, dx = p.dx0 != nullptr;
+  for (int l = 0; l < p.depth; ++l) load(&m.wt[l], 0, k_dim(p, l));  // recompute
+  if (dg)
+    for (int l = p.depth - 1; l > 0; --l) load(&m.w[l], 0, kW);  // inner chain
+  if (HC > 0) load(&m.wc, 0, HC);                                // head backward
+  for (int l = p.depth - 1; l >= 0; --l) {                       // first-order reverse
+    if (dx && (l == 0 || l == p.skip)) load(&m.w[l], l == 0 ? 0 : kW, kW);
+    if (l > 0) load(&m.w[l], 0, kW);
+  }
+  if (dg)
+    for (int l = 0; l < p.depth; ++l) load(&m.wt[l], 0, k_dim(p, l));  // tangent
+}
+
+// A thread's 8 x 8 block: element (i, j) at row rb + R(i), column cb + C(j).
+__device__ __forceinline__ int row_of(int i) { return (i & 3) + 16 * (i >> 2); }
+__device__ __forceinline__ int col_of(int j) { return (j & 3) + 32 * (j >> 2); }
+
+using Block = float[8][8];
+
+// acc = A B over the next K / kSD slices of the ring (`ring` its generic
+// address): A's contraction rows k < n0 from the k-major tile a0, the rest
+// from a1 (the skip layer's [activation | input]). Consumer warps only.
+__device__ __forceinline__ void product(Block& acc, const float* a0, int n0, const float* a1,
+                                        int K, Ring& r, const float* ring, int rb, int cb) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int ns = K / kSD;
+  for (int s = 0; s < ns; ++s) {
+    const int k0 = s * kSD;
+    const float* a = (k0 < n0 ? a0 + k0 * kLD : a1 + (k0 - n0) * kLD) + rb;
+    const float* b = ring + r.stage * (kSD * kW) + cb;
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+#pragma unroll
+    for (int kk = 0; kk < kSD; ++kk) {
+      const float4 a0v = *reinterpret_cast<const float4*>(a + kk * kLD);
+      const float4 a1v = *reinterpret_cast<const float4*>(a + kk * kLD + 16);
+      const float4 b0v = *reinterpret_cast<const float4*>(b + kk * kW);
+      const float4 b1v = *reinterpret_cast<const float4*>(b + kk * kW + 32);
+      const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
+      const float bv[8] = {b0v.x, b0v.y, b0v.z, b0v.w, b1v.x, b1v.y, b1v.z, b1v.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * r.stage);
+    r.advance();
+  }
+}
+
+// The block into a k-major [features][kLD] tile: two 16-byte stores a column.
+__device__ __forceinline__ void put_tile(float* t, const Block& v, int rb, int cb) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float* d = t + (cb + col_of(j)) * kLD + rb;
+    *reinterpret_cast<float4*>(d) = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    *reinterpret_cast<float4*>(d + 16) = make_float4(v[4][j], v[5][j], v[6][j], v[7][j]);
+  }
+}
+
+// The block into the tile's rows of a sample-major [rows][W] scratch (g at
+// the tile's first row): two 16-byte stores a row.
+__device__ __forceinline__ void put_rows(float* g, const Block& v, int rb, int cb) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* d = g + static_cast<size_t>(rb + row_of(i)) * kW + cb;
+    *reinterpret_cast<float4*>(d) = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+    *reinterpret_cast<float4*>(d + 32) = make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
+  }
+}
+
+// out[c] = (add ? out[c] : 0) + the sum over the tile's rows of column c,
+// from cs[j], this thread's sum over its 8 rows of column cb + C(j):
+// shuffles over the 4 lanes of a column, then the two warp rows in order
+// through red [2][W]. All consumers call it.
+__device__ void col_sums(const float (&cs)[8], float* red, float* out, bool add, int wm, int cb) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float v = cs[j];
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (lane < 8) red[wm * kW + cb + col_of(j)] = v;
+  }
+  cons_sync();
+  const int c = threadIdx.x;
+  const float s = red[c] + red[kW + c];
+  out[c] = add ? out[c] + s : s;
+  cons_sync();
+}
+
+// Loads a thread keeps in flight in the scalar loops over a tile: with one
+// CTA an SM no other warps hide their latency.
+constexpr int kBatch = 8;
+
+// The trunk input tile (trunk_common.cuh `load_input`), k-major, zero-padded
+// to kin columns and past row n.
+template <bool DIR>
+__device__ void load_input_f32(float* t, const float* x0, int d0, const float* x1, int d1,
+                               int kin, int row0, int n, const DirIn& dir) {
+  const int dide = DIR ? dir.width() : 0, total = kRows * kin;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, r = i / kin, c = i % kin, gr = row0 + r, c1 = c - d0 - dide;
+      v[u] = 0.f;
+      if (i < total && gr < n) {
+        if (c < d0)
+          v[u] = __ldg(x0 + static_cast<size_t>(gr) * d0 + c);
+        else if (c1 >= 0 && c1 < d1)
+          v[u] = __ldg(x1 + static_cast<size_t>(gr) * d1 + c1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, r = i / kin, c = i % kin;
+      if (i < total && !(DIR && c >= d0 && c - d0 - dide < 0)) t[c * kLD + r] = v[u];
+    }
+  }
+  if constexpr (DIR) {
+    if (dir.p) {  // the IDE block (trunk_common.cuh `ide_fill`), four threads a row
+      const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+      const DirSample s = load_dir(dir, row0 + r, n);
+      for (int i = q; i < dir.p; i += 4) {
+        const Harm h = ide_harmonic(dir, s.rd[0], s.rd[1], s.rd[2], i);
+        const float zpat = h.zp * expf(mul(-s.ki, __ldg(dir.sg + i)));
+        t[(d0 + i) * kLD + r] = s.live ? h.re * zpat : 0.f;
+        t[(d0 + dir.p + i) * kLD + r] = s.live ? h.im * zpat : 0.f;
+      }
+      if (dir.geo && q == 0) t[(d0 + 2 * dir.p) * kLD + r] = s.live ? s.nd : 0.f;
+    }
+  }
+}
+
+// K7: the tile's lifted means and variances staged in st (2 x [kRows][nb]
+// floats), every load in flight at once; ipe_trig then reads them by the
+// tile's row from shared memory. Ends with the consumers synchronised.
+__device__ Ipe stage_ipe(const Ipe& q, float* st, int row0, int n) {
+  const int m = kRows * q.nb;
+  for (int i = threadIdx.x; i < 2 * m; i += kCons) {
+    const int k = i < m ? i : i - m;
+    st[i] = row0 + k / q.nb < n
+                ? __ldg((i < m ? q.lm : q.lv) + static_cast<size_t>(row0) * q.nb + k) : 0.f;
+  }
+  cons_sync();
+  return Ipe{st, st + m, q.fold, q.nb};
+}
+
+// K7's input tile (trunk_common.cuh `load_ipe`), k-major, from the staged
+// lifted means and variances.
+__device__ void load_ipe_f32(float* t, const Ipe& q, int F, int kin, int row0, int n) {
+  for (int i = threadIdx.x; i < kRows * kin; i += kCons) {
+    const int r = i / kin, c = i % kin, gr = row0 + r;
+    if (gr < n && c < F) {
+      float e, sn, cs;
+      ipe_trig(q, r, c, e, sn, cs);
+      t[c * kLD + r] = mul(e, sn);
+      t[(F + c) * kLD + r] = mul(e, cs);
+    } else if (gr >= n || c >= 2 * F) {
+      t[c * kLD + r] = 0.f;
+    }
+  }
+}
+
+// The k-major input tile into the tile's rows of a sample-major [rows][kin]
+// scratch (g at the tile's first row), four columns a store.
+__device__ void store_in(float* g, const float* t, int kin) {
+  const int q4 = kin / 4;
+  for (int i = threadIdx.x; i < kRows * q4; i += kCons) {
+    const int r = i / q4, c = 4 * (i % q4);
+    *reinterpret_cast<float4*>(g + static_cast<size_t>(r) * kin + c) =
+        make_float4(t[c * kLD + r], t[(c + 1) * kLD + r], t[(c + 2) * kLD + r],
+                    t[(c + 3) * kLD + r]);
+  }
+}
+
+template <int HC, bool DIR, bool SPA, bool YO>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    trunk_bwd_f32_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ MapsF32 m) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int kin = p.kin;
+  float* ringp = reinterpret_cast<float*>(smem);                // stages x [16][256]
+  float* act = ringp + m.stages * (kSD * kW);                   // [256][kLD]: h, s, zeta, p
+  float* inb = act + kW * kLD;                                  // [kin][kLD]: x, then ts
+  uint2* masks = reinterpret_cast<uint2*>(inb + kin * kLD);     // [depth][256]
+  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [2][256]
+  float* sb = red + 2 * kW;                                     // [kRows]
+  float* hb = sb + kRows;                                       // [kRows][hf]
+  float* ub = hb + kRows * p.hf;                                // [kRows][nb]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(ub + kRows * p.nb) + 7) & ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring{smem_u32(ringp), smem_u32(bars), smem_u32(bars + m.stages), m.stages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < m.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {  // the producer warp: weight slices, in order
+    if (lane == 0) {
+      schedule<HC>(p, m, [&](const CUtensorMap* map, int col, int K) {
+        for (int k = 0; k < K; k += kSD) {
+          mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
+          mbar_expect_tx(ring.full + 8 * ring.stage, kSliceF);
+          tma_load(ring.base + ring.stage * kSliceF, map, ring.full + 8 * ring.stage, col, k);
+          ring.advance();
+        }
+      });
+    }
+    return;
+  }
+
+  // The consumers.
+  PHASE_START;
+  const int wm = warp >> 2;                        // 32-row half of the tile
+  const int rb = 32 * wm + 4 * (lane >> 3);        // the block's rows rb + R(i)
+  const int cb = 64 * (warp & 3) + 4 * (lane & 7);  // and columns cb + C(j)
+  const int row0 = blockIdx.x * kRows;
+  const size_t rp = static_cast<size_t>(p.rp);
+  const bool dg = p.ubar != nullptr;
+  const float* bias = static_cast<const float*>(p.b);
+  float* vec = p.vec + static_cast<size_t>(blockIdx.x) * p.nvec;
+  const int o_dwd = p.depth * kW;
+  const int o_dwh = o_dwd + (p.wd != nullptr ? kW : 0);
+  const int o_dbh = o_dwh + p.hf * kW;
+  const int o_dbc = o_dbh + p.hf;
+  [[maybe_unused]] const int o_dbsig = o_dbc + HC;
+  // Each region's rows of this tile: layer l of a [depth][rp][W] region.
+  auto rows_at = [&](void* region, int l) {
+    return static_cast<float*>(region) + (l * rp + row0) * kW;
+  };
+  float acc[8][8];
+  float cs[8];
+
+  // 1. The segments (K8 the IDE block, K7 the IPE) and the cotangents; x to
+  // the scratch.
+  if constexpr (SPA) {
+    if (p.ipe.lm != nullptr)
+      load_ipe_f32(inb, stage_ipe(p.ipe, red, row0, p.n), p.d0, kin, row0, p.n);
+    else
+      load_input_f32<false>(inb, static_cast<const float*>(p.x0), p.d0,
+                            static_cast<const float*>(p.x1), p.d1, kin, row0, p.n, p.dir);
+  } else {
+    load_input_f32<DIR>(inb, static_cast<const float*>(p.x0), p.d0,
+                        static_cast<const float*>(p.x1), p.d1, kin, row0, p.n, p.dir);
+  }
+  for (int r = tid; r < kRows; r += kCons)
+    sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
+  for (int i = tid; i < kRows * p.hf; i += kCons)
+    hb[i] = (p.hbar != nullptr && row0 + i / p.hf < p.n)
+                ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
+  if (dg)
+    for (int i = tid; i < kRows * p.nb; i += kCons)
+      ub[i] = row0 + i / p.nb < p.n ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
+  cons_sync();
+  PHASE_MARK(0, kScal);
+  store_in(static_cast<float*>(p.xs) + row0 * static_cast<size_t>(kin), inb, kin);
+  PHASE_MARK(0, kStore);
+
+  // 1b. K6: sbar += ct_raw of this tile's rows, and d bsig (trunk_bwd.cu).
+  if constexpr (SPA) {
+    if (p.wbar != nullptr) {
+      const int S = p.samples, hi = min(row0 + kRows, p.n);
+      float* ct = act;                    // [kRows]
+      float* tr = ct + kRows + warp * S;  // [S] a warp
+      for (int r = tid; r < kRows; r += kCons) ct[r] = 0.f;
+      cons_sync();
+      const float bsig = __ldg(p.bsig);
+      for (int q = row0 / S + warp; q * S < hi; q += kCons / 32) {
+        const int r0 = q * S;
+        ray_weights_vjp(p.sig + r0, p.delta + r0, p.wbar + r0, bsig, S, tr,
+                        max(row0, r0) - r0, min(hi, r0 + S) - r0, ct + (r0 - row0));
+      }
+      cons_sync();
+      for (int r = tid; r < kRows; r += kCons) sb[r] = add(sb[r], ct[r]);
+      if (tid == 0) {
+        float s = 0.f;
+        for (int r = 0; r < kRows; ++r) s = add(s, ct[r]);
+        vec[o_dbsig] = s;
+      }
+      cons_sync();
+    }
+  }
+  PHASE_MARK(0, kScal);
+
+  // 2. Recompute: h_l = relu(acc + b_l) to the tile and the scratch, relu'
+  // masks as bits in the block's order. acc keeps y after the last layer.
+  for (int l = 0; l < p.depth; ++l) {
+    if (l == 0)
+      product(acc, inb, kin, inb, kin, ring, ringp, rb, cb);
+    else
+      product(acc, act, kW, inb, k_dim(p, l), ring, ringp, rb, cb);
+    PHASE_MARK(1, kProd);
+    cons_sync();
+    uint2 mk = make_uint2(0u, 0u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float b = __ldg(bias + l * kW + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][j] = fmaxf(acc[i][j] + b, 0.f);
+        const uint32_t bit = (acc[i][j] > 0.f ? 1u : 0u) << ((8 * i + j) & 31);
+        if (i < 4) mk.x |= bit; else mk.y |= bit;
+      }
+    }
+    masks[l * kCons + tid] = mk;
+    put_tile(act, acc, rb, cb);
+    cons_sync();
+    PHASE_MARK(1, kScal);
+    put_rows(rows_at(p.hs, l), acc, rb, cb);
+    PHASE_MARK(1, kStore);
+  }
+
+  // 2b. K10: the head recomputed on y, the final rgb's cotangent pulled back
+  // through the colour epilogue onto the head's.
+  if constexpr (DIR) {
+    if (p.rgb_bar != nullptr) {
+      float whr[3][kW / 32];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int i = 0; i < kW / 32; ++i) whr[j][i] = __ldg(p.wh + j * kW + lane + 32 * i);
+      float* hv = red;  // [kRows][3]
+      for (int r = warp; r < kRows; r += kCons / 32) {
+        if (row0 + r >= p.n) break;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < kW / 32; ++i) s = fmaf(act[(lane + 32 * i) * kLD + r], whr[j][i], s);
+          s = warp_sum(s) + p.bh[j];
+          if (lane == 0) hv[r * 3 + j] = s;
+        }
+      }
+      cons_sync();
+      if (tid < kRows && row0 + tid < p.n) {
+        const size_t o = static_cast<size_t>(row0 + tid) * 3;
+        float out[3], drd[3], drt[3];
+        rgb_epilogue(hv + tid * 3, p.rgbe.rawd + o, p.rgbe.rawt + o, p.rgbe, out, p.rgb_bar + o,
+                     hb + tid * 3, drd, drt);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          p.drawd[o + c] = drd[c];
+          p.drawt[o + c] = drt[c];
+        }
+      }
+      cons_sync();
+    }
+  }
+
+  // 3. The head gradients that read y (acc): dwd, dwh by the epilogue's
+  // column sums; dbh.
+  if (p.wd != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cs[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cs[j] = fmaf(sb[rb + row_of(i)], acc[i][j], cs[j]);
+    }
+    col_sums(cs, red, vec + o_dwd, false, wm, cb);
+  }
+  for (int h = 0; h < p.hf; ++h) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cs[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cs[j] = fmaf(hb[(rb + row_of(i)) * p.hf + h], acc[i][j], cs[j]);
+    }
+    col_sums(cs, red, vec + o_dwh + h * kW, false, wm, cb);
+  }
+  if (tid < p.hf) {
+    float s = 0.f;
+    for (int r = 0; r < kRows; ++r) s += hb[r * p.hf + tid];
+    vec[o_dbh + tid] = s;
+  }
+  PHASE_MARK(2, kScal);
+
+  // 4. With u's cotangent, the inner chain: s_{L-1} = relu'(h) wd,
+  // s_{l-1} = relu'(h_{l-1}) (s_l Wa_l), each to the tile and the scratch.
+  if (dg) {
+    {
+      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float q = __ldg(p.wd + cb + col_of(j));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = bit_at(mk, 8 * i + j) ? q : 0.f;
+      }
+    }
+    cons_sync();  // K10 and the head sums are done with the tile
+    put_tile(act, acc, rb, cb);
+    cons_sync();
+    put_rows(rows_at(p.ss, p.depth - 1), acc, rb, cb);
+    PHASE_MARK(3, kScal);
+    for (int l = p.depth - 1; l > 0; --l) {
+      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+      PHASE_MARK(3, kProd);
+      cons_sync();
+      const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+      put_tile(act, acc, rb, cb);
+      cons_sync();
+      put_rows(rows_at(p.ss, l - 1), acc, rb, cb);
+      PHASE_MARK(3, kScal);
+    }
+  }
+
+  // 5. The head backward: g = cbar wc^T + g32, g32 = sbar wd + hbar wh^T;
+  // with K11 g = ybar + g32. zeta_{L-1} = relu'(h) g, and db_{L-1} its
+  // column sums. g32 of the block head by head, in trunk_bwd.cu's order.
+  float g3[8][8];
+  {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) g3[i][j] = 0.f;
+    for (int h = 0; h < p.hf; ++h) {
+      float hv[8], wv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) hv[i] = hb[(rb + row_of(i)) * p.hf + h];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wv[j] = __ldg(p.wh + h * kW + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) g3[i][j] = fmaf(hv[i], wv[j], g3[i][j]);
+    }
+    if (p.wd != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float wv = __ldg(p.wd + cb + col_of(j));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) g3[i][j] = sb[rb + row_of(i)] * wv + g3[i][j];
+      }
+    }
+  }
+  cons_sync();  // every reader of the tile (K10, the inner chain) is done
+  if constexpr (HC > 0) {
+    // cbar, k-major into the activation tile's rows [0, HC), and to the
+    // scratch; dbc its column sums.
+    const float* cbar = static_cast<const float*>(p.cbar);
+    float* cs_g = static_cast<float*>(p.cs) + row0 * static_cast<size_t>(HC);
+    for (int i = tid; i < kRows * HC; i += kCons) {
+      const int r = i / HC, c = i % HC;
+      const float v = (cbar != nullptr && row0 + r < p.n)
+                          ? __ldg(cbar + static_cast<size_t>(row0 + r) * HC + c) : 0.f;
+      act[c * kLD + r] = v;
+      cs_g[i] = v;
+    }
+    cons_sync();
+    PHASE_MARK(4, kStore);
+    if (tid < HC) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s += act[tid * kLD + r];
+      vec[o_dbc + tid] = s;
+    }
+    product(acc, act, HC, act, HC, ring, ringp, rb, cb);
+    PHASE_MARK(4, kProd);
+    cons_sync();
+  }
+  {
+    const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = rb + row_of(i);
+      float yb[8];
+      if constexpr (YO) {
+        const float* ybar = static_cast<const float*>(p.ybar) +
+                            static_cast<size_t>(row0 + r) * kW + cb;
+        const bool live = row0 + r < p.n;
+        const float4 y0 = live ? *reinterpret_cast<const float4*>(ybar) : make_float4(0, 0, 0, 0);
+        const float4 y1 =
+            live ? *reinterpret_cast<const float4*>(ybar + 32) : make_float4(0, 0, 0, 0);
+        yb[0] = y0.x, yb[1] = y0.y, yb[2] = y0.z, yb[3] = y0.w;
+        yb[4] = y1.x, yb[5] = y1.y, yb[6] = y1.z, yb[7] = y1.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float gv;
+        if constexpr (HC > 0)
+          gv = acc[i][j] + g3[i][j];
+        else if constexpr (YO)
+          gv = yb[j] + g3[i][j];
+        else
+          gv = g3[i][j];
+        acc[i][j] = bit_at(mk, 8 * i + j) ? gv : 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    cs[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cs[j] += acc[i][j];
+  }
+  put_tile(act, acc, rb, cb);
+  PHASE_MARK(4, kScal);
+  put_rows(rows_at(p.zs, p.depth - 1), acc, rb, cb);
+  PHASE_MARK(4, kStore);
+  col_sums(cs, red, vec + (p.depth - 1) * kW, false, wm, cb);
+  PHASE_MARK(4, kScal);
+
+  // 6. The first-order reverse: dx, zeta_{l-1} = relu'(h_{l-1}) (zeta_l
+  // Wa_l), db_{l-1}.
+  [[maybe_unused]] float* dsh = inb;  // K8: [kRows][dide]
+  for (int l = p.depth - 1; l >= 0; --l) {
+    if (HC == 0 && p.dx0 != nullptr && (l == 0 || l == p.skip)) {
+      // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0 in f32, the skip layer's
+      // share in the f32 scratch; with K8 the IDE block's cotangents to dsh.
+      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+      PHASE_MARK(5, kProd);
+      const int dide = DIR ? p.dir.width() : 0, fin = p.d0 + dide + p.d1;
+      if (l == 0 && p.skip >= 0) {
+        // The skip layer's share first, every load in flight before a store.
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c0 = cb + 32 * h;
+            if (c0 >= kin) continue;
+            const float4 k4 = *reinterpret_cast<const float4*>(
+                p.dxs + static_cast<size_t>(row0 + rb + row_of(i)) * kin + c0);
+            acc[i][4 * h] = k4.x + acc[i][4 * h];
+            acc[i][4 * h + 1] = k4.y + acc[i][4 * h + 1];
+            acc[i][4 * h + 2] = k4.z + acc[i][4 * h + 2];
+            acc[i][4 * h + 3] = k4.w + acc[i][4 * h + 3];
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = rb + row_of(i);
+        const size_t gr = static_cast<size_t>(row0 + r);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c0 = cb + 32 * h;
+          if (c0 >= kin) continue;
+          const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                              acc[i][4 * h + 3]};
+          if (l != 0) {
+            *reinterpret_cast<float4*>(p.dxs + gr * kin + c0) =
+                make_float4(v[0], v[1], v[2], v[3]);
+            continue;
+          }
+          if (c0 + 3 < p.d0 && (p.d0 & 3) == 0) {  // four columns of dx0: one store
+            if (row0 + r < p.n)
+              *reinterpret_cast<float4*>(static_cast<float*>(p.dx0) + gr * p.d0 + c0) =
+                  make_float4(v[0], v[1], v[2], v[3]);
+            continue;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + e, ci = c - p.d0;
+            if (DIR && ci >= 0 && ci < dide) {
+              dsh[r * dide + ci] = v[e];
+              continue;
+            }
+            if (row0 + r >= p.n || c >= fin) continue;
+            if (c < p.d0)
+              static_cast<float*>(p.dx0)[gr * p.d0 + c] = v[e];
+            else
+              static_cast<float*>(p.dx1)[gr * p.d1 + (ci - dide)] = v[e];
+          }
+        }
+      }
+      PHASE_MARK(5, kStore);
+    }
+    if (l > 0) {
+      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+      PHASE_MARK(5, kProd);
+      cons_sync();
+      const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cs[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+          cs[j] += acc[i][j];
+        }
+      }
+      put_tile(act, acc, rb, cb);
+      PHASE_MARK(5, kScal);
+      put_rows(rows_at(p.zs, l - 1), acc, rb, cb);
+      PHASE_MARK(5, kStore);
+      col_sums(cs, red, vec + (l - 1) * kW, false, wm, cb);
+      PHASE_MARK(5, kScal);
+    }
+  }
+
+  // 6b. K8/K9: the IDE block's cotangents back to the raw inputs.
+  if constexpr (DIR) {
+    if (p.dir.p) {
+      cons_sync();
+      ide_backward(p.dir, dsh, p.dir.width(), row0, p.n, p.ddg, p.ddk);
+    }
+  }
+  PHASE_MARK(5, kScal);
+
+  // 7. With u's cotangent, the tangent chain: ts = (t xc, -(t xs)) replaces
+  // x in the input tile; p_l = relu'(h_l) ([p_{l-1} | ts] W_l), to the
+  // scratch but the last, whose column sums add to dwd.
+  if (dg) {
+    const int F = p.d0;
+    [[maybe_unused]] Ipe ipe_s;
+    if constexpr (SPA) {
+      if (p.ipe.lm != nullptr) ipe_s = stage_ipe(p.ipe, red, row0, p.n);
+    }
+    for (int i = tid; i < kRows * F; i += kCons) {
+      const int r = i / F, c = i % F;
+      float tp = 0.f;
+      for (int j = 0; j < p.nb; ++j) tp = fmaf(ub[r * p.nb + j], p.fold[c * p.nb + j], tp);
+      if constexpr (SPA) {
+        if (p.ipe.lm != nullptr) {  // K7: the f32 factors
+          float e = 0.f, sn = 0.f, cs_ = 0.f;
+          if (row0 + r < p.n) ipe_trig(ipe_s, r, c, e, sn, cs_);
+          const float te = mul(tp, e);
+          inb[c * kLD + r] = mul(te, cs_);
+          inb[(F + c) * kLD + r] = -mul(te, sn);
+          continue;
+        }
+      }
+      const float xs = inb[c * kLD + r], xc = inb[(F + c) * kLD + r];
+      inb[c * kLD + r] = tp * xc;
+      inb[(F + c) * kLD + r] = -(tp * xs);
+    }
+    cons_sync();
+    PHASE_MARK(6, kScal);
+    store_in(static_cast<float*>(p.ts) + row0 * static_cast<size_t>(kin), inb, kin);
+    PHASE_MARK(6, kStore);
+    for (int l = 0; l < p.depth; ++l) {
+      if (l == 0)
+        product(acc, inb, kin, inb, kin, ring, ringp, rb, cb);
+      else
+        product(acc, act, kW, inb, k_dim(p, l), ring, ringp, rb, cb);
+      PHASE_MARK(6, kProd);
+      cons_sync();
+      const uint2 mk = masks[l * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cs[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+          cs[j] += acc[i][j];
+        }
+      }
+      if (l + 1 < p.depth) {
+        put_tile(act, acc, rb, cb);
+        cons_sync();
+        PHASE_MARK(6, kScal);
+        put_rows(rows_at(p.ps, l), acc, rb, cb);
+        PHASE_MARK(6, kStore);
+      } else {
+        col_sums(cs, red, vec + o_dwd, true, wm, cb);
+        PHASE_MARK(6, kScal);
+      }
+    }
+  }
+}
+
+// A tensor map of a row-major f32 matrix [rows][cols] (row stride `ld`
+// elements) in boxes of box_rows x box_cols, unswizzled; reads past the
+// matrix give zeros. Returns false on failure.
+bool make_map_f32(CUtensorMap* map, const void* base, int cols, int rows, int ld, int box_cols,
+                  int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || base == nullptr || cols <= 0 || rows <= 0) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(float)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Shared memory of the per-tile kernel but its ring, and the ring's stages
+// that fit beside it (0 when fewer than kMinStages do).
+size_t f32_smem(const BwdParams& p, int* stages) {
+  const size_t rest = 1024 + 4 * static_cast<size_t>(kW + p.kin) * kLD +
+                      8 * static_cast<size_t>(p.depth) * kCons + 4 * 2 * kW +
+                      4 * static_cast<size_t>(kRows) * (1 + p.hf + p.nb) + 8 + 16 * kMaxStages;
+  const size_t fit = rest < 232448 ? (232448 - rest) / kSliceF : 0;
+  *stages = fit < kMinStages ? 0 : static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  return rest + static_cast<size_t>(*stages) * kSliceF;
+}
+
+template <int HC, bool DIR, bool SPA, bool YO>
+int launch_f32(const BwdParams& p, int hc, cudaStream_t stream) {
+  if (p.depth > kMaxDepth || p.kin > kW || hc != HC) return static_cast<int>(cudaErrorInvalidValue);
+  // K6's scratch ([kRows] + [8 warps][S] floats) and K8's f32 cotangents
+  // must fit in the activation and input tiles, K7's staged inputs in red.
+  if (SPA && p.wbar != nullptr && kRows + (kCons / 32) * p.samples > kW * kLD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (DIR && p.dir.p && kRows * p.dir.width() > p.kin * kLD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (SPA && p.ipe.lm != nullptr && kRows * p.ipe.nb > kW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // dx only in the instances without a compute-dtype head (the directional
+  // trunk's K5).
+  if (HC > 0 && p.dx0 != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  MapsF32 m;
+  memset(&m, 0, sizeof(m));
+  const float* w = static_cast<const float*>(p.w);
+  const float* wt = static_cast<const float*>(p.wt);
+  size_t off = 0;
+  bool ok = true;
+  for (int l = 0; l < p.depth; ++l) {
+    const int K = l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+    ok = ok && make_map_f32(&m.w[l], w + off, K, kW, K, kW, kSD) &&
+         make_map_f32(&m.wt[l], wt + off, kW, K, kW, kW, kSD);
+    off += static_cast<size_t>(kW) * K;
+  }
+  if (HC > 0) ok = ok && make_map_f32(&m.wc, p.wct, kW, HC, kW, kW, kSD);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = f32_smem(p, &m.stages);
+  if (m.stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_f32_kernel<HC, DIR, SPA, YO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trunk_bwd_f32_kernel<HC, DIR, SPA, YO><<<p.rp / kRows, kTmaThreads, smem, stream>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The weight-gradient product: out[split][M][N] = sum over the split's
+// samples of Z^T [A | X] (+ S^T [PA | TX]), every operand sample-major
+// [rp][features] in device memory. A CTA: a 128 x 128 output tile, the
+// per-tile kernel's 8 x 8 blocks (a warp 32 rows x 64 columns), one
+// producer warp that loads kWS samples of each operand a stage by TMA.
+
+constexpr int kWS = 32;                    // samples a stage
+constexpr int kWBox = kWS * 128 * 4;       // bytes of a [kWS][128] f32 box
+constexpr int kWgStagesF = 3;
+
+struct WgradMapsF32 {
+  CUtensorMap z, a, x, s, pa, tx;
+};
+
+struct WgradF32 {
+  int M, N, ncut, rp, ksplit, tiles_m;
+  bool two;
+  float* out;
+};
+
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    wgrad_f32_kernel(const __grid_constant__ WgradF32 p, const __grid_constant__ WgradMapsF32 m) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  constexpr int kStage = 4 * kWBox;  // Z | A | S | PA
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kWgStagesF * kStage);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring r{smem_u32(smem), smem_u32(bars), smem_u32(bars + kWgStagesF), kWgStagesF, 0, 0u};
+  const int m0 = (blockIdx.x % p.tiles_m) * 128, n0 = (blockIdx.x / p.tiles_m) * 128;
+  const int kb = blockIdx.y * p.ksplit;
+  const int ke = min(kb + p.ksplit, p.rp);
+  const int ns = (ke - kb) / kWS;
+  if (tid == 0) {
+    for (int s = 0; s < kWgStagesF; ++s) {
+      mbar_init(r.full + 8 * s, 1);
+      mbar_init(r.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {
+    if (lane == 0) {
+      const bool in_a = n0 < p.ncut;
+      const CUtensorMap* b1 = in_a ? &m.a : &m.x;
+      const CUtensorMap* b2 = in_a ? &m.pa : &m.tx;
+      const int bc = in_a ? n0 : n0 - p.ncut;
+      const uint32_t bytes = (p.two ? 4 : 2) * kWBox;
+      for (int s = 0; s < ns; ++s) {
+        const int k0 = kb + kWS * s;
+        mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1u);
+        const uint32_t full = r.full + 8 * r.stage, dst = r.base + r.stage * kStage;
+        mbar_expect_tx(full, bytes);
+        tma_load(dst, &m.z, full, m0, k0);
+        tma_load(dst + kWBox, b1, full, bc, k0);
+        if (p.two) {
+          tma_load(dst + 2 * kWBox, &m.s, full, m0, k0);
+          tma_load(dst + 3 * kWBox, b2, full, bc, k0);
+        }
+        r.advance();
+      }
+    }
+    return;
+  }
+
+  const int rb = 32 * (warp >> 1) + 4 * (lane >> 3);
+  const int cb = 64 * (warp & 1) + 4 * (lane & 7);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const float* base = reinterpret_cast<const float*>(smem);
+  for (int s = 0; s < ns; ++s) {
+    const float* st = base + r.stage * (kStage / 4);
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q == 1 && !p.two) break;
+      const float* za = st + q * (2 * kWBox / 4) + rb;
+      const float* xb = st + q * (2 * kWBox / 4) + kWBox / 4 + cb;
+#pragma unroll 8
+      for (int kk = 0; kk < kWS; ++kk) {
+        const float4 a0v = *reinterpret_cast<const float4*>(za + kk * 128);
+        const float4 a1v = *reinterpret_cast<const float4*>(za + kk * 128 + 16);
+        const float4 b0v = *reinterpret_cast<const float4*>(xb + kk * 128);
+        const float4 b1v = *reinterpret_cast<const float4*>(xb + kk * 128 + 32);
+        const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
+        const float bv[8] = {b0v.x, b0v.y, b0v.z, b0v.w, b1v.x, b1v.y, b1v.z, b1v.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(r.empty + 8 * r.stage);
+    r.advance();
+  }
+
+  float* out = p.out + static_cast<size_t>(blockIdx.y) * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + rb + row_of(i);
+    if (row >= p.M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + cb + 32 * h;
+      if (col < p.N)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * p.N + col) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+  }
+}
+
+}  // namespace
+
+// Plain C entries for ctypes, as trunk_bwd.cu's: each returns the
+// cudaError_t of its launch (0 on success), allocates nothing and does not
+// synchronise; all run on `stream`.
+
+// The per-tile backward of refnerf_trunk_bwd (the same arguments), for the
+// f32 trunk at width 256 (dtype 0), at most 8 layers and 256 input
+// columns: K4 (hc 128; with K6/K7, SPA), K5 (hc 0, dx; with K8-K10, DIR)
+// and K11's y cotangent (YO); dx only with hc 0, as the directional trunk
+// asks for it. `wct` is the compute-dtype head untransposed, wc
+// [hc][width] (its products read the contraction index outermost). The
+// weight-gradient operands go to the scratch sample-major, [rp][features]
+// per region (h, zeta, s, p: [depth][rp][W]; x, ts: [rp][kin]; cbar:
+// [rp][hc]), for refnerf_wgrad_f32.
+extern "C" int refnerf_trunk_bwd_f32(REFNERF_BWD_ARGS) {
+  BwdParams p;
+  const int err = bwd_params(p, REFNERF_BWD_NAMES);
+  if (err != 0) return err;
+  if (dtype != 0 || width != kW) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
+  const bool spa = p.ipe.lm != nullptr || p.wbar != nullptr;
+  if (p.ybar != nullptr)
+    return hc == 0 && !dir && !spa && p.ubar == nullptr
+               ? launch_f32<0, false, false, true>(p, hc, s)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (hc == 0 && !spa)
+    return dir ? launch_f32<0, true, false, false>(p, hc, s)
+               : launch_f32<0, false, false, false>(p, hc, s);
+  if (hc == 128 && !dir)
+    return spa ? launch_f32<128, false, true, false>(p, hc, s)
+               : launch_f32<128, false, false, false>(p, hc, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Per-split partials out[split][M][N] of dW = Z^T [A | X] (+ S^T [PA | TX])
+// over rp samples, as refnerf_wgrad (the same arguments) but every operand
+// sample-major: z [rp][M], a [rp][ncut], x [rp][N - ncut], s [rp][M], pa
+// [rp][ncut], tx [rp][N - ncut]. f32 (dtype 0) only; M and ncut multiples
+// of 128, N of 4, rp and ksplit of 32.
+extern "C" int refnerf_wgrad_f32(int dtype, int M, int N, int ncut, int rp, int ksplit,
+                                 const void* z, const void* a, const void* x, const void* s,
+                                 const void* pa, const void* tx, float* out, void* stream) {
+  if (dtype != 0 || M <= 0 || M % 128 != 0 || N <= 0 || N % 4 != 0 || ncut < 0 || ncut > N ||
+      ncut % 128 != 0 || rp <= 0 || rp % kWS != 0 || ksplit <= 0 || ksplit % kWS != 0 ||
+      z == nullptr || (ncut > 0 && a == nullptr) || (ncut < N && x == nullptr) ||
+      (s != nullptr && ((ncut > 0 && pa == nullptr) || (ncut < N && tx == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WgradMapsF32 m;
+  memset(&m, 0, sizeof(m));
+  bool ok = make_map_f32(&m.z, z, M, rp, M, 128, kWS);
+  if (ncut > 0) ok = ok && make_map_f32(&m.a, a, ncut, rp, ncut, 128, kWS);
+  if (ncut < N) ok = ok && make_map_f32(&m.x, x, N - ncut, rp, N - ncut, 128, kWS);
+  if (s != nullptr) {
+    ok = ok && make_map_f32(&m.s, s, M, rp, M, 128, kWS);
+    if (ncut > 0) ok = ok && make_map_f32(&m.pa, pa, ncut, rp, ncut, 128, kWS);
+    if (ncut < N) ok = ok && make_map_f32(&m.tx, tx, N - ncut, rp, N - ncut, 128, kWS);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_m = M / 128, tiles_n = (N + 127) / 128;
+  const WgradF32 p{M, N, ncut, rp, ksplit, tiles_m, s != nullptr, out};
+  const size_t smem = 1024 + static_cast<size_t>(kWgStagesF) * 4 * kWBox + 16 * kWgStagesF;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(tiles_m * tiles_n, (rp + ksplit - 1) / ksplit);
+  wgrad_f32_kernel<<<grid, kTmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -80,6 +80,12 @@ EXPORTS = {
         'refnerf_trunk_bwd_tma': _BWD_ARGS,
         'refnerf_wgrad_tma': _WGRAD_ARGS,
     },
+    # The f32 width-256 backward (FMA products, TMA): the same arguments,
+    # the weight-gradient operands sample-major, the head untransposed.
+    'trunk_bwd_f32': {
+        'refnerf_trunk_bwd_f32': _BWD_ARGS,
+        'refnerf_wgrad_f32': _WGRAD_ARGS,
+    },
 }
 
 

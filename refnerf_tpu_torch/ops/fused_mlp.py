@@ -38,8 +38,9 @@ backward pass, as in the Pallas contract.
 
 Kernels (`csrc/trunk_fwd_tma.cu` or `csrc/trunk_fwd.cu` by shape,
 `tma_forward`: K1-K3, K6-K10, and K11 in trunk_fwd.cu;
-`csrc/trunk_bwd_tma.cu` or `csrc/trunk_bwd.cu` by shape, `tma_backward`:
-K4-K11), at width 256 and,
+`csrc/trunk_bwd_tma.cu` (bf16), `csrc/trunk_bwd_f32.cu` (f32) or
+`csrc/trunk_bwd.cu` by dtype and shape, `backward_library`: K4-K11), at
+width 256 and,
 for the directional trunk, 128, run for CUDA tensors
 unless `mode='off'`. A CPU tensor or `mode='off'` takes the
 plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
@@ -75,20 +76,22 @@ _KS = 32  # the kernels stream weights in K-slices of this many rows
 _TILE = 64  # samples per CTA of the trunk kernels
 # Rows per slab of the backward kernels: the per-sample operands of the
 # weight-gradient products (compute dtype; feature-major, or sample-major
-# for the bf16 width-256 instances of csrc/trunk_bwd_tma.cu) are kept for
-# one slab at a time, about 1.1 GB for the spatial trunk in bf16.
+# for the width-256 instances of csrc/trunk_bwd_tma.cu and
+# csrc/trunk_bwd_f32.cu) are kept for one slab at a time, about 1.1 GB for
+# the spatial trunk in bf16 and 2.2 GB in f32.
 BWD_SLAB = 65536
 # Samples per partial sum of the weight-gradient kernel: trunk_bwd.cu's
 # (128 x 128 tiles, each operand read twice), and trunk_bwd_tma.cu's, whose
 # 2048 give 32 partials a slab (half the reduction's reads) and 128 CTAs for
-# a 256 x 256 gradient.
+# a 256 x 256 gradient. trunk_bwd_f32.cu's split is chosen per gradient
+# (`_wgrad_split`): as many splits as fill the card's SMs once.
 _KSPLIT = 1024
 _KSPLIT_TMA = 2048
-# The trunk_fwd_tma.cu and trunk_bwd_tma.cu kernels take at most this many
-# layers (a tensor map a layer in the launch's parameters) and input
-# columns (one input tile), the forward also at most _TMA_HEADS f32 heads
-# (their partial sums in shared memory); a bf16 width-256 trunk past them
-# runs trunk_fwd.cu's and trunk_bwd.cu's instances.
+# The trunk_fwd_tma.cu, trunk_bwd_tma.cu and trunk_bwd_f32.cu kernels take
+# at most this many layers (a tensor map a layer in the launch's
+# parameters) and input columns (one input tile), the forward also at most
+# _TMA_HEADS f32 heads (their partial sums in shared memory); a width-256
+# trunk past them runs trunk_fwd.cu's and trunk_bwd.cu's instances.
 _TMA_DEPTH = 8
 _TMA_KIN = 256
 _TMA_HEADS = 16
@@ -847,12 +850,36 @@ def tma_forward(pack: TrunkPack, out_y: bool = False) -> bool:
   return tma_backward(pack) and hf <= _TMA_HEADS and not out_y
 
 
+def backward_library(pack: TrunkPack) -> str:
+  """The library whose kernels run the backward of `pack`, decided from its
+  dtype and shape alone, before anything is built or launched: at width
+  256 within `_TMA_DEPTH` layers and `_TMA_KIN` input columns,
+  'trunk_bwd_tma' (bf16: wgmma fed by TMA) or 'trunk_bwd_f32' (f32:
+  register-blocked FMA products fed by TMA); every other shape with an
+  instance (width 128, deeper or wider trunks) 'trunk_bwd'."""
+  if (pack.width == 256 and pack.depth <= _TMA_DEPTH and
+      pack.kin <= _TMA_KIN):
+    return ('trunk_bwd_tma' if pack.compute_dtype == 'bfloat16'
+            else 'trunk_bwd_f32')
+  return 'trunk_bwd'
+
+
 def tma_backward(pack: TrunkPack) -> bool:
   """Whether the backward of `pack` runs trunk_bwd_tma.cu's kernels (bf16
-  at width 256, within `_TMA_DEPTH` layers and `_TMA_KIN` input columns)
-  rather than trunk_bwd.cu's; decided from the shape alone."""
-  return (pack.compute_dtype == 'bfloat16' and pack.width == 256 and
-          pack.depth <= _TMA_DEPTH and pack.kin <= _TMA_KIN)
+  at width 256, within `_TMA_DEPTH` layers and `_TMA_KIN` input columns)."""
+  return backward_library(pack) == 'trunk_bwd_tma'
+
+
+def _wgrad_split(route: str, rp: int, m: int, n: int, sms: int) -> int:
+  """Samples per partial of the weight-gradient product of an m x n
+  gradient over rp rows: trunk_bwd_f32.cu's 128 x 128 output tiles times
+  the splits fill the card's `sms` SMs once (one CTA an SM); the other
+  libraries' fixed splits."""
+  if route != 'trunk_bwd_f32':
+    return _KSPLIT_TMA if route == 'trunk_bwd_tma' else _KSPLIT
+  tiles = -(-m // 128) * -(-n // 128)
+  splits = max(1, sms // tiles)
+  return -(-rp // (splits * 64)) * 64
 
 
 # Once per process and reason: a trunk shape without a kernel instance.
@@ -1125,8 +1152,9 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   Per slab of samples: the per-tile kernel recomputes the trunk and runs the
   inner chain, the head backward, the first-order reverse and (with the
   cotangent of u) the tangent chain, writing each layer's weight-gradient
-  operands into a scratch buffer (sample-major for trunk_bwd_tma.cu,
-  feature-major for trunk_bwd.cu: `tma_backward`) and per-tile sums of the
+  operands into a scratch buffer (sample-major for trunk_bwd_tma.cu and
+  trunk_bwd_f32.cu, feature-major for trunk_bwd.cu: `backward_library`)
+  and per-tile sums of the
   vector gradients; then a split-K product over samples forms each weight
   gradient's partials, and fixed-order reductions sum them (no atomics: the
   result does not depend on the schedule). With K6 a slab holds whole rays.
@@ -1138,15 +1166,23 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   _instance_guard(pack, hc, fold, dm, sp, ybar is not None)
   lib = _library('trunk_bwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
-  # wgmma and TMA, the scratch sample-major (`tma_backward`).
-  tma = tma_backward(pack)
-  if tma:
-    from refnerf_tpu_torch.ops import cuda_build
-    tlib = cuda_build.library('trunk_bwd_tma')
-    tile_fn, wgrad_fn = tlib.refnerf_trunk_bwd_tma, tlib.refnerf_wgrad_tma
-  else:
+  # By dtype and shape (`backward_library`): trunk_bwd_tma.cu (bf16) and
+  # trunk_bwd_f32.cu (f32) take the same arguments as trunk_bwd.cu, the
+  # scratch sample-major; trunk_bwd_f32.cu reads the head untransposed.
+  route = backward_library(pack)
+  head = pack.wct
+  if route == 'trunk_bwd':
     tile_fn, wgrad_fn = lib.refnerf_trunk_bwd, lib.refnerf_wgrad
-  ksplit = _KSPLIT_TMA if tma else _KSPLIT
+  else:
+    from refnerf_tpu_torch.ops import cuda_build
+    rlib = cuda_build.library(route)
+    tile_fn = getattr(rlib, f'refnerf_{route}')
+    wgrad_fn = getattr(rlib, f'refnerf_wgrad_{route.rsplit("_", 1)[1]}')
+    if route == 'trunk_bwd_f32':
+      head = pack.wc
+  sms = (torch.cuda.get_device_properties(segs[0].device).multi_processor_count
+         if route == 'trunk_bwd_f32' else 0)
+  split = lambda rp, m, n: _wgrad_split(route, rp, m, n, sms)
   seg_dtypes = [s.dtype for s in segs]
   ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
   dev, n, d0, d1 = segs[0].device, int(segs[0].shape[0]), ki.d0, ki.d1
@@ -1220,8 +1256,9 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
                         dtype=cdt)
   dx_keep = torch.empty(rp_max * kin, device=dev) if needs_dx else None
   vec_part = torch.empty(rp_max // _TILE * nvec, device=dev)
-  wpart = torch.empty(-(-rp_max // ksplit) * W * max(max(k_pack), W),
-                      device=dev)
+  # Partials of one gradient: trunk_bwd_f32.cu's never outnumber the SMs.
+  nsplit_max = sms if sms else -(-rp_max // split(rp_max, W, W))
+  wpart = torch.empty(nsplit_max * W * max(max(k_pack), W), device=dev)
   es = scratch.element_size()
   stream = torch.cuda.current_stream(dev).cuda_stream
   flag = 1 if cdt == torch.bfloat16 else 0
@@ -1242,7 +1279,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
       err = tile_fn(
           flag, W, hc, at(ki.x0, start, d0), d0, at(ki.x1, start, d1), d1,
           rows, kin, L, pack.skip, _ptr(pack.w), _ptr(pack.wt), _ptr(pack.b),
-          _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf, _ptr(pack.wct),
+          _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf, _ptr(head),
           at(sbar, start, 1), at(hbar, start, hf), at(cbar, start, hc),
           at(ubar, start, nb), _ptr(fold), nb, at(dx0, start, d0),
           at(dx1, start, d1), _ptr(dx_keep), rp, reg['hs'], reg['zs'],
@@ -1257,9 +1294,10 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
           at(ybar, start, W), stream)
       _check_launch(err, 'trunk backward kernel')
       acc = int(start > 0)
-      nsplit = -(-rp // ksplit)
       for l in range(L):
         ncut = 0 if l == 0 else W
+        ksplit = split(rp, W, k_pack[l])
+        nsplit = -(-rp // ksplit)
         err = wgrad_fn(
             flag, W, k_pack[l], ncut, rp, ksplit, layer('zs', l),
             reg['xs'] if l == 0 else layer('hs', l - 1), reg['xs'],
@@ -1271,6 +1309,8 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
                                  k_out[l], dws[l].data_ptr(), acc, stream)
         _check_launch(err, 'reduction kernel')
       if hc:
+        ksplit = split(rp, hc, W)
+        nsplit = -(-rp // ksplit)
         err = wgrad_fn(flag, hc, W, W, rp, ksplit, reg['cs'],
                                 layer('hs', L - 1), None, None, None, None,
                                 wpart.data_ptr(), stream)

@@ -8,22 +8,26 @@ with the checkouts to compare unpacked (git archive) in ignored directories:
     python3 -m refnerf_tpu_torch.tools.ab_trees --arm p=_chip/p \\
         --arm c=_chip/c --order p,c,p,c,p,c --out chiprun_out/ab \\
         [--checks check_train_kernels,check_dir_kernels,check_spa_kernels,
-                  serve_requests,train_steps,forward_kernels]
+                  serve_requests,train_steps,forward_kernels,
+                  backward_kernels] [--dtype float32]
 
 First every checkout builds its kernels into its own build/, all at once.
 Then each run of --order (none without it) is a process of its own in its
 checkout's root: it imports that checkout's chip_smoke.py and runs the
 functions of --checks (phase 5's check_train_kernels by default; phase 7's
 check_dir_kernels and phase 9's check_spa_kernels time K5 with K8-K10 and K4
-with K6/K7). `serve_requests`, `train_steps` and `forward_kernels` are this
-tool's own, the same code in every checkout: in `serve_requests` phase 10's
-model (all six fuse flags) and phase 12's two mip-NeRF models each answer
-a 4096-ray request, timed on the host clock under fused_trunk='auto'
+with K6/K7). `serve_requests`, `train_steps`, `forward_kernels` and
+`backward_kernels` are this tool's own, the same code in every checkout: in
+`serve_requests` phase 10's model (all six fuse flags) and phase 12's two
+mip-NeRF models each answer a 4096-ray request, timed on the host clock under fused_trunk='auto'
 ("kernel") and 'off' ("plain"), with one request's device-busy time from
 torch.profiler; in `train_steps` phase 10's model takes train steps at
-batch 4096 the same way; `forward_kernels` holds every bf16 forward case of
-phases 3, 5, 7, 9 and 11 against its plain version (chip_smoke.compare)
-without their backward cases. Each run's output goes to --out.
+batch 4096 the same way, its trunks in --dtype (bfloat16 by default;
+float32 is the gin's own, phase 13's); `forward_kernels` holds every bf16
+forward case of phases 3, 5, 7, 9 and 11 against its plain version
+(chip_smoke.compare) without their backward cases, `backward_kernels`
+every backward case of phases 5, 7, 9 and 11 in --dtype without their
+forward cases. Each run's output goes to --out.
 Printed: every case's kernel and plain times (and device busy, where
 measured) per arm in run order and their medians; then, per
 library, whether each kernel instance of the first arm has the same SASS
@@ -111,18 +115,22 @@ def serve_requests(fused_mlp, dev, reps=15, reps_off=3):
 
 
 def train_steps(fused_mlp, dev, reps=10, reps_off=2):
-  """Phase 10's model (all six fuse flags, bf16 trunks) at batch 4096, as
-  chip_smoke.train_setup makes it: after 3 warm-up steps, the median wall
-  ms of `reps` steps under fused_trunk='auto' and of `reps_off` under
-  'off', and the device-busy ms of one 'auto' step, in chip_smoke's line
-  format. Uses only what every checkout's chip_smoke has."""
+  """Phase 10's model (all six fuse flags, trunks in the run's DTYPE) at
+  batch 4096, as chip_smoke.train_setup makes it: after 3 warm-up steps,
+  the median wall ms of `reps` steps under fused_trunk='auto' and of
+  `reps_off` under 'off', and the device-busy ms of one 'auto' step, in
+  chip_smoke's line format. Uses only what every checkout's chip_smoke has
+  (its bf16 binding is overridden by a later one)."""
   import statistics
   import time
   import torch
   from torch.profiler import ProfilerActivity, profile
   import chip_smoke
   model, _, state, train_step, batch = chip_smoke.train_setup(
-      dev, chip_smoke.FUSE + chip_smoke.SPATIAL)
+      dev, chip_smoke.FUSE + chip_smoke.SPATIAL +
+      [f"NerfMLP.compute_dtype = '{DTYPE}'"])
+  if model.nerf_mlp.cfg.compute_dtype != DTYPE:
+    raise AssertionError(f'train_steps: the model is not in {DTYPE}')
   box = {'state': state}
 
   def step():
@@ -152,7 +160,7 @@ def train_steps(fused_mlp, dev, reps=10, reps_off=2):
                      getattr(e, 'self_cuda_time_total', 0))
              for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-  print(f'phase 10: train step all six bfloat16 N=4096: kernel '
+  print(f'phase 10: train step all six {DTYPE} N=4096: kernel '
         f'{wall["auto"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
         f'{busy:.3f} ms', flush=True)
 
@@ -226,8 +234,91 @@ def forward_kernels(fused_mlp, dev):
   torch.cuda.empty_cache()
 
 
+def backward_kernels(fused_mlp, dev):
+  """Every backward case of chip_smoke's phases 5 (K4, K5), 7 (K8+K9+K10),
+  9 (K6+K7+K4) and 11 (K11, K4 first-order, K5 W128) in the run's DTYPE
+  against its plain version at chip_smoke's N, through chip_smoke.compare
+  (which prints each case's kernel and plain ms). Uses only what every
+  checkout's chip_smoke has."""
+  import torch
+  import chip_smoke as cs
+  cdt = DTYPE
+  tdt = fused_mlp.DTYPES[cdt]
+  n = cs.N_SAMPLES
+  gen = torch.Generator().manual_seed(cs.SEED + 5)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(cs.SCALES, 3), device=dev)
+  bwd = lambda ws, kw, **k: cs.trunk_flops(ws, n, cs.n_heads(kw),
+                                           backward=True, **k)
+  for which, trunk in (('K4', 'K1'), ('K5', 'K2'), ('K11 backward', 'mip K11'),
+                       ('K4 first-order', 'mip K1'), ('K5 W128', 'mip K2')):
+    spatial = trunk in ('K1', 'mip K1', 'mip K11')
+    segs, ws, bs, kw = cs.trunk_case(trunk, gen, dev, ipe=spatial)
+    segs = [s.to(tdt) for s in segs]
+    pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                                compute_dtype=cdt, **kw)
+    f = fold if which == 'K4' else None
+    hf = kw['head_f32'][0].shape[0] if kw['head_f32'] else 0
+    cots = ((rand(n), rand(n, hf) if hf else None,
+             rand(n, 128) if kw['head_cdt'] else None,
+             rand(n, 3) if f is not None else None) if spatial
+            else (None, rand(n, 3), None, None))
+    yb = rand(n, 256).to(tdt) if trunk == 'mip K11' else None
+    cs.compare(which, cdt,
+               lambda: fused_mlp.trunk_backward_kernel(
+                   segs, pack, cots, f, needs_dx=not spatial, ybar=yb),
+               lambda: fused_mlp.trunk_backward_reference(
+                   segs, ws, bs, cots, compute_dtype=cdt, fold=f,
+                   needs_dx=not spatial, ybar=yb, **kw),
+               n_values=0, iters=3, phase=5,
+               inputs=segs + cs.pack_tensors(pack) + list(cots) + [f, yb],
+               flops=bwd(ws, kw, density_grad=f is not None,
+                         needs_dx=not spatial))
+    del segs, ws, bs, kw, pack, cots, yb
+  mat = fused_mlp.ref_utils.ide_tables(5)[0]
+  segs, ws, bs, head, dm, rgbx = cs.dir_case(fused_mlp, gen, dev, True, True,
+                                             True)
+  raw = range(1, 1 + dm.n_raw())
+  segs = [s if j in raw else s.to(tdt) for j, s in enumerate(segs)]
+  pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(segs, dm),
+                              head_f32=head, compute_dtype=cdt)
+  cots, rgb_bar = (None, rand(n, 3), None, None), rand(n, 3)
+  kws = dict(dir_modes=dm, rgbx=rgbx, rgb_bar=rgb_bar)
+  cs.compare('K8+K9+K10 backward', cdt,
+             lambda: fused_mlp.trunk_backward_kernel(segs, pack, cots,
+                                                     needs_dx=True, **kws),
+             lambda: fused_mlp.trunk_backward_reference(
+                 segs, ws, bs, cots, head_f32=head, compute_dtype=cdt,
+                 needs_dx=True, **kws),
+             n_values=0, iters=3, phase=7,
+             inputs=segs + cs.pack_tensors(pack) + [cots[1], rgb_bar],
+             flops=cs.trunk_flops(ws, n, 3, backward=True, needs_dx=True),
+             f32_flops=cs.dir_flops(mat, True, True, True, backward=True))
+  del segs, ws, bs, pack
+  segs, ws, bs, kw, sp, cp = cs.spa_case(fused_mlp, gen, dev, True, True)
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  cots = (rand(n), rand(n, 10), rand(n, 128), rand(n, 3), rand(n))
+  with torch.no_grad():
+    sk = fused_mlp.trunk_kernel(segs, pack, fold, spa_modes=sp, comp=cp)[0]
+    sr = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt,
+                                   spa_modes=sp, comp=cp, **kw)[0]
+  cs.compare('K6+K7+K4', cdt,
+             lambda: fused_mlp.trunk_backward_kernel(
+                 segs, pack, cots, fold, spa_modes=sp, comp=cp + (sk,)),
+             lambda: fused_mlp.trunk_backward_reference(
+                 segs, ws, bs, cots, compute_dtype=cdt, fold=fold,
+                 spa_modes=sp, comp=cp + (sr,), **kw),
+             n_values=0, iters=3, phase=9,
+             inputs=segs + cs.pack_tensors(pack) + list(cots) + [fold, sk],
+             flops=cs.trunk_flops(ws, n, cs.n_heads(kw), density_grad=True,
+                                  backward=True),
+             f32_flops=cs.spa_flops(True, True, True, True))
+  torch.cuda.empty_cache()
+
+
 # Run in every checkout.
-OWN = {f.__name__: f for f in (serve_requests, train_steps, forward_kernels)}
+OWN = {f.__name__: f for f in (serve_requests, train_steps, forward_kernels,
+                               backward_kernels)}
 BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
 FALSE = ('false', '(bool)0')  # a false template flag, as cu++filt prints it
 TIMES = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?kernel '
@@ -258,11 +349,11 @@ def build(arms):
                          f'{log[-3000:]}')
 
 
-def run_arms(arms, order, out, checks):
+def run_arms(arms, order, out, checks, dtype='bfloat16'):
   """{(case, dtype): {arm: [(kernel ms, plain ms[, device busy ms]) per
   run]}}."""
   times = {}
-  run = (f'CHECKS = {checks!r}\nOWN = {sorted(OWN)!r}\n' +
+  run = (f'CHECKS = {checks!r}\nOWN = {sorted(OWN)!r}\nDTYPE = {dtype!r}\n' +
          ''.join(inspect.getsource(f) + '\n' for f in OWN.values()) + RUN)
   for i, arm in enumerate(order):
     proc = subprocess.run([sys.executable, '-c', run],
@@ -353,6 +444,9 @@ def main():
   ap.add_argument('--out', default='chiprun_out/ab')
   ap.add_argument('--checks', default='check_train_kernels',
                   help='chip_smoke functions a run calls, comma-separated')
+  ap.add_argument('--dtype', default='bfloat16',
+                  choices=('bfloat16', 'float32'),
+                  help="train_steps' trunks")
   a = ap.parse_args()
   arms = {k: pathlib.Path(v).resolve()
           for k, v in (s.split('=', 1) for s in a.arm)}
@@ -362,7 +456,7 @@ def main():
   out = pathlib.Path(a.out)
   out.mkdir(parents=True, exist_ok=True)
   build(arms)
-  times = run_arms(arms, order, out, a.checks.split(','))
+  times = run_arms(arms, order, out, a.checks.split(','), a.dtype)
   summary = {}
   for (case, cdt), by_arm in times.items():
     row = {}

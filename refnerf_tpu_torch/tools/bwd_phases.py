@@ -3,15 +3,17 @@
 From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
     python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
-        [--lib trunk_bwd_tma|trunk_bwd|trunk_fwd_tma|trunk_fwd] \
+        [--lib trunk_bwd_tma|trunk_bwd_f32|trunk_bwd|trunk_fwd_tma|trunk_fwd] \
         [--dtype float32]
 
 Builds a trunk library a second time with -DREFNERF_PHASES (its own file
 in build/, never loaded on the main path): by default the bf16 width-256
-backward of csrc/trunk_bwd_tma.cu; with --lib trunk_bwd the mma.sync
-kernels of csrc/trunk_bwd.cu, which then also run the bf16 flagship shapes
-(fused_mlp.tma_backward is patched to refuse them): the design that
-trunk_bwd_tma.cu replaced there, and f32 with --dtype float32. Likewise
+backward of csrc/trunk_bwd_tma.cu; with --lib trunk_bwd_f32 the f32
+width-256 backward of csrc/trunk_bwd_f32.cu (float32 by default); with
+--lib trunk_bwd the mma.sync / FMA kernels of csrc/trunk_bwd.cu, which
+then also run the width-256 flagship shapes (fused_mlp.backward_library
+is patched to send every shape there): the design that trunk_bwd_tma.cu
+(bf16) and trunk_bwd_f32.cu (--dtype float32) replaced. Likewise
 for the forward: --lib trunk_fwd_tma the bf16 width-256 forward of
 csrc/trunk_fwd_tma.cu, --lib trunk_fwd the mma.sync forward of
 csrc/trunk_fwd.cu (fused_mlp.tma_forward patched to refuse every shape).
@@ -20,11 +22,12 @@ each segment, closed by a barrier, to a (phase, kind) sum; kinds are the
 products, the scalar passes and the stores (the backward's scratch, the
 forward's outputs). Then, at N = 524,288 samples in --dtype and for each
 case (backward: K4 with the cotangent of u, alone and with K6+K7; K5 with
-dx, alone and with K8+K9+K10; forward: K3 alone and with K6+K7, K1 alone
-and with K6+K7, K2 alone and with K8+K9+K10), it runs the kernel once
-through the phase build and reads the sums, and times the per-tile (and
-for the backward the weight-gradient and reduction) kernels under
-torch.profiler through the phase build and through the normal one. Each
+dx, alone and with K8+K9+K10; first-order K4; forward: K3 alone and with
+K6+K7, K1 alone and with K6+K7, K2 alone and with K8+K9+K10), it runs the
+kernel once through the phase build and reads the sums, and times the
+per-tile (and for the backward the weight-gradient and reduction) kernels
+under torch.profiler through the phase build and through the normal one.
+Each
 (phase, kind) gets its share of all CTAs' cycles and that share of the
 per-tile kernel's time in the phase build (whose barriers add their own
 cost: compare its time with the normal build's).
@@ -98,14 +101,15 @@ def device_ms(run, kernels=KERNELS, calls=2):
     us = getattr(e, 'self_device_time_total',
                  getattr(e, 'self_cuda_time_total', 0))
     for k in kernels:
-      if f'{k}_kernel' in e.key or f'{k}_tma_kernel' in e.key:
+      if any(f'{k}{v}_kernel' in e.key for v in ('', '_tma', '_f32')):
         out[k] += us / 1e3 / calls
   return out
 
 
 def cases(chip_smoke, fused_mlp, dev, cdt):
   """(name, backward call) at chip_smoke's N in `cdt`: phase 5's K4 and K5,
-  phase 9's K6+K7+K4 and phase 7's K8+K9+K10 backward."""
+  phase 9's K6+K7+K4, phase 7's K8+K9+K10 backward and phase 11's
+  first-order K4 (mip-NeRF's spatial trunk, no cotangent of u)."""
   tdt = fused_mlp.DTYPES[cdt]
   gen = torch.Generator().manual_seed(chip_smoke.SEED + 1)
   n = chip_smoke.N_SAMPLES
@@ -141,6 +145,12 @@ def cases(chip_smoke, fused_mlp, dev, cdt):
   yield 'K8+K9+K10 backward', lambda: fused_mlp.trunk_backward_kernel(
       cs, pack, cots5, needs_dx=True, rgb_bar=rgb_bar, dir_modes=dm,
       rgbx=rgbx)
+  segs, ws, bs, kw = chip_smoke.trunk_case('mip K1', gen, dev, ipe=True)
+  cs = [s.to(tdt) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  cots1 = (rand(n), None, rand(n, 128), None)
+  yield 'K4 first-order', lambda: fused_mlp.trunk_backward_kernel(cs, pack,
+                                                                  cots1)
 
 
 def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
@@ -181,11 +191,13 @@ def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument('--out', default='chiprun_out/phases')
   ap.add_argument('--lib', default='trunk_bwd_tma',
-                  choices=('trunk_bwd_tma', 'trunk_bwd', 'trunk_fwd_tma',
-                           'trunk_fwd'))
-  ap.add_argument('--dtype', default='bfloat16',
-                  choices=('bfloat16', 'float32'))
+                  choices=('trunk_bwd_tma', 'trunk_bwd_f32', 'trunk_bwd',
+                           'trunk_fwd_tma', 'trunk_fwd'))
+  ap.add_argument('--dtype', default=None, choices=('bfloat16', 'float32'),
+                  help='float32 for trunk_bwd_f32, else bfloat16 by default')
   a = ap.parse_args()
+  a.dtype = a.dtype or ('float32' if a.lib == 'trunk_bwd_f32'
+                        else 'bfloat16')
   if not torch.cuda.is_available():
     raise SystemExit('bwd_phases: no CUDA device')
   sys.path.insert(0, os.getcwd())
@@ -205,7 +217,7 @@ def main():
   print(f'built in {time.perf_counter() - t0:.1f} s', flush=True)
   patched = lambda name: phased if name == a.lib else normal(name)
   if a.lib == 'trunk_bwd':
-    fused_mlp.tma_backward = lambda pack: False
+    fused_mlp.backward_library = lambda pack: 'trunk_bwd'
   if a.lib == 'trunk_fwd':
     fused_mlp.tma_forward = lambda pack, out_y=False: False
   forward = a.lib.startswith('trunk_fwd')

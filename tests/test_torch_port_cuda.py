@@ -7,9 +7,12 @@ directional stages) and mip-NeRF's K11 (the trunk's features out) and
 backward's weight-gradient product and its determinism, and its shapes
 past the wgmma/TMA kernels (trunk_bwd.cu's instances); the bf16 width-256
 forward on wgmma/TMA (trunk_fwd_tma.cu) in every mode it runs, its
-determinism, and its shapes past it (trunk_fwd.cu's instances); mip-NeRF
-with the spatial fuse flags; the plain layer stack and the shapes without
-an instance under fused_trunk='auto'. This
+determinism, and its shapes past it (trunk_fwd.cu's instances); the f32
+width-256 backward on FMA products fed by TMA (trunk_bwd_f32.cu) in every
+mode, its determinism, its weight-gradient product and its shapes past it
+(trunk_bwd.cu's f32 instances); mip-NeRF with the spatial fuse flags; the
+plain layer stack and the shapes without an instance under
+fused_trunk='auto'. This
 file imports no jax, so it also runs where jax is not installed; there, skip
 tests/conftest.py (it imports jax):
 
@@ -978,3 +981,150 @@ def test_bf16_forward_past_the_tma_shapes_matches_plain(dev, case):
   torch.cuda.synchronize()
   _assert_close(got, want, 'bfloat16', case,
                 n_values=len(got) - (fold is not None))
+
+
+# The f32 width-256 backward on register-blocked FMA products fed by TMA
+# (trunk_bwd_f32.cu), in every mode it runs: K4 with the cotangent of u,
+# first-order K4, K4 with K6/K7, K4 with K11's y cotangent, K5 with dx and
+# K5 with K8-K10.
+F32_BWD_CASES = ('K4', 'K4 first-order', 'K6+K7+K4', 'K11', 'K5',
+                 'K8+K9+K10')
+
+
+def _f32_backward(dev, case, n=1000, slab=256, seed=0, **shape):
+  """(pack, kernel backward, plain backward) of an f32 case on n rows in
+  slabs of `slab` (whole rays with K6); `shape` overrides _case's."""
+  gen = torch.Generator().manual_seed(seed + 1)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+  if case in ('K5', 'K5 kin 288', 'K8+K9+K10'):
+    if case == 'K8+K9+K10':
+      segs, ws, bs, head, dm, rgbx = _dir_case(dev, case, n, seed)
+      kw = dict(head_f32=head)
+    else:
+      segs, ws, bs, kw = _case('K2', dev, n, seed, **shape)
+      dm, rgbx = fused_mlp.DirModes(), None
+    pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(segs, dm),
+                                compute_dtype='float32', **kw)
+    cots = (None, rand(n, 3), None, None)
+    mode = dict(needs_dx=True, dir_modes=dm, rgbx=rgbx,
+                rgb_bar=rand(n, 3) if rgbx else None)
+    return pack, (
+        lambda: fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=slab,
+                                                **mode),
+        lambda: fused_mlp.trunk_backward_reference(
+            segs, ws, bs, cots, compute_dtype='float32', **mode, **kw))
+  if case == 'K6+K7+K4':
+    _, ws, bs, kw = _case('K1', dev, n=8, seed=seed)
+    u = lambda *s: torch.rand(*s, generator=gen).to(dev)
+    segs = [u(n, 3) * 3 - 1.5, 10.0**(u(n, 3) * 4 - 6)]
+    comp = (u(n) * 0.08 + 0.01, torch.tensor([0.5], device=dev))
+    sp = fused_mlp.SpaModes(tuple(float(s) for s in SCALES), 128)
+    pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype='float32',
+                                **kw)
+    cots = _cotangents('K1', dev, n) + (rand(n),)
+    with torch.no_grad():
+      sk = fused_mlp.trunk_kernel(segs, pack, fold, spa_modes=sp,
+                                  comp=comp)[0]
+      sr = fused_mlp.trunk_reference(segs, ws, bs, fold=fold, spa_modes=sp,
+                                     comp=comp, **kw)[0]
+    return pack, (
+        lambda: fused_mlp.trunk_backward_kernel(
+            segs, pack, cots, fold, slab=slab, spa_modes=sp,
+            comp=comp + (sk,)),
+        lambda: fused_mlp.trunk_backward_reference(
+            segs, ws, bs, cots, fold=fold, spa_modes=sp, comp=comp + (sr,),
+            **kw))
+  segs, ws, bs, kw = _case('K11' if case == 'K11' else 'K1', dev, n, seed,
+                           **shape)
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype='float32', **kw)
+  cots, f, ybar = _cotangents('K1', dev, n), fold, None
+  if case != 'K4' and not case.startswith('K4 depth'):
+    cots, f = cots[:3] + (None,), None
+  if case == 'K11':
+    cots, ybar = (cots[0], None, None, None), rand(n, 256)
+  return pack, (
+      lambda: fused_mlp.trunk_backward_kernel(segs, pack, cots, f, slab=slab,
+                                              ybar=ybar),
+      lambda: fused_mlp.trunk_backward_reference(
+          segs, ws, bs, cots, fold=f, ybar=ybar, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', F32_BWD_CASES)
+def test_f32_backward_matches_plain(dev, case):
+  # Every parameter gradient, the segments' and raw inputs' cotangents, d
+  # raw diffuse / tint and d bsig by relative L2 (GRAD_BOUND, float32); n
+  # = 1000 rows (1536 with K6's 128-sample rays) in slabs of 256 (512), so
+  # the slab accumulation and a ragged last tile run too.
+  n, slab = (1536, 512) if case == 'K6+K7+K4' else (1000, 256)
+  pack, (kernel, plain) = _f32_backward(dev, case, n, slab)
+  assert fused_mlp.backward_library(pack) == 'trunk_bwd_f32'
+  with torch.no_grad():
+    got, want = _flat(kernel()), _flat(plain())
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'float32', case, n_values=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K4', 'K5'])
+def test_f32_backward_is_deterministic(dev, case):
+  # H4: trunk_bwd_f32.cu sums its partials in a fixed order, with no float
+  # atomics: two runs on the same inputs (two slabs, several splits) give
+  # bit-identical gradients.
+  _, (kernel, _) = _f32_backward(dev, case, n=4500, slab=4096, seed=23)
+  with torch.no_grad():
+    a, b = _flat(kernel()), _flat(kernel())
+  assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K4 depth 10', 'K5 kin 288'])
+def test_f32_backward_past_the_tma_shapes_matches_plain(dev, case):
+  # An f32 width-256 trunk deeper than 8 layers or wider than 256 input
+  # columns runs trunk_bwd.cu's f32 instances (fused_mlp.backward_library);
+  # under fused_trunk='auto' it launches them, it does not go plain.
+  shape = (dict(depth=10, skip=5) if 'depth' in case
+           else dict(seg_dims=(128, 160)))
+  pack, (kernel, plain) = _f32_backward(dev, case, n=1000, slab=512,
+                                        seed=25, **shape)
+  assert fused_mlp.backward_library(pack) == 'trunk_bwd'
+  assert fused_mlp.missing_instance(pack, 128 if 'K4' in case else 0) is None
+  with torch.no_grad():
+    got, want = _flat(kernel()), _flat(plain())
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'float32', case, n_values=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['M256 N96 two', 'M256 N352 two',
+                                  'M128 N256'])
+def test_wgrad_f32_matches_matmul(dev, case):
+  # The f32 weight-gradient product (FMA, operands sample-major by TMA)
+  # against f32 matmul over 4096 samples in three splits (the last one
+  # short): the sums differ in order only, 1e-5 relative L2.
+  from refnerf_tpu_torch.ops import cuda_build
+  M, N, ncut, two = {'M256 N96 two': (256, 96, 0, True),
+                     'M256 N352 two': (256, 352, 256, True),
+                     'M128 N256': (128, 256, 256, False)}[case]
+  gen = torch.Generator().manual_seed(27)
+  rp, ks = 4096, 1536
+  f = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  z, a, x = f(rp, M), f(rp, max(ncut, 1)), f(rp, max(N - ncut, 1))
+  s, pa, tx = (f(rp, M), f(rp, max(ncut, 1)), f(rp, max(N - ncut, 1))) \
+      if two else (None, None, None)
+  out = torch.empty(-(-rp // ks), M, N, device=dev)
+  ptr = lambda t: None if t is None else t.data_ptr()
+  err = cuda_build.library('trunk_bwd_f32').refnerf_wgrad_f32(
+      0, M, N, ncut, rp, ks, ptr(z), ptr(a), ptr(x), ptr(s), ptr(pa), ptr(tx),
+      out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+  torch.cuda.synchronize()
+  assert err == 0
+  cat = lambda u, v: torch.cat(([u[:, :ncut]] if ncut else [])
+                               + ([v[:, :N - ncut]] if ncut < N else []), 1)
+  want = z.t() @ cat(a, x)
+  if two:
+    want += s.t() @ cat(pa, tx)
+  got = out.sum(0)
+  assert ((got - want).norm() / want.norm()).item() <= 1e-5

@@ -223,6 +223,48 @@ def test_backward_route_by_shape(depth, kin, cdt, tma):
   assert fused_mlp.missing_instance(pack, 128) is None
 
 
+@pytest.mark.parametrize('depth,kin,cdt,width,lib', [
+    (8, 96, 'float32', 256, 'trunk_bwd_f32'),
+    (8, 224, 'float32', 256, 'trunk_bwd_f32'),
+    (8, 256, 'float32', 256, 'trunk_bwd_f32'),
+    (9, 96, 'float32', 256, 'trunk_bwd'), (8, 288, 'float32', 256, 'trunk_bwd'),
+    (8, 192, 'float32', 128, 'trunk_bwd'),
+    (8, 96, 'bfloat16', 256, 'trunk_bwd_tma'),
+    (9, 96, 'bfloat16', 256, 'trunk_bwd'),
+    (8, 192, 'bfloat16', 128, 'trunk_bwd')])
+def test_backward_library_by_dtype_and_shape(depth, kin, cdt, width, lib):
+  # One function picks the backward's library from the dtype and shape
+  # alone, with no card: at width 256 within 8 layers and 256 input columns
+  # the wgmma/TMA kernels in bf16 and the FMA/TMA kernels in f32
+  # (trunk_bwd_f32.cu); width 128 and trunks past those shapes trunk_bwd.cu.
+  # Each has an instance, so none runs the plain versions.
+  pack = _pack(depth, kin, width, cdt)
+  assert fused_mlp.backward_library(pack) == lib
+  assert fused_mlp.tma_backward(pack) == (lib == 'trunk_bwd_tma')
+  assert fused_mlp.missing_instance(pack, 0) is None
+
+
+@pytest.mark.parametrize('sms', [132, 114, 1])
+def test_f32_weight_gradient_splits_fill_the_card(sms):
+  # trunk_bwd_f32.cu's weight-gradient product: the 128 x 128 output tiles
+  # times the splits of the samples never outnumber the SMs (one CTA an
+  # SM) and fill them once when there are samples enough; each split is a
+  # whole number of TMA stages (32 samples) and covers the rows.
+  for rp in (64, 1024, 8448, 65536):
+    for m, n in ((256, 96), (256, 256), (256, 352), (128, 256)):
+      ks = fused_mlp._wgrad_split('trunk_bwd_f32', rp, m, n, sms)
+      tiles = -(-m // 128) * -(-n // 128)
+      nsplit = -(-rp // ks)
+      assert ks % 64 == 0 and nsplit * ks >= rp and nsplit <= max(1, sms)
+      assert nsplit * tiles <= max(sms, tiles)
+      if rp == 65536 and tiles <= sms:
+        assert nsplit * tiles > sms // 2
+  assert fused_mlp._wgrad_split('trunk_bwd_tma', 65536, 256, 256, sms) == \
+      fused_mlp._KSPLIT_TMA
+  assert fused_mlp._wgrad_split('trunk_bwd', 65536, 256, 256, sms) == \
+      fused_mlp._KSPLIT
+
+
 @pytest.mark.parametrize('depth,kin,cdt,width,tma', [
     (8, 96, 'bfloat16', 256, True), (8, 224, 'bfloat16', 256, True),
     (8, 256, 'bfloat16', 256, True), (9, 96, 'bfloat16', 256, False),

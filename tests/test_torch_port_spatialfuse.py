@@ -45,6 +45,7 @@ from refnerf_tpu.models.mlp import MLP as JaxMLP
 from refnerf_tpu.ops import geopoly as jgeopoly
 from refnerf_tpu.ops import mathx as jmathx
 from refnerf_tpu.ops.pallas import fused_mlp as jfused
+from refnerf_tpu.train import losses as jlosses
 from refnerf_tpu.train import step as jstep
 from refnerf_tpu_torch import configs
 from refnerf_tpu_torch import convert
@@ -464,6 +465,52 @@ def test_train_steps_with_all_fusions_match_jax():
       moved = max(1e-12, float(np.abs(jparams[k] - before[k]).max()))
       np.testing.assert_allclose(v.detach().numpy(), jparams[k], rtol=0,
                                  atol=2e-2 * moved, err_msg=k)
+
+
+def test_f32_step_gradients_with_all_fusions_match_jax():
+  # The shipped gin's own dtype (float32, no compute_dtype binding) with the
+  # six flags: one step's loss and every parameter's gradient before the
+  # clip, the port's plain versions against jax.grad of JAX's loss_fn
+  # (make_train_step's terms; the Pallas trunks in interpret mode). The
+  # loss 1e-5 relative, each gradient 2e-4 of its largest entry, as
+  # tests/test_torch_port_train.py's test_train_step_matches_jax (the
+  # level-1 samples follow the level-0 weights, summed in another order).
+  params = _init_params(SLICE, 2)
+  jconfig, jgin = jconfigs.parse([GIN], SLICE)
+  assert jconfig.batch_size == 12
+  jmodel = jconstruct.construct_model(jconfig, jgin)
+  b = _batch_np(12, seed=2)
+  jbatch = jrays.Batch(
+      rays=jrays.dummy_rays(12).replace(**{k: jnp.asarray(v) for k, v in
+                                           b.items() if k != 'rgb'}),
+      rgb=jnp.asarray(b['rgb']))
+
+  def jloss(p):
+    renderings, hist = jmodel.apply({'params': p}, jbatch.rays,
+                                    train_frac=0.0, compute_extras=False,
+                                    train=True, rng=None)
+    data, _ = jlosses.compute_data_loss(jbatch, renderings, jbatch.rays,
+                                        jconfig)
+    return (data + jlosses.orientation_loss(jbatch.rays, 2, hist, jconfig) +
+            jlosses.predicted_normal_loss(2, hist, jconfig))
+  jl, jg = jax.jit(jax.value_and_grad(jloss))(params)
+  want = {k: v.numpy() for k, v in convert.params_to_state_dict(
+      jax.device_get(jg)).items()}
+
+  config, gin = configs.parse([GIN], SLICE)
+  model = construct.construct_model(config, gin, 'cpu')
+  for mlp in filter(None, (model.nerf_mlp, model.prop_mlp)):
+    assert mlp.cfg.compute_dtype == 'float32'
+    assert mlp.cfg.fuse_dir_enc and mlp.cfg.fuse_compositing
+  convert.load_jax_params(model, params)
+  batch = rays_lib.Batch(rays=_port_rays(b, 12), rgb=_t(b['rgb']))
+  state = step_lib.create_train_state(config, model)
+  loss, _, grads = step_lib.make_train_step(model, config).loss_and_grads(
+      state, batch)
+  np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+  assert set(grads) == set(want)
+  for k, g in grads.items():
+    _assert_grads(g, want[k], 2e-4, k)
 
 
 def test_served_request_with_all_fusions_matches_jax():
