@@ -13,13 +13,15 @@ Phases, each printed on its own line:
      bf16 width-256 forward and backward (csrc/trunk_fwd_tma.cu,
      csrc/trunk_bwd_tma.cu) holds wgmma (HGMMA) and TMA loads (UTMALDG) and
      no mma.sync (HMMA) in its SASS, and that every kernel of the f32
-     width-256 backward (csrc/trunk_bwd_f32.cu) holds FFMA and UTMALDG and
-     no tensor-core product (HMMA, HGMMA: no TF32);
+     width-256 forward and backward (csrc/trunk_fwd_f32.cu,
+     csrc/trunk_bwd_f32.cu) holds FFMA and UTMALDG and no tensor-core
+     product (HMMA, HGMMA: no TF32);
   3. hold each trunk kernel (K1 spatial, K2 directional) against its plain
      PyTorch version at the serving shape N = 4096 rays x 128 samples, in
-     float32 and bfloat16, and time both (in bf16 the wgmma/TMA forward);
-     and the bf16 directional trunk at 288 input columns, past that
-     kernel's shapes, on trunk_fwd.cu's instance;
+     float32 and bfloat16, and time both (the wgmma/TMA forward in bf16, the
+     FMA/TMA forward in f32: each case asserts its route); and the bf16
+     directional trunk at 288 input columns, past that kernel's shapes, on
+     trunk_fwd.cu's instance;
   4. build the model of configs/blender_refnerf.gin at full width (bf16
      trunks, weights from a seeded torch.Generator) and answer three
      requests: 4096 rays, 5000 rays (two chunks) and a 64x64 pinhole image;
@@ -30,9 +32,10 @@ Phases, each printed on its own line:
      density gradient) on every output and u, K4 (the spatial backward) on
      every weight and bias gradient given random cotangents of sigma, the
      heads, the bottleneck and u, K5 (the directional backward) on every
-     parameter gradient and both segment cotangents (f32 K4 and K5 on
-     csrc/trunk_bwd_f32.cu); K3, K4 and K5 in bf16, and K4 and K5 in f32,
-     run twice more and must give bit-identical outputs;
+     parameter gradient and both segment cotangents (f32 K3 on
+     csrc/trunk_fwd_f32.cu, f32 K4 and K5 on csrc/trunk_bwd_f32.cu); K3, K4
+     and K5 in bf16, and K4 and K5 in f32, run twice more and must give
+     bit-identical outputs;
   6. train the flagship at batch 4096 with bf16 trunks as bench.py drives the
      JAX step (3 warm-up steps, then 10 timed ones); check every loss term is
      finite, the parameters moved, and K2-K5 each ran levels x steps times;
@@ -41,7 +44,8 @@ Phases, each printed on its own line:
   7. hold the fused directional stages against their plain versions at the
      same N, in float32 and bfloat16, forward and backward, and time both:
      K8 (the IDE in the directional trunk), K8+K9 (with the direction
-     geometry), K10 (the colour epilogue) and all three;
+     geometry), K10 (the colour epilogue) and all three (each forward's
+     route asserted);
   8. the flagship with NerfMLP.fuse_dir_enc, fuse_dir_geo and fuse_dir_rgb:
      three served requests and 10 train steps through the kernels (K8-K10
      each counted levels times per request, twice that per step), each
@@ -54,9 +58,10 @@ Phases, each printed on its own line:
      K6+K7 on K1 (the served launch), on K3 and on K4 (the backward, with
      d bsig), and on mip-NeRF's spatial trunk (hf = 0: served, and trained
      in first-order K4); the weights within an absolute bound that two
-     faults of the scan (inclusive, no density bias) would exceed; the bf16
-     forwards of K8+K9+K10 (phase 7) and K6+K7+K3 (phase 9) run twice more
-     and must give bit-identical outputs;
+     faults of the scan (inclusive, no density bias) would exceed (each
+     forward's route asserted); the forwards of K8+K9+K10 (phase 7) and
+     K6+K7+K3 (phase 9), in both dtypes, run twice more and must give
+     bit-identical outputs;
  10. the flagship with all six fuse flags (phase 8's and
      NerfMLP.fuse_ipe_trig, fuse_compositing, fuse_lift): three served
      requests and 10 train steps through the kernels (K6 and K7 each
@@ -78,12 +83,18 @@ Phases, each printed on its own line:
      request and one step of each profiled;
  13. the flagship gin in its own float32 (no compute_dtype binding) with all
      six fuse flags, trained at batch 4096 as phase 10 (3 warm-up steps, 10
-     timed ones; K2-K10 counted, the backwards on csrc/trunk_bwd_f32.cu),
-     one more step against fused_trunk='off', and one step profiled.
+     timed ones; K2-K10 counted, the forwards on csrc/trunk_fwd_f32.cu and
+     the backwards on csrc/trunk_bwd_f32.cu, read from the profile), one
+     more step against fused_trunk='off', and one step profiled;
+ 14. the same model serving: three requests (4096 rays, 5000 rays, a 64x64
+     image) through the kernels (K1, K2, K6-K10 counted, the forwards on
+     csrc/trunk_fwd_f32.cu), the first against fused_trunk='off'; the
+     latency of 30 4096-ray requests (median, p90) and one request
+     profiled (device busy share, device time by kernel).
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8, 10, 12 and 13), its time and its
-plain version's at N, and its bound: the larger of the bytes it must move (each
-input read once, each output written once) at 3.35 TB/s and its operations
+launches on the main path (phases 4, 6, 8, 10, 12, 13 and 14), its time and
+its plain version's at N, and its bound: the larger of the bytes it must move
+(each input read once, each output written once) at 3.35 TB/s and its operations
 at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
 the fused stages' f32 work overlaps bf16 tensor work).
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
@@ -357,12 +368,26 @@ def n_heads(kw):
               if h is not None) + int(kw.get('wd') is not None))
 
 
+# The forward's library of a width-256 trunk within the wgmma/TMA and FMA/TMA
+# kernels' shapes, by compute dtype.
+FWD_ROUTE = {'bfloat16': 'trunk_fwd_tma', 'float32': 'trunk_fwd_f32'}
+
+
+def check_route(fused_mlp, which, cdt, pack, want=None, **modes):
+  """Phases 3, 5, 7, 9: the forward of `pack` (with `modes`, as
+  fused_mlp.forward_library takes them) goes to `want`, by default
+  FWD_ROUTE[cdt], or this fails."""
+  got = fused_mlp.forward_library(pack, **modes)
+  if got != (want or FWD_ROUTE[cdt]):
+    raise AssertionError(f'{which} {cdt}: the forward routed to {got}')
+
+
 def check_sass(lib, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
   """Phase 2: each kernel of a TMA library holds every instruction of
   `need` and none of `refuse` in its SASS (cuobjdump -sass), or this
   fails: the bf16 width-256 forward and backward wgmma (HGMMA) and TMA
-  loads (UTMALDG) and no mma.sync (HMMA); the f32 backward FFMA and TMA
-  loads and no tensor-core product (HMMA, HGMMA)."""
+  loads (UTMALDG) and no mma.sync (HMMA); the f32 forward and backward FFMA
+  and TMA loads and no tensor-core product (HMMA, HGMMA)."""
   tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
   sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                         text=True, check=True, timeout=300).stdout
@@ -378,8 +403,9 @@ def check_sass(lib, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
 
 
 def check_kernels(fused_mlp, dev):
-  """Phase 3: each kernel against its plain version, f32 and bf16; the
-  bf16 trunk past the wgmma/TMA forward's shapes on trunk_fwd.cu."""
+  """Phase 3: each kernel against its plain version, f32 (trunk_fwd_f32.cu)
+  and bf16 (trunk_fwd_tma.cu); the bf16 trunk past the wgmma/TMA forward's
+  shapes on trunk_fwd.cu."""
   gen = torch.Generator().manual_seed(SEED)
   results = {}
   for which in ('K1', 'K2', 'K2 kin 288'):
@@ -389,9 +415,8 @@ def check_kernels(fused_mlp, dev):
         continue
       pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
                                   compute_dtype=cdt, **kw)
-      if fused_mlp.tma_forward(pack) != (cdt == 'bfloat16' and
-                                         which != 'K2 kin 288'):
-        raise AssertionError(f'{which} {cdt}: routed to the wrong forward')
+      check_route(fused_mlp, which, cdt, pack,
+                  'trunk_fwd' if which == 'K2 kin 288' else None)
       kernel = lambda: fused_mlp.trunk_kernel(segs, pack)
       plain = lambda: fused_mlp.trunk_reference(segs, ws, bs,
                                                 compute_dtype=cdt, **kw)
@@ -496,21 +521,24 @@ def set_mode(model, **fields):
 
 
 def serve(fused_mlp, dev, bindings=(), phase=4, kernels=('K1', 'K2'),
-          gin_name=FLAGSHIP, timings=None):
-  """Phase 4 (8 with the fused directional stage, 12 with mip-NeRF): the
-  model of `gin_name` answers three requests through the kernels; each
-  kernel in `kernels` must run levels x chunks times a request, and no
-  training kernel. Then the first request again with fused_trunk='off'.
-  Returns the launches; `timings`, a dict, gets each request's ms."""
+          gin_name=FLAGSHIP, timings=None, dtype='bfloat16'):
+  """Phase 4 (8 with the fused directional stage, 12 with mip-NeRF, 14 in
+  the gin's own float32): the model of `gin_name` (trunks in `dtype`, as
+  `flagship`) answers three requests through the kernels; each kernel in
+  `kernels` must run levels x chunks times a request, and no training
+  kernel. Then the first request again with fused_trunk='off'. Returns
+  (the launches, the model and its Config); `timings`, a dict, gets each
+  request's ms."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import renderer
 
-  model, config = flagship(dev, bindings, gin_name)
+  model, config = flagship(dev, bindings, gin_name, dtype)
   levels, chunk = model.cfg.num_levels, config.render_chunk_size
   pad = model.nerf_mlp.cfg.rgb_padding
   n_params = sum(p.numel() for p in model.parameters())
-  log(f'phase {phase}: model {gin_name} {" ".join(bindings)} bf16 '
-      f'trunks, {n_params} parameters, {levels} levels x '
+  log(f'phase {phase}: model {gin_name} {" ".join(bindings)} '
+      f'{model.nerf_mlp.cfg.compute_dtype} trunks, {n_params} parameters, '
+      f'{levels} levels x '
       f'{model.cfg.num_nerf_samples} samples, chunk {chunk}')
 
   requests = [
@@ -569,7 +597,8 @@ def serve(fused_mlp, dev, bindings=(), phase=4, kernels=('K1', 'K2'),
       f'{PATH_BOUND})')
   if not (diff <= PATH_BOUND and acc_diff <= PATH_BOUND):
     raise AssertionError('kernel path disagrees with the plain path')
-  return launches
+  set_mode(model, fused_trunk='auto')
+  return launches, (model, config)
 
 
 def check_train_kernels(fused_mlp, dev):
@@ -591,6 +620,7 @@ def check_train_kernels(fused_mlp, dev):
       pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in cs],
                                   compute_dtype=cdt, **kw)
       if which == 'K3':
+        check_route(fused_mlp, which, cdt, pack, fold=fold)
         kernel = lambda: fused_mlp.trunk_kernel(cs, pack, fold)
 
         def plain():
@@ -802,6 +832,7 @@ def check_dir_kernels(fused_mlp, dev):
       pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(cs, dm),
                                   head_f32=head, compute_dtype=cdt)
       inputs = cs + pack_tensors(pack) + list(rgbx or [])
+      check_route(fused_mlp, which, cdt, pack)
       results[which, cdt] = compare(
           which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, **kw),
           lambda: fused_mlp.trunk_reference(cs, ws, bs, head_f32=head,
@@ -809,9 +840,9 @@ def check_dir_kernels(fused_mlp, dev):
           n_values=2 if rgb else 1, phase=7, inputs=inputs,
           flops=trunk_flops(ws, N_SAMPLES, 3),
           f32_flops=dir_flops(mat, ide, geo, rgb, backward=False))
-      if cdt == 'bfloat16' and which == 'K8+K9+K10':
+      if which == 'K8+K9+K10':
         deterministic(which, lambda: fused_mlp.trunk_kernel(cs, pack, **kw),
-                      phase=7)
+                      phase=7, cdt=cdt)
       results[which + ' backward', cdt] = compare(
           which + ' backward', cdt,
           lambda: fused_mlp.trunk_backward_kernel(
@@ -856,7 +887,9 @@ def in_turns(run, arms, blocks=2, reps=5):
 
 def profile(run, what, calls, phase=8):
   """One torch.profiler window over `calls` calls of run(): wall, device
-  busy and idle share, kernels launched, device time by kernel name."""
+  busy and idle share, kernels launched, device time by kernel name.
+  Returns {wall_ms, busy_ms, kernels: {name: device ms}} a call, or None
+  when the profiler saw no device time."""
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as torch_profile
   run()
@@ -875,7 +908,7 @@ def profile(run, what, calls, phase=8):
   busy = sum(dev_us(e) for e in kernels) / 1e6
   if busy <= 0:
     log(f'phase {phase}: profile {what}: the profiler saw no device time')
-    return
+    return None
   top = sorted(kernels, key=dev_us, reverse=True)[:8]
   # The trunk kernels' names with their template arguments (the instance).
   name = lambda e: e.key.replace('void ', '').replace(
@@ -885,6 +918,8 @@ def profile(run, what, calls, phase=8):
       f'{sum(e.count for e in kernels) / calls:.0f} kernel launches a call; '
       'device ms a call by kernel: ' + '; '.join(
           f'{name(e)} {dev_us(e) / 1e3 / calls:.3f}' for e in top))
+  return dict(wall_ms=wall * 1e3 / calls, busy_ms=busy * 1e3 / calls,
+              kernels={e.key: dev_us(e) / 1e3 / calls for e in kernels})
 
 
 def fused_stage(fused_mlp, dev):
@@ -893,8 +928,8 @@ def fused_stage(fused_mlp, dev):
   turns against the same model unfused."""
   from refnerf_tpu_torch.models import renderer
   from refnerf_tpu_torch.cameras import rays as rays_lib
-  serve_launches = serve(fused_mlp, dev, FUSE, phase=8,
-                         kernels=('K1', 'K2', 'K8', 'K9', 'K10'))
+  serve_launches, _ = serve(fused_mlp, dev, FUSE, phase=8,
+                            kernels=('K1', 'K2', 'K8', 'K9', 'K10'))
   per_step = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K8': 2, 'K9': 2,
               'K10': 2}
   train_launches, step_s, (model, config, state, train_step, batch) = train(
@@ -1029,6 +1064,7 @@ def check_spa_kernels(fused_mlp, dev):
       if not backward:
         # sigma and the heads are values, u a derivative, the weights
         # (after u) held by WEIGHT_BOUND.
+        check_route(fused_mlp, which, cdt, pack, fold=f, sp=sp)
         nv = 2 + int(hf > 0)
         plain = lambda: fused_mlp.trunk_reference(
             cs, ws, bs, compute_dtype=cdt, density_grad=dg, fold=f, **kws,
@@ -1041,9 +1077,9 @@ def check_spa_kernels(fused_mlp, dev):
         if comp:
           with torch.no_grad():
             weight_faults(fused_mlp, which, cdt, plain()[0], *cp)
-        if cdt == 'bfloat16' and which == 'K6+K7+K3':
+        if which == 'K6+K7+K3':
           deterministic(which, lambda: fused_mlp.trunk_kernel(
-              cs, pack, f, **kws), phase=9)
+              cs, pack, f, **kws), phase=9, cdt=cdt)
         continue
       # Cotangents of (sigma, the f32 heads, the bottleneck, u, weights);
       # the forward's sigma from each side's own forward.
@@ -1081,8 +1117,8 @@ def spatial_stage(fused_mlp, dev):
   from refnerf_tpu_torch.models import renderer
   from refnerf_tpu_torch.cameras import rays as rays_lib
   flags = FUSE + SPATIAL
-  serve_launches = serve(fused_mlp, dev, flags, phase=10,
-                         kernels=('K1', 'K2', 'K6', 'K7', 'K8', 'K9', 'K10'))
+  serve_launches, _ = serve(fused_mlp, dev, flags, phase=10,
+                            kernels=SIX_SERVED)
   train_launches, step_s, (model, config, state, train_step, batch) = train(
       fused_mlp, dev, flags, phase=10, per_step=SIX_PER_STEP)
 
@@ -1208,6 +1244,9 @@ def check_mip_kernels(fused_mlp, dev):
 
 
 NO_VIEWDIRS = ['Model.use_viewdirs = False']
+# The kernels a request of phase 10's and phase 14's model runs (all six
+# fuse flags), each levels x chunks times.
+SIX_SERVED = ('K1', 'K2', 'K6', 'K7', 'K8', 'K9', 'K10')
 # Launches a level and train step of phase 10's and phase 13's model (all six
 # fuse flags).
 SIX_PER_STEP = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K6': 2, 'K7': 2,
@@ -1228,8 +1267,9 @@ def mip_stage(fused_mlp, dev):
   out = {}
   for run, (bindings, kernels, per_step) in runs.items():
     timings = {}
-    serve_launches = serve(fused_mlp, dev, bindings, phase=12,
-                           kernels=kernels, gin_name=MIPNERF, timings=timings)
+    serve_launches, _ = serve(fused_mlp, dev, bindings, phase=12,
+                              kernels=kernels, gin_name=MIPNERF,
+                              timings=timings)
     train_launches, step_s, (model, config, state, train_step, batch) = train(
         fused_mlp, dev, bindings, phase=12, per_step=per_step,
         gin_name=MIPNERF)
@@ -1266,10 +1306,59 @@ def f32_stage(fused_mlp, dev):
   def step():
     box['state'], _ = train_step(box['state'], batch)
 
-  profile(step, 'float32 all-six train step', 2, phase=13)
+  prof = profile(step, 'float32 all-six train step', 2, phase=13)
+  f32_kernels(prof, 13, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel'))
   del model, state, train_step, batch, box
   torch.cuda.empty_cache()
   return launches, step_s
+
+
+def f32_kernels(prof, phase, need):
+  """Phases 13 and 14: the profile shows each kernel named in `need` and
+  no f32 instance of trunk_fwd.cu (the forward the FMA/TMA kernel
+  replaced), or this fails."""
+  names = list((prof or {}).get('kernels', {}))
+  missing = [k for k in need if not any(k in n for n in names)]
+  old = [n for n in names if 'trunk_fwd_kernel<float' in n]
+  if prof is None or missing or old:
+    raise AssertionError(f'phase {phase}: the f32 path ran {names}: '
+                         f'missing {missing}, trunk_fwd.cu f32 {old}')
+
+
+def f32_serve_stage(fused_mlp, dev, requests=30):
+  """Phase 14: configs/blender_refnerf.gin in its own float32 with all six
+  fuse flags serves three requests through the kernels (the forwards on
+  trunk_fwd_f32.cu) against fused_trunk='off'; then the latency of
+  `requests` 4096-ray requests and one request profiled. Returns (the
+  launches, {median_ms, p90_ms, busy_ms})."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  launches, (model, config) = serve(fused_mlp, dev, FUSE + SPATIAL, phase=14,
+                                    kernels=SIX_SERVED, dtype=None)
+  if model.nerf_mlp.cfg.compute_dtype != 'float32':
+    raise AssertionError('phase 14: the shipped gin did not serve in float32')
+  rays = random_rays(rays_lib, 4096, config, 1, dev)
+  request = lambda: renderer.render_rays(model, rays,
+                                         config.render_chunk_size)
+  times = []
+  with torch.no_grad():
+    request()
+    for _ in range(requests):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      request()
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile(request, 'float32 all-six 4096-ray request', 3, phase=14)
+  f32_kernels(prof, 14, ('trunk_fwd_f32_kernel',))
+  out = dict(median_ms=float(np.median(times)),
+             p90_ms=float(np.percentile(times, 90)), busy_ms=prof['busy_ms'])
+  log(f'phase 14: {requests} 4096-ray requests: median {out["median_ms"]:.2f} '
+      f'ms, p90 {out["p90_ms"]:.2f} ms [{min(times):.2f}, {max(times):.2f}], '
+      f'device busy {out["busy_ms"]:.2f} ms a request')
+  del model
+  torch.cuda.empty_cache()
+  return launches, out
 
 
 def main():
@@ -1303,11 +1392,11 @@ def main():
         log(f'phase 2: ptxas {line.strip()}')
   check_sass(libs['trunk_fwd_tma'])
   check_sass(libs['trunk_bwd_tma'])
-  check_sass(libs['trunk_bwd_f32'], need=('FFMA', 'UTMALDG'),
-             refuse=('HMMA', 'HGMMA'))
+  for name in ('trunk_fwd_f32', 'trunk_bwd_f32'):
+    check_sass(libs[name], need=('FFMA', 'UTMALDG'), refuse=('HMMA', 'HGMMA'))
 
   kernels = check_kernels(fused_mlp, dev)
-  launches = serve(fused_mlp, dev)
+  launches, _ = serve(fused_mlp, dev)
   kernels.update(check_train_kernels(fused_mlp, dev))
   train_launches, step_s, _ = train(fused_mlp, dev)
   kernels.update(check_dir_kernels(fused_mlp, dev))
@@ -1319,13 +1408,15 @@ def main():
   (mip_serve, mip_train, _, _), (y_serve, y_train, _, _) = (
       mip['shipped'], mip['no viewdirs'])
   f32_train, f32_step_s = f32_stage(fused_mlp, dev)
+  f32_serve, f32_request = f32_serve_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
   # bf16 at width 256: the wgmma/TMA forward and backward.
   ftma_src = 'refnerf_tpu_torch/csrc/trunk_fwd_tma.cu'
   tma_src = 'refnerf_tpu_torch/csrc/trunk_bwd_tma.cu'
-  # f32 at width 256: the FMA/TMA backward.
+  # f32 at width 256: the FMA/TMA forward and backward.
+  f32fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd_f32.cu'
   f32_src = 'refnerf_tpu_torch/csrc/trunk_bwd_f32.cu'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
   # name: (description, source, line of the TPU kernel, launches on the
@@ -1400,13 +1491,15 @@ def main():
     if src == tma_src:
       entry['f32_source'] = f32_src
     if src == ftma_src:
-      entry['f32_source'] = fwd_src
+      entry['f32_source'] = f32fwd_src
     if which in ('K6', 'K7', 'K8', 'K9', 'K10'):
       entry['bwd_source'] = tma_src
     if which in ('K6', 'K7', 'K8', 'K9', 'K10', 'K11'):
       entry['f32_bwd_source'] = f32_src
     if f32_train.get(which):
       entry['f32_train_launches'] = f32_train[which]
+    if f32_serve.get(which):
+      entry['f32_serve_launches'] = f32_serve[which]
     if which in ('K8', 'K9', 'K10', 'K11'):
       entry['serve_launches'] = (y_serve if which == 'K11'
                                  else dir_serve)[which]
@@ -1440,7 +1533,8 @@ def main():
                                            for k, v in r[3].items())
           for run, r in mip.items()) + f'; phase 13 (float32, all six): '
       f'{f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / f32_step_s:.0f} train '
-      'rays/s')
+      f'rays/s; phase 14 (float32, all six, 4096-ray requests): '
+      f'{json.dumps(f32_request)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

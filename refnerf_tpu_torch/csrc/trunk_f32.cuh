@@ -1,0 +1,193 @@
+// Building blocks of the f32 width-256 trunk kernels for Hopper
+// (trunk_fwd_f32.cu, trunk_bwd_f32.cu): register-blocked FMA products fed by
+// a TMA ring of weight slices, on k-major shared-memory tiles.
+//
+// Each product acc[64][256] = A[64][K] B[K][256] is an outer product over K:
+// each of the 256 consumer threads owns an 8 x 8 block of outputs (rows
+// R(i) = rb + i % 4 + 16 (i / 4), columns C(j) = cb + j % 4 + 32 (j / 4); a
+// warp 32 rows x 64 columns), and each k step reads its 8 values of A and of
+// B as four LDS.128 for 64 FFMA. Every operand sits with the contraction
+// index outermost ("k-major"): the activation and input tiles
+// [feature][kLD] (64 samples padded to kLD = 68 floats, so that neither an
+// epilogue's column stores nor a product's row loads conflict in the
+// banks), and the weights as slices of 16 contraction rows by 256 columns
+// (16 KB), which the producer warp loads by TMA from one tensor map a layer
+// and pack. Every product runs in full f32 on the FMA pipes (no TF32).
+
+#pragma once
+
+#include <string.h>
+
+#include "hopper_tma.cuh"
+
+namespace {
+
+constexpr int kSD = 16;                  // contraction rows of a weight slice
+constexpr int kSliceF = kSD * kW * 4;    // bytes of a [16][256] f32 slice
+constexpr int kLD = kRows + 4;           // floats a row of a k-major tile
+
+// One tensor map a layer and pack, and the ring's depth.
+struct MapsF32 {
+  CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 256 x 16
+  CUtensorMap wt[kMaxDepth];  // layer l of `wt`: [K_l][W], box 256 x 16
+  CUtensorMap wc;             // a head's pack (the backward's wc [HC][W], the
+                              // forward's wc^T [W][HC]), box 256 x 16
+  int stages;                 // of the ring
+};
+
+// A thread's 8 x 8 block: element (i, j) at row rb + R(i), column cb + C(j).
+__device__ __forceinline__ int row_of(int i) { return (i & 3) + 16 * (i >> 2); }
+__device__ __forceinline__ int col_of(int j) { return (j & 3) + 32 * (j >> 2); }
+
+using Block = float[8][8];
+
+// acc = A B over the next K / kSD slices of the ring (`ring` its generic
+// address): A's contraction rows k < n0 from the k-major tile a0, the rest
+// from a1 (the skip layer's [activation | input]). Consumer warps only.
+__device__ __forceinline__ void product(Block& acc, const float* a0, int n0, const float* a1,
+                                        int K, Ring& r, const float* ring, int rb, int cb) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int ns = K / kSD;
+  for (int s = 0; s < ns; ++s) {
+    const int k0 = s * kSD;
+    const float* a = (k0 < n0 ? a0 + k0 * kLD : a1 + (k0 - n0) * kLD) + rb;
+    const float* b = ring + r.stage * (kSD * kW) + cb;
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+#pragma unroll
+    for (int kk = 0; kk < kSD; ++kk) {
+      const float4 a0v = *reinterpret_cast<const float4*>(a + kk * kLD);
+      const float4 a1v = *reinterpret_cast<const float4*>(a + kk * kLD + 16);
+      const float4 b0v = *reinterpret_cast<const float4*>(b + kk * kW);
+      const float4 b1v = *reinterpret_cast<const float4*>(b + kk * kW + 32);
+      const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
+      const float bv[8] = {b0v.x, b0v.y, b0v.z, b0v.w, b1v.x, b1v.y, b1v.z, b1v.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * r.stage);
+    r.advance();
+  }
+}
+
+// The block into a k-major [features][kLD] tile: two 16-byte stores a column.
+__device__ __forceinline__ void put_tile(float* t, const Block& v, int rb, int cb) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float* d = t + (cb + col_of(j)) * kLD + rb;
+    *reinterpret_cast<float4*>(d) = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    *reinterpret_cast<float4*>(d + 16) = make_float4(v[4][j], v[5][j], v[6][j], v[7][j]);
+  }
+}
+
+// Loads a thread keeps in flight in the scalar loops over a tile: with one
+// CTA an SM no other warps hide their latency.
+constexpr int kBatch = 8;
+
+// The trunk input tile (trunk_common.cuh `load_input`), k-major, zero-padded
+// to kin columns and past row n.
+template <bool DIR>
+__device__ void load_input_f32(float* t, const float* x0, int d0, const float* x1, int d1,
+                               int kin, int row0, int n, const DirIn& dir) {
+  const int dide = DIR ? dir.width() : 0, total = kRows * kin;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, r = i / kin, c = i % kin, gr = row0 + r, c1 = c - d0 - dide;
+      v[u] = 0.f;
+      if (i < total && gr < n) {
+        if (c < d0)
+          v[u] = __ldg(x0 + static_cast<size_t>(gr) * d0 + c);
+        else if (c1 >= 0 && c1 < d1)
+          v[u] = __ldg(x1 + static_cast<size_t>(gr) * d1 + c1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, r = i / kin, c = i % kin;
+      if (i < total && !(DIR && c >= d0 && c - d0 - dide < 0)) t[c * kLD + r] = v[u];
+    }
+  }
+  if constexpr (DIR) {
+    if (dir.p) {  // the IDE block (trunk_common.cuh `ide_fill`), four threads a row
+      const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+      const DirSample s = load_dir(dir, row0 + r, n);
+      for (int i = q; i < dir.p; i += 4) {
+        const Harm h = ide_harmonic(dir, s.rd[0], s.rd[1], s.rd[2], i);
+        const float zpat = h.zp * expf(mul(-s.ki, __ldg(dir.sg + i)));
+        t[(d0 + i) * kLD + r] = s.live ? h.re * zpat : 0.f;
+        t[(d0 + dir.p + i) * kLD + r] = s.live ? h.im * zpat : 0.f;
+      }
+      if (dir.geo && q == 0) t[(d0 + 2 * dir.p) * kLD + r] = s.live ? s.nd : 0.f;
+    }
+  }
+}
+
+// K7: the tile's lifted means and variances staged in st (2 x [kRows][nb]
+// floats), every load in flight at once; ipe_trig then reads them by the
+// tile's row from shared memory. Ends with the consumers synchronised.
+__device__ Ipe stage_ipe(const Ipe& q, float* st, int row0, int n) {
+  const int m = kRows * q.nb;
+  for (int i = threadIdx.x; i < 2 * m; i += kCons) {
+    const int k = i < m ? i : i - m;
+    st[i] = row0 + k / q.nb < n
+                ? __ldg((i < m ? q.lm : q.lv) + static_cast<size_t>(row0) * q.nb + k) : 0.f;
+  }
+  cons_sync();
+  return Ipe{st, st + m, q.fold, q.nb};
+}
+
+// K7's input tile (trunk_common.cuh `load_ipe`), k-major, from the staged
+// lifted means and variances.
+__device__ void load_ipe_f32(float* t, const Ipe& q, int F, int kin, int row0, int n) {
+  for (int i = threadIdx.x; i < kRows * kin; i += kCons) {
+    const int r = i / kin, c = i % kin, gr = row0 + r;
+    if (gr < n && c < F) {
+      float e, sn, cs;
+      ipe_trig(q, r, c, e, sn, cs);
+      t[c * kLD + r] = mul(e, sn);
+      t[(F + c) * kLD + r] = mul(e, cs);
+    } else if (gr >= n || c >= 2 * F) {
+      t[c * kLD + r] = 0.f;
+    }
+  }
+}
+
+// A tensor map of a row-major f32 matrix [rows][cols] (row stride `ld`
+// elements) in boxes of box_rows x box_cols, unswizzled; reads past the
+// matrix give zeros. Returns false on failure.
+bool make_map_f32(CUtensorMap* map, const void* base, int cols, int rows, int ld, int box_cols,
+                  int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || base == nullptr || cols <= 0 || rows <= 0) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(float)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The per-layer tensor maps of the packs `w` ([W][K_l]) and `wt` ([K_l][W])
+// of a trunk of `depth` layers on kin input columns (the skip layer's K_l =
+// W + kin); false on failure.
+bool make_layer_maps_f32(MapsF32& m, const void* w, const void* wt, int depth, int kin, int skip) {
+  size_t off = 0;
+  bool ok = true;
+  for (int l = 0; l < depth; ++l) {
+    const int K = l == 0 ? kin : (l == skip ? kW + kin : kW);
+    ok = ok && make_map_f32(&m.w[l], static_cast<const float*>(w) + off, K, kW, K, kW, kSD) &&
+         make_map_f32(&m.wt[l], static_cast<const float*>(wt) + off, kW, K, kW, kW, kSD);
+    off += static_cast<size_t>(kW) * K;
+  }
+  return ok;
+}
+
+}  // namespace

@@ -68,6 +68,11 @@ EXPORTS = {
     'trunk_fwd_tma': {
         'refnerf_trunk_fwd_tma': _FWD_ARGS,
     },
+    # The f32 width-256 forward (FMA products, TMA): the same arguments,
+    # the head transposed.
+    'trunk_fwd_f32': {
+        'refnerf_trunk_fwd_f32': _FWD_ARGS,
+    },
     'trunk_bwd': {
         'refnerf_trunk_bwd': _BWD_ARGS,
         'refnerf_wgrad': _WGRAD_ARGS,

@@ -36,8 +36,9 @@ Both backwards are `once_differentiable`: autograd never differentiates
 through a kernel, and the second-order terms of u come out of the one
 backward pass, as in the Pallas contract.
 
-Kernels (`csrc/trunk_fwd_tma.cu` or `csrc/trunk_fwd.cu` by shape,
-`tma_forward`: K1-K3, K6-K10, and K11 in trunk_fwd.cu;
+Kernels (`csrc/trunk_fwd_tma.cu` (bf16), `csrc/trunk_fwd_f32.cu` (f32) or
+`csrc/trunk_fwd.cu` by dtype and shape, `forward_library`: K1-K3, K6-K10,
+and K11 in trunk_fwd.cu;
 `csrc/trunk_bwd_tma.cu` (bf16), `csrc/trunk_bwd_f32.cu` (f32) or
 `csrc/trunk_bwd.cu` by dtype and shape, `backward_library`: K4-K11), at
 width 256 and,
@@ -87,14 +88,17 @@ BWD_SLAB = 65536
 # (`_wgrad_split`): as many splits as fill the card's SMs once.
 _KSPLIT = 1024
 _KSPLIT_TMA = 2048
-# The trunk_fwd_tma.cu, trunk_bwd_tma.cu and trunk_bwd_f32.cu kernels take
-# at most this many layers (a tensor map a layer in the launch's
-# parameters) and input columns (one input tile), the forward also at most
-# _TMA_HEADS f32 heads (their partial sums in shared memory); a width-256
-# trunk past them runs trunk_fwd.cu's and trunk_bwd.cu's instances.
+# The trunk_fwd_tma.cu, trunk_fwd_f32.cu, trunk_bwd_tma.cu and
+# trunk_bwd_f32.cu kernels take at most this many layers (a tensor map a
+# layer in the launch's parameters) and input columns (one input tile), the
+# forwards also at most _TMA_HEADS f32 heads; a width-256 trunk past them
+# runs trunk_fwd.cu's and trunk_bwd.cu's instances.
 _TMA_DEPTH = 8
 _TMA_KIN = 256
 _TMA_HEADS = 16
+# Shared memory a CTA may use on an H100 (227 KB): a launch that needs more
+# is refused by its C entry (cudaErrorInvalidConfiguration).
+SMEM_LIMIT = 232448
 
 # Launches through the wrappers, by kernel: K1 spatial forward, K2
 # directional forward, K3 spatial forward with the density gradient, K4
@@ -808,7 +812,9 @@ def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
   spatial trunk at width 256 without the compute-dtype head, the density
   gradient (K3) or a fused stage (K6-K10). Width 128 runs only the plain
   directional trunk (K2, K5): no density head, density gradient or fused
-  stage."""
+  stage. An instance whose launch needs more shared memory than SMEM_LIMIT
+  (`kernel_smem` of the forward's and the backward's library) does not run
+  the trunk either."""
   fused = (('the density gradient (K3)', fold is not None),
            ('the compositing weights (K6)', sp.samples),
            ('the in-kernel IPE (K7)', sp.scales),
@@ -829,6 +835,14 @@ def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
     return (f'no trunk kernel instance for width {pack.width} and '
             f'compute-dtype head {hc} (built: width 256, head 0 or 128; '
             'width 128, head 0)')
+  for lib in (forward_library(pack, y, fold, sp), backward_library(pack)):
+    need = kernel_smem(lib, pack, hc, fold, sp)
+    if need is not None and need > SMEM_LIMIT:
+      return (f'{lib}.cu needs {need} B of shared memory a CTA for the '
+              f'{pack.compute_dtype} trunk of depth {pack.depth} on '
+              f'{pack.kin} input columns' +
+              (' with the density gradient' if fold is not None else '') +
+              f', past the {SMEM_LIMIT} B of an H100')
   return None
 
 
@@ -841,13 +855,81 @@ def _instance_guard(pack: TrunkPack, hc, fold, dm: DirModes, sp: SpaModes,
     raise NotImplementedError(why)
 
 
+def _k7_basis(pack: TrunkPack, sp: SpaModes) -> int:
+  """K7's basis vectors (the lifted means' width), 0 without K7."""
+  return pack.seg_dims[0] // len(sp.scales) if sp.scales else 0
+
+
+def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
+                sp: SpaModes = SpaModes()) -> Optional[int]:
+  """The dynamic shared memory (bytes) that library `lib`'s launch asks for
+  to run `pack` in the modes given (the density gradient with `fold`, K6
+  and K7 by `sp`), mirroring the sum of its C launch; the libraries whose
+  ring adapts give the bytes at the deepest ring that fits, or at their
+  shallowest ring, past SMEM_LIMIT, when none does. None for
+  trunk_fwd_tma.cu and trunk_bwd_tma.cu: within their shapes (8 layers,
+  256 input columns, 16 f32 heads) their largest sums (228,904 B: K3 with
+  K6 on 1,024-row rays at the 2-stage ring; 223,624 B) fit."""
+  W, kin, L = pack.width, pack.kin, pack.depth
+  hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  dg = fold is not None
+  tiles = ray_rows(sp.samples) // _TILE if sp.samples else 1
+  sraw = 4 * tiles * _TILE if sp.samples else 0
+  t = 2 if pack.compute_dtype == 'bfloat16' else 4
+  pad, ld = 16 // t, _TILE + 4
+
+  def ring(rest, lo, hi, stage=16 * 256 * 4):  # [16][256] f32 slices
+    fit = (SMEM_LIMIT - rest) // stage if rest < SMEM_LIMIT else 0
+    return rest + max(lo, min(fit, hi)) * stage
+
+  if lib == 'trunk_fwd':  # trunk_fwd.cu `launch`
+    s = t * (_TILE * (W + pad) + _TILE * (kin + pad) +
+             2 * max(W, hc) * (_KS + pad))
+    if dg:
+      s += 4 * (L * _TILE * (W // 32) + _TILE * kin)
+    return s + sraw
+  if lib == 'trunk_fwd_f32':  # trunk_fwd_f32.cu `fwd_f32_smem`
+    rest = (1024 + 4 * (W + kin) * ld +
+            (8 * L * 256 + 4 * kin * ld if dg else 0) +
+            4 * (4 * 4 * _TILE + 3 * _TILE) + sraw + 8 + 16 * 8)
+    return ring(rest, 2, 8)
+  nb = int(fold.shape[1]) if dg else _k7_basis(pack, sp)
+  if lib == 'trunk_bwd':  # trunk_bwd.cu `launch_bwd`
+    return (t * (_TILE * (W + pad) + _TILE * (kin + pad) + 2 * W * (_KS + pad))
+            + 4 * (L * _TILE * (W // 32) + _TILE * (1 + hf + nb)))
+  if lib == 'trunk_bwd_f32':  # trunk_bwd_f32.cu `f32_smem`
+    rest = (1024 + 4 * (W + kin) * ld + 8 * L * 256 + 4 * 2 * W +
+            4 * _TILE * (1 + hf + nb) + 8 + 16 * 8)
+    return ring(rest, 4, 8)
+  return None
+
+
+def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
+                    sp: SpaModes = SpaModes()) -> str:
+  """The library whose kernel runs the forward of `pack`, decided from its
+  dtype, shape and modes alone, before anything is built or launched: at
+  width 256 within `_TMA_DEPTH` layers, `_TMA_KIN` input columns and
+  `_TMA_HEADS` f32 heads, without K11's y, 'trunk_fwd_tma' (bf16: wgmma fed
+  by TMA) or 'trunk_fwd_f32' (f32: register-blocked FMA products fed by
+  TMA, where its shared memory holds the trunk: K3 on at most 192 input
+  columns); every other shape with an instance 'trunk_fwd'."""
+  hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  if (pack.width != 256 or pack.depth > _TMA_DEPTH or pack.kin > _TMA_KIN or
+      hf > _TMA_HEADS or out_y):
+    return 'trunk_fwd'
+  if pack.compute_dtype == 'bfloat16':
+    return 'trunk_fwd_tma'
+  # trunk_fwd_f32.cu stages K7's lifted means and variances in 4 KB.
+  fits = (kernel_smem('trunk_fwd_f32', pack, 0, fold, sp) <= SMEM_LIMIT and
+          _k7_basis(pack, sp) <= 8)
+  return 'trunk_fwd_f32' if fits else 'trunk_fwd'
+
+
 def tma_forward(pack: TrunkPack, out_y: bool = False) -> bool:
   """Whether the forward of `pack` runs trunk_fwd_tma.cu's kernel (bf16 at
   width 256, within `_TMA_DEPTH` layers, `_TMA_KIN` input columns and
-  `_TMA_HEADS` f32 heads, without K11's y) rather than trunk_fwd.cu's;
-  decided from the shape alone."""
-  hf = 0 if pack.wh is None else int(pack.wh.shape[0])
-  return tma_backward(pack) and hf <= _TMA_HEADS and not out_y
+  `_TMA_HEADS` f32 heads, without K11's y: `forward_library`)."""
+  return forward_library(pack, out_y) == 'trunk_fwd_tma'
 
 
 def backward_library(pack: TrunkPack) -> str:
@@ -1086,8 +1168,9 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
                  dir_modes: Optional[DirModes] = None, rgbx=None,
                  spa_modes: Optional[SpaModes] = None, comp=None,
                  out_y: bool = False):
-  """Launch the CUDA forward kernel (trunk_fwd_tma.cu's or trunk_fwd.cu's:
-  `tma_forward`); outputs as `trunk_reference` returns them with `fold`
+  """Launch the CUDA forward kernel (trunk_fwd_tma.cu's, trunk_fwd_f32.cu's
+  or trunk_fwd.cu's: `forward_library`); outputs as `trunk_reference`
+  returns them with `fold`
   ([F, nb] f32, two IPE segments): the density gradient comes out folded,
   u [n, nb] f32 (K3). `dir_modes` and `rgbx` (K8-K10), `spa_modes` and
   `comp` (K6, K7), `out_y` (K11) as for trunk_reference."""
@@ -1095,13 +1178,12 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
   sp = spa_modes or SpaModes()
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
   _instance_guard(pack, hc, fold, dm, sp, out_y)
-  lib = _library('trunk_fwd', pack, hc)
-  # wgmma and TMA (`tma_forward`), else mma.sync: the same arguments.
-  if tma_forward(pack, out_y):
-    from refnerf_tpu_torch.ops import cuda_build
-    fwd_fn = cuda_build.library('trunk_fwd_tma').refnerf_trunk_fwd_tma
-  else:
-    fwd_fn = lib.refnerf_trunk_fwd
+  # By dtype and shape (`forward_library`): trunk_fwd_tma.cu (bf16) and
+  # trunk_fwd_f32.cu (f32) take trunk_fwd.cu's arguments; trunk_fwd_f32.cu
+  # reads the head transposed.
+  route = forward_library(pack, out_y, fold, sp)
+  fwd_fn = getattr(_library(route, pack, hc), f'refnerf_{route}')
+  head = pack.wct if route == 'trunk_fwd_f32' else pack.wc
   cdt = DTYPES[pack.compute_dtype]
   ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
   dev, n, d0, d1 = segs[0].device, int(segs[0].shape[0]), ki.d0, ki.d1
@@ -1130,7 +1212,7 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
         _ptr(ki.x0), d0, _ptr(ki.x1), d1,
         n, pack.kin, pack.depth, pack.skip, _ptr(pack.w), _ptr(pack.wt),
         _ptr(pack.b), _ptr(pack.wd), _ptr(pack.wh), _ptr(pack.bh), hf,
-        _ptr(pack.wc), _ptr(pack.bc), _ptr(fold), nb or 0, _ptr(sig),
+        _ptr(head), _ptr(pack.bc), _ptr(fold), nb or 0, _ptr(sig),
         _ptr(hout), _ptr(cout), _ptr(u), _ptr(ki.g), _ptr(ki.v), _ptr(ki.k),
         ki.p, ki.lmax, int(ki.geo), _ptr(mat), _ptr(sg), _ptr(gm),
         _ptr(rawd), _ptr(rawt), _ptr(rgb), premult, rbias, pad,

@@ -19,12 +19,13 @@ check_dir_kernels and phase 9's check_spa_kernels time K5 with K8-K10 and K4
 with K6/K7). `serve_requests`, `train_steps`, `forward_kernels` and
 `backward_kernels` are this tool's own, the same code in every checkout: in
 `serve_requests` phase 10's model (all six fuse flags) and phase 12's two
-mip-NeRF models each answer a 4096-ray request, timed on the host clock under fused_trunk='auto'
-("kernel") and 'off' ("plain"), with one request's device-busy time from
-torch.profiler; in `train_steps` phase 10's model takes train steps at
-batch 4096 the same way, its trunks in --dtype (bfloat16 by default;
-float32 is the gin's own, phase 13's); `forward_kernels` holds every bf16
-forward case of phases 3, 5, 7, 9 and 11 against its plain version
+mip-NeRF models, their trunks in --dtype (bfloat16 by default; float32 is
+the gins' own, phase 14's), each answer a 4096-ray request, timed on the
+host clock under fused_trunk='auto' ("kernel") and 'off' ("plain"), with
+one request's device-busy time from torch.profiler; in `train_steps` phase
+10's model takes train steps at batch 4096 the same way, its trunks in
+--dtype (float32: phase 13's); `forward_kernels` holds every forward case
+of phases 3, 5, 7, 9 and 11 in --dtype against its plain version
 (chip_smoke.compare) without their backward cases, `backward_kernels`
 every backward case of phases 5, 7, 9 and 11 in --dtype without their
 forward cases. Each run's output goes to --out.
@@ -61,13 +62,14 @@ for check in CHECKS:
 
 
 def serve_requests(fused_mlp, dev, reps=15, reps_off=3):
-  """Phase 10's and phase 12's models, each answering one 4096-ray request
-  `reps` times under fused_trunk='auto' and `reps_off` times under 'off'
-  after a warm-up of each; prints the median wall ms of each and the
-  device-busy ms of one 'auto' request, in chip_smoke's line format. Run
-  in a checkout's root, with its chip_smoke imported: it uses only what
-  every checkout's chip_smoke has (flagship, random_rays, set_mode and the
-  binding lists)."""
+  """Phase 10's and phase 12's models (trunks in the run's DTYPE), each
+  answering one 4096-ray request `reps` times under fused_trunk='auto' and
+  `reps_off` times under 'off' after a warm-up of each; prints the median
+  wall ms of each and the device-busy ms of one 'auto' request, in
+  chip_smoke's line format. Run in a checkout's root, with its chip_smoke
+  imported: it uses only what every checkout's chip_smoke has (flagship,
+  random_rays, set_mode and the binding lists; its bf16 binding is
+  overridden by a later one)."""
   import statistics
   import time
   import torch
@@ -81,7 +83,10 @@ def serve_requests(fused_mlp, dev, reps=15, reps_off=3):
             ('phase 12', 'mip-NeRF no viewdirs', chip_smoke.MIPNERF,
              chip_smoke.NO_VIEWDIRS))
   for phase, name, gin, bindings in models:
-    model, config = chip_smoke.flagship(dev, bindings, gin)
+    model, config = chip_smoke.flagship(
+        dev, bindings + [f"NerfMLP.compute_dtype = '{DTYPE}'"], gin)
+    if model.nerf_mlp.cfg.compute_dtype != DTYPE:
+      raise AssertionError(f'serve_requests: the model is not in {DTYPE}')
     rays = chip_smoke.random_rays(rays_lib, 4096, config, 1, dev)
     request = lambda: renderer.render_rays(model, rays,
                                            config.render_chunk_size)
@@ -107,7 +112,7 @@ def serve_requests(fused_mlp, dev, reps=15, reps_off=3):
                        getattr(e, 'self_cuda_time_total', 0))
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    print(f'{phase}: request {name} bfloat16 N=4096: kernel '
+    print(f'{phase}: request {name} {DTYPE} N=4096: kernel '
           f'{wall["auto"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
           f'{busy:.3f} ms', flush=True)
     del model
@@ -166,14 +171,14 @@ def train_steps(fused_mlp, dev, reps=10, reps_off=2):
 
 
 def forward_kernels(fused_mlp, dev):
-  """Every bf16 forward case of chip_smoke's phases 3 (K1, K2), 5 (K3), 7
-  (K8, K8+K9, K10, all three), 9 (K7, K7+K3, K6+K7, K6+K3, K6+K7+K3) and 11
-  (K1 hf=0) against its plain version at chip_smoke's N, through
-  chip_smoke.compare (which prints each case's kernel and plain ms). Uses
-  only what every checkout's chip_smoke has."""
+  """Every forward case of chip_smoke's phases 3 (K1, K2), 5 (K3), 7 (K8,
+  K8+K9, K10, all three), 9 (K7, K7+K3, K6+K7, K6+K3, K6+K7+K3) and 11 (K1
+  hf=0) in the run's DTYPE against its plain version at chip_smoke's N,
+  through chip_smoke.compare (which prints each case's kernel and plain
+  ms). Uses only what every checkout's chip_smoke has."""
   import torch
   import chip_smoke as cs
-  cdt = 'bfloat16'
+  cdt = DTYPE
   bf = fused_mlp.DTYPES[cdt]
   n = cs.N_SAMPLES
   gen = torch.Generator().manual_seed(cs.SEED)
@@ -446,7 +451,8 @@ def main():
                   help='chip_smoke functions a run calls, comma-separated')
   ap.add_argument('--dtype', default='bfloat16',
                   choices=('bfloat16', 'float32'),
-                  help="train_steps' trunks")
+                  help="the trunks of serve_requests, train_steps, "
+                  'forward_kernels and backward_kernels')
   a = ap.parse_args()
   arms = {k: pathlib.Path(v).resolve()
           for k, v in (s.split('=', 1) for s in a.arm)}

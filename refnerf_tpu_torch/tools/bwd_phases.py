@@ -3,8 +3,8 @@
 From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
     python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
-        [--lib trunk_bwd_tma|trunk_bwd_f32|trunk_bwd|trunk_fwd_tma|trunk_fwd] \
-        [--dtype float32]
+        [--lib trunk_bwd_tma|trunk_bwd_f32|trunk_bwd|trunk_fwd_tma|
+               trunk_fwd_f32|trunk_fwd] [--dtype float32]
 
 Builds a trunk library a second time with -DREFNERF_PHASES (its own file
 in build/, never loaded on the main path): by default the bf16 width-256
@@ -15,8 +15,11 @@ then also run the width-256 flagship shapes (fused_mlp.backward_library
 is patched to send every shape there): the design that trunk_bwd_tma.cu
 (bf16) and trunk_bwd_f32.cu (--dtype float32) replaced. Likewise
 for the forward: --lib trunk_fwd_tma the bf16 width-256 forward of
-csrc/trunk_fwd_tma.cu, --lib trunk_fwd the mma.sync forward of
-csrc/trunk_fwd.cu (fused_mlp.tma_forward patched to refuse every shape).
+csrc/trunk_fwd_tma.cu, --lib trunk_fwd_f32 the f32 width-256 forward of
+csrc/trunk_fwd_f32.cu (float32 by default), --lib trunk_fwd the mma.sync /
+FMA forward of csrc/trunk_fwd.cu (fused_mlp.forward_library patched to send
+every shape there: the design that trunk_fwd_tma.cu (bf16) and
+trunk_fwd_f32.cu (--dtype float32) replaced).
 Thread 0 of every CTA of the per-tile kernel adds the clock64() cycles of
 each segment, closed by a barrier, to a (phase, kind) sum; kinds are the
 products, the scalar passes and the stores (the backward's scratch, the
@@ -192,11 +195,12 @@ def main():
   ap.add_argument('--out', default='chiprun_out/phases')
   ap.add_argument('--lib', default='trunk_bwd_tma',
                   choices=('trunk_bwd_tma', 'trunk_bwd_f32', 'trunk_bwd',
-                           'trunk_fwd_tma', 'trunk_fwd'))
+                           'trunk_fwd_tma', 'trunk_fwd_f32', 'trunk_fwd'))
   ap.add_argument('--dtype', default=None, choices=('bfloat16', 'float32'),
-                  help='float32 for trunk_bwd_f32, else bfloat16 by default')
+                  help='float32 for the *_f32 libraries, else bfloat16 by '
+                  'default')
   a = ap.parse_args()
-  a.dtype = a.dtype or ('float32' if a.lib == 'trunk_bwd_f32'
+  a.dtype = a.dtype or ('float32' if a.lib.endswith('_f32')
                         else 'bfloat16')
   if not torch.cuda.is_available():
     raise SystemExit('bwd_phases: no CUDA device')
@@ -219,7 +223,7 @@ def main():
   if a.lib == 'trunk_bwd':
     fused_mlp.backward_library = lambda pack: 'trunk_bwd'
   if a.lib == 'trunk_fwd':
-    fused_mlp.tma_forward = lambda pack, out_y=False: False
+    fused_mlp.forward_library = lambda pack, *modes, **kw: 'trunk_fwd'
   forward = a.lib.startswith('trunk_fwd')
   phases = FWD_PHASES if forward else PHASES
   kernels = FWD_KERNELS if forward else KERNELS

@@ -870,31 +870,34 @@ SCALES32 = 2.0**(np.arange(32) % 16)
 
 
 def _tma_fwd_case(dev, case):
+  return _fwd_case(dev, case, 'bfloat16')
+
+
+def _fwd_case(dev, case, cdt):
   """(kernel, plain, pack, n_values, weights): the forward of `case` in
-  bf16 through trunk_kernel and trunk_reference; outputs before n_values
+  `cdt` through trunk_kernel and trunk_reference; outputs before n_values
   are values, the one at `weights` (or None) K6's weights, the rest u."""
-  bf = fused_mlp.DTYPES['bfloat16']
+  bf = fused_mlp.DTYPES[cdt]
   gen = torch.Generator().manual_seed(14)
   rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
-  if case == 'K8+K9+K10':
+  if case in DIR_CASES:
     segs, ws, bs, head, dm, rgbx = _dir_case(dev, case)
-    segs = [s if 1 <= j < 1 + dm.n_raw() else s.to(bf)
+    segs = [s if dm.ide_deg and 1 <= j < 1 + dm.n_raw() else s.to(bf)
             for j, s in enumerate(segs)]
     pack = fused_mlp.pack_trunk(ws, bs, fused_mlp.visible_dims(segs, dm),
-                                head_f32=head, compute_dtype='bfloat16')
+                                head_f32=head, compute_dtype=cdt)
     kw = dict(dir_modes=dm, rgbx=rgbx)
     return (lambda: fused_mlp.trunk_kernel(segs, pack, **kw),
             lambda: fused_mlp.trunk_reference(segs, ws, bs, head_f32=head,
-                                              compute_dtype='bfloat16', **kw),
-            pack, 2, None)
+                                              compute_dtype=cdt, **kw),
+            pack, 1 + (rgbx is not None), None)
   if case == 'K2':
     segs, ws, bs, kw = _case('K2', dev, seed=15)
     segs = [s.to(bf) for s in segs]
-    pack = fused_mlp.pack_trunk(ws, bs, (128, 73), compute_dtype='bfloat16',
-                                **kw)
+    pack = fused_mlp.pack_trunk(ws, bs, (128, 73), compute_dtype=cdt, **kw)
     return (lambda: fused_mlp.trunk_kernel(segs, pack),
             lambda: fused_mlp.trunk_reference(
-                segs, ws, bs, compute_dtype='bfloat16', **kw), pack, 1, None)
+                segs, ws, bs, compute_dtype=cdt, **kw), pack, 1, None)
   wide = 'F128' in case
   nb, scales = (4, SCALES32) if wide else (3, SCALES)
   samples = 128 if 'K6' in case else 0
@@ -917,12 +920,12 @@ def _tma_fwd_case(dev, case):
   fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(scales, nb), device=dev)
           if dg else None)
   f = nb * len(scales)
-  pack = fused_mlp.pack_trunk(ws, bs, (f, f), compute_dtype='bfloat16', **kw)
+  pack = fused_mlp.pack_trunk(ws, bs, (f, f), compute_dtype=cdt, **kw)
   kws = dict(spa_modes=sp, comp=comp)
   nv = 1 + (kw['head_f32'] is not None) + (kw['head_cdt'] is not None)
   return (lambda: fused_mlp.trunk_kernel(segs, pack, fold, **kws),
           lambda: fused_mlp.trunk_reference(
-              segs, ws, bs, compute_dtype='bfloat16', density_grad=dg,
+              segs, ws, bs, compute_dtype=cdt, density_grad=dg,
               fold=fold, **kws, **kw),
           pack, nv, nv + dg if samples else None)
 
@@ -1128,3 +1131,168 @@ def test_wgrad_f32_matches_matmul(dev, case):
     want += s.t() @ cat(pa, tx)
   got = out.sum(0)
   assert ((got - want).norm() / want.norm()).item() <= 1e-5
+
+
+# The f32 width-256 forward on register-blocked FMA products fed by TMA
+# (csrc/trunk_fwd_f32.cu, chosen by fused_mlp.forward_library), in every
+# mode it runs: the flagship's spatial trunk with and without its f32 heads
+# and bottleneck (K1, K1 hf=0 as mip-NeRF's, K3, K3 hc=0), with K7 and K6
+# (rays of 128 samples: two tiles a CTA), and its directional trunk (K2)
+# alone and with K8, K8+K9, K10 and all three.
+F32_FWD_CASES = ('K1', 'K1 hf=0', 'K3', 'K3 hc=0', 'K7', 'K6+K7', 'K6+K7+K3',
+                 'K2', 'K8', 'K8+K9', 'K10', 'K8+K9+K10')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', F32_FWD_CASES)
+def test_f32_forward_matches_plain(dev, case):
+  # Values (sigma, the heads, the bottleneck, rgb) by BOUND, u by GRAD_BOUND,
+  # K6's weights by WEIGHT_BOUND, all float32; each case routes to
+  # trunk_fwd_f32.cu.
+  kernel, plain, pack, nv, weights = _fwd_case(dev, case, 'float32')
+  assert fused_mlp.forward_library(pack) == 'trunk_fwd_f32'
+  with torch.no_grad():
+    got, want = kernel(), plain()
+  torch.cuda.synchronize()
+  if weights is not None:
+    err = (got[weights] - want[weights]).abs().max().item()
+    assert err <= WEIGHT_BOUND['float32'], (case, err)
+    got, want = got[:weights], want[:weights]
+  _assert_close(got, want, 'float32', case, n_values=nv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K1', 'K6+K7+K3', 'K8+K9+K10'])
+def test_f32_forward_is_deterministic(dev, case):
+  # The heads sum in a fixed order (no atomics): two runs on the same inputs
+  # give bit-identical outputs.
+  kernel = _fwd_case(dev, case, 'float32')[0]
+  with torch.no_grad():
+    a, b = kernel(), kernel()
+  assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K1 depth 10', 'K3 depth 10',
+                                  'K2 kin 288'])
+def test_f32_forward_past_its_shapes_matches_plain(dev, case):
+  # An f32 width-256 trunk deeper than 8 layers or wider than 256 input
+  # columns runs trunk_fwd.cu's f32 instances (fused_mlp.forward_library);
+  # under fused_trunk='auto' it launches them, it does not go plain.
+  which = 'K2' if case.startswith('K2') else 'K1'
+  shape = (dict(depth=10, skip=5) if 'depth' in case
+           else dict(seg_dims=(128, 160)))
+  segs, ws, bs, kw = _case(which, dev, seed=18, **shape)
+  fold = (torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, 3), device=dev)
+          if case.startswith('K3') else None)
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype='float32', **kw)
+  assert fused_mlp.forward_library(pack, fold=fold) == 'trunk_fwd'
+  assert fused_mlp.missing_instance(pack, 128 if which == 'K1' else 0,
+                                    fold) is None
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack, fold)
+    want = fused_mlp.trunk_reference(segs, ws, bs,
+                                     density_grad=fold is not None, fold=fold,
+                                     **kw)
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'float32', case,
+                n_values=len(got) - (fold is not None))
+
+
+def _k3_trunk(dev, F, n=1000, seed=19):
+  """The flagship's spatial trunk (f32) on 2F input columns of the IPE of
+  4 basis vectors, with the density gradient's fold: (segs, ws, bs, kw,
+  fold, pack)."""
+  scales = 2.0**(np.arange(F // 4) % 16)
+  gen = torch.Generator().manual_seed(seed)
+  rand = lambda *s: torch.rand(*s, generator=gen).to(dev)
+  _, ws, bs, kw = _case('K1', dev, n=8, seed=seed, seg_dims=(F, F))
+  segs = list(fused_mlp.encode_ipe(rand(n, 4) * 3 - 1.5,
+                                   10.0**(rand(n, 4) * 4 - 6), scales))
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(scales, 4), device=dev)
+  pack = fused_mlp.pack_trunk(ws, bs, (F, F), compute_dtype='float32', **kw)
+  return segs, ws, bs, kw, fold, pack
+
+
+# (library, trunk): launches at the edge of each library's shared memory,
+# as fused_mlp.kernel_smem counts it: trunk_bwd.cu's f32 K5 at 288 input
+# columns (exactly the 232,448 B limit) and at 320 (past it, F5); K3 at 192
+# and 224 input columns on trunk_fwd_f32.cu (two ring stages, and none) and
+# on trunk_fwd.cu (past the limit at 224).
+SMEM_CASES = ('trunk_bwd K5 kin 288', 'trunk_bwd K5 kin 320',
+              'trunk_fwd_f32 K3 kin 192', 'trunk_fwd_f32 K3 kin 224',
+              'trunk_fwd K3 kin 96', 'trunk_fwd K3 kin 224')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', SMEM_CASES)
+def test_shared_memory_sums_match_the_launches(dev, monkeypatch, case):
+  # Pins fused_mlp.kernel_smem to the C side: with the route forced and the
+  # instance guard off, a launch is refused (cudaErrorInvalidConfiguration)
+  # exactly when the mirrored sum passes SMEM_LIMIT; one that runs matches
+  # its plain version.
+  lib, which, _, kin = case.split()
+  kin = int(kin)
+  monkeypatch.setattr(fused_mlp, 'missing_instance', lambda *a, **k: None)
+  if which == 'K5':
+    segs, ws, bs, kw = _case('K2', dev, seed=20, seg_dims=(128, kin - 128))
+    pack = fused_mlp.pack_trunk(ws, bs, (128, kin - 128),
+                                compute_dtype='float32', **kw)
+    need = fused_mlp.kernel_smem(lib, pack, 0)
+    monkeypatch.setattr(fused_mlp, 'backward_library', lambda pack: lib)
+    cots = (None, torch.randn(1000, 3, device=dev), None, None)
+    run = lambda: _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots,
+                                                        needs_dx=True))
+    plain = lambda: _flat(fused_mlp.trunk_backward_reference(
+        segs, ws, bs, cots, needs_dx=True, **kw))
+    nv = 0
+  else:
+    segs, ws, bs, kw, fold, pack = _k3_trunk(dev, kin // 2)
+    need = fused_mlp.kernel_smem(lib, pack, 128, fold)
+    monkeypatch.setattr(fused_mlp, 'forward_library', lambda *a: lib)
+    run = lambda: fused_mlp.trunk_kernel(segs, pack, fold)
+    plain = lambda: fused_mlp.trunk_reference(segs, ws, bs, density_grad=True,
+                                              fold=fold, **kw)
+    nv = 3
+  if kin == 288:
+    assert need == fused_mlp.SMEM_LIMIT
+  with torch.no_grad():
+    if need > fused_mlp.SMEM_LIMIT:
+      with pytest.raises(RuntimeError, match='cudaError 9'):
+        run()
+      return
+    got, want = run(), plain()
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'float32', case, n_values=nv)
+
+
+@pytest.mark.cuda
+def test_f32_trunk_past_shared_memory_runs_plain_under_auto(dev):
+  # F5: the f32 directional trunk on 320 input columns needs more shared
+  # memory in trunk_bwd.cu than an H100 has; under fused_trunk='auto' it
+  # runs the plain versions (missing_instance names it) and its outputs and
+  # gradients match fused_trunk='off'; under 'on' it raises before any
+  # launch.
+  segs, ws, bs, kw = _case('K2', dev, seed=21, seg_dims=(128, 192))
+  pack = fused_mlp.pack_trunk(ws, bs, (128, 192), compute_dtype='float32',
+                              **kw)
+  assert 'trunk_bwd.cu' in fused_mlp.missing_instance(pack, 0)
+  gen = torch.Generator().manual_seed(22)
+  cot = torch.randn(1000, 3, generator=gen).to(dev)
+  leaves = [t.clone().requires_grad_() for t in segs + ws + bs]
+
+  def run(mode):
+    xs = [t.detach().clone().requires_grad_() for t in leaves]
+    s, w, b = xs[:2], xs[2:2 + len(ws)], xs[2 + len(ws):]
+    out = fused_mlp.fused_trunk(s, w, b, kw['head_f32'],
+                                compute_dtype='float32', mode=mode)
+    (out * cot).sum().backward()
+    return [out.detach()] + [x.grad for x in xs]
+
+  before = dict(fused_mlp.launches)
+  got, want = run('auto'), run('off')
+  assert fused_mlp.launches == before
+  _assert_close(got, want, 'float32', 'kin 320', n_values=1)
+  with pytest.raises(NotImplementedError, match='trunk_bwd.cu'):
+    run('on')

@@ -201,11 +201,12 @@ def test_plain_ipe_matches_jax(deg):
     assert np.abs(fused.numpy() - want).max() > 1e-4
 
 
-def _pack(depth, kin, width=256, cdt='bfloat16'):
+def _pack(depth, kin, width=256, cdt='bfloat16', hf=0):
   ws = [torch.zeros(width, kin if l == 0 else width) for l in range(depth)]
   bs = [torch.zeros(width) for _ in range(depth)]
+  head = (torch.zeros(hf, width), torch.zeros(hf)) if hf else None
   return fused_mlp.pack_trunk(ws, bs, (kin,), skip_period=depth + 1,
-                              compute_dtype=cdt)
+                              head_f32=head, compute_dtype=cdt)
 
 
 @pytest.mark.parametrize('depth,kin,cdt,tma', [
@@ -223,25 +224,58 @@ def test_backward_route_by_shape(depth, kin, cdt, tma):
   assert fused_mlp.missing_instance(pack, 128) is None
 
 
-@pytest.mark.parametrize('depth,kin,cdt,width,lib', [
-    (8, 96, 'float32', 256, 'trunk_bwd_f32'),
-    (8, 224, 'float32', 256, 'trunk_bwd_f32'),
-    (8, 256, 'float32', 256, 'trunk_bwd_f32'),
-    (9, 96, 'float32', 256, 'trunk_bwd'), (8, 288, 'float32', 256, 'trunk_bwd'),
-    (8, 192, 'float32', 128, 'trunk_bwd'),
-    (8, 96, 'bfloat16', 256, 'trunk_bwd_tma'),
-    (9, 96, 'bfloat16', 256, 'trunk_bwd'),
-    (8, 192, 'bfloat16', 128, 'trunk_bwd')])
-def test_backward_library_by_dtype_and_shape(depth, kin, cdt, width, lib):
+def _library_case(depth, kin, cdt, width, lib, hf=0, dg=False, past=None,
+                  id=None):
+  return pytest.param(depth, kin, cdt, width, lib, hf, dg, past,
+                      id=id or f'{depth}-{kin}-{cdt}-{width}-{lib}')
+
+
+@pytest.mark.parametrize('depth,kin,cdt,width,lib,hf,dg,past', [
+    _library_case(8, 96, 'float32', 256, 'trunk_bwd_f32'),
+    _library_case(8, 224, 'float32', 256, 'trunk_bwd_f32'),
+    _library_case(8, 256, 'float32', 256, 'trunk_bwd_f32'),
+    _library_case(9, 96, 'float32', 256, 'trunk_bwd'),
+    _library_case(8, 288, 'float32', 256, 'trunk_bwd'),
+    _library_case(8, 192, 'float32', 128, 'trunk_bwd'),
+    _library_case(8, 96, 'bfloat16', 256, 'trunk_bwd_tma'),
+    _library_case(9, 96, 'bfloat16', 256, 'trunk_bwd'),
+    _library_case(8, 192, 'bfloat16', 128, 'trunk_bwd'),
+    # F5 and its forward twin: trunk_bwd.cu's f32 K5 at 288 input columns
+    # needs exactly the 232,448 B of an H100, at 320 more; the f32 K3
+    # forward on 224 or 256 input columns fits neither trunk_fwd_f32.cu nor
+    # trunk_fwd.cu. bf16 at 320 columns fits trunk_bwd.cu.
+    _library_case(8, 288, 'float32', 256, 'trunk_bwd', hf=3,
+                  id='F5-f32-K5-288-at-the-limit'),
+    _library_case(8, 320, 'float32', 256, 'trunk_bwd', past='trunk_bwd',
+                  id='F5-f32-320-past-the-limit'),
+    _library_case(8, 320, 'bfloat16', 256, 'trunk_bwd', id='bf16-320'),
+    _library_case(8, 224, 'float32', 256, 'trunk_bwd_f32', dg=True,
+                  past='trunk_fwd', id='F5-f32-K3-224-forward-past'),
+    _library_case(8, 256, 'float32', 256, 'trunk_bwd_f32', dg=True,
+                  past='trunk_fwd', id='F5-f32-K3-256-forward-past'),
+    _library_case(8, 192, 'float32', 256, 'trunk_bwd_f32', dg=True,
+                  id='f32-K3-192')])
+def test_backward_library_by_dtype_and_shape(depth, kin, cdt, width, lib, hf,
+                                             dg, past):
   # One function picks the backward's library from the dtype and shape
   # alone, with no card: at width 256 within 8 layers and 256 input columns
   # the wgmma/TMA kernels in bf16 and the FMA/TMA kernels in f32
   # (trunk_bwd_f32.cu); width 128 and trunks past those shapes trunk_bwd.cu.
-  # Each has an instance, so none runs the plain versions.
-  pack = _pack(depth, kin, width, cdt)
+  # An instance whose shared memory (fused_mlp.kernel_smem, the C launch's
+  # sum) passes the H100's 232,448 B is named by missing_instance, so the
+  # trunk runs the plain versions; every other shape has an instance.
+  pack = _pack(depth, kin, width, cdt, hf)
+  fold = torch.zeros(kin // 2, 3) if dg else None
   assert fused_mlp.backward_library(pack) == lib
   assert fused_mlp.tma_backward(pack) == (lib == 'trunk_bwd_tma')
-  assert fused_mlp.missing_instance(pack, 0) is None
+  why = fused_mlp.missing_instance(pack, 0, fold)
+  if past is None:
+    assert why is None
+  else:
+    assert why and why.startswith(f'{past}.cu needs ')
+    assert fused_mlp.kernel_smem(past, pack, 0, fold) > fused_mlp.SMEM_LIMIT
+  if hf == 3:
+    assert fused_mlp.kernel_smem(lib, pack, 0) == fused_mlp.SMEM_LIMIT
 
 
 @pytest.mark.parametrize('sms', [132, 114, 1])
@@ -283,6 +317,42 @@ def test_forward_route_by_shape(depth, kin, cdt, width, tma):
   assert fused_mlp.missing_instance(pack, 0) is None
   if width == 256:
     assert fused_mlp.missing_instance(pack, 128) is None
+
+
+@pytest.mark.parametrize('depth,kin,cdt,width,out_y,dg,lib', [
+    (8, 96, 'float32', 256, False, False, 'trunk_fwd_f32'),
+    (8, 201, 'float32', 256, False, False, 'trunk_fwd_f32'),
+    (8, 256, 'float32', 256, False, False, 'trunk_fwd_f32'),
+    (8, 288, 'float32', 256, False, False, 'trunk_fwd'),
+    (9, 96, 'float32', 256, False, False, 'trunk_fwd'),
+    (8, 96, 'float32', 256, True, False, 'trunk_fwd'),
+    (8, 201, 'float32', 128, False, False, 'trunk_fwd'),
+    (9, 201, 'float32', 128, False, False, 'trunk_fwd'),
+    (8, 96, 'float32', 256, False, True, 'trunk_fwd_f32'),
+    (8, 192, 'float32', 256, False, True, 'trunk_fwd_f32'),
+    (8, 256, 'float32', 256, False, True, 'trunk_fwd'),
+    (8, 96, 'bfloat16', 256, False, False, 'trunk_fwd_tma'),
+    (8, 201, 'bfloat16', 256, False, False, 'trunk_fwd_tma'),
+    (8, 256, 'bfloat16', 256, False, True, 'trunk_fwd_tma'),
+    (8, 288, 'bfloat16', 256, False, False, 'trunk_fwd'),
+    (9, 96, 'bfloat16', 256, False, False, 'trunk_fwd'),
+    (8, 96, 'bfloat16', 256, True, False, 'trunk_fwd'),
+    (8, 201, 'bfloat16', 128, False, False, 'trunk_fwd')])
+def test_forward_library_by_dtype_and_shape(depth, kin, cdt, width, out_y, dg,
+                                            lib):
+  # One function picks the forward's library from the dtype, shape and
+  # modes alone, with no card: at width 256 within 8 layers and 256 input
+  # columns, without K11's y, the wgmma/TMA kernel in bf16 and the FMA/TMA
+  # kernel in f32 (trunk_fwd_f32.cu) where its shared memory holds the trunk
+  # (K3: at most 192 input columns); the rest trunk_fwd.cu. tma_forward
+  # agrees with it.
+  pack = _pack(depth, kin, width, cdt)
+  fold = torch.zeros(kin // 2, 3) if dg else None
+  assert fused_mlp.forward_library(pack, out_y, fold) == lib
+  assert fused_mlp.tma_forward(pack, out_y) == (lib == 'trunk_fwd_tma')
+  if lib == 'trunk_fwd_f32':
+    assert (fused_mlp.kernel_smem(lib, pack, 0, fold) <=
+            fused_mlp.SMEM_LIMIT)
 
 
 def _pack_weights(pack):
@@ -333,6 +403,48 @@ def test_served_flagship_trunks_take_the_tma_forward(monkeypatch, flags):
   kinds = {dims for dims, _ in routes}
   assert (48, 48) in kinds and len(kinds) >= 2, kinds
   assert routes and all(tma for _, tma in routes), routes
+
+
+@pytest.mark.parametrize('case', ['served none', 'served all six',
+                                  'trained all six'])
+def test_f32_flagship_trunks_take_the_f32_forward(monkeypatch, case):
+  # The flagship in its own float32, served and (train=True: the density
+  # gradient, K3) trained with use_kernel stubbed as on a card: every trunk
+  # launch (the spatial trunks, the directional trunk; with all six fuse
+  # flags K6-K10 in them) goes to trunk_fwd_f32.cu. The stubbed kernel
+  # records the route and answers with trunk_reference on the pack's own
+  # weights.
+  routes = []
+
+  def kernel(segs, pack, fold=None, dir_modes=None, rgbx=None,
+             spa_modes=None, comp=None, out_y=False):
+    routes.append((pack.seg_dims, fold is not None, fused_mlp.forward_library(
+        pack, out_y, fold, spa_modes or fused_mlp.SpaModes())))
+    ws, bs = _pack_weights(pack)
+    head = lambda w, b: None if w is None else (w, b)
+    return fused_mlp.trunk_reference(
+        segs, ws, bs, skip_period=pack.skip - 1 if pack.skip > 0 else 99,
+        wd=pack.wd, head_f32=head(pack.wh, pack.bh),
+        head_cdt=head(pack.wc, pack.bc), compute_dtype=pack.compute_dtype,
+        density_grad=fold is not None, fold=fold, dir_modes=dir_modes,
+        rgbx=rgbx, spa_modes=spa_modes, comp=comp, out_y=out_y)
+
+  monkeypatch.setattr(fused_mlp, 'use_kernel',
+                      lambda x, mode: fused_mlp.MODES.index(mode) < 2)
+  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  six = [f'NerfMLP.{f} = True' for f in (
+      'fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb', 'fuse_ipe_trig',
+      'fuse_compositing', 'fuse_lift')] if 'six' in case else []
+  config, model = _port_model(six, False)
+  assert model.nerf_mlp.cfg.compute_dtype == 'float32'
+  train = case.startswith('trained')
+  with torch.set_grad_enabled(train):
+    out, _ = model(_port_rays(_rays_np(2, seed=7)), train=train)
+  assert torch.isfinite(out[-1]['rgb']).all()
+  kinds = {dims for dims, _, _ in routes}
+  assert (48, 48) in kinds and len(kinds) >= 2, kinds
+  assert any(dg for _, dg, _ in routes) == train, routes
+  assert routes and all(lib == 'trunk_fwd_f32' for _, _, lib in routes), routes
 
 
 def _stub_kernels(monkeypatch):
@@ -393,3 +505,63 @@ def test_plain_stack_logged_once_where_kernels_would_run(monkeypatch, caplog):
     model(_port_rays(_rays_np(4, seed=5)))
   assert not [m for m in caplog.records
               if 'non-relu' in m.getMessage()]
+
+
+def _past_smem_trunk(case):
+  """A width-256 f32 trunk past its libraries' shared memory, on 64 rows:
+  'bwd kin 320' the directional trunk on 320 input columns (trunk_bwd.cu,
+  F5), 'fwd K3 kin 256' the spatial trunk on 256 with the density gradient
+  (trunk_fwd.cu). Returns run(mode) -> the outputs and, for the
+  directional trunk, the gradients of its weights."""
+  gen = torch.Generator().manual_seed(31)
+  rand = lambda *s: torch.randn(*s, generator=gen)
+  fin = 320 if case.startswith('bwd') else 256
+  ws = [rand(256, fin if l == 0 else 256 + (fin if l == 5 else 0)) * 0.05
+        for l in range(8)]
+  bs = [rand(256) * 0.05 for _ in range(8)]
+  if case.startswith('bwd'):
+    segs = [rand(64, 128), rand(64, 192)]
+    head = (rand(3, 256) * 0.05, rand(3))
+
+    def run(mode):
+      w = [t.clone().requires_grad_() for t in ws]
+      out = fused_mlp.fused_trunk(segs, w, bs, head, compute_dtype='float32',
+                                  mode=mode)
+      out.sum().backward()
+      return [out.detach()] + [t.grad for t in w]
+    return run
+  lm, lv = torch.rand(64, 4, generator=gen), torch.rand(64, 4, generator=gen)
+  scales = 2.0**(np.arange(32) % 16)
+  wd, head = rand(1, 256) * 0.05, (rand(128, 256) * 0.05, rand(128))
+  return lambda mode: fused_mlp.fused_encoded_trunk(
+      lm, lv, scales, ws, bs, wd, density_grad=True, head_cdt=head,
+      compute_dtype='float32', mode=mode)
+
+
+@pytest.mark.parametrize('case', ['bwd kin 320', 'fwd K3 kin 256'])
+def test_trunk_past_shared_memory_runs_plain_under_auto(monkeypatch, caplog,
+                                                        case):
+  # F5 and its forward twin, with use_kernel stubbed as on a card: under
+  # fused_trunk='auto' the trunk runs the plain versions (no kernel is
+  # called) and matches 'off', logged once with the library and the bytes
+  # it needs; under 'on' it raises NotImplementedError before any launch.
+  _stub_kernels(monkeypatch)
+
+  def no_launch(*a, **k):
+    raise AssertionError('a kernel was launched')
+
+  monkeypatch.setattr(fused_mlp, 'trunk_kernel', no_launch)
+  monkeypatch.setattr(fused_mlp, 'trunk_backward_kernel', no_launch)
+  run = _past_smem_trunk(case)
+  want = run('off')
+  with caplog.at_level(logging.WARNING):
+    got, got2 = run('auto'), run('auto')
+  for a, b, c in zip(got, got2, want):
+    assert torch.equal(a, c) and torch.equal(b, c)
+  hits = [m.getMessage() for m in caplog.records
+          if 'no kernel instance' in m.getMessage()]
+  lib = 'trunk_bwd.cu' if case.startswith('bwd') else 'trunk_fwd.cu'
+  assert len(hits) == 1 and f'{lib} needs' in hits[0], hits
+  assert 'past the 232448 B' in hits[0]
+  with pytest.raises(NotImplementedError, match=lib):
+    run('on')
