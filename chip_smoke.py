@@ -75,12 +75,16 @@ Phases, each printed on its own line:
      K5 at width 128 on segments (128, 33), K1 with the bottleneck head
      alone (hf = 0) and the first-order K4 (no cotangent of u); K11's y
      within a relative L2 bound that two faults of its store (the last
-     bias dropped, y before the last ReLU) would exceed;
+     bias dropped, y before the last ReLU) would exceed; each backward's
+     route asserted (K5 at width 128 on the two-tile instances of
+     csrc/trunk_bwd_tma.cu and csrc/trunk_bwd_f32.cu), and K5 at width 128
+     run twice more in both dtypes, bit-identical;
  12. configs/blender_mipnerf.gin at full width (bf16 trunks), as shipped and
      with Model.use_viewdirs = False: each answers three requests and takes
      10 train steps through the kernels (K1, K2 and K4, K5 at width 128; or
      K1 with K11 and K4 with K11), each against fused_trunk='off', and one
-     request and one step of each profiled;
+     request and one step of each profiled (as shipped, K5 at width 128 on
+     trunk_bwd_tma.cu, read from the profile);
  13. the flagship gin in its own float32 (no compute_dtype binding) with all
      six fuse flags, trained at batch 4096 as phase 10 (3 warm-up steps, 10
      timed ones; K2-K10 counted, the forwards on csrc/trunk_fwd_f32.cu and
@@ -90,9 +94,15 @@ Phases, each printed on its own line:
      image) through the kernels (K1, K2, K6-K10 counted, the forwards on
      csrc/trunk_fwd_f32.cu), the first against fused_trunk='off'; the
      latency of 30 4096-ray requests (median, p90) and one request
-     profiled (device busy share, device time by kernel).
+     profiled (device busy share, device time by kernel);
+ 15. configs/blender_mipnerf.gin as shipped, in its own float32 (no
+     compute_dtype binding), trained at batch 4096 as phase 12 (3 warm-up
+     steps, 10 timed ones; K1 hf=0, K2 and K5 at width 128 and the
+     first-order K4 counted, K5 at width 128 on csrc/trunk_bwd_f32.cu read
+     from the profile), one more step against fused_trunk='off', and one
+     step profiled.
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8, 10, 12, 13 and 14), its time and
+launches on the main path (phases 4, 6, 8, 10, 12, 13, 14 and 15), its time and
 its plain version's at N, and its bound: the larger of the bytes it must move
 (each input read once, each output written once) at 3.35 TB/s and its operations
 at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -369,8 +379,9 @@ def n_heads(kw):
 
 
 # The forward's library of a width-256 trunk within the wgmma/TMA and FMA/TMA
-# kernels' shapes, by compute dtype.
+# kernels' shapes, by compute dtype; and the backward's (width 256 or 128).
 FWD_ROUTE = {'bfloat16': 'trunk_fwd_tma', 'float32': 'trunk_fwd_f32'}
+BWD_ROUTE = {'bfloat16': 'trunk_bwd_tma', 'float32': 'trunk_bwd_f32'}
 
 
 def check_route(fused_mlp, which, cdt, pack, want=None, **modes):
@@ -1226,10 +1237,13 @@ def check_mip_kernels(fused_mlp, dev):
             y_faults(fused_mlp, cdt, cs, ws, bs, kw, plain()[0])
         continue
       yb = None if ybar is None else ybar.to(fused_mlp.DTYPES[cdt])
+      route = fused_mlp.backward_library(pack)
+      if route != BWD_ROUTE[cdt]:
+        raise AssertionError(f'{which} {cdt}: the backward routed to {route}')
+      kernel = lambda: fused_mlp.trunk_backward_kernel(
+          cs, pack, cots, needs_dx=not spatial, ybar=yb)
       results[which, cdt] = compare(
-          which, cdt,
-          lambda: fused_mlp.trunk_backward_kernel(
-              cs, pack, cots, needs_dx=not spatial, ybar=yb),
+          which, cdt, kernel,
           lambda: fused_mlp.trunk_backward_reference(
               cs, ws, bs, cots, compute_dtype=cdt, needs_dx=not spatial,
               ybar=yb, **kw),
@@ -1237,6 +1251,8 @@ def check_mip_kernels(fused_mlp, dev):
           inputs=inputs + list(cots) + [yb],
           flops=trunk_flops(ws, N_SAMPLES, heads, backward=True,
                             needs_dx=not spatial))
+      if which == 'K5 W128':
+        deterministic(which, kernel, phase=11, cdt=cdt)
       del pack
     del segs, ws, bs, kw, cots, ybar
     torch.cuda.empty_cache()
@@ -1253,6 +1269,22 @@ SIX_PER_STEP = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K6': 2, 'K7': 2,
                 'K8': 2, 'K9': 2, 'K10': 2}
 
 
+# Launches a level and train step of mip-NeRF as shipped (phases 12, 15).
+MIP_PER_STEP = {'K1': 1, 'K2': 1, 'K4': 1, 'K5': 1}
+
+
+def w128_backward(prof, phase, kernel):
+  """Phases 12 and 15: the step's profile shows K5 at width 128 on the
+  width-128 instance of `kernel` and no width-128 instance of trunk_bwd.cu
+  (the design the two-tile kernels replaced), or this fails."""
+  names = list((prof or {}).get('kernels', {}))
+  new = [n for n in names if re.search(rf'\b{kernel}<[^>]*\b128>', n)]
+  old = [n for n in names if re.search(r'\btrunk_bwd_kernel<[^,]*, 128\b', n)]
+  if prof is None or not new or old:
+    raise AssertionError(f'phase {phase}: K5 at width 128 ran {names}: '
+                         f'{kernel} width 128 {new}, trunk_bwd.cu {old}')
+
+
 def mip_stage(fused_mlp, dev):
   """Phase 12: configs/blender_mipnerf.gin as shipped and with
   Model.use_viewdirs = False, each served (three requests) and trained
@@ -1261,7 +1293,7 @@ def mip_stage(fused_mlp, dev):
   (request launches, step launches, seconds a step, request ms)."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import renderer
-  runs = {'shipped': ((), ('K1', 'K2'), {'K1': 1, 'K2': 1, 'K4': 1, 'K5': 1}),
+  runs = {'shipped': ((), ('K1', 'K2'), MIP_PER_STEP),
           'no viewdirs': (NO_VIEWDIRS, ('K1', 'K11'),
                           {'K1': 1, 'K4': 1, 'K11': 2})}
   out = {}
@@ -1283,7 +1315,9 @@ def mip_stage(fused_mlp, dev):
                                            config.render_chunk_size)
     with torch.no_grad():
       profile(request, f'mip-NeRF {run} 4096-ray request', 3, phase=12)
-    profile(step, f'mip-NeRF {run} train step', 2, phase=12)
+    prof = profile(step, f'mip-NeRF {run} train step', 2, phase=12)
+    if run == 'shipped':
+      w128_backward(prof, 12, 'trunk_bwd_tma_kernel')
     out[run] = (serve_launches, train_launches, step_s, timings)
     del model, state, train_step, batch, box
     torch.cuda.empty_cache()
@@ -1311,6 +1345,28 @@ def f32_stage(fused_mlp, dev):
   del model, state, train_step, batch, box
   torch.cuda.empty_cache()
   return launches, step_s
+
+
+def mip_f32_stage(fused_mlp, dev):
+  """Phase 15: configs/blender_mipnerf.gin as shipped in its own float32
+  (no compute_dtype binding), trained at batch TRAIN_BATCH through the
+  kernels (K5 at width 128 on trunk_bwd_f32.cu) against fused_trunk='off',
+  and one step profiled. Returns (launches, seconds a step, the profile)."""
+  launches, step_s, (model, _, state, train_step, batch) = train(
+      fused_mlp, dev, (), phase=15, per_step=MIP_PER_STEP, gin_name=MIPNERF,
+      dtype=None)
+  if model.nerf_mlp.cfg.compute_dtype != 'float32':
+    raise AssertionError('phase 15: the shipped gin did not train in float32')
+  box = {'state': state}
+
+  def step():
+    box['state'], _ = train_step(box['state'], batch)
+
+  prof = profile(step, 'mip-NeRF float32 train step', 2, phase=15)
+  w128_backward(prof, 15, 'trunk_bwd_f32_kernel')
+  del model, state, train_step, batch, box
+  torch.cuda.empty_cache()
+  return launches, step_s, prof
 
 
 def f32_kernels(prof, phase, need):
@@ -1409,6 +1465,7 @@ def main():
       mip['shipped'], mip['no viewdirs'])
   f32_train, f32_step_s = f32_stage(fused_mlp, dev)
   f32_serve, f32_request = f32_serve_stage(fused_mlp, dev)
+  mip_f32_train, mip_f32_step_s, mip_f32_prof = mip_f32_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -1448,7 +1505,7 @@ def main():
               629, y_serve['K11'] + y_train['K11']),
       'K2 W128': ('directional trunk at width 128 (mip-NeRF)', fwd_src, 612,
                   mip_serve['K2'] + mip_train['K2']),
-      'K5 W128': ('directional trunk backward at width 128, dx', bwd_src,
+      'K5 W128': ('directional trunk backward at width 128, dx', tma_src,
                   668, mip_train['K5']),
       'K1 hf=0': ('spatial trunk with the bottleneck head alone', ftma_src,
                   612, mip_serve['K1'] + mip_train['K1']),
@@ -1458,12 +1515,18 @@ def main():
       'K4 f32': ('spatial trunk backward with K6/K7 in float32', f32_src,
                  668, f32_train['K4']),
       'K5 f32': ('directional trunk backward with K8-K10 in float32',
-                 f32_src, 668, f32_train['K5'])}
+                 f32_src, 668, f32_train['K5']),
+      # Phase 15's: mip-NeRF's own float32 step.
+      'K5 W128 f32': ('directional trunk backward at width 128, dx, in '
+                      'float32', f32_src, 668, mip_f32_train['K5'])}
   line = []
   # K6 and K7 stand for their phase-9 cases; each entry also lists the
   # others it runs in.
   main_case = {'K6': 'K6+K3', 'K7': 'K7', 'K4 f32': 'K6+K7+K4',
-               'K5 f32': 'K8+K9+K10 backward'}
+               'K5 f32': 'K8+K9+K10 backward', 'K5 W128 f32': 'K5 W128'}
+  # The mip-NeRF kernels' launches in phase 15's float32 step.
+  mip_f32 = {'K1 hf=0': 'K1', 'K2 W128': 'K2', 'K4 first-order': 'K4',
+             'K5 W128': 'K5'}
   mip6 = ('mip K6+K7', 'mip K6+K7+K4 first-order')
   more_cases = {'K6': ('K6+K7', 'K6+K7+K3', 'K6+K7+K4') + mip6,
                 'K7': ('K7+K3', 'K6+K7', 'K6+K7+K3', 'K6+K7+K4') + mip6}
@@ -1498,6 +1561,8 @@ def main():
       entry['f32_bwd_source'] = f32_src
     if f32_train.get(which):
       entry['f32_train_launches'] = f32_train[which]
+    if which in mip_f32:
+      entry['f32_train_launches'] = mip_f32_train[mip_f32[which]]
     if f32_serve.get(which):
       entry['f32_serve_launches'] = f32_serve[which]
     if which in ('K8', 'K9', 'K10', 'K11'):
@@ -1534,7 +1599,9 @@ def main():
           for run, r in mip.items()) + f'; phase 13 (float32, all six): '
       f'{f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / f32_step_s:.0f} train '
       f'rays/s; phase 14 (float32, all six, 4096-ray requests): '
-      f'{json.dumps(f32_request)}')
+      f'{json.dumps(f32_request)}; phase 15 (mip-NeRF, float32): '
+      f'{mip_f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / mip_f32_step_s:.0f} '
+      f'train rays/s, device busy {mip_f32_prof["busy_ms"]:.2f} ms a step')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

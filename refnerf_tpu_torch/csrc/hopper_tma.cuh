@@ -1,7 +1,9 @@
 // Hopper building blocks of the wgmma/TMA trunk kernels (trunk_fwd_tma.cu,
 // trunk_bwd_tma.cu): the PTX of mbarriers, TMA and wgmma, the ring of
 // weight slices, the 128-byte-swizzled tile layout, the product of a tile
-// with the next slices of the ring, and the host-side tensor maps.
+// with the next slices of the ring, and the host-side tensor maps. The
+// trunk width is kW (256) unless a kernel takes it as a template parameter
+// W (trunk_bwd_tma.cu and trunk_bwd_f32.cu also at 128).
 
 #pragma once
 
@@ -13,11 +15,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kW = 256;                  // trunk width of every instance here
+constexpr int kW = 256;                  // the widest trunk width
 constexpr int kCons = 256;               // consumer threads: two warpgroups
 constexpr int kTmaThreads = kCons + 32;  // and one producer warp
 constexpr int kBK = 64;                  // K-slice: 64 bf16, one swizzled row
 constexpr int kSlice = kW * 128;   // bytes of a [256][64] weight slice
+// Bytes of a [W][64] weight slice, and the 64-sample tiles a CTA of a
+// width-W kernel holds: one at 256, two at 128, so that a consumer thread
+// keeps 64 outputs of each product at either width.
+template <int W> constexpr int kSliceW = W * 128;
+template <int W> constexpr int kTiles = kW / W;
 constexpr int kBlk = kRows * 128;  // bytes of a [64][64] block of a tile
 constexpr int kMaxDepth = 8;       // tensor maps a pack (kernel parameter space)
 constexpr long long kHang = 1ll << 33;  // cycles (~4 s) before a wait traps
@@ -170,7 +177,10 @@ struct Tile {
 
 // acc = A[64][K] B^T with B the next ceil(K / 64) slices of the ring. A's
 // K-slices s < n0 are the blocks of a0, the rest those of a1 (the skip
-// layer's [activation | input]). Consumer warps only.
+// layer's [activation | input]). At width 256 warpgroup g takes B's rows
+// [128 g, 128 g + 128) of each [256][64] slice; at 128 both take the whole
+// [128][64] slice, each with the A of its own tile. Consumer warps only.
+template <int W = kW>
 __device__ __forceinline__ void product(float (&acc)[64], uint32_t a0, int n0, uint32_t a1, int K,
                                         Ring& r) {
   const int wg = threadIdx.x >> 7;
@@ -180,7 +190,7 @@ __device__ __forceinline__ void product(float (&acc)[64], uint32_t a0, int n0, u
   for (int s = 0; s < ns; ++s) {
     mbar_wait(r.full + 8 * r.stage, r.phase);
     const uint32_t a = s < n0 ? a0 + s * kBlk : a1 + (s - n0) * kBlk;
-    const uint32_t b = r.base + r.stage * kSlice + wg * (kSlice / 2);
+    const uint32_t b = r.base + r.stage * kSliceW<W> + (W == kW ? wg * (kSliceW<W> / 2) : 0);
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
       wgmma128<0, 0>(acc, sw128_desc(a + 32 * kk, 16, 1024), sw128_desc(b + 32 * kk, 16, 1024),

@@ -1,37 +1,44 @@
-// The f32 width-256 trunk backward for Hopper (sm_90a): register-blocked FMA
-// products fed by a TMA weight ring, and a register-blocked FMA
-// weight-gradient product fed by TMA.
+// The f32 trunk backward for Hopper (sm_90a) at widths 256 and 128:
+// register-blocked FMA products fed by a TMA weight ring, and a
+// register-blocked FMA weight-gradient product fed by TMA.
 //
 // Replaces, for the compute dtype float32 at width 256 (up to 8 layers and
 // 256 input columns), the backward Pallas kernel `_bwd_kernel` (:668-853)
 // of refnerf_tpu/ops/pallas/fused_mlp.py in the modes of trunk_bwd.cu (K4
 // with and without u's cotangent, K5 with dx, K6/K7 in K4, K8-K10 in K5,
-// K11's y cotangent), with the same arithmetic (trunk_bwd.cu:35-43) and the
+// K11's y cotangent), and at width 128 in the plain K5 (mip-NeRF's
+// directional trunk, up to 8 layers and as many input columns as shared
+// memory holds: 192), with the same arithmetic (trunk_bwd.cu:35-43) and the
 // same C arguments, but for the head: this library reads the compute-dtype
 // head untransposed, wc [HC][W], through the `wct` argument. Every product
 // runs in full f32 on the FMA pipes (no TF32: trunk_common.cuh). The
-// width-128 instances and the trunks past these shapes stay in
-// trunk_bwd.cu.
+// trunks past these shapes stay in trunk_bwd.cu.
 //
 // Bound on the H100: K4 with u's cotangent needs 3.2 TFLOP at N = 524,288
 // samples (chip_smoke.py `trunk_flops`), 47 ms at 67 TFLOP/s; K5 1.8 TFLOP,
-// 26 ms. The weight-gradient operands (h, zeta, s, p, x, ts, cbar: ~34 KB a
-// sample for K4 with u's cotangent in f32, ~17 KB for K5) are written once
-// and read about once: ~36 GB and ~18 GB a launch, 11 and 5.4 ms at 3.35
-// TB/s, under the products' bound. A 64-row tile reads each layer's f32
-// weights (256 KB) from L2 for 8.4 MFLOP, 32 FLOP a byte: ~2.1 TB/s at the
-// FMA peak, within L2's reach, so one tile a CTA.
+// 26 ms; K5 at width 128 0.49 TFLOP, 7.3 ms. The weight-gradient operands
+// (h, zeta, s, p, x, ts, cbar: ~34 KB a sample for K4 with u's cotangent
+// in f32, ~17 KB for K5, ~8.9 KB for K5 at width 128) are written once and
+// read about once: ~36, ~18 and ~9.3 GB a launch, 11, 5.4 and 2.8 ms at
+// 3.35 TB/s, under the products' bound. A 64-row tile reads each layer's
+// f32 weights (256 KB) from L2 for 8.4 MFLOP, 32 FLOP a byte: ~2.1 TB/s at
+// the FMA peak, within L2's reach, so one tile a CTA at width 256. At
+// width 128 a tile's product over a slice is half as large while each
+// slice still costs its wait and its arrive, so a CTA holds two tiles that
+// share each [16][128] slice (64 FLOP a byte of weights).
 //
 // Design.
-//  - Two consumer warpgroups and one producer warp a CTA of 64 samples.
-//    Each product acc[64][256] = A[64][K] B[K][256] is an outer product
-//    over K: each consumer thread owns an 8 x 8 block of outputs (rows
-//    R(i) = rb + i % 4 + 16 (i / 4), columns C(j) = cb + j % 4 + 32 (j / 4);
-//    a warp 32 rows x 64 columns), and each k step reads its 8 values of A
-//    and of B as four LDS.128 for 64 FFMA.
+//  - Two consumer warpgroups and one producer warp a CTA of 64 samples
+//    (128 at width 128: two tiles as one). Each product acc[R][W] =
+//    A[R][K] B[K][W] is an outer product over K: each consumer thread owns
+//    an 8 x 8 block of outputs (rows R(i) = rb + i % 4 + 16 (i / 4),
+//    columns C(j) = cb + j % 4 + 32 (j / 4); a warp 32 rows x 64 columns:
+//    the 8 warps 2 row halves x 4 column quarters at width 256, 4 row
+//    quarters, two a tile, x 2 column halves at 128), and each k step reads
+//    its 8 values of A and of B as four LDS.128 for 64 FFMA.
 //  - Every operand sits with the contraction index outermost ("k-major"):
-//    the activation and input tiles feature-major, [feature][64 samples]
-//    (rows padded to kLD = 68 floats, so that neither an epilogue's column
+//    the activation and input tiles feature-major, [feature][R samples]
+//    (rows padded to R + 4 floats, so that neither an epilogue's column
 //    stores nor a product's row loads conflict in the banks), and the
 //    weights as the pack whose rows are the contraction: `wt` [K_l][W] for
 //    the forward products (recompute, tangent), `w` [W][K_l] for the reverse
@@ -39,8 +46,10 @@
 //    writes its tile feature-major for the next product.
 //  - The weights come by TMA (cp.async.bulk.tensor, one tensor map a layer
 //    and pack, its extent exact: a box past it reads zeros) in 16-deep
-//    slices of 256 columns (16 KB) through a ring of as many stages as
-//    shared memory holds (4 to 8) with full/empty mbarriers. The producer
+//    slices of W columns (16 or 8 KB) through a ring of as many stages as
+//    shared memory holds (4 to 8) with full/empty mbarriers; at width 128
+//    dx's products run in passes of 128 input columns, a last one over at
+//    most 64 on `product_half` (8 x 4 a thread). The producer
 //    warp walks the consumers' schedule of products (`schedule`), so no CTA
 //    barrier paces a slice and the next product's weights load during an
 //    epilogue.
@@ -58,6 +67,8 @@
 //    product over samples on 128 x 128 output tiles, a partial per split of
 //    samples; reduce_kernel (trunk_bwd.cu) sums the partials in a fixed
 //    order. No float atomics: the gradients do not depend on the schedule.
+//    At width 128 the bias gradients' column sums add tile 0's rows, then
+//    tile 1's, into one row of partials a CTA.
 // One CTA an SM (~120-230 KB of shared memory).
 
 #define PHASE_SYNC() cons_sync()  // closes a stamped segment
@@ -69,43 +80,53 @@ namespace {
 constexpr int kMaxStages = 8;
 constexpr int kMinStages = 4;
 
+template <int W>
 __device__ __forceinline__ int k_dim(const BwdParams& p, int l) {
-  return l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+  return l == 0 ? p.kin : (l == p.skip ? W + p.kin : W);
 }
 
-// The products of one tile in order, as (tensor map, first column, K rows);
+// The products of one CTA in order, as (tensor map, first column, K rows);
 // the producer loads their slices, and the kernel below runs them in this
-// order.
-template <int HC, typename F>
+// order. At width 128 dx's products cover the kin input columns in passes
+// of 128.
+template <int HC, int W, typename F>
 __device__ void schedule(const BwdParams& p, const MapsF32& m, F&& load) {
   const bool dg = p.ubar != nullptr, dx = p.dx0 != nullptr;
-  for (int l = 0; l < p.depth; ++l) load(&m.wt[l], 0, k_dim(p, l));  // recompute
+  for (int l = 0; l < p.depth; ++l) load(&m.wt[l], 0, k_dim<W>(p, l));  // recompute
   if (dg)
-    for (int l = p.depth - 1; l > 0; --l) load(&m.w[l], 0, kW);  // inner chain
-  if (HC > 0) load(&m.wc, 0, HC);                                // head backward
-  for (int l = p.depth - 1; l >= 0; --l) {                       // first-order reverse
-    if (dx && (l == 0 || l == p.skip)) load(&m.w[l], l == 0 ? 0 : kW, kW);
-    if (l > 0) load(&m.w[l], 0, kW);
+    for (int l = p.depth - 1; l > 0; --l) load(&m.w[l], 0, W);  // inner chain
+  if (HC > 0) load(&m.wc, 0, HC);                               // head backward
+  for (int l = p.depth - 1; l >= 0; --l) {                      // first-order reverse
+    if (dx && (l == 0 || l == p.skip)) {
+      if constexpr (W == kW)
+        load(&m.w[l], l == 0 ? 0 : kW, kW);
+      else
+        for (int cx = 0; cx < p.kin; cx += W) load(&m.w[l], (l == 0 ? 0 : W) + cx, W);
+    }
+    if (l > 0) load(&m.w[l], 0, W);
   }
   if (dg)
-    for (int l = 0; l < p.depth; ++l) load(&m.wt[l], 0, k_dim(p, l));  // tangent
+    for (int l = 0; l < p.depth; ++l) load(&m.wt[l], 0, k_dim<W>(p, l));  // tangent
 }
 
-// The block into the tile's rows of a sample-major [rows][W] scratch (g at
-// the tile's first row): two 16-byte stores a row.
+// The block into the CTA's rows of a sample-major [rows][W] scratch (g at
+// the CTA's first row): two 16-byte stores a row.
+template <int W>
 __device__ __forceinline__ void put_rows(float* g, const Block& v, int rb, int cb) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* d = g + static_cast<size_t>(rb + row_of(i)) * kW + cb;
+    float* d = g + static_cast<size_t>(rb + row_of(i)) * W + cb;
     *reinterpret_cast<float4*>(d) = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
     *reinterpret_cast<float4*>(d + 32) = make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
   }
 }
 
-// out[c] = (add ? out[c] : 0) + the sum over the tile's rows of column c,
+// out[c] = (add ? out[c] : 0) + the sum over the CTA's rows of column c,
 // from cs[j], this thread's sum over its 8 rows of column cb + C(j):
-// shuffles over the 4 lanes of a column, then the two warp rows in order
-// through red [2][W]. All consumers call it.
+// shuffles over the 4 lanes of a column, then the warp rows in order
+// through red [R / 32][W] (at width 128 tile 0's two, then tile 1's). All
+// consumers call it.
+template <int W>
 __device__ void col_sums(const float (&cs)[8], float* red, float* out, bool add, int wm, int cb) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -113,43 +134,111 @@ __device__ void col_sums(const float (&cs)[8], float* red, float* out, bool add,
     float v = cs[j];
     v += __shfl_xor_sync(0xffffffffu, v, 8);
     v += __shfl_xor_sync(0xffffffffu, v, 16);
-    if (lane < 8) red[wm * kW + cb + col_of(j)] = v;
+    if (lane < 8) red[wm * W + cb + col_of(j)] = v;
   }
   cons_sync();
   const int c = threadIdx.x;
-  const float s = red[c] + red[kW + c];
-  out[c] = add ? out[c] + s : s;
+  if constexpr (W == kW) {
+    const float s = red[c] + red[kW + c];
+    out[c] = add ? out[c] + s : s;
+  } else if (c < W) {
+    const float s = (red[c] + red[W + c]) + (red[2 * W + c] + red[3 * W + c]);
+    out[c] = add ? out[c] + s : s;
+  }
   cons_sync();
 }
 
-// The k-major input tile into the tile's rows of a sample-major [rows][kin]
-// scratch (g at the tile's first row), four columns a store.
+// The k-major input tile into the CTA's rows of a sample-major [rows][kin]
+// scratch (g at the CTA's first row), four columns a store.
+template <int W>
 __device__ void store_in(float* g, const float* t, int kin) {
+  constexpr int R = kRowsW<W>, LD = kLDW<W>;
   const int q4 = kin / 4;
-  for (int i = threadIdx.x; i < kRows * q4; i += kCons) {
+  for (int i = threadIdx.x; i < R * q4; i += kCons) {
     const int r = i / q4, c = 4 * (i % q4);
     *reinterpret_cast<float4*>(g + static_cast<size_t>(r) * kin + c) =
-        make_float4(t[c * kLD + r], t[(c + 1) * kLD + r], t[(c + 2) * kLD + r],
-                    t[(c + 3) * kLD + r]);
+        make_float4(t[c * LD + r], t[(c + 1) * LD + r], t[(c + 2) * LD + r],
+                    t[(c + 3) * LD + r]);
   }
 }
 
-template <int HC, bool DIR, bool SPA, bool YO>
+// Width 128: the CTA's input tile of R rows (load_input_f32 without the IDE
+// block), k-major, zero-padded to kin columns and past row n; x0 in 16-byte
+// loads where its rows allow (d0 a multiple of 4, the pointer 16-byte
+// aligned). Thread t keeps to row t % R, so the tile's stores do not
+// conflict in the banks, and every load of a batch is in flight before its
+// stores.
+template <int R>
+__device__ void load_input_rows(float* t, const float* x0, int d0, const float* x1, int d1,
+                                int kin, int row0, int n) {
+  constexpr int LD = R + 4;
+  int c_lo = 0;  // columns [0, c_lo) come by the 16-byte loads
+  if ((d0 & 3) == 0 && (reinterpret_cast<uintptr_t>(x0) & 15) == 0) {
+    const int total = R * (d0 / 4);
+    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kCons, gr = row0 + i % R;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < total && gr < n)
+          v[u] = __ldg(reinterpret_cast<const float4*>(x0 + static_cast<size_t>(gr) * d0) + i / R);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kCons, r = i % R, c = 4 * (i / R);
+        if (i >= total) continue;
+        t[c * LD + r] = v[u].x;
+        t[(c + 1) * LD + r] = v[u].y;
+        t[(c + 2) * LD + r] = v[u].z;
+        t[(c + 3) * LD + r] = v[u].w;
+      }
+    }
+    c_lo = d0;
+  }
+  const int total = R * (kin - c_lo);
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, gr = row0 + i % R, c = c_lo + i / R, c1 = c - d0;
+      v[u] = 0.f;
+      if (i < total && gr < n) {
+        if (c < d0)
+          v[u] = __ldg(x0 + static_cast<size_t>(gr) * d0 + c);
+        else if (c1 < d1)
+          v[u] = __ldg(x1 + static_cast<size_t>(gr) * d1 + c1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons;
+      if (i < total) t[(c_lo + i / R) * LD + i % R] = v[u];
+    }
+  }
+}
+
+// W: the trunk width, 256, or 128 for the plain directional trunk alone (HC
+// 0, no fused stage, no K11, no cotangent of u). A CTA holds R = 64 (256)
+// or 128 (128: two tiles) samples.
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_bwd_f32_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ MapsF32 m) {
+  static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K5 alone");
+  constexpr int R = kRowsW<W>, LD = kLDW<W>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const int kin = p.kin;
-  float* ringp = reinterpret_cast<float*>(smem);                // stages x [16][256]
-  float* act = ringp + m.stages * (kSD * kW);                   // [256][kLD]: h, s, zeta, p
-  float* inb = act + kW * kLD;                                  // [kin][kLD]: x, then ts
-  uint2* masks = reinterpret_cast<uint2*>(inb + kin * kLD);     // [depth][256]
-  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [2][256]
-  float* sb = red + 2 * kW;                                     // [kRows]
-  float* hb = sb + kRows;                                       // [kRows][hf]
-  float* ub = hb + kRows * p.hf;                                // [kRows][nb]
+  float* ringp = reinterpret_cast<float*>(smem);                // stages x [16][W]
+  float* act = ringp + m.stages * (kSD * W);                    // [W][LD]: h, s, zeta, p
+  float* inb = act + W * LD;                                    // [kin][LD]: x, then ts
+  uint2* masks = reinterpret_cast<uint2*>(inb + kin * LD);      // [depth][256]
+  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [R / 32][W]
+  float* sb = red + 2 * kW;                                     // [R]
+  float* hb = sb + R;                                           // [R][hf]
+  float* ub = hb + R * p.hf;                                    // [R][nb]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(ub + kRows * p.nb) + 7) & ~static_cast<uintptr_t>(7));
+      (reinterpret_cast<uintptr_t>(ub + R * p.nb) + 7) & ~static_cast<uintptr_t>(7));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   Ring ring{smem_u32(ringp), smem_u32(bars), smem_u32(bars + m.stages), m.stages, 0, 0u};
 
@@ -164,11 +253,11 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
   if (warp == kCons / 32) {  // the producer warp: weight slices, in order
     if (lane == 0) {
-      schedule<HC>(p, m, [&](const CUtensorMap* map, int col, int K) {
+      schedule<HC, W>(p, m, [&](const CUtensorMap* map, int col, int K) {
         for (int k = 0; k < K; k += kSD) {
           mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
-          mbar_expect_tx(ring.full + 8 * ring.stage, kSliceF);
-          tma_load(ring.base + ring.stage * kSliceF, map, ring.full + 8 * ring.stage, col, k);
+          mbar_expect_tx(ring.full + 8 * ring.stage, kSliceFW<W>);
+          tma_load(ring.base + ring.stage * kSliceFW<W>, map, ring.full + 8 * ring.stage, col, k);
           ring.advance();
         }
       });
@@ -176,24 +265,25 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     return;
   }
 
-  // The consumers.
+  // The consumers: at width 256 two 32-row halves x four 64-column
+  // quarters, at 128 four 32-row quarters x two 64-column halves.
   PHASE_START;
-  const int wm = warp >> 2;                        // 32-row half of the tile
-  const int rb = 32 * wm + 4 * (lane >> 3);        // the block's rows rb + R(i)
-  const int cb = 64 * (warp & 3) + 4 * (lane & 7);  // and columns cb + C(j)
-  const int row0 = blockIdx.x * kRows;
+  const int wm = warp >> (W == kW ? 2 : 1);                 // 32-row part of the CTA
+  const int rb = 32 * wm + 4 * (lane >> 3);                 // the block's rows rb + R(i)
+  const int cb = 64 * (warp & (W / 64 - 1)) + 4 * (lane & 7);  // and columns cb + C(j)
+  const int row0 = blockIdx.x * R;
   const size_t rp = static_cast<size_t>(p.rp);
   const bool dg = p.ubar != nullptr;
   const float* bias = static_cast<const float*>(p.b);
   float* vec = p.vec + static_cast<size_t>(blockIdx.x) * p.nvec;
-  const int o_dwd = p.depth * kW;
-  const int o_dwh = o_dwd + (p.wd != nullptr ? kW : 0);
-  const int o_dbh = o_dwh + p.hf * kW;
+  const int o_dwd = p.depth * W;
+  const int o_dwh = o_dwd + (p.wd != nullptr ? W : 0);
+  const int o_dbh = o_dwh + p.hf * W;
   const int o_dbc = o_dbh + p.hf;
   [[maybe_unused]] const int o_dbsig = o_dbc + HC;
-  // Each region's rows of this tile: layer l of a [depth][rp][W] region.
+  // Each region's rows of this CTA: layer l of a [depth][rp][W] region.
   auto rows_at = [&](void* region, int l) {
-    return static_cast<float*>(region) + (l * rp + row0) * kW;
+    return static_cast<float*>(region) + (l * rp + row0) * W;
   };
   float acc[8][8];
   float cs[8];
@@ -206,21 +296,24 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     else
       load_input_f32<false>(inb, static_cast<const float*>(p.x0), p.d0,
                             static_cast<const float*>(p.x1), p.d1, kin, row0, p.n, p.dir);
-  } else {
+  } else if constexpr (W == kW) {
     load_input_f32<DIR>(inb, static_cast<const float*>(p.x0), p.d0,
                         static_cast<const float*>(p.x1), p.d1, kin, row0, p.n, p.dir);
+  } else {
+    load_input_rows<R>(inb, static_cast<const float*>(p.x0), p.d0,
+                       static_cast<const float*>(p.x1), p.d1, kin, row0, p.n);
   }
-  for (int r = tid; r < kRows; r += kCons)
+  for (int r = tid; r < R; r += kCons)
     sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
-  for (int i = tid; i < kRows * p.hf; i += kCons)
+  for (int i = tid; i < R * p.hf; i += kCons)
     hb[i] = (p.hbar != nullptr && row0 + i / p.hf < p.n)
                 ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
   if (dg)
-    for (int i = tid; i < kRows * p.nb; i += kCons)
+    for (int i = tid; i < R * p.nb; i += kCons)
       ub[i] = row0 + i / p.nb < p.n ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
   cons_sync();
   PHASE_MARK(0, kScal);
-  store_in(static_cast<float*>(p.xs) + row0 * static_cast<size_t>(kin), inb, kin);
+  store_in<W>(static_cast<float*>(p.xs) + row0 * static_cast<size_t>(kin), inb, kin);
   PHASE_MARK(0, kStore);
 
   // 1b. K6: sbar += ct_raw of this tile's rows, and d bsig (trunk_bwd.cu).
@@ -253,15 +346,15 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   // masks as bits in the block's order. acc keeps y after the last layer.
   for (int l = 0; l < p.depth; ++l) {
     if (l == 0)
-      product(acc, inb, kin, inb, kin, ring, ringp, rb, cb);
+      product<W>(acc, inb, kin, inb, kin, ring, ringp, rb, cb);
     else
-      product(acc, act, kW, inb, k_dim(p, l), ring, ringp, rb, cb);
+      product<W>(acc, act, W, inb, k_dim<W>(p, l), ring, ringp, rb, cb);
     PHASE_MARK(1, kProd);
     cons_sync();
     uint2 mk = make_uint2(0u, 0u);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float b = __ldg(bias + l * kW + cb + col_of(j));
+      const float b = __ldg(bias + l * W + cb + col_of(j));
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         acc[i][j] = fmaxf(acc[i][j] + b, 0.f);
@@ -270,10 +363,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       }
     }
     masks[l * kCons + tid] = mk;
-    put_tile(act, acc, rb, cb);
+    put_tile<LD>(act, acc, rb, cb);
     cons_sync();
     PHASE_MARK(1, kScal);
-    put_rows(rows_at(p.hs, l), acc, rb, cb);
+    put_rows<W>(rows_at(p.hs, l), acc, rb, cb);
     PHASE_MARK(1, kStore);
   }
 
@@ -323,7 +416,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
       for (int i = 0; i < 8; ++i) cs[j] = fmaf(sb[rb + row_of(i)], acc[i][j], cs[j]);
     }
-    col_sums(cs, red, vec + o_dwd, false, wm, cb);
+    col_sums<W>(cs, red, vec + o_dwd, false, wm, cb);
   }
   for (int h = 0; h < p.hf; ++h) {
 #pragma unroll
@@ -332,46 +425,48 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
       for (int i = 0; i < 8; ++i) cs[j] = fmaf(hb[(rb + row_of(i)) * p.hf + h], acc[i][j], cs[j]);
     }
-    col_sums(cs, red, vec + o_dwh + h * kW, false, wm, cb);
+    col_sums<W>(cs, red, vec + o_dwh + h * W, false, wm, cb);
   }
   if (tid < p.hf) {
     float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += hb[r * p.hf + tid];
+    for (int r = 0; r < R; ++r) s += hb[r * p.hf + tid];
     vec[o_dbh + tid] = s;
   }
   PHASE_MARK(2, kScal);
 
   // 4. With u's cotangent, the inner chain: s_{L-1} = relu'(h) wd,
   // s_{l-1} = relu'(h_{l-1}) (s_l Wa_l), each to the tile and the scratch.
-  if (dg) {
-    {
-      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+  if constexpr (W == kW) {  // no cotangent of u at width 128
+    if (dg) {
+      {
+        const uint2 mk = masks[(p.depth - 1) * kCons + tid];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float q = __ldg(p.wd + cb + col_of(j));
+        for (int j = 0; j < 8; ++j) {
+          const float q = __ldg(p.wd + cb + col_of(j));
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i][j] = bit_at(mk, 8 * i + j) ? q : 0.f;
+          for (int i = 0; i < 8; ++i) acc[i][j] = bit_at(mk, 8 * i + j) ? q : 0.f;
+        }
       }
-    }
-    cons_sync();  // K10 and the head sums are done with the tile
-    put_tile(act, acc, rb, cb);
-    cons_sync();
-    put_rows(rows_at(p.ss, p.depth - 1), acc, rb, cb);
-    PHASE_MARK(3, kScal);
-    for (int l = p.depth - 1; l > 0; --l) {
-      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
-      PHASE_MARK(3, kProd);
+      cons_sync();  // K10 and the head sums are done with the tile
+      put_tile<LD>(act, acc, rb, cb);
       cons_sync();
-      const uint2 mk = masks[(l - 1) * kCons + tid];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
-      put_tile(act, acc, rb, cb);
-      cons_sync();
-      put_rows(rows_at(p.ss, l - 1), acc, rb, cb);
+      put_rows<W>(rows_at(p.ss, p.depth - 1), acc, rb, cb);
       PHASE_MARK(3, kScal);
+      for (int l = p.depth - 1; l > 0; --l) {
+        product<W>(acc, act, W, act, W, ring, ringp, rb, cb);
+        PHASE_MARK(3, kProd);
+        cons_sync();
+        const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+        put_tile<LD>(act, acc, rb, cb);
+        cons_sync();
+        put_rows<W>(rows_at(p.ss, l - 1), acc, rb, cb);
+        PHASE_MARK(3, kScal);
+      }
     }
   }
 
@@ -389,7 +484,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
       for (int i = 0; i < 8; ++i) hv[i] = hb[(rb + row_of(i)) * p.hf + h];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) wv[j] = __ldg(p.wh + h * kW + cb + col_of(j));
+      for (int j = 0; j < 8; ++j) wv[j] = __ldg(p.wh + h * W + cb + col_of(j));
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -463,79 +558,150 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
     for (int i = 0; i < 8; ++i) cs[j] += acc[i][j];
   }
-  put_tile(act, acc, rb, cb);
+  put_tile<LD>(act, acc, rb, cb);
   PHASE_MARK(4, kScal);
-  put_rows(rows_at(p.zs, p.depth - 1), acc, rb, cb);
+  put_rows<W>(rows_at(p.zs, p.depth - 1), acc, rb, cb);
   PHASE_MARK(4, kStore);
-  col_sums(cs, red, vec + (p.depth - 1) * kW, false, wm, cb);
+  col_sums<W>(cs, red, vec + (p.depth - 1) * W, false, wm, cb);
   PHASE_MARK(4, kScal);
 
   // 6. The first-order reverse: dx, zeta_{l-1} = relu'(h_{l-1}) (zeta_l
   // Wa_l), db_{l-1}.
   [[maybe_unused]] float* dsh = inb;  // K8: [kRows][dide]
   for (int l = p.depth - 1; l >= 0; --l) {
-    if (HC == 0 && p.dx0 != nullptr && (l == 0 || l == p.skip)) {
-      // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0 in f32, the skip layer's
-      // share in the f32 scratch; with K8 the IDE block's cotangents to dsh.
-      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
-      PHASE_MARK(5, kProd);
-      const int dide = DIR ? p.dir.width() : 0, fin = p.d0 + dide + p.d1;
-      if (l == 0 && p.skip >= 0) {
-        // The skip layer's share first, every load in flight before a store.
+    if constexpr (W != kW) {
+      if (p.dx0 != nullptr && (l == 0 || l == p.skip)) {
+        // Width 128: dx (no IDE block here) in passes over the kin input
+        // columns, 128 at a time, each as the width-256 block below; a last
+        // pass over at most 64 columns runs `product_half`, its 4 columns
+        // cbh + j a thread in acc[i][0..3] (one group, h = 0).
+        const int cbh = 32 * (warp & 1) + 4 * (lane & 7);
+        for (int cx = 0; cx < kin; cx += W) {
+          const bool half = kin - cx <= W / 2;
+          if (half) {
+            Half hv;
+            product_half<W>(hv, act, W, ring, ringp, rb, cbh);
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] = hv[i][j];
+          } else {
+            product<W>(acc, act, W, act, W, ring, ringp, rb, cb);
+          }
+          PHASE_MARK(5, kProd);
+          const int base = half ? cx + cbh : cx + cb;  // group h at base + 32 h
+          if (l == 0 && p.skip >= 0) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int c0 = base + 32 * h;
+                if (c0 >= kin || (half && h == 1)) continue;
+                const float4 k4 = *reinterpret_cast<const float4*>(
+                    p.dxs + static_cast<size_t>(row0 + rb + row_of(i)) * kin + c0);
+                acc[i][4 * h] = k4.x + acc[i][4 * h];
+                acc[i][4 * h + 1] = k4.y + acc[i][4 * h + 1];
+                acc[i][4 * h + 2] = k4.z + acc[i][4 * h + 2];
+                acc[i][4 * h + 3] = k4.w + acc[i][4 * h + 3];
+              }
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = rb + row_of(i);
+            const size_t gr = static_cast<size_t>(row0 + r);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c0 = base + 32 * h;
+              if (c0 >= kin || (half && h == 1)) continue;
+              const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                  acc[i][4 * h + 3]};
+              if (l != 0) {
+                *reinterpret_cast<float4*>(p.dxs + gr * kin + c0) =
+                    make_float4(v[0], v[1], v[2], v[3]);
+              } else if (c0 + 3 < p.d0 && (p.d0 & 3) == 0) {
+                if (row0 + r < p.n)
+                  *reinterpret_cast<float4*>(static_cast<float*>(p.dx0) + gr * p.d0 + c0) =
+                      make_float4(v[0], v[1], v[2], v[3]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int c = c0 + e;
+                  if (row0 + r >= p.n || c >= p.d0 + p.d1) continue;
+                  if (c < p.d0)
+                    static_cast<float*>(p.dx0)[gr * p.d0 + c] = v[e];
+                  else
+                    static_cast<float*>(p.dx1)[gr * p.d1 + (c - p.d0)] = v[e];
+                }
+              }
+            }
+          }
+          PHASE_MARK(5, kStore);
+        }
+      }
+    } else {
+      if (HC == 0 && p.dx0 != nullptr && (l == 0 || l == p.skip)) {
+        // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0 in f32, the skip layer's
+        // share in the f32 scratch; with K8 the IDE block's cotangents to dsh.
+        product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+        PHASE_MARK(5, kProd);
+        const int dide = DIR ? p.dir.width() : 0, fin = p.d0 + dide + p.d1;
+        if (l == 0 && p.skip >= 0) {
+          // The skip layer's share first, every load in flight before a store.
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c0 = cb + 32 * h;
+              if (c0 >= kin) continue;
+              const float4 k4 = *reinterpret_cast<const float4*>(
+                  p.dxs + static_cast<size_t>(row0 + rb + row_of(i)) * kin + c0);
+              acc[i][4 * h] = k4.x + acc[i][4 * h];
+              acc[i][4 * h + 1] = k4.y + acc[i][4 * h + 1];
+              acc[i][4 * h + 2] = k4.z + acc[i][4 * h + 2];
+              acc[i][4 * h + 3] = k4.w + acc[i][4 * h + 3];
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = rb + row_of(i);
+          const size_t gr = static_cast<size_t>(row0 + r);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int c0 = cb + 32 * h;
             if (c0 >= kin) continue;
-            const float4 k4 = *reinterpret_cast<const float4*>(
-                p.dxs + static_cast<size_t>(row0 + rb + row_of(i)) * kin + c0);
-            acc[i][4 * h] = k4.x + acc[i][4 * h];
-            acc[i][4 * h + 1] = k4.y + acc[i][4 * h + 1];
-            acc[i][4 * h + 2] = k4.z + acc[i][4 * h + 2];
-            acc[i][4 * h + 3] = k4.w + acc[i][4 * h + 3];
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = rb + row_of(i);
-        const size_t gr = static_cast<size_t>(row0 + r);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c0 = cb + 32 * h;
-          if (c0 >= kin) continue;
-          const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                              acc[i][4 * h + 3]};
-          if (l != 0) {
-            *reinterpret_cast<float4*>(p.dxs + gr * kin + c0) =
-                make_float4(v[0], v[1], v[2], v[3]);
-            continue;
-          }
-          if (c0 + 3 < p.d0 && (p.d0 & 3) == 0) {  // four columns of dx0: one store
-            if (row0 + r < p.n)
-              *reinterpret_cast<float4*>(static_cast<float*>(p.dx0) + gr * p.d0 + c0) =
+            const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                acc[i][4 * h + 3]};
+            if (l != 0) {
+              *reinterpret_cast<float4*>(p.dxs + gr * kin + c0) =
                   make_float4(v[0], v[1], v[2], v[3]);
-            continue;
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = c0 + e, ci = c - p.d0;
-            if (DIR && ci >= 0 && ci < dide) {
-              dsh[r * dide + ci] = v[e];
               continue;
             }
-            if (row0 + r >= p.n || c >= fin) continue;
-            if (c < p.d0)
-              static_cast<float*>(p.dx0)[gr * p.d0 + c] = v[e];
-            else
-              static_cast<float*>(p.dx1)[gr * p.d1 + (ci - dide)] = v[e];
+            if (c0 + 3 < p.d0 && (p.d0 & 3) == 0) {  // four columns of dx0: one store
+              if (row0 + r < p.n)
+                *reinterpret_cast<float4*>(static_cast<float*>(p.dx0) + gr * p.d0 + c0) =
+                    make_float4(v[0], v[1], v[2], v[3]);
+              continue;
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = c0 + e, ci = c - p.d0;
+              if (DIR && ci >= 0 && ci < dide) {
+                dsh[r * dide + ci] = v[e];
+                continue;
+              }
+              if (row0 + r >= p.n || c >= fin) continue;
+              if (c < p.d0)
+                static_cast<float*>(p.dx0)[gr * p.d0 + c] = v[e];
+              else
+                static_cast<float*>(p.dx1)[gr * p.d1 + (ci - dide)] = v[e];
+            }
           }
         }
+        PHASE_MARK(5, kStore);
       }
-      PHASE_MARK(5, kStore);
     }
     if (l > 0) {
-      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+      product<W>(acc, act, W, act, W, ring, ringp, rb, cb);
       PHASE_MARK(5, kProd);
       cons_sync();
       const uint2 mk = masks[(l - 1) * kCons + tid];
@@ -548,11 +714,11 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
           cs[j] += acc[i][j];
         }
       }
-      put_tile(act, acc, rb, cb);
+      put_tile<LD>(act, acc, rb, cb);
       PHASE_MARK(5, kScal);
-      put_rows(rows_at(p.zs, l - 1), acc, rb, cb);
+      put_rows<W>(rows_at(p.zs, l - 1), acc, rb, cb);
       PHASE_MARK(5, kStore);
-      col_sums(cs, red, vec + (l - 1) * kW, false, wm, cb);
+      col_sums<W>(cs, red, vec + (l - 1) * W, false, wm, cb);
       PHASE_MARK(5, kScal);
     }
   }
@@ -569,79 +735,84 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   // 7. With u's cotangent, the tangent chain: ts = (t xc, -(t xs)) replaces
   // x in the input tile; p_l = relu'(h_l) ([p_{l-1} | ts] W_l), to the
   // scratch but the last, whose column sums add to dwd.
-  if (dg) {
-    const int F = p.d0;
-    [[maybe_unused]] Ipe ipe_s;
-    if constexpr (SPA) {
-      if (p.ipe.lm != nullptr) ipe_s = stage_ipe(p.ipe, red, row0, p.n);
-    }
-    for (int i = tid; i < kRows * F; i += kCons) {
-      const int r = i / F, c = i % F;
-      float tp = 0.f;
-      for (int j = 0; j < p.nb; ++j) tp = fmaf(ub[r * p.nb + j], p.fold[c * p.nb + j], tp);
+  if constexpr (W == kW) {  // no cotangent of u at width 128
+    if (dg) {
+      const int F = p.d0;
+      [[maybe_unused]] Ipe ipe_s;
       if constexpr (SPA) {
-        if (p.ipe.lm != nullptr) {  // K7: the f32 factors
-          float e = 0.f, sn = 0.f, cs_ = 0.f;
-          if (row0 + r < p.n) ipe_trig(ipe_s, r, c, e, sn, cs_);
-          const float te = mul(tp, e);
-          inb[c * kLD + r] = mul(te, cs_);
-          inb[(F + c) * kLD + r] = -mul(te, sn);
-          continue;
-        }
+        if (p.ipe.lm != nullptr) ipe_s = stage_ipe(p.ipe, red, row0, p.n);
       }
-      const float xs = inb[c * kLD + r], xc = inb[(F + c) * kLD + r];
-      inb[c * kLD + r] = tp * xc;
-      inb[(F + c) * kLD + r] = -(tp * xs);
-    }
-    cons_sync();
-    PHASE_MARK(6, kScal);
-    store_in(static_cast<float*>(p.ts) + row0 * static_cast<size_t>(kin), inb, kin);
-    PHASE_MARK(6, kStore);
-    for (int l = 0; l < p.depth; ++l) {
-      if (l == 0)
-        product(acc, inb, kin, inb, kin, ring, ringp, rb, cb);
-      else
-        product(acc, act, kW, inb, k_dim(p, l), ring, ringp, rb, cb);
-      PHASE_MARK(6, kProd);
+      for (int i = tid; i < R * F; i += kCons) {
+        const int r = i / F, c = i % F;
+        float tp = 0.f;
+        for (int j = 0; j < p.nb; ++j) tp = fmaf(ub[r * p.nb + j], p.fold[c * p.nb + j], tp);
+        if constexpr (SPA) {
+          if (p.ipe.lm != nullptr) {  // K7: the f32 factors
+            float e = 0.f, sn = 0.f, cs_ = 0.f;
+            if (row0 + r < p.n) ipe_trig(ipe_s, r, c, e, sn, cs_);
+            const float te = mul(tp, e);
+            inb[c * LD + r] = mul(te, cs_);
+            inb[(F + c) * LD + r] = -mul(te, sn);
+            continue;
+          }
+        }
+        const float xs = inb[c * LD + r], xc = inb[(F + c) * LD + r];
+        inb[c * LD + r] = tp * xc;
+        inb[(F + c) * LD + r] = -(tp * xs);
+      }
       cons_sync();
-      const uint2 mk = masks[l * kCons + tid];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cs[j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
-          cs[j] += acc[i][j];
-        }
-      }
-      if (l + 1 < p.depth) {
-        put_tile(act, acc, rb, cb);
+      PHASE_MARK(6, kScal);
+      store_in<W>(static_cast<float*>(p.ts) + row0 * static_cast<size_t>(kin), inb, kin);
+      PHASE_MARK(6, kStore);
+      for (int l = 0; l < p.depth; ++l) {
+        if (l == 0)
+          product<W>(acc, inb, kin, inb, kin, ring, ringp, rb, cb);
+        else
+          product<W>(acc, act, W, inb, k_dim<W>(p, l), ring, ringp, rb, cb);
+        PHASE_MARK(6, kProd);
         cons_sync();
-        PHASE_MARK(6, kScal);
-        put_rows(rows_at(p.ps, l), acc, rb, cb);
-        PHASE_MARK(6, kStore);
-      } else {
-        col_sums(cs, red, vec + o_dwd, true, wm, cb);
-        PHASE_MARK(6, kScal);
+        const uint2 mk = masks[l * kCons + tid];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          cs[j] = 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+            cs[j] += acc[i][j];
+          }
+        }
+        if (l + 1 < p.depth) {
+          put_tile<LD>(act, acc, rb, cb);
+          cons_sync();
+          PHASE_MARK(6, kScal);
+          put_rows<W>(rows_at(p.ps, l), acc, rb, cb);
+          PHASE_MARK(6, kStore);
+        } else {
+          col_sums<W>(cs, red, vec + o_dwd, true, wm, cb);
+          PHASE_MARK(6, kScal);
+        }
       }
     }
   }
 }
 
-// Shared memory of the per-tile kernel but its ring, and the ring's stages
-// that fit beside it (0 when fewer than kMinStages do).
+// Shared memory of the per-CTA kernel but its ring, and the ring's stages
+// that fit beside it (0 when fewer than kMinStages do), at width W.
+template <int W>
 size_t f32_smem(const BwdParams& p, int* stages) {
-  const size_t rest = 1024 + 4 * static_cast<size_t>(kW + p.kin) * kLD +
+  const size_t rest = 1024 + 4 * static_cast<size_t>(W + p.kin) * kLDW<W> +
                       8 * static_cast<size_t>(p.depth) * kCons + 4 * 2 * kW +
-                      4 * static_cast<size_t>(kRows) * (1 + p.hf + p.nb) + 8 + 16 * kMaxStages;
-  const size_t fit = rest < 232448 ? (232448 - rest) / kSliceF : 0;
+                      4 * static_cast<size_t>(kRowsW<W>) * (1 + p.hf + p.nb) + 8 +
+                      16 * kMaxStages;
+  const size_t fit = rest < 232448 ? (232448 - rest) / kSliceFW<W> : 0;
   *stages = fit < kMinStages ? 0 : static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
-  return rest + static_cast<size_t>(*stages) * kSliceF;
+  return rest + static_cast<size_t>(*stages) * kSliceFW<W>;
 }
 
-template <int HC, bool DIR, bool SPA, bool YO>
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
 int launch_f32(const BwdParams& p, int hc, cudaStream_t stream) {
-  if (p.depth > kMaxDepth || p.kin > kW || hc != HC) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.depth > kMaxDepth || p.kin > kW || hc != HC || p.rp % kRowsW<W> != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   // K6's scratch ([kRows] + [8 warps][S] floats) and K8's f32 cotangents
   // must fit in the activation and input tiles, K7's staged inputs in red.
   if (SPA && p.wbar != nullptr && kRows + (kCons / 32) * p.samples > kW * kLD)
@@ -655,16 +826,17 @@ int launch_f32(const BwdParams& p, int hc, cudaStream_t stream) {
   if (HC > 0 && p.dx0 != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   MapsF32 m;
   memset(&m, 0, sizeof(m));
-  bool ok = make_layer_maps_f32(m, p.w, p.wt, p.depth, p.kin, p.skip);
+  bool ok = make_layer_maps_f32<W>(m, p.w, p.wt, p.depth, p.kin, p.skip);
   if (HC > 0) ok = ok && make_map_f32(&m.wc, p.wct, kW, HC, kW, kW, kSD);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = f32_smem(p, &m.stages);
+  const size_t smem = f32_smem<W>(p, &m.stages);
   if (m.stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_f32_kernel<HC, DIR, SPA, YO>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_f32_kernel<HC, DIR, SPA, YO><<<p.rp / kRows, kTmaThreads, smem, stream>>>(p, m);
+  trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W>
+      <<<p.rp / kRowsW<W>, kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -791,22 +963,28 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // synchronise; all run on `stream`.
 
 // The per-tile backward of refnerf_trunk_bwd (the same arguments), for the
-// f32 trunk at width 256 (dtype 0), at most 8 layers and 256 input
-// columns: K4 (hc 128; with K6/K7, SPA), K5 (hc 0, dx; with K8-K10, DIR)
-// and K11's y cotangent (YO); dx only with hc 0, as the directional trunk
-// asks for it. `wct` is the compute-dtype head untransposed, wc
-// [hc][width] (its products read the contraction index outermost). The
-// weight-gradient operands go to the scratch sample-major, [rp][features]
-// per region (h, zeta, s, p: [depth][rp][W]; x, ts: [rp][kin]; cbar:
-// [rp][hc]), for refnerf_wgrad_f32.
+// f32 trunk (dtype 0) of at most 8 layers and 256 input columns: at width
+// 256 K4 (hc 128; with K6/K7, SPA), K5 (hc 0, dx; with K8-K10, DIR) and
+// K11's y cotangent (YO), dx only with hc 0, as the directional trunk asks
+// for it; at width 128 the plain K5 alone (hc 0, no density head, fused
+// stage, cotangent of u or y), 128 samples a CTA, so rp a multiple of 128.
+// `wct` is the compute-dtype head untransposed, wc [hc][width] (its
+// products read the contraction index outermost). The weight-gradient
+// operands go to the scratch sample-major, [rp][features] per region (h,
+// zeta, s, p: [depth][rp][W]; x, ts: [rp][kin]; cbar: [rp][hc]), for
+// refnerf_wgrad_f32; the vector gradients one row a CTA.
 extern "C" int refnerf_trunk_bwd_f32(REFNERF_BWD_ARGS) {
   BwdParams p;
   const int err = bwd_params(p, REFNERF_BWD_NAMES);
   if (err != 0) return err;
-  if (dtype != 0 || width != kW) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 || (width != kW && width != 128)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wbar != nullptr;
+  if (width == 128)
+    return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr && p.ybar == nullptr
+               ? launch_f32<0, false, false, false, 128>(p, hc, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (p.ybar != nullptr)
     return hc == 0 && !dir && !spa && p.ubar == nullptr
                ? launch_f32<0, false, false, true>(p, hc, s)

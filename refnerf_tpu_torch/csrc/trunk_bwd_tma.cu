@@ -1,24 +1,28 @@
-// The bf16 width-256 trunk backward for Hopper (sm_90a): wgmma products fed
-// by a TMA weight ring, and a wgmma weight-gradient product.
+// The bf16 trunk backward for Hopper (sm_90a) at widths 256 and 128: wgmma
+// products fed by a TMA weight ring, and a wgmma weight-gradient product.
 //
 // Replaces, for the compute dtype bfloat16 at width 256, the backward Pallas
 // kernel `_bwd_kernel` (:668-853) of refnerf_tpu/ops/pallas/fused_mlp.py in
 // the modes of trunk_bwd.cu (K4 with and without u's cotangent, K5 with dx,
-// K6/K7 in K4, K8-K10 in K5, K11's y cotangent), with the same arithmetic
-// and bf16 roundings (trunk_bwd.cu:32-40) and the same C arguments. The
-// float32 and width-128 instances stay in trunk_bwd.cu.
+// K6/K7 in K4, K8-K10 in K5, K11's y cotangent), and at width 128 in the
+// plain K5 (mip-NeRF's directional trunk), up to 8 layers and 256 input
+// columns, with the same arithmetic and bf16 roundings (trunk_bwd.cu:32-40)
+// and the same C arguments. The float32 instances and the trunks past these
+// shapes stay in trunk_bwd_f32.cu and trunk_bwd.cu.
 //
 // Bound on the H100: the per-tile work is ~2.6 GFLOP of bf16 products a
 // 64-sample tile for K4 with u's cotangent (3.2 TFLOP at N = 524,288 with
 // the weight gradients; 3.2 ms at 989 TFLOP/s); the weight-gradient
 // operands (h, zeta, s, p, x, ts, cbar: ~17 KB a sample for K4, ~8.6 KB for
-// K5) cross device memory twice, written here and read once by
-// wgrad_tma_kernel: ~5.3 ms (K4) and ~2.7 ms (K5) at 3.35 TB/s, the floor
-// of this data flow, above the products' bound. (That kernel's 128 x 128
-// output tiles read Z and A twice for a 256-row gradient; the tiles of one
-// split of samples are adjacent in its grid, so the second read comes from
-// L2.) A 64-row tile reads each layer's weights (128 KB) from L2 for 8.4
-// MFLOP, 64 FLOP a byte.
+// K5, ~4.5 KB for K5 at width 128) cross device memory twice, written here
+// and read once by wgrad_tma_kernel: ~5.3 ms (K4), ~2.7 ms (K5) and ~1.4 ms
+// (K5 at width 128, against its 0.5 ms of products) at 3.35 TB/s, the
+// floor of this data flow, above the products' bound. (That kernel's 128 x
+// 128 output tiles read Z and A twice for a 256-row gradient; the tiles of
+// one split of samples are adjacent in its grid, so the second read comes
+// from L2.) A 64-row tile reads each layer's weights (128 KB) from L2 for
+// 8.4 MFLOP, 64 FLOP a byte; at width 128 a tile's products are a quarter
+// as large, so a CTA holds two tiles that share each weight slice.
 //
 // Design.
 //  - Two consumer warpgroups and one producer warp a CTA of 64 samples.
@@ -26,7 +30,13 @@
 //    wgmma m64n128k16, warpgroup g owning output columns [128 g, 128 g +
 //    128): 64 f32 accumulators a thread, in the wgmma layout (acc[4 j + 2 h
 //    + e] at row 16 w + lane / 4 + 8 h, column 128 g + 8 j + 2 (lane % 4) +
-//    e, w the warp of the warpgroup).
+//    e, w the warp of the warpgroup). At width 128 a CTA holds two tiles
+//    of 64 samples, warpgroup g owning all 128 columns of tile g with the
+//    same accumulators and epilogues, and both read each [128][64] weight
+//    slice (16 KB): twice the products a byte of weights. There zeta_skip
+//    waits in the tile's input blocks (free after the recompute), and dx is
+//    one product at l = 0, [zeta_skip | zeta_0] against [Wx_skip ; Wx_0],
+//    in passes of 128 input columns: no f32 scratch for the skip share.
 //  - A (the activation tile, the input tile) lives in shared memory in
 //    wgmma's K-major 128-byte-swizzled layout: 64-column blocks of 64 rows x
 //    128 bytes, 16-byte chunk q of row r at chunk q ^ (r % 8). Every access
@@ -49,6 +59,8 @@
 //    128 x 128 output tiles per split of samples, and writes each split's
 //    partial; reduce_kernel (trunk_bwd.cu) sums the partials in a fixed
 //    order. No float atomics: the gradients do not depend on the schedule.
+//    At width 128 the bias gradients' column sums add tile 0's four warps,
+//    then tile 1's, into one row of partials a CTA.
 // One CTA an SM (~200 KB of shared memory; 168 registers a thread, as
 // ptxas allots a 288-thread block in whole warpgroups): the ring's four
 // stages hold a whole 256-deep layer, so the weights of the next product
@@ -75,31 +87,46 @@ struct TmaMaps {
   CUtensorMap cs;              // [rp][HC]
 };
 
+template <int W>
 __device__ __forceinline__ int k_dim(const BwdParams& p, int l) {
-  return l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+  return l == 0 ? p.kin : (l == p.skip ? W + p.kin : W);
 }
 
-// The products of one tile in order, as (tensor map, first B row, K); the
+// The products of one CTA in order, as (tensor map, first B row, K); the
 // producer loads their slices, and the kernel below runs them in this order.
-template <int HC, typename F>
+// At width 128 dx is one product at l = 0, [zeta_skip | zeta_0] against
+// [Wx_skip ; Wx_0], over the kin input columns in passes of 128.
+template <int HC, int W, typename F>
 __device__ void schedule(const BwdParams& p, const TmaMaps& m, F&& load) {
   const bool dg = p.ubar != nullptr, dx = p.dx0 != nullptr;
-  for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim(p, l));  // recompute
+  for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim<W>(p, l));  // recompute
   if (dg)
-    for (int l = p.depth - 1; l > 0; --l) load(&m.wt[l], 0, kW);  // inner chain
-  if (HC > 0) load(&m.wct, 0, HC);                                // head backward
-  for (int l = p.depth - 1; l >= 0; --l) {                        // first-order reverse
-    if (dx && (l == 0 || l == p.skip)) load(&m.wt[l], l == 0 ? 0 : kW, kW);
-    if (l > 0) load(&m.wt[l], 0, kW);
+    for (int l = p.depth - 1; l > 0; --l) load(&m.wt[l], 0, W);  // inner chain
+  if (HC > 0) load(&m.wct, 0, HC);                               // head backward
+  for (int l = p.depth - 1; l >= 0; --l) {                       // first-order reverse
+    if (dx && (l == 0 || l == p.skip)) {
+      if constexpr (W == kW) {
+        load(&m.wt[l], l == 0 ? 0 : kW, kW);
+      } else if (l == 0) {
+        for (int cx = 0; cx < p.kin; cx += W) {
+          if (p.skip >= 0) load(&m.wt[p.skip], W + cx, W);
+          load(&m.wt[0], cx, W);
+        }
+      }
+    }
+    if (l > 0) load(&m.wt[l], 0, W);
   }
   if (dg)
-    for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim(p, l));  // tangent
+    for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim<W>(p, l));  // tangent
 }
 
-// Column sums over the tile's rows of the values each thread holds for its
-// two rows, cs[j][e] for column 128 g + 8 j + 2 (lane % 4) + e: shuffles over
-// the 8 lanes of a column, then the 4 warps in order through `red`.
-// out[c] = (add ? out[c] : 0) + sum for c < ncols. All consumers call it.
+// Column sums over the CTA's rows of the values each thread holds for its
+// two rows, cs[j][e] for column 128 g + 8 j + 2 (lane % 4) + e of warpgroup
+// g's columns (at width 128 column 8 j + 2 (lane % 4) + e of tile g):
+// shuffles over the 8 lanes of a column, then the 4 warps in order through
+// `red` (at width 128 tile 0's, then tile 1's). out[c] = (add ? out[c] : 0)
+// + sum for c < ncols. All consumers call it.
+template <int W>
 __device__ void col_sums(float (&cs)[16][2], float* red, float* out, int ncols, bool add) {
   const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, w4 = (tid >> 5) & 3;
 #pragma unroll
@@ -114,7 +141,11 @@ __device__ void col_sums(float (&cs)[16][2], float* red, float* out, int ncols, 
     }
   cons_sync();
   if (tid < ncols) {
-    const float s = ((red[tid] + red[kCons + tid]) + red[2 * kCons + tid]) + red[3 * kCons + tid];
+    float s = ((red[tid] + red[kCons + tid]) + red[2 * kCons + tid]) + red[3 * kCons + tid];
+    if constexpr (W != kW) {
+      const int c = W + tid;  // tile 1's sum of the column
+      s = s + (((red[c] + red[kCons + c]) + red[2 * kCons + c]) + red[3 * kCons + c]);
+    }
     out[tid] = add ? out[tid] + s : s;
   }
   cons_sync();
@@ -181,22 +212,79 @@ __device__ void load_ipe_sw(const Tile& t, const Ipe& q, int F, int kp, int row0
   }
 }
 
-template <int HC, bool DIR, bool SPA, bool YO>
+// Width 128: the CTA's two 64-row input tiles (tile g at inb + g * in_b)
+// in the swizzled layout (load_input_sw without the IDE block),
+// zero-padded to kp columns and past row n; x0 in 16-byte loads, one
+// swizzled chunk of 8 columns each, where its rows allow (d0 a multiple of
+// 8, the pointer 16-byte aligned). Thread t keeps to row t % 128, and every
+// load of a batch is in flight before its stores.
+__device__ void load_input_rows(unsigned char* inb, int in_b, const bf16* x0, int d0,
+                                const bf16* x1, int d1, int kp, int row0, int n) {
+  constexpr int R = 2 * kRows;
+  const auto at = [&](int r, int c) { return inb + (r / kRows) * in_b + sw_off(r % kRows, c); };
+  int c_lo = 0;  // columns [0, c_lo) come by the 16-byte loads
+  if ((d0 & 7) == 0 && (reinterpret_cast<uintptr_t>(x0) & 15) == 0) {
+    const int total = R * (d0 / 8);
+    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kCons, gr = row0 + i % R;
+        v[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < total && gr < n)
+          v[u] = __ldg(reinterpret_cast<const uint4*>(x0 + static_cast<size_t>(gr) * d0) + i / R);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kCons;
+        if (i < total) *reinterpret_cast<uint4*>(at(i % R, 8 * (i / R))) = v[u];
+      }
+    }
+    c_lo = d0;
+  }
+  const int total = R * (kp - c_lo);
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+    bf16 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, gr = row0 + i % R, c = c_lo + i / R, c1 = c - d0;
+      v[u] = from_f<bf16>(0.f);
+      if (i < total && gr < n) {
+        if (c < d0)
+          v[u] = __ldg(x0 + static_cast<size_t>(gr) * d0 + c);
+        else if (c1 < d1)
+          v[u] = __ldg(x1 + static_cast<size_t>(gr) * d1 + c1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons;
+      if (i < total) *reinterpret_cast<bf16*>(at(i % R, c_lo + i / R)) = v[u];
+    }
+  }
+}
+
+// W: the trunk width, 256, or 128 for the plain directional trunk alone (HC
+// 0, no fused stage, no K11, no cotangent of u). A CTA holds T = 1 (256) or
+// 2 (128) tiles of 64 samples; at 128 warpgroup g runs tile g's products.
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_bwd_tma_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ TmaMaps m) {
+  static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K5 alone");
+  constexpr int T = kTiles<W>, R = kRows * T, ActB = (W / 64) * kBlk;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
-  unsigned char* ring = smem;                    // kStages x [256][64]
-  unsigned char* act = ring + kStages * kSlice;  // [64][256]: h, s, zeta, p in turn
-  unsigned char* inb = act + (kW / 64) * kBlk;   // [64][kp]: x, then ts
-  uint2* masks = reinterpret_cast<uint2*>(inb + (kp / 64) * kBlk);  // [depth][256]
-  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);   // [4][256]
-  float* sb = red + 4 * kCons;                                      // [kRows]
-  float* hb = sb + kRows;                                           // [kRows][hf]
-  float* ub = hb + kRows * p.hf;                                    // [kRows][nb]
+  unsigned char* ring = smem;                         // kStages x [W][64]
+  unsigned char* act = ring + kStages * kSliceW<W>;   // T x [64][W]: h, s, zeta, p in turn
+  unsigned char* inb = act + T * ActB;                // T x [64][kp]: x, then ts
+  uint2* masks = reinterpret_cast<uint2*>(inb + (kp / 64) * kBlk * T);  // [depth][256]
+  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [4][256]
+  float* sb = red + 4 * kCons;                                     // [R]
+  float* hb = sb + R;                                              // [R][hf]
+  float* ub = hb + R * p.hf;                                       // [R][nb]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(ub + kRows * p.nb) + 7) & ~static_cast<uintptr_t>(7));
+      (reinterpret_cast<uintptr_t>(ub + R * p.nb) + 7) & ~static_cast<uintptr_t>(7));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + kStages), kStages, 0, 0u};
 
@@ -211,12 +299,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
   if (warp == kCons / 32) {  // the producer warp: weight slices, in order
     if (lane == 0) {
-      schedule<HC>(p, m, [&](const CUtensorMap* map, int row, int K) {
+      schedule<HC, W>(p, m, [&](const CUtensorMap* map, int row, int K) {
         for (int k = 0; k < K; k += kBK) {
           mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
-          mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
-          tma_load(ring_st.base + ring_st.stage * kSlice, map, ring_st.full + 8 * ring_st.stage, k,
-                   row);
+          mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSliceW<W>);
+          tma_load(ring_st.base + ring_st.stage * kSliceW<W>, map,
+                   ring_st.full + 8 * ring_st.stage, k, row);
           ring_st.advance();
         }
       });
@@ -227,18 +315,30 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   // The consumers.
   PHASE_START;
   const int wg = tid >> 7, w4 = warp & 3;
-  const int fr = 16 * w4 + (lane >> 2);      // acc[4 j + 2 h + e]: row fr + 8 h,
-  const int fc = 128 * wg + 2 * (lane & 3);  // column fc + 8 j + e
-  const int row0 = blockIdx.x * kRows;
+  const int fr = 16 * w4 + (lane >> 2);                      // acc[4 j + 2 h + e]: row fr + 8 h,
+  const int fc = (W == kW ? 128 : 0) * wg + 2 * (lane & 3);  // column fc + 8 j + e
+  const int row0 = blockIdx.x * R;
   const int rp = p.rp;
   const bool dg = p.ubar != nullptr;
-  const Tile A{act}, X{inb};
-  const uint32_t act_s = smem_u32(act), inb_s = smem_u32(inb);
+  // The tile's own activation, input and rows of the cotangents (at width
+  // 128 warpgroup g's).
+  unsigned char* act_t = act;
+  unsigned char* inb_t = inb;
+  const float* sbt = sb;
+  const float* hbt = hb;
+  if constexpr (W != kW) {
+    act_t += wg * ActB;
+    inb_t += wg * ((kp / 64) * kBlk);
+    sbt += kRows * wg;
+    hbt += kRows * wg * p.hf;
+  }
+  const Tile A{act_t}, X{inb_t};
+  const uint32_t act_s = smem_u32(act_t), inb_s = smem_u32(inb_t);
   const bf16* bias = static_cast<const bf16*>(p.b);
   float* vec = p.vec + static_cast<size_t>(blockIdx.x) * p.nvec;
-  const int o_dwd = p.depth * kW;
-  const int o_dwh = o_dwd + (p.wd != nullptr ? kW : 0);
-  const int o_dbh = o_dwh + p.hf * kW;
+  const int o_dwd = p.depth * W;
+  const int o_dwh = o_dwd + (p.wd != nullptr ? W : 0);
+  const int o_dbh = o_dwh + p.hf * W;
   const int o_dbc = o_dbh + p.hf;
   [[maybe_unused]] const int o_dbsig = o_dbc + HC;
   float acc[64];
@@ -254,22 +354,33 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     fence_async_smem();
     cons_sync();
   };
-  // The activation tile's 4 blocks to rows [row, row + 64) of a
-  // [rows][256] scratch map.
+  // The activation tile's W / 64 blocks to rows [row, row + 64) of a
+  // [rows][W] scratch map, and at width 128 tile 1's to the next 64 rows
+  // (thread 0's act_s and inb_s are tile 0's).
   auto store_act = [&](const CUtensorMap* map, int row) {
     if (tid == 0) {
-      for (int b = 0; b < kW / 64; ++b) tma_store(map, act_s + b * kBlk, 64 * b, row);
+      for (int b = 0; b < W / 64; ++b) tma_store(map, act_s + b * kBlk, 64 * b, row);
+      if constexpr (T > 1)
+        for (int b = 0; b < W / 64; ++b)
+          tma_store(map, act_s + ActB + b * kBlk, 64 * b, row + kRows);
       bulk_commit();
     }
   };
   auto store_in = [&](const CUtensorMap* map) {
     if (tid == 0) {
       for (int b = 0; b < kp / 64; ++b) tma_store(map, inb_s + b * kBlk, 64 * b, row0);
+      if constexpr (T > 1)
+        for (int b = 0; b < kp / 64; ++b)
+          tma_store(map, inb_s + (kp / 64 + b) * kBlk, 64 * b, row0 + kRows);
       bulk_commit();
     }
   };
   auto put2 = [&](int r, int c, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(act + sw_off(r, c)) = __floats2bfloat162_rn(a, b);
+    // The tile's own (act_t), named only at width 128: capturing act_t
+    // moved the width-256 instances' code.
+    unsigned char* t = act;
+    if constexpr (W != kW) t = act_t;
+    *reinterpret_cast<__nv_bfloat162*>(t + sw_off(r, c)) = __floats2bfloat162_rn(a, b);
   };
 
   // 1. The segments (K8 the IDE block, K7 the IPE) and the cotangents.
@@ -279,17 +390,20 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     else
       load_input_sw<false>(X, static_cast<const bf16*>(p.x0), p.d0,
                            static_cast<const bf16*>(p.x1), p.d1, kp, row0, p.n, p.dir);
-  } else {
+  } else if constexpr (W == kW) {
     load_input_sw<DIR>(X, static_cast<const bf16*>(p.x0), p.d0, static_cast<const bf16*>(p.x1),
                        p.d1, kp, row0, p.n, p.dir);
+  } else {
+    load_input_rows(inb, (kp / 64) * kBlk, static_cast<const bf16*>(p.x0), p.d0,
+                    static_cast<const bf16*>(p.x1), p.d1, kp, row0, p.n);
   }
-  for (int r = tid; r < kRows; r += kCons)
+  for (int r = tid; r < R; r += kCons)
     sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
-  for (int i = tid; i < kRows * p.hf; i += kCons)
+  for (int i = tid; i < R * p.hf; i += kCons)
     hb[i] = (p.hbar != nullptr && row0 + i / p.hf < p.n)
                 ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
   if (dg)
-    for (int i = tid; i < kRows * p.nb; i += kCons)
+    for (int i = tid; i < R * p.nb; i += kCons)
       ub[i] = row0 + i / p.nb < p.n ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
   publish();
   PHASE_MARK(0, kScal);
@@ -326,16 +440,16 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   // masks as bits in the accumulators' order.
   for (int l = 0; l < p.depth; ++l) {
     if (l == 0)
-      product(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
+      product<W>(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
     else
-      product(acc, act_s, kW / 64, inb_s, k_dim(p, l), ring_st);
+      product<W>(acc, act_s, W / 64, inb_s, k_dim<W>(p, l), ring_st);
     PHASE_MARK(1, kProd);
     settle();
     uint32_t mk[2] = {0u, 0u};
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int c = fc + 8 * j;
-      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + l * kW + c);
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + l * W + c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 4 * j + 2 * h;
@@ -393,8 +507,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     }
   }
 
-  // 3. The head gradients that read y: dwd, dwh, dbh.
-  {
+  // 3. The head gradients that read y: dwd, dwh, dbh. At width 128 each
+  // warpgroup sums its tile's rows of column c, and tile 0's sum adds tile
+  // 1's through `red`.
+  if constexpr (W == kW) {
     const int c = tid;
     if (p.wd != nullptr) {
       float s = 0.f;
@@ -411,45 +527,70 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int r = 0; r < kRows; ++r) s += hb[r * p.hf + c];
       vec[o_dbh + c] = s;
     }
+  } else {
+    const int c = tid & (W - 1);
+    const auto sum2 = [&](float s, float* out) {  // tile 0's s + tile 1's s
+      red[tid] = s;
+      cons_sync();
+      if (tid < W) *out = red[c] + red[W + c];
+      cons_sync();
+    };
+    if (p.wd != nullptr) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s = fmaf(sbt[r], to_f(A(r, c)), s);
+      sum2(s, vec + o_dwd + c);
+    }
+    for (int j = 0; j < p.hf; ++j) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s = fmaf(hbt[r * p.hf + j], to_f(A(r, c)), s);
+      sum2(s, vec + o_dwh + j * W + c);
+    }
+    if (tid < p.hf) {
+      float s = 0.f;
+      for (int r = 0; r < R; ++r) s += hb[r * p.hf + tid];
+      vec[o_dbh + tid] = s;
+    }
   }
   PHASE_MARK(2, kScal);
 
   // 4. With u's cotangent, the inner chain: s_{L-1} = relu'(h) cdt(wd),
   // s_{l-1} = relu'(h_{l-1}) cdt(s_l Wa_l), each to the scratch.
-  if (dg) {
-    settle();
-    {
-      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+  if constexpr (W == kW) {  // no cotangent of u at width 128
+    if (dg) {
+      settle();
+      {
+        const uint2 mk = masks[(p.depth - 1) * kCons + tid];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = fc + 8 * j;
-        const float q0 = round_t<bf16>(p.wd[c]), q1 = round_t<bf16>(p.wd[c + 1]);
+        for (int j = 0; j < 16; ++j) {
+          const int c = fc + 8 * j;
+          const float q0 = round_t<bf16>(p.wd[c]), q1 = round_t<bf16>(p.wd[c + 1]);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h;
-          put2(fr + 8 * h, c, bit_at(mk, i) ? q0 : 0.f, bit_at(mk, i + 1) ? q1 : 0.f);
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            put2(fr + 8 * h, c, bit_at(mk, i) ? q0 : 0.f, bit_at(mk, i + 1) ? q1 : 0.f);
+          }
         }
       }
-    }
-    publish();
-    store_act(&m.ss, (p.depth - 1) * rp + row0);
-    PHASE_MARK(3, kScal);
-    for (int l = p.depth - 1; l > 0; --l) {
-      product(acc, act_s, kW / 64, act_s, kW, ring_st);
-      PHASE_MARK(3, kProd);
-      settle();
-      const uint2 mk = masks[(l - 1) * kCons + tid];
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h;
-          put2(fr + 8 * h, fc + 8 * j, bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f,
-                 bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f);
-        }
       publish();
-      store_act(&m.ss, (l - 1) * rp + row0);
+      store_act(&m.ss, (p.depth - 1) * rp + row0);
       PHASE_MARK(3, kScal);
+      for (int l = p.depth - 1; l > 0; --l) {
+        product<W>(acc, act_s, W / 64, act_s, W, ring_st);
+        PHASE_MARK(3, kProd);
+        settle();
+        const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            put2(fr + 8 * h, fc + 8 * j, bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f,
+                   bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f);
+          }
+        publish();
+        store_act(&m.ss, (l - 1) * rp + row0);
+        PHASE_MARK(3, kScal);
+      }
     }
   }
 
@@ -463,18 +604,18 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
     for (int i = 0; i < 64; ++i) g3[i] = 0.f;
     for (int j = 0; j < p.hf; ++j) {
-      const float h0 = hb[fr * p.hf + j], h1 = hb[(fr + 8) * p.hf + j];
+      const float h0 = hbt[fr * p.hf + j], h1 = hbt[(fr + 8) * p.hf + j];
 #pragma unroll
       for (int q = 0; q < 16; ++q)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float wv = __ldg(p.wh + j * kW + fc + 8 * q + e);
+          const float wv = __ldg(p.wh + j * W + fc + 8 * q + e);
           g3[4 * q + e] = fmaf(h0, wv, g3[4 * q + e]);
           g3[4 * q + 2 + e] = fmaf(h1, wv, g3[4 * q + 2 + e]);
         }
     }
     if (p.wd != nullptr) {
-      const float s0 = sb[fr], s1 = sb[fr + 8];
+      const float s0 = sbt[fr], s1 = sbt[fr + 8];
 #pragma unroll
       for (int q = 0; q < 16; ++q)
 #pragma unroll
@@ -545,62 +686,106 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
   publish();
   store_act(&m.zs, (p.depth - 1) * rp + row0);
-  col_sums(cs, red, vec + (p.depth - 1) * kW, kW, false);
+  col_sums<W>(cs, red, vec + (p.depth - 1) * W, W, false);
   PHASE_MARK(4, kScal);
 
   // 6. The first-order reverse: dx, zeta_{l-1} = relu'(h_{l-1}) cdt(zeta_l
   // Wa_l), db_{l-1}.
   [[maybe_unused]] float* dsh = reinterpret_cast<float*>(inb);  // K8: [kRows][dide]
   for (int l = p.depth - 1; l >= 0; --l) {
-    if (p.dx0 != nullptr && (l == 0 || l == p.skip)) {
-      // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0 in f32, the skip layer's
-      // share in the f32 scratch; with K8 the IDE block's cotangents to dsh.
-      product(acc, act_s, kW / 64, act_s, kW, ring_st);
-      PHASE_MARK(5, kProd);
-      const int dide = DIR ? p.dir.width() : 0, fin = p.d0 + dide + p.d1;
-      if (l == 0 && DIR) settle();  // dsh overwrites the input tile
-      // Element pairs (i, i + 1) sit at columns (c, c + 1) of one row; at l
-      // = 0 the skip layer's share of 8 pairs is loaded before any is used.
+    if constexpr (W != kW) {
+      if (p.dx0 != nullptr && l == p.skip) {
+        // Width 128: zeta_skip kept in the tile's input blocks (free after
+        // the recompute at this width; the C entry asks for kin >= 128)
+        // until l = 0, in place of the f32 scratch of its dx share.
+        for (int i = tid & 127; i < (W / 64) * kBlk / 16; i += 128)
+          reinterpret_cast<uint4*>(inb_t)[i] = reinterpret_cast<const uint4*>(act_t)[i];
+      }
+      if (p.dx0 != nullptr && l == 0) {
+        // dx = [zeta_skip | zeta_0] [Wx_skip ; Wx_0], one f32 sum, in
+        // passes over the kin input columns, 128 at a time (no IDE block
+        // here); a pair of dx0 columns goes as one store.
+        const int t0 = row0 + kRows * wg;  // the tile's first sample
+        for (int cx = 0; cx < p.kin; cx += W) {
+          if (p.skip >= 0)
+            product<W>(acc, inb_s, W / 64, act_s, 2 * W, ring_st);
+          else
+            product<W>(acc, act_s, W / 64, act_s, W, ring_st);
+          PHASE_MARK(5, kProd);
 #pragma unroll
-      for (int q = 0; q < 64; q += 16) {
-        float2 kv[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int i = q + 2 * u, r = fr + 8 * ((i >> 1) & 1), c = fc + 8 * (i >> 2);
-          kv[u] = make_float2(0.f, 0.f);
-          if (l == 0 && p.skip >= 0 && c < p.kin)
-            kv[u] = *reinterpret_cast<const float2*>(p.dxs + static_cast<size_t>(row0 + r) * p.kin + c);
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int i = q + 2 * u, r = fr + 8 * ((i >> 1) & 1), c = fc + 8 * (i >> 2);
-          if (c >= p.kin) continue;
-          if (l != 0) {
-            *reinterpret_cast<float2*>(p.dxs + static_cast<size_t>(row0 + r) * p.kin + c) =
-                make_float2(acc[i], acc[i + 1]);
-            continue;
-          }
-          const size_t gr = static_cast<size_t>(row0 + r);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = p.skip >= 0 ? (e ? kv[u].y : kv[u].x) + acc[i + e] : acc[i + e];
-            const int ce = c + e, ci = ce - p.d0;
-            if (DIR && ci >= 0 && ci < dide) {
-              dsh[r * dide + ci] = v;
+          for (int i = 0; i < 64; i += 2) {
+            const int r = fr + 8 * ((i >> 1) & 1), c = cx + fc + 8 * (i >> 2);
+            const size_t gr = static_cast<size_t>(t0 + r);
+            if (c >= p.kin || t0 + r >= p.n) continue;
+            if (c + 1 < p.d0 && (p.d0 & 1) == 0) {
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dx0) + gr * p.d0 + c) =
+                  __floats2bfloat162_rn(acc[i], acc[i + 1]);
               continue;
             }
-            if (row0 + r >= p.n || ce >= fin) continue;
-            if (ce < p.d0)
-              static_cast<bf16*>(p.dx0)[gr * p.d0 + ce] = from_f<bf16>(v);
-            else
-              static_cast<bf16*>(p.dx1)[gr * p.d1 + (ci - dide)] = from_f<bf16>(v);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ce = c + e;
+              if (ce >= p.d0 + p.d1) continue;
+              if (ce < p.d0)
+                static_cast<bf16*>(p.dx0)[gr * p.d0 + ce] = from_f<bf16>(acc[i + e]);
+              else
+                static_cast<bf16*>(p.dx1)[gr * p.d1 + (ce - p.d0)] = from_f<bf16>(acc[i + e]);
+            }
           }
+          PHASE_MARK(5, kStore);
         }
       }
-      PHASE_MARK(5, kStore);
+    } else {
+      if (p.dx0 != nullptr && (l == 0 || l == p.skip)) {
+        // dx = (0 + zeta_skip Wx_skip) + zeta_0 Wx_0 in f32, the skip layer's
+        // share in the f32 scratch; with K8 the IDE block's cotangents to dsh.
+        product(acc, act_s, kW / 64, act_s, kW, ring_st);
+        PHASE_MARK(5, kProd);
+        const int dide = DIR ? p.dir.width() : 0, fin = p.d0 + dide + p.d1;
+        if (l == 0 && DIR) settle();  // dsh overwrites the input tile
+        // Element pairs (i, i + 1) sit at columns (c, c + 1) of one row; at l
+        // = 0 the skip layer's share of 8 pairs is loaded before any is used.
+#pragma unroll
+        for (int q = 0; q < 64; q += 16) {
+          float2 kv[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int i = q + 2 * u, r = fr + 8 * ((i >> 1) & 1), c = fc + 8 * (i >> 2);
+            kv[u] = make_float2(0.f, 0.f);
+            if (l == 0 && p.skip >= 0 && c < p.kin)
+              kv[u] = *reinterpret_cast<const float2*>(p.dxs + static_cast<size_t>(row0 + r) * p.kin + c);
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int i = q + 2 * u, r = fr + 8 * ((i >> 1) & 1), c = fc + 8 * (i >> 2);
+            if (c >= p.kin) continue;
+            if (l != 0) {
+              *reinterpret_cast<float2*>(p.dxs + static_cast<size_t>(row0 + r) * p.kin + c) =
+                  make_float2(acc[i], acc[i + 1]);
+              continue;
+            }
+            const size_t gr = static_cast<size_t>(row0 + r);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = p.skip >= 0 ? (e ? kv[u].y : kv[u].x) + acc[i + e] : acc[i + e];
+              const int ce = c + e, ci = ce - p.d0;
+              if (DIR && ci >= 0 && ci < dide) {
+                dsh[r * dide + ci] = v;
+                continue;
+              }
+              if (row0 + r >= p.n || ce >= fin) continue;
+              if (ce < p.d0)
+                static_cast<bf16*>(p.dx0)[gr * p.d0 + ce] = from_f<bf16>(v);
+              else
+                static_cast<bf16*>(p.dx1)[gr * p.d1 + (ci - dide)] = from_f<bf16>(v);
+            }
+          }
+        }
+        PHASE_MARK(5, kStore);
+      }
     }
     if (l > 0) {
-      product(acc, act_s, kW / 64, act_s, kW, ring_st);
+      product<W>(acc, act_s, W / 64, act_s, W, ring_st);
       PHASE_MARK(5, kProd);
       settle();
       const uint2 mk = masks[(l - 1) * kCons + tid];
@@ -619,7 +804,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       }
       publish();
       store_act(&m.zs, (l - 1) * rp + row0);
-      col_sums(cs, red, vec + (l - 1) * kW, kW, false);
+      col_sums<W>(cs, red, vec + (l - 1) * W, W, false);
       PHASE_MARK(5, kScal);
     }
   }
@@ -636,60 +821,62 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   // 7. With u's cotangent, the tangent chain: ts = (cdt(t xc), cdt(-t xs))
   // replaces x in the input tile; p_l = relu'(h_l) cdt([p_{l-1} | ts] W_l),
   // to the scratch but the last, whose column sums add to dwd.
-  if (dg) {
-    settle();
-    const int F = p.d0;
-    for (int i = tid; i < kRows * F; i += kCons) {
-      const int r = i / F, c = i % F;
-      float tp = 0.f;
-      for (int j = 0; j < p.nb; ++j) tp = fmaf(ub[r * p.nb + j], p.fold[c * p.nb + j], tp);
-      if constexpr (SPA) {
-        if (p.ipe.lm != nullptr) {  // K7: the f32 factors
-          float e = 0.f, sn = 0.f, cs_ = 0.f;
-          if (row0 + r < p.n) ipe_trig(p.ipe, row0 + r, c, e, sn, cs_);
-          const float te = mul(tp, e);
-          X(r, c) = from_f<bf16>(mul(te, cs_));
-          X(r, F + c) = from_f<bf16>(-mul(te, sn));
-          continue;
-        }
-      }
-      const float xs = to_f(X(r, c)), xc = to_f(X(r, F + c));
-      X(r, c) = from_f<bf16>(tp * xc);
-      X(r, F + c) = from_f<bf16>(-(tp * xs));
-    }
-    publish();
-    PHASE_MARK(6, kScal);
-    store_in(&m.ts);
-    PHASE_MARK(6, kStore);
-    for (int l = 0; l < p.depth; ++l) {
-      if (l == 0)
-        product(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
-      else
-        product(acc, act_s, kW / 64, inb_s, k_dim(p, l), ring_st);
-      PHASE_MARK(6, kProd);
+  if constexpr (W == kW) {  // no cotangent of u at width 128
+    if (dg) {
       settle();
-      const uint2 mk = masks[l * kCons + tid];
-      const bool last = l + 1 == p.depth;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        cs[j][0] = cs[j][1] = 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h;
-          const float v0 = bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f;
-          const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f;
-          cs[j][0] += v0;
-          cs[j][1] += v1;
-          if (!last) put2(fr + 8 * h, fc + 8 * j, v0, v1);
+      const int F = p.d0;
+      for (int i = tid; i < kRows * F; i += kCons) {
+        const int r = i / F, c = i % F;
+        float tp = 0.f;
+        for (int j = 0; j < p.nb; ++j) tp = fmaf(ub[r * p.nb + j], p.fold[c * p.nb + j], tp);
+        if constexpr (SPA) {
+          if (p.ipe.lm != nullptr) {  // K7: the f32 factors
+            float e = 0.f, sn = 0.f, cs_ = 0.f;
+            if (row0 + r < p.n) ipe_trig(p.ipe, row0 + r, c, e, sn, cs_);
+            const float te = mul(tp, e);
+            X(r, c) = from_f<bf16>(mul(te, cs_));
+            X(r, F + c) = from_f<bf16>(-mul(te, sn));
+            continue;
+          }
         }
+        const float xs = to_f(X(r, c)), xc = to_f(X(r, F + c));
+        X(r, c) = from_f<bf16>(tp * xc);
+        X(r, F + c) = from_f<bf16>(-(tp * xs));
       }
-      if (!last) {
-        publish();
-        store_act(&m.ps, l * rp + row0);
-        PHASE_MARK(6, kStore);
-      } else {
-        col_sums(cs, red, vec + o_dwd, kW, true);
-        PHASE_MARK(6, kScal);
+      publish();
+      PHASE_MARK(6, kScal);
+      store_in(&m.ts);
+      PHASE_MARK(6, kStore);
+      for (int l = 0; l < p.depth; ++l) {
+        if (l == 0)
+          product<W>(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
+        else
+          product<W>(acc, act_s, W / 64, inb_s, k_dim<W>(p, l), ring_st);
+        PHASE_MARK(6, kProd);
+        settle();
+        const uint2 mk = masks[l * kCons + tid];
+        const bool last = l + 1 == p.depth;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            const float v0 = bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f;
+            const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f;
+            cs[j][0] += v0;
+            cs[j][1] += v1;
+            if (!last) put2(fr + 8 * h, fc + 8 * j, v0, v1);
+          }
+        }
+        if (!last) {
+          publish();
+          store_act(&m.ps, l * rp + row0);
+          PHASE_MARK(6, kStore);
+        } else {
+          col_sums<W>(cs, red, vec + o_dwd, W, true);
+          PHASE_MARK(6, kScal);
+        }
       }
     }
   }
@@ -697,16 +884,21 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 }
 
 
+template <int W>
 size_t tma_smem(const BwdParams& p) {
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
-  return 1024 + static_cast<size_t>(kStages) * kSlice + (kW / 64 + kp / 64) * kBlk +
-         8 * static_cast<size_t>(p.depth) * kCons + 4 * 4 * kCons +
-         4 * static_cast<size_t>(kRows) * (1 + p.hf + p.nb) + 8 + 16 * kStages;
+  return 1024 + static_cast<size_t>(kStages) * kSliceW<W> +
+         kTiles<W> * (W / 64 + kp / 64) * kBlk + 8 * static_cast<size_t>(p.depth) * kCons +
+         4 * 4 * kCons + 4 * static_cast<size_t>(kRows * kTiles<W>) * (1 + p.hf + p.nb) + 8 +
+         16 * kStages;
 }
 
-template <int HC, bool DIR, bool SPA, bool YO>
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
 int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
-  if (p.depth > kMaxDepth || p.kin > kW || hc != HC) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.depth > kMaxDepth || p.kin > kW || hc != HC || p.rp % (kRows * kTiles<W>) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Width 128 keeps zeta_skip in each tile's input blocks: at least W wide.
+  if (W != kW && p.kin < W) return static_cast<int>(cudaErrorInvalidValue);
   // K6's scratch ([kRows] + [8 warps][S] floats) and K8's f32 cotangents
   // must fit in the activation and input tiles.
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
@@ -720,12 +912,12 @@ int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
   size_t off = 0;
   bool ok = true;
   for (int l = 0; l < p.depth; ++l) {
-    const int K = l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
-    ok = ok && make_map(&m.w[l], w + off, K, kW, K, kW) && make_map(&m.wt[l], wt + off, kW, K, kW, kW);
-    off += static_cast<size_t>(kW) * K;
+    const int K = l == 0 ? p.kin : (l == p.skip ? W + p.kin : W);
+    ok = ok && make_map(&m.w[l], w + off, K, W, K, W) && make_map(&m.wt[l], wt + off, W, K, W, W);
+    off += static_cast<size_t>(W) * K;
   }
   const int rows = p.depth * p.rp;
-  ok = ok && make_map(&m.hs, p.hs, kW, rows, kW, kRows) && make_map(&m.zs, p.zs, kW, rows, kW, kRows) &&
+  ok = ok && make_map(&m.hs, p.hs, W, rows, W, kRows) && make_map(&m.zs, p.zs, W, rows, W, kRows) &&
        make_map(&m.xs, p.xs, p.kin, p.rp, p.kin, kRows);
   if (HC > 0)
     ok = ok && make_map(&m.wct, p.wct, HC, kW, HC, kW) && make_map(&m.cs, p.cs, HC, p.rp, HC, kRows);
@@ -734,13 +926,14 @@ int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
          make_map(&m.ps, p.ps, kW, rows, kW, kRows) &&
          make_map(&m.ts, p.ts, p.kin, p.rp, p.kin, kRows);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tma_smem(p);
+  const size_t smem = tma_smem<W>(p);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_tma_kernel<HC, DIR, SPA, YO><<<p.rp / kRows, kTmaThreads, smem, stream>>>(p, m);
+  trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W>
+      <<<p.rp / (kRows * kTiles<W>), kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -859,19 +1052,26 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // synchronise; all run on `stream`.
 
 // The per-tile backward of refnerf_trunk_bwd (the same arguments), for the
-// bf16 trunk at width 256 (dtype 1) and at most 8 layers: K4 (hc 128; with
-// K6/K7, SPA), K5 (hc 0; with K8-K10, DIR) and K11's y cotangent (YO). The
-// weight-gradient operands go to the scratch sample-major, [rp][features]
-// per region (h, zeta, s, p: [depth][rp][W]; x, ts: [rp][kin]; cbar:
-// [rp][hc]), for refnerf_wgrad_tma.
+// bf16 trunk (dtype 1) of at most 8 layers and 256 input columns: at width
+// 256 K4 (hc 128; with K6/K7, SPA), K5 (hc 0; with K8-K10, DIR) and K11's y
+// cotangent (YO); at width 128 the plain K5 alone (hc 0, no density head,
+// fused stage, cotangent of u or y) on at least 128 input columns, 128
+// samples a CTA, so rp a multiple of 128 (dxs unused there). The weight-gradient operands go to the scratch sample-major,
+// [rp][features] per region (h, zeta, s, p: [depth][rp][W]; x, ts:
+// [rp][kin]; cbar: [rp][hc]), for refnerf_wgrad_tma; the vector gradients
+// one row a CTA.
 extern "C" int refnerf_trunk_bwd_tma(REFNERF_BWD_ARGS) {
   BwdParams p;
   const int err = bwd_params(p, REFNERF_BWD_NAMES);
   if (err != 0) return err;
-  if (dtype != 1 || width != kW) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1 || (width != kW && width != 128)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb_bar != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wbar != nullptr;
+  if (width == 128)
+    return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr && p.ybar == nullptr
+               ? launch_tma<0, false, false, false, 128>(p, hc, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (p.ybar != nullptr)
     return hc == 0 && !dir && !spa && p.ubar == nullptr
                ? launch_tma<0, false, false, true>(p, hc, s)

@@ -1,6 +1,6 @@
-// Building blocks of the f32 width-256 trunk kernels for Hopper
-// (trunk_fwd_f32.cu, trunk_bwd_f32.cu): register-blocked FMA products fed by
-// a TMA ring of weight slices, on k-major shared-memory tiles.
+// Building blocks of the f32 trunk kernels for Hopper (trunk_fwd_f32.cu at
+// width 256, trunk_bwd_f32.cu at 256 and 128): register-blocked FMA products
+// fed by a TMA ring of weight slices, on k-major shared-memory tiles.
 //
 // Each product acc[64][256] = A[64][K] B[K][256] is an outer product over K:
 // each of the 256 consumer threads owns an 8 x 8 block of outputs (rows
@@ -13,6 +13,10 @@
 // banks), and the weights as slices of 16 contraction rows by 256 columns
 // (16 KB), which the producer warp loads by TMA from one tensor map a layer
 // and pack. Every product runs in full f32 on the FMA pipes (no TF32).
+// At width W = 128 a CTA holds two 64-sample tiles as one k-major tile of R
+// = 128 samples (rows padded to R + 4 floats), its 8 consumer warps 4 row
+// quarters x 2 column halves, and the slices are [16][128] (8 KB): the same
+// 8 x 8 block a thread and 4 LDS.128 for 64 FFMA.
 
 #pragma once
 
@@ -25,11 +29,16 @@ namespace {
 constexpr int kSD = 16;                  // contraction rows of a weight slice
 constexpr int kSliceF = kSD * kW * 4;    // bytes of a [16][256] f32 slice
 constexpr int kLD = kRows + 4;           // floats a row of a k-major tile
+// At width W: bytes of a [16][W] slice, a CTA's rows R and its tiles' row
+// stride R + 4.
+template <int W> constexpr int kSliceFW = kSD * W * 4;
+template <int W> constexpr int kRowsW = kRows * kTiles<W>;
+template <int W> constexpr int kLDW = kRowsW<W> + 4;
 
 // One tensor map a layer and pack, and the ring's depth.
 struct MapsF32 {
-  CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 256 x 16
-  CUtensorMap wt[kMaxDepth];  // layer l of `wt`: [K_l][W], box 256 x 16
+  CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box W x 16
+  CUtensorMap wt[kMaxDepth];  // layer l of `wt`: [K_l][W], box W x 16
   CUtensorMap wc;             // a head's pack (the backward's wc [HC][W], the
                               // forward's wc^T [W][HC]), box 256 x 16
   int stages;                 // of the ring
@@ -43,9 +52,12 @@ using Block = float[8][8];
 
 // acc = A B over the next K / kSD slices of the ring (`ring` its generic
 // address): A's contraction rows k < n0 from the k-major tile a0, the rest
-// from a1 (the skip layer's [activation | input]). Consumer warps only.
+// from a1 (the skip layer's [activation | input]), B [16][W] slices.
+// Consumer warps only.
+template <int W = kW>
 __device__ __forceinline__ void product(Block& acc, const float* a0, int n0, const float* a1,
                                         int K, Ring& r, const float* ring, int rb, int cb) {
+  constexpr int LD = kLDW<W>;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -53,15 +65,15 @@ __device__ __forceinline__ void product(Block& acc, const float* a0, int n0, con
   const int ns = K / kSD;
   for (int s = 0; s < ns; ++s) {
     const int k0 = s * kSD;
-    const float* a = (k0 < n0 ? a0 + k0 * kLD : a1 + (k0 - n0) * kLD) + rb;
-    const float* b = ring + r.stage * (kSD * kW) + cb;
+    const float* a = (k0 < n0 ? a0 + k0 * LD : a1 + (k0 - n0) * LD) + rb;
+    const float* b = ring + r.stage * (kSD * W) + cb;
     mbar_wait(r.full + 8 * r.stage, r.phase);
 #pragma unroll
     for (int kk = 0; kk < kSD; ++kk) {
-      const float4 a0v = *reinterpret_cast<const float4*>(a + kk * kLD);
-      const float4 a1v = *reinterpret_cast<const float4*>(a + kk * kLD + 16);
-      const float4 b0v = *reinterpret_cast<const float4*>(b + kk * kW);
-      const float4 b1v = *reinterpret_cast<const float4*>(b + kk * kW + 32);
+      const float4 a0v = *reinterpret_cast<const float4*>(a + kk * LD);
+      const float4 a1v = *reinterpret_cast<const float4*>(a + kk * LD + 16);
+      const float4 b0v = *reinterpret_cast<const float4*>(b + kk * W);
+      const float4 b1v = *reinterpret_cast<const float4*>(b + kk * W + 32);
       const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
       const float bv[8] = {b0v.x, b0v.y, b0v.z, b0v.w, b1v.x, b1v.y, b1v.z, b1v.w};
 #pragma unroll
@@ -75,11 +87,52 @@ __device__ __forceinline__ void product(Block& acc, const float* a0, int n0, con
   }
 }
 
-// The block into a k-major [features][kLD] tile: two 16-byte stores a column.
+// A product of at most half a slice's columns (the forward's 128-wide
+// bottleneck and K3's u_x at width 256; the backward's last dx pass at
+// width 128): acc = A B[:, :W / 2] over the next K / kSD slices of the ring,
+// A the k-major tile a0. Each thread owns 8 rows (as `product`'s block) x 4
+// columns cbh + j, and reads 3 LDS.128 a k step for 32 FFMA: half of
+// `product`'s work, which would multiply the zero columns that TMA fills
+// past the weights' extent.
+using Half = float[8][4];
+
+template <int W = kW>
+__device__ __forceinline__ void product_half(Half& acc, const float* a0, int K, Ring& r,
+                                             const float* ring, int rb, int cbh) {
+  constexpr int LD = kLDW<W>;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int ns = K / kSD;
+  for (int s = 0; s < ns; ++s) {
+    const float* a = a0 + s * kSD * LD + rb;
+    const float* b = ring + r.stage * (kSD * W) + cbh;
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+#pragma unroll
+    for (int kk = 0; kk < kSD; ++kk) {
+      const float4 a0v = *reinterpret_cast<const float4*>(a + kk * LD);
+      const float4 a1v = *reinterpret_cast<const float4*>(a + kk * LD + 16);
+      const float4 b0v = *reinterpret_cast<const float4*>(b + kk * W);
+      const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
+      const float bv[4] = {b0v.x, b0v.y, b0v.z, b0v.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * r.stage);
+    r.advance();
+  }
+}
+
+// The block into a k-major [features][LD] tile: two 16-byte stores a column.
+template <int LD = kLD>
 __device__ __forceinline__ void put_tile(float* t, const Block& v, int rb, int cb) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    float* d = t + (cb + col_of(j)) * kLD + rb;
+    float* d = t + (cb + col_of(j)) * LD + rb;
     *reinterpret_cast<float4*>(d) = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
     *reinterpret_cast<float4*>(d + 16) = make_float4(v[4][j], v[5][j], v[6][j], v[7][j]);
   }
@@ -89,12 +142,13 @@ __device__ __forceinline__ void put_tile(float* t, const Block& v, int rb, int c
 // CTA an SM no other warps hide their latency.
 constexpr int kBatch = 8;
 
-// The trunk input tile (trunk_common.cuh `load_input`), k-major, zero-padded
-// to kin columns and past row n.
-template <bool DIR>
+// The trunk input tile of R rows (trunk_common.cuh `load_input`), k-major,
+// zero-padded to kin columns and past row n; the IDE block (DIR) at R = 64.
+template <bool DIR, int R = kRows>
 __device__ void load_input_f32(float* t, const float* x0, int d0, const float* x1, int d1,
                                int kin, int row0, int n, const DirIn& dir) {
-  const int dide = DIR ? dir.width() : 0, total = kRows * kin;
+  constexpr int LD = R + 4;
+  const int dide = DIR ? dir.width() : 0, total = R * kin;
   for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
     float v[kBatch];
 #pragma unroll
@@ -111,10 +165,11 @@ __device__ void load_input_f32(float* t, const float* x0, int d0, const float* x
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int i = i0 + u * kCons, r = i / kin, c = i % kin;
-      if (i < total && !(DIR && c >= d0 && c - d0 - dide < 0)) t[c * kLD + r] = v[u];
+      if (i < total && !(DIR && c >= d0 && c - d0 - dide < 0)) t[c * LD + r] = v[u];
     }
   }
   if constexpr (DIR) {
+    static_assert(R == kRows, "the IDE block fills 64 rows");
     if (dir.p) {  // the IDE block (trunk_common.cuh `ide_fill`), four threads a row
       const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
       const DirSample s = load_dir(dir, row0 + r, n);
@@ -176,16 +231,17 @@ bool make_map_f32(CUtensorMap* map, const void* base, int cols, int rows, int ld
 }
 
 // The per-layer tensor maps of the packs `w` ([W][K_l]) and `wt` ([K_l][W])
-// of a trunk of `depth` layers on kin input columns (the skip layer's K_l =
-// W + kin); false on failure.
+// of a width-W trunk of `depth` layers on kin input columns (the skip
+// layer's K_l = W + kin), in boxes of W columns x 16 rows; false on failure.
+template <int W = kW>
 bool make_layer_maps_f32(MapsF32& m, const void* w, const void* wt, int depth, int kin, int skip) {
   size_t off = 0;
   bool ok = true;
   for (int l = 0; l < depth; ++l) {
-    const int K = l == 0 ? kin : (l == skip ? kW + kin : kW);
-    ok = ok && make_map_f32(&m.w[l], static_cast<const float*>(w) + off, K, kW, K, kW, kSD) &&
-         make_map_f32(&m.wt[l], static_cast<const float*>(wt) + off, kW, K, kW, kW, kSD);
-    off += static_cast<size_t>(kW) * K;
+    const int K = l == 0 ? kin : (l == skip ? W + kin : W);
+    ok = ok && make_map_f32(&m.w[l], static_cast<const float*>(w) + off, K, W, K, W, kSD) &&
+         make_map_f32(&m.wt[l], static_cast<const float*>(wt) + off, W, K, W, W, kSD);
+    off += static_cast<size_t>(W) * K;
   }
   return ok;
 }

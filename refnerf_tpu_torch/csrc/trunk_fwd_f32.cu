@@ -107,43 +107,6 @@ __device__ __forceinline__ float row_sums(const float (&v)[8]) {
   return (b0 ? x[1] : x[0]) + __shfl_xor_sync(0xffffffffu, b0 ? x[0] : x[1], 1);
 }
 
-// A product at most 128 columns wide (the bottleneck, K3's u_x on at most
-// 128 input columns): acc = A B[:, :128] over the next K / kSD slices of
-// the ring, A the k-major tile a. Each thread owns 8 rows (as `product`'s
-// block) x 4 columns cbh + j, and reads 3 LDS.128 a k step for 32 FFMA:
-// half of `product`'s work, which would multiply the zero columns that TMA
-// fills past the weights' extent.
-using Half = float[8][4];
-
-__device__ __forceinline__ void product_half(Half& acc, const float* a0, int K, Ring& r,
-                                             const float* ring, int rb, int cbh) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const int ns = K / kSD;
-  for (int s = 0; s < ns; ++s) {
-    const float* a = a0 + s * kSD * kLD + rb;
-    const float* b = ring + r.stage * (kSD * kW) + cbh;
-    mbar_wait(r.full + 8 * r.stage, r.phase);
-#pragma unroll
-    for (int kk = 0; kk < kSD; ++kk) {
-      const float4 a0v = *reinterpret_cast<const float4*>(a + kk * kLD);
-      const float4 a1v = *reinterpret_cast<const float4*>(a + kk * kLD + 16);
-      const float4 b0v = *reinterpret_cast<const float4*>(b + kk * kW);
-      const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
-      const float bv[4] = {b0v.x, b0v.y, b0v.z, b0v.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * r.stage);
-    r.advance();
-  }
-}
-
 // K3's u_x: the block's columns (cb + C(j), or with a half-width block cbh
 // + j) below kin into the k-major [kin][kLD] tile ux, 0 + acc at the first
 // of its products (as trunk_fwd.cu sums from 0), else added to what is

@@ -74,17 +74,20 @@ from refnerf_tpu_torch.ops import ref_utils
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 MODES = ('auto', 'on', 'off')
 _KS = 32  # the kernels stream weights in K-slices of this many rows
-_TILE = 64  # samples per CTA of the trunk kernels
-# Rows per slab of the backward kernels: the per-sample operands of the
-# weight-gradient products (compute dtype; feature-major, or sample-major
-# for the width-256 instances of csrc/trunk_bwd_tma.cu and
-# csrc/trunk_bwd_f32.cu) are kept for one slab at a time, about 1.1 GB for
-# the spatial trunk in bf16 and 2.2 GB in f32.
+_TILE = 64  # samples per tile of the trunk kernels (a CTA holds one or two)
+# Rows per slab of the backward kernels at width 256: the per-sample
+# operands of the weight-gradient products (compute dtype; feature-major, or
+# sample-major for csrc/trunk_bwd_tma.cu and csrc/trunk_bwd_f32.cu) are
+# kept for one slab at a time, about 1.1 GB for the spatial trunk in bf16
+# and 2.2 GB in f32. The width-128 trunk takes four times the rows a slab
+# (`bwd_slab_rows`): fewer launches of its small weight-gradient and
+# reduction kernels.
 BWD_SLAB = 65536
 # Samples per partial sum of the weight-gradient kernel: trunk_bwd.cu's
 # (128 x 128 tiles, each operand read twice), and trunk_bwd_tma.cu's, whose
 # 2048 give 32 partials a slab (half the reduction's reads) and 128 CTAs for
-# a 256 x 256 gradient. trunk_bwd_f32.cu's split is chosen per gradient
+# a 256 x 256 gradient. trunk_bwd_f32.cu's split, and trunk_bwd_tma.cu's
+# for the width-128 trunk's 128-row gradients, is chosen per gradient
 # (`_wgrad_split`): as many splits as fill the card's SMs once.
 _KSPLIT = 1024
 _KSPLIT_TMA = 2048
@@ -92,7 +95,9 @@ _KSPLIT_TMA = 2048
 # trunk_bwd_f32.cu kernels take at most this many layers (a tensor map a
 # layer in the launch's parameters) and input columns (one input tile), the
 # forwards also at most _TMA_HEADS f32 heads; a width-256 trunk past them
-# runs trunk_fwd.cu's and trunk_bwd.cu's instances.
+# runs trunk_fwd.cu's and trunk_bwd.cu's instances, and so does a width-128
+# trunk past them in the backward (the forward's width 128 is trunk_fwd.cu's
+# alone).
 _TMA_DEPTH = 8
 _TMA_KIN = 256
 _TMA_HEADS = 16
@@ -869,7 +874,8 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   shallowest ring, past SMEM_LIMIT, when none does. None for
   trunk_fwd_tma.cu and trunk_bwd_tma.cu: within their shapes (8 layers,
   256 input columns, 16 f32 heads) their largest sums (228,904 B: K3 with
-  K6 on 1,024-row rays at the 2-stage ring; 223,624 B) fit."""
+  K6 on 1,024-row rays at the 2-stage ring; 223,624 B; 194,120 B for the
+  two-tile width-128 backward) fit."""
   W, kin, L = pack.width, pack.kin, pack.depth
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = fold is not None
@@ -897,10 +903,11 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   if lib == 'trunk_bwd':  # trunk_bwd.cu `launch_bwd`
     return (t * (_TILE * (W + pad) + _TILE * (kin + pad) + 2 * W * (_KS + pad))
             + 4 * (L * _TILE * (W // 32) + _TILE * (1 + hf + nb)))
-  if lib == 'trunk_bwd_f32':  # trunk_bwd_f32.cu `f32_smem`
-    rest = (1024 + 4 * (W + kin) * ld + 8 * L * 256 + 4 * 2 * W +
-            4 * _TILE * (1 + hf + nb) + 8 + 16 * 8)
-    return ring(rest, 4, 8)
+  if lib == 'trunk_bwd_f32':  # trunk_bwd_f32.cu `f32_smem`, R rows a CTA
+    rows = bwd_cta_rows(lib, W)
+    rest = (1024 + 4 * (W + kin) * (rows + 4) + 8 * L * 256 + 4 * 512 +
+            4 * rows * (1 + hf + nb) + 8 + 16 * 8)
+    return ring(rest, 4, 8, stage=16 * W * 4)
   return None
 
 
@@ -935,15 +942,52 @@ def tma_forward(pack: TrunkPack, out_y: bool = False) -> bool:
 def backward_library(pack: TrunkPack) -> str:
   """The library whose kernels run the backward of `pack`, decided from its
   dtype and shape alone, before anything is built or launched: at width
-  256 within `_TMA_DEPTH` layers and `_TMA_KIN` input columns,
-  'trunk_bwd_tma' (bf16: wgmma fed by TMA) or 'trunk_bwd_f32' (f32:
-  register-blocked FMA products fed by TMA); every other shape with an
-  instance (width 128, deeper or wider trunks) 'trunk_bwd'."""
-  if (pack.width == 256 and pack.depth <= _TMA_DEPTH and
+  256 or 128 within `_TMA_DEPTH` layers and `_TMA_KIN` input columns,
+  'trunk_bwd_tma' (bf16: wgmma fed by TMA; at width 128 on at least 128
+  input columns, whose tile keeps the skip layer's zeta) or 'trunk_bwd_f32'
+  (f32: register-blocked FMA products fed by TMA; at width 128 where its
+  shared memory holds the trunk: at most 192 input columns); every other
+  shape with an instance (deeper, wider or narrower trunks) 'trunk_bwd'."""
+  if (pack.width in (256, 128) and pack.depth <= _TMA_DEPTH and
       pack.kin <= _TMA_KIN):
-    return ('trunk_bwd_tma' if pack.compute_dtype == 'bfloat16'
-            else 'trunk_bwd_f32')
+    if pack.compute_dtype == 'bfloat16':
+      if pack.width == 256 or pack.kin >= 128:
+        return 'trunk_bwd_tma'
+      return 'trunk_bwd'
+    if (pack.width == 256 or
+        kernel_smem('trunk_bwd_f32', pack, 0) <= SMEM_LIMIT):
+      return 'trunk_bwd_f32'
   return 'trunk_bwd'
+
+
+def bwd_cta_rows(route: str, width: int) -> int:
+  """Samples a CTA of library `route`'s per-tile backward takes at trunk
+  width `width`: two 64-sample tiles (128) on trunk_bwd_tma.cu's and
+  trunk_bwd_f32.cu's width-128 instances, one (`_TILE`) elsewhere. A slab's
+  scratch rows and its per-CTA vector partials follow it."""
+  two = route in ('trunk_bwd_tma', 'trunk_bwd_f32') and width == 128
+  return 2 * _TILE if two else _TILE
+
+
+def _vec_groups(nparts: int) -> int:
+  """The first stage's groups of a two-stage sum of `nparts` per-CTA
+  vector partials: the largest divisor of nparts up to 32."""
+  return max(q for q in range(1, min(32, nparts) + 1) if nparts % q == 0)
+
+
+def bwd_slab_rows(width: int) -> int:
+  """Rows a slab of the backward takes by default at trunk width `width`:
+  `BWD_SLAB`, and four times that at 128, whose weight-gradient and
+  reduction launches are short enough that their count shows (its f32
+  scratch then takes about the 2.2 GB of the width-256 spatial trunk's)."""
+  return 4 * BWD_SLAB if width == 128 else BWD_SLAB
+
+
+def bwd_scratch_rows(route: str, width: int, rows: int) -> int:
+  """Rows of a slab of `rows` samples in the backward's scratch (rp):
+  rounded up to whole CTAs of `bwd_cta_rows`."""
+  cta = bwd_cta_rows(route, width)
+  return -(-rows // cta) * cta
 
 
 def tma_backward(pack: TrunkPack) -> bool:
@@ -954,10 +998,13 @@ def tma_backward(pack: TrunkPack) -> bool:
 
 def _wgrad_split(route: str, rp: int, m: int, n: int, sms: int) -> int:
   """Samples per partial of the weight-gradient product of an m x n
-  gradient over rp rows: trunk_bwd_f32.cu's 128 x 128 output tiles times
-  the splits fill the card's `sms` SMs once (one CTA an SM); the other
-  libraries' fixed splits."""
-  if route != 'trunk_bwd_f32':
+  gradient over rp rows: trunk_bwd_f32.cu's 128 x 128 output tiles, and
+  trunk_bwd_tma.cu's for the width-128 trunk's 128-row gradients (given
+  `sms`: its fixed split leaves most SMs idle), times the splits fill the
+  card's `sms` SMs once (one CTA an SM); the other gradients' fixed
+  splits."""
+  if route == 'trunk_bwd' or (route == 'trunk_bwd_tma' and
+                              (m != 128 or not sms)):
     return _KSPLIT_TMA if route == 'trunk_bwd_tma' else _KSPLIT
   tiles = -(-m // 128) * -(-n // 128)
   splits = max(1, sms // tiles)
@@ -1223,7 +1270,7 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
 
 
 def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
-                          needs_dx=False, slab=BWD_SLAB,
+                          needs_dx=False, slab: Optional[int] = None,
                           dir_modes: Optional[DirModes] = None, rgbx=None,
                           rgb_bar=None, spa_modes: Optional[SpaModes] = None,
                           comp=None, ybar=None):
@@ -1240,6 +1287,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   vector gradients; then a split-K product over samples forms each weight
   gradient's partials, and fixed-order reductions sum them (no atomics: the
   result does not depend on the schedule). With K6 a slab holds whole rays.
+  `slab`: its rows, by default `bwd_slab_rows` of the trunk's width.
   """
   dm = dir_modes or DirModes()
   sp = spa_modes or SpaModes()
@@ -1263,7 +1311,9 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
     if route == 'trunk_bwd_f32':
       head = pack.wc
   sms = (torch.cuda.get_device_properties(segs[0].device).multi_processor_count
-         if route == 'trunk_bwd_f32' else 0)
+         if route == 'trunk_bwd_f32' or (route == 'trunk_bwd_tma' and
+                                          pack.width == 128)
+         else 0)
   split = lambda rp, m, n: _wgrad_split(route, rp, m, n, sms)
   seg_dtypes = [s.dtype for s in segs]
   ki, si = _launch_inputs(segs, pack, dm, sp, comp, fold)
@@ -1325,9 +1375,11 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
       ddg, ddk = torch.empty(n, 3, device=dev), torch.empty(n, 1, device=dev)
 
   whole = ray_rows(si.samples) if si.samples else _TILE
+  slab = slab or bwd_slab_rows(pack.width)
   slab = n if n <= slab else slab // whole * whole
-  rp_max = -(-slab // _TILE) * _TILE
-  # Scratch, feature-major [features][rows], rows padded to the tile:
+  cta = bwd_cta_rows(route, pack.width)
+  rp_max = bwd_scratch_rows(route, pack.width, slab)
+  # Scratch, feature-major [features][rows], rows padded to the CTA:
   # h_l and zeta_l (and s_l, p_l with the density gradient) [L][W], the
   # padded input x (and its tangent ts) [kin], cbar [hc].
   regions = [('hs', L * W), ('zs', L * W)]
@@ -1337,8 +1389,11 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   scratch = torch.empty(sum(f for _, f in regions) * rp_max, device=dev,
                         dtype=cdt)
   dx_keep = torch.empty(rp_max * kin, device=dev) if needs_dx else None
-  vec_part = torch.empty(rp_max // _TILE * nvec, device=dev)
-  # Partials of one gradient: trunk_bwd_f32.cu's never outnumber the SMs.
+  vec_part = torch.empty(rp_max // cta * nvec, device=dev)
+  vec_mid = (torch.empty(rp_max // cta * nvec, device=dev) if cta != _TILE
+             else None)
+  # Partials of one gradient: the card-filling splits never outnumber the
+  # SMs.
   nsplit_max = sms if sms else -(-rp_max // split(rp_max, W, W))
   wpart = torch.empty(nsplit_max * W * max(max(k_pack), W), device=dev)
   es = scratch.element_size()
@@ -1352,7 +1407,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   with torch.cuda.device(dev):
     for start in range(0, n, slab):
       rows = min(slab, n - start)
-      rp = -(-rows // _TILE) * _TILE
+      rp = bwd_scratch_rows(route, W, rows)
       reg, off = {}, 0
       for name, feats in regions:
         reg[name] = scratch.data_ptr() + off * rp * es
@@ -1400,8 +1455,20 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
         err = lib.refnerf_reduce(wpart.data_ptr(), nsplit, hc, W, W,
                                  dwc.data_ptr(), acc, stream)
         _check_launch(err, 'reduction kernel')
-      err = lib.refnerf_reduce(vec_part.data_ptr(), rp // _TILE, 1, nvec,
-                               nvec, vec.data_ptr(), acc, stream)
+      nparts = rp // cta
+      if cta == _TILE:
+        err = lib.refnerf_reduce(vec_part.data_ptr(), nparts, 1, nvec, nvec,
+                                 vec.data_ptr(), acc, stream)
+      else:
+        # The two-tile CTAs' partials in two fixed-order stages, so that a
+        # thread sums tens of them and not a thousand: groups q of the rows
+        # q * rows + r first, then the rows.
+        q = _vec_groups(nparts)
+        err = lib.refnerf_reduce(vec_part.data_ptr(), q, nparts // q, nvec,
+                                 nvec, vec_mid.data_ptr(), 0, stream)
+        _check_launch(err, 'reduction kernel')
+        err = lib.refnerf_reduce(vec_mid.data_ptr(), nparts // q, 1, nvec,
+                                 nvec, vec.data_ptr(), acc, stream)
       _check_launch(err, 'reduction kernel')
 
   off = 0

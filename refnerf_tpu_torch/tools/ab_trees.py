@@ -23,8 +23,9 @@ mip-NeRF models, their trunks in --dtype (bfloat16 by default; float32 is
 the gins' own, phase 14's), each answer a 4096-ray request, timed on the
 host clock under fused_trunk='auto' ("kernel") and 'off' ("plain"), with
 one request's device-busy time from torch.profiler; in `train_steps` phase
-10's model takes train steps at batch 4096 the same way, its trunks in
---dtype (float32: phase 13's); `forward_kernels` holds every forward case
+10's model and mip-NeRF as shipped take train steps at batch 4096 the same
+way, their trunks in --dtype (float32: phase 13's and phase 15's);
+`forward_kernels` holds every forward case
 of phases 3, 5, 7, 9 and 11 in --dtype against its plain version
 (chip_smoke.compare) without their backward cases, `backward_kernels`
 every backward case of phases 5, 7, 9 and 11 in --dtype without their
@@ -33,7 +34,8 @@ Printed: every case's kernel and plain times (and device busy, where
 measured) per arm in run order and their medians; then, per
 library, whether each kernel instance of the first arm has the same SASS
 instructions in each other arm (an instance that gained trailing template
-flags, all false, is the same instance).
+arguments at their defaults, false flags or the width 256, is the same
+instance).
 """
 
 import argparse
@@ -120,8 +122,9 @@ def serve_requests(fused_mlp, dev, reps=15, reps_off=3):
 
 
 def train_steps(fused_mlp, dev, reps=10, reps_off=2):
-  """Phase 10's model (all six fuse flags, trunks in the run's DTYPE) at
-  batch 4096, as chip_smoke.train_setup makes it: after 3 warm-up steps,
+  """Phase 10's model (all six fuse flags) and mip-NeRF as shipped (phase
+  12's model; phase 15's in float32), their trunks in the run's DTYPE, at
+  batch 4096 as chip_smoke.train_setup makes them: after 3 warm-up steps,
   the median wall ms of `reps` steps under fused_trunk='auto' and of
   `reps_off` under 'off', and the device-busy ms of one 'auto' step, in
   chip_smoke's line format. Uses only what every checkout's chip_smoke has
@@ -131,43 +134,49 @@ def train_steps(fused_mlp, dev, reps=10, reps_off=2):
   import torch
   from torch.profiler import ProfilerActivity, profile
   import chip_smoke
-  model, _, state, train_step, batch = chip_smoke.train_setup(
-      dev, chip_smoke.FUSE + chip_smoke.SPATIAL +
-      [f"NerfMLP.compute_dtype = '{DTYPE}'"])
-  if model.nerf_mlp.cfg.compute_dtype != DTYPE:
-    raise AssertionError(f'train_steps: the model is not in {DTYPE}')
-  box = {'state': state}
+  models = (('phase 10', 'all six', chip_smoke.FLAGSHIP,
+             chip_smoke.FUSE + chip_smoke.SPATIAL),
+            ('phase 15' if DTYPE == 'float32' else 'phase 12',
+             'mip-NeRF shipped', chip_smoke.MIPNERF, []))
+  for phase, name, gin, bindings in models:
+    model, _, state, train_step, batch = chip_smoke.train_setup(
+        dev, bindings + [f"NerfMLP.compute_dtype = '{DTYPE}'"], gin)
+    if model.nerf_mlp.cfg.compute_dtype != DTYPE:
+      raise AssertionError(f'train_steps: the model is not in {DTYPE}')
+    box = {'state': state}
 
-  def step():
-    box['state'], _ = train_step(box['state'], batch)
+    def step():
+      box['state'], _ = train_step(box['state'], batch)
 
-  wall = {}
-  for mode, n in (('auto', reps), ('off', reps_off)):
-    chip_smoke.set_mode(model, fused_trunk=mode)
-    for _ in range(3 if mode == 'auto' else 1):
-      step()
-    times = []
-    for _ in range(n):
-      torch.cuda.synchronize()
-      t0 = time.perf_counter()
-      step()
-      torch.cuda.synchronize()
-      times.append((time.perf_counter() - t0) * 1e3)
-    wall[mode] = statistics.median(times)
-  chip_smoke.set_mode(model, fused_trunk='auto')
-  step()
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+    wall = {}
+    for mode, n in (('auto', reps), ('off', reps_off)):
+      chip_smoke.set_mode(model, fused_trunk=mode)
+      for _ in range(3 if mode == 'auto' else 1):
+        step()
+      times = []
+      for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+      wall[mode] = statistics.median(times)
+    chip_smoke.set_mode(model, fused_trunk='auto')
     step()
     torch.cuda.synchronize()
-  busy = sum(getattr(e, 'self_device_time_total',
-                     getattr(e, 'self_cuda_time_total', 0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-  print(f'phase 10: train step all six {DTYPE} N=4096: kernel '
-        f'{wall["auto"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
-        f'{busy:.3f} ms', flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      step()
+      torch.cuda.synchronize()
+    busy = sum(getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f'{phase}: train step {name} {DTYPE} N=4096: kernel '
+          f'{wall["auto"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
+          f'{busy:.3f} ms', flush=True)
+    del model, state, train_step, batch, box
+    torch.cuda.empty_cache()
 
 
 def forward_kernels(fused_mlp, dev):
@@ -325,7 +334,9 @@ def backward_kernels(fused_mlp, dev):
 OWN = {f.__name__: f for f in (serve_requests, train_steps, forward_kernels,
                                backward_kernels)}
 BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
-FALSE = ('false', '(bool)0')  # a false template flag, as cu++filt prints it
+# Trailing template arguments at their defaults, as cu++filt prints them: a
+# false flag, or the trunk width 256.
+DEFAULTS = ('false', '(bool)0', '(int)256')
 TIMES = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?kernel '
                    r'([\d.]+) ms, plain ([\d.]+) ms', re.M)
 BUSY = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?device '
@@ -402,7 +413,7 @@ def same_instance(key, others):
     if other[0] != name:
       continue
     a, b = (args, other[1]) if len(args) <= len(other[1]) else (other[1], args)
-    if b[:len(a)] == a and all(x in FALSE for x in b[len(a):]):
+    if b[:len(a)] == a and all(x in DEFAULTS for x in b[len(a):]):
       return other
   return None
 

@@ -4,7 +4,7 @@ From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
     python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
         [--lib trunk_bwd_tma|trunk_bwd_f32|trunk_bwd|trunk_fwd_tma|
-               trunk_fwd_f32|trunk_fwd] [--dtype float32]
+               trunk_fwd_f32|trunk_fwd] [--dtype float32] [--cases 'K5 W128']
 
 Builds a trunk library a second time with -DREFNERF_PHASES (its own file
 in build/, never loaded on the main path): by default the bf16 width-256
@@ -25,9 +25,9 @@ each segment, closed by a barrier, to a (phase, kind) sum; kinds are the
 products, the scalar passes and the stores (the backward's scratch, the
 forward's outputs). Then, at N = 524,288 samples in --dtype and for each
 case (backward: K4 with the cotangent of u, alone and with K6+K7; K5 with
-dx, alone and with K8+K9+K10; first-order K4; forward: K3 alone and with
-K6+K7, K1 alone and with K6+K7, K2 alone and with K8+K9+K10), it runs the
-kernel once through the phase build and reads the sums, and times the
+dx, alone and with K8+K9+K10; first-order K4; K5 at width 128; forward: K3
+alone and with K6+K7, K1 alone and with K6+K7, K2 alone and with
+K8+K9+K10; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
 per-tile (and for the backward the weight-gradient and reduction) kernels
 under torch.profiler through the phase build and through the normal one.
 Each
@@ -112,7 +112,8 @@ def device_ms(run, kernels=KERNELS, calls=2):
 def cases(chip_smoke, fused_mlp, dev, cdt):
   """(name, backward call) at chip_smoke's N in `cdt`: phase 5's K4 and K5,
   phase 9's K6+K7+K4, phase 7's K8+K9+K10 backward and phase 11's
-  first-order K4 (mip-NeRF's spatial trunk, no cotangent of u)."""
+  first-order K4 (mip-NeRF's spatial trunk, no cotangent of u) and K5 W128
+  (mip-NeRF's width-128 directional trunk with dx)."""
   tdt = fused_mlp.DTYPES[cdt]
   gen = torch.Generator().manual_seed(chip_smoke.SEED + 1)
   n = chip_smoke.N_SAMPLES
@@ -154,6 +155,11 @@ def cases(chip_smoke, fused_mlp, dev, cdt):
   cots1 = (rand(n), None, rand(n, 128), None)
   yield 'K4 first-order', lambda: fused_mlp.trunk_backward_kernel(cs, pack,
                                                                   cots1)
+  segs, ws, bs, kw = chip_smoke.trunk_case('mip K2', gen, dev)
+  cs = [s.to(tdt) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (128, 33), compute_dtype=cdt, **kw)
+  yield 'K5 W128', lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots5,
+                                                           needs_dx=True)
 
 
 def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
@@ -199,6 +205,8 @@ def main():
   ap.add_argument('--dtype', default=None, choices=('bfloat16', 'float32'),
                   help='float32 for the *_f32 libraries, else bfloat16 by '
                   'default')
+  ap.add_argument('--cases', default='',
+                  help='case names to run, comma-separated (default: all)')
   a = ap.parse_args()
   a.dtype = a.dtype or ('float32' if a.lib.endswith('_f32')
                         else 'bfloat16')
@@ -229,8 +237,11 @@ def main():
   kernels = FWD_KERNELS if forward else KERNELS
   report = {'card': smi, 'n_samples': chip_smoke.N_SAMPLES, 'lib': a.lib,
             'dtype': a.dtype, 'cases': {}}
+  only = set(filter(None, a.cases.split(',')))
   for name, run in (fwd_cases if forward else cases)(chip_smoke, fused_mlp,
                                                       dev, a.dtype):
+    if only and name not in only:
+      continue
     base = device_ms(run, kernels)
     cuda_build.library = patched
     try:

@@ -10,7 +10,10 @@ forward on wgmma/TMA (trunk_fwd_tma.cu) in every mode it runs, its
 determinism, and its shapes past it (trunk_fwd.cu's instances); the f32
 width-256 backward on FMA products fed by TMA (trunk_bwd_f32.cu) in every
 mode, its determinism, its weight-gradient product and its shapes past it
-(trunk_bwd.cu's f32 instances); mip-NeRF with the spatial fuse flags; the
+(trunk_bwd.cu's f32 instances); mip-NeRF's width-128 backward on the
+two-tile instances of both libraries, its determinism and its shapes past
+them (trunk_bwd.cu's width-128 instance); mip-NeRF with the spatial fuse
+flags; the
 plain layer stack and the shapes without an instance under
 fused_trunk='auto'. This
 file imports no jax, so it also runs where jax is not installed; there, skip
@@ -588,14 +591,18 @@ def test_k11_matches_plain(dev, cdt):
 @pytest.mark.cuda
 @pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
 def test_width_128_matches_plain(dev, cdt):
-  # K2 at width 128: the raw rgb as a value; K5 (slabs of 256 rows), given a
-  # random cotangent of it: every parameter gradient and both segments'
+  # K2 at width 128: the raw rgb as a value; K5 (slabs of 256 rows, so the
+  # last slab's second 128-sample CTA holds 104 live rows), given a random
+  # cotangent of it, on the two-tile instances of trunk_bwd_tma.cu (bf16)
+  # and trunk_bwd_f32.cu (f32): every parameter gradient and both segments'
   # cotangents as derivatives.
   n = 1000
   segs, ws, bs, kw = _case('mip K2', dev, n, seed=8)
   segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
   pack = fused_mlp.pack_trunk(ws, bs, (128, 33), compute_dtype=cdt, **kw)
   assert pack.kin == 192
+  assert fused_mlp.backward_library(pack) == (
+      'trunk_bwd_tma' if cdt == 'bfloat16' else 'trunk_bwd_f32')
   hbar = torch.randn(n, 3, generator=torch.Generator().manual_seed(10)).to(dev)
   cots = (None, hbar, None, None)
   with torch.no_grad():
@@ -609,6 +616,56 @@ def test_width_128_matches_plain(dev, cdt):
   torch.cuda.synchronize()
   _assert_close(got, want, cdt, 'K2 W128')
   _assert_close(_flat(gb), _flat(wb), cdt, 'K5 W128', n_values=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_width_128_backward_is_deterministic(dev, cdt):
+  # H4: K5 at width 128 adds each CTA's two tiles in a fixed order and sums
+  # its partials with no float atomics: two runs on the same inputs (two
+  # slabs, several splits) give bit-identical gradients.
+  n = 4500
+  segs, ws, bs, kw = _case('mip K2', dev, n, seed=26)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (128, 33), compute_dtype=cdt, **kw)
+  cots = (None, torch.randn(n, 3, generator=torch.Generator().manual_seed(27))
+          .to(dev), None, None)
+  run = lambda: _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots,
+                                                      needs_dx=True,
+                                                      slab=4096))
+  with torch.no_grad():
+    a, b = run(), run()
+  assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['float32 depth 10', 'float32 kin 224',
+                                  'bfloat16 depth 10', 'bfloat16 kin 288'])
+def test_width_128_past_the_new_shapes_matches_plain(dev, case):
+  # A width-128 trunk deeper than 8 layers, wider than 256 input columns,
+  # or in f32 wider than trunk_bwd_f32.cu's shared memory holds (224), runs
+  # trunk_bwd.cu's width-128 instance; under fused_trunk='auto' it launches
+  # it, it does not go plain.
+  cdt, what, size = case.split()
+  n = 1000
+  shape = (dict(depth=10, skip=5) if what == 'depth'
+           else dict(seg_dims=(128, int(size) - 128)))
+  segs, ws, bs, kw = _case('mip K2', dev, n, seed=28, **shape)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype=cdt, **kw)
+  assert fused_mlp.backward_library(pack) == 'trunk_bwd'
+  assert fused_mlp.missing_instance(pack, 0) is None
+  cots = (None, torch.randn(n, 3, generator=torch.Generator().manual_seed(29))
+          .to(dev), None, None)
+  with torch.no_grad():
+    got = fused_mlp.trunk_backward_kernel(segs, pack, cots, needs_dx=True,
+                                          slab=512)
+    want = fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
+                                              compute_dtype=cdt,
+                                              needs_dx=True, **kw)
+  torch.cuda.synchronize()
+  _assert_close(_flat(got), _flat(want), cdt, case, n_values=0)
 
 
 @pytest.mark.cuda
@@ -1219,10 +1276,13 @@ def _k3_trunk(dev, F, n=1000, seed=19):
 # as fused_mlp.kernel_smem counts it: trunk_bwd.cu's f32 K5 at 288 input
 # columns (exactly the 232,448 B limit) and at 320 (past it, F5); K3 at 192
 # and 224 input columns on trunk_fwd_f32.cu (two ring stages, and none) and
-# on trunk_fwd.cu (past the limit at 224).
+# on trunk_fwd.cu (past the limit at 224); mip-NeRF's width-128 K5 on
+# trunk_bwd_f32.cu's two-tile instance at 192 input columns (five ring
+# stages) and at 224 (past the limit).
 SMEM_CASES = ('trunk_bwd K5 kin 288', 'trunk_bwd K5 kin 320',
               'trunk_fwd_f32 K3 kin 192', 'trunk_fwd_f32 K3 kin 224',
-              'trunk_fwd K3 kin 96', 'trunk_fwd K3 kin 224')
+              'trunk_fwd K3 kin 96', 'trunk_fwd K3 kin 224',
+              'trunk_bwd_f32 K5W128 kin 192', 'trunk_bwd_f32 K5W128 kin 224')
 
 
 @pytest.mark.cuda
@@ -1235,8 +1295,9 @@ def test_shared_memory_sums_match_the_launches(dev, monkeypatch, case):
   lib, which, _, kin = case.split()
   kin = int(kin)
   monkeypatch.setattr(fused_mlp, 'missing_instance', lambda *a, **k: None)
-  if which == 'K5':
-    segs, ws, bs, kw = _case('K2', dev, seed=20, seg_dims=(128, kin - 128))
+  if which in ('K5', 'K5W128'):
+    segs, ws, bs, kw = _case('K2' if which == 'K5' else 'mip K2', dev,
+                             seed=20, seg_dims=(128, kin - 128))
     pack = fused_mlp.pack_trunk(ws, bs, (128, kin - 128),
                                 compute_dtype='float32', **kw)
     need = fused_mlp.kernel_smem(lib, pack, 0)

@@ -236,10 +236,27 @@ def _library_case(depth, kin, cdt, width, lib, hf=0, dg=False, past=None,
     _library_case(8, 256, 'float32', 256, 'trunk_bwd_f32'),
     _library_case(9, 96, 'float32', 256, 'trunk_bwd'),
     _library_case(8, 288, 'float32', 256, 'trunk_bwd'),
-    _library_case(8, 192, 'float32', 128, 'trunk_bwd'),
+    # Width 128 within 8 layers and 256 input columns takes the two-tile
+    # instances (their ids name the route they had before).
+    _library_case(8, 192, 'float32', 128, 'trunk_bwd_f32',
+                  id='8-192-float32-128-trunk_bwd'),
     _library_case(8, 96, 'bfloat16', 256, 'trunk_bwd_tma'),
     _library_case(9, 96, 'bfloat16', 256, 'trunk_bwd'),
-    _library_case(8, 192, 'bfloat16', 128, 'trunk_bwd'),
+    _library_case(8, 192, 'bfloat16', 128, 'trunk_bwd_tma',
+                  id='8-192-bfloat16-128-trunk_bwd'),
+    # Width 128 past those shapes, in f32 past trunk_bwd_f32.cu's shared
+    # memory (224 and 256 input columns), and in bf16 below 128 input
+    # columns (trunk_bwd_tma.cu keeps the skip layer's zeta in the input
+    # tile), stays on trunk_bwd.cu.
+    _library_case(9, 192, 'float32', 128, 'trunk_bwd'),
+    _library_case(8, 288, 'float32', 128, 'trunk_bwd'),
+    _library_case(8, 224, 'float32', 128, 'trunk_bwd'),
+    _library_case(8, 256, 'float32', 128, 'trunk_bwd'),
+    _library_case(9, 192, 'bfloat16', 128, 'trunk_bwd'),
+    _library_case(8, 288, 'bfloat16', 128, 'trunk_bwd'),
+    _library_case(8, 256, 'bfloat16', 128, 'trunk_bwd_tma'),
+    _library_case(8, 96, 'bfloat16', 128, 'trunk_bwd'),
+    _library_case(8, 96, 'float32', 128, 'trunk_bwd_f32'),
     # F5 and its forward twin: trunk_bwd.cu's f32 K5 at 288 input columns
     # needs exactly the 232,448 B of an H100, at 320 more; the f32 K3
     # forward on 224 or 256 input columns fits neither trunk_fwd_f32.cu nor
@@ -258,9 +275,10 @@ def _library_case(depth, kin, cdt, width, lib, hf=0, dg=False, past=None,
 def test_backward_library_by_dtype_and_shape(depth, kin, cdt, width, lib, hf,
                                              dg, past):
   # One function picks the backward's library from the dtype and shape
-  # alone, with no card: at width 256 within 8 layers and 256 input columns
-  # the wgmma/TMA kernels in bf16 and the FMA/TMA kernels in f32
-  # (trunk_bwd_f32.cu); width 128 and trunks past those shapes trunk_bwd.cu.
+  # alone, with no card: at width 256 or 128 within 8 layers and 256 input
+  # columns the wgmma/TMA kernels in bf16 and the FMA/TMA kernels in f32
+  # (trunk_bwd_f32.cu; at width 128 up to 192 input columns, where its
+  # shared memory holds the trunk); trunks past those shapes trunk_bwd.cu.
   # An instance whose shared memory (fused_mlp.kernel_smem, the C launch's
   # sum) passes the H100's 232,448 B is named by missing_instance, so the
   # trunk runs the plain versions; every other shape has an instance.
@@ -276,6 +294,90 @@ def test_backward_library_by_dtype_and_shape(depth, kin, cdt, width, lib, hf,
     assert fused_mlp.kernel_smem(past, pack, 0, fold) > fused_mlp.SMEM_LIMIT
   if hf == 3:
     assert fused_mlp.kernel_smem(lib, pack, 0) == fused_mlp.SMEM_LIMIT
+
+
+def _mip_dir_pack(cdt, kin=161, depth=8):
+  """mip-NeRF's directional trunk (configs/blender_mipnerf.gin): width 128,
+  `depth` layers with the skip at layer 5, rgb head hf = 3, on `kin` input
+  columns ((128, 33) padded to 192 at kin 161)."""
+  ws = [torch.zeros(128, kin if l == 0 else 128 + (kin if l == 5 else 0))
+        for l in range(depth)]
+  bs = [torch.zeros(128) for _ in range(depth)]
+  return fused_mlp.pack_trunk(ws, bs, (kin,), skip_period=4,
+                              head_f32=(torch.zeros(3, 128), torch.zeros(3)),
+                              compute_dtype=cdt)
+
+
+@pytest.mark.parametrize('kin,cdt,lib,smem', [
+    (161, 'float32', 'trunk_bwd_f32', 231560),
+    (192, 'float32', 'trunk_bwd_f32', 231560),
+    (224, 'float32', 'trunk_bwd', 240264),
+    (256, 'float32', 'trunk_bwd', 257160),
+    (161, 'bfloat16', 'trunk_bwd_tma', None),
+    (256, 'bfloat16', 'trunk_bwd_tma', None)])
+def test_width_128_backward_shared_memory(kin, cdt, lib, smem):
+  # trunk_bwd_f32.cu's width-128 instance holds two 64-sample tiles a CTA:
+  # fused_mlp.kernel_smem mirrors its launch's sum (at mip-NeRF's shape five
+  # [16][128] ring stages beside 190,600 B, within SMEM_LIMIT). Past 192
+  # input columns no four-stage ring fits beside the tiles, so the f32 trunk
+  # stays on trunk_bwd.cu (missing_instance names nothing: that instance
+  # runs it); the bf16 instance fits up to 256 columns.
+  pack = _mip_dir_pack(cdt, kin)
+  assert fused_mlp.backward_library(pack) == lib
+  assert fused_mlp.missing_instance(pack, 0) is None
+  if smem is not None:
+    assert fused_mlp.kernel_smem('trunk_bwd_f32', pack, 0) == smem
+    assert (smem <= fused_mlp.SMEM_LIMIT) == (lib == 'trunk_bwd_f32')
+
+
+@pytest.mark.parametrize('route,width,rows,cta,rp', [
+    ('trunk_bwd_f32', 128, 1000, 128, 1024),
+    ('trunk_bwd_f32', 128, 232, 128, 256),
+    ('trunk_bwd_tma', 128, 65536, 128, 65536),
+    ('trunk_bwd_tma', 128, 64, 128, 128),
+    ('trunk_bwd', 128, 1000, 64, 1024),
+    ('trunk_bwd', 128, 232, 64, 256),
+    ('trunk_bwd_f32', 256, 232, 64, 256),
+    ('trunk_bwd_tma', 256, 200, 64, 256),
+    ('trunk_bwd_tma', 256, 130, 64, 192)])
+def test_backward_scratch_rows_round_to_the_cta(route, width, rows, cta, rp):
+  # A slab's scratch rows (and its rows of per-CTA vector partials) round
+  # up to whole CTAs: 128 samples on the two-tile width-128 instances, 64
+  # elsewhere; the rows past the slab are zero-padded in the kernels.
+  assert fused_mlp.bwd_cta_rows(route, width) == cta
+  assert fused_mlp.bwd_scratch_rows(route, width, rows) == rp
+
+
+@pytest.mark.parametrize('width,rows', [(256, 65536), (128, 262144)])
+def test_backward_slab_rows(width, rows):
+  # A backward slab's default rows: BWD_SLAB at width 256, four times that
+  # at 128 (N = 524,288 samples in two slabs, not eight); a whole number of
+  # 128-row CTAs either way.
+  assert fused_mlp.bwd_slab_rows(width) == rows
+  assert rows % 128 == 0 and rows >= fused_mlp.BWD_SLAB
+
+
+@pytest.mark.parametrize('route', ['trunk_bwd_f32', 'trunk_bwd_tma'])
+@pytest.mark.parametrize('n', [128, 192, 320])
+def test_width_128_weight_gradient_splits(n, route):
+  # The width-128 gradients (m = 128 rows against K_l = 128, 192, 320) in
+  # either dtype: one to three 128 x 128 tiles, as many splits as fill 132
+  # SMs once, each a whole number of TMA stages (64 samples for the bf16
+  # product) covering the rows. The width-256 bf16 gradients keep their
+  # fixed split.
+  tiles = -(-n // 128)
+  for rp in (128, 1024, 65536):
+    ks = fused_mlp._wgrad_split(route, rp, 128, n, 132)
+    nsplit = -(-rp // ks)
+    assert ks % 64 == 0 and nsplit * ks >= rp and nsplit * tiles <= 132
+    if rp == 65536:
+      assert nsplit * tiles > 66
+  assert fused_mlp._wgrad_split('trunk_bwd_tma', 65536, 256, n, 132) == \
+      fused_mlp._KSPLIT_TMA
+  # The width-256 bf16 trunk's 128-row gradient (K4's compute-dtype head)
+  # keeps the fixed split: its caller gives no SM count.
+  assert fused_mlp._wgrad_split('trunk_bwd_tma', 65536, 128, n, 0) == \
+      fused_mlp._KSPLIT_TMA
 
 
 @pytest.mark.parametrize('sms', [132, 114, 1])
