@@ -75,16 +75,19 @@ Phases, each printed on its own line:
      K5 at width 128 on segments (128, 33), K1 with the bottleneck head
      alone (hf = 0) and the first-order K4 (no cotangent of u); K11's y
      within a relative L2 bound that two faults of its store (the last
-     bias dropped, y before the last ReLU) would exceed; each backward's
-     route asserted (K5 at width 128 on the two-tile instances of
-     csrc/trunk_bwd_tma.cu and csrc/trunk_bwd_f32.cu), and K5 at width 128
-     run twice more in both dtypes, bit-identical;
+     bias dropped, y before the last ReLU) would exceed; each route
+     asserted (K2 and K5 at width 128 on the two-tile instances of
+     csrc/trunk_fwd_tma.cu and csrc/trunk_fwd_f32.cu, csrc/trunk_bwd_tma.cu
+     and csrc/trunk_bwd_f32.cu; K11's forward on csrc/trunk_fwd_tma.cu in
+     bf16, csrc/trunk_fwd.cu in f32), and K2 and K5 at width 128 in both
+     dtypes and K11's bf16 forward run twice more, bit-identical;
  12. configs/blender_mipnerf.gin at full width (bf16 trunks), as shipped and
      with Model.use_viewdirs = False: each answers three requests and takes
      10 train steps through the kernels (K1, K2 and K4, K5 at width 128; or
      K1 with K11 and K4 with K11), each against fused_trunk='off', and one
      request and one step of each profiled (as shipped, K5 at width 128 on
-     trunk_bwd_tma.cu, read from the profile);
+     trunk_bwd_tma.cu; the forwards on trunk_fwd_tma.cu and no bf16
+     instance of trunk_fwd.cu: read from the profiles);
  13. the flagship gin in its own float32 (no compute_dtype binding) with all
      six fuse flags, trained at batch 4096 as phase 10 (3 warm-up steps, 10
      timed ones; K2-K10 counted, the forwards on csrc/trunk_fwd_f32.cu and
@@ -98,9 +101,13 @@ Phases, each printed on its own line:
  15. configs/blender_mipnerf.gin as shipped, in its own float32 (no
      compute_dtype binding), trained at batch 4096 as phase 12 (3 warm-up
      steps, 10 timed ones; K1 hf=0, K2 and K5 at width 128 and the
-     first-order K4 counted, K5 at width 128 on csrc/trunk_bwd_f32.cu read
-     from the profile), one more step against fused_trunk='off', and one
-     step profiled.
+     first-order K4 counted; K5 at width 128 on csrc/trunk_bwd_f32.cu and
+     the forwards on csrc/trunk_fwd_f32.cu, no f32 instance of
+     csrc/trunk_fwd.cu, read from the profile), one more step against
+     fused_trunk='off', and one step profiled; then serving as phase 14:
+     three requests (K1, K2 counted), the first against fused_trunk='off',
+     the latency of 30 4096-ray requests (median, p90) and one request
+     profiled.
 The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6, 8, 10, 12, 13, 14 and 15), its time and
 its plain version's at N, and its bound: the larger of the bytes it must move
@@ -1179,6 +1186,11 @@ MIP_CASES = (('K11', ('mip K11', False)),
              ('K5 W128', ('mip K2', True)),
              ('K1 hf=0', ('mip K1', False)),
              ('K4 first-order', ('mip K1', True)))
+# Phase 11's forwards off FWD_ROUTE, and the forwards it runs twice more
+# (bit-identical): the two-tile width-128 ones and K11's TMA store of y.
+MIP_FWD_ROUTE = {('K11', 'float32'): 'trunk_fwd'}
+MIP_RERUN = (('K2 W128', 'float32'), ('K2 W128', 'bfloat16'),
+             ('K11', 'bfloat16'))
 
 
 def y_faults(fused_mlp, cdt, cs, ws, bs, kw, y):
@@ -1202,8 +1214,8 @@ def y_faults(fused_mlp, cdt, cs, ws, bs, kw, y):
 def check_mip_kernels(fused_mlp, dev):
   """Phase 11: K11 forward and backward, K2 and K5 at width 128, K1 with
   hf = 0 and the first-order K4 against their plain versions, f32 and
-  bf16. Forward values by KERNEL_BOUND, K11's y by Y_BOUND, derivatives by
-  GRAD_BOUND."""
+  bf16, each route asserted. Forward values by KERNEL_BOUND, K11's y by
+  Y_BOUND, derivatives by GRAD_BOUND."""
   gen = torch.Generator().manual_seed(SEED + 4)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
   results = {}
@@ -1225,16 +1237,21 @@ def check_mip_kernels(fused_mlp, dev):
                                   compute_dtype=cdt, **kw)
       inputs = cs + pack_tensors(pack)
       if not backward:
+        # K11 in f32 stays on trunk_fwd.cu (MIP_FWD_ROUTE).
+        check_route(fused_mlp, which, cdt, pack,
+                    MIP_FWD_ROUTE.get((which, cdt)), out_y=out_y)
+        kernel = lambda: fused_mlp.trunk_kernel(cs, pack, out_y=out_y)
         plain = lambda: fused_mlp.trunk_reference(
             cs, ws, bs, compute_dtype=cdt, out_y=out_y, **kw)
         results[which, cdt] = compare(
-            which, cdt, lambda: fused_mlp.trunk_kernel(cs, pack, out_y=out_y),
-            plain, n_values=3, phase=11, inputs=inputs,
+            which, cdt, kernel, plain, n_values=3, phase=11, inputs=inputs,
             flops=trunk_flops(ws, N_SAMPLES, heads),
             y=0 if out_y else None)
         if out_y:
           with torch.no_grad():
             y_faults(fused_mlp, cdt, cs, ws, bs, kw, plain()[0])
+        if (which, cdt) in MIP_RERUN:
+          deterministic(which, kernel, phase=11, cdt=cdt)
         continue
       yb = None if ybar is None else ybar.to(fused_mlp.DTYPES[cdt])
       route = fused_mlp.backward_library(pack)
@@ -1314,10 +1331,13 @@ def mip_stage(fused_mlp, dev):
     request = lambda: renderer.render_rays(model, rays,
                                            config.render_chunk_size)
     with torch.no_grad():
-      profile(request, f'mip-NeRF {run} 4096-ray request', 3, phase=12)
+      rprof = profile(request, f'mip-NeRF {run} 4096-ray request', 3,
+                      phase=12)
     prof = profile(step, f'mip-NeRF {run} train step', 2, phase=12)
     if run == 'shipped':
       w128_backward(prof, 12, 'trunk_bwd_tma_kernel')
+    for pr in (rprof, prof):
+      new_kernels(pr, 12, ('trunk_fwd_tma_kernel',), '__nv_bfloat16')
     out[run] = (serve_launches, train_launches, step_s, timings)
     del model, state, train_step, batch, box
     torch.cuda.empty_cache()
@@ -1341,7 +1361,7 @@ def f32_stage(fused_mlp, dev):
     box['state'], _ = train_step(box['state'], batch)
 
   prof = profile(step, 'float32 all-six train step', 2, phase=13)
-  f32_kernels(prof, 13, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel'))
+  new_kernels(prof, 13, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel'))
   del model, state, train_step, batch, box
   torch.cuda.empty_cache()
   return launches, step_s
@@ -1350,8 +1370,10 @@ def f32_stage(fused_mlp, dev):
 def mip_f32_stage(fused_mlp, dev):
   """Phase 15: configs/blender_mipnerf.gin as shipped in its own float32
   (no compute_dtype binding), trained at batch TRAIN_BATCH through the
-  kernels (K5 at width 128 on trunk_bwd_f32.cu) against fused_trunk='off',
-  and one step profiled. Returns (launches, seconds a step, the profile)."""
+  kernels (K5 at width 128 on trunk_bwd_f32.cu, the forwards on
+  trunk_fwd_f32.cu) against fused_trunk='off', and one step profiled; then
+  serving as phase 14. Returns (step launches, seconds a step, the step's
+  profile, request launches, the requests' latency)."""
   launches, step_s, (model, _, state, train_step, batch) = train(
       fused_mlp, dev, (), phase=15, per_step=MIP_PER_STEP, gin_name=MIPNERF,
       dtype=None)
@@ -1364,35 +1386,44 @@ def mip_f32_stage(fused_mlp, dev):
 
   prof = profile(step, 'mip-NeRF float32 train step', 2, phase=15)
   w128_backward(prof, 15, 'trunk_bwd_f32_kernel')
+  new_kernels(prof, 15, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel'))
   del model, state, train_step, batch, box
   torch.cuda.empty_cache()
-  return launches, step_s, prof
+  serve_launches, request = f32_serve_stage(
+      fused_mlp, dev, phase=15, gin_name=MIPNERF, bindings=(),
+      kernels=('K1', 'K2'))
+  return launches, step_s, prof, serve_launches, request
 
 
-def f32_kernels(prof, phase, need):
-  """Phases 13 and 14: the profile shows each kernel named in `need` and
-  no f32 instance of trunk_fwd.cu (the forward the FMA/TMA kernel
-  replaced), or this fails."""
+def new_kernels(prof, phase, need, dtype='float'):
+  """Phases 12-15: the profile shows each kernel named in `need` and no
+  `dtype` instance of trunk_fwd.cu (the forward that the FMA/TMA and
+  wgmma/TMA kernels replaced: in f32 everywhere, in bf16 on mip-NeRF's K2
+  at width 128 and K11), or this fails."""
   names = list((prof or {}).get('kernels', {}))
   missing = [k for k in need if not any(k in n for n in names)]
-  old = [n for n in names if 'trunk_fwd_kernel<float' in n]
+  old = [n for n in names if f'trunk_fwd_kernel<{dtype}' in n]
   if prof is None or missing or old:
-    raise AssertionError(f'phase {phase}: the f32 path ran {names}: '
-                         f'missing {missing}, trunk_fwd.cu f32 {old}')
+    raise AssertionError(f'phase {phase}: the path ran {names}: missing '
+                         f'{missing}, trunk_fwd.cu {dtype} {old}')
 
 
-def f32_serve_stage(fused_mlp, dev, requests=30):
+def f32_serve_stage(fused_mlp, dev, requests=30, phase=14, gin_name=FLAGSHIP,
+                    bindings=FUSE + SPATIAL, kernels=SIX_SERVED):
   """Phase 14: configs/blender_refnerf.gin in its own float32 with all six
-  fuse flags serves three requests through the kernels (the forwards on
-  trunk_fwd_f32.cu) against fused_trunk='off'; then the latency of
-  `requests` 4096-ray requests and one request profiled. Returns (the
-  launches, {median_ms, p90_ms, busy_ms})."""
+  fuse flags (phase 15: configs/blender_mipnerf.gin as shipped) serves
+  three requests through the kernels (the forwards on trunk_fwd_f32.cu)
+  against fused_trunk='off'; then the latency of `requests` 4096-ray
+  requests and one request profiled. Returns (the launches, {median_ms,
+  p90_ms, busy_ms})."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import renderer
-  launches, (model, config) = serve(fused_mlp, dev, FUSE + SPATIAL, phase=14,
-                                    kernels=SIX_SERVED, dtype=None)
+  launches, (model, config) = serve(fused_mlp, dev, bindings, phase=phase,
+                                    kernels=kernels, gin_name=gin_name,
+                                    dtype=None)
   if model.nerf_mlp.cfg.compute_dtype != 'float32':
-    raise AssertionError('phase 14: the shipped gin did not serve in float32')
+    raise AssertionError(f'phase {phase}: the shipped gin did not serve in '
+                         'float32')
   rays = random_rays(rays_lib, 4096, config, 1, dev)
   request = lambda: renderer.render_rays(model, rays,
                                          config.render_chunk_size)
@@ -1405,11 +1436,13 @@ def f32_serve_stage(fused_mlp, dev, requests=30):
       request()
       torch.cuda.synchronize()
       times.append((time.perf_counter() - t0) * 1e3)
-    prof = profile(request, 'float32 all-six 4096-ray request', 3, phase=14)
-  f32_kernels(prof, 14, ('trunk_fwd_f32_kernel',))
+    prof = profile(request, f'float32 {gin_name} 4096-ray request', 3,
+                   phase=phase)
+  new_kernels(prof, phase, ('trunk_fwd_f32_kernel',))
   out = dict(median_ms=float(np.median(times)),
              p90_ms=float(np.percentile(times, 90)), busy_ms=prof['busy_ms'])
-  log(f'phase 14: {requests} 4096-ray requests: median {out["median_ms"]:.2f} '
+  log(f'phase {phase}: {requests} 4096-ray requests: median '
+      f'{out["median_ms"]:.2f} '
       f'ms, p90 {out["p90_ms"]:.2f} ms [{min(times):.2f}, {max(times):.2f}], '
       f'device busy {out["busy_ms"]:.2f} ms a request')
   del model
@@ -1465,7 +1498,8 @@ def main():
       mip['shipped'], mip['no viewdirs'])
   f32_train, f32_step_s = f32_stage(fused_mlp, dev)
   f32_serve, f32_request = f32_serve_stage(fused_mlp, dev)
-  mip_f32_train, mip_f32_step_s, mip_f32_prof = mip_f32_stage(fused_mlp, dev)
+  (mip_f32_train, mip_f32_step_s, mip_f32_prof, mip_f32_serve,
+   mip_f32_request) = mip_f32_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -1501,9 +1535,9 @@ def main():
       'K10': ('in-kernel colour epilogue, fwd and bwd', ftma_src, 283,
               dir_serve['K10'] + dir_train['K10']),
       # Phase 12's: mip-NeRF as shipped, and without view directions (K11).
-      'K11': ('trunk features y out (K1), their cotangent in (K4)', fwd_src,
+      'K11': ('trunk features y out (K1), their cotangent in (K4)', ftma_src,
               629, y_serve['K11'] + y_train['K11']),
-      'K2 W128': ('directional trunk at width 128 (mip-NeRF)', fwd_src, 612,
+      'K2 W128': ('directional trunk at width 128 (mip-NeRF)', ftma_src, 612,
                   mip_serve['K2'] + mip_train['K2']),
       'K5 W128': ('directional trunk backward at width 128, dx', tma_src,
                   668, mip_train['K5']),
@@ -1554,7 +1588,8 @@ def main():
     if src == tma_src:
       entry['f32_source'] = f32_src
     if src == ftma_src:
-      entry['f32_source'] = f32fwd_src
+      # f32 K11 stays on trunk_fwd.cu.
+      entry['f32_source'] = fwd_src if which == 'K11' else f32fwd_src
     if which in ('K6', 'K7', 'K8', 'K9', 'K10'):
       entry['bwd_source'] = tma_src
     if which in ('K6', 'K7', 'K8', 'K9', 'K10', 'K11'):
@@ -1563,6 +1598,8 @@ def main():
       entry['f32_train_launches'] = f32_train[which]
     if which in mip_f32:
       entry['f32_train_launches'] = mip_f32_train[mip_f32[which]]
+      if mip_f32_serve.get(mip_f32[which]):
+        entry['f32_serve_launches'] = mip_f32_serve[mip_f32[which]]
     if f32_serve.get(which):
       entry['f32_serve_launches'] = f32_serve[which]
     if which in ('K8', 'K9', 'K10', 'K11'):
@@ -1601,7 +1638,8 @@ def main():
       f'rays/s; phase 14 (float32, all six, 4096-ray requests): '
       f'{json.dumps(f32_request)}; phase 15 (mip-NeRF, float32): '
       f'{mip_f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / mip_f32_step_s:.0f} '
-      f'train rays/s, device busy {mip_f32_prof["busy_ms"]:.2f} ms a step')
+      f'train rays/s, device busy {mip_f32_prof["busy_ms"]:.2f} ms a step, '
+      f'4096-ray requests {json.dumps(mip_f32_request)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 // weight slices, the 128-byte-swizzled tile layout, the product of a tile
 // with the next slices of the ring, and the host-side tensor maps. The
 // trunk width is kW (256) unless a kernel takes it as a template parameter
-// W (trunk_bwd_tma.cu and trunk_bwd_f32.cu also at 128).
+// W (all four TMA trunk kernels also run at 128).
 
 #pragma once
 

@@ -1,5 +1,5 @@
-// Building blocks of the f32 trunk kernels for Hopper (trunk_fwd_f32.cu at
-// width 256, trunk_bwd_f32.cu at 256 and 128): register-blocked FMA products
+// Building blocks of the f32 trunk kernels for Hopper (trunk_fwd_f32.cu and
+// trunk_bwd_f32.cu at widths 256 and 128): register-blocked FMA products
 // fed by a TMA ring of weight slices, on k-major shared-memory tiles.
 //
 // Each product acc[64][256] = A[64][K] B[K][256] is an outer product over K:
@@ -180,6 +180,62 @@ __device__ void load_input_f32(float* t, const float* x0, int d0, const float* x
         t[(d0 + dir.p + i) * kLD + r] = s.live ? h.im * zpat : 0.f;
       }
       if (dir.geo && q == 0) t[(d0 + 2 * dir.p) * kLD + r] = s.live ? s.nd : 0.f;
+    }
+  }
+}
+
+// Width 128 (trunk_fwd_f32.cu, trunk_bwd_f32.cu): the CTA's input tile of R rows (load_input_f32 without the IDE
+// block), k-major, zero-padded to kin columns and past row n; x0 in 16-byte
+// loads where its rows allow (d0 a multiple of 4, the pointer 16-byte
+// aligned). Thread t keeps to row t % R, so the tile's stores do not
+// conflict in the banks, and every load of a batch is in flight before its
+// stores.
+template <int R>
+__device__ void load_input_rows(float* t, const float* x0, int d0, const float* x1, int d1,
+                                int kin, int row0, int n) {
+  constexpr int LD = R + 4;
+  int c_lo = 0;  // columns [0, c_lo) come by the 16-byte loads
+  if ((d0 & 3) == 0 && (reinterpret_cast<uintptr_t>(x0) & 15) == 0) {
+    const int total = R * (d0 / 4);
+    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kCons, gr = row0 + i % R;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < total && gr < n)
+          v[u] = __ldg(reinterpret_cast<const float4*>(x0 + static_cast<size_t>(gr) * d0) + i / R);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kCons, r = i % R, c = 4 * (i / R);
+        if (i >= total) continue;
+        t[c * LD + r] = v[u].x;
+        t[(c + 1) * LD + r] = v[u].y;
+        t[(c + 2) * LD + r] = v[u].z;
+        t[(c + 3) * LD + r] = v[u].w;
+      }
+    }
+    c_lo = d0;
+  }
+  const int total = R * (kin - c_lo);
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, gr = row0 + i % R, c = c_lo + i / R, c1 = c - d0;
+      v[u] = 0.f;
+      if (i < total && gr < n) {
+        if (c < d0)
+          v[u] = __ldg(x0 + static_cast<size_t>(gr) * d0 + c);
+        else if (c1 < d1)
+          v[u] = __ldg(x1 + static_cast<size_t>(gr) * d1 + c1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons;
+      if (i < total) t[(c_lo + i / R) * LD + i % R] = v[u];
     }
   }
 }

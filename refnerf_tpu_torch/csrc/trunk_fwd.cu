@@ -69,7 +69,10 @@
 // in and the heads out (~0.2-0.26 GB; the weights stay in L2), about 2,000
 // FLOP per byte, so the kernel is bound by the tensor-core (bf16) or FMA
 // (f32) throughput. This first version uses mma.sync m16n8k16 (bf16) and
-// plain FMA (f32); wgmma/TMA and a deeper pipeline are later work. K11's y
+// plain FMA (f32). Its redesigns for Hopper (wgmma or FMA products fed by a
+// TMA ring: trunk_fwd_tma.cu, trunk_fwd_f32.cu, `fused_mlp.forward_library`)
+// run every mode within 8 layers and 256 input columns but f32 K11; this
+// file runs the shapes past them, f32 K11, and the comparisons. K11's y
 // (512 B a sample in bf16, 268 MB at that N, 0.08 ms at 3.35 TB/s) stays
 // under the 0.54 ms of its trunk's tensor work. The width-128 directional
 // trunk is ~0.31 MFLOP a sample (kin 161 padded to 192 is the kernel's own
@@ -279,7 +282,10 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_kernel(FwdParams p) {
       if (dg) save_mask<T, W>(bits + l * kRows * (W / 32), act, LDA);
       PHASE_MARK(1, kScal);
     }
-    if constexpr (YO) store_rows<T, W>(static_cast<T*>(p.y), act, LDA, row0, p.n);
+    if constexpr (YO) {
+      store_rows<T, W>(static_cast<T*>(p.y), act, LDA, row0, p.n);
+      PHASE_MARK(1, kStore);
+    }
 
     // f32 heads on y = act: one warp per row, lanes across the width.
     if (p.wd != nullptr || p.hf > 0) {

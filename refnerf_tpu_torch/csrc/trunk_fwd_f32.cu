@@ -1,32 +1,34 @@
-// The f32 width-256 trunk forward for Hopper (sm_90a): register-blocked FMA
-// products fed by a TMA weight ring.
+// The f32 trunk forward for Hopper (sm_90a) at widths 256 and 128:
+// register-blocked FMA products fed by a TMA weight ring.
 //
-// Replaces, for the compute dtype float32 at width 256 (up to 8 layers, 256
-// input columns and 16 f32 heads), the forward Pallas kernel `_fwd_kernel`
+// Replaces, for the compute dtype float32 (up to 8 layers, 256 input
+// columns and 16 f32 heads), the forward Pallas kernel `_fwd_kernel`
 // (:612-666) of refnerf_tpu/ops/pallas/fused_mlp.py in the modes of
-// trunk_fwd.cu but K11: K1 (the spatial trunk and its heads; hf = 0 too),
-// K2 (the directional trunk), K3 (K1 with the density gradient,
-// `_inner_chain` :589-609 and the fold :651-662), K6 and K7 on K1/K3 (the
-// compositing weights `_epilogue_fwd` :498, the IPE `_segments` :550-563,
-// `_safe_trig_arg` :191), K8-K10 on K2 (the IDE `_ide_fwd` :402, the
-// direction geometry `_dir_geometry` :355, the colour epilogue
-// `_rgb_epilogue` :283). It computes what trunk_fwd.cu computes, with the
+// trunk_fwd.cu but K11: at width 256 K1 (the spatial trunk and its heads;
+// hf = 0 too), K2 (the directional trunk), K3 (K1 with the density
+// gradient, `_inner_chain` :589-609 and the fold :651-662), K6 and K7 on
+// K1/K3 (the compositing weights `_epilogue_fwd` :498, the IPE `_segments`
+// :550-563, `_safe_trig_arg` :191), K8-K10 on K2 (the IDE `_ide_fwd` :402,
+// the direction geometry `_dir_geometry` :355, the colour epilogue
+// `_rgb_epilogue` :283); at width 128 the plain K2 (mip-NeRF's directional
+// trunk, `fwd_f32_rows`). It computes what trunk_fwd.cu computes, with the
 // same arithmetic (trunk_fwd.cu:35-47: h_l = relu(acc + b_l); sigma and the
 // f32 heads on y; the bottleneck y wc^T + bc; K3's chain s_{l-1} =
 // relu'(h_{l-1}) (s_l Wa_l) with u_x summed over the skip layer and layer 0,
 // then folded), from the same C arguments but for the head: this library
 // reads the compute-dtype head transposed, wc^T [W][HC], through the `wc`
-// argument. Every product runs in full f32 on the FMA pipes (no TF32). K11,
-// the width-128 trunk and the trunks past these shapes or past this
-// kernel's shared memory (`fwd_f32_smem`: K3 on more than 192 input
-// columns) stay in trunk_fwd.cu.
+// argument. Every product runs in full f32 on the FMA pipes (no TF32). K11
+// and the trunks past these shapes or past this kernel's shared memory
+// (`fwd_f32_smem`: K3 on more than 192 input columns) stay in trunk_fwd.cu.
 //
-// Bound on the H100: K1 needs ~1.09 MFLOP a sample, K3 ~2.10 (0.57 / 1.10
-// TFLOP at N = 524,288, chip_smoke.py `trunk_flops`; 8.5 / 16.5 ms at 67
-// TFLOP/s); device memory carries the inputs and outputs (~0.1-0.4 GB,
-// about 0.1 ms). A 64-row tile reads each layer's f32 weights (256 KB) from
-// L2 for 8.4 MFLOP, 32 FLOP a byte: ~2.1 TB/s at the FMA peak, within L2's
-// reach, so one tile at a time.
+// Bound on the H100: K1 needs ~1.09 MFLOP a sample, K3 ~2.10, K2 at width
+// 128 ~0.31 (0.57 / 1.10 / 0.16 TFLOP at N = 524,288, chip_smoke.py
+// `trunk_flops`; 8.5 / 16.5 / 2.4 ms at 67 TFLOP/s); device memory carries
+// the inputs and outputs (~0.1-0.4 GB, about 0.1 ms). A 64-row tile reads
+// each layer's f32 weights (256 KB) from L2 for 8.4 MFLOP, 32 FLOP a byte:
+// ~2.1 TB/s at the FMA peak, within L2's reach, so one tile at a time at
+// width 256; at 128 a tile's product over a slice is half as large while
+// each slice still costs a wait and an arrive, so a CTA takes two tiles.
 //
 // Design (trunk_bwd_f32.cu's forward half; the shared blocks are in
 // trunk_f32.cuh).
@@ -71,8 +73,9 @@ constexpr int kMaxHeads = 16;           // f32 heads (hf), the density head besi
 constexpr int kHG = 4;                  // heads summed a pass
 constexpr int kRed = kHG * 4 * kRows;   // floats of red: [kHG][4 column warps][kRows]
 
+template <int W = kW>
 __device__ __forceinline__ int k_dim(const FwdParams& p, int l) {
-  return l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+  return l == 0 ? p.kin : (l == p.skip ? W + p.kin : W);
 }
 
 // The products of one tile in order, as (tensor map, first column, K rows);
@@ -128,11 +131,126 @@ __device__ __forceinline__ void put_ux(float* ux, const float (&v)[8][NC], int k
   }
 }
 
-template <int HC, bool DIR, bool SPA>
+// Width 128: mip-NeRF's plain directional trunk (K2 at width 128: the f32
+// heads, no density head, bottleneck, fused stage or y). A CTA takes R = 128
+// samples, two tiles as one k-major [feature][kLDW<128>] tile, as
+// trunk_bwd_f32.cu's width-128 recompute: its 8 consumer warps are 4 row
+// quarters x 2 column halves, each thread an 8 x 8 block with 4 LDS.128 a k
+// step, fed by [16][128] slices (8 KB) that serve all 128 samples. The f32
+// heads' partial dot products are summed over a row's 8 lanes by
+// `row_sums`, then over the 2 column warps in order.
+template <int W>
+__device__ __forceinline__ void fwd_f32_rows(const FwdParams& p, const MapsF32& m,
+                                             unsigned char* smem) {
+  constexpr int R = kRowsW<W>, LD = kLDW<W>;
+  const int kin = p.kin;
+  float* ringp = reinterpret_cast<float*>(smem);  // stages x [16][W]
+  float* act = ringp + m.stages * (kSD * W);      // [W][LD]: h_l
+  float* inb = act + W * LD;                      // [kin][LD]: the trunk input
+  float* red = inb + kin * LD;                    // [kHG][2 column warps][R]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(red + kRed) + 7) & ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring{smem_u32(ringp), smem_u32(bars), smem_u32(bars + m.stages), m.stages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < m.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {  // the producer warp: the layers' slices, in order
+    if (lane == 0)
+      for (int l = 0; l < p.depth; ++l)
+        for (int k = 0; k < k_dim<W>(p, l); k += kSD) {
+          mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
+          mbar_expect_tx(ring.full + 8 * ring.stage, kSliceFW<W>);
+          tma_load(ring.base + ring.stage * kSliceFW<W>, &m.wt[l], ring.full + 8 * ring.stage, 0, k);
+          ring.advance();
+        }
+    return;
+  }
+
+  // The consumers: four 32-row quarters x two 64-column halves.
+  PHASE_START;
+  const int wn = warp & 1;
+  const int rb = 32 * (warp >> 1) + 4 * (lane >> 3);  // the block's rows rb + R(i)
+  const int cb = 64 * wn + 4 * (lane & 7);            // and columns cb + C(j)
+  const int row0 = blockIdx.x * R;
+  const float* bias = static_cast<const float*>(p.b);
+  float acc[8][8];
+
+  // 1. The input tile.
+  load_input_rows<R>(inb, static_cast<const float*>(p.x0), p.d0, static_cast<const float*>(p.x1),
+                     p.d1, kin, row0, p.n);
+  cons_sync();
+  PHASE_MARK(0, kScal);
+
+  // 2. The layers: h_l = relu(acc + b_l) to the activation tile (but the
+  // last, y), acc keeping y after the last.
+  for (int l = 0; l < p.depth; ++l) {
+    if (l == 0)
+      product<W>(acc, inb, kin, inb, kin, ring, ringp, rb, cb);
+    else
+      product<W>(acc, act, W, inb, k_dim<W>(p, l), ring, ringp, rb, cb);
+    PHASE_MARK(1, kProd);
+    cons_sync();  // every consumer's product has read the tiles
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float b = __ldg(bias + l * W + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] = fmaxf(acc[i][j] + b, 0.f);
+    }
+    if (l + 1 < p.depth) put_tile<LD>(act, acc, rb, cb);
+    cons_sync();
+    PHASE_MARK(1, kScal);
+  }
+
+  // 3. The f32 heads y wh^T + bh, kHG a pass: the block's partial dot
+  // products summed over its row's lanes, then over the 2 column warps in
+  // order by a thread a (head, row).
+  for (int g = 0; g < p.hf; g += kHG) {
+    const int ng = min(kHG, p.hf - g);
+    for (int h = 0; h < ng; ++h) {
+      const float* wv = p.wh + (g + h) * W;
+      float wj[8], v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wj[j] = __ldg(wv + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i] = fmaf(acc[i][j], wj[j], v[i]);
+      }
+      red[(h * 2 + wn) * R + rb + row_of(lane & 7)] = row_sums(v);
+    }
+    cons_sync();
+    for (int i = tid; i < ng * R; i += kCons) {
+      const int h = i / R, r = i % R, gr = row0 + r;
+      if (gr < p.n)
+        p.hout[static_cast<size_t>(gr) * p.hf + g + h] =
+            red[2 * h * R + r] + red[(2 * h + 1) * R + r] + p.bh[g + h];
+    }
+    cons_sync();
+  }
+  PHASE_MARK(2, kScal);
+}
+
+// W: the trunk width, 256, or 128 for the plain directional trunk alone
+// (`fwd_f32_rows`; the rest of this body is width 256's).
+template <int HC, bool DIR, bool SPA, int W = kW>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_fwd_f32_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ MapsF32 m) {
+  static_assert(W == kW || (HC == 0 && !DIR && !SPA), "width 128: the plain K2 alone");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  if constexpr (W != kW) {
+    fwd_f32_rows<W>(p, m, smem);
+    return;
+  }
   const int kin = p.kin;
   const bool dg = !DIR && p.u != nullptr;  // K3: never with K8-K10
   const int tiles = SPA ? p.tiles : 1;
@@ -408,61 +526,70 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 }
 
-// Shared memory of a launch, and the ring's stages that fit (0 when fewer
-// than kMinStages do). fused_mlp.py `_smem_trunk_fwd_f32` mirrors this sum.
+// Shared memory of a launch at width W, and the ring's stages that fit (0
+// when fewer than kMinStages do). fused_mlp.py `kernel_smem` mirrors this
+// sum. Width 128 has no K3, K6 or K10 (hv).
+template <int W = kW>
 size_t fwd_f32_smem(const FwdParams& p, int* stages) {
   const size_t rest =
-      1024 + 4 * static_cast<size_t>(kW + p.kin) * kLD +
+      1024 + 4 * static_cast<size_t>(W + p.kin) * kLDW<W> +
       (p.u != nullptr ? 8 * static_cast<size_t>(p.depth) * kCons +
                             4 * static_cast<size_t>(p.kin) * kLD
                       : 0) +
-      4 * static_cast<size_t>(kRed + 3 * kRows) +
+      4 * static_cast<size_t>(kRed + (W == kW ? 3 * kRows : 0)) +
       (p.wts != nullptr ? 4 * static_cast<size_t>(p.tiles) * kRows : 0) + 8 + 16 * kMaxStages;
-  const size_t fit = rest < 232448 ? (232448 - rest) / kSliceF : 0;
+  const size_t fit = rest < 232448 ? (232448 - rest) / kSliceFW<W> : 0;
   *stages = fit < kMinStages ? 0 : static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
-  return rest + static_cast<size_t>(*stages) * kSliceF;
+  return rest + static_cast<size_t>(*stages) * kSliceFW<W>;
 }
 
-template <int HC, bool DIR, bool SPA>
+template <int HC, bool DIR, bool SPA, int W = kW>
 int launch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   // K7's staged inputs must fit in red.
   if (SPA && p.ipe.lm != nullptr && 2 * kRows * p.ipe.nb > kRed)
     return static_cast<int>(cudaErrorInvalidValue);
   MapsF32 m;
   memset(&m, 0, sizeof(m));
-  bool ok = make_layer_maps_f32(m, p.w, p.wt, p.depth, p.kin, p.skip);
+  bool ok = make_layer_maps_f32<W>(m, p.w, p.wt, p.depth, p.kin, p.skip);
   if (HC > 0) ok = ok && make_map_f32(&m.wc, p.wc, HC, kW, HC, kW, kSD);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fwd_f32_smem(p, &m.stages);
+  const size_t smem = fwd_f32_smem<W>(p, &m.stages);
   if (m.stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_f32_kernel<HC, DIR, SPA>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_f32_kernel<HC, DIR, SPA, W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = (SPA ? p.tiles : 1) * kRows;
-  trunk_fwd_f32_kernel<HC, DIR, SPA><<<(p.n + rows - 1) / rows, kTmaThreads, smem, stream>>>(p, m);
+  const int rows = W == kW ? (SPA ? p.tiles : 1) * kRows : kRowsW<W>;
+  trunk_fwd_f32_kernel<HC, DIR, SPA, W>
+      <<<(p.n + rows - 1) / rows, kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry for ctypes, with refnerf_trunk_fwd's arguments (trunk_fwd.cu):
-// the f32 trunk (dtype 0) at width 256, at most kMaxDepth layers, kW input
-// columns and kMaxHeads f32 heads, without K11's y; K1/K3 (hc 128 or 0;
-// with K6/K7, hc 128) and K2 (hc 0; with K8-K10, never with K3). `wc` is
-// the compute-dtype head transposed, wc^T [width][hc] (its product reads
-// the contraction index outermost). Returns the cudaError_t of the launch (0 on success);
-// allocates nothing and does not synchronise.
+// the f32 trunk (dtype 0) of at most kMaxDepth layers, kW input columns and
+// kMaxHeads f32 heads, without K11's y; at width 256 K1/K3 (hc 128 or 0;
+// with K6/K7, hc 128) and K2 (hc 0; with K8-K10, never with K3), at width
+// 128 the plain K2 alone (hc 0, no density head, K3 or fused stage), 128
+// samples a CTA. `wc` is the compute-dtype head transposed, wc^T
+// [width][hc] (its product reads the contraction index outermost). Returns
+// the cudaError_t of the launch (0 on success); allocates nothing and does
+// not synchronise.
 extern "C" int refnerf_trunk_fwd_f32(REFNERF_FWD_ARGS) {
   FwdParams p;
   const int err = fwd_params(p, REFNERF_FWD_NAMES);
   if (err != 0) return err;
-  if (dtype != 0 || width != kW || depth < 1 || depth > kMaxDepth || kin > kW ||
-      hf > kMaxHeads || y != nullptr)
+  if (dtype != 0 || (width != kW && width != 128) || depth < 1 || depth > kMaxDepth ||
+      kin > kW || hf > kMaxHeads || y != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
+  if (width == 128)
+    return hc == 0 && !dir && !spa && u == nullptr && wd == nullptr
+               ? launch_fwd_f32<0, false, false, 128>(p, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (hc == 0 && !spa && dir)  // never with K3
     return u == nullptr ? launch_fwd_f32<0, true, false>(p, s)
                         : static_cast<int>(cudaErrorInvalidValue);

@@ -1,26 +1,29 @@
-// The bf16 width-256 trunk forward for Hopper (sm_90a): wgmma products fed
-// by a TMA weight ring.
+// The bf16 trunk forward for Hopper (sm_90a) at widths 256 and 128: wgmma
+// products fed by a TMA weight ring.
 //
 // Replaces, for the compute dtype bfloat16 at width 256, the forward Pallas
 // kernel `_fwd_kernel` (:612-666) of refnerf_tpu/ops/pallas/fused_mlp.py in
-// the modes of trunk_fwd.cu but K11: K1 (the spatial trunk and its heads),
-// K2 (the directional trunk), K3 (K1 with the density gradient,
-// `_inner_chain` :589-609 and the fold :651-662), K6 and K7 on K1/K3 (the
-// compositing weights `_epilogue_fwd` :498, the IPE `_segments` :550-563),
-// K8-K10 on K2 (the IDE `_ide_fwd` :402, the direction geometry
-// `_dir_geometry` :355, the colour epilogue `_rgb_epilogue` :283). It
-// computes what trunk_fwd.cu computes, with the same arithmetic and bf16
-// roundings (trunk_fwd.cu:35-47: each f32 sum rounded to bf16 before the
-// bf16 bias add, then ReLU; sigma and the f32 heads on f32(y); the
-// bottleneck cdt(y wc^T) + cdt(bc); K3's chain q = cdt(s_l Wa_l) with u_x
-// summed in f32 over the skip layer and layer 0), from the same C arguments.
-// The float32, width-128 and K11 instances, and trunks past kMaxDepth
-// layers or kW input columns, stay in trunk_fwd.cu.
+// the modes of trunk_fwd.cu: K1 (the spatial trunk and its heads), K2 (the
+// directional trunk), K3 (K1 with the density gradient, `_inner_chain`
+// :589-609 and the fold :651-662), K6 and K7 on K1/K3 (the compositing
+// weights `_epilogue_fwd` :498, the IPE `_segments` :550-563), K8-K10 on K2
+// (the IDE `_ide_fwd` :402, the direction geometry `_dir_geometry` :355,
+// the colour epilogue `_rgb_epilogue` :283), K11 on K1 (y out, :617,
+// :629-630); and at width 128 in the plain K2 (mip-NeRF's directional
+// trunk, `fwd_two_tiles`). It computes what trunk_fwd.cu computes, with the
+// same arithmetic and bf16 roundings (trunk_fwd.cu:35-47: each f32 sum
+// rounded to bf16 before the bf16 bias add, then ReLU; sigma and the f32
+// heads on f32(y); the bottleneck cdt(y wc^T) + cdt(bc); K3's chain q =
+// cdt(s_l Wa_l) with u_x summed in f32 over the skip layer and layer 0; y
+// the last activation in bf16), from the same C arguments. The float32
+// instances, and trunks past kMaxDepth layers or kW input columns, stay in
+// trunk_fwd_f32.cu and trunk_fwd.cu.
 //
 // Bound on the H100: the products, ~1.09 MFLOP a sample for K1 and ~2.10
-// for K3 (0.57 / 1.10 TFLOP at N = 524,288; 0.58 / 1.12 ms at 989 TFLOP/s);
-// device memory carries only the inputs and outputs (~0.1-0.3 GB, under
-// 0.1 ms). A 64-row tile reads each layer's weights (128 KB) from L2 for
+// for K3 (0.57 / 1.10 TFLOP at N = 524,288; 0.58 / 1.12 ms at 989 TFLOP/s),
+// ~0.31 for K2 at width 128 (0.16 TFLOP, 0.17 ms); device memory carries
+// only the inputs and outputs (~0.1-0.3 GB, under 0.1 ms; K11's y 268 MB,
+// 0.08 ms). A 64-row tile reads each layer's weights (128 KB) from L2 for
 // 8.4 MFLOP, 64 FLOP a byte.
 //
 // Design (trunk_bwd_tma.cu's, whose building blocks are in hopper_tma.cuh).
@@ -57,6 +60,12 @@
 //    memory; the bottleneck head straight from its accumulators; K3's u_x
 //    summed in an f32 tile as each of its two products comes out, then
 //    folded as trunk_fwd.cu folds it. No wgmma sits on a branch.
+//  - K11: y leaves from the registers where the last epilogue left it,
+//    after the layers (a quad's 4 lanes write 16 contiguous bytes of a row
+//    a store): no pass over the tile, and nothing more live across the
+//    products, where NT = 2's 128 accumulators fill the registers (a TMA
+//    store of the tiles, or stores in the epilogue, made ptxas spill
+//    them). Its input tiles are made by `fill_chunks`, 16 bytes a copy.
 // What bounds it on the card (PERF.md): the weights stream from L2 at 64
 // FLOP a byte for a 64-row tile (~1.1 MB a tile for K1, ~2.2 MB for K3),
 // and the epilogues leave the tensor cores idle.
@@ -126,8 +135,9 @@ __device__ __forceinline__ void product_n(float (&acc)[NT][64], const uint32_t (
   for (int t = 0; t < NT; ++t) acc_fence(acc[t]);
 }
 
+template <int W = kW>
 __device__ __forceinline__ int k_dim(const FwdParams& p, int l) {
-  return l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+  return l == 0 ? p.kin : (l == p.skip ? W + p.kin : W);
 }
 
 // The products of one tile in order, as (tensor map, first B row, K); the
@@ -223,6 +233,42 @@ __device__ void fill_input(unsigned char* tile, const bf16* s0, int d0, const bf
       }
     }
     *reinterpret_cast<uint4*>(tile + sw_off(r, c0)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// fill_input without the IDE block and without its branch a value, which
+// waits on each 2-byte load in turn: a chunk of 8 columns inside a segment
+// whose width (and the one's before it) is a multiple of 8 is one 16-byte
+// copy, any other chunk 8 loads from clamped indices and selects. NTH
+// threads share the work (the consumers, or at width 128 one warpgroup).
+template <int NTH>
+__device__ void fill_chunks(unsigned char* tile, const bf16* s0, int d0, const bf16* s1, int d1,
+                            int kp, int rows) {
+  const int cpr = kp >> 3, tid = threadIdx.x & (NTH - 1);
+  const unsigned short* h0 = reinterpret_cast<const unsigned short*>(s0);
+  const unsigned short* h1 = reinterpret_cast<const unsigned short*>(s1);
+  const bool vec0 = (d0 & 7) == 0, vec1 = vec0 && (d1 & 7) == 0;
+  for (int q = tid; q < kRows * cpr; q += NTH) {
+    const int r = q / cpr, c0 = (q - r * cpr) << 3, k0 = c0 - d0;
+    uint4 o = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) {
+      if (vec0 && c0 < d0) {
+        o = *reinterpret_cast<const uint4*>(h0 + r * d0 + c0);
+      } else if (vec1 && k0 >= 0 && k0 < d1) {
+        o = *reinterpret_cast<const uint4*>(h1 + r * d1 + k0);
+      } else if (c0 < d0 + d1) {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int c = c0 + e, k = k0 + e;
+          const uint32_t v0 = h0[r * d0 + max(min(c, d0 - 1), 0)];
+          const uint32_t v1 = h1[r * d1 + max(min(k, d1 - 1), 0)];
+          w[e >> 1] |= (c < d0 ? v0 : (k < d1 ? v1 : 0u)) << (16 * (e & 1));
+        }
+        o = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(tile + sw_off(r, c0)) = o;
   }
 }
 
@@ -379,11 +425,204 @@ __device__ __forceinline__ void chain(const FwdParams& p, float (&acc)[1][64], u
   PHASE_MARK(3, kScal);
 }
 
-template <int HC, bool DIR, bool SPA, int NT>
+// ---------------------------------------------------------------------------
+// Width 128: mip-NeRF's plain directional trunk (K2 at width 128: the f32
+// heads, no density head, bottleneck, fused stage or y). A unit is two
+// 64-sample tiles, and warpgroup g runs tile g on the whole [128][64] weight
+// slice (`product<128>`, hopper_tma.cuh) with the same 64 accumulators a
+// thread, now at row 16 w + lane / 4 + 8 h and column 8 j + 2 (lane % 4) + e
+// of its own tile, and the same epilogue: each 16 KB slice feeds both tiles.
+// The warpgroups share only the ring: each fills and multiplies its own
+// tile between barriers of its own 128 threads (`wg_sync`), and its next
+// unit's segments land in its staging buffer by cp.async during this
+// unit's products, so no load's latency waits in line with the tensor
+// cores. A row's 128 columns lie in one quad, so the f32 heads' dot
+// products are summed over its 4 lanes by shuffles and leave from
+// registers.
+
+// The barrier of one consumer warpgroup's 128 threads (ids 2 and 3;
+// cons_sync is 1).
+__device__ __forceinline__ void wg_sync() {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + (threadIdx.x >> 7)) : "memory");
+}
+
+// A tile's rows [row0, row0 + rows) of a [n][d] segment to `st`, as
+// stage_block, by one warpgroup's 128 threads, but 16 bytes a cp.async that
+// lands while the thread goes on (where the block is 16-byte aligned; the
+// rest by plain loads). cp_wait then waits for the thread's copies.
+__device__ void stage_async(bf16* st, const bf16* x, int d, int row0, int rows) {
+  if (x == nullptr || d == 0) return;
+  const int tid = threadIdx.x & 127;
+  const bf16* src = x + static_cast<size_t>(row0) * d;
+  const int count = rows * d;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const int nv = count >> 3;
+    for (int i = tid; i < nv; i += 128)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(st + 8 * i)),
+                   "l"(src + 8 * i)
+                   : "memory");
+    done = nv << 3;
+  }
+  for (int i = done + tid; i < count; i += 128) st[i] = src[i];
+}
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+template <int W>
+__device__ __forceinline__ void fwd_two_tiles(const FwdParams& p, const FwdMaps& m,
+                                              unsigned char* smem) {
+  constexpr int ActB = (W / 64) * kBlk;
+  const int kp = (p.kin + kBK - 1) / kBK * kBK, InB = (kp / 64) * kBlk;
+  const int StB = 2 * kRows * (p.d0 + p.d1);  // bytes of a tile's raw segments
+  const int stages = m.stages;
+  const int units = (p.n + 2 * kRows - 1) / (2 * kRows);
+  unsigned char* ring = smem;                        // stages x [W][64]
+  unsigned char* act0 = ring + stages * kSliceW<W>;  // 2 x [64][W]: h_l
+  unsigned char* inb0 = act0 + 2 * ActB;             // 2 x [64][kp]: the trunk input
+  unsigned char* stg0 = inb0 + 2 * InB;              // 2 x [64][d0 | d1]: the segments
+  float* hw = reinterpret_cast<float*>(stg0 + 2 * StB);  // [hf][W]: wh, where it fits
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(hw + (m.heads_in_smem ? p.hf * W : 0)) + 7) &
+      ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + stages), stages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring_st.full + 8 * s, 1);
+      mbar_init(ring_st.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kCons / 32) {  // the producer: each unit's layers, in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProdRegs));
+    if (warp == kCons / 32 && lane == 0)
+      for (int unit = blockIdx.x; unit < units; unit += gridDim.x)
+        for (int l = 0; l < p.depth; ++l)
+          for (int k = 0; k < k_dim<W>(p, l); k += kBK) {
+            mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
+            mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSliceW<W>);
+            tma_load(ring_st.base + ring_st.stage * kSliceW<W>, &m.w[l],
+                     ring_st.full + 8 * ring_st.stage, k, 0);
+            ring_st.advance();
+          }
+    return;
+  }
+
+  // The consumers: warpgroup wg runs tile wg of each unit.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsRegs));
+  PHASE_START;
+  const int wg = tid >> 7, w4 = warp & 3;
+  const int fr = 16 * w4 + (lane >> 2);  // acc[4 j + 2 h + e]: row fr + 8 h,
+  const int fc = 2 * (lane & 3);         // column fc + 8 j + e
+  unsigned char* act = act0 + wg * ActB;
+  unsigned char* inb = inb0 + wg * InB;
+  bf16* stg = reinterpret_cast<bf16*>(stg0 + wg * StB);
+  const uint32_t act_s = smem_u32(act), inb_s = smem_u32(inb);
+  const bf16* bias = static_cast<const bf16*>(p.b);
+  const float* whp = p.wh;
+  if (m.heads_in_smem) {  // the f32 heads' weights, once a CTA
+    for (int i = tid; i < p.hf * W; i += kCons) hw[i] = p.wh[i];
+    whp = hw;
+  }
+  // A unit's segments, staged for this warpgroup's tile while the unit
+  // before it runs its products.
+  auto prefetch = [&](int unit) {
+    const int row0 = (2 * unit + wg) * kRows, rows = max(0, min(kRows, p.n - row0));
+    stage_async(stg, static_cast<const bf16*>(p.x0), p.d0, row0, rows);
+    stage_async(stg + kRows * p.d0, static_cast<const bf16*>(p.x1), p.d1, row0, rows);
+  };
+  if (blockIdx.x < units) prefetch(blockIdx.x);
+  cons_sync();
+  float acc[64];
+
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    // The last unit's reads of the tiles (the products) ended before
+    // barriers of this warpgroup.
+    const int row0 = (2 * unit + wg) * kRows, rows = max(0, min(kRows, p.n - row0));
+
+    // 1. The input tile from its segments, staged during the last unit; then
+    // the next unit's staging starts.
+    cp_wait();
+    wg_sync();
+    fill_chunks<128>(inb, stg, p.d0, stg + kRows * p.d0, p.d1, kp, rows);
+    fence_async_smem();
+    wg_sync();
+    if (unit + gridDim.x < units) prefetch(unit + gridDim.x);
+    PHASE_MARK(0, kScal);
+
+    // 2. The layers: h_l = relu(cdt(cdt(acc) + b_l)) on bf16 pairs to the
+    // activation tile (but the last, y) and kept in acc.
+    for (int l = 0; l < p.depth; ++l) {
+      if (l == 0)
+        product<W>(acc, inb_s, kp / 64, inb_s, p.kin, ring_st);
+      else
+        product<W>(acc, act_s, W / 64, inb_s, k_dim<W>(p, l), ring_st);
+      PHASE_MARK(1, kProd);
+      wg_sync();  // the warpgroup's product has read its tiles
+      const bool keep = l + 1 < p.depth;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = fc + 8 * j;
+        const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + l * W + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const uint32_t v = bits2(__hmax2(
+              __hadd2(__floats2bfloat162_rn(acc[i], acc[i + 1]), bb), __float2bfloat162_rn(0.f)));
+          if (keep) *reinterpret_cast<uint32_t*>(act + sw_off(fr + 8 * h, c)) = v;
+          acc[i] = __uint_as_float(v << 16);
+          acc[i + 1] = __uint_as_float(v & 0xffff0000u);
+        }
+      }
+      fence_async_smem();
+      wg_sync();
+      PHASE_MARK(1, kScal);
+    }
+
+    // 3. The f32 heads f32(y) wh^T + bh: the thread's 32 columns of its two
+    // rows, summed over the quad, stored by its first lane.
+    for (int k = 0; k < p.hf; ++k) {
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 w = *reinterpret_cast<const float2*>(whp + k * W + fc + 8 * j);
+        s0 = fmaf(acc[4 * j], w.x, s0);
+        s0 = fmaf(acc[4 * j + 1], w.y, s0);
+        s1 = fmaf(acc[4 * j + 2], w.x, s1);
+        s1 = fmaf(acc[4 * j + 3], w.y, s1);
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if ((lane & 3) == 0) {
+        const float b = p.bh[k];
+        if (fr < rows) p.hout[static_cast<size_t>(row0 + fr) * p.hf + k] = s0 + b;
+        if (fr + 8 < rows) p.hout[static_cast<size_t>(row0 + fr + 8) * p.hf + k] = s1 + b;
+      }
+    }
+    PHASE_MARK(2, kStore);
+  }
+}
+
+// YO: K11, y stored from the registers after the last layer. W: the
+// trunk width, 256, or 128 for the plain directional trunk alone
+// (`fwd_two_tiles`; the rest of this body is width 256's).
+template <int HC, bool DIR, bool SPA, int NT, bool YO = false, int W = kW>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     trunk_fwd_tma_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ FwdMaps m) {
+  static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K2 alone");
+  static_assert(!YO || (HC == 0 && !DIR && !SPA && NT == 2), "K11: the spatial trunk alone");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  if constexpr (W != kW) {
+    fwd_two_tiles<W>(p, m, smem);
+    return;
+  }
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
   const bool dg = NT == 1 && p.u != nullptr;
   const int tiles = m.tiles, stages = m.stages;
@@ -522,8 +761,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         cons_sync();
         for (int t = 0; t < NT; ++t) {
           const bf16* s0 = reinterpret_cast<const bf16*>(act(t));
-          fill_input(inb(t), s0, p.d0, s0 + kRows * p.d0, p.d1, DIR ? p.dir.width() : 0, kp,
-                     rows[t]);
+          if constexpr (YO)
+            fill_chunks<kCons>(inb(t), s0, p.d0, s0 + kRows * p.d0, p.d1, kp, rows[t]);
+          else
+            fill_input(inb(t), s0, p.d0, s0 + kRows * p.d0, p.d1, DIR ? p.dir.width() : 0, kp,
+                       rows[t]);
         }
         if constexpr (DIR) {
           if (ide) {
@@ -577,6 +819,26 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         }
         publish();
         PHASE_MARK(1, kScal);
+      }
+      // K11: y from the registers, where the last epilogue left it (bf16
+      // values, so repacking them is exact): a quad's 4 lanes write 16
+      // contiguous bytes of a row a store.
+      if constexpr (YO) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gr = row0[t] + fr + 8 * h;
+            if (gr >= p.n) continue;
+            bf16* yr = static_cast<bf16*>(p.y) + static_cast<size_t>(gr) * kW;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int i = 4 * j + 2 * h;
+              *reinterpret_cast<__nv_bfloat162*>(yr + fc + 8 * j) =
+                  __floats2bfloat162_rn(acc[t][i], acc[t][i + 1]);
+            }
+          }
+        PHASE_MARK(1, kStore);
       }
 
       // 3. sigma = f32(y) wd and the f32 heads f32(y) wh^T + bh from the
@@ -700,8 +962,8 @@ size_t fwd_smem(const FwdParams& p, int nt, int stages, int tiles, bool in_act, 
 
 // A launch that runs NT tiles at a time, units of `tiles` tiles: the
 // deepest ring (kStages down to 2) that fits, then the heads' weights if
-// they fit too.
-template <int HC, bool DIR, bool SPA, int NT>
+// they fit too. YO: with K11's y.
+template <int HC, bool DIR, bool SPA, int NT, bool YO = false>
 int launch_fwd_tma(const FwdParams& p, int tiles, cudaStream_t stream) {
   FwdMaps m;
   memset(&m, 0, sizeof(m));
@@ -736,7 +998,7 @@ int launch_fwd_tma(const FwdParams& p, int tiles, cudaStream_t stream) {
   m.small_in_act = in_act;
   m.heads_in_smem = smem + heads <= 232448;
   if (m.heads_in_smem) smem += heads;
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_tma_kernel<HC, DIR, SPA, NT>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_tma_kernel<HC, DIR, SPA, NT, YO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -749,27 +1011,85 @@ int launch_fwd_tma(const FwdParams& p, int tiles, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int units = (p.n + tiles * kRows - 1) / (tiles * kRows);
   const int grid = units < sms ? units : sms;
-  trunk_fwd_tma_kernel<HC, DIR, SPA, NT><<<grid, kFwdThreads, smem, stream>>>(p, m);
+  trunk_fwd_tma_kernel<HC, DIR, SPA, NT, YO><<<grid, kFwdThreads, smem, stream>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of a width-128 launch (`fwd_two_tiles`) through a ring of
+// `stages` slices, without the f32 heads' weights (`heads`).
+size_t fwd_w128_smem(const FwdParams& p, int stages, size_t& heads) {
+  const int kp = (p.kin + kBK - 1) / kBK * kBK;
+  heads = 4 * static_cast<size_t>(p.hf) * 128;
+  return 1024 + static_cast<size_t>(stages) * kSliceW<128> + 2 * (128 / 64 + kp / 64) * kBlk +
+         4 * static_cast<size_t>(kRows) * (p.d0 + p.d1) + 8 + 16 * stages;
+}
+
+// The width-128 trunk: units of two tiles, the deepest ring that fits, then
+// the heads' weights if they fit too.
+int launch_fwd_tma_w128(const FwdParams& p, cudaStream_t stream) {
+  constexpr int W = 128;
+  FwdMaps m;
+  memset(&m, 0, sizeof(m));
+  const bf16* w = static_cast<const bf16*>(p.w);
+  size_t off = 0;
+  bool ok = true;
+  for (int l = 0; l < p.depth; ++l) {
+    const int K = l == 0 ? p.kin : (l == p.skip ? W + p.kin : W);
+    ok = ok && make_map(&m.w[l], w + off, K, W, K, W);
+    off += static_cast<size_t>(W) * K;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  size_t heads = 0, smem = 0;
+  int stages = kStages;
+  for (; stages >= 2; --stages) {
+    smem = fwd_w128_smem(p, stages, heads);
+    if (smem <= 232448) break;
+  }
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
+  m.stages = stages;
+  m.tiles = 2;
+  m.heads_in_smem = smem + heads <= 232448;
+  if (m.heads_in_smem) smem += heads;
+  auto* kernel = trunk_fwd_tma_kernel<0, false, false, 2, false, W>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = (p.n + 2 * kRows - 1) / (2 * kRows);
+  kernel<<<units < sms ? units : sms, kFwdThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry for ctypes, with refnerf_trunk_fwd's arguments (trunk_fwd.cu):
-// the bf16 trunk (dtype 1) at width 256, at most kMaxDepth layers, kW input
-// columns and kMaxHeads f32 heads, without K11's y; K1/K3 (hc 128 or 0;
-// with K6/K7, hc 128) and K2 (hc 0; with K8-K10). Returns the cudaError_t of
-// the launch (0 on success); allocates nothing and does not synchronise.
+// the bf16 trunk (dtype 1) of at most kMaxDepth layers, kW input columns
+// and kMaxHeads f32 heads; at width 256 K1/K3 (hc 128 or 0; with K6/K7, hc
+// 128), K2 (hc 0; with K8-K10) and K11 (y: hc 0, no K3 or fused stage), at
+// width 128 the plain K2 alone (hc 0, no density head, K3, fused stage or
+// y). Returns the cudaError_t of the launch (0 on success); allocates
+// nothing and does not synchronise.
 extern "C" int refnerf_trunk_fwd_tma(REFNERF_FWD_ARGS) {
   FwdParams p;
   const int err = fwd_params(p, REFNERF_FWD_NAMES);
   if (err != 0) return err;
-  if (dtype != 1 || width != kW || depth < 1 || depth > kMaxDepth || kin > kW ||
-      hf > kMaxHeads || y != nullptr)
+  if (dtype != 1 || (width != kW && width != 128) || depth < 1 || depth > kMaxDepth ||
+      kin > kW || hf > kMaxHeads)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
+  if (width == 128)
+    return hc == 0 && !dir && !spa && u == nullptr && wd == nullptr && y == nullptr
+               ? launch_fwd_tma_w128(p, s)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (y != nullptr)
+    return hc == 0 && !dir && !spa && u == nullptr
+               ? launch_fwd_tma<0, false, false, 2, true>(p, 2, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   // Two tiles at a time but with K3 (one at a time: its chain's state does
   // not fit twice); with K6 a unit of whole rays and an even number of tiles.
   const int t1 = p.wts != nullptr ? p.tiles : 1;

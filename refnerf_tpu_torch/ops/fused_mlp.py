@@ -37,8 +37,8 @@ through a kernel, and the second-order terms of u come out of the one
 backward pass, as in the Pallas contract.
 
 Kernels (`csrc/trunk_fwd_tma.cu` (bf16), `csrc/trunk_fwd_f32.cu` (f32) or
-`csrc/trunk_fwd.cu` by dtype and shape, `forward_library`: K1-K3, K6-K10,
-and K11 in trunk_fwd.cu;
+`csrc/trunk_fwd.cu` by dtype and shape, `forward_library`: K1-K3, K6-K11,
+f32 K11 in trunk_fwd.cu;
 `csrc/trunk_bwd_tma.cu` (bf16), `csrc/trunk_bwd_f32.cu` (f32) or
 `csrc/trunk_bwd.cu` by dtype and shape, `backward_library`: K4-K11), at
 width 256 and,
@@ -94,10 +94,8 @@ _KSPLIT_TMA = 2048
 # The trunk_fwd_tma.cu, trunk_fwd_f32.cu, trunk_bwd_tma.cu and
 # trunk_bwd_f32.cu kernels take at most this many layers (a tensor map a
 # layer in the launch's parameters) and input columns (one input tile), the
-# forwards also at most _TMA_HEADS f32 heads; a width-256 trunk past them
-# runs trunk_fwd.cu's and trunk_bwd.cu's instances, and so does a width-128
-# trunk past them in the backward (the forward's width 128 is trunk_fwd.cu's
-# alone).
+# forwards also at most _TMA_HEADS f32 heads; a width-256 or width-128 trunk
+# past them runs trunk_fwd.cu's and trunk_bwd.cu's instances.
 _TMA_DEPTH = 8
 _TMA_KIN = 256
 _TMA_HEADS = 16
@@ -875,7 +873,8 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   trunk_fwd_tma.cu and trunk_bwd_tma.cu: within their shapes (8 layers,
   256 input columns, 16 f32 heads) their largest sums (228,904 B: K3 with
   K6 on 1,024-row rays at the 2-stage ring; 223,624 B; 194,120 B for the
-  two-tile width-128 backward) fit."""
+  two-tile width-128 backward; 230,472 B for the two-tile width-128
+  forward on 256 input columns at the 4-stage ring) fit."""
   W, kin, L = pack.width, pack.kin, pack.depth
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = fold is not None
@@ -894,11 +893,13 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     if dg:
       s += 4 * (L * _TILE * (W // 32) + _TILE * kin)
     return s + sraw
-  if lib == 'trunk_fwd_f32':  # trunk_fwd_f32.cu `fwd_f32_smem`
-    rest = (1024 + 4 * (W + kin) * ld +
+  if lib == 'trunk_fwd_f32':  # trunk_fwd_f32.cu `fwd_f32_smem`, R rows a CTA
+    rows = 2 * _TILE if W == 128 else _TILE
+    rest = (1024 + 4 * (W + kin) * (rows + 4) +
             (8 * L * 256 + 4 * kin * ld if dg else 0) +
-            4 * (4 * 4 * _TILE + 3 * _TILE) + sraw + 8 + 16 * 8)
-    return ring(rest, 2, 8)
+            4 * (4 * 4 * _TILE + (3 * _TILE if W == 256 else 0)) + sraw + 8 +
+            16 * 8)
+    return ring(rest, 2, 8, stage=16 * W * 4)
   nb = int(fold.shape[1]) if dg else _k7_basis(pack, sp)
   if lib == 'trunk_bwd':  # trunk_bwd.cu `launch_bwd`
     return (t * (_TILE * (W + pad) + _TILE * (kin + pad) + 2 * W * (_KS + pad))
@@ -915,14 +916,17 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
                     sp: SpaModes = SpaModes()) -> str:
   """The library whose kernel runs the forward of `pack`, decided from its
   dtype, shape and modes alone, before anything is built or launched: at
-  width 256 within `_TMA_DEPTH` layers, `_TMA_KIN` input columns and
-  `_TMA_HEADS` f32 heads, without K11's y, 'trunk_fwd_tma' (bf16: wgmma fed
-  by TMA) or 'trunk_fwd_f32' (f32: register-blocked FMA products fed by
-  TMA, where its shared memory holds the trunk: K3 on at most 192 input
-  columns); every other shape with an instance 'trunk_fwd'."""
+  width 256 or 128 within `_TMA_DEPTH` layers, `_TMA_KIN` input columns and
+  `_TMA_HEADS` f32 heads, 'trunk_fwd_tma' (bf16: wgmma fed by TMA; at width
+  256 with K11's y too) or 'trunk_fwd_f32' (f32, without K11's y:
+  register-blocked FMA products fed by TMA, where its shared memory holds
+  the trunk: K3 on at most 192 input columns); every other shape with an
+  instance 'trunk_fwd'. (Width 128 runs the plain directional trunk alone:
+  `missing_instance` refuses its other modes first.)"""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
-  if (pack.width != 256 or pack.depth > _TMA_DEPTH or pack.kin > _TMA_KIN or
-      hf > _TMA_HEADS or out_y):
+  if (pack.width not in (256, 128) or pack.depth > _TMA_DEPTH or
+      pack.kin > _TMA_KIN or hf > _TMA_HEADS or
+      (out_y and (pack.width != 256 or pack.compute_dtype != 'bfloat16'))):
     return 'trunk_fwd'
   if pack.compute_dtype == 'bfloat16':
     return 'trunk_fwd_tma'
@@ -934,8 +938,8 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
 
 def tma_forward(pack: TrunkPack, out_y: bool = False) -> bool:
   """Whether the forward of `pack` runs trunk_fwd_tma.cu's kernel (bf16 at
-  width 256, within `_TMA_DEPTH` layers, `_TMA_KIN` input columns and
-  `_TMA_HEADS` f32 heads, without K11's y: `forward_library`)."""
+  width 256 or 128, within `_TMA_DEPTH` layers, `_TMA_KIN` input columns
+  and `_TMA_HEADS` f32 heads; K11's y at width 256: `forward_library`)."""
   return forward_library(pack, out_y) == 'trunk_fwd_tma'
 
 

@@ -26,7 +26,8 @@ one request's device-busy time from torch.profiler; in `train_steps` phase
 10's model and mip-NeRF as shipped take train steps at batch 4096 the same
 way, their trunks in --dtype (float32: phase 13's and phase 15's);
 `forward_kernels` holds every forward case
-of phases 3, 5, 7, 9 and 11 in --dtype against its plain version
+of phases 3, 5, 7, 9 and 11 (K2 at width 128 and K11 included) in --dtype
+against its plain version
 (chip_smoke.compare) without their backward cases, `backward_kernels`
 every backward case of phases 5, 7, 9 and 11 in --dtype without their
 forward cases. Each run's output goes to --out.
@@ -182,7 +183,8 @@ def train_steps(fused_mlp, dev, reps=10, reps_off=2):
 def forward_kernels(fused_mlp, dev):
   """Every forward case of chip_smoke's phases 3 (K1, K2), 5 (K3), 7 (K8,
   K8+K9, K10, all three), 9 (K7, K7+K3, K6+K7, K6+K3, K6+K7+K3) and 11 (K1
-  hf=0) in the run's DTYPE against its plain version at chip_smoke's N,
+  hf=0, K2 W128, K11) in the run's DTYPE against its plain version at
+  chip_smoke's N,
   through chip_smoke.compare (which prints each case's kernel and plain
   ms). Uses only what every checkout's chip_smoke has."""
   import torch
@@ -244,6 +246,21 @@ def forward_kernels(fused_mlp, dev):
                flops=cs.trunk_flops(ws, n, cs.n_heads(kw), density_grad=dg),
                f32_flops=cs.spa_flops(enc, comp, dg, False),
                weights=3 + int(dg) if comp else None)
+    del segs, ws, bs, kw, pack
+  for which, trunk in (('K2 W128', 'mip K2'), ('K11', 'mip K11')):
+    y = which == 'K11'
+    segs, ws, bs, kw = cs.trunk_case(trunk, gen, dev, ipe=y)
+    segs = [s.to(bf) for s in segs]
+    pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                                compute_dtype=cdt, **kw)
+    cs.compare(which, cdt,
+               lambda: fused_mlp.trunk_kernel(segs, pack, out_y=y),
+               lambda: fused_mlp.trunk_reference(segs, ws, bs,
+                                                 compute_dtype=cdt, out_y=y,
+                                                 **kw),
+               n_values=3, phase=11, inputs=segs + cs.pack_tensors(pack),
+               flops=cs.trunk_flops(ws, n, cs.n_heads(kw)),
+               y=0 if y else None)
     del segs, ws, bs, kw, pack
   torch.cuda.empty_cache()
 

@@ -27,7 +27,7 @@ forward's outputs). Then, at N = 524,288 samples in --dtype and for each
 case (backward: K4 with the cotangent of u, alone and with K6+K7; K5 with
 dx, alone and with K8+K9+K10; first-order K4; K5 at width 128; forward: K3
 alone and with K6+K7, K1 alone and with K6+K7, K2 alone and with
-K8+K9+K10; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
+K8+K9+K10, K2 at width 128, K11 with y out; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
 per-tile (and for the backward the weight-gradient and reduction) kernels
 under torch.profiler through the phase build and through the normal one.
 Each
@@ -164,8 +164,9 @@ def cases(chip_smoke, fused_mlp, dev, cdt):
 
 def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
   """(name, forward call) at chip_smoke's N in `cdt`: phase 9's K6+K7+K3,
-  phase 5's K3, the served K6+K7 on K1, phase 3's K1 and K2, and phase 7's
-  K8+K9+K10."""
+  phase 5's K3, the served K6+K7 on K1, phase 3's K1 and K2, phase 7's
+  K8+K9+K10, and phase 11's K2 W128 (mip-NeRF's width-128 directional
+  trunk) and K11 (mip-NeRF's spatial trunk with its features y out)."""
   tdt = fused_mlp.DTYPES[cdt]
   gen = torch.Generator().manual_seed(chip_smoke.SEED + 1)
   fold = torch.as_tensor(fused_mlp.ipe_scale_fold(chip_smoke.SCALES, 3),
@@ -194,6 +195,14 @@ def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
                                head_f32=head, compute_dtype=cdt)
   yield 'K8+K9+K10', lambda: fused_mlp.trunk_kernel(cs3, pack3, dir_modes=dm,
                                                     rgbx=rgbx)
+  segs, ws, bs, kw = chip_smoke.trunk_case('mip K2', gen, dev)
+  cs4 = [s.to(tdt) for s in segs]
+  pack4 = fused_mlp.pack_trunk(ws, bs, (128, 33), compute_dtype=cdt, **kw)
+  yield 'K2 W128', lambda: fused_mlp.trunk_kernel(cs4, pack4)
+  segs, ws, bs, kw = chip_smoke.trunk_case('mip K11', gen, dev, ipe=True)
+  cs5 = [s.to(tdt) for s in segs]
+  pack5 = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  yield 'K11', lambda: fused_mlp.trunk_kernel(cs5, pack5, out_y=True)
 
 
 def main():

@@ -10,10 +10,11 @@ forward on wgmma/TMA (trunk_fwd_tma.cu) in every mode it runs, its
 determinism, and its shapes past it (trunk_fwd.cu's instances); the f32
 width-256 backward on FMA products fed by TMA (trunk_bwd_f32.cu) in every
 mode, its determinism, its weight-gradient product and its shapes past it
-(trunk_bwd.cu's f32 instances); mip-NeRF's width-128 backward on the
-two-tile instances of both libraries, its determinism and its shapes past
-them (trunk_bwd.cu's width-128 instance); mip-NeRF with the spatial fuse
-flags; the
+(trunk_bwd.cu's f32 instances); mip-NeRF's width-128 forward and backward
+on the two-tile instances of the wgmma/TMA and FMA/TMA libraries and the
+bf16 K11 forward on trunk_fwd_tma.cu, their determinism and their shapes
+past them (trunk_fwd.cu's and trunk_bwd.cu's width-128 instances);
+mip-NeRF with the spatial fuse flags; the
 plain layer stack and the shapes without an instance under
 fused_trunk='auto'. This
 file imports no jax, so it also runs where jax is not installed; there, skip
@@ -557,14 +558,17 @@ def _flat(r):
 @pytest.mark.cuda
 @pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
 def test_k11_matches_plain(dev, cdt):
-  # Forward: y (compute dtype) by relative L2 (Y_BOUND, below what a
-  # dropped last bias reads, checked too) and sigma as a value. Backward
-  # (slabs of 256 rows), given random cotangents of sigma and y: every
-  # parameter gradient as a derivative.
+  # Forward (bf16 on trunk_fwd_tma.cu, whose y leaves the activation tiles
+  # by TMA; f32 on trunk_fwd.cu): y (compute dtype) by relative L2
+  # (Y_BOUND, below what a dropped last bias reads, checked too) and sigma
+  # as a value. Backward (slabs of 256 rows), given random cotangents of
+  # sigma and y: every parameter gradient as a derivative.
   n = 1000
   segs, ws, bs, kw = _case('K11', dev, n, seed=8)
   segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
   pack = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
+  assert fused_mlp.forward_library(pack, out_y=True) == (
+      'trunk_fwd_tma' if cdt == 'bfloat16' else 'trunk_fwd')
   gen = torch.Generator().manual_seed(9)
   cots = (torch.randn(n, generator=gen).to(dev), None, None, None)
   ybar = torch.randn(n, 256, generator=gen).to(dev).to(fused_mlp.DTYPES[cdt])
@@ -591,16 +595,20 @@ def test_k11_matches_plain(dev, cdt):
 @pytest.mark.cuda
 @pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
 def test_width_128_matches_plain(dev, cdt):
-  # K2 at width 128: the raw rgb as a value; K5 (slabs of 256 rows, so the
-  # last slab's second 128-sample CTA holds 104 live rows), given a random
-  # cotangent of it, on the two-tile instances of trunk_bwd_tma.cu (bf16)
-  # and trunk_bwd_f32.cu (f32): every parameter gradient and both segments'
-  # cotangents as derivatives.
+  # K2 at width 128 on the two-tile instances of trunk_fwd_tma.cu (bf16)
+  # and trunk_fwd_f32.cu (f32), N = 1000 so that the last 128-sample CTA
+  # holds 104 live rows: the raw rgb as a value; K5 (slabs of 256 rows, so
+  # the last slab's second 128-sample CTA holds 104 live rows), given a
+  # random cotangent of it, on the two-tile instances of trunk_bwd_tma.cu
+  # (bf16) and trunk_bwd_f32.cu (f32): every parameter gradient and both
+  # segments' cotangents as derivatives.
   n = 1000
   segs, ws, bs, kw = _case('mip K2', dev, n, seed=8)
   segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
   pack = fused_mlp.pack_trunk(ws, bs, (128, 33), compute_dtype=cdt, **kw)
   assert pack.kin == 192
+  assert fused_mlp.forward_library(pack) == (
+      'trunk_fwd_tma' if cdt == 'bfloat16' else 'trunk_fwd_f32')
   assert fused_mlp.backward_library(pack) == (
       'trunk_bwd_tma' if cdt == 'bfloat16' else 'trunk_bwd_f32')
   hbar = torch.randn(n, 3, generator=torch.Generator().manual_seed(10)).to(dev)
@@ -636,6 +644,56 @@ def test_width_128_backward_is_deterministic(dev, cdt):
   with torch.no_grad():
     a, b = run(), run()
   assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['K2 W128 float32', 'K2 W128 bfloat16',
+                                  'K11 bfloat16'])
+def test_two_tile_and_y_forwards_are_deterministic(dev, case):
+  # The width-128 forwards (two tiles a CTA) sum each head over one
+  # quad or two column warps in a fixed order, and K11's y leaves by TMA:
+  # two runs on the same inputs give bit-identical outputs.
+  which, cdt = case.rsplit(' ', 1)
+  n = 4500
+  if which == 'K11':
+    segs, ws, bs, kw = _case('K11', dev, n, seed=30)
+    dims = (48, 48)
+  else:
+    segs, ws, bs, kw = _case('mip K2', dev, n, seed=30)
+    dims = (128, 33)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, dims, compute_dtype=cdt, **kw)
+  out_y = which == 'K11'
+  assert fused_mlp.forward_library(pack, out_y) == (
+      'trunk_fwd_tma' if cdt == 'bfloat16' else 'trunk_fwd_f32')
+  with torch.no_grad():
+    a = fused_mlp.trunk_kernel(segs, pack, out_y=out_y)
+    b = fused_mlp.trunk_kernel(segs, pack, out_y=out_y)
+  assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['float32 depth 10', 'float32 kin 288',
+                                  'bfloat16 depth 10', 'bfloat16 kin 288'])
+def test_width_128_forward_past_the_new_shapes_matches_plain(dev, case):
+  # A width-128 trunk deeper than 8 layers or wider than 256 input columns
+  # runs trunk_fwd.cu's width-128 instance forward; under
+  # fused_trunk='auto' it launches it, it does not go plain.
+  cdt, what, size = case.split()
+  n = 1000
+  shape = (dict(depth=10, skip=5) if what == 'depth'
+           else dict(seg_dims=(128, int(size) - 128)))
+  segs, ws, bs, kw = _case('mip K2', dev, n, seed=31, **shape)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                              compute_dtype=cdt, **kw)
+  assert fused_mlp.forward_library(pack) == 'trunk_fwd'
+  assert fused_mlp.missing_instance(pack, 0) is None
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack)
+    want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt, **kw)
+  torch.cuda.synchronize()
+  _assert_close(got, want, cdt, case)
 
 
 @pytest.mark.cuda
@@ -1278,11 +1336,15 @@ def _k3_trunk(dev, F, n=1000, seed=19):
 # and 224 input columns on trunk_fwd_f32.cu (two ring stages, and none) and
 # on trunk_fwd.cu (past the limit at 224); mip-NeRF's width-128 K5 on
 # trunk_bwd_f32.cu's two-tile instance at 192 input columns (five ring
-# stages) and at 224 (past the limit).
+# stages) and at 224 (past the limit); its width-128 K2 on
+# trunk_fwd_f32.cu's two-tile instance at 192 input columns (seven ring
+# stages) and at 256, the widest its input tile takes (two: its shallowest
+# ring).
 SMEM_CASES = ('trunk_bwd K5 kin 288', 'trunk_bwd K5 kin 320',
               'trunk_fwd_f32 K3 kin 192', 'trunk_fwd_f32 K3 kin 224',
               'trunk_fwd K3 kin 96', 'trunk_fwd K3 kin 224',
-              'trunk_bwd_f32 K5W128 kin 192', 'trunk_bwd_f32 K5W128 kin 224')
+              'trunk_bwd_f32 K5W128 kin 192', 'trunk_bwd_f32 K5W128 kin 224',
+              'trunk_fwd_f32 K2W128 kin 192', 'trunk_fwd_f32 K2W128 kin 256')
 
 
 @pytest.mark.cuda
@@ -1308,6 +1370,16 @@ def test_shared_memory_sums_match_the_launches(dev, monkeypatch, case):
     plain = lambda: _flat(fused_mlp.trunk_backward_reference(
         segs, ws, bs, cots, needs_dx=True, **kw))
     nv = 0
+  elif which == 'K2W128':
+    segs, ws, bs, kw = _case('mip K2', dev, seed=20,
+                             seg_dims=(128, kin - 128))
+    pack = fused_mlp.pack_trunk(ws, bs, (128, kin - 128),
+                                compute_dtype='float32', **kw)
+    need = fused_mlp.kernel_smem(lib, pack, 0)
+    monkeypatch.setattr(fused_mlp, 'forward_library', lambda *a: lib)
+    run = lambda: fused_mlp.trunk_kernel(segs, pack)
+    plain = lambda: fused_mlp.trunk_reference(segs, ws, bs, **kw)
+    nv = 1
   else:
     segs, ws, bs, kw, fold, pack = _k3_trunk(dev, kin // 2)
     need = fused_mlp.kernel_smem(lib, pack, 128, fold)

@@ -330,6 +330,24 @@ def test_width_128_backward_shared_memory(kin, cdt, lib, smem):
     assert (smem <= fused_mlp.SMEM_LIMIT) == (lib == 'trunk_bwd_f32')
 
 
+@pytest.mark.parametrize('kin,smem', [(161, 231560), (192, 231560),
+                                      (224, 232072), (256, 224392)])
+def test_width_128_forward_shared_memory(kin, smem):
+  # trunk_fwd_f32.cu's width-128 forward holds two 64-sample tiles a CTA as
+  # one k-major tile of 128 rows: fused_mlp.kernel_smem mirrors its
+  # launch's sum (at mip-NeRF's shape seven [16][128] ring stages beside
+  # 174,216 B; at 256 input columns two), within SMEM_LIMIT at every input
+  # width the kernel takes, so the f32 width-128 forward never runs plain.
+  # The bf16 one fits too (kernel_smem has no sum to check for it).
+  pack = _mip_dir_pack('float32', kin)
+  assert fused_mlp.forward_library(pack) == 'trunk_fwd_f32'
+  assert fused_mlp.kernel_smem('trunk_fwd_f32', pack, 0) == smem
+  assert smem <= fused_mlp.SMEM_LIMIT
+  assert fused_mlp.missing_instance(pack, 0) is None
+  assert fused_mlp.forward_library(_mip_dir_pack('bfloat16', kin)) == \
+      'trunk_fwd_tma'
+
+
 @pytest.mark.parametrize('route,width,rows,cta,rp', [
     ('trunk_bwd_f32', 128, 1000, 128, 1024),
     ('trunk_bwd_f32', 128, 232, 128, 256),
@@ -405,17 +423,18 @@ def test_f32_weight_gradient_splits_fill_the_card(sms):
     (8, 96, 'bfloat16', 256, True), (8, 224, 'bfloat16', 256, True),
     (8, 256, 'bfloat16', 256, True), (9, 96, 'bfloat16', 256, False),
     (16, 96, 'bfloat16', 256, False), (8, 288, 'bfloat16', 256, False),
-    (8, 96, 'float32', 256, False), (8, 192, 'bfloat16', 128, False),
-    (8, 192, 'float32', 128, False)])
+    (8, 96, 'float32', 256, False), (8, 192, 'bfloat16', 128, True),
+    (8, 192, 'float32', 128, False), (9, 192, 'bfloat16', 128, False),
+    (8, 288, 'bfloat16', 128, False)])
 def test_forward_route_by_shape(depth, kin, cdt, width, tma):
-  # The bf16 width-256 forward runs trunk_fwd_tma.cu's kernel within its
-  # tensor maps (8 layers) and input tile (256 columns), trunk_fwd.cu's
-  # instances past either, in f32 and at width 128; every one of these
+  # The bf16 forward at width 256 or 128 runs trunk_fwd_tma.cu's kernel
+  # within its tensor maps (8 layers) and input tile (256 columns),
+  # trunk_fwd.cu's instances past either and in f32; every one of these
   # shapes has an instance, so none runs the plain versions. K11 (y out)
-  # stays in trunk_fwd.cu.
+  # takes trunk_fwd_tma.cu at width 256 within those shapes.
   pack = _pack(depth, kin, width, cdt)
   assert fused_mlp.tma_forward(pack) == tma
-  assert not fused_mlp.tma_forward(pack, out_y=True)
+  assert fused_mlp.tma_forward(pack, out_y=True) == (tma and width == 256)
   assert fused_mlp.missing_instance(pack, 0) is None
   if width == 256:
     assert fused_mlp.missing_instance(pack, 128) is None
@@ -428,8 +447,10 @@ def test_forward_route_by_shape(depth, kin, cdt, width, tma):
     (8, 288, 'float32', 256, False, False, 'trunk_fwd'),
     (9, 96, 'float32', 256, False, False, 'trunk_fwd'),
     (8, 96, 'float32', 256, True, False, 'trunk_fwd'),
-    (8, 201, 'float32', 128, False, False, 'trunk_fwd'),
+    (8, 201, 'float32', 128, False, False, 'trunk_fwd_f32'),
+    (8, 256, 'float32', 128, False, False, 'trunk_fwd_f32'),
     (9, 201, 'float32', 128, False, False, 'trunk_fwd'),
+    (8, 288, 'float32', 128, False, False, 'trunk_fwd'),
     (8, 96, 'float32', 256, False, True, 'trunk_fwd_f32'),
     (8, 192, 'float32', 256, False, True, 'trunk_fwd_f32'),
     (8, 256, 'float32', 256, False, True, 'trunk_fwd'),
@@ -438,16 +459,20 @@ def test_forward_route_by_shape(depth, kin, cdt, width, tma):
     (8, 256, 'bfloat16', 256, False, True, 'trunk_fwd_tma'),
     (8, 288, 'bfloat16', 256, False, False, 'trunk_fwd'),
     (9, 96, 'bfloat16', 256, False, False, 'trunk_fwd'),
-    (8, 96, 'bfloat16', 256, True, False, 'trunk_fwd'),
-    (8, 201, 'bfloat16', 128, False, False, 'trunk_fwd')])
+    (8, 96, 'bfloat16', 256, True, False, 'trunk_fwd_tma'),
+    (9, 96, 'bfloat16', 256, True, False, 'trunk_fwd'),
+    (8, 288, 'bfloat16', 256, True, False, 'trunk_fwd'),
+    (8, 201, 'bfloat16', 128, False, False, 'trunk_fwd_tma'),
+    (9, 201, 'bfloat16', 128, False, False, 'trunk_fwd'),
+    (8, 288, 'bfloat16', 128, False, False, 'trunk_fwd')])
 def test_forward_library_by_dtype_and_shape(depth, kin, cdt, width, out_y, dg,
                                             lib):
   # One function picks the forward's library from the dtype, shape and
-  # modes alone, with no card: at width 256 within 8 layers and 256 input
-  # columns, without K11's y, the wgmma/TMA kernel in bf16 and the FMA/TMA
-  # kernel in f32 (trunk_fwd_f32.cu) where its shared memory holds the trunk
-  # (K3: at most 192 input columns); the rest trunk_fwd.cu. tma_forward
-  # agrees with it.
+  # modes alone, with no card: at width 256 or 128 within 8 layers and 256
+  # input columns, the wgmma/TMA kernel in bf16 (K11's y too, at width 256)
+  # and, without K11's y, the FMA/TMA kernel in f32 (trunk_fwd_f32.cu)
+  # where its shared memory holds the trunk (K3: at most 192 input
+  # columns); the rest trunk_fwd.cu. tma_forward agrees with it.
   pack = _pack(depth, kin, width, cdt)
   fold = torch.zeros(kin // 2, 3) if dg else None
   assert fused_mlp.forward_library(pack, out_y, fold) == lib
@@ -547,6 +572,59 @@ def test_f32_flagship_trunks_take_the_f32_forward(monkeypatch, case):
   assert (48, 48) in kinds and len(kinds) >= 2, kinds
   assert any(dg for _, dg, _ in routes) == train, routes
   assert routes and all(lib == 'trunk_fwd_f32' for _, _, lib in routes), routes
+
+
+MIP_GIN = os.path.join(REPO, 'configs', 'blender_mipnerf.gin')
+
+
+@pytest.mark.parametrize('case,libs', [
+    ('float32 served', {'trunk_fwd_f32'}),
+    ('float32 trained', {'trunk_fwd_f32'}),
+    ('bfloat16 served', {'trunk_fwd_tma'}),
+    ('bfloat16 trained', {'trunk_fwd_tma'}),
+    ('bfloat16 served no viewdirs', {'trunk_fwd_tma'}),
+    ('float32 served no viewdirs', {'trunk_fwd'})])
+def test_mipnerf_trunks_take_the_new_forwards(monkeypatch, case, libs):
+  # configs/blender_mipnerf.gin at full width, served and trained with
+  # use_kernel stubbed as on a card: as shipped every trunk launch (the
+  # spatial trunk with its bottleneck, the 128-wide directional trunk) goes
+  # to trunk_fwd_f32.cu in its own float32 and to trunk_fwd_tma.cu in
+  # bf16; without view directions the spatial trunk's launch with y out
+  # (K11) goes to trunk_fwd_tma.cu in bf16 and stays on trunk_fwd.cu in
+  # f32. The stubbed kernel records the route and answers with
+  # trunk_reference on the pack's own weights.
+  routes = []
+
+  def kernel(segs, pack, fold=None, dir_modes=None, rgbx=None,
+             spa_modes=None, comp=None, out_y=False):
+    routes.append((pack.width, out_y, fused_mlp.forward_library(
+        pack, out_y, fold, spa_modes or fused_mlp.SpaModes())))
+    ws, bs = _pack_weights(pack)
+    head = lambda w, b: None if w is None else (w, b)
+    return fused_mlp.trunk_reference(
+        segs, ws, bs, skip_period=pack.skip - 1 if pack.skip > 0 else 99,
+        wd=pack.wd, head_f32=head(pack.wh, pack.bh),
+        head_cdt=head(pack.wc, pack.bc), compute_dtype=pack.compute_dtype,
+        density_grad=fold is not None, fold=fold, dir_modes=dir_modes,
+        rgbx=rgbx, spa_modes=spa_modes, comp=comp, out_y=out_y)
+
+  monkeypatch.setattr(fused_mlp, 'use_kernel',
+                      lambda x, mode: fused_mlp.MODES.index(mode) < 2)
+  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  cdt, run, *rest = case.split()
+  viewdirs = not rest
+  config, gin = configs.parse(
+      [MIP_GIN], [f"NerfMLP.compute_dtype = '{cdt}'"] +
+      ([] if viewdirs else ['Model.use_viewdirs = False']))
+  model = construct.construct_model(config, gin, 'cpu')
+  assert model.nerf_mlp.cfg.compute_dtype == cdt
+  train = run == 'trained'
+  with torch.set_grad_enabled(train):
+    out, _ = model(_port_rays(_rays_np(2, seed=7)), train=train)
+  assert torch.isfinite(out[-1]['rgb']).all()
+  assert {(w, y) for w, y, _ in routes} == (
+      {(256, False), (128, False)} if viewdirs else {(256, True)}), routes
+  assert {lib for _, _, lib in routes} == libs, routes
 
 
 def _stub_kernels(monkeypatch):
