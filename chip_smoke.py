@@ -107,9 +107,30 @@ Phases, each printed on its own line:
      fused_trunk='off', and one step profiled; then serving as phase 14:
      three requests (K1, K2 counted), the first against fused_trunk='off',
      the latency of 30 4096-ray requests (median, p90) and one request
-     profiled.
+     profiled;
+ 16. the flagship trained and evaluated from a scene on disk: print which of
+     Pillow, scipy and matplotlib import; write a Blender-format scene of
+     tools/make_sphere_scene.py's sphere (100 train and 4 test views at
+     800 x 800, the nerf_synthetic resolution) with the port's own PNG
+     writer into a temporary directory; time reading a view (through
+     Pillow where it imports) and the port's PNG codec on it (filter 0, and
+     every row Average or Paeth); load the scene through
+     datasets.load_dataset (configs/blender_refnerf.gin with bench.py's
+     bindings and all six fuse flags; the gin's batching 'single_image',
+     rays cast in the train step); one batch of Pixels cast on the card
+     against the CPU cast; 3 warm-up and 50 timed bf16 steps from
+     prefetched batches (training_batches as shipped: sampled on the step's
+     thread, copied by device_prefetch; K2-K10 counted), then steps from
+     disk in turns against the same with a sampler thread, one batch of
+     Pixels kept on the card and one batch of random rays (phase 10's), the
+     sampler's host ms a batch, 5 steps profiled, one step against
+     fused_trunk='off', and prefetched batches against the same batches
+     copied synchronously (every tensor and the loss bit for bit); two test
+     views rendered in bf16 with the extras (the first against
+     fused_trunk='off'), PSNR, SSIM and cc-PSNR on the card against the
+     CPU; the same in the gin's own float32 (3 + 10 steps, one view).
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8, 10, 12, 13, 14 and 15), its time and
+launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15 and 16), its time and
 its plain version's at N, and its bound: the larger of the bytes it must move
 (each input read once, each output written once) at 3.35 TB/s and its operations
 at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -1450,6 +1471,457 @@ def f32_serve_stage(fused_mlp, dev, requests=30, phase=14, gin_name=FLAGSHIP,
   return launches, out
 
 
+# Phase 16: the flagship trained and evaluated from a scene on disk. The
+# scene: nerf_synthetic's resolution and train views (800 x 800, 100 train
+# and 4 test views) of tools/make_sphere_scene.py's analytic sphere.
+SCENE_RES, SCENE_TRAIN, SCENE_TEST = 800, 100, 4
+DATA_WARMUP, DATA_STEPS, DATA_F32_STEPS = 3, 50, 10
+# The cast on the card vs the CPU: both f32, the 3x3 products as products
+# and a sum, in another order.
+CAST_BOUND = 1e-5
+# PSNR (dB) and SSIM of the same images on the card vs the CPU (f32 sums
+# in another order; color_correct in float64).
+PSNR_BOUND, SSIM_BOUND = 1e-4, 1e-5
+
+
+def packages():
+  """Which of Pillow, scipy and matplotlib import here."""
+  import importlib
+  out = {}
+  for name in ('PIL', 'scipy', 'matplotlib'):
+    try:
+      out[name] = getattr(importlib.import_module(name), '__version__', '?')
+    except ImportError:
+      out[name] = None
+  return out
+
+
+def _png_rows(img, kind):
+  """An 8-bit RGBA PNG of img with every row under filter `kind` (3,
+  Average, or 4, Paeth; the encoder's side, vectorised)."""
+  import struct
+  import zlib
+  h, w, bpp = img.shape
+  x = img.reshape(h, -1).astype(np.int32)
+  a, b, c = (np.zeros_like(x) for _ in range(3))
+  a[:, bpp:], b[1:], c[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+  if kind == 3:
+    pred = (a + b) // 2
+  else:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+  raw = np.concatenate([np.full((h, 1), kind), (x - pred) % 256], axis=1)
+
+  def chunk(tag, body):
+    return (struct.pack('>I', len(body)) + tag + body +
+            struct.pack('>I', zlib.crc32(tag + body) & 0xFFFFFFFF))
+  return (b'\x89PNG\r\n\x1a\n' +
+          chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 6, 0, 0, 0)) +
+          chunk(b'IDAT', zlib.compress(raw.astype(np.uint8).tobytes())) +
+          chunk(b'IEND', b''))
+
+
+def png_read_ms(root):
+  """One 800 x 800 RGBA train view read by `utils.io.read_image` (through
+  Pillow where it imports, as the loaders read it) and by the port's codec
+  (its path without Pillow): as the scene writes it (filter 0), and with
+  every row under Average and under Paeth, the two filters the codec
+  undoes byte by byte. Returns the milliseconds of each read."""
+  import io as bytes_io
+  from refnerf_tpu_torch.utils import io as io_lib
+
+  def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+  pth = os.path.join(root, 'r_train_0.png')
+  with open(pth, 'rb') as f:
+    plain = f.read()
+  io_lib.read_image(pth)  # imports Pillow, if any, untimed
+  img, read_ms = timed(lambda: io_lib.read_image(pth))
+  out = dict(png_read_ms=read_ms)
+  for name, kind in (('filter 0', 0), ('average', 3), ('paeth', 4)):
+    buf = plain if kind == 0 else _png_rows(img, kind)
+    decoded, out[f'png_codec_{name.replace(" ", "")}_ms'] = timed(
+        lambda: io_lib.decode_png(buf))
+    if not np.array_equal(decoded, img):
+      raise AssertionError(f'phase 16: the PNG codec misreads {name} rows')
+    if kind:
+      try:
+        from PIL import Image
+      except ImportError:
+        continue
+      if not np.array_equal(np.array(Image.open(bytes_io.BytesIO(buf))), img):
+        raise AssertionError(f'phase 16: Pillow reads the {name} rows '
+                             'otherwise')
+  log(f'phase 16: PNG {img.shape}: read_image {read_ms:.1f} ms; the codec '
+      f"{out['png_codec_filter0_ms']:.1f} ms as written (filter 0), "
+      f"{out['png_codec_average_ms']:.1f} ms with every row Average, "
+      f"{out['png_codec_paeth_ms']:.1f} ms with every row Paeth")
+  return out
+
+
+def data_setup(dev, root, dtype):
+  """The flagship with all six fuse flags (trunks in `dtype`, as
+  `flagship`) at batch TRAIN_BATCH with bench.py's bindings, reading the
+  scene at `root` as the gin says (`batching = 'single_image'`,
+  `cast_rays_in_train_step`). Returns a dict: model, config, the train
+  dataset `ds` (and `load_s`, the seconds to load it), its cameras on the
+  card and the cast."""
+  from refnerf_tpu_torch.cameras import camera_utils
+  from refnerf_tpu_torch.data import datasets
+  model, config = flagship(dev, [
+      f'Config.batch_size = {TRAIN_BATCH}', 'Config.randomized = False',
+      'Config.sample_noise_size = 0', f"Config.data_dir = '{root}'",
+      *FUSE, *SPATIAL], FLAGSHIP, dtype)
+  if not (config.batching == 'single_image' and
+          config.cast_rays_in_train_step):
+    raise AssertionError('phase 16: the gin no longer casts single-image '
+                         'batches in the step')
+  t0 = time.perf_counter()
+  ds = datasets.load_dataset('train', root, config)
+  load_s = time.perf_counter() - t0
+  return dict(model=model, config=config, ds=ds, load_s=load_s,
+              cameras=ds.device_cameras(dev),
+              cast=lambda cams, pix: camera_utils.cast_ray_batch(
+                  cams, pix, ds.camtype))
+
+
+def check_cast(ds, cameras, cast, dev):
+  """One batch of Pixels cast on the card against the CPU cast."""
+  batch = next(ds)
+  gpu = cast(cameras, batch.rays.map(lambda x: x.to(dev)))
+  cpu = cast(ds.device_cameras('cpu'), batch.rays)
+  errs = {k: (getattr(gpu, k).cpu() - getattr(cpu, k)).abs().max().item()
+          for k in ('origins', 'directions', 'viewdirs')}
+  errs['radii (relative)'] = ((gpu.radii.cpu() - cpu.radii).abs() /
+                              cpu.radii.abs()).max().item()
+  log(f'phase 16: {batch.rays.shape[0]} pixels cast on the card vs the CPU: '
+      + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()) +
+      f' (bound {CAST_BOUND})')
+  if not all(v <= CAST_BOUND for v in errs.values()):
+    raise AssertionError('phase 16: the cast on the card disagrees')
+
+
+def step_against_plain(fused_mlp, model, train_step, state, batch, cameras,
+                       what):
+  """One step's loss and gradient norm through the kernels against
+  fused_trunk='off' on the same batch and state."""
+  from refnerf_tpu_torch.train import step as step_lib
+  loss_k, _, grads_k = train_step.loss_and_grads(state, batch, cameras)
+  norm_k = step_lib.global_norm(grads_k.values()).item()
+  del grads_k
+  set_mode(model, fused_trunk='off')
+  before = dict(fused_mlp.launches)
+  loss_p, _, grads_p = train_step.loss_and_grads(state, batch, cameras)
+  norm_p = step_lib.global_norm(grads_p.values()).item()
+  del grads_p
+  set_mode(model, fused_trunk='auto')
+  if fused_mlp.launches != before:
+    raise AssertionError("fused_trunk='off' launched a kernel")
+  dl = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+  dn = abs(norm_k - norm_p) / norm_p
+  log(f"phase 16: {what} step {state.step} from disk, kernels vs "
+      f"fused_trunk='off': loss {loss_k.item():.6g} vs {loss_p.item():.6g} "
+      f'(rel {dl:.2e}, bound {TRAIN_LOSS_BOUND}), grad norm {norm_k:.6g} vs '
+      f'{norm_p:.6g} (rel {dn:.2e}, bound {TRAIN_GNORM_BOUND})')
+  if not (dl <= TRAIN_LOSS_BOUND and dn <= TRAIN_GNORM_BOUND):
+    raise AssertionError('phase 16: the kernel step disagrees with the plain '
+                         'one')
+
+
+def train_from_disk(fused_mlp, dev, root, dtype, steps):
+  """Train steps from prefetched batches (`training_batches` as shipped:
+  sampled on this thread, copied by device_prefetch), rays cast in the step: warm-up, then `steps` timed;
+  each kernel must run levels x steps x its SIX_PER_STEP count. Returns
+  data_setup's dict with the launches, seconds a step, the state, the step
+  and one more batch on the card."""
+  from refnerf_tpu_torch.data import prefetch
+  from refnerf_tpu_torch.train import step as step_lib
+  run = data_setup(dev, root, dtype)
+  model, cameras = run['model'], run['cameras']
+  state = step_lib.create_train_state(run['config'], model)
+  train_step = step_lib.make_train_step(model, run['config'], run['cast'])
+  batches = prefetch.training_batches(run['ds'], device=dev)
+  try:
+    for _ in range(DATA_WARMUP):
+      state, _ = train_step(state, next(batches), cameras)
+    torch.cuda.synchronize()
+    for k in fused_mlp.launches:
+      fused_mlp.launches[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+      state, stats = train_step(state, next(batches), cameras)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = dict(fused_mlp.launches)
+    batch = next(batches)
+  finally:
+    batches.close()
+  want = {k: model.cfg.num_levels * steps * SIX_PER_STEP.get(k, 0)
+          for k in launches}
+  if launches != want:
+    raise AssertionError(f'phase 16: train launches {launches}, expected '
+                         f'{want}')
+  if not torch.isfinite(stats['loss']):
+    raise AssertionError('phase 16: the loss is not finite')
+  log(f'phase 16: {model.nerf_mlp.cfg.compute_dtype} trunks, {steps} steps '
+      f'from disk after {DATA_WARMUP} warm-up: {dt * 1e3:.2f} ms/step, '
+      f'{TRAIN_BATCH / dt:.0f} train rays/s; step {state.step}: loss '
+      f'{stats["loss"].item():.6g}, psnr {stats["psnr"].item():.3f}; '
+      f'launches {launches}')
+  run.update(launches=launches, step_s=dt, state=state,
+             train_step=train_step, batch=batch)
+  return run
+
+
+def data_path_cost(fused_mlp, dev, run):
+  """The data path's cost a step, in turns (5 steps a block, each arm four
+  times, in the order given, reversed, given and reversed): steps from
+  prefetched batches of the scene as `training_batches` ships them (sampled
+  on this thread), from the same pipeline with a sampler thread
+  (threaded=True), from one batch of Pixels kept on the card (the cast
+  alone), and phase 10's steps on one batch of random rays; the sampler's
+  host ms a batch; 5 steps from disk and 5 on random rays profiled. Returns
+  the medians and the profiles' numbers."""
+  import copy
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.data import prefetch
+  config, train_step, cameras, ds = (run[k] for k in (
+      'config', 'train_step', 'cameras', 'ds'))
+  rng = np.random.RandomState(0)
+  d = rng.randn(TRAIN_BATCH, 3).astype(np.float32)
+  rays = rays_from(rays_lib, rng.randn(TRAIN_BATCH, 3).astype(np.float32) * 0.1,
+                   d, np.full((TRAIN_BATCH, 1), 0.001, np.float32), config,
+                   dev)
+  rays.lossmult = torch.ones(TRAIN_BATCH, 1, device=dev)
+  random_batch = rays_lib.Batch(rays=rays, rgb=torch.from_numpy(
+      rng.uniform(0, 1, (TRAIN_BATCH, 3)).astype(np.float32)).to(dev))
+  box = {'state': run['state']}
+  batches = prefetch.training_batches(ds, device=dev)
+  # A second stream of the same images, its own batch index.
+  threaded = prefetch.training_batches(copy.copy(ds), device=dev,
+                                       threaded=True)
+  pixels_batch = next(batches)
+  arms = {
+      'disk': lambda: train_step(box['state'], next(batches), cameras),
+      'disk, sampler thread': lambda: train_step(box['state'], next(threaded),
+                                                 cameras),
+      'pixels on the card': lambda: train_step(box['state'], pixels_batch,
+                                               cameras),
+      'random rays': lambda: train_step(box['state'], random_batch)}
+  order = (list(arms) + list(arms)[::-1]) * 2
+  times = {a: [] for a in arms}
+  profs = {}
+  try:
+    for a in order:
+      box['state'], _ = arms[a]()
+      for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box['state'], _ = arms[a]()
+        torch.cuda.synchronize()
+        times[a].append(time.perf_counter() - t0)
+    for a in ('disk', 'random rays'):
+      for k in fused_mlp.launches:
+        fused_mlp.launches[k] = 0
+
+      def step():
+        box['state'], _ = arms[a]()
+      profs[a] = profile(step, f'train step, {a}', 5, phase=16)
+      if profs[a] is None:
+        raise AssertionError('phase 16: the profiler saw no device time')
+      if a == 'disk':
+        launches = dict(fused_mlp.launches)
+  finally:
+    batches.close()
+    threaded.close()
+  run['state'] = box['state']
+  # The sampler's host time a batch, on this thread.
+  t0 = time.perf_counter()
+  for _ in range(20):
+    next(ds)
+  host_ms = (time.perf_counter() - t0) / 20 * 1e3
+  med = {a: float(np.median(v)) * 1e3 for a, v in times.items()}
+  log(f'phase 16: bf16 train step in turns ({", ".join(order)}; 5 steps a '
+      'block): ' + ', '.join(
+          f'{a} {med[a]:.2f} ms median [{min(v) * 1e3:.2f}, '
+          f'{max(v) * 1e3:.2f}]' for a, v in times.items()) +
+      f'; the data path costs {med["disk"] - med["random rays"]:.2f} ms a '
+      f'step, a sampler thread '
+      f'{med["disk, sampler thread"] - med["disk"]:.2f} ms more; the sampler '
+      f'{host_ms:.3f} host ms a batch; launches in the 6 profiled steps from '
+      f'disk (one untimed): { {k: v for k, v in launches.items() if v} }')
+  idle = lambda p: 1 - p['busy_ms'] / p['wall_ms']
+  return dict(step_disk_ms=med['disk'],
+              step_threaded_ms=med['disk, sampler thread'],
+              step_pixels_ms=med['pixels on the card'],
+              step_random_ms=med['random rays'], sampler_host_ms=host_ms,
+              busy_ms=profs['disk']['busy_ms'],
+              wall_ms=profs['disk']['wall_ms'], idle=idle(profs['disk']),
+              random_busy_ms=profs['random rays']['busy_ms'],
+              random_wall_ms=profs['random rays']['wall_ms'],
+              random_idle=idle(profs['random rays']))
+
+
+def prefetch_is_exact(dev, root, run):
+  """Prefetched batches against the same batches copied to the card
+  synchronously: every tensor and the step's loss, bit for bit."""
+  from refnerf_tpu_torch.data import datasets
+  from refnerf_tpu_torch.data import prefetch
+  config, state, train_step, cameras = (run[k] for k in (
+      'config', 'state', 'train_step', 'cameras'))
+  fetched = prefetch.training_batches(datasets.load_dataset('train', root,
+                                                            config), device=dev)
+  direct = datasets.load_dataset('train', root, config)
+  try:
+    for i in range(3):
+      a, b = next(fetched), next(direct).map(lambda x: x.to(dev))
+      pairs = list(zip(_tensors(a), _tensors(b)))
+      same = all(torch.equal(x, y) for x, y in pairs)
+      la = train_step.loss_and_grads(state, a, cameras)[0]
+      lb = train_step.loss_and_grads(state, b, cameras)[0]
+      if not (same and torch.equal(la, lb)):
+        raise AssertionError(f'phase 16: batch {i}: prefetched (loss '
+                             f'{la.item()!r}) and synchronous (loss '
+                             f'{lb.item()!r}) differ')
+  finally:
+    fetched.close()
+  log('phase 16: 3 prefetched batches vs the same batches copied '
+      'synchronously: every tensor and the losses bit-identical')
+
+
+def _tensors(batch):
+  out = []
+  batch.map(lambda x: out.append(x) or x)
+  return out
+
+
+def evaluate(fused_mlp, dev, model, config, test_ds, views, what):
+  """Render test views at full resolution with the extras, the first also
+  with fused_trunk='off'; PSNR, SSIM and cc-PSNR on the card and again on
+  the CPU. Returns (seconds a view, K1 launches, the metrics)."""
+  from refnerf_tpu_torch import metrics
+  from refnerf_tpu_torch.models import renderer
+  chunk = config.render_chunk_size
+  harness = metrics.MetricHarness(device=dev)
+  host_harness = metrics.MetricHarness(device='cpu')
+  out, seconds = [], []
+  for i in views:
+    batch = test_ds.generate_ray_batch(i)
+    rays = batch.rays.map(lambda x: x.to(dev))
+    before = fused_mlp.launches['K1']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = renderer.render_image(model, rays, chunk, compute_extras=True,
+                                vis_num_rays=config.vis_num_rays)
+    seconds.append(time.perf_counter() - t0)
+    h, w = rays.shape
+    want_k1 = model.cfg.num_levels * -(-h * w // chunk)
+    if fused_mlp.launches['K1'] - before != want_k1:
+      raise AssertionError(f'phase 16: view {i}: K1 ran '
+                           f'{fused_mlp.launches["K1"] - before} times, '
+                           f'expected {want_k1}')
+    check_rendering(img, (h, w), config, model.nerf_mlp.cfg.rgb_padding)
+    if not torch.isfinite(img['distance_median']).all():
+      raise AssertionError('phase 16: distance_median is not finite')
+    bundles = [img[k] for k in ('ray_sdist', 'ray_weights', 'ray_rgbs')]
+    if not all(len(b) == model.cfg.num_levels and
+               b[0].shape[0] == config.vis_num_rays for b in bundles):
+      raise AssertionError('phase 16: the ray bundles are missing')
+    if not out:
+      set_mode(model, fused_trunk='off')
+      plain = renderer.render_image(model, rays, chunk, compute_extras=True,
+                                    vis_num_rays=config.vis_num_rays)
+      set_mode(model, fused_trunk='auto')
+      diff = {k: (plain[k] - img[k]).abs().max().item()
+              for k in ('rgb', 'acc')}
+      log(f"phase 16: {what} view {i} vs fused_trunk='off': max |rgb| diff "
+          f"{diff['rgb']:.3e}, max |acc| diff {diff['acc']:.3e} (bound "
+          f'{PATH_BOUND})')
+      if not all(v <= PATH_BOUND for v in diff.values()):
+        raise AssertionError('phase 16: the kernel render disagrees')
+    # render_image returns host tensors: each harness copies them to its
+    # device.
+    card = metrics.eval_metrics(harness, img['rgb'], batch.rgb, config)
+    if card[2].device.type != 'cuda':
+      raise AssertionError('phase 16: the metrics did not run on the card')
+    host = metrics.eval_metrics(host_harness, img['rgb'], batch.rgb, config)
+    d_psnr = max(abs(card[j]['psnr'] - host[j]['psnr']) for j in (0, 1))
+    d_ssim = max(abs(card[j]['ssim'] - host[j]['ssim']) for j in (0, 1))
+    log(f'phase 16: {what} view {i} ({w} x {h}): {seconds[-1]:.2f} s, '
+        f'{h * w / seconds[-1]:.0f} rays/s; on the card psnr '
+        f'{card[0]["psnr"]:.4f}, ssim {card[0]["ssim"]:.5f}, cc-psnr '
+        f'{card[1]["psnr"]:.4f}; card vs CPU: psnr {d_psnr:.2e} dB (bound '
+        f'{PSNR_BOUND}), ssim {d_ssim:.2e} (bound {SSIM_BOUND}); '
+        f'distance_median [{img["distance_median"].min().item():.3f}, '
+        f'{img["distance_median"].max().item():.3f}]')
+    if not (d_psnr <= PSNR_BOUND and d_ssim <= SSIM_BOUND):
+      raise AssertionError('phase 16: the metrics on the card disagree with '
+                           'the CPU')
+    out.append({'psnr': card[0]['psnr'], 'ssim': card[0]['ssim'],
+                'cc_psnr': card[1]['psnr']})
+  return float(np.mean(seconds)), out
+
+
+def data_stage(fused_mlp, dev):
+  """Phase 16: write a Blender-format scene, load it, train the flagship
+  from it (bf16 and f32, rays cast in the step) and evaluate test views
+  with the extras and metrics. Returns (the path's launches: K2-K10 of the
+  bf16 steps, K1 of the bf16 views; a summary)."""
+  import shutil
+  import tempfile
+  from refnerf_tpu_torch.data import datasets
+  from refnerf_tpu_torch.tools import sphere_scene
+  log(f'phase 16: packages here: {json.dumps(packages())}')
+  root = tempfile.mkdtemp(prefix='refnerf_scene_')
+  try:
+    t0 = time.perf_counter()
+    sphere_scene.make_scene(root, SCENE_TRAIN, SCENE_TEST, SCENE_RES)
+    write_s = time.perf_counter() - t0
+    png = png_read_ms(root)
+    run = train_from_disk(fused_mlp, dev, root, 'bfloat16', DATA_STEPS)
+    log(f'phase 16: scene of {SCENE_TRAIN} train + {SCENE_TEST} test views at '
+        f'{SCENE_RES} x {SCENE_RES}: written in {write_s:.1f} s, train split '
+        f'loaded in {run["load_s"]:.1f} s')
+    path, step_ms = dict(run['launches']), run['step_s'] * 1e3
+    check_cast(run['ds'], run['cameras'], run['cast'], dev)
+    cost = data_path_cost(fused_mlp, dev, run)
+    step_against_plain(fused_mlp, run['model'], run['train_step'],
+                       run['state'], run['batch'], run['cameras'], 'bf16')
+    prefetch_is_exact(dev, root, run)
+    test_ds = datasets.load_dataset('test', root, run['config'])
+    before = fused_mlp.launches['K1']
+    view_s, views = evaluate(fused_mlp, dev, run['model'], run['config'],
+                             test_ds, (0, 1), 'bf16')
+    path['K1'] = fused_mlp.launches['K1'] - before
+    del run
+    torch.cuda.empty_cache()
+
+    # The gin's own float32.
+    run = train_from_disk(fused_mlp, dev, root, None, DATA_F32_STEPS)
+    step_against_plain(fused_mlp, run['model'], run['train_step'],
+                       run['state'], run['batch'], run['cameras'], 'f32')
+    f32_view_s, f32_views = evaluate(fused_mlp, dev, run['model'],
+                                     run['config'], test_ds, (2,), 'f32')
+    f32_step_ms = run['step_s'] * 1e3
+    del run
+    torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  missing = [k for k in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K7', 'K8', 'K9',
+                         'K10') if not path.get(k)]
+  if missing:
+    raise AssertionError(f'phase 16: the path never launched {missing}')
+  summary = dict(write_s=write_s, **png, step_ms=step_ms,
+                 f32_step_ms=f32_step_ms, view_s=view_s,
+                 f32_view_s=f32_view_s, views=views + f32_views, **cost)
+  log(f'phase 16: {json.dumps(summary)}')
+  return path, summary
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -1500,6 +1972,7 @@ def main():
   f32_serve, f32_request = f32_serve_stage(fused_mlp, dev)
   (mip_f32_train, mip_f32_step_s, mip_f32_prof, mip_f32_serve,
    mip_f32_request) = mip_f32_stage(fused_mlp, dev)
+  data_path, data = data_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -1614,6 +2087,9 @@ def main():
                       pre + 'max_abs_err': bw['max_abs_err']})
     if which == 'K2':
       entry['train_launches'] = train_launches['K2']
+    if data_path.get(which):
+      # Phase 16: trained (K2-K10) and evaluated (K1) from a scene on disk.
+      entry['data_path_launches'] = data_path[which]
     if which in main_case:
       entry['case'] = case
       entry['serve_launches'] = spa_serve[which]
@@ -1639,7 +2115,8 @@ def main():
       f'{json.dumps(f32_request)}; phase 15 (mip-NeRF, float32): '
       f'{mip_f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / mip_f32_step_s:.0f} '
       f'train rays/s, device busy {mip_f32_prof["busy_ms"]:.2f} ms a step, '
-      f'4096-ray requests {json.dumps(mip_f32_request)}')
+      f'4096-ray requests {json.dumps(mip_f32_request)}; phase 16 (from '
+      f'disk): {json.dumps(data)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

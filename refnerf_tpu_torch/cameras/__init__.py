@@ -1,1 +1,1 @@
-"""Ray containers."""
+"""Ray containers, camera poses and ray casting."""

@@ -1,12 +1,35 @@
-"""Ray bundles and batches as dataclasses of tensors (counterpart of
-cameras/rays.py:38-74)."""
+"""Ray bundles, pixel batches and batches as dataclasses of tensors
+(counterpart of cameras/rays.py:19-87)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import enum
+from typing import Callable, Optional, Union
 
 import torch
+
+
+@dataclasses.dataclass
+class Pixels:
+  """Pixel coordinates and per-ray metadata, before ray casting: the train
+  split ships these and the train step casts them on the device
+  (`Config.cast_rays_in_train_step`)."""
+  pix_x_int: torch.Tensor
+  pix_y_int: torch.Tensor
+  lossmult: torch.Tensor
+  near: torch.Tensor
+  far: torch.Tensor
+  cam_idx: torch.Tensor
+
+  @property
+  def shape(self):
+    return self.pix_x_int.shape
+
+  def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> 'Pixels':
+    """A new batch of pixels with `fn` applied to every field."""
+    return Pixels(**{f.name: fn(getattr(self, f.name))
+                     for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass
@@ -41,9 +64,31 @@ class Rays:
 
 @dataclasses.dataclass
 class Batch:
-  """A training or evaluation batch: rays and their pixels' values."""
-  rays: Rays
+  """A training or evaluation batch: rays (or pixels) and their pixels'
+  values."""
+  rays: Union[Rays, Pixels]
   rgb: Optional[torch.Tensor] = None      # [..., 3] (or 4) ground truth
+  disps: Optional[torch.Tensor] = None
+  normals: Optional[torch.Tensor] = None
+  alphas: Optional[torch.Tensor] = None
+
+  def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> 'Batch':
+    """A new batch with `fn` applied to every tensor, the rays' included."""
+    return Batch(self.rays.map(fn), **{
+        f.name: None if getattr(self, f.name) is None
+        else fn(getattr(self, f.name))
+        for f in dataclasses.fields(self) if f.name != 'rays'})
+
+
+class DataSplit(enum.Enum):
+  TRAIN = 'train'
+  VAL = 'val'
+  TEST = 'test'
+
+
+class BatchingMethod(enum.Enum):
+  ALL_IMAGES = 'all_images'
+  SINGLE_IMAGE = 'single_image'
 
 
 def dummy_rays(n: int = 1, device=None) -> Rays:

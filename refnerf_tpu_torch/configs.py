@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from refnerf_tpu_torch.utils import ginlite
 
@@ -20,24 +20,17 @@ _CONFIGS_DIR = os.path.join(
 
 # Fields of refnerf_tpu.configs.Config that the port does not read yet.
 _UNREAD_FIELDS = frozenset('''
-exp_name num_workers num_gpus val_sample_num sample_angle_range n_input_views
-dataset_loader dataset_debug_mode batching factor load_alphabetical
-forward_facing render_path llffhold llff_use_all_images_for_training dtuhold
-dtu_light_cond use_tiffs gc_every checkpoint_dir render_dir data_dir
-vocab_tree_path num_showcase_images deterministic_showcase vis_decimate
-save_top_k resume_path early_exit_steps checkpoint_every print_every
-train_render_every cast_rays_in_train_step sample_noise_angles
+exp_name num_workers num_gpus val_sample_num sample_angle_range gc_every
+checkpoint_dir render_dir vocab_tree_path num_showcase_images
+deterministic_showcase vis_decimate save_top_k resume_path early_exit_steps
+checkpoint_every print_every train_render_every sample_noise_angles
 consistency_warmup_steps consistency_decay_steps
 consistency_normal_loss_target consistency_diffuse_loss_type
 consistency_specular_loss_type noise_background consistency_distance_loss_type
 acc_threshold_for_consistency_loss acc_threshold_for_weights_entropy_loss
 eval_only_once eval_save_output eval_save_ray_data eval_render_interval
-eval_dataset_limit eval_quantize_metrics eval_crop_borders render_video_fps
-render_video_crf render_path_frames z_variation z_phase render_dist_percentile
-render_dist_curve_fn render_path_file render_job_id render_num_jobs
-render_resolution render_focal render_camtype render_spherical
-render_save_async render_spline_keyframes render_spline_n_interp
-render_spline_degree render_spline_smoothness
+eval_dataset_limit render_video_fps render_video_crf render_dist_percentile
+render_dist_curve_fn render_job_id render_num_jobs render_save_async
 '''.split())
 
 
@@ -53,6 +46,37 @@ class Config:
   srgb_mapping_when_rendering: bool = False
   srgb_mapping_type: str = 'linear'
   render_with_specular_density: bool = False
+  # Data (configs.py:42-69): the loaders and the train batches.
+  n_input_views: int = 0
+  dataset_loader: str = 'llff'
+  dataset_debug_mode: bool = False
+  batching: str = 'all_images'
+  factor: int = 0
+  load_alphabetical: bool = True
+  forward_facing: bool = False
+  render_path: bool = False
+  llffhold: int = 8
+  llff_use_all_images_for_training: bool = False
+  dtuhold: int = 8
+  dtu_light_cond: int = 2
+  use_tiffs: bool = False
+  data_dir: Optional[str] = None
+  cast_rays_in_train_step: bool = True
+  # Eval metrics (configs.py:150-156) and the render paths (:158-178).
+  eval_quantize_metrics: bool = True
+  eval_crop_borders: int = 0
+  render_path_frames: int = 120
+  z_variation: float = 0.0
+  z_phase: float = 0.0
+  render_path_file: Optional[str] = None
+  render_resolution: Optional[Tuple[int, int]] = None
+  render_focal: Optional[float] = None
+  render_camtype: Optional[str] = None
+  render_spherical: bool = False
+  render_spline_keyframes: Optional[str] = None
+  render_spline_n_interp: int = 30
+  render_spline_degree: int = 5
+  render_spline_smoothness: float = 0.03
   # Training (configs.py:38-147): the batch, the losses of the train step
   # and the optimizer. Losses the port does not compute are read so that the
   # train step can refuse a nonzero multiplier.

@@ -532,7 +532,7 @@ class MLP(nn.Module):
     if train and (c.density_noise > 0 or c.bottleneck_noise > 0):
       raise NotImplementedError(
           'density_noise / bottleneck_noise > 0 draw noise from an rng; '
-          'stochastic training is not ported (ROADMAP queue 1, item 14)')
+          'stochastic training is not ported (ROADMAP queue 1, item 7)')
     if not c.disable_rgb and (viewdirs is None) == self.use_viewdirs:
       raise ValueError(
           f'an MLP built with use_viewdirs={self.use_viewdirs} was called '

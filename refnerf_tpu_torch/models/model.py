@@ -1,9 +1,10 @@
 """The sampling cascade (counterpart of refnerf_tpu/models/model.py:56-268).
 
-Deterministic resampling, no extras buffers. Each level resamples (not
-differentiated: sdist is detached, model.py:123-127), casts frustum
-Gaussians, runs the MLP and composites. `train=True` asks the MLP for its
-training outputs (density-gradient normals).
+Deterministic resampling. Each level resamples (not differentiated: sdist
+is detached, model.py:123-127), casts frustum Gaussians, runs the MLP and
+composites. `train=True` asks the MLP for its training outputs
+(density-gradient normals); `compute_extras=True` adds the eval buffers
+(render.volumetric_rendering's extras) and each level's ray bundles.
 
 The fused spatial stage (model.py:131-187): with `NerfMLP.fuse_lift` the
 Gaussians come lifted in closed form (`render.cast_rays_lifted`); with
@@ -64,8 +65,6 @@ class Model(nn.Module):
           'weight dilation between levels (stepfun.max_dilate_weights) is '
           'not ported; bind Model.dilation_bias = Model.dilation_multiplier '
           '= 0')
-    if c.srgb_mapping_when_rendering:
-      raise NotImplementedError('only the sRGB mapping "none" is ported')
     if c.raydist_fn is not None:
       raise NotImplementedError('only the identity raydist_fn is ported')
     self.nerf_mlp = nerf_mlp
@@ -76,11 +75,15 @@ class Model(nn.Module):
       return self.nerf_mlp
     return self.prop_mlp if is_prop else self.nerf_mlp
 
-  def forward(self, rays, train_frac: float = 1.0, train: bool = False):
+  def forward(self, rays, train_frac: float = 1.0, train: bool = False,
+              compute_extras: bool = False):
     """Render a bundle of rays through the cascade.
 
     Returns (renderings, ray_history): per level, the rendering dict (rgb,
-    diffuse, specular, distance, acc) and the MLP outputs plus sdist and
+    diffuse, specular, distance, acc; with `compute_extras` also the
+    composited normals, roughness and tint, the distance mean and
+    percentiles, and the first `vis_num_rays` rays' 'ray_sdist',
+    'ray_weights' and 'ray_rgbs') and the MLP outputs plus sdist and
     weights.
     """
     c = self.cfg
@@ -154,11 +157,34 @@ class Model(nn.Module):
             opaque_background=c.opaque_background)[0]
 
       rgb = ray_results['rgb']
-      renderings.append(render.volumetric_rendering(
+      rendering = render.volumetric_rendering(
           rgb, ray_results.get('diffuse', rgb),
           ray_results.get('specular', torch.zeros_like(rgb)),
-          weights, tdist, bg_rgbs))
+          weights, tdist, bg_rgbs, rays.far, compute_extras,
+          extras={k: v for k, v in ray_results.items()
+                  if k.startswith('normals') or k in ('roughness', 'tint')},
+          srgb_mapping=(c.srgb_mapping_type if c.srgb_mapping_when_rendering
+                        else 'none'))
+      if compute_extras:
+        # Bags of rays for visualization ('ray_' buffers are ray bundles,
+        # not image chunks, downstream).
+        n = c.vis_num_rays
+        rendering['ray_sdist'] = sdist.reshape(-1, sdist.shape[-1])[:n]
+        rendering['ray_weights'] = weights.reshape(
+            -1, weights.shape[-1])[:n]
+        rendering['ray_rgbs'] = rgb.reshape(-1, *rgb.shape[-2:])[:n]
+      renderings.append(rendering)
       ray_results['sdist'] = sdist
       ray_results['weights'] = weights
       ray_history.append(ray_results)
+
+    if compute_extras:
+      # Proposal levels have meaningless colors; show the final level's
+      # average color in their bundles.
+      last = renderings[-1]
+      final_rgb = torch.sum(last['ray_rgbs'] * last['ray_weights'][..., None],
+                            dim=-2)
+      for r in renderings[:-1]:
+        r['ray_rgbs'] = torch.broadcast_to(final_rgb[:, None, :],
+                                           r['ray_rgbs'].shape)
     return renderings, ray_history

@@ -1,8 +1,9 @@
 """Volume rendering: frustum Gaussians, transmittance, compositing.
 
-Counterpart of refnerf_tpu/models/render.py:39-147, :150-171 and :201-228 for
-serving: full covariances (`diag=False`) or their closed-form lift
-(`cast_rays_lifted`), no extras buffers and the 'none' sRGB mapping.
+Counterpart of refnerf_tpu/models/render.py:39-254: full covariances
+(`diag=False`) or their closed-form lift (`cast_rays_lifted`), the five sRGB
+mappings, and the eval extras (composited normals, roughness and tint, the
+log-space distance mean and the distance percentiles).
 
 Every clamp on a differentiated path is `torch.maximum` against a tensor
 constant, so a tie splits its gradient 0.5/0.5 as JAX's `jnp.maximum` does.
@@ -12,6 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from refnerf_tpu_torch.ops import image as image_ops
+from refnerf_tpu_torch.ops import stepfun
 
 _EPS = float(np.finfo(np.float32).eps)
 
@@ -126,18 +130,62 @@ def compute_alpha_weights(density, tdist, dirs, opaque_background=False):
   return alpha * trans, alpha, trans
 
 
+def _apply_srgb_mapping(rgb, diffuse_rgb, specular_rgb, srgb_mapping):
+  """The 5 sRGB mapping modes (JAX render.py:174-198)."""
+  clip, srgb = image_ops.clip01, image_ops.linear_to_srgb
+  if srgb_mapping == 'none':
+    return rgb, diffuse_rgb, specular_rgb
+  if srgb_mapping in ('norm_linear', 'norm_srgb'):
+    rgb_norm = torch.maximum(rgb.amax(dim=-1, keepdim=True),
+                             torch.ones_like(rgb[..., :1]))
+    rgb = rgb / rgb_norm
+  if srgb_mapping in ('linear', 'norm_linear'):
+    return clip(rgb), clip(diffuse_rgb), clip(specular_rgb)
+  if srgb_mapping in ('srgb', 'norm_srgb'):
+    return clip(srgb(rgb)), clip(srgb(diffuse_rgb)), clip(srgb(specular_rgb))
+  raise ValueError(
+      'Mapping types are none, linear, norm_linear, srgb, norm_srgb')
+
+
 def volumetric_rendering(rgbs, diffuse_rgbs, specular_rgbs, weights, tdist,
-                         bg_rgbs):
+                         bg_rgbs, t_far=None, compute_extras=False,
+                         extras=None, srgb_mapping='none'):
   """Composite per-sample colors into per-ray rgb, diffuse, specular,
-  distance and acc (no extras; sRGB mapping 'none')."""
+  distance and acc; with `compute_extras`, also each of `extras` composited
+  (normals, roughness, tint), `distance_mean` and the 5th, 50th and 95th
+  distance percentiles over [tdist, t_far] (JAX render.py:201-252)."""
   acc = weights.sum(dim=-1)
   bg_w = _at_least(0.0, 1 - acc[..., None])
   composite = lambda c: (weights[..., None] * c).sum(dim=-2) + bg_w * bg_rgbs
+  rgb, diffuse, specular = _apply_srgb_mapping(
+      composite(rgbs), composite(diffuse_rgbs), composite(specular_rgbs),
+      srgb_mapping)
   t_mids = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
-  return {
-      'rgb': composite(rgbs),
-      'diffuse': composite(diffuse_rgbs),
-      'specular': composite(specular_rgbs),
+  rendering = {
+      'rgb': rgb,
+      'diffuse': diffuse,
+      'specular': specular,
       'distance': (weights[..., None] * t_mids[..., None]).sum(dim=-2),
       'acc': acc,
   }
+  if compute_extras:
+    for k, v in (extras or {}).items():
+      if v is not None:
+        rendering[k] = (weights[..., None] * v).sum(dim=-2)
+
+    expectation = lambda x: (weights * x).sum(dim=-1) / _at_least(_EPS, acc)
+    # Log-space distance expectation for numerical stability.
+    mean = torch.nan_to_num(torch.exp(expectation(torch.log(t_mids))),
+                            nan=0.0, posinf=float('inf'))
+    rendering['distance_mean'] = torch.minimum(
+        torch.maximum(mean, tdist[..., 0]), tdist[..., -1])
+
+    # Extra fencepost at the far plane so the weight vector sums to exactly 1.
+    t_aug = torch.cat([tdist, t_far], dim=-1)
+    weights_aug = torch.cat([weights, bg_w], dim=-1)
+    ps = [5, 50, 95]
+    distance_percentiles = stepfun.weighted_percentile(t_aug, weights_aug, ps)
+    for i, p in enumerate(ps):
+      s = 'median' if p == 50 else 'percentile_' + str(p)
+      rendering['distance_' + s] = distance_percentiles[..., i]
+  return rendering

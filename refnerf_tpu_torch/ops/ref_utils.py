@@ -30,6 +30,15 @@ def l2_normalize(x, eps=_EPS):
   return x / torch.sqrt(torch.maximum(sq.new_tensor(eps), sq))
 
 
+def compute_weighted_mae(weights, normals, normals_gt):
+  """Weighted mean angular error in degrees; normals assumed unit length."""
+  one_eps = 1 - _EPS
+  cos = (normals * normals_gt).sum(-1)
+  ang = torch.arccos(torch.minimum(torch.maximum(cos, cos.new_tensor(-one_eps)),
+                                   cos.new_tensor(one_eps)))
+  return (weights * ang).sum() / weights.sum() * 180.0 / math.pi
+
+
 def orientation_loss_terms(w, n, v):
   """Per-sample back-facing penalty w * min(0, n.v)^2 (Ref-NeRF Eq 15);
   v [..., 3] points from the surface toward the camera."""

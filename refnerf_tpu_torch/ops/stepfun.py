@@ -1,8 +1,9 @@
-"""Step-function sampling: the deterministic resampling of the cascade.
+"""Step-function sampling: the deterministic resampling of the cascade, and
+the weighted percentiles of the eval extras.
 
-Counterpart of refnerf_tpu/ops/stepfun.py:110-187 for serving, where sampling
-is the deterministic linspace (`rng=None` there). Stratified sampling is not
-ported.
+Counterpart of refnerf_tpu/ops/stepfun.py:110-187 and :212-218, where
+sampling is the deterministic linspace (`rng=None` there). Stratified
+sampling is not ported.
 """
 
 from __future__ import annotations
@@ -51,3 +52,12 @@ def sample_intervals(t, w_logits, num_samples, domain=(-np.inf, np.inf)):
   first = torch.clamp(2 * centers[..., :1] - mid[..., :1], min=minval)
   last = torch.clamp(2 * centers[..., -1:] - mid[..., -1:], max=maxval)
   return torch.cat([first, mid, last], dim=-1)
+
+
+def weighted_percentile(t, w, ps):
+  """Percentiles `ps` (in [0,100]) of the step fn (t, w); w sums to 1."""
+  cw = integrate_weights(w)
+  ps_b = torch.broadcast_to(
+      torch.tensor(ps, dtype=t.dtype, device=t.device) / 100,
+      t.shape[:-1] + (len(ps),))
+  return mathx.sorted_interp(ps_b, cw, t)

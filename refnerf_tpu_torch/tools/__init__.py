@@ -1,1 +1,2 @@
-"""Scripts that measure the port on the card (run with python3 -m)."""
+"""Scripts that measure the port on the card, and the analytic test scene
+(run with python3 -m)."""

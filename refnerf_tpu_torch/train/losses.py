@@ -1,11 +1,14 @@
 """The train step's losses (counterpart of refnerf_tpu/train/losses.py).
 
-Ported: the photometric data loss (mse, charb; losses.py:38-99), the
-orientation loss (:127-145) and the predicted-normal loss (:148-163). The
-rest of the suite is refused by the train step (ROADMAP queue 1, item 13).
+Ported: the photometric data loss (mse, charb; losses.py:38-99) with its
+disparity and normal metrics, the orientation loss (:127-145) and the
+predicted-normal loss (:148-163). The rest of the suite is refused by the
+train step (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -16,12 +19,13 @@ from refnerf_tpu_torch.ops import ref_utils
 def compute_data_loss(batch, renderings, rays, config):
   """Photometric loss over all levels and the per-level mse.
 
-  Returns (loss, stats) with stats['mses'] a [levels] tensor.
+  Returns (loss, stats) with stats['mses'] a [levels] tensor; with
+  `compute_disp_metrics` / `compute_normal_metrics` and the batch's
+  disparities / normals, also stats['disparity_mses'] / ['normal_maes'] (in
+  degrees; NaN for a level without normals), which read the renderings'
+  extras.
   """
-  if config.compute_disp_metrics or config.compute_normal_metrics:
-    raise NotImplementedError(
-        'disparity/normal metrics need the extras buffers, not ported '
-        '(ROADMAP queue 1, item 3)')
+  stats = {}
   gt_rgb = batch.rgb[..., :3]
   lossmult = torch.broadcast_to(rays.lossmult, gt_rgb.shape)
   if config.disable_multiscale_loss:
@@ -41,10 +45,30 @@ def compute_data_loss(batch, renderings, rays, config):
     else:
       raise ValueError(f'Unknown data_loss_type {config.data_loss_type}')
     data_losses.append((lossmult * data_loss).sum() / denom)
+
+    if config.compute_disp_metrics and batch.disps is not None:
+      disp = 1 / (1 + rendering['distance_mean'])
+      stats.setdefault('disparity_mses', []).append(
+          ((disp - batch.disps)**2).mean())
+
+    if config.compute_normal_metrics and batch.normals is not None:
+      if rendering.get('normals') is not None:
+        normal_mae = ref_utils.compute_weighted_mae(
+            rendering['acc'] * batch.alphas,
+            ref_utils.l2_normalize(rendering['normals']),
+            ref_utils.l2_normalize(batch.normals))
+      else:
+        normal_mae = torch.tensor(math.nan, device=gt_rgb.device)
+      stats.setdefault('normal_maes', []).append(normal_mae)
+
   data_losses = torch.stack(data_losses)
   loss = (config.data_coarse_loss_mult * data_losses[:-1].sum() +
           config.data_loss_mult * data_losses[-1])
-  return loss, {'mses': torch.stack(mses)}
+  stats['mses'] = torch.stack(mses)
+  for k in ('disparity_mses', 'normal_maes'):
+    if k in stats:
+      stats[k] = torch.stack(stats[k])
+  return loss, stats
 
 
 def orientation_loss(rays, num_levels, ray_history, config):

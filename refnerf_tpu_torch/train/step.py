@@ -1,10 +1,14 @@
 """The train step: forward, losses, backward, clipping and Adam.
 
-Counterpart of refnerf_tpu/train/step.py. `make_train_step(model, config)`
-returns `train_step(state, batch) -> (state, stats)`, driven as bench.py
-drives the JAX step. The JAX state is immutable; here the parameters (the
-model's) and the optimizer moments are updated in place and the same state
-object comes back with its step advanced.
+Counterpart of refnerf_tpu/train/step.py. `make_train_step(model, config,
+raycast_fn)` returns `train_step(state, batch, cameras=None) -> (state,
+stats)`, driven as bench.py drives the JAX step. A batch of `Pixels` (the
+train split under `Config.cast_rays_in_train_step`) is cast to rays inside
+the step by `raycast_fn(cameras, pixels)`, with the cameras on the card
+(`datasets.BaseDataset.device_cameras`); a batch of `Rays` is used as it
+is. The JAX state is immutable; here the parameters (the model's) and the
+optimizer moments are updated in place and the same state object comes back
+with its step advanced.
 
 The optimizer is optax's chain written out (step.py:40-51): clip by value,
 then clip by global norm as optax does it (scale by max_norm / norm, and
@@ -13,10 +17,11 @@ max_norm / (norm + 1e-6) whenever norm > max_norm), then Adam with eps
 outside the square root, bias correction at count + 1, and the learning rate
 of the log-lerp schedule at the update count (0 at the first update).
 
-Ported losses: data (mse, charb), orientation, predicted normals. Refused
-with NotImplementedError: every other loss with a multiplier > 0 and the
-noisy second forward (ROADMAP queue 1, item 13), `randomized=True` and
-density/bottleneck noise (item 14: the RNG streams differ, H3).
+Ported losses: data (mse, charb, with the disparity and normal metrics),
+orientation, predicted normals. Refused with NotImplementedError: every
+other loss with a multiplier > 0 and the noisy second forward (ROADMAP queue
+1, item 6), `randomized=True` and density/bottleneck noise (item 7: the RNG
+streams differ, H3).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from refnerf_tpu_torch.cameras import rays as rays_lib
 from refnerf_tpu_torch.ops import image as image_ops
 from refnerf_tpu_torch.ops import mathx
 from refnerf_tpu_torch.train import losses as losses_lib
@@ -124,18 +130,18 @@ def _refuse_unported(model, config):
   if unported:
     raise NotImplementedError(
         f'{unported} > 0: these losses are not ported (ROADMAP queue 1, '
-        'item 13)')
+        'item 6)')
   if config.randomized:
     raise NotImplementedError(
         'randomized=True: stratified sampling and random backgrounds draw '
         'from an RNG whose stream differs from JAX (H3); not ported '
-        '(ROADMAP queue 1, item 14)')
+        '(ROADMAP queue 1, item 7)')
   for mlp in (model.nerf_mlp, model.prop_mlp):
     if mlp is not None and (mlp.cfg.density_noise > 0 or
                             mlp.cfg.bottleneck_noise > 0):
       raise NotImplementedError(
           'density_noise / bottleneck_noise > 0 is not ported (ROADMAP '
-          'queue 1, item 14)')
+          'queue 1, item 7)')
 
 
 def _param_stats(params, grads):
@@ -145,18 +151,27 @@ def _param_stats(params, grads):
           {k: g.abs().max() for k, g in grads.items()})
 
 
-def make_train_step(model, config):
-  """Build train_step(state, batch) -> (state, stats) (step.py:120-283)."""
+def make_train_step(model, config, raycast_fn=None):
+  """Build train_step(state, batch, cameras=None) -> (state, stats)
+  (step.py:120-283). `raycast_fn(cameras, pixels) -> Rays` casts a batch
+  of Pixels (e.g. camera_utils.cast_ray_batch with the dataset's camtype)."""
   _refuse_unported(model, config)
   num_levels = model.cfg.num_levels
   schedule = create_lr_schedule(config)
+  # The extras are computed only for the metrics that read them.
+  compute_extras = config.compute_disp_metrics or config.compute_normal_metrics
 
-  def loss_and_grads(state: TrainState, batch):
+  def loss_and_grads(state: TrainState, batch, cameras=None):
     """(total loss, stats, gradients by parameter name before clipping)."""
     step = torch.tensor(float(state.step), dtype=torch.float32)
     train_frac = float(torch.clamp((step - 1) / (config.max_steps - 1), 0, 1))
     rays = batch.rays
-    renderings, ray_history = model(rays, train_frac=train_frac, train=True)
+    if isinstance(rays, rays_lib.Pixels):
+      if raycast_fn is None:
+        raise ValueError('Batch carries Pixels but no raycast_fn was given.')
+      rays = raycast_fn(cameras, rays)
+    renderings, ray_history = model(rays, train_frac=train_frac, train=True,
+                                    compute_extras=compute_extras)
 
     loss_terms = {}
     data_loss, stats = losses_lib.compute_data_loss(batch, renderings, rays,
@@ -175,11 +190,13 @@ def make_train_step(model, config):
     grads = torch.autograd.grad(total, list(params.values()))
     stats['loss'] = total.detach()
     stats['losses'] = {k: v.detach() for k, v in loss_terms.items()}
-    stats['mses'] = stats['mses'].detach()
+    for k in ('mses', 'disparity_mses', 'normal_maes'):
+      if k in stats:
+        stats[k] = stats[k].detach()
     return total.detach(), stats, dict(zip(params, grads))
 
-  def train_step(state: TrainState, batch):
-    _, stats, grads = loss_and_grads(state, batch)
+  def train_step(state: TrainState, batch, cameras=None):
+    _, stats, grads = loss_and_grads(state, batch, cameras)
     stats['psnrs'] = image_ops.mse_to_psnr(stats['mses'])
     stats['psnr'] = stats['psnrs'][-1]
     stats['learning_rate'] = schedule(state.step)

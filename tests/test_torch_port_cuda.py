@@ -1,6 +1,7 @@
 """The CUDA trunk kernels against their plain versions, on the card.
 
-Every test here needs an NVIDIA GPU (marker `cuda`) and skips elsewhere:
+Every test here but one needs an NVIDIA GPU (marker `cuda`) and skips
+elsewhere:
 K1-K5, K6 and K7 (the fused spatial stages), K8-K10 (the fused
 directional stages) and mip-NeRF's K11 (the trunk's features out) and
 128-wide directional trunk, in both directions; the bf16 width-256
@@ -16,7 +17,12 @@ bf16 K11 forward on trunk_fwd_tma.cu, their determinism and their shapes
 past them (trunk_fwd.cu's and trunk_bwd.cu's width-128 instances);
 mip-NeRF with the spatial fuse flags; the
 plain layer stack and the shapes without an instance under
-fused_trunk='auto'. This
+fused_trunk='auto'; the host data path (the ray cast on the card against the
+CPU's, the flagship trained from prefetched batches, sampled on the step's
+thread and on a sampler thread, against the same batches copied
+synchronously, the eval metrics on the card against the CPU's). Two tests
+need no card and run everywhere: the data pipeline and the metrics, asked
+for CUDA where torch.cuda.is_available() reads false, refuse to start. This
 file imports no jax, so it also runs where jax is not installed; there, skip
 tests/conftest.py (it imports jax):
 
@@ -1429,3 +1435,176 @@ def test_f32_trunk_past_shared_memory_runs_plain_under_auto(dev):
   _assert_close(got, want, 'float32', 'kin 320', n_values=1)
   with pytest.raises(NotImplementedError, match='trunk_bwd.cu'):
     run('on')
+
+
+# ------------------------------------------------------------------------
+# The host data path: the cast on the card, the prefetch, the metrics.
+
+
+def _cameras(n_cams=5, ndc=False):
+  """A bank of n_cams 800 x 800 cameras of nerf_synthetic's focal length
+  (neighbouring rays ~1e-3 apart, whose difference gives the radii) on a
+  ring (or, for NDC, facing -z)."""
+  from refnerf_tpu_torch.cameras import camera_utils
+  pixtocams = np.stack([camera_utils.get_pixtocam(1111.0 + i, 800, 800)
+                        for i in range(n_cams)])
+  poses = []
+  for i in range(n_cams):
+    theta = 2 * np.pi * i / n_cams
+    pos = (np.array([0.3 * i, 0.1, 4.0]) if ndc else
+           np.array([4 * np.cos(theta), 4 * np.sin(theta), 0.5]))
+    look = np.array([0.0, 0.05, 1.0]) if ndc else pos
+    poses.append(camera_utils.viewmatrix(look, np.array([0.0, 0.0, 1.0]),
+                                         pos))
+  return pixtocams.astype(np.float32), np.stack(poses).astype(np.float32)
+
+
+CAST_CASES = {
+    'pinhole': (None, False, 'perspective'),
+    'distorted_ndc': ({'k1': 0.05, 'k2': -0.02, 'k3': 0.01, 'p1': 0.003,
+                       'p2': -0.002}, True, 'perspective'),
+    'fisheye': ({'k1': 0.02, 'k2': 0.01, 'k3': -0.005, 'k4': 0.001}, False,
+                'fisheye'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(CAST_CASES))
+def test_cast_on_the_card_matches_the_cpu(dev, case):
+  # 3 x 3 patches, a camera each, as the train split's Pixels: max abs
+  # error 1e-5 on origins, directions and viewdirs, relative 1e-5 on radii
+  # (both f32, the same products and sums in the same order; a reduction in
+  # another order moved the radii by ~1e-4 relative at this focal length).
+  from refnerf_tpu_torch.cameras import camera_utils
+  distortion, ndc, camtype = CAST_CASES[case]
+  pixtocams, poses = _cameras(ndc=ndc)
+  cameras = (pixtocams, poses, distortion, pixtocams[0] if ndc else None)
+  rng = np.random.default_rng(30)
+  n = 4096
+  dx, dy = camera_utils.pixel_coordinates(3, 3)
+  x = (rng.integers(0, 798, (n, 1, 1)) + dx).astype(np.int32)
+  y = (rng.integers(0, 798, (n, 1, 1)) + dy).astype(np.int32)
+  scalar = lambda v: torch.from_numpy(
+      np.broadcast_to(v, x.shape)[..., None].copy())
+  pixels = rays_lib.Pixels(
+      torch.from_numpy(x), torch.from_numpy(y), scalar(np.float32(1)),
+      scalar(np.float32(0.5)), scalar(np.float32(6)),
+      scalar(rng.integers(0, 5, (n, 1, 1)).astype(np.int32)))
+  ptype = camera_utils.ProjectionType(camtype)
+  cpu = camera_utils.cast_ray_batch(cameras, pixels, ptype)
+  gpu = camera_utils.cast_ray_batch(
+      cameras, pixels.map(lambda t: t.to(dev)), ptype)
+  for k in ('origins', 'directions', 'viewdirs'):
+    err = (getattr(gpu, k).cpu() - getattr(cpu, k)).abs().max().item()
+    assert err <= 1e-5, (k, err)
+  # The fisheye's sin and cos are not correctly rounded on either device:
+  # an ulp of a direction is ~1e-4 of a radius at this focal length.
+  rel = ((gpu.radii.cpu() - cpu.radii).abs() / cpu.radii).max().item()
+  assert rel <= (1e-3 if camtype == 'fisheye' else 1e-5), rel
+
+
+def _scene_and_model(tmp_path, dev):
+  from refnerf_tpu_torch.data import datasets
+  from refnerf_tpu_torch.tools import sphere_scene
+  root = sphere_scene.make_scene(str(tmp_path / 'scene'), 6, 1, 64)
+  config, gin = configs.parse([GIN], [
+      'Config.batch_size = 256', 'Config.randomized = False',
+      'Config.sample_noise_size = 0', "NerfMLP.compute_dtype = 'bfloat16'",
+      f"Config.data_dir = '{root}'"] + [
+          f'NerfMLP.{f} = True' for f in (
+              'fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb', 'fuse_ipe_trig',
+              'fuse_compositing', 'fuse_lift')])
+  make_ds = lambda: datasets.load_dataset('train', root, config)
+  return config, gin, make_ds
+
+
+@pytest.mark.cuda
+def test_prefetched_batches_train_as_synchronous_ones(dev, tmp_path):
+  # The flagship (bf16, all six fuse flags, batch 256) trained 3 steps from
+  # prefetched batches (pinned memory, a side stream), sampled on this
+  # thread and on a sampler thread, and 3 steps from the same batches
+  # copied synchronously: every batch tensor and every step's loss bit for
+  # bit.
+  from refnerf_tpu_torch.cameras import camera_utils
+  from refnerf_tpu_torch.data import prefetch
+  config, gin, make_ds = _scene_and_model(tmp_path, dev)
+  losses = {}
+  seen = {}
+  for how in ('prefetched', 'sampler thread', 'synchronous'):
+    ds = make_ds()
+    model = construct.construct_model(config, gin, dev)
+    cast = lambda cams, pix: camera_utils.cast_ray_batch(cams, pix,
+                                                         ds.camtype)
+    train = step_lib.make_train_step(model, config, cast)
+    state = step_lib.create_train_state(config, model)
+    cameras = ds.device_cameras(dev)
+    if how != 'synchronous':
+      batches = prefetch.training_batches(
+          ds, device=dev, threaded=how == 'sampler thread')
+    else:
+      batches = (b.map(lambda t: t.to(dev)) for b in ds)
+    losses[how], seen[how] = [], []
+    for _ in range(3):
+      batch = next(batches)
+      assert isinstance(batch.rays, rays_lib.Pixels)
+      tensors = []
+      batch.map(lambda t: tensors.append(t.clone()) or t)
+      seen[how].append(tensors)
+      state, stats = train(state, batch, cameras)
+      losses[how].append(stats['loss'].clone())
+    batches.close()
+  for how in ('prefetched', 'sampler thread'):
+    for a, b in zip(seen[how], seen['synchronous']):
+      assert all(torch.equal(x, y) for x, y in zip(a, b)), how
+    for a, b in zip(losses[how], losses['synchronous']):
+      assert torch.equal(a, b), (how, a.item(), b.item())
+
+
+def test_training_batches_refuse_to_run_without_a_gpu(monkeypatch):
+  # Asked for CUDA where there is none, the pipeline raises before it
+  # starts its sampler thread (here torch.cuda.is_available() reads false,
+  # on any machine).
+  import threading
+  from refnerf_tpu_torch.data import prefetch
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  before = threading.active_count()
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    prefetch.training_batches(iter([1, 2, 3]))
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    prefetch.training_batches(iter([1, 2, 3]), threaded=True)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    prefetch.device_prefetch(iter([1]), device='cuda:0')
+  assert threading.active_count() == before
+
+
+def test_metrics_refuse_to_run_without_a_gpu(monkeypatch, tmp_path):
+  # The metrics default to the card: without one they raise rather than
+  # computing on the CPU (torch.cuda.is_available() reads false here).
+  from refnerf_tpu_torch import metrics
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    metrics.MetricHarness()
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    metrics.VGGLPIPS(str(tmp_path / 'weights.npz'))
+  harness = metrics.MetricHarness(device='cpu')
+  assert harness.device == torch.device('cpu')
+
+
+@pytest.mark.cuda
+def test_metrics_on_the_card_match_the_cpu(dev):
+  # PSNR, SSIM and the colour-corrected PSNR of an 800 x 800 image (f64
+  # color_correct) on the card and on the CPU: within 1e-4 dB and 1e-5.
+  from refnerf_tpu_torch import metrics
+  rng = np.random.default_rng(31)
+  gt = np.clip(rng.uniform(0, 1, (800, 800, 3)), 0, 1)
+  pred = np.clip(gt**1.2 * 0.9 + rng.normal(0, 0.03, gt.shape), 0, 1)
+  config = configs.Config()
+  card = metrics.eval_metrics(metrics.MetricHarness(), torch.tensor(pred),
+                              torch.tensor(gt), config)
+  host = metrics.eval_metrics(metrics.MetricHarness(device='cpu'),
+                              torch.tensor(pred), torch.tensor(gt), config)
+  assert card[2].device.type == 'cuda'  # the harness's default device
+  for j in (0, 1):
+    assert abs(card[j]['psnr'] - host[j]['psnr']) <= 1e-4
+    assert abs(card[j]['ssim'] - host[j]['ssim']) <= 1e-5
+  assert (card[2].cpu() - host[2]).abs().max().item() <= 1e-9

@@ -281,6 +281,12 @@ def test_port_imports_no_jax_and_renders_on_cpu():
       from refnerf_tpu_torch import configs
       from refnerf_tpu_torch.cameras import rays as rays_lib
       from refnerf_tpu_torch.models import construct, renderer
+      from refnerf_tpu_torch import metrics
+      from refnerf_tpu_torch.cameras import camera_utils
+      from refnerf_tpu_torch.data import colmap, datasets, prefetch
+      from refnerf_tpu_torch.ops import image
+      from refnerf_tpu_torch.tools import sphere_scene
+      from refnerf_tpu_torch.utils import io
       config, gin = configs.parse([{GIN!r}], {SMALL!r})
       model = construct.construct_model(config, gin, 'cpu')
       rng = np.random.default_rng(0)
@@ -290,6 +296,12 @@ def test_port_imports_no_jax_and_renders_on_cpu():
       rays.near, rays.far = rays.near + 2, rays.far + 5
       out = renderer.render_rays(model, rays, 4)
       assert torch.isfinite(out['rgb']).all() and out['rgb'].shape == (5, 3)
+      image_out = renderer.render_image(model, rays[:4].reshape(2, 2), 4,
+                                        compute_extras=True)
+      assert torch.isfinite(image_out['distance_median']).all()
+      a = torch.rand(16, 16, 3, generator=torch.Generator().manual_seed(0))
+      m = metrics.MetricHarness(device='cpu')(a, a * 0.9)
+      assert m['psnr'] > 0 and 0 < m['ssim'] < 1, m
       bad = [m for m in sys.modules if m.split('.')[0] in
              ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu')
              and sys.modules[m] is not None]

@@ -547,13 +547,16 @@ def test_unported_training_options_are_refused():
 
 def test_port_takes_a_train_step_without_jax():
   script = textwrap.dedent(f'''
-      import sys
-      for name in ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu'):
+      import sys, tempfile
+      for name in ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu', 'PIL'):
         sys.modules[name] = None
       import numpy as np, torch
       from refnerf_tpu_torch import configs
+      from refnerf_tpu_torch.cameras import camera_utils
       from refnerf_tpu_torch.cameras import rays as rays_lib
+      from refnerf_tpu_torch.data import datasets, prefetch
       from refnerf_tpu_torch.models import construct
+      from refnerf_tpu_torch.tools import sphere_scene
       from refnerf_tpu_torch.train import step as step_lib
       config, gin = configs.parse([{GIN!r}], {SMALL!r})
       model = construct.construct_model(config, gin, 'cpu')
@@ -569,8 +572,20 @@ def test_port_takes_a_train_step_without_jax():
       state, stats = step_lib.make_train_step(model, config)(state, batch)
       assert torch.isfinite(stats['loss']) and state.step == 1
       assert not torch.equal(before, model.nerf_mlp.spatial_0.weight)
+      # A step from a scene on disk, its PNGs read without Pillow, the rays
+      # cast in the step from Pixels.
+      with tempfile.TemporaryDirectory() as scene:
+        ds = datasets.load_dataset(
+            'train', sphere_scene.make_scene(scene, 2, 1, 8), config)
+      cast = lambda cams, pix: camera_utils.cast_ray_batch(cams, pix,
+                                                           ds.camtype)
+      batch = next(prefetch.training_batches(ds, device='cpu'))
+      assert isinstance(batch.rays, rays_lib.Pixels)
+      state, stats = step_lib.make_train_step(model, config, cast)(
+          state, batch, ds.device_cameras('cpu'))
+      assert torch.isfinite(stats['loss']) and state.step == 2
       bad = [m for m in sys.modules if m.split('.')[0] in
-             ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu')
+             ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu', 'PIL')
              and sys.modules[m] is not None]
       assert not bad, bad
       print('trained', sorted(stats['losses']))
