@@ -128,12 +128,25 @@ Phases, each printed on its own line:
      copied synchronously (every tensor and the loss bit for bit); two test
      views rendered in bf16 with the extras (the first against
      fused_trunk='off'), PSNR, SSIM and cc-PSNR on the card against the
-     CPU; the same in the gin's own float32 (3 + 10 steps, one view).
+     CPU; the same in the gin's own float32 (3 + 10 steps, one view);
+ 17. the port's CLIs on configs/blender_refnerf.gin as shipped (its own
+     float32, batch 1024, no fuse flags, fused_trunk='auto'): print which of
+     tensorboardX, torch.utils.tensorboard, ffmpeg and cv2 are here; write
+     the sphere scene at 100 train and 2 test views of 400 x 400; the train
+     CLI (refnerf_tpu_torch.cli.train main, in this process) for 20 steps,
+     validating and checkpointing every 10 (K1-K5 counted: K3, K4, K5 and
+     K2 in every step, K1 and K2 in the validation views; every forward on
+     csrc/trunk_fwd_f32.cu and every backward on csrc/trunk_bwd_f32.cu;
+     the saves timed); a run killed at step 10 (early exit) and resumed to
+     20, every parameter and Adam moment equal to the first run's; the
+     eval CLI as a subprocess (metric files, finite PSNR), its view 0
+     against the same view rendered here with fused_trunk='off'; the
+     render CLI twice (2 frames and the videos, then frame 0 skipped).
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15 and 16), its time and
-its plain version's at N, and its bound: the larger of the bytes it must move
-(each input read once, each output written once) at 3.35 TB/s and its operations
-at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
+launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16 and 17),
+its time and its plain version's at N, and its bound: the larger of the
+bytes it must move (each input read once, each output written once) at 3.35
+TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
 the fused stages' f32 work overlaps bf16 tensor work).
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
@@ -1922,6 +1935,282 @@ def data_stage(fused_mlp, dev):
   return path, summary
 
 
+# Phase 17: the port's CLIs on configs/blender_refnerf.gin as shipped (f32,
+# batch 1024, no fuse flags). The scene: the sphere at nerf_synthetic's 100
+# train views, at 400 x 400 (half its resolution, to fit the time limit),
+# and 2 test views.
+CLI_RES, CLI_TRAIN, CLI_TEST = 400, 100, 2
+CLI_STEPS, CLI_EXIT = 20, 10
+# Launches a level and step of the unfused flagship's train step.
+CLI_PER_STEP = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1}
+# Eval's saved render (8-bit PNG, 0.5/255 of rounding) against the same view
+# rendered in-process with fused_trunk='off'.
+CLI_RENDER_BOUND = PATH_BOUND
+
+
+class _Tee:
+  """Writes to the real stdout and keeps a copy (the CLIs' own lines)."""
+
+  def __init__(self, out):
+    self.out, self.parts = out, []
+
+  def write(self, s):
+    self.parts.append(s)
+    return self.out.write(s)
+
+  def flush(self):
+    self.out.flush()
+
+  def text(self):
+    return ''.join(self.parts)
+
+
+def run_cli(main, argv):
+  """main(argv) in this process: (its return value, its stdout, seconds)."""
+  import contextlib
+  tee = _Tee(sys.stdout)
+  t0 = time.perf_counter()
+  with contextlib.redirect_stdout(tee):
+    out = main(argv)
+  return out, tee.text(), time.perf_counter() - t0
+
+
+def cli_tools():
+  """Which of tensorboardX, torch.utils.tensorboard, ffmpeg and cv2 are
+  here."""
+  import importlib
+  out = {}
+  for name, mod in (('tensorboardX', 'tensorboardX'),
+                    ('tensorboard', 'torch.utils.tensorboard'),
+                    ('cv2', 'cv2')):
+    try:
+      m = importlib.import_module(mod)
+      out[name] = getattr(m, '__version__', True)
+    except ImportError:
+      out[name] = None
+  out['ffmpeg'] = shutil.which('ffmpeg')
+  return out
+
+
+def _routes(fused_mlp):
+  """Record every library fused_mlp.forward_library and backward_library
+  choose until the returned restore() is called."""
+  seen = {'forward': set(), 'backward': set()}
+  orig = fused_mlp.forward_library, fused_mlp.backward_library
+
+  def fwd(*a, **k):
+    route = orig[0](*a, **k)
+    seen['forward'].add(route)
+    return route
+
+  def bwd(*a, **k):
+    route = orig[1](*a, **k)
+    seen['backward'].add(route)
+    return route
+
+  fused_mlp.forward_library, fused_mlp.backward_library = fwd, bwd
+
+  def restore():
+    fused_mlp.forward_library, fused_mlp.backward_library = orig
+  return seen, restore
+
+
+def cli_stage(fused_mlp, dev):
+  """Phase 17: train (in-process, launches counted), kill and resume, eval
+  (a subprocess, as the README runs it) and render through the port's CLIs.
+  Returns (the train run's launches, a summary)."""
+  import tempfile
+  from refnerf_tpu_torch.cli import render as cli_render
+  from refnerf_tpu_torch.cli import train as cli_train
+  from refnerf_tpu_torch.data import datasets
+  from refnerf_tpu_torch.models import renderer
+  from refnerf_tpu_torch.tools import sphere_scene
+  from refnerf_tpu_torch.train import checkpoints
+  tools = cli_tools()
+  log(f'phase 17: present here: {json.dumps(tools)}')
+  repo = os.path.dirname(os.path.abspath(__file__))
+  gin_file = os.path.join(repo, 'configs', FLAGSHIP)
+  root = tempfile.mkdtemp(prefix='refnerf_cli_')
+  try:
+    t0 = time.perf_counter()
+    scene = sphere_scene.make_scene(os.path.join(root, 'scene'), CLI_TRAIN,
+                                    CLI_TEST, CLI_RES)
+    write_s = time.perf_counter() - t0
+    exp = os.path.join(root, 'exp')
+
+    def argv(name, *more):
+      bindings = [f"Config.data_dir = '{scene}'",
+                  f"Config.checkpoint_dir = '{exp}'",
+                  f"Config.exp_name = '{name}'",
+                  f'Config.max_steps = {CLI_STEPS}',
+                  f'Config.checkpoint_every = {CLI_EXIT}',
+                  'Config.print_every = 5', 'Config.val_sample_num = 1',
+                  'Config.eval_dataset_limit = 2', *more]
+      return [f'--gin_configs={gin_file}'] + [
+          f'--gin_bindings={b}' for b in bindings]
+
+    # Run A: 20 steps, validation and a checkpoint every 10, its launches
+    # counted and each launch's library recorded; checkpoint saves timed.
+    save_ms = []
+    save = checkpoints.CheckpointManager.save
+
+    def timed_save(self, *a, **k):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      save(self, *a, **k)
+      save_ms.append((time.perf_counter() - t) * 1e3)
+    checkpoints.CheckpointManager.save = timed_save
+    seen, restore = _routes(fused_mlp)
+    try:
+      for k in fused_mlp.launches:
+        fused_mlp.launches[k] = 0
+      run_a, out_a, train_s = run_cli(cli_train.main, argv('cli_a'))
+      torch.cuda.synchronize()
+      launches = dict(fused_mlp.launches)
+    finally:
+      restore()
+      checkpoints.CheckpointManager.save = save
+    config = run_a.config
+    model = run_a.model
+    cfg = model.nerf_mlp.cfg
+    flags = [b.split('.', 1)[1].split(' = ')[0] for b in FUSE + SPATIAL]
+    if (cfg.compute_dtype != 'float32' or cfg.fused_trunk != 'auto' or
+        any(getattr(cfg, f) for f in flags)):
+      raise AssertionError('phase 17: the shipped gin is not f32, unfused, '
+                           "fused_trunk='auto'")
+    if config.batch_size != 1024:
+      raise AssertionError(f'phase 17: batch {config.batch_size}, not 1024')
+    levels, h = model.cfg.num_levels, CLI_RES
+    views = 2  # validation at steps 10 and 20
+    per_view = levels * -(-h * h // config.render_chunk_size)
+    want = {k: levels * CLI_STEPS * CLI_PER_STEP.get(k, 0) for k in launches}
+    want['K1'] += views * per_view
+    want['K2'] += views * per_view
+    if launches != want:
+      raise AssertionError(f'phase 17: train launches {launches}, expected '
+                           f'{want}')
+    if seen != {'forward': {'trunk_fwd_f32'}, 'backward': {'trunk_bwd_f32'}}:
+      raise AssertionError(f'phase 17: the trunks routed to {seen}')
+    rays_line = [l for l in out_a.splitlines()
+                 if l.startswith(f'step {CLI_STEPS}/')]
+    if not rays_line or 'Resumed' in out_a:
+      raise AssertionError('phase 17: no final step line from the train CLI')
+    logs = os.listdir(os.path.join(exp, 'logs', 'cli', 'cli_a'))
+    events = [n for n in logs if n.startswith('events.out.tfevents')]
+    if 'config.gin' not in logs or (
+        bool(events) != bool(tools['tensorboardX'] or tools['tensorboard'])):
+      raise AssertionError(f'phase 17: the train CLI wrote {logs}')
+    ckpt_a = checkpoints.checkpoint_dir(config)
+    state_bytes = os.path.getsize(
+        os.path.join(ckpt_a, 'last', str(CLI_STEPS), 'state.pt'))
+    log(f'phase 17: train CLI {train_s:.1f} s; its line: {rays_line[0]}; '
+        f'launches {launches} (K1, K2 in 2 validation views); forwards on '
+        f'{sorted(seen["forward"])}, backwards on {sorted(seen["backward"])}; '
+        f'checkpoint saves {", ".join(f"{m:.1f}" for m in save_ms)} ms, '
+        f'{state_bytes} bytes each; the config snapshot and '
+        f'{len(events)} TensorBoard event file(s) written')
+
+    # Run B: killed at step 10 (an early exit), then resumed to 20.
+    cut, _, cut_s = run_cli(
+        cli_train.main, argv('cli_b', f'Config.early_exit_steps = {CLI_EXIT}'))
+    if cut.state.step != CLI_EXIT:
+      raise AssertionError(f'phase 17: the cut run stopped at step '
+                           f'{cut.state.step}')
+    del cut
+    run_b, out_b, resume_s = run_cli(cli_train.main, argv('cli_b'))
+    if f'Resumed from step {CLI_EXIT}' not in out_b:
+      raise AssertionError('phase 17: the second run did not resume')
+    diffs = []
+    sd_a, sd_b = run_a.model.state_dict(), run_b.model.state_dict()
+    for k, v in sd_a.items():
+      if not torch.equal(sd_b[k], v):
+        diffs.append((k, (sd_b[k] - v).abs().max().item()))
+    for which in ('mu', 'nu'):
+      for k, v in getattr(run_a.state.opt, which).items():
+        other = getattr(run_b.state.opt, which)[k]
+        if not torch.equal(other, v):
+          diffs.append((f'{which} {k}', (other - v).abs().max().item()))
+    if (run_b.state.step, run_b.state.opt.count) != (CLI_STEPS, CLI_STEPS):
+      raise AssertionError('phase 17: the resumed run did not reach step 20')
+    if diffs:
+      worst = max(diffs, key=lambda d: d[1])
+      raise AssertionError(f'phase 17: resume is not bit for bit: '
+                           f'{len(diffs)} tensors differ, the largest {worst}')
+    best = [n for n in os.listdir(os.path.join(
+        checkpoints.checkpoint_dir(run_b.config), 'best')) if n.isdigit()]
+    if len(best) > config.save_top_k:
+      raise AssertionError(f'phase 17: best/ holds {best}')
+    del run_b
+    log(f'phase 17: run B: {cut_s:.1f} s to step {CLI_EXIT}, then '
+        f'{resume_s:.1f} s resumed to {CLI_STEPS}; every parameter and Adam '
+        f'moment equal to run A (torch.equal); best/ holds steps '
+        f'{sorted(best, key=int)}')
+
+    # Eval: a subprocess, as the README runs it.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'refnerf_tpu_torch.cli.eval'] + argv('cli_a'),
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    eval_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+      raise AssertionError(f'phase 17: eval failed: {proc.stderr[-3000:]}')
+    preds = os.path.join(ckpt_a, 'test_preds')
+    with open(os.path.join(preds, 'metric_psnr.txt')) as f:
+      psnrs = [float(v) for v in f.read().split()]
+    with open(os.path.join(preds, 'render_times.txt')) as f:
+      view_s = [float(v) for v in f.read().split()]
+    for name in ('metric_ssim.txt', 'metric_cc_psnr.txt', 'avg_metrics.txt'):
+      if not os.path.exists(os.path.join(preds, name)):
+        raise AssertionError(f'phase 17: eval wrote no {name}')
+    if len(psnrs) != CLI_TEST or not np.all(np.isfinite(psnrs)):
+      raise AssertionError(f'phase 17: eval PSNRs {psnrs}')
+    test_ds = datasets.load_dataset('test', scene, config)
+    rays = test_ds.generate_ray_batch(0).rays.map(lambda x: x.to(dev))
+    set_mode(model, fused_trunk='off')
+    before = dict(fused_mlp.launches)
+    plain = renderer.render_image(model, rays, config.render_chunk_size,
+                                  train_frac=1.0)['rgb']
+    set_mode(model, fused_trunk='auto')
+    if fused_mlp.launches != before:
+      raise AssertionError("phase 17: fused_trunk='off' launched a kernel")
+    from refnerf_tpu_torch.utils import io as io_lib
+    saved = torch.from_numpy(io_lib.load_img(
+        os.path.join(preds, 'color_000.png'))[..., :3] / 255.0)
+    diff = (saved - plain.double()).abs().max().item()
+    log(f'phase 17: eval CLI {eval_s:.1f} s (a subprocess); PSNR {psnrs}; '
+        f's a view {view_s}; its view 0 vs fused_trunk=\'off\' in-process: '
+        f'max |rgb| diff {diff:.3e} (bound {CLI_RENDER_BOUND})')
+    if diff > CLI_RENDER_BOUND:
+      raise AssertionError('phase 17: the eval render disagrees with plain')
+    del run_a, model
+
+    # Render, then render again: the frames already done are skipped.
+    _, out_r, render_s = run_cli(cli_render.main, argv('cli_a'))
+    frames = os.path.join(ckpt_a, f'test_preds_step_{CLI_STEPS}')
+    for i in range(CLI_TEST):
+      if not os.path.exists(os.path.join(frames, f'color_{i:03d}.png')):
+        raise AssertionError(f'phase 17: render wrote no frame {i}')
+    frame_s = [float(l.split(' in ')[1].rstrip('s'))
+               for l in out_r.splitlines() if l.startswith('Rendered ')]
+    writers = [l for l in out_r.splitlines() if l.startswith('Video writers')]
+    if len(frame_s) != CLI_TEST or not writers:
+      raise AssertionError('phase 17: render made no frames or no videos')
+    _, out_r2, render2_s = run_cli(cli_render.main, argv('cli_a'))
+    if 'Image 0/2 already exists, skipping' not in out_r2:
+      raise AssertionError('phase 17: the second render did not skip')
+    log(f'phase 17: render CLI {render_s:.1f} s, s a frame {frame_s}, '
+        f'{writers[0]}; again {render2_s:.1f} s, frame 0 skipped')
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  summary = dict(tools=tools, scene_write_s=write_s, train_s=train_s,
+                 train_line=rays_line[0], save_ms=save_ms,
+                 state_bytes=state_bytes, cut_s=cut_s, resume_s=resume_s,
+                 eval_s=eval_s, view_s=view_s, eval_psnr=psnrs,
+                 eval_vs_plain=diff, render_s=render_s, frame_s=frame_s,
+                 render_again_s=render2_s, writers=writers[0])
+  return launches, summary
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -1973,6 +2262,7 @@ def main():
   (mip_f32_train, mip_f32_step_s, mip_f32_prof, mip_f32_serve,
    mip_f32_request) = mip_f32_stage(fused_mlp, dev)
   data_path, data = data_stage(fused_mlp, dev)
+  cli_path, cli = cli_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -2090,6 +2380,12 @@ def main():
     if data_path.get(which):
       # Phase 16: trained (K2-K10) and evaluated (K1) from a scene on disk.
       entry['data_path_launches'] = data_path[which]
+    if cli_path.get(which):
+      # Phase 17: the train CLI on the shipped gin (f32): K2-K5 in the
+      # steps, K1 and K2 in the validation views, on the FMA/TMA libraries.
+      entry['cli_launches'] = cli_path[which]
+      entry['cli_source'] = f32fwd_src if which in ('K1', 'K2', 'K3') \
+          else f32_src
     if which in main_case:
       entry['case'] = case
       entry['serve_launches'] = spa_serve[which]
@@ -2116,7 +2412,7 @@ def main():
       f'{mip_f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / mip_f32_step_s:.0f} '
       f'train rays/s, device busy {mip_f32_prof["busy_ms"]:.2f} ms a step, '
       f'4096-ray requests {json.dumps(mip_f32_request)}; phase 16 (from '
-      f'disk): {json.dumps(data)}')
+      f'disk): {json.dumps(data)}; phase 17 (the CLIs): {json.dumps(cli)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -18,7 +18,6 @@ import enum
 import math
 
 import numpy as np
-import scipy.interpolate
 import torch
 
 from refnerf_tpu_torch.cameras import rays as rays_lib
@@ -199,6 +198,7 @@ def generate_interpolated_path(poses, n_interp, spline_degree=5,
     return np.array([viewmatrix(p - l, u - p, p) for p, l, u in points])
 
   def interp(points, n, k, s):
+    import scipy.interpolate  # slow to import; only the spline paths use it
     sh = points.shape
     pts = np.reshape(points, (sh[0], -1))
     k = min(k, sh[0] - 1)
@@ -215,6 +215,7 @@ def generate_interpolated_path(poses, n_interp, spline_degree=5,
 
 def interpolate_1d(x, n_interp, spline_degree, smoothness):
   """Spline-upsample a 1D signal by a factor of n_interp."""
+  import scipy.interpolate  # slow to import; only the spline paths use it
   t = np.linspace(0, 1, len(x), endpoint=True)
   tck = scipy.interpolate.splrep(t, x, s=smoothness, k=spline_degree)
   n = n_interp * (len(x) - 1)

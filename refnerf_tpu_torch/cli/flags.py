@@ -1,0 +1,33 @@
+"""The flags shared by the train, eval and render CLIs (JAX
+configs.py:188-193, on argparse instead of absl).
+
+`--gin_configs` and `--gin_bindings` repeat; `--flag=value` and `--flag
+value` both parse. `--mode` and `--base_folder` are accepted and unused, as
+in the JAX package. `--device` is the port's own: where the model runs
+('cuda' by default; 'cpu' on a machine without a card).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from refnerf_tpu_torch import configs as configs_lib
+
+
+def load_config(argv, description, scope, save_config):
+  """Parse `argv` (sys.argv[1:] when None) and the gin it names: (Config,
+  gin, the flags)."""
+  parser = argparse.ArgumentParser(description=description)
+  parser.add_argument('--mode', default=None, help='Unused; kept for parity.')
+  parser.add_argument('--base_folder', default=None,
+                      help='Unused; kept for parity.')
+  parser.add_argument('--gin_configs', action='append', default=None,
+                      help='Gin config files (repeatable).')
+  parser.add_argument('--gin_bindings', action='append', default=None,
+                      help='Gin parameter bindings (repeatable).')
+  parser.add_argument('--device', default='cuda',
+                      help="Device of the model ('cuda' or 'cpu').")
+  args = parser.parse_args(argv)
+  config, gin = configs_lib.load_config(args.gin_configs, args.gin_bindings,
+                                        scope=scope, save_config=save_config)
+  return config, gin, args

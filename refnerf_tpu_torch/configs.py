@@ -4,14 +4,19 @@ Counterpart of refnerf_tpu/configs.py:33-218. That module cannot be imported
 here (it imports absl), so this one holds the fields the port reads, with the
 same names and defaults, and parses the same gin files. Bindings of the JAX
 Config's other fields are accepted, kept in `Config.unread`, and not used; any
-other name raises, as in the JAX package.
+other name raises, as in the JAX package. `load_config` snapshots the merged
+gin to `<checkpoint_dir>/logs/<exp prefix>/<exp>/config.gin`, as JAX's
+(configs.py:222-231) does, without absl: the CLIs parse their flags with
+argparse (`refnerf_tpu_torch/cli/flags.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 from refnerf_tpu_torch.utils import ginlite
 
@@ -20,24 +25,43 @@ _CONFIGS_DIR = os.path.join(
 
 # Fields of refnerf_tpu.configs.Config that the port does not read yet.
 _UNREAD_FIELDS = frozenset('''
-exp_name num_workers num_gpus val_sample_num sample_angle_range gc_every
-checkpoint_dir render_dir vocab_tree_path num_showcase_images
-deterministic_showcase vis_decimate save_top_k resume_path early_exit_steps
-checkpoint_every print_every train_render_every sample_noise_angles
-consistency_warmup_steps consistency_decay_steps
-consistency_normal_loss_target consistency_diffuse_loss_type
-consistency_specular_loss_type noise_background consistency_distance_loss_type
-acc_threshold_for_consistency_loss acc_threshold_for_weights_entropy_loss
-eval_only_once eval_save_output eval_save_ray_data eval_render_interval
-eval_dataset_limit render_video_fps render_video_crf render_dist_percentile
-render_dist_curve_fn render_job_id render_num_jobs render_save_async
+num_workers num_gpus sample_angle_range gc_every render_dir vocab_tree_path
+train_render_every sample_noise_angles consistency_warmup_steps
+consistency_decay_steps consistency_normal_loss_target
+consistency_diffuse_loss_type consistency_specular_loss_type noise_background
+consistency_distance_loss_type acc_threshold_for_consistency_loss
+acc_threshold_for_weights_entropy_loss render_save_async
 '''.split())
 
 
 @dataclasses.dataclass
 class Config:
   """The Config fields the port reads (names and defaults of the JAX Config)."""
+  # Experiment, checkpoints and the train loop (configs.py:36-80, :84-87).
+  exp_name: str = 'exp'
   seed: int = 20230227
+  val_sample_num: int = 3
+  checkpoint_dir: Optional[str] = None
+  num_showcase_images: int = 5
+  deterministic_showcase: bool = True
+  vis_decimate: int = 0
+  save_top_k: int = 5
+  resume_path: Optional[str] = None
+  early_exit_steps: Optional[int] = None
+  checkpoint_every: int = 25000
+  print_every: int = 100
+  # The eval and render loops (configs.py:150-171).
+  eval_only_once: bool = True
+  eval_save_output: bool = True
+  eval_save_ray_data: bool = False
+  eval_render_interval: int = 1
+  eval_dataset_limit: int = int(np.iinfo(np.int32).max)
+  render_video_fps: int = 60
+  render_video_crf: int = 18
+  render_dist_percentile: float = 0.5
+  render_dist_curve_fn: Callable[..., Any] = np.log
+  render_job_id: int = 0
+  render_num_jobs: int = 1
   randomized: bool = True
   near: float = 2.0
   far: float = 6.0
@@ -138,6 +162,28 @@ def parse(gin_configs, gin_bindings, scope: Optional[str] = None):
   unread = {k: v for k, v in kwargs.items() if k in _UNREAD_FIELDS}
   config = Config(**{k: v for k, v in kwargs.items() if k in fields},
                   unread=unread)
+  return config, gin
+
+
+def exp_dir(config, kind: str) -> str:
+  """`<checkpoint_dir>/<kind>/<exp prefix>/<exp>`: the layout of the JAX
+  package's logs (kind 'logs') and checkpoints ('ckpt')."""
+  return os.path.join(config.checkpoint_dir, kind,
+                      config.exp_name.split('_')[0], config.exp_name)
+
+
+def load_config(gin_configs, gin_bindings, scope: Optional[str] = None,
+                save_config: bool = True):
+  """Parse the gin files and bindings (as `parse`) and, with `save_config`
+  and a `checkpoint_dir`, write the merged config to
+  `<checkpoint_dir>/logs/<exp prefix>/<exp>/config.gin`. Returns (Config,
+  gin)."""
+  config, gin = parse(gin_configs, gin_bindings, scope=scope)
+  if save_config and config.checkpoint_dir:
+    dirname = exp_dir(config, 'logs')
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, 'config.gin'), 'w') as f:
+      f.write(gin.config_str())
   return config, gin
 
 

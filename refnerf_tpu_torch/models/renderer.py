@@ -19,8 +19,9 @@ from refnerf_tpu_torch.cameras import rays as rays_lib
 
 
 def _render_chunks(model, rays: rays_lib.Rays, chunk_size: int,
-                   compute_extras: bool = False):
-  """The padded bundle through the model a chunk at a time. Returns each
+                   compute_extras: bool = False, train_frac: float = 1.0):
+  """The padded bundle through the model a chunk at a time, at `train_frac`
+  (the resampling's annealing, where `Model.anneal_slope > 0`). Returns each
   chunk's final-level buffers and, under 'ray_' keys, a list over levels of
   its ray bundles."""
   num_rays = rays.origins.shape[0]
@@ -28,7 +29,7 @@ def _render_chunks(model, rays: rays_lib.Rays, chunk_size: int,
   rays, _ = rays_lib.pad_rays_to(rays, padded)
   chunks = []
   for i in range(0, padded, chunk_size):
-    renderings, _ = model(rays[i:i + chunk_size],
+    renderings, _ = model(rays[i:i + chunk_size], train_frac=train_frac,
                           compute_extras=compute_extras)
     chunk = {k: v for k, v in renderings[-1].items()
              if not k.startswith('ray_')}
@@ -40,20 +41,22 @@ def _render_chunks(model, rays: rays_lib.Rays, chunk_size: int,
 
 
 @torch.no_grad()
-def render_rays(model, rays: rays_lib.Rays,
-                chunk_size: int) -> Dict[str, torch.Tensor]:
-  """Render a flat bundle of N rays; returns the final level's [N, ...]
-  buffers (rgb, diffuse, specular, distance, acc) on the rays' device."""
+def render_rays(model, rays: rays_lib.Rays, chunk_size: int,
+                train_frac: float = 1.0) -> Dict[str, torch.Tensor]:
+  """Render a flat bundle of N rays at `train_frac`; returns the final
+  level's [N, ...] buffers (rgb, diffuse, specular, distance, acc) on the
+  rays' device."""
   num_rays = rays.origins.shape[0]
-  chunks = _render_chunks(model, rays, chunk_size)
+  chunks = _render_chunks(model, rays, chunk_size, train_frac=train_frac)
   return {k: torch.cat([c[k] for c in chunks])[:num_rays] for k in chunks[0]}
 
 
 @torch.no_grad()
 def render_image(model, rays: rays_lib.Rays, chunk_size: int,
                  compute_extras: bool = False, vis_num_rays: int = 16,
-                 fetch: bool = True):
-  """Render an [H, W] bundle of rays in chunks of `chunk_size`.
+                 fetch: bool = True, train_frac: float = 1.0):
+  """Render an [H, W] bundle of rays in chunks of `chunk_size`, at
+  `train_frac` (JAX `make_render_fn(..., train_frac=...)`).
 
   Returns the final level's buffers as [H, W, ...] CPU tensors; with
   `compute_extras`, also each 'ray_' bundle as a list over levels of
@@ -61,14 +64,30 @@ def render_image(model, rays: rays_lib.Rays, chunk_size: int,
   `np.random.default_rng(0)` (the JAX renderer's draw without a key).
   With `fetch=False` it returns a zero-arg `finish()` instead: the device
   work is queued on return, and `finish()` copies the buffers to the host
-  and merges them, so that a caller can queue the next image first.
+  and merges them, so that a caller can queue the next image first. On the
+  card `finish()` may run on another thread: it waits on an event recorded
+  after the last chunk, and copies on the stream that rendered the chunks,
+  whatever stream is current on its own thread.
   """
   height, width = rays.origins.shape[:2]
   num_rays = height * width
   chunks = _render_chunks(model, rays.reshape(num_rays), chunk_size,
-                          compute_extras)
+                          compute_extras, train_frac)
+  device = rays.origins.device
+  stream = done = None
+  if device.type == 'cuda':
+    stream = torch.cuda.current_stream(device)
+    done = torch.cuda.Event()
+    done.record(stream)
 
   def finish():
+    if stream is None:
+      return merge()
+    done.synchronize()
+    with torch.cuda.stream(stream):
+      return merge()
+
+  def merge():
     rendering = {}
     for k, first in chunks[0].items():
       if isinstance(first, list):

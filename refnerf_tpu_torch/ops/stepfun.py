@@ -1,7 +1,7 @@
-"""Step-function sampling: the deterministic resampling of the cascade, and
-the weighted percentiles of the eval extras.
+"""Step-function sampling: the deterministic resampling of the cascade, the
+weighted percentiles of the eval extras, and `resample` (vis's ray panels).
 
-Counterpart of refnerf_tpu/ops/stepfun.py:110-187 and :212-218, where
+Counterpart of refnerf_tpu/ops/stepfun.py:110-187 and :212-237, where
 sampling is the deterministic linspace (`rng=None` there). Stratified
 sampling is not ported.
 """
@@ -61,3 +61,16 @@ def weighted_percentile(t, w, ps):
       torch.tensor(ps, dtype=t.dtype, device=t.device) / 100,
       t.shape[:-1] + (len(ps),))
   return mathx.sorted_interp(ps_b, cw, t)
+
+
+def resample(t, tp, vp, use_avg=False, eps=_EPS):
+  """Resample the step function (tp, vp) onto new endpoints t by summation
+  (stepfun.py:221-237); with `use_avg`, width-weighted averages instead."""
+  if use_avg:
+    wp = torch.diff(tp, dim=-1)
+    v_numer = resample(t, tp, vp * wp, use_avg=False)
+    v_denom = resample(t, tp, wp, use_avg=False)
+    return v_numer / torch.clamp(v_denom, min=eps)
+  acc = torch.cumsum(vp, dim=-1)
+  acc0 = torch.cat([acc.new_zeros(acc.shape[:-1] + (1,)), acc], dim=-1)
+  return torch.diff(mathx.sorted_interp(t, tp, acc0), dim=-1)

@@ -20,7 +20,8 @@ plain layer stack and the shapes without an instance under
 fused_trunk='auto'; the host data path (the ray cast on the card against the
 CPU's, the flagship trained from prefetched batches, sampled on the step's
 thread and on a sampler thread, against the same batches copied
-synchronously, the eval metrics on the card against the CPU's). Two tests
+synchronously, the eval metrics on the card against the CPU's); a kill and
+resume of the flagship through NeRFSystem, bit for bit. Two tests
 need no card and run everywhere: the data pipeline and the metrics, asked
 for CUDA where torch.cuda.is_available() reads false, refuse to start. This
 file imports no jax, so it also runs where jax is not installed; there, skip
@@ -1608,3 +1609,37 @@ def test_metrics_on_the_card_match_the_cpu(dev):
     assert abs(card[j]['psnr'] - host[j]['psnr']) <= 1e-4
     assert abs(card[j]['ssim'] - host[j]['ssim']) <= 1e-5
   assert (card[2].cpu() - host[2]).abs().max().item() <= 1e-9
+
+
+@pytest.mark.cuda
+def test_system_kill_and_resume_is_bit_for_bit(dev, tmp_path):
+  # The shipped flagship gin (its own float32, no fuse flags) at batch 256
+  # through NeRFSystem on the card: 8 steps against 4, a kill (an early
+  # exit) and 4 more from the checkpoint. The kernels reduce the weight
+  # gradients in a fixed order (H4) and the checkpoint keeps every dtype and
+  # the integer Adam count, so every parameter and moment is equal.
+  from refnerf_tpu_torch import system
+  from refnerf_tpu_torch.tools import sphere_scene
+  scene = sphere_scene.make_scene(str(tmp_path / 'scene'), 6, 1, 32)
+
+  def trained(exp, *more):
+    config, gin = configs.parse([GIN], [
+        'Config.batch_size = 256', 'Config.max_steps = 8',
+        'Config.checkpoint_every = 4', 'Config.val_sample_num = 1',
+        f"Config.data_dir = '{scene}'",
+        f"Config.checkpoint_dir = '{tmp_path / 'exp'}'",
+        f"Config.exp_name = '{exp}'", *more])
+    sys_obj = system.NeRFSystem(config, gin, device=dev)
+    sys_obj.train()
+    return sys_obj
+
+  whole = trained('whole')
+  assert trained('cut', 'Config.early_exit_steps = 4').state.step == 4
+  resumed = trained('cut')
+  assert whole.state.step == resumed.state.step == 8
+  assert whole.state.opt.count == resumed.state.opt.count == 8
+  for k, v in whole.model.state_dict().items():
+    assert torch.equal(resumed.model.state_dict()[k], v), k
+  for which in ('mu', 'nu'):
+    for k, v in getattr(whole.state.opt, which).items():
+      assert torch.equal(getattr(resumed.state.opt, which)[k], v), (which, k)
