@@ -142,8 +142,32 @@ Phases, each printed on its own line:
      eval CLI as a subprocess (metric files, finite PSNR), its view 0
      against the same view rendered here with fused_trunk='off'; the
      render CLI twice (2 frames and the videos, then frame 0 skipped).
+ 18. the LLFF geometry gins from a forward-facing scene on disk: write the
+     specular sphere seen by 20 cameras (nerf_llff_data's fern has 20
+     views) with images_4/ at 1008 x 756 (a 4032 x 3024 capture at the
+     gin's factor 4); (b) configs/llff_refnerf_geometry_losses.gin as
+     shipped (float32, batch 1024, NDC, all_images, no fuse flags,
+     fused_trunk='auto', NerfMLP.srgb_mapping = False) from a state at
+     step 150,000 (past the consistency warmup): 3 warm-up and 10 timed
+     steps from prefetched batches, rays cast in the step, each with the
+     noisy second forward on 128 rays x 4 angles (K2-K5 each counted 4
+     times a step: 2 levels x 2 forwards; every forward on
+     csrc/trunk_fwd_f32.cu and every backward on csrc/trunk_bwd_f32.cu);
+     all nine loss terms finite and the four consistency terms nonzero;
+     one step against fused_trunk='off' (loss, gradient norm, each term;
+     the consistency terms within testing/consistency.py's bound of the
+     render gap), three planted faults above those bounds (the rotated
+     copies grouped angle-major, the specular negation dropped, a ratio of
+     1 at step 0) and the consistency terms exactly 0 at step 0; one step
+     profiled; the step's share of time in the noisy forward (steps with
+     and without it, in turns); (c) the same gin in bf16 with all six fuse
+     flags and fused_trunk='on' (K3+K6+K7, K4, K2+K8+K9 and K5 counted,
+     K10 at 0: inactive without the sRGB mapping; on the wgmma/TMA
+     libraries), one step against 'off' as in (b); (d) the few-shot gin
+     (n_input_views = 3) loads 3 train views and takes 3 steps.
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16 and 17),
+launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17
+and 18),
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -2211,6 +2235,369 @@ def cli_stage(fused_mlp, dev):
   return launches, summary
 
 
+# Phase 18: the LLFF geometry gins. The scene: nerf_llff_data's fern has 20
+# views; images_4/ at 1008 x 756 is the factor-4 size of a 4032 x 3024
+# capture, which the gin's `factor = 4` reads.
+GEO, FEW_SHOT = ('llff_refnerf_geometry_losses.gin',
+                 'llff_srgb_multiray_128_4_a5_var_250k_w0.6_dis3e-6_ent3e-5_'
+                 'm0.1_p3e-5_acc3e-4.gin')
+GEO_VIEWS, GEO_W, GEO_H, GEO_FACTOR = 20, 1008, 756, 4
+GEO_START = 150000  # 0.6 x 250,000: past the consistency warmup, ratio 1
+GEO_FEW_STEPS = 3
+# A level and step: the main forward and the noisy one, each with its
+# backward; with the fused stages (c) K6-K9 count in both directions, and
+# K10 is inactive under NerfMLP.srgb_mapping = False.
+GEO_PER_STEP = {'K2': 2, 'K3': 2, 'K4': 2, 'K5': 2}
+GEO_SIX_PER_STEP = {'K2': 2, 'K3': 2, 'K4': 2, 'K5': 2, 'K6': 4, 'K7': 4,
+                    'K8': 4, 'K9': 4}
+
+
+def geometry_setup(dev, root, gin_name=GEO, dtype=None, bindings=()):
+  """The model of configs/<gin_name> as shipped (trunks in `dtype`; None:
+  the gin's own float32) reading the LLFF scene at `root`, its train
+  dataset, cameras on the card and the cast; a train state at GEO_START
+  (its Adam count too, so the learning rate is the schedule's there) and
+  the step."""
+  from refnerf_tpu_torch.cameras import camera_utils
+  from refnerf_tpu_torch.data import datasets
+  from refnerf_tpu_torch.train import step as step_lib
+  model, config = flagship(dev, [f"Config.data_dir = '{root}'", *bindings],
+                           gin_name, dtype)
+  ds = datasets.load_dataset('train', root, config)
+  cast = lambda cams, pix: camera_utils.cast_ray_batch(cams, pix, ds.camtype)
+  state = step_lib.create_train_state(config, model)
+  state.step = state.opt.count = GEO_START
+  return dict(model=model, config=config, ds=ds, cast=cast,
+              cameras=ds.device_cameras(dev), state=state,
+              train_step=step_lib.make_train_step(model, config, cast))
+
+
+def render_gap(run, batch, step):
+  """The largest |difference| between the kernels' renders and
+  fused_trunk='off''s of the step's rays, for each quantity the
+  consistency terms read (both levels of the main forward and of the noisy
+  forward, at the step's angles), and the longest rotated direction:
+  consistency.bound's `gap`."""
+  from refnerf_tpu_torch.testing import consistency
+  from refnerf_tpu_torch.train import sampling
+  from refnerf_tpu_torch.train import step as step_lib
+  model, config = run['model'], run['config']
+  rays = run['cast'](run['cameras'], batch.rays)
+  ratio = step_lib._consistency_ratio(config, step)
+  # The angles the step draws at `step` (make_train_step's default).
+  angles = sampling.draw_noise_angles(
+      config.seed, step, config.sample_noise_angles,
+      sampling.max_noise_angle(config.sample_angle_range, ratio),
+      rays.origins.device)
+  mode = model.nerf_mlp.cfg.fused_trunk
+  got, noisy_rays = consistency.step_renders(model, rays, config, step,
+                                             angles)
+  set_mode(model, fused_trunk='off')
+  try:
+    want, _ = consistency.step_renders(model, rays, config, step, angles,
+                                       noisy_rays)
+  finally:
+    set_mode(model, fused_trunk=mode)
+  return consistency.render_gap(got, want, noisy_rays)
+
+
+def geometry_against_plain(fused_mlp, run, batch, what):
+  """Phase 18: one step's loss, gradient norm and each loss term through
+  the kernels against fused_trunk='off' (the consistency terms within
+  consistency.bound of the render gap), and three planted faults
+  above those bounds: the rotated copies grouped angle-major, the specular
+  negation dropped, a ratio of 1 at step 0. Returns a summary."""
+  from refnerf_tpu_torch.testing import consistency
+  from refnerf_tpu_torch.train import sampling
+  from refnerf_tpu_torch.train import step as step_lib
+  model, config, state = run['model'], run['config'], run['state']
+  step_fn, cams = run['train_step'], run['cameras']
+  mode = model.nerf_mlp.cfg.fused_trunk
+  gap = render_gap(run, batch, state.step)
+  ratio = step_lib._consistency_ratio(config, state.step)
+
+  def terms(**arm):
+    set_mode(model, **arm)
+    before = dict(fused_mlp.launches)
+    loss, stats, grads = step_fn.loss_and_grads(state, batch, cams)
+    norm = step_lib.global_norm(grads.values()).item()
+    del grads
+    if arm.get('fused_trunk') == 'off' and fused_mlp.launches != before:
+      raise AssertionError("phase 18: fused_trunk='off' launched a kernel")
+    set_mode(model, fused_trunk=mode)
+    return loss.item(), norm, {k: v.item() for k, v in
+                               stats['losses'].items()}
+
+  loss_k, norm_k, got = terms(fused_trunk=mode)
+  loss_p, norm_p, want = terms(fused_trunk='off')
+  dl = abs(loss_k - loss_p) / abs(loss_p)
+  dn = abs(norm_k - norm_p) / norm_p
+  bounds = {k: consistency.bound(k, want[k], config, ratio, gap)
+            for k in consistency.TERMS}
+  diffs = {k: abs(got[k] - want[k]) for k in want}
+  rel = {k: diffs[k] / abs(want[k]) for k in want
+         if k not in bounds and want[k] != 0}
+  log(f"phase 18: {what} step {state.step} kernels vs fused_trunk='off': "
+      f'loss {loss_k:.6g} vs {loss_p:.6g} (rel {dl:.2e}, bound '
+      f'{TRAIN_LOSS_BOUND}), grad norm {norm_k:.6g} vs {norm_p:.6g} (rel '
+      f'{dn:.2e}, bound {TRAIN_GNORM_BOUND}); render gap ' + ', '.join(
+          f'{k} {v:.3e}' for k, v in gap.items()) + '; terms: ' + ', '.join(
+          f'{k} {got[k]:.6g} vs {want[k]:.6g} (' + (
+              f'|diff| {diffs[k]:.3e}, bound {bounds[k]:.3e}' if k in bounds
+              else f'rel {rel.get(k, 0.0):.2e}, bound {TRAIN_LOSS_BOUND}')
+          + ')' for k in want))
+  if not (dl <= TRAIN_LOSS_BOUND and dn <= TRAIN_GNORM_BOUND):
+    raise AssertionError('phase 18: the kernel step disagrees with the plain '
+                         'one')
+  bad = [k for k in bounds if diffs[k] > bounds[k]]
+  bad += [k for k, r in rel.items() if r > TRAIN_LOSS_BOUND]
+  if bad:
+    raise AssertionError(f'phase 18: terms {bad} disagree with the plain step')
+
+  # The planted faults, each through the kernels against the plain terms.
+  faults = {}
+  over = lambda d, b: d / b if b > 0 else (math.inf if d > 0 else 0.0)
+  k = 'specular_consistency'
+  faults['negation dropped'] = {k: over(abs(-got[k] - want[k]), bounds[k])}
+  sample = sampling.sample_noisy_rays
+
+  def angle_major(*a, **kw):
+    out = sample(*a, **kw)
+    n_a = config.sample_noise_angles
+    return out.map(lambda x: x.reshape(-1, n_a, *x.shape[1:]).transpose(
+        0, 1).reshape(x.shape))
+  sampling.sample_noisy_rays = angle_major
+  try:
+    faulty = terms(fused_trunk=mode)[2]
+  finally:
+    sampling.sample_noisy_rays = sample
+  faults['angle-major'] = {k: over(abs(faulty[k] - want[k]), bounds[k])
+                           for k in bounds}
+  zero_state = step_lib.create_train_state(config, model)
+  zero_state.step = zero_state.opt.count = 0
+  _, zero_stats, zero_grads = step_fn.loss_and_grads(zero_state, batch, cams)
+  del zero_grads
+  at_zero = {k: zero_stats['losses'][k].item() for k in bounds}
+  ratio_fn = step_lib._consistency_ratio
+  step_lib._consistency_ratio = lambda c, s: 1.0
+  try:
+    _, one_stats, one_grads = step_fn.loss_and_grads(zero_state, batch, cams)
+    del one_grads
+  finally:
+    step_lib._consistency_ratio = ratio_fn
+  faults['ratio 1 at step 0'] = {k: abs(one_stats['losses'][k].item())
+                                 for k in bounds}
+  log(f'phase 18: {what} planted faults, |fault - plain| / bound (must '
+      f'exceed 1; at step 0 the bound is 0, so the fault\'s |term|): '
+      f'{json.dumps(faults)}; at step 0 the consistency terms are '
+      f'{json.dumps(at_zero)}')
+  if any(v != 0 for v in at_zero.values()):
+    raise AssertionError('phase 18: consistency terms at step 0 are not 0')
+  # The regrouping is held on the terms it changes: at these weights a ray's
+  # composited normals are short (its acc is small), so 1 - n.n' is ~1
+  # whatever it is paired with, and the normals term barely moves.
+  held = [faults['negation dropped']['specular_consistency']] + [
+      faults['angle-major'][k] for k in ('diffuse_consistency',
+                                         'specular_consistency',
+                                         'distance_consistency')]
+  if not all(v > 1 for v in held):
+    raise AssertionError('phase 18: a planted fault lies within its bound')
+  if not all(v > 0 for v in faults['ratio 1 at step 0'].values()):
+    raise AssertionError('phase 18: a ratio of 1 at step 0 left a '
+                         'consistency term at 0')
+  return dict(loss_rel=dl, gnorm_rel=dn, render_gap=gap, terms=got,
+              plain_terms=want, bounds=bounds, faults=faults, at_zero=at_zero)
+
+
+def geometry_train(fused_mlp, run, per_step, what):
+  """Phase 18: warm-up and timed steps from prefetched batches (rays cast
+  in the step) at GEO_START; each kernel must run levels x steps x its
+  `per_step` count, every loss term be finite and the four consistency
+  terms nonzero. Returns (launches, seconds a step, the library of every
+  launch, the last stats, one more batch)."""
+  from refnerf_tpu_torch.data import prefetch
+  from refnerf_tpu_torch.testing import consistency
+  model, step_fn, cams = run['model'], run['train_step'], run['cameras']
+  batches = prefetch.training_batches(run['ds'],
+                                      device=next(model.parameters()).device)
+  seen, restore = _routes(fused_mlp)
+  try:
+    for _ in range(TRAIN_WARMUP):
+      run['state'], _ = step_fn(run['state'], next(batches), cams)
+    torch.cuda.synchronize()
+    for k in fused_mlp.launches:
+      fused_mlp.launches[k] = 0
+    t0 = time.perf_counter()
+    all_stats = []
+    for _ in range(TRAIN_STEPS):
+      run['state'], stats = step_fn(run['state'], next(batches), cams)
+      all_stats.append(stats)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = dict(fused_mlp.launches)
+    batch = next(batches)
+  finally:
+    restore()
+    batches.close()
+  levels = model.cfg.num_levels
+  want = {k: levels * TRAIN_STEPS * per_step.get(k, 0) for k in launches}
+  if launches != want:
+    raise AssertionError(f'phase 18: {what} launches {launches}, expected '
+                         f'{want}')
+  for stats in all_stats:
+    terms = stats['losses']
+    if not all(torch.isfinite(v).all() for v in terms.values()):
+      raise AssertionError(f'phase 18: a loss term is not finite: {terms}')
+    if len(terms) != 9 or any(terms[k].item() == 0
+                              for k in consistency.TERMS):
+      raise AssertionError(f'phase 18: the terms are {sorted(terms)}, the '
+                           'consistency terms must be nonzero')
+  last = all_stats[-1]
+  log(f'phase 18: {what}: {TRAIN_STEPS} steps from step '
+      f'{run["state"].step - TRAIN_STEPS} after {TRAIN_WARMUP} warm-up: '
+      f'{dt * 1e3:.2f} ms/step, {run["config"].batch_size / dt:.0f} train '
+      f'rays/s; loss {last["loss"].item():.6g} (' + ', '.join(
+          f'{k} {v.item():.6g}' for k, v in last['losses'].items()) +
+      f'), psnr {last["psnr"].item():.3f}; launches {launches}; libraries '
+      f'{json.dumps({k: sorted(v) for k, v in seen.items()})}')
+  return launches, dt, seen, last, batch
+
+
+def noisy_share(run, batch, what):
+  """The step's share of time in the noisy forward, its backward and the
+  consistency losses: full steps with them and without (the same gin with
+  sample_noise_size 0 and no distance consistency), timed in turns. The
+  arm without keeps the main forward's extras (compute_extras, which the
+  noisy forward turns on): compute_disp_metrics turns them on and adds no
+  metric, since an LLFF batch holds no disparities."""
+  import dataclasses
+  from refnerf_tpu_torch.train import step as step_lib
+  if batch.disps is not None:
+    raise AssertionError('phase 18: the batch holds disparities')
+  config = dataclasses.replace(
+      run['config'], sample_noise_size=0, consistency_distance_loss_mult=0.0,
+      consistency_distance_coarse_loss_mult=0.0, compute_disp_metrics=True)
+  arms = {'with': run['train_step'],
+          'without': step_lib.make_train_step(run['model'], config,
+                                              run['cast'])}
+  times = {a: [] for a in arms}
+  for a in ('with', 'without', 'without', 'with'):
+    for i in range(4):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      run['state'], _ = arms[a](run['state'], batch, run['cameras'])
+      torch.cuda.synchronize()
+      if i:  # the first after a switch is not timed
+        times[a].append(time.perf_counter() - t0)
+  med = {a: float(np.median(v)) for a, v in times.items()}
+  share = 1 - med['without'] / med['with']
+  log(f'phase 18: {what}: a step in turns with / without the noisy forward '
+      f'(median of 6): {med["with"] * 1e3:.2f} / {med["without"] * 1e3:.2f} '
+      f'ms; the noisy forward, its backward and the consistency losses '
+      f'{100 * share:.1f}% of the step')
+  return med, share
+
+
+def geometry_stage(fused_mlp, dev):
+  """Phase 18: the LLFF geometry gins from a 20-view forward-facing scene on
+  disk. (b) configs/llff_refnerf_geometry_losses.gin as shipped (float32,
+  batch 1024, NDC, all_images, no fuse flags, fused_trunk='auto') from
+  step 150,000; (c) the same in bf16 with all six fuse flags and
+  fused_trunk='on'; (d) the few-shot gin on 3 views. Returns ((b)'s
+  launches, (c)'s, a summary)."""
+  import tempfile
+  from refnerf_tpu_torch.tools import sphere_scene
+  root = tempfile.mkdtemp(prefix='refnerf_llff_')
+  out = {}
+  try:
+    t0 = time.perf_counter()
+    scene = sphere_scene.make_llff_scene(os.path.join(root, 'scene'),
+                                         GEO_VIEWS, GEO_W, GEO_H, GEO_FACTOR)
+    out['scene_write_s'] = time.perf_counter() - t0
+
+    # (b) the gin as shipped.
+    t0 = time.perf_counter()
+    run = geometry_setup(dev, scene)
+    out['load_s'] = time.perf_counter() - t0
+    model, config, ds = run['model'], run['config'], run['ds']
+    cfg = model.nerf_mlp.cfg
+    flags = [b.split('.', 1)[1].split(' = ')[0] for b in FUSE + SPATIAL]
+    if (cfg.compute_dtype != 'float32' or cfg.fused_trunk != 'auto' or
+        any(getattr(cfg, f) for f in flags) or cfg.srgb_mapping or
+        config.batch_size != 1024 or not config.forward_facing or
+        config.batching != 'all_images' or config.factor != GEO_FACTOR or
+        ds.images.shape[1:3] != (GEO_H, GEO_W)):
+      raise AssertionError('phase 18: the geometry gin is not as shipped')
+    log(f'phase 18: scene of {GEO_VIEWS} views at {GEO_W} x {GEO_H} '
+        f'(images_{GEO_FACTOR}/) written in {out["scene_write_s"]:.1f} s; '
+        f'{GEO} as shipped: {ds.images.shape[0]} train views loaded in '
+        f'{out["load_s"]:.1f} s, batch {config.batch_size}, '
+        f'{config.sample_noise_size} noise rays x {config.sample_noise_angles}'
+        f' angles, f32 trunks, fused_trunk={cfg.fused_trunk!r}')
+    launches, step_s, seen, _, batch = geometry_train(
+        fused_mlp, run, GEO_PER_STEP, 'f32 as shipped')
+    if seen != {'forward': {'trunk_fwd_f32'}, 'backward': {'trunk_bwd_f32'}}:
+      raise AssertionError(f'phase 18: the trunks routed to {seen}')
+    out['f32'] = dict(step_ms=step_s * 1e3,
+                      rays_s=config.batch_size / step_s)
+    out['f32']['vs_plain'] = geometry_against_plain(fused_mlp, run, batch,
+                                                    'f32')
+    box = {'state': run['state']}
+
+    def step():
+      box['state'], _ = run['train_step'](box['state'], batch,
+                                          run['cameras'])
+    prof = profile(step, 'geometry f32 train step', 2, phase=18)
+    new_kernels(prof, 18, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel'))
+    out['f32']['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
+    out['f32']['noisy'] = noisy_share(run, batch, 'f32 as shipped')
+    del run, model, box, batch
+    torch.cuda.empty_cache()
+
+    # (c) bf16, all six fuse flags, fused_trunk='on'.
+    run = geometry_setup(dev, scene, dtype='bfloat16', bindings=[
+        *FUSE, *SPATIAL, "NerfMLP.fused_trunk = 'on'"])
+    launches_b, step_s, seen, _, batch = geometry_train(
+        fused_mlp, run, GEO_SIX_PER_STEP, 'bf16, six fuse flags, on')
+    if seen != {'forward': {'trunk_fwd_tma'}, 'backward': {'trunk_bwd_tma'}}:
+      raise AssertionError(f'phase 18: the bf16 trunks routed to {seen}')
+    out['bf16'] = dict(step_ms=step_s * 1e3,
+                       rays_s=run['config'].batch_size / step_s)
+    out['bf16']['vs_plain'] = geometry_against_plain(fused_mlp, run, batch,
+                                                     'bf16 six flags')
+    out['bf16']['noisy'] = noisy_share(run, batch, 'bf16, six fuse flags')
+    del run, batch
+    torch.cuda.empty_cache()
+
+    # (d) the few-shot gin: 3 input views.
+    run = geometry_setup(dev, scene, FEW_SHOT)
+    if run['ds'].images.shape[0] != 3 or run['config'].n_input_views != 3:
+      raise AssertionError('phase 18: the few-shot gin did not load 3 views')
+    from refnerf_tpu_torch.data import prefetch
+    batches = prefetch.training_batches(run['ds'], device=dev)
+    try:
+      t0 = time.perf_counter()
+      for _ in range(GEO_FEW_STEPS):
+        run['state'], stats = run['train_step'](run['state'], next(batches),
+                                                run['cameras'])
+      torch.cuda.synchronize()
+      few_s = time.perf_counter() - t0
+    finally:
+      batches.close()
+    if not torch.isfinite(stats['loss']):
+      raise AssertionError('phase 18: the few-shot loss is not finite')
+    out['few_shot'] = dict(steps=GEO_FEW_STEPS, s=few_s,
+                           loss=stats['loss'].item())
+    log(f'phase 18: {FEW_SHOT}: 3 train views, {GEO_FEW_STEPS} steps in '
+        f'{few_s:.2f} s (the first builds nothing new), loss '
+        f'{stats["loss"].item():.6g}')
+    del run
+    torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  return launches, launches_b, out
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -2263,6 +2650,7 @@ def main():
    mip_f32_request) = mip_f32_stage(fused_mlp, dev)
   data_path, data = data_stage(fused_mlp, dev)
   cli_path, cli = cli_stage(fused_mlp, dev)
+  geo_path, geo_bf16_path, geo = geometry_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -2386,6 +2774,15 @@ def main():
       entry['cli_launches'] = cli_path[which]
       entry['cli_source'] = f32fwd_src if which in ('K1', 'K2', 'K3') \
           else f32_src
+    if geo_path.get(which):
+      # Phase 18 (b): the geometry gin as shipped (f32): K2-K5 in the main
+      # and the noisy forward, on the FMA/TMA libraries.
+      entry['geometry_launches'] = geo_path[which]
+      entry['geometry_source'] = f32fwd_src if which in ('K2', 'K3') \
+          else f32_src
+    if geo_bf16_path.get(which):
+      # Phase 18 (c): the same in bf16 with the six fuse flags (K2-K9).
+      entry['geometry_bf16_launches'] = geo_bf16_path[which]
     if which in main_case:
       entry['case'] = case
       entry['serve_launches'] = spa_serve[which]
@@ -2412,7 +2809,8 @@ def main():
       f'{mip_f32_step_s * 1e3:.2f} ms, {TRAIN_BATCH / mip_f32_step_s:.0f} '
       f'train rays/s, device busy {mip_f32_prof["busy_ms"]:.2f} ms a step, '
       f'4096-ray requests {json.dumps(mip_f32_request)}; phase 16 (from '
-      f'disk): {json.dumps(data)}; phase 17 (the CLIs): {json.dumps(cli)}')
+      f'disk): {json.dumps(data)}; phase 17 (the CLIs): {json.dumps(cli)}; '
+      f'phase 18 (the LLFF geometry gins): {json.dumps(geo)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -25,12 +25,8 @@ _CONFIGS_DIR = os.path.join(
 
 # Fields of refnerf_tpu.configs.Config that the port does not read yet.
 _UNREAD_FIELDS = frozenset('''
-num_workers num_gpus sample_angle_range gc_every render_dir vocab_tree_path
-train_render_every sample_noise_angles consistency_warmup_steps
-consistency_decay_steps consistency_normal_loss_target
-consistency_diffuse_loss_type consistency_specular_loss_type noise_background
-consistency_distance_loss_type acc_threshold_for_consistency_loss
-acc_threshold_for_weights_entropy_loss render_save_async
+num_workers num_gpus gc_every render_dir vocab_tree_path train_render_every
+noise_background render_save_async
 '''.split())
 
 
@@ -102,8 +98,7 @@ class Config:
   render_spline_degree: int = 5
   render_spline_smoothness: float = 0.03
   # Training (configs.py:38-147): the batch, the losses of the train step
-  # and the optimizer. Losses the port does not compute are read so that the
-  # train step can refuse a nonzero multiplier.
+  # and the optimizer.
   batch_size: int = 16384
   patch_size: int = 1
   compute_disp_metrics: bool = False
@@ -122,6 +117,18 @@ class Config:
   predicted_normal_loss_mult: float = 0.0
   predicted_normal_coarse_loss_mult: float = 0.0
   sample_noise_size: int = 128
+  # The noisy second forward and its consistency losses (configs.py:42,
+  # :102-135).
+  sample_angle_range: float = 5
+  sample_noise_angles: int = 1
+  consistency_warmup_steps: float = 0.0
+  consistency_decay_steps: float = 1.0
+  consistency_normal_loss_target: str = 'normals_pred'
+  consistency_diffuse_loss_type: str = 'mse'
+  consistency_specular_loss_type: str = 'mse'
+  consistency_distance_loss_type: str = 'mse'
+  acc_threshold_for_consistency_loss: float = 0.0
+  acc_threshold_for_weights_entropy_loss: float = 0.0
   consistency_normal_loss_mult: float = 0.0
   consistency_normal_coarse_loss_mult: float = 0.0
   consistency_diffuse_loss_mult: float = 0.0

@@ -226,6 +226,10 @@ class MLP(nn.Module):
       self.grad_pred = nn.Linear(wo, 3)
       self._heads.append(('grad_pred', 'grad_pred', 3))
     self._packs = {}
+    if c.disable_rgb:
+      # A density-only MLP (a proposal MLP) has no colour layers: JAX never
+      # creates their parameters (mlp.py:277, :295, :466).
+      return
     if not use_viewdirs:
       self.rgb = nn.Linear(wo, c.num_rgb_channels)
       return

@@ -1,9 +1,12 @@
-"""Step-function sampling: the deterministic resampling of the cascade, the
-weighted percentiles of the eval extras, and `resample` (vis's ray panels).
+"""Step-function tools: the deterministic resampling of the cascade, the
+weighted percentiles of the eval extras, `resample` (vis's ray panels), and
+the lookups and losses of the train step (`searchsorted`, `query`,
+`inner_outer`, `lossfun_outer`, `lossfun_distortion`,
+`interval_distortion`).
 
-Counterpart of refnerf_tpu/ops/stepfun.py:110-187 and :212-237, where
-sampling is the deterministic linspace (`rng=None` there). Stratified
-sampling is not ported.
+Counterpart of refnerf_tpu/ops/stepfun.py:26-89, :110-237, where sampling
+is the deterministic linspace (`rng=None` there). Stratified sampling is not
+ported.
 """
 
 from __future__ import annotations
@@ -14,6 +17,79 @@ import torch
 from refnerf_tpu_torch.ops import mathx
 
 _EPS = float(np.finfo(np.float32).eps)
+
+
+def searchsorted(a, v):
+  """For each v, indices (lo, hi) into sorted `a` with a[lo] <= v < a[hi].
+
+  Out-of-range queries clamp both indices to the first or last index of
+  `a`; a tie with an entry of `a` counts as at or above it, as JAX's masked
+  reduction does (stepfun.py:26-39). a: [..., n], v: [..., m]; returns two
+  int64 [..., m].
+  """
+  batch = torch.broadcast_shapes(a.shape[:-1], v.shape[:-1])
+  a = a.expand(*batch, a.shape[-1]).contiguous()
+  v = v.expand(*batch, v.shape[-1]).contiguous()
+  above = torch.searchsorted(a, v, right=True)  # #entries <= v
+  idx_lo = torch.clamp(above - 1, min=0)
+  idx_hi = torch.clamp(above, max=a.shape[-1] - 1)
+  return idx_lo, idx_hi
+
+
+def query(tq, t, y, outside_value=0):
+  """Look up the step function (t, y) at locations tq (outside_value
+  outside its support)."""
+  idx_lo, idx_hi = searchsorted(t, tq)
+  batch = idx_lo.shape[:-1]
+  # idx_lo reaches len(y) only past the support, where lo == hi anyway.
+  yq = torch.gather(y.expand(*batch, y.shape[-1]), -1,
+                    torch.clamp(idx_lo, max=y.shape[-1] - 1))
+  return torch.where(idx_lo == idx_hi, torch.full_like(yq, outside_value), yq)
+
+
+def inner_outer(t0, t1, y1):
+  """Inner and outer measures of the step fn (t1, y1) over intervals t0."""
+  cy1 = torch.cat([torch.zeros_like(y1[..., :1]), torch.cumsum(y1, dim=-1)],
+                  dim=-1)
+  idx_lo, idx_hi = searchsorted(t1, t0)
+  cy1 = cy1.expand(*idx_lo.shape[:-1], cy1.shape[-1])
+  cy1_lo = torch.gather(cy1, -1, idx_lo)
+  cy1_hi = torch.gather(cy1, -1, idx_hi)
+  y0_outer = cy1_hi[..., 1:] - cy1_lo[..., :-1]
+  y0_inner = torch.where(idx_hi[..., :-1] <= idx_lo[..., 1:],
+                         cy1_lo[..., 1:] - cy1_hi[..., :-1],
+                         torch.zeros_like(y0_outer))
+  return y0_inner, y0_outer
+
+
+def lossfun_outer(t, w, t_env, w_env, eps=_EPS):
+  """Proposal supervision: the half-quadratic penalty on w above the outer
+  measure of its envelope (t_env, w_env)."""
+  _, w_outer = inner_outer(t, t_env, w_env)
+  excess = torch.maximum(w - w_outer, torch.zeros_like(w))  # H1: not clamp
+  return excess**2 / (w + eps)
+
+
+def lossfun_distortion(t, w):
+  """mip-NeRF 360's distortion: iint w_i w_j |t_i - t_j| di dj."""
+  ut = (t[..., 1:] + t[..., :-1]) / 2
+  dut = torch.abs(ut[..., :, None] - ut[..., None, :])
+  loss_inter = torch.sum(w * torch.sum(w[..., None, :] * dut, dim=-1), dim=-1)
+  loss_intra = torch.sum(w**2 * (t[..., 1:] - t[..., :-1]), dim=-1) / 3
+  return loss_inter + loss_intra
+
+
+def interval_distortion(t0_lo, t0_hi, t1_lo, t1_hi):
+  """mean(|x - y|) for x ~ U[t0_lo, t0_hi], y ~ U[t1_lo, t1_hi]."""
+  d_disjoint = torch.abs((t1_lo + t1_hi) / 2 - (t0_lo + t0_hi) / 2)
+  d_overlap = (
+      2 * (torch.minimum(t0_hi, t1_hi)**3 - torch.maximum(t0_lo, t1_lo)**3) +
+      3 * (t1_hi * t0_hi * torch.abs(t1_hi - t0_hi) +
+           t1_lo * t0_lo * torch.abs(t1_lo - t0_lo) + t1_hi * t0_lo *
+           (t0_lo - t1_hi) + t1_lo * t0_hi *
+           (t1_lo - t0_hi))) / (6 * (t0_hi - t0_lo) * (t1_hi - t1_lo))
+  are_disjoint = (t0_lo > t1_hi) | (t1_lo > t0_hi)
+  return torch.where(are_disjoint, d_disjoint, d_overlap)
 
 
 def integrate_weights(w):

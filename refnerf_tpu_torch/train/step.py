@@ -17,11 +17,17 @@ max_norm / (norm + 1e-6) whenever norm > max_norm), then Adam with eps
 outside the square root, bias correction at count + 1, and the learning rate
 of the log-lerp schedule at the update count (0 at the first update).
 
-Ported losses: data (mse, charb, with the disparity and normal metrics),
-orientation, predicted normals. Refused with NotImplementedError: every
-other loss with a multiplier > 0 and the noisy second forward (ROADMAP queue
-1, item 6), `randomized=True` and density/bottleneck noise (item 7: the RNG
-streams differ, H3).
+Every loss of JAX's step is ported (data, interlevel, distortion,
+orientation, predicted normals, depth smoothness, the noisy-view consistency
+losses, acc and weights entropy), with the noisy second forward: the first
+`sample_noise_size // patch_size**2` rays, rotated by the angles of
+`noise_angles(step, a, max_angle) -> [a, 3]`, go through the model again in
+the same differentiated step. By default the angles come from a generator
+seeded from (Config.seed, step) (`sampling.draw_noise_angles`), so a resumed
+run draws what the uninterrupted run drew; a test can hand the step JAX's
+draws. Refused with NotImplementedError: `randomized=True` and
+density/bottleneck noise (ROADMAP queue 1, item 7: the RNG streams differ,
+H3).
 """
 
 from __future__ import annotations
@@ -29,12 +35,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import numpy as np
 import torch
 
 from refnerf_tpu_torch.cameras import rays as rays_lib
 from refnerf_tpu_torch.ops import image as image_ops
 from refnerf_tpu_torch.ops import mathx
 from refnerf_tpu_torch.train import losses as losses_lib
+from refnerf_tpu_torch.train import sampling
 
 
 @dataclasses.dataclass
@@ -110,27 +118,42 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
   opt.count = count
 
 
+def _consistency_enabled(config) -> bool:
+  return config.sample_noise_size > 0 and (
+      config.consistency_diffuse_coarse_loss_mult > 0 or
+      config.consistency_specular_coarse_loss_mult > 0 or
+      config.consistency_normal_coarse_loss_mult > 0 or
+      config.consistency_diffuse_loss_mult > 0 or
+      config.consistency_specular_loss_mult > 0 or
+      config.consistency_normal_loss_mult > 0)
+
+
+def _distance_consistency_enabled(config) -> bool:
+  return (config.consistency_distance_loss_mult > 0 or
+          config.consistency_distance_coarse_loss_mult > 0)
+
+
+def _consistency_ratio(config, step) -> float:
+  """The consistency losses' warmup-then-decay ratio at `step` (step.py:
+  74-87), in float32 as JAX traces it, on the host."""
+  f32 = np.float32
+  step = f32(step)
+  ratio = f32(1.0)
+  if 0.0 < config.consistency_warmup_steps <= 1.0:
+    ratio = np.minimum(f32(1.0), step / f32(
+        config.consistency_warmup_steps * config.max_steps))
+  if 0.0 < config.consistency_decay_steps <= 1.0:
+    decay_start = config.consistency_decay_steps * config.max_steps
+    steps_left = f32(config.max_steps) - step
+    total_decay = config.max_steps - decay_start
+    decay_ratio = np.maximum(f32(0.0),
+                             steps_left / f32(max(1.0, total_decay)))
+    if step >= f32(decay_start):
+      ratio = decay_ratio
+  return float(ratio)
+
+
 def _refuse_unported(model, config):
-  on = lambda *names: [n for n in names if getattr(config, n) > 0]
-  unported = on('interlevel_loss_mult', 'distortion_loss_mult',
-                'accumulated_weights_loss_mult', 'weights_entropy_loss_mult',
-                'weights_entropy_coarse_loss_mult',
-                'consistency_distance_loss_mult',
-                'consistency_distance_coarse_loss_mult')
-  if config.patch_size > 1:
-    unported += on('depth_smoothness_loss_mult',
-                   'depth_smoothness_coarse_loss_mult')
-  if config.sample_noise_size > 0:  # _consistency_enabled (step.py:59-66)
-    unported += on('consistency_diffuse_coarse_loss_mult',
-                   'consistency_specular_coarse_loss_mult',
-                   'consistency_normal_coarse_loss_mult',
-                   'consistency_diffuse_loss_mult',
-                   'consistency_specular_loss_mult',
-                   'consistency_normal_loss_mult')
-  if unported:
-    raise NotImplementedError(
-        f'{unported} > 0: these losses are not ported (ROADMAP queue 1, '
-        'item 6)')
   if config.randomized:
     raise NotImplementedError(
         'randomized=True: stratified sampling and random backgrounds draw '
@@ -151,15 +174,37 @@ def _param_stats(params, grads):
           {k: g.abs().max() for k, g in grads.items()})
 
 
-def make_train_step(model, config, raycast_fn=None):
+def make_train_step(model, config, raycast_fn=None, noise_angles=None):
   """Build train_step(state, batch, cameras=None) -> (state, stats)
   (step.py:120-283). `raycast_fn(cameras, pixels) -> Rays` casts a batch
-  of Pixels (e.g. camera_utils.cast_ray_batch with the dataset's camtype)."""
+  of Pixels (e.g. camera_utils.cast_ray_batch with the dataset's camtype).
+  `noise_angles(step, a, max_angle) -> [a, 3]` gives the noisy forward's
+  Euler angles; by default `sampling.draw_noise_angles` seeded from
+  (config.seed, step), drawn on the model's device."""
   _refuse_unported(model, config)
   num_levels = model.cfg.num_levels
   schedule = create_lr_schedule(config)
-  # The extras are computed only for the metrics that read them.
-  compute_extras = config.compute_disp_metrics or config.compute_normal_metrics
+  consistency_on = _consistency_enabled(config)
+  distance_consistency_on = _distance_consistency_enabled(config)
+  noisy_on = consistency_on or distance_consistency_on
+  if noisy_on:
+    # Windows outside (0, 1] are off; only an inverted pair of windows that
+    # are both on is an error.
+    if (0.0 < config.consistency_decay_steps <= 1.0 and
+        0.0 < config.consistency_warmup_steps <= 1.0 and
+        config.consistency_warmup_steps > config.consistency_decay_steps):
+      raise ValueError('Consistency loss decay should be after whole warmup.')
+    if config.patch_size ** 2 > config.sample_noise_size:
+      raise ValueError(
+          f'Patch size {config.patch_size}^2 too large for sampling noise '
+          f'view points {config.sample_noise_size}')
+  if noise_angles is None:
+    device = next(model.parameters()).device
+    noise_angles = lambda step, a, max_angle: sampling.draw_noise_angles(
+        config.seed, step, a, max_angle, device)
+  # The extras are computed only for the metrics and losses that read them.
+  compute_extras = (config.compute_disp_metrics or
+                    config.compute_normal_metrics or noisy_on)
 
   def loss_and_grads(state: TrainState, batch, cameras=None):
     """(total loss, stats, gradients by parameter name before clipping)."""
@@ -173,10 +218,31 @@ def make_train_step(model, config, raycast_fn=None):
     renderings, ray_history = model(rays, train_frac=train_frac, train=True,
                                     compute_extras=compute_extras)
 
+    ratio = _consistency_ratio(config, state.step)
+    noisy_rays = renderings_noise = None
+    if noisy_on:
+      # The noisy second forward (step.py:179-187): its rays come from the
+      # first forward's distance, so it runs after it, on its own graph.
+      angles = noise_angles(
+          state.step, config.sample_noise_angles,
+          sampling.max_noise_angle(config.sample_angle_range, ratio))
+      noisy_rays = sampling.sample_noisy_rays(
+          rays, renderings[-1],
+          angles.to(device=rays.origins.device, dtype=torch.float32),
+          config.sample_noise_size // config.patch_size**2)
+      renderings_noise, _ = model(noisy_rays, train_frac=train_frac,
+                                  train=True, compute_extras=True)
+
     loss_terms = {}
     data_loss, stats = losses_lib.compute_data_loss(batch, renderings, rays,
                                                     config)
     loss_terms['data'] = data_loss
+    if config.interlevel_loss_mult > 0:
+      loss_terms['interlevel'] = losses_lib.interlevel_loss(ray_history,
+                                                            config)
+    if config.distortion_loss_mult > 0:
+      loss_terms['distortion'] = losses_lib.distortion_loss(ray_history,
+                                                            config)
     if (config.orientation_coarse_loss_mult > 0 or
         config.orientation_loss_mult > 0):
       loss_terms['orientation'] = losses_lib.orientation_loss(
@@ -185,6 +251,31 @@ def make_train_step(model, config, raycast_fn=None):
         config.predicted_normal_loss_mult > 0):
       loss_terms['predicted_normals'] = losses_lib.predicted_normal_loss(
           num_levels, ray_history, config)
+    if config.patch_size > 1 and (
+        config.depth_smoothness_coarse_loss_mult > 0 or
+        config.depth_smoothness_loss_mult > 0):
+      loss_terms['smoothness'] = losses_lib.compute_depth_smoothness_loss(
+          renderings, config)
+    if consistency_on:
+      (loss_terms['diffuse_consistency'], loss_terms['specular_consistency'],
+       loss_terms['normals_consistency']) = losses_lib.noisy_consistency_loss(
+           num_levels, renderings, renderings_noise, config, ratio)
+    if config.accumulated_weights_loss_mult > 0:
+      loss_terms['acc'] = losses_lib.accumulated_weights_loss(renderings,
+                                                              config)
+    if distance_consistency_on:
+      loss_terms['distance_consistency'] = (
+          losses_lib.noisy_distance_consistency_loss(
+              num_levels, rays, noisy_rays, renderings, renderings_noise,
+              config, ratio))
+    if (config.weights_entropy_loss_mult > 0 or
+        config.weights_entropy_coarse_loss_mult > 0):
+      loss_terms['weights_entropy'] = losses_lib.weights_entropy_loss(
+          num_levels, renderings, ray_history, config, ratio)
+    # A term of levels whose loss is off is the float 0 (as in JAX).
+    loss_terms = {k: torch.as_tensor(v, dtype=torch.float32,
+                                     device=data_loss.device)
+                  for k, v in loss_terms.items()}
     total = torch.stack(list(loss_terms.values())).sum()
     params = state.params()
     grads = torch.autograd.grad(total, list(params.values()))

@@ -285,6 +285,7 @@ def test_port_imports_no_jax_and_renders_on_cpu():
       from refnerf_tpu_torch.cameras import camera_utils
       from refnerf_tpu_torch.data import colmap, datasets, prefetch
       from refnerf_tpu_torch.ops import image
+      from refnerf_tpu_torch.testing import consistency
       from refnerf_tpu_torch.tools import sphere_scene
       from refnerf_tpu_torch.utils import io
       config, gin = configs.parse([{GIN!r}], {SMALL!r})

@@ -50,8 +50,8 @@ from tests.test_torch_port_eval import (GIN, SMALL, _init_params, _jax_rays,
 
 torch.set_num_threads(1)
 
-# The port refuses the distortion loss (ROADMAP queue 1, item 6); the tiny
-# gin leaves it at Config's default 0.01, so both packages run without it.
+# The tiny gin leaves the distortion loss at Config's default 0.01; both
+# packages run without it here (tests/test_torch_port_losses.py holds it).
 TINY = _TINY + '\nConfig.distortion_loss_mult = 0.\n'
 PARAM_TOL = 1e-5
 
