@@ -165,9 +165,32 @@ Phases, each printed on its own line:
      K10 at 0: inactive without the sRGB mapping; on the wgmma/TMA
      libraries), one step against 'off' as in (b); (d) the few-shot gin
      (n_input_views = 3) loads 3 train views and takes 3 steps.
+ 19. configs/blender_refnerf.gin over mip-NeRF 360's proposal cascade
+     (CASCADE: 3 levels x 64, 64, 32 samples, weight dilation, annealing,
+     single-jitter stratified sampling, Config.randomized, the interlevel
+     and distortion losses; a separate PropMLP of 4 x 256, density only,
+     on 504 IPE columns): (a) its trunk at the same N against its plain
+     versions, forward and backward, each run twice more bit-identical: in
+     f32 on the wide-input instances of csrc/trunk_fwd_f32.cu and
+     csrc/trunk_bwd_f32.cu (depth 4 and 8), in bf16 on csrc/trunk_fwd.cu
+     and csrc/trunk_bwd.cu (each route asserted); (b) from a Blender sphere
+     scene (20 + 2 views of 400 x 400), in f32 under fused_trunk='on' at
+     the gin's batch of 1024: 3 warm-up and 10 timed steps (the PropMLP's
+     pair 2 a step, counted under 'K1 wide' / 'K4 wide', K2-K5 the NeRF
+     level's; every forward on trunk_fwd_f32.cu, every backward on
+     trunk_bwd_f32.cu), one step against 'off' with the same draws (loss,
+     gradient norm, each term), one step profiled, a 4096-ray request
+     against 'off'; (c) the same in bf16 with all six fuse flags at batch
+     4096 (K6/K7 on 32-sample rays; the PropMLP on trunk_fwd.cu /
+     trunk_bwd.cu); (d) the draws on the card repeat for one (seed, step)
+     and differ for the next; NeRFSystem killed at step 2 and resumed to 4
+     equals the uninterrupted run under torch.equal (randomized, with
+     density and bottleneck noise and random backgrounds); 3 steps of (c)
+     with NerfMLP.density_noise = 1.0, bottleneck_noise = 0.1 and
+     Model.bg_intensity_range = (0, 1): finite, K6 logged inactive.
 The line before the last is a JSON list of the kernels, each with its
-launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17
-and 18),
+launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
+18 and 19),
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -1353,7 +1376,9 @@ def w128_backward(prof, phase, kernel):
   width-128 instance of `kernel` and no width-128 instance of trunk_bwd.cu
   (the design the two-tile kernels replaced), or this fails."""
   names = list((prof or {}).get('kernels', {}))
-  new = [n for n in names if re.search(rf'\b{kernel}<[^>]*\b128>', n)]
+  # 128 may be followed by template arguments at their defaults (false).
+  new = [n for n in names
+         if re.search(rf'\b{kernel}<[^>]*\b128(, false)*>', n)]
   old = [n for n in names if re.search(r'\btrunk_bwd_kernel<[^,]*, 128\b', n)]
   if prof is None or not new or old:
     raise AssertionError(f'phase {phase}: K5 at width 128 ran {names}: '
@@ -2598,6 +2623,419 @@ def geometry_stage(fused_mlp, dev):
   return launches, launches_b, out
 
 
+# Phase 19: configs/blender_refnerf.gin over mip-NeRF 360's proposal cascade:
+# the Model's defaults (JAX's and multinerf's: 3 levels, 64 / 32 samples,
+# weight dilation, annealing, single-jitter stratified sampling), a
+# separate PropMLP as mip-NeRF 360 publishes it (4 x 256, density only, on
+# the MLP's default encoding: 21 basis vectors x 12 degrees, 504 IPE
+# columns) and the losses a cascade trains with, at JAX's defaults; the
+# normal losses at theirs (0): JAX's loss loops read every level's normals
+# and raise where a level has none (losses.py:130-137, :152-158).
+CASCADE = [
+    'Model.num_levels = 3', 'Model.single_mlp = False',
+    'Model.num_prop_samples = 64', 'Model.num_nerf_samples = 32',
+    'Model.anneal_slope = 10.', 'Model.dilation_bias = 0.0025',
+    'Model.dilation_multiplier = 0.5', 'Model.single_jitter = True',
+    'Model.resample_padding = 0.', 'Config.randomized = True',
+    'Config.interlevel_loss_mult = 1.0', 'Config.distortion_loss_mult = 0.01',
+    'PropMLP.net_depth = 4', 'PropMLP.net_width = 256',
+    'PropMLP.disable_rgb = True', 'PropMLP.disable_density_normals = True',
+    'Config.orientation_loss_mult = 0.',
+    'Config.orientation_coarse_loss_mult = 0.',
+    'Config.predicted_normal_loss_mult = 0.',
+    'Config.predicted_normal_coarse_loss_mult = 0.']
+CASCADE_ON = ["NerfMLP.fused_trunk = 'on'", "PropMLP.fused_trunk = 'on'"]
+CASCADE_NOISE = ['NerfMLP.density_noise = 1.0',
+                 'NerfMLP.bottleneck_noise = 0.1',
+                 'Model.bg_intensity_range = (0., 1.)']
+PROP_SCALES = 2.0**np.arange(0, 12)  # the MLP's default max_deg_point 12
+CASCADE_RES, CASCADE_TRAIN, CASCADE_TEST = 400, 20, 2
+CASCADE_BATCH = 1024  # the gin's own
+CASCADE_STEPS, CASCADE_RESUME = 10, 4
+# Launches a step (not a level): the PropMLP's forward and backward at the
+# two proposal levels, the NeRF level's K3, K4 (with u's cotangent), K2
+# and K5; with the six fuse flags (bf16) K6, K7 in K3 and K4, K8-K10 in K2
+# and K5, and the PropMLP on trunk_fwd.cu / trunk_bwd.cu.
+CASCADE_PER_STEP = {'K1': 2, 'K1 wide': 2, 'K2': 1, 'K3': 1, 'K4': 3,
+                    'K4 wide': 2, 'K5': 1}
+CASCADE_SIX_PER_STEP = {'K1': 2, 'K2': 1, 'K3': 1, 'K4': 3, 'K5': 1, 'K6': 2,
+                        'K7': 2, 'K8': 2, 'K9': 2, 'K10': 2}
+
+
+def prop_case(fused_mlp, gen, dev, depth, cdt):
+  """mip-NeRF 360's proposal trunk on N_SAMPLES rows: the IPE (in `cdt`)
+  of random lifted means and variances on 21 basis vectors x 12 degrees,
+  two segments of 252 columns (kin 512 packed), width 256 with He-scaled
+  weights, the density head alone; depth 4, or 8 with the skip at layer 5.
+  Returns (segs, ws, bs, kw)."""
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  lm = torch.rand(N_SAMPLES, 21, generator=gen).to(dev) * 3 - 1.5
+  lv = 10.0**(torch.rand(N_SAMPLES, 21, generator=gen).to(dev) * 4 - 6)
+  segs = list(fused_mlp.encode_ipe(lm, lv, PROP_SCALES, cdt))
+  skips = fused_mlp.skip_input_layers(depth, 4)
+  ws = []
+  for l in range(depth):
+    k_in = 504 if l == 0 else 256 + (504 if l in skips else 0)
+    ws.append(rand(256, k_in) * math.sqrt(2 / k_in))
+  bs = [rand(256) * 0.05 for _ in range(depth)]
+  kw = dict(skip_period=4, wd=rand(1, 256) / 16, head_f32=None,
+            head_cdt=None)
+  return segs, ws, bs, kw
+
+
+def check_prop_kernels(fused_mlp, dev):
+  """Phase 19 (a): the proposal trunk at N_SAMPLES rows against its plain
+  versions, forward (sigma by KERNEL_BOUND) and backward (every weight and
+  bias gradient by GRAD_BOUND, given a random cotangent of sigma), each
+  run twice more bit-identical: in f32 on the wide-input instances of
+  trunk_fwd_f32.cu and trunk_bwd_f32.cu (depth 4, and 8), in bf16 on
+  trunk_fwd.cu and trunk_bwd.cu (depth 4); each route asserted."""
+  gen = torch.Generator().manual_seed(SEED + 19)
+  results = {}
+  for depth, cdts in ((4, ('float32', 'bfloat16')), (8, ('float32',))):
+    segs, ws, bs, kw = prop_case(fused_mlp, gen, dev, depth, 'float32')
+    sbar = torch.randn(N_SAMPLES, generator=gen).to(dev)
+    cots = (sbar, None, None, None)
+    for cdt in cdts:
+      cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+      pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+      f32 = cdt == 'float32'
+      want = ('trunk_fwd_f32', 'trunk_bwd_f32') if f32 else ('trunk_fwd',
+                                                             'trunk_bwd')
+      got = (fused_mlp.forward_library(pack), fused_mlp.backward_library(pack))
+      if (got != want or fused_mlp.wide_input(pack) != f32 or
+          fused_mlp.missing_instance(pack, 0) is not None):
+        raise AssertionError(f'phase 19: the {cdt} proposal trunk routed to '
+                             f'{got}')
+      tag = ('K1 wide', 'K4 wide') if f32 else ('prop K1', 'prop K4')
+      tag = tuple(t + (' depth 8' if depth == 8 else '') for t in tag)
+      kernel = lambda: fused_mlp.trunk_kernel(cs, pack)
+      plain = lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                                **kw)
+      results[tag[0], cdt] = compare(
+          tag[0], cdt, kernel, plain, n_values=1, phase=19,
+          inputs=cs + pack_tensors(pack),
+          flops=trunk_flops(ws, N_SAMPLES, 1))
+      deterministic(tag[0], kernel, phase=19, cdt=cdt)
+      kernel = lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots)
+      plain = lambda: fused_mlp.trunk_backward_reference(
+          cs, ws, bs, cots, compute_dtype=cdt, **kw)
+      results[tag[1], cdt] = compare(
+          tag[1], cdt, kernel, plain, n_values=0, iters=3, phase=19,
+          inputs=cs + pack_tensors(pack) + [sbar],
+          flops=trunk_flops(ws, N_SAMPLES, 1, backward=True))
+      deterministic(tag[1], kernel, phase=19, cdt=cdt)
+      del pack, cs
+    del segs, ws, bs, kw, cots
+    torch.cuda.empty_cache()
+  return results
+
+
+def cascade_setup(dev, root, dtype=None, bindings=()):
+  """The flagship over the cascade (CASCADE) reading the Blender scene at
+  `root` (trunks in `dtype`: None the gins' own float32, both MLPs'; both
+  under fused_trunk='on'), its train dataset, cameras on the card, the
+  cast, a fresh train state and the step."""
+  from refnerf_tpu_torch.cameras import camera_utils
+  from refnerf_tpu_torch.data import datasets
+  from refnerf_tpu_torch.train import step as step_lib
+  more = [f"PropMLP.compute_dtype = '{dtype}'"] if dtype else []
+  model, config = flagship(dev, [f"Config.data_dir = '{root}'", *CASCADE,
+                                 *CASCADE_ON, *more, *bindings],
+                           FLAGSHIP, dtype)
+  ds = datasets.load_dataset('train', root, config)
+  cast = lambda cams, pix: camera_utils.cast_ray_batch(cams, pix, ds.camtype)
+  return dict(model=model, config=config, ds=ds, cast=cast,
+              cameras=ds.device_cameras(dev),
+              state=step_lib.create_train_state(config, model),
+              train_step=step_lib.make_train_step(model, config, cast))
+
+
+def cascade_train(fused_mlp, run, per_step, what, steps=CASCADE_STEPS,
+                  warmup=TRAIN_WARMUP):
+  """Phase 19: warm-up and timed steps from prefetched batches (rays cast
+  in the step, every draw from the step's generators); each kernel must
+  run steps x its `per_step` count, every loss term be finite. Returns
+  (launches, seconds a step, the library of every launch, the last stats,
+  one more batch)."""
+  from refnerf_tpu_torch.data import prefetch
+  model, step_fn, cams = run['model'], run['train_step'], run['cameras']
+  batches = prefetch.training_batches(run['ds'],
+                                      device=next(model.parameters()).device)
+  seen, restore = _routes(fused_mlp)
+  try:
+    for _ in range(warmup):
+      run['state'], _ = step_fn(run['state'], next(batches), cams)
+    torch.cuda.synchronize()
+    for k in fused_mlp.launches:
+      fused_mlp.launches[k] = 0
+    t0 = time.perf_counter()
+    all_stats = []
+    for _ in range(steps):
+      run['state'], stats = step_fn(run['state'], next(batches), cams)
+      all_stats.append(stats)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = dict(fused_mlp.launches)
+    batch = next(batches)
+  finally:
+    restore()
+    batches.close()
+  want = {k: steps * per_step.get(k, 0) for k in launches}
+  if launches != want:
+    raise AssertionError(f'phase 19: {what} launches {launches}, expected '
+                         f'{want}')
+  for stats in all_stats:
+    terms = stats['losses']
+    if not all(torch.isfinite(v).all() for v in terms.values()):
+      raise AssertionError(f'phase 19: a loss term is not finite: {terms}')
+    if not {'data', 'interlevel', 'distortion'} <= set(terms):
+      raise AssertionError(f'phase 19: the terms are {sorted(terms)}')
+  last = all_stats[-1]
+  batch_size = run['config'].batch_size
+  log(f'phase 19: {what}: {steps} steps after {warmup} warm-up: '
+      f'{dt * 1e3:.2f} ms/step, {batch_size / dt:.0f} train rays/s; loss '
+      f'{last["loss"].item():.6g} (' + ', '.join(
+          f'{k} {v.item():.6g}' for k, v in last['losses'].items()) +
+      f'), psnr {last["psnr"].item():.3f}; launches {launches}; libraries '
+      f'{json.dumps({k: sorted(v) for k, v in seen.items()})}')
+  return launches, dt, seen, last, batch
+
+
+def cascade_against_plain(fused_mlp, run, batch, what):
+  """Phase 19: one step's loss, gradient norm and each loss term through the
+  kernels against fused_trunk='off', from the same state and so with the
+  same draws (seeded from (seed, step)): the loss within TRAIN_LOSS_BOUND
+  relative, the gradient norm within TRAIN_GNORM_BOUND, each term within
+  TRAIN_LOSS_BOUND of the loss. Returns a summary."""
+  from refnerf_tpu_torch.train import step as step_lib
+  model, state, step_fn = run['model'], run['state'], run['train_step']
+
+  def arm(mode):
+    set_mode(model, fused_trunk=mode)
+    before = dict(fused_mlp.launches)
+    loss, stats, grads = step_fn.loss_and_grads(state, batch, run['cameras'])
+    norm = step_lib.global_norm(grads.values()).item()
+    del grads
+    if mode == 'off' and fused_mlp.launches != before:
+      raise AssertionError("phase 19: fused_trunk='off' launched a kernel")
+    return loss.item(), norm, {k: v.item() for k, v in
+                               stats['losses'].items()}
+  try:
+    (lk, nk, tk), (lp, np_, tp) = arm('on'), arm('off')
+  finally:
+    set_mode(model, fused_trunk='on')
+  dl, dn = abs(lk - lp) / abs(lp), abs(nk - np_) / np_
+  dt = {k: abs(tk[k] - tp[k]) / abs(lp) for k in tp}
+  log(f"phase 19: {what}: step {state.step} kernels vs fused_trunk='off' "
+      f'(the same draws): loss {lk:.6g} vs {lp:.6g} (rel {dl:.2e}, bound '
+      f'{TRAIN_LOSS_BOUND}), grad norm {nk:.6g} vs {np_:.6g} (rel {dn:.2e}, '
+      f'bound {TRAIN_GNORM_BOUND}); each term, |diff| / loss: ' + ', '.join(
+          f'{k} {tk[k]:.6g} vs {tp[k]:.6g} ({v:.2e})' for k, v in dt.items()))
+  if not (dl <= TRAIN_LOSS_BOUND and dn <= TRAIN_GNORM_BOUND and
+          all(v <= TRAIN_LOSS_BOUND for v in dt.values())):
+    raise AssertionError(f'phase 19: {what}: the kernel step disagrees with '
+                         'the plain one')
+  return dict(loss_rel=dl, gnorm_rel=dn, terms_rel=dt)
+
+
+def cascade_request(fused_mlp, dev, run, what):
+  """Phase 19: a 4096-ray request (eval: no draws) through the kernels,
+  timed, its launches counted (K1 at each level, the PropMLP's also under
+  'K1 wide' in f32, K2 at the NeRF level), against fused_trunk='off' (rgb
+  and acc within PATH_BOUND). Returns (ms, launches)."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  model, config = run['model'], run['config']
+  rays = random_rays(rays_lib, 4096, config, 19, dev)
+  n, chunk = rays.shape[0], config.render_chunk_size
+  renderer.render_rays(model, rays, chunk)  # warm-up
+  torch.cuda.synchronize()
+  for k in fused_mlp.launches:
+    fused_mlp.launches[k] = 0
+  t0 = time.perf_counter()
+  out = renderer.render_rays(model, rays, chunk)
+  torch.cuda.synchronize()
+  ms = (time.perf_counter() - t0) * 1e3
+  launches = {k: v for k, v in fused_mlp.launches.items() if v}
+  ranges = check_rendering(out, (n,), config, model.nerf_mlp.cfg.rgb_padding)
+  chunks = -(-n // chunk)
+  if (launches.get('K1') != 3 * chunks or launches.get('K2') != chunks or
+      any(launches.get(k) for k in ('K3', 'K4', 'K5'))):
+    raise AssertionError(f'phase 19: {what} request launches {launches}')
+  set_mode(model, fused_trunk='off')
+  try:
+    plain = renderer.render_rays(model, rays, chunk)
+  finally:
+    set_mode(model, fused_trunk='on')
+  diff = (plain['rgb'] - out['rgb']).abs().max().item()
+  acc_diff = (plain['acc'] - out['acc']).abs().max().item()
+  log(f'phase 19: {what}: a {n}-ray request {ms:.1f} ms, {ranges}, '
+      f"launches {launches}; vs fused_trunk='off': max |rgb| diff "
+      f'{diff:.3e}, max |acc| diff {acc_diff:.3e} (bound {PATH_BOUND})')
+  if not (diff <= PATH_BOUND and acc_diff <= PATH_BOUND):
+    raise AssertionError(f'phase 19: {what}: the request disagrees with the '
+                         'plain path')
+  return ms, launches
+
+
+def cascade_resume(dev, scene, root):
+  """Phase 19 (d): NeRFSystem trains the configuration (f32, 'auto',
+  Config.randomized, with the noise and a random background) for
+  CASCADE_RESUME steps, and again killed at half and resumed: every
+  parameter and Adam moment equal under torch.equal (the draws come from
+  (seed, step, stream); no generator state rides the checkpoint)."""
+  from refnerf_tpu_torch import configs
+  from refnerf_tpu_torch import system
+
+  def trained(exp, more=()):
+    gin_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'configs', FLAGSHIP)
+    config, gin = configs.parse([gin_file], [
+        f'Config.seed = {SEED}', f"Config.data_dir = '{scene}'", *CASCADE,
+        *CASCADE_NOISE, f"Config.checkpoint_dir = '{root}'",
+        f"Config.exp_name = '{exp}'", f'Config.max_steps = {CASCADE_RESUME}',
+        f'Config.checkpoint_every = {CASCADE_RESUME // 2}',
+        'Config.val_sample_num = 1', 'Config.eval_dataset_limit = 1', *more])
+    psys = system.NeRFSystem(config, gin, device=dev)
+    psys.train()
+    return psys
+
+  t0 = time.perf_counter()
+  whole = trained('whole')
+  cut = trained('cut', [f'Config.early_exit_steps = {CASCADE_RESUME // 2}'])
+  if (whole.state.step, cut.state.step) != (CASCADE_RESUME,
+                                            CASCADE_RESUME // 2):
+    raise AssertionError('phase 19: the runs stopped at steps '
+                         f'{whole.state.step}, {cut.state.step}')
+  resumed = trained('cut')
+  same = resumed.state.step == CASCADE_RESUME and all(
+      torch.equal(resumed.model.state_dict()[k], v)
+      for k, v in whole.model.state_dict().items()) and all(
+          torch.equal(getattr(resumed.state.opt, w)[k], v)
+          for w in ('mu', 'nu')
+          for k, v in getattr(whole.state.opt, w).items())
+  log(f'phase 19: killed at step {CASCADE_RESUME // 2} and resumed to '
+      f'{CASCADE_RESUME} (randomized, noise, random backgrounds) == the '
+      f'uninterrupted run under torch.equal: {same} '
+      f'({time.perf_counter() - t0:.1f} s for the three runs)')
+  if not same:
+    raise AssertionError('phase 19: the resumed run differs')
+
+
+def check_draws(dev):
+  """Phase 19 (d): the step's draws on the card depend on (seed, step,
+  stream) alone: the same key draws the same tensors, the next step other
+  ones."""
+  from refnerf_tpu_torch.train import sampling
+
+  def seq(step):
+    d = sampling.Draws(SEED, step, sampling.FWD_STREAM, dev)
+    return [d.jitter((TRAIN_BATCH,), 64, True), d.mlp().normal((4096, 32)),
+            d.background((TRAIN_BATCH, 3), 0.0, 1.0)]
+  a, b, c = seq(7), seq(7), seq(8)
+  same = all(torch.equal(x, y) for x, y in zip(a, b))
+  other = not any(torch.equal(x, y) for x, y in zip(a, c))
+  log(f'phase 19: draws on {a[0].device}: step 7 twice bit-identical {same}, '
+      f'step 8 different {other}')
+  if not (same and other and a[0].is_cuda):
+    raise AssertionError('phase 19: the draws do not depend on (seed, step) '
+                         'alone')
+
+
+def cascade_stage(fused_mlp, dev):
+  """Phase 19 (b)-(d): the flagship over mip-NeRF 360's proposal cascade
+  from a Blender sphere scene. (b) float32 (the gins' own) under 'on' at
+  the gin's batch of 1024; (c) bf16 with all six fuse flags at batch 4096;
+  (d) the draws, a kill and resume, and (c) with the noise and a random
+  background. Returns ((b)'s launches, (c)'s, a summary)."""
+  import tempfile
+  from refnerf_tpu_torch.models import mlp as mlp_lib
+  from refnerf_tpu_torch.tools import sphere_scene
+  root = tempfile.mkdtemp(prefix='refnerf_cascade_')
+  out = {}
+  try:
+    t0 = time.perf_counter()
+    scene = sphere_scene.make_scene(os.path.join(root, 'scene'),
+                                    CASCADE_TRAIN, CASCADE_TEST, CASCADE_RES)
+    out['scene_write_s'] = time.perf_counter() - t0
+
+    # (b) float32, the gin's batch.
+    run = cascade_setup(dev, scene)
+    model, config = run['model'], run['config']
+    prop = model.prop_mlp
+    if (config.batch_size != CASCADE_BATCH or prop is None or
+        model.cfg.num_levels != 3 or prop.cfg.compute_dtype != 'float32' or
+        not config.randomized or sum(
+            p.numel() for p in prop.parameters()) != 504 * 256 + 3 * 256 *
+        256 + 4 * 256 + 257):
+      raise AssertionError('phase 19: the configuration is not as bound')
+    log(f'phase 19: scene of {CASCADE_TRAIN} + {CASCADE_TEST} views at '
+        f'{CASCADE_RES} x {CASCADE_RES} written in {out["scene_write_s"]:.1f}'
+        f' s; {FLAGSHIP} over the proposal cascade: 3 levels x 64, 64, 32 '
+        f'samples, PropMLP 4 x 256 on 504 columns, batch '
+        f'{config.batch_size}, f32 trunks, randomized')
+    launches, step_s, seen, _, batch = cascade_train(
+        fused_mlp, run, CASCADE_PER_STEP, 'f32, on')
+    if seen != {'forward': {'trunk_fwd_f32'}, 'backward': {'trunk_bwd_f32'}}:
+      raise AssertionError(f'phase 19: the f32 trunks routed to {seen}')
+    out['f32'] = dict(step_ms=step_s * 1e3, rays_s=config.batch_size / step_s)
+    out['f32']['vs_plain'] = cascade_against_plain(fused_mlp, run, batch,
+                                                   'f32')
+    box = {'state': run['state']}
+
+    def step():
+      box['state'], _ = run['train_step'](box['state'], batch,
+                                          run['cameras'])
+    prof = profile(step, 'cascade f32 train step', 2, phase=19)
+    new_kernels(prof, 19, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel'))
+    out['f32']['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
+    out['f32']['request_ms'], out['f32']['request_launches'] = (
+        cascade_request(fused_mlp, dev, run, 'f32'))
+    del run, model, prop, box, batch
+    torch.cuda.empty_cache()
+
+    # (c) bf16, all six fuse flags, batch 4096.
+    run = cascade_setup(dev, scene, 'bfloat16', [
+        *FUSE, *SPATIAL, f'Config.batch_size = {TRAIN_BATCH}'])
+    launches_b, step_s, seen, _, batch = cascade_train(
+        fused_mlp, run, CASCADE_SIX_PER_STEP, 'bf16, six fuse flags, on')
+    if seen != {'forward': {'trunk_fwd', 'trunk_fwd_tma'},
+                'backward': {'trunk_bwd', 'trunk_bwd_tma'}}:
+      raise AssertionError(f'phase 19: the bf16 trunks routed to {seen}')
+    out['bf16'] = dict(step_ms=step_s * 1e3, rays_s=TRAIN_BATCH / step_s)
+    out['bf16']['vs_plain'] = cascade_against_plain(fused_mlp, run, batch,
+                                                    'bf16 six flags')
+    out['bf16']['request_ms'], _ = cascade_request(fused_mlp, dev, run,
+                                                   'bf16 six flags')
+    del run, batch
+    torch.cuda.empty_cache()
+
+    # (d) the draws, a kill and resume, and (c) with the noise.
+    check_draws(dev)
+    cascade_resume(dev, scene, os.path.join(root, 'exp'))
+    mlp_lib._FALLBACK_WARNED.clear()
+    run = cascade_setup(dev, scene, 'bfloat16', [
+        *FUSE, *SPATIAL, *CASCADE_NOISE, f'Config.batch_size = {TRAIN_BATCH}'])
+    noisy = dict(CASCADE_SIX_PER_STEP, K6=0)
+    noisy_launches, noisy_s, _, last, _ = cascade_train(
+        fused_mlp, run, noisy, 'bf16, six flags, density and bottleneck '
+        'noise, random backgrounds', steps=3, warmup=0)
+    k6_off = [w for w in mlp_lib._FALLBACK_WARNED
+              if w[0] == 'fuse_compositing inactive' and
+              'density_noise == 0' in w[1]]
+    log(f'phase 19: with the noise, K6 logged inactive: {k6_off}')
+    if len(k6_off) != 1 or not torch.isfinite(last['loss']):
+      raise AssertionError('phase 19: the noisy arm did not keep K6 off or '
+                           'is not finite')
+    out['noisy'] = dict(step_ms=noisy_s * 1e3, launches=noisy_launches)
+    del run
+    torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  return launches, launches_b, out
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -2651,6 +3089,8 @@ def main():
   data_path, data = data_stage(fused_mlp, dev)
   cli_path, cli = cli_stage(fused_mlp, dev)
   geo_path, geo_bf16_path, geo = geometry_stage(fused_mlp, dev)
+  kernels.update(check_prop_kernels(fused_mlp, dev))
+  cascade_path, cascade_bf16_path, cascade = cascade_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -2793,6 +3233,31 @@ def main():
                               for k in keys}}
                        for c in more_cases[which]}
     line.append(entry)
+  # Phase 19's: the f32 wide-input instances (the PropMLP over 504 IPE
+  # columns), launched by (b)'s f32 steps; the bf16 proposal trunk's times
+  # (trunk_fwd.cu / trunk_bwd.cu) and the depth-8 trunk's beside them.
+  for which, desc, src, at, prop in (
+      ('K1 wide', 'spatial trunk forward on 504 input columns, the density '
+       'head alone (the PropMLP)', f32fwd_src, 612, 'prop K1'),
+      ('K4 wide', 'spatial trunk backward on 504 input columns, the density '
+       'head alone (the PropMLP)', f32_src, 668, 'prop K4')):
+    f32, b16 = kernels[which, 'float32'], kernels[prop, 'bfloat16']
+    d8 = kernels[which + ' depth 8', 'float32']
+    line.append({
+        'name': f'{which} {desc}', 'route': 'cuda', 'source': src,
+        'replaces': f'{pallas}:{at}', 'launches': cascade_path[which],
+        'max_abs_err': f32['max_abs_err'], 'ms': f32['ms'],
+        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_ms'],
+        'bound_by': f32['bound_by'], 'library_ms': None, 'dtype': 'float32',
+        'n_samples': N_SAMPLES, 'case': 'depth 4',
+        'depth8': {k: d8[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                      'max_abs_err')},
+        'bf16_source': fwd_src if which == 'K1 wide' else bwd_src,
+        'bf16_ms': b16['ms'], 'bf16_plain_ms': b16['plain_ms'],
+        'bf16_bound_ms': b16['bound_ms'],
+        'bf16_max_abs_err': b16['max_abs_err'],
+        'bf16_train_launches': cascade_bf16_path[which[:2]] - (
+            1 if which == 'K4 wide' else 0) * CASCADE_STEPS})
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '
@@ -2810,7 +3275,8 @@ def main():
       f'train rays/s, device busy {mip_f32_prof["busy_ms"]:.2f} ms a step, '
       f'4096-ray requests {json.dumps(mip_f32_request)}; phase 16 (from '
       f'disk): {json.dumps(data)}; phase 17 (the CLIs): {json.dumps(cli)}; '
-      f'phase 18 (the LLFF geometry gins): {json.dumps(geo)}')
+      f'phase 18 (the LLFF geometry gins): {json.dumps(geo)}; phase 19 (the '
+      f'proposal cascade): {json.dumps(cascade)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -162,16 +162,254 @@ __device__ void store_in(float* g, const float* t, int kin) {
   }
 }
 
+// The wide-input instance (WIDE): the first-order backward of the spatial
+// trunk at width 256 on more than 256 input columns (up to kWideKin), with
+// the density head and f32 heads alone (no compute-dtype head, cotangent of
+// u, fused stage, y or dx): mip-NeRF 360's proposal MLP. As the body below
+// (steps 1-6 without their modes), but the recompute streams layer 0's
+// input share, and the skip layer's, through a k-major [kChunk][kLD] tile
+// (`fwd_f32_wide`), and writes each chunk of layer 0's input to the x
+// scratch for the weight-gradient product.
+__device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& m,
+                                             unsigned char* smem) {
+  constexpr int W = kW;
+  const int kin = p.kin;
+  float* ringp = reinterpret_cast<float*>(smem);               // stages x [16][256]
+  float* act = ringp + m.stages * (kSD * W);                   // [256][kLD]: h, zeta
+  float* chunk = act + W * kLD;                                // [kChunk][kLD]: input columns
+  uint2* masks = reinterpret_cast<uint2*>(chunk + kChunk * kLD);  // [depth][256]
+  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [2][W]
+  float* sb = red + 2 * kW;                                    // [kRows]
+  float* hb = sb + kRows;                                      // [kRows][hf]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(hb + kRows * p.hf) + 7) & ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring{smem_u32(ringp), smem_u32(bars), smem_u32(bars + m.stages), m.stages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < m.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {  // the producer: the recompute, then the reverse
+    if (lane == 0) {
+      auto load = [&](const CUtensorMap* map, int K) {
+        for (int k = 0; k < K; k += kSD) {
+          mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
+          mbar_expect_tx(ring.full + 8 * ring.stage, kSliceF);
+          tma_load(ring.base + ring.stage * kSliceF, map, ring.full + 8 * ring.stage, 0, k);
+          ring.advance();
+        }
+      };
+      for (int l = 0; l < p.depth; ++l) load(&m.wt[l], k_dim<W>(p, l));
+      for (int l = p.depth - 1; l > 0; --l) load(&m.w[l], W);
+    }
+    return;
+  }
+
+  PHASE_START;
+  const int wm = warp >> 2;
+  const int rb = 32 * wm + 4 * (lane >> 3);
+  const int cb = 64 * (warp & 3) + 4 * (lane & 7);
+  const int row0 = blockIdx.x * kRows;
+  const size_t rp = static_cast<size_t>(p.rp);
+  const float* bias = static_cast<const float*>(p.b);
+  float* vec = p.vec + static_cast<size_t>(blockIdx.x) * p.nvec;
+  const int o_dwd = p.depth * W;
+  const int o_dwh = o_dwd + (p.wd != nullptr ? W : 0);
+  const int o_dbh = o_dwh + p.hf * W;
+  auto rows_at = [&](void* region, int l) {
+    return static_cast<float*>(region) + (l * rp + row0) * W;
+  };
+  float* xs = static_cast<float*>(p.xs) + row0 * static_cast<size_t>(kin);
+  float acc[8][8];
+  float cs[8];
+
+  // 1. The cotangents.
+  for (int r = tid; r < kRows; r += kCons)
+    sb[r] = (p.sbar != nullptr && row0 + r < p.n) ? p.sbar[row0 + r] : 0.f;
+  for (int i = tid; i < kRows * p.hf; i += kCons)
+    hb[i] = (p.hbar != nullptr && row0 + i / p.hf < p.n)
+                ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
+  PHASE_MARK(0, kScal);
+
+  // acc += the input share, chunk by chunk; at layer 0 each chunk also goes
+  // to the x scratch, four columns a store.
+  auto input_share = [&](bool keep) {
+    for (int c0 = 0; c0 < kin; c0 += kChunk) {
+      const int kc = min(kChunk, kin - c0);
+      cons_sync();  // every consumer is done with the last chunk
+      load_input_cols(chunk, static_cast<const float*>(p.x0), p.d0,
+                      static_cast<const float*>(p.x1), p.d1, c0, kc, row0, p.n);
+      cons_sync();
+      PHASE_MARK(0, kScal);
+      if (keep) {
+        const int q4 = kc / 4;
+        for (int i = tid; i < kRows * q4; i += kCons) {
+          const int r = i / q4, c = 4 * (i % q4);
+          *reinterpret_cast<float4*>(xs + static_cast<size_t>(r) * kin + c0 + c) =
+              make_float4(chunk[c * kLD + r], chunk[(c + 1) * kLD + r],
+                          chunk[(c + 2) * kLD + r], chunk[(c + 3) * kLD + r]);
+        }
+        PHASE_MARK(0, kStore);
+      }
+      product_add(acc, chunk, kc, ring, ringp, rb, cb);
+      PHASE_MARK(1, kProd);
+    }
+  };
+
+  // 2. Recompute: h_l = relu(acc + b_l) to the tile and the scratch, relu'
+  // masks as bits in the block's order. acc keeps y after the last layer.
+  for (int l = 0; l < p.depth; ++l) {
+    if (l == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    } else {
+      product<W>(acc, act, W, act, W, ring, ringp, rb, cb);
+      PHASE_MARK(1, kProd);
+    }
+    if (l == 0 || l == p.skip) input_share(l == 0);
+    cons_sync();
+    uint2 mk = make_uint2(0u, 0u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float b = __ldg(bias + l * W + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][j] = fmaxf(acc[i][j] + b, 0.f);
+        const uint32_t bit = (acc[i][j] > 0.f ? 1u : 0u) << ((8 * i + j) & 31);
+        if (i < 4) mk.x |= bit; else mk.y |= bit;
+      }
+    }
+    masks[l * kCons + tid] = mk;
+    put_tile<kLD>(act, acc, rb, cb);
+    cons_sync();
+    PHASE_MARK(1, kScal);
+    put_rows<W>(rows_at(p.hs, l), acc, rb, cb);
+    PHASE_MARK(1, kStore);
+  }
+
+  // 3. The head gradients that read y (acc): dwd, dwh by the column sums;
+  // dbh.
+  if (p.wd != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cs[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cs[j] = fmaf(sb[rb + row_of(i)], acc[i][j], cs[j]);
+    }
+    col_sums<W>(cs, red, vec + o_dwd, false, wm, cb);
+  }
+  for (int h = 0; h < p.hf; ++h) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cs[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cs[j] = fmaf(hb[(rb + row_of(i)) * p.hf + h], acc[i][j], cs[j]);
+    }
+    col_sums<W>(cs, red, vec + o_dwh + h * W, false, wm, cb);
+  }
+  if (tid < p.hf) {
+    float s = 0.f;
+    for (int r = 0; r < kRows; ++r) s += hb[r * p.hf + tid];
+    vec[o_dbh + tid] = s;
+  }
+  PHASE_MARK(2, kScal);
+
+  // 5. The head backward: g = sbar wd + hbar wh^T, in the body's order;
+  // zeta_{L-1} = relu'(h) g, and db_{L-1} its column sums.
+  {
+    float g3[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) g3[i][j] = 0.f;
+    for (int h = 0; h < p.hf; ++h) {
+      float hv[8], wv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) hv[i] = hb[(rb + row_of(i)) * p.hf + h];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wv[j] = __ldg(p.wh + h * W + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) g3[i][j] = fmaf(hv[i], wv[j], g3[i][j]);
+    }
+    if (p.wd != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float wv = __ldg(p.wd + cb + col_of(j));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) g3[i][j] = sb[rb + row_of(i)] * wv + g3[i][j];
+      }
+    }
+    const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = bit_at(mk, 8 * i + j) ? g3[i][j] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    cs[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cs[j] += acc[i][j];
+  }
+  cons_sync();  // the head sums are done with the tile
+  put_tile<kLD>(act, acc, rb, cb);
+  PHASE_MARK(4, kScal);
+  put_rows<W>(rows_at(p.zs, p.depth - 1), acc, rb, cb);
+  PHASE_MARK(4, kStore);
+  col_sums<W>(cs, red, vec + (p.depth - 1) * W, false, wm, cb);
+  PHASE_MARK(4, kScal);
+
+  // 6. The first-order reverse: zeta_{l-1} = relu'(h_{l-1}) (zeta_l Wa_l),
+  // db_{l-1}.
+  for (int l = p.depth - 1; l > 0; --l) {
+    product<W>(acc, act, W, act, W, ring, ringp, rb, cb);
+    PHASE_MARK(5, kProd);
+    cons_sync();
+    const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      cs[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+        cs[j] += acc[i][j];
+      }
+    }
+    put_tile<kLD>(act, acc, rb, cb);
+    PHASE_MARK(5, kScal);
+    put_rows<W>(rows_at(p.zs, l - 1), acc, rb, cb);
+    PHASE_MARK(5, kStore);
+    col_sums<W>(cs, red, vec + (l - 1) * W, false, wm, cb);
+    PHASE_MARK(5, kScal);
+  }
+}
+
 // W: the trunk width, 256, or 128 for the plain directional trunk alone (HC
 // 0, no fused stage, no K11, no cotangent of u). A CTA holds R = 64 (256)
 // or 128 (128: two tiles) samples.
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
+// WIDE: the wide-input instance (`bwd_f32_wide`).
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_bwd_f32_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ MapsF32 m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K5 alone");
+  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA && !YO), "wide: the heads alone");
   constexpr int R = kRowsW<W>, LD = kLDW<W>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  if constexpr (WIDE) {
+    bwd_f32_wide(p, m, smem);
+    return;
+  }
   const int kin = p.kin;
   float* ringp = reinterpret_cast<float*>(smem);                // stages x [16][W]
   float* act = ringp + m.stages * (kSD * W);                    // [W][LD]: h, s, zeta, p
@@ -753,9 +991,24 @@ size_t f32_smem(const BwdParams& p, int* stages) {
   return rest + static_cast<size_t>(*stages) * kSliceFW<W>;
 }
 
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
+// Shared memory of a launch of the wide-input instance, and the ring's
+// stages that fit; fused_mlp.py `kernel_smem` mirrors this sum.
+size_t f32_wide_smem(const BwdParams& p, int* stages) {
+  const size_t rest = 1024 + 4 * static_cast<size_t>(kW + kChunk) * kLD +
+                      8 * static_cast<size_t>(p.depth) * kCons + 4 * 2 * kW +
+                      4 * static_cast<size_t>(kRows) * (1 + p.hf) + 8 + 16 * kMaxStages;
+  const size_t fit = rest < 232448 ? (232448 - rest) / kSliceF : 0;
+  *stages = fit < kMinStages ? 0 : static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  return rest + static_cast<size_t>(*stages) * kSliceF;
+}
+
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
 int launch_f32(const BwdParams& p, int hc, cudaStream_t stream) {
-  if (p.depth > kMaxDepth || p.kin > kW || hc != HC || p.rp % kRowsW<W> != 0)
+  if (p.depth > kMaxDepth || p.kin > (WIDE ? kWideKin : kW) || hc != HC ||
+      p.rp % kRowsW<W> != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The wide-input instance runs no dx and no cotangent of u.
+  if (WIDE && (p.dx0 != nullptr || p.ubar != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // K6's scratch ([kRows] + [8 warps][S] floats) and K8's f32 cotangents
   // must fit in the activation and input tiles, K7's staged inputs in red.
@@ -773,13 +1026,13 @@ int launch_f32(const BwdParams& p, int hc, cudaStream_t stream) {
   bool ok = make_layer_maps_f32<W>(m, p.w, p.wt, p.depth, p.kin, p.skip);
   if (HC > 0) ok = ok && make_map_f32(&m.wc, p.wct, kW, HC, kW, kW, kSD);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = f32_smem<W>(p, &m.stages);
+  const size_t smem = WIDE ? f32_wide_smem(p, &m.stages) : f32_smem<W>(p, &m.stages);
   if (m.stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W>
+  trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W, WIDE>
       <<<p.rp / kRowsW<W>, kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -928,6 +1181,10 @@ extern "C" int refnerf_trunk_bwd_f32(REFNERF_BWD_ARGS) {
   if (width == 128)
     return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr && p.ybar == nullptr
                ? launch_f32<0, false, false, false, 128>(p, hc, s)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (p.kin > kW)  // the wide-input instance: the heads alone, no dx
+    return hc == 0 && !dir && !spa && p.ybar == nullptr
+               ? launch_f32<0, false, false, false, kW, true>(p, hc, s)
                : static_cast<int>(cudaErrorInvalidValue);
   if (p.ybar != nullptr)
     return hc == 0 && !dir && !spa && p.ubar == nullptr

@@ -142,6 +142,69 @@ __device__ __forceinline__ void put_tile(float* t, const Block& v, int rb, int c
 // CTA an SM no other warps hide their latency.
 constexpr int kBatch = 8;
 
+// `product` without its zeroing, on one k-major tile: acc += A B over the
+// next K / kSD slices of the ring, A the tile a0. The wide-input instances
+// (trunk_fwd_f32.cu `fwd_f32_wide`, trunk_bwd_f32.cu `bwd_f32_wide`) sum a
+// layer's input share chunk by chunk with it. Consumer warps only.
+__device__ __forceinline__ void product_add(Block& acc, const float* a0, int K, Ring& r,
+                                            const float* ring, int rb, int cb) {
+  const int ns = K / kSD;
+  for (int s = 0; s < ns; ++s) {
+    const float* a = a0 + s * kSD * kLD + rb;
+    const float* b = ring + r.stage * (kSD * kW) + cb;
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+#pragma unroll
+    for (int kk = 0; kk < kSD; ++kk) {
+      const float4 a0v = *reinterpret_cast<const float4*>(a + kk * kLD);
+      const float4 a1v = *reinterpret_cast<const float4*>(a + kk * kLD + 16);
+      const float4 b0v = *reinterpret_cast<const float4*>(b + kk * kW);
+      const float4 b1v = *reinterpret_cast<const float4*>(b + kk * kW + 32);
+      const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
+      const float bv[8] = {b0v.x, b0v.y, b0v.z, b0v.w, b1v.x, b1v.y, b1v.z, b1v.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * r.stage);
+    r.advance();
+  }
+}
+
+// The wide-input instances stream the trunk input through a k-major tile of
+// kChunk columns (35 KB) instead of holding all kin columns (139 KB at 512).
+constexpr int kChunk = 128;
+constexpr int kWideKin = 1024;  // the widest input those instances take
+
+// Columns [c0, c0 + kc) of the trunk input [x0 (d0) | x1 (d1) | zeros to kin]
+// of the tile's rows into the k-major [kc][kLD] tile t, zero past row n;
+// neighbouring threads read neighbouring columns of a row, every load of a
+// batch in flight before its stores.
+__device__ void load_input_cols(float* t, const float* x0, int d0, const float* x1, int d1,
+                                int c0, int kc, int row0, int n) {
+  const int total = kRows * kc;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kCons) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, gr = row0 + i / kc, c = c0 + i % kc, c1 = c - d0;
+      v[u] = 0.f;
+      if (i < total && gr < n) {
+        if (c < d0)
+          v[u] = __ldg(x0 + static_cast<size_t>(gr) * d0 + c);
+        else if (c1 < d1)
+          v[u] = __ldg(x1 + static_cast<size_t>(gr) * d1 + c1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons;
+      if (i < total) t[(i % kc) * kLD + i / kc] = v[u];
+    }
+  }
+}
+
 // The trunk input tile of R rows (trunk_common.cuh `load_input`), k-major,
 // zero-padded to kin columns and past row n; the IDE block (DIR) at R = 64.
 template <bool DIR, int R = kRows>

@@ -239,16 +239,146 @@ __device__ __forceinline__ void fwd_f32_rows(const FwdParams& p, const MapsF32& 
   PHASE_MARK(2, kScal);
 }
 
+// The wide-input instance (WIDE): the spatial trunk at width 256 on more
+// than 256 input columns (up to kWideKin), with sigma and the f32 heads
+// alone (no compute-dtype head, K3 or fused stage): mip-NeRF 360's proposal
+// MLP, 504 IPE columns. The input tile does not fit beside the activation
+// tile and a ring (139 KB at 512 columns), so layer 0's input share, and
+// the skip layer's, stream through a k-major [kChunk][kLD] tile: load a
+// chunk of columns, sum its product into the block (`product_add`), next
+// chunk. The weights stream as in the body below, from the same schedule of
+// slices; the heads are its step 3.
+__device__ __forceinline__ void fwd_f32_wide(const FwdParams& p, const MapsF32& m,
+                                             unsigned char* smem) {
+  const int kin = p.kin;
+  float* ringp = reinterpret_cast<float*>(smem);  // stages x [16][256]
+  float* act = ringp + m.stages * (kSD * kW);     // [256][kLD]: h_l
+  float* chunk = act + kW * kLD;                  // [kChunk][kLD]: input columns
+  float* red = chunk + kChunk * kLD;              // [kHG][4][kRows]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(red + kRed) + 7) & ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring{smem_u32(ringp), smem_u32(bars), smem_u32(bars + m.stages), m.stages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < m.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {  // the producer warp: the layers' slices, in order
+    if (lane == 0)
+      for (int l = 0; l < p.depth; ++l)
+        for (int k = 0; k < k_dim(p, l); k += kSD) {
+          mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
+          mbar_expect_tx(ring.full + 8 * ring.stage, kSliceF);
+          tma_load(ring.base + ring.stage * kSliceF, &m.wt[l], ring.full + 8 * ring.stage, 0, k);
+          ring.advance();
+        }
+    return;
+  }
+
+  PHASE_START;
+  const int wn = warp & 3;
+  const int rb = 32 * (warp >> 2) + 4 * (lane >> 3);
+  const int cb = 64 * wn + 4 * (lane & 7);
+  const int row0 = blockIdx.x * kRows;
+  const float* bias = static_cast<const float*>(p.b);
+  const int nd = p.wd != nullptr ? 1 : 0, nh = nd + p.hf;
+  float acc[8][8];
+  // acc += the input share: the kin input rows of the layer's slices.
+  auto input_share = [&]() {
+    for (int c0 = 0; c0 < kin; c0 += kChunk) {
+      const int kc = min(kChunk, kin - c0);
+      cons_sync();  // every consumer is done with the last chunk
+      load_input_cols(chunk, static_cast<const float*>(p.x0), p.d0,
+                      static_cast<const float*>(p.x1), p.d1, c0, kc, row0, p.n);
+      cons_sync();
+      PHASE_MARK(0, kScal);
+      product_add(acc, chunk, kc, ring, ringp, rb, cb);
+      PHASE_MARK(1, kProd);
+    }
+  };
+
+  // The layers: h_l = relu(acc + b_l) to the activation tile, acc keeping y
+  // after the last.
+  for (int l = 0; l < p.depth; ++l) {
+    if (l == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    } else {
+      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+      PHASE_MARK(1, kProd);
+    }
+    if (l == 0 || l == p.skip) input_share();
+    cons_sync();  // every consumer's product has read the tiles
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float b = __ldg(bias + l * kW + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] = fmaxf(acc[i][j] + b, 0.f);
+    }
+    if (l + 1 < p.depth) put_tile(act, acc, rb, cb);
+    cons_sync();
+    PHASE_MARK(1, kScal);
+  }
+
+  // sigma = y wd and the f32 heads y wh^T + bh from the registers, as the
+  // body's step 3.
+  for (int g = 0; g < nh; g += kHG) {
+    const int ng = min(kHG, nh - g);
+    for (int h = 0; h < ng; ++h) {
+      const int hh = g + h;
+      const float* wv = hh < nd ? p.wd : p.wh + (hh - nd) * kW;
+      float wj[8], v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wj[j] = __ldg(wv + cb + col_of(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i] = fmaf(acc[i][j], wj[j], v[i]);
+      }
+      red[(h * 4 + wn) * kRows + rb + row_of(lane & 7)] = row_sums(v);
+    }
+    cons_sync();
+    if (tid < ng * kRows) {
+      const int h = tid / kRows, r = tid % kRows, hh = g + h, gr = row0 + r;
+      const float* rr = red + h * 4 * kRows + r;
+      const float s = ((rr[0] + rr[kRows]) + rr[2 * kRows]) + rr[3 * kRows];
+      if (gr < p.n) {
+        if (hh < nd)
+          p.sig[gr] = s;
+        else
+          p.hout[static_cast<size_t>(gr) * p.hf + hh - nd] = s + p.bh[hh - nd];
+      }
+    }
+    cons_sync();
+  }
+  PHASE_MARK(2, kScal);
+}
+
 // W: the trunk width, 256, or 128 for the plain directional trunk alone
 // (`fwd_f32_rows`; the rest of this body is width 256's).
-template <int HC, bool DIR, bool SPA, int W = kW>
+// WIDE: the wide-input instance (`fwd_f32_wide`).
+template <int HC, bool DIR, bool SPA, int W = kW, bool WIDE = false>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_fwd_f32_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ MapsF32 m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA), "width 128: the plain K2 alone");
+  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA), "wide: sigma and f32 heads");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   if constexpr (W != kW) {
     fwd_f32_rows<W>(p, m, smem);
+    return;
+  }
+  if constexpr (WIDE) {
+    fwd_f32_wide(p, m, smem);
     return;
   }
   const int kin = p.kin;
@@ -543,7 +673,19 @@ size_t fwd_f32_smem(const FwdParams& p, int* stages) {
   return rest + static_cast<size_t>(*stages) * kSliceFW<W>;
 }
 
-template <int HC, bool DIR, bool SPA, int W = kW>
+// Shared memory of a launch of the wide-input instance, and the ring's
+// stages that fit (0 when fewer than kMinStages do); fused_mlp.py
+// `kernel_smem` mirrors this sum.
+size_t fwd_f32_wide_smem(const FwdParams& p, int* stages) {
+  (void)p;
+  const size_t rest = 1024 + 4 * static_cast<size_t>(kW + kChunk) * kLD + 4 * kRed + 8 +
+                      16 * kMaxStages;
+  const size_t fit = rest < 232448 ? (232448 - rest) / kSliceF : 0;
+  *stages = fit < kMinStages ? 0 : static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  return rest + static_cast<size_t>(*stages) * kSliceF;
+}
+
+template <int HC, bool DIR, bool SPA, int W = kW, bool WIDE = false>
 int launch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   // K7's staged inputs must fit in red.
   if (SPA && p.ipe.lm != nullptr && 2 * kRows * p.ipe.nb > kRed)
@@ -553,14 +695,14 @@ int launch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   bool ok = make_layer_maps_f32<W>(m, p.w, p.wt, p.depth, p.kin, p.skip);
   if (HC > 0) ok = ok && make_map_f32(&m.wc, p.wc, HC, kW, HC, kW, kSD);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fwd_f32_smem<W>(p, &m.stages);
+  const size_t smem = WIDE ? fwd_f32_wide_smem(p, &m.stages) : fwd_f32_smem<W>(p, &m.stages);
   if (m.stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_f32_kernel<HC, DIR, SPA, W>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_f32_kernel<HC, DIR, SPA, W, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = W == kW ? (SPA ? p.tiles : 1) * kRows : kRowsW<W>;
-  trunk_fwd_f32_kernel<HC, DIR, SPA, W>
+  trunk_fwd_f32_kernel<HC, DIR, SPA, W, WIDE>
       <<<(p.n + rows - 1) / rows, kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -581,11 +723,15 @@ extern "C" int refnerf_trunk_fwd_f32(REFNERF_FWD_ARGS) {
   const int err = fwd_params(p, REFNERF_FWD_NAMES);
   if (err != 0) return err;
   if (dtype != 0 || (width != kW && width != 128) || depth < 1 || depth > kMaxDepth ||
-      kin > kW || hf > kMaxHeads || y != nullptr)
+      kin > kWideKin || hf > kMaxHeads || y != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
+  if (kin > kW)  // the wide-input instance: sigma and the f32 heads alone
+    return width == kW && hc == 0 && !dir && !spa && u == nullptr
+               ? launch_fwd_f32<0, false, false, kW, true>(p, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (width == 128)
     return hc == 0 && !dir && !spa && u == nullptr && wd == nullptr
                ? launch_fwd_f32<0, false, false, 128>(p, s)

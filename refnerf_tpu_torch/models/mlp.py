@@ -32,8 +32,11 @@ direction encoding, reflections, roughness, diffuse/specular/tint and n.v;
 without view directions (`Model.use_viewdirs = False`, passed in at build
 time as `use_viewdirs`) the spatial trunk also returns its features y (K11)
 and the rgb head runs on them, outside the trunk (mlp.py:295, :652-656).
-Not ported, and refused with NotImplementedError: density and bottleneck
-noise.
+In training, density, specular-density and bottleneck noise (mlp.py:436-445,
+:516-520) come from the forward's `draws` (train/sampling.py); a directional
+trunk of depth 0 sends the rgb head the concatenated inputs (mlp.py:498-499,
+:641-650). The weight inits are JAX's four (mlp.py:49-64). `warp_fn` is
+read and unused, as in JAX (mlp.py:143).
 """
 
 from __future__ import annotations
@@ -60,6 +63,16 @@ from refnerf_tpu_torch.utils import ginlite
 ACTIVATIONS = {'relu': torch.relu, 'softplus': F.softplus,
                'sigmoid': torch.sigmoid, 'elu': F.elu}
 
+# The weight inits (mlp.py:49-64): (kind, scale, fan), as JAX's
+# variance_scaling: uniform in +-sqrt(3 scale / fan), or a normal truncated
+# at two standard deviations of variance scale / fan.
+WEIGHT_INITS = {'torch_uniform': ('uniform', 1 / 3, 'fan_in'),
+                'he_uniform': ('uniform', 2.0, 'fan_in'),
+                'glorot_uniform': ('uniform', 1.0, 'fan_avg'),
+                'lecun_normal': ('truncated_normal', 1.0, 'fan_in')}
+# jax.nn.initializers' stddev of the unit normal truncated to [-2, 2].
+_TRUNC_STD = .87962566103423978
+
 # Once per process and (reason, detail): a fusion flag that is set but
 # cannot act (mlp.py:34-46).
 _FALLBACK_WARNED = set()
@@ -70,6 +83,12 @@ def _warn_fused_fallback(reason: str, detail: str):
     _FALLBACK_WARNED.add((reason, detail))
     logging.warning('fused_trunk: %s (%s); the plain chain runs instead.',
                     reason, detail)
+
+
+def _need_draws(name, draws):
+  """As JAX without an rng key (mlp.py:437-438, :517-518)."""
+  if draws is None:
+    raise ValueError(f'{name} > 0 requires draws (Config.randomized)')
 
 
 def trailing_concat(depth: int, skip: int) -> bool:
@@ -173,10 +192,8 @@ class MLP(nn.Module):
     super().__init__()
     self.cfg = c = MLPConfig(**kwargs)
     self.use_viewdirs = use_viewdirs
-    if c.warp_fn is not None:
-      raise NotImplementedError('warp_fn is not ported')
-    if c.weight_init != 'torch_uniform':
-      raise NotImplementedError(f'weight_init {c.weight_init!r} is not ported')
+    if c.weight_init not in WEIGHT_INITS:
+      raise ValueError(f'Unknown weight init {c.weight_init}')
     if c.use_reflections and not (c.enable_pred_normals or
                                   not c.disable_density_normals):
       raise ValueError('Normals must be computed for reflection directions.')
@@ -191,8 +208,6 @@ class MLP(nn.Module):
       # The reference hits an UnboundLocalError here (mlp.py:469-475).
       raise ValueError('use_diffuse_color requires view directions '
                        '(Model.use_viewdirs = True).')
-    if use_viewdirs and c.net_depth_viewdirs < 1:
-      raise NotImplementedError('a directional trunk of depth 0 is not ported')
     self.net_activation = activation(c.net_activation)
     self.density_activation = activation(c.density_activation)
     self.roughness_activation = activation(c.roughness_activation)
@@ -251,18 +266,32 @@ class MLP(nn.Module):
     for i in range(c.net_depth_viewdirs):
       d_in = dir_in if i == 0 else wv + (dir_in if i in skips else 0)
       self.add_module(f'viewdir_{i}', nn.Linear(d_in, wv))
+    # A trunk of depth 0 hands the rgb head its inputs (mlp.py:641-650).
+    rgb_in = wv if c.net_depth_viewdirs > 0 else dir_in
     self.rgb = nn.Linear(
-        wv + (dir_in if trailing_concat(c.net_depth_viewdirs, c.skip_layer)
-              else 0), c.num_rgb_channels)
+        rgb_in + (dir_in if trailing_concat(c.net_depth_viewdirs, c.skip_layer)
+                  else 0), c.num_rgb_channels)
 
   def reset_parameters(self, generator: torch.Generator):
-    """Initialise as the JAX MLP does with 'torch_uniform' (mlp.py:49-64):
-    kernels uniform in +-1/sqrt(fan_in), zero biases."""
+    """Initialise as the JAX MLP does (mlp.py:49-64): each kernel by
+    `weight_init` (WEIGHT_INITS), zero biases; the draws from `generator`,
+    layer by layer in the order they were built."""
+    kind, scale, fan = WEIGHT_INITS[self.cfg.weight_init]
     with torch.no_grad():
       for layer in self.children():
         if isinstance(layer, nn.Linear):
-          lim = 1 / math.sqrt(layer.in_features)
-          layer.weight.uniform_(-lim, lim, generator=generator)
+          n = (layer.in_features if fan == 'fan_in' else
+               (layer.in_features + layer.out_features) / 2)
+          if kind == 'uniform':
+            lim = math.sqrt(3 * scale / n)
+            layer.weight.uniform_(-lim, lim, generator=generator)
+          else:
+            # The unit normal truncated to [-2, 2] by its inverse CDF.
+            lo = 0.5 * (1 + math.erf(-2 / math.sqrt(2)))
+            u = torch.empty_like(layer.weight).uniform_(lo, 1 - lo,
+                                                        generator=generator)
+            z = torch.clamp(math.sqrt(2) * torch.erfinv(2 * u - 1), -2, 2)
+            layer.weight.copy_(z * (math.sqrt(scale / n) / _TRUNC_STD))
           layer.bias.zero_()
 
   def _stack(self, prefix, depth):
@@ -450,7 +479,9 @@ class MLP(nn.Module):
     c = self.cfg
     lead = means.shape[:-1]
     n = math.prod(lead)
-    fused_dir = self._fused(c.net_depth_viewdirs, means)
+    # A trunk of depth 0 runs no trunk: the rgb head reads its inputs.
+    fused_dir = c.net_depth_viewdirs > 0 and self._fused(c.net_depth_viewdirs,
+                                                         means)
     fuse_ide, fuse_geo, fuse_rgb = (self._dir_fusions() if fused_dir
                                     else (False, False, False))
     segs = []
@@ -516,7 +547,7 @@ class MLP(nn.Module):
 
   def forward(self, gaussians, viewdirs: Optional[torch.Tensor] = None,
               train: bool = False, delta: Optional[torch.Tensor] = None,
-              lifted=None):
+              lifted=None, draws=None):
     """Evaluate the MLP on sample Gaussians (means [..., s, 3], covs
     [..., s, 3, 3]) seen from viewdirs [..., 3].
 
@@ -525,7 +556,10 @@ class MLP(nn.Module):
     `fuse_compositing`, under JAX's gates (mlp.py:394-408), the results
     then hold the compositing weights. `lifted`: (lm, lv) [..., s, nb] from
     render.cast_rays_lifted (`fuse_lift`), in place of covs (may be None).
-    Returns a dict of per-sample results, as the JAX MLP does.
+    `draws`: the level's noise (`normal(shape)`, train/sampling.py), read in
+    training with density or bottleneck noise, in JAX's order (density,
+    specular density, bottleneck). Returns a dict of per-sample results, as
+    the JAX MLP does.
     """
     c = self.cfg
     means, covs = gaussians
@@ -533,10 +567,6 @@ class MLP(nn.Module):
         not c.disable_density_normals
         and (train or ((c.use_reflections or c.use_n_dot_v)
                        and not c.enable_pred_normals)))
-    if train and (c.density_noise > 0 or c.bottleneck_noise > 0):
-      raise NotImplementedError(
-          'density_noise / bottleneck_noise > 0 draw noise from an rng; '
-          'stochastic training is not ported (ROADMAP queue 1, item 7)')
     if not c.disable_rgb and (viewdirs is None) == self.use_viewdirs:
       raise ValueError(
           f'an MLP built with use_viewdirs={self.use_viewdirs} was called '
@@ -570,6 +600,15 @@ class MLP(nn.Module):
       y, raw_density, fh, normals = self._spatial(
           lm, lv, rgb_heads, compute_density_normals, delta, need_y)
 
+    raw_spec = (fh['specular_density'][..., 0]
+                if c.enable_pred_specular_density else None)
+    if c.density_noise > 0 and train:
+      _need_draws('density_noise', draws)
+      raw_density = raw_density + c.density_noise * draws.normal(
+          raw_density.shape)
+      if raw_spec is not None:
+        raw_spec = raw_spec + c.density_noise * draws.normal(raw_spec.shape)
+
     normals_pred = grad_pred = None
     normals_to_use = normals
     if c.enable_pred_normals:
@@ -593,6 +632,10 @@ class MLP(nn.Module):
         if c.enable_pred_roughness:
           roughness = self.roughness_activation(
               fh['roughness'] + c.roughness_bias)
+        if c.bottleneck_width > 0 and c.bottleneck_noise > 0 and train:
+          _need_draws('bottleneck_noise', draws)
+          b = fh['bottleneck']
+          fh['bottleneck'] = b + c.bottleneck_noise * draws.normal(b.shape)
         raw_rgb, fused_rgb = self._view_rgb(means, viewdirs, fh, grad_pred,
                                             normals_to_use, roughness)
         fuse_rgb = fused_rgb is not None
@@ -643,7 +686,7 @@ class MLP(nn.Module):
       out['specular'] = specular
       if c.enable_pred_specular_density:
         out['specular_density'] = self.density_activation(
-            fh['specular_density'][..., 0] + c.density_bias)
+            raw_spec + c.density_bias)
     if c.enable_pred_roughness:
       out['roughness'] = roughness
     return out

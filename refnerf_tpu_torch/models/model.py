@@ -1,10 +1,17 @@
 """The sampling cascade (counterpart of refnerf_tpu/models/model.py:56-268).
 
-Deterministic resampling. Each level resamples (not differentiated: sdist
-is detached, model.py:123-127), casts frustum Gaussians, runs the MLP and
+Each level dilates the last level's weights (`stepfun.max_dilate_weights`,
+model.py:86-103), resamples (not differentiated: sdist is detached,
+model.py:123-127) through the ray-distance warp, casts frustum Gaussians,
+runs its MLP (the PropMLP at the proposal levels, unless `single_mlp`) and
 composites. `train=True` asks the MLP for its training outputs
-(density-gradient normals); `compute_extras=True` adds the eval buffers
-(render.volumetric_rendering's extras) and each level's ray bundles.
+(density-gradient normals, noise); `compute_extras=True` adds the eval
+buffers (render.volumetric_rendering's extras) and each level's ray
+bundles. `draws` (train/sampling.py `Draws`, or a test's) gives the random
+tensors of a training forward: each level's jitter (stratified sampling),
+the MLP's noise and a random background from `bg_intensity_range`; without
+it the cascade is deterministic, as JAX's with `rng=None` and as eval runs
+it.
 
 The fused spatial stage (model.py:131-187): with `NerfMLP.fuse_lift` the
 Gaussians come lifted in closed form (`render.cast_rays_lifted`); with
@@ -41,7 +48,7 @@ class ModelConfig:
   raydist_fn: Optional[Any] = None
   ray_shape: str = 'cone'
   disable_integration: bool = False
-  single_jitter: bool = True  # stratified sampling only; not ported
+  single_jitter: bool = True  # one jitter a ray when stratified
   dilation_bias: float = 0.0025
   dilation_multiplier: float = 0.5
   resample_padding: float = 0.0
@@ -59,14 +66,7 @@ class Model(nn.Module):
 
   def __init__(self, nerf_mlp: MLP, prop_mlp: Optional[MLP] = None, **kwargs):
     super().__init__()
-    self.cfg = c = ModelConfig(**kwargs)
-    if c.num_levels > 1 and (c.dilation_bias > 0 or c.dilation_multiplier > 0):
-      raise NotImplementedError(
-          'weight dilation between levels (stepfun.max_dilate_weights) is '
-          'not ported; bind Model.dilation_bias = Model.dilation_multiplier '
-          '= 0')
-    if c.raydist_fn is not None:
-      raise NotImplementedError('only the identity raydist_fn is ported')
+    self.cfg = ModelConfig(**kwargs)
     self.nerf_mlp = nerf_mlp
     self.prop_mlp = prop_mlp  # None: one MLP serves every level
 
@@ -76,8 +76,9 @@ class Model(nn.Module):
     return self.prop_mlp if is_prop else self.nerf_mlp
 
   def forward(self, rays, train_frac: float = 1.0, train: bool = False,
-              compute_extras: bool = False):
-    """Render a bundle of rays through the cascade.
+              compute_extras: bool = False, draws=None):
+    """Render a bundle of rays through the cascade; `draws` as the module
+    says (None: deterministic).
 
     Returns (renderings, ray_history): per level, the rendering dict (rgb,
     diffuse, specular, distance, acc; with `compute_extras` also the
@@ -91,28 +92,42 @@ class Model(nn.Module):
     sdist = torch.cat([torch.full_like(rays.near, c.init_s_near),
                        torch.full_like(rays.far, c.init_s_far)], dim=-1)
     weights = torch.ones_like(rays.near)
+    prod_num_samples = 1
+    use_dilation = c.dilation_bias > 0 or c.dilation_multiplier > 0
     if c.anneal_slope > 0:
       # Schlick's bias function (arxiv 2010.09714).
       s = c.anneal_slope
       anneal = (s * train_frac) / ((s - 1) * train_frac + 1)
     else:
       anneal = 1.0
-    # Eval composites over the midpoint of the background range.
-    bg_rgbs = (c.bg_intensity_range[0] + c.bg_intensity_range[1]) / 2
+    lo, hi = c.bg_intensity_range
+    domain = (c.init_s_near, c.init_s_far)
 
     renderings, ray_history = [], []
     for i_level in range(c.num_levels):
       is_prop = i_level < c.num_levels - 1
       num_samples = c.num_prop_samples if is_prop else c.num_nerf_samples
+      # A multiple of the expected interval span plus a bias.
+      dilation = c.dilation_bias + c.dilation_multiplier * (
+          c.init_s_far - c.init_s_near) / prod_num_samples
+      prod_num_samples *= num_samples
+      if i_level > 0 and use_dilation:
+        # Only the resampling reads the dilated weights: not differentiated.
+        sdist, weights = stepfun.max_dilate_weights(
+            sdist, weights.detach(), dilation, domain=domain,
+            renormalize=True)
+        sdist, weights = sdist[..., 1:-1], weights[..., 1:-1]
       # weights**anneal in log space; zero-width intervals get -inf logits.
       logits = torch.where(
           sdist[..., 1:] > sdist[..., :-1],
           anneal * torch.log(weights + c.resample_padding),
           torch.full_like(weights, -float('inf')))
+      jitter = None
+      if draws is not None:
+        jitter = draws.jitter(sdist.shape[:-1], num_samples, c.single_jitter)
       # Sampling is not differentiated through (model.py:123-127).
       sdist = stepfun.sample_intervals(
-          sdist, logits, num_samples,
-          domain=(c.init_s_near, c.init_s_far)).detach()
+          sdist, logits, num_samples, domain=domain, jitter=jitter).detach()
       tdist = s_to_t(sdist)
 
       mlp = self._level_mlp(is_prop)
@@ -141,7 +156,8 @@ class Model(nn.Module):
           delta = (tdist[..., 1:] - tdist[..., :-1]) * torch.linalg.norm(
               rays.directions[..., None, :], dim=-1)
       ray_results = mlp((means, covs), rays.viewdirs if c.use_viewdirs
-                        else None, train=train, delta=delta, lifted=lifted)
+                        else None, train=train, delta=delta, lifted=lifted,
+                        draws=None if draws is None else draws.mlp())
 
       weights = ray_results.pop('weights', None)
       if weights is None:
@@ -155,6 +171,18 @@ class Model(nn.Module):
         ray_results['specular_weights'] = render.compute_alpha_weights(
             ray_results['specular_density'], tdist, rays.directions,
             opaque_background=c.opaque_background)[0]
+
+      # The background (model.py:200-214): random in training with draws
+      # (multinerf's regularizer against faking opacity with it), else the
+      # midpoint of its range. One colour a ray, as multinerf draws it: JAX
+      # draws (weights.shape[0], 3), the same for a flat batch, which a
+      # patch-shaped one [n, p, p] broadcasts to [n, p, n, 3] (ROADMAP F9).
+      if lo == hi:
+        bg_rgbs = lo
+      elif train and draws is not None:
+        bg_rgbs = draws.background(weights.shape[:-1] + (3,), lo, hi)
+      else:
+        bg_rgbs = (lo + hi) / 2
 
       rgb = ray_results['rgb']
       rendering = render.volumetric_rendering(

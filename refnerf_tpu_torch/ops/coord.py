@@ -1,7 +1,10 @@
 """Ray-distance warps, the basis lift and the positional encoding
 (counterpart of refnerf_tpu/ops/coord.py).
 
-Only the identity warp (`raydist_fn=None`, coord.py:67-93) is ported.
+Every ray-distance warp of JAX's `construct_ray_warps` (coord.py:53-93) is
+ported: the identity (None), 'piecewise', and reciprocal, log, exp, sqrt and
+square by name or by a callable's `__name__`. `contract`, `inv_contract`
+and `track_linearize` are not: no module of the JAX package calls them.
 """
 
 from __future__ import annotations
@@ -13,16 +16,39 @@ import torch
 from refnerf_tpu_torch.ops import mathx
 
 
+# The ray-distance curves by name, (forward, inverse) (coord.py:53-59).
+_RAYDIST_FNS = {
+    'reciprocal': (torch.reciprocal, torch.reciprocal),
+    'log': (torch.log, torch.exp),
+    'exp': (torch.exp, torch.log),
+    'sqrt': (torch.sqrt, torch.square),
+    'square': (torch.square, torch.sqrt),
+}
+
+
 def construct_ray_warps(fn, t_near, t_far):
   """Bijection between metric distance t and normalized distance s in [0,1].
 
-  Returns (t_to_s, s_to_t).
+  `fn` is None (the identity), 'piecewise' (identity below 1, 1/x above,
+  so that t_near may be 0), a name of `_RAYDIST_FNS`, or a callable whose
+  `__name__` is one (a gin reference such as `@jnp.reciprocal` arrives as
+  its last part). Returns (t_to_s, s_to_t).
   """
-  if fn is not None:
-    raise NotImplementedError(
-        f'raydist_fn {fn!r}: only the identity warp (None) is ported')
-  t_to_s = lambda t: (t - t_near) / (t_far - t_near)
-  s_to_t = lambda s: s * t_far + (1 - s) * t_near
+  if fn is None:
+    t_to_s = lambda t: (t - t_near) / (t_far - t_near)
+    s_to_t = lambda s: s * t_far + (1 - s) * t_near
+    return t_to_s, s_to_t
+  if fn == 'piecewise':
+    fn_fwd = lambda x: torch.where(x < 1, 0.5 * x, 1 - 0.5 / x)
+    fn_inv = lambda x: torch.where(x < 0.5, 2 * x, 0.5 / (1 - x))
+  else:
+    name = fn if isinstance(fn, str) else fn.__name__
+    if name not in _RAYDIST_FNS:
+      raise ValueError(f'Unknown raydist_fn {fn!r}')
+    fn_fwd, fn_inv = _RAYDIST_FNS[name]
+  s_near, s_far = fn_fwd(t_near), fn_fwd(t_far)
+  t_to_s = lambda t: (fn_fwd(t) - s_near) / (s_far - s_near)
+  s_to_t = lambda s: fn_inv(s * s_far + (1 - s) * s_near)
   return t_to_s, s_to_t
 
 

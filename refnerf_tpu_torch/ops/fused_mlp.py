@@ -99,6 +99,11 @@ _KSPLIT_TMA = 2048
 _TMA_DEPTH = 8
 _TMA_KIN = 256
 _TMA_HEADS = 16
+# The wide-input instances of trunk_fwd_f32.cu and trunk_bwd_f32.cu (f32,
+# width 256, the density head and f32 heads alone: `wide_input`) take past
+# _TMA_KIN up to this many input columns, streamed in chunks of _CHUNK.
+_WIDE_KIN = 1024
+_CHUNK = 128
 # Shared memory a CTA may use on an H100 (227 KB): a launch that needs more
 # is refused by its C entry (cudaErrorInvalidConfiguration).
 SMEM_LIMIT = 232448
@@ -110,9 +115,11 @@ SMEM_LIMIT = 232448
 # compositing weights, K7 the IPE. A launch of K2 or K5 with fused
 # directional stages likewise: K8 the IDE, K9 the direction geometry, K10
 # the colour epilogue. A launch of K1 or K4 with the trunk's features out
-# (y, and its cotangent back) also counts under K11.
+# (y, and its cotangent back) also counts under K11. A launch of K1 or K4 on
+# the wide-input instances (`wide_input`) also counts under 'K1 wide' or
+# 'K4 wide'.
 launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0, 'K6': 0, 'K7': 0,
-            'K8': 0, 'K9': 0, 'K10': 0, 'K11': 0}
+            'K8': 0, 'K9': 0, 'K10': 0, 'K11': 0, 'K1 wide': 0, 'K4 wide': 0}
 
 Head = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (weight [out, in], bias)
 
@@ -838,7 +845,8 @@ def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
     return (f'no trunk kernel instance for width {pack.width} and '
             f'compute-dtype head {hc} (built: width 256, head 0 or 128; '
             'width 128, head 0)')
-  for lib in (forward_library(pack, y, fold, sp), backward_library(pack)):
+  for lib in (forward_library(pack, y, fold, sp),
+              backward_library(pack, y, fold)):
     need = kernel_smem(lib, pack, hc, fold, sp)
     if need is not None and need > SMEM_LIMIT:
       return (f'{lib}.cu needs {need} B of shared memory a CTA for the '
@@ -887,6 +895,14 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     fit = (SMEM_LIMIT - rest) // stage if rest < SMEM_LIMIT else 0
     return rest + max(lo, min(fit, hi)) * stage
 
+  if lib in ('trunk_fwd_f32', 'trunk_bwd_f32') and kin > _TMA_KIN:
+    # The wide-input instances (`fwd_f32_wide_smem`, `f32_wide_smem`): the
+    # activation tile and an input chunk of _CHUNK columns, [.][68] f32.
+    tiles = 1024 + 4 * (W + _CHUNK) * (_TILE + 4) + 8 + 16 * 8
+    if lib == 'trunk_fwd_f32':
+      return ring(tiles + 4 * 4 * 4 * _TILE, 2, 8)
+    return ring(tiles + 8 * L * 256 + 4 * 2 * 256 + 4 * _TILE * (1 + hf), 4, 8)
+
   if lib == 'trunk_fwd':  # trunk_fwd.cu `launch`
     s = t * (_TILE * (W + pad) + _TILE * (kin + pad) +
              2 * max(W, hc) * (_KS + pad))
@@ -912,6 +928,21 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   return None
 
 
+def wide_input(pack: TrunkPack, y: bool = False, fold=None,
+               sp: SpaModes = SpaModes()) -> bool:
+  """Whether `pack` runs on the wide-input instances of trunk_fwd_f32.cu
+  and trunk_bwd_f32.cu: the f32 spatial trunk at width 256 within
+  `_TMA_DEPTH` layers on more than `_TMA_KIN` and at most `_WIDE_KIN` input
+  columns, with the density head and at most `_TMA_HEADS` f32 heads alone
+  (no compute-dtype head, density gradient, fused stage or y): a proposal
+  MLP on JAX's default encoding (504 IPE columns)."""
+  hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  return (pack.compute_dtype == 'float32' and pack.width == 256 and
+          pack.depth <= _TMA_DEPTH and _TMA_KIN < pack.kin <= _WIDE_KIN and
+          hf <= _TMA_HEADS and pack.wd is not None and pack.wc is None and
+          not y and fold is None and not (sp.scales or sp.samples))
+
+
 def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
                     sp: SpaModes = SpaModes()) -> str:
   """The library whose kernel runs the forward of `pack`, decided from its
@@ -920,10 +951,14 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   `_TMA_HEADS` f32 heads, 'trunk_fwd_tma' (bf16: wgmma fed by TMA; at width
   256 with K11's y too) or 'trunk_fwd_f32' (f32, without K11's y:
   register-blocked FMA products fed by TMA, where its shared memory holds
-  the trunk: K3 on at most 192 input columns); every other shape with an
-  instance 'trunk_fwd'. (Width 128 runs the plain directional trunk alone:
-  `missing_instance` refuses its other modes first.)"""
+  the trunk: K3 on at most 192 input columns); past `_TMA_KIN` input
+  columns the f32 spatial trunk of `wide_input` on 'trunk_fwd_f32' too;
+  every other shape with an instance 'trunk_fwd'. (Width 128 runs the plain
+  directional trunk alone: `missing_instance` refuses its other modes
+  first.)"""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  if wide_input(pack, out_y, fold, sp):
+    return 'trunk_fwd_f32'
   if (pack.width not in (256, 128) or pack.depth > _TMA_DEPTH or
       pack.kin > _TMA_KIN or hf > _TMA_HEADS or
       (out_y and (pack.width != 256 or pack.compute_dtype != 'bfloat16'))):
@@ -943,15 +978,19 @@ def tma_forward(pack: TrunkPack, out_y: bool = False) -> bool:
   return forward_library(pack, out_y) == 'trunk_fwd_tma'
 
 
-def backward_library(pack: TrunkPack) -> str:
+def backward_library(pack: TrunkPack, y: bool = False, fold=None) -> str:
   """The library whose kernels run the backward of `pack`, decided from its
   dtype and shape alone, before anything is built or launched: at width
   256 or 128 within `_TMA_DEPTH` layers and `_TMA_KIN` input columns,
   'trunk_bwd_tma' (bf16: wgmma fed by TMA; at width 128 on at least 128
   input columns, whose tile keeps the skip layer's zeta) or 'trunk_bwd_f32'
   (f32: register-blocked FMA products fed by TMA; at width 128 where its
-  shared memory holds the trunk: at most 192 input columns); every other
+  shared memory holds the trunk: at most 192 input columns); past
+  `_TMA_KIN` input columns the f32 spatial trunk of `wide_input` (without
+  y's cotangent `y` or u's, `fold`) on 'trunk_bwd_f32' too; every other
   shape with an instance (deeper, wider or narrower trunks) 'trunk_bwd'."""
+  if wide_input(pack, y, fold):
+    return 'trunk_bwd_f32'
   if (pack.width in (256, 128) and pack.depth <= _TMA_DEPTH and
       pack.kin <= _TMA_KIN):
     if pack.compute_dtype == 'bfloat16':
@@ -1303,7 +1342,7 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   # By dtype and shape (`backward_library`): trunk_bwd_tma.cu (bf16) and
   # trunk_bwd_f32.cu (f32) take the same arguments as trunk_bwd.cu, the
   # scratch sample-major; trunk_bwd_f32.cu reads the head untransposed.
-  route = backward_library(pack)
+  route = backward_library(pack, ybar is not None, fold)
   head = pack.wct
   if route == 'trunk_bwd':
     tile_fn, wgrad_fn = lib.refnerf_trunk_bwd, lib.refnerf_wgrad
@@ -1523,6 +1562,9 @@ def _unflatten(spec: _Spec, params):
 def _count(which, spec: _Spec):
   """One launch of kernel `which`, also counted under each fused mode."""
   launches[which] += 1
+  if which in ('K1', 'K4') and wide_input(spec.pack, spec.has[0], spec.fold,
+                                          spec.spa_modes):
+    launches[which + ' wide'] += 1
   dm, sp = spec.dir_modes, spec.spa_modes
   for k, on in (('K6', sp.samples), ('K7', sp.scales), ('K8', dm.ide_deg),
                 ('K9', dm.geo), ('K10', dm.rgbe), ('K11', spec.has[0])):

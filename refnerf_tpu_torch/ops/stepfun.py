@@ -1,12 +1,15 @@
-"""Step-function tools: the deterministic resampling of the cascade, the
+"""Step-function tools: the resampling of the cascade (deterministic, or
+stratified with jitter), the weight dilation between its levels, the
 weighted percentiles of the eval extras, `resample` (vis's ray panels), and
 the lookups and losses of the train step (`searchsorted`, `query`,
 `inner_outer`, `lossfun_outer`, `lossfun_distortion`,
 `interval_distortion`).
 
-Counterpart of refnerf_tpu/ops/stepfun.py:26-89, :110-237, where sampling
-is the deterministic linspace (`rng=None` there). Stratified sampling is not
-ported.
+Counterpart of refnerf_tpu/ops/stepfun.py. The draw and the map of the
+stratified samples are apart: `sample` and `sample_intervals` take the
+jitter offsets as a tensor (JAX draws them from its rng inside `sample`,
+stepfun.py:167-176), and `draw_jitter` makes them. Without offsets both are
+the deterministic linspace (JAX's `rng=None`), as eval runs them.
 """
 
 from __future__ import annotations
@@ -92,6 +95,45 @@ def interval_distortion(t0_lo, t0_hi, t1_lo, t1_hi):
   return torch.where(are_disjoint, d_disjoint, d_overlap)
 
 
+def weight_to_pdf(t, w, eps=_EPS**2):
+  """Turn weights summing to 1 into a PDF integrating to 1."""
+  return w / torch.clamp(t[..., 1:] - t[..., :-1], min=eps)
+
+
+def pdf_to_weight(t, p):
+  """Turn a PDF integrating to 1 into weights summing to 1."""
+  return p * (t[..., 1:] - t[..., :-1])
+
+
+def max_dilate(t, w, dilation, domain=(-np.inf, np.inf)):
+  """Dilate (max-pool) a non-negative step function by +-dilation: the
+  sorted endpoints of [t, t - dilation, t + dilation] clipped to `domain`,
+  each new bin taking the largest w whose dilated interval holds its left
+  endpoint. The comparison is [..., 3n + 1, n] (stepfun.py:90-101)."""
+  t0 = t[..., :-1] - dilation
+  t1 = t[..., 1:] + dilation
+  t_dilate = torch.sort(torch.cat([t, t0, t1], dim=-1), dim=-1).values
+  t_dilate = torch.clamp(t_dilate, *domain)
+  inside = ((t0[..., None, :] <= t_dilate[..., None])
+            & (t1[..., None, :] > t_dilate[..., None]))
+  w_dilate = torch.where(inside, w[..., None, :],
+                         torch.zeros_like(w[..., None, :])).amax(dim=-1)
+  return t_dilate, w_dilate[..., :-1]
+
+
+def max_dilate_weights(t, w, dilation, domain=(-np.inf, np.inf),
+                       renormalize=False, eps=_EPS**2):
+  """Dilate a weight vector through its PDF (stepfun.py:104-113); with
+  `renormalize` the result sums to 1 (its sum floored at eps)."""
+  p = weight_to_pdf(t, w)
+  t_dilate, p_dilate = max_dilate(t, p, dilation, domain=domain)
+  w_dilate = pdf_to_weight(t_dilate, p_dilate)
+  if renormalize:
+    w_dilate = w_dilate / torch.clamp(
+        torch.sum(w_dilate, dim=-1, keepdim=True), min=eps)
+  return t_dilate, w_dilate
+
+
 def integrate_weights(w):
   """CDF endpoints of weights assumed to sum to 1; starts at 0, ends at 1."""
   cw = torch.clamp(torch.cumsum(w[..., :-1], dim=-1), max=1)
@@ -106,23 +148,52 @@ def invert_cdf(u, t, w_logits):
   return mathx.sorted_interp(u, cw, t)
 
 
-def sample(t, w_logits, num_samples, deterministic_center=False):
-  """Deterministic-linspace samples of the step function (t, w_logits)."""
+def max_jitter(num_samples) -> float:
+  """The stratified samples' largest offset (stepfun.py:169-173): each
+  sample stays in its bin of the evenly spaced u; one sample jitters within
+  its whole bin."""
+  u_max = _EPS + (1 - _EPS) / num_samples
+  return (1 - u_max) / max(1, num_samples - 1) - _EPS
+
+
+def draw_jitter(generator, batch_shape, num_samples, single_jitter):
+  """Offsets uniform on [0, max_jitter): [..., 1] with `single_jitter` (one
+  a ray), else [..., num_samples], from `generator` on its device."""
+  d = 1 if single_jitter else num_samples
+  u = torch.rand(tuple(batch_shape) + (d,), generator=generator,
+                 device=generator.device)
+  return u * max_jitter(num_samples)
+
+
+def sample(t, w_logits, num_samples, deterministic_center=False,
+           jitter=None):
+  """Samples of the step function (t, w_logits). With `jitter` (offsets
+  [..., 1] or [..., num_samples] in [0, max_jitter), from `draw_jitter`),
+  stratified: the evenly spaced u of linspace(0, 1 - u_max) shifted by the
+  offsets; without, the deterministic linspace (`deterministic_center`:
+  the PDF intervals' centers)."""
   eps = _EPS
-  if deterministic_center:
-    pad = 1 / (2 * num_samples)
-    u = torch.linspace(pad, 1.0 - pad - eps, num_samples, device=t.device)
+  if jitter is not None:
+    u_max = eps + (1 - eps) / num_samples
+    u = torch.linspace(0, 1 - u_max, num_samples, device=t.device) + jitter
   else:
-    u = torch.linspace(0, 1.0 - eps, num_samples, device=t.device)
-  u = u.expand(t.shape[:-1] + (num_samples,))
+    if deterministic_center:
+      pad = 1 / (2 * num_samples)
+      u = torch.linspace(pad, 1.0 - pad - eps, num_samples, device=t.device)
+    else:
+      u = torch.linspace(0, 1.0 - eps, num_samples, device=t.device)
+    u = u.expand(t.shape[:-1] + (num_samples,))
   return invert_cdf(u, t, w_logits)
 
 
-def sample_intervals(t, w_logits, num_samples, domain=(-np.inf, np.inf)):
-  """num_samples + 1 fenceposts around the deterministic sample centers."""
+def sample_intervals(t, w_logits, num_samples, domain=(-np.inf, np.inf),
+                     jitter=None):
+  """num_samples + 1 fenceposts around the sample centers (deterministic,
+  or stratified by `jitter` as in `sample`)."""
   if num_samples <= 1:
     raise ValueError(f'num_samples must be > 1, is {num_samples}.')
-  centers = sample(t, w_logits, num_samples, deterministic_center=True)
+  centers = sample(t, w_logits, num_samples, deterministic_center=True,
+                   jitter=jitter)
   mid = (centers[..., 1:] + centers[..., :-1]) / 2
   minval, maxval = domain
   first = torch.clamp(2 * centers[..., :1] - mid[..., :1], min=minval)

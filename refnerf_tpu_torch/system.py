@@ -167,13 +167,24 @@ def _flatten_stats(stats, prefix=''):
   return out
 
 
+def _levels(bundle):
+  """A 'ray_' bundle (one tensor a level) as numpy: one array over the
+  levels, as JAX stacks it, or the list of levels where their sample
+  counts differ (64, 64, 32 in mip-NeRF 360's cascade), which JAX's
+  np.asarray refuses (ROADMAP F10)."""
+  levels = [np.asarray(level) for level in bundle]
+  if len({a.shape for a in levels}) == 1:
+    return np.asarray(levels)
+  return levels
+
+
 def _host_rendering(rendering):
   """render_image's dict as numpy: buffers in float64, and each 'ray_'
-  bundle as one array over levels."""
+  bundle by `_levels`."""
   out = {}
   for k, v in rendering.items():
     if k.startswith('ray_'):
-      out[k] = np.asarray([np.asarray(level) for level in v])
+      out[k] = _levels(v)
     else:
       out[k] = np.asarray(v, np.float64)
   return out
@@ -423,8 +434,8 @@ class NeRFSystem:
       render_time = done - max(eval_start, last_done[0])
       last_done[0] = done
       render_times.append(render_time)
-      ray_bundle = {k: np.asarray([np.asarray(level) for level in v])
-                    for k, v in rendering.items() if k.startswith('ray_')}
+      ray_bundle = {k: _levels(v) for k, v in rendering.items()
+                    if k.startswith('ray_')}
       rendering = {k: np.asarray(v, np.float64)
                    for k, v in rendering.items() if not k.startswith('ray_')}
       metric = metric_cc = None

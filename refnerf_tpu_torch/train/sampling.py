@@ -1,13 +1,23 @@
-"""Noisy-view rays for the consistency losses (counterpart of
-refnerf_tpu/train/sampling.py).
+"""The random draws of a train step, and the noisy-view rays of the
+consistency losses (counterpart of refnerf_tpu/train/sampling.py).
 
-The random draw and the deterministic map are separate here. The map,
+The random draws and the deterministic maps are separate here. The map,
 `sample_noisy_rays`, takes the [a, 3] Euler angles as an argument, so a test
 can hand it JAX's draw. The draw, `draw_noise_angles`, is uniform on
 [0, max_angle) from a torch.Generator seeded from (Config.seed, step): a run
 resumed at any step draws the same angles as the uninterrupted run (H4), and
 no generator state has to ride the checkpoint. Its stream differs from JAX's
 `fold_in` keys (H3).
+
+`Draws` holds the other random tensors of a step under `Config.randomized`
+(JAX's `rng_fwd` and `rng_noisy_fwd`, step.py:159-187): each level's
+sampling jitter, its density, specular-density and bottleneck noise, and
+its random background, taken in the model's order from one generator
+seeded from (Config.seed, step, stream). The main forward and the noisy
+forward take different streams. The model asks for them through three
+methods, `jitter`, `mlp` (whose `normal` gives the noise) and `background`,
+in the order of JAX's key splits (model.py:115-118, :151-154, :207-214;
+mlp.py:436-445, :516-520), so a test can hand the model JAX's own draws.
 """
 
 from __future__ import annotations
@@ -16,10 +26,13 @@ import numpy as np
 import torch
 
 from refnerf_tpu_torch.cameras import rays as rays_lib
+from refnerf_tpu_torch.ops import stepfun
 
-# Mixed into the generator's seed so that the noise angles do not share a
-# stream with any other draw seeded from (seed, step).
+# Mixed into the generator's seed so that the noise angles, the main
+# forward's draws and the noisy forward's do not share a stream.
 _NOISE_STREAM = 1
+FWD_STREAM = 2
+NOISY_FWD_STREAM = 3
 
 
 def euler_angles_to_matrix(euler_angles):
@@ -51,17 +64,52 @@ def max_noise_angle(sample_angle_range, warmup_ratio) -> float:
                np.float32(warmup_ratio))
 
 
-def draw_noise_angles(seed, step, n_angles, max_angle, device=None):
-  """[n_angles, 3] angles uniform on [0, max_angle), from a generator on
-  `device` seeded from (seed, step) alone."""
+def seeded_generator(seed, step, stream, device=None) -> torch.Generator:
+  """A generator on `device` seeded on the host from (seed, step, stream)
+  alone: no host sync, and no state to checkpoint."""
   device = torch.device('cpu' if device is None else device)
   mixed = np.random.SeedSequence(
-      [seed & (2**63 - 1), int(step), _NOISE_STREAM]).generate_state(
+      [seed & (2**63 - 1), int(step), stream]).generate_state(
           1, np.uint64)[0]
   gen = torch.Generator(device=device)
   gen.manual_seed(int(mixed))
-  u = torch.rand((n_angles, 3), generator=gen, device=device)
+  return gen
+
+
+def draw_noise_angles(seed, step, n_angles, max_angle, device=None):
+  """[n_angles, 3] angles uniform on [0, max_angle), from a generator on
+  `device` seeded from (seed, step) alone."""
+  gen = seeded_generator(seed, step, _NOISE_STREAM, device)
+  u = torch.rand((n_angles, 3), generator=gen, device=gen.device)
   return u * max_angle
+
+
+class Draws:
+  """The random tensors of one forward, drawn in the model's order from a
+  generator seeded from (seed, step, stream) on `device`."""
+
+  def __init__(self, seed, step, stream, device=None):
+    self.generator = seeded_generator(seed, step, stream, device)
+
+  def jitter(self, batch_shape, num_samples, single_jitter):
+    """A level's sampling offsets (stepfun.draw_jitter)."""
+    return stepfun.draw_jitter(self.generator, batch_shape, num_samples,
+                               single_jitter)
+
+  def mlp(self):
+    """The draws of a level's MLP (its noise): `normal(shape)`."""
+    return self
+
+  def normal(self, shape):
+    """Standard normal noise of `shape`."""
+    return torch.randn(tuple(shape), generator=self.generator,
+                       device=self.generator.device)
+
+  def background(self, shape, lo, hi):
+    """A level's background colours, uniform on [lo, hi)."""
+    u = torch.rand(tuple(shape), generator=self.generator,
+                   device=self.generator.device)
+    return u * (hi - lo) + lo
 
 
 @torch.no_grad()

@@ -25,9 +25,11 @@ losses, acc and weights entropy), with the noisy second forward: the first
 the same differentiated step. By default the angles come from a generator
 seeded from (Config.seed, step) (`sampling.draw_noise_angles`), so a resumed
 run draws what the uninterrupted run drew; a test can hand the step JAX's
-draws. Refused with NotImplementedError: `randomized=True` and
-density/bottleneck noise (ROADMAP queue 1, item 7: the RNG streams differ,
-H3).
+draws. Under `Config.randomized` each forward also takes its random
+tensors (stratified jitter, density and bottleneck noise, backgrounds) from
+`sampling.Draws` seeded from (Config.seed, step) and its own stream, the
+main forward's and the noisy forward's apart, as JAX's `rng_fwd` and
+`rng_noisy_fwd` (step.py:159-187); the streams differ from JAX's (H3).
 """
 
 from __future__ import annotations
@@ -153,20 +155,6 @@ def _consistency_ratio(config, step) -> float:
   return float(ratio)
 
 
-def _refuse_unported(model, config):
-  if config.randomized:
-    raise NotImplementedError(
-        'randomized=True: stratified sampling and random backgrounds draw '
-        'from an RNG whose stream differs from JAX (H3); not ported '
-        '(ROADMAP queue 1, item 7)')
-  for mlp in (model.nerf_mlp, model.prop_mlp):
-    if mlp is not None and (mlp.cfg.density_noise > 0 or
-                            mlp.cfg.bottleneck_noise > 0):
-      raise NotImplementedError(
-          'density_noise / bottleneck_noise > 0 is not ported (ROADMAP '
-          'queue 1, item 7)')
-
-
 def _param_stats(params, grads):
   """Per-parameter |w|^2, |g| and max|g| (step.py:256-264)."""
   return ({k: torch.sum(p.detach()**2) for k, p in params.items()},
@@ -174,14 +162,18 @@ def _param_stats(params, grads):
           {k: g.abs().max() for k, g in grads.items()})
 
 
-def make_train_step(model, config, raycast_fn=None, noise_angles=None):
+def make_train_step(model, config, raycast_fn=None, noise_angles=None,
+                    draws=None):
   """Build train_step(state, batch, cameras=None) -> (state, stats)
   (step.py:120-283). `raycast_fn(cameras, pixels) -> Rays` casts a batch
   of Pixels (e.g. camera_utils.cast_ray_batch with the dataset's camtype).
   `noise_angles(step, a, max_angle) -> [a, 3]` gives the noisy forward's
   Euler angles; by default `sampling.draw_noise_angles` seeded from
-  (config.seed, step), drawn on the model's device."""
-  _refuse_unported(model, config)
+  (config.seed, step), drawn on the model's device. `draws(step, stream)`
+  gives a forward's random tensors under `config.randomized` (stream
+  `sampling.FWD_STREAM` or `NOISY_FWD_STREAM`); by default
+  `sampling.Draws` seeded from (config.seed, step, stream) on the model's
+  device."""
   num_levels = model.cfg.num_levels
   schedule = create_lr_schedule(config)
   consistency_on = _consistency_enabled(config)
@@ -198,10 +190,15 @@ def make_train_step(model, config, raycast_fn=None, noise_angles=None):
       raise ValueError(
           f'Patch size {config.patch_size}^2 too large for sampling noise '
           f'view points {config.sample_noise_size}')
+  device = next(model.parameters()).device
   if noise_angles is None:
-    device = next(model.parameters()).device
     noise_angles = lambda step, a, max_angle: sampling.draw_noise_angles(
         config.seed, step, a, max_angle, device)
+  if not config.randomized:
+    draws = lambda step, stream: None
+  elif draws is None:
+    draws = lambda step, stream: sampling.Draws(config.seed, step, stream,
+                                                device)
   # The extras are computed only for the metrics and losses that read them.
   compute_extras = (config.compute_disp_metrics or
                     config.compute_normal_metrics or noisy_on)
@@ -215,8 +212,9 @@ def make_train_step(model, config, raycast_fn=None, noise_angles=None):
       if raycast_fn is None:
         raise ValueError('Batch carries Pixels but no raycast_fn was given.')
       rays = raycast_fn(cameras, rays)
-    renderings, ray_history = model(rays, train_frac=train_frac, train=True,
-                                    compute_extras=compute_extras)
+    renderings, ray_history = model(
+        rays, train_frac=train_frac, train=True, compute_extras=compute_extras,
+        draws=draws(state.step, sampling.FWD_STREAM))
 
     ratio = _consistency_ratio(config, state.step)
     noisy_rays = renderings_noise = None
@@ -230,8 +228,9 @@ def make_train_step(model, config, raycast_fn=None, noise_angles=None):
           rays, renderings[-1],
           angles.to(device=rays.origins.device, dtype=torch.float32),
           config.sample_noise_size // config.patch_size**2)
-      renderings_noise, _ = model(noisy_rays, train_frac=train_frac,
-                                  train=True, compute_extras=True)
+      renderings_noise, _ = model(
+          noisy_rays, train_frac=train_frac, train=True, compute_extras=True,
+          draws=draws(state.step, sampling.NOISY_FWD_STREAM))
 
     loss_terms = {}
     data_loss, stats = losses_lib.compute_data_loss(batch, renderings, rays,

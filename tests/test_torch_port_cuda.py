@@ -11,7 +11,9 @@ forward on wgmma/TMA (trunk_fwd_tma.cu) in every mode it runs, its
 determinism, and its shapes past it (trunk_fwd.cu's instances); the f32
 width-256 backward on FMA products fed by TMA (trunk_bwd_f32.cu) in every
 mode, its determinism, its weight-gradient product and its shapes past it
-(trunk_bwd.cu's f32 instances); mip-NeRF's width-128 forward and backward
+(trunk_bwd.cu's f32 instances); the f32 wide-input instances of both
+FMA/TMA libraries on mip-NeRF 360's 504-column proposal trunk (depth 4 and
+8) and their shared-memory sums; mip-NeRF's width-128 forward and backward
 on the two-tile instances of the wgmma/TMA and FMA/TMA libraries and the
 bf16 K11 forward on trunk_fwd_tma.cu, their determinism and their shapes
 past them (trunk_fwd.cu's and trunk_bwd.cu's width-128 instances);
@@ -1337,6 +1339,67 @@ def _k3_trunk(dev, F, n=1000, seed=19):
   return segs, ws, bs, kw, fold, pack
 
 
+def _prop_case(dev, depth, n=1000, seed=40, cdt='float32'):
+  """mip-NeRF 360's proposal trunk: the IPE of 21 basis vectors x 12
+  degrees (two segments of 252 columns, kin 512 packed) of random lifted
+  means and variances, width 256, the density head alone; depth 4, or 8
+  with the skip at layer 5. Returns (segs, ws, bs, kw, pack)."""
+  gen = torch.Generator().manual_seed(seed)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  lm = torch.rand(n, 21, generator=gen).to(dev) * 3 - 1.5
+  lv = 10.0**(torch.rand(n, 21, generator=gen).to(dev) * 4 - 6)
+  segs = list(fused_mlp.encode_ipe(lm, lv, 2.0**np.arange(12), cdt))
+  skips = fused_mlp.skip_input_layers(depth, 4)
+  ws = [rand(256, 504 if l == 0 else 256 + (504 if l in skips else 0))
+        for l in range(depth)]
+  ws = [w * math.sqrt(2 / w.shape[1]) for w in ws]
+  bs = [rand(256) * 0.05 for _ in range(depth)]
+  kw = dict(skip_period=4, wd=rand(1, 256) / 16, head_f32=None,
+            head_cdt=None)
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  return segs, ws, bs, kw, pack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('depth', [4, 8])
+def test_wide_input_f32_trunk_matches_plain(dev, depth):
+  # The f32 wide-input instances (trunk_fwd_f32.cu `fwd_f32_wide`,
+  # trunk_bwd_f32.cu `bwd_f32_wide`) on mip-NeRF 360's proposal trunk: sigma
+  # by BOUND; given a random cotangent of sigma, every weight and bias
+  # gradient by GRAD_BOUND (slabs of 256 rows: the slab accumulation runs
+  # too); each counted under 'K1 wide' / 'K4 wide'; reruns bit-identical.
+  segs, ws, bs, kw, pack = _prop_case(dev, depth)
+  assert fused_mlp.wide_input(pack) and pack.kin == 512
+  assert fused_mlp.forward_library(pack) == 'trunk_fwd_f32'
+  assert fused_mlp.backward_library(pack) == 'trunk_bwd_f32'
+  assert fused_mlp.missing_instance(pack, 0) is None
+  sbar = torch.randn(1000, generator=torch.Generator().manual_seed(41)).to(dev)
+  cots = (sbar, None, None, None)
+  with torch.no_grad():
+    got = fused_mlp.trunk_kernel(segs, pack)
+    again = fused_mlp.trunk_kernel(segs, pack)
+    want = fused_mlp.trunk_reference(segs, ws, bs, **kw)
+    gb = _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=256))
+    gb2 = _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=256))
+    wb = _flat(fused_mlp.trunk_backward_reference(segs, ws, bs, cots, **kw))
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'float32', f'wide fwd depth {depth}')
+  _assert_close(gb, wb, 'float32', f'wide bwd depth {depth}', n_values=0)
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+  assert all(torch.equal(a, b) for a, b in zip(gb, gb2))
+  # Counted through the autograd Function, as the model launches them.
+  before = dict(fused_mlp.launches)
+  lm = torch.rand(64, 21, device=dev)
+  w = [t.clone().requires_grad_() for t in ws]
+  sig, = fused_mlp.fused_encoded_trunk(lm, lm * 1e-3, 2.0**np.arange(12), w,
+                                       bs, kw['wd'], mode='on')
+  sig.sum().backward()
+  torch.cuda.synchronize()
+  moved = {k: v - before[k] for k, v in fused_mlp.launches.items()}
+  assert moved['K1'] == moved['K1 wide'] == moved['K4'] == 1
+  assert moved['K4 wide'] == 1
+
+
 # (library, trunk): launches at the edge of each library's shared memory,
 # as fused_mlp.kernel_smem counts it: trunk_bwd.cu's f32 K5 at 288 input
 # columns (exactly the 232,448 B limit) and at 320 (past it, F5); K3 at 192
@@ -1346,12 +1409,16 @@ def _k3_trunk(dev, F, n=1000, seed=19):
 # stages) and at 224 (past the limit); its width-128 K2 on
 # trunk_fwd_f32.cu's two-tile instance at 192 input columns (seven ring
 # stages) and at 256, the widest its input tile takes (two: its shallowest
-# ring).
+# ring); mip-NeRF 360's proposal trunk on the wide-input instances at 512
+# input columns (the forward's seven stages; the backward's seven at depth
+# 4, six at 8).
 SMEM_CASES = ('trunk_bwd K5 kin 288', 'trunk_bwd K5 kin 320',
               'trunk_fwd_f32 K3 kin 192', 'trunk_fwd_f32 K3 kin 224',
               'trunk_fwd K3 kin 96', 'trunk_fwd K3 kin 224',
               'trunk_bwd_f32 K5W128 kin 192', 'trunk_bwd_f32 K5W128 kin 224',
-              'trunk_fwd_f32 K2W128 kin 192', 'trunk_fwd_f32 K2W128 kin 256')
+              'trunk_fwd_f32 K2W128 kin 192', 'trunk_fwd_f32 K2W128 kin 256',
+              'trunk_fwd_f32 K1wide kin 512', 'trunk_bwd_f32 K4wide4 kin 512',
+              'trunk_bwd_f32 K4wide8 kin 512')
 
 
 @pytest.mark.cuda
@@ -1370,13 +1437,27 @@ def test_shared_memory_sums_match_the_launches(dev, monkeypatch, case):
     pack = fused_mlp.pack_trunk(ws, bs, (128, kin - 128),
                                 compute_dtype='float32', **kw)
     need = fused_mlp.kernel_smem(lib, pack, 0)
-    monkeypatch.setattr(fused_mlp, 'backward_library', lambda pack: lib)
+    monkeypatch.setattr(fused_mlp, 'backward_library', lambda *a, **k: lib)
     cots = (None, torch.randn(1000, 3, device=dev), None, None)
     run = lambda: _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots,
                                                         needs_dx=True))
     plain = lambda: _flat(fused_mlp.trunk_backward_reference(
         segs, ws, bs, cots, needs_dx=True, **kw))
     nv = 0
+  elif which.startswith('K4wide'):
+    segs, ws, bs, kw, pack = _prop_case(dev, int(which[-1]), seed=42)
+    need = fused_mlp.kernel_smem(lib, pack, 0)
+    cots = (torch.randn(1000, device=dev), None, None, None)
+    run = lambda: _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots))
+    plain = lambda: _flat(fused_mlp.trunk_backward_reference(segs, ws, bs,
+                                                             cots, **kw))
+    nv = 0
+  elif which == 'K1wide':
+    segs, ws, bs, kw, pack = _prop_case(dev, 4, seed=43)
+    need = fused_mlp.kernel_smem(lib, pack, 0)
+    run = lambda: fused_mlp.trunk_kernel(segs, pack)
+    plain = lambda: fused_mlp.trunk_reference(segs, ws, bs, **kw)
+    nv = 1
   elif which == 'K2W128':
     segs, ws, bs, kw = _case('mip K2', dev, seed=20,
                              seg_dims=(128, kin - 128))

@@ -257,10 +257,16 @@ def test_render_rays_pads_onto_the_chunk(params):
 
 
 def test_unported_paths_are_refused():
-  with pytest.raises(NotImplementedError, match='raydist_fn'):
-    _port_model(_bindings() + ['Model.raydist_fn = @jnp.reciprocal'])
-  with pytest.raises(NotImplementedError):
-    _port_model(_bindings() + ['Model.dilation_bias = 0.0025'])
+  # What the JAX Model refuses, the port refuses. The ray warps and weight
+  # dilation once refused here are held against JAX in
+  # tests/test_torch_port_cascade.py (test_ray_warps_match_jax,
+  # test_max_dilate_weights_matches_jax, test_cascade_served_matches_jax);
+  # an unknown warp raises as JAX's does, when the model runs.
+  model = _port_model(_bindings() + ["Model.raydist_fn = 'cube'"])
+  with torch.no_grad(), pytest.raises(ValueError, match='Unknown raydist_fn'):
+    model(_port_rays(_rays_np(3, seed=1)))
+  with pytest.raises(ValueError, match='Unknown weight init'):
+    _port_model(_bindings() + ["NerfMLP.weight_init = 'zeros'"])
   # As the JAX MLP (mlp.py:469-475): no diffuse colour without view
   # directions.
   with pytest.raises(ValueError, match='use_diffuse_color'):

@@ -122,8 +122,10 @@ def test_ray_warps_identity():
   _close(s_to_t(_t(s)), js_to_t(jnp.asarray(s)))
   tt = np.asarray(js_to_t(jnp.asarray(s)))
   _close(t_to_s(_t(tt)), jt_to_s(jnp.asarray(tt)))
-  with pytest.raises(NotImplementedError):
-    coord.construct_ray_warps('reciprocal', _t(near), _t(far))
+  # The other warps: tests/test_torch_port_cascade.py
+  # (test_ray_warps_match_jax); an unknown name raises as JAX's does.
+  with pytest.raises(ValueError, match='Unknown raydist_fn'):
+    coord.construct_ray_warps('cube', _t(near), _t(far))
 
 
 def test_lift_and_diagonalize():

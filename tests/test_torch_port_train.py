@@ -528,17 +528,32 @@ def test_config_fields_match_jax():
 
 
 def test_unported_training_options_are_refused():
-  # What stays refused is ROADMAP queue 1, item 7 (the RNG streams differ,
-  # H3). The losses once refused here are held against JAX in
-  # tests/test_torch_port_losses.py and tests/test_torch_port_gins.py.
-  base = SMALL
-  for extra in (['Config.randomized = True'],
-                ['NerfMLP.density_noise = 1.0'],
-                ['NerfMLP.bottleneck_noise = 1.0']):
-    config, gin = configs.parse([GIN], base + extra)
+  # What JAX refuses, the port refuses: density or bottleneck noise without
+  # draws (Config.randomized = False: JAX's MLP gets no rng key and raises,
+  # mlp.py:437-438, :517-518). With Config.randomized = True both train, and
+  # are held against JAX with JAX's draws in tests/test_torch_port_cascade.py
+  # (test_cascade_steps_match_jax_with_jax_draws) and statistically in
+  # tests/test_torch_port_stochastic.py.
+  rng = np.random.default_rng(0)
+  d = rng.normal(size=(4, 3)).astype(np.float32)
+  rays = rays_lib.dummy_rays(4)
+  rays.directions = _t(d)
+  rays.viewdirs = _t(d / np.linalg.norm(d, axis=-1, keepdims=True))
+  rays.near, rays.far = rays.near + 2, rays.far + 5
+  rays.lossmult = torch.ones_like(rays.lossmult)
+  batch = rays_lib.Batch(rays=rays, rgb=torch.full((4, 3), 0.5))
+  for name in ('density_noise', 'bottleneck_noise'):
+    config, gin = configs.parse([GIN], SMALL + [f'NerfMLP.{name} = 1.0'])
     model = construct.construct_model(config, gin, 'cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      step_lib.make_train_step(model, config)
+    train = step_lib.make_train_step(model, config)
+    with pytest.raises(ValueError, match=f'{name} > 0 requires draws'):
+      train(step_lib.create_train_state(config, model), batch)
+    config, gin = configs.parse([GIN], SMALL + [f'NerfMLP.{name} = 1.0',
+                                                'Config.randomized = True'])
+    model = construct.construct_model(config, gin, 'cpu')
+    _, stats = step_lib.make_train_step(model, config)(
+        step_lib.create_train_state(config, model), batch)
+    assert torch.isfinite(stats['loss'])
 
 
 def test_port_takes_a_train_step_without_jax():
