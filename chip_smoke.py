@@ -172,8 +172,12 @@ Phases, each printed on its own line:
      on 504 IPE columns): (a) its trunk at the same N against its plain
      versions, forward and backward, each run twice more bit-identical: in
      f32 on the wide-input instances of csrc/trunk_fwd_f32.cu and
-     csrc/trunk_bwd_f32.cu (depth 4 and 8), in bf16 on csrc/trunk_fwd.cu
-     and csrc/trunk_bwd.cu (each route asserted); (b) from a Blender sphere
+     csrc/trunk_bwd_f32.cu, in bf16 on those of csrc/trunk_fwd_tma.cu and
+     csrc/trunk_bwd_tma.cu (depth 4 and 8, each route asserted); in bf16
+     planted faults of the input fill read above the bounds, and at depth
+     4 the design the bf16 pair replaced (csrc/trunk_fwd.cu and
+     csrc/trunk_bwd.cu, the routes forced) is held against the same plain
+     versions and timed ('was'); (b) from a Blender sphere
      scene (20 + 2 views of 400 x 400), in f32 under fused_trunk='on' at
      the gin's batch of 1024: 3 warm-up and 10 timed steps (the PropMLP's
      pair 2 a step, counted under 'K1 wide' / 'K4 wide', K2-K5 the NeRF
@@ -181,11 +185,13 @@ Phases, each printed on its own line:
      trunk_bwd_f32.cu), one step against 'off' with the same draws (loss,
      gradient norm, each term), one step profiled, a 4096-ray request
      against 'off'; (c) the same in bf16 with all six fuse flags at batch
-     4096 (K6/K7 on 32-sample rays; the PropMLP on trunk_fwd.cu /
-     trunk_bwd.cu); (d) the draws on the card repeat for one (seed, step)
-     and differ for the next; NeRFSystem killed at step 2 and resumed to 4
-     equals the uninterrupted run under torch.equal (randomized, with
-     density and bottleneck noise and random backgrounds); 3 steps of (c)
+     4096 (K6/K7 on 32-sample rays; the PropMLP on the wide-input
+     instances of trunk_fwd_tma.cu / trunk_bwd_tma.cu, and no kernel of
+     trunk_fwd.cu / trunk_bwd.cu in its profiles); (d) the draws on the
+     card repeat for one (seed, step) and differ for the next; NeRFSystem
+     killed at step 2 and resumed to 4 equals the uninterrupted run under
+     torch.equal (randomized, with density and bottleneck noise and random
+     backgrounds); 3 steps of (c)
      with NerfMLP.density_noise = 1.0, bottleneck_noise = 0.1 and
      Model.bg_intensity_range = (0, 1): finite, K6 logged inactive.
 The line before the last is a JSON list of the kernels, each with its
@@ -2653,13 +2659,21 @@ CASCADE_RES, CASCADE_TRAIN, CASCADE_TEST = 400, 20, 2
 CASCADE_BATCH = 1024  # the gin's own
 CASCADE_STEPS, CASCADE_RESUME = 10, 4
 # Launches a step (not a level): the PropMLP's forward and backward at the
-# two proposal levels, the NeRF level's K3, K4 (with u's cotangent), K2
-# and K5; with the six fuse flags (bf16) K6, K7 in K3 and K4, K8-K10 in K2
-# and K5, and the PropMLP on trunk_fwd.cu / trunk_bwd.cu.
+# two proposal levels (on the wide-input instances in both dtypes), the
+# NeRF level's K3, K4 (with u's cotangent), K2 and K5; with the six fuse
+# flags (bf16) K6, K7 in K3 and K4, K8-K10 in K2 and K5.
 CASCADE_PER_STEP = {'K1': 2, 'K1 wide': 2, 'K2': 1, 'K3': 1, 'K4': 3,
                     'K4 wide': 2, 'K5': 1}
-CASCADE_SIX_PER_STEP = {'K1': 2, 'K2': 1, 'K3': 1, 'K4': 3, 'K5': 1, 'K6': 2,
-                        'K7': 2, 'K8': 2, 'K9': 2, 'K10': 2}
+CASCADE_SIX_PER_STEP = {'K1': 2, 'K1 wide': 2, 'K2': 1, 'K3': 1, 'K4': 3,
+                        'K4 wide': 2, 'K5': 1, 'K6': 2, 'K7': 2, 'K8': 2,
+                        'K9': 2, 'K10': 2}
+# The columns of the proposal trunk's input (two IPE segments of 252) that
+# two planted faults of the wide-input fill overwrite: 251-259, the last
+# column of segment 0 and the first 8 of segment 1 (an 8-column chunk of
+# the swizzled layout holds both segments there; the forward's 128-column
+# and the backward's chunks meet at 256), and 500-503, the last 4-column
+# copy of segment 1 before the zero padding of columns 504-511.
+FILL_FAULTS = ((251, 260), (500, 504))
 
 
 def prop_case(fused_mlp, gen, dev, depth, cdt):
@@ -2683,52 +2697,117 @@ def prop_case(fused_mlp, gen, dev, depth, cdt):
   return segs, ws, bs, kw
 
 
+def fill_faults(fused_mlp, cdt, cs, ws, bs, kw, cots, depth):
+  """What planted faults of the wide-input fill would read on the plain
+  proposal trunk: each FILL_FAULTS column range of the input overwritten
+  with ones (stale values), sigma and the gradients against the plain
+  versions on the true input, as `errors` reads the kernel (share of
+  KERNEL_BOUND on sigma, of GRAD_BOUND on each gradient). Fails unless
+  each reads above its bound, so that phase 19's check would see either."""
+  with torch.no_grad():
+    want = flatten(fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                             **kw))
+    want += flatten(fused_mlp.trunk_backward_reference(
+        cs, ws, bs, cots, compute_dtype=cdt, **kw))
+    reads = {}
+    for lo, hi in FILL_FAULTS:
+      bad = [s.clone() for s in cs]
+      for j, s in enumerate(bad):
+        a, b = max(lo - 252 * j, 0), min(hi - 252 * j, 252)
+        if a < b:
+          s[:, a:b] = 1
+      got = flatten(fused_mlp.trunk_reference(bad, ws, bs, compute_dtype=cdt,
+                                              **kw))
+      got += flatten(fused_mlp.trunk_backward_reference(
+          bad, ws, bs, cots, compute_dtype=cdt, **kw))
+      reads[f'{lo}-{hi - 1}'] = max(r[3] for r in errors(got, want, cdt, 1))
+      del bad, got
+  log(f'phase 19: K1/K4 wide {cdt} depth {depth}: a fault of the input fill '
+      'would read ' + ', '.join(f'{v:.2f} (columns {k})'
+                                for k, v in reads.items()) +
+      ' times the bound')
+  if not min(reads.values()) > 1:
+    raise AssertionError(f'phase 19: the bounds do not see a fault of the '
+                         f'wide input fill: {reads}')
+
+
 def check_prop_kernels(fused_mlp, dev):
   """Phase 19 (a): the proposal trunk at N_SAMPLES rows against its plain
   versions, forward (sigma by KERNEL_BOUND) and backward (every weight and
   bias gradient by GRAD_BOUND, given a random cotangent of sigma), each
-  run twice more bit-identical: in f32 on the wide-input instances of
-  trunk_fwd_f32.cu and trunk_bwd_f32.cu (depth 4, and 8), in bf16 on
-  trunk_fwd.cu and trunk_bwd.cu (depth 4); each route asserted."""
+  run twice more bit-identical, in f32 and bf16 (depth 4, and 8) on the
+  wide-input instances (f32: trunk_fwd_f32.cu and trunk_bwd_f32.cu; bf16:
+  trunk_fwd_tma.cu and trunk_bwd_tma.cu), each route asserted; in bf16
+  the planted faults of the fill (`fill_faults`) and, at depth 4, the
+  design the bf16 pair replaced (trunk_fwd.cu and trunk_bwd.cu, the routes
+  forced), checked likewise and timed: 'was_ms' (`old_prop_kernels`)."""
   gen = torch.Generator().manual_seed(SEED + 19)
   results = {}
-  for depth, cdts in ((4, ('float32', 'bfloat16')), (8, ('float32',))):
+  for depth in (4, 8):
     segs, ws, bs, kw = prop_case(fused_mlp, gen, dev, depth, 'float32')
     sbar = torch.randn(N_SAMPLES, generator=gen).to(dev)
     cots = (sbar, None, None, None)
-    for cdt in cdts:
+    for cdt in ('float32', 'bfloat16'):
       cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
       pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
-      f32 = cdt == 'float32'
-      want = ('trunk_fwd_f32', 'trunk_bwd_f32') if f32 else ('trunk_fwd',
-                                                             'trunk_bwd')
+      want = (FWD_ROUTE[cdt], BWD_ROUTE[cdt])
       got = (fused_mlp.forward_library(pack), fused_mlp.backward_library(pack))
-      if (got != want or fused_mlp.wide_input(pack) != f32 or
+      if (got != want or not fused_mlp.wide_input(pack) or
           fused_mlp.missing_instance(pack, 0) is not None):
         raise AssertionError(f'phase 19: the {cdt} proposal trunk routed to '
                              f'{got}')
-      tag = ('K1 wide', 'K4 wide') if f32 else ('prop K1', 'prop K4')
-      tag = tuple(t + (' depth 8' if depth == 8 else '') for t in tag)
-      kernel = lambda: fused_mlp.trunk_kernel(cs, pack)
-      plain = lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
-                                                **kw)
-      results[tag[0], cdt] = compare(
-          tag[0], cdt, kernel, plain, n_values=1, phase=19,
-          inputs=cs + pack_tensors(pack),
-          flops=trunk_flops(ws, N_SAMPLES, 1))
-      deterministic(tag[0], kernel, phase=19, cdt=cdt)
-      kernel = lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots)
-      plain = lambda: fused_mlp.trunk_backward_reference(
-          cs, ws, bs, cots, compute_dtype=cdt, **kw)
-      results[tag[1], cdt] = compare(
-          tag[1], cdt, kernel, plain, n_values=0, iters=3, phase=19,
-          inputs=cs + pack_tensors(pack) + [sbar],
-          flops=trunk_flops(ws, N_SAMPLES, 1, backward=True))
-      deterministic(tag[1], kernel, phase=19, cdt=cdt)
+      tag = tuple(t + (' depth 8' if depth == 8 else '')
+                  for t in ('K1 wide', 'K4 wide'))
+      results[tag[0], cdt], results[tag[1], cdt] = prop_pair(
+          fused_mlp, tag, cdt, cs, ws, bs, kw, pack, cots)
+      if cdt == 'bfloat16':
+        fill_faults(fused_mlp, cdt, cs, ws, bs, kw, cots, depth)
+      if cdt == 'bfloat16' and depth == 4:
+        was = old_prop_kernels(fused_mlp, cs, ws, bs, kw, pack, cots)
+        for t, r in zip(tag, was):
+          results[t, cdt]['was_ms'] = r['ms']
       del pack, cs
     del segs, ws, bs, kw, cots
     torch.cuda.empty_cache()
   return results
+
+
+def prop_pair(fused_mlp, tags, cdt, cs, ws, bs, kw, pack, cots):
+  """Phase 19 (a): the proposal trunk's forward (tags[0]) and backward
+  (tags[1]) on `pack` against their plain versions (compare()), each run
+  twice more bit-identical. Returns compare()'s two results."""
+  kernel = lambda: fused_mlp.trunk_kernel(cs, pack)
+  plain = lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                            **kw)
+  f = compare(tags[0], cdt, kernel, plain, n_values=1, phase=19,
+              inputs=cs + pack_tensors(pack),
+              flops=trunk_flops(ws, N_SAMPLES, 1))
+  deterministic(tags[0], kernel, phase=19, cdt=cdt)
+  kernel = lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots)
+  plain = lambda: fused_mlp.trunk_backward_reference(
+      cs, ws, bs, cots, compute_dtype=cdt, **kw)
+  b = compare(tags[1], cdt, kernel, plain, n_values=0, iters=3, phase=19,
+              inputs=cs + pack_tensors(pack) + [cots[0]],
+              flops=trunk_flops(ws, N_SAMPLES, 1, backward=True))
+  deterministic(tags[1], kernel, phase=19, cdt=cdt)
+  return f, b
+
+
+def old_prop_kernels(fused_mlp, cs, ws, bs, kw, pack, cots):
+  """Phase 19 (a): the bf16 proposal trunk's forward and backward on
+  trunk_fwd.cu and trunk_bwd.cu (the mma.sync design the wide-input
+  instances replaced, the routes forced), held against the same plain
+  versions by the same bounds as the new pair (`prop_pair`) and timed.
+  Returns compare()'s two results."""
+  fwd, bwd = fused_mlp.forward_library, fused_mlp.backward_library
+  fused_mlp.forward_library = lambda *a, **k: 'trunk_fwd'
+  fused_mlp.backward_library = lambda *a, **k: 'trunk_bwd'
+  try:
+    return prop_pair(fused_mlp, ('K1 wide on trunk_fwd.cu (was)',
+                                 'K4 wide on trunk_bwd.cu (was)'),
+                     'bfloat16', cs, ws, bs, kw, pack, cots)
+  finally:
+    fused_mlp.forward_library, fused_mlp.backward_library = fwd, bwd
 
 
 def cascade_setup(dev, root, dtype=None, bindings=()):
@@ -2839,16 +2918,23 @@ def cascade_against_plain(fused_mlp, run, batch, what):
   return dict(loss_rel=dl, gnorm_rel=dn, terms_rel=dt)
 
 
-def cascade_request(fused_mlp, dev, run, what):
+def cascade_request(fused_mlp, dev, run, what, profiled=False):
   """Phase 19: a 4096-ray request (eval: no draws) through the kernels,
   timed, its launches counted (K1 at each level, the PropMLP's also under
-  'K1 wide' in f32, K2 at the NeRF level), against fused_trunk='off' (rgb
-  and acc within PATH_BOUND). Returns (ms, launches)."""
+  'K1 wide', K2 at the NeRF level), against fused_trunk='off' (rgb and acc
+  within PATH_BOUND). Returns (ms, launches); `profiled`: instead one
+  request profiled, {wall_ms, busy_ms}, with the wide-input forward in it
+  (`wide_instances`)."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import renderer
   model, config = run['model'], run['config']
   rays = random_rays(rays_lib, 4096, config, 19, dev)
   n, chunk = rays.shape[0], config.render_chunk_size
+  if profiled:
+    prof = profile(lambda: renderer.render_rays(model, rays, chunk),
+                   f'cascade {what} request', 1, phase=19)
+    wide_instances(prof, backward=False)
+    return {k: prof[k] for k in ('wall_ms', 'busy_ms')}
   renderer.render_rays(model, rays, chunk)  # warm-up
   torch.cuda.synchronize()
   for k in fused_mlp.launches:
@@ -2877,6 +2963,26 @@ def cascade_request(fused_mlp, dev, run, what):
     raise AssertionError(f'phase 19: {what}: the request disagrees with the '
                          'plain path')
   return ms, launches
+
+
+def wide_instances(prof, backward=True):
+  """Phase 19 (c): the bf16 profile shows the wide-input instances of
+  trunk_fwd_tma.cu (and of trunk_bwd_tma.cu, `backward`) and no kernel of
+  trunk_fwd.cu or trunk_bwd.cu (the design they replaced), or this fails.
+  The instances' last template argument is WIDE (true), perhaps followed
+  by trailing ones at their defaults (false)."""
+  names = list((prof or {}).get('kernels', {}))
+  need = ['trunk_fwd_tma_kernel'] + (['trunk_bwd_tma_kernel'] if backward
+                                     else [])
+  new = {k: [n for n in names
+             if re.search(rf'\b{k}<[^>]*\b256, true(, false)*>', n)]
+         for k in need}
+  old = [n for n in names
+         if re.search(r'\btrunk_(fwd|bwd)_kernel<', n)]
+  if prof is None or not all(new.values()) or old:
+    raise AssertionError(f'phase 19: the bf16 cascade ran {names}: wide '
+                         f'instances {new}, trunk_fwd.cu / trunk_bwd.cu '
+                         f'{old}')
 
 
 def cascade_resume(dev, scene, root):
@@ -3000,15 +3106,24 @@ def cascade_stage(fused_mlp, dev):
         *FUSE, *SPATIAL, f'Config.batch_size = {TRAIN_BATCH}'])
     launches_b, step_s, seen, _, batch = cascade_train(
         fused_mlp, run, CASCADE_SIX_PER_STEP, 'bf16, six fuse flags, on')
-    if seen != {'forward': {'trunk_fwd', 'trunk_fwd_tma'},
-                'backward': {'trunk_bwd', 'trunk_bwd_tma'}}:
+    if seen != {'forward': {'trunk_fwd_tma'}, 'backward': {'trunk_bwd_tma'}}:
       raise AssertionError(f'phase 19: the bf16 trunks routed to {seen}')
     out['bf16'] = dict(step_ms=step_s * 1e3, rays_s=TRAIN_BATCH / step_s)
     out['bf16']['vs_plain'] = cascade_against_plain(fused_mlp, run, batch,
                                                     'bf16 six flags')
+    box = {'state': run['state']}
+
+    def step():
+      box['state'], _ = run['train_step'](box['state'], batch,
+                                          run['cameras'])
+    prof = profile(step, 'cascade bf16 six flags train step', 2, phase=19)
+    wide_instances(prof)
+    out['bf16']['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
     out['bf16']['request_ms'], _ = cascade_request(fused_mlp, dev, run,
                                                    'bf16 six flags')
-    del run, batch
+    out['bf16']['request_profile'] = cascade_request(
+        fused_mlp, dev, run, 'bf16 six flags', profiled=True)
+    del run, batch, box
     torch.cuda.empty_cache()
 
     # (d) the draws, a kill and resume, and (c) with the noise.
@@ -3233,16 +3348,19 @@ def main():
                               for k in keys}}
                        for c in more_cases[which]}
     line.append(entry)
-  # Phase 19's: the f32 wide-input instances (the PropMLP over 504 IPE
-  # columns), launched by (b)'s f32 steps; the bf16 proposal trunk's times
-  # (trunk_fwd.cu / trunk_bwd.cu) and the depth-8 trunk's beside them.
-  for which, desc, src, at, prop in (
+  # Phase 19's: the wide-input instances (the PropMLP over 504 IPE
+  # columns), launched by (b)'s f32 steps and (c)'s bf16 steps; the bf16
+  # times with those of the design they replaced (trunk_fwd.cu /
+  # trunk_bwd.cu, measured in this run: 'was'), the depth-8 trunk's beside
+  # them.
+  for which, desc, src, at, b16_src, was_src in (
       ('K1 wide', 'spatial trunk forward on 504 input columns, the density '
-       'head alone (the PropMLP)', f32fwd_src, 612, 'prop K1'),
+       'head alone (the PropMLP)', f32fwd_src, 612, ftma_src, fwd_src),
       ('K4 wide', 'spatial trunk backward on 504 input columns, the density '
-       'head alone (the PropMLP)', f32_src, 668, 'prop K4')):
-    f32, b16 = kernels[which, 'float32'], kernels[prop, 'bfloat16']
-    d8 = kernels[which + ' depth 8', 'float32']
+       'head alone (the PropMLP)', f32_src, 668, tma_src, bwd_src)):
+    f32, b16 = kernels[which, 'float32'], kernels[which, 'bfloat16']
+    d8, b16_d8 = (kernels[which + ' depth 8', cdt]
+                  for cdt in ('float32', 'bfloat16'))
     line.append({
         'name': f'{which} {desc}', 'route': 'cuda', 'source': src,
         'replaces': f'{pallas}:{at}', 'launches': cascade_path[which],
@@ -3252,12 +3370,13 @@ def main():
         'n_samples': N_SAMPLES, 'case': 'depth 4',
         'depth8': {k: d8[k] for k in ('ms', 'plain_ms', 'bound_ms',
                                       'max_abs_err')},
-        'bf16_source': fwd_src if which == 'K1 wide' else bwd_src,
-        'bf16_ms': b16['ms'], 'bf16_plain_ms': b16['plain_ms'],
-        'bf16_bound_ms': b16['bound_ms'],
+        'bf16_source': b16_src, 'bf16_ms': b16['ms'],
+        'bf16_plain_ms': b16['plain_ms'], 'bf16_bound_ms': b16['bound_ms'],
         'bf16_max_abs_err': b16['max_abs_err'],
-        'bf16_train_launches': cascade_bf16_path[which[:2]] - (
-            1 if which == 'K4 wide' else 0) * CASCADE_STEPS})
+        'bf16_was_source': was_src, 'bf16_was_ms': b16['was_ms'],
+        'bf16_depth8': {k: b16_d8[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                               'max_abs_err')},
+        'bf16_train_launches': cascade_bf16_path[which]})
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '

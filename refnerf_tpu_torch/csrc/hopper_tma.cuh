@@ -3,7 +3,8 @@
 // weight slices, the 128-byte-swizzled tile layout, the product of a tile
 // with the next slices of the ring, and the host-side tensor maps. The
 // trunk width is kW (256) unless a kernel takes it as a template parameter
-// W (all four TMA trunk kernels also run at 128).
+// W (all four TMA trunk kernels also run at 128). The wide-input
+// instances' input fill (`wide_chunk`) is here too.
 
 #pragma once
 
@@ -28,6 +29,10 @@ template <int W> constexpr int kTiles = kW / W;
 constexpr int kBlk = kRows * 128;  // bytes of a [64][64] block of a tile
 constexpr int kMaxDepth = 8;       // tensor maps a pack (kernel parameter space)
 constexpr long long kHang = 1ll << 33;  // cycles (~4 s) before a wait traps
+// The widest input of the wide-input instances (trunk_fwd_tma.cu,
+// trunk_bwd_tma.cu, trunk_fwd_f32.cu, trunk_bwd_f32.cu), which stream it in
+// chunks of columns.
+constexpr int kWideKin = 1024;
 
 // ---------------------------------------------------------------------------
 // PTX: mbarriers, TMA, wgmma.
@@ -179,10 +184,11 @@ struct Tile {
 // K-slices s < n0 are the blocks of a0, the rest those of a1 (the skip
 // layer's [activation | input]). At width 256 warpgroup g takes B's rows
 // [128 g, 128 g + 128) of each [256][64] slice; at 128 both take the whole
-// [128][64] slice, each with the A of its own tile. Consumer warps only.
+// [128][64] slice, each with the A of its own tile. With `acc_in` acc +=
+// (the first slice keeps the accumulators). Consumer warps only.
 template <int W = kW>
 __device__ __forceinline__ void product(float (&acc)[64], uint32_t a0, int n0, uint32_t a1, int K,
-                                        Ring& r) {
+                                        Ring& r, int acc_in = 0) {
   const int wg = threadIdx.x >> 7;
   const int ns = (K + kBK - 1) / kBK;
   int prev = 0;
@@ -194,7 +200,7 @@ __device__ __forceinline__ void product(float (&acc)[64], uint32_t a0, int n0, u
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
       wgmma128<0, 0>(acc, sw128_desc(a + 32 * kk, 16, 1024), sw128_desc(b + 32 * kk, 16, 1024),
-                     s | kk);
+                     s | kk | acc_in);
     wg_commit();
     if (s > 0) {
       wg_wait<1>();
@@ -210,6 +216,68 @@ __device__ __forceinline__ void product(float (&acc)[64], uint32_t a0, int n0, u
 
 __device__ __forceinline__ bool bit_at(uint2 m, int i) {
   return ((i < 32 ? m.x >> i : m.y >> (i - 32)) & 1u) != 0;
+}
+
+// ---------------------------------------------------------------------------
+// The wide-input instances' input: the trunk input [x0 (d0) | x1 (d1) |
+// zeros] enters a tile chunk by chunk of columns, each chunk's products
+// running while the next chunk lands.
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(src) : "memory");
+}
+// cp_async_wait with a run-time count of newer groups left pending (at
+// most 3 are waited for as 3).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 3)
+    cp_async_wait<3>();
+  else if (n == 2)
+    cp_async_wait<2>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
+// Columns [c0, c0 + cw) of the trunk input of rows [row0, row0 + rows) to
+// `buf`, a [64][CW] tile of 64-column swizzled blocks (cw <= CW, a multiple
+// of 64); zeros past the segments and past `rows`. Where both segments'
+// widths are multiples of 4 and their bases 8-byte aligned, 4 columns are
+// one 8-byte cp.async that lands while the thread goes on (a chunk of the
+// swizzled layout is 8 columns, and a 4-column half never straddles a
+// segment: 8-byte-aligned source and destination); cp_async_wait and a
+// barrier then publish it. Else 2-byte loads. nth threads share the work.
+template <int CW>
+__device__ void wide_chunk(unsigned char* buf, const bf16* x0, int d0, const bf16* x1, int d1,
+                           int c0, int cw, int row0, int rows, int tid, int nth) {
+  constexpr int Q = CW / 4;  // 4-column pieces of a row
+  const int fin = d0 + d1;
+  const bool vec = ((d0 | d1) & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x0) | reinterpret_cast<uintptr_t>(x1)) & 7) == 0;
+  for (int i = tid; i < kRows * Q; i += nth) {
+    const int r = i / Q, c = 4 * (i % Q), g = c0 + c;
+    if (c >= cw) continue;
+    unsigned char* dst = buf + sw_off(r, c);
+    uint2 v = make_uint2(0u, 0u);
+    if (r < rows && g < fin) {
+      const size_t gr = static_cast<size_t>(row0 + r);
+      if (vec) {
+        cp_async8(smem_u32(dst), g < d0 ? x0 + gr * d0 + g : x1 + gr * d1 + (g - d0));
+        continue;
+      }
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = g + e;
+        const bf16 z = from_f<bf16>(0.f);
+        const bf16 x = k < d0 ? x0[gr * d0 + k] : (k < fin ? x1[gr * d1 + (k - d0)] : z);
+        w[e >> 1] |= static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(&x))
+                     << (16 * (e & 1));
+      }
+      v = make_uint2(w[0], w[1]);
+    }
+    *reinterpret_cast<uint2*>(dst) = v;
+  }
 }
 
 // ---------------------------------------------------------------------------

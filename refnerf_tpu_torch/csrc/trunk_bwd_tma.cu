@@ -6,9 +6,12 @@
 // the modes of trunk_bwd.cu (K4 with and without u's cotangent, K5 with dx,
 // K6/K7 in K4, K8-K10 in K5, K11's y cotangent), and at width 128 in the
 // plain K5 (mip-NeRF's directional trunk), up to 8 layers and 256 input
-// columns, with the same arithmetic and bf16 roundings (trunk_bwd.cu:32-40)
-// and the same C arguments. The float32 instances and the trunks past these
-// shapes stay in trunk_bwd_f32.cu and trunk_bwd.cu.
+// columns, and first-order K4 with the density head and f32 heads alone on
+// up to kWideKin input columns (the wide-input instance, `bwd_wide`:
+// mip-NeRF 360's proposal MLP, 504 IPE columns; trunk_bwd.cu's mma.sync
+// design ran it before), with the same arithmetic and bf16 roundings
+// (trunk_bwd.cu:32-40) and the same C arguments. The float32 instances and
+// the trunks past these shapes stay in trunk_bwd_f32.cu and trunk_bwd.cu.
 //
 // Bound on the H100: the per-tile work is ~2.6 GFLOP of bf16 products a
 // 64-sample tile for K4 with u's cotangent (3.2 TFLOP at N = 524,288 with
@@ -77,6 +80,7 @@
 namespace {
 
 constexpr int kStages = 4;
+constexpr int kWideChunk = 128;  // input columns of a chunk of the wide-input instance
 
 struct TmaMaps {
   CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 64 x 256
@@ -264,16 +268,303 @@ __device__ void load_input_rows(unsigned char* inb, int in_b, const bf16* x0, in
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide-input instance (WIDE): the first-order backward of the spatial
+// trunk at width 256 on more than kW and at most kWideKin input columns,
+// with the density head and f32 heads alone (no compute-dtype head,
+// cotangent of u, fused stage, y or dx): mip-NeRF 360's proposal MLP, 504
+// IPE columns (kin 512 packed). The body below keeps the whole input tile,
+// which at 512 columns does not fit beside the 4-stage ring. Here the
+// recompute streams layer 0's input, and the skip layer's input share,
+// through slots of kWideChunk columns, as trunk_fwd_tma.cu `fwd_wide`
+// does: two buffers in the input tile's place (the 32 KB of a 256-column
+// instance) and, at layer 0, the activation tile's halves (free until its
+// epilogue). A chunk's cp.asyncs land while the chunks before it run their
+// products, which sum into the accumulators (`product` with `acc_in`): at
+// layer 0 the first four chunks (all 512 columns) are in flight from the
+// start, at the skip layer the next one. At layer 0 each chunk's blocks
+// also leave by TMA to the x scratch, from which wgrad_tma_kernel makes the
+// wide gradients on more 128-column output tiles (the same fixed-order
+// reduction after). The rest is the body's steps 1,
+// 2, 3, 5 and 6 for these modes, with their arithmetic and roundings; the
+// last activation y does not go to the scratch (no weight gradient reads
+// it). The producer walks the same `schedule`.
+__device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
+                                         unsigned char* smem) {
+  constexpr int W = kW, ChB = (kWideChunk / 64) * kBlk;  // a chunk's bytes
+  const int kp = (p.kin + kBK - 1) / kBK * kBK, nc = (kp + kWideChunk - 1) / kWideChunk;
+  unsigned char* ring = smem;                       // kStages x [256][64]
+  unsigned char* act = ring + kStages * kSlice;     // [64][256]: h, then zeta
+  unsigned char* inb = act + (W / 64) * kBlk;       // 2 x [64][kWideChunk]: input chunks
+  uint2* masks = reinterpret_cast<uint2*>(inb + 2 * ChB);          // [depth][256]
+  float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [4][256]
+  float* sb = red + 4 * kCons;                                     // [kRows]
+  float* hb = sb + kRows;                                          // [kRows][hf]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(hb + kRows * p.hf) + 7) & ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + kStages), kStages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring_st.full + 8 * s, 1);
+      mbar_init(ring_st.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {  // the producer warp: weight slices, in order
+    if (lane == 0) {
+      schedule<0, W>(p, m, [&](const CUtensorMap* map, int row, int K) {
+        for (int k = 0; k < K; k += kBK) {
+          mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
+          mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
+          tma_load(ring_st.base + ring_st.stage * kSlice, map, ring_st.full + 8 * ring_st.stage,
+                   k, row);
+          ring_st.advance();
+        }
+      });
+    }
+    return;
+  }
+
+  // The consumers.
+  PHASE_START;
+  const int wg = tid >> 7, w4 = warp & 3;
+  const int fr = 16 * w4 + (lane >> 2);      // acc[4 j + 2 h + e]: row fr + 8 h,
+  const int fc = 128 * wg + 2 * (lane & 3);  // column fc + 8 j + e
+  const int row0 = blockIdx.x * kRows, rows = max(0, min(kRows, p.n - row0));
+  const int rp = p.rp;
+  const Tile A{act};
+  const uint32_t act_s = smem_u32(act);
+  const bf16* bias = static_cast<const bf16*>(p.b);
+  float* vec = p.vec + static_cast<size_t>(blockIdx.x) * p.nvec;
+  const int o_dwd = p.depth * W;
+  const int o_dwh = o_dwd + (p.wd != nullptr ? W : 0);
+  const int o_dbh = o_dwh + p.hf * W;
+  float acc[64];
+
+  // Before a tile or buffer is overwritten: the TMA stores have read it,
+  // and every consumer is done with it.
+  auto settle = [&]() {
+    if (tid == 0) bulk_wait_read();
+    cons_sync();
+  };
+  // After the consumers wrote a tile: visible to TMA and wgmma.
+  auto publish = [&]() {
+    fence_async_smem();
+    cons_sync();
+  };
+  // The activation tile to rows [row, row + 64) of a [rows][256] scratch map.
+  auto store_act = [&](const CUtensorMap* map, int row) {
+    if (tid == 0) {
+      for (int b = 0; b < W / 64; ++b) tma_store(map, act_s + b * kBlk, 64 * b, row);
+      bulk_commit();
+    }
+  };
+  auto put2 = [&](int r, int c, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(act + sw_off(r, c)) = __floats2bfloat162_rn(a, b);
+  };
+  // Slot k of a chunk: the two buffers, then the activation tile's halves.
+  auto slot = [&](int k) { return k < 2 ? inb + k * ChB : act + (k - 2) * ChB; };
+  // Chunk c of the tile's input in flight to slot k (one cp.async group a
+  // thread).
+  auto issue = [&](int c, int k) {
+    wide_chunk<kWideChunk>(slot(k), static_cast<const bf16*>(p.x0), p.d0,
+                           static_cast<const bf16*>(p.x1), p.d1, c * kWideChunk,
+                           min(kWideChunk, kp - c * kWideChunk), row0, rows, tid, kCons);
+    cp_async_commit();
+  };
+  // acc (+)= layer l's input share, chunk by chunk through S slots (chunk c
+  // in slot c % S, the next S - 1 in flight during its products); chunks
+  // [0, issued) are in flight at entry. At layer 0 each chunk also leaves to
+  // the x scratch. Before a slot is refilled, its last chunk's products and
+  // store have read it.
+  auto input_share = [&](int l, int S, int issued) {
+    for (int c = 0; c < nc; ++c) {
+      if (issued < min(nc, c + S)) {
+        settle();
+        for (; issued < min(nc, c + S); ++issued) issue(issued, issued % S);
+      }
+      cp_async_wait_upto(issued - 1 - c);
+      publish();
+      PHASE_MARK(0, kScal);
+      const uint32_t a = smem_u32(slot(c % S));
+      if (l == 0 && tid == 0) {
+        for (int k = 0; k < kWideChunk / 64 && c * kWideChunk + 64 * k < kp; ++k)
+          tma_store(&m.xs, a + k * kBlk, c * kWideChunk + 64 * k, row0);
+        bulk_commit();
+      }
+      product<W>(acc, a, kWideChunk / 64, a, min(kWideChunk, p.kin - c * kWideChunk), ring_st,
+                 l | c);
+      PHASE_MARK(1, kProd);
+    }
+  };
+
+  // 1. The first four chunks in flight; the cotangents.
+  const int first = min(nc, 4);
+  for (int c = 0; c < first; ++c) issue(c, c);
+  for (int r = tid; r < kRows; r += kCons)
+    sb[r] = (p.sbar != nullptr && r < rows) ? p.sbar[row0 + r] : 0.f;
+  for (int i = tid; i < kRows * p.hf; i += kCons)
+    hb[i] = (p.hbar != nullptr && i / p.hf < rows)
+                ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
+  PHASE_MARK(0, kScal);
+
+  // 2. Recompute: h_l = relu(cdt(acc) + cdt(b_l)) to the scratch (but y),
+  // relu' masks as bits in the accumulators' order.
+  for (int l = 0; l < p.depth; ++l) {
+    if (l == 0 || l == p.skip) {
+      if (l > 0) product<W>(acc, act_s, W / 64, act_s, W, ring_st);  // [h | x]: h first
+      input_share(l, l > 0 ? 2 : 4, l > 0 ? 1 : first);
+      if (l == 0 && p.skip > 0 && p.skip < p.depth) {  // the skip layer's first chunk
+        settle();
+        issue(0, 0);
+      }
+    } else {
+      product<W>(acc, act_s, W / 64, act_s, W, ring_st);
+      PHASE_MARK(1, kProd);
+    }
+    settle();
+    uint32_t mk[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = fc + 8 * j;
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + l * W + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        const float v0 = fmaxf(bias_add<bf16>(acc[i], bb.x), 0.f);
+        const float v1 = fmaxf(bias_add<bf16>(acc[i + 1], bb.y), 0.f);
+        mk[i >> 5] |= (v0 > 0.f ? 1u : 0u) << (i & 31);
+        mk[i >> 5] |= (v1 > 0.f ? 1u : 0u) << ((i + 1) & 31);
+        put2(fr + 8 * h, c, v0, v1);
+      }
+    }
+    masks[l * kCons + tid] = make_uint2(mk[0], mk[1]);
+    publish();
+    PHASE_MARK(1, kScal);
+    if (l + 1 < p.depth) store_act(&m.hs, l * rp + row0);
+    PHASE_MARK(1, kStore);
+  }
+
+  // 3. The head gradients that read y: dwd, dwh, dbh.
+  {
+    const int c = tid;
+    if (p.wd != nullptr) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s = fmaf(sb[r], to_f(A(r, c)), s);
+      vec[o_dwd + c] = s;
+    }
+    for (int j = 0; j < p.hf; ++j) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s = fmaf(hb[r * p.hf + j], to_f(A(r, c)), s);
+      vec[o_dwh + j * kW + c] = s;
+    }
+    if (c < p.hf) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s += hb[r * p.hf + c];
+      vec[o_dbh + c] = s;
+    }
+  }
+  PHASE_MARK(2, kScal);
+
+  // 5. The head backward: g = cdt(g32), g32 = sbar wd + hbar wh^T (head by
+  // head, in trunk_bwd.cu's order); zeta_{L-1} = relu'(h) g, and db_{L-1}
+  // its column sums.
+  float cs[16][2];
+  {
+    float g3[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) g3[i] = 0.f;
+    for (int j = 0; j < p.hf; ++j) {
+      const float h0 = hb[fr * p.hf + j], h1 = hb[(fr + 8) * p.hf + j];
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float wv = __ldg(p.wh + j * W + fc + 8 * q + e);
+          g3[4 * q + e] = fmaf(h0, wv, g3[4 * q + e]);
+          g3[4 * q + 2 + e] = fmaf(h1, wv, g3[4 * q + 2 + e]);
+        }
+    }
+    if (p.wd != nullptr) {
+      const float s0 = sb[fr], s1 = sb[fr + 8];
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float wv = __ldg(p.wd + fc + 8 * q + e);
+          g3[4 * q + e] = s0 * wv + g3[4 * q + e];
+          g3[4 * q + 2 + e] = s1 * wv + g3[4 * q + 2 + e];
+        }
+    }
+    settle();  // every consumer has read y
+    const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        const float v0 = bit_at(mk, i) ? round_t<bf16>(g3[i]) : 0.f;
+        const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(g3[i + 1]) : 0.f;
+        cs[j][0] += v0;
+        cs[j][1] += v1;
+        put2(fr + 8 * h, fc + 8 * j, v0, v1);
+      }
+    }
+  }
+  publish();
+  store_act(&m.zs, (p.depth - 1) * rp + row0);
+  col_sums<W>(cs, red, vec + (p.depth - 1) * W, W, false);
+  PHASE_MARK(4, kScal);
+
+  // 6. The first-order reverse: zeta_{l-1} = relu'(h_{l-1}) cdt(zeta_l
+  // Wa_l), db_{l-1}.
+  for (int l = p.depth - 1; l > 0; --l) {
+    product<W>(acc, act_s, W / 64, act_s, W, ring_st);
+    PHASE_MARK(5, kProd);
+    settle();
+    const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        const float v0 = bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f;
+        const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f;
+        cs[j][0] += v0;
+        cs[j][1] += v1;
+        put2(fr + 8 * h, fc + 8 * j, v0, v1);
+      }
+    }
+    publish();
+    store_act(&m.zs, (l - 1) * rp + row0);
+    col_sums<W>(cs, red, vec + (l - 1) * W, W, false);
+    PHASE_MARK(5, kScal);
+  }
+  if (tid == 0) bulk_wait();
+}
+
 // W: the trunk width, 256, or 128 for the plain directional trunk alone (HC
 // 0, no fused stage, no K11, no cotangent of u). A CTA holds T = 1 (256) or
 // 2 (128) tiles of 64 samples; at 128 warpgroup g runs tile g's products.
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
+// WIDE: the wide-input instance (`bwd_wide`).
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_bwd_tma_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ TmaMaps m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K5 alone");
+  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA && !YO), "wide: the heads alone");
   constexpr int T = kTiles<W>, R = kRows * T, ActB = (W / 64) * kBlk;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  if constexpr (WIDE) {
+    bwd_wide(p, m, smem);
+    return;
+  }
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
   unsigned char* ring = smem;                         // kStages x [W][64]
   unsigned char* act = ring + kStages * kSliceW<W>;   // T x [64][W]: h, s, zeta, p in turn
@@ -884,18 +1175,24 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 }
 
 
-template <int W>
+// Shared memory of a launch; fused_mlp.py `kernel_smem` mirrors the
+// wide-input instance's sum (WIDE: two chunks in the input tile's place).
+template <int W, bool WIDE = false>
 size_t tma_smem(const BwdParams& p) {
-  const int kp = (p.kin + kBK - 1) / kBK * kBK;
+  const int kp = WIDE ? 2 * kWideChunk : (p.kin + kBK - 1) / kBK * kBK;
   return 1024 + static_cast<size_t>(kStages) * kSliceW<W> +
          kTiles<W> * (W / 64 + kp / 64) * kBlk + 8 * static_cast<size_t>(p.depth) * kCons +
          4 * 4 * kCons + 4 * static_cast<size_t>(kRows * kTiles<W>) * (1 + p.hf + p.nb) + 8 +
          16 * kStages;
 }
 
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW>
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
 int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
-  if (p.depth > kMaxDepth || p.kin > kW || hc != HC || p.rp % (kRows * kTiles<W>) != 0)
+  if (p.depth > kMaxDepth || p.kin > (WIDE ? kWideKin : kW) || hc != HC ||
+      p.rp % (kRows * kTiles<W>) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The wide-input instance runs no dx and no cotangent of u.
+  if (WIDE && (p.dx0 != nullptr || p.ubar != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // Width 128 keeps zeta_skip in each tile's input blocks: at least W wide.
   if (W != kW && p.kin < W) return static_cast<int>(cudaErrorInvalidValue);
@@ -926,13 +1223,13 @@ int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
          make_map(&m.ps, p.ps, kW, rows, kW, kRows) &&
          make_map(&m.ts, p.ts, p.kin, p.rp, p.kin, kRows);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tma_smem<W>(p);
+  const size_t smem = tma_smem<W, WIDE>(p);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W>
+  trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W, WIDE>
       <<<p.rp / (kRows * kTiles<W>), kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1056,7 +1353,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // 256 K4 (hc 128; with K6/K7, SPA), K5 (hc 0; with K8-K10, DIR) and K11's y
 // cotangent (YO); at width 128 the plain K5 alone (hc 0, no density head,
 // fused stage, cotangent of u or y) on at least 128 input columns, 128
-// samples a CTA, so rp a multiple of 128 (dxs unused there). The weight-gradient operands go to the scratch sample-major,
+// samples a CTA, so rp a multiple of 128 (dxs unused there); past 256 and
+// up to kWideKin input columns the first-order K4 at width 256 with the
+// density head and f32 heads alone (the wide-input instance: hc 0, no
+// cotangent of u, fused stage, y or dx). The weight-gradient operands go to the scratch sample-major,
 // [rp][features] per region (h, zeta, s, p: [depth][rp][W]; x, ts:
 // [rp][kin]; cbar: [rp][hc]), for refnerf_wgrad_tma; the vector gradients
 // one row a CTA.
@@ -1071,6 +1371,10 @@ extern "C" int refnerf_trunk_bwd_tma(REFNERF_BWD_ARGS) {
   if (width == 128)
     return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr && p.ybar == nullptr
                ? launch_tma<0, false, false, false, 128>(p, hc, s)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (p.kin > kW)  // the wide-input instance: the heads alone, no dx
+    return hc == 0 && !dir && !spa && p.ybar == nullptr
+               ? launch_tma<0, false, false, false, kW, true>(p, hc, s)
                : static_cast<int>(cudaErrorInvalidValue);
   if (p.ybar != nullptr)
     return hc == 0 && !dir && !spa && p.ubar == nullptr

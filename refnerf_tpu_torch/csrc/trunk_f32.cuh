@@ -175,7 +175,6 @@ __device__ __forceinline__ void product_add(Block& acc, const float* a0, int K, 
 // The wide-input instances stream the trunk input through a k-major tile of
 // kChunk columns (35 KB) instead of holding all kin columns (139 KB at 512).
 constexpr int kChunk = 128;
-constexpr int kWideKin = 1024;  // the widest input those instances take
 
 // Columns [c0, c0 + kc) of the trunk input [x0 (d0) | x1 (d1) | zeros to kin]
 // of the tile's rows into the k-major [kc][kLD] tile t, zero past row n;

@@ -15,16 +15,21 @@
 // rounded to bf16 before the bf16 bias add, then ReLU; sigma and the f32
 // heads on f32(y); the bottleneck cdt(y wc^T) + cdt(bc); K3's chain q =
 // cdt(s_l Wa_l) with u_x summed in f32 over the skip layer and layer 0; y
-// the last activation in bf16), from the same C arguments. The float32
-// instances, and trunks past kMaxDepth layers or kW input columns, stay in
-// trunk_fwd_f32.cu and trunk_fwd.cu.
+// the last activation in bf16), from the same C arguments; and K1 on more
+// than kW and at most kWideKin input columns with sigma and the f32 heads
+// alone (`fwd_wide`: mip-NeRF 360's proposal MLP, 504 IPE columns;
+// trunk_fwd.cu's mma.sync design ran it before). The float32 instances, and trunks past
+// kMaxDepth layers or those input columns, stay in trunk_fwd_f32.cu and
+// trunk_fwd.cu.
 //
 // Bound on the H100: the products, ~1.09 MFLOP a sample for K1 and ~2.10
 // for K3 (0.57 / 1.10 TFLOP at N = 524,288; 0.58 / 1.12 ms at 989 TFLOP/s),
 // ~0.31 for K2 at width 128 (0.16 TFLOP, 0.17 ms); device memory carries
 // only the inputs and outputs (~0.1-0.3 GB, under 0.1 ms; K11's y 268 MB,
 // 0.08 ms). A 64-row tile reads each layer's weights (128 KB) from L2 for
-// 8.4 MFLOP, 64 FLOP a byte.
+// 8.4 MFLOP, 64 FLOP a byte. The proposal trunk (4 x 256 on 504 columns)
+// needs ~0.65 MFLOP a sample (0.342 TFLOP, 0.35 ms at N = 524,288) and
+// reads ~1 KB of input a sample (0.53 GB, 0.16 ms).
 //
 // Design (trunk_bwd_tma.cu's, whose building blocks are in hopper_tma.cuh).
 //  - Two consumer warpgroups and a producer warpgroup, one warp of which
@@ -100,12 +105,14 @@ struct FwdMaps {
 // acc[t] = A_t[64][K] B^T for the NT tiles t with B the next ceil(K / 64)
 // slices of the ring: each slice serves all NT tiles. A_t's K-slices s < n0
 // are the blocks of a0[t], the rest those of a1[t]. Otherwise as `product`
-// (hopper_tma.cuh). No wgmma sits on a branch: a warpgroup whose output
-// columns lie past a product's (the 128-wide bottleneck, u_x of kin <= 128)
-// multiplies the zero rows that TMA fills past a tensor map's extent.
+// (hopper_tma.cuh), `acc_in` too. No wgmma sits on a branch: a warpgroup
+// whose output columns lie past a product's (the 128-wide bottleneck, u_x
+// of kin <= 128) multiplies the zero rows that TMA fills past a tensor
+// map's extent.
 template <int NT>
 __device__ __forceinline__ void product_n(float (&acc)[NT][64], const uint32_t (&a0)[NT], int n0,
-                                          const uint32_t (&a1)[NT], int K, Ring& r) {
+                                          const uint32_t (&a1)[NT], int K, Ring& r,
+                                          int acc_in = 0) {
   const int wg = threadIdx.x >> 7;
   const int ns = (K + kBK - 1) / kBK;
   int prev = 0;
@@ -119,7 +126,7 @@ __device__ __forceinline__ void product_n(float (&acc)[NT][64], const uint32_t (
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
         wgmma128<0, 0>(acc[t], sw128_desc(a + 32 * kk, 16, 1024),
-                       sw128_desc(b + 32 * kk, 16, 1024), s | kk);
+                       sw128_desc(b + 32 * kk, 16, 1024), s | kk | acc_in);
     }
     wg_commit();
     if (s > 0) {
@@ -609,18 +616,225 @@ __device__ __forceinline__ void fwd_two_tiles(const FwdParams& p, const FwdMaps&
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide-input instance (WIDE): the spatial trunk at width 256 on more
+// than kW and at most kWideKin input columns, with sigma and the f32 heads
+// alone (no compute-dtype head, K3, fused stage or y): mip-NeRF 360's
+// proposal MLP, 504 IPE columns (kin 512 packed). The body above stages a
+// tile's raw segments in its activation tile and keeps the whole input
+// tile: at 512 columns that is 64.5 KB of staging and 64 KB of input a
+// tile, past shared memory at two tiles a CTA (NT = 2). Here, two tiles a
+// CTA, layer 0's input, and the skip layer's input share, stream in chunks
+// of CW = 128 columns through slots of two tiles: two buffers (64 KB, what a
+// 256-column instance's input tiles take) and, at layer 0, the activation
+// tiles too (free until its epilogue). A chunk's 8-byte cp.asyncs land straight in the swizzled
+// layout (`wide_chunk`) while the chunks before it run their products,
+// which sum into the accumulators (`product_n` with `acc_in`): at layer 0
+// the next three chunks are in flight (all four of 512 columns), at the
+// skip layer the next one. The next pass's first chunk (the skip
+// layer's, or the next unit's layer 0) lands during the layers between, and
+// the f32 heads' partial sums use buffer 1, idle from the last pass to the
+// next unit's. The producer walks the same `schedule` as the body above:
+// ceil(K / 64) slices a layer, in the order the chunks take them. The
+// layers' and heads' epilogues are the body's (K1's arithmetic and
+// roundings). One tile a CTA (256-column chunks, a 3-stage ring) ran the
+// PropMLP's trunk ~26% slower than two (PERF.md).
+__device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
+                                         unsigned char* smem) {
+  constexpr int NT = 2, CW = kW / NT, ChB = (CW / 64) * kBlk;  // tiles; a chunk: columns, bytes
+  const int kp = (p.kin + kBK - 1) / kBK * kBK, nc = (kp + CW - 1) / CW;
+  const int stages = m.stages, units = (p.n + NT * kRows - 1) / (NT * kRows);
+  const int nred = max(1 + p.hf, 4);
+  const bool skip = p.skip > 0 && p.skip < p.depth;
+  unsigned char* ring = smem;                         // stages x [256][64]
+  unsigned char* act0 = ring + stages * kSlice;       // NT x [64][256]: h_l
+  unsigned char* buf0 = act0 + NT * (kW / 64) * kBlk;  // 2 x NT x [64][CW]: input chunks
+  float* hw = reinterpret_cast<float*>(buf0 + 2 * NT * ChB);  // [1 + hf][256], where they fit
+  float* red0 = reinterpret_cast<float*>(buf0 + NT * ChB);    // NT x [2][kRows][nred]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(hw + (m.heads_in_smem ? (1 + p.hf) * kW : 0)) + 7) &
+      ~static_cast<uintptr_t>(7));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + stages), stages, 0, 0u};
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring_st.full + 8 * s, 1);
+      mbar_init(ring_st.empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kCons / 32) {  // the producer: weight slices, in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProdRegs));
+    if (warp == kCons / 32 && lane == 0)
+      for (int unit = blockIdx.x; unit < units; unit += gridDim.x)
+        schedule<0>(p, m, [&](const CUtensorMap* map, int row, int K) {
+          for (int k = 0; k < K; k += kBK) {
+            mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
+            mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
+            tma_load(ring_st.base + ring_st.stage * kSlice, map, ring_st.full + 8 * ring_st.stage,
+                     k, row);
+            ring_st.advance();
+          }
+        });
+    return;
+  }
+
+  // The consumers.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsRegs));
+  PHASE_START;
+  const int wg = tid >> 7, w4 = warp & 3;
+  const int fr = 16 * w4 + (lane >> 2);      // acc[t][4 j + 2 h + e]: row fr + 8 h,
+  const int fc = 128 * wg + 2 * (lane & 3);  // column fc + 8 j + e
+  const bf16* bias = static_cast<const bf16*>(p.b);
+  const bf16* x0 = static_cast<const bf16*>(p.x0);
+  const bf16* x1 = static_cast<const bf16*>(p.x1);
+  auto act = [&](int t) { return act0 + t * (kW / 64) * kBlk; };
+  auto buf = [&](int b, int t) { return buf0 + (b * NT + t) * ChB; };
+  // Slot k of tile t's chunk: the two buffers, then the activation tiles.
+  auto slot = [&](int k, int t) { return k < 2 ? buf(k, t) : act0 + ((k - 2) * NT + t) * ChB; };
+  uint32_t act_s[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) act_s[t] = smem_u32(act(t));
+  const float* wdp = p.wd;
+  const float* whp = p.wh;
+  if (m.heads_in_smem) {  // the f32 heads' weights, once a CTA
+    for (int i = tid; i < (1 + p.hf) * kW; i += kCons)
+      hw[i] = i < kW ? (p.wd != nullptr ? p.wd[i] : 0.f) : p.wh[i - kW];
+    wdp = hw;
+    whp = hw + kW;
+  }
+  float acc[NT][64];
+
+  // Chunk c of unit `unit`'s tiles in flight to slot k (one cp.async
+  // group a thread).
+  auto issue = [&](int unit, int c, int k) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int row0 = (unit * NT + t) * kRows;
+      wide_chunk<CW>(slot(k, t), x0, p.d0, x1, p.d1, c * CW, min(CW, kp - c * CW), row0,
+                     max(0, min(kRows, p.n - row0)), tid, kCons);
+    }
+    cp_async_commit();
+  };
+  // acc (+)= the input share of a layer, chunk by chunk through S slots
+  // (chunk c in slot c % S, the next S - 1 in flight during its products);
+  // chunk 0 is in flight at entry.
+  auto input_share = [&](int unit, int acc_in, int S) {
+    int issued = 1;
+    for (int c = 0; c < nc; ++c) {
+      // A slot's last products ended before a barrier.
+      for (; issued < min(nc, c + S); ++issued) issue(unit, issued, issued % S);
+      cp_async_wait_upto(issued - 1 - c);
+      fence_async_smem();
+      cons_sync();
+      PHASE_MARK(0, kScal);
+      uint32_t a[NT];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) a[t] = smem_u32(slot(c % S, t));
+      product_n<NT>(acc, a, CW / 64, a, min(CW, p.kin - c * CW), ring_st, acc_in | c);
+      cons_sync();  // both warpgroups' products have read the chunk
+      PHASE_MARK(1, kProd);
+    }
+  };
+
+  if (blockIdx.x < units) issue(blockIdx.x, 0, 0);
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    int row0[NT], rows[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      row0[t] = (unit * NT + t) * kRows;
+      rows[t] = max(0, min(kRows, p.n - row0[t]));
+    }
+    const int next = unit + gridDim.x;
+    cons_sync();  // the last unit's reads of every tile and buffer are done
+
+    // The layers: h_l = relu(cdt(cdt(acc) + b_l)) on bf16 pairs to the
+    // activation tiles (but the last, y) and kept in acc.
+    for (int l = 0; l < p.depth; ++l) {
+      if (l == 0 || l == p.skip) {
+        if (l > 0) product_n<NT>(acc, act_s, kW / 64, act_s, kW, ring_st);  // [h | x]: h first
+        input_share(unit, l > 0, l > 0 ? 2 : 4);
+        // The next pass's first chunk: the skip layer's, or the next unit's.
+        if (l == 0 && skip)
+          issue(unit, 0, 0);
+        else if (next < units)
+          issue(next, 0, 0);
+      } else {
+        product_n<NT>(acc, act_s, kW / 64, act_s, kW, ring_st);
+        PHASE_MARK(1, kProd);
+        cons_sync();  // both warpgroups' products have read the tiles
+      }
+      const bool keep = l + 1 < p.depth;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = fc + 8 * j;
+          const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + l * kW + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            const uint32_t v = bits2(__hmax2(
+                __hadd2(__floats2bfloat162_rn(acc[t][i], acc[t][i + 1]), bb),
+                __float2bfloat162_rn(0.f)));
+            if (keep) *reinterpret_cast<uint32_t*>(act(t) + sw_off(fr + 8 * h, c)) = v;
+            acc[t][i] = __uint_as_float(v << 16);
+            acc[t][i + 1] = __uint_as_float(v & 0xffff0000u);
+          }
+        }
+      fence_async_smem();
+      cons_sync();
+      PHASE_MARK(1, kScal);
+    }
+
+    // sigma = f32(y) wd and the f32 heads f32(y) wh^T + bh from the
+    // registers, the two warpgroups' halves summed by a thread an output.
+    const int nh = 1 + p.hf;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      float* rw = red0 + (t * 2 + wg) * kRows * nred;
+      if (p.wd != nullptr) head_part(acc[t], wdp, fc, fr, rw, nred, 0);
+      for (int k = 0; k < p.hf; ++k) head_part(acc[t], whp + k * kW, fc, fr, rw, nred, 1 + k);
+    }
+    cons_sync();
+    for (int t = 0; t < NT; ++t) {
+      const float* rd = red0 + t * 2 * kRows * nred;
+      for (int i = tid; i < rows[t] * nh; i += kCons) {
+        const int r = i / nh, k = i - r * nh;
+        const size_t gr = static_cast<size_t>(row0[t] + r);
+        const float s = rd[r * nred + k] + rd[(kRows + r) * nred + k];
+        if (k == 0) {
+          if (p.wd != nullptr) p.sig[gr] = s;
+        } else {
+          p.hout[gr * p.hf + k - 1] = s + p.bh[k - 1];
+        }
+      }
+    }
+    PHASE_MARK(2, kStore);
+  }
+}
+
 // YO: K11, y stored from the registers after the last layer. W: the
 // trunk width, 256, or 128 for the plain directional trunk alone
 // (`fwd_two_tiles`; the rest of this body is width 256's).
-template <int HC, bool DIR, bool SPA, int NT, bool YO = false, int W = kW>
+template <int HC, bool DIR, bool SPA, int NT, bool YO = false, int W = kW, bool WIDE = false>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     trunk_fwd_tma_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ FwdMaps m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K2 alone");
   static_assert(!YO || (HC == 0 && !DIR && !SPA && NT == 2), "K11: the spatial trunk alone");
+  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA && !YO && NT == 2),
+                "wide: sigma, f32 heads, two tiles");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   if constexpr (W != kW) {
     fwd_two_tiles<W>(p, m, smem);
+    return;
+  }
+  if constexpr (WIDE) {
+    fwd_wide(p, m, smem);
     return;
   }
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
@@ -1063,6 +1277,54 @@ int launch_fwd_tma_w128(const FwdParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of a launch of the wide-input instance (`fwd_wide`, two
+// tiles at a time) through a ring of `stages` slices, without the f32
+// heads' weights (`heads`): two activation tiles and two buffers of two
+// 128-column chunks. fused_mlp.py `kernel_smem` mirrors this sum.
+size_t fwd_wide_smem(const FwdParams& p, int stages, size_t& heads) {
+  heads = 4 * static_cast<size_t>(1 + p.hf) * kW;
+  return 1024 + static_cast<size_t>(stages) * kSlice + 4 * (kW / 64) * kBlk + 8 + 16 * stages;
+}
+
+// The wide-input instance: persistent CTAs of two tiles, the deepest ring
+// that fits, then the heads' weights if they fit too.
+int launch_fwd_tma_wide(const FwdParams& p, cudaStream_t stream) {
+  constexpr int NT = 2;
+  FwdMaps m;
+  memset(&m, 0, sizeof(m));
+  const bf16* w = static_cast<const bf16*>(p.w);
+  size_t off = 0;
+  bool ok = true;
+  for (int l = 0; l < p.depth; ++l) {
+    const int K = l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
+    ok = ok && make_map(&m.w[l], w + off, K, kW, K, kW);
+    off += static_cast<size_t>(kW) * K;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  size_t heads = 0, smem = 0;
+  int stages = kStages;
+  for (; stages >= 2; --stages) {
+    smem = fwd_wide_smem(p, stages, heads);
+    if (smem <= 232448) break;
+  }
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
+  m.stages = stages;
+  m.tiles = NT;
+  m.heads_in_smem = smem + heads <= 232448;
+  if (m.heads_in_smem) smem += heads;
+  auto* kernel = trunk_fwd_tma_kernel<0, false, false, NT, false, kW, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = (p.n + NT * kRows - 1) / (NT * kRows);
+  kernel<<<units < sms ? units : sms, kFwdThreads, smem, stream>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry for ctypes, with refnerf_trunk_fwd's arguments (trunk_fwd.cu):
@@ -1070,18 +1332,24 @@ int launch_fwd_tma_w128(const FwdParams& p, cudaStream_t stream) {
 // and kMaxHeads f32 heads; at width 256 K1/K3 (hc 128 or 0; with K6/K7, hc
 // 128), K2 (hc 0; with K8-K10) and K11 (y: hc 0, no K3 or fused stage), at
 // width 128 the plain K2 alone (hc 0, no density head, K3, fused stage or
-// y). Returns the cudaError_t of the launch (0 on success); allocates
-// nothing and does not synchronise.
+// y); past kW and up to kWideKin input columns the spatial trunk at width
+// 256 with sigma and the f32 heads alone (the wide-input instance: hc 0, no
+// K3, fused stage or y). Returns the cudaError_t of the launch (0 on
+// success); allocates nothing and does not synchronise.
 extern "C" int refnerf_trunk_fwd_tma(REFNERF_FWD_ARGS) {
   FwdParams p;
   const int err = fwd_params(p, REFNERF_FWD_NAMES);
   if (err != 0) return err;
   if (dtype != 1 || (width != kW && width != 128) || depth < 1 || depth > kMaxDepth ||
-      kin > kW || hf > kMaxHeads)
+      kin > kWideKin || hf > kMaxHeads)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
+  if (kin > kW)
+    return width == kW && hc == 0 && !dir && !spa && u == nullptr && y == nullptr
+               ? launch_fwd_tma_wide(p, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (width == 128)
     return hc == 0 && !dir && !spa && u == nullptr && wd == nullptr && y == nullptr
                ? launch_fwd_tma_w128(p, s)

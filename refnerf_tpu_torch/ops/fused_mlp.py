@@ -99,11 +99,17 @@ _KSPLIT_TMA = 2048
 _TMA_DEPTH = 8
 _TMA_KIN = 256
 _TMA_HEADS = 16
-# The wide-input instances of trunk_fwd_f32.cu and trunk_bwd_f32.cu (f32,
-# width 256, the density head and f32 heads alone: `wide_input`) take past
-# _TMA_KIN up to this many input columns, streamed in chunks of _CHUNK.
+# The wide-input instances (width 256, the density head and f32 heads
+# alone: `wide_input`) of trunk_fwd_f32.cu and trunk_bwd_f32.cu (f32) and
+# of trunk_fwd_tma.cu and trunk_bwd_tma.cu (bf16) take past _TMA_KIN up to
+# this many input columns, streamed in chunks of columns: _CHUNK in f32,
+# _WIDE_CHUNK in bf16.
 _WIDE_KIN = 1024
 _CHUNK = 128
+_WIDE_CHUNK = 128
+# The library of each direction's TMA kernels, by compute dtype.
+FWD_LIBRARY = {'bfloat16': 'trunk_fwd_tma', 'float32': 'trunk_fwd_f32'}
+BWD_LIBRARY = {'bfloat16': 'trunk_bwd_tma', 'float32': 'trunk_bwd_f32'}
 # Shared memory a CTA may use on an H100 (227 KB): a launch that needs more
 # is refused by its C entry (cudaErrorInvalidConfiguration).
 SMEM_LIMIT = 232448
@@ -877,12 +883,15 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   to run `pack` in the modes given (the density gradient with `fold`, K6
   and K7 by `sp`), mirroring the sum of its C launch; the libraries whose
   ring adapts give the bytes at the deepest ring that fits, or at their
-  shallowest ring, past SMEM_LIMIT, when none does. None for
-  trunk_fwd_tma.cu and trunk_bwd_tma.cu: within their shapes (8 layers,
-  256 input columns, 16 f32 heads) their largest sums (228,904 B: K3 with
-  K6 on 1,024-row rays at the 2-stage ring; 223,624 B; 194,120 B for the
-  two-tile width-128 backward; 230,472 B for the two-tile width-128
-  forward on 256 input columns at the 4-stage ring) fit."""
+  shallowest ring, past SMEM_LIMIT, when none does. For trunk_fwd_tma.cu
+  and trunk_bwd_tma.cu only their wide-input instances' sums
+  (`fwd_wide_smem`, `tma_smem`; 231,480 B and 210,248 B for the PropMLP's
+  trunk of depth 4 on 504 columns): None for their other instances, whose
+  largest sums within their shapes (8 layers, 256 input columns, 16 f32
+  heads: 228,904 B, K3 with K6 on 1,024-row rays at the 2-stage ring;
+  223,624 B; 194,120 B for the two-tile width-128 backward; 230,472 B for
+  the two-tile width-128 forward on 256 input columns at the 4-stage ring)
+  fit."""
   W, kin, L = pack.width, pack.kin, pack.depth
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = fold is not None
@@ -895,6 +904,24 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     fit = (SMEM_LIMIT - rest) // stage if rest < SMEM_LIMIT else 0
     return rest + max(lo, min(fit, hi)) * stage
 
+  if lib == 'trunk_fwd_tma' and kin > _TMA_KIN:
+    # The wide-input instance (`fwd_wide_smem`): the activation tiles and
+    # two buffers of chunks (64 KB each), the deepest ring of [256][64]
+    # bf16 slices that fits (4 to 2), then the heads' weights if they fit
+    # too.
+    rest = 1024 + 2 * 65536 + 8
+    for stages in (4, 3, 2):
+      need = rest + stages * (256 * 128 + 16)
+      if need <= SMEM_LIMIT:
+        break
+    heads = 4 * (1 + hf) * 256
+    return need + heads if need + heads <= SMEM_LIMIT else need
+  if lib == 'trunk_bwd_tma' and kin > _TMA_KIN:
+    # The wide-input instance (`tma_smem`): the 4-stage ring, the
+    # activation tile, two chunks of _WIDE_CHUNK columns, the relu' masks,
+    # the column sums' and the cotangents' rows.
+    return (1024 + 4 * 256 * 128 + (4 + 2 * _WIDE_CHUNK // 64) * 8192 +
+            8 * L * 256 + 4 * 4 * 256 + 4 * _TILE * (1 + hf) + 8 + 16 * 4)
   if lib in ('trunk_fwd_f32', 'trunk_bwd_f32') and kin > _TMA_KIN:
     # The wide-input instances (`fwd_f32_wide_smem`, `f32_wide_smem`): the
     # activation tile and an input chunk of _CHUNK columns, [.][68] f32.
@@ -930,14 +957,15 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
 
 def wide_input(pack: TrunkPack, y: bool = False, fold=None,
                sp: SpaModes = SpaModes()) -> bool:
-  """Whether `pack` runs on the wide-input instances of trunk_fwd_f32.cu
-  and trunk_bwd_f32.cu: the f32 spatial trunk at width 256 within
-  `_TMA_DEPTH` layers on more than `_TMA_KIN` and at most `_WIDE_KIN` input
-  columns, with the density head and at most `_TMA_HEADS` f32 heads alone
-  (no compute-dtype head, density gradient, fused stage or y): a proposal
-  MLP on JAX's default encoding (504 IPE columns)."""
+  """Whether `pack` runs on the wide-input instances (trunk_fwd_f32.cu and
+  trunk_bwd_f32.cu in f32, trunk_fwd_tma.cu and trunk_bwd_tma.cu in bf16):
+  the spatial trunk at width 256 within `_TMA_DEPTH` layers on more than
+  `_TMA_KIN` and at most `_WIDE_KIN` input columns, with the density head
+  and at most `_TMA_HEADS` f32 heads alone (no compute-dtype head, density
+  gradient, fused stage or y): a proposal MLP on JAX's default encoding
+  (504 IPE columns)."""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
-  return (pack.compute_dtype == 'float32' and pack.width == 256 and
+  return (pack.width == 256 and
           pack.depth <= _TMA_DEPTH and _TMA_KIN < pack.kin <= _WIDE_KIN and
           hf <= _TMA_HEADS and pack.wd is not None and pack.wc is None and
           not y and fold is None and not (sp.scales or sp.samples))
@@ -952,13 +980,13 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   256 with K11's y too) or 'trunk_fwd_f32' (f32, without K11's y:
   register-blocked FMA products fed by TMA, where its shared memory holds
   the trunk: K3 on at most 192 input columns); past `_TMA_KIN` input
-  columns the f32 spatial trunk of `wide_input` on 'trunk_fwd_f32' too;
-  every other shape with an instance 'trunk_fwd'. (Width 128 runs the plain
-  directional trunk alone: `missing_instance` refuses its other modes
-  first.)"""
+  columns the spatial trunk of `wide_input` on the same two (their
+  wide-input instances); every other shape with an instance 'trunk_fwd'.
+  (Width 128 runs the plain directional trunk alone: `missing_instance`
+  refuses its other modes first.)"""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   if wide_input(pack, out_y, fold, sp):
-    return 'trunk_fwd_f32'
+    return FWD_LIBRARY[pack.compute_dtype]
   if (pack.width not in (256, 128) or pack.depth > _TMA_DEPTH or
       pack.kin > _TMA_KIN or hf > _TMA_HEADS or
       (out_y and (pack.width != 256 or pack.compute_dtype != 'bfloat16'))):
@@ -974,7 +1002,8 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
 def tma_forward(pack: TrunkPack, out_y: bool = False) -> bool:
   """Whether the forward of `pack` runs trunk_fwd_tma.cu's kernel (bf16 at
   width 256 or 128, within `_TMA_DEPTH` layers, `_TMA_KIN` input columns
-  and `_TMA_HEADS` f32 heads; K11's y at width 256: `forward_library`)."""
+  and `_TMA_HEADS` f32 heads; K11's y at width 256; the bf16 trunk of
+  `wide_input`: `forward_library`)."""
   return forward_library(pack, out_y) == 'trunk_fwd_tma'
 
 
@@ -986,11 +1015,12 @@ def backward_library(pack: TrunkPack, y: bool = False, fold=None) -> str:
   input columns, whose tile keeps the skip layer's zeta) or 'trunk_bwd_f32'
   (f32: register-blocked FMA products fed by TMA; at width 128 where its
   shared memory holds the trunk: at most 192 input columns); past
-  `_TMA_KIN` input columns the f32 spatial trunk of `wide_input` (without
-  y's cotangent `y` or u's, `fold`) on 'trunk_bwd_f32' too; every other
-  shape with an instance (deeper, wider or narrower trunks) 'trunk_bwd'."""
+  `_TMA_KIN` input columns the spatial trunk of `wide_input` (without y's
+  cotangent `y` or u's, `fold`) on the same two (their wide-input
+  instances); every other shape with an instance (deeper, wider or
+  narrower trunks) 'trunk_bwd'."""
   if wide_input(pack, y, fold):
-    return 'trunk_bwd_f32'
+    return BWD_LIBRARY[pack.compute_dtype]
   if (pack.width in (256, 128) and pack.depth <= _TMA_DEPTH and
       pack.kin <= _TMA_KIN):
     if pack.compute_dtype == 'bfloat16':
@@ -1035,7 +1065,8 @@ def bwd_scratch_rows(route: str, width: int, rows: int) -> int:
 
 def tma_backward(pack: TrunkPack) -> bool:
   """Whether the backward of `pack` runs trunk_bwd_tma.cu's kernels (bf16
-  at width 256, within `_TMA_DEPTH` layers and `_TMA_KIN` input columns)."""
+  at width 256 or 128, within `_TMA_DEPTH` layers and `_TMA_KIN` input
+  columns; the bf16 trunk of `wide_input`: `backward_library`)."""
   return backward_library(pack) == 'trunk_bwd_tma'
 
 

@@ -8,29 +8,33 @@ with the checkouts to compare unpacked (git archive) in ignored directories:
     python3 -m refnerf_tpu_torch.tools.ab_trees --arm p=_chip/p \\
         --arm c=_chip/c --order p,c,p,c,p,c --out chiprun_out/ab \\
         [--checks check_train_kernels,check_dir_kernels,check_spa_kernels,
-                  serve_requests,train_steps,forward_kernels,
-                  backward_kernels] [--dtype float32]
+                  serve_requests,train_steps,cascade_steps,
+                  forward_kernels,backward_kernels] [--dtype float32]
 
 First every checkout builds its kernels into its own build/, all at once.
 Then each run of --order (none without it) is a process of its own in its
 checkout's root: it imports that checkout's chip_smoke.py and runs the
 functions of --checks (phase 5's check_train_kernels by default; phase 7's
 check_dir_kernels and phase 9's check_spa_kernels time K5 with K8-K10 and K4
-with K6/K7). `serve_requests`, `train_steps`, `forward_kernels` and
-`backward_kernels` are this tool's own, the same code in every checkout: in
+with K6/K7). `serve_requests`, `train_steps`, `cascade_steps`,
+`forward_kernels` and `backward_kernels` are this tool's own, the same code
+in every checkout: in
 `serve_requests` phase 10's model (all six fuse flags) and phase 12's two
 mip-NeRF models, their trunks in --dtype (bfloat16 by default; float32 is
 the gins' own, phase 14's), each answer a 4096-ray request, timed on the
 host clock under fused_trunk='auto' ("kernel") and 'off' ("plain"), with
 one request's device-busy time from torch.profiler; in `train_steps` phase
 10's model and mip-NeRF as shipped take train steps at batch 4096 the same
-way, their trunks in --dtype (float32: phase 13's and phase 15's);
+way, their trunks in --dtype (float32: phase 13's and phase 15's); in
+`cascade_steps` phase 19's cascade, (b) in float32 and (c) in bf16 with
+the six fuse flags, takes train steps and answers a 4096-ray request the
+same way (under 'on' and 'off'; --dtype not read);
 `forward_kernels` holds every forward case
-of phases 3, 5, 7, 9 and 11 (K2 at width 128 and K11 included) in --dtype
-against its plain version
+of phases 3, 5, 7, 9 and 11 (K2 at width 128 and K11 included) and phase
+19's proposal trunk (K1 wide) in --dtype against its plain version
 (chip_smoke.compare) without their backward cases, `backward_kernels`
-every backward case of phases 5, 7, 9 and 11 in --dtype without their
-forward cases. Each run's output goes to --out.
+every backward case of phases 5, 7, 9, 11 and 19 (K4 wide) in --dtype
+without their forward cases. Each run's output goes to --out.
 Printed: every case's kernel and plain times (and device busy, where
 measured) per arm in run order and their medians; then, per
 library, whether each kernel instance of the first arm has the same SASS
@@ -180,10 +184,99 @@ def train_steps(fused_mlp, dev, reps=10, reps_off=2):
     torch.cuda.empty_cache()
 
 
+def cascade_steps(fused_mlp, dev, reps=10, reps_off=2):
+  """Phase 19's cascade (the flagship over mip-NeRF 360's proposal
+  cascade, from chip_smoke.cascade_setup on a sphere scene as phase 19
+  writes it): (b) float32 at the gin's batch of 1024 and (c) bf16 with the
+  six fuse flags at batch 4096, each after 3 warm-up steps: the median wall
+  ms of `reps` train steps under fused_trunk='on' and of `reps_off` under
+  'off', the device-busy ms of one 'on' step; then a 4096-ray request
+  likewise (`reps` under 'on', `reps_off` under 'off', one profiled), in
+  chip_smoke's line format. Ignores the run's DTYPE. Uses only what every
+  checkout's chip_smoke has since phase 19 came in."""
+  import os
+  import shutil
+  import statistics
+  import tempfile
+  import time
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  import chip_smoke
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.data import prefetch
+  from refnerf_tpu_torch.models import renderer
+  from refnerf_tpu_torch.tools import sphere_scene
+
+  def timed(fn, n):
+    times = []
+    for _ in range(n):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      fn()
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+  def busy_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    return sum(getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+  root = tempfile.mkdtemp(prefix='ab_cascade_')
+  try:
+    scene = sphere_scene.make_scene(
+        os.path.join(root, 'scene'), chip_smoke.CASCADE_TRAIN,
+        chip_smoke.CASCADE_TEST, chip_smoke.CASCADE_RES)
+    for cdt, bindings in (
+        ('float32', []),
+        ('bfloat16', [*chip_smoke.FUSE, *chip_smoke.SPATIAL,
+                      f'Config.batch_size = {chip_smoke.TRAIN_BATCH}'])):
+      run = chip_smoke.cascade_setup(dev, scene, None if cdt == 'float32'
+                                     else cdt, bindings)
+      model, config = run['model'], run['config']
+      batches = prefetch.training_batches(run['ds'], device=dev)
+      batch = next(batches)
+      batches.close()
+      box = {'state': run['state']}
+
+      def step():
+        box['state'], _ = run['train_step'](box['state'], batch,
+                                            run['cameras'])
+
+      rays = chip_smoke.random_rays(rays_lib, 4096, config, 19, dev)
+      request = lambda: renderer.render_rays(model, rays,
+                                             config.render_chunk_size)
+      for what, fn in (('train step', step), ('request', request)):
+        wall = {}
+        for mode, n in (('on', reps), ('off', reps_off)):
+          chip_smoke.set_mode(model, fused_trunk=mode)
+          for _ in range(3 if mode == 'on' else 1):
+            fn()
+          wall[mode] = timed(fn, n)
+        chip_smoke.set_mode(model, fused_trunk='on')
+        busy = busy_ms(fn)
+        n = config.batch_size if fn is step else rays.shape[0]
+        print(f'phase 19: cascade {what} {cdt} N={n}: kernel '
+              f'{wall["on"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
+              f'{busy:.3f} ms', flush=True)
+      del run, model, box, batch
+      torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def forward_kernels(fused_mlp, dev):
   """Every forward case of chip_smoke's phases 3 (K1, K2), 5 (K3), 7 (K8,
-  K8+K9, K10, all three), 9 (K7, K7+K3, K6+K7, K6+K3, K6+K7+K3) and 11 (K1
-  hf=0, K2 W128, K11) in the run's DTYPE against its plain version at
+  K8+K9, K10, all three), 9 (K7, K7+K3, K6+K7, K6+K3, K6+K7+K3), 11 (K1
+  hf=0, K2 W128, K11) and 19 (K1 wide: the proposal trunk of depth 4 on
+  504 columns) in the run's DTYPE against its plain version at
   chip_smoke's N,
   through chip_smoke.compare (which prints each case's kernel and plain
   ms). Uses only what every checkout's chip_smoke has."""
@@ -262,13 +355,22 @@ def forward_kernels(fused_mlp, dev):
                flops=cs.trunk_flops(ws, n, cs.n_heads(kw)),
                y=0 if y else None)
     del segs, ws, bs, kw, pack
+  segs, ws, bs, kw = cs.prop_case(fused_mlp, gen, dev, 4, cdt)
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  cs.compare('K1 wide', cdt, lambda: fused_mlp.trunk_kernel(segs, pack),
+             lambda: fused_mlp.trunk_reference(segs, ws, bs,
+                                               compute_dtype=cdt, **kw),
+             n_values=1, phase=19, inputs=segs + cs.pack_tensors(pack),
+             flops=cs.trunk_flops(ws, n, 1))
+  del segs, ws, bs, kw, pack
   torch.cuda.empty_cache()
 
 
 def backward_kernels(fused_mlp, dev):
   """Every backward case of chip_smoke's phases 5 (K4, K5), 7 (K8+K9+K10),
-  9 (K6+K7+K4) and 11 (K11, K4 first-order, K5 W128) in the run's DTYPE
-  against its plain version at chip_smoke's N, through chip_smoke.compare
+  9 (K6+K7+K4), 11 (K11, K4 first-order, K5 W128) and 19 (K4 wide: the
+  proposal trunk of depth 4 on 504 columns) in the run's DTYPE against its
+  plain version at chip_smoke's N, through chip_smoke.compare
   (which prints each case's kernel and plain ms). Uses only what every
   checkout's chip_smoke has."""
   import torch
@@ -344,12 +446,23 @@ def backward_kernels(fused_mlp, dev):
              flops=cs.trunk_flops(ws, n, cs.n_heads(kw), density_grad=True,
                                   backward=True),
              f32_flops=cs.spa_flops(True, True, True, True))
+  del segs, ws, bs, pack, cots
+  segs, ws, bs, kw = cs.prop_case(fused_mlp, gen, dev, 4, cdt)
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  cots = (rand(n), None, None, None)
+  cs.compare('K4 wide', cdt,
+             lambda: fused_mlp.trunk_backward_kernel(segs, pack, cots),
+             lambda: fused_mlp.trunk_backward_reference(
+                 segs, ws, bs, cots, compute_dtype=cdt, **kw),
+             n_values=0, iters=3, phase=19,
+             inputs=segs + cs.pack_tensors(pack) + [cots[0]],
+             flops=cs.trunk_flops(ws, n, 1, backward=True))
   torch.cuda.empty_cache()
 
 
 # Run in every checkout.
-OWN = {f.__name__: f for f in (serve_requests, train_steps, forward_kernels,
-                               backward_kernels)}
+OWN = {f.__name__: f for f in (serve_requests, train_steps, cascade_steps,
+                               forward_kernels, backward_kernels)}
 BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
 # Trailing template arguments at their defaults, as cu++filt prints them: a
 # false flag, or the trunk width 256.

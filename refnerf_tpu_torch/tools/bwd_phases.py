@@ -25,9 +25,10 @@ each segment, closed by a barrier, to a (phase, kind) sum; kinds are the
 products, the scalar passes and the stores (the backward's scratch, the
 forward's outputs). Then, at N = 524,288 samples in --dtype and for each
 case (backward: K4 with the cotangent of u, alone and with K6+K7; K5 with
-dx, alone and with K8+K9+K10; first-order K4; K5 at width 128; forward: K3
-alone and with K6+K7, K1 alone and with K6+K7, K2 alone and with
-K8+K9+K10, K2 at width 128, K11 with y out; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
+dx, alone and with K8+K9+K10; first-order K4; K5 at width 128; K4 wide,
+the proposal trunk on 504 columns; forward: K3 alone and with K6+K7, K1
+alone and with K6+K7, K2 alone and with K8+K9+K10, K2 at width 128, K11
+with y out, K1 wide; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
 per-tile (and for the backward the weight-gradient and reduction) kernels
 under torch.profiler through the phase build and through the normal one.
 Each
@@ -111,9 +112,11 @@ def device_ms(run, kernels=KERNELS, calls=2):
 
 def cases(chip_smoke, fused_mlp, dev, cdt):
   """(name, backward call) at chip_smoke's N in `cdt`: phase 5's K4 and K5,
-  phase 9's K6+K7+K4, phase 7's K8+K9+K10 backward and phase 11's
+  phase 9's K6+K7+K4, phase 7's K8+K9+K10 backward, phase 11's
   first-order K4 (mip-NeRF's spatial trunk, no cotangent of u) and K5 W128
-  (mip-NeRF's width-128 directional trunk with dx)."""
+  (mip-NeRF's width-128 directional trunk with dx), and phase 19's K4 wide
+  (the proposal trunk of depth 4 on 504 columns, the wide-input
+  instance)."""
   tdt = fused_mlp.DTYPES[cdt]
   gen = torch.Generator().manual_seed(chip_smoke.SEED + 1)
   n = chip_smoke.N_SAMPLES
@@ -160,13 +163,18 @@ def cases(chip_smoke, fused_mlp, dev, cdt):
   pack = fused_mlp.pack_trunk(ws, bs, (128, 33), compute_dtype=cdt, **kw)
   yield 'K5 W128', lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots5,
                                                            needs_dx=True)
+  segs, ws, bs, kw = chip_smoke.prop_case(fused_mlp, gen, dev, 4, cdt)
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  cotsw = (rand(n), None, None, None)
+  yield 'K4 wide', lambda: fused_mlp.trunk_backward_kernel(segs, pack, cotsw)
 
 
 def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
   """(name, forward call) at chip_smoke's N in `cdt`: phase 9's K6+K7+K3,
   phase 5's K3, the served K6+K7 on K1, phase 3's K1 and K2, phase 7's
-  K8+K9+K10, and phase 11's K2 W128 (mip-NeRF's width-128 directional
-  trunk) and K11 (mip-NeRF's spatial trunk with its features y out)."""
+  K8+K9+K10, phase 11's K2 W128 (mip-NeRF's width-128 directional trunk)
+  and K11 (mip-NeRF's spatial trunk with its features y out), and phase
+  19's K1 wide (the proposal trunk of depth 4 on 504 columns)."""
   tdt = fused_mlp.DTYPES[cdt]
   gen = torch.Generator().manual_seed(chip_smoke.SEED + 1)
   fold = torch.as_tensor(fused_mlp.ipe_scale_fold(chip_smoke.SCALES, 3),
@@ -203,6 +211,9 @@ def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
   cs5 = [s.to(tdt) for s in segs]
   pack5 = fused_mlp.pack_trunk(ws, bs, (48, 48), compute_dtype=cdt, **kw)
   yield 'K11', lambda: fused_mlp.trunk_kernel(cs5, pack5, out_y=True)
+  segs6, ws, bs, kw = chip_smoke.prop_case(fused_mlp, gen, dev, 4, cdt)
+  pack6 = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  yield 'K1 wide', lambda: fused_mlp.trunk_kernel(segs6, pack6)
 
 
 def main():
@@ -238,7 +249,7 @@ def main():
   print(f'built in {time.perf_counter() - t0:.1f} s', flush=True)
   patched = lambda name: phased if name == a.lib else normal(name)
   if a.lib == 'trunk_bwd':
-    fused_mlp.backward_library = lambda pack: 'trunk_bwd'
+    fused_mlp.backward_library = lambda *a, **k: 'trunk_bwd'
   if a.lib == 'trunk_fwd':
     fused_mlp.forward_library = lambda pack, *modes, **kw: 'trunk_fwd'
   forward = a.lib.startswith('trunk_fwd')

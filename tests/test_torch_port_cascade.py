@@ -14,14 +14,15 @@ samples, the PropMLP at its real 504 columns.
   and `sample_intervals` given JAX's own offsets;
 - the plain spatial trunk at 504 columns, density only (depth 4, and 8
   with the skip at layer 5), against JAX `fused_encoded_trunk` in interpret
-  mode: values and `jax.grad`, f32 and bf16;
+  mode: values and `jax.grad`, f32 and bf16; and in bf16 at 672 columns;
 - the 3-level model served (with and without a ray warp), and two train
   steps of the configuration, against JAX, deterministic
   (`Config.randomized = False`) and stochastic with JAX's draws handed to
   the port (density, specular-density and bottleneck noise and a random
   background included);
-- the new f32 wide-input kernel instance's routing and launch counts, with
-  the kernel stubbed by the plain version.
+- the wide-input kernel instances' routing and launch counts (f32 and
+  bf16), with the kernels stubbed by the plain versions, and the bf16
+  instances' ctypes argument lists against `cuda_build.EXPORTS`.
 
 Tolerances: 1e-5 in float32 where JAX's own pins use it (the warps, the
 stepfun ops, the served renders, the loss terms), the trunk's gradients 1e-4
@@ -224,12 +225,24 @@ def test_density_only_trunk_at_504_columns_matches_pallas(depth, cdt, tol):
   # skip) and 8 (the input again at layer 5). sigma within tol of its
   # largest value, and every gradient of a loss of sigma within tol of its
   # largest entry, against JAX in interpret mode.
+  _density_only_trunk_matches_pallas(depth, cdt, tol, 12)
+
+
+@pytest.mark.parametrize('depth', [4, 8])
+def test_density_only_trunk_at_672_columns_matches_pallas(depth):
+  # The same trunk at a second wide width, in bf16: 21 basis vectors x 16
+  # degrees, two segments of 336 (kin 672, six 128-column chunks of the
+  # bf16 wide-input forward, the last one half full), against JAX.
+  _density_only_trunk_matches_pallas(depth, 'bfloat16', 5e-2, 16)
+
+
+def _density_only_trunk_matches_pallas(depth, cdt, tol, degrees):
   rng = np.random.default_rng(depth)
   lead = (5, 13)
   lm = rng.uniform(-1.5, 1.5, lead + (21,)).astype(np.float32)
   lv = (10.0**rng.uniform(-6, -2, lead + (21,))).astype(np.float32)
-  scales = 2.0**np.arange(0, 12)
-  ks, bs, wd, bd = _prop_trunk_params(rng, depth)
+  scales = 2.0**np.arange(0, degrees)
+  ks, bs, wd, bd = _prop_trunk_params(rng, depth, fin=42 * degrees)
 
   def jloss(q):
     sig = jfused.fused_encoded_trunk(
@@ -502,27 +515,32 @@ def _stubbed_kernels(monkeypatch):
   return routes
 
 
-def test_wide_instance_routes_and_counts(monkeypatch):
-  # The PropMLP at 256 wide in f32 (the configuration's): with the kernels
-  # stubbed by the plain versions on the pack's own weights, its forward
-  # goes to trunk_fwd_f32.cu's wide-input instance and its backward to
-  # trunk_bwd_f32.cu's (both counted under 'K1 wide' / 'K4 wide': 2 a step,
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_wide_instance_routes_and_counts(monkeypatch, cdt):
+  # The PropMLP at 256 wide, in f32 (the configuration's) and in bf16: with
+  # the kernels stubbed by the plain versions on the pack's own weights,
+  # its forward goes to the wide-input instance of trunk_fwd_f32.cu (f32)
+  # or trunk_fwd_tma.cu (bf16) and its backward to trunk_bwd_f32.cu's or
+  # trunk_bwd_tma.cu's (both counted under 'K1 wide' / 'K4 wide': 2 a step,
   # one a proposal level), the NerfMLP's to the same libraries' width-256
   # instances; a step under 'on' equals 'off' to the bit; and no shape of
   # the step is without an instance.
   routes = _stubbed_kernels(monkeypatch)
+  fwd, bwd = fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt]
   bindings = CASCADE + [
       'NerfMLP.net_depth = 2', 'NerfMLP.net_depth_viewdirs = 2',
       'NerfMLP.bottleneck_width = 128', 'Model.num_prop_samples = 8',
       'Model.num_nerf_samples = 8', 'Config.batch_size = 4',
-      'Config.randomized = False']
+      'Config.randomized = False', f"NerfMLP.compute_dtype = '{cdt}'",
+      f"PropMLP.compute_dtype = '{cdt}'"]
   runs = {}
   for mode in ('on', 'off'):
     config, gin = configs.parse([GIN], bindings + [
         f"NerfMLP.fused_trunk = '{mode}'", f"PropMLP.fused_trunk = '{mode}'"])
     model = construct.construct_model(config, gin, 'cpu')
     pack = fused_mlp.pack_trunk(*model.prop_mlp._stack('spatial', 4),
-                                (252, 252), wd=model.prop_mlp.raw_density.weight)
+                                (252, 252), wd=model.prop_mlp.raw_density.weight,
+                                compute_dtype=cdt)
     assert pack.kin == 512 and fused_mlp.wide_input(pack)
     assert fused_mlp.missing_instance(pack, 0) is None
     r = _rays_np(4, 3)
@@ -538,9 +556,8 @@ def test_wide_instance_routes_and_counts(monkeypatch):
   assert n_off == {k: 0 for k in n_off}
   assert n_on['K1 wide'] == n_on['K4 wide'] == 2 == n_on['K1']
   assert n_on['K3'] == n_on['K2'] == n_on['K5'] == 1 and n_on['K4'] == 3
-  assert ('fwd', 512, 'trunk_fwd_f32') in routes
-  assert ('bwd', 512, 'trunk_bwd_f32') in routes
-  assert {lib for _, _, lib in routes} == {'trunk_fwd_f32', 'trunk_bwd_f32'}
+  assert ('fwd', 512, fwd) in routes and ('bwd', 512, bwd) in routes
+  assert {lib for _, _, lib in routes} == {fwd, bwd}
   assert torch.equal(on['loss'], off['loss'])
   for k, v in p_on.items():
     assert torch.equal(v, p_off[k]), k
@@ -552,14 +569,20 @@ def test_wide_instance_routes_and_counts(monkeypatch):
     ('f32 density gradient', 'trunk_fwd', 'trunk_fwd'),
     ('f32 bottleneck head', 'trunk_fwd', 'trunk_fwd'),
     ('f32 past the widest', 'trunk_fwd', 'trunk_fwd'),
-    ('bf16 depth 4', 'trunk_fwd', None)])
+    ('bf16 depth 4', 'trunk_fwd_tma', None),
+    ('bf16 depth 8', 'trunk_fwd_tma', None),
+    ('bf16 past the widest', 'trunk_fwd', None),
+    ('bf16 density gradient', 'trunk_fwd', 'trunk_fwd')])
 def test_wide_input_routes_by_shape(case, lib, past):
-  # The f32 spatial trunk on 504 columns takes the wide-input instances
-  # (its kernel_smem within the H100's 232,448 B: 230,792 B for the
-  # backward at depth 4, 222,600 at depth 8; 224,392 for the forward);
-  # what they do not run stays named by missing_instance, past shared
-  # memory on trunk_fwd.cu (the density gradient, the bottleneck head, more
-  # than 1024 columns). bf16 stays on trunk_fwd.cu / trunk_bwd.cu.
+  # The spatial trunk on 504 columns takes the wide-input instances, in f32
+  # of the FMA/TMA libraries (kernel_smem within the H100's 232,448 B:
+  # 230,792 B for the backward at depth 4, 222,600 at depth 8; 224,392 for
+  # the forward), in bf16 of the wgmma/TMA ones (231,480 B for the forward,
+  # its 3-stage ring and the density head's weights; 210,248 and 218,440 B
+  # for the backward at depth 4 and 8); what they do not run stays named by
+  # missing_instance, past shared memory on trunk_fwd.cu (the density
+  # gradient, the bottleneck head, more than 1024 columns in f32), or runs
+  # trunk_fwd.cu / trunk_bwd.cu (bf16 past 1024 columns).
   depth = 8 if 'depth 8' in case else 4
   fin = 1056 if 'widest' in case else 504
   skips = fused_mlp.skip_input_layers(depth, 4)
@@ -577,12 +600,82 @@ def test_wide_input_routes_by_shape(case, lib, past):
   if past is None:
     assert why is None
     want = {'f32 depth 4': (224392, 230792),
-            'f32 depth 8': (224392, 222600)}.get(case)
+            'f32 depth 8': (224392, 222600),
+            'bf16 depth 4': (231480, 210248),
+            'bf16 depth 8': (231480, 218440)}.get(case)
     if want:
-      assert fused_mlp.backward_library(pack) == 'trunk_bwd_f32'
-      assert (fused_mlp.kernel_smem('trunk_fwd_f32', pack, 0),
-              fused_mlp.kernel_smem('trunk_bwd_f32', pack, 0)) == want
+      bwd = lib.replace('fwd', 'bwd')
+      assert fused_mlp.wide_input(pack)
+      assert fused_mlp.backward_library(pack) == bwd
+      assert (fused_mlp.kernel_smem(lib, pack, 0),
+              fused_mlp.kernel_smem(bwd, pack, 0)) == want
     else:
+      assert not fused_mlp.wide_input(pack)
       assert fused_mlp.backward_library(pack) == 'trunk_bwd'
   else:
     assert why.startswith(f'{past}.cu needs '), why
+
+
+class _ArgCheck:
+  """A stand-in for a kernel library (ctypes): each entry point checks its
+  arguments against cuda_build.EXPORTS (their number, and that each
+  converts to its ctypes type: an int for a c_int, an int or None for a
+  pointer), records the call and returns 0."""
+
+  def __init__(self, calls):
+    self.calls = calls
+
+  def __getattr__(self, fn):
+    from refnerf_tpu_torch.ops import cuda_build
+    lib = next(lib for lib, fns in cuda_build.EXPORTS.items() if fn in fns)
+    types = cuda_build.EXPORTS[lib][fn]
+
+    def call(*args):
+      assert len(args) == len(types), (fn, len(args), len(types))
+      for i, (a, t) in enumerate(zip(args, types)):
+        assert not isinstance(a, torch.Tensor), (fn, i)
+        t.from_param(a)  # raises TypeError on a wrong type
+      self.calls.append((fn, args))
+      return 1 if fn == 'refnerf_trunk_supports' else 0
+    return call
+
+
+@pytest.mark.parametrize('depth', [4, 8])
+def test_wide_bf16_launch_arguments_match_exports(monkeypatch, depth):
+  # The bf16 PropMLP trunk's launches through trunk_kernel and
+  # trunk_backward_kernel, on CPU tensors with the libraries replaced by
+  # _ArgCheck: the forward calls refnerf_trunk_fwd_tma and the backward
+  # refnerf_trunk_bwd_tma, refnerf_wgrad_tma (layer 0's 512-column and the
+  # skip layer's 768-column gradients) and refnerf_reduce, each with the
+  # argument list cuda_build.EXPORTS declares, the compute dtype 1 and 512
+  # input columns.
+  from refnerf_tpu_torch.ops import cuda_build
+  import contextlib
+  calls = []
+  fake = _ArgCheck(calls)
+  monkeypatch.setattr(cuda_build, 'library', lambda name: fake)
+  monkeypatch.setattr(torch.cuda, 'device', lambda dev: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, 'current_stream',
+                      lambda dev=None: type('S', (), {'cuda_stream': 0})())
+  rng = np.random.default_rng(7)
+  ks, bs, wd, _ = _prop_trunk_params(rng, depth, width=256)
+  n = 100
+  segs = [_t(rng.normal(size=(n, 252)).astype(np.float32)).bfloat16()
+          for _ in range(2)]
+  pack = fused_mlp.pack_trunk([_t(k.T) for k in ks], [_t(b) for b in bs],
+                              (252, 252), wd=_t(wd.T),
+                              compute_dtype='bfloat16')
+  assert fused_mlp.wide_input(pack)
+  fused_mlp.trunk_kernel(segs, pack)
+  fused_mlp.trunk_backward_kernel(segs, pack, (torch.ones(n), None, None,
+                                               None))
+  names = [fn for fn, _ in calls if fn != 'refnerf_trunk_supports']
+  assert names[0] == 'refnerf_trunk_fwd_tma'
+  assert names[1] == 'refnerf_trunk_bwd_tma'
+  assert names.count('refnerf_wgrad_tma') == depth
+  assert set(names[2:]) == {'refnerf_wgrad_tma', 'refnerf_reduce'}
+  for fn, args in calls:
+    if fn.startswith('refnerf_trunk_') and fn != 'refnerf_trunk_supports':
+      assert args[:3] == (1, 256, 0) and args[8] == 512, (fn, args[:9])
+  wgrad_n = [args[2] for fn, args in calls if fn == 'refnerf_wgrad_tma']
+  assert wgrad_n[0] == 512 and (depth == 4 or wgrad_n[5] == 768)

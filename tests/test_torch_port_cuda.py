@@ -1339,60 +1339,78 @@ def _k3_trunk(dev, F, n=1000, seed=19):
   return segs, ws, bs, kw, fold, pack
 
 
-def _prop_case(dev, depth, n=1000, seed=40, cdt='float32'):
+def _prop_case(dev, depth, n=1000, seed=40, cdt='float32', fin=504, deg=12):
   """mip-NeRF 360's proposal trunk: the IPE of 21 basis vectors x 12
   degrees (two segments of 252 columns, kin 512 packed) of random lifted
   means and variances, width 256, the density head alone; depth 4, or 8
-  with the skip at layer 5. Returns (segs, ws, bs, kw, pack)."""
+  with the skip at layer 5. `fin`: fin / (2 deg) basis vectors in place of
+  21 (264: kin 288; 1008: kin 1024), on `deg` degrees (13 at fin 546: two
+  segments of 273, not a multiple of 4 columns). Returns (segs, ws, bs,
+  kw, pack)."""
   gen = torch.Generator().manual_seed(seed)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
-  lm = torch.rand(n, 21, generator=gen).to(dev) * 3 - 1.5
-  lv = 10.0**(torch.rand(n, 21, generator=gen).to(dev) * 4 - 6)
-  segs = list(fused_mlp.encode_ipe(lm, lv, 2.0**np.arange(12), cdt))
+  nb = fin // (2 * deg)
+  lm = torch.rand(n, nb, generator=gen).to(dev) * 3 - 1.5
+  lv = 10.0**(torch.rand(n, nb, generator=gen).to(dev) * 4 - 6)
+  segs = list(fused_mlp.encode_ipe(lm, lv, 2.0**np.arange(deg), cdt))
   skips = fused_mlp.skip_input_layers(depth, 4)
-  ws = [rand(256, 504 if l == 0 else 256 + (504 if l in skips else 0))
+  ws = [rand(256, fin if l == 0 else 256 + (fin if l in skips else 0))
         for l in range(depth)]
   ws = [w * math.sqrt(2 / w.shape[1]) for w in ws]
   bs = [rand(256) * 0.05 for _ in range(depth)]
   kw = dict(skip_period=4, wd=rand(1, 256) / 16, head_f32=None,
             head_cdt=None)
-  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  pack = fused_mlp.pack_trunk(ws, bs, (fin // 2, fin // 2), compute_dtype=cdt,
+                              **kw)
   return segs, ws, bs, kw, pack
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('depth', [4, 8])
-def test_wide_input_f32_trunk_matches_plain(dev, depth):
-  # The f32 wide-input instances (trunk_fwd_f32.cu `fwd_f32_wide`,
-  # trunk_bwd_f32.cu `bwd_f32_wide`) on mip-NeRF 360's proposal trunk: sigma
-  # by BOUND; given a random cotangent of sigma, every weight and bias
-  # gradient by GRAD_BOUND (slabs of 256 rows: the slab accumulation runs
-  # too); each counted under 'K1 wide' / 'K4 wide'; reruns bit-identical.
-  segs, ws, bs, kw, pack = _prop_case(dev, depth)
-  assert fused_mlp.wide_input(pack) and pack.kin == 512
-  assert fused_mlp.forward_library(pack) == 'trunk_fwd_f32'
-  assert fused_mlp.backward_library(pack) == 'trunk_bwd_f32'
+@pytest.mark.parametrize('cdt,fin,depth', [
+    ('float32', 504, 4), ('float32', 504, 8), ('bfloat16', 504, 4),
+    ('bfloat16', 504, 8), ('bfloat16', 264, 4), ('bfloat16', 264, 8),
+    ('bfloat16', 1008, 4), ('bfloat16', 1008, 8), ('bfloat16', 546, 4),
+    ('bfloat16', 546, 8)])
+def test_wide_input_f32_trunk_matches_plain(dev, cdt, fin, depth):
+  # The wide-input instances (f32: trunk_fwd_f32.cu `fwd_f32_wide`,
+  # trunk_bwd_f32.cu `bwd_f32_wide`; bf16: trunk_fwd_tma.cu `fwd_wide`,
+  # trunk_bwd_tma.cu's WIDE instance) on mip-NeRF 360's proposal trunk
+  # (504 columns; in bf16 also 264, 1008, and 546 on 13 degrees: segments
+  # of 273 columns, which wide_chunk fills by 2-byte loads, a 4-column
+  # piece straddling the segments), 1000 rows (not a multiple of 128):
+  # sigma by BOUND; given a random cotangent of sigma, every weight and
+  # bias gradient by GRAD_BOUND (slabs of 256 rows: the slab accumulation
+  # runs too); each counted under 'K1 wide' / 'K4 wide'; reruns
+  # bit-identical.
+  deg = 13 if fin == 546 else 12
+  segs, ws, bs, kw, pack = _prop_case(dev, depth, cdt=cdt, fin=fin, deg=deg)
+  assert fused_mlp.wide_input(pack) and pack.kin == -(-fin // 32) * 32
+  assert fused_mlp.forward_library(pack) == fused_mlp.FWD_LIBRARY[cdt]
+  assert fused_mlp.backward_library(pack) == fused_mlp.BWD_LIBRARY[cdt]
   assert fused_mlp.missing_instance(pack, 0) is None
   sbar = torch.randn(1000, generator=torch.Generator().manual_seed(41)).to(dev)
   cots = (sbar, None, None, None)
   with torch.no_grad():
     got = fused_mlp.trunk_kernel(segs, pack)
     again = fused_mlp.trunk_kernel(segs, pack)
-    want = fused_mlp.trunk_reference(segs, ws, bs, **kw)
+    want = fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt, **kw)
     gb = _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=256))
     gb2 = _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=256))
-    wb = _flat(fused_mlp.trunk_backward_reference(segs, ws, bs, cots, **kw))
+    wb = _flat(fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
+                                                  compute_dtype=cdt, **kw))
   torch.cuda.synchronize()
-  _assert_close(got, want, 'float32', f'wide fwd depth {depth}')
-  _assert_close(gb, wb, 'float32', f'wide bwd depth {depth}', n_values=0)
+  what = f'wide {cdt} {fin} depth {depth}'
+  _assert_close(got, want, cdt, f'{what} fwd')
+  _assert_close(gb, wb, cdt, f'{what} bwd', n_values=0)
   assert all(torch.equal(a, b) for a, b in zip(got, again))
   assert all(torch.equal(a, b) for a, b in zip(gb, gb2))
   # Counted through the autograd Function, as the model launches them.
   before = dict(fused_mlp.launches)
-  lm = torch.rand(64, 21, device=dev)
+  lm = torch.rand(64, fin // (2 * deg), device=dev)
   w = [t.clone().requires_grad_() for t in ws]
-  sig, = fused_mlp.fused_encoded_trunk(lm, lm * 1e-3, 2.0**np.arange(12), w,
-                                       bs, kw['wd'], mode='on')
+  sig, = fused_mlp.fused_encoded_trunk(lm, lm * 1e-3, 2.0**np.arange(deg), w,
+                                       bs, kw['wd'], compute_dtype=cdt,
+                                       mode='on')
   sig.sum().backward()
   torch.cuda.synchronize()
   moved = {k: v - before[k] for k, v in fused_mlp.launches.items()}
@@ -1411,14 +1429,16 @@ def test_wide_input_f32_trunk_matches_plain(dev, depth):
 # stages) and at 256, the widest its input tile takes (two: its shallowest
 # ring); mip-NeRF 360's proposal trunk on the wide-input instances at 512
 # input columns (the forward's seven stages; the backward's seven at depth
-# 4, six at 8).
+# 4, six at 8), and in bf16 on trunk_fwd_tma.cu's (three stages and the
+# density head's weights) and trunk_bwd_tma.cu's (depth 4 and 8).
 SMEM_CASES = ('trunk_bwd K5 kin 288', 'trunk_bwd K5 kin 320',
               'trunk_fwd_f32 K3 kin 192', 'trunk_fwd_f32 K3 kin 224',
               'trunk_fwd K3 kin 96', 'trunk_fwd K3 kin 224',
               'trunk_bwd_f32 K5W128 kin 192', 'trunk_bwd_f32 K5W128 kin 224',
               'trunk_fwd_f32 K2W128 kin 192', 'trunk_fwd_f32 K2W128 kin 256',
               'trunk_fwd_f32 K1wide kin 512', 'trunk_bwd_f32 K4wide4 kin 512',
-              'trunk_bwd_f32 K4wide8 kin 512')
+              'trunk_bwd_f32 K4wide8 kin 512', 'trunk_fwd_tma K1wide kin 512',
+              'trunk_bwd_tma K4wide4 kin 512', 'trunk_bwd_tma K4wide8 kin 512')
 
 
 @pytest.mark.cuda
@@ -1430,6 +1450,7 @@ def test_shared_memory_sums_match_the_launches(dev, monkeypatch, case):
   # its plain version.
   lib, which, _, kin = case.split()
   kin = int(kin)
+  cdt = 'bfloat16' if lib.endswith('_tma') else 'float32'
   monkeypatch.setattr(fused_mlp, 'missing_instance', lambda *a, **k: None)
   if which in ('K5', 'K5W128'):
     segs, ws, bs, kw = _case('K2' if which == 'K5' else 'mip K2', dev,
@@ -1445,18 +1466,19 @@ def test_shared_memory_sums_match_the_launches(dev, monkeypatch, case):
         segs, ws, bs, cots, needs_dx=True, **kw))
     nv = 0
   elif which.startswith('K4wide'):
-    segs, ws, bs, kw, pack = _prop_case(dev, int(which[-1]), seed=42)
+    segs, ws, bs, kw, pack = _prop_case(dev, int(which[-1]), seed=42, cdt=cdt)
     need = fused_mlp.kernel_smem(lib, pack, 0)
     cots = (torch.randn(1000, device=dev), None, None, None)
     run = lambda: _flat(fused_mlp.trunk_backward_kernel(segs, pack, cots))
-    plain = lambda: _flat(fused_mlp.trunk_backward_reference(segs, ws, bs,
-                                                             cots, **kw))
+    plain = lambda: _flat(fused_mlp.trunk_backward_reference(
+        segs, ws, bs, cots, compute_dtype=cdt, **kw))
     nv = 0
   elif which == 'K1wide':
-    segs, ws, bs, kw, pack = _prop_case(dev, 4, seed=43)
+    segs, ws, bs, kw, pack = _prop_case(dev, 4, seed=43, cdt=cdt)
     need = fused_mlp.kernel_smem(lib, pack, 0)
     run = lambda: fused_mlp.trunk_kernel(segs, pack)
-    plain = lambda: fused_mlp.trunk_reference(segs, ws, bs, **kw)
+    plain = lambda: fused_mlp.trunk_reference(segs, ws, bs, compute_dtype=cdt,
+                                              **kw)
     nv = 1
   elif which == 'K2W128':
     segs, ws, bs, kw = _case('mip K2', dev, seed=20,
@@ -1485,7 +1507,7 @@ def test_shared_memory_sums_match_the_launches(dev, monkeypatch, case):
       return
     got, want = run(), plain()
   torch.cuda.synchronize()
-  _assert_close(got, want, 'float32', case, n_values=nv)
+  _assert_close(got, want, cdt, case, n_values=nv)
 
 
 @pytest.mark.cuda
