@@ -194,9 +194,28 @@ Phases, each printed on its own line:
      backgrounds); 3 steps of (c)
      with NerfMLP.density_noise = 1.0, bottleneck_noise = 0.1 and
      Model.bg_intensity_range = (0, 1): finite, K6 logged inactive.
+ 20. the mesh tools and interop on the flagship at full width, in float32
+     and bfloat16 under fused_trunk='on' (refnerf_tpu_torch/geometry.py,
+     interop.py): the density grid at 128^3 (32 launches of K1 at 65,536
+     points, without the bottleneck head) and the vertex colours of its
+     mesh (K1 with the heads of a request), timed, every launch's route
+     asserted and counted; marching tetrahedra on the host at the grid's
+     midpoint (random weights: JAX's isovalue for an untrained field),
+     timed; against fused_trunk='off', each by its L2 error over the plain
+     field's spread about its mean (`spread_l2`; random weights leave the
+     density within 0.96..0.99, so a flat field reads 1) within
+     KERNEL_BOUND: the grid, the diffuse head at the plain mesh's first
+     65,536 vertices and the colours of the plain mesh; two planted faults
+     (the plain output's mean everywhere; the lifted means' x column
+     zeroed) read above the bound in both shapes; the meshes' vertex
+     counts (equal, faces too, where no lattice value crosses the isovalue
+     between the grids; any that does lies within the bound times the
+     spread of it); the PLY written and read back; the model exported to a
+     refnerf-pl .ckpt, imported into a model of another seed, and a
+     4096-ray request from both equal bit for bit.
 The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
-18 and 19),
+18, 19 and 20),
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -3151,6 +3170,284 @@ def cascade_stage(fused_mlp, dev):
   return launches, launches_b, out
 
 
+MESH_RES = 128  # the density grid's points per axis (2,097,152 points)
+MESH_BOX = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))  # the Blender object box
+MESH_CHUNK = 2 ** 16  # points a launch (geometry.density_grid's default)
+
+
+def mesh_points():
+  """The density grid's points [MESH_RES^3, 3], in geometry.density_grid's
+  order."""
+  axes = [np.linspace(MESH_BOX[0][i], MESH_BOX[1][i], MESH_RES,
+                      dtype=np.float32) for i in range(3)]
+  return np.stack(np.meshgrid(*axes, indexing='ij'), axis=-1).reshape(-1, 3)
+
+
+def spread_l2(got, want):
+  """|got - want|_2 over |want - mean(want)|_2, the means per column: the
+  error against the plain field's spread about its mean. The flagship's
+  random weights leave a nearly flat field (a density of 0.96..0.99), which
+  its own relative L2 cannot tell from a constant; here a constant reads 1."""
+  got, want = (np.asarray(a, np.float64) for a in (got, want))
+  return float(np.linalg.norm(got - want)
+               / max(np.linalg.norm(want - want.mean(0)), 1e-30))
+
+
+def mesh_faults(model, cdt, grid_pts, verts, var):
+  """What planted faults of phase 20's K1 launches would read on the plain
+  spatial stage (fused_trunk='off'): `flat`, the plain output's mean
+  everywhere (a kernel that returns a constant), and `x dropped`, the
+  lifted means' first column zeroed (an input column lost); for the
+  grid's launch (the density, no bottleneck) at grid_pts and the colours'
+  (the diffuse head, with it) at verts, each a Gaussian of diagonal
+  covariance var (the lattice's, as the mesh tools make it), as
+  spread_l2's share of KERNEL_BOUND. Fails unless each reads above 1."""
+  from refnerf_tpu_torch.ops import coord
+  mlp = model.nerf_mlp
+  dev = next(mlp.parameters()).device
+  set_mode(model, fused_trunk='off')
+  reads = {}
+  with torch.no_grad():
+    for what, pts, heads in (('grid', grid_pts, False),
+                             ('diffuse', verts, True)):
+      p = torch.from_numpy(pts).to(dev)
+      means = p[:, None, :]
+      lm, lv = coord.lift_and_diagonalize(means, torch.full_like(means, var),
+                                          mlp.pos_basis_t)
+      bad = lm.clone()
+      bad[..., 0] = 0
+      outs = []
+      for lifted in ((lm, lv.reshape(lm.shape)), (bad, lv.reshape(lm.shape))):
+        _, raw, fh, _ = mlp.spatial_stage(means, None, heads, False,
+                                          lifted=lifted)
+        out = (fh['diffuse'][:, 0] if heads else mlp.density_activation(
+            raw[:, 0] + mlp.cfg.density_bias))
+        outs.append(out.float().cpu().numpy())
+      want, dropped = outs
+      flat = np.broadcast_to(want.mean(0), want.shape)
+      for fault, got in (('flat', flat), ('x dropped', dropped)):
+        reads[f'{what}, {fault}'] = spread_l2(got, want) / KERNEL_BOUND[cdt]
+  set_mode(model, fused_trunk='on')
+  log(f'phase 20: {cdt} planted faults of the mesh launches would read ' +
+      ', '.join(f'{v:.1f} ({k})' for k, v in reads.items()) +
+      ' times the bound')
+  if not min(reads.values()) > 1:
+    raise AssertionError(f'phase 20 {cdt}: the bounds do not see a fault '
+                         f'of the mesh launches: {reads}')
+  return reads
+
+
+def mesh_run(fused_mlp, geometry, model, cdt):
+  """Phase 20's main path in one dtype: the density grid at MESH_RES, the
+  mesh of its midpoint isovalue and the mesh's vertex colours, through K1
+  with the launches counted (set to 0 just before, read just after) and
+  every launch's route recorded. Returns (the launches, the routes, the
+  grid, the mesh, the colours, seconds of each part)."""
+  counts = fused_mlp.launches
+  routes = []
+  kernel = fused_mlp.trunk_kernel
+
+  def recorded(segs, pack, fold=None, **kw):
+    routes.append((int(segs[0].shape[0]), pack.wc is not None,
+                   fused_mlp.forward_library(
+                       pack, kw.get('out_y', False), fold,
+                       kw.get('spa_modes') or fused_mlp.SpaModes())))
+    return kernel(segs, pack, fold, **kw)
+
+  fused_mlp.trunk_kernel = recorded
+  try:
+    for k in counts:
+      counts[k] = 0
+    t0 = time.perf_counter()
+    grid = geometry.density_grid(model, MESH_RES, *MESH_BOX)
+    t1 = time.perf_counter()
+    grid_launches = counts['K1']
+    iso = float(grid.min() + grid.max()) / 2
+    spacing = 3.0 / (MESH_RES - 1)
+    mesh = geometry.marching_tetrahedra(grid, iso, MESH_BOX[0], spacing)
+    t2 = time.perf_counter()
+    colors = geometry.vertex_colors(model, mesh[0], spacing)
+    t3 = time.perf_counter()
+    launches = dict(counts)
+  finally:
+    fused_mlp.trunk_kernel = kernel
+  want_grid = -(-MESH_RES ** 3 // MESH_CHUNK)
+  want_colors = -(-len(mesh[0]) // MESH_CHUNK)
+  others = {k: v for k, v in launches.items() if v and k != 'K1'}
+  if (grid_launches != want_grid or launches['K1'] != want_grid + want_colors
+      or others):
+    raise AssertionError(
+        f'phase 20 {cdt}: launches {launches} (K1 {grid_launches} for the '
+        f'grid), expected K1 {want_grid} + {want_colors} and nothing else')
+  # The grid without the bottleneck (a compute-dtype head of 0), the
+  # colours with it, every launch on the forward of its dtype.
+  chunks = lambda n: [min(MESH_CHUNK, n - i) for i in range(0, n, MESH_CHUNK)]
+  want = ([(n, False) for n in chunks(MESH_RES ** 3)] +
+          [(n, True) for n in chunks(len(mesh[0]))])
+  if [r[:2] for r in routes] != want or {r[2] for r in routes} != {
+      FWD_ROUTE[cdt]}:
+    raise AssertionError(f'phase 20 {cdt}: launches {routes[:3]}..., '
+                         f'expected {FWD_ROUTE[cdt]}')
+  return launches, grid, iso, mesh, colors, (t1 - t0, t2 - t1, t3 - t2)
+
+
+def mesh_stage(fused_mlp, dev):
+  """Phase 20: the flagship's mesh tools and interop at full width, in
+  float32 and bfloat16, each under fused_trunk='on' against 'off'. Returns
+  ({dtype: K1's launches on the path}, a summary)."""
+  import tempfile
+  from refnerf_tpu_torch import geometry
+  from refnerf_tpu_torch import interop
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  from refnerf_tpu_torch.tools import export_torch_checkpoint as export_lib
+  from refnerf_tpu_torch.tools import import_torch_checkpoint as import_lib
+  root = tempfile.mkdtemp(prefix='refnerf_mesh_')
+  path, out = {}, {}
+  try:
+    for cdt in ('float32', 'bfloat16'):
+      model, config = flagship(dev, dtype=cdt)
+      set_mode(model, fused_trunk='on')
+      # Warm-up: builds each pack and loads the libraries; not counted.
+      geometry.extract_mesh(model, resolution=16, iso=None)
+      launches, grid, iso, mesh, colors, (grid_s, mt_s, col_s) = mesh_run(
+          fused_mlp, geometry, model, cdt)
+      path[cdt] = launches['K1']
+      verts, faces, normals = mesh
+      npts = MESH_RES ** 3
+      log(f'phase 20: {cdt} density grid {MESH_RES}^3 through K1: '
+          f'{grid_s * 1e3:.1f} ms, {npts / grid_s:.0f} points/s, K1 '
+          f'{-(-npts // MESH_CHUNK)} launches; density '
+          f'{grid.min():.4f}..{grid.max():.4f}; marching tetrahedra at the '
+          f'midpoint {iso:.6f}: {len(verts)} vertices, {len(faces)} faces '
+          f'in {mt_s:.2f} s on the host; vertex colours {col_s * 1e3:.1f} ms '
+          f'({len(verts) / col_s:.0f} vertices/s); K1 {launches["K1"]} '
+          'launches on the path')
+
+      # The grid's time in turns with the plain spatial stage (the first
+      # run above also allocates and packs).
+      times = in_turns(
+          lambda: geometry.density_grid(model, MESH_RES, *MESH_BOX),
+          {'on': (model, {'fused_trunk': 'on'}),
+           'off': (model, {'fused_trunk': 'off'})}, reps=2)
+      turns = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+      log(f'phase 20: {cdt} density grid in turns (on, off, off, on; 2 a '
+          f'block, medians): on {turns["on"]:.1f} ms, off '
+          f'{turns["off"]:.1f} ms')
+
+      # The same through the plain spatial stage.
+      set_mode(model, fused_trunk='off')
+      before = dict(fused_mlp.launches)
+      t0 = time.perf_counter()
+      plain = geometry.density_grid(model, MESH_RES, *MESH_BOX)
+      plain_s = time.perf_counter() - t0
+      pmesh = geometry.marching_tetrahedra(plain, iso, MESH_BOX[0],
+                                           3.0 / (MESH_RES - 1))
+      spacing = 3.0 / (MESH_RES - 1)
+      var_c = float(np.float32((spacing / 2.0) ** 2))
+      # The diffuse head (K1 with the bottleneck) at one chunk of the plain
+      # mesh's vertices; the grid's launch is the grid itself.
+      vpts = pmesh[0][:MESH_CHUNK]
+      pcolors = geometry.vertex_colors(model, pmesh[0], spacing)
+      pdiffuse = geometry.spatial_heads(
+          model.nerf_mlp, torch.from_numpy(vpts).to(dev), var_c,
+          True)[1]['diffuse'].float().cpu().numpy()
+      if fused_mlp.launches != before:
+        raise AssertionError("phase 20: fused_trunk='off' launched a kernel")
+      set_mode(model, fused_trunk='on')
+      kcolors = geometry.vertex_colors(model, pmesh[0], spacing)
+      kdiffuse = geometry.spatial_heads(
+          model.nerf_mlp, torch.from_numpy(vpts).to(dev), var_c,
+          True)[1]['diffuse'].float().cpu().numpy()
+      rel = float(np.linalg.norm(grid - plain) / np.linalg.norm(plain))
+      max_err = float(np.abs(grid - plain).max())
+      reads = {'grid': spread_l2(grid.reshape(-1), plain.reshape(-1)),
+               'diffuse': spread_l2(kdiffuse, pdiffuse),
+               'colours': spread_l2(kcolors, pcolors)}
+      spread = float(plain.std())
+      # Where no lattice value crosses the isovalue between the two grids
+      # the meshes share their topology; a flip is allowed only within the
+      # kernel bound times the field's spread of the isovalue (H8), and
+      # changes the vertex count.
+      flipped = (grid > iso) != (plain > iso)
+      near = float(np.abs(plain[flipped] - iso).max()) if flipped.any() else 0
+      dv = len(verts) - len(pmesh[0])
+      col_err = float(np.abs(kcolors - pcolors).max())
+      log(f"phase 20: {cdt} vs fused_trunk='off' (the grid in "
+          f'{plain_s * 1e3:.1f} ms, {npts / plain_s:.0f} points/s; density '
+          f'spread {spread:.3e} about its mean), L2 error over the plain '
+          'spread: ' + ', '.join(f'{k} {v:.3e}' for k, v in reads.items()) +
+          f' (bound {KERNEL_BOUND[cdt]:.0e}); the grid\'s relative L2 '
+          f'{rel:.3e}, max abs {max_err:.3e}; lattice values across the '
+          f'isovalue {int(flipped.sum())} (farthest {near:.3e} from it), '
+          f'vertices {len(verts)} vs {len(pmesh[0])} (difference {dv}); '
+          f'colours of the plain mesh, max abs {col_err:.3e}')
+      if max(reads.values()) > KERNEL_BOUND[cdt]:
+        raise AssertionError(f'phase 20 {cdt}: the kernel grid, diffuse head '
+                             f"or colours disagree with fused_trunk='off': "
+                             f'{reads}')
+      faults = mesh_faults(model, cdt, mesh_points()[::32], vpts, var_c)
+      # (A face's winding follows the interpolated gradient, so compare the
+      # faces as vertex sets.)
+      if near > KERNEL_BOUND[cdt] * spread or (
+          not flipped.any() and not (dv == 0 and np.array_equal(
+              np.sort(faces, axis=1), np.sort(pmesh[1], axis=1)))):
+        raise AssertionError(f'phase 20 {cdt}: the meshes differ beyond the '
+                             'lattice values at the isovalue')
+
+      # The PLY round trip.
+      ply = os.path.join(root, f'mesh_{cdt}.ply')
+      t0 = time.perf_counter()
+      geometry.write_ply(ply, verts, faces, normals, colors=colors)
+      back = geometry.read_ply(ply)
+      ply_s = time.perf_counter() - t0
+      if not (np.array_equal(back['verts'], verts) and
+              np.array_equal(back['faces'], faces) and
+              np.array_equal(back['normals'], normals) and
+              np.abs(back['colors'] - colors).max() <= 0.5 / 255 + 1e-6):
+        raise AssertionError(f'phase 20 {cdt}: the PLY does not read back')
+      log(f'phase 20: {cdt} PLY of {os.path.getsize(ply)} bytes written and '
+          f'read back in {ply_s:.2f} s')
+
+      # Interop: export to a refnerf-pl .ckpt, import it into a model built
+      # from another seed, and serve a request from both.
+      ckpt = os.path.join(root, f'{cdt}.ckpt')
+      export_lib.export(model, 0, ckpt)
+      other, _ = flagship(dev, ['Config.seed = 1'], dtype=cdt)
+      set_mode(other, fused_trunk='on')
+      if torch.equal(other.nerf_mlp.spatial_0.weight,
+                     model.nerf_mlp.spatial_0.weight):
+        raise AssertionError('phase 20: the seeds built the same weights')
+      sd, _ = import_lib.load_lightning(ckpt)
+      other.load_state_dict(interop.torch_state_dict_to_params(
+          sd, other.state_dict(), other))
+      rays = random_rays(rays_lib, 4096, config, 4, dev)
+      with torch.no_grad():
+        a = renderer.render_rays(model, rays, config.render_chunk_size)
+        b = renderer.render_rays(other, rays, config.render_chunk_size)
+      same = torch.equal(a['rgb'], b['rgb'])
+      log(f'phase 20: {cdt} exported to {os.path.getsize(ckpt)} bytes, '
+          f'imported into a model of seed 1, a 4096-ray request bit for '
+          f'bit: {same}')
+      if not same:
+        raise AssertionError(f'phase 20 {cdt}: the imported model serves '
+                             'another rgb')
+      out[cdt] = dict(
+          grid_ms=grid_s * 1e3, grid_points_s=npts / grid_s,
+          plain_grid_ms=plain_s * 1e3, grid_turns_ms=turns['on'],
+          plain_grid_turns_ms=turns['off'], grid_rel_l2=rel,
+          grid_max_abs=max_err, spread_l2=reads, density_spread=spread,
+          fault_reads=faults, marching_s=mt_s, vertices=len(verts), faces=len(faces),
+          vertices_vs_plain=dv, flipped=int(flipped.sum()),
+          colors_ms=col_s * 1e3, colors_max_abs=col_err, ply_s=ply_s,
+          interop_bit_for_bit=same)
+      del model, other, grid, plain, mesh, pmesh
+      torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  return path, out
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -3206,6 +3503,7 @@ def main():
   geo_path, geo_bf16_path, geo = geometry_stage(fused_mlp, dev)
   kernels.update(check_prop_kernels(fused_mlp, dev))
   cascade_path, cascade_bf16_path, cascade = cascade_stage(fused_mlp, dev)
+  mesh_path, mesh = mesh_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -3338,6 +3636,10 @@ def main():
     if geo_bf16_path.get(which):
       # Phase 18 (c): the same in bf16 with the six fuse flags (K2-K9).
       entry['geometry_bf16_launches'] = geo_bf16_path[which]
+    if which == 'K1':
+      # Phase 20: the density grid and the vertex colours (bf16, f32).
+      entry['mesh_launches'] = mesh_path['bfloat16']
+      entry['mesh_f32_launches'] = mesh_path['float32']
     if which in main_case:
       entry['case'] = case
       entry['serve_launches'] = spa_serve[which]
@@ -3395,7 +3697,8 @@ def main():
       f'4096-ray requests {json.dumps(mip_f32_request)}; phase 16 (from '
       f'disk): {json.dumps(data)}; phase 17 (the CLIs): {json.dumps(cli)}; '
       f'phase 18 (the LLFF geometry gins): {json.dumps(geo)}; phase 19 (the '
-      f'proposal cascade): {json.dumps(cascade)}')
+      f'proposal cascade): {json.dumps(cascade)}; phase 20 (the mesh tools '
+      f'and interop): {json.dumps(mesh)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ configs.py:188-193, on argparse instead of absl).
 `--gin_configs` and `--gin_bindings` repeat; `--flag=value` and `--flag
 value` both parse. `--mode` and `--base_folder` are accepted and unused, as
 in the JAX package. `--device` is the port's own: where the model runs
-('cuda' by default; 'cpu' on a machine without a card).
+('cuda' by default; 'cpu' on a machine without a card). A tool adds its
+own flags through `add_arguments(parser)`.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import argparse
 from refnerf_tpu_torch import configs as configs_lib
 
 
-def load_config(argv, description, scope, save_config):
+def load_config(argv, description, scope, save_config, add_arguments=None):
   """Parse `argv` (sys.argv[1:] when None) and the gin it names: (Config,
   gin, the flags)."""
   parser = argparse.ArgumentParser(description=description)
@@ -27,6 +28,8 @@ def load_config(argv, description, scope, save_config):
                       help='Gin parameter bindings (repeatable).')
   parser.add_argument('--device', default='cuda',
                       help="Device of the model ('cuda' or 'cpu').")
+  if add_arguments is not None:
+    add_arguments(parser)
   args = parser.parse_args(argv)
   config, gin = configs_lib.load_config(args.gin_configs, args.gin_bindings,
                                         scope=scope, save_config=save_config)

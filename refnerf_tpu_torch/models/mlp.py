@@ -401,7 +401,9 @@ class MLP(nn.Module):
     pack = None
     if fused_mlp.use_kernel(lm, c.fused_trunk):
       f = lm.shape[-1] * len(self.scales)
-      pack = self._pack('spatial', lambda: fused_mlp.pack_trunk(
+      # The heads differ with rgb_heads (a mesh's density grid runs
+      # without the colour heads), so each set keeps a pack of its own.
+      pack = self._pack(f'spatial{rgb_heads}', lambda: fused_mlp.pack_trunk(
           ws, bs, (f, f), skip_period=c.skip_layer,
           compute_dtype=c.compute_dtype, **kw))
     outs = list(fused_mlp.fused_encoded_trunk(
@@ -428,6 +430,30 @@ class MLP(nn.Module):
     if delta is not None:
       fh['weights'] = outs.pop(0)
     return y, raw_density, fh, normals
+
+  def spatial_stage(self, means, covs, rgb_heads, density_grad, delta=None,
+                    out_y=False, lifted=None):
+    """The spatial stage as JAX's `_fused` routes it (mlp.py:221-241,
+    :389-441): `_spatial` where the trunk has the fused formulation (the
+    kernels on the card; their plain versions on the CPU and under 'off'),
+    else the plain layer stack, logged once where the kernels would have
+    run. covs: [..., 3, 3], or [..., 3] diagonal variances as the mesh
+    tools pass them, lifted as JAX's `predict_density` lifts them;
+    `lifted`: (lm, lv) from render.cast_rays_lifted in place of covs.
+    Returns what `_spatial` does."""
+    if not self.spatial_fused():
+      if lifted is not None:
+        raise ValueError(
+            'lifted (fuse_lift) inputs require the fused spatial path; the '
+            'model must gate cast_rays_lifted on the same predicate')
+      self._fused(self.cfg.net_depth, means)
+      return self._spatial_plain(means, covs, rgb_heads, density_grad, out_y)
+    if lifted is None:
+      lm, lv = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
+      # Diagonal covs [..., s, 3] lift to [..., nb]: one variance a basis
+      # vector, the same for every sample, as integrated_pos_enc reads it.
+      lifted = lm, lv.reshape(lm.shape)
+    return self._spatial(*lifted, rgb_heads, density_grad, delta, out_y)
 
   def _directional(self, segs, **fuse):
     """K2 (with K8-K10 by `fuse`, fused_trunk's keywords): raw rgb of the
@@ -586,19 +612,9 @@ class MLP(nn.Module):
             f'({delta.shape[-1]}) dividing fused_block ({self._block()})')
       delta = None
 
-    if not self.spatial_fused():
-      if lifted is not None:
-        raise ValueError(
-            'lifted (fuse_lift) inputs require the fused spatial path; the '
-            'model must gate cast_rays_lifted on the same predicate')
-      self._fused(c.net_depth, means)
-      y, raw_density, fh, normals = self._spatial_plain(
-          means, covs, rgb_heads, compute_density_normals, need_y)
-    else:
-      lm, lv = (coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
-                if lifted is None else lifted)
-      y, raw_density, fh, normals = self._spatial(
-          lm, lv, rgb_heads, compute_density_normals, delta, need_y)
+    y, raw_density, fh, normals = self.spatial_stage(
+        means, covs, rgb_heads, compute_density_normals, delta, need_y,
+        lifted)
 
     raw_spec = (fh['specular_density'][..., 0]
                 if c.enable_pred_specular_density else None)

@@ -1,18 +1,22 @@
 """Write analytic, 3D-consistent test scenes of a shaded sphere.
 
-Numpy copies of tools/make_sphere_scene.py's and
-tools/make_sphere_llff_scene.py's renderers (which import Pillow) that write
+Numpy copies of tools/make_sphere_scene.py's,
+tools/make_shiny_scene.py's and tools/make_sphere_llff_scene.py's renderers (which import Pillow) that write
 their PNGs with the port's own codec (`refnerf_tpu_torch.utils.io`):
 
 - `make_scene`: a Blender-format dataset (transforms_{split}.json + RGBA
   PNGs) of a Lambertian sphere whose albedo varies with the surface normal,
   rendered by exact ray-sphere intersection.
+- `make_shiny_scene`: the same layout of tools/make_shiny_scene.py's
+  glossy sphere, its albedo mixed with the environment lobes seen in the
+  mirror reflection (view-dependent: the Ref-NeRF check).
 - `make_llff_scene`: a forward-facing LLFF-layout capture (images_<factor>/,
   images/, sparse/0 as a binary COLMAP model, poses_bounds.npy) of the same
   sphere made specular with tools/make_shiny_scene.py's environment lobes,
   seen by a grid of cameras translating in front of it.
 
     python3 -m refnerf_tpu_torch.tools.sphere_scene DIR [N_TRAIN N_TEST RES]
+    python3 -m refnerf_tpu_torch.tools.sphere_scene --shiny DIR [N_TRAIN N_TEST RES]
     python3 -m refnerf_tpu_torch.tools.sphere_scene --llff DIR [N WIDTH HEIGHT FACTOR]
 """
 
@@ -48,8 +52,10 @@ def look_at_pose(theta, phi=0.35):
   return c2w
 
 
-def render_view(c2w, res):
-  """Exact render: ray-sphere intersection, normal-colored Lambertian."""
+def _trace(c2w, res):
+  """Primary rays of a res x res pinhole view through the sphere: unit
+  directions, which rays hit, and the surface normals where they do (NaN
+  where they miss)."""
   focal = 0.5 * res / np.tan(0.5 * FOV_X)
   xs, ys = np.meshgrid(np.arange(res) + 0.5, np.arange(res) + 0.5,
                        indexing='xy')
@@ -67,19 +73,43 @@ def render_view(c2w, res):
   t = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / 2, np.inf)
 
   pts = origin + t[..., None] * dirs
-  normals = pts / SPHERE_RADIUS
-  # Albedo from the normal direction (smooth, view-consistent).
+  return dirs, hit, pts / SPHERE_RADIUS
+
+
+def _albedo_shade(normals):
+  """Albedo from the normal direction (smooth, view-consistent), lit by a
+  Lambertian light."""
   albedo = 0.5 + 0.5 * normals
   light = np.array([0.58, 0.58, 0.58])
-  with np.errstate(invalid='ignore'):  # NaN miss rays, masked below
+  with np.errstate(invalid='ignore'):  # NaN miss rays, masked by the caller
     lambert = np.clip(normals @ light, 0.1, 1.0)[..., None]
-  rgb = np.where(hit[..., None], albedo * lambert, 1.0)  # white background
+  return albedo * lambert
+
+
+def render_view(c2w, res):
+  """Exact render: ray-sphere intersection, normal-colored Lambertian."""
+  _, hit, normals = _trace(c2w, res)
+  rgb = np.where(hit[..., None], _albedo_shade(normals), 1.0)  # white bg
   alpha = hit.astype(np.float32)
   return np.clip(rgb, 0, 1), alpha
 
 
-def make_scene(root, n_train=12, n_test=4, res=64):
-  """Write the scene under `root`; returns `root`."""
+def render_shiny_view(c2w, res):
+  """Exact render of the glossy sphere (tools/make_shiny_scene.py:59):
+  the shaded albedo mixed with the environment seen in the mirror
+  reflection of each view ray."""
+  dirs, hit, normals = _trace(c2w, res)
+  refl = dirs - 2.0 * (dirs * normals).sum(-1, keepdims=True) * normals
+  rgb = (_DIFFUSE_WEIGHT * _albedo_shade(normals)
+         + _SPECULAR_WEIGHT * env_radiance(refl))
+  rgb = np.where(hit[..., None], rgb, 1.0)  # white background
+  alpha = hit.astype(np.float32)
+  return np.clip(rgb, 0, 1), alpha
+
+
+def make_scene(root, n_train=12, n_test=4, res=64, render=render_view):
+  """Write the scene under `root`, each view drawn by `render(c2w, res)`;
+  returns `root`."""
   os.makedirs(root, exist_ok=True)
   for split, n, offset in [('train', n_train, 0.0),
                            ('test', n_test, 0.5 * np.pi / n_test)]:
@@ -87,7 +117,7 @@ def make_scene(root, n_train=12, n_test=4, res=64):
     for i in range(n):
       theta = 2 * np.pi * i / n + offset
       c2w = look_at_pose(theta)
-      rgb, alpha = render_view(c2w, res)
+      rgb, alpha = render(c2w, res)
       rgba = np.concatenate([rgb, alpha[..., None]], -1)
       name = f'r_{split}_{i}'
       with open(os.path.join(root, name + '.png'), 'wb') as f:
@@ -97,6 +127,12 @@ def make_scene(root, n_train=12, n_test=4, res=64):
     with open(os.path.join(root, f'transforms_{split}.json'), 'w') as f:
       json.dump(meta, f)
   return root
+
+
+def make_shiny_scene(root, n_train=24, n_test=4, res=64):
+  """tools/make_shiny_scene.py's scene (:94): the glossy sphere of
+  `render_shiny_view` in the Blender format of `make_scene`."""
+  return make_scene(root, n_train, n_test, res, render=render_shiny_view)
 
 
 # tools/make_shiny_scene.py's environment: (direction, colour, exponent) of
@@ -140,9 +176,7 @@ def render_view_opencv(c2w, width, height, focal):
   t = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / 2, 0.0)
   pts = origin + t[..., None] * dirs
   normals = np.where(hit[..., None], pts / SPHERE_RADIUS, 1.0)
-  albedo = 0.5 + 0.5 * normals
-  light = np.array([0.58, 0.58, 0.58])
-  shade = albedo * np.clip(normals @ light, 0.1, 1.0)[..., None]
+  shade = _albedo_shade(normals)
   refl = dirs - 2.0 * (dirs * normals).sum(-1, keepdims=True) * normals
   shade = _DIFFUSE_WEIGHT * shade + _SPECULAR_WEIGHT * env_radiance(refl)
   return np.clip(np.where(hit[..., None], shade, 1.0), 0, 1)
@@ -212,6 +246,12 @@ if __name__ == '__main__':
     sizes = [int(a) for a in sys.argv[3:7]]
     make_llff_scene(sys.argv[2], *sizes)
     print(f'wrote analytic forward-facing sphere scene to {sys.argv[2]}')
+  elif sys.argv[1] == '--shiny':
+    if len(sys.argv) < 3:
+      sys.exit(__doc__)
+    sizes = [int(a) for a in sys.argv[3:6]]
+    make_shiny_scene(sys.argv[2], *sizes)
+    print(f'wrote analytic shiny-sphere scene to {sys.argv[2]}')
   else:
     sizes = [int(a) for a in sys.argv[2:5]]
     make_scene(sys.argv[1], *sizes)

@@ -12,8 +12,9 @@ tests/test_system.py and a blender scene:
 - eval writes the metric files; render writes the frames and the videos,
   and a second render skips the frames already done;
 - error probes: a gin file that does not exist, a misspelt binding, eval on
-  an empty checkpoint directory; and the new modules import without any of
-  the blocked packages;
+  an empty checkpoint directory; and the modules (geometry, interop and
+  the tools a user runs on a trained scene too) import without any of the
+  blocked packages;
 - utils/profiling: StepTracer's Chrome trace and Timer.
 """
 
@@ -149,8 +150,13 @@ def test_error_probes_and_import_hygiene(runs, tmp_path):
   gin_file = runs['gin_file']
   empty = str(tmp_path / 'empty')
   out = _python(f'''
-      from refnerf_tpu_torch import convert, system, vis
+      from refnerf_tpu_torch import convert, geometry, interop, system, vis
       from refnerf_tpu_torch.cli import eval as eval_cli, flags, render, train
+      from refnerf_tpu_torch.tools import (eval_ckpt_step,
+                                           export_torch_checkpoint,
+                                           extract_mesh,
+                                           import_torch_checkpoint,
+                                           mesh_error, quality_check)
       from refnerf_tpu_torch.train import checkpoints
       from refnerf_tpu_torch.utils import profiling
 

@@ -23,7 +23,10 @@ fused_trunk='auto'; the host data path (the ray cast on the card against the
 CPU's, the flagship trained from prefetched batches, sampled on the step's
 thread and on a sampler thread, against the same batches copied
 synchronously, the eval metrics on the card against the CPU's); a kill and
-resume of the flagship through NeRFSystem, bit for bit. Two tests
+resume of the flagship through NeRFSystem, bit for bit; the mesh tools'
+density grid and vertex colours through K1 against the plain spatial stage,
+and a model exported to a refnerf-pl checkpoint and imported again serving
+bit for bit. Two tests
 need no card and run everywhere: the data pipeline and the metrics, asked
 for CUDA where torch.cuda.is_available() reads false, refuse to start. This
 file imports no jax, so it also runs where jax is not installed; there, skip
@@ -1746,3 +1749,78 @@ def test_system_kill_and_resume_is_bit_for_bit(dev, tmp_path):
   for which in ('mu', 'nu'):
     for k, v in getattr(whole.state.opt, which).items():
       assert torch.equal(getattr(resumed.state.opt, which)[k], v), (which, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_mesh_tools_through_k1_match_off(dev, cdt):
+  # The flagship at full width: the density grid (K1 without the
+  # bottleneck head) and vertex colours (K1 with it) in uneven chunks,
+  # every chunk one K1 launch, against fused_trunk='off': the grid, the
+  # diffuse head and the colours each by the L2 error over the plain
+  # field's spread about its mean, within BOUND (random weights leave a
+  # nearly flat field, whose own relative L2 would pass a constant).
+  from refnerf_tpu_torch import geometry
+
+  def spread_l2(got, want):
+    got, want = (np.asarray(a, np.float64).reshape(len(a), -1)
+                 for a in (got, want))
+    return np.linalg.norm(got - want) / np.linalg.norm(want - want.mean(0))
+
+  config, gin = configs.parse([GIN], [f"NerfMLP.compute_dtype = '{cdt}'",
+                                      "NerfMLP.fused_trunk = 'on'"])
+  model = construct.construct_model(config, gin, dev)
+  box = ((-1.5,) * 3, (1.5,) * 3)
+  verts = np.random.default_rng(0).uniform(-1.2, 1.2, (5000, 3)).astype(
+      np.float32)
+  diffuse = lambda: geometry.spatial_heads(
+      model.nerf_mlp, torch.from_numpy(verts).to(dev), 0.05 ** 2 / 4,
+      True)[1]['diffuse'].float().cpu().numpy()
+  before = fused_mlp.launches['K1']
+  grid = geometry.density_grid(model, 48, *box, chunk=40000)
+  colors = geometry.vertex_colors(model, verts, 0.05, chunk=3000)
+  assert fused_mlp.launches['K1'] - before == 3 + 2
+  heads = diffuse()
+  model.nerf_mlp.cfg.fused_trunk = 'off'
+  plain = geometry.density_grid(model, 48, *box)
+  plain_colors = geometry.vertex_colors(model, verts, 0.05)
+  plain_heads = diffuse()
+  assert fused_mlp.launches['K1'] - before == 6
+  for got, want in ((grid, plain), (heads, plain_heads),
+                    (colors, plain_colors)):
+    assert spread_l2(got, want) <= BOUND[cdt], spread_l2(got, want)
+
+
+@pytest.mark.cuda
+def test_interop_round_trip_serves_bit_for_bit(dev, tmp_path):
+  # The flagship exported to a refnerf-pl .ckpt and imported into a model
+  # built from another seed serves a request equal to the original's.
+  from refnerf_tpu_torch import interop
+  from refnerf_tpu_torch.tools import export_torch_checkpoint
+  from refnerf_tpu_torch.tools import import_torch_checkpoint
+
+  def build(seed):
+    config, gin = configs.parse([GIN], [f'Config.seed = {seed}',
+                                        "NerfMLP.compute_dtype = 'bfloat16'"])
+    return construct.construct_model(config, gin, dev), config
+
+  model, config = build(0)
+  other, _ = build(1)
+  ckpt = str(tmp_path / 'model.ckpt')
+  export_torch_checkpoint.export(model, 3, ckpt)
+  sd, step = import_torch_checkpoint.load_lightning(ckpt)
+  assert step == 3
+  other.load_state_dict(interop.torch_state_dict_to_params(
+      sd, other.state_dict(), other))
+  rng = np.random.default_rng(1)
+  d = torch.tensor(rng.normal(size=(4096, 3)).astype(np.float32), device=dev)
+  rays = rays_lib.dummy_rays(4096, dev)
+  rays.directions = d
+  rays.viewdirs = d / d.norm(dim=-1, keepdim=True)
+  rays.origins = torch.zeros_like(d)
+  rays.near, rays.far = rays.near + 2, rays.far + 6
+  rays.radii = rays.radii + 1e-3
+  with torch.no_grad():
+    a = renderer.render_rays(model, rays, 4096)
+    b = renderer.render_rays(other, rays, 4096)
+  assert torch.equal(a['rgb'], b['rgb'])

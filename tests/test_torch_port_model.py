@@ -293,6 +293,12 @@ def test_port_imports_no_jax_and_renders_on_cpu():
       from refnerf_tpu_torch.ops import image
       from refnerf_tpu_torch.testing import consistency
       from refnerf_tpu_torch.tools import sphere_scene
+      from refnerf_tpu_torch import geometry, interop
+      from refnerf_tpu_torch.tools import (eval_ckpt_step,
+                                           export_torch_checkpoint,
+                                           extract_mesh,
+                                           import_torch_checkpoint,
+                                           mesh_error, quality_check)
       from refnerf_tpu_torch.utils import io
       config, gin = configs.parse([{GIN!r}], {SMALL!r})
       model = construct.construct_model(config, gin, 'cpu')
@@ -309,6 +315,12 @@ def test_port_imports_no_jax_and_renders_on_cpu():
       a = torch.rand(16, 16, 3, generator=torch.Generator().manual_seed(0))
       m = metrics.MetricHarness(device='cpu')(a, a * 0.9)
       assert m['psnr'] > 0 and 0 < m['ssim'] < 1, m
+      grid = geometry.density_grid(model, 4, (-1,) * 3, (1,) * 3)
+      assert grid.shape == (4, 4, 4) and np.isfinite(grid).all()
+      sd = interop.params_to_torch_state_dict(model.state_dict(), model)
+      back = interop.torch_state_dict_to_params(sd, model.state_dict(), model)
+      assert all(torch.equal(back[k], v)
+                 for k, v in model.state_dict().items())
       bad = [m for m in sys.modules if m.split('.')[0] in
              ('jax', 'flax', 'optax', 'absl', 'refnerf_tpu')
              and sys.modules[m] is not None]
