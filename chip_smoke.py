@@ -212,10 +212,30 @@ Phases, each printed on its own line:
      between the grids; any that does lies within the bound times the
      spread of it); the PLY written and read back; the model exported to a
      refnerf-pl .ckpt, imported into a model of another seed, and a
-     4096-ray request from both equal bit for bit.
+     4096-ray request from both equal bit for bit;
+ 21. serving from a weight-embedded artifact (refnerf_tpu_torch/serving.py):
+     the flagship in bf16 with all six fuse flags exported under
+     fused_trunk='on' at chunk 4096 (seconds and bytes), its graph holding
+     the trunk operator twice for each trunk (K1, K2: 2 levels) on
+     trunk_fwd_tma.cu; loaded in a fresh process that imports torch and
+     the port alone (load seconds, the libraries already built) and
+     serving 4096 rays that launch K1, K2 and K6-K10 twice each; its rgb,
+     acc and distance against the in-process fused_trunk='off' render
+     within SERVE_BOUND of the plain render's spread (spread_l2), and, an
+     extra check, bit for bit the in-process kernel render; planted faults
+     read above both bounds (the spatial trunk's skip columns dropped
+     from the artifact's frozen pack, the rays' fields out of order, the
+     bottleneck head zeroed); the median and p90
+     of REQUESTS 4096-ray requests of the loaded artifact, the in-process
+     kernel path and the fused_trunk='off' artifact, in turns; the same
+     for configs/blender_mipnerf.gin as shipped (float32: K1 with the
+     bottleneck head alone and K2 at width 128 on trunk_fwd_f32.cu); one
+     /render POST of 4096 rays to tools/serve_http.py on 127.0.0.1 equal
+     to the direct call (round trips timed); tools/bench_render.py and
+     tools/profile_step.py for a few frames and steps, their lines printed.
 The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
-18, 19 and 20),
+18, 19, 20 and 21),
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -224,6 +244,7 @@ The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -3448,6 +3469,359 @@ def mesh_stage(fused_mlp, dev):
   return path, out
 
 
+# Phase 21: serving from a weight-embedded artifact. Its chunk, the timed
+# requests of each arm (in turns), and what each artifact must hold and
+# launch: the trunk operator twice for each trunk kind (2 levels), and a
+# request's launches counted in a fresh process.
+SERVE_CHUNK = 4096
+REQUESTS = 32
+ARTIFACT_OPS = {'K1': 2, 'K2': 2}
+ARTIFACTS = {
+    'flagship': (FLAGSHIP, 'bfloat16', FUSE + SPATIAL, 'trunk_fwd_tma',
+                 {'K1': 2, 'K2': 2, 'K6': 2, 'K7': 2, 'K8': 2, 'K9': 2,
+                  'K10': 2}),
+    'mipnerf': (MIPNERF, None, (), 'trunk_fwd_f32', {'K1': 2, 'K2': 2})}
+# The served artifact's rgb, acc and distance against the in-process
+# fused_trunk='off' render: spread_l2 (the L2 error over the plain render's
+# spread about its mean across the request's rays, as phase 20 holds the
+# mesh fields), at most SERVE_BOUND[compute dtype]: 20 times the sound
+# reads on an H100 of the flagship (bf16, 9.9e-6) and mip-NeRF (f32,
+# 8.4e-7), under what a zeroed bottleneck head reads (5.7e-4 / 1.7e-3).
+SERVE_BOUND = {'float32': 2e-5, 'bfloat16': 2e-4}
+# Modules the fresh serving process must not import.
+FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'refnerf_tpu')
+
+
+def load_and_serve(path, rays_npz, out_npz):
+  """Phase 21's fresh process: load the artifact at `path` with torch and
+  the port alone, serve the rays of `rays_npz` once, the launches counted
+  (set to 0 just before, read just after), write the buffers to `out_npz`
+  and print one JSON line (load s, the request's ms, the launches, any
+  module of FOREIGN imported)."""
+  from refnerf_tpu_torch import serving
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.ops import fused_mlp
+  t0 = time.perf_counter()
+  served = serving.load_serving(path)
+  load_s = time.perf_counter() - t0
+  data = np.load(rays_npz)
+  rays = rays_lib.Rays(**{k: torch.from_numpy(data[k]).to(served.device)
+                          for k in data.files})
+  counts = fused_mlp.launches
+  for k in counts:
+    counts[k] = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = served(rays)
+  torch.cuda.synchronize()
+  first_ms = (time.perf_counter() - t0) * 1e3
+  launches = {k: v for k, v in counts.items() if v}
+  np.savez(out_npz, **{k: v.float().cpu().numpy() for k, v in out.items()})
+  foreign = sorted(m for m in sys.modules if m.split('.')[0] in FOREIGN)
+  print(json.dumps(dict(load_s=load_s, load_parts=served.load_seconds,
+                        first_ms=first_ms, launches=launches,
+                        foreign=foreign)))
+  return 0
+
+
+def max_diffs(got, want, far):
+  """max |got - want| of rgb and acc, and of distance over far (tensors on
+  any device, or numpy)."""
+  host = lambda v: (v.float().cpu().numpy() if torch.is_tensor(v)
+                    else np.asarray(v, np.float32))
+  d = lambda k: float(np.abs(host(got[k]) - host(want[k])).max())
+  return {'rgb': d('rgb'), 'acc': d('acc'), 'distance': d('distance') / far}
+
+
+def spread_reads(got, want):
+  """spread_l2 of rgb, acc and distance (tensors on any device, or numpy)."""
+  host = lambda v: (v.float().cpu().numpy() if torch.is_tensor(v)
+                    else np.asarray(v, np.float32))
+  return {k: spread_l2(host(got[k]), host(want[k]))
+          for k in ('rgb', 'acc', 'distance')}
+
+
+def drop_skip_columns(pack):
+  """A planted pack fault: the skip layer's trunk-input columns zeroed in
+  both of the pack's layouts (w: [width, K] a layer, wt: [K, width])."""
+  k = pack.k_dims()
+  at, n = sum(pack.width * kl for kl in k[:pack.skip]), pack.width * k[
+      pack.skip]
+  w, wt = pack.w.clone(), pack.wt.clone()
+  w[at:at + n].view(pack.width, k[pack.skip])[:, pack.width:] = 0
+  wt[at:at + n].view(k[pack.skip], pack.width)[pack.width:] = 0
+  return pack._replace(w=w, wt=wt)
+
+
+@contextlib.contextmanager
+def planted_pack(fault):
+  """Within, export_serving freezes every spatial trunk's pack with
+  `fault` applied: the fault enters the artifact's constants alone, and
+  each model's own cached pack is put back on the way out."""
+  from refnerf_tpu_torch.models import mlp as mlp_lib
+  real, saved = mlp_lib.frozen_packs, []
+
+  @contextlib.contextmanager
+  def frozen(module):
+    with real(module):
+      for m in module.modules():
+        if not isinstance(m, mlp_lib.MLP):
+          continue
+        for key, (sig, pack) in list(m._packs.items()):
+          if key[0].startswith('spatial') and pack.skip >= 0:
+            saved.append((m, key, (sig, pack)))
+            m._packs[key] = (sig, fault(pack))
+      yield
+
+  mlp_lib.frozen_packs = frozen
+  try:
+    yield saved
+  finally:
+    mlp_lib.frozen_packs = real
+    for m, key, hit in saved:
+      m._packs[key] = hit
+
+
+def artifact_case(fused_mlp, dev, root, name):
+  """Phase 21 for one model of ARTIFACTS: export its artifacts (the kernels
+  under fused_trunk='on', 'off', and the planted faults), check the graph, serve in a fresh process against the
+  in-process renders, read the planted fault, time the three arms in
+  turns. Returns (the fresh process's launches, a summary)."""
+  from refnerf_tpu_torch import serving
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  gin_name, dtype, bindings, lib, want_launches = ARTIFACTS[name]
+  model, config = flagship(dev, bindings, gin_name, dtype)
+  cdt = model.nerf_mlp.cfg.compute_dtype
+  rays = random_rays(rays_lib, SERVE_CHUNK, config, 1, dev)
+  with torch.no_grad():
+    set_mode(model, fused_trunk='off')
+    plain = renderer.render_rays(model, rays, SERVE_CHUNK)
+    set_mode(model, fused_trunk='on')
+    kern = renderer.render_rays(model, rays, SERVE_CHUNK)
+  paths = {arm: os.path.join(root, f'{name}_{arm}.rnsrv')
+           for arm in ('on', 'off', 'fault')}
+  t0 = time.perf_counter()
+  meta = serving.export_serving(model, paths['on'], chunk=SERVE_CHUNK,
+                                device=dev, near=config.near, far=config.far)
+  export_s = time.perf_counter() - t0
+  size = os.path.getsize(paths['on'])
+  t0 = time.perf_counter()
+  served = serving.load_serving(paths['on'])
+  load_here_s = time.perf_counter() - t0
+  nodes = fused_mlp.trunk_op_nodes(served.exported.graph)
+  ops = {}
+  for _, which, _ in nodes:
+    ops[which] = ops.get(which, 0) + 1
+  libs = sorted({route for _, _, route in nodes})
+  log(f'phase 21: {name} {cdt}: exported in {export_s:.2f} s, {size} bytes, '
+      f'buffers {sorted(meta["buffers"])}, loaded here in {load_here_s:.2f} '
+      f's; the graph holds the trunk operator {ops} on {libs}')
+  if ops != ARTIFACT_OPS or libs != [lib]:
+    raise AssertionError(f'phase 21: {name}: trunk operators {ops} on '
+                         f'{libs}, expected {ARTIFACT_OPS} on {lib}')
+  set_mode(model, fused_trunk='off')
+  serving.export_serving(model, paths['off'], chunk=SERVE_CHUNK, device=dev,
+                         near=config.near, far=config.far)
+  off_served = serving.load_serving(paths['off'])
+  if fused_mlp.trunk_op_nodes(off_served.exported.graph):
+    raise AssertionError(f"phase 21: {name}: the 'off' artifact holds a "
+                         'trunk operator')
+  # The planted faults: an artifact whose frozen spatial pack lost the skip
+  # layer's input columns (a pack fault, which the kernels run), one whose
+  # program takes the rays' fields in another order than its loader passes
+  # them (directions and viewdirs swapped), and one with the bottleneck
+  # head zeroed.
+  set_mode(model, fused_trunk='on')
+  paths['skip'] = os.path.join(root, f'{name}_skip.rnsrv')
+  with planted_pack(drop_skip_columns) as planted:
+    serving.export_serving(model, paths['skip'], chunk=SERVE_CHUNK,
+                           device=dev, near=config.near, far=config.far)
+  if not planted:
+    raise AssertionError(f'phase 21: {name}: no spatial pack with a skip '
+                         'layer to plant the fault in')
+  fields = serving.RAY_FIELDS
+  i, j = fields.index('directions'), fields.index('viewdirs')
+  serving.RAY_FIELDS = tuple(fields[j] if k == i else fields[i] if k == j
+                             else f for k, f in enumerate(fields))
+  try:
+    serving.export_serving(model, paths['fault'], chunk=SERVE_CHUNK,
+                           device=dev, near=config.near, far=config.far)
+  finally:
+    serving.RAY_FIELDS = fields
+  head = model.nerf_mlp.bottleneck
+  saved = [t.detach().clone() for t in (head.weight, head.bias)]
+  with torch.no_grad():
+    for t in (head.weight, head.bias):
+      t.zero_()
+  paths['bottleneck'] = os.path.join(root, f'{name}_bottleneck.rnsrv')
+  serving.export_serving(model, paths['bottleneck'], chunk=SERVE_CHUNK,
+                         device=dev, near=config.near, far=config.far)
+  with torch.no_grad():
+    for t, v in zip((head.weight, head.bias), saved):
+      t.copy_(v)
+
+  # A fresh process loads the kernels' artifact and serves the rays.
+  rays_npz = os.path.join(root, f'{name}_rays.npz')
+  out_npz = os.path.join(root, f'{name}_out.npz')
+  np.savez(rays_npz, **{f: getattr(rays, f).cpu().numpy()
+                        for f in serving.RAY_FIELDS})
+  repo = os.path.dirname(os.path.abspath(__file__))
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, '-c', 'import sys, chip_smoke; '
+       'sys.exit(chip_smoke.load_and_serve(*sys.argv[1:]))', paths['on'],
+       rays_npz, out_npz], cwd=repo, capture_output=True, text=True,
+      timeout=600)
+  proc_s = time.perf_counter() - t0
+  if proc.returncode != 0:
+    raise AssertionError(f'phase 21: {name}: the serving process failed: '
+                         f'{proc.stderr[-3000:]}')
+  res = json.loads(proc.stdout.strip().splitlines()[-1])
+  loaded = dict(np.load(out_npz))
+  check = check_rendering({k: torch.from_numpy(v) for k, v in loaded.items()},
+                          (SERVE_CHUNK,), config,
+                          model.nerf_mlp.cfg.rgb_padding)
+  bound = SERVE_BOUND[cdt]
+  vs_plain = max_diffs(loaded, plain, config.far)
+  spread = spread_reads(loaded, plain)
+  vs_kern = max_diffs(loaded, kern, config.far)
+  log(f'phase 21: {name}: a fresh process ({proc_s:.1f} s) loaded the '
+      f'artifact in {res["load_s"]:.2f} s ({res["load_parts"]}) and served {SERVE_CHUNK} rays in '
+      f'{res["first_ms"]:.1f} ms, launches {res["launches"]}, modules of '
+      f'{FOREIGN} imported: {res["foreign"]}; {check}; vs '
+      f"fused_trunk='off': spread_l2 {spread} (bound {bound}), max diff "
+      f'{vs_plain} (distance over far); max diff vs the in-process kernels '
+      f'{vs_kern} (bit for bit: 0)')
+  if res['foreign']:
+    raise AssertionError(f'phase 21: {name}: the serving process imported '
+                         f'{res["foreign"]}')
+  if res['launches'] != want_launches:
+    raise AssertionError(f'phase 21: {name}: launches {res["launches"]}, '
+                         f'expected {want_launches}')
+  if max(spread.values()) > bound or max(vs_kern.values()) > 0:
+    raise AssertionError(f'phase 21: {name}: the loaded artifact disagrees')
+  # Each planted fault must read above the plain render's bound and fail
+  # the bit for bit check against the in-process kernels.
+  faults, moved = {}, {}
+  for f in ('skip', 'fault', 'bottleneck'):
+    got = serving.load_serving(paths[f])(rays)
+    faults[f] = max(spread_reads(got, plain).values())
+    moved[f] = max(max_diffs(got, kern, config.far).values())
+  log(f'phase 21: {name}: planted faults against the plain render, spread_l2 '
+      f'over the bound {bound}: skip columns dropped from the pack '
+      f'{faults["skip"] / bound:.1f}, fields out of order '
+      f'{faults["fault"] / bound:.1f}, the bottleneck head zeroed '
+      f'{faults["bottleneck"] / bound:.1f}; max diff against the in-process '
+      f'kernels {moved} (bit for bit: 0)')
+  if not (min(faults.values()) > bound and min(moved.values()) > 0):
+    raise AssertionError(f'phase 21: {name}: a planted fault reads within '
+                         'its bound')
+
+  # The three arms in turns.
+  set_mode(model, fused_trunk='on')
+  arms = {'artifact': lambda: served(rays),
+          'in-process': lambda: renderer.render_rays(model, rays, SERVE_CHUNK),
+          'off artifact': lambda: off_served(rays)}
+  times = {a: [] for a in arms}
+  with torch.no_grad():
+    for run in arms.values():
+      run()
+    for _ in range(REQUESTS):
+      for a, run in arms.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times[a].append((time.perf_counter() - t0) * 1e3)
+  timing = {a: dict(median_ms=float(np.median(v)),
+                    p90_ms=float(np.percentile(v, 90))) for a, v in times.items()}
+  log(f'phase 21: {name} {cdt}: {REQUESTS} {SERVE_CHUNK}-ray requests of '
+      f'each arm in turns: {json.dumps(timing)}')
+  summary = dict(export_s=export_s, bytes=size, load_s=res['load_s'],
+                 load_here_s=load_here_s,
+                 process_s=proc_s, first_ms=res['first_ms'],
+                 vs_plain=vs_plain, spread_l2=spread, bound=bound,
+                 vs_kernels=vs_kern, skip_dropped=faults['skip'],
+                 fields_swapped=faults['fault'],
+                 bottleneck_zeroed=faults['bottleneck'],
+                 faults_vs_kernels=moved,
+                 requests=timing)
+  del off_served, model
+  torch.cuda.empty_cache()
+  return res['launches'], summary, (paths['on'], served, rays, config)
+
+
+def http_check(path, served, rays, config, trips=3):
+  """Phase 21: `trips` /render POSTs of the rays to tools/serve_http.py on
+  127.0.0.1 serving the artifact at `path`, the rgb equal to the direct
+  call's (`served`, the same artifact loaded); returns the round trips'
+  median ms."""
+  import threading
+  import urllib.request
+  from refnerf_tpu_torch.tools import serve_http
+  server = serve_http.make_server(path, '127.0.0.1', 0)
+  thread = threading.Thread(target=server.serve_forever, daemon=True)
+  thread.start()
+  try:
+    n = rays.origins.shape[0]
+    payload = json.dumps({
+        'origins': rays.origins.cpu().tolist(),
+        'directions': rays.directions.cpu().tolist(),
+        'viewdirs': rays.viewdirs.cpu().tolist(),
+        'radii': rays.radii.cpu().tolist(), 'near': float(config.near),
+        'far': float(config.far)}).encode()
+    url = f'http://127.0.0.1:{server.server_port}/render'
+    times = []
+    for _ in range(trips):
+      req = urllib.request.Request(url, data=payload, method='POST', headers={
+          'Content-Type': 'application/json'})
+      t0 = time.perf_counter()
+      with urllib.request.urlopen(req, timeout=300) as r:
+        out = json.loads(r.read())
+      times.append((time.perf_counter() - t0) * 1e3)
+  finally:
+    server.shutdown()
+    server.server_close()
+    thread.join()
+  direct = served.serve_image(rays.reshape(n, 1))
+  diff = float(np.abs(np.asarray(out['rgb'], np.float32) -
+                      direct['rgb'][:, 0]).max())
+  log(f'phase 21: /render POST of {n} rays ({len(payload)} bytes): round '
+      f'trips {", ".join(f"{t:.1f}" for t in times)} ms; buffers '
+      f'{sorted(out)}; max |rgb| diff vs the direct call {diff:.3e}')
+  if diff > 1e-6 or sorted(out) != ['acc', 'rgb']:
+    raise AssertionError('phase 21: /render disagrees with the direct call')
+  return float(np.median(times))
+
+
+def serving_stage(fused_mlp, dev):
+  """Phase 21: the flagship (bf16, six flags) and mip-NeRF (f32) served from
+  artifacts; the HTTP host; bench_render and profile_step. Returns ({name:
+  the fresh process's launches}, a summary)."""
+  import tempfile
+  from refnerf_tpu_torch.tools import bench_render
+  from refnerf_tpu_torch.tools import profile_step
+  root = tempfile.mkdtemp(prefix='refnerf_serve_')
+  path, out = {}, {}
+  try:
+    for name in ARTIFACTS:
+      path[name], out[name], served = artifact_case(fused_mlp, dev, root,
+                                                    name)
+      if name == 'flagship':
+        out['http_ms'] = http_check(*served)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  out['bench_render'] = bench_render.main(['--frames', '3',
+                                           '--device', dev.type])
+  prof = profile_step.main(['--steps', '5', '--device', dev.type])
+  out['profile_step'] = {k: prof[k] for k in (
+      'ms_per_step', 'traced_ms_per_step', 'rays_per_sec',
+      'device_ms_per_step')}
+  torch.cuda.empty_cache()
+  return path, out
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -3504,6 +3878,7 @@ def main():
   kernels.update(check_prop_kernels(fused_mlp, dev))
   cascade_path, cascade_bf16_path, cascade = cascade_stage(fused_mlp, dev)
   mesh_path, mesh = mesh_stage(fused_mlp, dev)
+  art_path, art = serving_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -3640,6 +4015,12 @@ def main():
       # Phase 20: the density grid and the vertex colours (bf16, f32).
       entry['mesh_launches'] = mesh_path['bfloat16']
       entry['mesh_f32_launches'] = mesh_path['float32']
+    if which in art_path['flagship']:
+      # Phase 21: a request of the loaded bf16 six-flag artifact.
+      entry['artifact_launches'] = art_path['flagship'][which]
+    if which in ('K1 hf=0', 'K2 W128'):
+      # Phase 21: a request of the loaded mip-NeRF artifact (float32).
+      entry['artifact_f32_launches'] = art_path['mipnerf'][which.split()[0]]
     if which in main_case:
       entry['case'] = case
       entry['serve_launches'] = spa_serve[which]
@@ -3698,7 +4079,8 @@ def main():
       f'disk): {json.dumps(data)}; phase 17 (the CLIs): {json.dumps(cli)}; '
       f'phase 18 (the LLFF geometry gins): {json.dumps(geo)}; phase 19 (the '
       f'proposal cascade): {json.dumps(cascade)}; phase 20 (the mesh tools '
-      f'and interop): {json.dumps(mesh)}')
+      f'and interop): {json.dumps(mesh)}; phase 21 (serving from '
+      f'artifacts): {json.dumps(art)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -41,6 +41,7 @@ read and unused, as in JAX (mlp.py:143).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -108,6 +109,23 @@ def plain_stack(x, layers, act, skip, cdt):
       dt = torch.promote_types(x.dtype, inputs.dtype)
       x = torch.cat([x.to(dt), inputs.to(dt)], dim=-1)
   return x
+
+
+@contextlib.contextmanager
+def frozen_packs(module: nn.Module):
+  """Within, every MLP in `module` takes the kernel packs it has cached (run
+  it once on the request's shapes first) and never rebuilds them. For
+  torch.export: it traces with fake parameters, whose data pointers the
+  cache key cannot read, and the cached packs enter the exported program as
+  constants, built once from the real weights."""
+  mlps = [m for m in module.modules() if isinstance(m, MLP)]
+  for m in mlps:
+    m._packs_frozen = True
+  try:
+    yield
+  finally:
+    for m in mlps:
+      m._packs_frozen = False
 
 
 def activation(v):
@@ -241,6 +259,7 @@ class MLP(nn.Module):
       self.grad_pred = nn.Linear(wo, 3)
       self._heads.append(('grad_pred', 'grad_pred', 3))
     self._packs = {}
+    self._packs_frozen = False
     if c.disable_rgb:
       # A density-only MLP (a proposal MLP) has no colour layers: JAX never
       # creates their parameters (mlp.py:277, :295, :466).
@@ -299,8 +318,15 @@ class MLP(nn.Module):
     return [l.weight for l in layers], [l.bias for l in layers]
 
   def _pack(self, name, build):
-    """The kernel's weight layout of one trunk, cached until a weight changes."""
+    """The kernel's weight layout of one trunk, cached until a weight
+    changes; under `frozen_packs` the cached layout, never rebuilt."""
     key = (name, self.cfg.compute_dtype)
+    if self._packs_frozen:
+      if key not in self._packs:
+        raise RuntimeError(
+            f'no {name} pack was built before the packs were frozen: run the '
+            'model once on the same shapes first')
+      return self._packs[key][1]
     sig = tuple((p.data_ptr(), p._version) for p in self.parameters())
     hit = self._packs.get(key)
     if hit is None or hit[0] != sig:

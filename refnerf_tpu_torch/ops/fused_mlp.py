@@ -52,7 +52,11 @@ written in the Pallas kernels' order of operations and casts:
 
 For a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back to the plain version. Each launch through a wrapper adds one to
-`launches[K]`.
+`launches[K]`. The forward launch is a PyTorch operator,
+`refnerf_tpu_torch::trunk_forward` (`launch_trunk`), so that
+`torch.export` records it and a loaded program (serving.py) runs and
+counts it: `trunk_kernel` for CUDA tensors, counted where it launches;
+`trunk_plain` for CPU ones, which launches nothing and is not counted.
 """
 
 from __future__ import annotations
@@ -1343,6 +1347,174 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
   return [t for t in (y, sig, hout, cout, u, rgb, wts) if t is not None]
 
 
+def unpack_trunk(pack: TrunkPack):
+  """(weights, biases, keywords of trunk_reference) of a pack: each layer's
+  [width, in] weight with the `kin` padding stripped, the heads, the skip
+  period that puts the skip at `pack.skip`, the compute dtype."""
+  fin = sum(pack.seg_dims)
+  ws, off = [], 0
+  for l, k in enumerate(pack.k_dims()):
+    w = pack.w[off:off + pack.width * k].reshape(pack.width, k)
+    off += pack.width * k
+    ws.append(w[:, :k - pack.kin + fin] if l == 0 or l == pack.skip else w)
+  head = lambda w, b: None if w is None else (w, b)
+  return ws, list(pack.b.unbind(0)), dict(
+      skip_period=pack.skip - 1 if pack.skip > 0 else pack.depth,
+      wd=pack.wd, head_f32=head(pack.wh, pack.bh),
+      head_cdt=head(pack.wc, pack.bc), compute_dtype=pack.compute_dtype)
+
+
+def trunk_plain(segs, pack: TrunkPack, fold=None, dir_modes=None, rgbx=None,
+                spa_modes=None, comp=None, out_y=False):
+  """trunk_kernel's plain version on the pack's own weights: what the
+  forward op runs for CPU tensors (`trunk_reference`)."""
+  ws, bs, kw = unpack_trunk(pack)
+  return trunk_reference(segs, ws, bs, density_grad=fold is not None,
+                         fold=fold, dir_modes=dir_modes, rgbx=rgbx,
+                         spa_modes=spa_modes, comp=comp, out_y=out_y, **kw)
+
+
+# The forward launch as a PyTorch operator, so that torch.export records it
+# as one node that a loaded program runs (serving.py): its schema is the
+# TrunkPack, DirModes and SpaModes flattened into tensors and scalars.
+TRUNK_OP = 'refnerf_tpu_torch::trunk_forward'
+
+
+def _op_args(segs, pack: TrunkPack, fold=None, dm: Optional[DirModes] = None,
+             rgbx=None, sp: Optional[SpaModes] = None, comp=None,
+             out_y=False):
+  dm, sp = dm or DirModes(), sp or SpaModes()
+  rgbe = dm.rgbe or (0.0, 0.0, 0.0)
+  rawd, rawt = rgbx if rgbx is not None else (None, None)
+  delta, bsig = comp[:2] if comp is not None else (None, None)
+  return (list(segs), pack.w, pack.wt, pack.b, pack.wd, pack.wh, pack.bh,
+          pack.wc, pack.wct, pack.bc, list(pack.seg_dims), pack.kin,
+          pack.depth, pack.width, pack.skip, fold, dm.ide_deg, dm.ide_at,
+          dm.geo, dm.rgbe is not None, *rgbe, rawd, rawt, list(sp.scales),
+          sp.samples, delta, bsig, bool(out_y))
+
+
+def _from_op_args(segs, w, wt, b, wd, wh, bh, wc, wct, bc, seg_dims, kin,
+                  depth, width, skip, fold, ide_deg, ide_at, geo, rgbe,
+                  premult, rgb_bias, rgb_pad, rawd, rawt, scales, samples,
+                  delta, bsig, out_y):
+  """The inverse of `_op_args`: (segs, pack, fold, DirModes, rgbx,
+  SpaModes, comp, out_y)."""
+  cdt = 'bfloat16' if b.dtype == torch.bfloat16 else 'float32'
+  pack = TrunkPack(w, wt, b, wd, wh, bh, wc, wct, bc, tuple(seg_dims), kin,
+                   depth, width, skip, cdt)
+  dm = DirModes(ide_deg, ide_at, geo,
+                (premult, rgb_bias, rgb_pad) if rgbe else None)
+  sp = SpaModes(tuple(scales), samples)
+  return (list(segs), pack, fold, dm, (rawd, rawt) if rgbe else None, sp,
+          (delta, bsig) if samples else None, out_y)
+
+
+def launch_keys(which, pack, out_y, fold, dm: DirModes, sp: SpaModes):
+  """The `launches` keys that one launch of kernel `which` counts under:
+  its own, its wide-input instance's and each fused mode's."""
+  keys = [which]
+  if which in ('K1', 'K4') and wide_input(pack, out_y, fold, sp):
+    keys.append(which + ' wide')
+  for k, on in (('K6', sp.samples), ('K7', sp.scales), ('K8', dm.ide_deg),
+                ('K9', dm.geo), ('K10', dm.rgbe), ('K11', out_y)):
+    if on:
+      keys.append(k)
+  return keys
+
+
+def _count(which, pack, out_y, fold, dm: DirModes, sp: SpaModes):
+  """One launch of kernel `which`, also counted under each fused mode."""
+  for k in launch_keys(which, pack, out_y, fold, dm, sp):
+    launches[k] += 1
+
+
+def forward_kind(pack: TrunkPack, fold) -> str:
+  """The forward kernel a pack's launch is: the spatial trunk has the
+  density head (K1, K3 with the density gradient), the directional one
+  has not (K2)."""
+  return 'K2' if pack.wd is None else 'K1' if fold is None else 'K3'
+
+
+@torch.library.custom_op(TRUNK_OP, mutates_args=(), device_types='cpu')
+def trunk_forward(
+    segs: List[torch.Tensor], w: torch.Tensor, wt: torch.Tensor,
+    b: torch.Tensor, wd: Optional[torch.Tensor], wh: Optional[torch.Tensor],
+    bh: Optional[torch.Tensor], wc: Optional[torch.Tensor],
+    wct: Optional[torch.Tensor], bc: Optional[torch.Tensor],
+    seg_dims: List[int], kin: int, depth: int, width: int, skip: int,
+    fold: Optional[torch.Tensor], ide_deg: int, ide_at: int, geo: bool,
+    rgbe: bool, premult: float, rgb_bias: float, rgb_pad: float,
+    rawd: Optional[torch.Tensor], rawt: Optional[torch.Tensor],
+    scales: List[float], samples: int, delta: Optional[torch.Tensor],
+    bsig: Optional[torch.Tensor], out_y: bool) -> List[torch.Tensor]:
+  """The forward launch (K1-K3, K6-K11 by its modes): for CUDA tensors
+  trunk_kernel, counted in `launches`; for CPU tensors its plain version,
+  `trunk_plain`, which launches nothing and counts nothing."""
+  segs, pack, fold, dm, rgbx, sp, comp, out_y = _from_op_args(
+      segs, w, wt, b, wd, wh, bh, wc, wct, bc, seg_dims, kin, depth, width,
+      skip, fold, ide_deg, ide_at, geo, rgbe, premult, rgb_bias, rgb_pad,
+      rawd, rawt, scales, samples, delta, bsig, out_y)
+  return trunk_plain(segs, pack, fold, dir_modes=dm, rgbx=rgbx,
+                     spa_modes=sp, comp=comp, out_y=out_y)
+
+
+@trunk_forward.register_kernel('cuda')
+def _trunk_forward_cuda(*args):
+  segs, pack, fold, dm, rgbx, sp, comp, out_y = _from_op_args(*args)
+  outs = trunk_kernel(segs, pack, fold, dir_modes=dm, rgbx=rgbx,
+                      spa_modes=sp, comp=comp, out_y=out_y)
+  _count(forward_kind(pack, fold), pack, out_y, fold, dm, sp)
+  return outs
+
+
+@trunk_forward.register_fake
+def _trunk_forward_fake(*args):
+  """Empty outputs of trunk_kernel's shapes and dtypes for each mode."""
+  segs, pack, fold, dm, _, sp, _, out_y = _from_op_args(*args)
+  n, cdt = segs[0].shape[0], DTYPES[pack.compute_dtype]
+  new = lambda *shape, dtype=torch.float32: segs[0].new_empty(shape,
+                                                              dtype=dtype)
+  outs = [new(n, pack.width, dtype=cdt)] if out_y else []
+  if pack.wd is not None:
+    outs.append(new(n))
+  if pack.wh is not None:
+    outs.append(new(n, pack.wh.shape[0]))
+  if pack.wc is not None:
+    outs.append(new(n, pack.wc.shape[0], dtype=cdt))
+  if fold is not None:
+    outs.append(new(n, fold.shape[1]))
+  if dm.rgbe is not None:
+    outs.append(new(n, 3))
+  if sp.samples:
+    outs.append(new(n))
+  return outs
+
+
+def launch_trunk(segs, pack: TrunkPack, fold=None, dir_modes=None, rgbx=None,
+                 spa_modes=None, comp=None, out_y=False):
+  """The forward through the `trunk_forward` op: trunk_kernel's arguments
+  and outputs, the launch counted."""
+  return trunk_forward(*_op_args(segs, pack, fold, dir_modes, rgbx,
+                                 spa_modes, comp, out_y))
+
+
+def trunk_op_nodes(graph):
+  """The `trunk_forward` nodes of an exported graph, each with its
+  (kernel, library): 'K1' / 'K3' for the spatial trunk, 'K2' for the
+  directional one, and `forward_library`'s choice for its shapes."""
+  found = []
+  for node in graph.nodes:
+    if getattr(node.target, 'name', lambda: None)() != TRUNK_OP:
+      continue
+    args = torch.fx.node.map_arg(
+        node.args, lambda a: a.meta['val'] if 'val' in a.meta else a)
+    _, pack, fold, _, _, sp, _, out_y = _from_op_args(*args)
+    found.append((node, forward_kind(pack, fold),
+                  forward_library(pack, out_y, fold, sp)))
+  return found
+
+
 def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
                           needs_dx=False, slab: Optional[int] = None,
                           dir_modes: Optional[DirModes] = None, rgbx=None,
@@ -1590,27 +1762,12 @@ def _unflatten(spec: _Spec, params):
       (wc, bc) if spec.has[3] else None
 
 
-def _count(which, spec: _Spec):
-  """One launch of kernel `which`, also counted under each fused mode."""
-  launches[which] += 1
-  if which in ('K1', 'K4') and wide_input(spec.pack, spec.has[0], spec.fold,
-                                          spec.spa_modes):
-    launches[which + ' wide'] += 1
-  dm, sp = spec.dir_modes, spec.spa_modes
-  for k, on in (('K6', sp.samples), ('K7', sp.scales), ('K8', dm.ide_deg),
-                ('K9', dm.geo), ('K10', dm.rgbe), ('K11', spec.has[0])):
-    if on:
-      launches[k] += 1
-
-
-def _forward(spec: _Spec, segs, params, which, rgbx=None, comp=None):
+def _forward(spec: _Spec, segs, params, rgbx=None, comp=None):
   ws, bs, wd, head_f32, head_cdt = _unflatten(spec, params)
   kw = dict(dir_modes=spec.dir_modes, rgbx=rgbx, spa_modes=spec.spa_modes,
             comp=comp, out_y=spec.has[0])
   if spec.kernel:
-    outs = trunk_kernel(segs, spec.pack, spec.fold, **kw)
-    _count(which, spec)
-    return outs
+    return launch_trunk(segs, spec.pack, spec.fold, **kw)
   return trunk_reference(segs, ws, bs, skip_period=spec.skip_period, wd=wd,
                          head_f32=head_f32, head_cdt=head_cdt,
                          compute_dtype=spec.compute_dtype,
@@ -1633,7 +1790,8 @@ def _backward(spec: _Spec, segs, params, grads, which, rgbx=None, comp=None):
   if spec.kernel:
     res = trunk_backward_kernel(segs, spec.pack, cots, spec.fold,
                                 spec.needs_dx, **kw)
-    _count(which, spec)
+    _count(which, spec.pack, spec.has[0], spec.fold, spec.dir_modes,
+           spec.spa_modes)
   else:
     res = trunk_backward_reference(
         segs, ws, bs, cots, skip_period=spec.skip_period, wd=wd,
@@ -1663,8 +1821,7 @@ class SpatialTrunk(torch.autograd.Function):
   @staticmethod
   def forward(ctx, spec, a, b, delta, bsig, *params):
     comp = (delta, bsig) if spec.spa_modes.samples else None
-    outs = _forward(spec, [a, b], params,
-                    'K1' if spec.fold is None else 'K3', comp=comp)
+    outs = _forward(spec, [a, b], params, comp=comp)
     ctx.spec = spec
     sig = outs[int(spec.has[0])]
     ctx.save_for_backward(a, b, *(comp + (sig,) if comp else ()),
@@ -1701,7 +1858,7 @@ class DirectionalTrunk(torch.autograd.Function):
     ctx.save_for_backward(*segs, *[p for p in params if p is not None],
                           *(rgbx or []))
     ctx.present = [p is not None for p in params]
-    return tuple(_forward(spec, segs, params, 'K2', rgbx))
+    return tuple(_forward(spec, segs, params, rgbx))
 
   @staticmethod
   @once_differentiable
@@ -1792,7 +1949,13 @@ def fused_encoded_trunk(lm, lv, scales, weights, biases, wd, bd=None, *,
                (bool(out_y), wd is not None, head_f32 is not None,
                 head_cdt is not None),
                False, spa_modes=spa)
-  outs = list(SpatialTrunk.apply(spec, *segs, dcol, bsig, *params))
+  if _needs_grad([*params, bsig]):
+    outs = list(SpatialTrunk.apply(spec, *segs, dcol, bsig, *params))
+  else:
+    # Nothing to differentiate (a served request, an export): the forward
+    # alone, without the autograd Function.
+    outs = _forward(spec, segs, params,
+                    comp=(dcol, bsig) if spa.samples else None)
   wts = outs.pop() if delta is not None else None
   res = [outs.pop(0).reshape(*lead, -1)] if out_y else []
   sig = outs[0] if bd is None else outs[0] + bd.float()
@@ -1847,6 +2010,9 @@ def fused_trunk(segs: Sequence, weights, biases, head_f32: Head, *,
   spec = _Spec(len(weights), skip_period, compute_dtype, kernel,
                pack if kernel else None, None, (False, False, True, False),
                True, dm)
-  outs = DirectionalTrunk.apply(spec, len(flat), *flat, *params, *rgbx)
+  if _needs_grad([*flat, *params, *rgbx]):
+    outs = DirectionalTrunk.apply(spec, len(flat), *flat, *params, *rgbx)
+  else:
+    outs = _forward(spec, flat, params, rgbx or None)
   outs = [o.reshape(*lead, o.shape[-1]) for o in outs]
   return outs[0] if len(outs) == 1 else tuple(outs)

@@ -9,6 +9,7 @@ trace (chrome://tracing, Perfetto).
 from __future__ import annotations
 
 import os
+import re
 import time
 
 import torch
@@ -70,3 +71,51 @@ class Timer:
     self.elapsed = time.perf_counter() - self.t0
     if self.verbose:
       print(f'[{self.name}] {self.elapsed:.3f}s')
+
+
+# The trunk kernels of csrc/, by their CUDA names: the forwards and the
+# per-tile backwards, each a category of its own in `device_split`.
+TRUNK_KERNELS = ('trunk_fwd_tma_kernel', 'trunk_fwd_f32_kernel',
+                 'trunk_fwd_kernel', 'trunk_bwd_tma_kernel',
+                 'trunk_bwd_f32_kernel', 'trunk_bwd_kernel')
+WGRAD = 'weight gradients and reductions'  # wgrad*_kernel, reduce_kernel
+OTHER = 'other kernels'
+COPIES = 'copies'
+
+
+def kernel_category(name: str) -> str:
+  """The category of a device event's name in `device_split`."""
+  if 'Memcpy' in name or 'Memset' in name:
+    return COPIES
+  # The function's own name, without return type, namespace, template or
+  # parameters: trunk_fwd_kernel must not match trunk_fwd_tma_kernel.
+  words = re.split(r'[<(]', name.replace('(anonymous namespace)::', ''))[0]
+  base = words.split('::')[-1].split()[-1] if words.split() else ''
+  if base in TRUNK_KERNELS:
+    return base
+  if 'wgrad' in name or 'reduce_kernel' in name:
+    return WGRAD
+  return OTHER
+
+
+def device_split(prof, wall_s: float, calls: int = 1):
+  """Device time of a torch.profiler window by category, ms a call: each
+  trunk kernel of TRUNK_KERNELS, WGRAD, OTHER and COPIES; with 'busy' (their
+  sum), 'wall' (`wall_s` a call: time as many calls outside the profiler,
+  whose host cost lengthens the traced window), 'idle share' (1 - busy /
+  wall) and 'launches' (device events a call). Without device events busy
+  is 0 and the idle share None."""
+  split = {k: 0.0 for k in TRUNK_KERNELS + (WGRAD, OTHER, COPIES)}
+  launches = 0
+  for e in prof.key_averages():
+    if e.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    us = getattr(e, 'self_device_time_total',
+                 getattr(e, 'self_cuda_time_total', 0))
+    split[kernel_category(e.key)] += us / 1e3 / calls
+    launches += e.count
+  busy = sum(split.values())
+  wall = wall_s * 1e3 / calls
+  return {**split, 'busy': busy, 'wall': wall,
+          'idle share': (1 - busy / wall) if busy > 0 else None,
+          'launches': launches / calls}

@@ -31,6 +31,7 @@ the steps 2e-4 of their largest entry and the parameters after a step 2e-2
 of their largest move, as tests/test_torch_port_losses.py.
 """
 
+import collections
 import os
 
 import jax
@@ -472,8 +473,11 @@ def test_cascade_steps_match_jax_with_jax_draws():
 
 def _stubbed_kernels(monkeypatch):
   """use_kernel as on a card; the forward and backward kernels answer with
-  the plain versions on the pack's own weights and record their routes."""
-  routes = []
+  the plain versions on the pack's own weights and record their routes.
+  The forward op's CPU implementation stands in for its kernel, and counts
+  nothing: the stub records its launches in `fwd_launches`, under the keys
+  that the op's CUDA implementation adds to."""
+  routes, fwd_launches = [], collections.Counter()
 
   def unpack(pack):
     ws, bs = _pack_weights(pack)
@@ -491,6 +495,10 @@ def _stubbed_kernels(monkeypatch):
                               spa_modes or fused_mlp.SpaModes(), out_y)
     routes.append(('fwd', pack.kin, fused_mlp.forward_library(
         pack, out_y, fold, spa_modes or fused_mlp.SpaModes())))
+    fwd_launches.update(fused_mlp.launch_keys(
+        fused_mlp.forward_kind(pack, fold), pack, out_y, fold,
+        dir_modes or fused_mlp.DirModes(),
+        spa_modes or fused_mlp.SpaModes()))
     ws, bs, kw = unpack(pack)
     return fused_mlp.trunk_reference(
         segs, ws, bs, density_grad=fold is not None, fold=fold,
@@ -510,9 +518,9 @@ def _stubbed_kernels(monkeypatch):
 
   monkeypatch.setattr(fused_mlp, 'use_kernel',
                       lambda x, mode: fused_mlp.MODES.index(mode) < 2)
-  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  monkeypatch.setattr(fused_mlp, 'trunk_plain', kernel)
   monkeypatch.setattr(fused_mlp, 'trunk_backward_kernel', backward)
-  return routes
+  return routes, fwd_launches
 
 
 @pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
@@ -525,7 +533,7 @@ def test_wide_instance_routes_and_counts(monkeypatch, cdt):
   # one a proposal level), the NerfMLP's to the same libraries' width-256
   # instances; a step under 'on' equals 'off' to the bit; and no shape of
   # the step is without an instance.
-  routes = _stubbed_kernels(monkeypatch)
+  routes, fwd_launches = _stubbed_kernels(monkeypatch)
   fwd, bwd = fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt]
   bindings = CASCADE + [
       'NerfMLP.net_depth = 2', 'NerfMLP.net_depth_viewdirs = 2',
@@ -548,9 +556,10 @@ def test_wide_instance_routes_and_counts(monkeypatch, cdt):
                                                  r.items()}),
                            rgb=_t(np.full((4, 3), 0.5, np.float32)))
     before = dict(fused_mlp.launches)
+    fwd_launches.clear()
     state = step_lib.create_train_state(config, model)
     state, stats = step_lib.make_train_step(model, config)(state, batch)
-    runs[mode] = (stats, {k: v - before[k] for k, v in
+    runs[mode] = (stats, {k: v - before[k] + fwd_launches[k] for k, v in
                           fused_mlp.launches.items()}, model.state_dict())
   (on, n_on, p_on), (off, n_off, p_off) = runs['on'], runs['off']
   assert n_off == {k: 0 for k in n_off}

@@ -26,7 +26,9 @@ synchronously, the eval metrics on the card against the CPU's); a kill and
 resume of the flagship through NeRFSystem, bit for bit; the mesh tools'
 density grid and vertex colours through K1 against the plain spatial stage,
 and a model exported to a refnerf-pl checkpoint and imported again serving
-bit for bit. Two tests
+bit for bit; the flagship served from a weight-embedded artifact
+(serving.py) against the in-process kernels (bit for bit) and
+fused_trunk='off', its launches counted. Two tests
 need no card and run everywhere: the data pipeline and the metrics, asked
 for CUDA where torch.cuda.is_available() reads false, refuse to start. This
 file imports no jax, so it also runs where jax is not installed; there, skip
@@ -1824,3 +1826,54 @@ def test_interop_round_trip_serves_bit_for_bit(dev, tmp_path):
     a = renderer.render_rays(model, rays, 4096)
     b = renderer.render_rays(other, rays, 4096)
   assert torch.equal(a['rgb'], b['rgb'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_served_artifact_matches_off_and_counts_launches(dev, tmp_path, cdt):
+  # The flagship with the six fuse flags exported under fused_trunk='on'
+  # (refnerf_tpu_torch/serving.py) at chunk 1024: the loaded program holds
+  # the trunk operator twice for each trunk, a request launches K1, K2 and
+  # K6-K10 twice each, equals the in-process kernels bit for bit and the
+  # in-process fused_trunk='off' render within chip_smoke.py's SERVE_BOUND
+  # (rgb, acc and distance: the L2 error over the plain render's spread
+  # about its mean across the rays, 2e-5 in f32 and 2e-4 in bf16).
+  from refnerf_tpu_torch import serving
+  six = [f'NerfMLP.{f} = True' for f in (
+      'fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb', 'fuse_ipe_trig',
+      'fuse_compositing', 'fuse_lift')]
+  config, gin = configs.parse([GIN], [f"NerfMLP.compute_dtype = '{cdt}'",
+                                      "NerfMLP.fused_trunk = 'on'"] + six)
+  model = construct.construct_model(config, gin, dev)
+  n = 1024
+  rng = np.random.default_rng(2)
+  d = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)
+  rays = rays_lib.dummy_rays(n, dev)
+  rays.directions, rays.viewdirs = d, d / d.norm(dim=-1, keepdim=True)
+  rays.origins = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                              device=dev) * 0.1
+  rays.near, rays.far = rays.near + 2, rays.far + 5
+  rays.radii = rays.radii + 1e-3
+  path = str(tmp_path / 'scene.rnsrv')
+  meta = serving.export_serving(model, path, chunk=n, device=dev)
+  assert meta['trunk_ops'] == {'K1': 2, 'K2': 2}
+  served = serving.load_serving(path)
+  lib = fused_mlp.FWD_LIBRARY[cdt]
+  assert [r for _, _, r in fused_mlp.trunk_op_nodes(
+      served.exported.graph)] == [lib] * 4
+  for k in fused_mlp.launches:
+    fused_mlp.launches[k] = 0
+  got = served(rays)
+  assert {k: v for k, v in fused_mlp.launches.items() if v} == {
+      k: 2 for k in ('K1', 'K2', 'K6', 'K7', 'K8', 'K9', 'K10')}
+  with torch.no_grad():
+    kern = renderer.render_rays(model, rays, n)
+    model.nerf_mlp.cfg.fused_trunk = 'off'
+    plain = renderer.render_rays(model, rays, n)
+  for k in ('rgb', 'acc', 'distance'):
+    assert torch.equal(got[k], kern[k]), k
+  bound = {'float32': 2e-5, 'bfloat16': 2e-4}[cdt]
+  for k in ('rgb', 'acc', 'distance'):
+    g, w = got[k].double(), plain[k].double()
+    spread = ((g - w).norm() / (w - w.mean(0)).norm()).item()
+    assert spread <= bound, (k, spread)

@@ -10,8 +10,9 @@ JAX package's (refnerf_tpu/geometry.py), on the CPU.
   (the plain spatial stage: the same products summed in another order);
   the grid of one chunk equals the grid of many; extract_mesh's mesh from
   both packages (the same faces, vertices within 1e-4).
-- The spatial trunk kernel's route on the CPU, with use_kernel and
-  trunk_kernel stubbed as on a card (the stub answers with trunk_reference
+- The spatial trunk kernel's route on the CPU, with use_kernel stubbed as
+  on a card and the forward op's CPU implementation (`trunk_plain`)
+  stubbed (the stub answers with trunk_reference
   on the pack's own weights): the density grid (the density head and f32
   heads, no bottleneck) and the vertex colours (the heads of a request) at
   the flagship's width go through K1 on trunk_fwd_f32.cu (f32) and
@@ -245,7 +246,7 @@ def test_grid_and_colors_take_the_spatial_kernel(monkeypatch, cdt, lib):
   assert not launches
   monkeypatch.setattr(fused_mlp, 'use_kernel',
                       lambda x, mode: fused_mlp.MODES.index(mode) < 2)
-  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  monkeypatch.setattr(fused_mlp, 'trunk_plain', kernel)
   got = (geometry.density_grid(model, 5, *BOX, chunk=100),
          geometry.vertex_colors(model, verts, 0.2, chunk=64),
          geometry.density_grid(model, 5, *BOX, chunk=100))

@@ -299,6 +299,10 @@ def test_port_imports_no_jax_and_renders_on_cpu():
                                            extract_mesh,
                                            import_torch_checkpoint,
                                            mesh_error, quality_check)
+      from refnerf_tpu_torch import serving
+      from refnerf_tpu_torch.tools import (bench_render, downsample_images,
+                                           export_serving, profile_step,
+                                           serve_http)
       from refnerf_tpu_torch.utils import io
       config, gin = configs.parse([{GIN!r}], {SMALL!r})
       model = construct.construct_model(config, gin, 'cpu')

@@ -518,7 +518,7 @@ def test_served_flagship_trunks_take_the_tma_forward(monkeypatch, flags):
 
   monkeypatch.setattr(fused_mlp, 'use_kernel',
                       lambda x, mode: fused_mlp.MODES.index(mode) < 2)
-  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  monkeypatch.setattr(fused_mlp, 'trunk_plain', kernel)
   six = [f'NerfMLP.{f} = True' for f in (
       'fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb', 'fuse_ipe_trig',
       'fuse_compositing', 'fuse_lift')] if flags == 'all six' else []
@@ -558,7 +558,7 @@ def test_f32_flagship_trunks_take_the_f32_forward(monkeypatch, case):
 
   monkeypatch.setattr(fused_mlp, 'use_kernel',
                       lambda x, mode: fused_mlp.MODES.index(mode) < 2)
-  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  monkeypatch.setattr(fused_mlp, 'trunk_plain', kernel)
   six = [f'NerfMLP.{f} = True' for f in (
       'fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb', 'fuse_ipe_trig',
       'fuse_compositing', 'fuse_lift')] if 'six' in case else []
@@ -610,7 +610,7 @@ def test_mipnerf_trunks_take_the_new_forwards(monkeypatch, case, libs):
 
   monkeypatch.setattr(fused_mlp, 'use_kernel',
                       lambda x, mode: fused_mlp.MODES.index(mode) < 2)
-  monkeypatch.setattr(fused_mlp, 'trunk_kernel', kernel)
+  monkeypatch.setattr(fused_mlp, 'trunk_plain', kernel)
   cdt, run, *rest = case.split()
   viewdirs = not rest
   config, gin = configs.parse(
@@ -731,6 +731,7 @@ def test_trunk_past_shared_memory_runs_plain_under_auto(monkeypatch, caplog,
     raise AssertionError('a kernel was launched')
 
   monkeypatch.setattr(fused_mlp, 'trunk_kernel', no_launch)
+  monkeypatch.setattr(fused_mlp, 'trunk_plain', no_launch)
   monkeypatch.setattr(fused_mlp, 'trunk_backward_kernel', no_launch)
   run = _past_smem_trunk(case)
   want = run('off')
