@@ -233,9 +233,34 @@ Phases, each printed on its own line:
      /render POST of 4096 rays to tools/serve_http.py on 127.0.0.1 equal
      to the direct call (round trips timed); tools/bench_render.py and
      tools/profile_step.py for a few frames and steps, their lines printed.
+ 22. data parallelism (refnerf_tpu_torch/parallel/): the flagship of
+     phase 10 (bf16, six flags, global batch 4096) trained 3 steps in one
+     process and on 2 ranks sharing the card over gloo (2,048 rays a rank;
+     torchrun running refnerf_tpu_torch/testing/data_parallel.py): per
+     step the losses, the reduced gradients before the clip (relative L2)
+     and the parameters against one process within DP_*_BOUND; every
+     rank's parameters bit-identical after every step; each rank launching
+     K2-K10 as phase 10 counts them; three planted faults above the bounds
+     (one rank skips the reduction; both ranks take the same half; the
+     masked means of the LLFF geometry gin of phase 18, at step 150,000
+     and its acc thresholds where the ranks' masks hold different counts
+     (testing/data_parallel.threshold_bindings), reduced as a mean of
+     per-rank ratios); NeRFSystem trained on 2 ranks, and a test view split
+     across the ranks equal to one rank's render; the train CLI under
+     torchrun on 2 ranks from a Blender scene on disk (phase 19's 20 + 2
+     views at 400 x 400; no validation views), killed at step 2 and resumed
+     to 4, its checkpoint equal to NeRFSystem's two-rank run; the CLI with NCCL at
+     one rank (at two only where there are two cards; else printed why
+     not); ms a step of the shared-card run beside one process's (no
+     scaling figure);
+ 23. Model.remat: the flagship of phase 10 and phase 19's bf16 cascade at
+     batch 4096, 3 steps with and without remat: bit for bit the same,
+     every forward launch run once more a step (the launches of one train
+     forward alone, added), the peak memory allocated and ms a step of
+     each (the median of the steps after a warm first one).
 The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
-18, 19, 20 and 21),
+18, 19, 20, 21, 22 and 23),
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -3822,6 +3847,404 @@ def serving_stage(fused_mlp, dev):
   return path, out
 
 
+# Phase 22: data parallelism. The ranks are processes of torchrun, each
+# running refnerf_tpu_torch/testing/data_parallel.py (or a CLI); on this
+# machine's one card they share it over gloo (DP_DEVICE), and NCCL runs at
+# one rank (two ranks only where there are two cards).
+DP_RANKS, DP_STEPS, DP_TIMEOUT = 2, 3, 420
+DP_DEVICE, DP_BACKEND = 'cuda:0', 'gloo'
+DP_ENV = ('RANK', 'LOCAL_RANK', 'WORLD_SIZE', 'LOCAL_WORLD_SIZE',
+          'MASTER_ADDR', 'MASTER_PORT')
+# Two ranks against one process on the same state and global batch; they
+# differ by the order of f32 sums (the loss's, the masked means', the
+# weight gradients' over 2,048 rays against 4,096). Set from the spread of
+# the first run on the card (PERF.md section 6): the losses and each
+# masked-mean term relative, the reduced gradients by global relative L2
+# (H8: never by their max), the parameters by their largest difference over
+# the step's largest move. Each planted fault must read above its bound.
+DP_LOSS_BOUND, DP_GRAD_BOUND, DP_MOVE_BOUND = 1e-5, 1e-4, 1e-2
+DP_TERM_BOUND = 1e-4
+DP_FAULT_TERMS = ('diffuse_consistency', 'specular_consistency',
+                  'normals_consistency', 'distance_consistency',
+                  'weights_entropy')
+# The flagship of phase 10 (bf16, the six fuse flags, bench.py's bindings).
+DP_FLAGSHIP = [f'Config.seed = {SEED}', "NerfMLP.compute_dtype = 'bfloat16'",
+               f'Config.batch_size = {TRAIN_BATCH}',
+               'Config.randomized = False', 'Config.sample_noise_size = 0',
+               *FUSE, *SPATIAL]
+DP_CLI_STEPS, DP_CLI_KILL = 4, 2
+REMAT_STEPS = 3
+
+
+def _free_port():
+  import socket
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    return s.getsockname()[1]
+
+
+def torchrun(nproc, args, what, timeout=DP_TIMEOUT):
+  """`python -m torch.distributed.run` of `args` on `nproc` ranks of this
+  host, in a session of its own (killed whole on a timeout); raises unless
+  it exits 0. Returns (its output, seconds)."""
+  import signal
+  root = os.path.dirname(os.path.abspath(__file__))
+  env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+  env['PYTHONPATH'] = root + os.pathsep + env.get('PYTHONPATH', '')
+  cmd = [sys.executable, '-m', 'torch.distributed.run',
+         f'--nproc_per_node={nproc}', '--master_addr=127.0.0.1',
+         f'--master_port={_free_port()}', *args]
+  t0 = time.perf_counter()
+  proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          start_new_session=True)
+  try:
+    out, _ = proc.communicate(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    os.killpg(proc.pid, signal.SIGKILL)
+    out, _ = proc.communicate()
+    raise AssertionError(f'{what}: torchrun timed out after {timeout} s:\n'
+                         f'{out[-4000:]}')
+  if proc.returncode != 0:
+    raise AssertionError(f'{what}: torchrun exited {proc.returncode}:\n'
+                         f'{out[-6000:]}')
+  return out, time.perf_counter() - t0
+
+
+def _flat_rel(got, want):
+  """|got - want|_2 / |want|_2 over every tensor of two dicts."""
+  num = sum(float(((got[k].double() - w.double())**2).sum())
+            for k, w in want.items())
+  den = sum(float((w.double()**2).sum()) for w in want.values())
+  return math.sqrt(num / den)
+
+
+def _move_rel(got, want, before):
+  """The largest |got - want| over the largest move want - before, taken
+  over every parameter."""
+  diff = max(float((got[k] - w).abs().max()) for k, w in want.items())
+  move = max(float((w - before[k]).abs().max()) for k, w in want.items())
+  return diff / move
+
+
+def _dp_compare(one, rank, steps):
+  """Per step: the loss's relative difference, each term's, the reduced
+  gradients' relative L2 and the parameters' largest difference over the
+  largest move, of `rank`'s record against the one-process record."""
+  out = []
+  for s in range(steps):
+    before = one['start'] if s == 0 else one['params'][s - 1]
+    rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    out.append(dict(
+        loss=rel(rank['loss'][s], one['loss'][s]),
+        terms={k: rel(rank['losses'][s][k], v)
+               for k, v in one['losses'][s].items()},
+        grads=_flat_rel(rank['grads'][s], one['grads'][s]),
+        params=_move_rel(rank['params'][s], one['params'][s], before)))
+  return out
+
+
+def _same_params(a, b, steps):
+  return all(torch.equal(a['params'][s][k], b['params'][s][k])
+             for s in range(steps) for k in a['params'][s])
+
+
+def data_parallel_stage(fused_mlp, dev):
+  """Phase 22: the flagship trained on two ranks sharing the card (gloo),
+  against one process; three planted faults; the train CLI under torchrun
+  (a kill and a resume, bit for bit against NeRFSystem's uninterrupted
+  two-rank run; a test view split across the ranks); the CLI with NCCL.
+  Returns (a rank's launches in the flagship's DP_STEPS steps, a summary)."""
+  import tempfile
+  from refnerf_tpu_torch.testing import data_parallel as dp
+  from refnerf_tpu_torch.tools import sphere_scene
+  root = tempfile.mkdtemp(prefix='refnerf_dp_')
+  res = {}
+  try:
+    t0 = time.perf_counter()
+    blender = sphere_scene.make_scene(os.path.join(root, 'blender'),
+                                      CASCADE_TRAIN, CASCADE_TEST,
+                                      CASCADE_RES)
+    llff = sphere_scene.make_llff_scene(os.path.join(root, 'llff'),
+                                        GEO_VIEWS, GEO_W, GEO_H, GEO_FACTOR)
+    res['scenes_s'] = time.perf_counter() - t0
+    model, config, state, _, batch = train_setup(dev, FUSE + SPATIAL)
+    levels = model.cfg.num_levels
+    state_path = os.path.join(root, 'state.pt')
+    batch_path = os.path.join(root, 'batch.pt')
+    dp.save_state(state_path, state)
+    dp.save_batch(batch_path, batch.map(lambda x: x.cpu()))
+    del model, state, batch
+    torch.cuda.empty_cache()
+    gin = lambda name: os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'configs', name)
+    out_dir = os.path.join(root, 'out')
+    flag = dict(kind='steps', gin=gin(FLAGSHIP), bindings=DP_FLAGSHIP,
+                state=state_path, batch=batch_path, out=out_dir)
+    # The geometry gin's acc thresholds (0.1) pass every ray of the
+    # untrained field: full masks, whose per-rank ratios are the global
+    # ratio, so no reduction fault can show. At dp.threshold_bindings the
+    # ranks' masks hold different counts.
+    run = geometry_setup(dev, llff)
+    run['ds'].seek(GEO_START)
+    rays = next(run['ds']).rays.map(lambda x: x.to(dev))
+    train_frac = (GEO_START - 1) / (run['config'].max_steps - 1)
+    with torch.no_grad():
+      acc = run['model'](run['cast'](run['cameras'], rays),
+                         train_frac=train_frac, train=True)[0][-1]['acc']
+    thresholds = dp.threshold_bindings(
+        acc, min(run['config'].sample_noise_size, acc.shape[0]), DP_RANKS)
+    del run, rays, acc
+    geo = dict(kind='steps', gin=gin(GEO), out=out_dir, steps=1,
+               start_step=GEO_START, bindings=[
+                   f'Config.seed = {SEED}', f"Config.data_dir = '{llff}'",
+                   *thresholds])
+    # No validation views: the split render is checked on its own.
+    system_bindings = DP_FLAGSHIP + [
+        f"Config.data_dir = '{blender}'", 'Config.checkpoint_every = 2',
+        'Config.print_every = 1', 'Config.val_sample_num = 0']
+    exp = os.path.join(root, 'exp')
+    runs = [
+        dict(flag, name='flagship', steps=DP_STEPS),
+        dict(flag, name='skip_reduce', steps=1, fault='skip_reduce'),
+        dict(flag, name='same_half', steps=1, fault='same_half'),
+        dict(geo, name='geometry'),
+        dict(geo, name='ratio_mean', fault='ratio_mean'),
+        dict(kind='system', name='system', gin=gin(FLAGSHIP),
+             bindings=system_bindings, exp=exp, steps=DP_CLI_STEPS,
+             out=out_dir)]
+    spec = os.path.join(root, 'spec.json')
+    with open(spec, 'w') as f:
+      json.dump(dict(device=DP_DEVICE, backend=DP_BACKEND, runs=runs), f)
+    # One process first, on the same files.
+    one = {r['name']: dp.run(dict(r, out=None), None, dev)
+           for r in (runs[0], runs[3])}
+    text, res['ranks_s'] = torchrun(DP_RANKS, [
+        '-m', 'refnerf_tpu_torch.testing.data_parallel', spec],
+        'phase 22 ranks')
+    for r in range(DP_RANKS):
+      if f'rank {r}: {len(runs)} runs done' not in text:
+        raise AssertionError(f'phase 22: rank {r} did not finish:\n'
+                             f'{text[-4000:]}')
+    rec = lambda name, r: torch.load(os.path.join(out_dir,
+                                                  f'{name}.rank{r}.pt'),
+                                     weights_only=False)
+    two = {name: [rec(name, r) for r in range(DP_RANKS)]
+           for name in ('flagship', 'skip_reduce', 'same_half', 'geometry',
+                        'ratio_mean', 'system')}
+
+    # (1) the flagship: every rank against one process, per step.
+    f0, f1 = two['flagship']
+    if not _same_params(f0, f1, DP_STEPS):
+      raise AssertionError('phase 22: the ranks hold different parameters')
+    want = {k: levels * v for k, v in SIX_PER_STEP.items()}
+    for r, rank in enumerate(two['flagship']):
+      for s, got in enumerate(rank['launches']):
+        got = {k: v for k, v in got.items() if v}
+        if got != want:
+          raise AssertionError(f'phase 22: rank {r} step {s} launched {got}, '
+                               f'expected {want}')
+    spread = _dp_compare(one['flagship'], f0, DP_STEPS)
+    res['spread'] = spread
+    worst = dict(loss=max(s['loss'] for s in spread),
+                 grads=max(s['grads'] for s in spread),
+                 params=max(s['params'] for s in spread))
+    # (1) the faults, each read where its bound reads.
+    skip = _dp_compare(one['flagship'], two['skip_reduce'][1], 1)[0]
+    half = _dp_compare(one['flagship'], two['same_half'][0], 1)[0]
+    geo_ok = _dp_compare(one['geometry'], two['geometry'][0], 1)[0]
+    geo_bad = _dp_compare(one['geometry'], two['ratio_mean'][0], 1)[0]
+    term_ok = max(geo_ok['terms'][k] for k in DP_FAULT_TERMS)
+    term_bad = max(geo_bad['terms'][k] for k in DP_FAULT_TERMS)
+    res['faults'] = {
+        'skip_reduce': {'grads': skip['grads'],
+                        'ranks_equal': _same_params(*two['skip_reduce'], 1)},
+        'same_half': {'grads': half['grads'], 'loss': half['loss']},
+        'ratio_mean': {'terms': geo_bad['terms']}}
+    res['geometry'] = geo_ok
+    log(f'phase 22: flagship bf16, six flags, global batch {TRAIN_BATCH} on '
+        f'{DP_RANKS} ranks sharing {DP_DEVICE} over {DP_BACKEND} (each '
+        f'{TRAIN_BATCH // DP_RANKS} rays) against one process, {DP_STEPS} '
+        f'steps: loss rel {worst["loss"]:.2e} (bound {DP_LOSS_BOUND}), '
+        f'reduced gradients rel L2 {worst["grads"]:.2e} (bound '
+        f'{DP_GRAD_BOUND}), parameters {worst["params"]:.2e} of the largest '
+        f'move (bound {DP_MOVE_BOUND}); the ranks bit-identical after every '
+        f'step; each rank launched {want} a step')
+    log(f'phase 22: faults: one rank skips the reduction: gradients rel L2 '
+        f'{skip["grads"]:.3e}, ranks equal '
+        f'{res["faults"]["skip_reduce"]["ranks_equal"]}; both ranks on the '
+        f'same half: gradients rel L2 {half["grads"]:.3e}; the LLFF geometry '
+        f'gin (f32, batch 1024, step {GEO_START}, {thresholds}) with '
+        f'masked means reduced '
+        f'as a mean of per-rank ratios: terms rel {term_bad:.3e} against '
+        f'{term_ok:.3e} reduced right (bound {DP_TERM_BOUND}); '
+        f'{json.dumps(geo_ok["terms"])}')
+    if not (worst['loss'] <= DP_LOSS_BOUND and worst['grads'] <= DP_GRAD_BOUND
+            and worst['params'] <= DP_MOVE_BOUND):
+      raise AssertionError('phase 22: two ranks disagree with one process')
+    if not (geo_ok['loss'] <= DP_LOSS_BOUND and term_ok <= DP_TERM_BOUND and
+            geo_ok['grads'] <= DP_GRAD_BOUND):
+      raise AssertionError('phase 22: the geometry gin on two ranks '
+                           'disagrees with one process')
+    if not (skip['grads'] > DP_GRAD_BOUND and half['grads'] > DP_GRAD_BOUND
+            and term_bad > DP_TERM_BOUND and
+            not res['faults']['skip_reduce']['ranks_equal']):
+      raise AssertionError('phase 22: a planted fault reads within bounds')
+    one_ms = float(np.median(one['flagship']['ms'][1:]))
+    two_ms = float(np.median(f0['ms'][1:]))
+    res['one_process_ms'], res['two_ranks_one_card_ms'] = one_ms, two_ms
+
+    # (2) NeRFSystem on two ranks, uninterrupted; the split view.
+    for r, sysrec in enumerate(two['system']):
+      if not (sysrec['render_equal'] and sysrec['step'] == DP_CLI_STEPS):
+        raise AssertionError(f'phase 22: rank {r}: step {sysrec["step"]}, '
+                             f'split view equal {sysrec["render_equal"]} '
+                             f'{sysrec["render_max_diff"]}')
+    # The train CLI through torchrun on the same gin: killed at
+    # DP_CLI_KILL, resumed; its last checkpoint is NeRFSystem's
+    # uninterrupted run's, bit for bit.
+    cli = ['-m', 'refnerf_tpu_torch.cli.train', f'--gin_configs={gin(FLAGSHIP)}',
+           *[f'--gin_bindings={b}' for b in system_bindings + [
+               f"Config.checkpoint_dir = '{exp}'",
+               "Config.exp_name = 'dp_cli'",
+               f'Config.max_steps = {DP_CLI_STEPS}']]]
+    killed, res['cli_killed_s'] = torchrun(DP_RANKS, cli + [
+        f'--device={DP_DEVICE}', f'--dist_backend={DP_BACKEND}',
+        f'--gin_bindings=Config.early_exit_steps = {DP_CLI_KILL}'],
+        'phase 22 train CLI (killed)')
+    resumed, res['cli_resumed_s'] = torchrun(DP_RANKS, cli + [
+        f'--device={DP_DEVICE}', f'--dist_backend={DP_BACKEND}'],
+        'phase 22 train CLI (resumed)')
+    if (f'Resumed from step {DP_CLI_KILL}' not in resumed or
+        resumed.count('Training with') != 1):
+      raise AssertionError(f'phase 22: the CLI did not resume once:\n'
+                           f'{resumed[-3000:]}')
+    for what, text in (('killed', killed), ('resumed', resumed)):
+      for line in text.splitlines():
+        if line.startswith(('step ', 'Resumed')):
+          log(f'phase 22: train CLI ({what}): {line}')
+    ckpt = lambda name: torch.load(os.path.join(
+        exp, 'ckpt', 'dp', name, 'last', str(DP_CLI_STEPS), 'state.pt'),
+        map_location='cpu', weights_only=True)
+    a, b = ckpt('dp_cli'), ckpt('dp_full')
+    same = all(torch.equal(v, b['model'][k]) for k, v in a['model'].items())
+    same = same and all(torch.equal(v, b[m][k]) for m in ('mu', 'nu')
+                        for k, v in a[m].items())
+    if not same:
+      raise AssertionError('phase 22: the CLI killed and resumed differs '
+                           "from NeRFSystem's uninterrupted two-rank run")
+    log(f'phase 22: train CLI on {DP_RANKS} ranks ({DP_BACKEND}, '
+        f'{DP_DEVICE}), {FLAGSHIP} bf16 six flags at batch {TRAIN_BATCH} '
+        f'from a {CASCADE_TRAIN} + {CASCADE_TEST} view scene at '
+        f'{CASCADE_RES} x {CASCADE_RES}: killed at step {DP_CLI_KILL} '
+        f'({res["cli_killed_s"]:.1f} s), resumed to {DP_CLI_STEPS} '
+        f'({res["cli_resumed_s"]:.1f} s); its checkpoint equals NeRFSystem\'s '
+        f'uninterrupted two-rank run; test view 0 split across the ranks '
+        f'equals one rank\'s render bit for bit')
+
+    # (3) NCCL: at one rank here; at two only with a card a rank.
+    nccl = lambda name: [
+        '-m', 'refnerf_tpu_torch.cli.train', f'--gin_configs={gin(FLAGSHIP)}',
+        *[f'--gin_bindings={b}' for b in system_bindings + [
+            f"Config.checkpoint_dir = '{exp}'", 'Config.max_steps = 2',
+            f"Config.exp_name = '{name}'"]],
+        '--device=cuda', '--dist_backend=nccl']
+    text, res['nccl_1_s'] = torchrun(1, nccl('dp_nccl'),
+                                     'phase 22 NCCL at one rank')
+    if 'step 2/2' not in text:
+      raise AssertionError(f'phase 22: NCCL at one rank:\n{text[-3000:]}')
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+      text, res['nccl_2_s'] = torchrun(2, nccl('dp_nccl2'),
+                                       'phase 22 NCCL at two ranks')
+      if 'step 2/2' not in text:
+        raise AssertionError(f'phase 22: NCCL at two ranks:\n{text[-3000:]}')
+      nccl2 = f'NCCL at 2 ranks, one card each: {res["nccl_2_s"]:.1f} s'
+    else:
+      nccl2 = (f'NCCL at 2 ranks did not run: torch.cuda.device_count() = '
+               f'{cards}, and NCCL needs one card a rank')
+    log(f'phase 22: train CLI with NCCL at one rank (2 steps): '
+        f'{res["nccl_1_s"]:.1f} s; {nccl2}')
+    log(f'phase 22: ms a step, two ranks sharing one card (no scaling '
+        f'figure): {two_ms:.2f} ms a step of {TRAIN_BATCH} rays, against '
+        f'{one_ms:.2f} ms in one process (median of steps 2-{DP_STEPS})')
+    return f0['launches'], res
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def remat_run(fused_mlp, dev, bindings):
+  """REMAT_STEPS steps of train_setup's model with `bindings`: the
+  parameters, losses, launches, peak bytes allocated after a reset, ms a
+  step (the median of the steps after the first), and the launches of one
+  train forward alone (no backward)."""
+  model, config, state, train_step, batch = train_setup(dev, bindings)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  for k in fused_mlp.launches:
+    fused_mlp.launches[k] = 0
+  losses, times = [], []
+  for _ in range(REMAT_STEPS):
+    t0 = time.perf_counter()
+    state, stats = train_step(state, batch)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+    losses.append(stats['loss'])
+  # The first step warms the caches up, as in phase 22.
+  ms = float(np.median(times[1:])) * 1e3
+  out = dict(params={k: p.detach().clone() for k, p in model.named_parameters()},
+             losses=torch.stack(losses), launches=dict(fused_mlp.launches),
+             peak=torch.cuda.max_memory_allocated(), ms=ms, remat=model.remat)
+  for k in fused_mlp.launches:
+    fused_mlp.launches[k] = 0
+  model(batch.rays, train_frac=0.5, train=True)
+  out['forward'] = dict(fused_mlp.launches)
+  del model, state, train_step, batch
+  torch.cuda.empty_cache()
+  return out
+
+
+def remat_stage(fused_mlp, dev):
+  """Phase 23: Model.remat. The flagship (bf16, six flags, batch 4096) and
+  phase 19's bf16 cascade, REMAT_STEPS steps with and without remat: bit
+  for bit the same, the forwards launched twice, the peak memory. Returns
+  (the flagship's launches with remat, a summary)."""
+  res = {}
+  cascade = CASCADE + CASCADE_ON + FUSE + SPATIAL + [
+      "PropMLP.compute_dtype = 'bfloat16'"]
+  for name, bindings in (('flagship', FUSE + SPATIAL), ('cascade', cascade)):
+    plain = remat_run(fused_mlp, dev, bindings)
+    remat = remat_run(fused_mlp, dev, bindings + ['Model.remat = True'])
+    if not remat['remat'] or plain['remat']:
+      raise AssertionError('phase 23: Model.remat was not honoured')
+    same = torch.equal(plain['losses'], remat['losses']) and all(
+        torch.equal(v, remat['params'][k]) for k, v in plain['params'].items())
+    n = plain['launches']
+    # Every forward launch of a step runs again in its backward: the
+    # launches of one train forward alone, once more a step.
+    want = {k: v + REMAT_STEPS * plain['forward'][k] for k, v in n.items()}
+    res[name] = dict(bit_for_bit=same, launches=n,
+                     remat_launches=remat['launches'],
+                     forward_launches=plain['forward'],
+                     peak_gib=plain['peak'] / 2**30,
+                     remat_peak_gib=remat['peak'] / 2**30, ms=plain['ms'],
+                     remat_ms=remat['ms'])
+    log(f'phase 23: {name} bf16 six flags, batch {TRAIN_BATCH}, '
+        f'{REMAT_STEPS} steps with Model.remat and without: bit for bit '
+        f'{same}; launches without {json.dumps({k: v for k, v in n.items() if v})}'
+        f', with {json.dumps({k: v for k, v in remat["launches"].items() if v})}; '
+        f'peak allocated {plain["peak"] / 2**30:.3f} GiB without, '
+        f'{remat["peak"] / 2**30:.3f} GiB with; {plain["ms"]:.2f} ms a step '
+        f'without, {remat["ms"]:.2f} ms with (median of the steps after '
+        f'the first)')
+    if not same:
+      raise AssertionError(f'phase 23: {name}: the remat step differs')
+    if remat['launches'] != want:
+      raise AssertionError(f'phase 23: {name}: remat launched '
+                           f'{remat["launches"]}, expected {want}')
+  return res['flagship']['remat_launches'], res
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -3879,6 +4302,9 @@ def main():
   cascade_path, cascade_bf16_path, cascade = cascade_stage(fused_mlp, dev)
   mesh_path, mesh = mesh_stage(fused_mlp, dev)
   art_path, art = serving_stage(fused_mlp, dev)
+  dp_steps, dp = data_parallel_stage(fused_mlp, dev)
+  dp_path = {k: sum(step[k] for step in dp_steps) for k in dp_steps[0]}
+  remat_path, remat = remat_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -4021,6 +4447,13 @@ def main():
     if which in ('K1 hf=0', 'K2 W128'):
       # Phase 21: a request of the loaded mip-NeRF artifact (float32).
       entry['artifact_f32_launches'] = art_path['mipnerf'][which.split()[0]]
+    if dp_path.get(which):
+      # Phase 22: one rank's launches in the flagship's DP_STEPS steps on
+      # two ranks (the other rank's are the same).
+      entry['dp_rank_launches'] = dp_path[which]
+    if remat_path.get(which):
+      # Phase 23: the flagship's REMAT_STEPS steps under Model.remat.
+      entry['remat_launches'] = remat_path[which]
     if which in main_case:
       entry['case'] = case
       entry['serve_launches'] = spa_serve[which]
@@ -4059,7 +4492,9 @@ def main():
         'bf16_was_source': was_src, 'bf16_was_ms': b16['was_ms'],
         'bf16_depth8': {k: b16_d8[k] for k in ('ms', 'plain_ms', 'bound_ms',
                                                'max_abs_err')},
-        'bf16_train_launches': cascade_bf16_path[which]})
+        'bf16_train_launches': cascade_bf16_path[which],
+        # Phase 23: the bf16 cascade's REMAT_STEPS steps under Model.remat.
+        'remat_launches': remat['cascade']['remat_launches'][which]})
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '
@@ -4080,7 +4515,9 @@ def main():
       f'phase 18 (the LLFF geometry gins): {json.dumps(geo)}; phase 19 (the '
       f'proposal cascade): {json.dumps(cascade)}; phase 20 (the mesh tools '
       f'and interop): {json.dumps(mesh)}; phase 21 (serving from '
-      f'artifacts): {json.dumps(art)}')
+      f'artifacts): {json.dumps(art)}; phase 22 (data parallel, two ranks '
+      f'sharing one card: no scaling figure): {json.dumps(dp)}; phase 23 '
+      f'(Model.remat): {json.dumps(remat)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -19,6 +19,10 @@ the Ref-NeRF and mip-NeRF models:
                       host-to-device pipeline (prefetch)
   models/             MLP, Model (the cascade), render, construct, renderer
   train/              losses and the train step
+  parallel/           data parallelism over torchrun's ranks (mesh,
+                      shard_step)
+  testing/            helpers that hold two implementations against each
+                      other (the consistency bounds, the data-parallel runs)
   tools/              the A/B and phase-timing tools of the kernels; the
                       analytic sphere scene
   csrc/               the hand-written CUDA kernels (sm_90a)
@@ -26,8 +30,9 @@ the Ref-NeRF and mip-NeRF models:
 Entry points: `models.construct.construct_model` (on the GPU unless the
 caller names another device), `models.renderer.render_rays`,
 `models.renderer.render_image`, `data.datasets.load_dataset`,
-`data.prefetch.training_batches` (to the GPU unless told otherwise) and
-`train.step.make_train_step`. The package imports torch, numpy and scipy,
+`data.prefetch.training_batches` (to the GPU unless told otherwise),
+`train.step.make_train_step`, `parallel.mesh.initialize_distributed` and
+`parallel.shard_step.make_sharded_train_step`. The package imports torch, numpy and scipy,
 and neither jax nor anything of refnerf_tpu: `utils/ginlite.py` and
 `ops/geopoly.py` are its own copies of the JAX package's modules of those
 names.

@@ -10,6 +10,11 @@ the consumer's stream waits for the side stream, and each tensor is recorded
 on the consumer's stream, so that the allocator does not hand its memory to
 a later copy while that stream still reads it. Without either, the step
 would read a batch that is still being copied, with no error.
+
+Under data parallelism every rank samples the global batch from the
+dataset's stateless, seeked stream and copies only its own rows to its card
+(`rank`, `world_size`), so that a resumed run of N ranks sees the batches of
+the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import queue
 import threading
 
 import torch
+
+from refnerf_tpu_torch.parallel import mesh
 
 # Queue sentinel: the producer thread is done (source exhausted or errored).
 _DONE = object()
@@ -32,18 +39,24 @@ def _check_device(device) -> torch.device:
   return device
 
 
-def device_prefetch(iterator, device='cuda', buffer_size: int = 2):
+def device_prefetch(iterator, device='cuda', buffer_size: int = 2,
+                    rank: int = 0, world_size: int = 1):
   """Batches from `iterator` (each a `rays.Batch` of CPU tensors) moved to
-  `device`, `buffer_size` ahead. Closing the generator closes the
-  underlying iterator (stops a ThreadedSampler's thread)."""
+  `device`, `buffer_size` ahead; with `world_size` > 1 only rows
+  [rank n, (rank + 1) n) of each, n = rows / world_size. Closing the
+  generator closes the underlying iterator (stops a ThreadedSampler's
+  thread)."""
   device = _check_device(device)
-  return _prefetch(iterator, device, buffer_size)
+  return _prefetch(iterator, device, buffer_size, rank, world_size)
 
 
-def _prefetch(iterator, device, buffer_size):
+def _prefetch(iterator, device, buffer_size, rank=0, world_size=1):
   stream = (torch.cuda.Stream(device) if device.type == 'cuda' else None)
 
   def put(batch):
+    if world_size > 1:
+      rows = mesh.rows_of(batch.rays.shape[0], rank, world_size)
+      batch = batch.map(lambda x: x[rows])
     if stream is None:
       return batch.map(lambda x: x.to(device))
     with torch.cuda.stream(stream):
@@ -132,7 +145,7 @@ class ThreadedSampler:
 
 
 def training_batches(dataset, device='cuda', threaded: bool = False,
-                     buffer_size: int = 2):
+                     buffer_size: int = 2, rank: int = 0, world_size: int = 1):
   """The standard train input pipeline: the dataset's batches copied to
   `device` by `device_prefetch`, `buffer_size` ahead.
 
@@ -144,8 +157,10 @@ def training_batches(dataset, device='cuda', threaded: bool = False,
   when `device` is CUDA and there is no card. The returned generator owns
   the sampler thread, if any: `.close()` it (or let it be garbage-collected)
   to stop background sampling; exhausting it (finite sources) stops the
-  thread automatically.
+  thread automatically. Under data parallelism (`world_size` > 1) each
+  batch of the dataset is the global batch, and this rank's rows go to
+  `device`.
   """
   _check_device(device)
   source = ThreadedSampler(dataset) if threaded else dataset
-  return device_prefetch(source, device, buffer_size)
+  return device_prefetch(source, device, buffer_size, rank, world_size)

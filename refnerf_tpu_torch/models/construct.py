@@ -29,8 +29,9 @@ def construct_model(config, gin: Optional[ginlite.GinConfig] = None,
   gin = gin or ginlite.GinConfig()
   m_kwargs = dict(configs_lib.model_kwargs(gin, scope=scope))
   single_mlp = bool(m_kwargs.pop('single_mlp', False))
-  # Activation rematerialisation only trades memory in a backward pass.
-  m_kwargs.pop('remat', None)
+  # Rematerialise each level's MLP in the backward (JAX nn.remat(MLP),
+  # construct.py:36-44): its activations are recomputed instead of kept.
+  remat = bool(m_kwargs.pop('remat', False))
   if isinstance(m_kwargs.get('raydist_fn'), ginlite.Ref):
     m_kwargs['raydist_fn'] = m_kwargs['raydist_fn'].name.split('.')[-1]
 
@@ -47,6 +48,7 @@ def construct_model(config, gin: Optional[ginlite.GinConfig] = None,
       srgb_mapping_type=config.srgb_mapping_type,
       srgb_mapping_when_rendering=config.srgb_mapping_when_rendering,
       vis_num_rays=config.vis_num_rays,
+      remat=remat,
       **m_kwargs)
   generator = torch.Generator().manual_seed(int(config.seed))
   for mlp in (nerf_mlp, prop_mlp):

@@ -19,6 +19,17 @@ Gaussians come lifted in closed form (`render.cast_rays_lifted`); with
 compositing weights from its spatial trunk (K6), except under
 `opaque_background`, whose infinite last interval the trunk does not model
 (logged once; the weights are then composited here).
+
+`remat=True` (Model.remat; JAX wraps the MLP in nn.remat, construct.py:44)
+runs each level's MLP under torch.utils.checkpoint (non-reentrant) when
+gradients are taken: its activations are not kept but recomputed in the
+backward, which reruns the same operations on the same inputs (the trunk
+kernels' forwards launch twice a level a step). The autograd graph is the
+one without remat, so the step is the same bit for bit. The MLP's noise is
+drawn once and given again to each recompute (`_Replayed`). On the plain
+layer stack (F4) the density gradient's inner autograd.grad unpacks the
+checkpointed activations during the forward already, which recomputes the
+MLP once more there (ROADMAP H22).
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from refnerf_tpu_torch.models import mlp as mlp_lib
@@ -61,14 +73,50 @@ class ModelConfig:
   vis_num_rays: int = 16
 
 
+class _Replayed:
+  """A level's MLP draws, taken from `draws` on the first call and given
+  again, in order, on every recompute under remat."""
+
+  def __init__(self, draws):
+    self._draws, self._taken, self._next = draws, [], 0
+
+  def rewind(self):
+    self._next = 0
+    return self
+
+  def normal(self, shape):
+    if self._next == len(self._taken):
+      self._taken.append(self._draws.normal(shape))
+    out = self._taken[self._next]
+    self._next += 1
+    return out
+
+
 class Model(nn.Module):
   """num_levels of proposal resampling feeding a final NeRF level."""
 
-  def __init__(self, nerf_mlp: MLP, prop_mlp: Optional[MLP] = None, **kwargs):
+  def __init__(self, nerf_mlp: MLP, prop_mlp: Optional[MLP] = None,
+               remat: bool = False, **kwargs):
     super().__init__()
     self.cfg = ModelConfig(**kwargs)
     self.nerf_mlp = nerf_mlp
     self.prop_mlp = prop_mlp  # None: one MLP serves every level
+    self.remat = remat
+
+  def _run_mlp(self, mlp, gaussians, viewdirs, train, delta, lifted, draws):
+    """mlp(...), under torch.utils.checkpoint with `remat` when a graph is
+    being built."""
+    if not (self.remat and torch.is_grad_enabled()):
+      return mlp(gaussians, viewdirs, train=train, delta=delta, lifted=lifted,
+                 draws=draws)
+    replayed = None if draws is None else _Replayed(draws)
+
+    def run(means, covs, viewdirs, delta, lifted):
+      return mlp((means, covs), viewdirs, train=train, delta=delta,
+                 lifted=lifted,
+                 draws=None if replayed is None else replayed.rewind())
+    return torch.utils.checkpoint.checkpoint(
+        run, *gaussians, viewdirs, delta, lifted, use_reentrant=False)
 
   def _level_mlp(self, is_prop):
     if self.prop_mlp is None:
@@ -155,9 +203,9 @@ class Model(nn.Module):
         else:
           delta = (tdist[..., 1:] - tdist[..., :-1]) * torch.linalg.norm(
               rays.directions[..., None, :], dim=-1)
-      ray_results = mlp((means, covs), rays.viewdirs if c.use_viewdirs
-                        else None, train=train, delta=delta, lifted=lifted,
-                        draws=None if draws is None else draws.mlp())
+      ray_results = self._run_mlp(
+          mlp, (means, covs), rays.viewdirs if c.use_viewdirs else None,
+          train, delta, lifted, None if draws is None else draws.mlp())
 
       weights = ray_results.pop('weights', None)
       if weights is None:

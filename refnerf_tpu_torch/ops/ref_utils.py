@@ -30,12 +30,18 @@ def l2_normalize(x, eps=_EPS):
   return x / torch.sqrt(torch.maximum(sq.new_tensor(eps), sq))
 
 
-def compute_weighted_mae(weights, normals, normals_gt):
-  """Weighted mean angular error in degrees; normals assumed unit length."""
+def angular_error(normals, normals_gt):
+  """The angle in radians between unit normals, their cosine clipped to
+  within an f32 eps of +-1."""
   one_eps = 1 - _EPS
   cos = (normals * normals_gt).sum(-1)
-  ang = torch.arccos(torch.minimum(torch.maximum(cos, cos.new_tensor(-one_eps)),
-                                   cos.new_tensor(one_eps)))
+  return torch.arccos(torch.minimum(torch.maximum(cos, cos.new_tensor(-one_eps)),
+                                    cos.new_tensor(one_eps)))
+
+
+def compute_weighted_mae(weights, normals, normals_gt):
+  """Weighted mean angular error in degrees; normals assumed unit length."""
+  ang = angular_error(normals, normals_gt)
   return (weights * ang).sum() / weights.sum() * 180.0 / math.pi
 
 

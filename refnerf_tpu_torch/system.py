@@ -22,9 +22,17 @@ port's train step:
   - path rendering: resumable, strided over jobs, per-buffer image dumps and
     the videos.
 
-Not ported: the XLA compile cache (JAX :48; there is no XLA here) and the
-device mesh (JAX :207): the port runs on one card, and data parallelism is
-ROADMAP queue 1, item 8.
+Under data parallelism (`group`, from parallel.mesh.initialize_distributed
+under torchrun; JAX builds its mesh at :176) every rank holds the model on
+its own device and steps on its rows of the global batch through
+parallel/shard_step.py; the state starts as rank 0's (mesh.replicate);
+rank 0 alone prints, writes the summaries, the metric files, the frames and
+the checkpoints (rays/s counted over the global batch); the val, test and
+path renders split each chunk across the ranks where `render_chunk_size`
+divides across them, and are rendered by rank 0 alone otherwise (warned
+once, as JAX does at :207-225).
+
+Not ported: the XLA compile cache (JAX :48; there is no XLA here).
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from refnerf_tpu_torch.models import construct as construct_lib
 from refnerf_tpu_torch.models import renderer as renderer_lib
 from refnerf_tpu_torch.ops import image as image_ops
 from refnerf_tpu_torch.ops import ref_utils
+from refnerf_tpu_torch.parallel import mesh as mesh_lib
+from refnerf_tpu_torch.parallel import shard_step
 from refnerf_tpu_torch.train import checkpoints as ckpt_lib
 from refnerf_tpu_torch.train import step as step_lib
 from refnerf_tpu_torch.utils import io as io_lib
@@ -193,13 +203,24 @@ def _host_rendering(rendering):
 class NeRFSystem:
   """Builds and runs the full train/eval/render pipeline for one config."""
 
-  def __init__(self, config, gin, summary_writer=None, device='cuda'):
+  def __init__(self, config, gin, summary_writer=None, device='cuda',
+               group=None):
     self.config = config
     self.gin = gin
     self.summary_writer = summary_writer
+    self.group = group
+    self.first = mesh_lib.is_first(group)
+    n_dev = mesh_lib.size(group)
+    if config.batch_size % n_dev != 0:
+      raise ValueError(
+          f'batch_size {config.batch_size} must divide across '
+          f'{n_dev} devices')
     self.model = construct_lib.construct_model(config, gin, device)
     self.device = next(self.model.parameters()).device
+    if group is not None:
+      mesh_lib.build_kernels(group, self.device)
     self.state = step_lib.create_train_state(config, self.model)
+    self._warned_eval_split = False
     self.metric_harness = metrics_lib.MetricHarness(device=self.device)
     self.total_time = 0
     self.total_steps = 0
@@ -228,6 +249,30 @@ class NeRFSystem:
   def train_frac(self, step):
     return float(np.clip((step - 1) / (self.config.max_steps - 1), 0, 1))
 
+  def _log(self, msg):
+    if self.first:
+      print(msg)
+
+  def _render_group(self):
+    """The group the eval and path renders split each chunk across: ours
+    where render_chunk_size divides across the ranks, else None (rank 0
+    renders alone; warned once)."""
+    n = mesh_lib.size(self.group)
+    if n == 1 or self.config.render_chunk_size % n == 0:
+      return self.group
+    if not self._warned_eval_split and self.first:
+      self._warned_eval_split = True
+      print(f'WARNING: render_chunk_size={self.config.render_chunk_size} '
+            f'does not divide across the {n} ranks; eval/render frames fall '
+            f'back to rank 0 alone. Set render_chunk_size to a multiple of '
+            f'{n} to split frames across the ranks.', file=sys.stderr,
+            flush=True)
+    return None
+
+  def _renders(self):
+    """Whether this rank takes part in the eval and path renders."""
+    return self.first or self._render_group() is not None
+
   # ------------------------------------------------------------------ train
 
   def train(self):
@@ -236,26 +281,33 @@ class NeRFSystem:
     self.setup_datasets()
 
     ckpt_mgr = ckpt_lib.CheckpointManager(
-        ckpt_lib.checkpoint_dir(config), save_top_k=config.save_top_k)
-    if config.resume_path or ckpt_mgr.latest_step() is not None:
+        ckpt_lib.checkpoint_dir(config), save_top_k=config.save_top_k,
+        group=self.group)
+    # Rank 0's latest step decides for every rank, so that all of them
+    # enter restore's collectives or none does.
+    latest = mesh_lib.agree(ckpt_mgr.latest_step(), self.group)
+    if config.resume_path or latest is not None:
       try:
-        self.state = ckpt_mgr.restore(self.state)
-        print(f'Resumed from step {int(self.state.step)}')
+        self.state = ckpt_mgr.restore(self.state, latest)
+        self._log(f'Resumed from step {int(self.state.step)}')
       except FileNotFoundError:
         pass
+    # Every rank starts from rank 0's state.
+    mesh_lib.replicate(self.state, self.group)
 
     cameras = self.train_dataset.device_cameras(self.device)
-    train_step = step_lib.make_train_step(self.model, config,
-                                          raycast_fn=self._raycast_fn())
+    train_step = shard_step.make_sharded_train_step(
+        self.model, config, self.group, raycast_fn=self._raycast_fn())
     # Align the stateless batch stream to the restored step: the sampler
     # reproduces the exact batch sequence an uninterrupted run would see.
     self.train_dataset.seek(int(self.state.step))
-    batches = prefetch_lib.training_batches(self.train_dataset,
-                                            device=self.device)
+    batches = prefetch_lib.training_batches(
+        self.train_dataset, device=self.device,
+        rank=mesh_lib.rank(self.group), world_size=mesh_lib.size(self.group))
 
     num_params = sum(p.numel() for p in self.model.parameters())
-    print(f'Training with {num_params} parameters, '
-          f'batch size {config.batch_size}')
+    self._log(f'Training with {num_params} parameters, '
+              f'batch size {config.batch_size}')
 
     first_step = int(self.state.step)
     max_steps = config.max_steps
@@ -279,10 +331,12 @@ class NeRFSystem:
       tracer.step(step)
       batch = next(batches)
       self.state, stats = train_step(self.state, batch, cameras)
-      stats_buffer.append(stats)
+      if self.first:
+        stats_buffer.append(stats)
 
-      if step == first_step or (step + 1) % config.print_every == 0:
-        # Pull stats to host only at summary boundaries.
+      if self.first and (step == first_step or
+                         (step + 1) % config.print_every == 0):
+        # Pull stats to host only at summary boundaries, on rank 0.
         stats_buffer = [_to_host(s) for s in stats_buffer]
         elapsed = time.time() - train_start_time
         steps_per_sec = len(stats_buffer) / elapsed
@@ -339,9 +393,13 @@ class NeRFSystem:
 
   def validate(self, step) -> float:
     """Render val images at train_frac(step), log panels, return the mean
-    PSNR."""
+    PSNR (0 on a rank that takes no part in the renders)."""
     config = self.config
     self.setup_datasets()
+    if not self._renders():
+      return 0.0
+    group = self._render_group()
+    writer = self.summary_writer if self.first else None
 
     psnrs = []
     n = min(config.val_sample_num, self.val_dataset.size)
@@ -351,7 +409,7 @@ class NeRFSystem:
       rendering = renderer_lib.render_image(
           self.model, self._to_device(batch.rays), config.render_chunk_size,
           compute_extras=True, vis_num_rays=config.vis_num_rays,
-          train_frac=self.train_frac(step))
+          train_frac=self.train_frac(step), group=group)
       eval_time = time.time() - eval_start
       num_rays = int(np.prod(batch.rays.shape))
 
@@ -362,40 +420,43 @@ class NeRFSystem:
       psnr = metric['psnr']
       psnrs.append(0.0 if np.isnan(psnr) else psnr)
 
-      if self.summary_writer is not None:
-        self.summary_writer.add_scalar('val/rays_per_sec',
-                                       num_rays / eval_time, step)
+      if writer is not None:
+        writer.add_scalar('val/rays_per_sec', num_rays / eval_time, step)
         vis_suite = vis_lib.visualize_suite(
             _host_rendering(rendering), batch.rays,
             config.supervised_by_linear_rgb)
         # Optionally decimate TB images to conserve event-file size.
         dec = max(config.vis_decimate, 1)
         decimate = lambda x: x[::dec, ::dec] if dec > 1 else x
-        self.summary_writer.add_image(
+        writer.add_image(
             'val/true_color', decimate(np.asarray(batch.rgb)), step,
             dataformats='HWC')
         if batch.normals is not None:
-          self.summary_writer.add_image(
+          writer.add_image(
               'val/true_normals',
               decimate(np.asarray(batch.normals)) / 2.0 + 0.5, step,
               dataformats='HWC')
         for k, v in vis_suite.items():
-          self.summary_writer.add_image(
+          writer.add_image(
               'val/output_' + k, decimate(v), step,
               dataformats='HWC' if v.ndim == 3 else 'HW')
 
     mean_psnr = float(np.mean(psnrs)) if psnrs else 0.0
-    if self.summary_writer is not None:
-      self.summary_writer.add_scalar('val/psnr', mean_psnr, step)
-    print(f'validation @ step {step}: psnr={mean_psnr:.3f}')
+    if writer is not None:
+      writer.add_scalar('val/psnr', mean_psnr, step)
+    self._log(f'validation @ step {step}: psnr={mean_psnr:.3f}')
     return mean_psnr
 
   # ------------------------------------------------------------------ test
 
   def test(self, step: Optional[int] = None):
-    """Full test-set evaluation with color correction and metric dumps."""
+    """Full test-set evaluation with color correction and metric dumps
+    (rank 0's; [] on the other ranks)."""
     config = self.config
     self.setup_datasets(train=False)
+    if not self._renders():
+      return []
+    group = self._render_group()
     self.metric_harness = metrics_lib.MetricHarness(compute_lpips=True,
                                                     device=self.device)
     step = step if step is not None else int(self.state.step)
@@ -404,7 +465,7 @@ class NeRFSystem:
     out_dir = os.path.join(
         ckpt_lib.checkpoint_dir(config),
         'path_renders' if config.render_path else 'test_preds')
-    if config.eval_save_output:
+    if config.eval_save_output and self.first:
       os.makedirs(out_dir, exist_ok=True)
     path_fn = lambda x: os.path.join(out_dir, x)
 
@@ -496,8 +557,9 @@ class NeRFSystem:
       finish = renderer_lib.render_image(
           self.model, self._to_device(batch.rays), config.render_chunk_size,
           compute_extras=True, vis_num_rays=config.vis_num_rays,
-          fetch=False, train_frac=train_frac)
-      pipeline.submit(postprocess, idx, finish, batch, eval_start)
+          fetch=False, train_frac=train_frac, group=group)
+      if self.first:
+        pipeline.submit(postprocess, idx, finish, batch, eval_start)
 
     for metric, metric_cc in pipeline.results():
       if metric is not None:
@@ -531,7 +593,8 @@ class NeRFSystem:
           f.write('lpips: unavailable (no VGG weights; see '
                   'tools/convert_lpips_weights.py)\n')
 
-    if self.summary_writer is not None and not config.render_path:
+    if (self.summary_writer is not None and self.first and
+        not config.render_path):
       dec = max(config.vis_decimate, 1)
       decimate = lambda x: x[::dec, ::dec] if dec > 1 else x
       for label, rendering, batch in showcases:
@@ -549,8 +612,12 @@ class NeRFSystem:
   def render(self, dataset, base_dir, out_dir, out_name):
     """Resumable, multi-job-strided path rendering + video assembly
     (refnerf-pl nerf_system.py:467-537). Returns the video writer that
-    served each tag (empty until every frame exists)."""
+    served each tag (empty until every frame exists, and on every rank but
+    0)."""
     config = self.config
+    if not self._renders():
+      return {}
+    group = self._render_group()
     zpad = max(3, len(str(dataset.size - 1)))
     path_fn = lambda x: os.path.join(out_dir, x)
     idx_to_str = lambda idx: str(idx).zfill(zpad)
@@ -600,7 +667,7 @@ class NeRFSystem:
       next_file = path_fn(
           f'color_{idx_to_str(idx + config.render_num_jobs)}.png')
       if os.path.exists(curr_file) and os.path.exists(next_file):
-        print(f'Image {idx}/{dataset.size} already exists, skipping')
+        self._log(f'Image {idx}/{dataset.size} already exists, skipping')
         continue
       todo.append(idx)
 
@@ -608,14 +675,18 @@ class NeRFSystem:
     batches = _BatchLookahead(dataset.generate_ray_batch, todo)
     for idx, batch in zip(todo, batches):
       idx_str = idx_to_str(idx)
-      print(f'Evaluating image {idx + 1}/{dataset.size}')
+      self._log(f'Evaluating image {idx + 1}/{dataset.size}')
       eval_start = time.time()
       finish = renderer_lib.render_image(
           self.model, self._to_device(batch.rays), config.render_chunk_size,
-          compute_extras=True, vis_num_rays=config.vis_num_rays, fetch=False)
-      pipeline.submit(save_frame, idx_str, finish, eval_start, idx)
+          compute_extras=True, vis_num_rays=config.vis_num_rays, fetch=False,
+          group=group)
+      if self.first:
+        pipeline.submit(save_frame, idx_str, finish, eval_start, idx)
 
     pipeline.results()  # flush saves before counting files for the video
+    if not self.first:
+      return {}
     num_files = len(glob.glob(path_fn('acc_*.tiff')))
     if num_files == dataset.size:
       print(f'All files found, creating videos '
@@ -629,6 +700,6 @@ class NeRFSystem:
   def restore_latest(self):
     mgr = ckpt_lib.CheckpointManager(
         ckpt_lib.checkpoint_dir(self.config),
-        save_top_k=self.config.save_top_k)
+        save_top_k=self.config.save_top_k, group=self.group)
     self.state = mgr.restore(self.state)
     return int(self.state.step)

@@ -10,6 +10,11 @@ a temporary directory and then moved into place with `os.replace`, so a
 process killed mid-save leaves the earlier checkpoints readable (orbax's
 finalize does the same); a leftover temporary directory is not a step and is
 ignored.
+
+Under data parallelism (`group`) the ranks hold the same state: rank 0
+alone writes it, and every rank waits at a barrier after the save, so that
+none reads or lists the directory while it is written. Every rank restores
+the same file.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Optional
 import torch
 
 from refnerf_tpu_torch import configs as configs_lib
+from refnerf_tpu_torch.parallel import mesh
 
 _STATE = 'state.pt'
 _METRICS = 'metrics.json'
@@ -58,7 +64,8 @@ class CheckpointManager:
   """Step-indexed train-state checkpoints: top-k by val PSNR in `best/`, and
   the latest in `last/`."""
 
-  def __init__(self, directory: str, save_top_k: int = 5):
+  def __init__(self, directory: str, save_top_k: int = 5, group=None):
+    self._group = group
     directory = os.path.abspath(directory)
     self._last = os.path.join(directory, 'last')
     self._best = os.path.join(directory, 'best')
@@ -67,7 +74,13 @@ class CheckpointManager:
     self._top_k = max(save_top_k, 1)
 
   def save(self, step: int, state, val_psnr: Optional[float] = None):
-    """Save `state` (a train.step.TrainState) as `step`."""
+    """Save `state` (a train.step.TrainState) as `step`: on rank 0 of the
+    group, the others waiting."""
+    if mesh.is_first(self._group):
+      self._save(step, state, val_psnr)
+    mesh.barrier(self._group)
+
+  def _save(self, step, state, val_psnr):
     payload = {
         'step': int(state.step),
         'model': {k: v.detach() for k, v in state.model.state_dict().items()},
@@ -108,6 +121,8 @@ class CheckpointManager:
     onto the device of its model, and return it."""
     if step is None:
       step = self.latest_step()
+    # Every rank restores the step rank 0 found.
+    step = mesh.agree(step, self._group)
     if step is None:
       raise FileNotFoundError('No checkpoint found.')
     sub = self._last if step in _steps(self._last) else self._best

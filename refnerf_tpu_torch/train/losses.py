@@ -7,8 +7,16 @@ with its disparity and normal metrics, the interlevel and distortion losses
 noisy-view consistency losses (diffuse, specular, normals; :195-311) and
 distance consistency (:314-349), and the accumulated-weights and
 weights-entropy losses (:352-372). Masked means are weighted sums with a
-1e-10 floor on the mask's sum, as JAX writes them. The cross-device sums
-(`axis_name`) belong to data parallelism (ROADMAP queue 1, item 8).
+1e-10 floor on the mask's sum, as JAX writes them.
+
+Under data parallelism (parallel/shard_step.py) the losses that divide by a
+data-dependent count take the process group, JAX's `axis_name`: the data
+loss, the consistency family and the weights entropy sum their numerator
+and their denominator over the ranks apart (`_sum_all`, a differentiable
+all-reduce whose backward sums the cotangents over the ranks, as JAX's psum
+transposes), so that every rank holds the one-process value. A mean of
+per-rank ratios would drift where the masks differ between ranks. With
+`group=None` each is the one-process loss, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,22 +28,33 @@ import torch
 from refnerf_tpu_torch.ops import image as image_ops
 from refnerf_tpu_torch.ops import ref_utils
 from refnerf_tpu_torch.ops import stepfun
+from refnerf_tpu_torch.parallel import mesh
 
 
-def _masked_mean(x, mask):
-  """mean(x[mask]) as a weighted sum; mask broadcasts against x."""
+def _sum_all(x, group=None):
+  """The sum of x over every element and every rank of `group`."""
+  return mesh.all_sum(x.sum(), group)
+
+
+def _masked_mean(x, mask, group=None):
+  """mean(x[mask]) as a weighted sum; mask broadcasts against x. With a
+  group, the numerator and the denominator are summed over the ranks apart
+  (JAX losses.py:26-35)."""
   mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
-  return (x * mask).sum() / torch.maximum(mask.sum(), mask.new_tensor(1e-10))
+  return _sum_all(x * mask, group) / torch.maximum(
+      _sum_all(mask, group), mask.new_tensor(1e-10))
 
 
-def compute_data_loss(batch, renderings, rays, config):
+def compute_data_loss(batch, renderings, rays, config, group=None):
   """Photometric loss over all levels and the per-level mse.
 
   Returns (loss, stats) with stats['mses'] a [levels] tensor; with
   `compute_disp_metrics` / `compute_normal_metrics` and the batch's
   disparities / normals, also stats['disparity_mses'] / ['normal_maes'] (in
   degrees; NaN for a level without normals), which read the renderings'
-  extras.
+  extras. With a group the weighted means and the normal error are global
+  ratios (JAX losses.py:55-87); the disparity error stays this rank's mean,
+  averaged over the ranks with the stats.
   """
   stats = {}
   gt_rgb = batch.rgb[..., :3]
@@ -45,18 +64,18 @@ def compute_data_loss(batch, renderings, rays, config):
   if config.supervised_by_linear_rgb:
     gt_rgb = image_ops.srgb_to_linear(gt_rgb)
 
-  denom = lossmult.sum()
+  denom = _sum_all(lossmult, group)
   data_losses, mses = [], []
   for rendering in renderings:
     resid_sq = (rendering['rgb'] - gt_rgb)**2
-    mses.append((lossmult * resid_sq).sum() / denom)
+    mses.append(_sum_all(lossmult * resid_sq, group) / denom)
     if config.data_loss_type == 'mse':
       data_loss = resid_sq
     elif config.data_loss_type == 'charb':
       data_loss = torch.sqrt(resid_sq + config.charb_padding**2)
     else:
       raise ValueError(f'Unknown data_loss_type {config.data_loss_type}')
-    data_losses.append((lossmult * data_loss).sum() / denom)
+    data_losses.append(_sum_all(lossmult * data_loss, group) / denom)
 
     if config.compute_disp_metrics and batch.disps is not None:
       disp = 1 / (1 + rendering['distance_mean'])
@@ -65,10 +84,12 @@ def compute_data_loss(batch, renderings, rays, config):
 
     if config.compute_normal_metrics and batch.normals is not None:
       if rendering.get('normals') is not None:
-        normal_mae = ref_utils.compute_weighted_mae(
-            rendering['acc'] * batch.alphas,
-            ref_utils.l2_normalize(rendering['normals']),
-            ref_utils.l2_normalize(batch.normals))
+        weights = rendering['acc'] * batch.alphas
+        normals = ref_utils.l2_normalize(rendering['normals'])
+        normals_gt = ref_utils.l2_normalize(batch.normals)
+        ang = ref_utils.angular_error(normals, normals_gt)
+        normal_mae = (_sum_all(weights * ang, group) /
+                      _sum_all(weights, group) * 180.0 / math.pi)
       else:
         normal_mae = torch.tensor(math.nan, device=gt_rgb.device)
       stats.setdefault('normal_maes', []).append(normal_mae)
@@ -185,7 +206,7 @@ def _consistency_term(kind, ref, noise, what):
 
 
 def noisy_consistency_loss(num_levels, renderings, renderings_noise, config,
-                           warmup_ratio=1.0):
+                           warmup_ratio=1.0, group=None):
   """Diffuse, specular and normal consistency across rotated views.
 
   The specular term is negated: specular colour is meant to vary with the
@@ -206,11 +227,11 @@ def noisy_consistency_loss(num_levels, renderings, renderings_noise, config,
     diffuse_loss = _masked_mean(_consistency_term(
         config.consistency_diffuse_loss_type,
         rendering['diffuse'][:n_samples, None],
-        reshape_noise(rendering_noise['diffuse']), 'diffuse'), mask)
+        reshape_noise(rendering_noise['diffuse']), 'diffuse'), mask, group)
     specular_loss = -_masked_mean(_consistency_term(
         config.consistency_specular_loss_type,
         rendering['specular'][:n_samples, None],
-        reshape_noise(rendering_noise['specular']), 'specular'), mask)
+        reshape_noise(rendering_noise['specular']), 'specular'), mask, group)
 
     normal_loss = 0.0
     if normals_on:
@@ -226,7 +247,7 @@ def noisy_consistency_loss(num_levels, renderings, renderings_noise, config,
       n_noise = reshape_noise(rendering_noise[target])
       normal_err = (1.0 - (n * n_noise).sum(dim=-1)).mean(dim=1,
                                                           keepdim=True)
-      normal_loss = _masked_mean(normal_err, mask)
+      normal_loss = _masked_mean(normal_err, mask, group)
 
     coarse = i < num_levels - 1
     mult = lambda name: getattr(
@@ -243,7 +264,7 @@ def noisy_consistency_loss(num_levels, renderings, renderings_noise, config,
 
 def noisy_distance_consistency_loss(num_levels, rays, noisy_rays, renderings,
                                     renderings_noise, config,
-                                    warmup_ratio=1.0):
+                                    warmup_ratio=1.0, group=None):
   """Consistency of the expected surface point across rotated views."""
   if config.consistency_distance_loss_type != 'mse':
     raise ValueError(f'Unknown consistency_distance_loss_type '
@@ -265,7 +286,7 @@ def noisy_distance_consistency_loss(num_levels, rays, noisy_rays, renderings,
     distance_mse = ((origins + directions * distance) -
                     (origins_ + directions_ * distance_))**2
     distance_loss = _masked_mean(
-        distance_mse.mean(dim=1, keepdim=True).sum(dim=-1), mask)
+        distance_mse.mean(dim=1, keepdim=True).sum(dim=-1), mask, group)
     mult = (config.consistency_distance_coarse_loss_mult
             if i < num_levels - 1 else config.consistency_distance_loss_mult)
     total = total + warmup_ratio * mult * distance_loss
@@ -279,7 +300,7 @@ def accumulated_weights_loss(renderings, config):
 
 
 def weights_entropy_loss(num_levels, renderings, ray_history, config,
-                         warmup_ratio):
+                         warmup_ratio, group=None):
   """Shannon entropy of the compositing weights on high-opacity rays."""
   total = 0.0
   for i, (rendering, ray_results) in enumerate(zip(renderings, ray_history)):
@@ -288,6 +309,6 @@ def weights_entropy_loss(num_levels, renderings, ray_history, config,
     ent = (-w * torch.log(w + 1e-10)).sum(dim=-1)
     mult = (config.weights_entropy_coarse_loss_mult if i < num_levels - 1
             else config.weights_entropy_loss_mult)
-    total = total + warmup_ratio * mult * _masked_mean(ent, mask)
+    total = total + warmup_ratio * mult * _masked_mean(ent, mask, group)
   return total
 

@@ -27,6 +27,7 @@ import torch
 
 from refnerf_tpu_torch.cameras import rays as rays_lib
 from refnerf_tpu_torch.ops import stepfun
+from refnerf_tpu_torch.parallel import mesh
 
 # Mixed into the generator's seed so that the noise angles, the main
 # forward's draws and the noisy forward's do not share a stream.
@@ -86,15 +87,32 @@ def draw_noise_angles(seed, step, n_angles, max_angle, device=None):
 
 class Draws:
   """The random tensors of one forward, drawn in the model's order from a
-  generator seeded from (seed, step, stream) on `device`."""
+  generator seeded from (seed, step, stream) on `device`.
 
-  def __init__(self, seed, step, stream, device=None):
+  Under data parallelism a rank's forward sees `world_size` times fewer
+  rays: each of its draws is then the global batch's draw, of which it keeps
+  its own rows [rank n, (rank + 1) n) of the leading (ray) axis, as
+  parallel.mesh.shard_rows lays the batch. So a run's draws do not depend
+  on the number of ranks (JAX folds the rank into the key instead,
+  shard_step.py:91-98, and draws differ with it)."""
+
+  def __init__(self, seed, step, stream, device=None, rank=0, world_size=1):
     self.generator = seeded_generator(seed, step, stream, device)
+    self.rank, self.world_size = rank, world_size
+
+  def _rows(self, shape, draw):
+    """`draw(shape)` with the leading axis of the global batch, cut to this
+    rank's rows."""
+    shape = tuple(shape)
+    if self.world_size == 1:
+      return draw(shape)
+    full = draw((shape[0] * self.world_size,) + shape[1:])
+    return full[mesh.rows_of(full.shape[0], self.rank, self.world_size)]
 
   def jitter(self, batch_shape, num_samples, single_jitter):
     """A level's sampling offsets (stepfun.draw_jitter)."""
-    return stepfun.draw_jitter(self.generator, batch_shape, num_samples,
-                               single_jitter)
+    return self._rows(batch_shape, lambda shape: stepfun.draw_jitter(
+        self.generator, shape, num_samples, single_jitter))
 
   def mlp(self):
     """The draws of a level's MLP (its noise): `normal(shape)`."""
@@ -102,13 +120,13 @@ class Draws:
 
   def normal(self, shape):
     """Standard normal noise of `shape`."""
-    return torch.randn(tuple(shape), generator=self.generator,
-                       device=self.generator.device)
+    return self._rows(shape, lambda shape: torch.randn(
+        shape, generator=self.generator, device=self.generator.device))
 
   def background(self, shape, lo, hi):
     """A level's background colours, uniform on [lo, hi)."""
-    u = torch.rand(tuple(shape), generator=self.generator,
-                   device=self.generator.device)
+    u = self._rows(shape, lambda shape: torch.rand(
+        shape, generator=self.generator, device=self.generator.device))
     return u * (hi - lo) + lo
 
 

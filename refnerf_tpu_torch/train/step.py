@@ -30,6 +30,13 @@ tensors (stratified jitter, density and bottleneck noise, backgrounds) from
 `sampling.Draws` seeded from (Config.seed, step) and its own stream, the
 main forward's and the noisy forward's apart, as JAX's `rng_fwd` and
 `rng_noisy_fwd` (step.py:159-187); the streams differ from JAX's (H3).
+
+The loss terms are `loss_terms`, shared with the data-parallel step
+(parallel/shard_step.py), which hands `make_train_step` its `shard`: the
+rank's draws are its rows of the global batch's, the consistency rays its
+slice of the global batch's first rays, and the gradients and stats are
+reduced over the ranks before the clip. Without a shard every number is the
+one-process step's.
 """
 
 from __future__ import annotations
@@ -162,8 +169,62 @@ def _param_stats(params, grads):
           {k: g.abs().max() for k, g in grads.items()})
 
 
+def loss_terms(config, num_levels, batch, rays, renderings, ray_history,
+               c_rays=None, c_rends=None, noisy_rays=None,
+               renderings_noise=None, ratio=1.0, group=None):
+  """The loss terms of one step (step.py:189-243), by name, and the data
+  loss's stats. `c_rays` and `c_rends` are the rays and renderings the
+  noisy second forward rotated (the batch's first rays; under data
+  parallelism this rank's slice of the global batch's first rays,
+  parallel/shard_step.py); `group` is the process group whose ranks share
+  the masked means (losses.py)."""
+  c_rays = rays if c_rays is None else c_rays
+  c_rends = renderings if c_rends is None else c_rends
+  terms = {}
+  data_loss, stats = losses_lib.compute_data_loss(batch, renderings, rays,
+                                                  config, group=group)
+  terms['data'] = data_loss
+  if config.interlevel_loss_mult > 0:
+    terms['interlevel'] = losses_lib.interlevel_loss(ray_history, config)
+  if config.distortion_loss_mult > 0:
+    terms['distortion'] = losses_lib.distortion_loss(ray_history, config)
+  if (config.orientation_coarse_loss_mult > 0 or
+      config.orientation_loss_mult > 0):
+    terms['orientation'] = losses_lib.orientation_loss(
+        rays, num_levels, ray_history, config)
+  if (config.predicted_normal_coarse_loss_mult > 0 or
+      config.predicted_normal_loss_mult > 0):
+    terms['predicted_normals'] = losses_lib.predicted_normal_loss(
+        num_levels, ray_history, config)
+  if config.patch_size > 1 and (
+      config.depth_smoothness_coarse_loss_mult > 0 or
+      config.depth_smoothness_loss_mult > 0):
+    terms['smoothness'] = losses_lib.compute_depth_smoothness_loss(
+        renderings, config)
+  if _consistency_enabled(config):
+    (terms['diffuse_consistency'], terms['specular_consistency'],
+     terms['normals_consistency']) = losses_lib.noisy_consistency_loss(
+         num_levels, c_rends, renderings_noise, config, ratio, group=group)
+  if config.accumulated_weights_loss_mult > 0:
+    terms['acc'] = losses_lib.accumulated_weights_loss(renderings, config)
+  if _distance_consistency_enabled(config):
+    terms['distance_consistency'] = (
+        losses_lib.noisy_distance_consistency_loss(
+            num_levels, c_rays, noisy_rays, c_rends, renderings_noise,
+            config, ratio, group=group))
+  if (config.weights_entropy_loss_mult > 0 or
+      config.weights_entropy_coarse_loss_mult > 0):
+    terms['weights_entropy'] = losses_lib.weights_entropy_loss(
+        num_levels, renderings, ray_history, config, ratio, group=group)
+  # A term of levels whose loss is off is the float 0 (as in JAX).
+  terms = {k: torch.as_tensor(v, dtype=torch.float32,
+                              device=data_loss.device)
+           for k, v in terms.items()}
+  return terms, stats
+
+
 def make_train_step(model, config, raycast_fn=None, noise_angles=None,
-                    draws=None):
+                    draws=None, shard=None):
   """Build train_step(state, batch, cameras=None) -> (state, stats)
   (step.py:120-283). `raycast_fn(cameras, pixels) -> Rays` casts a batch
   of Pixels (e.g. camera_utils.cast_ray_batch with the dataset's camtype).
@@ -173,7 +234,8 @@ def make_train_step(model, config, raycast_fn=None, noise_angles=None,
   gives a forward's random tensors under `config.randomized` (stream
   `sampling.FWD_STREAM` or `NOISY_FWD_STREAM`); by default
   `sampling.Draws` seeded from (config.seed, step, stream) on the model's
-  device."""
+  device. `shard` is parallel/shard_step.py's, under data parallelism
+  (`make_sharded_train_step`); None is the one-process step."""
   num_levels = model.cfg.num_levels
   schedule = create_lr_schedule(config)
   consistency_on = _consistency_enabled(config)
@@ -191,20 +253,23 @@ def make_train_step(model, config, raycast_fn=None, noise_angles=None,
           f'Patch size {config.patch_size}^2 too large for sampling noise '
           f'view points {config.sample_noise_size}')
   device = next(model.parameters()).device
+  group = None if shard is None else shard.group
   if noise_angles is None:
     noise_angles = lambda step, a, max_angle: sampling.draw_noise_angles(
         config.seed, step, a, max_angle, device)
   if not config.randomized:
     draws = lambda step, stream: None
   elif draws is None:
+    rank, world = (0, 1) if shard is None else (shard.rank, shard.world_size)
     draws = lambda step, stream: sampling.Draws(config.seed, step, stream,
-                                                device)
+                                                device, rank, world)
   # The extras are computed only for the metrics and losses that read them.
   compute_extras = (config.compute_disp_metrics or
                     config.compute_normal_metrics or noisy_on)
 
   def loss_and_grads(state: TrainState, batch, cameras=None):
-    """(total loss, stats, gradients by parameter name before clipping)."""
+    """(total loss, stats, gradients by parameter name before clipping);
+    under data parallelism each reduced over the ranks."""
     step = torch.tensor(float(state.step), dtype=torch.float32)
     train_frac = float(torch.clamp((step - 1) / (config.max_steps - 1), 0, 1))
     rays = batch.rays
@@ -218,72 +283,40 @@ def make_train_step(model, config, raycast_fn=None, noise_angles=None,
 
     ratio = _consistency_ratio(config, state.step)
     noisy_rays = renderings_noise = None
+    c_rays, c_rends = rays, renderings
     if noisy_on:
       # The noisy second forward (step.py:179-187): its rays come from the
       # first forward's distance, so it runs after it, on its own graph.
+      n_noise = config.sample_noise_size // config.patch_size**2
+      if shard is not None:
+        c_rays, c_rends, n_noise = shard.consistency_rows(rays, renderings,
+                                                          n_noise)
       angles = noise_angles(
           state.step, config.sample_noise_angles,
           sampling.max_noise_angle(config.sample_angle_range, ratio))
       noisy_rays = sampling.sample_noisy_rays(
-          rays, renderings[-1],
+          c_rays, c_rends[-1],
           angles.to(device=rays.origins.device, dtype=torch.float32),
-          config.sample_noise_size // config.patch_size**2)
+          n_noise)
       renderings_noise, _ = model(
           noisy_rays, train_frac=train_frac, train=True, compute_extras=True,
           draws=draws(state.step, sampling.NOISY_FWD_STREAM))
 
-    loss_terms = {}
-    data_loss, stats = losses_lib.compute_data_loss(batch, renderings, rays,
-                                                    config)
-    loss_terms['data'] = data_loss
-    if config.interlevel_loss_mult > 0:
-      loss_terms['interlevel'] = losses_lib.interlevel_loss(ray_history,
-                                                            config)
-    if config.distortion_loss_mult > 0:
-      loss_terms['distortion'] = losses_lib.distortion_loss(ray_history,
-                                                            config)
-    if (config.orientation_coarse_loss_mult > 0 or
-        config.orientation_loss_mult > 0):
-      loss_terms['orientation'] = losses_lib.orientation_loss(
-          rays, num_levels, ray_history, config)
-    if (config.predicted_normal_coarse_loss_mult > 0 or
-        config.predicted_normal_loss_mult > 0):
-      loss_terms['predicted_normals'] = losses_lib.predicted_normal_loss(
-          num_levels, ray_history, config)
-    if config.patch_size > 1 and (
-        config.depth_smoothness_coarse_loss_mult > 0 or
-        config.depth_smoothness_loss_mult > 0):
-      loss_terms['smoothness'] = losses_lib.compute_depth_smoothness_loss(
-          renderings, config)
-    if consistency_on:
-      (loss_terms['diffuse_consistency'], loss_terms['specular_consistency'],
-       loss_terms['normals_consistency']) = losses_lib.noisy_consistency_loss(
-           num_levels, renderings, renderings_noise, config, ratio)
-    if config.accumulated_weights_loss_mult > 0:
-      loss_terms['acc'] = losses_lib.accumulated_weights_loss(renderings,
-                                                              config)
-    if distance_consistency_on:
-      loss_terms['distance_consistency'] = (
-          losses_lib.noisy_distance_consistency_loss(
-              num_levels, rays, noisy_rays, renderings, renderings_noise,
-              config, ratio))
-    if (config.weights_entropy_loss_mult > 0 or
-        config.weights_entropy_coarse_loss_mult > 0):
-      loss_terms['weights_entropy'] = losses_lib.weights_entropy_loss(
-          num_levels, renderings, ray_history, config, ratio)
-    # A term of levels whose loss is off is the float 0 (as in JAX).
-    loss_terms = {k: torch.as_tensor(v, dtype=torch.float32,
-                                     device=data_loss.device)
-                  for k, v in loss_terms.items()}
-    total = torch.stack(list(loss_terms.values())).sum()
+    terms, stats = loss_terms(config, num_levels, batch, rays, renderings,
+                              ray_history, c_rays, c_rends, noisy_rays,
+                              renderings_noise, ratio, group)
+    total = torch.stack(list(terms.values())).sum()
     params = state.params()
-    grads = torch.autograd.grad(total, list(params.values()))
+    grads = dict(zip(params, torch.autograd.grad(total,
+                                                 list(params.values()))))
     stats['loss'] = total.detach()
-    stats['losses'] = {k: v.detach() for k, v in loss_terms.items()}
+    stats['losses'] = {k: v.detach() for k, v in terms.items()}
     for k in ('mses', 'disparity_mses', 'normal_maes'):
       if k in stats:
         stats[k] = stats[k].detach()
-    return total.detach(), stats, dict(zip(params, grads))
+    if shard is not None:
+      grads, stats = shard.reduce(grads, stats)
+    return stats['loss'], stats, grads
 
   def train_step(state: TrainState, batch, cameras=None):
     _, stats, grads = loss_and_grads(state, batch, cameras)
@@ -303,4 +336,5 @@ def make_train_step(model, config, raycast_fn=None, noise_angles=None,
     return state, stats
 
   train_step.loss_and_grads = loss_and_grads
+  train_step.shard = shard
   return train_step

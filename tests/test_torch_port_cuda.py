@@ -28,7 +28,10 @@ density grid and vertex colours through K1 against the plain spatial stage,
 and a model exported to a refnerf-pl checkpoint and imported again serving
 bit for bit; the flagship served from a weight-embedded artifact
 (serving.py) against the in-process kernels (bit for bit) and
-fused_trunk='off', its launches counted. Two tests
+fused_trunk='off', its launches counted; the flagship trained on two
+ranks sharing the card over gloo against one process (phase 22's bounds,
+the ranks bit-identical, each rank's launches); Model.remat bit for bit,
+every forward launch run once more a step. Two tests
 need no card and run everywhere: the data pipeline and the metrics, asked
 for CUDA where torch.cuda.is_available() reads false, refuse to start. This
 file imports no jax, so it also runs where jax is not installed; there, skip
@@ -1877,3 +1880,128 @@ def test_served_artifact_matches_off_and_counts_launches(dev, tmp_path, cdt):
     g, w = got[k].double(), plain[k].double()
     spread = ((g - w).norm() / (w - w.mean(0)).norm()).item()
     assert spread <= bound, (k, spread)
+
+
+# The flagship with the six fuse flags in bf16 (phase 10's launches).
+SIX = [f'NerfMLP.{f} = True' for f in (
+    'fuse_dir_enc', 'fuse_dir_geo', 'fuse_dir_rgb', 'fuse_ipe_trig',
+    'fuse_compositing', 'fuse_lift')]
+SIX_PER_STEP = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1, 'K6': 2, 'K7': 2,
+                'K8': 2, 'K9': 2, 'K10': 2}
+
+
+def _train_batch(n, dev, seed=0):
+  rng = np.random.default_rng(seed)
+  d = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev)
+  rays = rays_lib.dummy_rays(n, dev)
+  rays.directions, rays.viewdirs = d, d / d.norm(dim=-1, keepdim=True)
+  rays.origins = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                              device=dev) * 0.1
+  rays.near, rays.far = rays.near + 2, rays.far + 5
+  rays.radii = rays.radii + 1e-3
+  rays.lossmult = torch.tensor(rng.uniform(0.5, 2, (n, 1)).astype(np.float32),
+                               device=dev)
+  rgb = torch.tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32), device=dev)
+  return rays_lib.Batch(rays=rays, rgb=rgb)
+
+
+@pytest.mark.cuda
+def test_two_ranks_sharing_the_card_match_one_process(dev, tmp_path):
+  # The flagship at full width (bf16, the six fuse flags) at a global batch
+  # of 512: two ranks on this card over gloo (torchrun running
+  # refnerf_tpu_torch/testing/data_parallel.py) against one process, two
+  # steps from the same state and batch, within chip_smoke.py's phase-22
+  # bounds: the loss 1e-5 relative, the reduced gradients 1e-4 relative
+  # L2, the parameters 1e-2 of the largest move. The ranks stay
+  # bit-identical, and each launches K2-K10 as phase 10 counts them.
+  import json
+  import socket
+  import subprocess
+  import sys
+  from refnerf_tpu_torch.testing import data_parallel as dp
+  bindings = ["NerfMLP.compute_dtype = 'bfloat16'", 'Config.batch_size = 512',
+              *SIX]
+  config, gin = configs.parse([GIN], bindings)
+  model = construct.construct_model(config, gin, dev)
+  state = step_lib.create_train_state(config, model)
+  dp.save_state(str(tmp_path / 'state.pt'), state)
+  dp.save_batch(str(tmp_path / 'batch.pt'),
+                _train_batch(512, dev).map(lambda x: x.cpu()))
+  run = dict(name='flagship', kind='steps', gin=GIN, bindings=bindings,
+             state=str(tmp_path / 'state.pt'),
+             batch=str(tmp_path / 'batch.pt'), steps=2,
+             out=str(tmp_path / 'out'))
+  with open(tmp_path / 'spec.json', 'w') as f:
+    json.dump(dict(device='cuda:0', backend='gloo', runs=[run]), f)
+  one = dp.run(dict(run, out=None), None, dev)
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+  root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  env = {k: v for k, v in os.environ.items()
+         if k not in ('RANK', 'LOCAL_RANK', 'WORLD_SIZE', 'MASTER_ADDR',
+                      'MASTER_PORT')}
+  env['PYTHONPATH'] = root
+  proc = subprocess.run(
+      [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node=2',
+       '--master_addr=127.0.0.1', f'--master_port={port}', '-m',
+       'refnerf_tpu_torch.testing.data_parallel', str(tmp_path / 'spec.json')],
+      cwd=root, env=env, capture_output=True, text=True, timeout=600)
+  assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+  ranks = [torch.load(tmp_path / 'out' / f'flagship.rank{r}.pt',
+                      weights_only=False) for r in (0, 1)]
+  want = {k: 2 * v for k, v in SIX_PER_STEP.items()}
+  for rank in ranks:
+    for got in rank['launches']:
+      assert {k: v for k, v in got.items() if v} == want
+  for s in range(2):
+    for k, p in ranks[0]['params'][s].items():
+      assert torch.equal(p, ranks[1]['params'][s][k]), (s, k)
+    loss, ref = float(ranks[0]['loss'][s]), float(one['loss'][s])
+    assert abs(loss - ref) <= 1e-5 * abs(ref)
+    num = sum(float((ranks[0]['grads'][s][k] - g).double().norm()**2)
+              for k, g in one['grads'][s].items())
+    den = sum(float(g.double().norm()**2) for g in one['grads'][s].values())
+    assert (num / den)**0.5 <= 1e-4
+    before = one['start'] if s == 0 else one['params'][s - 1]
+    move = max(float((p - before[k]).abs().max())
+               for k, p in one['params'][s].items())
+    diff = max(float((ranks[0]['params'][s][k] - p).abs().max())
+               for k, p in one['params'][s].items())
+    assert diff <= 1e-2 * move
+
+
+@pytest.mark.cuda
+def test_remat_on_the_card_is_bit_for_bit_and_reruns_the_forwards(dev):
+  # Model.remat on the flagship at full width (bf16, the six fuse flags),
+  # batch 512, two steps: the step is the step without remat bit for bit
+  # (the kernels' forwards are deterministic, H4), and every forward launch
+  # of a step runs once more in its backward.
+  batch = _train_batch(512, dev)
+  runs = {}
+  for remat in (False, True):
+    config, gin = configs.parse([GIN], [
+        "NerfMLP.compute_dtype = 'bfloat16'", 'Config.batch_size = 512',
+        *SIX, f'Model.remat = {remat}'])
+    model = construct.construct_model(config, gin, dev)
+    assert model.remat == remat
+    state = step_lib.create_train_state(config, model)
+    train = step_lib.make_train_step(model, config)
+    for k in fused_mlp.launches:
+      fused_mlp.launches[k] = 0
+    for _ in range(2):
+      state, stats = train(state, batch)
+    launches = dict(fused_mlp.launches)
+    for k in fused_mlp.launches:
+      fused_mlp.launches[k] = 0
+    model(batch.rays, train=True)
+    runs[remat] = (stats['loss'], launches, dict(fused_mlp.launches),
+                   {k: p.detach().clone() for k, p in
+                    model.named_parameters()})
+  (l0, n0, fwd, p0), (l1, n1, _, p1) = runs[False], runs[True]
+  assert torch.equal(l0, l1)
+  for k, v in p0.items():
+    assert torch.equal(v, p1[k]), k
+  assert n0 == {k: 2 * 2 * SIX_PER_STEP.get(k, 0) for k in n0}
+  assert n1 == {k: v + 2 * fwd[k] for k, v in n0.items()}
+  assert fwd['K3'] == fwd['K2'] == 2

@@ -300,6 +300,8 @@ def test_port_imports_no_jax_and_renders_on_cpu():
                                            import_torch_checkpoint,
                                            mesh_error, quality_check)
       from refnerf_tpu_torch import serving
+      from refnerf_tpu_torch.parallel import mesh, shard_step
+      from refnerf_tpu_torch.testing import data_parallel
       from refnerf_tpu_torch.tools import (bench_render, downsample_images,
                                            export_serving, profile_step,
                                            serve_http)

@@ -567,6 +567,7 @@ def test_port_takes_a_train_step_without_jax():
       from refnerf_tpu_torch.cameras import rays as rays_lib
       from refnerf_tpu_torch.data import datasets, prefetch
       from refnerf_tpu_torch.models import construct
+      from refnerf_tpu_torch.parallel import mesh, shard_step
       from refnerf_tpu_torch.tools import sphere_scene
       from refnerf_tpu_torch.train import step as step_lib
       config, gin = configs.parse([{GIN!r}], {SMALL!r})
