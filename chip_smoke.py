@@ -257,10 +257,21 @@ Phases, each printed on its own line:
      batch 4096, 3 steps with and without remat: bit for bit the same,
      every forward launch run once more a step (the launches of one train
      forward alone, added), the peak memory allocated and ms a step of
-     each (the median of the steps after a warm first one).
+     each (the median of the steps after a warm first one);
+ 24. mip-NeRF 360's published model (MIPNERF360,
+     refnerf_tpu_torch/testing/mipnerf360.py) at full width: its NeRF
+     trunk's width-1024 pair (trunk_w1024.cu) against the plain versions at
+     131,072 and 524,288 rows in bf16 and f32 (routes asserted, reruns
+     bit-identical, two planted faults above the bounds; its SASS checked in
+     phase 2), its 283-column directional pair timed; then 3 steps at batch
+     16,384 in each dtype under 'on' (launches a step asserted, median ms,
+     peak memory), one step against 'off', a bf16 step profiled, 'on' and
+     'off' in turns, and a 4096-ray request against 'off' (spread_l2 within
+     M360_SERVE_BOUND, a planted fault of the served model above it; one
+     profiled).
 The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 22 and 23),
+18, 19, 20, 21, 22, 23 and 24),
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
@@ -334,6 +345,7 @@ SAMPLES = 128  # a ray's samples at every level of the flagship
 # Peak rates of one H100 SXM (dense) and its memory rate, for the bounds.
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 MEM_RATE = 3.35e12
+CARD = ''  # nvidia-smi's name and power limit, set in main()
 
 
 def log(msg):
@@ -494,7 +506,7 @@ def bound(cdt, flops, nbytes_moved, f32_flops=0):
 
 
 def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
-            flops=0, f32_flops=0, weights=None, y=None):
+            flops=0, f32_flops=0, weights=None, y=None, n=N_SAMPLES):
   """Run kernel() and plain() once and compare every output (see errors());
   then time both in turns. Returns a dict: max_abs_err, ms, plain_ms, and
   the bound from `flops` (in the compute dtype), `f32_flops` and the bytes
@@ -515,7 +527,7 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   kinds = f'derivatives from output {n_values}' + (
       f' but for the weights {weights}, absolute' if weights is not None
       else '') + (f', y {y} by L2' if y is not None else '')
-  log(f'phase {phase}: {which} {cdt} N={N_SAMPLES}: max_abs_err {err:.3e} '
+  log(f'phase {phase}: {which} {cdt} N={n}: max_abs_err {err:.3e} '
       f'({worst:.3f} of its bound), kernel {ms:.3f} ms, plain '
       f'{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; '
       f'{moved / 1e6:.1f} MB); per output (relative to max|plain|, relative '
@@ -570,6 +582,35 @@ def check_sass(lib, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
     if not all(counts[op] for op in need) or any(counts[op] for op in refuse):
       raise AssertionError(f'{name}: needs {need}, refuses {refuse}: '
                            f'{counts}')
+
+
+def check_w1024_sass(lib):
+  """Phase 2: the width-1024 library's products hold the instructions of
+  their route, or this fails: each bf16 product (nt_bf16, tn_bf16)
+  mma.sync's HMMA and no wgmma (HGMMA), each f32 one (nt_f32, tn_f32)
+  FFMA and no tensor-core product (HMMA, HGMMA). Their other kernels
+  (sigma, column sums) are logged."""
+  tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+  sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                        text=True, check=True, timeout=300).stdout
+  products = 0
+  for block in re.split(r'\n\s*Function : ', sass)[1:]:
+    name = block.split('\n', 1)[0]
+    counts = {op: len(re.findall(rf'\b{op}\b', block))
+              for op in ('HMMA', 'HGMMA', 'FFMA', 'LDSM')}
+    log(f'phase 2: SASS {name}: ' + ', '.join(
+        f'{op} {k}' for op, k in counts.items()))
+    if re.search(r'(nt|tn)_bf16_kernel', name):
+      ok = counts['HMMA'] and not counts['HGMMA']
+    elif re.search(r'(nt|tn)_f32_kernel', name):
+      ok = counts['FFMA'] and not (counts['HMMA'] or counts['HGMMA'])
+    else:
+      continue
+    products += 1
+    if not ok:
+      raise AssertionError(f'{name}: its SASS holds {counts}')
+  if not products:
+    raise AssertionError(f'{lib}: no product kernel in its SASS')
 
 
 def check_kernels(fused_mlp, dev):
@@ -2946,7 +2987,7 @@ def cascade_train(fused_mlp, run, per_step, what, steps=CASCADE_STEPS,
   return launches, dt, seen, last, batch
 
 
-def cascade_against_plain(fused_mlp, run, batch, what):
+def cascade_against_plain(fused_mlp, run, batch, what, phase=19):
   """Phase 19: one step's loss, gradient norm and each loss term through the
   kernels against fused_trunk='off', from the same state and so with the
   same draws (seeded from (seed, step)): the loss within TRAIN_LOSS_BOUND
@@ -2962,7 +3003,8 @@ def cascade_against_plain(fused_mlp, run, batch, what):
     norm = step_lib.global_norm(grads.values()).item()
     del grads
     if mode == 'off' and fused_mlp.launches != before:
-      raise AssertionError("phase 19: fused_trunk='off' launched a kernel")
+      raise AssertionError(f"phase {phase}: fused_trunk='off' launched a "
+                           'kernel')
     return loss.item(), norm, {k: v.item() for k, v in
                                stats['losses'].items()}
   try:
@@ -2971,15 +3013,15 @@ def cascade_against_plain(fused_mlp, run, batch, what):
     set_mode(model, fused_trunk='on')
   dl, dn = abs(lk - lp) / abs(lp), abs(nk - np_) / np_
   dt = {k: abs(tk[k] - tp[k]) / abs(lp) for k in tp}
-  log(f"phase 19: {what}: step {state.step} kernels vs fused_trunk='off' "
+  log(f"phase {phase}: {what}: step {state.step} kernels vs fused_trunk='off' "
       f'(the same draws): loss {lk:.6g} vs {lp:.6g} (rel {dl:.2e}, bound '
       f'{TRAIN_LOSS_BOUND}), grad norm {nk:.6g} vs {np_:.6g} (rel {dn:.2e}, '
       f'bound {TRAIN_GNORM_BOUND}); each term, |diff| / loss: ' + ', '.join(
           f'{k} {tk[k]:.6g} vs {tp[k]:.6g} ({v:.2e})' for k, v in dt.items()))
   if not (dl <= TRAIN_LOSS_BOUND and dn <= TRAIN_GNORM_BOUND and
           all(v <= TRAIN_LOSS_BOUND for v in dt.values())):
-    raise AssertionError(f'phase 19: {what}: the kernel step disagrees with '
-                         'the plain one')
+    raise AssertionError(f'phase {phase}: {what}: the kernel step disagrees '
+                         'with the plain one')
   return dict(loss_rel=dl, gnorm_rel=dn, terms_rel=dt)
 
 
@@ -4245,6 +4287,412 @@ def remat_stage(fused_mlp, dev):
   return res['flagship']['remat_launches'], res
 
 
+# Phase 24: mip-NeRF 360's published model (MIPNERF360, in
+# refnerf_tpu_torch/testing/mipnerf360.py; no gin file): its NeRF MLP's
+# spatial trunk (8 x 1024, the skip at layer 5, the density head and the
+# 256-wide bottleneck on 504 IPE columns) on the width-1024 kernels
+# (csrc/trunk_w1024.cu), held against the plain
+# versions at a 4096-ray request's NeRF samples (4096 x 32) and a step's
+# (16,384 x 32 = N_SAMPLES); its directional pair (1 x 128 on 256 + 27
+# columns, trunk_fwd.cu / trunk_bwd.cu) timed at a step's; then the model
+# trained at its batch and served, under 'on' against 'off'.
+W1024_NS = (4096 * 32, N_SAMPLES)
+M360_BATCH, M360_STEPS = 16384, 3  # the configuration's batch (360.gin's)
+# Rays a served request, rendered in one chunk of as many (the Config's
+# render_chunk_size of 16,384 would pad it to 16,384 rays).
+M360_REQUEST = 4096
+# Launches a step: the PropMLP's pair at the two proposal levels (also under
+# 'K1 wide' / 'K4 wide'), the NeRF level's width-1024 pair (also 'K1
+# w1024' / 'K4 w1024') and its directional pair (K2, K5).
+M360_PER_STEP = {'K1': 3, 'K1 wide': 2, 'K1 w1024': 1, 'K2': 1, 'K4': 3,
+                 'K4 wide': 2, 'K4 w1024': 1, 'K5': 1}
+M360_SCALES = 2.0**np.arange(0, 12)  # the MLP's default max_deg_point 12
+# A served request against 'off' (`m360_request`): spread_l2 at most
+# M360_SERVE_BOUND[compute dtype]. f32 SERVE_BOUND's. bf16 20 times its
+# sound reads on an H100 (1.98e-4 to 1.99e-4, 20 times the flagship's: the
+# flip cascade of 8 x 1024 bf16 layers sat at 0.99-1.00 of SERVE_BOUND), as
+# SERVE_BOUND is 20 times the flagship's, and 31 times under what the skip
+# layer's input dropped from the served pack reads (rgb 0.124).
+M360_SERVE_BOUND = {'float32': SERVE_BOUND['float32'], 'bfloat16': 4e-3}
+
+
+def w1024_case(fused_mlp, gen, dev, n):
+  """The NeRF MLP's spatial trunk at full width on n rows: the IPE (f32) of
+  random lifted means and variances on 21 basis vectors x 12 degrees (two
+  segments of 252), He-scaled weights, the density head and the 256-wide
+  bottleneck. Returns (segs, ws, bs, kw, cots): cots the cotangents of
+  sigma and the bottleneck (f32)."""
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  lm = torch.rand(n, 21, generator=gen).to(dev) * 3 - 1.5
+  lv = 10.0**(torch.rand(n, 21, generator=gen).to(dev) * 4 - 6)
+  segs = list(fused_mlp.encode_ipe(lm, lv, M360_SCALES))
+  skips = fused_mlp.skip_input_layers(8, 4)
+  ws = []
+  for l in range(8):
+    k_in = 504 if l == 0 else 1024 + (504 if l in skips else 0)
+    ws.append(rand(1024, k_in) * math.sqrt(2 / k_in))
+  bs = [rand(1024) * 0.05 for _ in range(8)]
+  kw = dict(skip_period=4, wd=rand(1, 1024) / 32, head_f32=None,
+            head_cdt=(rand(256, 1024) / 32, rand(256) * 0.1))
+  return segs, ws, bs, kw, (rand(n), None, rand(n, 256), None)
+
+
+def w1024_faults(fused_mlp, cs, ws, bs, kw, cots, cdt):
+  """What two planted faults of the width-1024 pair would read on the plain
+  versions, as `errors` reads the kernels (share of KERNEL_BOUND on the
+  values, of GRAD_BOUND on each gradient): `skip input dropped`, the skip
+  layer's second K segment (the trunk input beside h) left out of its
+  product, forward and backward; `last slab dropped`, the backward's last
+  slab of fused_mlp.bwd_slab_rows(1024) rows missing from every sum over
+  rows. Fails
+  unless each reads above its bound."""
+  n = cs[0].shape[0]
+  with torch.no_grad():
+    want = flatten(fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                             **kw))
+    want_b = flatten(fused_mlp.trunk_backward_reference(
+        cs, ws, bs, cots, compute_dtype=cdt, **kw)[:7])
+    bad = [w.clone() for w in ws]
+    bad[5][:, 1024:] = 0
+    got = flatten(fused_mlp.trunk_reference(cs, bad, bs, compute_dtype=cdt,
+                                            **kw))
+    got_b = flatten(fused_mlp.trunk_backward_reference(
+        cs, bad, bs, cots, compute_dtype=cdt, **kw)[:7])
+    reads = {'skip input dropped': max(
+        r[3] for r in errors(got + got_b, want + want_b, cdt, len(want)))}
+    keep = n - fused_mlp.bwd_slab_rows(1024)
+    got_b = flatten(fused_mlp.trunk_backward_reference(
+        [c[:keep] for c in cs], ws, bs,
+        tuple(None if c is None else c[:keep] for c in cots),
+        compute_dtype=cdt, **kw)[:7])
+    reads['last slab dropped'] = max(r[3] for r in errors(got_b, want_b, cdt,
+                                                          0))
+    del want, want_b, got, got_b, bad
+  log(f'phase 24: width-1024 pair {cdt} N={n} [{CARD}]: planted faults '
+      'would read ' +
+      ', '.join(f'{k} {v:.2f}' for k, v in reads.items()) +
+      ' times the bound')
+  if not min(reads.values()) > 1:
+    raise AssertionError(f'phase 24: the bounds do not see a planted fault: '
+                         f'{reads}')
+  return reads
+
+
+def check_w1024_kernels(fused_mlp, dev):
+  """Phase 24 (a): the width-1024 forward (sigma and the bottleneck by
+  KERNEL_BOUND) and first-order backward (every gradient by GRAD_BOUND,
+  given random cotangents of sigma and the bottleneck) against their plain
+  versions at W1024_NS rows, in bf16 and f32, the routes asserted, each run
+  twice more bit-identical; the planted faults (`w1024_faults`, bf16 and
+  f32); then the 283-column directional pair of the same model (K2 and K5
+  with dx, trunk_fwd.cu / trunk_bwd.cu) against its plain versions at
+  N_SAMPLES rows. Returns {(name, cdt): compare()'s dict} ('K1 W1024
+  hc256', 'K4 1st W1024' at N_SAMPLES, with their N = 131,072 times under
+  'request_*'; 'K2 m360', 'K5 m360')."""
+  gen = torch.Generator().manual_seed(SEED + 24)
+  results, faults = {}, {}
+  segs, ws, bs, kw, cots = w1024_case(fused_mlp, gen, dev, N_SAMPLES)
+  for cdt in ('bfloat16', 'float32'):
+    cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+    cc = cots[:2] + (cots[2].to(fused_mlp.DTYPES[cdt]), None)
+    pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+    got = (fused_mlp.forward_library(pack), fused_mlp.backward_library(pack))
+    if (got != (fused_mlp.W1024_LIBRARY,) * 2 or
+        fused_mlp.missing_instance(pack, 256) is not None):
+      raise AssertionError(f'phase 24: the {cdt} width-1024 trunk routed to '
+                           f'{got}')
+    runs = {}
+    for n in W1024_NS:
+      xs = [c[:n] for c in cs]
+      cn = tuple(None if c is None else c[:n] for c in cc)
+      kernel = lambda: fused_mlp.trunk_kernel(xs, pack)
+      plain = lambda: fused_mlp.trunk_reference(xs, ws, bs, compute_dtype=cdt,
+                                                **kw)
+      f = compare('K1 W1024 hc256', cdt, kernel, plain, n_values=2,
+                  phase=24, iters=3, inputs=xs + pack_tensors(pack), n=n,
+                  flops=trunk_flops(ws, n, 257))
+      deterministic('K1 W1024 hc256', kernel, phase=24, cdt=cdt)
+      kernel = lambda: fused_mlp.trunk_backward_kernel(xs, pack, cn)
+      plain = lambda: fused_mlp.trunk_backward_reference(
+          xs, ws, bs, cn, compute_dtype=cdt, **kw)
+      b = compare('K4 1st W1024', cdt, kernel, plain, n_values=0, iters=2,
+                  phase=24, inputs=xs + pack_tensors(pack) + list(cn), n=n,
+                  flops=trunk_flops(ws, n, 257, backward=True))
+      deterministic('K4 1st W1024', kernel, phase=24, cdt=cdt)
+      runs[n] = (f, b)
+      del xs, cn
+    (rf, rb), (f, b) = runs[W1024_NS[0]], runs[N_SAMPLES]
+    results['K1 W1024 hc256', cdt] = dict(
+        f, **{'request_' + k: v for k, v in rf.items()})
+    results['K4 1st W1024', cdt] = dict(
+        b, **{'request_' + k: v for k, v in rb.items()})
+    faults[cdt] = w1024_faults(fused_mlp, [c[:W1024_NS[0] * 2] for c in cs],
+                               ws, bs, kw,
+                               tuple(None if c is None else
+                                     c[:W1024_NS[0] * 2] for c in cc), cdt)
+    del pack, cs, cc
+    torch.cuda.empty_cache()
+  del segs, ws, bs, kw, cots
+  torch.cuda.empty_cache()
+  # The directional pair: 1 x 128 on [bottleneck 256 | positional encoding
+  # of degree 4, 27], the rgb head; K5 returns the segments' cotangents.
+  from refnerf_tpu_torch.ops import coord
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  d = rand(N_SAMPLES, 3)
+  segs = [torch.rand(N_SAMPLES, 256, generator=gen).to(dev) * 2 - 1,
+          coord.pos_enc(d / d.norm(dim=-1, keepdim=True), 0, 4)]
+  ws, bs = [rand(128, 283) * math.sqrt(2 / 283)], [rand(128) * 0.05]
+  kw = dict(skip_period=4, wd=None, head_f32=(rand(3, 128) / 11.3,
+                                              rand(3) * 0.1), head_cdt=None)
+  cots = (None, rand(N_SAMPLES, 3), None, None)
+  for cdt in ('bfloat16', 'float32'):
+    cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+    pack = fused_mlp.pack_trunk(ws, bs, (256, 27), compute_dtype=cdt, **kw)
+    got = (fused_mlp.forward_library(pack), fused_mlp.backward_library(pack))
+    if got != ('trunk_fwd', 'trunk_bwd'):
+      raise AssertionError(f'phase 24: the {cdt} directional pair routed to '
+                           f'{got}')
+    results['K2 m360', cdt] = compare(
+        'K2 m360', cdt, lambda: fused_mlp.trunk_kernel(cs, pack),
+        lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                          **kw),
+        n_values=1, phase=24, inputs=cs + pack_tensors(pack),
+        flops=trunk_flops(ws, N_SAMPLES, 3))
+    results['K5 m360', cdt] = compare(
+        'K5 m360', cdt,
+        lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots,
+                                                needs_dx=True),
+        lambda: fused_mlp.trunk_backward_reference(
+            cs, ws, bs, cots, compute_dtype=cdt, needs_dx=True, **kw),
+        n_values=0, iters=3, phase=24,
+        inputs=cs + pack_tensors(pack) + [cots[1]],
+        flops=trunk_flops(ws, N_SAMPLES, 3, backward=True, needs_dx=True))
+    del pack, cs
+  del segs, ws, bs, kw, cots
+  torch.cuda.empty_cache()
+  return results, faults
+
+
+def m360_setup(dev, dtype, mode='on'):
+  """MIPNERF360 at full width, trunks in `dtype` (both MLPs), weights from
+  Config.seed, under fused_trunk `mode`; a batch of Config.batch_size
+  random rays (bench.py's, from near 0.2 to far 1e6) and pixels, a fresh
+  train state and the step (the draws seeded from (seed, step))."""
+  from refnerf_tpu_torch import configs
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import construct
+  from refnerf_tpu_torch.testing.mipnerf360 import MIPNERF360
+  from refnerf_tpu_torch.train import step as step_lib
+  config, gin = configs.parse([], [
+      *MIPNERF360, f'Config.seed = {SEED}',
+      f"NerfMLP.compute_dtype = '{dtype}'",
+      f"PropMLP.compute_dtype = '{dtype}'",
+      f"NerfMLP.fused_trunk = '{mode}'", f"PropMLP.fused_trunk = '{mode}'",
+      f'Config.batch_size = {M360_BATCH}'])
+  model = construct.construct_model(config, gin, dev)
+  n = config.batch_size
+  rng = np.random.RandomState(24)
+  rays = rays_from(rays_lib, rng.randn(n, 3).astype(np.float32) * 0.1,
+                   rng.randn(n, 3).astype(np.float32),
+                   np.full((n, 1), 0.001, np.float32), config, dev)
+  rays.lossmult = torch.ones(n, 1, device=dev)
+  rgb = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).to(dev)
+  return dict(model=model, config=config, cameras=None,
+              batch=rays_lib.Batch(rays=rays, rgb=rgb),
+              state=step_lib.create_train_state(config, model),
+              train_step=step_lib.make_train_step(model, config))
+
+
+def m360_train(fused_mlp, run, what):
+  """Phase 24 (b): one warm step, then M360_STEPS steps timed one by one
+  (the median a step), each kernel launched M360_STEPS x its
+  M360_PER_STEP count, every loss term finite; the peak memory allocated
+  over the timed steps. Returns (launches, median ms, peak GiB, libraries,
+  the last stats)."""
+  model, step_fn, batch = run['model'], run['train_step'], run['batch']
+  seen, restore = _routes(fused_mlp)
+  try:
+    run['state'], _ = step_fn(run['state'], batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in fused_mlp.launches:
+      fused_mlp.launches[k] = 0
+    times, all_stats = [], []
+    for _ in range(M360_STEPS):
+      t0 = time.perf_counter()
+      run['state'], stats = step_fn(run['state'], batch)
+      torch.cuda.synchronize()
+      times.append(time.perf_counter() - t0)
+      all_stats.append(stats)
+    launches = dict(fused_mlp.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+  finally:
+    restore()
+  want = {k: M360_STEPS * M360_PER_STEP.get(k, 0) for k in launches}
+  if launches != want:
+    raise AssertionError(f'phase 24: {what} launches {launches}, expected '
+                         f'{want}')
+  for stats in all_stats:
+    terms = stats['losses']
+    if not (set(terms) == {'data', 'interlevel', 'distortion'} and
+            all(torch.isfinite(v).all() for v in terms.values())):
+      raise AssertionError(f'phase 24: {what}: loss terms {terms}')
+  ms = float(np.median(times)) * 1e3
+  last = all_stats[-1]
+  log(f'phase 24: {what}: {M360_STEPS} steps after 1 warm-up at batch '
+      f'{run["config"].batch_size}: median {ms:.2f} ms a step ('
+      + ', '.join(f'{t * 1e3:.2f}' for t in times) +
+      f'), {run["config"].batch_size / ms * 1e3:.0f} train rays/s, peak '
+      f'{peak:.2f} GiB allocated; loss {last["loss"].item():.6g} (' +
+      ', '.join(f'{k} {v.item():.6g}' for k, v in last['losses'].items()) +
+      f'); launches {launches}; libraries '
+      f'{json.dumps({k: sorted(v) for k, v in seen.items()})}')
+  return launches, ms, peak, seen, last
+
+
+def m360_request(fused_mlp, dev, run, what):
+  """Phase 24 (c): a 4096-ray request (eval, one chunk of 4096 rays: the
+  NeRF level's trunk on 131,072 samples) through the kernels, timed
+  after a warm one, its launches counted (K1 at each level, 'K1 w1024' at
+  the NeRF level, K2), then one profiled; against fused_trunk='off' (timed
+  too): rgb and the
+  distance by spread_l2 within M360_SERVE_BOUND, the distance in the warp's
+  normalized space s = (1/t - 1/near) / (1/far - 1/near) (with far = 1e6
+  an ulp of s near 1 moves t by ~30%); acc, which the opaque background
+  makes 1 on every ray (its spread is rounding), by its largest difference
+  within KERNEL_BOUND['float32']. A planted fault of the served model, the
+  NeRF MLP's spatial pack without the skip layer's input columns
+  (`drop_skip_columns`) run through the kernels, must read above
+  M360_SERVE_BOUND. Returns a summary."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import mlp as mlp_lib
+  from refnerf_tpu_torch.models import renderer
+  model, config = run['model'], run['config']
+  cdt = model.nerf_mlp.cfg.compute_dtype
+  rays = random_rays(rays_lib, M360_REQUEST, config, 24, dev)
+  chunk = M360_REQUEST
+
+  def timed():
+    renderer.render_rays(model, rays, chunk)  # warm-up (packs the weights)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = renderer.render_rays(model, rays, chunk)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+  for k in fused_mlp.launches:
+    fused_mlp.launches[k] = 0
+  out, ms = timed()
+  launches = {k: v // 2 for k, v in fused_mlp.launches.items() if v}
+  if launches != {'K1': 3, 'K1 wide': 2, 'K1 w1024': 1, 'K2': 1}:
+    raise AssertionError(f'phase 24: {what} request launches {launches}')
+  ranges = check_rendering(out, (M360_REQUEST,), config,
+                           model.nerf_mlp.cfg.rgb_padding)
+  set_mode(model, fused_trunk='off')
+  try:
+    before = dict(fused_mlp.launches)
+    plain, plain_ms = timed()
+    if fused_mlp.launches != before:
+      raise AssertionError("phase 24: fused_trunk='off' launched a kernel")
+  finally:
+    set_mode(model, fused_trunk='on')
+  host = lambda t: t.detach().double().reshape(t.shape[0], -1).cpu().numpy()
+  warp = lambda t: (1 / t - 1 / config.near) / (1 / config.far -
+                                                1 / config.near)
+  spread = lambda got: {
+      'rgb': spread_l2(host(got['rgb']), host(plain['rgb'])),
+      'distance': spread_l2(warp(host(got['distance'])),
+                            warp(host(plain['distance'])))}
+  reads = spread(out)
+  acc_diff = (out['acc'] - plain['acc']).abs().max().item()
+  with planted_pack(drop_skip_columns) as planted, mlp_lib.frozen_packs(
+      model):
+    fault = spread(renderer.render_rays(model, rays, chunk))
+  if [m for m, _, _ in planted] != [model.nerf_mlp]:
+    raise AssertionError(f'phase 24: {what}: the skip fault went into '
+                         f'{len(planted)} packs, not the NeRF MLP\'s alone')
+  bound = M360_SERVE_BOUND[cdt]
+  log(f'phase 24: {what}: a {M360_REQUEST}-ray request {ms:.1f} ms under "on", '
+      f'{plain_ms:.1f} ms under "off"; {ranges}; launches {launches}; vs '
+      f"fused_trunk='off' by spread_l2: " + ', '.join(
+          f'{k} {v:.3e} ({v / bound:.3f} of the bound)'
+          for k, v in reads.items()) +
+      f' (bound {bound}), max |acc| diff {acc_diff:.3e} (bound '
+      f"{KERNEL_BOUND['float32']}); the skip input dropped from the served "
+      'pack would read ' + ', '.join(
+          f'{k} {v:.3e} ({v / bound:.1f} times the bound)'
+          for k, v in fault.items()))
+  if not (max(reads.values()) <= bound and
+          acc_diff <= KERNEL_BOUND['float32']):
+    raise AssertionError(f'phase 24: {what}: the request disagrees with '
+                         'the plain path')
+  if not max(fault.values()) > bound:
+    raise AssertionError(f'phase 24: {what}: the bound does not see the '
+                         f'skip input dropped from the served pack: {fault}')
+  prof = profile(lambda: renderer.render_rays(model, rays, chunk),
+                 f'{what} request', 1, phase=24)
+  busy = None if prof is None else {
+      'wall_ms': prof['wall_ms'], 'busy_ms': prof['busy_ms'],
+      'top': dict(sorted(prof['kernels'].items(), key=lambda kv: -kv[1])[:6])}
+  return dict(ms=ms, off_ms=plain_ms, launches=launches, spread_l2=reads,
+              acc_diff=acc_diff, fault_spread_l2=fault, profile=busy)
+
+
+def m360_stage(fused_mlp, dev):
+  """Phase 24 (b)-(c): MIPNERF360 at full width in bf16 and in f32 under
+  'on': M360_STEPS steps at batch 16,384 (`m360_train`, the routes
+  asserted: the NeRF level's spatial pair on the width-1024 libraries), one
+  step against 'off' from the same state (cascade_against_plain: loss
+  within TRAIN_LOSS_BOUND, gradient norm within TRAIN_GNORM_BOUND), a bf16
+  step profiled, the step under 'off' timed in turns with 'on'; a 4096-ray
+  request (`m360_request`). Returns ({dtype: launches}, summary)."""
+  out, paths = {}, {}
+  for dtype in ('bfloat16', 'float32'):
+    run = m360_setup(dev, dtype)
+    model = run['model']
+    mlp = model.nerf_mlp
+    if (mlp.cfg.net_width != 1024 or mlp.spatial_5.in_features != 1528 or
+        mlp.viewdir_0.in_features != 283 or model.prop_mlp is None or
+        run['config'].batch_size != M360_BATCH or
+        not model.cfg.opaque_background):
+      raise AssertionError('phase 24: the configuration is not as bound')
+    what = f'MIPNERF360 {dtype}'
+    launches, ms, peak, seen, last = m360_train(fused_mlp, run, what)
+    want_f = {fused_mlp.W1024_LIBRARY, 'trunk_fwd',
+              fused_mlp.FWD_LIBRARY[dtype]}
+    want_b = {fused_mlp.W1024_LIBRARY, 'trunk_bwd',
+              fused_mlp.BWD_LIBRARY[dtype]}
+    if seen != {'forward': want_f, 'backward': want_b}:
+      raise AssertionError(f'phase 24: {what} routed to {seen}')
+    paths[dtype] = launches
+    res = dict(step_ms=ms, rays_s=run['config'].batch_size / ms * 1e3,
+               peak_gib=peak, loss=last['loss'].item())
+    res['vs_plain'] = cascade_against_plain(fused_mlp, run, run['batch'],
+                                            what, phase=24)
+    box = {'state': run['state']}
+
+    def step():
+      box['state'], _ = run['train_step'](box['state'], run['batch'])
+    if dtype == 'bfloat16':
+      prof = profile(step, f'{what} train step', 1, phase=24)
+      if prof is not None:
+        res['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
+        res['profile']['top'] = dict(sorted(
+            prof['kernels'].items(), key=lambda kv: -kv[1])[:6])
+    torch.cuda.reset_peak_memory_stats()
+    times = in_turns(step, {'on': (model, {'fused_trunk': 'on'}),
+                            'off': (model, {'fused_trunk': 'off'})},
+                     blocks=2, reps=1)
+    res['turns_ms'] = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    res['off_peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    set_mode(model, fused_trunk='on')
+    res['request'] = m360_request(fused_mlp, dev, run, what)
+    out[dtype] = res
+    log(f'phase 24: {what} [{CARD}]: {json.dumps(res)}')
+    del run, model, mlp, box
+    torch.cuda.empty_cache()
+  return paths, out
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -4257,6 +4705,8 @@ def main():
       ['nvidia-smi', '--query-gpu=name,power.limit',
        '--format=csv,noheader'], capture_output=True, text=True, check=True,
       timeout=60).stdout.strip().splitlines()[0]
+  global CARD
+  CARD = smi
   log(f'phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, '
       f'{torch.cuda.get_device_name(0)}')
   log(smi)
@@ -4278,6 +4728,7 @@ def main():
   check_sass(libs['trunk_bwd_tma'])
   for name in ('trunk_fwd_f32', 'trunk_bwd_f32'):
     check_sass(libs[name], need=('FFMA', 'UTMALDG'), refuse=('HMMA', 'HGMMA'))
+  check_w1024_sass(libs[fused_mlp.W1024_LIBRARY])
 
   kernels = check_kernels(fused_mlp, dev)
   launches, _ = serve(fused_mlp, dev)
@@ -4305,6 +4756,9 @@ def main():
   dp_steps, dp = data_parallel_stage(fused_mlp, dev)
   dp_path = {k: sum(step[k] for step in dp_steps) for k in dp_steps[0]}
   remat_path, remat = remat_stage(fused_mlp, dev)
+  w1024, w1024_faults_read = check_w1024_kernels(fused_mlp, dev)
+  kernels.update(w1024)
+  m360_path, m360 = m360_stage(fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -4495,6 +4949,41 @@ def main():
         'bf16_train_launches': cascade_bf16_path[which],
         # Phase 23: the bf16 cascade's REMAT_STEPS steps under Model.remat.
         'remat_launches': remat['cascade']['remat_launches'][which]})
+  # Phase 24's: the width-1024 pair (mip-NeRF 360's NeRF MLP), launched by
+  # the bf16 steps (and the f32 steps and both requests), timed at a step's
+  # N_SAMPLES rows (at a request's 131,072 under 'request_*'); the
+  # directional pair of the same model (trunk_fwd.cu / trunk_bwd.cu on 283
+  # columns).
+  w1024_src = {'K1 W1024 hc256': 'refnerf_tpu_torch/csrc/trunk_w1024.cu',
+               'K4 1st W1024': 'refnerf_tpu_torch/csrc/trunk_w1024.cu',
+               'K2 m360': fwd_src, 'K5 m360': bwd_src}
+  for which, desc, at, key in (
+      ('K1 W1024 hc256', 'spatial trunk forward at width 1024, the density '
+       'head and the 256-wide bottleneck (mip-NeRF 360)', 612, 'K1 w1024'),
+      ('K4 1st W1024', 'spatial trunk first-order backward at width 1024 '
+       '(mip-NeRF 360)', 668, 'K4 w1024'),
+      ('K2 m360', 'directional trunk 1 x 128 on 283 columns (mip-NeRF 360)',
+       612, 'K2'),
+      ('K5 m360', 'directional trunk backward on 283 columns, dx', 668,
+       'K5')):
+    b16, f32 = kernels[which, 'bfloat16'], kernels[which, 'float32']
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms')
+    entry = {
+        'name': f'{which} {desc}', 'route': 'cuda', 'source': w1024_src[which],
+        'replaces': f'{pallas}:{at}', 'launches': m360_path['bfloat16'][key],
+        'max_abs_err': b16['max_abs_err'], 'ms': b16['ms'],
+        'plain_ms': b16['plain_ms'], 'bound_ms': b16['bound_ms'],
+        'bound_by': b16['bound_by'], 'library_ms': None,
+        'dtype': 'bfloat16', 'n_samples': N_SAMPLES,
+        **{'f32_' + k: f32[k] for k in keys},
+        'f32_train_launches': m360_path['float32'][key],
+        'request_launches': m360['bfloat16']['request']['launches'].get(key,
+                                                                         0)}
+    for k in keys:
+      if 'request_' + k in b16:
+        entry['request_' + k] = b16['request_' + k]
+        entry['f32_request_' + k] = f32['request_' + k]
+    line.append(entry)
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '
@@ -4517,7 +5006,9 @@ def main():
       f'and interop): {json.dumps(mesh)}; phase 21 (serving from '
       f'artifacts): {json.dumps(art)}; phase 22 (data parallel, two ranks '
       f'sharing one card: no scaling figure): {json.dumps(dp)}; phase 23 '
-      f'(Model.remat): {json.dumps(remat)}')
+      f'(Model.remat): {json.dumps(remat)}; phase 24 (mip-NeRF 360 at full '
+      f'width): {json.dumps(m360)}; planted faults '
+      f'{json.dumps(w1024_faults_read)}')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

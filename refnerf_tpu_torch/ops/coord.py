@@ -3,17 +3,54 @@
 
 Every ray-distance warp of JAX's `construct_ray_warps` (coord.py:53-93) is
 ported: the identity (None), 'piecewise', and reciprocal, log, exp, sqrt and
-square by name or by a callable's `__name__`. `contract`, `inv_contract`
-and `track_linearize` are not: no module of the JAX package calls them.
+square by name or by a callable's `__name__`; so are the scene
+contraction of mip-NeRF 360 (`contract`, `inv_contract`, coord.py:19-33)
+and `track_linearize` (coord.py:35-56), which pushes a Gaussian through a
+warp such as `contract` by its Jacobian.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from refnerf_tpu_torch.ops import mathx
+
+# The clamp of the squared magnitude: it keeps the gradient of `contract`
+# and `inv_contract` finite at x = 0 (coord.py:16, :22).
+_EPS = float(np.finfo(np.float32).eps)
+
+
+def contract(x):
+  """Contract points toward the origin (Eq 10 of arxiv.org/abs/2111.12077):
+  the identity inside the unit ball, (2 - 1/|x|) x/|x| outside it."""
+  x_mag_sq = torch.clamp(torch.sum(x**2, dim=-1, keepdim=True), min=_EPS)
+  return torch.where(x_mag_sq <= 1, x,
+                     ((2 * torch.sqrt(x_mag_sq) - 1) / x_mag_sq) * x)
+
+
+def inv_contract(z):
+  """The inverse of contract()."""
+  z_mag_sq = torch.clamp(torch.sum(z**2, dim=-1, keepdim=True), min=_EPS)
+  return torch.where(z_mag_sq <= 1, z,
+                     z / (2 * torch.sqrt(z_mag_sq) - z_mag_sq))
+
+
+def track_linearize(fn, mean, cov):
+  """Push Gaussians (mean [..., d], cov [..., d, d]) through `fn`, a map of
+  R^d applied over the last axis, by linearizing it around the means:
+  Covar[A x + y] = A Covar[x] A^T with A = d fn / dx (coord.py:35-56).
+  The Jacobian-vector product runs over the covariance's columns, then over
+  the rows of the result, as JAX's vmap of `jax.linearize` does. A diagonal
+  covariance [..., d] raises. Returns (fn(mean), the covariances)."""
+  if mean.dim() + 1 != cov.dim():
+    raise ValueError('cov must be non-diagonal')
+  fn_mean = fn(mean)
+  lin = lambda v: torch.func.jvp(fn, (mean,), (v,))[1]
+  cols = torch.func.vmap(lin, in_dims=-1, out_dims=-2)
+  return fn_mean, cols(cols(cov))
 
 
 # The ray-distance curves by name, (forward, inverse) (coord.py:53-59).

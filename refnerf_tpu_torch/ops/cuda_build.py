@@ -91,6 +91,21 @@ EXPORTS = {
         'refnerf_trunk_bwd_f32': _BWD_ARGS,
         'refnerf_wgrad_f32': _WGRAD_ARGS,
     },
+    # The width-1024 spatial trunk, layer by layer (both dtypes, both
+    # directions): the products (bf16, mode, M, N, a0, lda0, k0, a1, lda1,
+    # k1, b, ldb, bias, act, ld_act, sb, wd, out, ldo, stream: `NtParams`),
+    # sigma (bf16, M, W, y, wd, sig, stream), the weight gradients' partials
+    # (bf16, Mo, No, rows, ksplit, z, ldz, x0, ldx0, n0, x1, ldx1, part,
+    # stream) and the column sums (vbf16, rows, cols, v, ldv, s, block_rows,
+    # part, stream); trunk_bwd's refnerf_reduce sums the partials.
+    'trunk_w1024': {
+        'refnerf_w1024_nt': [_I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
+                             _P, _P, _I, _P, _P, _P, _I, _P],
+        'refnerf_w1024_sigma': [_I, _I, _I, _P, _P, _P, _P],
+        'refnerf_w1024_tn': [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _I,
+                             _P, _P],
+        'refnerf_w1024_colsum': [_I, _I, _I, _P, _I, _P, _I, _P, _P],
+    },
 }
 
 

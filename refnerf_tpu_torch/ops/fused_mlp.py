@@ -42,9 +42,11 @@ f32 K11 in trunk_fwd.cu;
 `csrc/trunk_bwd_tma.cu` (bf16), `csrc/trunk_bwd_f32.cu` (f32) or
 `csrc/trunk_bwd.cu` by dtype and shape, `backward_library`: K4-K11), at
 width 256 and,
-for the directional trunk, 128, run for CUDA tensors
-unless `mode='off'`. A CPU tensor or `mode='off'` takes the
-plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
+for the directional trunk, 128; the spatial trunk at width 1024 with the
+256-wide head (`w1024`) layer by layer on `csrc/trunk_w1024.cu` (K1 and
+first-order K4), `_w1024_forward` and `_w1024_backward`; all run for CUDA
+tensors unless `mode='off'`. A CPU
+tensor or `mode='off'` takes the plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
 
     h = relu(cdt(f32 sum of segment/activation products) + cdt(bias))
@@ -84,8 +86,9 @@ _TILE = 64  # samples per tile of the trunk kernels (a CTA holds one or two)
 # sample-major for csrc/trunk_bwd_tma.cu and csrc/trunk_bwd_f32.cu) are
 # kept for one slab at a time, about 1.1 GB for the spatial trunk in bf16
 # and 2.2 GB in f32. The width-128 trunk takes four times the rows a slab
-# (`bwd_slab_rows`): fewer launches of its small weight-gradient and
-# reduction kernels.
+# and the width-1024 trunk twice (`bwd_slab_rows`): fewer launches of the
+# former's small weight-gradient and reduction kernels; the latter's
+# recomputed activations, 2 GiB in bf16 and 4 GiB in f32.
 BWD_SLAB = 65536
 # Samples per partial sum of the weight-gradient kernel: trunk_bwd.cu's
 # (128 x 128 tiles, each operand read twice), and trunk_bwd_tma.cu's, whose
@@ -114,6 +117,15 @@ _WIDE_CHUNK = 128
 # The library of each direction's TMA kernels, by compute dtype.
 FWD_LIBRARY = {'bfloat16': 'trunk_fwd_tma', 'float32': 'trunk_fwd_f32'}
 BWD_LIBRARY = {'bfloat16': 'trunk_bwd_tma', 'float32': 'trunk_bwd_f32'}
+# The width-1024 spatial trunk (mip-NeRF 360's NeRF MLP: `w1024`) runs
+# layer by layer on csrc/trunk_w1024.cu, forward and backward, in both
+# dtypes: the density head and the 256-wide compute-dtype head, no f32
+# head, on at most _WIDE_KIN input columns. Its backward recomputes the
+# activations per slab (`bwd_slab_rows`) and splits each weight gradient's
+# sum over rows into partials (`w1024_splits`).
+W1024, W1024_HEAD = 1024, 256
+W1024_LIBRARY = 'trunk_w1024'
+_W1024_COLSUM_ROWS = 2048  # rows a CTA of a column sum takes
 # Shared memory a CTA may use on an H100 (227 KB): a launch that needs more
 # is refused by its C entry (cudaErrorInvalidConfiguration).
 SMEM_LIMIT = 232448
@@ -127,9 +139,11 @@ SMEM_LIMIT = 232448
 # the colour epilogue. A launch of K1 or K4 with the trunk's features out
 # (y, and its cotangent back) also counts under K11. A launch of K1 or K4 on
 # the wide-input instances (`wide_input`) also counts under 'K1 wide' or
-# 'K4 wide'.
+# 'K4 wide', on the width-1024 instances (`w1024`) under 'K1 w1024' or
+# 'K4 w1024'.
 launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0, 'K6': 0, 'K7': 0,
-            'K8': 0, 'K9': 0, 'K10': 0, 'K11': 0, 'K1 wide': 0, 'K4 wide': 0}
+            'K8': 0, 'K9': 0, 'K10': 0, 'K11': 0, 'K1 wide': 0, 'K4 wide': 0,
+            'K1 w1024': 0, 'K4 w1024': 0}
 
 Head = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (weight [out, in], bias)
 
@@ -832,9 +846,11 @@ def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
   spatial trunk at width 256 without the compute-dtype head, the density
   gradient (K3) or a fused stage (K6-K10). Width 128 runs only the plain
   directional trunk (K2, K5): no density head, density gradient or fused
-  stage. An instance whose launch needs more shared memory than SMEM_LIMIT
-  (`kernel_smem` of the forward's and the backward's library) does not run
-  the trunk either."""
+  stage. Width 1024 runs only the spatial trunk of `w1024` (K1, first-order
+  K4): the density head and the 256-wide compute-dtype head alone, on at
+  most `_WIDE_KIN` input columns. An instance whose launch needs more
+  shared memory than SMEM_LIMIT (`kernel_smem` of the forward's and the
+  backward's library) does not run the trunk either."""
   fused = (('the density gradient (K3)', fold is not None),
            ('the compositing weights (K6)', sp.samples),
            ('the in-kernel IPE (K7)', sp.scales),
@@ -847,14 +863,17 @@ def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
   elif pack.width == 128:
     what = 'the width-128 trunk'
     modes = (('the density head', pack.wd is not None),) + fused
+  elif pack.width == W1024:
+    what = 'the width-1024 trunk'
+    modes = _w1024_modes(pack, hc, fold, sp) + fused[3:]
   off = [name for name, on in modes if on]
   if off:
     return f'{what} has no kernel with ' + ', '.join(off) + ' (ROADMAP queue 2)'
   if not ((pack.width == 256 and hc in (0, 128)) or
-          (pack.width == 128 and hc == 0)):
+          (pack.width == 128 and hc == 0) or pack.width == W1024):
     return (f'no trunk kernel instance for width {pack.width} and '
             f'compute-dtype head {hc} (built: width 256, head 0 or 128; '
-            'width 128, head 0)')
+            f'width 128, head 0; width {W1024}, head {W1024_HEAD})')
   for lib in (forward_library(pack, y, fold, sp),
               backward_library(pack, y, fold)):
     need = kernel_smem(lib, pack, hc, fold, sp)
@@ -887,7 +906,8 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   to run `pack` in the modes given (the density gradient with `fold`, K6
   and K7 by `sp`), mirroring the sum of its C launch; the libraries whose
   ring adapts give the bytes at the deepest ring that fits, or at their
-  shallowest ring, past SMEM_LIMIT, when none does. For trunk_fwd_tma.cu
+  shallowest ring, past SMEM_LIMIT, when none does; the width-1024
+  library the largest of its products' CTAs. For trunk_fwd_tma.cu
   and trunk_bwd_tma.cu only their wide-input instances' sums
   (`fwd_wide_smem`, `tma_smem`; 231,480 B and 210,248 B for the PropMLP's
   trunk of depth 4 on 504 columns): None for their other instances, whose
@@ -899,6 +919,13 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   W, kin, L = pack.width, pack.kin, pack.depth
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = fold is not None
+  if lib == W1024_LIBRARY:
+    # Its products' largest CTA (csrc/trunk_w1024.cu): bf16 the 4-stage
+    # ring of 32-deep slices of two 128-row tiles, [128][40] each (the tn
+    # product's [32][136]); f32 two buffers of two [16][132] tiles.
+    if pack.compute_dtype == 'float32':
+      return 2 * 2 * 16 * 132 * 4
+    return max(4 * 2 * 128 * 40 * 2, 4 * 2 * 32 * 136 * 2)
   tiles = ray_rows(sp.samples) // _TILE if sp.samples else 1
   sraw = 4 * tiles * _TILE if sp.samples else 0
   t = 2 if pack.compute_dtype == 'bfloat16' else 4
@@ -959,6 +986,34 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   return None
 
 
+def _w1024_modes(pack: TrunkPack, hc: int, fold=None,
+                 sp: SpaModes = SpaModes(), y: bool = False):
+  """What of a width-1024 trunk and its modes the width-1024 instances do
+  not run, as (what, whether) pairs: `w1024` holds where none is,
+  `missing_instance` names those that are."""
+  return (('no density head', pack.wd is None),
+          ('f32 heads', pack.wh is not None),
+          (f'{pack.kin} input columns', pack.kin > _WIDE_KIN),
+          (f'compute-dtype head {hc} (built: {W1024_HEAD})',
+           hc != W1024_HEAD),
+          ('the density gradient (K3)', fold is not None),
+          ('the compositing weights (K6)', sp.samples),
+          ('the in-kernel IPE (K7)', sp.scales),
+          ('the trunk-features output (K11)', y))
+
+
+def w1024(pack: TrunkPack, y: bool = False, fold=None,
+          sp: SpaModes = SpaModes()) -> bool:
+  """Whether `pack` runs on the width-1024 instances (csrc/trunk_w1024.cu,
+  both dtypes): the spatial trunk at width 1024 with the density head and
+  the `W1024_HEAD`-wide compute-dtype head alone, on at most `_WIDE_KIN`
+  input columns, without the density gradient, a fused stage or y
+  (`_w1024_modes`): mip-NeRF 360's NeRF MLP."""
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  return pack.width == W1024 and not any(
+      on for _, on in _w1024_modes(pack, hc, fold, sp, y))
+
+
 def wide_input(pack: TrunkPack, y: bool = False, fold=None,
                sp: SpaModes = SpaModes()) -> bool:
   """Whether `pack` runs on the wide-input instances (trunk_fwd_f32.cu and
@@ -985,10 +1040,13 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   register-blocked FMA products fed by TMA, where its shared memory holds
   the trunk: K3 on at most 192 input columns); past `_TMA_KIN` input
   columns the spatial trunk of `wide_input` on the same two (their
-  wide-input instances); every other shape with an instance 'trunk_fwd'.
-  (Width 128 runs the plain directional trunk alone: `missing_instance`
-  refuses its other modes first.)"""
+  wide-input instances); the spatial trunk of `w1024` 'trunk_w1024';
+  every other shape with an instance 'trunk_fwd'. (Width 128 runs the
+  plain directional trunk alone: `missing_instance` refuses its other modes
+  first.)"""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  if w1024(pack, out_y, fold, sp):
+    return W1024_LIBRARY
   if wide_input(pack, out_y, fold, sp):
     return FWD_LIBRARY[pack.compute_dtype]
   if (pack.width not in (256, 128) or pack.depth > _TMA_DEPTH or
@@ -1021,8 +1079,11 @@ def backward_library(pack: TrunkPack, y: bool = False, fold=None) -> str:
   shared memory holds the trunk: at most 192 input columns); past
   `_TMA_KIN` input columns the spatial trunk of `wide_input` (without y's
   cotangent `y` or u's, `fold`) on the same two (their wide-input
-  instances); every other shape with an instance (deeper, wider or
-  narrower trunks) 'trunk_bwd'."""
+  instances); the spatial trunk of `w1024` (first order) 'trunk_w1024';
+  every other shape with an instance (deeper, wider or narrower trunks)
+  'trunk_bwd'."""
+  if w1024(pack, y, fold):
+    return W1024_LIBRARY
   if wide_input(pack, y, fold):
     return BWD_LIBRARY[pack.compute_dtype]
   if (pack.width in (256, 128) and pack.depth <= _TMA_DEPTH and
@@ -1054,10 +1115,12 @@ def _vec_groups(nparts: int) -> int:
 
 def bwd_slab_rows(width: int) -> int:
   """Rows a slab of the backward takes by default at trunk width `width`:
-  `BWD_SLAB`, and four times that at 128, whose weight-gradient and
-  reduction launches are short enough that their count shows (its f32
-  scratch then takes about the 2.2 GB of the width-256 spatial trunk's)."""
-  return 4 * BWD_SLAB if width == 128 else BWD_SLAB
+  `BWD_SLAB`; four times that at 128, whose weight-gradient and reduction
+  launches are short enough that their count shows (its f32 scratch then
+  takes about the 2.2 GB of the width-256 spatial trunk's); twice that at
+  1024, whose recomputed activations then take 2 GiB in bf16 and 4 GiB in
+  f32."""
+  return {128: 4 * BWD_SLAB, W1024: 2 * BWD_SLAB}.get(width, BWD_SLAB)
 
 
 def bwd_scratch_rows(route: str, width: int, rows: int) -> int:
@@ -1288,6 +1351,211 @@ def _launch_inputs(segs, pack: TrunkPack, dm: DirModes, sp: SpaModes, comp,
                    *pack.seg_dims), si
 
 
+# The epilogues of the width-1024 products (csrc/trunk_w1024.cu `Epi`).
+_NT_RELU, _NT_REV, _NT_HEAD_BWD, _NT_BIAS = 0, 1, 2, 3
+
+
+def _w1024_input(segs, pack: TrunkPack):
+  """The trunk input as the width-1024 kernels read it: the segments side by
+  side and zero-padded to `pack.kin` columns, [n, kin] in the compute
+  dtype (the skip layer reads it beside h as a second K segment)."""
+  dims = tuple(int(t.shape[-1]) for t in segs)
+  if dims != pack.seg_dims:
+    raise ValueError(f'segments {dims} do not match the pack {pack.seg_dims}')
+  dev = segs[0].device
+  for t in (pack.w, pack.wt, pack.b, pack.wd, pack.wh, pack.wc):
+    if t is not None and t.device != dev:
+      raise ValueError(f'weights on {t.device}, inputs on {dev}')
+  x = segs[0].new_empty((int(segs[0].shape[0]), pack.kin),
+                        dtype=DTYPES[pack.compute_dtype])
+  off = 0
+  for t in segs:
+    x[:, off:off + t.shape[1]].copy_(t)
+    off += t.shape[1]
+  x[:, off:].zero_()
+  return x
+
+
+def _w1024_layers(pack: TrunkPack):
+  """Each layer's (W_l, W_l^T) addresses in the pack's flat layouts and its
+  packed input width K_l."""
+  es, off, out = pack.w.element_size(), 0, []
+  for k in pack.k_dims():
+    out.append((pack.w.data_ptr() + off * es, pack.wt.data_ptr() + off * es,
+                k))
+    off += pack.width * k
+  return out
+
+
+def _w1024_nt(lib, pack: TrunkPack, mode, m, n, a0, lda0, k0, b, ldb, out,
+              a1=None, lda1=0, k1=0, bias=None, act=None, sb=None,
+              stream=None):
+  """One nt product of csrc/trunk_w1024.cu: out [m, n] = epilogue `mode`
+  of [a0 | a1] B^T (addresses and leading dimensions in elements)."""
+  err = lib.refnerf_w1024_nt(int(pack.compute_dtype == 'bfloat16'), mode, m,
+                             n, a0, lda0, k0, a1, lda1, k1, b, ldb, bias, act,
+                             n if act else 0, sb, _ptr(pack.wd), out, n,
+                             stream)
+  _check_launch(err, 'width-1024 product')
+
+
+def _w1024_trunk(lib, pack: TrunkPack, x, rows, acts, stream):
+  """The trunk's layers on `rows` rows of x [., kin]: layer l's activation
+  into acts(l), a [>= rows, width] buffer. Returns the last one's."""
+  W, es = pack.width, pack.b.element_size()
+  h = None
+  for l, (wp, _, k) in enumerate(_w1024_layers(pack)):
+    out = acts(l)
+    if l == 0:
+      a = dict(a0=x.data_ptr(), lda0=pack.kin, k0=pack.kin)
+    else:
+      a = dict(a0=h.data_ptr(), lda0=W, k0=W)
+      if l == pack.skip:
+        a.update(a1=x.data_ptr(), lda1=pack.kin, k1=pack.kin)
+    _w1024_nt(lib, pack, _NT_RELU, rows, W, b=wp, ldb=k, out=out.data_ptr(),
+              bias=pack.b.data_ptr() + l * W * es, stream=stream, **a)
+    h = out
+  return h
+
+
+def _w1024_forward(segs, pack: TrunkPack):
+  """The width-1024 forward (`w1024`, csrc/trunk_w1024.cu): one product
+  a layer, then the bottleneck head's and sigma's f32 dot product. Returns
+  [sigma [n], hc [n, hc]], as trunk_kernel."""
+  from refnerf_tpu_torch.ops import cuda_build  # builds on first use
+  lib = cuda_build.library(W1024_LIBRARY)
+  x = _w1024_input(segs, pack)
+  n, W, dev = int(x.shape[0]), pack.width, x.device
+  hc = int(pack.wc.shape[0])
+  cdt = DTYPES[pack.compute_dtype]
+  sig = torch.empty(n, device=dev)
+  cout = torch.empty(n, hc, device=dev, dtype=cdt)
+  if n:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+      bufs = torch.empty(2, n, W, device=dev, dtype=cdt)
+      y = _w1024_trunk(lib, pack, x, n, lambda l: bufs[l % 2], stream)
+      _w1024_nt(lib, pack, _NT_BIAS, n, hc, y.data_ptr(), W, W,
+                pack.wc.data_ptr(), W, cout.data_ptr(),
+                bias=pack.bc.data_ptr(), stream=stream)
+      err = lib.refnerf_w1024_sigma(int(cdt == torch.bfloat16), n, W,
+                                    y.data_ptr(), pack.wd.data_ptr(),
+                                    sig.data_ptr(), stream)
+      _check_launch(err, 'width-1024 sigma')
+  return [sig, cout]
+
+
+def w1024_splits(m: int, n: int, sms: int) -> int:
+  """The partials the width-1024 backward makes of an m x n weight gradient
+  at most, whatever its rows: as many as give its 128 x 128 tiles about
+  two CTAs an SM of the card's `sms`."""
+  return max(1, -(-2 * sms // ((m // 128) * (n // 128))))
+
+
+def w1024_split(rows: int, m: int, n: int, sms: int) -> int:
+  """Rows per partial of an m x n weight gradient over `rows` rows, in whole
+  32-row slices: at most `w1024_splits` partials, fewer where the rows are
+  few."""
+  return -(-rows // (w1024_splits(m, n, sms) * 32)) * 32
+
+
+def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
+  """The width-1024 first-order backward (`w1024`, csrc/trunk_w1024.cu):
+  per slab of `slab` rows (`bwd_slab_rows`) the activations recomputed, the
+  heads' backward, then per layer downwards the weight gradient's partials
+  and their fixed-order sum, the bias gradient and the reverse product.
+  Returns what trunk_backward_reference does (no dx, u or epilogue)."""
+  from refnerf_tpu_torch.ops import cuda_build  # builds on first use
+  sbar, _, cbar, ubar, *_ = cots
+  if ubar is not None:
+    raise ValueError('the width-1024 backward takes no cotangent of u')
+  lib = cuda_build.library(W1024_LIBRARY)
+  red = cuda_build.library('trunk_bwd').refnerf_reduce
+  cdt = DTYPES[pack.compute_dtype]
+  bf = int(cdt == torch.bfloat16)
+  x = _w1024_input(segs, pack)
+  n, dev = int(x.shape[0]), x.device
+  W, L, kin = pack.width, pack.depth, pack.kin
+  hc = int(pack.wc.shape[0])
+  f32 = lambda *shape: torch.empty(*shape, device=dev)
+  sbar = (torch.zeros(n, device=dev) if sbar is None
+          else sbar.float().reshape(n).contiguous())
+  cbar = (torch.zeros(n, hc, device=dev, dtype=cdt) if cbar is None
+          else cbar.to(cdt).reshape(n, hc).contiguous())
+  fin = sum(pack.seg_dims)
+  k_pack = pack.k_dims()
+  k_out = [fin if l == 0 else W + (fin if l == pack.skip else 0)
+           for l in range(L)]
+  dws = [f32(W, k) for k in k_out]
+  dbs, dwd, dwc, dbc = f32(L, W), f32(1, W), f32(hc, W), f32(hc)
+  slab = max(1, min(slab or bwd_slab_rows(W), n))
+  acts = torch.empty(L, slab, W, device=dev, dtype=cdt)
+  zs = torch.empty(2, slab, W, device=dev, dtype=cdt)
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  # Every slab's partials fit, a short last slab's too (its split may be
+  # finer than a full slab's).
+  grads = [(W, k) for k in k_pack] + [(hc, W)]
+  wpart = f32(max(w1024_splits(m, k, sms) * m * k for m, k in grads))
+  vpart = f32(-(-slab // _W1024_COLSUM_ROWS) * max(W, hc))
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  ptr = lambda t, row, width: t.data_ptr() + row * width * t.element_size()
+
+  def reduce(parts, nparts, rows, k, k_out_, dst, acc):
+    err = red(parts.data_ptr(), nparts, rows, k, k_out_, dst.data_ptr(), acc,
+              stream)
+    _check_launch(err, 'width-1024 reduction')
+
+  def wgrad(dst, m, k, k_dst, rows, z, ldz, x0, ldx0, n0, x1, ldx1, acc):
+    ksplit = w1024_split(rows, m, k, sms)
+    nparts = -(-rows // ksplit)
+    assert nparts * m * k <= wpart.numel(), (rows, m, k, nparts)
+    err = lib.refnerf_w1024_tn(bf, m, k, rows, ksplit, z, ldz, x0, ldx0, n0,
+                               x1, ldx1, wpart.data_ptr(), stream)
+    _check_launch(err, 'width-1024 weight gradient')
+    reduce(wpart, nparts, m, k, k_dst, dst, acc)
+
+  def colsum(dst, rows, v, cols, acc, scale=None):
+    err = lib.refnerf_w1024_colsum(bf, rows, cols, v, cols, scale,
+                                   _W1024_COLSUM_ROWS, vpart.data_ptr(),
+                                   stream)
+    _check_launch(err, 'width-1024 column sum')
+    reduce(vpart, -(-rows // _W1024_COLSUM_ROWS), 1, cols, cols, dst, acc)
+
+  with torch.cuda.device(dev):
+    for start in range(0, n, slab):
+      rows, acc = min(slab, n - start), int(start > 0)
+      xs = x[start:start + rows]
+      y = _w1024_trunk(lib, pack, xs, rows, lambda l: acts[l], stream)
+      cb, sb = ptr(cbar, start, hc), ptr(sbar, start, 1)
+      # The heads' backward: zeta of the last layer, then the heads'
+      # gradients (dwc = cbar^T y, dbc, and dwd from y's column sums scaled
+      # by sigma's cotangent).
+      _w1024_nt(lib, pack, _NT_HEAD_BWD, rows, W, cb, hc, hc,
+                pack.wct.data_ptr(), hc, zs[0].data_ptr(), act=y.data_ptr(),
+                sb=sb, stream=stream)
+      wgrad(dwc, hc, W, W, rows, cb, hc, y.data_ptr(), W, W, None, 0, acc)
+      colsum(dbc, rows, cb, hc, acc)
+      colsum(dwd, rows, y.data_ptr(), W, acc, sb)
+      layers = _w1024_layers(pack)
+      for l in reversed(range(L)):
+        z = zs[(L - 1 - l) % 2]
+        if l == 0:
+          src = (xs.data_ptr(), kin, kin, None, 0)
+        elif l == pack.skip:
+          src = (acts[l - 1].data_ptr(), W, W, xs.data_ptr(), kin)
+        else:
+          src = (acts[l - 1].data_ptr(), W, W, None, 0)
+        wgrad(dws[l], W, k_pack[l], k_out[l], rows, z.data_ptr(), W, *src,
+              acc)
+        colsum(dbs[l], rows, z.data_ptr(), W, acc)
+        if l > 0:
+          _w1024_nt(lib, pack, _NT_REV, rows, W, z.data_ptr(), W, W,
+                    layers[l][1], W, zs[(L - l) % 2].data_ptr(),
+                    act=acts[l - 1].data_ptr(), stream=stream)
+  return (dws, list(dbs.unbind(0)), dwd, None, None, dwc, dbc, None, None,
+          None)
+
+
 def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
                  fold: Optional[torch.Tensor] = None,
                  dir_modes: Optional[DirModes] = None, rgbx=None,
@@ -1307,6 +1575,8 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
   # trunk_fwd_f32.cu (f32) take trunk_fwd.cu's arguments; trunk_fwd_f32.cu
   # reads the head transposed.
   route = forward_library(pack, out_y, fold, sp)
+  if route == W1024_LIBRARY:
+    return _w1024_forward(segs, pack)
   fwd_fn = getattr(_library(route, pack, hc), f'refnerf_{route}')
   head = pack.wct if route == 'trunk_fwd_f32' else pack.wc
   cdt = DTYPES[pack.compute_dtype]
@@ -1412,10 +1682,13 @@ def _from_op_args(segs, w, wt, b, wd, wh, bh, wc, wct, bc, seg_dims, kin,
 
 def launch_keys(which, pack, out_y, fold, dm: DirModes, sp: SpaModes):
   """The `launches` keys that one launch of kernel `which` counts under:
-  its own, its wide-input instance's and each fused mode's."""
+  its own, its wide-input or width-1024 instance's and each fused
+  mode's."""
   keys = [which]
   if which in ('K1', 'K4') and wide_input(pack, out_y, fold, sp):
     keys.append(which + ' wide')
+  if which in ('K1', 'K4') and w1024(pack, out_y, fold, sp):
+    keys.append(which + ' w1024')
   for k, on in (('K6', sp.samples), ('K7', sp.scales), ('K8', dm.ide_deg),
                 ('K9', dm.geo), ('K10', dm.rgbe), ('K11', out_y)):
     if on:
@@ -1540,6 +1813,11 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
   sbar, hbar, cbar, ubar, *wbar = cots
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
   _instance_guard(pack, hc, fold, dm, sp, ybar is not None)
+  if backward_library(pack, ybar is not None, fold) == W1024_LIBRARY:
+    if needs_dx:
+      raise NotImplementedError('the width-1024 backward emits no segment '
+                                'cotangents')
+    return _w1024_backward(segs, pack, cots, slab)
   lib = _library('trunk_bwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
   # By dtype and shape (`backward_library`): trunk_bwd_tma.cu (bf16) and

@@ -17,7 +17,9 @@ FMA/TMA libraries on mip-NeRF 360's 504-column proposal trunk (depth 4 and
 on the two-tile instances of the wgmma/TMA and FMA/TMA libraries and the
 bf16 K11 forward on trunk_fwd_tma.cu, their determinism and their shapes
 past them (trunk_fwd.cu's and trunk_bwd.cu's width-128 instances);
-mip-NeRF with the spatial fuse flags; the
+mip-NeRF with the spatial fuse flags; mip-NeRF 360's width-1024
+spatial trunk (trunk_w1024.cu) in both directions and its slabbed
+backward's determinism; the
 plain layer stack and the shapes without an instance under
 fused_trunk='auto'; the host data path (the ray cast on the card against the
 CPU's, the flagship trained from prefetched batches, sampled on the step's
@@ -2005,3 +2007,69 @@ def test_remat_on_the_card_is_bit_for_bit_and_reruns_the_forwards(dev):
   assert n0 == {k: 2 * 2 * SIX_PER_STEP.get(k, 0) for k in n0}
   assert n1 == {k: v + 2 * fwd[k] for k, v in n0.items()}
   assert fwd['K3'] == fwd['K2'] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n', [1000, 4097, 534])
+def test_w1024_trunk_matches_plain(dev, cdt, n):
+  # mip-NeRF 360's NeRF MLP trunk (8 x 1024, the skip at layer 5, the IPE
+  # of 21 basis vectors x 12 degrees: 504 columns, the density head and
+  # the 256-wide bottleneck) through fused_encoded_trunk under 'on' at n
+  # rows (1000; 4097, whose last 128-row tile holds one row; 534, whose
+  # last slab of 150 rows makes more weight-gradient partials than a full
+  # slab of 384), on trunk_w1024.cu: sigma and the bottleneck by
+  # BOUND and every gradient by GRAD_BOUND against the plain versions; one
+  # launch each counted under 'K1 w1024' / 'K4 w1024'; the backward in
+  # slabs of 384 rows bit-identical run to run and within GRAD_BOUND of one
+  # slab.
+  gen = torch.Generator().manual_seed(24)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  scales = 2.0**np.arange(0, 12)
+  lm = torch.rand(n, 21, generator=gen).to(dev) * 3 - 1.5
+  lv = 10.0**(torch.rand(n, 21, generator=gen).to(dev) * 4 - 6)
+  skips = fused_mlp.skip_input_layers(8, 4)
+  ks = [504 if l == 0 else 1024 + (504 if l in skips else 0) for l in range(8)]
+  params = ([rand(1024, k) * math.sqrt(2 / k) for k in ks] +
+            [rand(1024) * 0.05 for _ in range(8)] +
+            [rand(1, 1024) / 32, rand(1) * 0.1, rand(256, 1024) / 32,
+             rand(256) * 0.1])
+  params = [p.requires_grad_(True) for p in params]
+  ws, bs = params[:8], params[8:16]
+  wd, bd, wc, bc = params[16:20]
+  outs = {}
+  weights = [rand(n), rand(n, 256)]
+  for mode in ('on', 'off'):
+    before = dict(fused_mlp.launches)
+    res = fused_mlp.fused_encoded_trunk(
+        lm, lv, scales, ws, bs, wd, bd, head_cdt=(wc, bc), compute_dtype=cdt,
+        mode=mode)
+    loss = sum((r.float() * w).sum() for r, w in zip(res, weights))
+    grads = torch.autograd.grad(loss, params)
+    moved = {k: v - before[k] for k, v in fused_mlp.launches.items() if
+             v != before[k]}
+    outs[mode] = (res, grads, moved)
+  (res, grads, moved), (pres, pgrads, pmoved) = outs['on'], outs['off']
+  assert moved == {'K1': 1, 'K1 w1024': 1, 'K4': 1, 'K4 w1024': 1}
+  assert pmoved == {}
+  for r, p in zip(res, pres):
+    scale = max(1.0, p.float().abs().max().item())
+    assert (r.float() - p.float()).abs().max().item() <= BOUND[cdt] * scale
+  for g, p in zip(grads, pgrads):
+    assert ((g - p).norm() / p.norm()).item() <= GRAD_BOUND[cdt]
+  # The backward in slabs: run to run bit-identical, within GRAD_BOUND of
+  # one slab.
+  f = lm.shape[-1] * len(scales)
+  pack = fused_mlp.pack_trunk(ws, bs, (f, f), wd=wd, head_cdt=(wc, bc),
+                              compute_dtype=cdt)
+  segs = list(fused_mlp.encode_ipe(lm, lv, scales, cdt))
+  cots = (rand(n), None, rand(n, 256).to(fused_mlp.DTYPES[cdt]), None)
+  with torch.no_grad():
+    flat = lambda r: [t for x in r[:7] if x is not None
+                      for t in (x if isinstance(x, list) else [x])]
+    a = flat(fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=384))
+    b = flat(fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=384))
+    one = flat(fused_mlp.trunk_backward_kernel(segs, pack, cots))
+  assert all(torch.equal(x, y) for x, y in zip(a, b))
+  for x, y in zip(a, one):
+    assert ((x - y).norm() / y.norm()).item() <= GRAD_BOUND[cdt]

@@ -366,11 +366,12 @@ def test_backward_scratch_rows_round_to_the_cta(route, width, rows, cta, rp):
   assert fused_mlp.bwd_scratch_rows(route, width, rows) == rp
 
 
-@pytest.mark.parametrize('width,rows', [(256, 65536), (128, 262144)])
+@pytest.mark.parametrize('width,rows', [(256, 65536), (128, 262144),
+                                        (1024, 131072)])
 def test_backward_slab_rows(width, rows):
   # A backward slab's default rows: BWD_SLAB at width 256, four times that
-  # at 128 (N = 524,288 samples in two slabs, not eight); a whole number of
-  # 128-row CTAs either way.
+  # at 128 (N = 524,288 samples in two slabs, not eight), twice that at
+  # 1024 (four slabs); a whole number of 128-row CTAs either way.
   assert fused_mlp.bwd_slab_rows(width) == rows
   assert rows % 128 == 0 and rows >= fused_mlp.BWD_SLAB
 
