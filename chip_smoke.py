@@ -15,7 +15,9 @@ Phases, each printed on its own line:
      no mma.sync (HMMA) in its SASS, and that every kernel of the f32
      width-256 forward and backward (csrc/trunk_fwd_f32.cu,
      csrc/trunk_bwd_f32.cu) holds FFMA and UTMALDG and no tensor-core
-     product (HMMA, HGMMA: no TF32);
+     product (HMMA, HGMMA: no TF32); of the width-1024 library
+     (csrc/trunk_w1024.cu), each bf16 product HGMMA and UTMALDG and no
+     HMMA, each f32 product FFMA and no HMMA or HGMMA;
   3. hold each trunk kernel (K1 spatial, K2 directional) against its plain
      PyTorch version at the serving shape N = 4096 rays x 128 samples, in
      float32 and bfloat16, and time both (the wgmma/TMA forward in bf16, the
@@ -263,7 +265,9 @@ Phases, each printed on its own line:
      trunk's width-1024 pair (trunk_w1024.cu) against the plain versions at
      131,072 and 524,288 rows in bf16 and f32 (routes asserted, reruns
      bit-identical, two planted faults above the bounds; its SASS checked in
-     phase 2), its 283-column directional pair timed; then 3 steps at batch
+     phase 2), in bf16 with the PyTorch chain of the same function timed in
+     turns as its yardstick (`w1024_chain`: the kernels line's library_ms),
+     its 283-column directional pair timed; then 3 steps at batch
      16,384 in each dtype under 'on' (launches a step asserted, median ms,
      peak memory), one step against 'off', a bf16 step profiled, 'on' and
      'off' in turns, and a 4096-ray request against 'off' (spread_l2 within
@@ -275,7 +279,8 @@ launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
-the fused stages' f32 work overlaps bf16 tensor work).
+the fused stages' f32 work overlaps bf16 tensor work); its library_ms is
+null but for the bf16 width-1024 pair's (phase 24's PyTorch chain).
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
 """
@@ -506,11 +511,14 @@ def bound(cdt, flops, nbytes_moved, f32_flops=0):
 
 
 def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
-            flops=0, f32_flops=0, weights=None, y=None, n=N_SAMPLES):
+            flops=0, f32_flops=0, weights=None, y=None, n=N_SAMPLES,
+            library=None):
   """Run kernel() and plain() once and compare every output (see errors());
-  then time both in turns. Returns a dict: max_abs_err, ms, plain_ms, and
-  the bound from `flops` (in the compute dtype), `f32_flops` and the bytes
-  of `inputs` and of the kernel's outputs."""
+  then time both in turns, and `library` (a PyTorch chain of the same
+  function, the yardstick: never called by the port) between them where
+  given. Returns a dict: max_abs_err, ms, plain_ms, library_ms (None
+  without `library`), and the bound from `flops` (in the compute dtype),
+  `f32_flops` and the bytes of `inputs` and of the kernel's outputs."""
   with torch.no_grad():
     got, want = flatten(kernel()), flatten(plain())
     torch.cuda.synchronize()
@@ -518,6 +526,10 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
     moved = nbytes(list(inputs) + got)
     del got, want
     p1, k1 = cuda_ms(plain, iters), cuda_ms(kernel, iters)
+  lib_ms = None
+  if library is not None:  # its backward is autograd's: outside no_grad
+    lib_ms = (cuda_ms(library, iters) + cuda_ms(library, iters)) / 2
+  with torch.no_grad():
     k2, p2 = cuda_ms(kernel, iters), cuda_ms(plain, iters)
   ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
   err, worst = max(r[0] for r in rows), max(r[3] for r in rows)
@@ -530,13 +542,15 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   log(f'phase {phase}: {which} {cdt} N={n}: max_abs_err {err:.3e} '
       f'({worst:.3f} of its bound), kernel {ms:.3f} ms, plain '
       f'{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; '
-      f'{moved / 1e6:.1f} MB); per output (relative to max|plain|, relative '
+      f'{moved / 1e6:.1f} MB)' +
+      (f', library {lib_ms:.3f} ms' if lib_ms is not None else '') +
+      f'; per output (relative to max|plain|, relative '
       f'L2, {kinds}): {detail}')
   if not worst <= 1.0:
     raise AssertionError(f'{which} {cdt}: an output is {worst:.3f} times '
                          'its bound')
   return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by)
+              bound_by=bound_by, library_ms=lib_ms)
 
 
 def pack_tensors(pack):
@@ -586,31 +600,34 @@ def check_sass(lib, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
 
 def check_w1024_sass(lib):
   """Phase 2: the width-1024 library's products hold the instructions of
-  their route, or this fails: each bf16 product (nt_bf16, tn_bf16)
-  mma.sync's HMMA and no wgmma (HGMMA), each f32 one (nt_f32, tn_f32)
-  FFMA and no tensor-core product (HMMA, HGMMA). Their other kernels
-  (sigma, column sums) are logged."""
+  their route, or this fails: each bf16 product (nt_wgmma, tn_wgmma)
+  wgmma's HGMMA and TMA loads (UTMALDG) and no mma.sync (HMMA), each f32
+  one (nt_f32, tn_f32) FFMA and no tensor-core product (HMMA, HGMMA).
+  Their other kernels (sigma, column sums) are logged."""
   tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
   sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                         text=True, check=True, timeout=300).stdout
-  products = 0
+  products = set()
   for block in re.split(r'\n\s*Function : ', sass)[1:]:
     name = block.split('\n', 1)[0]
     counts = {op: len(re.findall(rf'\b{op}\b', block))
-              for op in ('HMMA', 'HGMMA', 'FFMA', 'LDSM')}
+              for op in ('HMMA', 'HGMMA', 'UTMALDG', 'UTMASTG', 'FFMA')}
     log(f'phase 2: SASS {name}: ' + ', '.join(
         f'{op} {k}' for op, k in counts.items()))
-    if re.search(r'(nt|tn)_bf16_kernel', name):
-      ok = counts['HMMA'] and not counts['HGMMA']
-    elif re.search(r'(nt|tn)_f32_kernel', name):
-      ok = counts['FFMA'] and not (counts['HMMA'] or counts['HGMMA'])
-    else:
+    kind = re.search(r'(nt|tn)_(wgmma|f32)_kernel', name)
+    if kind is None:
       continue
-    products += 1
+    if kind.group(2) == 'wgmma':
+      ok = counts['HGMMA'] and counts['UTMALDG'] and not counts['HMMA']
+    else:
+      ok = counts['FFMA'] and not (counts['HMMA'] or counts['HGMMA'])
+    products.add(kind.group(0))
     if not ok:
       raise AssertionError(f'{name}: its SASS holds {counts}')
-  if not products:
-    raise AssertionError(f'{lib}: no product kernel in its SASS')
+  want = {f'{d}_{r}_kernel' for d in ('nt', 'tn') for r in ('wgmma', 'f32')}
+  if products != want:
+    raise AssertionError(f'{lib}: product kernels {sorted(products)} in its '
+                         f'SASS, expected {sorted(want)}')
 
 
 def check_kernels(fused_mlp, dev):
@@ -4337,6 +4354,40 @@ def w1024_case(fused_mlp, gen, dev, n):
   return segs, ws, bs, kw, (rand(n), None, rand(n, 256), None)
 
 
+def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None):
+  """The yardstick of the width-1024 pair (`library_ms`), the nearest chain
+  of PyTorch calls at the same shapes in `cdt`: eight
+  torch.nn.functional.linear + relu layers (the skip layer on the
+  concatenated input), the bottleneck head, and sigma as the f32 dot of y
+  with the density head; with `cots` (sigma's and the bottleneck's
+  cotangents) autograd of that chain, its forward included (the kernel's
+  backward recomputes its own). Returns a function of no arguments; the
+  port never calls it."""
+  F = torch.nn.functional
+  dt = fused_mlp.DTYPES[cdt]
+  grad = cots is not None
+  x = torch.cat(cs, -1).to(dt)
+  params = ([w.detach().to(dt) for w in ws] + [b.detach().to(dt) for b in bs]
+            + [kw['wd'].detach().float()] +
+            [t.detach().to(dt) for t in kw['head_cdt']])
+  params = [t.requires_grad_(grad) for t in params]
+  skips = fused_mlp.skip_input_layers(len(ws), kw['skip_period'])
+  if grad:
+    sbar, cbar = cots[0].float().reshape(-1, 1), cots[2].to(dt)
+
+  def run():
+    h = x
+    for l in range(len(ws)):
+      h = F.relu(F.linear(torch.cat([h, x], -1) if l in skips else h,
+                          params[l], params[len(ws) + l]))
+    sigma = h.float() @ params[-3].t()
+    c = F.linear(h, params[-2], params[-1])
+    if not grad:
+      return sigma, c
+    return torch.autograd.grad((sigma, c), params, (sbar, cbar))
+  return run
+
+
 def w1024_faults(fused_mlp, cs, ws, bs, kw, cots, cdt):
   """What two planted faults of the width-1024 pair would read on the plain
   versions, as `errors` reads the kernels (share of KERNEL_BOUND on the
@@ -4408,16 +4459,21 @@ def check_w1024_kernels(fused_mlp, dev):
       kernel = lambda: fused_mlp.trunk_kernel(xs, pack)
       plain = lambda: fused_mlp.trunk_reference(xs, ws, bs, compute_dtype=cdt,
                                                 **kw)
+      lib = (w1024_chain(fused_mlp, xs, ws, bs, kw, cdt)
+             if cdt == 'bfloat16' else None)
       f = compare('K1 W1024 hc256', cdt, kernel, plain, n_values=2,
                   phase=24, iters=3, inputs=xs + pack_tensors(pack), n=n,
-                  flops=trunk_flops(ws, n, 257))
+                  flops=trunk_flops(ws, n, 257), library=lib)
       deterministic('K1 W1024 hc256', kernel, phase=24, cdt=cdt)
       kernel = lambda: fused_mlp.trunk_backward_kernel(xs, pack, cn)
       plain = lambda: fused_mlp.trunk_backward_reference(
           xs, ws, bs, cn, compute_dtype=cdt, **kw)
+      lib = (w1024_chain(fused_mlp, xs, ws, bs, kw, cdt, cn)
+             if cdt == 'bfloat16' else None)
       b = compare('K4 1st W1024', cdt, kernel, plain, n_values=0, iters=2,
                   phase=24, inputs=xs + pack_tensors(pack) + list(cn), n=n,
-                  flops=trunk_flops(ws, n, 257, backward=True))
+                  flops=trunk_flops(ws, n, 257, backward=True), library=lib)
+      del lib
       deterministic('K4 1st W1024', kernel, phase=24, cdt=cdt)
       runs[n] = (f, b)
       del xs, cn
@@ -4973,7 +5029,7 @@ def main():
         'replaces': f'{pallas}:{at}', 'launches': m360_path['bfloat16'][key],
         'max_abs_err': b16['max_abs_err'], 'ms': b16['ms'],
         'plain_ms': b16['plain_ms'], 'bound_ms': b16['bound_ms'],
-        'bound_by': b16['bound_by'], 'library_ms': None,
+        'bound_by': b16['bound_by'], 'library_ms': b16.get('library_ms'),
         'dtype': 'bfloat16', 'n_samples': N_SAMPLES,
         **{'f32_' + k: f32[k] for k in keys},
         'f32_train_launches': m360_path['float32'][key],

@@ -14,14 +14,31 @@
 // forward at 524,288 rows.
 //
 // Products (C = A B^T over K, "nt": both operands K-contiguous; and the
-// weight gradients' C = Z^T X over rows, "tn": both operands row-major):
-// 128 x 128 output tiles, 256 threads (8 warps, 2 along rows x 4 along
-// columns). bf16: mma.sync m16n8k16 with f32 accumulation, operands
-// streamed through a 4-stage cp.async ring of 32-deep slices and read with
-// ldmatrix (.trans for the tn product's row-major operands). f32: full f32
-// on the FMA pipes (no TF32), 8 x 8 outputs a thread, 16-deep slices
-// double-buffered. An operand may come in two K segments (the skip layer's
-// [activation | input], the weight gradient's [h | x]): never concatenated.
+// weight gradients' C = Z^T X over rows, "tn": both operands row-major). An
+// operand may come in two K segments (the skip layer's [activation |
+// input], the weight gradient's [h | x]): never concatenated.
+//
+// bf16 (nt_wgmma_kernel, tn_wgmma_kernel): persistent, one CTA an SM
+// walking 128 x 256 output tiles, warp-specialised: a producer warpgroup
+// (setmaxnreg down to 40 registers) whose one thread keeps TMA loads of
+// 64-deep slices (128-byte swizzle, zeros past the rows) in flight into a
+// ring of mbarrier-guarded stages, and two consumer warpgroups (up to 232
+// registers) that run wgmma m64n256k16 on 64 rows each, f32 accumulation.
+// A 256-wide tile reads the [rows, 1024] input 4 times a layer (the
+// bottleneck head once); the tiles run row strip by row strip, the four
+// column blocks of a strip side by side, so a strip (256 KB) is read from
+// device memory about once and from L2 after. The nt epilogue writes the
+// tile in bf16 into a 64 KB swizzled staging tile that a second producer
+// thread stores by TMA (rows past the end are not stored) while the
+// consumers run the next tile's products; kRev and kHeadBwd find their
+// relu' source there, brought in by TMA before the epilogue begins. The tn
+// product takes both operands MN-major (transposed) from row-major tiles,
+// over a fixed split of the rows into partials; the CTAs of the first
+// column block also sum the zeta tile they hold in shared memory into the
+// bias gradient's per-partial row, so no kernel reads zeta a second time.
+// f32 (nt_f32_kernel, tn_f32_kernel): full f32 on the FMA pipes (no TF32),
+// 128 x 128 tiles of 256 threads, 8 x 8 outputs a thread, 16-deep slices
+// double-buffered.
 //
 // Epilogues (nt), each element in the Pallas order of casts:
 //   kRelu   h = relu(cdt(cdt(acc) + cdt(bias)))       a trunk layer
@@ -42,41 +59,56 @@
 // activations), the heads' backward (kHeadBwd: zeta of the last layer from
 // the bottleneck's and sigma's cotangents), and layer by layer downwards
 // the weight gradient dW_l = zeta_l^T [h_{l-1} | x] (the tn product, split
-// over rows into partials), the bias gradient (column sums) and zeta_{l-1}
-// (kRev). Every sum over rows is a fixed-order sum of per-CTA partials
-// (trunk_bwd.cu's `refnerf_reduce`, no atomics), so a gradient does not
-// depend on the schedule and a resumed run stays bit for bit. Bounded by
-// the products' operations: 25.8 TFLOP at 524,288 rows (recomputation not
-// counted), 26.1 ms in bf16, 385 ms in f32.
+// over rows into partials; in bf16 with the bias gradient's partials), in
+// f32 the bias gradient (column sums), and zeta_{l-1} (kRev). Every sum
+// over rows is a fixed-order sum of per-CTA partials (trunk_bwd.cu's
+// `refnerf_reduce`, no atomics), so a gradient does not depend on the
+// schedule and a resumed run stays bit for bit. Bounded by the products'
+// operations: 25.8 TFLOP at 524,288 rows (recomputation not counted), 26.1
+// ms in bf16, 385 ms in f32.
 //
 // The wrappers (ops/fused_mlp.py `_w1024_forward`, `_w1024_backward`)
 // allocate every buffer and sequence the launches on PyTorch's current
 // stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <string.h>
+
+#include "hopper_tma.cuh"
 
 namespace w1024 {
 
 using bf16 = __nv_bfloat16;
 
+// f32: 128 x 128 output tiles, 256 threads (thread (ty, tx) of 16 x 16).
 constexpr int kBM = 128;       // output rows a CTA
 constexpr int kBN = 128;       // output columns a CTA
-constexpr int kThreads = 256;  // 8 warps: 2 along rows x 4 along columns
-// bf16: 32-deep slices in a 4-stage ring, rows padded by 16 bytes (ldmatrix
-// without bank conflicts).
-constexpr int kBK = 32;
-constexpr int kStages = 4;
-constexpr int kLdK = kBK + 8;  // [row][k] tiles of the nt product
-constexpr int kLdM = kBM + 8;  // [k][row] tiles of the tn product
+constexpr int kThreads = 256;
+constexpr int kBK = 32;        // the K segments' granule (f32)
 // f32: 16-deep slices, two buffers, [k][row] tiles padded by 16 bytes.
 constexpr int kFK = 16;
 constexpr int kFLd = kBM + 4;
 
-// Dynamic shared memory of each product (fused_mlp.kernel_smem mirrors it).
-constexpr int kNtSmemBf16 = kStages * (kBM + kBN) * kLdK * 2;   // 81,920 B
-constexpr int kTnSmemBf16 = kStages * 2 * kBK * kLdM * 2;       // 69,632 B
+// bf16: 128 x 256 output tiles (64 rows a consumer warpgroup), 64-deep
+// slices of 128-byte-swizzled rows: [128][64] of A (or of Z^T's two
+// [64][64] boxes) and [256][64] of B (X^T's four boxes) a stage.
+constexpr int kWgThreads = 384;  // a producer warpgroup, two consumer warpgroups
+constexpr int kTM = 128;
+constexpr int kTN = 256;
+constexpr int kOpA = kTM * 128;        // 16,384 B
+constexpr int kStage = kOpA + kTN * 128;  // 49,152 B
+constexpr int kNtStages = 3;
+constexpr int kTnStages = 4;
+constexpr int kOut = kTM * kTN * 2;    // the nt staging tile, 65,536 B
+constexpr int kOutBox = kTM * 128;     // one [128][64] box of it
+constexpr int kZBox = 64 * 128;        // a [64 rows][64 features] box
+constexpr int kProdRegs = 40;   // registers a producer thread keeps
+constexpr int kConsRegs = 232;  // and a consumer thread may take
+
+// Dynamic shared memory of each product (fused_mlp.kernel_smem mirrors it):
+// 1 KB to align the swizzled tiles, the ring, (nt) the staging tile, the
+// mbarriers, (tn) the bias sums' two halves.
+constexpr int kNtSmem = 1024 + kNtStages * kStage + kOut + 8 * (2 * kNtStages + 2);  // 214,080 B
+constexpr int kTnSmem = 1024 + kTnStages * kStage + 8 * 2 * kTnStages + 2 * kTM * 4;  // 198,720 B
 constexpr int kSmemF32 = 2 * 2 * kFK * kFLd * 4;                // 33,792 B
 
 enum Epi { kRelu = 0, kRev = 1, kHeadBwd = 2, kBias = 3 };
@@ -95,9 +127,6 @@ template <typename T> __device__ __forceinline__ void store2(T* dst, float a, fl
 template <> __device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
-template <> __device__ __forceinline__ void store2<bf16>(bf16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
 
 // A 16-byte copy into shared memory; zeros where `valid` is false (rows past
 // the end: they add nothing to a sum over rows).
@@ -109,27 +138,6 @@ __device__ __forceinline__ void cp16(void* smem, const void* gmem, bool valid) {
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -168,96 +176,6 @@ __device__ __forceinline__ float epilogue(const NtParams& p, int row, int col, f
   if (MODE == kHeadBwd) g = rnd<T>(g + rnd<T>(p.sb ? p.sb[row] * p.wd[col] : 0.f));
   const T h = static_cast<const T*>(p.act)[static_cast<size_t>(row) * p.ld_act + col];
   return to_f(h) > 0.f ? g : 0.f;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads, 2) nt_bf16_kernel(NtParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);   // [kStages][kBM][kLdK]
-  bf16* sB = sA + kStages * kBM * kLdK;       // [kStages][kBN][kLdK]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int ktiles = (p.k0 + p.k1) / kBK;
-  const bf16* B = static_cast<const bf16*>(p.b);
-
-  auto load = [&](int stage, int kt) {
-    const int kk = kt * kBK;
-    const bool first = kk < p.k0;
-    const bf16* a = static_cast<const bf16*>(first ? p.a0 : p.a1);
-    const int lda = first ? p.lda0 : p.lda1, ka = first ? kk : kk - p.k0;
-    bf16* dA = sA + stage * kBM * kLdK;
-    bf16* dB = sB + stage * kBN * kLdK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads, r = c >> 2, ch = (c & 3) * 8;
-      const int row = m0 + r;
-      const bool ok = row < p.M;
-      cp16(dA + r * kLdK + ch, a + static_cast<size_t>(ok ? row : 0) * lda + ka + ch, ok);
-      cp16(dB + r * kLdK + ch, B + static_cast<size_t>(n0 + r) * p.ldb + kk + ch, true);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    cp_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_wait<kStages - 2>();
-    __syncthreads();
-    if (kt + kStages - 1 < ktiles) load((kt + kStages - 1) % kStages, kt + kStages - 1);
-    cp_commit();
-    const bf16* tA = sA + (kt % kStages) * kBM * kLdK;
-    const bf16* tB = sB + (kt % kStages) * kBN * kLdK;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldm_x4(af[mt], tA + (wm * 64 + mt * 16 + (lane & 15)) * kLdK + ks + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        const int j = lane >> 3;
-        ldm_x4(r, tB + (wn * 32 + np * 16 + (lane & 7) + (j >> 1) * 8) * kLdK + ks + (j & 1) * 8);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
-    }
-  }
-  cp_wait<0>();
-
-  const int g = lane >> 2, t = lane & 3;
-  bf16* out = static_cast<bf16*>(p.out);
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mt * 16 + g + 8 * h;
-      if (row >= p.M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-        const float v0 = epilogue<bf16, MODE>(p, row, col, acc[mt][nt][2 * h]);
-        const float v1 = epilogue<bf16, MODE>(p, row, col + 1, acc[mt][nt][2 * h + 1]);
-        store2<bf16>(out + static_cast<size_t>(row) * p.ldo + col, v0, v1);
-      }
-    }
 }
 
 // The f32 nt product: A and B K-contiguous in device memory, transposed into
@@ -353,23 +271,16 @@ __global__ void __launch_bounds__(kThreads, 2) nt_f32_kernel(NtParams p) {
 }
 
 template <int MODE>
-inline int launch_nt_mode(int bf, const NtParams& p, cudaStream_t s) {
+inline int launch_nt_mode(const NtParams& p, cudaStream_t s) {
   const dim3 grid((p.M + kBM - 1) / kBM, p.N / kBN);
-  if (bf) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        nt_bf16_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, kNtSmemBf16);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    nt_bf16_kernel<MODE><<<grid, kThreads, kNtSmemBf16, s>>>(p);
-  } else {
-    nt_f32_kernel<MODE><<<grid, kThreads, 0, s>>>(p);
-  }
+  nt_f32_kernel<MODE><<<grid, kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks the shapes the products take: N a multiple of 128, each K segment
-// of 32 (a slice never straddles two), 16-byte aligned rows.
-inline int launch_nt(int bf, int mode, const NtParams& p, cudaStream_t s) {
-  const int vec = bf ? 8 : 4;
+// Checks the shapes the f32 products take: N a multiple of 128, each K
+// segment of 32 (a slice never straddles two), 16-byte aligned rows.
+inline int launch_nt(int mode, const NtParams& p, cudaStream_t s) {
+  const int vec = 4;
   if (p.M <= 0 || p.N <= 0 || p.N % kBN || p.k0 < 0 || p.k1 < 0 || p.k0 % kBK || p.k1 % kBK ||
       p.k0 + p.k1 <= 0 || (p.k1 && !p.a1) || !p.a0 || !p.b || !p.out || p.lda0 % vec ||
       (p.k1 && p.lda1 % vec) || p.ldb % vec || p.ldo % 2 ||
@@ -378,12 +289,392 @@ inline int launch_nt(int bf, int mode, const NtParams& p, cudaStream_t s) {
       (mode == kHeadBwd && p.sb && !p.wd))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case kRelu: return launch_nt_mode<kRelu>(bf, p, s);
-    case kRev: return launch_nt_mode<kRev>(bf, p, s);
-    case kHeadBwd: return launch_nt_mode<kHeadBwd>(bf, p, s);
-    case kBias: return launch_nt_mode<kBias>(bf, p, s);
+    case kRelu: return launch_nt_mode<kRelu>(p, s);
+    case kRev: return launch_nt_mode<kRev>(p, s);
+    case kHeadBwd: return launch_nt_mode<kHeadBwd>(p, s);
+    case kBias: return launch_nt_mode<kBias>(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------ bf16: wgmma fed by TMA
+
+// Byte offset of element (r, c) of the [128][256] staging tile: four
+// [128][64] boxes, each 128-byte swizzled as TMA writes and reads it.
+__device__ __forceinline__ uint32_t out_off(int r, int c) {
+  return static_cast<uint32_t>((c >> 6) * kOutBox + r * 128 +
+                               ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1));
+}
+
+struct NtMaps {
+  CUtensorMap a0, a1, b, act, out;  // boxes [128][64], b's [256][64]
+};
+
+struct NtTma {
+  int M, nk0, nk, tiles_n, tiles;  // K-slices of a0, of both; column blocks; tiles
+  const bf16* bias;                // [N] (kRelu, kBias)
+  const float* sb;                 // [M] sigma's cotangent (kHeadBwd), or null
+  const float* wd;                 // [N] the density head (kHeadBwd)
+};
+
+// C [M][N] = epilogue(A [M][k0 + k1] B [N][k0 + k1]^T), tile t of the
+// grid's walk at rows 128 (t / tiles_n), columns 256 (t % tiles_n).
+// Threads 0-127: the producer warpgroup (thread 0 the operand ring, thread
+// 32 the staging tile: the previous tile's TMA store, then this tile's
+// relu' source or a bare arrival on `ready`); 128-383: the consumers.
+template <int MODE>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    nt_wgmma_kernel(const __grid_constant__ NtTma p, const __grid_constant__ NtMaps m) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* out = smem + kNtStages * kStage;
+  const uint32_t full = smem_u32(out + kOut), empty = full + 8 * kNtStages;
+  const uint32_t ready = empty + 8 * kNtStages, done = ready + 8;
+  constexpr bool kAct = MODE == kRev || MODE == kHeadBwd;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kNtStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kCons / 32);
+    }
+    mbar_init(ready, 1);
+    mbar_init(done, kCons / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    reg_dealloc<kProdRegs>();
+    if (tid == 0) {
+      Ring r{smem_u32(smem), full, empty, kNtStages, 0, 0u};
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        const int m0 = (t / p.tiles_n) * kTM, n0 = (t % p.tiles_n) * kTN;
+        for (int kb = 0; kb < p.nk; ++kb) {
+          mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1u);
+          const uint32_t f = r.full + 8 * r.stage, dst = r.base + r.stage * kStage;
+          mbar_expect_tx(f, kStage);
+          if (kb < p.nk0)
+            tma_load(dst, &m.a0, f, kb * 64, m0);
+          else
+            tma_load(dst, &m.a1, f, (kb - p.nk0) * 64, m0);
+          tma_load(dst + kOpA, &m.b, f, kb * 64, n0);
+          r.advance();
+        }
+      }
+    } else if (tid == 32) {
+      const uint32_t o = smem_u32(out);
+      int it = 0, pm = 0, pn = 0;
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x, ++it) {
+        const int m0 = (t / p.tiles_n) * kTM, n0 = (t % p.tiles_n) * kTN;
+        if (it > 0) {
+          mbar_wait(done, (it - 1) & 1);
+          for (int q = 0; q < kTN / 64; ++q) tma_store(&m.out, o + q * kOutBox, pn + 64 * q, pm);
+          bulk_commit();
+          bulk_wait_read();
+        }
+        if (kAct) {
+          mbar_expect_tx(ready, kOut);
+          for (int q = 0; q < kTN / 64; ++q)
+            tma_load(o + q * kOutBox, &m.act, ready, n0 + 64 * q, m0);
+        } else {
+          mbar_arrive(ready);
+        }
+        pm = m0;
+        pn = n0;
+      }
+      mbar_wait(done, (it - 1) & 1);
+      for (int q = 0; q < kTN / 64; ++q) tma_store(&m.out, o + q * kOutBox, pn + 64 * q, pm);
+      bulk_commit();
+      bulk_wait();
+    }
+    return;
+  }
+
+  reg_alloc<kConsRegs>();
+  const int ctid = tid - 128, cw = ctid >> 7, cwarp = (ctid >> 5) & 3;
+  Ring r{smem_u32(smem), full, empty, kNtStages, 0, 0u};
+  float acc[128];
+  int it = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x, ++it) {
+    const int m0 = (t / p.tiles_n) * kTM, n0 = (t % p.tiles_n) * kTN;
+    int prev = 0;
+    wg_fence();
+    for (int kb = 0; kb < p.nk; ++kb) {
+      mbar_wait(r.full + 8 * r.stage, r.phase);
+      const uint32_t a = r.base + r.stage * kStage + cw * (kOpA / 2);
+      const uint32_t b = r.base + r.stage * kStage + kOpA;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma256<0, 0>(acc, sw128_desc(a + 32 * kk, 16, 1024), sw128_desc(b + 32 * kk, 16, 1024),
+                       kb | kk);
+      wg_commit();
+      if (kb > 0) {
+        wg_wait<1>();
+        if (lane == 0) mbar_arrive(r.empty + 8 * prev);
+      }
+      prev = r.stage;
+      r.advance();
+    }
+    wg_wait<0>();
+    if (lane == 0) mbar_arrive(r.empty + 8 * prev);
+    acc_fence256(acc);
+
+    // The epilogue, in place in the staging tile (which holds the relu'
+    // source in kRev and kHeadBwd): acc[4 j + 2 h + e] is row rl + 8 h,
+    // column 8 j + 2 (lane % 4) + e of the tile.
+    mbar_wait(ready, it & 1);
+    const int rl = 64 * cw + 16 * cwarp + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < kTN / 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      float b0 = 0.f, b1 = 0.f, w0 = 0.f, w1 = 0.f;
+      if (MODE == kRelu || MODE == kBias) {
+        b0 = to_f(p.bias[n0 + c]);
+        b1 = to_f(p.bias[n0 + c + 1]);
+      }
+      if (MODE == kHeadBwd && p.sb) {
+        w0 = p.wd[n0 + c];
+        w1 = p.wd[n0 + c + 1];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = rl + 8 * h;
+        __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(out + out_off(rr, c));
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (MODE == kRelu || MODE == kBias) {
+          v0 = rnd<bf16>(rnd<bf16>(v0) + b0);
+          v1 = rnd<bf16>(rnd<bf16>(v1) + b1);
+          if (MODE == kRelu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+        } else {
+          float g0 = rnd<bf16>(v0), g1 = rnd<bf16>(v1);
+          if (MODE == kHeadBwd) {
+            const float sr = p.sb && m0 + rr < p.M ? p.sb[m0 + rr] : 0.f;
+            g0 = rnd<bf16>(g0 + rnd<bf16>(p.sb ? sr * w0 : 0.f));
+            g1 = rnd<bf16>(g1 + rnd<bf16>(p.sb ? sr * w1 : 0.f));
+          }
+          const float2 hv = __bfloat1622float2(*slot);
+          v0 = hv.x > 0.f ? g0 : 0.f;
+          v1 = hv.y > 0.f ? g1 : 0.f;
+        }
+        *slot = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done);
+  }
+}
+
+struct TnMaps {
+  CUtensorMap z, x0, x1;  // boxes [64 rows][64 features]
+};
+
+struct TnTma {
+  int Mo, No, n0, rows, ksplit, tiles_m, tiles, units;
+  float* part;   // [splits][Mo][No]
+  float* bpart;  // [splits][Mo]: the column sums of Z, or null
+};
+
+// part[split][m][n] = sum over the split's rows i of z[i][m] x[i][n]: unit
+// u of the grid's walk is tile u % tiles (rows 128 (tile % tiles_m) of the
+// gradient, columns 256 (tile / tiles_m)) of split u / tiles. X's columns
+// [0, n0) come from x0, the rest from x1 (the skip layer's [h | x]). With
+// bpart the units of the first column block also write bpart[split][m] =
+// the sum of z[i][m] over the split's rows, from the Z tiles of the ring:
+// consumer thread c sums column c % 128 over rows 32 (c / 128) to
+// 32 (c / 128) + 31 of each slice, and the two halves add in that order.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    tn_wgmma_kernel(const __grid_constant__ TnTma p, const __grid_constant__ TnMaps m) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t full = smem_u32(smem + kTnStages * kStage), empty = full + 8 * kTnStages;
+  float* halves = reinterpret_cast<float*>(smem + kTnStages * kStage + 16 * kTnStages);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kTnStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    reg_dealloc<kProdRegs>();
+    if (tid == 0) {
+      Ring r{smem_u32(smem), full, empty, kTnStages, 0, 0u};
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+        const int tile = u % p.tiles, split = u / p.tiles;
+        const int m0 = (tile % p.tiles_m) * kTM, nc = (tile / p.tiles_m) * kTN;
+        const bool first = nc < p.n0;
+        const CUtensorMap* xm = first ? &m.x0 : &m.x1;
+        const int xc = first ? nc : nc - p.n0;
+        const int i0 = split * p.ksplit;
+        const int nkb = (min(p.rows, i0 + p.ksplit) - i0 + 63) / 64;
+        for (int kb = 0; kb < nkb; ++kb) {
+          const int i = i0 + 64 * kb;
+          mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1u);
+          const uint32_t f = r.full + 8 * r.stage, dst = r.base + r.stage * kStage;
+          mbar_expect_tx(f, kStage);
+          tma_load(dst, &m.z, f, m0, i);
+          tma_load(dst + kZBox, &m.z, f, m0 + 64, i);
+          for (int q = 0; q < kTN / 64; ++q) tma_load(dst + kOpA + q * kZBox, xm, f, xc + 64 * q, i);
+          r.advance();
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<kConsRegs>();
+  const int ctid = tid - 128, cw = ctid >> 7, cwarp = (ctid >> 5) & 3;
+  const int bc = ctid & (kTM - 1);
+  Ring r{smem_u32(smem), full, empty, kTnStages, 0, 0u};
+  float acc[128];
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int tile = u % p.tiles, split = u / p.tiles;
+    const int m0 = (tile % p.tiles_m) * kTM, nc = (tile / p.tiles_m) * kTN;
+    const int i0 = split * p.ksplit;
+    const int nkb = (min(p.rows, i0 + p.ksplit) - i0 + 63) / 64;
+    const bool bias = p.bpart != nullptr && nc == 0;
+    float bsum = 0.f;
+    int prev = 0;
+    wg_fence();
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(r.full + 8 * r.stage, r.phase);
+      const uint32_t st = r.base + r.stage * kStage;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma256<1, 1>(acc, sw128_desc(st + cw * kZBox + kk * 2048, kZBox, 1024),
+                       sw128_desc(st + kOpA + kk * 2048, kZBox, 1024), kb | kk);
+      wg_commit();
+      if (bias) {  // while the products run
+        const unsigned char* zt = smem + r.stage * kStage + (bc >> 6) * kZBox;
+        const int cc = bc & 63;
+#pragma unroll 8
+        for (int i = 0; i < 32; ++i) {
+          const int row = 32 * cw + i;
+          bsum += to_f(*reinterpret_cast<const bf16*>(
+              zt + row * 128 + ((((cc >> 3) & 7) ^ (row & 7)) << 4) + ((cc & 7) << 1)));
+        }
+      }
+      if (kb > 0) {
+        wg_wait<1>();
+        if (lane == 0) mbar_arrive(r.empty + 8 * prev);
+      }
+      prev = r.stage;
+      r.advance();
+    }
+    wg_wait<0>();
+    if (lane == 0) mbar_arrive(r.empty + 8 * prev);
+    acc_fence256(acc);
+
+    float* out = p.part + static_cast<size_t>(split) * p.Mo * p.No;
+    const int row = m0 + 64 * cw + 16 * cwarp + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < kTN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = nc + 8 * j + 2 * (lane & 3);
+        if (col < p.No)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row + 8 * h) * p.No + col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    if (bias) {
+      halves[cw * kTM + bc] = bsum;
+      cons_sync();
+      if (ctid < kTM)
+        p.bpart[static_cast<size_t>(split) * p.Mo + m0 + ctid] = halves[ctid] + halves[kTM + ctid];
+      cons_sync();
+    }
+  }
+}
+
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+inline bool aligned16(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; }
+
+template <int MODE>
+inline int launch_nt_wgmma_mode(const NtTma& p, const NtMaps& m, int grid, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(nt_wgmma_kernel<MODE>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, kNtSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  nt_wgmma_kernel<MODE><<<grid, kWgThreads, kNtSmem, s>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the shapes the bf16 nt product takes: N a multiple of 256, the
+// first K segment a multiple of 64 where a second follows (a slice never
+// straddles two; past the last, TMA reads zeros), rows of a multiple of 16
+// bytes at 16-byte aligned addresses (TMA); any M.
+inline int launch_nt_wgmma(int mode, const NtParams& q, cudaStream_t s) {
+  const bool act = mode == kRev || mode == kHeadBwd;
+  if (q.M <= 0 || q.N <= 0 || q.N % kTN || q.k0 <= 0 || q.k1 < 0 || (q.k1 && q.k0 % 64) ||
+      (q.k1 && (!q.a1 || q.lda1 % 8 || !aligned16(q.a1))) || !q.a0 || !q.b || !q.out ||
+      q.lda0 % 8 || q.ldb % 8 || q.ldo % 8 || !aligned16(q.a0) || !aligned16(q.b) ||
+      !aligned16(q.out) || (act && (!q.act || q.ld_act % 8 || !aligned16(q.act))) ||
+      ((mode == kRelu || mode == kBias) && !q.bias) || (mode == kHeadBwd && q.sb && !q.wd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  NtMaps m;
+  memset(&m, 0, sizeof(m));
+  bool ok = make_map(&m.a0, q.a0, q.k0, q.M, q.lda0, kTM) &&
+            make_map(&m.b, q.b, q.k0 + q.k1, q.N, q.ldb, kTN) &&
+            make_map(&m.out, q.out, q.N, q.M, q.ldo, kTM);
+  if (q.k1) ok = ok && make_map(&m.a1, q.a1, q.k1, q.M, q.lda1, kTM);
+  if (act) ok = ok && make_map(&m.act, q.act, q.N, q.M, q.ld_act, kTM);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int nk0 = (q.k0 + 63) / 64, tiles_n = q.N / kTN;
+  const NtTma p{q.M, nk0, nk0 + (q.k1 + 63) / 64, tiles_n, ((q.M + kTM - 1) / kTM) * tiles_n,
+                static_cast<const bf16*>(q.bias), q.sb, q.wd};
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  switch (mode) {
+    case kRelu: return launch_nt_wgmma_mode<kRelu>(p, m, grid, s);
+    case kRev: return launch_nt_wgmma_mode<kRev>(p, m, grid, s);
+    case kHeadBwd: return launch_nt_wgmma_mode<kHeadBwd>(p, m, grid, s);
+    case kBias: return launch_nt_wgmma_mode<kBias>(p, m, grid, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Checks the shapes the bf16 tn product takes: Mo a multiple of 128, x0's
+// columns a multiple of 256 where x1 follows, splits of whole 64-row
+// slices, rows of a multiple of 16 bytes at 16-byte aligned addresses; any
+// No and rows.
+inline int launch_tn_wgmma(int Mo, int No, int rows, int ksplit, const void* z, int ldz,
+                           const void* x0, int ldx0, int n0, const void* x1, int ldx1,
+                           float* part, float* bpart, cudaStream_t s) {
+  if (Mo <= 0 || No <= 0 || Mo % kTM || n0 < 0 || n0 > No || (n0 < No && n0 % kTN) ||
+      rows <= 0 || ksplit <= 0 || ksplit % 64 || !z || ldz % 8 || !aligned16(z) || !part ||
+      (n0 && (!x0 || ldx0 % 8 || !aligned16(x0))) ||
+      (n0 < No && (!x1 || ldx1 % 8 || !aligned16(x1))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TnMaps m;
+  memset(&m, 0, sizeof(m));
+  bool ok = make_map(&m.z, z, Mo, rows, ldz, 64);
+  if (n0) ok = ok && make_map(&m.x0, x0, n0, rows, ldx0, 64);
+  if (n0 < No) ok = ok && make_map(&m.x1, x1, No - n0, rows, ldx1, 64);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int tiles_m = Mo / kTM, tiles = tiles_m * ((No + kTN - 1) / kTN);
+  const int units = tiles * ((rows + ksplit - 1) / ksplit);
+  const TnTma p{Mo, No, n0, rows, ksplit, tiles_m, tiles, units, part, bpart};
+  const cudaError_t e = cudaFuncSetAttribute(tn_wgmma_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, kTnSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tn_wgmma_kernel<<<units < sms ? units : sms, kWgThreads, kTnSmem, s>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // sig[r] = f32(y[r]) . wd, without its bias. One warp a row, each lane 8
@@ -417,98 +708,6 @@ struct TnParams {
   int ldx1;
   float* part;
 };
-
-__global__ void __launch_bounds__(kThreads, 2) tn_bf16_kernel(TnParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sZ = reinterpret_cast<bf16*>(smem);   // [kStages][kBK][kLdM]
-  bf16* sX = sZ + kStages * kBK * kLdM;       // [kStages][kBK][kLdM]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int i0 = blockIdx.z * p.ksplit;
-  const int i1 = min(p.rows, i0 + p.ksplit);
-  const int ktiles = i1 > i0 ? (i1 - i0 + kBK - 1) / kBK : 0;
-  const bool first = n0 < p.n0;
-  const bf16* X = first ? static_cast<const bf16*>(p.x0) + n0
-                        : static_cast<const bf16*>(p.x1) + (n0 - p.n0);
-  const int ldx = first ? p.ldx0 : p.ldx1;
-  const bf16* Z = static_cast<const bf16*>(p.z) + m0;
-
-  auto load = [&](int stage, int kt) {
-    const int i = i0 + kt * kBK;
-    bf16* dZ = sZ + stage * kBK * kLdM;
-    bf16* dX = sX + stage * kBK * kLdM;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int c = tid + q * kThreads, r = c >> 4, ch = (c & 15) * 8;
-      const int row = i + r;
-      const bool ok = row < i1;
-      const size_t at = static_cast<size_t>(ok ? row : 0);
-      cp16(dZ + r * kLdM + ch, Z + at * p.ldz + ch, ok);
-      cp16(dX + r * kLdM + ch, X + at * ldx + ch, ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    cp_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_wait<kStages - 2>();
-    __syncthreads();
-    if (kt + kStages - 1 < ktiles) load((kt + kStages - 1) % kStages, kt + kStages - 1);
-    cp_commit();
-    const bf16* tZ = sZ + (kt % kStages) * kBK * kLdM;
-    const bf16* tX = sX + (kt % kStages) * kBK * kLdM;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldm_x4_t(af[mt], tZ + (ks + (lane & 7) + (lane >> 4) * 8) * kLdM + wm * 64 + mt * 16 +
-                             ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldm_x4_t(r, tX + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdM + wn * 32 + np * 16 +
-                        (lane >> 4) * 8);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
-    }
-  }
-  cp_wait<0>();
-
-  const int g = lane >> 2, t = lane & 3;
-  float* out = p.part + static_cast<size_t>(blockIdx.z) * p.Mo * p.No;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mt * 16 + g + 8 * h;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-        store2<float>(out + static_cast<size_t>(row) * p.No + col, acc[mt][nt][2 * h],
-                      acc[mt][nt][2 * h + 1]);
-      }
-    }
-}
 
 // The f32 tn product: both operands row-major in device memory, copied as
 // they lie into [row][feature] tiles (cp.async, two buffers); the thread
@@ -603,9 +802,11 @@ __global__ void __launch_bounds__(kThreads) colsum_kernel(int rows, int cols, co
   part[static_cast<size_t>(blockIdx.y) * cols + c] = acc;
 }
 
-}  // namespace w1024
-
-using namespace w1024;
+// Plain C entries for ctypes: each returns the cudaError_t of its launch (0
+// on success; an argument or a tensor map it refuses gives
+// cudaErrorInvalidValue), allocates nothing and does not synchronise; all
+// run on `stream`. (C linkage inside the namespace: the names are the C
+// ones, and lookup stays within w1024.)
 
 // One layer or head product, forward or backward (Epi `mode`), in bf16
 // (bf = 1) or f32.
@@ -614,7 +815,8 @@ extern "C" int refnerf_w1024_nt(int bf, int mode, int M, int N, const void* a0, 
                                 const void* bias, const void* act, int ld_act, const float* sb,
                                 const float* wd, void* out, int ldo, void* stream) {
   const NtParams p{M, N, a0, lda0, k0, a1, lda1, k1, b, ldb, bias, act, ld_act, sb, wd, out, ldo};
-  return launch_nt(bf, mode, p, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf ? launch_nt_wgmma(mode, p, s) : launch_nt(mode, p, s);
 }
 
 // sigma (without its bias) of y [M][W].
@@ -632,26 +834,24 @@ extern "C" int refnerf_w1024_sigma(int bf, int M, int W, const void* y, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// The weight gradient's partials over `rows` rows in splits of `ksplit`.
+// The weight gradient's partials over `rows` rows in splits of `ksplit`,
+// and in bf16, where `bpart` is given, the bias gradient's (the column sums
+// of z) per split. f32 leaves bpart null: its bias gradients are column
+// sums (refnerf_w1024_colsum).
 extern "C" int refnerf_w1024_tn(int bf, int Mo, int No, int rows, int ksplit, const void* z,
                                 int ldz, const void* x0, int ldx0, int n0, const void* x1,
-                                int ldx1, float* part, void* stream) {
-  const int vec = bf ? 8 : 4;
+                                int ldx1, float* part, float* bpart, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf)
+    return launch_tn_wgmma(Mo, No, rows, ksplit, z, ldz, x0, ldx0, n0, x1, ldx1, part, bpart, s);
+  const int vec = 4;
   if (Mo <= 0 || No <= 0 || Mo % kBM || No % kBN || n0 < 0 || n0 > No || n0 % kBN || rows <= 0 ||
-      ksplit <= 0 || ksplit % kBK || !z || !part || ldz % vec || (n0 && (!x0 || ldx0 % vec)) ||
-      (n0 < No && (!x1 || ldx1 % vec)))
+      ksplit <= 0 || ksplit % kBK || !z || !part || bpart || ldz % vec ||
+      (n0 && (!x0 || ldx0 % vec)) || (n0 < No && (!x1 || ldx1 % vec)))
     return static_cast<int>(cudaErrorInvalidValue);
   const TnParams p{Mo, No, rows, ksplit, z, ldz, x0, ldx0, n0, x1, ldx1, part};
   const dim3 grid(No / kBN, Mo / kBM, (rows + ksplit - 1) / ksplit);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tn_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTnSmemBf16);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    tn_bf16_kernel<<<grid, kThreads, kTnSmemBf16, s>>>(p);
-  } else {
-    tn_f32_kernel<<<grid, kThreads, 0, s>>>(p);
-  }
+  tn_f32_kernel<<<grid, kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -671,3 +871,5 @@ extern "C" int refnerf_w1024_colsum(int vbf, int rows, int cols, const void* v, 
                                                     s, block_rows, part);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace w1024

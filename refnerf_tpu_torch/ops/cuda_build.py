@@ -96,14 +96,15 @@ EXPORTS = {
     # k1, b, ldb, bias, act, ld_act, sb, wd, out, ldo, stream: `NtParams`),
     # sigma (bf16, M, W, y, wd, sig, stream), the weight gradients' partials
     # (bf16, Mo, No, rows, ksplit, z, ldz, x0, ldx0, n0, x1, ldx1, part,
-    # stream) and the column sums (vbf16, rows, cols, v, ldv, s, block_rows,
+    # bpart, stream; bpart, the bias gradient's partials, bf16 only, or
+    # null) and the column sums (vbf16, rows, cols, v, ldv, s, block_rows,
     # part, stream); trunk_bwd's refnerf_reduce sums the partials.
     'trunk_w1024': {
         'refnerf_w1024_nt': [_I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
                              _P, _P, _I, _P, _P, _P, _I, _P],
         'refnerf_w1024_sigma': [_I, _I, _I, _P, _P, _P, _P],
         'refnerf_w1024_tn': [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _I,
-                             _P, _P],
+                             _P, _P, _P],
         'refnerf_w1024_colsum': [_I, _I, _I, _P, _I, _P, _I, _P, _P],
     },
 }

@@ -920,12 +920,17 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = fold is not None
   if lib == W1024_LIBRARY:
-    # Its products' largest CTA (csrc/trunk_w1024.cu): bf16 the 4-stage
-    # ring of 32-deep slices of two 128-row tiles, [128][40] each (the tn
-    # product's [32][136]); f32 two buffers of two [16][132] tiles.
+    # Its products' largest CTA (csrc/trunk_w1024.cu): bf16 the nt
+    # product's `kNtSmem` (1 KB to align the swizzled tiles, 3 stages of a
+    # [128][64] and a [256][64] slice, the [128][256] staging tile, 8
+    # mbarriers: 214,080 B) and the tn product's `kTnSmem` (4 stages, 8
+    # mbarriers, the bias sums' two halves of 128 floats: 198,720 B); f32
+    # two buffers of two [16][132] tiles.
     if pack.compute_dtype == 'float32':
       return 2 * 2 * 16 * 132 * 4
-    return max(4 * 2 * 128 * 40 * 2, 4 * 2 * 32 * 136 * 2)
+    stage = (128 + 256) * 64 * 2
+    return max(1024 + 3 * stage + 128 * 256 * 2 + 8 * 8,
+               1024 + 4 * stage + 8 * 8 + 2 * 128 * 4)
   tiles = ray_rows(sp.samples) // _TILE if sp.samples else 1
   sraw = 4 * tiles * _TILE if sp.samples else 0
   t = 2 if pack.compute_dtype == 'bfloat16' else 4
@@ -1445,26 +1450,41 @@ def _w1024_forward(segs, pack: TrunkPack):
   return [sig, cout]
 
 
-def w1024_splits(m: int, n: int, sms: int) -> int:
+def w1024_splits(m: int, n: int, sms: int, cdt: str = 'bfloat16') -> int:
   """The partials the width-1024 backward makes of an m x n weight gradient
-  at most, whatever its rows: as many as give its 128 x 128 tiles about
-  two CTAs an SM of the card's `sms`."""
-  return max(1, -(-2 * sms // ((m // 128) * (n // 128))))
+  at most, whatever its rows, on a card of `sms` SMs. bf16 (the persistent
+  tn product, one CTA an SM over 128 x 256 tiles, the last one cut at n):
+  the fewest, up to 16, whose units fill at least 90% of the SM-waves they
+  take (else the fullest); 1024 x 1024 on 132 SMs: 4, 1024 x 1536: 5,
+  1024 x 512: 8, 256 x 1024: 15. f32 (128 x 128 tiles, a CTA each): as
+  many as give about two CTAs an SM."""
+  if cdt == 'float32':
+    return max(1, -(-2 * sms // ((m // 128) * (n // 128))))
+  tiles = (m // 128) * -(-n // 256)
+  fill = lambda s: tiles * s / (-(-tiles * s // sms) * sms)
+  return next((s for s in range(1, 17) if fill(s) >= 0.9),
+              max(range(1, 17), key=fill))
 
 
-def w1024_split(rows: int, m: int, n: int, sms: int) -> int:
+def w1024_split(rows: int, m: int, n: int, sms: int,
+                cdt: str = 'bfloat16') -> int:
   """Rows per partial of an m x n weight gradient over `rows` rows, in whole
-  32-row slices: at most `w1024_splits` partials, fewer where the rows are
-  few."""
-  return -(-rows // (w1024_splits(m, n, sms) * 32)) * 32
+  slices of the product (64 rows in bf16, 32 in f32): at most
+  `w1024_splits` partials, fewer where the rows are few."""
+  q = 32 if cdt == 'float32' else 64
+  return -(-rows // (w1024_splits(m, n, sms, cdt) * q)) * q
 
 
 def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
   """The width-1024 first-order backward (`w1024`, csrc/trunk_w1024.cu):
   per slab of `slab` rows (`bwd_slab_rows`) the activations recomputed, the
   heads' backward, then per layer downwards the weight gradient's partials
-  and their fixed-order sum, the bias gradient and the reverse product.
-  Returns what trunk_backward_reference does (no dx, u or epilogue)."""
+  and their fixed-order sum, the bias gradient and the reverse product. In
+  bf16 the weight-gradient product also gives the bias gradient's partials
+  (the column sums of zeta it holds: dbc from cbar's with dwc, db_l from
+  zeta_l's with dW_l), summed in the same fixed order; in f32 the bias
+  gradients are column sums. Returns what trunk_backward_reference does (no
+  dx, u or epilogue)."""
   from refnerf_tpu_torch.ops import cuda_build  # builds on first use
   sbar, _, cbar, ubar, *_ = cots
   if ubar is not None:
@@ -1493,9 +1513,11 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
   zs = torch.empty(2, slab, W, device=dev, dtype=cdt)
   sms = torch.cuda.get_device_properties(dev).multi_processor_count
   # Every slab's partials fit, a short last slab's too (its split may be
-  # finer than a full slab's).
+  # finer than a full slab's): sized by the most partials any slab makes.
   grads = [(W, k) for k in k_pack] + [(hc, W)]
-  wpart = f32(max(w1024_splits(m, k, sms) * m * k for m, k in grads))
+  splits = {g: w1024_splits(*g, sms, pack.compute_dtype) for g in grads}
+  wpart = f32(max(splits[m, k] * m * k for m, k in grads))
+  bpart = f32(max(splits[m, k] * m for m, k in grads)) if bf else None
   vpart = f32(-(-slab // _W1024_COLSUM_ROWS) * max(W, hc))
   stream = torch.cuda.current_stream(dev).cuda_stream
   ptr = lambda t, row, width: t.data_ptr() + row * width * t.element_size()
@@ -1505,14 +1527,24 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
               stream)
     _check_launch(err, 'width-1024 reduction')
 
-  def wgrad(dst, m, k, k_dst, rows, z, ldz, x0, ldx0, n0, x1, ldx1, acc):
-    ksplit = w1024_split(rows, m, k, sms)
+  def wgrad(dst, bias, m, k, k_dst, rows, z, x0, ldx0, n0, x1, ldx1, acc):
+    """dst (+)= z^T [x0 | x1] and bias (+)= z's column sums over the slab's
+    rows (z [rows, m] contiguous): in bf16 both from the one product, in
+    f32 the bias by a column sum."""
+    ksplit = w1024_split(rows, m, k, sms, pack.compute_dtype)
     nparts = -(-rows // ksplit)
+    assert nparts <= splits[m, k], (rows, m, k, nparts)
     assert nparts * m * k <= wpart.numel(), (rows, m, k, nparts)
-    err = lib.refnerf_w1024_tn(bf, m, k, rows, ksplit, z, ldz, x0, ldx0, n0,
-                               x1, ldx1, wpart.data_ptr(), stream)
+    assert not bf or nparts * m <= bpart.numel(), (rows, m, nparts)
+    err = lib.refnerf_w1024_tn(bf, m, k, rows, ksplit, z, m, x0, ldx0, n0,
+                               x1, ldx1, wpart.data_ptr(),
+                               bpart.data_ptr() if bf else None, stream)
     _check_launch(err, 'width-1024 weight gradient')
     reduce(wpart, nparts, m, k, k_dst, dst, acc)
+    if bf:
+      reduce(bpart, nparts, 1, m, m, bias, acc)
+    else:
+      colsum(bias, rows, z, m, acc)
 
   def colsum(dst, rows, v, cols, acc, scale=None):
     err = lib.refnerf_w1024_colsum(bf, rows, cols, v, cols, scale,
@@ -1533,8 +1565,7 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
       _w1024_nt(lib, pack, _NT_HEAD_BWD, rows, W, cb, hc, hc,
                 pack.wct.data_ptr(), hc, zs[0].data_ptr(), act=y.data_ptr(),
                 sb=sb, stream=stream)
-      wgrad(dwc, hc, W, W, rows, cb, hc, y.data_ptr(), W, W, None, 0, acc)
-      colsum(dbc, rows, cb, hc, acc)
+      wgrad(dwc, dbc, hc, W, W, rows, cb, y.data_ptr(), W, W, None, 0, acc)
       colsum(dwd, rows, y.data_ptr(), W, acc, sb)
       layers = _w1024_layers(pack)
       for l in reversed(range(L)):
@@ -1545,9 +1576,8 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
           src = (acts[l - 1].data_ptr(), W, W, xs.data_ptr(), kin)
         else:
           src = (acts[l - 1].data_ptr(), W, W, None, 0)
-        wgrad(dws[l], W, k_pack[l], k_out[l], rows, z.data_ptr(), W, *src,
-              acc)
-        colsum(dbs[l], rows, z.data_ptr(), W, acc)
+        wgrad(dws[l], dbs[l], W, k_pack[l], k_out[l], rows, z.data_ptr(),
+              *src, acc)
         if l > 0:
           _w1024_nt(lib, pack, _NT_REV, rows, W, z.data_ptr(), W, W,
                     layers[l][1], W, zs[(L - l) % 2].data_ptr(),

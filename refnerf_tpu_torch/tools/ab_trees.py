@@ -9,7 +9,8 @@ with the checkouts to compare unpacked (git archive) in ignored directories:
         --arm c=_chip/c --order p,c,p,c,p,c --out chiprun_out/ab \\
         [--checks check_train_kernels,check_dir_kernels,check_spa_kernels,
                   serve_requests,train_steps,cascade_steps,
-                  forward_kernels,backward_kernels] [--dtype float32]
+                  forward_kernels,backward_kernels,w1024_pair,m360_steps]
+        [--dtype float32]
 
 First every checkout builds its kernels into its own build/, all at once.
 Then each run of --order (none without it) is a process of its own in its
@@ -17,8 +18,8 @@ checkout's root: it imports that checkout's chip_smoke.py and runs the
 functions of --checks (phase 5's check_train_kernels by default; phase 7's
 check_dir_kernels and phase 9's check_spa_kernels time K5 with K8-K10 and K4
 with K6/K7). `serve_requests`, `train_steps`, `cascade_steps`,
-`forward_kernels` and `backward_kernels` are this tool's own, the same code
-in every checkout: in
+`forward_kernels`, `backward_kernels`, `w1024_pair` and `m360_steps` are
+this tool's own, the same code in every checkout: in
 `serve_requests` phase 10's model (all six fuse flags) and phase 12's two
 mip-NeRF models, their trunks in --dtype (bfloat16 by default; float32 is
 the gins' own, phase 14's), each answer a 4096-ray request, timed on the
@@ -29,6 +30,10 @@ way, their trunks in --dtype (float32: phase 13's and phase 15's); in
 `cascade_steps` phase 19's cascade, (b) in float32 and (c) in bf16 with
 the six fuse flags, takes train steps and answers a 4096-ray request the
 same way (under 'on' and 'off'; --dtype not read);
+`w1024_pair` phase 24's width-1024 pair in both dtypes against its plain
+versions, `m360_steps` MIPNERF360's train step at batch 16,384 and a
+4096-ray request in --dtype under 'on' and 'off' (with the 'on' step's
+peak memory);
 `forward_kernels` holds every forward case
 of phases 3, 5, 7, 9 and 11 (K2 at width 128 and K11 included) and phase
 19's proposal trunk (K1 wide) in --dtype against its plain version
@@ -460,9 +465,108 @@ def backward_kernels(fused_mlp, dev):
   torch.cuda.empty_cache()
 
 
+def w1024_pair(fused_mlp, dev):
+  """Phase 24's width-1024 pair (mip-NeRF 360's NeRF MLP trunk,
+  chip_smoke.w1024_case) at chip_smoke's N in bfloat16 and float32 (the
+  run's DTYPE not read): the forward (K1 W1024 hc256) and the first-order
+  backward (K4 1st W1024) each against its plain version through
+  chip_smoke.compare (which prints kernel and plain ms), without phase
+  24's reruns and planted faults. Uses only what every checkout's
+  chip_smoke has since phase 24 came in."""
+  import torch
+  import chip_smoke as cs
+  n = cs.N_SAMPLES
+  gen = torch.Generator().manual_seed(cs.SEED + 24)
+  segs, ws, bs, kw, cots = cs.w1024_case(fused_mlp, gen, dev, n)
+  for cdt in ('bfloat16', 'float32'):
+    tdt = fused_mlp.DTYPES[cdt]
+    xs = [s.to(tdt) for s in segs]
+    cn = cots[:2] + (cots[2].to(tdt), None)
+    pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+    cs.compare('K1 W1024 hc256', cdt,
+               lambda: fused_mlp.trunk_kernel(xs, pack),
+               lambda: fused_mlp.trunk_reference(xs, ws, bs,
+                                                 compute_dtype=cdt, **kw),
+               n_values=2, phase=24, iters=3,
+               inputs=xs + cs.pack_tensors(pack), n=n,
+               flops=cs.trunk_flops(ws, n, 257))
+    cs.compare('K4 1st W1024', cdt,
+               lambda: fused_mlp.trunk_backward_kernel(xs, pack, cn),
+               lambda: fused_mlp.trunk_backward_reference(
+                   xs, ws, bs, cn, compute_dtype=cdt, **kw),
+               n_values=0, iters=2, phase=24,
+               inputs=xs + cs.pack_tensors(pack) + list(cn), n=n,
+               flops=cs.trunk_flops(ws, n, 257, backward=True))
+    del xs, cn, pack
+    torch.cuda.empty_cache()
+
+
+def m360_steps(fused_mlp, dev, reps=5, reps_off=1):
+  """MIPNERF360 at full width (chip_smoke.m360_setup: its batch of 16,384
+  random rays, both MLPs' trunks in the run's DTYPE): after 2 warm-up
+  steps the median wall ms of `reps` train steps under fused_trunk='on'
+  and of `reps_off` under 'off' (one warm-up), the device-busy ms of one
+  'on' step and the peak memory allocated over the 'on' steps; then a
+  4096-ray request (one chunk, as phase 24's) likewise, in chip_smoke's
+  line format. Uses only what every checkout's chip_smoke has since phase
+  24 came in."""
+  import statistics
+  import time
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  import chip_smoke
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  run = chip_smoke.m360_setup(dev, DTYPE)
+  model, batch = run['model'], run['batch']
+  box = {'state': run['state']}
+
+  def step():
+    box['state'], _ = run['train_step'](box['state'], batch)
+
+  rays = chip_smoke.random_rays(rays_lib, chip_smoke.M360_REQUEST,
+                                run['config'], 24, dev)
+  request = lambda: renderer.render_rays(model, rays, chip_smoke.M360_REQUEST)
+  for what, fn, n in (('train step', step, run['config'].batch_size),
+                      ('request', request, chip_smoke.M360_REQUEST)):
+    wall, peak = {}, 0.0
+    for mode, reps_mode in (('on', reps), ('off', reps_off)):
+      chip_smoke.set_mode(model, fused_trunk=mode)
+      for _ in range(2 if mode == 'on' else 1):
+        fn()
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      times = []
+      for _ in range(reps_mode):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+      wall[mode] = statistics.median(times)
+      if mode == 'on':
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    chip_smoke.set_mode(model, fused_trunk='on')
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    busy = sum(getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f'phase 24: MIPNERF360 {what} {DTYPE} N={n}: kernel '
+          f'{wall["on"]:.3f} ms, plain {wall["off"]:.3f} ms, device busy '
+          f'{busy:.3f} ms, peak {peak:.3f} GiB', flush=True)
+  del run, model, box, batch
+  torch.cuda.empty_cache()
+
+
 # Run in every checkout.
 OWN = {f.__name__: f for f in (serve_requests, train_steps, cascade_steps,
-                               forward_kernels, backward_kernels)}
+                               forward_kernels, backward_kernels, w1024_pair,
+                               m360_steps)}
 BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
 # Trailing template arguments at their defaults, as cu++filt prints them: a
 # false flag, or the trunk width 256.

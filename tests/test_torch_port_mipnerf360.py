@@ -367,8 +367,10 @@ def test_w1024_routes_at_full_shape(cdt):
   modes = (False, None, fused_mlp.DirModes(), fused_mlp.SpaModes())
   assert fused_mlp.launch_keys('K1', pack, *modes) == ['K1', 'K1 w1024']
   assert fused_mlp.launch_keys('K4', pack, *modes) == ['K4', 'K4 w1024']
+  # bf16: the nt product's CTA (csrc/trunk_w1024.cu `kNtSmem`), the
+  # larger of the two wgmma products'.
   assert fused_mlp.kernel_smem('trunk_w1024', _pack(cdt), 256) == (
-      81920 if cdt == 'bfloat16' else 33792)
+      214080 if cdt == 'bfloat16' else 33792)
 
 
 @pytest.mark.parametrize('case,words', [
@@ -503,12 +505,22 @@ class _W1024Sim:
     return 0
 
   def _tn(self, bf, mo, no, rows, ksplit, z, ldz, x0, ldx0, n0, x1, ldx1,
-          part, stream):
+          part, bpart, stream):
     del stream
-    assert ksplit % 32 == 0 and mo % 128 == 0 and no % 128 == 0
+    # bf16: 128 x 256 tiles over 64-row slices, x0's columns on whole
+    # tiles where x1 follows, and the bias partials where bpart is given;
+    # f32: 128 x 128 tiles over 32-row slices, no bias partials.
+    if bf:
+      assert ksplit % 64 == 0 and mo % 128 == 0
+      assert n0 == no or n0 % 256 == 0
+    else:
+      assert ksplit % 32 == 0 and mo % 128 == 0 and no % 128 == 0
+      assert not bpart
     splits = -(-rows // ksplit)
     assert self.inside(part, splits * mo * no * 4), (
         'the partials overrun their buffer', rows, ksplit, mo, no)
+    assert not bpart or self.inside(bpart, splits * mo * 4), (
+        'the bias partials overrun their buffer', rows, ksplit, mo)
     dt = torch.bfloat16 if bf else torch.float32
     zm = _view(z, rows, ldz, mo, dt).float()
     xs = [_view(x0, rows, ldx0, n0, dt).float()] if n0 else []
@@ -520,6 +532,9 @@ class _W1024Sim:
     for s in range(splits):
       rs = slice(s * ksplit, (s + 1) * ksplit)
       parts[s].copy_(zm[rs].t() @ xm[rs])
+      if bpart:
+        _view(bpart + s * mo * 4, 1, mo, mo, torch.float32).copy_(
+            zm[rs].sum(0, keepdim=True))
     return 0
 
   def _colsum(self, vbf, rows, cols, v, ldv, s, block_rows, part, stream):
@@ -619,7 +634,7 @@ def test_w1024_wrappers_match_plain(w1024_sim, cdt, slab):
   # stays inside its buffer all the same (`_W1024Sim.inside`).
   n = 534 if slab == 384 else 600
   if slab == 384:
-    split = lambda rows: fused_mlp.w1024_split(rows, 1024, 1024, 132)
+    split = lambda rows: fused_mlp.w1024_split(rows, 1024, 1024, 132, cdt)
     assert (split(slab), split(n - slab)) == (96, 32)
   segs, ws, bs, kw, cots = _trunk(4, n)
   dt = fused_mlp.DTYPES[cdt]
@@ -649,13 +664,15 @@ def test_w1024_wrappers_match_plain(w1024_sim, cdt, slab):
   slabs = 1 if slab is None else -(-n // slab)
   count = collections.Counter(w1024_sim.calls)
   # A slab: 8 layers recomputed, the heads' backward, 7 reverse products;
-  # 9 weight gradients; the column sums of dbc, dwd and 8 biases; one
-  # fixed-order sum for each of those.
-  sums = 2 + 8
+  # 9 weight gradients; in f32 the column sums of dbc, dwd and 8 biases, in
+  # bf16 of dwd alone (the weight gradients' products give dbc's and the
+  # biases' partials); one fixed-order sum for each of those.
+  sums = 2 + 8 if cdt == 'float32' else 1
+  bias_sums = 9 if cdt == 'bfloat16' else 0
   assert count == {'refnerf_w1024_nt': 16 * slabs,
                    'refnerf_w1024_tn': 9 * slabs,
                    'refnerf_w1024_colsum': sums * slabs,
-                   'refnerf_reduce': (9 + sums) * slabs}
+                   'refnerf_reduce': (9 + sums + bias_sums) * slabs}
 
 
 def test_w1024_backward_sums_slabs_in_order(w1024_sim):
@@ -675,6 +692,90 @@ def test_w1024_backward_sums_slabs_in_order(w1024_sim):
     total = parts[0][j] + parts[1][j] + parts[2][j]
     np.testing.assert_allclose(g.numpy(), total.numpy(), rtol=1e-6,
                                atol=1e-6 * total.abs().max().item())
+
+
+def _c_constants(path):
+  """The `constexpr int NAME = EXPR;` constants of a CUDA source, each EXPR
+  evaluated over the integers and the constants before it."""
+  import re
+  found = {}
+  text = open(path).read()
+  for name, expr in re.findall(r'constexpr int (\w+) = ([^;]+);', text):
+    found[name] = eval(expr.replace('/', '//'), {}, dict(found))
+  return found
+
+
+def test_w1024_smem_mirrors_the_bf16_products():
+  # kernel_smem's bf16 sum for trunk_w1024 is the larger of the two wgmma
+  # products' dynamic shared memory as csrc/trunk_w1024.cu states it
+  # (kNtSmem: the ring, the staging tile, the mbarriers; kTnSmem: the
+  # deeper ring, the mbarriers, the bias sums' halves), within an H100's
+  # SMEM_LIMIT; the f32 sum is the FMA products'.
+  from refnerf_tpu_torch.ops import cuda_build
+  c = _c_constants(cuda_build.CSRC / 'trunk_w1024.cu')
+  assert (c['kNtSmem'], c['kTnSmem']) == (214080, 198720)
+  assert fused_mlp.kernel_smem('trunk_w1024', _pack('bfloat16'), 256) == (
+      max(c['kNtSmem'], c['kTnSmem']))
+  assert max(c['kNtSmem'], c['kTnSmem']) <= fused_mlp.SMEM_LIMIT
+  assert fused_mlp.kernel_smem('trunk_w1024', _pack('float32'), 256) == (
+      c['kSmemF32'])
+
+
+@pytest.mark.parametrize('n,slab', [(600, None), (534, 384)])
+def test_w1024_bias_gradients_come_from_the_weight_gradients(w1024_sim, n,
+                                                            slab):
+  # bf16: the bias gradients (each layer's db and the bottleneck's dbc)
+  # are the weight-gradient products' per-partial column sums of zeta and
+  # cbar, summed in the fixed order: within GRAD_BOUND of
+  # trunk_backward_reference, and the only column sum left a slab is the
+  # density head's (y scaled by sigma's cotangent).
+  segs, ws, bs, kw, cots = _trunk(6, n)
+  dt = torch.bfloat16
+  segs = [s.to(dt) for s in segs]
+  cots = cots[:2] + (cots[2].to(dt), None)
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype='bfloat16',
+                              **kw)
+  colsums = []
+  sim_colsum = w1024_sim._colsum
+
+  def colsum(vbf, rows, cols, v, ldv, s, block_rows, part, stream):
+    colsums.append((cols, bool(s)))
+    return sim_colsum(vbf, rows, cols, v, ldv, s, block_rows, part, stream)
+  w1024_sim._colsum = colsum
+  got = fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=slab)
+  want = fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
+                                            compute_dtype='bfloat16', **kw)
+  slabs = -(-n // (slab or n))
+  assert colsums == [(1024, True)] * slabs
+  # (dbs, dbc): index 1 is the layers' bias gradients, 6 the bottleneck's.
+  for g, w in list(zip(got[1], want[1])) + [(got[6], want[6])]:
+    assert g.shape == w.shape and g.dtype == torch.float32
+    assert ((g - w).norm() / w.norm()).item() <= GRAD_BOUND['bfloat16']
+
+
+@pytest.mark.parametrize('sms', [132, 114])
+def test_w1024_split_fits_its_scratch_for_every_slab(sms):
+  # H24: for every slab length from 1 row to a full slab
+  # (bwd_slab_rows(1024)), each weight gradient of the NeRF MLP (1024 x
+  # 512, 1024 x 1024, 1024 x 1536, the bottleneck's 256 x 1024) splits into
+  # whole 64-row slices (32 in f32) that cover the slab in at most
+  # w1024_splits partials, the count the scratch is sized by.
+  full = fused_mlp.bwd_slab_rows(1024)
+  rows = np.arange(1, full + 1)
+  for cdt, q in (('bfloat16', 64), ('float32', 32)):
+    for m, k in ((1024, 512), (1024, 1024), (1024, 1536), (256, 1024)):
+      most = fused_mlp.w1024_splits(m, k, sms, cdt)
+      assert 1 <= most <= (16 if cdt == 'bfloat16' else most)
+      split = np.array([fused_mlp.w1024_split(int(r), m, k, sms, cdt)
+                        for r in rows[::97]] +
+                       [fused_mlp.w1024_split(full, m, k, sms, cdt)])
+      # w1024_split is ceil(rows / (most * q)) * q: checked on a sample
+      # against the function, then for every length.
+      every = -(-rows // (most * q)) * q
+      assert (split == np.append(every[::97], every[-1])).all()
+      parts = -(-rows // every)
+      assert (every % q == 0).all() and (parts * every >= rows).all()
+      assert parts.max() <= most, (cdt, m, k, sms)
 
 
 # --------------------------------- the full-width model through the route
