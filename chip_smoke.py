@@ -16,8 +16,8 @@ Phases, each printed on its own line:
      width-256 forward and backward (csrc/trunk_fwd_f32.cu,
      csrc/trunk_bwd_f32.cu) holds FFMA and UTMALDG and no tensor-core
      product (HMMA, HGMMA: no TF32); of the width-1024 library
-     (csrc/trunk_w1024.cu), each bf16 product HGMMA and UTMALDG and no
-     HMMA, each f32 product FFMA and no HMMA or HGMMA;
+     (csrc/trunk_w1024.cu), each product, bf16 and f32 (three TF32
+     passes), HGMMA and UTMALDG and no HMMA, and no FMA product left;
   3. hold each trunk kernel (K1 spatial, K2 directional) against its plain
      PyTorch version at the serving shape N = 4096 rays x 128 samples, in
      float32 and bfloat16, and time both (the wgmma/TMA forward in bf16, the
@@ -112,7 +112,7 @@ Phases, each printed on its own line:
      profiled;
  16. the flagship trained and evaluated from a scene on disk: print which of
      Pillow, scipy and matplotlib import; write a Blender-format scene of
-     tools/make_sphere_scene.py's sphere (100 train and 4 test views at
+     tools/make_sphere_scene.py's sphere (40 train and 4 test views at
      800 x 800, the nerf_synthetic resolution) with the port's own PNG
      writer into a temporary directory; time reading a view (through
      Pillow where it imports) and the port's PNG codec on it (filter 0, and
@@ -120,27 +120,27 @@ Phases, each printed on its own line:
      datasets.load_dataset (configs/blender_refnerf.gin with bench.py's
      bindings and all six fuse flags; the gin's batching 'single_image',
      rays cast in the train step); one batch of Pixels cast on the card
-     against the CPU cast; 3 warm-up and 50 timed bf16 steps from
+     against the CPU cast; 3 warm-up and 20 timed bf16 steps from
      prefetched batches (training_batches as shipped: sampled on the step's
      thread, copied by device_prefetch; K2-K10 counted), then steps from
      disk in turns against the same with a sampler thread, one batch of
      Pixels kept on the card and one batch of random rays (phase 10's), the
      sampler's host ms a batch, 5 steps profiled, one step against
      fused_trunk='off', and prefetched batches against the same batches
-     copied synchronously (every tensor and the loss bit for bit); two test
-     views rendered in bf16 with the extras (the first against
-     fused_trunk='off'), PSNR, SSIM and cc-PSNR on the card against the
-     CPU; the same in the gin's own float32 (3 + 10 steps, one view);
+     copied synchronously (every tensor and the loss bit for bit); a test
+     view rendered in bf16 with the extras (against fused_trunk='off'),
+     PSNR, SSIM and cc-PSNR on the card against the CPU; the same in the
+     gin's own float32 (3 + 10 steps, one view);
  17. the port's CLIs on configs/blender_refnerf.gin as shipped (its own
      float32, batch 1024, no fuse flags, fused_trunk='auto'): print which of
      tensorboardX, torch.utils.tensorboard, ffmpeg and cv2 are here; write
      the sphere scene at 100 train and 2 test views of 400 x 400; the train
-     CLI (refnerf_tpu_torch.cli.train main, in this process) for 20 steps,
-     validating and checkpointing every 10 (K1-K5 counted: K3, K4, K5 and
+     CLI (refnerf_tpu_torch.cli.train main, in this process) for 10 steps,
+     validating and checkpointing every 5 (K1-K5 counted: K3, K4, K5 and
      K2 in every step, K1 and K2 in the validation views; every forward on
      csrc/trunk_fwd_f32.cu and every backward on csrc/trunk_bwd_f32.cu;
-     the saves timed); a run killed at step 10 (early exit) and resumed to
-     20, every parameter and Adam moment equal to the first run's; the
+     the saves timed); a run killed at step 5 (early exit) and resumed to
+     10, every parameter and Adam moment equal to the first run's; the
      eval CLI as a subprocess (metric files, finite PSNR), its view 0
      against the same view rendered here with fused_trunk='off'; the
      render CLI twice (2 frames and the videos, then frame 0 skipped).
@@ -198,8 +198,8 @@ Phases, each printed on its own line:
      Model.bg_intensity_range = (0, 1): finite, K6 logged inactive.
  20. the mesh tools and interop on the flagship at full width, in float32
      and bfloat16 under fused_trunk='on' (refnerf_tpu_torch/geometry.py,
-     interop.py): the density grid at 128^3 (32 launches of K1 at 65,536
-     points, without the bottleneck head) and the vertex colours of its
+     interop.py): the density grid at 96^3 (14 launches of K1 at up to
+     65,536 points, without the bottleneck head) and the vertex colours of its
      mesh (K1 with the heads of a request), timed, every launch's route
      asserted and counted; marching tetrahedra on the host at the grid's
      midpoint (random weights: JAX's isovalue for an untrained field),
@@ -265,9 +265,10 @@ Phases, each printed on its own line:
      trunk's width-1024 pair (trunk_w1024.cu) against the plain versions at
      131,072 and 524,288 rows in bf16 and f32 (routes asserted, reruns
      bit-identical, two planted faults above the bounds; its SASS checked in
-     phase 2), in bf16 with the PyTorch chain of the same function timed in
-     turns as its yardstick (`w1024_chain`: the kernels line's library_ms),
-     its 283-column directional pair timed; then 3 steps at batch
+     phase 2; the f32 pair's bound that of three TF32 products), with the
+     PyTorch chain of the same function timed in turns as its yardstick
+     (`w1024_chain`: the kernels line's library_ms), its 283-column
+     directional pair timed likewise; then 3 steps at batch
      16,384 in each dtype under 'on' (launches a step asserted, median ms,
      peak memory), one step against 'off', a bf16 step profiled, 'on' and
      'off' in turns, and a 4096-ray request against 'off' (spread_l2 within
@@ -279,8 +280,10 @@ launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
-the fused stages' f32 work overlaps bf16 tensor work); its library_ms is
-null but for the bf16 width-1024 pair's (phase 24's PyTorch chain).
+the fused stages' f32 work overlaps bf16 tensor work; the f32 width-1024
+pair's as three TF32 products at 495 TFLOP/s, the FMA bound beside it);
+its library_ms is null but for phase 24's rows (its PyTorch chains). The
+line before it gives each phase's seconds.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
 """
@@ -347,10 +350,13 @@ FUSE = ['NerfMLP.fuse_dir_enc = True', 'NerfMLP.fuse_dir_geo = True',
 SPATIAL = ['NerfMLP.fuse_ipe_trig = True', 'NerfMLP.fuse_compositing = True',
            'NerfMLP.fuse_lift = True']
 SAMPLES = 128  # a ray's samples at every level of the flagship
-# Peak rates of one H100 SXM (dense) and its memory rate, for the bounds.
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+# Peak rates of one H100 SXM (dense) and its memory rate, for the bounds;
+# 'tf32' the tensor cores' TF32 rate, which the f32 width-1024 products run
+# three passes at.
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12, 'tf32': 495e12}
 MEM_RATE = 3.35e12
 CARD = ''  # nvidia-smi's name and power limit, set in main()
+START = time.perf_counter()  # the script's start, for its phases' seconds
 
 
 def log(msg):
@@ -496,13 +502,17 @@ def trunk_flops(ws, n, heads, density_grad=False, backward=False,
   return 2 * n * per
 
 
-def bound(cdt, flops, nbytes_moved, f32_flops=0):
+def bound(cdt, flops, nbytes_moved, f32_flops=0, tf32_passes=0):
   """(ms, 'bytes' or 'operations'): the least time the card could take.
   `flops` run in the compute dtype (bf16 on the tensor cores, f32 on the FMA
-  pipes), `f32_flops` on the FMA pipes: in f32 the two share the pipes and
-  add up; in bf16 they run on separate units that can overlap, so the
-  longer of the two counts."""
-  if cdt == 'float32':
+  pipes, or with `tf32_passes` as that many TF32 products on the tensor
+  cores), `f32_flops` on the FMA pipes: in f32 on the FMA pipes the two
+  share the pipes and add up; on the tensor cores they run on separate
+  units that can overlap, so the longer of the two counts."""
+  if tf32_passes:
+    t_ops = max(tf32_passes * flops / PEAK_FLOPS['tf32'],
+                f32_flops / PEAK_FLOPS['float32'])
+  elif cdt == 'float32':
     t_ops = (flops + f32_flops) / PEAK_FLOPS['float32']
   else:
     t_ops = max(flops / PEAK_FLOPS[cdt], f32_flops / PEAK_FLOPS['float32'])
@@ -512,13 +522,15 @@ def bound(cdt, flops, nbytes_moved, f32_flops=0):
 
 def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
             flops=0, f32_flops=0, weights=None, y=None, n=N_SAMPLES,
-            library=None):
+            library=None, tf32_passes=0):
   """Run kernel() and plain() once and compare every output (see errors());
   then time both in turns, and `library` (a PyTorch chain of the same
   function, the yardstick: never called by the port) between them where
   given. Returns a dict: max_abs_err, ms, plain_ms, library_ms (None
-  without `library`), and the bound from `flops` (in the compute dtype),
-  `f32_flops` and the bytes of `inputs` and of the kernel's outputs."""
+  without `library`), and the bound from `flops` (in the compute dtype; as
+  `tf32_passes` TF32 products where given, with the FMA pipes' bound
+  beside it as fma_bound_ms), `f32_flops` and the bytes of `inputs` and of
+  the kernel's outputs."""
   with torch.no_grad():
     got, want = flatten(kernel()), flatten(plain())
     torch.cuda.synchronize()
@@ -533,7 +545,8 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
     k2, p2 = cuda_ms(kernel, iters), cuda_ms(plain, iters)
   ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
   err, worst = max(r[0] for r in rows), max(r[3] for r in rows)
-  bound_ms, bound_by = bound(cdt, flops, moved, f32_flops)
+  bound_ms, bound_by = bound(cdt, flops, moved, f32_flops, tf32_passes)
+  fma = bound(cdt, flops, moved, f32_flops)[0] if tf32_passes else None
   detail = '; '.join(f'{i}: {r[1]:.2e} max, {r[2]:.2e} l2'
                      for i, r in enumerate(rows))
   kinds = f'derivatives from output {n_values}' + (
@@ -542,15 +555,20 @@ def compare(which, cdt, kernel, plain, n_values, iters=5, phase=3, inputs=(),
   log(f'phase {phase}: {which} {cdt} N={n}: max_abs_err {err:.3e} '
       f'({worst:.3f} of its bound), kernel {ms:.3f} ms, plain '
       f'{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; '
-      f'{moved / 1e6:.1f} MB)' +
+      f'{moved / 1e6:.1f} MB' +
+      (f'; {tf32_passes} TF32 passes, on the FMA pipes {fma:.3f} ms'
+       if tf32_passes else '') + ')' +
       (f', library {lib_ms:.3f} ms' if lib_ms is not None else '') +
       f'; per output (relative to max|plain|, relative '
       f'L2, {kinds}): {detail}')
   if not worst <= 1.0:
     raise AssertionError(f'{which} {cdt}: an output is {worst:.3f} times '
                          'its bound')
-  return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, library_ms=lib_ms)
+  out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+             bound_by=bound_by, library_ms=lib_ms)
+  if tf32_passes:
+    out['fma_bound_ms'] = fma
+  return out
 
 
 def pack_tensors(pack):
@@ -578,15 +596,34 @@ def check_route(fused_mlp, which, cdt, pack, want=None, **modes):
     raise AssertionError(f'{which} {cdt}: the forward routed to {got}')
 
 
-def check_sass(lib, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
-  """Phase 2: each kernel of a TMA library holds every instruction of
-  `need` and none of `refuse` in its SASS (cuobjdump -sass), or this
-  fails: the bf16 width-256 forward and backward wgmma (HGMMA) and TMA
-  loads (UTMALDG) and no mma.sync (HMMA); the f32 forward and backward FFMA
-  and TMA loads and no tensor-core product (HMMA, HGMMA)."""
+def sass_of(libs):
+  """{library: its SASS (cuobjdump -sass)}, one cuobjdump a library, all
+  started together, each writing to a file of its own (a full pipe would
+  stall it)."""
+  import tempfile
   tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
-  sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
-                        text=True, check=True, timeout=300).stdout
+  runs = {}
+  for lib in libs:
+    f = tempfile.TemporaryFile(mode='w+')
+    runs[lib] = (f, subprocess.Popen([tool, '-sass', str(lib)], stdout=f,
+                                     stderr=subprocess.STDOUT, text=True))
+  out = {}
+  for lib, (f, proc) in runs.items():
+    with f:
+      proc.wait(timeout=300)
+      f.seek(0)
+      out[lib] = f.read()
+    if proc.returncode != 0:
+      raise RuntimeError(f'cuobjdump -sass {lib}: {out[lib][-2000:]}')
+  return out
+
+
+def check_sass(sass, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
+  """Phase 2: each kernel of a TMA library holds every instruction of
+  `need` and none of `refuse` in its SASS (`sass_of`), or this fails: the
+  bf16 width-256 forward and backward wgmma (HGMMA) and TMA loads
+  (UTMALDG) and no mma.sync (HMMA); the f32 forward and backward FFMA and
+  TMA loads and no tensor-core product (HMMA, HGMMA)."""
   for block in re.split(r'\n\s*Function : ', sass)[1:]:
     name = block.split('\n', 1)[0]
     counts = {op: len(re.findall(rf'\b{op}\b', block))
@@ -598,15 +635,13 @@ def check_sass(lib, need=('HGMMA', 'UTMALDG'), refuse=('HMMA',)):
                            f'{counts}')
 
 
-def check_w1024_sass(lib):
+def check_w1024_sass(sass):
   """Phase 2: the width-1024 library's products hold the instructions of
-  their route, or this fails: each bf16 product (nt_wgmma, tn_wgmma)
-  wgmma's HGMMA and TMA loads (UTMALDG) and no mma.sync (HMMA), each f32
-  one (nt_f32, tn_f32) FFMA and no tensor-core product (HMMA, HGMMA).
-  Their other kernels (sigma, column sums) are logged."""
-  tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
-  sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
-                        text=True, check=True, timeout=300).stdout
+  their route in its SASS (`sass_of`), or this fails: each product, bf16
+  (nt_wgmma, tn_wgmma) and f32 (nt_tf32, tn_tf32: three TF32 passes),
+  wgmma's HGMMA and TMA loads (UTMALDG) and no mma.sync (HMMA); no FMA
+  product (nt_f32, tn_f32) is left. Their other kernels (sigma, column
+  sums, the weights' split) are logged."""
   products = set()
   for block in re.split(r'\n\s*Function : ', sass)[1:]:
     name = block.split('\n', 1)[0]
@@ -614,20 +649,17 @@ def check_w1024_sass(lib):
               for op in ('HMMA', 'HGMMA', 'UTMALDG', 'UTMASTG', 'FFMA')}
     log(f'phase 2: SASS {name}: ' + ', '.join(
         f'{op} {k}' for op, k in counts.items()))
-    kind = re.search(r'(nt|tn)_(wgmma|f32)_kernel', name)
+    kind = re.search(r'(nt|tn)_(wgmma|tf32|f32)_kernel', name)
     if kind is None:
       continue
-    if kind.group(2) == 'wgmma':
-      ok = counts['HGMMA'] and counts['UTMALDG'] and not counts['HMMA']
-    else:
-      ok = counts['FFMA'] and not (counts['HMMA'] or counts['HGMMA'])
+    ok = counts['HGMMA'] and counts['UTMALDG'] and not counts['HMMA']
     products.add(kind.group(0))
     if not ok:
       raise AssertionError(f'{name}: its SASS holds {counts}')
-  want = {f'{d}_{r}_kernel' for d in ('nt', 'tn') for r in ('wgmma', 'f32')}
+  want = {f'{d}_{r}_kernel' for d in ('nt', 'tn') for r in ('wgmma', 'tf32')}
   if products != want:
-    raise AssertionError(f'{lib}: product kernels {sorted(products)} in its '
-                         f'SASS, expected {sorted(want)}')
+    raise AssertionError(f'trunk_w1024: product kernels {sorted(products)} '
+                         f'in its SASS, expected {sorted(want)}')
 
 
 def check_kernels(fused_mlp, dev):
@@ -1663,10 +1695,11 @@ def f32_serve_stage(fused_mlp, dev, requests=30, phase=14, gin_name=FLAGSHIP,
 
 
 # Phase 16: the flagship trained and evaluated from a scene on disk. The
-# scene: nerf_synthetic's resolution and train views (800 x 800, 100 train
-# and 4 test views) of tools/make_sphere_scene.py's analytic sphere.
-SCENE_RES, SCENE_TRAIN, SCENE_TEST = 800, 100, 4
-DATA_WARMUP, DATA_STEPS, DATA_F32_STEPS = 3, 50, 10
+# scene: nerf_synthetic's resolution (800 x 800; 40 train and 4 test views,
+# against its 100 train views, to fit the time limit) of
+# tools/make_sphere_scene.py's analytic sphere.
+SCENE_RES, SCENE_TRAIN, SCENE_TEST = 800, 40, 4
+DATA_WARMUP, DATA_STEPS, DATA_F32_STEPS = 3, 20, 10
 # The cast on the card vs the CPU: both f32, the 3x3 products as products
 # and a sum, in another order.
 CAST_BOUND = 1e-5
@@ -2086,7 +2119,7 @@ def data_stage(fused_mlp, dev):
     test_ds = datasets.load_dataset('test', root, run['config'])
     before = fused_mlp.launches['K1']
     view_s, views = evaluate(fused_mlp, dev, run['model'], run['config'],
-                             test_ds, (0, 1), 'bf16')
+                             test_ds, (0,), 'bf16')
     path['K1'] = fused_mlp.launches['K1'] - before
     del run
     torch.cuda.empty_cache()
@@ -2118,7 +2151,7 @@ def data_stage(fused_mlp, dev):
 # train views, at 400 x 400 (half its resolution, to fit the time limit),
 # and 2 test views.
 CLI_RES, CLI_TRAIN, CLI_TEST = 400, 100, 2
-CLI_STEPS, CLI_EXIT = 20, 10
+CLI_STEPS, CLI_EXIT = 10, 5
 # Launches a level and step of the unfused flagship's train step.
 CLI_PER_STEP = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1}
 # Eval's saved render (8-bit PNG, 0.5/255 of rounding) against the same view
@@ -2227,8 +2260,9 @@ def cli_stage(fused_mlp, dev):
       return [f'--gin_configs={gin_file}'] + [
           f'--gin_bindings={b}' for b in bindings]
 
-    # Run A: 20 steps, validation and a checkpoint every 10, its launches
-    # counted and each launch's library recorded; checkpoint saves timed.
+    # Run A: CLI_STEPS steps, validation and a checkpoint every CLI_EXIT,
+    # its launches counted and each launch's library recorded; checkpoint
+    # saves timed.
     save_ms = []
     save = checkpoints.CheckpointManager.save
 
@@ -2259,7 +2293,7 @@ def cli_stage(fused_mlp, dev):
     if config.batch_size != 1024:
       raise AssertionError(f'phase 17: batch {config.batch_size}, not 1024')
     levels, h = model.cfg.num_levels, CLI_RES
-    views = 2  # validation at steps 10 and 20
+    views = CLI_STEPS // CLI_EXIT  # validation at each checkpoint
     per_view = levels * -(-h * h // config.render_chunk_size)
     want = {k: levels * CLI_STEPS * CLI_PER_STEP.get(k, 0) for k in launches}
     want['K1'] += views * per_view
@@ -2309,7 +2343,8 @@ def cli_stage(fused_mlp, dev):
         if not torch.equal(other, v):
           diffs.append((f'{which} {k}', (other - v).abs().max().item()))
     if (run_b.state.step, run_b.state.opt.count) != (CLI_STEPS, CLI_STEPS):
-      raise AssertionError('phase 17: the resumed run did not reach step 20')
+      raise AssertionError('phase 17: the resumed run did not reach step '
+                           f'{CLI_STEPS}')
     if diffs:
       worst = max(diffs, key=lambda d: d[1])
       raise AssertionError(f'phase 17: resume is not bit for bit: '
@@ -3275,7 +3310,7 @@ def cascade_stage(fused_mlp, dev):
   return launches, launches_b, out
 
 
-MESH_RES = 128  # the density grid's points per axis (2,097,152 points)
+MESH_RES = 96  # the density grid's points per axis (884,736 points)
 MESH_BOX = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))  # the Blender object box
 MESH_CHUNK = 2 ** 16  # points a launch (geometry.density_grid's default)
 
@@ -4354,37 +4389,57 @@ def w1024_case(fused_mlp, gen, dev, n):
   return segs, ws, bs, kw, (rand(n), None, rand(n, 256), None)
 
 
-def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None):
-  """The yardstick of the width-1024 pair (`library_ms`), the nearest chain
-  of PyTorch calls at the same shapes in `cdt`: eight
-  torch.nn.functional.linear + relu layers (the skip layer on the
-  concatenated input), the bottleneck head, and sigma as the f32 dot of y
-  with the density head; with `cots` (sigma's and the bottleneck's
-  cotangents) autograd of that chain, its forward included (the kernel's
-  backward recomputes its own). Returns a function of no arguments; the
-  port never calls it."""
+def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False):
+  """The yardstick of phase 24's trunks (`library_ms`), the nearest chain
+  of PyTorch calls at the same shapes in `cdt`: the layers as
+  torch.nn.functional.linear + relu (the skip layer on the concatenated
+  input), then the heads on y: sigma as the f32 dot with the density head,
+  the f32 head (on y in f32), the compute-dtype head; with `cots` (the
+  heads' cotangents: sigma's, the f32 head's, the compute-dtype head's)
+  autograd of that chain, its forward included (the kernel's backward
+  recomputes its own), for the parameters and with `needs_dx` the input
+  too. The width-1024 pair (eight layers, sigma, the bottleneck) and the
+  directional pair (one layer, the rgb head). Returns a function of no
+  arguments; the port never calls it."""
   F = torch.nn.functional
   dt = fused_mlp.DTYPES[cdt]
   grad = cots is not None
-  x = torch.cat(cs, -1).to(dt)
-  params = ([w.detach().to(dt) for w in ws] + [b.detach().to(dt) for b in bs]
-            + [kw['wd'].detach().float()] +
-            [t.detach().to(dt) for t in kw['head_cdt']])
+  x = torch.cat(cs, -1).to(dt).requires_grad_(grad and needs_dx)
+  L = len(ws)
+  params = [w.detach().to(dt) for w in ws] + [b.detach().to(dt) for b in bs]
+  heads = []  # (index of the cotangent, weight, bias or None, f32)
+  for i, (key, f32) in enumerate((('wd', True), ('head_f32', True),
+                                  ('head_cdt', False))):
+    head = kw.get(key)
+    if head is None:
+      continue
+    w, b = (head, None) if key == 'wd' else head
+    cast = (lambda t: t.detach().float()) if f32 else (
+        lambda t: t.detach().to(dt))
+    params.append(cast(w))
+    heads.append((i, len(params) - 1, None if b is None else len(params),
+                  f32))
+    if b is not None:
+      params.append(cast(b))
   params = [t.requires_grad_(grad) for t in params]
-  skips = fused_mlp.skip_input_layers(len(ws), kw['skip_period'])
+  skips = fused_mlp.skip_input_layers(L, kw['skip_period'])
   if grad:
-    sbar, cbar = cots[0].float().reshape(-1, 1), cots[2].to(dt)
+    cast = lambda i, c: c.float().reshape(-1, 1) if i == 0 else c.to(
+        dt if i == 2 else torch.float32)
+    bars = [cast(i, cots[i]) for i, _, _, _ in heads]
 
   def run():
     h = x
-    for l in range(len(ws)):
+    for l in range(L):
       h = F.relu(F.linear(torch.cat([h, x], -1) if l in skips else h,
-                          params[l], params[len(ws) + l]))
-    sigma = h.float() @ params[-3].t()
-    c = F.linear(h, params[-2], params[-1])
+                          params[l], params[L + l]))
+    outs = [F.linear(h.float() if f32 else h, params[w],
+                     None if b is None else params[b])
+            for _, w, b, f32 in heads]
     if not grad:
-      return sigma, c
-    return torch.autograd.grad((sigma, c), params, (sbar, cbar))
+      return outs
+    return torch.autograd.grad(outs, params + ([x] if needs_dx else []),
+                               bars)
   return run
 
 
@@ -4459,20 +4514,21 @@ def check_w1024_kernels(fused_mlp, dev):
       kernel = lambda: fused_mlp.trunk_kernel(xs, pack)
       plain = lambda: fused_mlp.trunk_reference(xs, ws, bs, compute_dtype=cdt,
                                                 **kw)
-      lib = (w1024_chain(fused_mlp, xs, ws, bs, kw, cdt)
-             if cdt == 'bfloat16' else None)
+      lib = w1024_chain(fused_mlp, xs, ws, bs, kw, cdt)
+      passes = 3 if cdt == 'float32' else 0  # f32: three TF32 passes
       f = compare('K1 W1024 hc256', cdt, kernel, plain, n_values=2,
                   phase=24, iters=3, inputs=xs + pack_tensors(pack), n=n,
-                  flops=trunk_flops(ws, n, 257), library=lib)
+                  flops=trunk_flops(ws, n, 257), library=lib,
+                  tf32_passes=passes)
       deterministic('K1 W1024 hc256', kernel, phase=24, cdt=cdt)
       kernel = lambda: fused_mlp.trunk_backward_kernel(xs, pack, cn)
       plain = lambda: fused_mlp.trunk_backward_reference(
           xs, ws, bs, cn, compute_dtype=cdt, **kw)
-      lib = (w1024_chain(fused_mlp, xs, ws, bs, kw, cdt, cn)
-             if cdt == 'bfloat16' else None)
+      lib = w1024_chain(fused_mlp, xs, ws, bs, kw, cdt, cn)
       b = compare('K4 1st W1024', cdt, kernel, plain, n_values=0, iters=2,
                   phase=24, inputs=xs + pack_tensors(pack) + list(cn), n=n,
-                  flops=trunk_flops(ws, n, 257, backward=True), library=lib)
+                  flops=trunk_flops(ws, n, 257, backward=True), library=lib,
+                  tf32_passes=passes)
       del lib
       deterministic('K4 1st W1024', kernel, phase=24, cdt=cdt)
       runs[n] = (f, b)
@@ -4513,7 +4569,8 @@ def check_w1024_kernels(fused_mlp, dev):
         lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
                                           **kw),
         n_values=1, phase=24, inputs=cs + pack_tensors(pack),
-        flops=trunk_flops(ws, N_SAMPLES, 3))
+        flops=trunk_flops(ws, N_SAMPLES, 3),
+        library=w1024_chain(fused_mlp, cs, ws, bs, kw, cdt))
     results['K5 m360', cdt] = compare(
         'K5 m360', cdt,
         lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots,
@@ -4522,7 +4579,9 @@ def check_w1024_kernels(fused_mlp, dev):
             cs, ws, bs, cots, compute_dtype=cdt, needs_dx=True, **kw),
         n_values=0, iters=3, phase=24,
         inputs=cs + pack_tensors(pack) + [cots[1]],
-        flops=trunk_flops(ws, N_SAMPLES, 3, backward=True, needs_dx=True))
+        flops=trunk_flops(ws, N_SAMPLES, 3, backward=True, needs_dx=True),
+        library=w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots,
+                            needs_dx=True))
     del pack, cs
   del segs, ws, bs, kw, cots
   torch.cuda.empty_cache()
@@ -4769,6 +4828,14 @@ def main():
 
   from refnerf_tpu_torch.ops import cuda_build
   from refnerf_tpu_torch.ops import fused_mlp
+  secs = {}  # each phase's seconds, printed before the last two lines
+
+  def phase(number, fn, *args):
+    t = time.perf_counter()
+    out = fn(*args)
+    secs[number] = secs.get(number, 0.0) + time.perf_counter() - t
+    return out
+
   t0 = time.perf_counter()
   libs = cuda_build.build()
   for name in libs:
@@ -4780,41 +4847,48 @@ def main():
       if ('Used' in line or 'spill' in line or 'Compiling' in line) and (
           'C75' not in line):
         log(f'phase 2: ptxas {line.strip()}')
-  check_sass(libs['trunk_fwd_tma'])
-  check_sass(libs['trunk_bwd_tma'])
+  sass = sass_of([libs[name] for name in (
+      'trunk_fwd_tma', 'trunk_bwd_tma', 'trunk_fwd_f32', 'trunk_bwd_f32',
+      fused_mlp.W1024_LIBRARY)])
+  check_sass(sass[libs['trunk_fwd_tma']])
+  check_sass(sass[libs['trunk_bwd_tma']])
   for name in ('trunk_fwd_f32', 'trunk_bwd_f32'):
-    check_sass(libs[name], need=('FFMA', 'UTMALDG'), refuse=('HMMA', 'HGMMA'))
-  check_w1024_sass(libs[fused_mlp.W1024_LIBRARY])
+    check_sass(sass[libs[name]], need=('FFMA', 'UTMALDG'),
+               refuse=('HMMA', 'HGMMA'))
+  check_w1024_sass(sass[libs[fused_mlp.W1024_LIBRARY]])
+  secs[2] = time.perf_counter() - t0
 
-  kernels = check_kernels(fused_mlp, dev)
-  launches, _ = serve(fused_mlp, dev)
-  kernels.update(check_train_kernels(fused_mlp, dev))
-  train_launches, step_s, _ = train(fused_mlp, dev)
-  kernels.update(check_dir_kernels(fused_mlp, dev))
-  dir_serve, dir_train, dir_step_s, ab = fused_stage(fused_mlp, dev)
-  kernels.update(check_spa_kernels(fused_mlp, dev))
-  spa_serve, spa_train, spa_step_s, ab6 = spatial_stage(fused_mlp, dev)
-  kernels.update(check_mip_kernels(fused_mlp, dev))
-  mip = mip_stage(fused_mlp, dev)
+  kernels = phase(3, check_kernels, fused_mlp, dev)
+  launches, _ = phase(4, serve, fused_mlp, dev)
+  kernels.update(phase(5, check_train_kernels, fused_mlp, dev))
+  train_launches, step_s, _ = phase(6, train, fused_mlp, dev)
+  kernels.update(phase(7, check_dir_kernels, fused_mlp, dev))
+  dir_serve, dir_train, dir_step_s, ab = phase(8, fused_stage, fused_mlp, dev)
+  kernels.update(phase(9, check_spa_kernels, fused_mlp, dev))
+  spa_serve, spa_train, spa_step_s, ab6 = phase(10, spatial_stage, fused_mlp,
+                                                dev)
+  kernels.update(phase(11, check_mip_kernels, fused_mlp, dev))
+  mip = phase(12, mip_stage, fused_mlp, dev)
   (mip_serve, mip_train, _, _), (y_serve, y_train, _, _) = (
       mip['shipped'], mip['no viewdirs'])
-  f32_train, f32_step_s = f32_stage(fused_mlp, dev)
-  f32_serve, f32_request = f32_serve_stage(fused_mlp, dev)
+  f32_train, f32_step_s = phase(13, f32_stage, fused_mlp, dev)
+  f32_serve, f32_request = phase(14, f32_serve_stage, fused_mlp, dev)
   (mip_f32_train, mip_f32_step_s, mip_f32_prof, mip_f32_serve,
-   mip_f32_request) = mip_f32_stage(fused_mlp, dev)
-  data_path, data = data_stage(fused_mlp, dev)
-  cli_path, cli = cli_stage(fused_mlp, dev)
-  geo_path, geo_bf16_path, geo = geometry_stage(fused_mlp, dev)
-  kernels.update(check_prop_kernels(fused_mlp, dev))
-  cascade_path, cascade_bf16_path, cascade = cascade_stage(fused_mlp, dev)
-  mesh_path, mesh = mesh_stage(fused_mlp, dev)
-  art_path, art = serving_stage(fused_mlp, dev)
-  dp_steps, dp = data_parallel_stage(fused_mlp, dev)
+   mip_f32_request) = phase(15, mip_f32_stage, fused_mlp, dev)
+  data_path, data = phase(16, data_stage, fused_mlp, dev)
+  cli_path, cli = phase(17, cli_stage, fused_mlp, dev)
+  geo_path, geo_bf16_path, geo = phase(18, geometry_stage, fused_mlp, dev)
+  kernels.update(phase(19, check_prop_kernels, fused_mlp, dev))
+  cascade_path, cascade_bf16_path, cascade = phase(19, cascade_stage,
+                                                   fused_mlp, dev)
+  mesh_path, mesh = phase(20, mesh_stage, fused_mlp, dev)
+  art_path, art = phase(21, serving_stage, fused_mlp, dev)
+  dp_steps, dp = phase(22, data_parallel_stage, fused_mlp, dev)
   dp_path = {k: sum(step[k] for step in dp_steps) for k in dp_steps[0]}
-  remat_path, remat = remat_stage(fused_mlp, dev)
-  w1024, w1024_faults_read = check_w1024_kernels(fused_mlp, dev)
+  remat_path, remat = phase(23, remat_stage, fused_mlp, dev)
+  w1024, w1024_faults_read = phase(24, check_w1024_kernels, fused_mlp, dev)
   kernels.update(w1024)
-  m360_path, m360 = m360_stage(fused_mlp, dev)
+  m360_path, m360 = phase(24, m360_stage, fused_mlp, dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -5023,7 +5097,7 @@ def main():
       ('K5 m360', 'directional trunk backward on 283 columns, dx', 668,
        'K5')):
     b16, f32 = kernels[which, 'bfloat16'], kernels[which, 'float32']
-    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms')
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')
     entry = {
         'name': f'{which} {desc}', 'route': 'cuda', 'source': w1024_src[which],
         'replaces': f'{pallas}:{at}', 'launches': m360_path['bfloat16'][key],
@@ -5039,6 +5113,9 @@ def main():
       if 'request_' + k in b16:
         entry['request_' + k] = b16['request_' + k]
         entry['f32_request_' + k] = f32['request_' + k]
+    if 'fma_bound_ms' in f32:  # f32 bound as three TF32 products; the FMA's
+      entry['f32_fma_bound_ms'] = f32['fma_bound_ms']
+      entry['f32_route'] = 'three TF32 passes on wgmma'
     line.append(entry)
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
@@ -5065,6 +5142,9 @@ def main():
       f'(Model.remat): {json.dumps(remat)}; phase 24 (mip-NeRF 360 at full '
       f'width): {json.dumps(m360)}; planted faults '
       f'{json.dumps(w1024_faults_read)}')
+  log('phase seconds: ' + json.dumps(
+      {str(k): round(v, 1) for k, v in sorted(secs.items())}) +
+      f'; in all {time.perf_counter() - START:.1f} s')
   print(json.dumps({'kernels': line}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

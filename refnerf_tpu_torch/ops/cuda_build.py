@@ -93,15 +93,18 @@ EXPORTS = {
     },
     # The width-1024 spatial trunk, layer by layer (both dtypes, both
     # directions): the products (bf16, mode, M, N, a0, lda0, k0, a1, lda1,
-    # k1, b, ldb, bias, act, ld_act, sb, wd, out, ldo, stream: `NtParams`),
-    # sigma (bf16, M, W, y, wd, sig, stream), the weight gradients' partials
-    # (bf16, Mo, No, rows, ksplit, z, ldz, x0, ldx0, n0, x1, ldx1, part,
-    # bpart, stream; bpart, the bias gradient's partials, bf16 only, or
-    # null) and the column sums (vbf16, rows, cols, v, ldv, s, block_rows,
-    # part, stream); trunk_bwd's refnerf_reduce sums the partials.
+    # k1, b, b_lo, ldb, bias, act, ld_act, sb, wd, out, ldo, stream:
+    # `NtParams`; f32 takes B as its TF32 parts b and b_lo, bf16 b_lo
+    # null), the weights' TF32 split (n, v, hi, lo, stream), sigma (bf16, M,
+    # W, y, wd, sig, stream), the weight gradients' partials (bf16, Mo, No,
+    # rows, ksplit, z, ldz, x0, ldx0, n0, x1, ldx1, part, bpart, stream;
+    # bpart, the bias gradient's partials, or null) and the column sums
+    # (vbf16, rows, cols, v, ldv, s, block_rows, part, stream); trunk_bwd's
+    # refnerf_reduce sums the partials.
     'trunk_w1024': {
-        'refnerf_w1024_nt': [_I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
-                             _P, _P, _I, _P, _P, _P, _I, _P],
+        'refnerf_w1024_nt': [_I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
+                             _I, _P, _P, _I, _P, _P, _P, _I, _P],
+        'refnerf_w1024_split': [_I, _P, _P, _P, _P],
         'refnerf_w1024_sigma': [_I, _I, _I, _P, _P, _P, _P],
         'refnerf_w1024_tn': [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _I,
                              _P, _P, _P],

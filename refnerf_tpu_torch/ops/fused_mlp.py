@@ -44,7 +44,8 @@ f32 K11 in trunk_fwd.cu;
 width 256 and,
 for the directional trunk, 128; the spatial trunk at width 1024 with the
 256-wide head (`w1024`) layer by layer on `csrc/trunk_w1024.cu` (K1 and
-first-order K4), `_w1024_forward` and `_w1024_backward`; all run for CUDA
+first-order K4; wgmma in bf16, three TF32 passes of wgmma in f32),
+`_w1024_forward` and `_w1024_backward`; all run for CUDA
 tensors unless `mode='off'`. A CPU
 tensor or `mode='off'` takes the plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
@@ -925,9 +926,13 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     # [128][64] and a [256][64] slice, the [128][256] staging tile, 8
     # mbarriers: 214,080 B) and the tn product's `kTnSmem` (4 stages, 8
     # mbarriers, the bias sums' two halves of 128 floats: 198,720 B); f32
-    # two buffers of two [16][132] tiles.
+    # the TF32 nt product's `kF32NtSmem` (4 stages of a [128][32] A slice
+    # and B's two [128][32] parts, 8 mbarriers: 197,696 B) and the tn
+    # product's `kF32TnSmem` (4 stages of Z's and X's [32][128], two
+    # buffers of X^T's two [128][32] parts, 12 mbarriers: 197,728 B).
     if pack.compute_dtype == 'float32':
-      return 2 * 2 * 16 * 132 * 4
+      return max(1024 + 4 * 3 * 128 * 128 + 8 * 8,
+                 1024 + 4 * 2 * 128 * 128 + 2 * 2 * 128 * 128 + 12 * 8)
     stage = (128 + 256) * 64 * 2
     return max(1024 + 3 * stage + 128 * 256 * 2 + 8 * 8,
                1024 + 4 * stage + 8 * 8 + 2 * 128 * 4)
@@ -1382,34 +1387,56 @@ def _w1024_input(segs, pack: TrunkPack):
 
 
 def _w1024_layers(pack: TrunkPack):
-  """Each layer's (W_l, W_l^T) addresses in the pack's flat layouts and its
-  packed input width K_l."""
-  es, off, out = pack.w.element_size(), 0, []
+  """Each layer's offset (elements) in the pack's flat layouts of W_l and
+  W_l^T, and its packed input width K_l."""
+  off, out = 0, []
   for k in pack.k_dims():
-    out.append((pack.w.data_ptr() + off * es, pack.wt.data_ptr() + off * es,
-                k))
+    out.append((off, k))
     off += pack.width * k
+  return out
+
+
+def _w1024_operands(lib, pack: TrunkPack, names, stream):
+  """{name: (B, B's low part or None)} for the pack's weight tensors
+  `names` ('w', 'wt', 'wc', 'wct'), the B operands of the products: bf16
+  the tensor as it is; f32 its TF32 high and low parts, split once a call
+  (`refnerf_w1024_split`)."""
+  out = {}
+  for name in names:
+    t = getattr(pack, name)
+    if pack.compute_dtype == 'bfloat16':
+      out[name] = (t, None)
+      continue
+    parts = torch.empty(2, t.numel(), device=t.device)
+    err = lib.refnerf_w1024_split(t.numel(), t.data_ptr(), parts[0].data_ptr(),
+                                  parts[1].data_ptr(), stream)
+    _check_launch(err, 'width-1024 weight split')
+    out[name] = tuple(parts)
   return out
 
 
 def _w1024_nt(lib, pack: TrunkPack, mode, m, n, a0, lda0, k0, b, ldb, out,
               a1=None, lda1=0, k1=0, bias=None, act=None, sb=None,
-              stream=None):
+              stream=None, b_off=0):
   """One nt product of csrc/trunk_w1024.cu: out [m, n] = epilogue `mode`
-  of [a0 | a1] B^T (addresses and leading dimensions in elements)."""
+  of [a0 | a1] B^T (addresses and leading dimensions in elements), B from
+  b (a `_w1024_operands` pair) at element b_off."""
+  bh, bl = (None if t is None else t.data_ptr() + b_off * t.element_size()
+            for t in b)
   err = lib.refnerf_w1024_nt(int(pack.compute_dtype == 'bfloat16'), mode, m,
-                             n, a0, lda0, k0, a1, lda1, k1, b, ldb, bias, act,
-                             n if act else 0, sb, _ptr(pack.wd), out, n,
+                             n, a0, lda0, k0, a1, lda1, k1, bh, bl, ldb, bias,
+                             act, n if act else 0, sb, _ptr(pack.wd), out, n,
                              stream)
   _check_launch(err, 'width-1024 product')
 
 
-def _w1024_trunk(lib, pack: TrunkPack, x, rows, acts, stream):
-  """The trunk's layers on `rows` rows of x [., kin]: layer l's activation
-  into acts(l), a [>= rows, width] buffer. Returns the last one's."""
+def _w1024_trunk(lib, pack: TrunkPack, w, x, rows, acts, stream):
+  """The trunk's layers on `rows` rows of x [., kin], B from w (the pack's
+  `w` as `_w1024_operands` gives it): layer l's activation into acts(l), a
+  [>= rows, width] buffer. Returns the last one's."""
   W, es = pack.width, pack.b.element_size()
   h = None
-  for l, (wp, _, k) in enumerate(_w1024_layers(pack)):
+  for l, (off, k) in enumerate(_w1024_layers(pack)):
     out = acts(l)
     if l == 0:
       a = dict(a0=x.data_ptr(), lda0=pack.kin, k0=pack.kin)
@@ -1417,16 +1444,18 @@ def _w1024_trunk(lib, pack: TrunkPack, x, rows, acts, stream):
       a = dict(a0=h.data_ptr(), lda0=W, k0=W)
       if l == pack.skip:
         a.update(a1=x.data_ptr(), lda1=pack.kin, k1=pack.kin)
-    _w1024_nt(lib, pack, _NT_RELU, rows, W, b=wp, ldb=k, out=out.data_ptr(),
-              bias=pack.b.data_ptr() + l * W * es, stream=stream, **a)
+    _w1024_nt(lib, pack, _NT_RELU, rows, W, b=w, ldb=k, out=out.data_ptr(),
+              bias=pack.b.data_ptr() + l * W * es, stream=stream, b_off=off,
+              **a)
     h = out
   return h
 
 
 def _w1024_forward(segs, pack: TrunkPack):
-  """The width-1024 forward (`w1024`, csrc/trunk_w1024.cu): one product
-  a layer, then the bottleneck head's and sigma's f32 dot product. Returns
-  [sigma [n], hc [n, hc]], as trunk_kernel."""
+  """The width-1024 forward (`w1024`, csrc/trunk_w1024.cu): in f32 the
+  weights split into their TF32 parts, then one product a layer, then the
+  bottleneck head's and sigma's f32 dot product. Returns [sigma [n], hc [n,
+  hc]], as trunk_kernel."""
   from refnerf_tpu_torch.ops import cuda_build  # builds on first use
   lib = cuda_build.library(W1024_LIBRARY)
   x = _w1024_input(segs, pack)
@@ -1438,11 +1467,12 @@ def _w1024_forward(segs, pack: TrunkPack):
   if n:
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+      ops = _w1024_operands(lib, pack, ('w', 'wc'), stream)
       bufs = torch.empty(2, n, W, device=dev, dtype=cdt)
-      y = _w1024_trunk(lib, pack, x, n, lambda l: bufs[l % 2], stream)
-      _w1024_nt(lib, pack, _NT_BIAS, n, hc, y.data_ptr(), W, W,
-                pack.wc.data_ptr(), W, cout.data_ptr(),
-                bias=pack.bc.data_ptr(), stream=stream)
+      y = _w1024_trunk(lib, pack, ops['w'], x, n, lambda l: bufs[l % 2],
+                       stream)
+      _w1024_nt(lib, pack, _NT_BIAS, n, hc, y.data_ptr(), W, W, ops['wc'], W,
+                cout.data_ptr(), bias=pack.bc.data_ptr(), stream=stream)
       err = lib.refnerf_w1024_sigma(int(cdt == torch.bfloat16), n, W,
                                     y.data_ptr(), pack.wd.data_ptr(),
                                     sig.data_ptr(), stream)
@@ -1452,15 +1482,16 @@ def _w1024_forward(segs, pack: TrunkPack):
 
 def w1024_splits(m: int, n: int, sms: int, cdt: str = 'bfloat16') -> int:
   """The partials the width-1024 backward makes of an m x n weight gradient
-  at most, whatever its rows, on a card of `sms` SMs. bf16 (the persistent
-  tn product, one CTA an SM over 128 x 256 tiles, the last one cut at n):
-  the fewest, up to 16, whose units fill at least 90% of the SM-waves they
-  take (else the fullest); 1024 x 1024 on 132 SMs: 4, 1024 x 1536: 5,
-  1024 x 512: 8, 256 x 1024: 15. f32 (128 x 128 tiles, a CTA each): as
-  many as give about two CTAs an SM."""
+  at most, whatever its rows, on a card of `sms` SMs: the persistent tn
+  product (one CTA an SM over its tiles, the last one cut at n) takes the
+  fewest, up to 16, whose units fill at least 90% of the SM-waves they
+  take (else the fullest). bf16 tiles are 128 x 256 (1024 x 1024 on 132
+  SMs: 4, 1024 x 1536: 5, 1024 x 512: 8, 256 x 1024: 15), f32 128 x 128
+  (1024 x 1024: 2, 1024 x 1536: 4, 1024 x 512: 4, 256 x 1024: 8)."""
   if cdt == 'float32':
-    return max(1, -(-2 * sms // ((m // 128) * (n // 128))))
-  tiles = (m // 128) * -(-n // 256)
+    tiles = (m // 128) * -(-n // 128)
+  else:
+    tiles = (m // 128) * -(-n // 256)
   fill = lambda s: tiles * s / (-(-tiles * s // sms) * sms)
   return next((s for s in range(1, 17) if fill(s) >= 0.9),
               max(range(1, 17), key=fill))
@@ -1479,12 +1510,13 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
   """The width-1024 first-order backward (`w1024`, csrc/trunk_w1024.cu):
   per slab of `slab` rows (`bwd_slab_rows`) the activations recomputed, the
   heads' backward, then per layer downwards the weight gradient's partials
-  and their fixed-order sum, the bias gradient and the reverse product. In
-  bf16 the weight-gradient product also gives the bias gradient's partials
-  (the column sums of zeta it holds: dbc from cbar's with dwc, db_l from
-  zeta_l's with dW_l), summed in the same fixed order; in f32 the bias
-  gradients are column sums. Returns what trunk_backward_reference does (no
-  dx, u or epilogue)."""
+  and their fixed-order sum, the bias gradient and the reverse product. The
+  weight-gradient product also gives the bias gradient's partials (the
+  column sums of zeta it holds: dbc from cbar's with dwc, db_l from
+  zeta_l's with dW_l), summed in the same fixed order; the density head's
+  gradient is the one column sum a slab. In f32 the B operands (w, wct,
+  wt) are split into their TF32 parts once a call. Returns what
+  trunk_backward_reference does (no dx, u or epilogue)."""
   from refnerf_tpu_torch.ops import cuda_build  # builds on first use
   sbar, _, cbar, ubar, *_ = cots
   if ubar is not None:
@@ -1517,8 +1549,8 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
   grads = [(W, k) for k in k_pack] + [(hc, W)]
   splits = {g: w1024_splits(*g, sms, pack.compute_dtype) for g in grads}
   wpart = f32(max(splits[m, k] * m * k for m, k in grads))
-  bpart = f32(max(splits[m, k] * m for m, k in grads)) if bf else None
-  vpart = f32(-(-slab // _W1024_COLSUM_ROWS) * max(W, hc))
+  bpart = f32(max(splits[m, k] * m for m, k in grads))
+  vpart = f32(-(-slab // _W1024_COLSUM_ROWS) * W)
   stream = torch.cuda.current_stream(dev).cuda_stream
   ptr = lambda t, row, width: t.data_ptr() + row * width * t.element_size()
 
@@ -1529,45 +1561,39 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
 
   def wgrad(dst, bias, m, k, k_dst, rows, z, x0, ldx0, n0, x1, ldx1, acc):
     """dst (+)= z^T [x0 | x1] and bias (+)= z's column sums over the slab's
-    rows (z [rows, m] contiguous): in bf16 both from the one product, in
-    f32 the bias by a column sum."""
+    rows (z [rows, m] contiguous), both from the one product."""
     ksplit = w1024_split(rows, m, k, sms, pack.compute_dtype)
     nparts = -(-rows // ksplit)
     assert nparts <= splits[m, k], (rows, m, k, nparts)
     assert nparts * m * k <= wpart.numel(), (rows, m, k, nparts)
-    assert not bf or nparts * m <= bpart.numel(), (rows, m, nparts)
+    assert nparts * m <= bpart.numel(), (rows, m, nparts)
     err = lib.refnerf_w1024_tn(bf, m, k, rows, ksplit, z, m, x0, ldx0, n0,
-                               x1, ldx1, wpart.data_ptr(),
-                               bpart.data_ptr() if bf else None, stream)
+                               x1, ldx1, wpart.data_ptr(), bpart.data_ptr(),
+                               stream)
     _check_launch(err, 'width-1024 weight gradient')
     reduce(wpart, nparts, m, k, k_dst, dst, acc)
-    if bf:
-      reduce(bpart, nparts, 1, m, m, bias, acc)
-    else:
-      colsum(bias, rows, z, m, acc)
-
-  def colsum(dst, rows, v, cols, acc, scale=None):
-    err = lib.refnerf_w1024_colsum(bf, rows, cols, v, cols, scale,
-                                   _W1024_COLSUM_ROWS, vpart.data_ptr(),
-                                   stream)
-    _check_launch(err, 'width-1024 column sum')
-    reduce(vpart, -(-rows // _W1024_COLSUM_ROWS), 1, cols, cols, dst, acc)
+    reduce(bpart, nparts, 1, m, m, bias, acc)
 
   with torch.cuda.device(dev):
+    ops = _w1024_operands(lib, pack, ('w', 'wct', 'wt'), stream)
+    layers = _w1024_layers(pack)
     for start in range(0, n, slab):
       rows, acc = min(slab, n - start), int(start > 0)
       xs = x[start:start + rows]
-      y = _w1024_trunk(lib, pack, xs, rows, lambda l: acts[l], stream)
+      y = _w1024_trunk(lib, pack, ops['w'], xs, rows, lambda l: acts[l],
+                       stream)
       cb, sb = ptr(cbar, start, hc), ptr(sbar, start, 1)
       # The heads' backward: zeta of the last layer, then the heads'
       # gradients (dwc = cbar^T y, dbc, and dwd from y's column sums scaled
       # by sigma's cotangent).
-      _w1024_nt(lib, pack, _NT_HEAD_BWD, rows, W, cb, hc, hc,
-                pack.wct.data_ptr(), hc, zs[0].data_ptr(), act=y.data_ptr(),
-                sb=sb, stream=stream)
+      _w1024_nt(lib, pack, _NT_HEAD_BWD, rows, W, cb, hc, hc, ops['wct'], hc,
+                zs[0].data_ptr(), act=y.data_ptr(), sb=sb, stream=stream)
       wgrad(dwc, dbc, hc, W, W, rows, cb, y.data_ptr(), W, W, None, 0, acc)
-      colsum(dwd, rows, y.data_ptr(), W, acc, sb)
-      layers = _w1024_layers(pack)
+      err = lib.refnerf_w1024_colsum(bf, rows, W, y.data_ptr(), W, sb,
+                                     _W1024_COLSUM_ROWS, vpart.data_ptr(),
+                                     stream)
+      _check_launch(err, 'width-1024 column sum')
+      reduce(vpart, -(-rows // _W1024_COLSUM_ROWS), 1, W, W, dwd, acc)
       for l in reversed(range(L)):
         z = zs[(L - 1 - l) % 2]
         if l == 0:
@@ -1580,8 +1606,9 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
               *src, acc)
         if l > 0:
           _w1024_nt(lib, pack, _NT_REV, rows, W, z.data_ptr(), W, W,
-                    layers[l][1], W, zs[(L - l) % 2].data_ptr(),
-                    act=acts[l - 1].data_ptr(), stream=stream)
+                    ops['wt'], W, zs[(L - l) % 2].data_ptr(),
+                    act=acts[l - 1].data_ptr(), stream=stream,
+                    b_off=layers[l][0])
   return (dws, list(dbs.unbind(0)), dwd, None, None, dwc, dbc, None, None,
           None)
 

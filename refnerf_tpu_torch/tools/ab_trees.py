@@ -40,8 +40,8 @@ of phases 3, 5, 7, 9 and 11 (K2 at width 128 and K11 included) and phase
 (chip_smoke.compare) without their backward cases, `backward_kernels`
 every backward case of phases 5, 7, 9, 11 and 19 (K4 wide) in --dtype
 without their forward cases. Each run's output goes to --out.
-Printed: every case's kernel and plain times (and device busy, where
-measured) per arm in run order and their medians; then, per
+Printed: every case's kernel and plain times (and device busy and the
+PyTorch chain's library time, where measured) per arm in run order and their medians; then, per
 library, whether each kernel instance of the first arm has the same SASS
 instructions in each other arm (an instance that gained trailing template
 arguments at their defaults, false flags or the width 256, is the same
@@ -470,9 +470,11 @@ def w1024_pair(fused_mlp, dev):
   chip_smoke.w1024_case) at chip_smoke's N in bfloat16 and float32 (the
   run's DTYPE not read): the forward (K1 W1024 hc256) and the first-order
   backward (K4 1st W1024) each against its plain version through
-  chip_smoke.compare (which prints kernel and plain ms), without phase
+  chip_smoke.compare (which prints kernel, plain and library ms), with
+  chip_smoke.w1024_chain, the PyTorch chain of the same function (its
+  f32 products in full f32: TF32 off), timed between them, without phase
   24's reruns and planted faults. Uses only what every checkout's
-  chip_smoke has since phase 24 came in."""
+  chip_smoke has since `w1024_chain` came in."""
   import torch
   import chip_smoke as cs
   n = cs.N_SAMPLES
@@ -489,14 +491,16 @@ def w1024_pair(fused_mlp, dev):
                                                  compute_dtype=cdt, **kw),
                n_values=2, phase=24, iters=3,
                inputs=xs + cs.pack_tensors(pack), n=n,
-               flops=cs.trunk_flops(ws, n, 257))
+               flops=cs.trunk_flops(ws, n, 257),
+               library=cs.w1024_chain(fused_mlp, xs, ws, bs, kw, cdt))
     cs.compare('K4 1st W1024', cdt,
                lambda: fused_mlp.trunk_backward_kernel(xs, pack, cn),
                lambda: fused_mlp.trunk_backward_reference(
                    xs, ws, bs, cn, compute_dtype=cdt, **kw),
                n_values=0, iters=2, phase=24,
                inputs=xs + cs.pack_tensors(pack) + list(cn), n=n,
-               flops=cs.trunk_flops(ws, n, 257, backward=True))
+               flops=cs.trunk_flops(ws, n, 257, backward=True),
+               library=cs.w1024_chain(fused_mlp, xs, ws, bs, kw, cdt, cn))
     del xs, cn, pack
     torch.cuda.empty_cache()
 
@@ -573,6 +577,8 @@ BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
 DEFAULTS = ('false', '(bool)0', '(int)256')
 TIMES = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?kernel '
                    r'([\d.]+) ms, plain ([\d.]+) ms', re.M)
+LIBRARY = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?library '
+                     r'([\d.]+) ms', re.M)
 BUSY = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?device '
                   r'busy ([\d.]+) ms', re.M)
 SASS = re.compile(r'/\*[0-9a-f]{4,}\*/\s+(.*?;)')
@@ -600,8 +606,8 @@ def build(arms):
 
 
 def run_arms(arms, order, out, checks, dtype='bfloat16'):
-  """{(case, dtype): {arm: [(kernel ms, plain ms[, device busy ms]) per
-  run]}}."""
+  """{(case, dtype): {arm: [(kernel ms, plain ms, device busy ms or None,
+  library ms or None) per run]}}."""
   times = {}
   run = (f'CHECKS = {checks!r}\nOWN = {sorted(OWN)!r}\nDTYPE = {dtype!r}\n' +
          ''.join(inspect.getsource(f) + '\n' for f in OWN.values()) + RUN)
@@ -615,10 +621,12 @@ def run_arms(arms, order, out, checks, dtype='bfloat16'):
                          f'{proc.stderr[-3000:]}')
     busy = {(case, cdt): float(b)
             for case, cdt, b in BUSY.findall(proc.stdout)}
+    lib = {(case, cdt): float(b)
+           for case, cdt, b in LIBRARY.findall(proc.stdout)}
     for case, cdt, k, p in TIMES.findall(proc.stdout):
       times.setdefault((case, cdt), {}).setdefault(arm, []).append(
-          (float(k), float(p)) + ((busy[case, cdt],)
-                                  if (case, cdt) in busy else ()))
+          (float(k), float(p),
+           busy.get((case, cdt)), lib.get((case, cdt))))
     print(f'run {i} ({arm}) done', flush=True)
   return times
 
@@ -713,18 +721,22 @@ def main():
     row = {}
     for arm, runs in by_arm.items():
       ks, ps = [r[0] for r in runs], [r[1] for r in runs]
-      bs = [r[2] for r in runs if len(r) > 2]
       row[arm] = {'kernel_ms': ks, 'plain_ms': ps,
                   'kernel_median': statistics.median(ks),
                   'plain_median': statistics.median(ps)}
-      if bs:
-        row[arm].update(busy_ms=bs, busy_median=statistics.median(bs))
+      text = ''
+      for i, what in ((2, 'busy'), (3, 'library')):
+        vs = [r[i] for r in runs if r[i] is not None]
+        if vs:
+          row[arm].update({f'{what}_ms': vs,
+                           f'{what}_median': statistics.median(vs)})
+          text += (f', {"device busy" if i == 2 else what} ' +
+                   ' '.join(f'{v:.3f}' for v in vs) +
+                   f' (median {statistics.median(vs):.3f}) ms')
       print(f'{case} {cdt} {arm}: kernel ' + ' '.join(f'{k:.3f}' for k in ks)
             + f' (median {row[arm]["kernel_median"]:.3f}) ms, plain '
             + ' '.join(f'{p:.3f}' for p in ps)
-            + f' (median {row[arm]["plain_median"]:.3f}) ms' + (
-                ', device busy ' + ' '.join(f'{b:.3f}' for b in bs) +
-                f' (median {row[arm]["busy_median"]:.3f}) ms' if bs else ''))
+            + f' (median {row[arm]["plain_median"]:.3f}) ms' + text)
     summary[f'{case} {cdt}'] = row
   sass = compare_sass(arms, out)
   for label, verdicts in sass.items():

@@ -2012,21 +2012,23 @@ def test_remat_on_the_card_is_bit_for_bit_and_reruns_the_forwards(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize('n,cdt', [
     (n, cdt) for n in (1000, 4097, 534) for cdt in ('float32', 'bfloat16')] +
-    [(n, 'bfloat16') for n in (1, 63, 65, 257)])
+    [(n, 'bfloat16') for n in (1, 63, 65, 257)] +
+    [(n, 'float32') for n in (257, 513)])
 def test_w1024_trunk_matches_plain(dev, cdt, n):
   # mip-NeRF 360's NeRF MLP trunk (8 x 1024, the skip at layer 5, the IPE
   # of 21 basis vectors x 12 degrees: 504 columns, the density head and
   # the 256-wide bottleneck) through fused_encoded_trunk under 'on' at n
   # rows (1000; 4097, whose last 128-row tile holds one row; 534, whose
-  # last slab of 150 rows makes more weight-gradient partials than a full
+  # last slab of 150 rows splits its weight gradients otherwise than a full
   # slab of 384; in bf16 also 1, 63, 65 and 257, across the wgmma
-  # products' 128-row tiles and 64-row slices: the f32 products keep their
-  # tiles, and at a few dozen rows one f32 relu' flip, which summation
-  # order decides, weighs a whole row's share of each gradient), on
+  # products' 128-row tiles and 64-row slices; in f32 also 257 and 513, one
+  # row past the TF32 products' 128-row tiles: at a few dozen rows one f32
+  # relu' flip, which summation order decides, weighs a whole row's share
+  # of each gradient and can pass GRAD_BOUND alone (H8, H25)), on
   # trunk_w1024.cu: sigma and the bottleneck by
   # BOUND and every gradient by GRAD_BOUND against the plain versions; one
-  # launch each counted under 'K1 w1024' / 'K4 w1024'; in bf16 a second
-  # run bit-identical (H4); the backward in slabs of 384 rows bit-identical
+  # launch each counted under 'K1 w1024' / 'K4 w1024'; a second run
+  # bit-identical (H4); the backward in slabs of 384 rows bit-identical
   # run to run and within GRAD_BOUND of one slab.
   gen = torch.Generator().manual_seed(24)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
@@ -2044,7 +2046,7 @@ def test_w1024_trunk_matches_plain(dev, cdt, n):
   wd, bd, wc, bc = params[16:20]
   outs = {}
   weights = [rand(n), rand(n, 256)]
-  for mode in ('on', 'off') + (('on again',) if cdt == 'bfloat16' else ()):
+  for mode in ('on', 'off', 'on again'):
     mode, key = mode.split()[0], mode
     before = dict(fused_mlp.launches)
     res = fused_mlp.fused_encoded_trunk(
@@ -2056,10 +2058,9 @@ def test_w1024_trunk_matches_plain(dev, cdt, n):
              v != before[k]}
     outs[key] = (res, grads, moved)
   (res, grads, moved), (pres, pgrads, pmoved) = outs['on'], outs['off']
-  if 'on again' in outs:
-    again = outs['on again']
-    assert all(torch.equal(x, y) for x, y in zip(res, again[0]))
-    assert all(torch.equal(x, y) for x, y in zip(grads, again[1]))
+  again = outs['on again']
+  assert all(torch.equal(x, y) for x, y in zip(res, again[0]))
+  assert all(torch.equal(x, y) for x, y in zip(grads, again[1]))
   assert moved == {'K1': 1, 'K1 w1024': 1, 'K4': 1, 'K4 w1024': 1}
   assert pmoved == {}
   for r, p in zip(res, pres):

@@ -23,7 +23,8 @@ from 0.2 to 1e6 with an opaque background, `warp_fn = @coord.contract`.
   against the plain versions with the C entry points of csrc/trunk_w1024.cu
   and the reduction of csrc/trunk_bwd.cu replaced by `_W1024Sim`, a model
   of their contract on CPU memory (each argument list checked against
-  `cuda_build.EXPORTS`, each write of partials held inside its buffer):
+  `cuda_build.EXPORTS`, each write of partials held inside its buffer; the
+  f32 products as three TF32 passes, `_tf32` modelling the split):
   slabs, partials and their sums, the heads;
 - the full-width model trained and served with the width-1024 libraries
   so replaced, and the other trunks' kernels by their plain versions:
@@ -367,10 +368,11 @@ def test_w1024_routes_at_full_shape(cdt):
   modes = (False, None, fused_mlp.DirModes(), fused_mlp.SpaModes())
   assert fused_mlp.launch_keys('K1', pack, *modes) == ['K1', 'K1 w1024']
   assert fused_mlp.launch_keys('K4', pack, *modes) == ['K4', 'K4 w1024']
-  # bf16: the nt product's CTA (csrc/trunk_w1024.cu `kNtSmem`), the
-  # larger of the two wgmma products'.
+  # The larger of the two wgmma products' CTAs (csrc/trunk_w1024.cu):
+  # bf16 the nt product's (`kNtSmem`), f32 the TF32 tn product's
+  # (`kF32TnSmem`).
   assert fused_mlp.kernel_smem('trunk_w1024', _pack(cdt), 256) == (
-      214080 if cdt == 'bfloat16' else 33792)
+      214080 if cdt == 'bfloat16' else 197728)
 
 
 @pytest.mark.parametrize('case,words', [
@@ -425,6 +427,30 @@ def test_shapes_still_without_an_instance_are_named(case, words):
 # --------------------------------- the wrappers on a model of the C contract
 
 
+def _tf32(x):
+  """f32 x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to 10 mantissa
+  bits, ties away from zero (the low 13 bits of the magnitude)."""
+  b = x.float().contiguous().view(torch.int32)
+  return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+  """The TF32 parts of f32 x as csrc/trunk_w1024.cu splits them: hi, and
+  the TF32 rounding of x - hi."""
+  hi = _tf32(x)
+  return hi, _tf32(x.float() - hi)
+
+
+def _tf32_product(a, b, passes=3):
+  """a @ b as the f32 products compute it: lo.hi + hi.lo + hi.hi of the
+  two operands' TF32 parts, f32 sums (`passes` 1: hi.hi alone, the
+  shortcut the bounds must see)."""
+  (ah, al), (bh, bl) = _split(a), _split(b)
+  if passes == 1:
+    return ah @ bh
+  return al @ bh + ah @ bl + ah @ bh
+
+
 def _view(p, rows, ld, cols, dtype):
   """[rows, cols] with row stride ld at address p, sharing its memory."""
   es = torch.empty(0, dtype=dtype).element_size()
@@ -439,14 +465,15 @@ class _W1024Sim:
   refnerf_reduce as their comments state them, on CPU memory: each call's
   arguments are checked against cuda_build.EXPORTS (count and ctypes types)
   and recorded, then run in torch with the kernels' casts (products in f32,
-  rounded to the compute dtype where the kernels round). Each write of
-  partials (`_tn`, `_colsum`) must lie inside the storage of a live tensor
-  that `torch.empty` returned (`allocated`, filled by the w1024_sim
-  fixture)."""
+  rounded to the compute dtype where the kernels round; f32 products as
+  `passes` TF32 passes, `_tf32_product`). Each write of partials (`_tn`,
+  `_colsum`) must lie inside the storage of a live tensor that
+  `torch.empty` returned (`allocated`, filled by the w1024_sim fixture)."""
 
   def __init__(self):
     self.calls = []
     self.allocated = []  # weak references to what torch.empty returned
+    self.passes = 3
 
   def inside(self, p, nbytes):
     """Whether [p, p + nbytes) lies within one live tensor's storage."""
@@ -471,17 +498,31 @@ class _W1024Sim:
       return impl(*args)
     return call
 
-  @staticmethod
-  def _nt(bf, mode, m, n, a0, lda0, k0, a1, lda1, k1, b, ldb, bias, act,
-          ld_act, sb, wd, out, ldo, stream):
+  def _nt(self, bf, mode, m, n, a0, lda0, k0, a1, lda1, k1, b, b_lo, ldb,
+          bias, act, ld_act, sb, wd, out, ldo, stream):
     del stream
     dt = torch.bfloat16 if bf else torch.float32
     rnd = lambda v: v.to(dt).float()
-    acc = _view(a0, m, lda0, k0, dt).float() @ _view(b, n, ldb, k0,
-                                                      dt).float().t()
+    # bf16: B as it is; f32: B's TF32 parts from refnerf_w1024_split, which
+    # the product must equal (hi + lo within rounding of the weights).
+    assert bool(b_lo) != bool(bf), 'b_lo is given in f32 alone'
+    es = 2 if bf else 4
+
+    def product(a, lda, k, off):
+      av = _view(a, m, lda, k, dt).float()
+      bv = _view(b + off * es, n, ldb, k, dt).float()
+      if bf:
+        return av @ bv.t()
+      lo = _view(b_lo + off * es, n, ldb, k, dt)
+      assert torch.equal(_tf32(bv), bv) and torch.equal(_tf32(lo), lo)
+      ah, al = _split(av)
+      if self.passes == 1:
+        return ah @ bv.t()
+      return al @ bv.t() + ah @ lo.t() + ah @ bv.t()
+
+    acc = product(a0, lda0, k0, 0)
     if k1:
-      acc = acc + _view(a1, m, lda1, k1, dt).float() @ _view(
-          b + k0 * (2 if bf else 4), n, ldb, k1, dt).float().t()
+      acc = acc + product(a1, lda1, k1, k0)
     if mode in (0, 3):  # kRelu, kBias
       v = rnd(rnd(acc) + _view(bias, 1, n, n, dt).float())
       v = torch.relu(v) if mode == 0 else v
@@ -497,6 +538,14 @@ class _W1024Sim:
     return 0
 
   @staticmethod
+  def _split(n, v, hi, lo, stream):
+    del stream
+    h, l = _split(_view(v, 1, n, n, torch.float32))
+    _view(hi, 1, n, n, torch.float32).copy_(h)
+    _view(lo, 1, n, n, torch.float32).copy_(l)
+    return 0
+
+  @staticmethod
   def _sigma(bf, m, w, y, wd, sig, stream):
     del stream
     yv = _view(y, m, w, w, torch.bfloat16 if bf else torch.float32).float()
@@ -508,14 +557,14 @@ class _W1024Sim:
           part, bpart, stream):
     del stream
     # bf16: 128 x 256 tiles over 64-row slices, x0's columns on whole
-    # tiles where x1 follows, and the bias partials where bpart is given;
-    # f32: 128 x 128 tiles over 32-row slices, no bias partials.
+    # tiles where x1 follows; f32: 128 x 128 tiles over 32-row slices,
+    # three TF32 passes; the bias partials where bpart is given.
     if bf:
       assert ksplit % 64 == 0 and mo % 128 == 0
       assert n0 == no or n0 % 256 == 0
     else:
-      assert ksplit % 32 == 0 and mo % 128 == 0 and no % 128 == 0
-      assert not bpart
+      assert ksplit % 32 == 0 and mo % 128 == 0 and no % 2 == 0
+      assert n0 == no or n0 % 128 == 0
     splits = -(-rows // ksplit)
     assert self.inside(part, splits * mo * no * 4), (
         'the partials overrun their buffer', rows, ksplit, mo, no)
@@ -531,7 +580,8 @@ class _W1024Sim:
         splits, mo, no)
     for s in range(splits):
       rs = slice(s * ksplit, (s + 1) * ksplit)
-      parts[s].copy_(zm[rs].t() @ xm[rs])
+      parts[s].copy_(zm[rs].t() @ xm[rs] if bf else
+                     _tf32_product(zm[rs].t(), xm[rs], self.passes))
       if bpart:
         _view(bpart + s * mo * 4, 1, mo, mo, torch.float32).copy_(
             zm[rs].sum(0, keepdim=True))
@@ -621,21 +671,27 @@ def _flat(res):
 
 @pytest.mark.parametrize('cdt,slab', [
     ('float32', None), ('float32', 256), ('bfloat16', 256),
-    ('bfloat16', None), ('float32', 384)])
+    ('bfloat16', None), ('float32', 384), ('float32', 288)])
 def test_w1024_wrappers_match_plain(w1024_sim, cdt, slab):
-  # 600 rows (not a multiple of the 128-row tiles; three slabs of 256 where
-  # `slab` is set, the last of 88), the density head and the bottleneck:
-  # the forward's sigma and bottleneck within KERNEL_BOUND of their largest
-  # value, every gradient of the backward within GRAD_BOUND relative L2,
-  # against trunk_reference and trunk_backward_reference; the launches as
-  # the wrappers make them. In slabs of 384, 534 rows: the last slab's 150
-  # rows split a 1024 x 1024 weight gradient finer (32 rows a partial: 5
-  # partials) than a full slab (96 rows: 4), and every write of partials
-  # stays inside its buffer all the same (`_W1024Sim.inside`).
-  n = 534 if slab == 384 else 600
+  # 600 rows (not a multiple of the 128- or 256-row tiles; three slabs of
+  # 256 where `slab` is set, the last of 88), the density head and the
+  # bottleneck: the forward's sigma and bottleneck within KERNEL_BOUND of
+  # their largest value, every gradient of the backward within GRAD_BOUND
+  # relative L2, against trunk_reference and trunk_backward_reference; the
+  # launches as the wrappers make them. In slabs of 384, 534 rows: a full
+  # slab splits a 1024 x 1024 weight gradient into 2 partials of 192 rows,
+  # the last slab's 150 rows into 2 of 96; in slabs of 288, 388 rows: a
+  # full slab splits the skip layer's 1024 x 1536 gradient into 3 partials
+  # of 96 rows, the last slab's 100 rows into 4 of 32 (H24: more than a
+  # full slab), and every write of partials stays inside its buffer all the
+  # same (`_W1024Sim.inside`).
+  n = {384: 534, 288: 388}.get(slab, 600)
+  split = lambda rows, k=1024: fused_mlp.w1024_split(rows, 1024, k, 132, cdt)
   if slab == 384:
-    split = lambda rows: fused_mlp.w1024_split(rows, 1024, 1024, 132, cdt)
-    assert (split(slab), split(n - slab)) == (96, 32)
+    assert (split(slab), split(n - slab)) == (192, 96)
+  if slab == 288:
+    assert (split(slab, 1536), split(n - slab, 1536)) == (96, 32)
+    assert -(-slab // 96) < -(-(n - slab) // 32)
   segs, ws, bs, kw, cots = _trunk(4, n)
   dt = fused_mlp.DTYPES[cdt]
   segs = [s.to(dt) for s in segs]
@@ -649,8 +705,11 @@ def test_w1024_wrappers_match_plain(w1024_sim, cdt, slab):
     scale = max(1.0, w.float().abs().max().item())
     assert (g.float() - w.float()).abs().max().item() <= (
         KERNEL_BOUND[cdt] * scale)
-  assert w1024_sim.calls == ['refnerf_w1024_nt'] * 9 + [
-      'refnerf_w1024_sigma']
+  # f32 splits the layers' and the bottleneck's weights into their TF32
+  # parts first.
+  splits = 2 if cdt == 'float32' else 0
+  assert w1024_sim.calls == ['refnerf_w1024_split'] * splits + [
+      'refnerf_w1024_nt'] * 9 + ['refnerf_w1024_sigma']
   w1024_sim.calls.clear()
   got = fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=slab)
   want = fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
@@ -664,15 +723,15 @@ def test_w1024_wrappers_match_plain(w1024_sim, cdt, slab):
   slabs = 1 if slab is None else -(-n // slab)
   count = collections.Counter(w1024_sim.calls)
   # A slab: 8 layers recomputed, the heads' backward, 7 reverse products;
-  # 9 weight gradients; in f32 the column sums of dbc, dwd and 8 biases, in
-  # bf16 of dwd alone (the weight gradients' products give dbc's and the
-  # biases' partials); one fixed-order sum for each of those.
-  sums = 2 + 8 if cdt == 'float32' else 1
-  bias_sums = 9 if cdt == 'bfloat16' else 0
-  assert count == {'refnerf_w1024_nt': 16 * slabs,
-                   'refnerf_w1024_tn': 9 * slabs,
-                   'refnerf_w1024_colsum': sums * slabs,
-                   'refnerf_reduce': (9 + sums + bias_sums) * slabs}
+  # 9 weight gradients, whose products also give dbc's and the biases'
+  # partials; the column sum of dwd alone; one fixed-order sum for each of
+  # those. In f32, once a call, the TF32 split of w, wc^T and w^T.
+  want = {'refnerf_w1024_nt': 16 * slabs, 'refnerf_w1024_tn': 9 * slabs,
+          'refnerf_w1024_colsum': slabs,
+          'refnerf_reduce': (9 + 1 + 9) * slabs}
+  if cdt == 'float32':
+    want['refnerf_w1024_split'] = 3
+  assert count == want
 
 
 def test_w1024_backward_sums_slabs_in_order(w1024_sim):
@@ -706,35 +765,34 @@ def _c_constants(path):
 
 
 def test_w1024_smem_mirrors_the_bf16_products():
-  # kernel_smem's bf16 sum for trunk_w1024 is the larger of the two wgmma
-  # products' dynamic shared memory as csrc/trunk_w1024.cu states it
-  # (kNtSmem: the ring, the staging tile, the mbarriers; kTnSmem: the
-  # deeper ring, the mbarriers, the bias sums' halves), within an H100's
-  # SMEM_LIMIT; the f32 sum is the FMA products'.
+  # kernel_smem's sum for trunk_w1024 is the larger of its two wgmma
+  # products' dynamic shared memory as csrc/trunk_w1024.cu states it, in
+  # each dtype, within an H100's SMEM_LIMIT. bf16: kNtSmem (the ring, the
+  # staging tile, the mbarriers), kTnSmem (the deeper ring, the mbarriers,
+  # the bias sums' halves); f32 (three TF32 passes): kF32NtSmem (the ring
+  # of A slices and B's two parts, the mbarriers), kF32TnSmem (the ring of
+  # Z and X slices, two buffers of X^T's two parts, the mbarriers).
   from refnerf_tpu_torch.ops import cuda_build
   c = _c_constants(cuda_build.CSRC / 'trunk_w1024.cu')
-  assert (c['kNtSmem'], c['kTnSmem']) == (214080, 198720)
-  assert fused_mlp.kernel_smem('trunk_w1024', _pack('bfloat16'), 256) == (
-      max(c['kNtSmem'], c['kTnSmem']))
-  assert max(c['kNtSmem'], c['kTnSmem']) <= fused_mlp.SMEM_LIMIT
-  assert fused_mlp.kernel_smem('trunk_w1024', _pack('float32'), 256) == (
-      c['kSmemF32'])
+  for cdt, nt, tn, want in (('bfloat16', 'kNtSmem', 'kTnSmem',
+                             (214080, 198720)),
+                            ('float32', 'kF32NtSmem', 'kF32TnSmem',
+                             (197696, 197728))):
+    assert (c[nt], c[tn]) == want
+    assert fused_mlp.kernel_smem('trunk_w1024', _pack(cdt), 256) == (
+        max(c[nt], c[tn]))
+    assert max(c[nt], c[tn]) <= fused_mlp.SMEM_LIMIT
 
 
 @pytest.mark.parametrize('n,slab', [(600, None), (534, 384)])
 def test_w1024_bias_gradients_come_from_the_weight_gradients(w1024_sim, n,
                                                             slab):
-  # bf16: the bias gradients (each layer's db and the bottleneck's dbc)
-  # are the weight-gradient products' per-partial column sums of zeta and
-  # cbar, summed in the fixed order: within GRAD_BOUND of
+  # In both dtypes the bias gradients (each layer's db and the
+  # bottleneck's dbc) are the weight-gradient products' per-partial column
+  # sums of zeta and cbar, summed in the fixed order: within GRAD_BOUND of
   # trunk_backward_reference, and the only column sum left a slab is the
   # density head's (y scaled by sigma's cotangent).
   segs, ws, bs, kw, cots = _trunk(6, n)
-  dt = torch.bfloat16
-  segs = [s.to(dt) for s in segs]
-  cots = cots[:2] + (cots[2].to(dt), None)
-  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype='bfloat16',
-                              **kw)
   colsums = []
   sim_colsum = w1024_sim._colsum
 
@@ -742,15 +800,22 @@ def test_w1024_bias_gradients_come_from_the_weight_gradients(w1024_sim, n,
     colsums.append((cols, bool(s)))
     return sim_colsum(vbf, rows, cols, v, ldv, s, block_rows, part, stream)
   w1024_sim._colsum = colsum
-  got = fused_mlp.trunk_backward_kernel(segs, pack, cots, slab=slab)
-  want = fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
-                                            compute_dtype='bfloat16', **kw)
-  slabs = -(-n // (slab or n))
-  assert colsums == [(1024, True)] * slabs
-  # (dbs, dbc): index 1 is the layers' bias gradients, 6 the bottleneck's.
-  for g, w in list(zip(got[1], want[1])) + [(got[6], want[6])]:
-    assert g.shape == w.shape and g.dtype == torch.float32
-    assert ((g - w).norm() / w.norm()).item() <= GRAD_BOUND['bfloat16']
+  for cdt in ('bfloat16', 'float32'):
+    dt = fused_mlp.DTYPES[cdt]
+    xs = [s.to(dt) for s in segs]
+    cs = cots[:2] + (cots[2].to(dt), None)
+    pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+    colsums.clear()
+    got = fused_mlp.trunk_backward_kernel(xs, pack, cs, slab=slab)
+    want = fused_mlp.trunk_backward_reference(xs, ws, bs, cs,
+                                              compute_dtype=cdt, **kw)
+    slabs = -(-n // (slab or n))
+    assert colsums == [(1024, True)] * slabs, cdt
+    # (dbs, dbc): index 1 is the layers' bias gradients, 6 the
+    # bottleneck's.
+    for g, w in list(zip(got[1], want[1])) + [(got[6], want[6])]:
+      assert g.shape == w.shape and g.dtype == torch.float32
+      assert ((g - w).norm() / w.norm()).item() <= GRAD_BOUND[cdt], cdt
 
 
 @pytest.mark.parametrize('sms', [132, 114])
@@ -759,13 +824,15 @@ def test_w1024_split_fits_its_scratch_for_every_slab(sms):
   # (bwd_slab_rows(1024)), each weight gradient of the NeRF MLP (1024 x
   # 512, 1024 x 1024, 1024 x 1536, the bottleneck's 256 x 1024) splits into
   # whole 64-row slices (32 in f32) that cover the slab in at most
-  # w1024_splits partials, the count the scratch is sized by.
+  # w1024_splits partials, the count the scratch is sized by, at most 16
+  # (the rule of either dtype's tiles: 128 x 256 in bf16, 128 x 128 in
+  # f32).
   full = fused_mlp.bwd_slab_rows(1024)
   rows = np.arange(1, full + 1)
   for cdt, q in (('bfloat16', 64), ('float32', 32)):
     for m, k in ((1024, 512), (1024, 1024), (1024, 1536), (256, 1024)):
       most = fused_mlp.w1024_splits(m, k, sms, cdt)
-      assert 1 <= most <= (16 if cdt == 'bfloat16' else most)
+      assert 1 <= most <= 16
       split = np.array([fused_mlp.w1024_split(int(r), m, k, sms, cdt)
                         for r in rows[::97]] +
                        [fused_mlp.w1024_split(full, m, k, sms, cdt)])
@@ -776,6 +843,79 @@ def test_w1024_split_fits_its_scratch_for_every_slab(sms):
       parts = -(-rows // every)
       assert (every % q == 0).all() and (parts * every >= rows).all()
       assert parts.max() <= most, (cdt, m, k, sms)
+
+
+def _truncated_product(a, b, slice_k=None):
+  """a @ b (f32 operands) as three TF32 passes accumulate on the tensor
+  cores, modelled in float64: each k8 step's three products (each an
+  exact sum of 8) added into the accumulator, which is cut to 24
+  significant bits toward zero after every addition; with `slice_k` each
+  slice_k-deep slice accumulates so into a fresh set that is added into
+  the result in f32, rounded to nearest (csrc/trunk_w1024.cu's `part`)."""
+  (ah, al), (bh, bl) = (tuple(t.double().numpy() for t in _split(x))
+                        for x in (a, b))
+  cut = lambda x: np.ldexp(np.trunc(np.frexp(x)[0] * 2.0**24) / 2.0**24,
+                           np.frexp(x)[1])
+  k_all, step = a.shape[1], slice_k or a.shape[1]
+  out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+  for k0 in range(0, k_all, step):
+    acc = np.zeros(out.shape)
+    for k in range(k0, k0 + step, 8):
+      s = slice(k, k + 8)
+      for x, y in ((al, bh), (ah, bl), (ah, bh)):
+        acc = cut(acc + x[:, s] @ y[s])
+    out = out + acc.astype(np.float32)
+  return out.astype(np.float64)
+
+
+def test_w1024_tf32_truncating_accumulation_needs_slice_sums():
+  # H26: the tensor cores add into f32 accumulators with truncation, whose
+  # bias grows with the additions. On a layer's product (64 rows of relu'd
+  # activations by a 1024 x 128 block of He-scaled weights), modelled by
+  # `_truncated_product`: one accumulator set over K = 1024 (3 x 128
+  # additions) reads tens of times an f32 product's error; each 32-deep
+  # slice summed into the result in f32, as the kernels do, reads within
+  # 3x of it.
+  gen = torch.Generator().manual_seed(8)
+  a = torch.relu(torch.randn(64, 1024, generator=gen))
+  b = torch.randn(1024, 128, generator=gen) * math.sqrt(2 / 1024)
+  exact = a.double().numpy() @ b.double().numpy()
+  rel = lambda got: np.linalg.norm(got - exact) / np.linalg.norm(exact)
+  f32 = rel((a @ b).double().numpy())
+  one_set = rel(_truncated_product(a, b))
+  sliced = rel(_truncated_product(a, b, 32))
+  assert one_set > 10 * f32 and sliced < 3 * f32, (f32, one_set, sliced)
+
+
+@pytest.mark.parametrize('passes', [3, 1])
+def test_w1024_tf32_passes_against_the_f32_bound(w1024_sim, passes):
+  # The f32 products as csrc/trunk_w1024.cu computes them, each operand
+  # split into TF32 parts (hi = tf32(v), lo = tf32(v - hi)) and three
+  # passes summed (lo.hi + hi.lo + hi.hi), modelled in torch (`_split`,
+  # `_tf32_product`) against float64: the skip layer's product at the NeRF
+  # MLP's shapes (600 x 1528 by 1528 x 1024) and the whole forward through
+  # the wrappers on _W1024Sim against trunk_reference. Three passes sit
+  # well inside KERNEL_BOUND['float32'] (1e-4 of the largest entry: the
+  # product within 1e-6, the trunk within 1e-5); one pass (hi.hi alone)
+  # reads above the bound, so the bound would see that shortcut.
+  segs, ws, bs, kw, _ = _trunk(7, 600)
+  gen = torch.Generator().manual_seed(7)
+  a = torch.relu(torch.randn(600, 1528, generator=gen))
+  b = ws[5].t().contiguous()
+  exact = a.double() @ b.double()
+  got = _tf32_product(a, b, passes).double()
+  err = ((got - exact).abs().max() / exact.abs().max()).item()
+  w1024_sim.passes = passes
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), **kw)
+  out = fused_mlp.trunk_kernel(segs, pack)
+  want = fused_mlp.trunk_reference(segs, ws, bs, **kw)
+  trunk = max(((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+              for g, w in zip(out, want))
+  if passes == 3:
+    assert err <= 1e-6 and trunk <= KERNEL_BOUND['float32'] / 10, (err, trunk)
+  else:
+    assert err > KERNEL_BOUND['float32'] and trunk > KERNEL_BOUND['float32'], (
+        err, trunk)
 
 
 # --------------------------------- the full-width model through the route
