@@ -17,7 +17,10 @@ Phases, each printed on its own line:
      csrc/trunk_bwd_f32.cu) holds FFMA and UTMALDG and no tensor-core
      product (HMMA, HGMMA: no TF32); of the width-1024 library
      (csrc/trunk_w1024.cu), each product, bf16 and f32 (three TF32
-     passes), HGMMA and UTMALDG and no HMMA, and no FMA product left;
+     passes), HGMMA and UTMALDG and no HMMA, and no FMA product left; of
+     the depth-1 directional library (csrc/trunk_dir1.cu), its four
+     kernels (bf16 and f32, forward and backward) HGMMA and UTMALDG and no
+     HMMA;
   3. hold each trunk kernel (K1 spatial, K2 directional) against its plain
      PyTorch version at the serving shape N = 4096 rays x 128 samples, in
      float32 and bfloat16, and time both (the wgmma/TMA forward in bf16, the
@@ -268,7 +271,11 @@ Phases, each printed on its own line:
      phase 2; the f32 pair's bound that of three TF32 products), with the
      PyTorch chain of the same function timed in turns as its yardstick
      (`w1024_chain`: the kernels line's library_ms), its 283-column
-     directional pair timed likewise; then 3 steps at batch
+     directional pair (csrc/trunk_dir1.cu) against the plain versions at
+     the same rows in both dtypes (routes asserted, reruns bit-identical,
+     two planted faults above the bounds: the 27-column segment dropped,
+     one tile's rows missing from dW1; its chain timed likewise); then 3
+     steps at batch
      16,384 in each dtype under 'on' (launches a step asserted, median ms,
      peak memory), one step against 'off', a bf16 step profiled, 'on' and
      'off' in turns, and a 4096-ray request against 'off' (spread_l2 within
@@ -660,6 +667,28 @@ def check_w1024_sass(sass):
   if products != want:
     raise AssertionError(f'trunk_w1024: product kernels {sorted(products)} '
                          f'in its SASS, expected {sorted(want)}')
+
+
+def check_dir1_sass(sass):
+  """Phase 2: the depth-1 directional library's four kernels (bf16 and
+  f32, forward and backward: dir1_bf16_kernel, dir1_f32_kernel) hold
+  wgmma's HGMMA and TMA loads (UTMALDG) and no mma.sync (HMMA) in its SASS
+  (`sass_of`), or this fails; its weights' TF32 split is logged."""
+  found = []
+  for block in re.split(r'\n\s*Function : ', sass)[1:]:
+    name = block.split('\n', 1)[0]
+    counts = {op: len(re.findall(rf'\b{op}\b', block))
+              for op in ('HMMA', 'HGMMA', 'UTMALDG', 'UTMASTG', 'UBLKCP')}
+    log(f'phase 2: SASS {name}: ' + ', '.join(
+        f'{op} {k}' for op, k in counts.items()))
+    if re.search(r'dir1_(bf16|f32)_kernel', name) is None:
+      continue
+    found.append(name)
+    if not (counts['HGMMA'] and counts['UTMALDG'] and not counts['HMMA']):
+      raise AssertionError(f'{name}: its SASS holds {counts}')
+  if len(found) != 4:
+    raise AssertionError(f'trunk_dir1: {len(found)} kernels in its SASS, '
+                         'expected 4')
 
 
 def check_kernels(fused_mlp, dev):
@@ -4346,8 +4375,8 @@ def remat_stage(fused_mlp, dev):
 # (csrc/trunk_w1024.cu), held against the plain
 # versions at a 4096-ray request's NeRF samples (4096 x 32) and a step's
 # (16,384 x 32 = N_SAMPLES); its directional pair (1 x 128 on 256 + 27
-# columns, trunk_fwd.cu / trunk_bwd.cu) timed at a step's; then the model
-# trained at its batch and served, under 'on' against 'off'.
+# columns, csrc/trunk_dir1.cu) likewise; then the model trained at its
+# batch and served, under 'on' against 'off'.
 W1024_NS = (4096 * 32, N_SAMPLES)
 M360_BATCH, M360_STEPS = 16384, 3  # the configuration's batch (360.gin's)
 # Rays a served request, rendered in one chunk of as many (the Config's
@@ -4391,20 +4420,22 @@ def w1024_case(fused_mlp, gen, dev, n):
 
 def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False):
   """The yardstick of phase 24's trunks (`library_ms`), the nearest chain
-  of PyTorch calls at the same shapes in `cdt`: the layers as
-  torch.nn.functional.linear + relu (the skip layer on the concatenated
-  input), then the heads on y: sigma as the f32 dot with the density head,
-  the f32 head (on y in f32), the compute-dtype head; with `cots` (the
-  heads' cotangents: sigma's, the f32 head's, the compute-dtype head's)
-  autograd of that chain, its forward included (the kernel's backward
-  recomputes its own), for the parameters and with `needs_dx` the input
-  too. The width-1024 pair (eight layers, sigma, the bottleneck) and the
-  directional pair (one layer, the rgb head). Returns a function of no
-  arguments; the port never calls it."""
+  of PyTorch calls at the same shapes in `cdt`: the segments concatenated
+  (torch.cat, inside the timed call: the kernels read them in place), the
+  layers as torch.nn.functional.linear + relu (the skip layer on the
+  concatenated input), then the heads on y: sigma as the f32 dot with the
+  density head, the f32 head (on y in f32), the compute-dtype head; with
+  `cots` (the heads' cotangents: sigma's, the f32 head's, the compute-dtype
+  head's) autograd of that chain, its forward included (the kernel's
+  backward recomputes its own), for the parameters and with `needs_dx` the
+  segments too. The width-1024 pair (eight layers, sigma, the bottleneck),
+  the directional pair (one layer, the rgb head) and, through
+  tools/ab_trees.py's `chain_rows`, the other trunks without fused stages.
+  Returns a function of no arguments; the port never calls it."""
   F = torch.nn.functional
   dt = fused_mlp.DTYPES[cdt]
   grad = cots is not None
-  x = torch.cat(cs, -1).to(dt).requires_grad_(grad and needs_dx)
+  segs = [c.detach().to(dt).requires_grad_(grad and needs_dx) for c in cs]
   L = len(ws)
   params = [w.detach().to(dt) for w in ws] + [b.detach().to(dt) for b in bs]
   heads = []  # (index of the cotangent, weight, bias or None, f32)
@@ -4429,6 +4460,7 @@ def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False):
     bars = [cast(i, cots[i]) for i, _, _, _ in heads]
 
   def run():
+    x = torch.cat(segs, -1)
     h = x
     for l in range(L):
       h = F.relu(F.linear(torch.cat([h, x], -1) if l in skips else h,
@@ -4438,7 +4470,7 @@ def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False):
             for _, w, b, f32 in heads]
     if not grad:
       return outs
-    return torch.autograd.grad(outs, params + ([x] if needs_dx else []),
+    return torch.autograd.grad(outs, params + (segs if needs_dx else []),
                                bars)
   return run
 
@@ -4484,6 +4516,70 @@ def w1024_faults(fused_mlp, cs, ws, bs, kw, cots, cdt):
   return reads
 
 
+# The directional pair's planted faults are read at this many rows (a
+# 256-ray request's NeRF samples): one 64-row tile is 1/128 of them, whose
+# share of dW1 reads ~1.8 times bf16's GRAD_BOUND by relative L2, where at
+# N_SAMPLES it would read ~0.2 of it (a relative L2 bound sees a share of
+# rows, not which rows).
+DIR1_FAULT_ROWS = 8192
+
+
+def dir1_case(gen, dev, n):
+  """mip-NeRF 360's directional trunk on n rows: [bottleneck 256 in [-1,
+  1] | the positional encoding of degree 4 of random unit directions, 27],
+  He-scaled W1, the rgb head, rgb's cotangent (f32). Returns (segs, ws, bs,
+  kw, cots)."""
+  from refnerf_tpu_torch.ops import coord
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  d = rand(n, 3)
+  segs = [torch.rand(n, 256, generator=gen).to(dev) * 2 - 1,
+          coord.pos_enc(d / d.norm(dim=-1, keepdim=True), 0, 4)]
+  ws, bs = [rand(128, 283) * math.sqrt(2 / 283)], [rand(128) * 0.05]
+  kw = dict(skip_period=4, wd=None, head_f32=(rand(3, 128) / 11.3,
+                                              rand(3) * 0.1), head_cdt=None)
+  return segs, ws, bs, kw, (None, rand(n, 3), None, None)
+
+
+def dir1_faults(fused_mlp, cs, ws, bs, kw, cots, cdt):
+  """What two planted faults of the directional pair would read on the
+  plain versions at DIR1_FAULT_ROWS rows, as `errors` reads the kernels
+  (share of KERNEL_BOUND on rgb, of GRAD_BOUND on each gradient and dx):
+  `27-column segment dropped`, W1's columns past the bottleneck zeroed,
+  forward and backward; `one tile missing from dW1`, the second tile's rows
+  (64 in bf16, 128 in f32: the kernels' tiles) left out of dW1 and db1.
+  Fails unless each reads above its bound."""
+  n = DIR1_FAULT_ROWS
+  xs = [c[:n] for c in cs]
+  cn = tuple(None if c is None else c[:n] for c in cots)
+  run = lambda segs, w, c: (
+      flatten(fused_mlp.trunk_reference(segs, w, bs, compute_dtype=cdt,
+                                        **kw)),
+      flatten(fused_mlp.trunk_backward_reference(
+          segs, w, bs, c, compute_dtype=cdt, needs_dx=True, **kw)))
+  with torch.no_grad():
+    want_f, want_b = run(xs, ws, cn)
+    bad = [ws[0].clone()]
+    bad[0][:, 256:] = 0
+    got_f, got_b = run(xs, bad, cn)
+    reads = {'27-column segment dropped': max(
+        r[3] for r in errors(got_f + got_b, want_f + want_b, cdt, 1))}
+    tile = 64 if cdt == 'bfloat16' else 128
+    keep = torch.cat([torch.arange(tile), torch.arange(2 * tile, n)]).to(
+        xs[0].device)
+    _, got_b = run([x[keep] for x in xs], ws,
+                   tuple(None if c is None else c[keep] for c in cn))
+    reads['one tile missing from dW1'] = max(
+        r[3] for r in errors(got_b[:2], want_b[:2], cdt, 0))
+  log(f'phase 24: directional pair {cdt} N={n} [{CARD}]: planted faults '
+      'would read ' +
+      ', '.join(f'{k} {v:.2f}' for k, v in reads.items()) +
+      ' times the bound')
+  if not min(reads.values()) > 1:
+    raise AssertionError(f'phase 24: the bounds do not see a planted fault '
+                         f'of the directional pair: {reads}')
+  return reads
+
+
 def check_w1024_kernels(fused_mlp, dev):
   """Phase 24 (a): the width-1024 forward (sigma and the bottleneck by
   KERNEL_BOUND) and first-order backward (every gradient by GRAD_BOUND,
@@ -4491,10 +4587,11 @@ def check_w1024_kernels(fused_mlp, dev):
   versions at W1024_NS rows, in bf16 and f32, the routes asserted, each run
   twice more bit-identical; the planted faults (`w1024_faults`, bf16 and
   f32); then the 283-column directional pair of the same model (K2 and K5
-  with dx, trunk_fwd.cu / trunk_bwd.cu) against its plain versions at
-  N_SAMPLES rows. Returns {(name, cdt): compare()'s dict} ('K1 W1024
-  hc256', 'K4 1st W1024' at N_SAMPLES, with their N = 131,072 times under
-  'request_*'; 'K2 m360', 'K5 m360')."""
+  with dx, csrc/trunk_dir1.cu: `dir1`) likewise, the f32 bound that of
+  three TF32 products, and its planted faults (`dir1_faults`). Returns
+  ({(name, cdt): compare()'s dict} ('K1 W1024 hc256', 'K4 1st W1024', 'K2
+  m360', 'K5 m360' at N_SAMPLES, with their N = 131,072 times under
+  'request_*'), {what: planted faults' reads})."""
   gen = torch.Generator().manual_seed(SEED + 24)
   results, faults = {}, {}
   segs, ws, bs, kw, cots = w1024_case(fused_mlp, gen, dev, N_SAMPLES)
@@ -4548,40 +4645,49 @@ def check_w1024_kernels(fused_mlp, dev):
   torch.cuda.empty_cache()
   # The directional pair: 1 x 128 on [bottleneck 256 | positional encoding
   # of degree 4, 27], the rgb head; K5 returns the segments' cotangents.
-  from refnerf_tpu_torch.ops import coord
-  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
-  d = rand(N_SAMPLES, 3)
-  segs = [torch.rand(N_SAMPLES, 256, generator=gen).to(dev) * 2 - 1,
-          coord.pos_enc(d / d.norm(dim=-1, keepdim=True), 0, 4)]
-  ws, bs = [rand(128, 283) * math.sqrt(2 / 283)], [rand(128) * 0.05]
-  kw = dict(skip_period=4, wd=None, head_f32=(rand(3, 128) / 11.3,
-                                              rand(3) * 0.1), head_cdt=None)
-  cots = (None, rand(N_SAMPLES, 3), None, None)
+  segs, ws, bs, kw, cots = dir1_case(gen, dev, N_SAMPLES)
   for cdt in ('bfloat16', 'float32'):
     cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
     pack = fused_mlp.pack_trunk(ws, bs, (256, 27), compute_dtype=cdt, **kw)
     got = (fused_mlp.forward_library(pack), fused_mlp.backward_library(pack))
-    if got != ('trunk_fwd', 'trunk_bwd'):
+    if (got != (fused_mlp.DIR1_LIBRARY,) * 2 or
+        fused_mlp.missing_instance(pack, 0) is not None):
       raise AssertionError(f'phase 24: the {cdt} directional pair routed to '
                            f'{got}')
-    results['K2 m360', cdt] = compare(
-        'K2 m360', cdt, lambda: fused_mlp.trunk_kernel(cs, pack),
-        lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
-                                          **kw),
-        n_values=1, phase=24, inputs=cs + pack_tensors(pack),
-        flops=trunk_flops(ws, N_SAMPLES, 3),
-        library=w1024_chain(fused_mlp, cs, ws, bs, kw, cdt))
-    results['K5 m360', cdt] = compare(
-        'K5 m360', cdt,
-        lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots,
-                                                needs_dx=True),
-        lambda: fused_mlp.trunk_backward_reference(
-            cs, ws, bs, cots, compute_dtype=cdt, needs_dx=True, **kw),
-        n_values=0, iters=3, phase=24,
-        inputs=cs + pack_tensors(pack) + [cots[1]],
-        flops=trunk_flops(ws, N_SAMPLES, 3, backward=True, needs_dx=True),
-        library=w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots,
-                            needs_dx=True))
+    passes = 3 if cdt == 'float32' else 0  # f32: three TF32 passes
+    runs = {}
+    for n in W1024_NS:
+      xs = [c[:n] for c in cs]
+      cn = (None, cots[1][:n], None, None)
+      kernel = lambda: fused_mlp.trunk_kernel(xs, pack)
+      f = compare('K2 m360', cdt, kernel,
+                  lambda: fused_mlp.trunk_reference(xs, ws, bs,
+                                                    compute_dtype=cdt, **kw),
+                  n_values=1, phase=24, inputs=xs + pack_tensors(pack), n=n,
+                  flops=trunk_flops(ws, n, 3), tf32_passes=passes,
+                  library=w1024_chain(fused_mlp, xs, ws, bs, kw, cdt))
+      deterministic('K2 m360', kernel, phase=24, cdt=cdt)
+      kernel = lambda: fused_mlp.trunk_backward_kernel(xs, pack, cn,
+                                                       needs_dx=True)
+      b = compare('K5 m360', cdt, kernel,
+                  lambda: fused_mlp.trunk_backward_reference(
+                      xs, ws, bs, cn, compute_dtype=cdt, needs_dx=True, **kw),
+                  n_values=0, iters=3, phase=24, n=n,
+                  inputs=xs + pack_tensors(pack) + [cn[1]],
+                  flops=trunk_flops(ws, n, 3, backward=True, needs_dx=True),
+                  tf32_passes=passes,
+                  library=w1024_chain(fused_mlp, xs, ws, bs, kw, cdt, cn,
+                                      needs_dx=True))
+      deterministic('K5 m360', kernel, phase=24, cdt=cdt)
+      runs[n] = (f, b)
+      del xs, cn
+    (rf, rb), (f, b) = runs[W1024_NS[0]], runs[N_SAMPLES]
+    results['K2 m360', cdt] = dict(
+        f, **{'request_' + k: v for k, v in rf.items()})
+    results['K5 m360', cdt] = dict(
+        b, **{'request_' + k: v for k, v in rb.items()})
+    faults['directional ' + cdt] = dir1_faults(fused_mlp, cs, ws, bs, kw,
+                                               cots, cdt)
     del pack, cs
   del segs, ws, bs, kw, cots
   torch.cuda.empty_cache()
@@ -4772,9 +4878,9 @@ def m360_stage(fused_mlp, dev):
       raise AssertionError('phase 24: the configuration is not as bound')
     what = f'MIPNERF360 {dtype}'
     launches, ms, peak, seen, last = m360_train(fused_mlp, run, what)
-    want_f = {fused_mlp.W1024_LIBRARY, 'trunk_fwd',
+    want_f = {fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY,
               fused_mlp.FWD_LIBRARY[dtype]}
-    want_b = {fused_mlp.W1024_LIBRARY, 'trunk_bwd',
+    want_b = {fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY,
               fused_mlp.BWD_LIBRARY[dtype]}
     if seen != {'forward': want_f, 'backward': want_b}:
       raise AssertionError(f'phase 24: {what} routed to {seen}')
@@ -4849,13 +4955,14 @@ def main():
         log(f'phase 2: ptxas {line.strip()}')
   sass = sass_of([libs[name] for name in (
       'trunk_fwd_tma', 'trunk_bwd_tma', 'trunk_fwd_f32', 'trunk_bwd_f32',
-      fused_mlp.W1024_LIBRARY)])
+      fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY)])
   check_sass(sass[libs['trunk_fwd_tma']])
   check_sass(sass[libs['trunk_bwd_tma']])
   for name in ('trunk_fwd_f32', 'trunk_bwd_f32'):
     check_sass(sass[libs[name]], need=('FFMA', 'UTMALDG'),
                refuse=('HMMA', 'HGMMA'))
   check_w1024_sass(sass[libs[fused_mlp.W1024_LIBRARY]])
+  check_dir1_sass(sass[libs[fused_mlp.DIR1_LIBRARY]])
   secs[2] = time.perf_counter() - t0
 
   kernels = phase(3, check_kernels, fused_mlp, dev)
@@ -5082,11 +5189,12 @@ def main():
   # Phase 24's: the width-1024 pair (mip-NeRF 360's NeRF MLP), launched by
   # the bf16 steps (and the f32 steps and both requests), timed at a step's
   # N_SAMPLES rows (at a request's 131,072 under 'request_*'); the
-  # directional pair of the same model (trunk_fwd.cu / trunk_bwd.cu on 283
-  # columns).
+  # directional pair of the same model (trunk_dir1.cu on 283 columns; its
+  # weight gradient on trunk_w1024.cu's product).
+  dir1_src = 'refnerf_tpu_torch/csrc/trunk_dir1.cu'
   w1024_src = {'K1 W1024 hc256': 'refnerf_tpu_torch/csrc/trunk_w1024.cu',
                'K4 1st W1024': 'refnerf_tpu_torch/csrc/trunk_w1024.cu',
-               'K2 m360': fwd_src, 'K5 m360': bwd_src}
+               'K2 m360': dir1_src, 'K5 m360': dir1_src}
   for which, desc, at, key in (
       ('K1 W1024 hc256', 'spatial trunk forward at width 1024, the density '
        'head and the 256-wide bottleneck (mip-NeRF 360)', 612, 'K1 w1024'),

@@ -110,6 +110,22 @@ EXPORTS = {
                              _P, _P, _P],
         'refnerf_w1024_colsum': [_I, _I, _I, _P, _I, _P, _I, _P, _P],
     },
+    # The depth-1 directional trunk (both dtypes): the forward (bf16, M, d1,
+    # hf, x0, x1, w, w_lo, b, wh, bh, rgb, stream), the backward (bf16, M,
+    # d1, hf, x0, x1, w, w_lo, wt, wt_lo, b, wh, hbar, dx0, dx1, z, x1p,
+    # hpart, nparts, stream; f32 takes W1 and W1^T as their TF32 parts, bf16
+    # the lows null), the head partials a backward writes (bf16, M) and the
+    # weights' TF32 split (rows, cols, v, hi, lo, perm8, stream);
+    # trunk_w1024's refnerf_w1024_tn and trunk_bwd's refnerf_reduce form the
+    # layer's weight gradient.
+    'trunk_dir1': {
+        'refnerf_dir1_fwd': [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P],
+        'refnerf_dir1_bwd': [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _I, _P],
+        'refnerf_dir1_parts': [_I, _I],
+        'refnerf_dir1_split': [_I, _I, _P, _P, _P, _I, _P],
+    },
 }
 
 

@@ -45,8 +45,11 @@ width 256 and,
 for the directional trunk, 128; the spatial trunk at width 1024 with the
 256-wide head (`w1024`) layer by layer on `csrc/trunk_w1024.cu` (K1 and
 first-order K4; wgmma in bf16, three TF32 passes of wgmma in f32),
-`_w1024_forward` and `_w1024_backward`; all run for CUDA
-tensors unless `mode='off'`. A CPU
+`_w1024_forward` and `_w1024_backward`; the depth-1 directional trunk of
+`dir1` (mip-NeRF 360's, on 256 + 27 columns) on `csrc/trunk_dir1.cu` (K2
+and K5 with dx; wgmma fed by TMA and bulk copies, three TF32 passes in
+f32; its weight gradient on trunk_w1024.cu's product), `_dir1_forward` and
+`_dir1_backward`; all run for CUDA tensors unless `mode='off'`. A CPU
 tensor or `mode='off'` takes the plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
 
@@ -127,6 +130,15 @@ BWD_LIBRARY = {'bfloat16': 'trunk_bwd_tma', 'float32': 'trunk_bwd_f32'}
 W1024, W1024_HEAD = 1024, 256
 W1024_LIBRARY = 'trunk_w1024'
 _W1024_COLSUM_ROWS = 2048  # rows a CTA of a column sum takes
+# The depth-1 width-128 directional trunk on [bottleneck 256 | at most
+# DIR1_D1 columns] with an f32 head of at most DIR1_HEADS outputs alone
+# (mip-NeRF 360's, and any Model left at the MLP's defaults: `dir1`) runs on
+# csrc/trunk_dir1.cu in both dtypes and both directions. Its backward's
+# head partials are DIR1_PARTS floats a CTA (dwh [3][128] | dbh [3]); its
+# layer's weight gradient is trunk_w1024.cu's product over rows.
+DIR1_LIBRARY = 'trunk_dir1'
+DIR1_D0, DIR1_D1, DIR1_HEADS = 256, 29, 3
+DIR1_PARTS = DIR1_HEADS * 128 + DIR1_HEADS
 # Shared memory a CTA may use on an H100 (227 KB): a launch that needs more
 # is refused by its C entry (cudaErrorInvalidConfiguration).
 SMEM_LIMIT = 232448
@@ -920,6 +932,18 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   W, kin, L = pack.width, pack.kin, pack.depth
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = fold is not None
+  if lib == DIR1_LIBRARY:
+    # csrc/trunk_dir1.cu's CTA, both directions: 1 KB to align, the head
+    # (wh [3][128], b1 and bh in f32: 2,064 B) and the backward's sums of
+    # it (DIR1_PARTS floats a consumer warp: 12,384 B), the mbarriers; bf16
+    # `kBSmem`: W1 resident as five [128][64] boxes, 3 stages of a 64-row
+    # tile's bottleneck and a 5 KB slot for its span and head cotangents, 7
+    # mbarriers (211,112 B); f32 `kFSmem`: 4 stages of three [128][32] f32
+    # slots, 8 mbarriers (212,144 B).
+    head = 4 * (3 * 128 + 128 + 4) + 4 * 8 * DIR1_PARTS
+    if pack.compute_dtype == 'float32':
+      return 1024 + 4 * 3 * 128 * 128 + head + 8 * 8
+    return 1024 + 5 * 128 * 128 + 3 * (4 * 64 * 128 + 5 * 1024) + head + 8 * 7
   if lib == W1024_LIBRARY:
     # Its products' largest CTA (csrc/trunk_w1024.cu): bf16 the nt
     # product's `kNtSmem` (1 KB to align the swizzled tiles, 3 stages of a
@@ -1024,6 +1048,24 @@ def w1024(pack: TrunkPack, y: bool = False, fold=None,
       on for _, on in _w1024_modes(pack, hc, fold, sp, y))
 
 
+def dir1(pack: TrunkPack, y: bool = False, fold=None,
+         sp: SpaModes = SpaModes()) -> bool:
+  """Whether `pack` runs on csrc/trunk_dir1.cu (both dtypes, both
+  directions): one layer of width 128 on two segments, the first of
+  `DIR1_D0` (256) columns and the second of at most `DIR1_D1` (29), with
+  an f32 head of 1 to `DIR1_HEADS` (3) outputs and no density or
+  compute-dtype head, without the density gradient, a fused spatial stage
+  or y (`missing_instance` refuses the fused directional stages of a
+  width-128 trunk first): the directional trunk of mip-NeRF 360 and of a
+  Model at the MLP's defaults, on [bottleneck 256 | positional encoding
+  of degree 4, 27]."""
+  hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  return (pack.width == 128 and pack.depth == 1 and len(pack.seg_dims) == 2
+          and pack.seg_dims[0] == DIR1_D0 and 1 <= pack.seg_dims[1] <= DIR1_D1
+          and 1 <= hf <= DIR1_HEADS and pack.wd is None and pack.wc is None
+          and not y and fold is None and not (sp.scales or sp.samples))
+
+
 def wide_input(pack: TrunkPack, y: bool = False, fold=None,
                sp: SpaModes = SpaModes()) -> bool:
   """Whether `pack` runs on the wide-input instances (trunk_fwd_f32.cu and
@@ -1051,12 +1093,14 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   the trunk: K3 on at most 192 input columns); past `_TMA_KIN` input
   columns the spatial trunk of `wide_input` on the same two (their
   wide-input instances); the spatial trunk of `w1024` 'trunk_w1024';
-  every other shape with an instance 'trunk_fwd'. (Width 128 runs the
-  plain directional trunk alone: `missing_instance` refuses its other modes
-  first.)"""
+  the directional trunk of `dir1` 'trunk_dir1'; every other shape with an
+  instance 'trunk_fwd'. (Width 128 runs the plain directional trunk alone:
+  `missing_instance` refuses its other modes first.)"""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   if w1024(pack, out_y, fold, sp):
     return W1024_LIBRARY
+  if dir1(pack, out_y, fold, sp):
+    return DIR1_LIBRARY
   if wide_input(pack, out_y, fold, sp):
     return FWD_LIBRARY[pack.compute_dtype]
   if (pack.width not in (256, 128) or pack.depth > _TMA_DEPTH or
@@ -1090,10 +1134,12 @@ def backward_library(pack: TrunkPack, y: bool = False, fold=None) -> str:
   `_TMA_KIN` input columns the spatial trunk of `wide_input` (without y's
   cotangent `y` or u's, `fold`) on the same two (their wide-input
   instances); the spatial trunk of `w1024` (first order) 'trunk_w1024';
-  every other shape with an instance (deeper, wider or narrower trunks)
-  'trunk_bwd'."""
+  the directional trunk of `dir1` 'trunk_dir1'; every other shape with an
+  instance (deeper, wider or narrower trunks) 'trunk_bwd'."""
   if w1024(pack, y, fold):
     return W1024_LIBRARY
+  if dir1(pack, y, fold):
+    return DIR1_LIBRARY
   if wide_input(pack, y, fold):
     return BWD_LIBRARY[pack.compute_dtype]
   if (pack.width in (256, 128) and pack.depth <= _TMA_DEPTH and
@@ -1613,6 +1659,151 @@ def _w1024_backward(segs, pack: TrunkPack, cots, slab: Optional[int] = None):
           None)
 
 
+def _dir1_inputs(segs, pack: TrunkPack):
+  """The two segments as csrc/trunk_dir1.cu reads them in place, in the
+  compute dtype: [n, 256] by a TMA tensor map and [n, d1] by bulk copies
+  of whole tiles, so each contiguous at a 16-byte aligned address; raises
+  where one is not (no copy is made to hide it)."""
+  ki = _kernel_inputs(segs, pack, DirModes())
+  for what, t in (('bottleneck', ki.x0), ('second', ki.x1)):
+    if not t.is_contiguous() or t.data_ptr() % 16:
+      raise ValueError(f'the directional trunk kernel reads the {what} '
+                       'segment in place: it must be contiguous at a '
+                       '16-byte aligned address')
+  return ki.x0, ki.x1
+
+
+def _dir1_weights(lib, pack: TrunkPack, stream, transposed=False):
+  """(B, B's low part) of W1 [128, 288] (or, `transposed`, W1^T [288,
+  128] with the hidden units of every 8 permuted as zeta's TF32 fragments
+  hold them): bf16 the pack's tensor and None; f32 its TF32 parts, split
+  once a call (`refnerf_dir1_split`)."""
+  t = pack.wt if transposed else pack.w
+  if pack.compute_dtype == 'bfloat16':
+    return t, None
+  rows, cols = ((pack.kin, pack.width) if transposed
+                else (pack.width, pack.kin))
+  hi, lo = torch.empty(2, rows * cols, device=t.device)
+  err = lib.refnerf_dir1_split(rows, cols, t.data_ptr(), hi.data_ptr(),
+                               lo.data_ptr(), int(transposed), stream)
+  _check_launch(err, 'directional trunk weight split')
+  return hi, lo
+
+
+def _dir1_forward(segs, pack: TrunkPack):
+  """K2 on csrc/trunk_dir1.cu (`dir1`): in f32 W1 split into its TF32
+  parts, then one launch. Returns [rgb [n, hf] f32], as trunk_kernel."""
+  from refnerf_tpu_torch.ops import cuda_build  # builds on first use
+  lib = cuda_build.library(DIR1_LIBRARY)
+  x0, x1 = _dir1_inputs(segs, pack)
+  n, dev, hf = int(x0.shape[0]), x0.device, int(pack.wh.shape[0])
+  rgb = torch.empty(n, hf, device=dev)
+  if n:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+      w, w_lo = _dir1_weights(lib, pack, stream)
+      err = lib.refnerf_dir1_fwd(
+          int(pack.compute_dtype == 'bfloat16'), n, int(x1.shape[1]), hf,
+          x0.data_ptr(), x1.data_ptr(), _ptr(w), _ptr(w_lo), pack.b.data_ptr(),
+          pack.wh.data_ptr(), pack.bh.data_ptr(), rgb.data_ptr(), stream)
+      _check_launch(err, 'directional trunk forward (trunk_dir1)')
+  return [rgb]
+
+
+def dir1_splits(sms: int, cdt: str) -> int:
+  """The partials of the directional trunk's weight gradient (128 x 288
+  on trunk_w1024.cu's product, whose units are an output tile and a split
+  of the rows) at most, on a card of `sms` SMs: as many splits as fill the
+  SMs once with its tiles (bf16 128 x 256: 2 tiles, 66 splits on 132 SMs;
+  f32 128 x 128: 3, 44)."""
+  tiles = 2 if cdt == 'bfloat16' else 3
+  return max(1, sms // tiles)
+
+
+def dir1_split(rows: int, sms: int, cdt: str) -> int:
+  """Rows per partial of that weight gradient over `rows` rows, in whole
+  slices of the product (64 rows in bf16, 32 in f32): at most
+  `dir1_splits` partials."""
+  q = 32 if cdt == 'float32' else 64
+  return -(-rows // (dir1_splits(sms, cdt) * q)) * q
+
+
+def _dir1_backward(segs, pack: TrunkPack, cots):
+  """K5 with the segments' cotangents on csrc/trunk_dir1.cu (`dir1`): one
+  launch recomputes the layer and writes dx, zeta, the second segment
+  zero-padded to 32 columns and each CTA's head partial; trunk_w1024.cu's
+  product sums zeta^T [x0 | x1 padded] and zeta's column sums over rows in
+  `dir1_split` partials; trunk_bwd.cu's refnerf_reduce sums every partial
+  in a fixed order. In f32 W1 and W1^T (its hidden units permuted) are
+  split into their TF32 parts first. The whole batch in one pass (the
+  scratch is zeta and the padded segment, [n, 160] in the compute dtype).
+  Returns what trunk_backward_reference does with needs_dx."""
+  from refnerf_tpu_torch.ops import cuda_build  # builds on first use
+  sbar, hbar, cbar, ubar, *_ = cots
+  if sbar is not None or cbar is not None or ubar is not None:
+    raise ValueError('the directional trunk has the f32 head alone')
+  lib = cuda_build.library(DIR1_LIBRARY)
+  seg_dtypes = [s.dtype for s in segs]
+  x0, x1 = _dir1_inputs(segs, pack)
+  n, d1, dev = int(x0.shape[0]), int(x1.shape[1]), x0.device
+  hf, W, kin = int(pack.wh.shape[0]), pack.width, pack.kin
+  cdt = DTYPES[pack.compute_dtype]
+  bf = int(cdt == torch.bfloat16)
+  f32 = lambda *shape: torch.empty(*shape, device=dev)
+  hbar = (torch.zeros(n, hf, device=dev) if hbar is None
+          else hbar.float().reshape(n, hf).contiguous())
+  if hbar.data_ptr() % 16:
+    hbar = hbar.clone()
+  dx0 = torch.empty(n, DIR1_D0, device=dev, dtype=cdt)
+  dx1 = torch.empty(n, d1, device=dev, dtype=cdt)
+  dw, db, vec = f32(W, DIR1_D0 + d1), f32(W), f32(DIR1_PARTS)
+  if n:
+    tn = cuda_build.library(W1024_LIBRARY).refnerf_w1024_tn
+    red = cuda_build.library('trunk_bwd').refnerf_reduce
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    z = torch.empty(n, W, device=dev, dtype=cdt)
+    x1p = torch.empty(n, kin - DIR1_D0, device=dev, dtype=cdt)
+    # Scratch sized by the most partials any row count makes (H24): a CTA
+    # an SM, and dir1_splits of the weight gradient.
+    hpart = f32(sms, DIR1_PARTS)
+    splits = dir1_splits(sms, pack.compute_dtype)
+    wpart, bpart = f32(splits * W * kin), f32(splits * W)
+    with torch.cuda.device(dev):
+      w, w_lo = _dir1_weights(lib, pack, stream)
+      wt, wt_lo = (_dir1_weights(lib, pack, stream, transposed=True)
+                   if not bf else (None, None))
+      nparts = lib.refnerf_dir1_parts(bf, n)
+      assert 0 < nparts <= sms, (n, nparts, sms)
+      err = lib.refnerf_dir1_bwd(
+          bf, n, d1, hf, x0.data_ptr(), x1.data_ptr(), _ptr(w), _ptr(w_lo),
+          _ptr(wt), _ptr(wt_lo), pack.b.data_ptr(), pack.wh.data_ptr(),
+          hbar.data_ptr(),
+          dx0.data_ptr(), dx1.data_ptr(), z.data_ptr(), x1p.data_ptr(),
+          hpart.data_ptr(), sms, stream)
+      _check_launch(err, 'directional trunk backward (trunk_dir1)')
+      ksplit = dir1_split(n, sms, pack.compute_dtype)
+      nsplit = -(-n // ksplit)
+      assert nsplit <= splits, (n, ksplit, splits)
+      err = tn(bf, W, kin, n, ksplit, z.data_ptr(), W, x0.data_ptr(),
+               DIR1_D0, DIR1_D0, x1p.data_ptr(), kin - DIR1_D0,
+               wpart.data_ptr(), bpart.data_ptr(), stream)
+      _check_launch(err, 'directional trunk weight gradient')
+      for parts, count, rows, k, k_out, dst in (
+          (wpart, nsplit, W, kin, DIR1_D0 + d1, dw),
+          (bpart, nsplit, 1, W, W, db),
+          (hpart, nparts, 1, DIR1_PARTS, DIR1_PARTS, vec)):
+        _check_launch(red(parts.data_ptr(), count, rows, k, k_out,
+                          dst.data_ptr(), 0, stream), 'reduction kernel')
+  else:
+    for t in (dw, db, vec):
+      t.zero_()
+  dwh = vec[:DIR1_HEADS * W].reshape(DIR1_HEADS, W)[:hf]
+  dbh = vec[DIR1_HEADS * W:DIR1_HEADS * W + hf]
+  dxs = [d.to(dt) for d, dt in zip((dx0, dx1), seg_dtypes)]
+  return [dw], [db], None, dwh, dbh, None, None, dxs, None, None
+
+
 def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
                  fold: Optional[torch.Tensor] = None,
                  dir_modes: Optional[DirModes] = None, rgbx=None,
@@ -1634,6 +1825,8 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
   route = forward_library(pack, out_y, fold, sp)
   if route == W1024_LIBRARY:
     return _w1024_forward(segs, pack)
+  if route == DIR1_LIBRARY:
+    return _dir1_forward(segs, pack)
   fwd_fn = getattr(_library(route, pack, hc), f'refnerf_{route}')
   head = pack.wct if route == 'trunk_fwd_f32' else pack.wc
   cdt = DTYPES[pack.compute_dtype]
@@ -1875,6 +2068,10 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
       raise NotImplementedError('the width-1024 backward emits no segment '
                                 'cotangents')
     return _w1024_backward(segs, pack, cots, slab)
+  if backward_library(pack, ybar is not None, fold) == DIR1_LIBRARY:
+    # It computes dx in the same pass whether or not needs_dx asks.
+    out = _dir1_backward(segs, pack, cots)
+    return out if needs_dx else out[:7] + (None,) + out[8:]
   lib = _library('trunk_bwd', pack, hc)
   cdt = DTYPES[pack.compute_dtype]
   # By dtype and shape (`backward_library`): trunk_bwd_tma.cu (bf16) and

@@ -9,7 +9,8 @@ with the checkouts to compare unpacked (git archive) in ignored directories:
         --arm c=_chip/c --order p,c,p,c,p,c --out chiprun_out/ab \\
         [--checks check_train_kernels,check_dir_kernels,check_spa_kernels,
                   serve_requests,train_steps,cascade_steps,
-                  forward_kernels,backward_kernels,w1024_pair,m360_steps]
+                  forward_kernels,backward_kernels,w1024_pair,m360_steps,
+                  m360_dir_pair,chain_rows]
         [--dtype float32]
 
 First every checkout builds its kernels into its own build/, all at once.
@@ -18,8 +19,11 @@ checkout's root: it imports that checkout's chip_smoke.py and runs the
 functions of --checks (phase 5's check_train_kernels by default; phase 7's
 check_dir_kernels and phase 9's check_spa_kernels time K5 with K8-K10 and K4
 with K6/K7). `serve_requests`, `train_steps`, `cascade_steps`,
-`forward_kernels`, `backward_kernels`, `w1024_pair` and `m360_steps` are
-this tool's own, the same code in every checkout: in
+`forward_kernels`, `backward_kernels`, `w1024_pair`, `m360_steps`,
+`m360_dir_pair` and `chain_rows` are this tool's own, the same code in
+every checkout (so are the chain they time, `w1024_chain`, and
+`dir1_case`: this checkout's chip_smoke.py functions, sent to every run):
+in
 `serve_requests` phase 10's model (all six fuse flags) and phase 12's two
 mip-NeRF models, their trunks in --dtype (bfloat16 by default; float32 is
 the gins' own, phase 14's), each answer a 4096-ray request, timed on the
@@ -33,7 +37,13 @@ same way (under 'on' and 'off'; --dtype not read);
 `w1024_pair` phase 24's width-1024 pair in both dtypes against its plain
 versions, `m360_steps` MIPNERF360's train step at batch 16,384 and a
 4096-ray request in --dtype under 'on' and 'off' (with the 'on' step's
-peak memory);
+peak memory); `m360_dir_pair` phase 24's directional pair (1 x 128 on
+256 + 27 columns) in --dtype against its plain versions and its PyTorch
+chain (the concatenation inside), forward and backward with dx;
+`chain_rows` the PyTorch chain of every trunk row that it computes without
+a fused stage or the density gradient (K1 hf=0, K2, K2 W128 and K1 wide
+forward; K4 first-order, K5, K5 W128 and K4 wide backward) in --dtype
+beside its kernel and plain version, the rows' library column;
 `forward_kernels` holds every forward case
 of phases 3, 5, 7, 9 and 11 (K2 at width 128 and K11 included) and phase
 19's proposal trunk (K1 wide) in --dtype against its plain version
@@ -59,9 +69,10 @@ import statistics
 import subprocess
 import sys
 
-# A run: CHECKS, then this tool's own checks' source (OWN), then this.
+# A run: CHECKS, then this tool's own checks' source (OWN) and this
+# checkout's chip_smoke functions they call (SHARED), then this.
 RUN = '''
-import sys, torch
+import math, sys, torch
 sys.path.insert(0, '.')
 import chip_smoke
 from refnerf_tpu_torch.ops import fused_mlp
@@ -567,10 +578,113 @@ def m360_steps(fused_mlp, dev, reps=5, reps_off=1):
   torch.cuda.empty_cache()
 
 
+def m360_dir_pair(fused_mlp, dev):
+  """Phase 24's directional pair (mip-NeRF 360's 1 x 128 trunk on [256 |
+  27] with the rgb head, `dir1_case`) at chip_smoke's N in the run's DTYPE:
+  the forward (K2 m360) and the backward with dx (K5 m360) each against its
+  plain version through chip_smoke.compare, the PyTorch chain of the same
+  function (`w1024_chain`, the concatenation inside) timed between; the
+  routes printed (the parent's pair on trunk_fwd.cu / trunk_bwd.cu). Uses
+  only what every checkout's chip_smoke has since phase 24 came in."""
+  import torch
+  import chip_smoke as cs
+  cdt = DTYPE
+  n = cs.N_SAMPLES
+  gen = torch.Generator().manual_seed(cs.SEED + 24)
+  segs, ws, bs, kw, cots = dir1_case(gen, dev, n)
+  segs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (256, 27), compute_dtype=cdt, **kw)
+  print(f'phase 24: directional pair {cdt}: routes '
+        f'{fused_mlp.forward_library(pack)}, '
+        f'{fused_mlp.backward_library(pack)}', flush=True)
+  passes = 3 if cdt == 'float32' else 0
+  cs.compare('K2 m360', cdt, lambda: fused_mlp.trunk_kernel(segs, pack),
+             lambda: fused_mlp.trunk_reference(segs, ws, bs,
+                                               compute_dtype=cdt, **kw),
+             n_values=1, phase=24, inputs=segs + cs.pack_tensors(pack), n=n,
+             flops=cs.trunk_flops(ws, n, 3), tf32_passes=passes,
+             library=w1024_chain(fused_mlp, segs, ws, bs, kw, cdt))
+  cs.compare('K5 m360', cdt,
+             lambda: fused_mlp.trunk_backward_kernel(segs, pack, cots,
+                                                     needs_dx=True),
+             lambda: fused_mlp.trunk_backward_reference(
+                 segs, ws, bs, cots, compute_dtype=cdt, needs_dx=True, **kw),
+             n_values=0, iters=3, phase=24, n=n,
+             inputs=segs + cs.pack_tensors(pack) + [cots[1]],
+             flops=cs.trunk_flops(ws, n, 3, backward=True, needs_dx=True),
+             tf32_passes=passes,
+             library=w1024_chain(fused_mlp, segs, ws, bs, kw, cdt, cots,
+                                 needs_dx=True))
+  del segs, pack, cots
+  torch.cuda.empty_cache()
+
+
+def chain_rows(fused_mlp, dev):
+  """The PyTorch chain (`w1024_chain`: torch.cat, linear + relu a layer,
+  the heads; autograd for the backward) of every trunk row of PERF.md that
+  it computes without a fused stage or the density gradient, timed between
+  the kernel and its plain version through chip_smoke.compare at
+  chip_smoke's N in the run's DTYPE: the forwards K1 hf=0 (mip-NeRF's
+  spatial trunk), K2, K2 W128 and K1 wide (the proposal trunk of depth 4 on
+  504 columns); the backwards K4 first-order, K5, K5 W128 and K4 wide. Uses
+  only what every checkout's chip_smoke has since phase 19 came in."""
+  import torch
+  import chip_smoke as cs
+  cdt = DTYPE
+  tdt = fused_mlp.DTYPES[cdt]
+  n = cs.N_SAMPLES
+  gen = torch.Generator().manual_seed(cs.SEED + 25)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  for which, trunk, backward in (
+      ('K1 hf=0', 'mip K1', False), ('K2', 'K2', False),
+      ('K2 W128', 'mip K2', False), ('K1 wide', None, False),
+      ('K4 first-order', 'mip K1', True), ('K5', 'K2', True),
+      ('K5 W128', 'mip K2', True), ('K4 wide', None, True)):
+    if trunk is None:
+      segs, ws, bs, kw = cs.prop_case(fused_mlp, gen, dev, 4, cdt)
+    else:
+      segs, ws, bs, kw = cs.trunk_case(trunk, gen, dev, ipe=trunk == 'mip K1')
+    segs = [s.to(tdt) for s in segs]
+    pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
+                                compute_dtype=cdt, **kw)
+    heads = cs.n_heads(kw)
+    if not backward:
+      cs.compare(which, cdt, lambda: fused_mlp.trunk_kernel(segs, pack),
+                 lambda: fused_mlp.trunk_reference(segs, ws, bs,
+                                                   compute_dtype=cdt, **kw),
+                 n_values=1 + (kw['head_f32'] is not None) +
+                 (kw['head_cdt'] is not None), phase=3,
+                 inputs=segs + cs.pack_tensors(pack),
+                 flops=cs.trunk_flops(ws, n, heads),
+                 library=w1024_chain(fused_mlp, segs, ws, bs, kw, cdt))
+    else:
+      spatial = kw['wd'] is not None
+      hc = kw['head_cdt'][0].shape[0] if kw['head_cdt'] else 0
+      cots = ((rand(n), None, rand(n, hc).to(tdt) if hc else None, None)
+              if spatial else (None, rand(n, 3), None, None))
+      cs.compare(which, cdt,
+                 lambda: fused_mlp.trunk_backward_kernel(
+                     segs, pack, cots, needs_dx=not spatial),
+                 lambda: fused_mlp.trunk_backward_reference(
+                     segs, ws, bs, cots, compute_dtype=cdt,
+                     needs_dx=not spatial, **kw),
+                 n_values=0, iters=3, phase=5,
+                 inputs=segs + cs.pack_tensors(pack) + list(cots),
+                 flops=cs.trunk_flops(ws, n, heads, backward=True,
+                                      needs_dx=not spatial),
+                 library=w1024_chain(fused_mlp, segs, ws, bs, kw, cdt, cots,
+                                     needs_dx=not spatial))
+    del segs, ws, bs, kw, pack
+    torch.cuda.empty_cache()
+
+
 # Run in every checkout.
 OWN = {f.__name__: f for f in (serve_requests, train_steps, cascade_steps,
                                forward_kernels, backward_kernels, w1024_pair,
-                               m360_steps)}
+                               m360_steps, m360_dir_pair, chain_rows)}
+# This checkout's chip_smoke functions that OWN's checks call, sent with
+# them so that every arm runs the same code.
+SHARED = ('w1024_chain', 'dir1_case')
 BUILD = 'from refnerf_tpu_torch.ops import cuda_build; cuda_build.build()'
 # Trailing template arguments at their defaults, as cu++filt prints them: a
 # false flag, or the trunk width 256.
@@ -609,7 +723,12 @@ def run_arms(arms, order, out, checks, dtype='bfloat16'):
   """{(case, dtype): {arm: [(kernel ms, plain ms, device busy ms or None,
   library ms or None) per run]}}."""
   times = {}
+  sys.path.insert(0, '.')
+  import chip_smoke  # this checkout's
+  shared = ''.join(inspect.getsource(getattr(chip_smoke, name)) + '\n'
+                   for name in SHARED)
   run = (f'CHECKS = {checks!r}\nOWN = {sorted(OWN)!r}\nDTYPE = {dtype!r}\n' +
+         'import math, torch\n' + shared +
          ''.join(inspect.getsource(f) + '\n' for f in OWN.values()) + RUN)
   for i, arm in enumerate(order):
     proc = subprocess.run([sys.executable, '-c', run],

@@ -19,7 +19,9 @@ bf16 K11 forward on trunk_fwd_tma.cu, their determinism and their shapes
 past them (trunk_fwd.cu's and trunk_bwd.cu's width-128 instances);
 mip-NeRF with the spatial fuse flags; mip-NeRF 360's width-1024
 spatial trunk (trunk_w1024.cu) in both directions and its slabbed
-backward's determinism; the
+backward's determinism; its depth-1 directional trunk (trunk_dir1.cu) in
+both directions and dtypes, its determinism and its refusal of a
+misaligned segment; the
 plain layer stack and the shapes without an instance under
 fused_trunk='auto'; the host data path (the ray cast on the card against the
 CPU's, the flagship trained from prefetched batches, sampled on the step's
@@ -2084,3 +2086,77 @@ def test_w1024_trunk_matches_plain(dev, cdt, n):
   assert all(torch.equal(x, y) for x, y in zip(a, b))
   for x, y in zip(a, one):
     assert ((x - y).norm() / y.norm()).item() <= GRAD_BOUND[cdt]
+
+
+def _dir1_case(dev, n, seed=24):
+  """mip-NeRF 360's directional trunk on n rows: [bottleneck 256 in [-1, 1]
+  | the positional encoding of degree 4 of random unit directions, 27], a
+  He-scaled 128 x 283 layer, the rgb head; the parameters need grad."""
+  from refnerf_tpu_torch.ops import coord
+  gen = torch.Generator().manual_seed(seed)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  d = rand(n, 3)
+  segs = [torch.rand(n, 256, generator=gen).to(dev) * 2 - 1,
+          coord.pos_enc(d / d.norm(dim=-1, keepdim=True), 0, 4)]
+  params = [rand(128, 283) * math.sqrt(2 / 283), rand(128) * 0.05,
+            rand(3, 128) / 11.3, rand(3) * 0.1]
+  return segs, [p.requires_grad_(True) for p in params], rand(n, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n', [1, 63, 65, 257, 4097, 131072])
+def test_dir1_trunk_matches_plain(dev, cdt, n):
+  # mip-NeRF 360's directional trunk (1 x 128 on [256 | 27], the rgb head)
+  # through fused_trunk under 'on' at n rows (across the 64-row bf16 and
+  # 128-row f32 tiles, a partial last tile read by plain loads; 131,072 a
+  # 4096-ray request's NeRF samples) on csrc/trunk_dir1.cu: rgb by BOUND,
+  # every parameter gradient and both segments' cotangents by GRAD_BOUND
+  # against 'off'; K2 and K5 each launched once; a second run bit-identical
+  # (H4).
+  segs, params, wbar = _dir1_case(dev, n)
+  cs = [s.to(fused_mlp.DTYPES[cdt]).requires_grad_(True) for s in segs]
+  w, b, wh, bh = params
+  pack = fused_mlp.pack_trunk([w], [b], (256, 27), head_f32=(wh, bh),
+                              compute_dtype=cdt)
+  assert fused_mlp.forward_library(pack) == fused_mlp.DIR1_LIBRARY
+  assert fused_mlp.backward_library(pack) == fused_mlp.DIR1_LIBRARY
+  outs = {}
+  for key in ('on', 'off', 'on again'):
+    before = dict(fused_mlp.launches)
+    rgb = fused_mlp.fused_trunk(cs, [w], [b], (wh, bh), compute_dtype=cdt,
+                                mode=key.split()[0])
+    grads = torch.autograd.grad((rgb * wbar).sum(), params + cs)
+    moved = {k: v - before[k] for k, v in fused_mlp.launches.items()
+             if v != before[k]}
+    outs[key] = (rgb, grads, moved)
+  (rgb, grads, moved), (prgb, pgrads, pmoved) = outs['on'], outs['off']
+  assert moved == {'K2': 1, 'K5': 1} and pmoved == {}
+  assert torch.equal(rgb, outs['on again'][0])
+  assert all(torch.equal(x, y) for x, y in zip(grads, outs['on again'][1]))
+  scale = max(1.0, prgb.abs().max().item())
+  assert (rgb - prgb).abs().max().item() <= BOUND[cdt] * scale
+  for i, (g, p) in enumerate(zip(grads, pgrads)):
+    assert g.dtype == p.dtype and g.shape == p.shape, i
+    err = ((g.float() - p.float()).norm() / p.float().norm()).item()
+    assert err <= GRAD_BOUND[cdt], (i, err)
+
+
+@pytest.mark.cuda
+def test_dir1_refuses_a_misaligned_segment_on_the_card(dev):
+  # The kernels read the segments in place (a TMA tensor map, bulk copies):
+  # a 27-column segment whose base lies 2 bytes past a 16-byte boundary
+  # raises, in both directions; it is not copied to hide it.
+  segs, params, wbar = _dir1_case(dev, 640)
+  w, b, wh, bh = params
+  pack = fused_mlp.pack_trunk([w], [b], (256, 27), head_f32=(wh, bh),
+                              compute_dtype='bfloat16')
+  cs = [s.to(torch.bfloat16) for s in segs]
+  buf = torch.zeros(cs[1].numel() + 8, dtype=torch.bfloat16, device=dev)
+  cs[1] = buf[1:1 + cs[1].numel()].view(cs[1].shape).copy_(cs[1])
+  assert cs[1].is_contiguous() and cs[1].data_ptr() % 16
+  cots = (None, wbar, None, None)
+  with pytest.raises(ValueError, match='second segment'):
+    fused_mlp.trunk_kernel(cs, pack)
+  with pytest.raises(ValueError, match='second segment'):
+    fused_mlp.trunk_backward_kernel(cs, pack, cots, needs_dx=True)

@@ -968,7 +968,8 @@ def test_full_width_model_takes_the_w1024_route(w1024_sim, monkeypatch, cdt):
   # under 'on' with the NeRF MLP's spatial trunk on the width-1024
   # libraries: K1 and K4 once each under 'K1 w1024' / 'K4 w1024', the
   # PropMLP's pair twice ('K1 wide' / 'K4 wide'), the directional trunk's
-  # once (K2 on 283 columns, K5); its loss and gradient norm within
+  # once (K2 on 283 columns, K5; both on trunk_dir1, run here by their
+  # plain versions); its loss and gradient norm within
   # chip_smoke.py's 1e-3 and 1e-2 of the step under 'off'; then a request
   # launches K1 three times (one 'K1 w1024') and K2 once.
   fwd, routes = _route_stubs(monkeypatch)
@@ -992,7 +993,7 @@ def test_full_width_model_takes_the_w1024_route(w1024_sim, monkeypatch, cdt):
       'K1 w1024': 1, 'K4 w1024': 1}
   assert ('fwd', 1024, 'trunk_w1024') in routes
   assert ('bwd', 1024, 'trunk_w1024') in routes
-  assert ('fwd', 128, 'trunk_fwd') in routes and ('bwd', 128, 'trunk_bwd') in routes
+  assert ('fwd', 128, 'trunk_dir1') in routes and ('bwd', 128, 'trunk_dir1') in routes
   for mlp in (model.nerf_mlp, model.prop_mlp):
     mlp.cfg.fused_trunk = 'off'
   loss_off, _, grads = train.loss_and_grads(state, batch)

@@ -6,6 +6,9 @@ runs them) and against the pure-jnp oracles `reference_encoded_trunk` /
 `reference_trunk`, on the same numpy inputs. The kernel's weight layout
 (`pack_trunk`) is checked by an emulation of what the kernel reads. The
 kernel itself runs only on a CUDA card: tests/test_torch_port_cuda.py.
+The directional trunk also at mip-NeRF 360's shape (1 x 128 on 256 + 27
+columns, csrc/trunk_dir1.cu's), forward and backward with the segments'
+cotangents against jax.grad.
 
 Tolerances: float32 1e-5 (sums over at most a few hundred terms in another
 order). bfloat16 5e-2: both sides round each layer's f32 sum to bf16, and a
@@ -13,6 +16,7 @@ sum that lands on the other side of a rounding boundary flips one bf16 ulp
 (2^-8 relative), which later layers carry along.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -101,13 +105,31 @@ def test_encoded_trunk_matches_pallas_and_reference(cdt):
     _close(a, c, cdt)
 
 
-@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
-def test_directional_trunk_matches_pallas_and_reference(cdt):
-  rng = np.random.default_rng(1)
-  # Segments as in the flagship: [bottleneck | 2x36 IDE + n.v], here 16 + 73.
-  segs = [rng.normal(size=(7, 11, 16)).astype(np.float32),
-          rng.uniform(-1, 1, (7, 11, 73)).astype(np.float32)]
-  p = _trunk_params(rng, fin=16 + 73, hf=3, hc=0)
+# The directional trunks: the flagship's cut to size ([bottleneck |
+# 2x36 IDE + n.v], here 16 + 73 on 7 x 11 rows, 4 layers of 32 with the
+# skip) and mip-NeRF 360's at its own widths (1 x 128 on [bottleneck 256 |
+# positional encoding of degree 4, 27], also any Model at the MLP's
+# defaults: the shape of csrc/trunk_dir1.cu) on 65 rows; (segment widths,
+# lead shape, width, depth).
+DIR_SHAPES = {'flagship cut': ((16, 73), (7, 11), WIDTH, DEPTH),
+              'mip-NeRF 360': ((256, 27), (5, 13), 128, 1)}
+
+
+def _dir_case(shape, seed):
+  rng = np.random.default_rng(seed)
+  dims, lead, width, depth = DIR_SHAPES[shape]
+  segs = [rng.normal(size=lead + (dims[0],)).astype(np.float32),
+          rng.uniform(-1, 1, lead + (dims[1],)).astype(np.float32)]
+  p = _trunk_params(rng, fin=sum(dims), width=width, depth=depth, hf=3, hc=0)
+  return segs, p, rng.normal(size=lead + (3,)).astype(np.float32)
+
+
+@pytest.mark.parametrize('cdt,shape', [
+    pytest.param(cdt, shape, id=cdt if shape == 'flagship cut' else
+                 f'{cdt}-{shape}')
+    for shape in sorted(DIR_SHAPES) for cdt in ('float32', 'bfloat16')])
+def test_directional_trunk_matches_pallas_and_reference(cdt, shape):
+  segs, p, _ = _dir_case(shape, 1)
   ks = [jnp.asarray(k) for k in p['ks']]
   bs = [jnp.asarray(b) for b in p['bs']]
   head = (jnp.asarray(p['wh']), jnp.asarray(p['bh']))
@@ -121,9 +143,56 @@ def test_directional_trunk_matches_pallas_and_reference(cdt):
   port = fused_mlp.fused_trunk([torch.tensor(s) for s in segs], tp['ws'],
                                tp['bs'], head_f32=tp['head_f32'],
                                skip_period=SKIP, compute_dtype=cdt)
-  assert tuple(port.shape) == (7, 11, 3)
+  assert tuple(port.shape) == segs[0].shape[:-1] + (3,)
   _close(port, pallas, cdt)
   _close(port, oracle, cdt)
+
+
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_directional_trunk_backward_matches_pallas_and_reference(cdt):
+  # K5 with the segments' cotangents (needs_dx) on mip-NeRF 360's shape, 65
+  # rows: the port's plain backward (trunk_backward_reference, through
+  # fused_trunk's autograd Function) against jax.grad of the Pallas kernel
+  # in interpret mode and of reference_trunk, for every parameter and both
+  # segments. float32: within 1e-5 of each gradient's largest entry. bf16:
+  # relative L2 within 5e-2 (chip_smoke.py's GRAD_BOUND): both round zeta
+  # to bf16, and a pre-activation within a bf16 rounding of 0 flips relu'
+  # and moves its row's derivatives by ~10% (H8).
+  segs, p, cot = _dir_case('mip-NeRF 360', 2)
+
+  def jloss(q, fn):
+    sg, ks, bs, wh, bh = q
+    out = fn(sg, ks, bs, (wh, bh))
+    return jnp.sum(out.astype(jnp.float32) * cot)
+
+  pallas = lambda sg, ks, bs, head: jfused.fused_trunk(
+      sg, ks, bs, head_f32=head, out_y=False, skip_period=SKIP,
+      needs_dx=True, compute_dtype=cdt, block=32)
+  oracle = lambda sg, ks, bs, head: jfused.reference_trunk(
+      sg, ks, bs, head_f32=head, skip_period=SKIP, compute_dtype=cdt)[1]
+  q = ([jnp.asarray(s) for s in segs], [jnp.asarray(k) for k in p['ks']],
+       [jnp.asarray(b) for b in p['bs']], jnp.asarray(p['wh']),
+       jnp.asarray(p['bh']))
+  tp = _torch_params(p)
+  tsegs = [torch.tensor(s).requires_grad_(True) for s in segs]
+  for t in tp['ws'] + tp['bs'] + list(tp['head_f32']):
+    t.requires_grad_(True)
+  out = fused_mlp.fused_trunk(tsegs, tp['ws'], tp['bs'], tp['head_f32'],
+                              skip_period=SKIP, compute_dtype=cdt)
+  got = torch.autograd.grad(torch.sum(out.float() * torch.tensor(cot)),
+                            [*tsegs, *tp['ws'], *tp['bs'], *tp['head_f32']])
+  assert [tuple(g.shape) for g in got[:2]] == [s.shape for s in segs]
+  for fn in (pallas, oracle):
+    jdx, jks, jbs, jwh, jbh = jax.grad(jloss)(q, fn)
+    want = list(jdx) + [k.T for k in jks] + list(jbs) + [jwh.T, jbh]
+    for i, (a, b) in enumerate(zip(got, want)):
+      a, b = a.float().numpy(), np.asarray(jnp.asarray(b, jnp.float32))
+      assert a.shape == b.shape, i
+      if cdt == 'float32':
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-5 * np.abs(b).max(), err_msg=i)
+      else:
+        assert np.linalg.norm(a - b) <= 5e-2 * np.linalg.norm(b), i
 
 
 def _emulate_kernel(segs, pack):
