@@ -115,7 +115,7 @@ Phases, each printed on its own line:
      profiled;
  16. the flagship trained and evaluated from a scene on disk: print which of
      Pillow, scipy and matplotlib import; write a Blender-format scene of
-     tools/make_sphere_scene.py's sphere (40 train and 4 test views at
+     tools/make_sphere_scene.py's sphere (20 train and 4 test views at
      800 x 800, the nerf_synthetic resolution) with the port's own PNG
      writer into a temporary directory; time reading a view (through
      Pillow where it imports) and the port's PNG codec on it (filter 0, and
@@ -123,7 +123,7 @@ Phases, each printed on its own line:
      datasets.load_dataset (configs/blender_refnerf.gin with bench.py's
      bindings and all six fuse flags; the gin's batching 'single_image',
      rays cast in the train step); one batch of Pixels cast on the card
-     against the CPU cast; 3 warm-up and 20 timed bf16 steps from
+     against the CPU cast; 3 warm-up and 10 timed bf16 steps from
      prefetched batches (training_batches as shipped: sampled on the step's
      thread, copied by device_prefetch; K2-K10 counted), then steps from
      disk in turns against the same with a sampler thread, one batch of
@@ -133,11 +133,11 @@ Phases, each printed on its own line:
      copied synchronously (every tensor and the loss bit for bit); a test
      view rendered in bf16 with the extras (against fused_trunk='off'),
      PSNR, SSIM and cc-PSNR on the card against the CPU; the same in the
-     gin's own float32 (3 + 10 steps, one view);
+     gin's own float32 (3 + 5 steps, one view);
  17. the port's CLIs on configs/blender_refnerf.gin as shipped (its own
      float32, batch 1024, no fuse flags, fused_trunk='auto'): print which of
      tensorboardX, torch.utils.tensorboard, ffmpeg and cv2 are here; write
-     the sphere scene at 100 train and 2 test views of 400 x 400; the train
+     the sphere scene at 50 train and 2 test views of 400 x 400; the train
      CLI (refnerf_tpu_torch.cli.train main, in this process) for 10 steps,
      validating and checkpointing every 5 (K1-K5 counted: K3, K4, K5 and
      K2 in every step, K1 and K2 in the validation views; every forward on
@@ -281,15 +281,33 @@ Phases, each printed on its own line:
      'off' in turns, and a 4096-ray request against 'off' (spread_l2 within
      M360_SERVE_BOUND, a planted fault of the served model above it; one
      profiled).
+ 25. The JAX package's default Model (DEFAULTS,
+     refnerf_tpu_torch/testing/mlp_defaults.py: 3 levels on two MLPs of 8 x
+     256 on 504 IPE columns with the 256-wide bottleneck and density
+     normals) at full width: its spatial trunk on the wide-input instances
+     against the plain versions at 524,288 rows in bf16 and f32, K1, K3 (the
+     density gradient), K4 first-order and with u's cotangent, and the
+     128-wide head's K1 and first-order K4 (routes asserted, reruns
+     bit-identical; the bf16 128-wide head also on trunk_fwd.cu /
+     trunk_bwd.cu, which ran it before; the PyTorch chain where no density
+     gradient; three planted faults of the chunked contract above the
+     bounds); then 2 steps at batch 16,384 in each dtype under 'on'
+     (launches a step asserted, median ms, peak memory), one step against
+     'off' at the largest batch its double backward holds, a step profiled,
+     a 4096-ray request against 'off' (SERVE_BOUND, the skip input dropped
+     from the served packs above it; one profiled), DEFAULTS_NORMALS
+     trained likewise, and a step and a request of two variants (no density
+     normals; a 128-wide bottleneck) counted.
 The line before the last is a JSON list of the kernels, each with its
 launches on the main path (phases 4, 6, 8, 10, 12, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 22, 23 and 24),
+18, 19, 20, 21, 22, 23, 24 and 25),
 its time and its plain version's at N, and its bound: the larger of the
 bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
 the fused stages' f32 work overlaps bf16 tensor work; the f32 width-1024
 pair's as three TF32 products at 495 TFLOP/s, the FMA bound beside it);
-its library_ms is null but for phase 24's rows (its PyTorch chains). The
+its library_ms is null but for phase 24's and 25's rows (their PyTorch
+chains; none with the density gradient). The
 line before it gives each phase's seconds.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
@@ -1724,11 +1742,11 @@ def f32_serve_stage(fused_mlp, dev, requests=30, phase=14, gin_name=FLAGSHIP,
 
 
 # Phase 16: the flagship trained and evaluated from a scene on disk. The
-# scene: nerf_synthetic's resolution (800 x 800; 40 train and 4 test views,
+# scene: nerf_synthetic's resolution (800 x 800; 20 train and 4 test views,
 # against its 100 train views, to fit the time limit) of
 # tools/make_sphere_scene.py's analytic sphere.
-SCENE_RES, SCENE_TRAIN, SCENE_TEST = 800, 40, 4
-DATA_WARMUP, DATA_STEPS, DATA_F32_STEPS = 3, 20, 10
+SCENE_RES, SCENE_TRAIN, SCENE_TEST = 800, 20, 4
+DATA_WARMUP, DATA_STEPS, DATA_F32_STEPS = 3, 10, 5
 # The cast on the card vs the CPU: both f32, the 3x3 products as products
 # and a sum, in another order.
 CAST_BOUND = 1e-5
@@ -1965,7 +1983,7 @@ def data_path_cost(fused_mlp, dev, run):
       'pixels on the card': lambda: train_step(box['state'], pixels_batch,
                                                cameras),
       'random rays': lambda: train_step(box['state'], random_batch)}
-  order = (list(arms) + list(arms)[::-1]) * 2
+  order = list(arms) + list(arms)[::-1]
   times = {a: [] for a in arms}
   profs = {}
   try:
@@ -2176,10 +2194,10 @@ def data_stage(fused_mlp, dev):
 
 
 # Phase 17: the port's CLIs on configs/blender_refnerf.gin as shipped (f32,
-# batch 1024, no fuse flags). The scene: the sphere at nerf_synthetic's 100
-# train views, at 400 x 400 (half its resolution, to fit the time limit),
-# and 2 test views.
-CLI_RES, CLI_TRAIN, CLI_TEST = 400, 100, 2
+# batch 1024, no fuse flags). The scene: the sphere at 50 train views (half
+# nerf_synthetic's 100), at 400 x 400 (half its resolution, to fit the time
+# limit), and 2 test views.
+CLI_RES, CLI_TRAIN, CLI_TEST = 400, 50, 2
 CLI_STEPS, CLI_EXIT = 10, 5
 # Launches a level and step of the unfused flagship's train step.
 CLI_PER_STEP = {'K2': 1, 'K3': 1, 'K4': 1, 'K5': 1}
@@ -2351,7 +2369,7 @@ def cli_stage(fused_mlp, dev):
         f'{state_bytes} bytes each; the config snapshot and '
         f'{len(events)} TensorBoard event file(s) written')
 
-    # Run B: killed at step 10 (an early exit), then resumed to 20.
+    # Run B: killed at CLI_EXIT (an early exit), then resumed to CLI_STEPS.
     cut, _, cut_s = run_cli(
         cli_train.main, argv('cli_b', f'Config.early_exit_steps = {CLI_EXIT}'))
     if cut.state.step != CLI_EXIT:
@@ -3622,7 +3640,7 @@ def mesh_stage(fused_mlp, dev):
 # launch: the trunk operator twice for each trunk kind (2 levels), and a
 # request's launches counted in a fresh process.
 SERVE_CHUNK = 4096
-REQUESTS = 32
+REQUESTS = 16
 ARTIFACT_OPS = {'K1': 2, 'K2': 2}
 ARTIFACTS = {
     'flagship': (FLAGSHIP, 'bfloat16', FUSE + SPATIAL, 'trunk_fwd_tma',
@@ -3974,7 +3992,7 @@ def serving_stage(fused_mlp, dev):
 # running refnerf_tpu_torch/testing/data_parallel.py (or a CLI); on this
 # machine's one card they share it over gloo (DP_DEVICE), and NCCL runs at
 # one rank (two ranks only where there are two cards).
-DP_RANKS, DP_STEPS, DP_TIMEOUT = 2, 3, 420
+DP_RANKS, DP_STEPS, DP_TIMEOUT = 2, 2, 420
 DP_DEVICE, DP_BACKEND = 'cuda:0', 'gloo'
 DP_ENV = ('RANK', 'LOCAL_RANK', 'WORLD_SIZE', 'LOCAL_WORLD_SIZE',
           'MASTER_ADDR', 'MASTER_PORT')
@@ -4914,6 +4932,476 @@ def m360_stage(fused_mlp, dev):
   return paths, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the JAX package's default Model (refnerf_tpu_torch/testing/
+# mlp_defaults.py DEFAULTS: 3 levels on two MLPs of 8 x 256 on 504 IPE
+# columns with the 256-wide bottleneck and density normals), its spatial
+# trunk on the wide-input instances in both dtypes: K1 with the bottleneck,
+# K3 (the density gradient, u folded chunk by chunk) and K4 with u's
+# cotangent (the second-order pass, the tangent made chunk by chunk), and
+# the 128-wide head's pair on the same 504 columns.
+DEFAULTS_BATCH, DEFAULTS_STEPS = 16384, 2  # Config.batch_size's default
+DEFAULTS_REQUEST = 4096
+# Launches a step and a request of the defaults: each level's spatial trunk
+# (K3 and K4 with u's cotangent in training, K1 in a request, all on the
+# wide-input instances) and its directional trunk (trunk_dir1.cu).
+DEFAULTS_PER_STEP = {'K2': 3, 'K3': 3, 'K3 wide': 3, 'K4': 3, 'K4 wide': 3,
+                     'K5': 3}
+DEFAULTS_PER_REQUEST = {'K1': 3, 'K1 wide': 3, 'K2': 3}
+# The loss terms of Config()'s defaults.
+DEFAULTS_TERMS = ('data', 'interlevel', 'distortion')
+# Two variants of the defaults at batch 1024 (a step and a request
+# counted): without density normals (the 256-wide head's first-order K4)
+# and with a 128-wide bottleneck too (the 128-wide head's K1 and
+# first-order K4).
+NO_NORMALS = ['NerfMLP.disable_density_normals = True',
+              'PropMLP.disable_density_normals = True',
+              'Config.batch_size = 1024']
+DEFAULTS_VARIANTS = {
+    'DEFAULTS_FIRST': NO_NORMALS,
+    'DEFAULTS_HC128': NO_NORMALS + ['NerfMLP.bottleneck_width = 128',
+                                    'PropMLP.bottleneck_width = 128']}
+VARIANT_PER_STEP = {'K1': 3, 'K1 wide': 3, 'K2': 3, 'K4': 3, 'K4 wide': 3,
+                    'K5': 3}
+# Rows of the planted faults of the chunked contract (on the plain versions).
+DEFAULTS_FAULT_ROWS = 8192
+# A served request against 'off' (`defaults_request`): spread_l2 at most
+# DEFAULTS_SERVE_BOUND[compute dtype], SERVE_BOUND's (the flagship's 8 x 256
+# trunks, as these). Its sound reads on an H100: rgb 2.3e-5 in bf16 and
+# 7.2e-7 in f32, 0.11 and 0.04 of the bound; the skip layer's input dropped
+# from the served packs reads 53 and 530 times it.
+DEFAULTS_SERVE_BOUND = dict(SERVE_BOUND)
+
+
+def defaults_case(fused_mlp, gen, dev, n, hc):
+  """The defaults' spatial trunk on n rows: the IPE (f32) of random lifted
+  means and variances on 21 basis vectors x 12 degrees (two segments of
+  252 columns, 512 packed), 8 x 256 with the skip at layer 5 and He-scaled
+  weights, the density head and an hc-wide compute-dtype head; the scale
+  fold [252, 21]; random cotangents of sigma, the head and u. Returns
+  (segs, ws, bs, kw, fold, (sbar, cbar, ubar))."""
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  lm = torch.rand(n, 21, generator=gen).to(dev) * 3 - 1.5
+  lv = 10.0**(torch.rand(n, 21, generator=gen).to(dev) * 4 - 6)
+  segs = list(fused_mlp.encode_ipe(lm, lv, PROP_SCALES))
+  skips = fused_mlp.skip_input_layers(8, 4)
+  ws = [rand(256, k) * math.sqrt(2 / k) for k in
+        (504 if l == 0 else 256 + (504 if l in skips else 0)
+         for l in range(8))]
+  bs = [rand(256) * 0.05 for _ in range(8)]
+  kw = dict(skip_period=4, wd=rand(1, 256) / 16, head_f32=None,
+            head_cdt=(rand(hc, 256) / 16, rand(hc) * 0.1))
+  fold = fused_mlp._scale_fold(tuple(float(s) for s in PROP_SCALES), 21, dev)
+  return segs, ws, bs, kw, fold, (rand(n), rand(n, hc) * 0.1, rand(n, 21))
+
+
+def defaults_faults(fused_mlp, cdt, cs, ws, bs, kw, fold, cots):
+  """What the planted faults of the chunked contract
+  (mlp_defaults.FAULTS: the skip layer's input columns left out of u's
+  fold, the tangent's skip term dropped, the sin / cos pairing swapped)
+  would read on the plain versions (`mlp_defaults.chunked_density_grad`
+  with the fault, against the plain u and, first-order plus the model's
+  second-order share, against the plain backward with u's cotangent), as
+  `errors` reads the kernels: the share of GRAD_BOUND of u and of the
+  gradients. Fails unless each reads above its bound."""
+  from refnerf_tpu_torch.testing import mlp_defaults
+  sbar, cbar, ubar = cots
+  reads = {}
+  with torch.no_grad():
+    u = fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                  density_grad=True, fold=fold, **kw)[-1]
+    full = fused_mlp.trunk_backward_reference(
+        cs, ws, bs, (sbar, None, cbar, ubar), compute_dtype=cdt, fold=fold,
+        **kw)
+    first = fused_mlp.trunk_backward_reference(
+        cs, ws, bs, (sbar, None, cbar, None), compute_dtype=cdt, fold=fold,
+        **kw)
+    want = [u] + full[0] + [full[2]]
+    for fault in mlp_defaults.FAULTS:
+      bu, (dws, dwd) = mlp_defaults.chunked_density_grad(
+          cs, ws, bs, kw['wd'], fold, ubar, compute_dtype=cdt,
+          faults=[fault])
+      got = [bu] + [a + b for a, b in zip(first[0], dws)] + [first[2] + dwd]
+      reads[fault] = max(r[3] for r in errors(got, want, cdt, 0))
+      del bu, dws, got
+  log(f'phase 25: {cdt}: a fault of the chunked contract would read ' +
+      ', '.join(f'{v:.1f} ({k})' for k, v in reads.items()) +
+      ' times the bound')
+  if not min(reads.values()) > 1:
+    raise AssertionError(f'phase 25: the bounds do not see a fault of the '
+                         f'chunked contract: {reads}')
+  return reads
+
+
+def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True):
+  """Phase 25 (a): the defaults' spatial trunk against its plain versions
+  at each of `ns` rows, bf16 and f32, on the wide-input instances (the
+  routes asserted): with the 256-wide head K1 (sigma and the head by
+  KERNEL_BOUND), K3 (u by GRAD_BOUND), first-order K4 and K4 with u's
+  cotangent (every gradient by GRAD_BOUND); with the 128-wide head K1 and
+  first-order K4; each run twice more bit-identical, timed at the largest
+  n against its bound and, without the density gradient, the PyTorch chain
+  (`w1024_chain`); the bf16 128-wide head's pair also on the design it ran
+  on before, trunk_fwd.cu and trunk_bwd.cu, the routes forced ('was_ms');
+  the planted faults of the chunked contract (`defaults_faults`). Returns
+  ({(name, cdt): compare()'s dict at max(ns)}, {cdt: fault reads})."""
+  gen = torch.Generator().manual_seed(SEED + 25)
+  results, fault_reads = {}, {}
+  n_max = max(ns)
+  for hc in (256, 128):
+    segs, ws, bs, kw, fold, cots = defaults_case(fused_mlp, gen, dev, n_max,
+                                                 hc)
+    sbar, cbar, ubar = cots
+    flops = lambda n, **k: trunk_flops(ws, n, 1 + hc, **k)
+    for cdt in ('bfloat16', 'float32'):
+      dt = fused_mlp.DTYPES[cdt]
+      cs = [s.to(dt) for s in segs]
+      pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+      want = (fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt])
+      for f in (None, fold):
+        got = (fused_mlp.forward_library(pack, fold=f),
+               fused_mlp.backward_library(pack, fold=f))
+        if (got != want or not fused_mlp.wide_input(pack, fold=f) or
+            fused_mlp.missing_instance(pack, hc, f) is not None):
+          raise AssertionError(f'phase 25: the {cdt} defaults trunk (head '
+                               f'{hc}) routed to {got}')
+      tag = f'wide hc{hc}'
+      for n in ns:
+        xs = [c[:n] for c in cs]
+        c1 = (sbar[:n], None, cbar[:n].to(dt), None)
+        c2 = c1[:3] + (ubar[:n],)
+        ins = xs + pack_tensors(pack)
+        rows = [
+            (f'K1 {tag}', 2, lambda: fused_mlp.trunk_kernel(xs, pack),
+             lambda: fused_mlp.trunk_reference(xs, ws, bs, compute_dtype=cdt,
+                                               **kw),
+             ins, flops(n), lambda: w1024_chain(fused_mlp, xs, ws, bs, kw,
+                                                cdt)),
+            (f'K4 {tag} 1st', 0,
+             lambda: fused_mlp.trunk_backward_kernel(xs, pack, c1),
+             lambda: fused_mlp.trunk_backward_reference(
+                 xs, ws, bs, c1, compute_dtype=cdt, **kw),
+             ins + [c1[0], c1[2]], flops(n, backward=True),
+             lambda: w1024_chain(fused_mlp, xs, ws, bs, kw, cdt,
+                                 (c1[0], None, c1[2])))]
+        if hc == 256:
+          rows[1:1] = [
+              (f'K3 {tag}', 2, lambda: fused_mlp.trunk_kernel(xs, pack, fold),
+               lambda: fused_mlp.trunk_reference(
+                   xs, ws, bs, compute_dtype=cdt, density_grad=True,
+                   fold=fold, **kw),
+               ins + [fold], flops(n, density_grad=True), None)]
+          rows.append(
+              (f'K4 {tag} ubar', 0,
+               lambda: fused_mlp.trunk_backward_kernel(xs, pack, c2, fold),
+               lambda: fused_mlp.trunk_backward_reference(
+                   xs, ws, bs, c2, compute_dtype=cdt, fold=fold, **kw),
+               ins + [c2[0], c2[2], c2[3], fold],
+               flops(n, backward=True, density_grad=True), None))
+        for which, nv, kernel, plain, inputs, fl, lib in rows:
+          r = compare(which, cdt, kernel, plain, n_values=nv, iters=2,
+                      phase=25, inputs=inputs, flops=fl, n=n,
+                      library=lib() if lib is not None and n == n_max
+                      else None)
+          deterministic(which, kernel, phase=25, cdt=cdt)
+          if n == n_max:
+            results[which, cdt] = r
+            if hc == 128 and cdt == 'bfloat16':
+              # The design the bf16 128-wide head ran on before (trunk_fwd.cu,
+              # trunk_bwd.cu: kin past the TMA instances), the routes forced.
+              fwd, bwd = fused_mlp.forward_library, fused_mlp.backward_library
+              fused_mlp.forward_library = lambda *a, **k: 'trunk_fwd'
+              fused_mlp.backward_library = lambda *a, **k: 'trunk_bwd'
+              try:
+                r['was_ms'] = compare(
+                    f'{which} on trunk_{"fwd" if nv else "bwd"}.cu (was)',
+                    cdt, kernel, plain, n_values=nv, iters=2, phase=25,
+                    inputs=inputs, flops=fl, n=n)['ms']
+              finally:
+                fused_mlp.forward_library, fused_mlp.backward_library = (
+                    fwd, bwd)
+        del xs, rows
+      if faults and hc == 256:
+        m = min(DEFAULTS_FAULT_ROWS, n_max)
+        fault_reads[cdt] = defaults_faults(
+            fused_mlp, cdt, [c[:m] for c in cs], ws, bs, kw, fold,
+            (sbar[:m], cbar[:m].to(dt), ubar[:m]))
+      del pack, cs
+      torch.cuda.empty_cache()
+    del segs, ws, bs, kw, cots
+    torch.cuda.empty_cache()
+  return results, fault_reads
+
+
+def defaults_setup(dev, dtype, bindings=(), mode='on'):
+  """The defaults (+ `bindings`) at full width, trunks in `dtype` (both
+  MLPs), weights from Config.seed, under fused_trunk `mode`; a batch of
+  Config.batch_size random rays and pixels, a fresh train state and the
+  step."""
+  from refnerf_tpu_torch import configs
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import construct
+  from refnerf_tpu_torch.testing.mlp_defaults import DEFAULTS
+  from refnerf_tpu_torch.train import step as step_lib
+  config, gin = configs.parse([], [
+      *DEFAULTS, *bindings, f'Config.seed = {SEED}',
+      f"NerfMLP.compute_dtype = '{dtype}'",
+      f"PropMLP.compute_dtype = '{dtype}'",
+      f"NerfMLP.fused_trunk = '{mode}'", f"PropMLP.fused_trunk = '{mode}'"])
+  model = construct.construct_model(config, gin, dev)
+  n = config.batch_size
+  rng = np.random.RandomState(25)
+  rays = rays_from(rays_lib, rng.randn(n, 3).astype(np.float32) * 0.1,
+                   rng.randn(n, 3).astype(np.float32),
+                   np.full((n, 1), 0.001, np.float32), config, dev)
+  rays.lossmult = torch.ones(n, 1, device=dev)
+  rgb = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).to(dev)
+  return dict(model=model, config=config, cameras=None,
+              batch=rays_lib.Batch(rays=rays, rgb=rgb),
+              state=step_lib.create_train_state(config, model),
+              train_step=step_lib.make_train_step(model, config))
+
+
+def defaults_train(fused_mlp, run, what, steps, per_step, terms):
+  """Phase 25 (b): one warm step, then `steps` steps timed one by one, each
+  kernel launched steps x its `per_step` count (launch_keys' counts), the
+  loss terms `terms`, finite; the peak memory allocated over the timed
+  steps. Returns (launches, median ms, peak GiB, libraries, last stats)."""
+  step_fn, batch = run['train_step'], run['batch']
+  seen, restore = _routes(fused_mlp)
+  try:
+    run['state'], _ = step_fn(run['state'], batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in fused_mlp.launches:
+      fused_mlp.launches[k] = 0
+    times, all_stats = [], []
+    for _ in range(steps):
+      t0 = time.perf_counter()
+      run['state'], stats = step_fn(run['state'], batch)
+      torch.cuda.synchronize()
+      times.append(time.perf_counter() - t0)
+      all_stats.append(stats)
+    launches = dict(fused_mlp.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+  finally:
+    restore()
+  want = {k: steps * per_step.get(k, 0) for k in launches}
+  if launches != want:
+    raise AssertionError(f'phase 25: {what} launches {launches}, expected '
+                         f'{want}')
+  for stats in all_stats:
+    got = stats['losses']
+    if not (set(got) == set(terms) and
+            all(torch.isfinite(v).all() for v in got.values())):
+      raise AssertionError(f'phase 25: {what}: loss terms {got}')
+  ms = float(np.median(times)) * 1e3
+  last = all_stats[-1]
+  bsz = run['config'].batch_size
+  log(f'phase 25: {what}: {steps} steps after 1 warm-up at batch {bsz}: '
+      f'median {ms:.2f} ms a step (' + ', '.join(f'{t * 1e3:.2f}'
+                                                 for t in times) +
+      f'), {bsz / ms * 1e3:.0f} train rays/s, peak {peak:.2f} GiB '
+      f'allocated; loss {last["loss"].item():.6g} (' + ', '.join(
+          f'{k} {v.item():.6g}' for k, v in last['losses'].items()) +
+      f'); launches {launches}; libraries '
+      f'{json.dumps({k: sorted(v) for k, v in seen.items()})}')
+  return launches, ms, peak, seen, last
+
+
+def defaults_against_plain(fused_mlp, run, what):
+  """Phase 25 (b): one step against fused_trunk='off' (`cascade_against_
+  plain`: the loss within TRAIN_LOSS_BOUND, the gradient norm within
+  TRAIN_GNORM_BOUND) on the first rays of the batch, at the largest of
+  DEFAULTS_BATCH, its half, ... that the plain path's double backward holds
+  in memory. Returns the summary with the batch it ran at."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  batch = run['batch']
+  n = batch.rgb.shape[0]
+  floor = min(n, 256)
+  while n >= floor:
+    sub = rays_lib.Batch(
+        rays=type(batch.rays)(**{k: None if v is None else v[:n] for k, v in
+                                 vars(batch.rays).items()}),
+        rgb=batch.rgb[:n])
+    try:
+      out = cascade_against_plain(fused_mlp, run, sub, f'{what} at batch {n}',
+                                  phase=25)
+      return dict(out, batch=n)
+    except torch.cuda.OutOfMemoryError:
+      pass
+    del sub
+    torch.cuda.empty_cache()
+    log(f"phase 25: {what}: fused_trunk='off' does not fit at batch {n}")
+    n //= 2
+  raise AssertionError(f"phase 25: {what}: fused_trunk='off' fits no batch")
+
+
+def defaults_request(fused_mlp, dev, run, what, per_request):
+  """Phase 25 (c): a 4096-ray request (eval, one chunk) through the kernels,
+  timed after a warm one, its launches counted (`per_request`), against
+  fused_trunk='off' (timed too): rgb and acc by spread_l2 within
+  DEFAULTS_SERVE_BOUND; a planted fault of the served model (every spatial
+  pack without the skip layer's input columns, `drop_skip_columns`) must
+  read above it; one request profiled. Returns a summary."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import mlp as mlp_lib
+  from refnerf_tpu_torch.models import renderer
+  model, config = run['model'], run['config']
+  cdt = model.nerf_mlp.cfg.compute_dtype
+  rays = random_rays(rays_lib, DEFAULTS_REQUEST, config, 25, dev)
+  chunk = DEFAULTS_REQUEST
+
+  def timed():
+    renderer.render_rays(model, rays, chunk)  # warm-up (packs the weights)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = renderer.render_rays(model, rays, chunk)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+  for k in fused_mlp.launches:
+    fused_mlp.launches[k] = 0
+  out, ms = timed()
+  launches = {k: v // 2 for k, v in fused_mlp.launches.items() if v}
+  if launches != per_request:
+    raise AssertionError(f'phase 25: {what} request launches {launches}')
+  ranges = check_rendering(out, (DEFAULTS_REQUEST,), config,
+                           model.nerf_mlp.cfg.rgb_padding)
+  set_mode(model, fused_trunk='off')
+  try:
+    before = dict(fused_mlp.launches)
+    plain, plain_ms = timed()
+    if fused_mlp.launches != before:
+      raise AssertionError("phase 25: fused_trunk='off' launched a kernel")
+  finally:
+    set_mode(model, fused_trunk='on')
+  host = lambda t: t.detach().double().reshape(t.shape[0], -1).cpu().numpy()
+  spread = lambda got: {k: spread_l2(host(got[k]), host(plain[k]))
+                        for k in ('rgb', 'acc')}
+  reads = spread(out)
+  with planted_pack(drop_skip_columns) as planted, mlp_lib.frozen_packs(
+      model):
+    fault = spread(renderer.render_rays(model, rays, chunk))
+  if not planted:
+    raise AssertionError(f'phase 25: {what}: the skip fault went into no '
+                         'pack')
+  bound = DEFAULTS_SERVE_BOUND[cdt]
+  log(f'phase 25: {what}: a {DEFAULTS_REQUEST}-ray request {ms:.1f} ms '
+      f'under "on", {plain_ms:.1f} ms under "off"; {ranges}; launches '
+      f"{launches}; vs fused_trunk='off' by spread_l2: " + ', '.join(
+          f'{k} {v:.3e} ({v / bound:.3f} of the bound)'
+          for k, v in reads.items()) + f' (bound {bound}); the skip input '
+      'dropped from the served packs would read ' + ', '.join(
+          f'{k} {v:.3e} ({v / bound:.1f} times the bound)'
+          for k, v in fault.items()))
+  if not max(reads.values()) <= bound:
+    raise AssertionError(f'phase 25: {what}: the request disagrees with '
+                         'the plain path')
+  if not max(fault.values()) > bound:
+    raise AssertionError(f'phase 25: {what}: the bound does not see the '
+                         f'skip input dropped from the served packs: {fault}')
+  prof = profile(lambda: renderer.render_rays(model, rays, chunk),
+                 f'{what} request', 1, phase=25)
+  busy = None if prof is None else {
+      'wall_ms': prof['wall_ms'], 'busy_ms': prof['busy_ms'],
+      'top': dict(sorted(prof['kernels'].items(), key=lambda kv: -kv[1])[:6])}
+  return dict(ms=ms, off_ms=plain_ms, launches=launches, spread_l2=reads,
+              fault_spread_l2=fault, profile=busy)
+
+
+def variant_run(fused_mlp, dev, dtype, name):
+  """Phase 25 (b): DEFAULTS_VARIANTS[name] under 'on': one step counted
+  (VARIANT_PER_STEP, the routes asserted) and one 4096-ray request counted
+  (DEFAULTS_PER_REQUEST). Returns ({'step': launches, 'request':
+  launches}, step ms)."""
+  from refnerf_tpu_torch.cameras import rays as rays_lib
+  from refnerf_tpu_torch.models import renderer
+  run = defaults_setup(dev, dtype, DEFAULTS_VARIANTS[name])
+  what = f'{name} {dtype}'
+  step, ms, _, seen, _ = defaults_train(fused_mlp, run, what, 1,
+                                        VARIANT_PER_STEP, DEFAULTS_TERMS)
+  # The spatial trunks on the wide-input pair; the directional trunk on
+  # trunk_dir1.cu, or at a 128-wide bottleneck (155 columns) on the same
+  # pair's width-128 instances.
+  for way, lib in (('forward', fused_mlp.FWD_LIBRARY[dtype]),
+                   ('backward', fused_mlp.BWD_LIBRARY[dtype])):
+    if lib not in seen[way] or seen[way] - {lib, fused_mlp.DIR1_LIBRARY}:
+      raise AssertionError(f'phase 25: {what} routed to {seen}')
+  rays = random_rays(rays_lib, DEFAULTS_REQUEST, run['config'], 25, dev)
+  for k in fused_mlp.launches:
+    fused_mlp.launches[k] = 0
+  with torch.no_grad():
+    out = renderer.render_rays(run['model'], rays, DEFAULTS_REQUEST)
+  request = {k: v for k, v in fused_mlp.launches.items() if v}
+  check_rendering(out, (DEFAULTS_REQUEST,), run['config'],
+                  run['model'].nerf_mlp.cfg.rgb_padding)
+  if request != DEFAULTS_PER_REQUEST:
+    raise AssertionError(f'phase 25: {what} request launches {request}')
+  return dict(step=step, request=request), ms
+
+
+def defaults_stage(fused_mlp, dev, steps=DEFAULTS_STEPS):
+  """Phase 25 (b)-(c): the defaults at full width in bf16 and in f32 under
+  'on' (raising on any trunk without an instance): `steps` steps at batch
+  16,384 (`defaults_train`, the routes asserted: the spatial trunks on the
+  wide-input pair, the directional ones on trunk_dir1.cu), one step against
+  'off' (`defaults_against_plain`), a step profiled, a 4096-ray request
+  (`defaults_request`); DEFAULTS_NORMALS likewise trained (the orientation
+  term in the loss); DEFAULTS_VARIANTS (`variant_run`). Returns ({dtype:
+  launches}, {dtype: {variant: launches}}, summary)."""
+  from refnerf_tpu_torch.testing.mlp_defaults import DEFAULTS_NORMALS
+  out, paths, variants = {}, {}, {}
+  for dtype in ('bfloat16', 'float32'):
+    wide = {fused_mlp.FWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
+    bwide = {fused_mlp.BWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
+    res = {}
+    for name, bindings, terms in (
+        ('DEFAULTS', (), DEFAULTS_TERMS),
+        ('DEFAULTS_NORMALS', DEFAULTS_NORMALS,
+         DEFAULTS_TERMS + ('orientation',))):
+      run = defaults_setup(dev, dtype, bindings)
+      mlp = run['model'].nerf_mlp
+      if (mlp.cfg.net_width != 256 or mlp.spatial_0.in_features != 504 or
+          mlp.bottleneck.out_features != 256 or
+          mlp.cfg.disable_density_normals or
+          run['config'].batch_size != DEFAULTS_BATCH):
+        raise AssertionError('phase 25: the configuration is not the '
+                             'defaults')
+      what = f'{name} {dtype}'
+      launches, ms, peak, seen, last = defaults_train(
+          fused_mlp, run, what, steps, DEFAULTS_PER_STEP, terms)
+      if seen != {'forward': wide, 'backward': bwide}:
+        raise AssertionError(f'phase 25: {what} routed to {seen}')
+      r = dict(step_ms=ms, rays_s=DEFAULTS_BATCH / ms * 1e3, peak_gib=peak,
+               loss=last['loss'].item(), launches=launches)
+      if name == 'DEFAULTS':
+        paths[dtype] = launches
+        r['vs_plain'] = defaults_against_plain(fused_mlp, run, what)
+        box = {'state': run['state']}
+
+        def step():
+          box['state'], _ = run['train_step'](box['state'], run['batch'])
+        prof = profile(step, f'{what} train step', 1, phase=25)
+        if prof is not None:
+          r['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
+          r['profile']['top'] = dict(sorted(
+              prof['kernels'].items(), key=lambda kv: -kv[1])[:6])
+        r['request'] = defaults_request(fused_mlp, dev, run, what,
+                                        DEFAULTS_PER_REQUEST)
+        del box
+      res[name] = r
+      del run, mlp
+      torch.cuda.empty_cache()
+    variants[dtype] = {}
+    for name in DEFAULTS_VARIANTS:
+      variants[dtype][name], res[name + '_step_ms'] = variant_run(
+          fused_mlp, dev, dtype, name)
+      torch.cuda.empty_cache()
+    out[dtype] = res
+    log(f'phase 25: the defaults in {dtype} [{CARD}]: {json.dumps(res)}')
+  return paths, variants, out
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is false)',
@@ -4996,6 +5484,11 @@ def main():
   w1024, w1024_faults_read = phase(24, check_w1024_kernels, fused_mlp, dev)
   kernels.update(w1024)
   m360_path, m360 = phase(24, m360_stage, fused_mlp, dev)
+  defaults_k, defaults_faults_read = phase(25, check_defaults_kernels,
+                                           fused_mlp, dev)
+  kernels.update(defaults_k)
+  defaults_path, variant_path, defaults = phase(25, defaults_stage, fused_mlp,
+                                                dev)
 
   fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd.cu'
   bwd_src = 'refnerf_tpu_torch/csrc/trunk_bwd.cu'
@@ -5225,6 +5718,56 @@ def main():
       entry['f32_fma_bound_ms'] = f32['fma_bound_ms']
       entry['f32_route'] = 'three TF32 passes on wgmma'
     line.append(entry)
+  # Phase 25's: the defaults' spatial trunk (8 x 256 on 504 columns, the
+  # density head, the 256-wide bottleneck) on the wide-input instances,
+  # launched by the defaults' bf16 steps (K3, K4 with u's cotangent) and
+  # request (K1), the variants' (the first-order K4 without density normals,
+  # the 128-wide head's pair); the f32 counts beside them.
+  def launched(dtype, key, step, request, variants):
+    count = defaults_path[dtype].get(key, 0) if step else 0
+    if request:
+      count += defaults[dtype]['DEFAULTS']['request']['launches'].get(key, 0)
+    for v in variants:
+      count += sum(variant_path[dtype][v][k].get(key, 0)
+                   for k in ('step', 'request'))
+    return count
+  # (name, description, line of the TPU kernel, launches key, counted in the
+  # defaults' step, in their request, in the variants').
+  for which, desc, at, key, step, request, variants in (
+      ('K1 wide hc256', 'spatial trunk forward on 504 input columns with the '
+       '256-wide bottleneck (the defaults)', 612, 'K1 wide', False, True,
+       ('DEFAULTS_FIRST',)),
+      ('K3 wide hc256', 'the same with the density gradient, u folded chunk '
+       'by chunk', 589, 'K3 wide', True, False, ()),
+      ('K4 wide hc256 1st', 'spatial trunk first-order backward on 504 input '
+       'columns with the 256-wide bottleneck', 668, 'K4 wide', False, False,
+       ('DEFAULTS_FIRST',)),
+      ('K4 wide hc256 ubar', 'the same with the cotangent of u (the '
+       'second-order pass, the tangent chunk by chunk)', 668, 'K4 wide', True,
+       False, ()),
+      ('K1 wide hc128', 'spatial trunk forward on 504 input columns with a '
+       '128-wide head', 612, 'K1 wide', False, False, ('DEFAULTS_HC128',)),
+      ('K4 wide hc128 1st', 'spatial trunk first-order backward on 504 input '
+       'columns with a 128-wide head', 668, 'K4 wide', False, False,
+       ('DEFAULTS_HC128',))):
+    count = {d: launched(d, key, step, request, variants)
+             for d in ('bfloat16', 'float32')}
+    b16, f32 = kernels[which, 'bfloat16'], kernels[which, 'float32']
+    fwd = which.startswith(('K1', 'K3'))
+    if not count['bfloat16'] > 0:
+      raise AssertionError(f'phase 25: {which} was launched no time')
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')
+    line.append({
+        'name': f'{which} {desc}', 'route': 'cuda',
+        'source': ftma_src if fwd else tma_src,
+        'replaces': f'{pallas}:{at}', 'launches': count['bfloat16'],
+        'max_abs_err': b16['max_abs_err'], 'ms': b16['ms'],
+        'plain_ms': b16['plain_ms'], 'bound_ms': b16['bound_ms'],
+        'bound_by': b16['bound_by'], 'library_ms': b16.get('library_ms'),
+        'dtype': 'bfloat16', 'n_samples': N_SAMPLES,
+        'f32_source': f32fwd_src if fwd else f32_src,
+        **{'f32_' + k: f32[k] for k in keys},
+        'f32_launches': count['float32']})
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '
@@ -5248,8 +5791,10 @@ def main():
       f'artifacts): {json.dumps(art)}; phase 22 (data parallel, two ranks '
       f'sharing one card: no scaling figure): {json.dumps(dp)}; phase 23 '
       f'(Model.remat): {json.dumps(remat)}; phase 24 (mip-NeRF 360 at full '
-      f'width): {json.dumps(m360)}; planted faults '
-      f'{json.dumps(w1024_faults_read)}')
+      f'width): {json.dumps(m360)}; phase 25 (the defaults): '
+      f'{json.dumps(defaults)}; planted faults '
+      f'{json.dumps(w1024_faults_read)}, the chunked contract\'s '
+      f'{json.dumps(defaults_faults_read)}')
   log('phase seconds: ' + json.dumps(
       {str(k): round(v, 1) for k, v in sorted(secs.items())}) +
       f'; in all {time.perf_counter() - START:.1f} s')

@@ -9,6 +9,11 @@
 
 namespace {
 
+// The density gradient's basis vectors (nb, the fold's columns): at most 4
+// on up to 256 input columns, at most kMaxNbWide past them (the wide-input
+// instances; the MLP's default icosahedron basis has 21).
+constexpr int kMaxNbWide = 32;
+
 struct BwdParams {
   const void* x0;   // [n][d0] segment 0 of this slab, compute dtype
   const void* x1;   // [n][d1] segment 1 (d1 may be 0)
@@ -99,8 +104,9 @@ inline int bwd_params(BwdParams& out, REFNERF_BWD_ARGS) {
   if (rgb_bar != nullptr && (hf != 3 || bh == nullptr || rawd == nullptr || rawt == nullptr ||
                              drawd == nullptr || drawt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (ubar != nullptr && (wd == nullptr || fold == nullptr || d0 != d1 || nb <= 0 || nb > 4 ||
-                          ss == nullptr || ps == nullptr || ts == nullptr))
+  if (ubar != nullptr &&
+      (wd == nullptr || fold == nullptr || d0 != d1 || nb <= 0 ||
+       nb > (kin > 256 ? kMaxNbWide : 4) || ss == nullptr || ps == nullptr || ts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dx0 != nullptr && (dxs == nullptr || (d1 > 0 && dx1 == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -162,14 +162,68 @@ __device__ void store_in(float* g, const float* t, int kin) {
   }
 }
 
-// The wide-input instance (WIDE): the first-order backward of the spatial
-// trunk at width 256 on more than 256 input columns (up to kWideKin), with
-// the density head and f32 heads alone (no compute-dtype head, cotangent of
-// u, fused stage, y or dx): mip-NeRF 360's proposal MLP. As the body below
+// DG on the wide-input instance: columns [c0, c0 + kc) (kc a multiple of
+// 8) of the tangent of the trunk input, ts = (tp xc, -(tp xs)) with tp =
+// ubar S^T (summed over the basis in order; ub the tile's rows of ubar
+// [kRows][nb], fs the fold S [d0][nb], both in shared memory), into the
+// k-major tile t [kc][kLD], the partner segment's value (xc for a sin
+// column c, xs for a cos column d0 + c) read from device memory. A warp's
+// lanes take 32 rows of one 8-column group: their reads of S are one
+// address, those of ubar and their stores to t 32 banks, and a lane's 8 sums
+// are independent. Zeros past the segments and past row n.
+__device__ void ts_chunk(float* t, const BwdParams& p, const float* ub, const float* fs, int c0,
+                         int kc, int row0) {
+  const int F = p.d0, nb = p.nb;
+  const float* x0 = static_cast<const float*>(p.x0);
+  const float* x1 = static_cast<const float*>(p.x1);
+  for (int i = threadIdx.x; i < kRows * (kc / 8); i += kCons) {
+    const int r = i % kRows, c = 8 * (i / kRows), gr = row0 + r;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (gr < p.n) {
+      const float* fr[8];  // each column's row of S (past the segments any row)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = c0 + c + e;
+        fr[e] = fs + (k < F ? k : min(k - F, F - 1)) * nb;
+      }
+      float tp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int j = 0; j < nb; ++j) {
+        const float u = ub[r * nb + j];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) tp[e] = fmaf(u, fr[e][j], tp[e]);
+      }
+      const size_t o = static_cast<size_t>(gr) * F;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = c0 + c + e;
+        if (k < F)
+          v[e] = tp[e] * __ldg(x1 + o + k);
+        else if (k < 2 * F)
+          v[e] = -(tp[e] * __ldg(x0 + o + (k - F)));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) t[(c + e) * kLD + r] = v[e];
+  }
+}
+
+// The wide-input instance (WIDE): the backward of the spatial trunk at
+// width 256 on more than 256 input columns (up to kWideKin), with the
+// density head and f32 heads (the bottleneck's and u's cotangents: HC and
+// DG below; no fused stage, y or dx): mip-NeRF 360's proposal MLP. As the body below
 // (steps 1-6 without their modes), but the recompute streams layer 0's
 // input share, and the skip layer's, through a k-major [kChunk][kLD] tile
 // (`fwd_f32_wide`), and writes each chunk of layer 0's input to the x
 // scratch for the weight-gradient product.
+//
+// HC: the compute-dtype head's cotangent (128 or 256 wide: the MLP's
+// bottleneck), the body's step 5. DG: the cotangent of u, the body's steps
+// 4 and 7: the inner chain's s_l to the scratch, then the tangent chain,
+// whose input ts = (tp xc, -(tp xs)), tp = ubar S^T, is made chunk by chunk
+// in the chunk tile (`ts_chunk`, the partner segment's values read from
+// device memory; at layer 0 each chunk also goes to the ts scratch) and made
+// again at the skip layer.
+template <int HC, bool DG>
 __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& m,
                                              unsigned char* smem) {
   constexpr int W = kW;
@@ -181,8 +235,11 @@ __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& 
   float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [2][W]
   float* sb = red + 2 * kW;                                    // [kRows]
   float* hb = sb + kRows;                                      // [kRows][hf]
+  float* ub = hb + kRows * p.hf;                               // DG: [kRows][nb]
+  float* fs = ub + (DG ? kRows * p.nb : 0);                    // DG: the fold [d0][nb]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(hb + kRows * p.hf) + 7) & ~static_cast<uintptr_t>(7));
+      (reinterpret_cast<uintptr_t>(fs + (DG ? p.d0 * p.nb : 0)) + 7) &
+      ~static_cast<uintptr_t>(7));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   Ring ring{smem_u32(ringp), smem_u32(bars), smem_u32(bars + m.stages), m.stages, 0, 0u};
 
@@ -196,7 +253,17 @@ __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& 
   __syncthreads();
 
   if (warp == kCons / 32) {  // the producer: the recompute, then the reverse
-    if (lane == 0) {
+    if constexpr (HC > 0 || DG) {
+      if (lane == 0)
+        schedule<HC, W>(p, m, [&](const CUtensorMap* map, int col, int K) {
+          for (int k = 0; k < K; k += kSD) {
+            mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
+            mbar_expect_tx(ring.full + 8 * ring.stage, kSliceF);
+            tma_load(ring.base + ring.stage * kSliceF, map, ring.full + 8 * ring.stage, col, k);
+            ring.advance();
+          }
+        });
+    } else if (lane == 0) {
       auto load = [&](const CUtensorMap* map, int K) {
         for (int k = 0; k < K; k += kSD) {
           mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
@@ -222,6 +289,7 @@ __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& 
   const int o_dwd = p.depth * W;
   const int o_dwh = o_dwd + (p.wd != nullptr ? W : 0);
   const int o_dbh = o_dwh + p.hf * W;
+  [[maybe_unused]] const int o_dbc = o_dbh + p.hf;
   auto rows_at = [&](void* region, int l) {
     return static_cast<float*>(region) + (l * rp + row0) * W;
   };
@@ -235,6 +303,11 @@ __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& 
   for (int i = tid; i < kRows * p.hf; i += kCons)
     hb[i] = (p.hbar != nullptr && row0 + i / p.hf < p.n)
                 ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
+  if constexpr (DG) {
+    for (int i = tid; i < kRows * p.nb; i += kCons)
+      ub[i] = row0 + i / p.nb < p.n ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
+    for (int i = tid; i < p.d0 * p.nb; i += kCons) fs[i] = __ldg(p.fold + i);
+  }
   PHASE_MARK(0, kScal);
 
   // acc += the input share, chunk by chunk; at layer 0 each chunk also goes
@@ -322,7 +395,42 @@ __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& 
   }
   PHASE_MARK(2, kScal);
 
+  // 4. DG: the inner chain, the body's step 4: s_{L-1} = relu'(h) wd,
+  // s_{l-1} = relu'(h_{l-1}) (s_l Wa_l), each to the tile and the scratch.
+  if constexpr (DG) {
+    {
+      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float q = __ldg(p.wd + cb + col_of(j));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = bit_at(mk, 8 * i + j) ? q : 0.f;
+      }
+    }
+    cons_sync();  // the head sums are done with the tile
+    put_tile<kLD>(act, acc, rb, cb);
+    cons_sync();
+    put_rows<W>(rows_at(p.ss, p.depth - 1), acc, rb, cb);
+    PHASE_MARK(3, kScal);
+    for (int l = p.depth - 1; l > 0; --l) {
+      product<W>(acc, act, W, act, W, ring, ringp, rb, cb);
+      PHASE_MARK(3, kProd);
+      cons_sync();
+      const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+      put_tile<kLD>(act, acc, rb, cb);
+      cons_sync();
+      put_rows<W>(rows_at(p.ss, l - 1), acc, rb, cb);
+      PHASE_MARK(3, kScal);
+    }
+  }
+
   // 5. The head backward: g = sbar wd + hbar wh^T, in the body's order;
+  // with the compute-dtype head g = cbar wc^T + g32, as the body's step 5.
   // zeta_{L-1} = relu'(h) g, and db_{L-1} its column sums.
   {
     float g3[8][8];
@@ -349,11 +457,42 @@ __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& 
         for (int i = 0; i < 8; ++i) g3[i][j] = sb[rb + row_of(i)] * wv + g3[i][j];
       }
     }
-    const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+    if constexpr (HC > 0) {
+      // cbar, k-major into the activation tile's rows [0, HC), and to the
+      // scratch; dbc its column sums; acc = cbar wc^T.
+      cons_sync();  // every reader of the tile (the inner chain) is done
+      const float* cbar = static_cast<const float*>(p.cbar);
+      float* cs_g = static_cast<float*>(p.cs) + row0 * static_cast<size_t>(HC);
+      for (int i = tid; i < kRows * HC; i += kCons) {
+        const int r = i / HC, c = i % HC;
+        const float v = (cbar != nullptr && row0 + r < p.n)
+                            ? __ldg(cbar + static_cast<size_t>(row0 + r) * HC + c) : 0.f;
+        act[c * kLD + r] = v;
+        cs_g[i] = v;
+      }
+      cons_sync();
+      PHASE_MARK(4, kStore);
+      if (tid < HC) {
+        float s = 0.f;
+        for (int r = 0; r < kRows; ++r) s += act[tid * kLD + r];
+        vec[o_dbc + tid] = s;
+      }
+      product(acc, act, HC, act, HC, ring, ringp, rb, cb);
+      PHASE_MARK(4, kProd);
+      cons_sync();
+      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = bit_at(mk, 8 * i + j) ? g3[i][j] : 0.f;
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = bit_at(mk, 8 * i + j) ? acc[i][j] + g3[i][j] : 0.f;
+    } else {
+      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = bit_at(mk, 8 * i + j) ? g3[i][j] : 0.f;
+    }
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -392,22 +531,87 @@ __device__ __forceinline__ void bwd_f32_wide(const BwdParams& p, const MapsF32& 
     col_sums<W>(cs, red, vec + (l - 1) * W, false, wm, cb);
     PHASE_MARK(5, kScal);
   }
+
+  // 7. DG: the tangent chain, the body's step 7: p_l = relu'(h_l)
+  // ([p_{l-1} | ts] W_l), to the scratch but the last, whose column sums
+  // add to dwd; ts made chunk by chunk in the chunk tile (at layer 0 also to
+  // the ts scratch), then again at the skip layer.
+  if constexpr (DG) {
+    float* tsg = static_cast<float*>(p.ts) + row0 * static_cast<size_t>(kin);
+    auto ts_share = [&](bool keep) {
+      for (int c0 = 0; c0 < kin; c0 += kChunk) {
+        const int kc = min(kChunk, kin - c0);
+        cons_sync();  // every consumer is done with the last chunk
+        ts_chunk(chunk, p, ub, fs, c0, kc, row0);
+        cons_sync();
+        PHASE_MARK(6, kScal);
+        if (keep) {
+          const int q4 = kc / 4;
+          for (int i = tid; i < kRows * q4; i += kCons) {
+            const int r = i / q4, c = 4 * (i % q4);
+            *reinterpret_cast<float4*>(tsg + static_cast<size_t>(r) * kin + c0 + c) =
+                make_float4(chunk[c * kLD + r], chunk[(c + 1) * kLD + r],
+                            chunk[(c + 2) * kLD + r], chunk[(c + 3) * kLD + r]);
+          }
+          PHASE_MARK(6, kStore);
+        }
+        product_add(acc, chunk, kc, ring, ringp, rb, cb);
+        PHASE_MARK(6, kProd);
+      }
+    };
+    for (int l = 0; l < p.depth; ++l) {
+      if (l == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      } else {
+        product<W>(acc, act, W, act, W, ring, ringp, rb, cb);
+        PHASE_MARK(6, kProd);
+      }
+      if (l == 0 || l == p.skip) ts_share(l == 0);
+      cons_sync();
+      const uint2 mk = masks[l * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cs[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+          cs[j] += acc[i][j];
+        }
+      }
+      if (l + 1 < p.depth) {
+        put_tile<kLD>(act, acc, rb, cb);
+        cons_sync();
+        PHASE_MARK(6, kScal);
+        put_rows<W>(rows_at(p.ps, l), acc, rb, cb);
+        PHASE_MARK(6, kStore);
+      } else {
+        col_sums<W>(cs, red, vec + o_dwd, true, wm, cb);
+        PHASE_MARK(6, kScal);
+      }
+    }
+  }
 }
 
 // W: the trunk width, 256, or 128 for the plain directional trunk alone (HC
 // 0, no fused stage, no K11, no cotangent of u). A CTA holds R = 64 (256)
 // or 128 (128: two tiles) samples.
-// WIDE: the wide-input instance (`bwd_f32_wide`).
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
+// WIDE: the wide-input instance (`bwd_f32_wide`), DG there with the
+// cotangent of u.
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false, bool DG = false>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_bwd_f32_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ MapsF32 m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K5 alone");
-  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA && !YO), "wide: the heads alone");
+  static_assert(!WIDE || (W == kW && (HC == 0 || HC == 128 || HC == 256) && !DIR && !SPA && !YO),
+                "wide: the heads, the cotangent of u");
+  static_assert(WIDE || !DG, "DG: the wide-input instance's");
   constexpr int R = kRowsW<W>, LD = kLDW<W>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   if constexpr (WIDE) {
-    bwd_f32_wide(p, m, smem);
+    bwd_f32_wide<HC, DG>(p, m, smem);
     return;
   }
   const int kin = p.kin;
@@ -992,23 +1196,25 @@ size_t f32_smem(const BwdParams& p, int* stages) {
 }
 
 // Shared memory of a launch of the wide-input instance, and the ring's
-// stages that fit; fused_mlp.py `kernel_smem` mirrors this sum.
+// stages that fit (ubar's rows and the fold with the cotangent of u);
+// fused_mlp.py `kernel_smem` mirrors this sum.
 size_t f32_wide_smem(const BwdParams& p, int* stages) {
   const size_t rest = 1024 + 4 * static_cast<size_t>(kW + kChunk) * kLD +
                       8 * static_cast<size_t>(p.depth) * kCons + 4 * 2 * kW +
-                      4 * static_cast<size_t>(kRows) * (1 + p.hf) + 8 + 16 * kMaxStages;
+                      4 * static_cast<size_t>(kRows) * (1 + p.hf + (p.ubar ? p.nb : 0)) +
+                      (p.ubar ? 4 * static_cast<size_t>(p.d0) * p.nb : 0) + 8 + 16 * kMaxStages;
   const size_t fit = rest < 232448 ? (232448 - rest) / kSliceF : 0;
   *stages = fit < kMinStages ? 0 : static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
   return rest + static_cast<size_t>(*stages) * kSliceF;
 }
 
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false, bool DG = false>
 int launch_f32(const BwdParams& p, int hc, cudaStream_t stream) {
   if (p.depth > kMaxDepth || p.kin > (WIDE ? kWideKin : kW) || hc != HC ||
       p.rp % kRowsW<W> != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // The wide-input instance runs no dx and no cotangent of u.
-  if (WIDE && (p.dx0 != nullptr || p.ubar != nullptr))
+  // The wide-input instance runs no dx, and the cotangent of u in DG alone.
+  if (WIDE && (p.dx0 != nullptr || (p.ubar != nullptr) != DG))
     return static_cast<int>(cudaErrorInvalidValue);
   // K6's scratch ([kRows] + [8 warps][S] floats) and K8's f32 cotangents
   // must fit in the activation and input tiles, K7's staged inputs in red.
@@ -1028,11 +1234,11 @@ int launch_f32(const BwdParams& p, int hc, cudaStream_t stream) {
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = WIDE ? f32_wide_smem(p, &m.stages) : f32_smem<W>(p, &m.stages);
   if (m.stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W, WIDE>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W, WIDE, DG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W, WIDE>
+  trunk_bwd_f32_kernel<HC, DIR, SPA, YO, W, WIDE, DG>
       <<<p.rp / kRowsW<W>, kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1164,7 +1370,11 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // 256 K4 (hc 128; with K6/K7, SPA), K5 (hc 0, dx; with K8-K10, DIR) and
 // K11's y cotangent (YO), dx only with hc 0, as the directional trunk asks
 // for it; at width 128 the plain K5 alone (hc 0, no density head, fused
-// stage, cotangent of u or y), 128 samples a CTA, so rp a multiple of 128.
+// stage, cotangent of u or y), 128 samples a CTA, so rp a multiple of 128;
+// past 256 and up to kWideKin input columns K4 at width 256 with the density
+// head, f32 heads and the compute-dtype head (hc 0, 128 or 256), with or
+// without the cotangent of u (nb <= kMaxNbWide), no fused stage, y or dx
+// (the wide-input instance).
 // `wct` is the compute-dtype head untransposed, wc [hc][width] (its
 // products read the contraction index outermost). The weight-gradient
 // operands go to the scratch sample-major, [rp][features] per region (h,
@@ -1182,10 +1392,18 @@ extern "C" int refnerf_trunk_bwd_f32(REFNERF_BWD_ARGS) {
     return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr && p.ybar == nullptr
                ? launch_f32<0, false, false, false, 128>(p, hc, s)
                : static_cast<int>(cudaErrorInvalidValue);
-  if (p.kin > kW)  // the wide-input instance: the heads alone, no dx
-    return hc == 0 && !dir && !spa && p.ybar == nullptr
-               ? launch_f32<0, false, false, false, kW, true>(p, hc, s)
-               : static_cast<int>(cudaErrorInvalidValue);
+  if (p.kin > kW) {  // the wide-input instance: the heads, the cotangent of u, no dx
+    if (dir || spa || p.ybar != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (p.ubar != nullptr)
+      return hc == 0     ? launch_f32<0, false, false, false, kW, true, true>(p, hc, s)
+             : hc == 128 ? launch_f32<128, false, false, false, kW, true, true>(p, hc, s)
+             : hc == 256 ? launch_f32<256, false, false, false, kW, true, true>(p, hc, s)
+                         : static_cast<int>(cudaErrorInvalidValue);
+    return hc == 0     ? launch_f32<0, false, false, false, kW, true>(p, hc, s)
+           : hc == 128 ? launch_f32<128, false, false, false, kW, true>(p, hc, s)
+           : hc == 256 ? launch_f32<256, false, false, false, kW, true>(p, hc, s)
+                       : static_cast<int>(cudaErrorInvalidValue);
+  }
   if (p.ybar != nullptr)
     return hc == 0 && !dir && !spa && p.ubar == nullptr
                ? launch_f32<0, false, false, true>(p, hc, s)

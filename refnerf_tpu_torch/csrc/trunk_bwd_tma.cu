@@ -6,10 +6,11 @@
 // the modes of trunk_bwd.cu (K4 with and without u's cotangent, K5 with dx,
 // K6/K7 in K4, K8-K10 in K5, K11's y cotangent), and at width 128 in the
 // plain K5 (mip-NeRF's directional trunk), up to 8 layers and 256 input
-// columns, and first-order K4 with the density head and f32 heads alone on
-// up to kWideKin input columns (the wide-input instance, `bwd_wide`:
-// mip-NeRF 360's proposal MLP, 504 IPE columns; trunk_bwd.cu's mma.sync
-// design ran it before), with the same arithmetic and bf16 roundings
+// columns, and K4 with the density head, f32 heads, a 128- or 256-wide
+// bottleneck and u's cotangent on up to kWideKin input columns (the
+// wide-input instance, `bwd_wide`: mip-NeRF 360's proposal MLP and the JAX
+// package's default MLP, 504 IPE columns; trunk_bwd.cu's mma.sync design
+// ran the former before), with the same arithmetic and bf16 roundings
 // (trunk_bwd.cu:32-40) and the same C arguments. The float32 instances and
 // the trunks past these shapes stay in trunk_bwd_f32.cu and trunk_bwd.cu.
 //
@@ -81,6 +82,9 @@ namespace {
 
 constexpr int kStages = 4;
 constexpr int kWideChunk = 128;  // input columns of a chunk of the wide-input instance
+// The ring's stages of the wide-input instance: 3 with the cotangent of u,
+// whose fold then lies in shared memory.
+__host__ __device__ constexpr int wide_stages(bool dg) { return dg ? 3 : kStages; }
 
 struct TmaMaps {
   CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 64 x 256
@@ -268,12 +272,79 @@ __device__ void load_input_rows(unsigned char* inb, int in_b, const bf16* x0, in
   }
 }
 
+// DG on the wide-input instance: columns [c0, c0 + cw) (cw a multiple of 8)
+// of the tangent of the trunk input, ts = (cdt(tp xc), cdt(-(tp xs))) with
+// tp = ubar S^T (f32, summed over the basis in order; ub the tile's rows of
+// ubar [kRows][nb], fs the fold S [d0][nb], both in shared memory), to
+// `buf`, a [64][.] tile of 64-column swizzled blocks, 16 bytes a store; the
+// partner segment's value (xc for a sin column c, xs for a cos column d0 +
+// c) read from device memory, a column pair a load (d0 even), all of a
+// thread's in flight at once (cw at most kWideChunk). A warp's lanes take
+// 32 rows of one 8-column group: their reads of S are one address, those
+// of ubar 32 banks, and a lane's 8 sums are independent. Zeros past the
+// segments and past `rows`.
+__device__ void ts_chunk(unsigned char* buf, const BwdParams& p, const float* ub, const float* fs,
+                         int c0, int cw, int row0, int rows) {
+  constexpr int kIt = kRows * (kWideChunk / 8) / kCons;  // a thread's groups of a full chunk
+  const int F = p.d0, nb = p.nb, q8 = cw / 8;
+  const bf16* x0 = static_cast<const bf16*>(p.x0);
+  const bf16* x1 = static_cast<const bf16*>(p.x1);
+  // Every partner value of the thread's groups in flight before any is used.
+  uint32_t xv[kIt][4];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int i = threadIdx.x + it * kCons, r = i % kRows, c = 8 * (i / kRows);
+    const size_t o = static_cast<size_t>(row0 + r) * F;
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      // Columns k and k + 1 (k even) lie in one segment, d0 being even.
+      const int k = c0 + c + e;
+      xv[it][e >> 1] = 0u;
+      if (i < kRows * q8 && r < rows && k < 2 * F)
+        xv[it][e >> 1] =
+            *reinterpret_cast<const uint32_t*>(k < F ? x1 + o + k : x0 + o + (k - F));
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int i = threadIdx.x + it * kCons, r = i % kRows, c = 8 * (i / kRows);
+    if (i >= kRows * q8) continue;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (r < rows) {
+      const float* fr[8];  // each column's row of S (past the segments any row)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = c0 + c + e;
+        fr[e] = fs + (k < F ? k : min(k - F, F - 1)) * nb;
+      }
+      float tp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int j = 0; j < nb; ++j) {
+        const float u = ub[r * nb + j];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) tp[e] = fmaf(u, fr[e][j], tp[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const int k = c0 + c + e;
+        if (k >= 2 * F) continue;
+        // bf16 to f32: the bits in the upper half.
+        const float y0 = __uint_as_float(xv[it][e >> 1] << 16);
+        const float y1 = __uint_as_float(xv[it][e >> 1] & 0xffff0000u);
+        const __nv_bfloat162 t = k < F ? __floats2bfloat162_rn(tp[e] * y0, tp[e + 1] * y1)
+                                       : __floats2bfloat162_rn(-(tp[e] * y0), -(tp[e + 1] * y1));
+        w[e >> 1] = *reinterpret_cast<const uint32_t*>(&t);
+      }
+    }
+    *reinterpret_cast<uint4*>(buf + sw_off(r, c)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// The wide-input instance (WIDE): the first-order backward of the spatial
-// trunk at width 256 on more than kW and at most kWideKin input columns,
-// with the density head and f32 heads alone (no compute-dtype head,
-// cotangent of u, fused stage, y or dx): mip-NeRF 360's proposal MLP, 504
-// IPE columns (kin 512 packed). The body below keeps the whole input tile,
+// The wide-input instance (WIDE): the backward of the spatial trunk at
+// width 256 on more than kW and at most kWideKin input columns, with the
+// density head and f32 heads (the bottleneck's and u's cotangents: HC and
+// DG below; no fused stage, y or dx): mip-NeRF 360's proposal MLP, 504 IPE
+// columns (kin 512 packed). The body below keeps the whole input tile,
 // which at 512 columns does not fit beside the 4-stage ring. Here the
 // recompute streams layer 0's input, and the skip layer's input share,
 // through slots of kWideChunk columns, as trunk_fwd_tma.cu `fwd_wide`
@@ -289,24 +360,38 @@ __device__ void load_input_rows(unsigned char* inb, int in_b, const bf16* x0, in
 // 2, 3, 5 and 6 for these modes, with their arithmetic and roundings; the
 // last activation y does not go to the scratch (no weight gradient reads
 // it). The producer walks the same `schedule`.
+//
+// HC: the compute-dtype head's cotangent (128 or 256 wide: the MLP's
+// bottleneck), as the body's step 5; y then goes to the scratch for dwc. DG:
+// the cotangent of u, as the body's steps 4 and 7: the inner chain's s_l to
+// the scratch, then the tangent chain, whose input ts = (cdt(tp xc),
+// cdt(-(tp xs))), tp = ubar S^T, is made chunk by chunk in the chunks'
+// slots (`ts_chunk`, the partner segment's values read from device memory;
+// at layer 0 each chunk also leaves to the ts scratch) and made again at the
+// skip layer.
+template <int HC, bool DG>
 __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
                                          unsigned char* smem) {
   constexpr int W = kW, ChB = (kWideChunk / 64) * kBlk;  // a chunk's bytes
+  constexpr int NS = wide_stages(DG);
   const int kp = (p.kin + kBK - 1) / kBK * kBK, nc = (kp + kWideChunk - 1) / kWideChunk;
-  unsigned char* ring = smem;                       // kStages x [256][64]
-  unsigned char* act = ring + kStages * kSlice;     // [64][256]: h, then zeta
+  unsigned char* ring = smem;                       // NS x [256][64]
+  unsigned char* act = ring + NS * kSlice;          // [64][256]: h, then zeta
   unsigned char* inb = act + (W / 64) * kBlk;       // 2 x [64][kWideChunk]: input chunks
   uint2* masks = reinterpret_cast<uint2*>(inb + 2 * ChB);          // [depth][256]
   float* red = reinterpret_cast<float*>(masks + p.depth * kCons);  // [4][256]
   float* sb = red + 4 * kCons;                                     // [kRows]
   float* hb = sb + kRows;                                          // [kRows][hf]
+  float* ub = hb + kRows * p.hf;                                   // DG: [kRows][nb]
+  float* fs = ub + (DG ? kRows * p.nb : 0);                        // DG: the fold [d0][nb]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(hb + kRows * p.hf) + 7) & ~static_cast<uintptr_t>(7));
+      (reinterpret_cast<uintptr_t>(fs + (DG ? p.d0 * p.nb : 0)) + 7) &
+      ~static_cast<uintptr_t>(7));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + kStages), kStages, 0, 0u};
+  Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + NS), NS, 0, 0u};
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(ring_st.full + 8 * s, 1);
       mbar_init(ring_st.empty + 8 * s, kCons / 32);
     }
@@ -316,7 +401,7 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
 
   if (warp == kCons / 32) {  // the producer warp: weight slices, in order
     if (lane == 0) {
-      schedule<0, W>(p, m, [&](const CUtensorMap* map, int row, int K) {
+      schedule<HC, W>(p, m, [&](const CUtensorMap* map, int row, int K) {
         for (int k = 0; k < K; k += kBK) {
           mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
           mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
@@ -343,6 +428,7 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
   const int o_dwd = p.depth * W;
   const int o_dwh = o_dwd + (p.wd != nullptr ? W : 0);
   const int o_dbh = o_dwh + p.hf * W;
+  [[maybe_unused]] const int o_dbc = o_dbh + p.hf;
   float acc[64];
 
   // Before a tile or buffer is overwritten: the TMA stores have read it,
@@ -410,9 +496,15 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
   for (int i = tid; i < kRows * p.hf; i += kCons)
     hb[i] = (p.hbar != nullptr && i / p.hf < rows)
                 ? p.hbar[static_cast<size_t>(row0) * p.hf + i] : 0.f;
+  if constexpr (DG) {
+    for (int i = tid; i < kRows * p.nb; i += kCons)
+      ub[i] = i / p.nb < rows ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
+    for (int i = tid; i < p.d0 * p.nb; i += kCons) fs[i] = __ldg(p.fold + i);
+  }
   PHASE_MARK(0, kScal);
 
-  // 2. Recompute: h_l = relu(cdt(acc) + cdt(b_l)) to the scratch (but y),
+  // 2. Recompute: h_l = relu(cdt(acc) + cdt(b_l)) to the scratch (but y
+  // without the compute-dtype head),
   // relu' masks as bits in the accumulators' order.
   for (int l = 0; l < p.depth; ++l) {
     if (l == 0 || l == p.skip) {
@@ -445,7 +537,7 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
     masks[l * kCons + tid] = make_uint2(mk[0], mk[1]);
     publish();
     PHASE_MARK(1, kScal);
-    if (l + 1 < p.depth) store_act(&m.hs, l * rp + row0);
+    if (l + 1 < p.depth || HC > 0) store_act(&m.hs, l * rp + row0);
     PHASE_MARK(1, kStore);
   }
 
@@ -470,8 +562,48 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
   }
   PHASE_MARK(2, kScal);
 
+  // 4. DG: the inner chain, as the body's step 4: s_{L-1} = relu'(h)
+  // cdt(wd), s_{l-1} = relu'(h_{l-1}) cdt(s_l Wa_l), each to the scratch.
+  if constexpr (DG) {
+    settle();
+    {
+      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = fc + 8 * j;
+        const float q0 = round_t<bf16>(p.wd[c]), q1 = round_t<bf16>(p.wd[c + 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          put2(fr + 8 * h, c, bit_at(mk, i) ? q0 : 0.f, bit_at(mk, i + 1) ? q1 : 0.f);
+        }
+      }
+    }
+    publish();
+    store_act(&m.ss, (p.depth - 1) * rp + row0);
+    PHASE_MARK(3, kScal);
+    for (int l = p.depth - 1; l > 0; --l) {
+      product<W>(acc, act_s, W / 64, act_s, W, ring_st);
+      PHASE_MARK(3, kProd);
+      settle();
+      const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          put2(fr + 8 * h, fc + 8 * j, bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f,
+               bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f);
+        }
+      publish();
+      store_act(&m.ss, (l - 1) * rp + row0);
+      PHASE_MARK(3, kScal);
+    }
+  }
+
   // 5. The head backward: g = cdt(g32), g32 = sbar wd + hbar wh^T (head by
-  // head, in trunk_bwd.cu's order); zeta_{L-1} = relu'(h) g, and db_{L-1}
+  // head, in trunk_bwd.cu's order); with the compute-dtype head g =
+  // cdt(cdt(cbar wc^T) + cdt(g32)). zeta_{L-1} = relu'(h) g, and db_{L-1}
   // its column sums.
   float cs[16][2];
   {
@@ -500,7 +632,33 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
           g3[4 * q + 2 + e] = s1 * wv + g3[4 * q + 2 + e];
         }
     }
-    settle();  // every consumer has read y
+    settle();  // every consumer has read y (and the inner chain's last s)
+    if constexpr (HC > 0) {
+      // cbar to the activation tile, the scratch and dbc; acc = cbar wc^T.
+      const bf16* cbar = static_cast<const bf16*>(p.cbar);
+      for (int i = tid; i < kRows * (HC / 8); i += kCons) {  // 16-byte chunks
+        const int r = i / (HC / 8), q = i % (HC / 8);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (cbar != nullptr && r < rows)
+          v = *reinterpret_cast<const uint4*>(cbar + static_cast<size_t>(row0 + r) * HC + 8 * q);
+        *reinterpret_cast<uint4*>(act + sw_off(r, 8 * q)) = v;
+      }
+      publish();
+      PHASE_MARK(4, kScal);
+      if (tid == 0) {
+        for (int b = 0; b < HC / 64; ++b) tma_store(&m.cs, act_s + b * kBlk, 64 * b, row0);
+        bulk_commit();
+      }
+      PHASE_MARK(4, kStore);
+      if (tid < HC) {
+        float s = 0.f;
+        for (int r = 0; r < kRows; ++r) s += to_f(A(r, tid));
+        vec[o_dbc + tid] = s;
+      }
+      product(acc, act_s, HC / 64, act_s, HC, ring_st);
+      PHASE_MARK(4, kProd);
+      settle();
+    }
     const uint2 mk = masks[(p.depth - 1) * kCons + tid];
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -508,8 +666,16 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 4 * j + 2 * h;
-        const float v0 = bit_at(mk, i) ? round_t<bf16>(g3[i]) : 0.f;
-        const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(g3[i + 1]) : 0.f;
+        float v0, v1;
+        if constexpr (HC > 0) {
+          v0 = bit_at(mk, i) ? round_t<bf16>(round_t<bf16>(acc[i]) + round_t<bf16>(g3[i])) : 0.f;
+          v1 = bit_at(mk, i + 1)
+                   ? round_t<bf16>(round_t<bf16>(acc[i + 1]) + round_t<bf16>(g3[i + 1]))
+                   : 0.f;
+        } else {
+          v0 = bit_at(mk, i) ? round_t<bf16>(g3[i]) : 0.f;
+          v1 = bit_at(mk, i + 1) ? round_t<bf16>(g3[i + 1]) : 0.f;
+        }
         cs[j][0] += v0;
         cs[j][1] += v1;
         put2(fr + 8 * h, fc + 8 * j, v0, v1);
@@ -546,23 +712,85 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
     col_sums<W>(cs, red, vec + (l - 1) * W, W, false);
     PHASE_MARK(5, kScal);
   }
+
+  // 7. DG: the tangent chain, as the body's step 7: p_l = relu'(h_l)
+  // cdt([p_{l-1} | ts] W_l), to the scratch but the last, whose column sums
+  // add to dwd; ts made chunk by chunk in the slots of the recompute's
+  // chunks (at layer 0 also to the ts scratch), then again at the skip
+  // layer.
+  if constexpr (DG) {
+    auto ts_share = [&](int l, int S) {
+      for (int c = 0; c < nc; ++c) {
+        settle();  // the slot's last products and stores have read it
+        const int cw = min(kWideChunk, kp - c * kWideChunk);
+        ts_chunk(slot(c % S), p, ub, fs, c * kWideChunk, cw, row0, rows);
+        publish();
+        PHASE_MARK(6, kScal);
+        const uint32_t a = smem_u32(slot(c % S));
+        if (l == 0 && tid == 0) {
+          for (int k = 0; k < cw / 64; ++k)
+            tma_store(&m.ts, a + k * kBlk, c * kWideChunk + 64 * k, row0);
+          bulk_commit();
+        }
+        product<W>(acc, a, kWideChunk / 64, a, min(kWideChunk, p.kin - c * kWideChunk), ring_st,
+                   (l > 0 ? 1 : 0) | c);
+        PHASE_MARK(6, kProd);
+      }
+    };
+    for (int l = 0; l < p.depth; ++l) {
+      if (l == 0 || l == p.skip) {
+        if (l > 0) product<W>(acc, act_s, W / 64, act_s, W, ring_st);  // [p | ts]: p first
+        ts_share(l, l > 0 ? 2 : 4);
+      } else {
+        product<W>(acc, act_s, W / 64, act_s, W, ring_st);
+        PHASE_MARK(6, kProd);
+      }
+      settle();
+      const uint2 mk = masks[l * kCons + tid];
+      const bool last = l + 1 == p.depth;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const float v0 = bit_at(mk, i) ? round_t<bf16>(acc[i]) : 0.f;
+          const float v1 = bit_at(mk, i + 1) ? round_t<bf16>(acc[i + 1]) : 0.f;
+          cs[j][0] += v0;
+          cs[j][1] += v1;
+          if (!last) put2(fr + 8 * h, fc + 8 * j, v0, v1);
+        }
+      }
+      if (!last) {
+        publish();
+        store_act(&m.ps, l * rp + row0);
+        PHASE_MARK(6, kStore);
+      } else {
+        col_sums<W>(cs, red, vec + o_dwd, W, true);
+        PHASE_MARK(6, kScal);
+      }
+    }
+  }
   if (tid == 0) bulk_wait();
 }
 
 // W: the trunk width, 256, or 128 for the plain directional trunk alone (HC
 // 0, no fused stage, no K11, no cotangent of u). A CTA holds T = 1 (256) or
 // 2 (128) tiles of 64 samples; at 128 warpgroup g runs tile g's products.
-// WIDE: the wide-input instance (`bwd_wide`).
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
+// WIDE: the wide-input instance (`bwd_wide`), DG there with the cotangent
+// of u.
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false, bool DG = false>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_bwd_tma_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ TmaMaps m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K5 alone");
-  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA && !YO), "wide: the heads alone");
+  static_assert(!WIDE || (W == kW && (HC == 0 || HC == 128 || HC == 256) && !DIR && !SPA && !YO),
+                "wide: the heads, the cotangent of u");
+  static_assert(WIDE || !DG, "DG: the wide-input instance's");
   constexpr int T = kTiles<W>, R = kRows * T, ActB = (W / 64) * kBlk;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   if constexpr (WIDE) {
-    bwd_wide(p, m, smem);
+    bwd_wide<HC, DG>(p, m, smem);
     return;
   }
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
@@ -1176,23 +1404,26 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
 
 // Shared memory of a launch; fused_mlp.py `kernel_smem` mirrors the
-// wide-input instance's sum (WIDE: two chunks in the input tile's place).
-template <int W, bool WIDE = false>
+// wide-input instance's sum (WIDE: two chunks in the input tile's place;
+// DG: a 3-stage ring and the fold).
+template <int W, bool WIDE = false, bool DG = false>
 size_t tma_smem(const BwdParams& p) {
   const int kp = WIDE ? 2 * kWideChunk : (p.kin + kBK - 1) / kBK * kBK;
-  return 1024 + static_cast<size_t>(kStages) * kSliceW<W> +
+  constexpr int ns = WIDE ? wide_stages(DG) : kStages;
+  return 1024 + static_cast<size_t>(ns) * kSliceW<W> +
+         (DG ? 4 * static_cast<size_t>(p.d0) * p.nb : 0) +
          kTiles<W> * (W / 64 + kp / 64) * kBlk + 8 * static_cast<size_t>(p.depth) * kCons +
          4 * 4 * kCons + 4 * static_cast<size_t>(kRows * kTiles<W>) * (1 + p.hf + p.nb) + 8 +
-         16 * kStages;
+         16 * ns;
 }
 
-template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false>
+template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false, bool DG = false>
 int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
   if (p.depth > kMaxDepth || p.kin > (WIDE ? kWideKin : kW) || hc != HC ||
       p.rp % (kRows * kTiles<W>) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // The wide-input instance runs no dx and no cotangent of u.
-  if (WIDE && (p.dx0 != nullptr || p.ubar != nullptr))
+  // The wide-input instance runs no dx, and the cotangent of u in DG alone.
+  if (WIDE && (p.dx0 != nullptr || (p.ubar != nullptr) != DG))
     return static_cast<int>(cudaErrorInvalidValue);
   // Width 128 keeps zeta_skip in each tile's input blocks: at least W wide.
   if (W != kW && p.kin < W) return static_cast<int>(cudaErrorInvalidValue);
@@ -1223,13 +1454,13 @@ int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
          make_map(&m.ps, p.ps, kW, rows, kW, kRows) &&
          make_map(&m.ts, p.ts, p.kin, p.rp, p.kin, kRows);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tma_smem<W, WIDE>(p);
+  const size_t smem = tma_smem<W, WIDE, DG>(p);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W, WIDE>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W, WIDE, DG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W, WIDE>
+  trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W, WIDE, DG>
       <<<p.rp / (kRows * kTiles<W>), kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1354,9 +1585,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // cotangent (YO); at width 128 the plain K5 alone (hc 0, no density head,
 // fused stage, cotangent of u or y) on at least 128 input columns, 128
 // samples a CTA, so rp a multiple of 128 (dxs unused there); past 256 and
-// up to kWideKin input columns the first-order K4 at width 256 with the
-// density head and f32 heads alone (the wide-input instance: hc 0, no
-// cotangent of u, fused stage, y or dx). The weight-gradient operands go to the scratch sample-major,
+// up to kWideKin input columns K4 at width 256 with the density head, f32
+// heads and the compute-dtype head (hc 0, 128 or 256), with or without the
+// cotangent of u (nb <= kMaxNbWide), no fused stage, y or dx (the wide-input
+// instance). The weight-gradient operands go to the scratch sample-major,
 // [rp][features] per region (h, zeta, s, p: [depth][rp][W]; x, ts:
 // [rp][kin]; cbar: [rp][hc]), for refnerf_wgrad_tma; the vector gradients
 // one row a CTA.
@@ -1372,10 +1604,23 @@ extern "C" int refnerf_trunk_bwd_tma(REFNERF_BWD_ARGS) {
     return hc == 0 && !dir && !spa && p.ubar == nullptr && p.wd == nullptr && p.ybar == nullptr
                ? launch_tma<0, false, false, false, 128>(p, hc, s)
                : static_cast<int>(cudaErrorInvalidValue);
-  if (p.kin > kW)  // the wide-input instance: the heads alone, no dx
-    return hc == 0 && !dir && !spa && p.ybar == nullptr
-               ? launch_tma<0, false, false, false, kW, true>(p, hc, s)
-               : static_cast<int>(cudaErrorInvalidValue);
+  if (p.kin > kW) {  // the wide-input instance: the heads, the cotangent of u, no dx
+    if (dir || spa || p.ybar != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    // The tangent reads the segments' values in pairs: d0 even, the bases
+    // 4-byte aligned.
+    if (p.ubar != nullptr &&
+        ((p.d0 & 1) || ((reinterpret_cast<uintptr_t>(p.x0) | reinterpret_cast<uintptr_t>(p.x1)) & 3)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (p.ubar != nullptr)
+      return hc == 0     ? launch_tma<0, false, false, false, kW, true, true>(p, hc, s)
+             : hc == 128 ? launch_tma<128, false, false, false, kW, true, true>(p, hc, s)
+             : hc == 256 ? launch_tma<256, false, false, false, kW, true, true>(p, hc, s)
+                         : static_cast<int>(cudaErrorInvalidValue);
+    return hc == 0     ? launch_tma<0, false, false, false, kW, true>(p, hc, s)
+           : hc == 128 ? launch_tma<128, false, false, false, kW, true>(p, hc, s)
+           : hc == 256 ? launch_tma<256, false, false, false, kW, true>(p, hc, s)
+                       : static_cast<int>(cudaErrorInvalidValue);
+  }
   if (p.ybar != nullptr)
     return hc == 0 && !dir && !spa && p.ubar == nullptr
                ? launch_tma<0, false, false, true>(p, hc, s)

@@ -9,6 +9,11 @@
 
 namespace {
 
+// The density gradient's basis vectors (nb, the fold's columns): at most 4
+// on up to 256 input columns, at most kMaxNbWide past them (the wide-input
+// instances; the MLP's default icosahedron basis has 21).
+constexpr int kMaxNbWide = 32;
+
 struct FwdParams {
   const void* x0;   // [n][d0] segment 0, compute dtype
   const void* x1;   // [n][d1] the last segment (d1 may be 0)
@@ -66,7 +71,7 @@ inline int fwd_params(FwdParams& out, REFNERF_FWD_ARGS) {
   if (n <= 0 || kin % kKS != 0 || d0 + dir.width() + d1 > kin || depth > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (u != nullptr && (wd == nullptr || wt == nullptr || fold == nullptr || d0 != d1 ||
-                       nb <= 0 || nb > 4 || ide_p != 0))
+                       nb <= 0 || nb > (kin > 256 ? kMaxNbWide : 4) || ide_p != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (ide_p != 0 && (ide_p < 0 || lmax < 0 || lmax > 16 || g == nullptr || k == nullptr ||
                      mat == nullptr || sg == nullptr || gm == nullptr || (geo && v == nullptr)))

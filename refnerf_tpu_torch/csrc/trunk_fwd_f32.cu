@@ -19,7 +19,9 @@
 // reads the compute-dtype head transposed, wc^T [W][HC], through the `wc`
 // argument. Every product runs in full f32 on the FMA pipes (no TF32). K11
 // and the trunks past these shapes or past this kernel's shared memory
-// (`fwd_f32_smem`: K3 on more than 192 input columns) stay in trunk_fwd.cu.
+// (`fwd_f32_smem`: K3 on 193-256 input columns) stay in trunk_fwd.cu; past
+// 256 input columns the wide-input instance (`fwd_f32_wide`) runs K1 and K3
+// with sigma, the f32 heads and a 128- or 256-wide bottleneck.
 //
 // Bound on the H100: K1 needs ~1.09 MFLOP a sample, K3 ~2.10, K2 at width
 // 128 ~0.31 (0.57 / 1.10 / 0.16 TFLOP at N = 524,288, chip_smoke.py
@@ -239,24 +241,89 @@ __device__ __forceinline__ void fwd_f32_rows(const FwdParams& p, const MapsF32& 
   PHASE_MARK(2, kScal);
 }
 
+// K3 on the wide-input instance: u_x of input columns [c0, c0 + kChunk) in
+// the k-major tile ux [kChunk][kLD], folded into ut [kRows][nb]: each value
+// first scaled by its partner segment's (xc for a sin column c, -xs for a
+// cos column d0 + c: u_m = xc u_xs - xs u_xc, :653-662), read from device
+// memory, neighbouring threads reading neighbouring columns of a row; then
+// ut[r][j] += the sum over the chunk's columns, in order, of u_m S[c][j],
+// a thread a row and 8 basis vectors (S staged in shared memory, fs
+// [d0][nbp], rows padded to nbp, a multiple of 8, with zeros: a warp's
+// lanes take 32 rows and read one address of S, 8 independent sums a
+// lane). All consumers call it; ux is left scaled.
+__device__ void fold_chunk(float* ux, float* ut, const float* fs, int nbp, int c0, int row0,
+                           const FwdParams& p) {
+  const int F = p.d0, nb = p.nb;
+  const float* x0 = static_cast<const float*>(p.x0);
+  const float* x1 = static_cast<const float*>(p.x1);
+  for (int i0 = threadIdx.x; i0 < kRows * kChunk; i0 += kBatch * kCons) {
+    float cf[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons, c = i % kChunk, k = c0 + c, gr = row0 + i / kChunk;
+      cf[u] = 0.f;
+      if (i < kRows * kChunk && gr < p.n && k < 2 * F)
+        cf[u] = k < F ? __ldg(x1 + static_cast<size_t>(gr) * F + k)
+                      : -__ldg(x0 + static_cast<size_t>(gr) * F + k - F);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kCons;
+      if (i < kRows * kChunk) ux[(i % kChunk) * kLD + i / kChunk] *= cf[u];
+    }
+  }
+  cons_sync();
+  const int nk = min(kChunk, 2 * F - c0);  // columns past the segments add nothing
+  for (int i = threadIdx.x; i < kRows * (nbp / 8); i += kCons) {
+    const int r = i % kRows, jb = 8 * (i / kRows);
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < nk; ++c) {
+      const int k = c0 + c;
+      const float v = ux[c * kLD + r];
+      const float4* f4 = reinterpret_cast<const float4*>(fs + (k < F ? k : k - F) * nbp + jb);
+      const float4 f0 = f4[0], f1 = f4[1];
+      const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+      for (int t = 0; t < 8; ++t) s[t] = fmaf(v, f[t], s[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (jb + t < nb) ut[r * nb + jb + t] += s[t];
+  }
+}
+
 // The wide-input instance (WIDE): the spatial trunk at width 256 on more
-// than 256 input columns (up to kWideKin), with sigma and the f32 heads
-// alone (no compute-dtype head, K3 or fused stage): mip-NeRF 360's proposal
-// MLP, 504 IPE columns. The input tile does not fit beside the activation
+// than 256 input columns (up to kWideKin), with sigma and the f32 heads (the
+// bottleneck and K3: HC and DG below; no fused stage): mip-NeRF 360's
+// proposal MLP, 504 IPE columns. The input tile does not fit beside the activation
 // tile and a ring (139 KB at 512 columns), so layer 0's input share, and
 // the skip layer's, stream through a k-major [kChunk][kLD] tile: load a
 // chunk of columns, sum its product into the block (`product_add`), next
 // chunk. The weights stream as in the body below, from the same schedule of
 // slices; the heads are its step 3.
+//
+// HC: the compute-dtype head (128 or 256 wide: the MLP's bottleneck), the
+// body's step 4 (a full-width product at 256), y then left in the
+// activation tile. DG: K3, the body's step 5, but u_x never lies whole in
+// shared memory ([512][68] f32 is 139 KB): its products come 128 input
+// columns at a time into the chunk tile, each folded at once into u [64][nb]
+// (`fold_chunk`), the partner segment's values (xc for a sin column, -xs for
+// a cos one) read from device memory.
+template <int HC, bool DG>
 __device__ __forceinline__ void fwd_f32_wide(const FwdParams& p, const MapsF32& m,
                                              unsigned char* smem) {
   const int kin = p.kin;
   float* ringp = reinterpret_cast<float*>(smem);  // stages x [16][256]
-  float* act = ringp + m.stages * (kSD * kW);     // [256][kLD]: h_l
-  float* chunk = act + kW * kLD;                  // [kChunk][kLD]: input columns
+  float* act = ringp + m.stages * (kSD * kW);     // [256][kLD]: h_l (DG: then s_l)
+  float* chunk = act + kW * kLD;                  // [kChunk][kLD]: input columns (DG: then u_x)
   float* red = chunk + kChunk * kLD;              // [kHG][4][kRows]
+  uint2* masks = reinterpret_cast<uint2*>(red + kRed);  // DG: [depth][256]
+  float* ut = reinterpret_cast<float*>(masks + (DG ? p.depth * kCons : 0));  // DG: u [kRows][nb]
+  const int nbp = (p.nb + 7) & ~7;
+  float* fs = ut + (DG ? kRows * p.nb : 0);  // DG: the fold S [d0][nbp]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(red + kRed) + 7) & ~static_cast<uintptr_t>(7));
+      (reinterpret_cast<uintptr_t>(fs + (DG ? p.d0 * nbp : 0)) + 7) &
+      ~static_cast<uintptr_t>(7));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   Ring ring{smem_u32(ringp), smem_u32(bars), smem_u32(bars + m.stages), m.stages, 0, 0u};
 
@@ -270,14 +337,36 @@ __device__ __forceinline__ void fwd_f32_wide(const FwdParams& p, const MapsF32& 
   __syncthreads();
 
   if (warp == kCons / 32) {  // the producer warp: the layers' slices, in order
-    if (lane == 0)
-      for (int l = 0; l < p.depth; ++l)
-        for (int k = 0; k < k_dim(p, l); k += kSD) {
+    if constexpr (HC == 0 && !DG) {
+      if (lane == 0)
+        for (int l = 0; l < p.depth; ++l)
+          for (int k = 0; k < k_dim(p, l); k += kSD) {
+            mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
+            mbar_expect_tx(ring.full + 8 * ring.stage, kSliceF);
+            tma_load(ring.base + ring.stage * kSliceF, &m.wt[l], ring.full + 8 * ring.stage, 0, k);
+            ring.advance();
+          }
+    } else if (lane == 0) {
+      auto load = [&](const CUtensorMap* map, int col, int K) {
+        for (int k = 0; k < K; k += kSD) {
           mbar_wait(ring.empty + 8 * ring.stage, ring.phase ^ 1u);
           mbar_expect_tx(ring.full + 8 * ring.stage, kSliceF);
-          tma_load(ring.base + ring.stage * kSliceF, &m.wt[l], ring.full + 8 * ring.stage, 0, k);
+          tma_load(ring.base + ring.stage * kSliceF, map, ring.full + 8 * ring.stage, col, k);
           ring.advance();
         }
+      };
+      for (int l = 0; l < p.depth; ++l) load(&m.wt[l], 0, k_dim(p, l));  // the layers
+      if (HC > 0) load(&m.wc, 0, kW);                                      // the bottleneck
+      if (DG)                                                              // K3's chain
+        for (int l = p.depth - 1; l >= 0; --l) {
+          if (l == p.skip)
+            for (int c = 0; c < kin; c += kChunk) load(&m.w[l], kW + c, kW);  // u_x: skip
+          if (l > 0)
+            load(&m.w[l], 0, kW);  // s_{l-1}
+          else
+            for (int c = 0; c < kin; c += kChunk) load(&m.w[0], c, kW);  // u_x: layer 0's
+        }
+    }
     return;
   }
 
@@ -285,6 +374,7 @@ __device__ __forceinline__ void fwd_f32_wide(const FwdParams& p, const MapsF32& 
   const int wn = warp & 3;
   const int rb = 32 * (warp >> 2) + 4 * (lane >> 3);
   const int cb = 64 * wn + 4 * (lane & 7);
+  [[maybe_unused]] const int cbh = 32 * wn + 4 * (lane & 7);  // a half-width block's, cbh + j
   const int row0 = blockIdx.x * kRows;
   const float* bias = static_cast<const float*>(p.b);
   const int nd = p.wd != nullptr ? 1 : 0, nh = nd + p.hf;
@@ -323,7 +413,18 @@ __device__ __forceinline__ void fwd_f32_wide(const FwdParams& p, const MapsF32& 
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[i][j] = fmaxf(acc[i][j] + b, 0.f);
     }
-    if (l + 1 < p.depth) put_tile(act, acc, rb, cb);
+    if constexpr (DG) {
+      uint2 mk = make_uint2(0u, 0u);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t bit = (acc[i][j] > 0.f ? 1u : 0u) << ((8 * i + j) & 31);
+          if (i < 4) mk.x |= bit; else mk.y |= bit;
+        }
+      masks[l * kCons + tid] = mk;
+    }
+    if (l + 1 < p.depth || HC > 0) put_tile(act, acc, rb, cb);
     cons_sync();
     PHASE_MARK(1, kScal);
   }
@@ -361,16 +462,111 @@ __device__ __forceinline__ void fwd_f32_wide(const FwdParams& p, const MapsF32& 
     cons_sync();
   }
   PHASE_MARK(2, kScal);
+
+  // The bottleneck hc = y wc^T + bc from its accumulators, as the body's
+  // step 4: a half-width product at 128, a full one at 256.
+  if constexpr (HC == 128) {
+    Half h;
+    product_half(h, act, kW, ring, ringp, rb, cbh);
+    PHASE_MARK(2, kProd);
+    const float4 b4 = *reinterpret_cast<const float4*>(static_cast<const float*>(p.bc) + cbh);
+    float* out = static_cast<float*>(p.cout);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int gr = row0 + rb + row_of(i);
+      if (gr < p.n)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(gr) * HC + cbh) = make_float4(
+            h[i][0] + b4.x, h[i][1] + b4.y, h[i][2] + b4.z, h[i][3] + b4.w);
+    }
+    PHASE_MARK(2, kStore);
+  } else if constexpr (HC == 256) {
+    product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+    PHASE_MARK(2, kProd);
+    const float* bc = static_cast<const float*>(p.bc);
+    const float4 b0 = *reinterpret_cast<const float4*>(bc + cb);
+    const float4 b1 = *reinterpret_cast<const float4*>(bc + cb + 32);
+    float* out = static_cast<float*>(p.cout);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int gr = row0 + rb + row_of(i);
+      if (gr >= p.n) continue;
+      float* d = out + static_cast<size_t>(gr) * HC + cb;
+      *reinterpret_cast<float4*>(d) = make_float4(acc[i][0] + b0.x, acc[i][1] + b0.y,
+                                                  acc[i][2] + b0.z, acc[i][3] + b0.w);
+      *reinterpret_cast<float4*>(d + 32) = make_float4(acc[i][4] + b1.x, acc[i][5] + b1.y,
+                                                       acc[i][6] + b1.z, acc[i][7] + b1.w);
+    }
+    PHASE_MARK(2, kStore);
+  }
+
+  // K3: the chain s_{L-1} = relu'(h) wd, s_{l-1} = relu'(h_{l-1}) (s_l
+  // Wa_l), as the body's step 5; u_x of the skip layer's input columns,
+  // then of layer 0's, 128 a product into the chunk tile, each folded into
+  // ut.
+  if constexpr (DG) {
+    cons_sync();  // the bottleneck's product has read y
+    for (int i = tid; i < kRows * p.nb; i += kCons) ut[i] = 0.f;
+    for (int i = tid; i < p.d0 * nbp; i += kCons) {  // the fold, its rows padded with zeros
+      const int c = i / nbp, j = i - c * nbp;
+      fs[i] = j < p.nb ? __ldg(p.fold + c * p.nb + j) : 0.f;
+    }
+    {
+      const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float q = __ldg(p.wd + cb + col_of(j));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = bit_at(mk, 8 * i + j) ? q : 0.f;
+      }
+    }
+    put_tile(act, acc, rb, cb);
+    cons_sync();
+    PHASE_MARK(3, kScal);
+    auto take_ux = [&]() {
+      for (int c0 = 0; c0 < kin; c0 += kChunk) {
+        Half h;
+        product_half(h, act, kW, ring, ringp, rb, cbh);
+        put_ux<4>(chunk, h, kChunk, true, rb, cbh);
+        cons_sync();
+        PHASE_MARK(3, kProd);
+        fold_chunk(chunk, ut, fs, nbp, c0, row0, p);
+        cons_sync();  // the chunk's products may be overwritten
+        PHASE_MARK(3, kScal);
+      }
+    };
+    for (int l = p.depth - 1; l > 0; --l) {
+      if (l == p.skip) take_ux();
+      product(acc, act, kW, act, kW, ring, ringp, rb, cb);
+      PHASE_MARK(3, kProd);
+      cons_sync();
+      const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (!bit_at(mk, 8 * i + j)) acc[i][j] = 0.f;
+      put_tile(act, acc, rb, cb);
+      cons_sync();
+      PHASE_MARK(3, kScal);
+    }
+    take_ux();
+    for (int i = tid; i < min(kRows, p.n - row0) * p.nb; i += kCons)
+      p.u[static_cast<size_t>(row0) * p.nb + i] = ut[i];
+    PHASE_MARK(3, kStore);
+  }
 }
 
 // W: the trunk width, 256, or 128 for the plain directional trunk alone
 // (`fwd_f32_rows`; the rest of this body is width 256's).
 // WIDE: the wide-input instance (`fwd_f32_wide`).
-template <int HC, bool DIR, bool SPA, int W = kW, bool WIDE = false>
+// DG there: K3.
+template <int HC, bool DIR, bool SPA, int W = kW, bool WIDE = false, bool DG = false>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     trunk_fwd_f32_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ MapsF32 m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA), "width 128: the plain K2 alone");
-  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA), "wide: sigma and f32 heads");
+  static_assert(!WIDE || (W == kW && (HC == 0 || HC == 128 || HC == 256) && !DIR && !SPA),
+                "wide: sigma, f32 heads, the bottleneck, K3");
+  static_assert(WIDE || !DG, "DG: the wide-input instance's");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   if constexpr (W != kW) {
@@ -378,7 +574,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     return;
   }
   if constexpr (WIDE) {
-    fwd_f32_wide(p, m, smem);
+    fwd_f32_wide<HC, DG>(p, m, smem);
     return;
   }
   const int kin = p.kin;
@@ -553,7 +749,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     // 4. The bottleneck hc = y wc^T + bc, a half-width product, from its
     // accumulators to device memory.
     if constexpr (HC > 0) {
-      static_assert(HC == 128, "the bottleneck is a half-width product");
+      static_assert(WIDE || HC == 128, "the bottleneck is a half-width product");
       Half h;
       product_half(h, act, kW, ring, ringp, rb, cbh);
       PHASE_MARK(2, kProd);
@@ -674,18 +870,21 @@ size_t fwd_f32_smem(const FwdParams& p, int* stages) {
 }
 
 // Shared memory of a launch of the wide-input instance, and the ring's
-// stages that fit (0 when fewer than kMinStages do); fused_mlp.py
-// `kernel_smem` mirrors this sum.
-size_t fwd_f32_wide_smem(const FwdParams& p, int* stages) {
-  (void)p;
-  const size_t rest = 1024 + 4 * static_cast<size_t>(kW + kChunk) * kLD + 4 * kRed + 8 +
-                      16 * kMaxStages;
+// stages that fit (0 when fewer than kMinStages do); with K3 (`dg`) also its
+// relu' bits, u and the fold, its rows padded to a multiple of 8.
+// fused_mlp.py `kernel_smem` mirrors this sum.
+size_t fwd_f32_wide_smem(const FwdParams& p, int* stages, bool dg) {
+  const size_t rest = 1024 + 4 * static_cast<size_t>(kW + kChunk) * kLD + 4 * kRed +
+                      (dg ? 8 * static_cast<size_t>(p.depth) * kCons + 4 * kRows * p.nb +
+                                4 * static_cast<size_t>(p.d0) * ((p.nb + 7) & ~7)
+                          : 0) +
+                      8 + 16 * kMaxStages;
   const size_t fit = rest < 232448 ? (232448 - rest) / kSliceF : 0;
   *stages = fit < kMinStages ? 0 : static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
   return rest + static_cast<size_t>(*stages) * kSliceF;
 }
 
-template <int HC, bool DIR, bool SPA, int W = kW, bool WIDE = false>
+template <int HC, bool DIR, bool SPA, int W = kW, bool WIDE = false, bool DG = false>
 int launch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   // K7's staged inputs must fit in red.
   if (SPA && p.ipe.lm != nullptr && 2 * kRows * p.ipe.nb > kRed)
@@ -695,14 +894,15 @@ int launch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   bool ok = make_layer_maps_f32<W>(m, p.w, p.wt, p.depth, p.kin, p.skip);
   if (HC > 0) ok = ok && make_map_f32(&m.wc, p.wc, HC, kW, HC, kW, kSD);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = WIDE ? fwd_f32_wide_smem(p, &m.stages) : fwd_f32_smem<W>(p, &m.stages);
+  const size_t smem =
+      WIDE ? fwd_f32_wide_smem(p, &m.stages, DG) : fwd_f32_smem<W>(p, &m.stages);
   if (m.stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_f32_kernel<HC, DIR, SPA, W, WIDE>,
+  cudaError_t err = cudaFuncSetAttribute(trunk_fwd_f32_kernel<HC, DIR, SPA, W, WIDE, DG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = W == kW ? (SPA ? p.tiles : 1) * kRows : kRowsW<W>;
-  trunk_fwd_f32_kernel<HC, DIR, SPA, W, WIDE>
+  trunk_fwd_f32_kernel<HC, DIR, SPA, W, WIDE, DG>
       <<<(p.n + rows - 1) / rows, kTmaThreads, smem, stream>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -714,7 +914,10 @@ int launch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
 // kMaxHeads f32 heads, without K11's y; at width 256 K1/K3 (hc 128 or 0;
 // with K6/K7, hc 128) and K2 (hc 0; with K8-K10, never with K3), at width
 // 128 the plain K2 alone (hc 0, no density head, K3 or fused stage), 128
-// samples a CTA. `wc` is the compute-dtype head transposed, wc^T
+// samples a CTA; past kW and up to kWideKin input columns the spatial trunk
+// at width 256 with sigma, the f32 heads and the compute-dtype head (hc 0,
+// 128 or 256) and K3 (nb <= kMaxNbWide), no fused stage (the wide-input
+// instance). `wc` is the compute-dtype head transposed, wc^T
 // [width][hc] (its product reads the contraction index outermost). Returns
 // the cudaError_t of the launch (0 on success); allocates nothing and does
 // not synchronise.
@@ -728,10 +931,18 @@ extern "C" int refnerf_trunk_fwd_f32(REFNERF_FWD_ARGS) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
-  if (kin > kW)  // the wide-input instance: sigma and the f32 heads alone
-    return width == kW && hc == 0 && !dir && !spa && u == nullptr
-               ? launch_fwd_f32<0, false, false, kW, true>(p, s)
-               : static_cast<int>(cudaErrorInvalidValue);
+  if (kin > kW) {  // the wide-input instance: sigma, the heads, K3
+    if (width != kW || dir || spa) return static_cast<int>(cudaErrorInvalidValue);
+    if (u != nullptr)
+      return hc == 0     ? launch_fwd_f32<0, false, false, kW, true, true>(p, s)
+             : hc == 128 ? launch_fwd_f32<128, false, false, kW, true, true>(p, s)
+             : hc == 256 ? launch_fwd_f32<256, false, false, kW, true, true>(p, s)
+                         : static_cast<int>(cudaErrorInvalidValue);
+    return hc == 0     ? launch_fwd_f32<0, false, false, kW, true>(p, s)
+           : hc == 128 ? launch_fwd_f32<128, false, false, kW, true>(p, s)
+           : hc == 256 ? launch_fwd_f32<256, false, false, kW, true>(p, s)
+                       : static_cast<int>(cudaErrorInvalidValue);
+  }
   if (width == 128)
     return hc == 0 && !dir && !spa && u == nullptr && wd == nullptr
                ? launch_fwd_f32<0, false, false, 128>(p, s)

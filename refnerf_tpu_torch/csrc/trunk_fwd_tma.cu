@@ -15,10 +15,11 @@
 // rounded to bf16 before the bf16 bias add, then ReLU; sigma and the f32
 // heads on f32(y); the bottleneck cdt(y wc^T) + cdt(bc); K3's chain q =
 // cdt(s_l Wa_l) with u_x summed in f32 over the skip layer and layer 0; y
-// the last activation in bf16), from the same C arguments; and K1 on more
-// than kW and at most kWideKin input columns with sigma and the f32 heads
-// alone (`fwd_wide`: mip-NeRF 360's proposal MLP, 504 IPE columns;
-// trunk_fwd.cu's mma.sync design ran it before). The float32 instances, and trunks past
+// the last activation in bf16), from the same C arguments; and K1 and K3 on
+// more than kW and at most kWideKin input columns with sigma, the f32 heads
+// and a 128- or 256-wide bottleneck (`fwd_wide`: mip-NeRF 360's proposal
+// MLP and the JAX package's default MLP, 504 IPE columns; trunk_fwd.cu's
+// mma.sync design ran the former before). The float32 instances, and trunks past
 // kMaxDepth layers or those input columns, stay in trunk_fwd_f32.cu and
 // trunk_fwd.cu.
 //
@@ -158,6 +159,23 @@ __device__ void schedule(const FwdParams& p, const FwdMaps& m, F&& load) {
       if (l == p.skip) load(&m.wt[l], kW, kW);  // u_x: the skip layer's input columns
       load(&m.wt[l], 0, kW);                    // s_{l-1}; at l = 0, u_x of layer 0
     }
+}
+
+// The wide-input instance's schedule with K3 (`fwd_wide` at NT = 1): the
+// layers and the bottleneck as `schedule`, then the chain, whose u_x
+// products run over the kin input columns 256 at a time.
+template <int HC, typename F>
+__device__ void schedule_wide(const FwdParams& p, const FwdMaps& m, F&& load) {
+  for (int l = 0; l < p.depth; ++l) load(&m.w[l], 0, k_dim(p, l));
+  if (HC > 0) load(&m.wc, 0, kW);
+  for (int l = p.depth - 1; l >= 0; --l) {
+    if (l == p.skip)
+      for (int c = 0; c < p.kin; c += kW) load(&m.wt[l], kW + c, kW);  // u_x: skip columns
+    if (l > 0)
+      load(&m.wt[l], 0, kW);  // s_{l-1}
+    else
+      for (int c = 0; c < p.kin; c += kW) load(&m.wt[0], c, kW);  // u_x: layer 0's
+  }
 }
 
 // One f32 head on y (the thread's 32 columns of its two rows, in registers)
@@ -616,11 +634,82 @@ __device__ __forceinline__ void fwd_two_tiles(const FwdParams& p, const FwdMaps&
   }
 }
 
+// K3 on the wide-input instance: the u_x columns [c0, c0 + 256) of the
+// trunk input that one product left in the accumulators (column c0 + fc +
+// 8 j + e of row fr + 8 h in a[4 j + 2 h + e]), folded onto the lifted
+// means at once: a sin column c adds f32(xc) u_x S[c] to u, a cos column
+// d0 + c adds -f32(xs) u_x S[c] (u_m = f32(xc) u_xs - f32(xs) u_xc, then u =
+// u_m S, :653-662), the partner segment's values read from device memory,
+// a column pair a load (d0 even). S is staged in shared memory, fs [d0][nbp]
+// (rows padded to nbp, a multiple of 8, with zeros): a quad's 4 lanes read 4
+// rows, the warp's 8 row groups the same 4, two 16-byte loads a column and 8
+// basis vectors. The thread's sums over its 32 columns, then over its
+// quad's 4 lanes, go to ust [warpgroup][kRows][nb], 8 basis vectors a pass;
+// the caller adds the two warpgroups' in order. a is left scaled.
+__device__ __forceinline__ void fold_ux(float (&a)[64], int c0, int fr, int fc, int row0,
+                                        const FwdParams& p, const float* fs, int nbp,
+                                        float* ust) {
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, F = p.d0, nb = p.nb;
+  const bf16* x0 = static_cast<const bf16*>(p.x0);
+  const bf16* x1 = static_cast<const bf16*>(p.x1);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = row0 + fr + 8 * h;
+    const size_t o = static_cast<size_t>(gr) * F;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      // Columns k and k + 1 (k even) lie in one segment, d0 being even.
+      const int k = c0 + fc + 8 * j;
+      float2 cf = make_float2(0.f, 0.f);
+      if (gr < p.n && k < 2 * F) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+            k < F ? x1 + o + k : x0 + o + (k - F));
+        cf = k < F ? make_float2(to_f(v.x), to_f(v.y)) : make_float2(-to_f(v.x), -to_f(v.y));
+      }
+      a[4 * j + 2 * h] *= cf.x;
+      a[4 * j + 2 * h + 1] *= cf.y;
+    }
+  }
+  for (int jb = 0; jb < nbp; jb += 8) {
+    float s[2][8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s[0][t] = s[1][t] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // Past the segments a is 0: any fold row serves.
+        const int k = c0 + fc + 8 * j + e, c = k < F ? k : min(k - F, F - 1);
+        const float4* f4 = reinterpret_cast<const float4*>(fs + c * nbp + jb);
+        const float4 f0 = f4[0], f1 = f4[1];
+        const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          s[0][t] = fmaf(a[4 * j + e], f[t], s[0][t]);
+          s[1][t] = fmaf(a[4 * j + 2 + e], f[t], s[1][t]);
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        s[h][t] += __shfl_xor_sync(0xffffffffu, s[h][t], 1);
+        s[h][t] += __shfl_xor_sync(0xffffffffu, s[h][t], 2);
+      }
+    if ((lane & 3) == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          if (jb + t < nb) ust[(wg * kRows + fr + 8 * h) * nb + jb + t] = s[h][t];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The wide-input instance (WIDE): the spatial trunk at width 256 on more
 // than kW and at most kWideKin input columns, with sigma and the f32 heads
-// alone (no compute-dtype head, K3, fused stage or y): mip-NeRF 360's
-// proposal MLP, 504 IPE columns (kin 512 packed). The body above stages a
+// (the bottleneck and K3: HC and NT below; no fused stage or y): mip-NeRF
+// 360's proposal MLP, 504 IPE columns (kin 512 packed). The body above stages a
 // tile's raw segments in its activation tile and keeps the whole input
 // tile: at 512 columns that is 64.5 KB of staging and 64 KB of input a
 // tile, past shared memory at two tiles a CTA (NT = 2). Here, two tiles a
@@ -639,17 +728,36 @@ __device__ __forceinline__ void fwd_two_tiles(const FwdParams& p, const FwdMaps&
 // layers' and heads' epilogues are the body's (K1's arithmetic and
 // roundings). One tile a CTA (256-column chunks, a 3-stage ring) ran the
 // PropMLP's trunk ~26% slower than two (PERF.md).
+//
+// HC: the compute-dtype head (128 or 256 wide: the MLP's bottleneck), one
+// more product of the ring after the layers on y, which the last layer then
+// leaves in the activation tiles; stored from its accumulators as the body
+// stores it. NT = 1: K3, one tile at a time (its relu' bits, 16 KB a tile at
+// depth 8, and its chain's state do not fit twice). The chain runs as the
+// body's, but u_x never lies whole in shared memory (a [64][512] f32 tile is
+// 128 KB): its products come 256 input columns at a time, and each one's
+// columns are folded at once into u [64][nb] f32 (`fold_ux`), the partner
+// segment's values (xc for a sin column, -xs for a cos one) read from the
+// inputs in device memory.
+template <int HC, int NT>
 __device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
                                          unsigned char* smem) {
-  constexpr int NT = 2, CW = kW / NT, ChB = (CW / 64) * kBlk;  // tiles; a chunk: columns, bytes
+  constexpr int CW = kW / 2, ChB = (CW / 64) * kBlk;  // a chunk: columns, bytes
+  constexpr bool DG = NT == 1;                         // K3
   const int kp = (p.kin + kBK - 1) / kBK * kBK, nc = (kp + CW - 1) / CW;
   const int stages = m.stages, units = (p.n + NT * kRows - 1) / (NT * kRows);
   const int nred = max(1 + p.hf, 4);
   const bool skip = p.skip > 0 && p.skip < p.depth;
   unsigned char* ring = smem;                         // stages x [256][64]
-  unsigned char* act0 = ring + stages * kSlice;       // NT x [64][256]: h_l
+  unsigned char* act0 = ring + stages * kSlice;       // NT x [64][256]: h_l (K3: then s_l)
   unsigned char* buf0 = act0 + NT * (kW / 64) * kBlk;  // 2 x NT x [64][CW]: input chunks
-  float* hw = reinterpret_cast<float*>(buf0 + 2 * NT * ChB);  // [1 + hf][256], where they fit
+  uint2* masks = reinterpret_cast<uint2*>(buf0 + 2 * NT * ChB);  // K3: [depth][256]
+  float* ut = reinterpret_cast<float*>(masks + (DG ? p.depth * kCons : 0));  // K3: u [kRows][nb]
+  float* ust = ut + (DG ? kRows * p.nb : 0);  // K3: a product's u, [2 warpgroups][kRows][nb]
+  const int nbp = (p.nb + 7) & ~7;
+  float* fs = ust + (DG ? 2 * kRows * p.nb : 0);  // K3: the fold S, [d0][nbp]
+  float* hw = DG ? fs + p.d0 * nbp
+                 : reinterpret_cast<float*>(buf0 + 2 * NT * ChB);  // [1 + hf][256], where they fit
   float* red0 = reinterpret_cast<float*>(buf0 + NT * ChB);    // NT x [2][kRows][nred]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       (reinterpret_cast<uintptr_t>(hw + (m.heads_in_smem ? (1 + p.hf) * kW : 0)) + 7) &
@@ -670,15 +778,27 @@ __device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProdRegs));
     if (warp == kCons / 32 && lane == 0)
       for (int unit = blockIdx.x; unit < units; unit += gridDim.x)
-        schedule<0>(p, m, [&](const CUtensorMap* map, int row, int K) {
-          for (int k = 0; k < K; k += kBK) {
-            mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
-            mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
-            tma_load(ring_st.base + ring_st.stage * kSlice, map, ring_st.full + 8 * ring_st.stage,
-                     k, row);
-            ring_st.advance();
-          }
-        });
+        if constexpr (DG) {
+          schedule_wide<HC>(p, m, [&](const CUtensorMap* map, int row, int K) {
+            for (int k = 0; k < K; k += kBK) {
+              mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
+              mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
+              tma_load(ring_st.base + ring_st.stage * kSlice, map,
+                       ring_st.full + 8 * ring_st.stage, k, row);
+              ring_st.advance();
+            }
+          });
+        } else {
+          schedule<HC>(p, m, [&](const CUtensorMap* map, int row, int K) {
+            for (int k = 0; k < K; k += kBK) {
+              mbar_wait(ring_st.empty + 8 * ring_st.stage, ring_st.phase ^ 1u);
+              mbar_expect_tx(ring_st.full + 8 * ring_st.stage, kSlice);
+              tma_load(ring_st.base + ring_st.stage * kSlice, map,
+                       ring_st.full + 8 * ring_st.stage, k, row);
+              ring_st.advance();
+            }
+          });
+        }
     return;
   }
 
@@ -706,6 +826,11 @@ __device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
     wdp = hw;
     whp = hw + kW;
   }
+  if constexpr (DG)  // the fold, once a CTA, its rows padded with zeros
+    for (int i = tid; i < p.d0 * nbp; i += kCons) {
+      const int c = i / nbp, j = i - c * nbp;
+      fs[i] = j < p.nb ? p.fold[c * p.nb + j] : 0.f;
+    }
   float acc[NT][64];
 
   // Chunk c of unit `unit`'s tiles in flight to slot k (one cp.async
@@ -767,9 +892,10 @@ __device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
         PHASE_MARK(1, kProd);
         cons_sync();  // both warpgroups' products have read the tiles
       }
-      const bool keep = l + 1 < p.depth;
+      const bool keep = l + 1 < p.depth || HC > 0;
 #pragma unroll
-      for (int t = 0; t < NT; ++t)
+      for (int t = 0; t < NT; ++t) {
+        [[maybe_unused]] uint32_t mk[2] = {0u, 0u};
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int c = fc + 8 * j;
@@ -780,11 +906,17 @@ __device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
             const uint32_t v = bits2(__hmax2(
                 __hadd2(__floats2bfloat162_rn(acc[t][i], acc[t][i + 1]), bb),
                 __float2bfloat162_rn(0.f)));
+            if constexpr (DG) {
+              mk[i >> 5] |= ((v & 0x7fffu) != 0u ? 1u : 0u) << (i & 31);
+              mk[i >> 5] |= ((v & 0x7fff0000u) != 0u ? 1u : 0u) << ((i + 1) & 31);
+            }
             if (keep) *reinterpret_cast<uint32_t*>(act(t) + sw_off(fr + 8 * h, c)) = v;
             acc[t][i] = __uint_as_float(v << 16);
             acc[t][i + 1] = __uint_as_float(v & 0xffff0000u);
           }
         }
+        if constexpr (DG) masks[l * kCons + tid] = make_uint2(mk[0], mk[1]);
+      }
       fence_async_smem();
       cons_sync();
       PHASE_MARK(1, kScal);
@@ -814,6 +946,102 @@ __device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
       }
     }
     PHASE_MARK(2, kStore);
+
+    // The bottleneck head hc = cdt(y wc^T) + cdt(bc) from its accumulators,
+    // as the body's step 4.
+    if constexpr (HC > 0) {
+      product_n<NT>(acc, act_s, kW / 64, act_s, kW, ring_st);
+      PHASE_MARK(2, kProd);
+      if (128 * wg < HC) {
+        const bf16* bc = static_cast<const bf16*>(p.bc);
+        bf16* out = static_cast<bf16*>(p.cout);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int c = fc + 8 * j;
+            if (c >= HC) continue;
+            const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bc + c);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int gr = row0[t] + fr + 8 * h, i = 4 * j + 2 * h;
+              if (gr < p.n)
+                *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(gr) * HC + c) =
+                    __floats2bfloat162_rn(bias_add<bf16>(acc[t][i], bb.x),
+                                          bias_add<bf16>(acc[t][i + 1], bb.y));
+            }
+          }
+      }
+      PHASE_MARK(2, kStore);
+    }
+
+    // K3: the chain s_{L-1} = relu'(h) cdt(wd), s_{l-1} = relu'(h_{l-1})
+    // cdt(s_l Wa_l), as the body's `chain`; each u_x product (256 input
+    // columns of the skip layer's, then of layer 0's) folded at once into ut.
+    if constexpr (DG) {
+      auto put2 = [&](int r, int c, uint32_t v) {
+        *reinterpret_cast<uint32_t*>(act0 + sw_off(r, c)) = v;
+      };
+      auto publish = [&]() {
+        fence_async_smem();
+        cons_sync();
+      };
+      cons_sync();  // the bottleneck head's product has read y
+      for (int i = tid; i < kRows * p.nb; i += kCons) ut[i] = 0.f;
+      {
+        const uint2 mk = masks[(p.depth - 1) * kCons + tid];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = fc + 8 * j;
+          const float q0 = round_t<bf16>(p.wd[c]), q1 = round_t<bf16>(p.wd[c + 1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            put2(fr + 8 * h, c, bits2(__floats2bfloat162_rn(bit_at(mk, i) ? q0 : 0.f,
+                                                             bit_at(mk, i + 1) ? q1 : 0.f)));
+          }
+        }
+      }
+      publish();
+      PHASE_MARK(3, kScal);
+      // u_x of one layer's input columns, 256 a product, each folded.
+      auto take_ux = [&]() {
+        for (int c0 = 0; c0 < p.kin; c0 += kW) {
+          product_n<1>(acc, act_s, kW / 64, act_s, kW, ring_st);
+          PHASE_MARK(3, kProd);
+          fold_ux(acc[0], c0, fr, fc, row0[0], p, fs, nbp, ust);
+          cons_sync();
+          for (int i = tid; i < kRows * p.nb; i += kCons)
+            ut[i] += ust[i] + ust[kRows * p.nb + i];
+          cons_sync();
+          PHASE_MARK(3, kScal);
+        }
+      };
+      for (int l = p.depth - 1; l > 0; --l) {
+        if (l == p.skip) take_ux();
+        product_n<1>(acc, act_s, kW / 64, act_s, kW, ring_st);
+        PHASE_MARK(3, kProd);
+        cons_sync();
+        const uint2 mk = masks[(l - 1) * kCons + tid];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // cdt(acc) on bf16 pairs, masked by the two relu' bits.
+            const int i = 4 * j + 2 * h;
+            const uint32_t b = ((i < 32 ? mk.x >> i : mk.y >> (i - 32)) & 3u);
+            const uint32_t kp2 = ((0u - (b & 1u)) & 0xffffu) | ((0u - (b >> 1)) & 0xffff0000u);
+            put2(fr + 8 * h, fc + 8 * j,
+                 bits2(__floats2bfloat162_rn(acc[0][i], acc[0][i + 1])) & kp2);
+          }
+        publish();
+        PHASE_MARK(3, kScal);
+      }
+      take_ux();
+      for (int i = tid; i < rows[0] * p.nb; i += kCons)
+        p.u[static_cast<size_t>(row0[0]) * p.nb + i] = ut[i];
+      PHASE_MARK(3, kStore);
+    }
   }
 }
 
@@ -825,8 +1053,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     trunk_fwd_tma_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ FwdMaps m) {
   static_assert(W == kW || (HC == 0 && !DIR && !SPA && !YO), "width 128: the plain K2 alone");
   static_assert(!YO || (HC == 0 && !DIR && !SPA && NT == 2), "K11: the spatial trunk alone");
-  static_assert(!WIDE || (W == kW && HC == 0 && !DIR && !SPA && !YO && NT == 2),
-                "wide: sigma, f32 heads, two tiles");
+  static_assert(!WIDE || (W == kW && (HC == 0 || HC == 128 || HC == 256) && !DIR && !SPA && !YO),
+                "wide: sigma, f32 heads, the bottleneck; K3 one tile at a time");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   if constexpr (W != kW) {
@@ -834,7 +1062,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     return;
   }
   if constexpr (WIDE) {
-    fwd_wide(p, m, smem);
+    fwd_wide<HC, NT>(p, m, smem);
     return;
   }
   const int kp = (p.kin + kBK - 1) / kBK * kBK;
@@ -1277,34 +1505,42 @@ int launch_fwd_tma_w128(const FwdParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of a launch of the wide-input instance (`fwd_wide`, two
+// Shared memory of a launch of the wide-input instance (`fwd_wide`, NT
 // tiles at a time) through a ring of `stages` slices, without the f32
-// heads' weights (`heads`): two activation tiles and two buffers of two
-// 128-column chunks. fused_mlp.py `kernel_smem` mirrors this sum.
-size_t fwd_wide_smem(const FwdParams& p, int stages, size_t& heads) {
+// heads' weights (`heads`): NT activation tiles and two buffers of NT
+// 128-column chunks; with K3 (NT = 1) the relu' bits, u and a product's u of
+// each warpgroup, and the fold padded to rows of a multiple of 8.
+// fused_mlp.py `kernel_smem` mirrors this sum.
+size_t fwd_wide_smem(const FwdParams& p, int nt, int stages, size_t& heads) {
   heads = 4 * static_cast<size_t>(1 + p.hf) * kW;
-  return 1024 + static_cast<size_t>(stages) * kSlice + 4 * (kW / 64) * kBlk + 8 + 16 * stages;
+  const size_t dg = 8 * static_cast<size_t>(p.depth) * kCons + 4 * 3 * kRows * p.nb +
+                    4 * static_cast<size_t>(p.d0) * ((p.nb + 7) & ~7);
+  return 1024 + static_cast<size_t>(stages) * kSlice + 2 * nt * (kW / 64) * kBlk +
+         (nt == 1 ? dg : 0) + 8 + 16 * stages;
 }
 
-// The wide-input instance: persistent CTAs of two tiles, the deepest ring
-// that fits, then the heads' weights if they fit too.
+// The wide-input instance: persistent CTAs of NT tiles (two, or one with
+// K3), the deepest ring that fits, then the heads' weights if they fit too.
+template <int HC, int NT>
 int launch_fwd_tma_wide(const FwdParams& p, cudaStream_t stream) {
-  constexpr int NT = 2;
   FwdMaps m;
   memset(&m, 0, sizeof(m));
   const bf16* w = static_cast<const bf16*>(p.w);
+  const bf16* wt = static_cast<const bf16*>(p.wt);
   size_t off = 0;
   bool ok = true;
   for (int l = 0; l < p.depth; ++l) {
     const int K = l == 0 ? p.kin : (l == p.skip ? kW + p.kin : kW);
     ok = ok && make_map(&m.w[l], w + off, K, kW, K, kW);
+    if (NT == 1) ok = ok && make_map(&m.wt[l], wt + off, kW, K, kW, kW);
     off += static_cast<size_t>(kW) * K;
   }
+  if (HC > 0) ok = ok && make_map(&m.wc, p.wc, kW, HC, kW, kW);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   size_t heads = 0, smem = 0;
   int stages = kStages;
   for (; stages >= 2; --stages) {
-    smem = fwd_wide_smem(p, stages, heads);
+    smem = fwd_wide_smem(p, NT, stages, heads);
     if (smem <= 232448) break;
   }
   if (stages < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -1312,7 +1548,7 @@ int launch_fwd_tma_wide(const FwdParams& p, cudaStream_t stream) {
   m.tiles = NT;
   m.heads_in_smem = smem + heads <= 232448;
   if (m.heads_in_smem) smem += heads;
-  auto* kernel = trunk_fwd_tma_kernel<0, false, false, NT, false, kW, true>;
+  auto* kernel = trunk_fwd_tma_kernel<HC, false, false, NT, false, kW, true>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1333,9 +1569,10 @@ int launch_fwd_tma_wide(const FwdParams& p, cudaStream_t stream) {
 // 128), K2 (hc 0; with K8-K10) and K11 (y: hc 0, no K3 or fused stage), at
 // width 128 the plain K2 alone (hc 0, no density head, K3, fused stage or
 // y); past kW and up to kWideKin input columns the spatial trunk at width
-// 256 with sigma and the f32 heads alone (the wide-input instance: hc 0, no
-// K3, fused stage or y). Returns the cudaError_t of the launch (0 on
-// success); allocates nothing and does not synchronise.
+// 256 with sigma, the f32 heads and the compute-dtype head (hc 0, 128 or
+// 256), and K3 (two segments of equal even width, 4-byte aligned, nb <=
+// kMaxNbWide), no fused stage or y (the wide-input instance). Returns the cudaError_t of the
+// launch (0 on success); allocates nothing and does not synchronise.
 extern "C" int refnerf_trunk_fwd_tma(REFNERF_FWD_ARGS) {
   FwdParams p;
   const int err = fwd_params(p, REFNERF_FWD_NAMES);
@@ -1346,10 +1583,22 @@ extern "C" int refnerf_trunk_fwd_tma(REFNERF_FWD_ARGS) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dir = p.dir.p != 0 || p.rgb != nullptr;
   const bool spa = p.ipe.lm != nullptr || p.wts != nullptr;
-  if (kin > kW)
-    return width == kW && hc == 0 && !dir && !spa && u == nullptr && y == nullptr
-               ? launch_fwd_tma_wide(p, s)
-               : static_cast<int>(cudaErrorInvalidValue);
+  if (kin > kW) {
+    if (width != kW || dir || spa || y != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    // K3 reads the segments' values in pairs: d0 even, the bases 4-byte aligned.
+    if (u != nullptr &&
+        ((d0 & 1) || ((reinterpret_cast<uintptr_t>(x0) | reinterpret_cast<uintptr_t>(x1)) & 3)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (u != nullptr)
+      return hc == 0     ? launch_fwd_tma_wide<0, 1>(p, s)
+             : hc == 128 ? launch_fwd_tma_wide<128, 1>(p, s)
+             : hc == 256 ? launch_fwd_tma_wide<256, 1>(p, s)
+                         : static_cast<int>(cudaErrorInvalidValue);
+    return hc == 0     ? launch_fwd_tma_wide<0, 2>(p, s)
+           : hc == 128 ? launch_fwd_tma_wide<128, 2>(p, s)
+           : hc == 256 ? launch_fwd_tma_wide<256, 2>(p, s)
+                       : static_cast<int>(cudaErrorInvalidValue);
+  }
   if (width == 128)
     return hc == 0 && !dir && !spa && u == nullptr && wd == nullptr && y == nullptr
                ? launch_fwd_tma_w128(p, s)

@@ -110,14 +110,17 @@ _KSPLIT_TMA = 2048
 _TMA_DEPTH = 8
 _TMA_KIN = 256
 _TMA_HEADS = 16
-# The wide-input instances (width 256, the density head and f32 heads
-# alone: `wide_input`) of trunk_fwd_f32.cu and trunk_bwd_f32.cu (f32) and
-# of trunk_fwd_tma.cu and trunk_bwd_tma.cu (bf16) take past _TMA_KIN up to
-# this many input columns, streamed in chunks of columns: _CHUNK in f32,
-# _WIDE_CHUNK in bf16.
+# The wide-input instances (width 256, the density head, f32 heads and a
+# compute-dtype head of _WIDE_HEADS, the density gradient on at most
+# _WIDE_NB basis vectors: `wide_input`) of trunk_fwd_f32.cu and
+# trunk_bwd_f32.cu (f32) and of trunk_fwd_tma.cu and trunk_bwd_tma.cu (bf16)
+# take past _TMA_KIN up to this many input columns, streamed in chunks of
+# columns: _CHUNK in f32, _WIDE_CHUNK in bf16.
 _WIDE_KIN = 1024
 _CHUNK = 128
 _WIDE_CHUNK = 128
+_WIDE_HEADS = (0, 128, 256)
+_WIDE_NB = 32  # kMaxNbWide in csrc/trunk_fwd_args.cuh and trunk_bwd_args.cuh
 # The library of each direction's TMA kernels, by compute dtype.
 FWD_LIBRARY = {'bfloat16': 'trunk_fwd_tma', 'float32': 'trunk_fwd_f32'}
 BWD_LIBRARY = {'bfloat16': 'trunk_bwd_tma', 'float32': 'trunk_bwd_f32'}
@@ -150,13 +153,13 @@ SMEM_LIMIT = 232448
 # compositing weights, K7 the IPE. A launch of K2 or K5 with fused
 # directional stages likewise: K8 the IDE, K9 the direction geometry, K10
 # the colour epilogue. A launch of K1 or K4 with the trunk's features out
-# (y, and its cotangent back) also counts under K11. A launch of K1 or K4 on
-# the wide-input instances (`wide_input`) also counts under 'K1 wide' or
-# 'K4 wide', on the width-1024 instances (`w1024`) under 'K1 w1024' or
-# 'K4 w1024'.
+# (y, and its cotangent back) also counts under K11. A launch of K1, K3 or K4
+# on the wide-input instances (`wide_input`) also counts under 'K1 wide',
+# 'K3 wide' or 'K4 wide', on the width-1024 instances (`w1024`) under 'K1
+# w1024' or 'K4 w1024'.
 launches = {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0, 'K6': 0, 'K7': 0,
-            'K8': 0, 'K9': 0, 'K10': 0, 'K11': 0, 'K1 wide': 0, 'K4 wide': 0,
-            'K1 w1024': 0, 'K4 w1024': 0}
+            'K8': 0, 'K9': 0, 'K10': 0, 'K11': 0, 'K1 wide': 0, 'K3 wide': 0,
+            'K4 wide': 0, 'K1 w1024': 0, 'K4 w1024': 0}
 
 Head = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (weight [out, in], bias)
 
@@ -841,9 +844,12 @@ def _ptr(t):
 
 
 def _library(name: str, pack: TrunkPack, hc: int):
+  """Library `name`, built on first use; a trunk on at most `_TMA_KIN`
+  input columns must be one that trunk_fwd.cu's instances hold (past them
+  `missing_instance` has decided)."""
   from refnerf_tpu_torch.ops import cuda_build  # builds on first use
-  if not cuda_build.library('trunk_fwd').refnerf_trunk_supports(pack.width,
-                                                                 hc):
+  if pack.kin <= _TMA_KIN and not cuda_build.library(
+      'trunk_fwd').refnerf_trunk_supports(pack.width, hc):
     raise NotImplementedError(
         f'no trunk kernel instance for width {pack.width} and compute-dtype '
         f'head {hc} (built: width 256, head 0 or 128; width 128, head 0)')
@@ -857,7 +863,9 @@ def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
   the pack's shape and the modes alone, before anything is built or
   launched. K11 (y out, ybar in) runs in an instance of its own: the
   spatial trunk at width 256 without the compute-dtype head, the density
-  gradient (K3) or a fused stage (K6-K10). Width 128 runs only the plain
+  gradient (K3) or a fused stage (K6-K10). Width 256 past `_TMA_KIN` input
+  columns runs the spatial trunk of `wide_input`, a 256-wide head and K3
+  too. Width 128 runs only the plain
   directional trunk (K2, K5): no density head, density gradient or fused
   stage. Width 1024 runs only the spatial trunk of `w1024` (K1, first-order
   K4): the density head and the 256-wide compute-dtype head alone, on at
@@ -883,10 +891,13 @@ def missing_instance(pack: TrunkPack, hc, fold=None, dm: DirModes = DirModes(),
   if off:
     return f'{what} has no kernel with ' + ', '.join(off) + ' (ROADMAP queue 2)'
   if not ((pack.width == 256 and hc in (0, 128)) or
-          (pack.width == 128 and hc == 0) or pack.width == W1024):
+          (pack.width == 128 and hc == 0) or pack.width == W1024 or
+          wide_input(pack, y, fold, sp)):
     return (f'no trunk kernel instance for width {pack.width} and '
             f'compute-dtype head {hc} (built: width 256, head 0 or 128; '
-            f'width 128, head 0; width {W1024}, head {W1024_HEAD})')
+            f'width 128, head 0; width {W1024}, head {W1024_HEAD}; width 256 '
+            f'on {_TMA_KIN + 1}-{_WIDE_KIN} input columns, head 0, 128 or '
+            '256)')
   for lib in (forward_library(pack, y, fold, sp),
               backward_library(pack, y, fold)):
     need = kernel_smem(lib, pack, hc, fold, sp)
@@ -923,7 +934,9 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   library the largest of its products' CTAs. For trunk_fwd_tma.cu
   and trunk_bwd_tma.cu only their wide-input instances' sums
   (`fwd_wide_smem`, `tma_smem`; 231,480 B and 210,248 B for the PropMLP's
-  trunk of depth 4 on 504 columns): None for their other instances, whose
+  trunk of depth 4 on 504 columns; with the density gradient of the MLP's
+  defaults, 8 layers and 21 basis vectors, 222,648 B and 212,200 B): None
+  for their other instances, whose
   largest sums within their shapes (8 layers, 256 input columns, 16 f32
   heads: 228,904 B, K3 with K6 on 1,024-row rays at the 2-stage ring;
   223,624 B; 194,120 B for the two-tile width-128 backward; 230,472 B for
@@ -932,6 +945,7 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   W, kin, L = pack.width, pack.kin, pack.depth
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
   dg = fold is not None
+  nbd = int(fold.shape[1]) if dg else 0  # the density gradient's basis
   if lib == DIR1_LIBRARY:
     # csrc/trunk_dir1.cu's CTA, both directions: 1 KB to align, the head
     # (wh [3][128], b1 and bh in f32: 2,064 B) and the backward's sums of
@@ -971,10 +985,15 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
 
   if lib == 'trunk_fwd_tma' and kin > _TMA_KIN:
     # The wide-input instance (`fwd_wide_smem`): the activation tiles and
-    # two buffers of chunks (64 KB each), the deepest ring of [256][64]
-    # bf16 slices that fits (4 to 2), then the heads' weights if they fit
-    # too.
-    rest = 1024 + 2 * 65536 + 8
+    # two buffers of chunks (64 KB each; 32 KB each with the density
+    # gradient, which runs one tile at a time and adds its relu' bits, u,
+    # two warpgroups' u of a product and the fold, its rows padded to a
+    # multiple of 8), the deepest ring of [256][64] bf16 slices that fits
+    # (4 to 2), then the heads' weights if they fit too.
+    nt = 1 if dg else 2
+    fold_bytes = 4 * pack.seg_dims[0] * (-(-nbd // 8) * 8)
+    rest = (1024 + 2 * nt * 32768 +
+            (8 * L * 256 + 4 * 3 * _TILE * nbd + fold_bytes if dg else 0) + 8)
     for stages in (4, 3, 2):
       need = rest + stages * (256 * 128 + 16)
       if need <= SMEM_LIMIT:
@@ -982,18 +1001,28 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     heads = 4 * (1 + hf) * 256
     return need + heads if need + heads <= SMEM_LIMIT else need
   if lib == 'trunk_bwd_tma' and kin > _TMA_KIN:
-    # The wide-input instance (`tma_smem`): the 4-stage ring, the
-    # activation tile, two chunks of _WIDE_CHUNK columns, the relu' masks,
-    # the column sums' and the cotangents' rows.
-    return (1024 + 4 * 256 * 128 + (4 + 2 * _WIDE_CHUNK // 64) * 8192 +
-            8 * L * 256 + 4 * 4 * 256 + 4 * _TILE * (1 + hf) + 8 + 16 * 4)
+    # The wide-input instance (`tma_smem`): the 4-stage ring (3 stages and
+    # the fold with the density gradient), the activation tile, two chunks
+    # of _WIDE_CHUNK columns, the relu' masks, the column sums' and the
+    # cotangents' rows (u's with the density gradient).
+    stages = 3 if dg else 4
+    return (1024 + stages * 256 * 128 + (4 * pack.seg_dims[0] * nbd if dg else 0)
+            + (4 + 2 * _WIDE_CHUNK // 64) * 8192 + 8 * L * 256 + 4 * 4 * 256 +
+            4 * _TILE * (1 + hf + nbd) + 8 + 16 * stages)
   if lib in ('trunk_fwd_f32', 'trunk_bwd_f32') and kin > _TMA_KIN:
     # The wide-input instances (`fwd_f32_wide_smem`, `f32_wide_smem`): the
-    # activation tile and an input chunk of _CHUNK columns, [.][68] f32.
+    # activation tile and an input chunk of _CHUNK columns, [.][68] f32; the
+    # forward's density gradient its relu' bits, u and the fold (its rows
+    # padded to a multiple of 8), the backward's the rows of u's cotangent
+    # and the fold.
     tiles = 1024 + 4 * (W + _CHUNK) * (_TILE + 4) + 8 + 16 * 8
     if lib == 'trunk_fwd_f32':
-      return ring(tiles + 4 * 4 * 4 * _TILE, 2, 8)
-    return ring(tiles + 8 * L * 256 + 4 * 2 * 256 + 4 * _TILE * (1 + hf), 4, 8)
+      nbp = -(-nbd // 8) * 8
+      return ring(tiles + 4 * 4 * 4 * _TILE +
+                  (8 * L * 256 + 4 * _TILE * nbd + 4 * pack.seg_dims[0] * nbp
+                   if dg else 0), 2, 8)
+    return ring(tiles + 8 * L * 256 + 4 * 2 * 256 + 4 * _TILE * (1 + hf + nbd)
+                + (4 * pack.seg_dims[0] * nbd if dg else 0), 4, 8)
 
   if lib == 'trunk_fwd':  # trunk_fwd.cu `launch`
     s = t * (_TILE * (W + pad) + _TILE * (kin + pad) +
@@ -1071,15 +1100,22 @@ def wide_input(pack: TrunkPack, y: bool = False, fold=None,
   """Whether `pack` runs on the wide-input instances (trunk_fwd_f32.cu and
   trunk_bwd_f32.cu in f32, trunk_fwd_tma.cu and trunk_bwd_tma.cu in bf16):
   the spatial trunk at width 256 within `_TMA_DEPTH` layers on more than
-  `_TMA_KIN` and at most `_WIDE_KIN` input columns, with the density head
-  and at most `_TMA_HEADS` f32 heads alone (no compute-dtype head, density
-  gradient, fused stage or y): a proposal MLP on JAX's default encoding
-  (504 IPE columns)."""
+  `_TMA_KIN` and at most `_WIDE_KIN` input columns, with the density head,
+  at most `_TMA_HEADS` f32 heads and a compute-dtype head of `_WIDE_HEADS`,
+  with or without the density gradient (two IPE segments of equal, even
+  width on at most `_WIDE_NB` basis vectors), no fused stage or y: the MLP's
+  defaults (8 x 256 on JAX's default encoding, 504 IPE columns, the 256-wide
+  bottleneck, density normals) and a proposal MLP on the same encoding."""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  dg = fold is None or (len(pack.seg_dims) == 2 and
+                        pack.seg_dims[0] == pack.seg_dims[1] == fold.shape[0]
+                        and pack.seg_dims[0] % 2 == 0
+                        and fold.shape[1] <= _WIDE_NB)
   return (pack.width == 256 and
           pack.depth <= _TMA_DEPTH and _TMA_KIN < pack.kin <= _WIDE_KIN and
-          hf <= _TMA_HEADS and pack.wd is not None and pack.wc is None and
-          not y and fold is None and not (sp.scales or sp.samples))
+          hf <= _TMA_HEADS and pack.wd is not None and hc in _WIDE_HEADS and
+          dg and not y and not (sp.scales or sp.samples))
 
 
 def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
@@ -1092,7 +1128,8 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   register-blocked FMA products fed by TMA, where its shared memory holds
   the trunk: K3 on at most 192 input columns); past `_TMA_KIN` input
   columns the spatial trunk of `wide_input` on the same two (their
-  wide-input instances); the spatial trunk of `w1024` 'trunk_w1024';
+  wide-input instances, a 256-wide head and K3 there too); the spatial
+  trunk of `w1024` 'trunk_w1024';
   the directional trunk of `dir1` 'trunk_dir1'; every other shape with an
   instance 'trunk_fwd'. (Width 128 runs the plain directional trunk alone:
   `missing_instance` refuses its other modes first.)"""
@@ -1132,7 +1169,7 @@ def backward_library(pack: TrunkPack, y: bool = False, fold=None) -> str:
   (f32: register-blocked FMA products fed by TMA; at width 128 where its
   shared memory holds the trunk: at most 192 input columns); past
   `_TMA_KIN` input columns the spatial trunk of `wide_input` (without y's
-  cotangent `y` or u's, `fold`) on the same two (their wide-input
+  cotangent `y`; with u's, `fold`, too) on the same two (their wide-input
   instances); the spatial trunk of `w1024` (first order) 'trunk_w1024';
   the directional trunk of `dir1` 'trunk_dir1'; every other shape with an
   instance (deeper, wider or narrower trunks) 'trunk_bwd'."""
@@ -1935,7 +1972,7 @@ def launch_keys(which, pack, out_y, fold, dm: DirModes, sp: SpaModes):
   its own, its wide-input or width-1024 instance's and each fused
   mode's."""
   keys = [which]
-  if which in ('K1', 'K4') and wide_input(pack, out_y, fold, sp):
+  if which in ('K1', 'K3', 'K4') and wide_input(pack, out_y, fold, sp):
     keys.append(which + ' wide')
   if which in ('K1', 'K4') and w1024(pack, out_y, fold, sp):
     keys.append(which + ' w1024')

@@ -26,9 +26,10 @@ products, the scalar passes and the stores (the backward's scratch, the
 forward's outputs). Then, at N = 524,288 samples in --dtype and for each
 case (backward: K4 with the cotangent of u, alone and with K6+K7; K5 with
 dx, alone and with K8+K9+K10; first-order K4; K5 at width 128; K4 wide,
-the proposal trunk on 504 columns; forward: K3 alone and with K6+K7, K1
-alone and with K6+K7, K2 alone and with K8+K9+K10, K2 at width 128, K11
-with y out, K1 wide; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
+the proposal trunk on 504 columns; K4 wide hc256 ubar, the defaults' trunk
+with the 256-wide bottleneck and u's cotangent; forward: K3 alone and with
+K6+K7, K1 alone and with K6+K7, K2 alone and with K8+K9+K10, K2 at width
+128, K11 with y out, K1 wide, K3 wide hc256; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
 per-tile (and for the backward the weight-gradient and reduction) kernels
 under torch.profiler through the phase build and through the normal one.
 Each
@@ -167,6 +168,13 @@ def cases(chip_smoke, fused_mlp, dev, cdt):
   pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
   cotsw = (rand(n), None, None, None)
   yield 'K4 wide', lambda: fused_mlp.trunk_backward_kernel(segs, pack, cotsw)
+  segs, ws, bs, kw, fold, (sbar, cbar, ubar) = chip_smoke.defaults_case(
+      fused_mlp, gen, dev, n, 256)
+  cs = [s.to(tdt) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  cotsd = (sbar, None, cbar.to(tdt), ubar)
+  yield 'K4 wide hc256 ubar', lambda: fused_mlp.trunk_backward_kernel(
+      cs, pack, cotsd, fold)
 
 
 def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
@@ -214,6 +222,11 @@ def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
   segs6, ws, bs, kw = chip_smoke.prop_case(fused_mlp, gen, dev, 4, cdt)
   pack6 = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
   yield 'K1 wide', lambda: fused_mlp.trunk_kernel(segs6, pack6)
+  segs, ws, bs, kw, fold, _ = chip_smoke.defaults_case(
+      fused_mlp, gen, dev, chip_smoke.N_SAMPLES, 256)
+  cs7 = [s.to(tdt) for s in segs]
+  pack7 = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  yield 'K3 wide hc256', lambda: fused_mlp.trunk_kernel(cs7, pack7, fold)
 
 
 def main():

@@ -575,23 +575,25 @@ def test_wide_instance_routes_and_counts(monkeypatch, cdt):
 @pytest.mark.parametrize('case,lib,past', [
     ('f32 depth 4', 'trunk_fwd_f32', None),
     ('f32 depth 8', 'trunk_fwd_f32', None),
-    ('f32 density gradient', 'trunk_fwd', 'trunk_fwd'),
-    ('f32 bottleneck head', 'trunk_fwd', 'trunk_fwd'),
+    ('f32 density gradient', 'trunk_fwd_f32', None),
+    ('f32 bottleneck head', 'trunk_fwd_f32', None),
     ('f32 past the widest', 'trunk_fwd', 'trunk_fwd'),
     ('bf16 depth 4', 'trunk_fwd_tma', None),
     ('bf16 depth 8', 'trunk_fwd_tma', None),
     ('bf16 past the widest', 'trunk_fwd', None),
-    ('bf16 density gradient', 'trunk_fwd', 'trunk_fwd')])
+    ('bf16 density gradient', 'trunk_fwd_tma', None)])
 def test_wide_input_routes_by_shape(case, lib, past):
   # The spatial trunk on 504 columns takes the wide-input instances, in f32
   # of the FMA/TMA libraries (kernel_smem within the H100's 232,448 B:
   # 230,792 B for the backward at depth 4, 222,600 at depth 8; 224,392 for
-  # the forward), in bf16 of the wgmma/TMA ones (231,480 B for the forward,
-  # its 3-stage ring and the density head's weights; 210,248 and 218,440 B
-  # for the backward at depth 4 and 8); what they do not run stays named by
-  # missing_instance, past shared memory on trunk_fwd.cu (the density
-  # gradient, the bottleneck head, more than 1024 columns in f32), or runs
-  # trunk_fwd.cu / trunk_bwd.cu (bf16 past 1024 columns).
+  # the forward; with the density gradient 229,384 and 224,568), in bf16 of
+  # the wgmma/TMA ones (231,480 B for the forward, its 3-stage ring and the
+  # density head's weights; 210,248 and 218,440 B for the backward at depth
+  # 4 and 8; with the density gradient 214,456 and 204,008), the 128-wide
+  # bottleneck head and the density gradient too; what they do not run stays
+  # named by missing_instance, past shared memory on trunk_fwd.cu (more than
+  # 1024 columns in f32), or runs trunk_fwd.cu / trunk_bwd.cu (bf16 past
+  # 1024 columns).
   depth = 8 if 'depth 8' in case else 4
   fin = 1056 if 'widest' in case else 504
   skips = fused_mlp.skip_input_layers(depth, 4)
@@ -610,14 +612,18 @@ def test_wide_input_routes_by_shape(case, lib, past):
     assert why is None
     want = {'f32 depth 4': (224392, 230792),
             'f32 depth 8': (224392, 222600),
+            'f32 density gradient': (229384, 224568),
+            'f32 bottleneck head': (224392, 230792),
             'bf16 depth 4': (231480, 210248),
-            'bf16 depth 8': (231480, 218440)}.get(case)
+            'bf16 depth 8': (231480, 218440),
+            'bf16 density gradient': (214456, 204008)}.get(case)
     if want:
       bwd = lib.replace('fwd', 'bwd')
-      assert fused_mlp.wide_input(pack)
-      assert fused_mlp.backward_library(pack) == bwd
-      assert (fused_mlp.kernel_smem(lib, pack, 0),
-              fused_mlp.kernel_smem(bwd, pack, 0)) == want
+      hc = 0 if head is None else 128
+      assert fused_mlp.wide_input(pack, fold=fold)
+      assert fused_mlp.backward_library(pack, fold=fold) == bwd
+      assert (fused_mlp.kernel_smem(lib, pack, hc, fold),
+              fused_mlp.kernel_smem(bwd, pack, hc, fold)) == want
     else:
       assert not fused_mlp.wide_input(pack)
       assert fused_mlp.backward_library(pack) == 'trunk_bwd'

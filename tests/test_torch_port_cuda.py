@@ -2160,3 +2160,73 @@ def test_dir1_refuses_a_misaligned_segment_on_the_card(dev):
     fused_mlp.trunk_kernel(cs, pack)
   with pytest.raises(ValueError, match='second segment'):
     fused_mlp.trunk_backward_kernel(cs, pack, cots, needs_dx=True)
+
+
+def _defaults_case(dev, n, hc, seed=25):
+  """The JAX package's default spatial trunk (testing/mlp_defaults.py): the
+  IPE of random lifted means and variances on 21 basis vectors x 12
+  degrees (two segments of 252 columns), 8 x 256 with the skip at layer 5,
+  the density head and an hc-wide bottleneck; the scale fold; random
+  cotangents of sigma, the bottleneck and u."""
+  gen = torch.Generator().manual_seed(seed)
+  rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
+  lm = torch.rand(n, 21, generator=gen).to(dev) * 3 - 1.5
+  lv = 10.0**(torch.rand(n, 21, generator=gen).to(dev) * 4 - 6)
+  scales = tuple(float(2**d) for d in range(12))
+  segs = list(fused_mlp.encode_ipe(lm, lv, scales))
+  skips = fused_mlp.skip_input_layers(8, 4)
+  ws = [rand(256, k) * math.sqrt(2 / k) for k in
+        (504 if l == 0 else 256 + (504 if l in skips else 0)
+         for l in range(8))]
+  bs = [rand(256) * 0.05 for _ in range(8)]
+  kw = dict(skip_period=4, wd=rand(1, 256) / 16,
+            head_cdt=(rand(hc, 256) / 16, rand(hc) * 0.1))
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(scales, 21)).to(dev)
+  return segs, ws, bs, kw, fold, (rand(n), rand(n, hc) * 0.1, rand(n, 21))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hc', [256, 128])
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n', [1, 63, 65, 257, 131072])
+def test_defaults_wide_trunk_matches_plain(dev, n, cdt, hc):
+  # The defaults' spatial trunk (8 x 256 on 504 columns, the density head,
+  # a 256- or 128-wide bottleneck) on the wide-input instances at n rows
+  # (across the 64-row tiles and the bf16 forward's two-tile units;
+  # 131,072 a 4096-ray request's samples at two levels): K1 (sigma, the
+  # bottleneck by BOUND), K3 (u by GRAD_BOUND), K4 first-order and with u's
+  # cotangent (every gradient by GRAD_BOUND), each a second time
+  # bit-identical (H4).
+  segs, ws, bs, kw, fold, (sbar, cbar, ubar) = _defaults_case(dev, n, hc)
+  cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  for f in (None, fold):
+    assert fused_mlp.wide_input(pack, fold=f)
+    assert fused_mlp.forward_library(pack, fold=f) == (
+        fused_mlp.FWD_LIBRARY[cdt])
+    assert fused_mlp.backward_library(pack, fold=f) == (
+        fused_mlp.BWD_LIBRARY[cdt])
+  c1 = (sbar, None, cbar.to(fused_mlp.DTYPES[cdt]), None)
+  c2 = c1[:3] + (ubar,)
+  cases = (
+      ('K1', 2, lambda: fused_mlp.trunk_kernel(cs, pack),
+       lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                         **kw)),
+      ('K3', 2, lambda: fused_mlp.trunk_kernel(cs, pack, fold),
+       lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
+                                         density_grad=True, fold=fold, **kw)),
+      ('K4 first-order', 0,
+       lambda: fused_mlp.trunk_backward_kernel(cs, pack, c1),
+       lambda: fused_mlp.trunk_backward_reference(cs, ws, bs, c1,
+                                                  compute_dtype=cdt, **kw)),
+      ('K4 with ubar', 0,
+       lambda: fused_mlp.trunk_backward_kernel(cs, pack, c2, fold),
+       lambda: fused_mlp.trunk_backward_reference(
+           cs, ws, bs, c2, compute_dtype=cdt, fold=fold, **kw)))
+  for which, nv, kernel, plain in cases:
+    with torch.no_grad():
+      got, again, want = (_flat(f()) for f in (kernel, kernel, plain))
+    torch.cuda.synchronize()
+    _assert_close(got, want, cdt, f'{which} {cdt} hc {hc} n {n}',
+                  n_values=nv)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), which

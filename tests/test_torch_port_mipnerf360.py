@@ -384,9 +384,9 @@ def test_w1024_routes_at_full_shape(cdt):
     ('width 1024 with f32 heads', 'f32 heads'),
     ('width 512', 'width 512'),
     ('width 2048', 'width 2048'),
-    ('width 256 with a 256-wide bottleneck', 'head 256'),
+    ('width 256 on 256 columns with a 256-wide head', 'head 256'),
     ('width 128 spatial', 'the density head'),
-    ('f32 width 256 on 504 columns with a 128-wide head', 'shared memory'),
+    ('width 256 on 504 columns with a 64-wide head', 'head 64'),
 ])
 def test_shapes_still_without_an_instance_are_named(case, words):
   # What the JAX pair runs and the port does not yet (ROADMAP queue 2) is
@@ -410,18 +410,38 @@ def test_shapes_still_without_an_instance_are_named(case, words):
   elif case.startswith('width 512') or case.startswith('width 2048'):
     w = int(case.split()[1])
     pack, hc = _pack(cdt, width=w), 256
-  elif case == 'width 256 with a 256-wide bottleneck':
-    pack, hc = _pack(cdt, width=256), 256
+  elif case == 'width 256 on 256 columns with a 256-wide head':
+    pack, hc = _pack(cdt, width=256, fin=256), 256
   elif case == 'width 128 spatial':
     pack, hc = _pack(cdt, width=128, hc=0), 0
   else:
-    pack, hc = _pack(cdt, width=256, hc=128), 128
+    pack, hc = _pack(cdt, width=256, hc=64), 64
   why = fused_mlp.missing_instance(pack, hc, fold)
   assert why is not None and words in why, why
   assert not fused_mlp.w1024(pack, fold=fold)
   with pytest.raises(NotImplementedError, match=words):
     fused_mlp._kernel_for(pack, hc, 'on', fold=fold)
   assert not fused_mlp._kernel_for(pack, hc, 'auto', fold=fold)
+
+
+@pytest.mark.parametrize('case', [
+    'width 256 with a 256-wide bottleneck',
+    'f32 width 256 on 504 columns with a 128-wide head'])
+def test_shapes_with_an_instance_now_route_to_the_wide_instances(case):
+  # Two shapes the test above named until the wide-input instances took the
+  # compute-dtype head (the MLP's defaults, and the f32 128-wide head that
+  # was past shared memory): each routes to its dtype's wide-input pair
+  # within an H100's shared memory, under 'on' too.
+  cdt = 'float32' if case.startswith('f32') else 'bfloat16'
+  hc = 256 if '256-wide' in case else 128
+  pack = _pack(cdt, width=256, hc=hc)
+  assert fused_mlp.wide_input(pack) and fused_mlp.missing_instance(
+      pack, hc) is None
+  libs = (fused_mlp.forward_library(pack), fused_mlp.backward_library(pack))
+  assert libs == (fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt])
+  assert all(fused_mlp.kernel_smem(lib, pack, hc) <= fused_mlp.SMEM_LIMIT
+             for lib in libs)
+  assert fused_mlp._kernel_for(pack, hc, 'on')
 
 
 # --------------------------------- the wrappers on a model of the C contract
