@@ -313,6 +313,7 @@ The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -687,11 +688,13 @@ def check_w1024_sass(sass):
                          f'in its SASS, expected {sorted(want)}')
 
 
-def check_dir1_sass(sass):
-  """Phase 2: the depth-1 directional library's four kernels (bf16 and
-  f32, forward and backward: dir1_bf16_kernel, dir1_f32_kernel) hold
-  wgmma's HGMMA and TMA loads (UTMALDG) and no mma.sync (HMMA) in its SASS
-  (`sass_of`), or this fails; its weights' TF32 split is logged."""
+def check_wgmma_sass(sass, kernels, count, what):
+  """Phase 2: the `count` kernels of a library whose names match `kernels`
+  hold wgmma's HGMMA and TMA loads (UTMALDG) and no mma.sync (HMMA) in its
+  SASS (`sass_of`), or this fails; the library's other kernels (its
+  weights' TF32 split) are logged: the depth-1 directional library's four
+  (bf16 and f32, forward and backward: dir1_bf16_kernel, dir1_f32_kernel),
+  the f32 density gradient's one (trunk_fwd_tf32_kernel)."""
   found = []
   for block in re.split(r'\n\s*Function : ', sass)[1:]:
     name = block.split('\n', 1)[0]
@@ -699,14 +702,14 @@ def check_dir1_sass(sass):
               for op in ('HMMA', 'HGMMA', 'UTMALDG', 'UTMASTG', 'UBLKCP')}
     log(f'phase 2: SASS {name}: ' + ', '.join(
         f'{op} {k}' for op, k in counts.items()))
-    if re.search(r'dir1_(bf16|f32)_kernel', name) is None:
+    if re.search(kernels, name) is None:
       continue
     found.append(name)
     if not (counts['HGMMA'] and counts['UTMALDG'] and not counts['HMMA']):
       raise AssertionError(f'{name}: its SASS holds {counts}')
-  if len(found) != 4:
-    raise AssertionError(f'trunk_dir1: {len(found)} kernels in its SASS, '
-                         'expected 4')
+  if len(found) != count:
+    raise AssertionError(f'{what}: {len(found)} kernels in its SASS, '
+                         f'expected {count}')
 
 
 def check_kernels(fused_mlp, dev):
@@ -3658,35 +3661,38 @@ SERVE_BOUND = {'float32': 2e-5, 'bfloat16': 2e-4}
 FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'refnerf_tpu')
 
 
-def load_and_serve(path, rays_npz, out_npz):
-  """Phase 21's fresh process: load the artifact at `path` with torch and
-  the port alone, serve the rays of `rays_npz` once, the launches counted
-  (set to 0 just before, read just after), write the buffers to `out_npz`
-  and print one JSON line (load s, the request's ms, the launches, any
-  module of FOREIGN imported)."""
+def load_and_serve(*args):
+  """Phase 21's fresh process, for each (path, rays_npz, out_npz) of
+  `args` in turn: load the artifact at `path` with torch and the port
+  alone, serve the rays of `rays_npz` once, the launches counted (set to 0
+  just before, read just after), write the buffers to `out_npz` and print
+  one JSON line (load s, the request's ms, the launches, any module of
+  FOREIGN imported so far)."""
   from refnerf_tpu_torch import serving
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.ops import fused_mlp
-  t0 = time.perf_counter()
-  served = serving.load_serving(path)
-  load_s = time.perf_counter() - t0
-  data = np.load(rays_npz)
-  rays = rays_lib.Rays(**{k: torch.from_numpy(data[k]).to(served.device)
-                          for k in data.files})
-  counts = fused_mlp.launches
-  for k in counts:
-    counts[k] = 0
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  out = served(rays)
-  torch.cuda.synchronize()
-  first_ms = (time.perf_counter() - t0) * 1e3
-  launches = {k: v for k, v in counts.items() if v}
-  np.savez(out_npz, **{k: v.float().cpu().numpy() for k, v in out.items()})
-  foreign = sorted(m for m in sys.modules if m.split('.')[0] in FOREIGN)
-  print(json.dumps(dict(load_s=load_s, load_parts=served.load_seconds,
-                        first_ms=first_ms, launches=launches,
-                        foreign=foreign)))
+  for path, rays_npz, out_npz in zip(args[::3], args[1::3], args[2::3]):
+    t0 = time.perf_counter()
+    served = serving.load_serving(path)
+    load_s = time.perf_counter() - t0
+    data = np.load(rays_npz)
+    rays = rays_lib.Rays(**{k: torch.from_numpy(data[k]).to(served.device)
+                            for k in data.files})
+    counts = fused_mlp.launches
+    for k in counts:
+      counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = served(rays)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in counts.items() if v}
+    np.savez(out_npz, **{k: v.float().cpu().numpy() for k, v in out.items()})
+    foreign = sorted(m for m in sys.modules if m.split('.')[0] in FOREIGN)
+    print(json.dumps(dict(load_s=load_s, load_parts=served.load_seconds,
+                          first_ms=first_ms, launches=launches,
+                          foreign=foreign)), flush=True)
+    del served, out
   return 0
 
 
@@ -3750,9 +3756,14 @@ def planted_pack(fault):
 
 def artifact_case(fused_mlp, dev, root, name):
   """Phase 21 for one model of ARTIFACTS: export its artifacts (the kernels
-  under fused_trunk='on', 'off', and the planted faults), check the graph, serve in a fresh process against the
-  in-process renders, read the planted fault, time the three arms in
-  turns. Returns (the fresh process's launches, a summary)."""
+  under fused_trunk='on', 'off', and the planted faults), check the graph,
+  and write the rays that the fresh process (`serving_stage`, one for
+  every model) serves. Returns ((the artifact, the rays' file, the file of
+  what the fresh process serves), finish): finish(its JSON line, its
+  seconds) checks what it served against the in-process renders, reads
+  the planted faults, times the three arms in turns, and returns (the
+  fresh process's launches, a summary, (the artifact, the loaded program,
+  the rays, the config))."""
   from refnerf_tpu_torch import serving
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import renderer
@@ -3832,18 +3843,20 @@ def artifact_case(fused_mlp, dev, root, name):
   out_npz = os.path.join(root, f'{name}_out.npz')
   np.savez(rays_npz, **{f: getattr(rays, f).cpu().numpy()
                         for f in serving.RAY_FIELDS})
-  repo = os.path.dirname(os.path.abspath(__file__))
-  t0 = time.perf_counter()
-  proc = subprocess.run(
-      [sys.executable, '-c', 'import sys, chip_smoke; '
-       'sys.exit(chip_smoke.load_and_serve(*sys.argv[1:]))', paths['on'],
-       rays_npz, out_npz], cwd=repo, capture_output=True, text=True,
-      timeout=600)
-  proc_s = time.perf_counter() - t0
-  if proc.returncode != 0:
-    raise AssertionError(f'phase 21: {name}: the serving process failed: '
-                         f'{proc.stderr[-3000:]}')
-  res = json.loads(proc.stdout.strip().splitlines()[-1])
+  return (paths['on'], rays_npz, out_npz), lambda res, proc_s: artifact_check(
+      fused_mlp, name, model, config, rays, plain, kern, paths, served,
+      off_served, want_launches, export_s, size, load_here_s, out_npz, res,
+      proc_s)
+
+
+def artifact_check(fused_mlp, name, model, config, rays, plain, kern, paths,
+                   served, off_served, want_launches, export_s, size,
+                   load_here_s, out_npz, res, proc_s):
+  """Phase 21 for one model, after the fresh process served its rays
+  (`artifact_case`'s finish)."""
+  from refnerf_tpu_torch import serving
+  from refnerf_tpu_torch.models import renderer
+  cdt = model.nerf_mlp.cfg.compute_dtype
   loaded = dict(np.load(out_npz))
   check = check_rendering({k: torch.from_numpy(v) for k, v in loaded.items()},
                           (SERVE_CHUNK,), config,
@@ -3852,8 +3865,8 @@ def artifact_case(fused_mlp, dev, root, name):
   vs_plain = max_diffs(loaded, plain, config.far)
   spread = spread_reads(loaded, plain)
   vs_kern = max_diffs(loaded, kern, config.far)
-  log(f'phase 21: {name}: a fresh process ({proc_s:.1f} s) loaded the '
-      f'artifact in {res["load_s"]:.2f} s ({res["load_parts"]}) and served {SERVE_CHUNK} rays in '
+  log(f'phase 21: {name}: a fresh process ({proc_s:.1f} s for every '
+      f'model\'s artifact) loaded the artifact in {res["load_s"]:.2f} s ({res["load_parts"]}) and served {SERVE_CHUNK} rays in '
       f'{res["first_ms"]:.1f} ms, launches {res["launches"]}, modules of '
       f'{FOREIGN} imported: {res["foreign"]}; {check}; vs '
       f"fused_trunk='off': spread_l2 {spread} (bound {bound}), max diff "
@@ -3971,11 +3984,28 @@ def serving_stage(fused_mlp, dev):
   root = tempfile.mkdtemp(prefix='refnerf_serve_')
   path, out = {}, {}
   try:
-    for name in ARTIFACTS:
-      path[name], out[name], served = artifact_case(fused_mlp, dev, root,
-                                                    name)
+    cases = {name: artifact_case(fused_mlp, dev, root, name)
+             for name in ARTIFACTS}
+    # One fresh process loads every model's kernels' artifact and serves
+    # its rays.
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-c', 'import sys, chip_smoke; '
+         'sys.exit(chip_smoke.load_and_serve(*sys.argv[1:]))',
+         *[a for files, _ in cases.values() for a in files]], cwd=repo,
+        capture_output=True, text=True, timeout=600)
+    proc_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+      raise AssertionError(f'phase 21: the serving process failed: '
+                           f'{proc.stderr[-3000:]}')
+    lines = proc.stdout.strip().splitlines()[-len(cases):]
+    for (name, (_, finish)), line in zip(cases.items(), lines):
+      path[name], out[name], served = finish(json.loads(line), proc_s)
       if name == 'flagship':
         out['http_ms'] = http_check(*served)
+      del served
+    del cases
   finally:
     shutil.rmtree(root, ignore_errors=True)
   out['bench_render'] = bench_render.main(['--frames', '3',
@@ -4052,6 +4082,31 @@ def torchrun(nproc, args, what, timeout=DP_TIMEOUT):
   return out, time.perf_counter() - t0
 
 
+def cli_one_rank(argv):
+  """The train CLI with `argv` in this process as one rank of a world of
+  one (the environment torchrun gives a rank: RANK, LOCAL_RANK,
+  WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), its standard
+  output captured. Returns (the output, seconds)."""
+  import io
+  from refnerf_tpu_torch.cli import train as train_cli
+  env = dict(RANK='0', LOCAL_RANK='0', WORLD_SIZE='1', LOCAL_WORLD_SIZE='1',
+             MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()))
+  saved = {k: os.environ.get(k) for k in env}
+  os.environ.update(env)
+  out = io.StringIO()
+  t0 = time.perf_counter()
+  try:
+    with contextlib.redirect_stdout(out):
+      train_cli.main(argv)
+  finally:
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+  return out.getvalue(), time.perf_counter() - t0
+
+
 def _flat_rel(got, want):
   """|got - want|_2 / |want|_2 over every tensor of two dicts."""
   num = sum(float(((got[k].double() - w.double())**2).sum())
@@ -4092,9 +4147,11 @@ def _same_params(a, b, steps):
 
 def data_parallel_stage(fused_mlp, dev):
   """Phase 22: the flagship trained on two ranks sharing the card (gloo),
-  against one process; three planted faults; the train CLI under torchrun
-  (a kill and a resume, bit for bit against NeRFSystem's uninterrupted
-  two-rank run; a test view split across the ranks); the CLI with NCCL.
+  against one process; three planted faults; the train CLI in the same
+  ranks (a kill and a resume, bit for bit against NeRFSystem's
+  uninterrupted two-rank run; a test view split across the ranks): one
+  torchrun launch for all of them; the CLI with NCCL at one rank in this
+  process.
   Returns (a rank's launches in the flagship's DP_STEPS steps, a summary)."""
   import tempfile
   from refnerf_tpu_torch.testing import data_parallel as dp
@@ -4145,6 +4202,16 @@ def data_parallel_stage(fused_mlp, dev):
         f"Config.data_dir = '{blender}'", 'Config.checkpoint_every = 2',
         'Config.print_every = 1', 'Config.val_sample_num = 0']
     exp = os.path.join(root, 'exp')
+    # The train CLI on the same gin, in the same ranks (after the runs
+    # above: it joins and leaves the group itself), killed at DP_CLI_KILL,
+    # then resumed; its last checkpoint must be NeRFSystem's uninterrupted
+    # run's, bit for bit.
+    cli = [f'--gin_configs={gin(FLAGSHIP)}',
+           *[f'--gin_bindings={b}' for b in system_bindings + [
+               f"Config.checkpoint_dir = '{exp}'",
+               "Config.exp_name = 'dp_cli'",
+               f'Config.max_steps = {DP_CLI_STEPS}']],
+           f'--device={DP_DEVICE}', f'--dist_backend={DP_BACKEND}']
     runs = [
         dict(flag, name='flagship', steps=DP_STEPS),
         dict(flag, name='skip_reduce', steps=1, fault='skip_reduce'),
@@ -4153,7 +4220,10 @@ def data_parallel_stage(fused_mlp, dev):
         dict(geo, name='ratio_mean', fault='ratio_mean'),
         dict(kind='system', name='system', gin=gin(FLAGSHIP),
              bindings=system_bindings, exp=exp, steps=DP_CLI_STEPS,
-             out=out_dir)]
+             out=out_dir),
+        dict(kind='cli', name='killed', argv=cli + [
+            f'--gin_bindings=Config.early_exit_steps = {DP_CLI_KILL}']),
+        dict(kind='cli', name='resumed', argv=cli)]
     spec = os.path.join(root, 'spec.json')
     with open(spec, 'w') as f:
       json.dump(dict(device=DP_DEVICE, backend=DP_BACKEND, runs=runs), f)
@@ -4167,6 +4237,10 @@ def data_parallel_stage(fused_mlp, dev):
       if f'rank {r}: {len(runs)} runs done' not in text:
         raise AssertionError(f'phase 22: rank {r} did not finish:\n'
                              f'{text[-4000:]}')
+    # Rank 0's output of each CLI run (the CLI prints on rank 0 alone).
+    cli_text = lambda name: text.split(f'rank 0: cli {name} begins')[1].split(
+        f'rank 0: cli {name} ends')[0]
+    killed, resumed = cli_text('killed'), cli_text('resumed')
     rec = lambda name, r: torch.load(os.path.join(out_dir,
                                                   f'{name}.rank{r}.pt'),
                                      weights_only=False)
@@ -4241,21 +4315,7 @@ def data_parallel_stage(fused_mlp, dev):
         raise AssertionError(f'phase 22: rank {r}: step {sysrec["step"]}, '
                              f'split view equal {sysrec["render_equal"]} '
                              f'{sysrec["render_max_diff"]}')
-    # The train CLI through torchrun on the same gin: killed at
-    # DP_CLI_KILL, resumed; its last checkpoint is NeRFSystem's
-    # uninterrupted run's, bit for bit.
-    cli = ['-m', 'refnerf_tpu_torch.cli.train', f'--gin_configs={gin(FLAGSHIP)}',
-           *[f'--gin_bindings={b}' for b in system_bindings + [
-               f"Config.checkpoint_dir = '{exp}'",
-               "Config.exp_name = 'dp_cli'",
-               f'Config.max_steps = {DP_CLI_STEPS}']]]
-    killed, res['cli_killed_s'] = torchrun(DP_RANKS, cli + [
-        f'--device={DP_DEVICE}', f'--dist_backend={DP_BACKEND}',
-        f'--gin_bindings=Config.early_exit_steps = {DP_CLI_KILL}'],
-        'phase 22 train CLI (killed)')
-    resumed, res['cli_resumed_s'] = torchrun(DP_RANKS, cli + [
-        f'--device={DP_DEVICE}', f'--dist_backend={DP_BACKEND}'],
-        'phase 22 train CLI (resumed)')
+    # The train CLI's two runs (killed, resumed) in the ranks above.
     if (f'Resumed from step {DP_CLI_KILL}' not in resumed or
         resumed.count('Training with') != 1):
       raise AssertionError(f'phase 22: the CLI did not resume once:\n'
@@ -4275,23 +4335,23 @@ def data_parallel_stage(fused_mlp, dev):
       raise AssertionError('phase 22: the CLI killed and resumed differs '
                            "from NeRFSystem's uninterrupted two-rank run")
     log(f'phase 22: train CLI on {DP_RANKS} ranks ({DP_BACKEND}, '
-        f'{DP_DEVICE}), {FLAGSHIP} bf16 six flags at batch {TRAIN_BATCH} '
+        f'{DP_DEVICE}; in the ranks of the launch above, {res["ranks_s"]:.1f} '
+        f's with every run), {FLAGSHIP} bf16 six flags at batch {TRAIN_BATCH} '
         f'from a {CASCADE_TRAIN} + {CASCADE_TEST} view scene at '
-        f'{CASCADE_RES} x {CASCADE_RES}: killed at step {DP_CLI_KILL} '
-        f'({res["cli_killed_s"]:.1f} s), resumed to {DP_CLI_STEPS} '
-        f'({res["cli_resumed_s"]:.1f} s); its checkpoint equals NeRFSystem\'s '
+        f'{CASCADE_RES} x {CASCADE_RES}: killed at step {DP_CLI_KILL}, '
+        f'resumed to {DP_CLI_STEPS}; its checkpoint equals NeRFSystem\'s '
         f'uninterrupted two-rank run; test view 0 split across the ranks '
         f'equals one rank\'s render bit for bit')
 
-    # (3) NCCL: at one rank here; at two only with a card a rank.
+    # (3) NCCL: at one rank here, the CLI in this process with the
+    # environment torchrun gives a rank; at two only with a card a rank.
     nccl = lambda name: [
         '-m', 'refnerf_tpu_torch.cli.train', f'--gin_configs={gin(FLAGSHIP)}',
         *[f'--gin_bindings={b}' for b in system_bindings + [
             f"Config.checkpoint_dir = '{exp}'", 'Config.max_steps = 2',
             f"Config.exp_name = '{name}'"]],
         '--device=cuda', '--dist_backend=nccl']
-    text, res['nccl_1_s'] = torchrun(1, nccl('dp_nccl'),
-                                     'phase 22 NCCL at one rank')
+    text, res['nccl_1_s'] = cli_one_rank(nccl('dp_nccl')[2:])
     if 'step 2/2' not in text:
       raise AssertionError(f'phase 22: NCCL at one rank:\n{text[-3000:]}')
     cards = torch.cuda.device_count()
@@ -5033,7 +5093,80 @@ def defaults_faults(fused_mlp, cdt, cs, ws, bs, kw, fold, cots):
   return reads
 
 
-def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True):
+def in_turns_ms(arms, iters=2):
+  """Device ms a call of each of `arms` ({name: fn}), by cuda_ms in turns:
+  a, b, ..., b, a. Returns {name: ms}."""
+  names = list(arms)
+  out = {a: [] for a in names}
+  with torch.no_grad():
+    for a in names + names[::-1]:
+      out[a].append(cuda_ms(arms[a], iters))
+  return {a: sum(v) / len(v) for a, v in out.items()}
+
+
+def patched(module, attr, value, fn):
+  """fn with module.attr set to value for the call."""
+  def run():
+    orig = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+      return fn()
+    finally:
+      setattr(module, attr, orig)
+  return run
+
+
+def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
+  """Phase 25 (a): the two redesigned instances (REDESIGNED) in turns with the
+  designs they replaced, in this process: f32 K3 wide hc256 on
+  trunk_wide_tf32.cu (the route) and the parent's trunk_fwd_f32.cu instance
+  (`fwd_f32_wide<256, true>`, the route forced); bf16 K4 wide hc256 ubar
+  with the tangent read back at the skip layer and the parent's, which
+  made it again (trunk_bwd_tma.cu built with REFNERF_TS_REBUILD: `was_bwd`,
+  a future of cuda_build.variant), which must agree bit for bit. Returns
+  {arm: ms}."""
+  from refnerf_tpu_torch.ops import cuda_build
+  if which == 'K3 wide hc256':
+    arms = {'ms': kernel,
+            'was_ms': patched(fused_mlp, 'forward_library',
+                              lambda *a, **k: 'trunk_fwd_f32', kernel)}
+  else:
+    variant, normal = was_bwd.result(), cuda_build.library
+    arms = {'ms': kernel,
+            'was_ms': patched(cuda_build, 'library', lambda name: variant
+                              if name == 'trunk_bwd_tma' else normal(name),
+                              kernel)}
+    with torch.no_grad():  # the same arithmetic: bit for bit
+      a, b = flatten(arms['ms']()), flatten(arms['was_ms']())
+      torch.cuda.synchronize()
+      if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f'phase 25: {which} {cdt}: the tangent read '
+                             'back differs from the one made again')
+      del a, b
+  ms = in_turns_ms(arms)
+  log(f'phase 25: {which} {cdt} in turns with the design it replaced '
+      f'[{CARD}]: ' + ', '.join(f'{k} {v:.3f}' for k, v in ms.items()))
+  return ms
+
+
+# The defaults' two instances redesigned last, each timed in turns with the
+# design it replaced.
+REDESIGNED = (('K3 wide hc256', 'float32'), ('K4 wide hc256 ubar', 'bfloat16'))
+
+
+def check_redesigned(fused_mlp, dev):
+  """Phase 25's REDESIGNED rows alone (`check_defaults_kernels` with
+  `only`), the bf16 backward's REFNERF_TS_REBUILD build made here: for
+  tools/ab_trees.py --checks check_redesigned."""
+  from refnerf_tpu_torch.ops import cuda_build
+  was_bwd = concurrent.futures.ThreadPoolExecutor(1).submit(
+      cuda_build.variant, 'trunk_bwd_tma', 'REFNERF_TS_REBUILD')
+  return check_defaults_kernels(fused_mlp, dev, faults=False, was_bwd=was_bwd,
+                                only=REDESIGNED)
+
+
+def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True,
+                           was_bwd=None, only=None):
   """Phase 25 (a): the defaults' spatial trunk against its plain versions
   at each of `ns` rows, bf16 and f32, on the wide-input instances (the
   routes asserted): with the 256-wide head K1 (sigma and the head by
@@ -5043,12 +5176,17 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True):
   n against its bound and, without the density gradient, the PyTorch chain
   (`w1024_chain`); the bf16 128-wide head's pair also on the design it ran
   on before, trunk_fwd.cu and trunk_bwd.cu, the routes forced ('was_ms');
-  the planted faults of the chunked contract (`defaults_faults`). Returns
-  ({(name, cdt): compare()'s dict at max(ns)}, {cdt: fault reads})."""
+  the planted faults of the chunked contract (`defaults_faults`); the two
+  instances of REDESIGNED in turns with the parent's (`redesigned_in_turns`;
+  was_bwd: the future of the bf16 backward's REFNERF_TS_REBUILD build). f32
+  K3 with the 256-wide head runs on trunk_wide_tf32.cu, its bound three TF32
+  products' (the FMA pipes' beside it). `only`: the (name, cdt) rows to run,
+  all by default. Returns ({(name, cdt): compare()'s dict at max(ns)}, {cdt:
+  fault reads})."""
   gen = torch.Generator().manual_seed(SEED + 25)
   results, fault_reads = {}, {}
   n_max = max(ns)
-  for hc in (256, 128):
+  for hc in (256,) if only else (256, 128):
     segs, ws, bs, kw, fold, cots = defaults_case(fused_mlp, gen, dev, n_max,
                                                  hc)
     sbar, cbar, ubar = cots
@@ -5057,8 +5195,10 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True):
       dt = fused_mlp.DTYPES[cdt]
       cs = [s.to(dt) for s in segs]
       pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
-      want = (fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt])
+      tf32 = cdt == 'float32' and hc == 256
       for f in (None, fold):
+        want = (fused_mlp.WIDE_TF32_LIBRARY if tf32 and f is not None else
+                fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt])
         got = (fused_mlp.forward_library(pack, fold=f),
                fused_mlp.backward_library(pack, fold=f))
         if (got != want or not fused_mlp.wide_input(pack, fold=f) or
@@ -5099,13 +5239,20 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True):
                ins + [c2[0], c2[2], c2[3], fold],
                flops(n, backward=True, density_grad=True), None))
         for which, nv, kernel, plain, inputs, fl, lib in rows:
+          if only is not None and (which, cdt) not in only:
+            continue
           r = compare(which, cdt, kernel, plain, n_values=nv, iters=2,
                       phase=25, inputs=inputs, flops=fl, n=n,
                       library=lib() if lib is not None and n == n_max
-                      else None)
+                      else None,
+                      tf32_passes=3 if tf32 and which.startswith('K3')
+                      else 0)
           deterministic(which, kernel, phase=25, cdt=cdt)
           if n == n_max:
             results[which, cdt] = r
+            if (which, cdt) in REDESIGNED:
+              r['in_turns'] = redesigned_in_turns(fused_mlp, which, cdt,
+                                                  kernel, was_bwd)
             if hc == 128 and cdt == 'bfloat16':
               # The design the bf16 128-wide head ran on before (trunk_fwd.cu,
               # trunk_bwd.cu: kin past the TMA instances), the routes forced.
@@ -5344,15 +5491,18 @@ def defaults_stage(fused_mlp, dev, steps=DEFAULTS_STEPS):
   """Phase 25 (b)-(c): the defaults at full width in bf16 and in f32 under
   'on' (raising on any trunk without an instance): `steps` steps at batch
   16,384 (`defaults_train`, the routes asserted: the spatial trunks on the
-  wide-input pair, the directional ones on trunk_dir1.cu), one step against
-  'off' (`defaults_against_plain`), a step profiled, a 4096-ray request
-  (`defaults_request`); DEFAULTS_NORMALS likewise trained (the orientation
-  term in the loss); DEFAULTS_VARIANTS (`variant_run`). Returns ({dtype:
+  wide-input pair, f32 K3 on trunk_wide_tf32.cu, the directional ones on
+  trunk_dir1.cu), one step against 'off' (`defaults_against_plain`), a step
+  profiled, a 4096-ray request (`defaults_request`); DEFAULTS_NORMALS
+  likewise trained (the orientation term in the loss) and against 'off';
+  DEFAULTS_VARIANTS (`variant_run`). Returns ({dtype:
   launches}, {dtype: {variant: launches}}, summary)."""
   from refnerf_tpu_torch.testing.mlp_defaults import DEFAULTS_NORMALS
   out, paths, variants = {}, {}, {}
   for dtype in ('bfloat16', 'float32'):
-    wide = {fused_mlp.FWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
+    # Training runs K3: on trunk_wide_tf32.cu in f32.
+    wide = {fused_mlp.WIDE_TF32_LIBRARY if dtype == 'float32' else
+            fused_mlp.FWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
     bwide = {fused_mlp.BWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
     res = {}
     for name, bindings, terms in (
@@ -5374,9 +5524,9 @@ def defaults_stage(fused_mlp, dev, steps=DEFAULTS_STEPS):
         raise AssertionError(f'phase 25: {what} routed to {seen}')
       r = dict(step_ms=ms, rays_s=DEFAULTS_BATCH / ms * 1e3, peak_gib=peak,
                loss=last['loss'].item(), launches=launches)
+      r['vs_plain'] = defaults_against_plain(fused_mlp, run, what)
       if name == 'DEFAULTS':
         paths[dtype] = launches
-        r['vs_plain'] = defaults_against_plain(fused_mlp, run, what)
         box = {'state': run['state']}
 
         def step():
@@ -5431,6 +5581,10 @@ def main():
     return out
 
   t0 = time.perf_counter()
+  # The bf16 backward as the parent built it (the skip layer's tangent made
+  # again: REFNERF_TS_REBUILD), for phase 25's turns; nvcc beside the rest.
+  was_bwd = concurrent.futures.ThreadPoolExecutor(1).submit(
+      cuda_build.variant, 'trunk_bwd_tma', 'REFNERF_TS_REBUILD')
   libs = cuda_build.build()
   for name in libs:
     cuda_build.library(name)
@@ -5443,14 +5597,19 @@ def main():
         log(f'phase 2: ptxas {line.strip()}')
   sass = sass_of([libs[name] for name in (
       'trunk_fwd_tma', 'trunk_bwd_tma', 'trunk_fwd_f32', 'trunk_bwd_f32',
-      fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY)])
+      fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY,
+      fused_mlp.WIDE_TF32_LIBRARY)])
   check_sass(sass[libs['trunk_fwd_tma']])
   check_sass(sass[libs['trunk_bwd_tma']])
+  # The f32 density gradient's TF32 products on wgmma, fed by TMA.
+  check_wgmma_sass(sass[libs[fused_mlp.WIDE_TF32_LIBRARY]],
+                   r'trunk_fwd_tf32_kernel', 1, 'trunk_wide_tf32')
   for name in ('trunk_fwd_f32', 'trunk_bwd_f32'):
     check_sass(sass[libs[name]], need=('FFMA', 'UTMALDG'),
                refuse=('HMMA', 'HGMMA'))
   check_w1024_sass(sass[libs[fused_mlp.W1024_LIBRARY]])
-  check_dir1_sass(sass[libs[fused_mlp.DIR1_LIBRARY]])
+  check_wgmma_sass(sass[libs[fused_mlp.DIR1_LIBRARY]],
+                   r'dir1_(bf16|f32)_kernel', 4, 'trunk_dir1')
   secs[2] = time.perf_counter() - t0
 
   kernels = phase(3, check_kernels, fused_mlp, dev)
@@ -5485,7 +5644,8 @@ def main():
   kernels.update(w1024)
   m360_path, m360 = phase(24, m360_stage, fused_mlp, dev)
   defaults_k, defaults_faults_read = phase(25, check_defaults_kernels,
-                                           fused_mlp, dev)
+                                           fused_mlp, dev, (N_SAMPLES,), True,
+                                           was_bwd)
   kernels.update(defaults_k)
   defaults_path, variant_path, defaults = phase(25, defaults_stage, fused_mlp,
                                                 dev)
@@ -5498,6 +5658,8 @@ def main():
   # f32 at width 256: the FMA/TMA forward and backward.
   f32fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd_f32.cu'
   f32_src = 'refnerf_tpu_torch/csrc/trunk_bwd_f32.cu'
+  # f32 K3 of the defaults' trunk: three TF32 passes of wgmma.
+  tf32_src = 'refnerf_tpu_torch/csrc/trunk_wide_tf32.cu'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
   # name: (description, source, line of the TPU kernel, launches on the
   # main path: phase 4's requests, phase 6's steps, or both of phase 8 or
@@ -5738,13 +5900,14 @@ def main():
        '256-wide bottleneck (the defaults)', 612, 'K1 wide', False, True,
        ('DEFAULTS_FIRST',)),
       ('K3 wide hc256', 'the same with the density gradient, u folded chunk '
-       'by chunk', 589, 'K3 wide', True, False, ()),
+       'by chunk (f32: three TF32 passes of wgmma)', 589, 'K3 wide', True,
+       False, ()),
       ('K4 wide hc256 1st', 'spatial trunk first-order backward on 504 input '
        'columns with the 256-wide bottleneck', 668, 'K4 wide', False, False,
        ('DEFAULTS_FIRST',)),
       ('K4 wide hc256 ubar', 'the same with the cotangent of u (the '
-       'second-order pass, the tangent chunk by chunk)', 668, 'K4 wide', True,
-       False, ()),
+       'second-order pass, the tangent made chunk by chunk at layer 0 and '
+       'read back at the skip layer)', 668, 'K4 wide', True, False, ()),
       ('K1 wide hc128', 'spatial trunk forward on 504 input columns with a '
        '128-wide head', 612, 'K1 wide', False, False, ('DEFAULTS_HC128',)),
       ('K4 wide hc128 1st', 'spatial trunk first-order backward on 504 input '
@@ -5757,7 +5920,7 @@ def main():
     if not count['bfloat16'] > 0:
       raise AssertionError(f'phase 25: {which} was launched no time')
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')
-    line.append({
+    entry = {
         'name': f'{which} {desc}', 'route': 'cuda',
         'source': ftma_src if fwd else tma_src,
         'replaces': f'{pallas}:{at}', 'launches': count['bfloat16'],
@@ -5767,7 +5930,26 @@ def main():
         'dtype': 'bfloat16', 'n_samples': N_SAMPLES,
         'f32_source': f32fwd_src if fwd else f32_src,
         **{'f32_' + k: f32[k] for k in keys},
-        'f32_launches': count['float32']})
+        'f32_launches': count['float32']}
+    # The two redesigned instances, in turns with the designs they replaced.
+    if which == 'K3 wide hc256':
+      entry.update(f32_source=tf32_src, f32_was_source=f32fwd_src,
+                   f32_fma_bound_ms=f32['fma_bound_ms'],
+                   f32_route='three TF32 passes on wgmma',
+                   f32_in_turns=f32['in_turns'])
+    if which == 'K4 wide hc256 ubar':
+      entry.update(was_source=f'{tma_src} (REFNERF_TS_REBUILD)',
+                   in_turns=b16['in_turns'])
+    line.append(entry)
+    if which == 'K3 wide hc256':
+      # The f32 instance's library of its own, as an entry of its own.
+      line.append({
+          'name': f'{which} f32 {desc}', 'route': 'cuda', 'source': tf32_src,
+          'replaces': f'{pallas}:{at}', 'launches': count['float32'],
+          **{k: f32[k] for k in keys}, 'bound_by': f32['bound_by'],
+          'fma_bound_ms': f32['fma_bound_ms'], 'dtype': 'float32',
+          'n_samples': N_SAMPLES, 'was_source': f32fwd_src,
+          'in_turns': f32['in_turns']})
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '
       f'stage): {dir_step_s * 1e3:.2f} ms, {TRAIN_BATCH / dir_step_s:.0f} '

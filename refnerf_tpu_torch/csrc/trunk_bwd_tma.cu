@@ -82,9 +82,27 @@ namespace {
 
 constexpr int kStages = 4;
 constexpr int kWideChunk = 128;  // input columns of a chunk of the wide-input instance
-// The ring's stages of the wide-input instance: 3 with the cotangent of u,
-// whose fold then lies in shared memory.
+// The wide-input instance with the cotangent of u and the 256-wide head
+// (the JAX package's default MLP) reads the skip layer's tangent back from
+// the scratch that layer 0 stored it to, and reads its staged fold S four
+// basis vectors a load (rows padded to a multiple of 4); the other heads
+// with the cotangent of u make the tangent again at the skip layer. Both
+// stage S in shared memory beside a 3-stage ring. Built with
+// REFNERF_TS_REBUILD, the 256-wide head does as the others: the design it
+// replaced, which chip_smoke.py times beside it.
+#ifdef REFNERF_TS_REBUILD
+constexpr bool kTsRebuild = true;
+#else
+constexpr bool kTsRebuild = false;
+#endif
+__host__ __device__ constexpr bool read_back(int hc, bool dg) {
+  return dg && hc == 256 && !kTsRebuild;
+}
 __host__ __device__ constexpr int wide_stages(bool dg) { return dg ? 3 : kStages; }
+// The staged fold's row length: padded to a multiple of 4 where read back.
+__host__ __device__ constexpr int fold_row(int hc, bool dg, int nb) {
+  return read_back(hc, dg) ? (nb + 3) & ~3 : nb;
+}
 
 struct TmaMaps {
   CUtensorMap w[kMaxDepth];   // layer l of `w`: [W][K_l], box 64 x 256
@@ -281,8 +299,11 @@ __device__ void load_input_rows(unsigned char* inb, int in_b, const bf16* x0, in
 // c) read from device memory, a column pair a load (d0 even), all of a
 // thread's in flight at once (cw at most kWideChunk). A warp's lanes take
 // 32 rows of one 8-column group: their reads of S are one address, those
-// of ubar 32 banks, and a lane's 8 sums are independent. Zeros past the
-// segments and past `rows`.
+// of ubar 32 banks, and a lane's 8 sums are independent. PAD: S's rows
+// padded with zeros to a multiple of 4 (nbp), read 4 basis vectors a load
+// (the same sums in the same order). Zeros past the segments and past
+// `rows`.
+template <bool PAD>
 __device__ void ts_chunk(unsigned char* buf, const BwdParams& p, const float* ub, const float* fs,
                          int c0, int cw, int row0, int rows) {
   constexpr int kIt = kRows * (kWideChunk / 8) / kCons;  // a thread's groups of a full chunk
@@ -311,17 +332,31 @@ __device__ void ts_chunk(unsigned char* buf, const BwdParams& p, const float* ub
     if (i >= kRows * q8) continue;
     uint32_t w[4] = {0u, 0u, 0u, 0u};
     if (r < rows) {
+      const int nbp = PAD ? (nb + 3) & ~3 : nb;
       const float* fr[8];  // each column's row of S (past the segments any row)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int k = c0 + c + e;
-        fr[e] = fs + (k < F ? k : min(k - F, F - 1)) * nb;
+        fr[e] = fs + (k < F ? k : min(k - F, F - 1)) * nbp;
       }
       float tp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int j = 0; j < nb; ++j) {
-        const float u = ub[r * nb + j];
+      if constexpr (PAD) {
+        for (int j = 0; j < nbp; j += 4) {
+          float u[4];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) tp[e] = fmaf(u, fr[e][j], tp[e]);
+          for (int t = 0; t < 4; ++t) u[t] = j + t < nb ? ub[r * nb + j + t] : 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float4 f = *reinterpret_cast<const float4*>(fr[e] + j);
+            tp[e] = fmaf(u[3], f.w, fmaf(u[2], f.z, fmaf(u[1], f.y, fmaf(u[0], f.x, tp[e]))));
+          }
+        }
+      } else {
+        for (int j = 0; j < nb; ++j) {
+          const float u = ub[r * nb + j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) tp[e] = fmaf(u, fr[e][j], tp[e]);
+        }
       }
 #pragma unroll
       for (int e = 0; e < 8; e += 2) {
@@ -368,11 +403,13 @@ __device__ void ts_chunk(unsigned char* buf, const BwdParams& p, const float* ub
 // cdt(-(tp xs))), tp = ubar S^T, is made chunk by chunk in the chunks'
 // slots (`ts_chunk`, the partner segment's values read from device memory;
 // at layer 0 each chunk also leaves to the ts scratch) and made again at the
-// skip layer.
+// skip layer, or, with the 256-wide head (`read_back`), read back from that
+// scratch by TMA (two more mbarriers).
 template <int HC, bool DG>
 __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
                                          unsigned char* smem) {
   constexpr int W = kW, ChB = (kWideChunk / 64) * kBlk;  // a chunk's bytes
+  constexpr bool RB = read_back(HC, DG);  // the skip layer's tangent read back
   constexpr int NS = wide_stages(DG);
   const int kp = (p.kin + kBK - 1) / kBK * kBK, nc = (kp + kWideChunk - 1) / kWideChunk;
   unsigned char* ring = smem;                       // NS x [256][64]
@@ -383,9 +420,10 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
   float* sb = red + 4 * kCons;                                     // [kRows]
   float* hb = sb + kRows;                                          // [kRows][hf]
   float* ub = hb + kRows * p.hf;                                   // DG: [kRows][nb]
-  float* fs = ub + (DG ? kRows * p.nb : 0);                        // DG: the fold [d0][nb]
+  const int nbp = fold_row(HC, DG, p.nb);
+  float* fs = ub + (DG ? kRows * p.nb : 0);  // DG: the fold [d0][nbp]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(fs + (DG ? p.d0 * p.nb : 0)) + 7) &
+      (reinterpret_cast<uintptr_t>(fs + (DG ? p.d0 * nbp : 0)) + 7) &
       ~static_cast<uintptr_t>(7));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   Ring ring_st{smem_u32(ring), smem_u32(bars), smem_u32(bars + NS), NS, 0, 0u};
@@ -395,6 +433,8 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
       mbar_init(ring_st.full + 8 * s, 1);
       mbar_init(ring_st.empty + 8 * s, kCons / 32);
     }
+    if (RB)
+      for (int s = 0; s < 2; ++s) mbar_init(smem_u32(bars + 2 * NS + s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -499,7 +539,14 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
   if constexpr (DG) {
     for (int i = tid; i < kRows * p.nb; i += kCons)
       ub[i] = i / p.nb < rows ? p.ubar[static_cast<size_t>(row0) * p.nb + i] : 0.f;
-    for (int i = tid; i < p.d0 * p.nb; i += kCons) fs[i] = __ldg(p.fold + i);
+    if constexpr (RB) {
+      for (int i = tid; i < p.d0 * nbp; i += kCons) {
+        const int c = i / nbp, j = i - c * nbp;
+        fs[i] = j < p.nb ? __ldg(p.fold + c * p.nb + j) : 0.f;
+      }
+    } else {
+      for (int i = tid; i < p.d0 * p.nb; i += kCons) fs[i] = __ldg(p.fold + i);
+    }
   }
   PHASE_MARK(0, kScal);
 
@@ -716,14 +763,14 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
   // 7. DG: the tangent chain, as the body's step 7: p_l = relu'(h_l)
   // cdt([p_{l-1} | ts] W_l), to the scratch but the last, whose column sums
   // add to dwd; ts made chunk by chunk in the slots of the recompute's
-  // chunks (at layer 0 also to the ts scratch), then again at the skip
-  // layer.
+  // chunks at layer 0 (each chunk also to the ts scratch), and at the skip
+  // layer made again, or (RB) read back from the scratch.
   if constexpr (DG) {
     auto ts_share = [&](int l, int S) {
       for (int c = 0; c < nc; ++c) {
         settle();  // the slot's last products and stores have read it
         const int cw = min(kWideChunk, kp - c * kWideChunk);
-        ts_chunk(slot(c % S), p, ub, fs, c * kWideChunk, cw, row0, rows);
+        ts_chunk<RB>(slot(c % S), p, ub, fs, c * kWideChunk, cw, row0, rows);
         publish();
         PHASE_MARK(6, kScal);
         const uint32_t a = smem_u32(slot(c % S));
@@ -737,10 +784,44 @@ __device__ __forceinline__ void bwd_wide(const BwdParams& p, const TmaMaps& m,
         PHASE_MARK(6, kProd);
       }
     };
+    // RB: the skip layer's ts, back from the scratch that layer 0's chunks
+    // went to (TMA, hot in L2): chunk c into slot c % 2 on mbarrier c % 2,
+    // the next chunk in flight during a chunk's products.
+    const uint32_t tsb = smem_u32(bars + 2 * NS);
+    auto ts_load = [&](int c) {  // thread 0
+      const int nbx = min(kWideChunk, kp - c * kWideChunk) / 64;
+      const uint32_t bar = tsb + 8 * (c & 1), dst = smem_u32(slot(c & 1));
+      mbar_expect_tx(bar, nbx * kBlk);
+      for (int k = 0; k < nbx; ++k)
+        tma_load(dst + k * kBlk, &m.ts, bar, c * kWideChunk + 64 * k, row0);
+    };
+    auto ts_back = [&]() {
+      if (tid == 0) {
+        bulk_wait();  // layer 0's stores of ts are written
+        for (int c = 0; c < min(nc, 2); ++c) ts_load(c);
+      }
+      for (int c = 0; c < nc; ++c) {
+        mbar_wait(tsb + 8 * (c & 1), (c >> 1) & 1);
+        PHASE_MARK(6, kScal);
+        const uint32_t a = smem_u32(slot(c & 1));
+        product<W>(acc, a, kWideChunk / 64, a, min(kWideChunk, p.kin - c * kWideChunk), ring_st,
+                   1);
+        PHASE_MARK(6, kProd);
+        if (c + 2 < nc) {
+          cons_sync();  // every consumer's products have read the slot
+          if (tid == 0) ts_load(c + 2);
+        }
+      }
+    };
     for (int l = 0; l < p.depth; ++l) {
       if (l == 0 || l == p.skip) {
         if (l > 0) product<W>(acc, act_s, W / 64, act_s, W, ring_st);  // [p | ts]: p first
-        ts_share(l, l > 0 ? 2 : 4);
+        if (RB && l > 0) {
+          settle();  // slots 0 and 1: their last products and stores have read them
+          ts_back();
+        } else {
+          ts_share(l, l > 0 ? 2 : 4);
+        }
       } else {
         product<W>(acc, act_s, W / 64, act_s, W, ring_st);
         PHASE_MARK(6, kProd);
@@ -1406,15 +1487,16 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // Shared memory of a launch; fused_mlp.py `kernel_smem` mirrors the
 // wide-input instance's sum (WIDE: two chunks in the input tile's place;
 // DG: a 3-stage ring and the fold).
-template <int W, bool WIDE = false, bool DG = false>
+template <int HC, int W, bool WIDE = false, bool DG = false>
 size_t tma_smem(const BwdParams& p) {
   const int kp = WIDE ? 2 * kWideChunk : (p.kin + kBK - 1) / kBK * kBK;
   constexpr int ns = WIDE ? wide_stages(DG) : kStages;
+  constexpr bool rb = WIDE && read_back(HC, DG);
   return 1024 + static_cast<size_t>(ns) * kSliceW<W> +
-         (DG ? 4 * static_cast<size_t>(p.d0) * p.nb : 0) +
+         (DG ? 4 * static_cast<size_t>(p.d0) * fold_row(HC, DG, p.nb) : 0) +
          kTiles<W> * (W / 64 + kp / 64) * kBlk + 8 * static_cast<size_t>(p.depth) * kCons +
          4 * 4 * kCons + 4 * static_cast<size_t>(kRows * kTiles<W>) * (1 + p.hf + p.nb) + 8 +
-         16 * ns;
+         16 * ns + (rb ? 16 : 0);
 }
 
 template <int HC, bool DIR, bool SPA, bool YO, int W = kW, bool WIDE = false, bool DG = false>
@@ -1454,7 +1536,7 @@ int launch_tma(const BwdParams& p, int hc, cudaStream_t stream) {
          make_map(&m.ps, p.ps, kW, rows, kW, kRows) &&
          make_map(&m.ts, p.ts, p.kin, p.rp, p.kin, kRows);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tma_smem<W, WIDE, DG>(p);
+  const size_t smem = tma_smem<HC, W, WIDE, DG>(p);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaFuncSetAttribute(trunk_bwd_tma_kernel<HC, DIR, SPA, YO, W, WIDE, DG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

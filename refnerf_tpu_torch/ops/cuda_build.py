@@ -126,6 +126,16 @@ EXPORTS = {
         'refnerf_dir1_parts': [_I, _I],
         'refnerf_dir1_split': [_I, _I, _P, _P, _P, _I, _P],
     },
+    # The f32 density-gradient forward (K3) of the wide-input spatial trunk
+    # on three TF32 passes of wgmma: a panel tensor split into its TF32
+    # parts (n, idx, w, nw, wc, hi, lo, stream) and the forward (n, d,
+    # depth, skip, nb, x0, x1, bh, bl, np, fh, fl, b, wd, bc, sig, cout, u,
+    # stream).
+    'trunk_wide_tf32': {
+        'refnerf_wide_tf32_split': [_I, _P, _P, _I, _P, _P, _P, _P],
+        'refnerf_wide_tf32_k3': [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                                 _P, _P, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 
@@ -199,6 +209,30 @@ def library(name: str) -> ctypes.CDLL:
   """The loaded library of `csrc/<name>.cu`, built (with the others) on
   first call."""
   lib = ctypes.CDLL(str(build()[name]))
+  for fn, argtypes in EXPORTS[name].items():
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
+  return lib
+
+
+def variant(name: str, define: str) -> ctypes.CDLL:
+  """csrc/<name>.cu built a second time with -D<define> into a library of
+  its own beside the others (`librefnerf_<name>_<define>_<hash>.so`), its
+  ctypes signatures set. No wrapper loads one: the phase stamps of
+  tools/bwd_phases.py (REFNERF_PHASES) and the designs a redesign replaced,
+  which chip_smoke.py times beside it, are built so."""
+  out = library_path(name)
+  out = out.with_name(out.name.replace(f'_{name}_', f'_{name}_{define}_'))
+  if not out.exists():
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, f'-D{define}', '-o', str(tmp),
+           str(CSRC / f'{name}.cu')]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+      raise RuntimeError(f'nvcc failed: {" ".join(cmd)}\n{proc.stderr}')
+    os.replace(tmp, out)
+  lib = ctypes.CDLL(str(out))
   for fn, argtypes in EXPORTS[name].items():
     getattr(lib, fn).argtypes = argtypes
     getattr(lib, fn).restype = ctypes.c_int

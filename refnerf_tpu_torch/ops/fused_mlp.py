@@ -49,7 +49,11 @@ first-order K4; wgmma in bf16, three TF32 passes of wgmma in f32),
 `dir1` (mip-NeRF 360's, on 256 + 27 columns) on `csrc/trunk_dir1.cu` (K2
 and K5 with dx; wgmma fed by TMA and bulk copies, three TF32 passes in
 f32; its weight gradient on trunk_w1024.cu's product), `_dir1_forward` and
-`_dir1_backward`; all run for CUDA tensors unless `mode='off'`. A CPU
+`_dir1_backward`; the f32 K3 of the wide-input spatial trunk with the
+256-wide head (`wide_tf32`, the JAX package's default MLP) on
+`csrc/trunk_wide_tf32.cu` (three TF32 passes of wgmma, the weights laid out
+as panels by `tf32_panel_index`), `_wide_tf32_forward`; all run for CUDA
+tensors unless `mode='off'`. A CPU
 tensor or `mode='off'` takes the plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
 
@@ -142,6 +146,12 @@ _W1024_COLSUM_ROWS = 2048  # rows a CTA of a column sum takes
 DIR1_LIBRARY = 'trunk_dir1'
 DIR1_D0, DIR1_D1, DIR1_HEADS = 256, 29, 3
 DIR1_PARTS = DIR1_HEADS * 128 + DIR1_HEADS
+# The f32 density-gradient forward (K3) of the wide-input spatial trunk with
+# the 256-wide compute-dtype head and no f32 head (`wide_tf32`: the JAX
+# package's default MLP) runs on csrc/trunk_wide_tf32.cu, three TF32 passes
+# of wgmma over its weights laid out as 256 x 256 panels
+# (`tf32_panel_index`).
+WIDE_TF32_LIBRARY = 'trunk_wide_tf32'
 # Shared memory a CTA may use on an H100 (227 KB): a launch that needs more
 # is refused by its C entry (cudaErrorInvalidConfiguration).
 SMEM_LIMIT = 232448
@@ -935,7 +945,7 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   and trunk_bwd_tma.cu only their wide-input instances' sums
   (`fwd_wide_smem`, `tma_smem`; 231,480 B and 210,248 B for the PropMLP's
   trunk of depth 4 on 504 columns; with the density gradient of the MLP's
-  defaults, 8 layers and 21 basis vectors, 222,648 B and 212,200 B): None
+  defaults, 8 layers and 21 basis vectors, 222,648 B and 215,240 B): None
   for their other instances, whose
   largest sums within their shapes (8 layers, 256 input columns, 16 f32
   heads: 228,904 B, K3 with K6 on 1,024-row rays at the 2-stage ring;
@@ -958,6 +968,15 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     if pack.compute_dtype == 'float32':
       return 1024 + 4 * 3 * 128 * 128 + head + 8 * 8
     return 1024 + 5 * 128 * 128 + 3 * (4 * 64 * 128 + 5 * 1024) + head + 8 * 7
+  if lib == WIDE_TF32_LIBRARY:
+    # csrc/trunk_wide_tf32.cu `smem_bytes`: 1 KB to align, two stages of
+    # B's [256][32] f32 hi and lo (64 KB each), the activation tile [64][256]
+    # f32, two [64][32] f32 input slots (then each consumer thread's 16
+    # sums of u), the relu' bits
+    # of all layers but the last, the sigma sums, 4 mbarriers (228,896 B at
+    # depth 8).
+    return (1024 + 2 * 65536 + 4 * _TILE * 256 + 2 * 8192 + 8 * (L - 1) * 256
+            + 4 * 2 * _TILE + 8 * 4)
   if lib == W1024_LIBRARY:
     # Its products' largest CTA (csrc/trunk_w1024.cu): bf16 the nt
     # product's `kNtSmem` (1 KB to align the swizzled tiles, 3 stages of a
@@ -1002,13 +1021,17 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     return need + heads if need + heads <= SMEM_LIMIT else need
   if lib == 'trunk_bwd_tma' and kin > _TMA_KIN:
     # The wide-input instance (`tma_smem`): the 4-stage ring (3 stages and
-    # the fold with the density gradient), the activation tile, two chunks
-    # of _WIDE_CHUNK columns, the relu' masks, the column sums' and the
-    # cotangents' rows (u's with the density gradient).
+    # the fold with the density gradient; at the 256-wide head, whose
+    # tangent is read back, the fold's rows padded to a multiple of 4 and
+    # two more mbarriers), the activation tile, two chunks of _WIDE_CHUNK
+    # columns, the relu' masks, the column sums' and the cotangents' rows
+    # (u's with the density gradient).
+    rb = dg and hc == 256
     stages = 3 if dg else 4
-    return (1024 + stages * 256 * 128 + (4 * pack.seg_dims[0] * nbd if dg else 0)
-            + (4 + 2 * _WIDE_CHUNK // 64) * 8192 + 8 * L * 256 + 4 * 4 * 256 +
-            4 * _TILE * (1 + hf + nbd) + 8 + 16 * stages)
+    nbp = -(-nbd // 4) * 4 if rb else nbd
+    return (1024 + stages * 256 * 128 + 4 * pack.seg_dims[0] * nbp +
+            (4 + 2 * _WIDE_CHUNK // 64) * 8192 + 8 * L * 256 + 4 * 4 * 256 +
+            4 * _TILE * (1 + hf + nbd) + 8 + 16 * stages + (16 if rb else 0))
   if lib in ('trunk_fwd_f32', 'trunk_bwd_f32') and kin > _TMA_KIN:
     # The wide-input instances (`fwd_f32_wide_smem`, `f32_wide_smem`): the
     # activation tile and an input chunk of _CHUNK columns, [.][68] f32; the
@@ -1118,6 +1141,20 @@ def wide_input(pack: TrunkPack, y: bool = False, fold=None,
           dg and not y and not (sp.scales or sp.samples))
 
 
+def wide_tf32(pack: TrunkPack, y: bool = False, fold=None,
+              sp: SpaModes = SpaModes()) -> bool:
+  """Whether the forward of `pack` with the density gradient (`fold`) runs
+  on csrc/trunk_wide_tf32.cu: the f32 spatial trunk of `wide_input` with
+  the 256-wide compute-dtype head and no f32 head, at least 2 layers, on two
+  segments of at most 256 columns each, a multiple of 4 (the JAX package's
+  default MLP, 8 x 256 on 2 x 252 IPE columns)."""
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  return (pack.compute_dtype == 'float32' and fold is not None and
+          pack.wh is None and hc == 256 and pack.depth >= 2 and
+          len(pack.seg_dims) == 2 and pack.seg_dims[0] <= 256 and
+          pack.seg_dims[0] % 4 == 0 and wide_input(pack, y, fold, sp))
+
+
 def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
                     sp: SpaModes = SpaModes()) -> str:
   """The library whose kernel runs the forward of `pack`, decided from its
@@ -1130,7 +1167,8 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   columns the spatial trunk of `wide_input` on the same two (their
   wide-input instances, a 256-wide head and K3 there too); the spatial
   trunk of `w1024` 'trunk_w1024';
-  the directional trunk of `dir1` 'trunk_dir1'; every other shape with an
+  the directional trunk of `dir1` 'trunk_dir1'; the f32 K3 of `wide_tf32`
+  'trunk_wide_tf32'; every other shape with an
   instance 'trunk_fwd'. (Width 128 runs the plain directional trunk alone:
   `missing_instance` refuses its other modes first.)"""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
@@ -1138,6 +1176,8 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
     return W1024_LIBRARY
   if dir1(pack, out_y, fold, sp):
     return DIR1_LIBRARY
+  if wide_tf32(pack, out_y, fold, sp):
+    return WIDE_TF32_LIBRARY
   if wide_input(pack, out_y, fold, sp):
     return FWD_LIBRARY[pack.compute_dtype]
   if (pack.width not in (256, 128) or pack.depth > _TMA_DEPTH or
@@ -1841,6 +1881,140 @@ def _dir1_backward(segs, pack: TrunkPack, cots):
   return [dw], [db], None, dwh, dbh, None, None, dxs, None, None
 
 
+def tf32_panel_index(depth: int, skip: int, kin: int, d: int,
+                     width: int = 256) -> np.ndarray:
+  """Where each entry of csrc/trunk_wide_tf32.cu's weight panels comes from:
+  [panels * width, width] indices into cat(pack.w, pack.wc.flatten()), -1
+  for zeros. Each panel is a product's B [N = width][K = width], in the
+  order a tile runs them: layer 0's input share one panel a segment (the
+  segment's d columns, zeros to 256), each hidden layer's activation share
+  and at the skip layer its input share (one a segment), the bottleneck
+  wc, then the chain: at layer l from depth - 1 down, at the skip layer
+  u_x's [Wx_l^T] (one a segment, N the segment's columns), W_l^T's hidden
+  part; last layer 0's u_x. Within every 8 of K, slot s holds column 8 (s
+  // 8) + 2 (s % 4) + (s % 8) // 4, where a TF32 A fragment of the
+  accumulators' layout finds it."""
+  ks = [kin if l == 0 else width + (kin if l == skip else 0)
+        for l in range(depth)]
+  offs = np.concatenate([[0], np.cumsum([width * k for k in ks])])
+  s = np.arange(width)
+  perm = (s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4
+  n, kp = np.arange(width)[:, None], perm[None, :]
+  out = []
+
+  def fwd(l, col0, seg_cols=False):  # B[n][k'] = W_l[n][col0 + perm(k')]
+    idx = offs[l] + n * ks[l] + col0 + kp
+    out.append(np.where(kp < d, idx, -1) if seg_cols else idx)
+
+  def rev(l, col0, seg_cols=False):  # B[n][k'] = W_l[perm(k')][col0 + n]
+    idx = offs[l] + kp * ks[l] + col0 + n
+    out.append(np.where(n < d, idx, -1) if seg_cols else idx)
+
+  for g in (0, 1):
+    fwd(0, g * d, True)
+  for l in range(1, depth):
+    fwd(l, 0)
+    if l == skip:
+      for g in (0, 1):
+        fwd(l, width + g * d, True)
+  out.append(offs[-1] + n * width + kp)  # the bottleneck wc [256][width]
+  for l in range(depth - 1, -1, -1):
+    if l == 0 or l == skip:
+      for g in (0, 1):
+        rev(l, (0 if l == 0 else width) + g * d, True)
+    if l > 0:
+      rev(l, 0)
+  return np.concatenate(out).astype(np.int32)
+
+
+def tf32_panels(pack: TrunkPack) -> torch.Tensor:
+  """csrc/trunk_wide_tf32.cu's weight panels of `pack` (`wide_tf32`) in
+  f32, [panels * 256, 256], before their TF32 split."""
+  idx = tf32_panel_index(pack.depth, pack.skip, pack.kin, pack.seg_dims[0])
+  src = torch.cat([pack.w.float(), pack.wc.float().reshape(-1),
+                   pack.w.new_zeros(1, dtype=torch.float32)])
+  idx = torch.from_numpy(idx).long().to(src.device)
+  return src[torch.where(idx < 0, src.numel() - 1, idx)]
+
+
+def tf32_fold_index(d: int, nb: int) -> np.ndarray:
+  """Where each entry of csrc/trunk_wide_tf32.cu's fold panel comes from:
+  [64, 128] indices into the fold S [d, nb], -1 for zeros. Rows 32 cw + j
+  (basis vector j < 32) are the B operand of warpgroup cw's fold, K its 128
+  columns c = 128 cw + k permuted within every 8 as `tf32_panel_index`'s
+  K: B[j][k'] = S[c][j]."""
+  s = np.arange(128)
+  perm = (s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4
+  j = np.arange(32)[:, None]
+  rows = [np.where((c < d) & (j < nb), c * nb + j, -1)
+          for c in (128 * cw + perm[None, :] for cw in (0, 1))]
+  return np.concatenate(rows).astype(np.int32)
+
+
+def tf32_fold_panel(fold) -> torch.Tensor:
+  """csrc/trunk_wide_tf32.cu's fold panel of the fold S [d, nb] in f32,
+  [64, 128], before its TF32 split."""
+  idx = torch.from_numpy(tf32_fold_index(*fold.shape)).long().to(fold.device)
+  src = torch.cat([fold.float().reshape(-1), fold.new_zeros(1,
+                                                            dtype=torch.float32)])
+  return src[torch.where(idx < 0, src.numel() - 1, idx)]
+
+
+@functools.lru_cache(maxsize=8)
+def _panel_index(depth, skip, kin, d, device):
+  return torch.from_numpy(tf32_panel_index(depth, skip, kin, d)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _fold_index(d, nb, device):
+  return torch.from_numpy(tf32_fold_index(d, nb)).to(device)
+
+
+def _wide_tf32_forward(segs, pack: TrunkPack, fold):
+  """K3 on csrc/trunk_wide_tf32.cu (`wide_tf32`): the weights' panels and
+  the fold panel split into their TF32 parts once a call
+  (`refnerf_wide_tf32_split`), then one launch. Returns [sigma [n], the
+  bottleneck [n, 256], u [n, nb]] f32, as trunk_kernel."""
+  from refnerf_tpu_torch.ops import cuda_build  # builds on first use
+  lib = cuda_build.library(WIDE_TF32_LIBRARY)
+  ki = _kernel_inputs(segs, pack, DirModes())
+  x0, x1 = ki.x0, ki.x1
+  for t in (x0, x1):
+    if t.data_ptr() % 16:
+      raise ValueError('the f32 density-gradient kernel reads the IPE '
+                       'segments by TMA: each must start at a 16-byte '
+                       'aligned address')
+  n, dev, d = int(x0.shape[0]), x0.device, ki.d0
+  fold = fold.float().contiguous()
+  nb = int(fold.shape[1])
+  sig = torch.empty(n, device=dev)
+  cout = torch.empty(n, 256, device=dev)
+  u = torch.empty(n, nb, device=dev)
+  if n:
+    idx = _panel_index(pack.depth, pack.skip, pack.kin, d, dev)
+    with torch.cuda.device(dev):
+      stream = torch.cuda.current_stream(dev).cuda_stream
+      hi, lo = torch.empty(2, idx.numel(), device=dev)
+      err = lib.refnerf_wide_tf32_split(
+          idx.numel(), idx.data_ptr(), pack.w.data_ptr(), pack.w.numel(),
+          pack.wc.data_ptr(), hi.data_ptr(), lo.data_ptr(), stream)
+      _check_launch(err, 'f32 density-gradient weight split')
+      fidx = _fold_index(d, nb, dev)
+      fh, fl = torch.empty(2, fidx.numel(), device=dev)
+      err = lib.refnerf_wide_tf32_split(
+          fidx.numel(), fidx.data_ptr(), fold.data_ptr(), fold.numel(),
+          fold.data_ptr(), fh.data_ptr(), fl.data_ptr(), stream)
+      _check_launch(err, 'f32 density-gradient fold split')
+      err = lib.refnerf_wide_tf32_k3(
+          n, d, pack.depth, pack.skip, nb, x0.data_ptr(), x1.data_ptr(),
+          hi.data_ptr(), lo.data_ptr(), idx.numel() // 65536, fh.data_ptr(),
+          fl.data_ptr(), pack.b.data_ptr(), pack.wd.data_ptr(),
+          pack.bc.data_ptr(), sig.data_ptr(), cout.data_ptr(), u.data_ptr(),
+          stream)
+      _check_launch(err, 'f32 density-gradient forward (trunk_wide_tf32)')
+  return [sig, cout, u]
+
+
 def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
                  fold: Optional[torch.Tensor] = None,
                  dir_modes: Optional[DirModes] = None, rgbx=None,
@@ -1864,6 +2038,8 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
     return _w1024_forward(segs, pack)
   if route == DIR1_LIBRARY:
     return _dir1_forward(segs, pack)
+  if route == WIDE_TF32_LIBRARY:
+    return _wide_tf32_forward(segs, pack, fold)
   fwd_fn = getattr(_library(route, pack, hc), f'refnerf_{route}')
   head = pack.wct if route == 'trunk_fwd_f32' else pack.wc
   cdt = DTYPES[pack.compute_dtype]

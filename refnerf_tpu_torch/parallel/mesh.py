@@ -81,7 +81,9 @@ def initialize_distributed(device='cuda', backend: Optional[str] = None,
   does (mesh.py:45-52): RANK or LOCAL_RANK without WORLD_SIZE, or a world
   size above 1 without every one of RANK, LOCAL_RANK, MASTER_ADDR and
   MASTER_PORT. `backend` defaults to 'nccl' for a CUDA device and 'gloo'
-  for the CPU; a named backend also joins a group of one rank. The rank's
+  for the CPU; a named backend also joins a group of one rank. A process
+  already in a group of that backend and size reuses it (`destroy` then
+  leaves it at the last of the joins). The rank's
   device is cuda:LOCAL_RANK for 'cuda', the card named for 'cuda:K' (every
   rank on it; gloo only), or the CPU.
   """
@@ -113,6 +115,13 @@ def initialize_distributed(device='cuda', backend: Optional[str] = None,
   local_rank = int(env['LOCAL_RANK'])
   local_world = int(env.get('LOCAL_WORLD_SIZE', world))
   dev = _rank_device(device, local_rank, local_world, backend)
+  if dist.is_initialized():  # joined already in this process: reused
+    if dist.get_backend() != backend or dist.get_world_size() != world:
+      raise ValueError(
+          f'this process is in a {dist.get_backend()} group of '
+          f'{dist.get_world_size()} ranks already, not {backend} of {world}')
+    _JOINS[0] += 1
+    return dist.group.WORLD, dev
   kwargs = {}
   if backend == 'nccl':
     kwargs['device_id'] = dev
@@ -120,14 +129,23 @@ def initialize_distributed(device='cuda', backend: Optional[str] = None,
       backend, init_method='env://', world_size=world,
       rank=int(env['RANK']), timeout=datetime.timedelta(seconds=timeout_s),
       **kwargs)
+  _JOINS[0] = 1
   return dist.group.WORLD, dev
+
+
+# initialize_distributed's joins of the group not yet left: a second join
+# in the same process (a CLI run inside a run of testing/data_parallel.py)
+# reuses the group, and only the last `destroy` leaves it.
+_JOINS = [0]
 
 
 def destroy(group) -> None:
   """Leave the process group `initialize_distributed` joined (no-op for
-  None)."""
+  None; after a reused join, only the last leaves it)."""
   if group is not None:
-    dist.destroy_process_group()
+    _JOINS[0] = max(0, _JOINS[0] - 1)
+    if _JOINS[0] == 0:
+      dist.destroy_process_group()
 
 
 def barrier(group) -> None:

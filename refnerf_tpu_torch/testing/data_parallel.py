@@ -34,6 +34,11 @@ in this process (group None: the one-process reference). Each run writes
           raises, or None.
   all_sum the backward of parallel.mesh.all_sum: rank r sums (r + 1) x;
           records the gradient of x.
+  cli     the train CLI (refnerf_tpu_torch.cli.train) in this rank's
+          process with the spec run's `argv` (its --device and
+          --dist_backend the spec's): it joins the spec's group again
+          (parallel.mesh reuses it); "rank r: cli <name> begins" and "...
+          ends" bracket its output. Records nothing.
 
 Imports neither jax nor anything of refnerf_tpu.
 """
@@ -291,8 +296,17 @@ def run_all_sum(spec, group, device):
   return {'y': y.detach().cpu(), 'grad': grad.cpu()}
 
 
+def run_cli(spec, group, device):
+  from refnerf_tpu_torch.cli import train as train_cli
+  r = mesh.rank(group)
+  print(f"rank {r}: cli {spec['name']} begins", flush=True)
+  train_cli.main(spec['argv'])
+  print(f"rank {r}: cli {spec['name']} ends", flush=True)
+  return {}
+
+
 RUNS = {'steps': run_steps, 'system': run_system, 'errors': run_errors,
-        'all_sum': run_all_sum}
+        'all_sum': run_all_sum, 'cli': run_cli}
 
 
 def run(spec_run, group, device):

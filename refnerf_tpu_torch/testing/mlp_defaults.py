@@ -33,8 +33,10 @@ wide-input instances do (csrc/trunk_fwd_tma.cu `fwd_wide`, trunk_fwd_f32.cu
 `bwd_f32_wide`): no [n, 504] gradient of the input is ever whole. The
 forward's u_x products come a chunk of input columns at a time, each folded
 onto the lifted means at once, its partner segment's values read from the
-input; the backward's tangent ts of the input is made a chunk at a time, at
-layer 0 and again at the skip layer. Its `faults` plant the errors that
+input; the backward's tangent ts of the input is made a chunk at a time at
+layer 0, each chunk stored to a scratch, and read back from that scratch at
+the skip layer (`skip_tangent='scratch'`; 'rebuilt' makes it again there,
+as the bf16 instance did before). Its `faults` plant the errors that
 chip_smoke.py's bounds must see.
 """
 
@@ -77,7 +79,8 @@ def chunked_density_grad(segs: Sequence[torch.Tensor], weights, biases, wd,
                          fold, ubar: Optional[torch.Tensor] = None, *,
                          skip_period: int = 4,
                          compute_dtype: str = 'float32', chunk: int = 128,
-                         faults: Sequence[str] = ()):
+                         faults: Sequence[str] = (),
+                         skip_tangent: str = 'scratch'):
   """u = d sigma / d(lifted means) [n, nb] f32 and, with `ubar` [n, nb],
   the second-order parameter gradients (`_bwd_kernel` :822-853) as the
   wide-input instances compute them, `chunk` input columns at a time (256
@@ -89,11 +92,15 @@ def chunked_density_grad(segs: Sequence[torch.Tensor], weights, biases, wd,
   None) without ubar, else (u, (dws, dwd)): the second-order share of each
   layer's weight gradient ([out, in] f32) and of the density head's,
   which `trunk_backward_reference` adds to the first-order gradients.
-  `faults`: any of FAULTS.
+  `faults`: any of FAULTS. `skip_tangent`: the skip layer's tangent read
+  back from the [n, 2F] scratch that layer 0's chunks were stored to
+  ('scratch'), or made again from ubar ('rebuilt').
   """
   bad = set(faults) - set(FAULTS)
   if bad:
     raise ValueError(f'unknown faults {sorted(bad)}')
+  if skip_tangent not in ('scratch', 'rebuilt'):
+    raise ValueError(f'skip_tangent: scratch or rebuilt, got {skip_tangent!r}')
   cdt = fused_mlp.DTYPES[compute_dtype]
   segs = [s.to(cdt) for s in segs]
   f = int(segs[0].shape[1])
@@ -126,10 +133,16 @@ def chunked_density_grad(segs: Sequence[torch.Tensor], weights, biases, wd,
   # The second order: the tangent ts of the input, chunk by chunk, pushed
   # forward; the weight gradients s_l^T [p_{l-1} | ts].
   tp = ubar.float() @ fold.t()
-  ts = []
-  for k0, k1 in spans:
-    coef, rows = _coefficients(segs, k0, k1, swap)
-    ts.append((tp[:, rows] * coef).to(cdt))
+
+  def tangent():
+    out = []
+    for k0, k1 in spans:
+      coef, rows = _coefficients(segs, k0, k1, swap)
+      out.append((tp[:, rows] * coef).to(cdt))
+    return out
+
+  ts = tangent()
+  scratch = torch.cat(ts, 1)  # layer 0's chunks, stored
   dws = [torch.zeros(w.shape, dtype=torch.float32, device=u.device)
          for w in t.ws]
   p = None
@@ -143,7 +156,9 @@ def chunked_density_grad(segs: Sequence[torch.Tensor], weights, biases, wd,
       tt = fused_mlp._dot(p, t.ws[l][:, :width])
       dws[l][:, :width] += fused_mlp._outer(ss[l], p)
       if l in t.skips:
-        for (k0, k1), tc in zip(spans, ts):
+        tsk = ([scratch[:, k0:k1] for k0, k1 in spans]
+               if skip_tangent == 'scratch' else tangent())
+        for (k0, k1), tc in zip(spans, tsk):
           if 'no skip tangent' not in faults:
             tt = tt + fused_mlp._dot(tc, t.ws[l][:, width + k0:width + k1])
           dws[l][:, width + k0:width + k1] += fused_mlp._outer(ss[l], tc)

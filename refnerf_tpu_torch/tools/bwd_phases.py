@@ -4,7 +4,8 @@ From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
     python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
         [--lib trunk_bwd_tma|trunk_bwd_f32|trunk_bwd|trunk_fwd_tma|
-               trunk_fwd_f32|trunk_fwd] [--dtype float32] [--cases 'K5 W128']
+               trunk_fwd_f32|trunk_fwd|trunk_wide_tf32] [--dtype float32]
+        [--cases 'K5 W128']
 
 Builds a trunk library a second time with -DREFNERF_PHASES (its own file
 in build/, never loaded on the main path): by default the bf16 width-256
@@ -19,7 +20,9 @@ csrc/trunk_fwd_tma.cu, --lib trunk_fwd_f32 the f32 width-256 forward of
 csrc/trunk_fwd_f32.cu (float32 by default), --lib trunk_fwd the mma.sync /
 FMA forward of csrc/trunk_fwd.cu (fused_mlp.forward_library patched to send
 every shape there: the design that trunk_fwd_tma.cu (bf16) and
-trunk_fwd_f32.cu (--dtype float32) replaced).
+trunk_fwd_f32.cu (--dtype float32) replaced); --lib trunk_wide_tf32 the f32
+density-gradient forward of csrc/trunk_wide_tf32.cu (its case 'K3 wide
+hc256', float32 by default).
 Thread 0 of every CTA of the per-tile kernel adds the clock64() cycles of
 each segment, closed by a barrier, to a (phase, kind) sum; kinds are the
 products, the scalar passes and the stores (the backward's scratch, the
@@ -62,19 +65,7 @@ FWD_KERNELS = ('trunk_fwd',)
 def build_phase_library(name):
   """csrc/<name>.cu with -DREFNERF_PHASES, its ctypes signatures set."""
   from refnerf_tpu_torch.ops import cuda_build
-  out = cuda_build.library_path(name)
-  out = out.with_name(out.name.replace(f'_{name}_', f'_{name}_phases_'))
-  if not out.exists():
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-DREFNERF_PHASES',
-           '-o', str(out), str(cuda_build.CSRC / f'{name}.cu')]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-      raise RuntimeError(f'nvcc failed: {" ".join(cmd)}\n{proc.stderr}')
-  lib = ctypes.CDLL(str(out))
-  for fn, argtypes in cuda_build.EXPORTS[name].items():
-    getattr(lib, fn).argtypes = argtypes
-    getattr(lib, fn).restype = ctypes.c_int
+  lib = cuda_build.variant(name, 'REFNERF_PHASES')
   lib.refnerf_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
   lib.refnerf_phase_cycles.restype = ctypes.c_int
   return lib
@@ -106,7 +97,7 @@ def device_ms(run, kernels=KERNELS, calls=2):
     us = getattr(e, 'self_device_time_total',
                  getattr(e, 'self_cuda_time_total', 0))
     for k in kernels:
-      if any(f'{k}{v}_kernel' in e.key for v in ('', '_tma', '_f32')):
+      if any(f'{k}{v}_kernel' in e.key for v in ('', '_tma', '_f32', '_tf32')):
         out[k] += us / 1e3 / calls
   return out
 
@@ -234,14 +225,15 @@ def main():
   ap.add_argument('--out', default='chiprun_out/phases')
   ap.add_argument('--lib', default='trunk_bwd_tma',
                   choices=('trunk_bwd_tma', 'trunk_bwd_f32', 'trunk_bwd',
-                           'trunk_fwd_tma', 'trunk_fwd_f32', 'trunk_fwd'))
+                           'trunk_fwd_tma', 'trunk_fwd_f32', 'trunk_fwd',
+                           'trunk_wide_tf32'))
   ap.add_argument('--dtype', default=None, choices=('bfloat16', 'float32'),
                   help='float32 for the *_f32 libraries, else bfloat16 by '
                   'default')
   ap.add_argument('--cases', default='',
                   help='case names to run, comma-separated (default: all)')
   a = ap.parse_args()
-  a.dtype = a.dtype or ('float32' if a.lib.endswith('_f32')
+  a.dtype = a.dtype or ('float32' if a.lib.endswith(('_f32', '_tf32'))
                         else 'bfloat16')
   if not torch.cuda.is_available():
     raise SystemExit('bwd_phases: no CUDA device')
@@ -265,7 +257,7 @@ def main():
     fused_mlp.backward_library = lambda *a, **k: 'trunk_bwd'
   if a.lib == 'trunk_fwd':
     fused_mlp.forward_library = lambda pack, *modes, **kw: 'trunk_fwd'
-  forward = a.lib.startswith('trunk_fwd')
+  forward = a.lib.startswith('trunk_fwd') or a.lib == 'trunk_wide_tf32'
   phases = FWD_PHASES if forward else PHASES
   kernels = FWD_KERNELS if forward else KERNELS
   report = {'card': smi, 'n_samples': chip_smoke.N_SAMPLES, 'lib': a.lib,

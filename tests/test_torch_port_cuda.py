@@ -2203,7 +2203,8 @@ def test_defaults_wide_trunk_matches_plain(dev, n, cdt, hc):
   for f in (None, fold):
     assert fused_mlp.wide_input(pack, fold=f)
     assert fused_mlp.forward_library(pack, fold=f) == (
-        fused_mlp.FWD_LIBRARY[cdt])
+        fused_mlp.WIDE_TF32_LIBRARY if fused_mlp.wide_tf32(pack, fold=f)
+        else fused_mlp.FWD_LIBRARY[cdt])
     assert fused_mlp.backward_library(pack, fold=f) == (
         fused_mlp.BWD_LIBRARY[cdt])
   c1 = (sbar, None, cbar.to(fused_mlp.DTYPES[cdt]), None)
@@ -2230,3 +2231,37 @@ def test_defaults_wide_trunk_matches_plain(dev, n, cdt, hc):
     _assert_close(got, want, cdt, f'{which} {cdt} hc {hc} n {n}',
                   n_values=nv)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), which
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['K3 f32', 'K4 bf16 ubar'])
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 128, 129, 257, 4097])
+def test_redesigned_defaults_instances_match_plain(dev, n, which):
+  # The two instances redesigned for the defaults' spatial trunk (8 x 256 on
+  # 504 columns, the 256-wide bottleneck) at n rows, across the 64-row
+  # tiles: f32 K3 on csrc/trunk_wide_tf32.cu (three TF32 passes of wgmma),
+  # sigma and the bottleneck by BOUND, u by GRAD_BOUND; bf16
+  # K4 with u's cotangent (the tangent read back at the skip layer), every
+  # gradient by GRAD_BOUND; each a second time bit-identical (H4).
+  cdt = 'bfloat16' if 'bf16' in which else 'float32'
+  segs, ws, bs, kw, fold, (sbar, cbar, ubar) = _defaults_case(dev, n, 256)
+  cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
+  if which.startswith('K3'):
+    assert fused_mlp.forward_library(pack, fold=fold) == (
+        fused_mlp.WIDE_TF32_LIBRARY)
+    nv = 2
+    kernel = lambda: fused_mlp.trunk_kernel(cs, pack, fold)
+    plain = lambda: fused_mlp.trunk_reference(
+        cs, ws, bs, compute_dtype=cdt, density_grad=True, fold=fold, **kw)
+  else:
+    cots = (sbar, None, cbar.to(fused_mlp.DTYPES[cdt]), ubar)
+    nv = 0
+    kernel = lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots, fold)
+    plain = lambda: fused_mlp.trunk_backward_reference(
+        cs, ws, bs, cots, compute_dtype=cdt, fold=fold, **kw)
+  with torch.no_grad():
+    got, again, want = (_flat(f()) for f in (kernel, kernel, plain))
+  torch.cuda.synchronize()
+  _assert_close(got, want, cdt, f'{which} n {n}', n_values=nv)
+  assert all(torch.equal(a, b) for a, b in zip(got, again)), which

@@ -25,9 +25,20 @@ trunk's backward).
   above chip_smoke.py's bounds;
 - the routing of the defaults' spatial trunk (8 x 256 on 504 columns, the
   density head, a 128- or 256-wide bottleneck, with and without the density
-  gradient) to the wide-input instances in both dtypes, within an H100's
-  shared memory, and the launch counts of a defaults step and request under
-  'on' at full width with the kernels stubbed by their plain versions.
+  gradient) to the wide-input instances in both dtypes (the f32 density
+  gradient with the 256-wide head to csrc/trunk_wide_tf32.cu), within an
+  H100's shared memory, and the launch counts of a defaults step and
+  request under 'on' at full width with the kernels stubbed by their plain
+  versions;
+- csrc/trunk_wide_tf32.cu's arithmetic on the CPU: its weight panels
+  (`fused_mlp.tf32_panels`) run in the kernel's order in exact f32 against
+  `trunk_reference` (1e-6 of the largest entry), and as three TF32 passes
+  with 32-deep f32 slice sums (tests/test_torch_port_mipnerf360.py
+  `_truncated_product`) against JAX `reference_encoded_trunk` within
+  chip_smoke.py's KERNEL_BOUND, one pass (hi.hi) above it;
+- the bf16 backward's tangent read back at the skip layer (the chunked
+  model's `skip_tangent='scratch'`) bit for bit the tangent made again
+  there, its fault still above the bound.
 
 Tolerances. Against JAX 'on', float32 1e-5 (renders, loss terms), the
 gradients 2e-4 of their largest entry and the parameters after a step 2e-2
@@ -72,9 +83,12 @@ from refnerf_tpu_torch.ops import fused_mlp
 from refnerf_tpu_torch.testing import mlp_defaults
 from refnerf_tpu_torch.testing.mlp_defaults import DEFAULTS, DEFAULTS_NORMALS
 from refnerf_tpu_torch.train import step as step_lib
-from tests.test_torch_port_cascade import _params, _stubbed_kernels, jax_draws
+from tests.test_torch_port_cascade import (_ArgCheck, _params,
+                                           _stubbed_kernels, jax_draws)
 from tests.test_torch_port_losses import (_assert_grads, _flat as _flat_tree,
                                           _jax_step_with_grads)
+from tests.test_torch_port_mipnerf360 import (KERNEL_BOUND, _tf32_product,
+                                              _truncated_product)
 
 torch.set_num_threads(1)
 
@@ -376,6 +390,182 @@ def test_chunked_faults_read_above_the_bounds(cdt, fault):
   assert max(reads) > GRAD_BOUND[cdt], (fault, reads)
 
 
+@pytest.mark.parametrize('cdt', ['float32', 'bfloat16'])
+def test_skip_tangent_read_back_equals_the_rebuilt_one(cdt):
+  # The bf16 backward stores layer 0's tangent chunks to the ts scratch and
+  # reads them back at the skip layer: the chunked model with the tangent
+  # read back (`skip_tangent='scratch'`) gives u and every second-order
+  # gradient bit for bit as with the tangent made again there ('rebuilt',
+  # the design it replaced), and the skip term's fault still reads above
+  # GRAD_BOUND.
+  segs, ws, bs, wd, fold, ubar, sbar = _port_case(_trunk_case(5), cdt)
+  run = lambda **k: mlp_defaults.chunked_density_grad(
+      segs, ws, bs, wd, fold, ubar, compute_dtype=cdt, **k)
+  u, (dws, dwd) = run()
+  u2, (dws2, dwd2) = run(skip_tangent='rebuilt')
+  assert torch.equal(u, u2) and torch.equal(dwd, dwd2)
+  assert all(torch.equal(a, b) for a, b in zip(dws, dws2))
+  _, (bws, bwd) = run(faults=['no skip tangent'])
+  first = fused_mlp.trunk_backward_reference(
+      segs, ws, bs, (sbar, None, None, None), wd=wd, fold=fold,
+      compute_dtype=cdt)
+  l2 = lambda a, b: float((a - b).norm() / b.norm())
+  reads = [l2(first[0][l] + b, first[0][l] + a)
+           for l, (a, b) in enumerate(zip(dws, bws))]
+  assert max(reads + [l2(first[2] + bwd, first[2] + dwd)]) > GRAD_BOUND[cdt]
+
+
+# ------------------------------- the f32 K3 on the tensor cores, a model
+
+
+def _tf32_case(seed, n=64):
+  """The defaults' spatial trunk at full width (csrc/trunk_wide_tf32.cu's
+  panels are 256 x 256) with the 256-wide head, on n rows: (JAX's case of
+  `_trunk_case`, its head (wc [in, out], bc), the port's segments, pack and
+  fold)."""
+  case = _trunk_case(seed, n=n)
+  rng = np.random.default_rng(seed + 100)
+  wc = (rng.normal(size=(256, 256)) / 16).astype(np.float32)
+  bc = (rng.normal(size=256) * 0.1).astype(np.float32)
+  segs, ws, bs, wd, fold, _, _ = _port_case(case, 'float32')
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), wd=wd,
+                              head_cdt=(_t(wc.T), _t(bc)))
+  return case, (wc, bc), segs, pack, fold
+
+
+def _k3_tf32_model(pack, segs, fold, product):
+  """sigma, the bottleneck and u as csrc/trunk_wide_tf32.cu computes them
+  for `pack` (`fused_mlp.wide_tf32`): each product A B^T over its weight
+  panels (`fused_mlp.tf32_panels`, 256 x 256 in the tile's order), A's
+  columns permuted within every 8 as the panels' K is and a product's
+  panels one K (the kernel adds every 32-deep slice into one accumulator
+  set); `product(a, b)` computes a @ b. h_l = relu(acc + b_l), sigma = y
+  wd, the bottleneck acc + bc; the chain s_{L-1} = relu'(h) wd, s_{l-1} =
+  relu'(h_{l-1}) (s_l W_l^T); at the skip layer and layer 0 u_x one product
+  a segment, scaled by the partner segment (xc for a sin column, -xs for a
+  cos one) and folded at once by one more product, each warpgroup's 128
+  columns against its rows of the fold panel (`fused_mlp.tf32_fold_panel`,
+  K permuted alike)."""
+  width, d = 256, int(segs[0].shape[1])
+  panels = iter(fused_mlp.tf32_panels(pack).reshape(-1, width, width))
+  s = np.arange(width)
+  perm = torch.from_numpy((s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4)
+  x0, x1 = (torch.nn.functional.pad(x.float(), (0, width - d)) for x in segs)
+
+  def run(a_list):
+    a = torch.cat([t[:, perm] for t in a_list], 1).contiguous()
+    b = torch.cat([next(panels).t() for _ in a_list], 0).contiguous()
+    return product(a, b)
+
+  fp = fused_mlp.tf32_fold_panel(fold).reshape(2, 32, 128)
+  perm128 = perm[:128]
+
+  def fold_product(um):  # each warpgroup's 128 columns against its rows
+    um = torch.nn.functional.pad(um, (0, width - d))
+    return sum(product(um[:, 128 * cw:128 * cw + 128][:, perm128].contiguous(),
+                       fp[cw].t().contiguous()) for cw in (0, 1))
+
+  masks, act = [], None
+  for l in range(pack.depth):
+    act = torch.relu(run([x0, x1] if l == 0 else [act, x0, x1]
+                         if l == pack.skip else [act]) + pack.b[l])
+    masks.append(act > 0)
+  sig, cout = act @ pack.wd, run([act]) + pack.bc
+  s_, u = masks[-1] * pack.wd, 0
+  for l in range(pack.depth - 1, -1, -1):
+    if l == 0 or l == pack.skip:
+      for xp, sgn in ((segs[1], 1.0), (segs[0], -1.0)):
+        u = u + fold_product(sgn * xp.float() * run([s_])[:, :d])
+    if l > 0:
+      s_ = masks[l - 1] * run([s_])
+  return sig, cout, u[:, :fold.shape[1]]
+
+
+def test_tf32_panels_hold_every_product_of_the_trunk():
+  # csrc/trunk_wide_tf32.cu's weight panels (`fused_mlp.tf32_panel_index`:
+  # 23 of 256 x 256 at depth 8 with the skip at layer 5 on 2 x 252 columns,
+  # each segment padded to 256, K permuted within every 8), run in the
+  # kernel's order in exact f32: sigma, the bottleneck and u within 1e-6 of
+  # the largest entry of trunk_reference's (the same products summed in
+  # another order). The f32 defaults' K3 routes there, 228,896 B of shared
+  # memory a CTA.
+  _, _, segs, pack, fold = _tf32_case(6)
+  assert fused_mlp.wide_tf32(pack, fold=fold)
+  assert fused_mlp.forward_library(pack, fold=fold) == (
+      fused_mlp.WIDE_TF32_LIBRARY)
+  assert fused_mlp.kernel_smem(fused_mlp.WIDE_TF32_LIBRARY, pack, 256,
+                               fold) == 228896
+  idx = fused_mlp.tf32_panel_index(8, 5, 512, 252)
+  assert idx.shape == (23 * 256, 256) and idx.max() < pack.w.numel() + 65536
+  got = _k3_tf32_model(pack, segs, fold, lambda a, b: a @ b)
+  ws, bs, kw = fused_mlp.unpack_trunk(pack)
+  want = fused_mlp.trunk_reference(segs, ws, bs, density_grad=True,
+                                   fold=fold, **kw)
+  for g, w in zip(got, want):
+    assert _rel(g, w) < 1e-6
+
+
+def test_wide_tf32_launch_arguments_match_exports(monkeypatch):
+  # The f32 defaults' K3 through trunk_kernel on CPU tensors with the
+  # libraries replaced by _ArgCheck (test_torch_port_cascade.py): the
+  # weight panels' and the fold panel's splits, then one forward,
+  # refnerf_wide_tf32_split twice and refnerf_wide_tf32_k3 with the argument
+  # lists cuda_build.EXPORTS declares: 23 panels of 65,536 entries, a fold
+  # panel of 64 x 128, 252 columns a segment, depth 8, the skip at layer 5,
+  # 21 basis vectors.
+  from refnerf_tpu_torch.ops import cuda_build
+  import contextlib
+  calls = []
+  fake = _ArgCheck(calls)
+  monkeypatch.setattr(cuda_build, 'library', lambda name: fake)
+  monkeypatch.setattr(torch.cuda, 'device',
+                      lambda dev: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, 'current_stream',
+                      lambda dev=None: type('S', (), {'cuda_stream': 0})())
+  _, _, segs, pack, fold = _tf32_case(8, n=100)
+  sig, cout, u = fused_mlp.trunk_kernel(segs, pack, fold)
+  assert (sig.shape, cout.shape, u.shape) == ((100,), (100, 256), (100, NB))
+  assert [fn for fn, _ in calls] == ['refnerf_wide_tf32_split'] * 2 + [
+      'refnerf_wide_tf32_k3']
+  split, fsplit, k3 = (args for _, args in calls)
+  assert split[0] == 23 * 65536 and split[3] == pack.w.numel()
+  assert fsplit[0] == 64 * 128 and fsplit[3] == 252 * NB
+  assert k3[:5] == (100, 252, 8, 5, NB) and k3[9] == 23
+
+
+@pytest.mark.parametrize('passes', [3, 1])
+def test_k3_tf32_passes_against_the_f32_bound(passes):
+  # The same model with csrc/trunk_wide_tf32.cu's arithmetic: each product
+  # three TF32 passes (hi = tf32(v), lo = tf32(v - hi); lo.hi + hi.lo +
+  # hi.hi) whose truncating accumulation sums each 32-deep slice into a
+  # fresh set added into the tile in f32 (H26;
+  # tests/test_torch_port_mipnerf360.py `_truncated_product`), against JAX
+  # reference_encoded_trunk with density_grad=True and the 256-wide head at
+  # 64 rows: sigma, the bottleneck and u within chip_smoke.py's
+  # KERNEL_BOUND['float32'] of max(1, their largest entry). One pass (hi.hi
+  # alone, `_tf32_product`) reads above it, so the bound sees that
+  # shortcut.
+  case, (wc, bc), segs, pack, fold = _tf32_case(7)
+  ks, bs, wd, lm, lv, _, _ = case
+  if passes == 3:
+    product = lambda a, b: torch.from_numpy(
+        _truncated_product(a, b, 32)).float()
+  else:
+    product = lambda a, b: _tf32_product(a, b, passes=1)
+  got = _k3_tf32_model(pack, segs, fold, product)
+  want = jfused.reference_encoded_trunk(
+      jnp.asarray(lm), jnp.asarray(lv), SCALES, [jnp.asarray(k) for k in ks],
+      [jnp.asarray(b) for b in bs], jnp.asarray(wd), skip_period=4,
+      density_grad=True, head_cdt=(jnp.asarray(wc), jnp.asarray(bc)))
+  reads = [float((g - _t(_np(w)).reshape(g.shape)).abs().max()) /
+           max(1.0, float(np.abs(_np(w)).max())) / KERNEL_BOUND['float32']
+           for g, w in zip(got, want)]
+  if passes == 3:
+    assert max(reads) < 1, reads
+  else:
+    assert max(reads) > 1, reads
+
+
 # --------------------------------------------------------- the routing
 
 
@@ -395,25 +585,34 @@ def _defaults_pack(cdt, hc):
 def test_defaults_shape_routes_to_the_wide_instances(cdt, hc):
   # 8 x 256 on 504 columns (512 packed), the density head and a 256- or
   # 128-wide bottleneck, with and without the density gradient: the
-  # wide-input pair of the dtype's libraries, each launch within an H100's
-  # shared memory (the C sums kernel_smem mirrors: bf16 forward 231,480 B
-  # at two tiles and a 3-stage ring, 222,648 B with the density gradient at
-  # one tile, the fold staged and a 3-stage ring; bf16 backward 218,440 /
-  # 212,200 B, a 3-stage ring and the fold with it; f32 forward 224,392 /
-  # 221,192 B, backward 222,600 / 216,376 B, the fold staged with it),
-  # counted under 'K1 wide', 'K3 wide' and 'K4 wide'.
+  # wide-input pair of the dtype's libraries (the f32 density gradient with
+  # the 256-wide head on csrc/trunk_wide_tf32.cu), each launch within an
+  # H100's shared memory (the C sums kernel_smem mirrors: bf16 forward
+  # 231,480 B at two tiles and a 3-stage ring, 222,648 B with the density
+  # gradient at one tile, the fold staged and a 3-stage ring; bf16 backward
+  # 218,440 / 212,200 B, a 3-stage ring and the fold with it (215,240 B
+  # with the 256-wide head: the fold's rows padded to 24, two mbarriers for
+  # the tangent read back); f32 forward 224,392 / 221,192 B (228,896 B on
+  # trunk_wide_tf32.cu with the 256-wide head: two 64 KB stages of B's TF32
+  # parts), backward 222,600 / 216,376 B, the fold staged with it), counted
+  # under 'K1 wide', 'K3 wide' and 'K4 wide'.
   pack = _defaults_pack(cdt, hc)
   fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, NB))
-  want = (fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt])
-  smem = {'bfloat16': ((231480, 218440), (222648, 212200)),
-          'float32': ((224392, 222600), (221192, 216376))}[cdt]
+  tf32 = cdt == 'float32' and hc == 256
+  smem = {'bfloat16': ((231480, 218440),
+                       (222648, 215240 if hc == 256 else 212200)),
+          'float32': ((224392, 222600),
+                      (228896 if tf32 else 221192, 216376))}[cdt]
   modes = (False, fused_mlp.DirModes(), fused_mlp.SpaModes())
   for f, sums in zip((None, fold), smem):
     assert pack.kin == 512 and fused_mlp.wide_input(pack, fold=f)
     assert fused_mlp.missing_instance(pack, hc, f) is None
     libs = (fused_mlp.forward_library(pack, fold=f),
             fused_mlp.backward_library(pack, fold=f))
-    assert libs == want
+    assert libs == (fused_mlp.WIDE_TF32_LIBRARY if tf32 and f is not None
+                    else fused_mlp.FWD_LIBRARY[cdt],
+                    fused_mlp.BWD_LIBRARY[cdt])
+    assert fused_mlp.wide_tf32(pack, fold=f) == (tf32 and f is not None)
     assert tuple(fused_mlp.kernel_smem(lib, pack, hc, f)
                  for lib in libs) == sums
     assert max(sums) <= fused_mlp.SMEM_LIMIT
@@ -451,10 +650,12 @@ def test_defaults_step_routes_every_trunk_to_an_instance(monkeypatch, cdt,
   # weights (test_torch_port_cascade.py `_stubbed_kernels`): every spatial
   # trunk launch at every level goes to the wide-input pair (K3 and K4 with
   # u's cotangent in the step, K1 in the request; 'K3 wide' / 'K4 wide' /
-  # 'K1 wide' 3 each), every directional one to trunk_dir1.cu, none to a
-  # plain version; the step under 'on' equals 'off' to the bit.
+  # 'K1 wide' 3 each; f32 K3 on trunk_wide_tf32.cu), every directional one
+  # to trunk_dir1.cu, none to a plain version; the step under 'on' equals
+  # 'off' to the bit.
   routes, fwd_launches = _stubbed_kernels(monkeypatch)
   fwd, bwd = fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt]
+  k3 = fused_mlp.WIDE_TF32_LIBRARY if cdt == 'float32' else fwd
   runs = {}
   for mode in ('on', 'off'):
     config, gin = configs.parse([], CONFIGS[which] + FULL_CUT + _cdt(cdt) + [
@@ -485,7 +686,7 @@ def test_defaults_step_routes_every_trunk_to_an_instance(monkeypatch, cdt,
   assert {k: v for k, v in q_on.items() if v} == {
       'K1': 3, 'K1 wide': 3, 'K2': 3}
   dir1 = fused_mlp.DIR1_LIBRARY
-  assert sorted(set(r_on)) == sorted({('fwd', 512, fwd), ('bwd', 512, bwd),
+  assert sorted(set(r_on)) == sorted({('fwd', 512, k3), ('bwd', 512, bwd),
                                       ('fwd', 288, dir1), ('bwd', 288, dir1)})
   assert sorted(set(rq_on)) == sorted({('fwd', 512, fwd), ('fwd', 288, dir1)})
   assert torch.equal(on['loss'], off['loss'])

@@ -590,3 +590,23 @@ def test_rank_processes_import_no_jax(runs):
   assert runs['log'].count('FORBIDDEN IMPORTS []') == 2
   assert 'rank 0: 10 runs done' in runs['log']
   assert 'rank 1: 10 runs done' in runs['log']
+
+
+def test_a_second_join_reuses_the_group(monkeypatch):
+  # A process already in the group (a data_parallel.py rank running the
+  # train CLI, chip_smoke.py phase 22) joins it again: initialize_distributed
+  # reuses it, and only the last destroy leaves it.
+  for k, v in dict(RANK='0', LOCAL_RANK='0', WORLD_SIZE='1',
+                   MASTER_ADDR='127.0.0.1',
+                   MASTER_PORT=str(_free_port())).items():
+    monkeypatch.setenv(k, v)
+  dist = torch.distributed
+  group, dev = mesh.initialize_distributed('cpu', 'gloo')
+  try:
+    again, dev2 = mesh.initialize_distributed('cpu', 'gloo')
+    assert again is group and dev2 == dev
+    mesh.destroy(again)
+    assert dist.is_initialized()
+  finally:
+    mesh.destroy(group)
+  assert not dist.is_initialized()
