@@ -5117,10 +5117,13 @@ def patched(module, attr, value, fn):
 
 
 def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
-  """Phase 25 (a): the two redesigned instances (REDESIGNED) in turns with the
+  """Phase 25 (a): the redesigned instances (REDESIGNED) in turns with the
   designs they replaced, in this process: f32 K3 wide hc256 on
   trunk_wide_tf32.cu (the route) and the parent's trunk_fwd_f32.cu instance
-  (`fwd_f32_wide<256, true>`, the route forced); bf16 K4 wide hc256 ubar
+  (`fwd_f32_wide<256, true>`, the route forced); f32 K4 wide hc256, first
+  order and with u's cotangent, on trunk_wide_bwd_tf32.cu (the route) and
+  the parent's trunk_bwd_f32.cu instance (`bwd_f32_wide<256, DG>`, the
+  route forced); bf16 K4 wide hc256 ubar
   with the tangent read back at the skip layer and the parent's, which
   made it again (trunk_bwd_tma.cu built with REFNERF_TS_REBUILD: `was_bwd`,
   a future of cuda_build.variant), which must agree bit for bit. Returns
@@ -5130,6 +5133,10 @@ def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
     arms = {'ms': kernel,
             'was_ms': patched(fused_mlp, 'forward_library',
                               lambda *a, **k: 'trunk_fwd_f32', kernel)}
+  elif cdt == 'float32':
+    arms = {'ms': kernel,
+            'was_ms': patched(fused_mlp, 'backward_library',
+                              lambda *a, **k: 'trunk_bwd_f32', kernel)}
   else:
     variant, normal = was_bwd.result(), cuda_build.library
     arms = {'ms': kernel,
@@ -5149,9 +5156,40 @@ def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
   return ms
 
 
-# The defaults' two instances redesigned last, each timed in turns with the
+# The defaults' instances redesigned last, each timed in turns with the
 # design it replaced.
-REDESIGNED = (('K3 wide hc256', 'float32'), ('K4 wide hc256 ubar', 'bfloat16'))
+REDESIGNED = (('K3 wide hc256', 'float32'), ('K4 wide hc256 ubar', 'bfloat16'),
+              ('K4 wide hc256 1st', 'float32'),
+              ('K4 wide hc256 ubar', 'float32'))
+# The f32 backward's redesigned rows (trunk_wide_bwd_tf32.cu) are also held
+# to their plain versions at these rows, across its 64-row tiles, each rerun
+# bit-identical.
+REDESIGNED_ROWS = (1, 63, 64, 65, 128, 129, 257, 4097)
+
+
+def redesigned_rows(fused_mlp, which, pack, xs, ws, bs, kw, cots, fold):
+  """Phase 25 (a): an f32 K4 row of REDESIGNED (trunk_wide_bwd_tf32.cu)
+  against its plain version at each of REDESIGNED_ROWS rows, every gradient
+  within GRAD_BOUND by relative L2, a second run bit-identical."""
+  fold = fold if cots[3] is not None else None
+  worst = {}
+  for n in REDESIGNED_ROWS:
+    c = tuple(None if t is None else t[:n] for t in cots)
+    x = [t[:n] for t in xs]
+    with torch.no_grad():
+      got = flatten(fused_mlp.trunk_backward_kernel(x, pack, c, fold))
+      again = flatten(fused_mlp.trunk_backward_kernel(x, pack, c, fold))
+      want = flatten(fused_mlp.trunk_backward_reference(
+          x, ws, bs, c, compute_dtype='float32', fold=fold, **kw))
+    torch.cuda.synchronize()
+    worst[n] = max(r[3] for r in errors(got, want, 'float32', 0))
+    if not worst[n] <= 1.0 or not all(
+        torch.equal(a, b) for a, b in zip(got, again)):
+      raise AssertionError(f'phase 25: {which} float32 at {n} rows: '
+                           f'{worst[n]:.3f} of its bound, or a rerun differs')
+  log(f'phase 25: {which} float32 at {len(worst)} row counts within its '
+      f'bound, reruns bit-identical: ' + ', '.join(
+          f'{n} {w:.3f}' for n, w in worst.items()))
 
 
 def check_redesigned(fused_mlp, dev):
@@ -5178,9 +5216,11 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True,
   on before, trunk_fwd.cu and trunk_bwd.cu, the routes forced ('was_ms');
   the planted faults of the chunked contract (`defaults_faults`); the two
   instances of REDESIGNED in turns with the parent's (`redesigned_in_turns`;
-  was_bwd: the future of the bf16 backward's REFNERF_TS_REBUILD build). f32
-  K3 with the 256-wide head runs on trunk_wide_tf32.cu, its bound three TF32
-  products' (the FMA pipes' beside it). `only`: the (name, cdt) rows to run,
+  was_bwd: the future of the bf16 backward's REFNERF_TS_REBUILD build), the
+  f32 K4 rows also at REDESIGNED_ROWS (`redesigned_rows`). f32 K3 with the
+  256-wide head runs on trunk_wide_tf32.cu and its f32 K4 on
+  trunk_wide_bwd_tf32.cu, their bounds three TF32 products' (the FMA
+  pipes' beside them). `only`: the (name, cdt) rows to run,
   all by default. Returns ({(name, cdt): compare()'s dict at max(ns)}, {cdt:
   fault reads})."""
   gen = torch.Generator().manual_seed(SEED + 25)
@@ -5198,7 +5238,9 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True,
       tf32 = cdt == 'float32' and hc == 256
       for f in (None, fold):
         want = (fused_mlp.WIDE_TF32_LIBRARY if tf32 and f is not None else
-                fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt])
+                fused_mlp.FWD_LIBRARY[cdt],
+                fused_mlp.WIDE_TF32_BWD_LIBRARY if tf32 else
+                fused_mlp.BWD_LIBRARY[cdt])
         got = (fused_mlp.forward_library(pack, fold=f),
                fused_mlp.backward_library(pack, fold=f))
         if (got != want or not fused_mlp.wide_input(pack, fold=f) or
@@ -5245,9 +5287,13 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True,
                       phase=25, inputs=inputs, flops=fl, n=n,
                       library=lib() if lib is not None and n == n_max
                       else None,
-                      tf32_passes=3 if tf32 and which.startswith('K3')
+                      tf32_passes=3 if tf32 and which.startswith(('K3', 'K4'))
                       else 0)
           deterministic(which, kernel, phase=25, cdt=cdt)
+          if (which, cdt) in REDESIGNED and which.startswith('K4') and (
+              cdt == 'float32') and n == n_max:
+            redesigned_rows(fused_mlp, which, pack, xs, ws, bs, kw,
+                            c2 if which.endswith('ubar') else c1, fold)
           if n == n_max:
             results[which, cdt] = r
             if (which, cdt) in REDESIGNED:
@@ -5458,22 +5504,31 @@ def defaults_request(fused_mlp, dev, run, what, per_request):
 
 def variant_run(fused_mlp, dev, dtype, name):
   """Phase 25 (b): DEFAULTS_VARIANTS[name] under 'on': one step counted
-  (VARIANT_PER_STEP, the routes asserted) and one 4096-ray request counted
+  (VARIANT_PER_STEP, the routes asserted; DEFAULTS_FIRST's also against
+  'off', `defaults_against_plain`) and one 4096-ray request counted
   (DEFAULTS_PER_REQUEST). Returns ({'step': launches, 'request':
-  launches}, step ms)."""
+  launches, 'vs_plain': the comparison or None}, step ms)."""
   from refnerf_tpu_torch.cameras import rays as rays_lib
   from refnerf_tpu_torch.models import renderer
   run = defaults_setup(dev, dtype, DEFAULTS_VARIANTS[name])
   what = f'{name} {dtype}'
   step, ms, _, seen, _ = defaults_train(fused_mlp, run, what, 1,
                                         VARIANT_PER_STEP, DEFAULTS_TERMS)
-  # The spatial trunks on the wide-input pair; the directional trunk on
+  # The spatial trunks on the wide-input pair (the f32 backward with the
+  # 256-wide head on trunk_wide_bwd_tf32.cu); the directional trunk on
   # trunk_dir1.cu, or at a 128-wide bottleneck (155 columns) on the same
   # pair's width-128 instances.
+  bwd = (fused_mlp.WIDE_TF32_BWD_LIBRARY
+         if dtype == 'float32' and name == 'DEFAULTS_FIRST'
+         else fused_mlp.BWD_LIBRARY[dtype])
   for way, lib in (('forward', fused_mlp.FWD_LIBRARY[dtype]),
-                   ('backward', fused_mlp.BWD_LIBRARY[dtype])):
+                   ('backward', bwd)):
     if lib not in seen[way] or seen[way] - {lib, fused_mlp.DIR1_LIBRARY}:
       raise AssertionError(f'phase 25: {what} routed to {seen}')
+  # Without density normals the 256-wide head's first-order backward: one
+  # step against 'off' too.
+  vs_plain = (defaults_against_plain(fused_mlp, run, what)
+              if name == 'DEFAULTS_FIRST' else None)
   rays = random_rays(rays_lib, DEFAULTS_REQUEST, run['config'], 25, dev)
   for k in fused_mlp.launches:
     fused_mlp.launches[k] = 0
@@ -5484,7 +5539,7 @@ def variant_run(fused_mlp, dev, dtype, name):
                   run['model'].nerf_mlp.cfg.rgb_padding)
   if request != DEFAULTS_PER_REQUEST:
     raise AssertionError(f'phase 25: {what} request launches {request}')
-  return dict(step=step, request=request), ms
+  return dict(step=step, request=request, vs_plain=vs_plain), ms
 
 
 def defaults_stage(fused_mlp, dev, steps=DEFAULTS_STEPS):
@@ -5500,10 +5555,12 @@ def defaults_stage(fused_mlp, dev, steps=DEFAULTS_STEPS):
   from refnerf_tpu_torch.testing.mlp_defaults import DEFAULTS_NORMALS
   out, paths, variants = {}, {}, {}
   for dtype in ('bfloat16', 'float32'):
-    # Training runs K3: on trunk_wide_tf32.cu in f32.
+    # Training runs K3 and K4: on trunk_wide_tf32.cu and
+    # trunk_wide_bwd_tf32.cu in f32.
     wide = {fused_mlp.WIDE_TF32_LIBRARY if dtype == 'float32' else
             fused_mlp.FWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
-    bwide = {fused_mlp.BWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
+    bwide = {fused_mlp.WIDE_TF32_BWD_LIBRARY if dtype == 'float32' else
+             fused_mlp.BWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
     res = {}
     for name, bindings, terms in (
         ('DEFAULTS', (), DEFAULTS_TERMS),
@@ -5598,12 +5655,15 @@ def main():
   sass = sass_of([libs[name] for name in (
       'trunk_fwd_tma', 'trunk_bwd_tma', 'trunk_fwd_f32', 'trunk_bwd_f32',
       fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY,
-      fused_mlp.WIDE_TF32_LIBRARY)])
+      fused_mlp.WIDE_TF32_LIBRARY, fused_mlp.WIDE_TF32_BWD_LIBRARY)])
   check_sass(sass[libs['trunk_fwd_tma']])
   check_sass(sass[libs['trunk_bwd_tma']])
   # The f32 density gradient's TF32 products on wgmma, fed by TMA.
   check_wgmma_sass(sass[libs[fused_mlp.WIDE_TF32_LIBRARY]],
                    r'trunk_fwd_tf32_kernel', 1, 'trunk_wide_tf32')
+  # The f32 backward's (first order and with u's cotangent) likewise.
+  check_wgmma_sass(sass[libs[fused_mlp.WIDE_TF32_BWD_LIBRARY]],
+                   r'trunk_bwd_tf32_kernel', 2, 'trunk_wide_bwd_tf32')
   for name in ('trunk_fwd_f32', 'trunk_bwd_f32'):
     check_sass(sass[libs[name]], need=('FFMA', 'UTMALDG'),
                refuse=('HMMA', 'HGMMA'))
@@ -5660,6 +5720,8 @@ def main():
   f32_src = 'refnerf_tpu_torch/csrc/trunk_bwd_f32.cu'
   # f32 K3 of the defaults' trunk: three TF32 passes of wgmma.
   tf32_src = 'refnerf_tpu_torch/csrc/trunk_wide_tf32.cu'
+  # f32 K4 of the defaults' trunk: three TF32 passes of wgmma.
+  tf32_bwd_src = 'refnerf_tpu_torch/csrc/trunk_wide_bwd_tf32.cu'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
   # name: (description, source, line of the TPU kernel, launches on the
   # main path: phase 4's requests, phase 6's steps, or both of phase 8 or
@@ -5931,7 +5993,7 @@ def main():
         'f32_source': f32fwd_src if fwd else f32_src,
         **{'f32_' + k: f32[k] for k in keys},
         'f32_launches': count['float32']}
-    # The two redesigned instances, in turns with the designs they replaced.
+    # The redesigned instances, in turns with the designs they replaced.
     if which == 'K3 wide hc256':
       entry.update(f32_source=tf32_src, f32_was_source=f32fwd_src,
                    f32_fma_bound_ms=f32['fma_bound_ms'],
@@ -5940,15 +6002,23 @@ def main():
     if which == 'K4 wide hc256 ubar':
       entry.update(was_source=f'{tma_src} (REFNERF_TS_REBUILD)',
                    in_turns=b16['in_turns'])
+    if which in ('K4 wide hc256 1st', 'K4 wide hc256 ubar'):
+      entry.update(f32_source=tf32_bwd_src, f32_was_source=f32_src,
+                   f32_fma_bound_ms=f32['fma_bound_ms'],
+                   f32_route='three TF32 passes on wgmma',
+                   f32_in_turns=f32['in_turns'])
     line.append(entry)
-    if which == 'K3 wide hc256':
+    if which in ('K3 wide hc256', 'K4 wide hc256 1st', 'K4 wide hc256 ubar'):
       # The f32 instance's library of its own, as an entry of its own.
+      if not count['float32'] > 0:
+        raise AssertionError(f'phase 25: {which} f32 was launched no time')
       line.append({
-          'name': f'{which} f32 {desc}', 'route': 'cuda', 'source': tf32_src,
+          'name': f'{which} f32 {desc}', 'route': 'cuda',
+          'source': tf32_src if fwd else tf32_bwd_src,
           'replaces': f'{pallas}:{at}', 'launches': count['float32'],
           **{k: f32[k] for k in keys}, 'bound_by': f32['bound_by'],
           'fma_bound_ms': f32['fma_bound_ms'], 'dtype': 'float32',
-          'n_samples': N_SAMPLES, 'was_source': f32fwd_src,
+          'n_samples': N_SAMPLES, 'was_source': f32fwd_src if fwd else f32_src,
           'in_turns': f32['in_turns']})
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '

@@ -136,6 +136,18 @@ EXPORTS = {
         'refnerf_wide_tf32_k3': [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
                                  _P, _P, _P, _P, _P, _P, _P, _P],
     },
+    # The f32 backward (K4) of the same trunk, first order or with u's
+    # cotangent, on three TF32 passes of wgmma: the per-tile kernel (n, rp,
+    # d, depth, skip, nb, x0, x1, bh, bl, np, th, tl, b, wd, sbar, cbar,
+    # ubar, hs, zs, ss, ps, xs, ts, stream; ubar null: first order); its
+    # panels split by trunk_wide_tf32's refnerf_wide_tf32_split, its weight
+    # gradients trunk_w1024's refnerf_w1024_tn and refnerf_w1024_colsum,
+    # summed by trunk_bwd's refnerf_reduce.
+    'trunk_wide_bwd_tf32': {
+        'refnerf_wide_tf32_k4': [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P],
+    },
 }
 
 

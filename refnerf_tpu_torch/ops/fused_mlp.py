@@ -137,6 +137,7 @@ BWD_LIBRARY = {'bfloat16': 'trunk_bwd_tma', 'float32': 'trunk_bwd_f32'}
 W1024, W1024_HEAD = 1024, 256
 W1024_LIBRARY = 'trunk_w1024'
 _W1024_COLSUM_ROWS = 2048  # rows a CTA of a column sum takes
+_WIDE_COLSUM_ROWS = 256  # the same in the f32 wide-input backward (dwd)
 # The depth-1 width-128 directional trunk on [bottleneck 256 | at most
 # DIR1_D1 columns] with an f32 head of at most DIR1_HEADS outputs alone
 # (mip-NeRF 360's, and any Model left at the MLP's defaults: `dir1`) runs on
@@ -152,6 +153,12 @@ DIR1_PARTS = DIR1_HEADS * 128 + DIR1_HEADS
 # of wgmma over its weights laid out as 256 x 256 panels
 # (`tf32_panel_index`).
 WIDE_TF32_LIBRARY = 'trunk_wide_tf32'
+# The f32 backward (K4, first order and with u's cotangent) of the same
+# trunk (`wide_tf32_bwd`: the density gradient's fold not needed) runs on
+# csrc/trunk_wide_bwd_tf32.cu, three TF32 passes of wgmma over its own
+# panels (`tf32_bwd_panel_index`), its weight gradients on trunk_w1024.cu's
+# f32 tn product (`_wide_tf32_backward`).
+WIDE_TF32_BWD_LIBRARY = 'trunk_wide_bwd_tf32'
 # Shared memory a CTA may use on an H100 (227 KB): a launch that needs more
 # is refused by its C entry (cudaErrorInvalidConfiguration).
 SMEM_LIMIT = 232448
@@ -977,6 +984,12 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     # depth 8).
     return (1024 + 2 * 65536 + 4 * _TILE * 256 + 2 * 8192 + 8 * (L - 1) * 256
             + 4 * 2 * _TILE + 8 * 4)
+  if lib == WIDE_TF32_BWD_LIBRARY:
+    # csrc/trunk_wide_bwd_tf32.cu `bwd_smem_bytes`: K3's ring, activation
+    # tile, input slots and relu' bits, the ring's 4 mbarriers and ts's
+    # (228,392 B at depth 8).
+    return (1024 + 2 * 65536 + 4 * _TILE * 256 + 2 * 8192 + 8 * (L - 1) * 256
+            + 8 * 5)
   if lib == W1024_LIBRARY:
     # Its products' largest CTA (csrc/trunk_w1024.cu): bf16 the nt
     # product's `kNtSmem` (1 KB to align the swizzled tiles, 3 stages of a
@@ -1155,6 +1168,21 @@ def wide_tf32(pack: TrunkPack, y: bool = False, fold=None,
           pack.seg_dims[0] % 4 == 0 and wide_input(pack, y, fold, sp))
 
 
+def wide_tf32_bwd(pack: TrunkPack, y: bool = False, fold=None,
+                  sp: SpaModes = SpaModes()) -> bool:
+  """Whether the backward of `pack` runs on csrc/trunk_wide_bwd_tf32.cu:
+  the f32 spatial trunk of `wide_input` with the 256-wide compute-dtype head
+  and no f32 head, at least 2 layers, on two segments of the same width, at
+  most 256 columns and a multiple of 4, first order or with u's cotangent
+  (the JAX package's default MLP with and without density normals: K4 of
+  `wide_tf32`'s shape, `fold` given or not)."""
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  return (pack.compute_dtype == 'float32' and pack.wh is None and hc == 256
+          and pack.depth >= 2 and len(pack.seg_dims) == 2 and
+          pack.seg_dims[0] == pack.seg_dims[1] <= 256 and
+          pack.seg_dims[0] % 4 == 0 and wide_input(pack, y, fold, sp))
+
+
 def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
                     sp: SpaModes = SpaModes()) -> str:
   """The library whose kernel runs the forward of `pack`, decided from its
@@ -1211,12 +1239,16 @@ def backward_library(pack: TrunkPack, y: bool = False, fold=None) -> str:
   `_TMA_KIN` input columns the spatial trunk of `wide_input` (without y's
   cotangent `y`; with u's, `fold`, too) on the same two (their wide-input
   instances); the spatial trunk of `w1024` (first order) 'trunk_w1024';
-  the directional trunk of `dir1` 'trunk_dir1'; every other shape with an
-  instance (deeper, wider or narrower trunks) 'trunk_bwd'."""
+  the directional trunk of `dir1` 'trunk_dir1'; the f32 trunk of
+  `wide_tf32_bwd` (with or without `fold`) 'trunk_wide_bwd_tf32'; every
+  other shape with an instance (deeper, wider or narrower trunks)
+  'trunk_bwd'."""
   if w1024(pack, y, fold):
     return W1024_LIBRARY
   if dir1(pack, y, fold):
     return DIR1_LIBRARY
+  if wide_tf32_bwd(pack, y, fold):
+    return WIDE_TF32_BWD_LIBRARY
   if wide_input(pack, y, fold):
     return BWD_LIBRARY[pack.compute_dtype]
   if (pack.width in (256, 128) and pack.depth <= _TMA_DEPTH and
@@ -1960,6 +1992,98 @@ def tf32_fold_panel(fold) -> torch.Tensor:
   return src[torch.where(idx < 0, src.numel() - 1, idx)]
 
 
+def tf32_bwd_panel_index(depth: int, skip: int, kin: int, d: int, dg: bool,
+                         width: int = 256) -> np.ndarray:
+  """Where each entry of csrc/trunk_wide_bwd_tf32.cu's weight panels comes
+  from: [panels * width, width] indices into cat(pack.w, pack.wc.flatten()),
+  -1 for zeros, K permuted within every 8 as `tf32_panel_index`'s. In the
+  order a tile runs them: the recompute (layer 0's input share one panel a
+  segment, its d columns; each hidden layer's activation share, at the skip
+  layer its input share one a segment); with u's cotangent (`dg`) the
+  inner chain's W_l^T from layer depth - 1 down to 1; the head backward's wc
+  (B[n][k'] = wc[perm(k')][n]); the reverse's W_l^T likewise; with u's
+  cotangent the tangent's layers, as the recompute's but for the input
+  share of layer 0 and of the skip layer: two panels of 256 of the tangent's
+  columns (the segments side by side, as the pack's kin), whose A the kernel
+  reads from its ts scratch."""
+  ks = [kin if l == 0 else width + (kin if l == skip else 0)
+        for l in range(depth)]
+  offs = np.concatenate([[0], np.cumsum([width * k for k in ks])])
+  s = np.arange(width)
+  perm = (s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4
+  n, kp = np.arange(width)[:, None], perm[None, :]
+  out = []
+
+  def fwd(l, col0, cols=None):  # B[n][k'] = W_l[n][col0 + perm(k')]
+    idx = offs[l] + n * ks[l] + col0 + kp
+    out.append(idx if cols is None else np.where(kp < cols, idx, -1))
+
+  def rev(l):  # B[n][k'] = W_l[perm(k')][n]
+    out.append(offs[l] + kp * ks[l] + n)
+
+  def layers(col0, cols):  # the input share's panel g: col0[g], cols[g]
+    for g in (0, 1):
+      fwd(0, col0[g], cols[g])
+    for l in range(1, depth):
+      fwd(l, 0)
+      if l == skip:
+        for g in (0, 1):
+          fwd(l, width + col0[g], cols[g])
+
+  layers((0, d), (d, d))
+  if dg:
+    for l in range(depth - 1, 0, -1):
+      rev(l)
+  out.append(offs[-1] + kp * width + n)
+  for l in range(depth - 1, 0, -1):
+    rev(l)
+  if dg:
+    layers((0, width), (min(kin, width), kin - width))
+  return np.concatenate(out).astype(np.int32)
+
+
+def tf32_bwd_panels(pack: TrunkPack, dg: bool) -> torch.Tensor:
+  """csrc/trunk_wide_bwd_tf32.cu's weight panels of `pack`
+  (`wide_tf32_bwd`) in f32, [panels * 256, 256], before their TF32 split."""
+  idx = tf32_bwd_panel_index(pack.depth, pack.skip, pack.kin,
+                             pack.seg_dims[0], dg)
+  src = torch.cat([pack.w.float(), pack.wc.float().reshape(-1),
+                   pack.w.new_zeros(1, dtype=torch.float32)])
+  idx = torch.from_numpy(idx).long().to(src.device)
+  return src[torch.where(idx < 0, src.numel() - 1, idx)]
+
+
+def tf32_tp_index(d: int, nb: int) -> np.ndarray:
+  """Where each entry of csrc/trunk_wide_bwd_tf32.cu's tp panel (the B of
+  tp = ubar S^T, one [256][32] slice) comes from: indices into the fold S
+  [d, nb], -1 for zeros. B[c][k'] = S[c][perm(k')] for c < d, K permuted
+  within every 8 as `tf32_panel_index`'s."""
+  s = np.arange(32)
+  perm = (s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4
+  c, j = np.arange(256)[:, None], perm[None, :]
+  return np.where((c < d) & (j < nb), c * nb + j, -1).astype(np.int32)
+
+
+def tf32_tp_panel(fold) -> torch.Tensor:
+  """csrc/trunk_wide_bwd_tf32.cu's tp panel of the fold S [d, nb] in f32,
+  [256, 32], before its TF32 split."""
+  idx = torch.from_numpy(tf32_tp_index(*fold.shape)).long().to(fold.device)
+  src = torch.cat([fold.float().reshape(-1),
+                   fold.new_zeros(1, dtype=torch.float32)])
+  return src[torch.where(idx < 0, src.numel() - 1, idx)]
+
+
+@functools.lru_cache(maxsize=8)
+def _bwd_panel_index(depth, skip, kin, d, dg, device):
+  return torch.from_numpy(tf32_bwd_panel_index(depth, skip, kin, d,
+                                               dg)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _tp_index(d, nb, device):
+  return torch.from_numpy(tf32_tp_index(d, nb)).to(device)
+
+
 @functools.lru_cache(maxsize=8)
 def _panel_index(depth, skip, kin, d, device):
   return torch.from_numpy(tf32_panel_index(depth, skip, kin, d)).to(device)
@@ -2013,6 +2137,178 @@ def _wide_tf32_forward(segs, pack: TrunkPack, fold):
           stream)
       _check_launch(err, 'f32 density-gradient forward (trunk_wide_tf32)')
   return [sig, cout, u]
+
+
+def wide_tf32_splits(m: int, n: int, sms: int) -> int:
+  """The partials of an m x n weight gradient of the f32 wide-input backward
+  (`_wide_tf32_backward`) at most, whatever its rows: trunk_w1024.cu's f32
+  tn product's 128 x 128 tiles times the splits fill the card's `sms` SMs
+  once (on 132 SMs 256 x 256: 4 tiles, 33 splits; 256 x 512: 16; 256 x 768:
+  11). `w1024_splits`' cap of 16 would leave half the SMs idle at 256 x
+  256."""
+  return max(1, sms // ((m // 128) * -(-n // 128)))
+
+
+def wide_tf32_split(rows: int, m: int, n: int, sms: int) -> int:
+  """Rows per partial of that weight gradient over `rows` rows, in whole
+  32-row slices of the product: at most `wide_tf32_splits` partials."""
+  return -(-rows // (wide_tf32_splits(m, n, sms) * 32)) * 32
+
+
+def _wide_tf32_backward(segs, pack: TrunkPack, cots, fold=None,
+                        slab: Optional[int] = None):
+  """K4 on csrc/trunk_wide_bwd_tf32.cu (`wide_tf32_bwd`): first order, or
+  the second-order pass too where the cotangent of u (cots' fourth, with
+  `fold`) is given. The weights' panels (`tf32_bwd_panel_index`) and tp's
+  (`tf32_tp_index`, from the fold) split into their TF32 parts once a call
+  (trunk_wide_tf32.cu's `refnerf_wide_tf32_split`); per slab of `slab` rows
+  (`bwd_slab_rows`) the per-tile kernel writes the weight gradients'
+  operands (h, zeta, s, p [L][rp][256]; x, ts [rp][512]); trunk_w1024.cu's
+  f32 tn product forms each gradient's partials (dW_l in two launches,
+  zeta_l^T [h_{l-1} | x] with db_l, zeta_l's column sums, then s_l^T
+  [p_{l-1} | ts], which adds nothing to the bias; dwc and dbc from cbar),
+  its column sums dwd (sbar y, then p_{L-1}), and trunk_bwd.cu's
+  refnerf_reduce sums every partial in a fixed order. Returns what
+  trunk_backward_reference does (no dx)."""
+  from refnerf_tpu_torch.ops import cuda_build  # builds on first use
+  sbar, _, cbar, ubar, *_ = cots
+  dg = ubar is not None
+  if dg and fold is None:
+    raise ValueError('the cotangent of u needs the scale fold')
+  lib = cuda_build.library(WIDE_TF32_BWD_LIBRARY)
+  split_fn = cuda_build.library(WIDE_TF32_LIBRARY).refnerf_wide_tf32_split
+  prod = cuda_build.library(W1024_LIBRARY)
+  red = cuda_build.library('trunk_bwd').refnerf_reduce
+  ki = _kernel_inputs(segs, pack, DirModes())
+  x0, x1 = ki.x0, ki.x1
+  for t in (x0, x1):
+    if t.data_ptr() % 16:
+      raise ValueError('the f32 wide-input backward reads the IPE segments '
+                       'by TMA: each must start at a 16-byte aligned address')
+  n, dev, d = int(x0.shape[0]), x0.device, ki.d0
+  W, L, kin, hc = pack.width, pack.depth, pack.kin, int(pack.wc.shape[0])
+  f32 = lambda *shape: torch.empty(*shape, device=dev)
+  sbar = (torch.zeros(n, device=dev) if sbar is None
+          else sbar.float().reshape(n).contiguous())
+  cbar = (torch.zeros(n, hc, device=dev) if cbar is None
+          else cbar.float().reshape(n, hc).contiguous())
+  if cbar.data_ptr() % 16:
+    cbar = cbar.clone()
+  nb = int(fold.shape[1]) if dg else 0
+  ubar = ubar.float().reshape(n, nb).contiguous() if dg else None
+  fin = sum(pack.seg_dims)
+  k_pack = pack.k_dims()
+  k_out = [fin if l == 0 else W + (fin if l == pack.skip else 0)
+           for l in range(L)]
+  dws = [f32(W, k) for k in k_out]
+  dbs, dwd, dwc, dbc = f32(L, W), f32(1, W), f32(hc, W), f32(hc)
+  if not n:
+    for t in dws + [dbs, dwd, dwc, dbc]:
+      t.zero_()
+    return (dws, list(dbs.unbind(0)), dwd, None, None, dwc, dbc, None, None,
+            None)
+  slab = max(1, min(slab or bwd_slab_rows(W), n))
+  rp_max = -(-slab // _TILE) * _TILE
+  # The scratch: h, zeta (and s, p) [L][rp][W]; x (and ts) [rp][2 W].
+  regions = [('hs', L * W), ('zs', L * W)]
+  regions += [('ss', L * W), ('ps', L * W)] if dg else []
+  regions += [('xs', 2 * W)] + ([('ts', 2 * W)] if dg else [])
+  scratch = f32(sum(k for _, k in regions) * rp_max)
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  # Every slab's partials fit, a short last slab's too: sized by the most
+  # partials any slab makes (H24).
+  grads = [(W, k) for k in k_pack] + [(hc, W)]
+  splits = {g: wide_tf32_splits(*g, sms) for g in grads}
+  wpart = f32(max(splits[m, k] * m * k for m, k in grads))
+  bpart = f32(max(splits[m, k] * m for m, k in grads))
+  vpart = f32(-(-slab // _WIDE_COLSUM_ROWS) * W)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  at = lambda t, row, width: (None if t is None else
+                              t.data_ptr() + row * width * t.element_size())
+
+  def reduce(parts, nparts, rows, k, k_dst, dst, acc):
+    err = red(parts.data_ptr(), nparts, rows, k, k_dst, dst.data_ptr(), acc,
+              stream)
+    _check_launch(err, 'reduction kernel')
+
+  def wgrad(dst, bias, m, k, k_dst, rows, z, ldz, x0_, ldx0, n0, x1_, ldx1,
+            acc):
+    """dst (+)= z^T [x0_ | x1_] over the slab's rows, and bias (+)= z's
+    column sums where given, from the one product."""
+    ksplit = wide_tf32_split(rows, m, k, sms)
+    nparts = -(-rows // ksplit)
+    assert nparts <= splits[m, k], (rows, m, k, nparts)
+    assert nparts * m * k <= wpart.numel(), (rows, m, k, nparts)
+    assert nparts * m <= bpart.numel(), (rows, m, nparts)
+    err = prod.refnerf_w1024_tn(0, m, k, rows, ksplit, z, ldz, x0_, ldx0, n0,
+                                x1_, ldx1, wpart.data_ptr(),
+                                None if bias is None else bpart.data_ptr(),
+                                stream)
+    _check_launch(err, 'f32 wide-input weight gradient')
+    reduce(wpart, nparts, m, k, k_dst, dst, acc)
+    if bias is not None:
+      reduce(bpart, nparts, 1, m, m, bias, acc)
+
+  def colsum(rows, v, s, dst, acc):
+    err = prod.refnerf_w1024_colsum(0, rows, W, v, W, s, _WIDE_COLSUM_ROWS,
+                                    vpart.data_ptr(), stream)
+    _check_launch(err, 'f32 wide-input column sum')
+    reduce(vpart, -(-rows // _WIDE_COLSUM_ROWS), 1, W, W, dst, acc)
+
+  with torch.cuda.device(dev):
+    idx = _bwd_panel_index(L, pack.skip, kin, d, dg, dev)
+    hi, lo = torch.empty(2, idx.numel(), device=dev)
+    err = split_fn(idx.numel(), idx.data_ptr(), pack.w.data_ptr(),
+                   pack.w.numel(), pack.wc.data_ptr(), hi.data_ptr(),
+                   lo.data_ptr(), stream)
+    _check_launch(err, 'f32 wide-input backward weight split')
+    th = tl = None
+    if dg:
+      fold = fold.float().contiguous()
+      tidx = _tp_index(d, nb, dev)
+      th, tl = torch.empty(2, tidx.numel(), device=dev)
+      err = split_fn(tidx.numel(), tidx.data_ptr(), fold.data_ptr(),
+                     fold.numel(), fold.data_ptr(), th.data_ptr(),
+                     tl.data_ptr(), stream)
+      _check_launch(err, 'f32 wide-input backward fold split')
+    for start in range(0, n, slab):
+      rows, acc = min(slab, n - start), int(start > 0)
+      rp = -(-rows // _TILE) * _TILE
+      reg, off = {}, 0
+      for name, feats in regions:
+        reg[name] = scratch.data_ptr() + off * rp * 4
+        off += feats
+      layer = lambda name, l: reg[name] + l * W * rp * 4
+      err = lib.refnerf_wide_tf32_k4(
+          rows, rp, d, L, pack.skip, nb, at(x0, start, d), at(x1, start, d),
+          hi.data_ptr(), lo.data_ptr(), idx.numel() // (W * W), _ptr(th),
+          _ptr(tl), pack.b.data_ptr(), pack.wd.data_ptr(),
+          at(sbar, start, 1), at(cbar, start, hc), at(ubar, start, nb),
+          reg['hs'], reg['zs'], reg.get('ss'), reg.get('ps'), reg['xs'],
+          reg.get('ts'), stream)
+      _check_launch(err, 'f32 wide-input backward (trunk_wide_bwd_tf32)')
+      # The head: dwc = cbar^T y and dbc; dwd = sum sbar y (+ sum p_{L-1}).
+      y = layer('hs', L - 1)
+      wgrad(dwc, dbc, hc, W, W, rows, at(cbar, start, hc), hc, y, W, W, None,
+            0, acc)
+      colsum(rows, y, at(sbar, start, 1), dwd, acc)
+      if dg:
+        colsum(rows, layer('ps', L - 1), None, dwd, 1)
+      for l in range(L):
+        for z, a, x, bias, acc_l in (
+            ('zs', 'hs', 'xs', dbs[l], acc), ('ss', 'ps', 'ts', None, 1)):
+          if z == 'ss' and not dg:
+            continue
+          if l == 0:
+            src = (reg[x], 2 * W, kin, None, 0)
+          elif l == pack.skip:
+            src = (layer(a, l - 1), W, W, reg[x], 2 * W)
+          else:
+            src = (layer(a, l - 1), W, W, None, 0)
+          wgrad(dws[l], bias, W, k_pack[l], k_out[l], rows, layer(z, l), W,
+                *src, acc_l)
+  return (dws, list(dbs.unbind(0)), dwd, None, None, dwc, dbc, None, None,
+          None)
 
 
 def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
@@ -2281,6 +2577,11 @@ def trunk_backward_kernel(segs, pack: TrunkPack, cots, fold=None,
       raise NotImplementedError('the width-1024 backward emits no segment '
                                 'cotangents')
     return _w1024_backward(segs, pack, cots, slab)
+  if backward_library(pack, ybar is not None, fold) == WIDE_TF32_BWD_LIBRARY:
+    if needs_dx:
+      raise NotImplementedError('the f32 wide-input backward emits no segment '
+                                'cotangents')
+    return _wide_tf32_backward(segs, pack, cots, fold, slab)
   if backward_library(pack, ybar is not None, fold) == DIR1_LIBRARY:
     # It computes dx in the same pass whether or not needs_dx asks.
     out = _dir1_backward(segs, pack, cots)

@@ -4,7 +4,8 @@ From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
     python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
         [--lib trunk_bwd_tma|trunk_bwd_f32|trunk_bwd|trunk_fwd_tma|
-               trunk_fwd_f32|trunk_fwd|trunk_wide_tf32] [--dtype float32]
+               trunk_fwd_f32|trunk_fwd|trunk_wide_tf32|trunk_wide_bwd_tf32]
+        [--dtype float32]
         [--cases 'K5 W128']
 
 Builds a trunk library a second time with -DREFNERF_PHASES (its own file
@@ -22,15 +23,21 @@ FMA forward of csrc/trunk_fwd.cu (fused_mlp.forward_library patched to send
 every shape there: the design that trunk_fwd_tma.cu (bf16) and
 trunk_fwd_f32.cu (--dtype float32) replaced); --lib trunk_wide_tf32 the f32
 density-gradient forward of csrc/trunk_wide_tf32.cu (its case 'K3 wide
-hc256', float32 by default).
+hc256', float32 by default); --lib trunk_wide_bwd_tf32 the f32 backward of
+the same trunk, csrc/trunk_wide_bwd_tf32.cu (its cases 'K4 wide hc256
+ubar' and 'K4 wide hc256 1st', float32 by default; its weight gradients
+on trunk_w1024.cu's tn product and column sums). With --lib trunk_bwd_f32
+those two cases run on the design it replaced, trunk_bwd_f32.cu's
+`bwd_f32_wide` (fused_mlp.backward_library patched to send them there).
 Thread 0 of every CTA of the per-tile kernel adds the clock64() cycles of
 each segment, closed by a barrier, to a (phase, kind) sum; kinds are the
 products, the scalar passes and the stores (the backward's scratch, the
 forward's outputs). Then, at N = 524,288 samples in --dtype and for each
 case (backward: K4 with the cotangent of u, alone and with K6+K7; K5 with
 dx, alone and with K8+K9+K10; first-order K4; K5 at width 128; K4 wide,
-the proposal trunk on 504 columns; K4 wide hc256 ubar, the defaults' trunk
-with the 256-wide bottleneck and u's cotangent; forward: K3 alone and with
+the proposal trunk on 504 columns; K4 wide hc256 ubar and K4 wide hc256
+1st, the defaults' trunk with the 256-wide bottleneck, with u's cotangent
+and first order; forward: K3 alone and with
 K6+K7, K1 alone and with K6+K7, K2 alone and with K8+K9+K10, K2 at width
 128, K11 with y out, K1 wide, K3 wide hc256; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
 per-tile (and for the backward the weight-gradient and reduction) kernels
@@ -58,7 +65,7 @@ PHASES = ('input and K6', 'recompute', 'heads', 'inner chain',
 FWD_PHASES = ('input (K7, K8)', 'layers', 'heads (K10, bottleneck)',
               'inner chain and fold (K3)', 'K6 scan')
 KINDS = ('products', 'scalar passes', 'stores')
-KERNELS = ('trunk_bwd', 'wgrad', 'reduce')
+KERNELS = ('trunk_bwd', 'wgrad', 'tn', 'colsum', 'reduce')
 FWD_KERNELS = ('trunk_fwd',)
 
 
@@ -166,6 +173,8 @@ def cases(chip_smoke, fused_mlp, dev, cdt):
   cotsd = (sbar, None, cbar.to(tdt), ubar)
   yield 'K4 wide hc256 ubar', lambda: fused_mlp.trunk_backward_kernel(
       cs, pack, cotsd, fold)
+  yield 'K4 wide hc256 1st', lambda: fused_mlp.trunk_backward_kernel(
+      cs, pack, cotsd[:3] + (None,))
 
 
 def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
@@ -226,7 +235,7 @@ def main():
   ap.add_argument('--lib', default='trunk_bwd_tma',
                   choices=('trunk_bwd_tma', 'trunk_bwd_f32', 'trunk_bwd',
                            'trunk_fwd_tma', 'trunk_fwd_f32', 'trunk_fwd',
-                           'trunk_wide_tf32'))
+                           'trunk_wide_tf32', 'trunk_wide_bwd_tf32'))
   ap.add_argument('--dtype', default=None, choices=('bfloat16', 'float32'),
                   help='float32 for the *_f32 libraries, else bfloat16 by '
                   'default')
@@ -255,6 +264,11 @@ def main():
   patched = lambda name: phased if name == a.lib else normal(name)
   if a.lib == 'trunk_bwd':
     fused_mlp.backward_library = lambda *a, **k: 'trunk_bwd'
+  if a.lib == 'trunk_bwd_f32':  # the defaults' f32 trunk on its old design
+    route = fused_mlp.backward_library
+    fused_mlp.backward_library = lambda *a, **k: (
+        'trunk_bwd_f32' if route(*a, **k) == fused_mlp.WIDE_TF32_BWD_LIBRARY
+        else route(*a, **k))
   if a.lib == 'trunk_fwd':
     fused_mlp.forward_library = lambda pack, *modes, **kw: 'trunk_fwd'
   forward = a.lib.startswith('trunk_fwd') or a.lib == 'trunk_wide_tf32'

@@ -2206,7 +2206,9 @@ def test_defaults_wide_trunk_matches_plain(dev, n, cdt, hc):
         fused_mlp.WIDE_TF32_LIBRARY if fused_mlp.wide_tf32(pack, fold=f)
         else fused_mlp.FWD_LIBRARY[cdt])
     assert fused_mlp.backward_library(pack, fold=f) == (
-        fused_mlp.BWD_LIBRARY[cdt])
+        fused_mlp.WIDE_TF32_BWD_LIBRARY if fused_mlp.wide_tf32_bwd(pack,
+                                                                   fold=f)
+        else fused_mlp.BWD_LIBRARY[cdt])
   c1 = (sbar, None, cbar.to(fused_mlp.DTYPES[cdt]), None)
   c2 = c1[:3] + (ubar,)
   cases = (
@@ -2234,14 +2236,17 @@ def test_defaults_wide_trunk_matches_plain(dev, n, cdt, hc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('which', ['K3 f32', 'K4 bf16 ubar'])
+@pytest.mark.parametrize('which', ['K3 f32', 'K4 bf16 ubar', 'K4 f32 1st',
+                                   'K4 f32 ubar'])
 @pytest.mark.parametrize('n', [1, 63, 64, 65, 128, 129, 257, 4097])
 def test_redesigned_defaults_instances_match_plain(dev, n, which):
-  # The two instances redesigned for the defaults' spatial trunk (8 x 256 on
+  # The instances redesigned for the defaults' spatial trunk (8 x 256 on
   # 504 columns, the 256-wide bottleneck) at n rows, across the 64-row
   # tiles: f32 K3 on csrc/trunk_wide_tf32.cu (three TF32 passes of wgmma),
   # sigma and the bottleneck by BOUND, u by GRAD_BOUND; bf16
-  # K4 with u's cotangent (the tangent read back at the skip layer), every
+  # K4 with u's cotangent (the tangent read back at the skip layer), and
+  # f32 K4 first order and with u's cotangent on
+  # csrc/trunk_wide_bwd_tf32.cu (three TF32 passes of wgmma), every
   # gradient by GRAD_BOUND; each a second time bit-identical (H4).
   cdt = 'bfloat16' if 'bf16' in which else 'float32'
   segs, ws, bs, kw, fold, (sbar, cbar, ubar) = _defaults_case(dev, n, 256)
@@ -2255,11 +2260,17 @@ def test_redesigned_defaults_instances_match_plain(dev, n, which):
     plain = lambda: fused_mlp.trunk_reference(
         cs, ws, bs, compute_dtype=cdt, density_grad=True, fold=fold, **kw)
   else:
-    cots = (sbar, None, cbar.to(fused_mlp.DTYPES[cdt]), ubar)
+    first = which.endswith('1st')
+    cots = (sbar, None, cbar.to(fused_mlp.DTYPES[cdt]),
+            None if first else ubar)
+    f = None if first else fold
+    if cdt == 'float32':
+      assert fused_mlp.backward_library(pack, fold=f) == (
+          fused_mlp.WIDE_TF32_BWD_LIBRARY)
     nv = 0
-    kernel = lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots, fold)
+    kernel = lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots, f)
     plain = lambda: fused_mlp.trunk_backward_reference(
-        cs, ws, bs, cots, compute_dtype=cdt, fold=fold, **kw)
+        cs, ws, bs, cots, compute_dtype=cdt, fold=f, **kw)
   with torch.no_grad():
     got, again, want = (_flat(f()) for f in (kernel, kernel, plain))
   torch.cuda.synchronize()

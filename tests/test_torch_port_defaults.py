@@ -566,6 +566,224 @@ def test_k3_tf32_passes_against_the_f32_bound(passes):
     assert max(reads) > 1, reads
 
 
+# ----------------------- the f32 K4 on the tensor cores, a model
+
+
+def _bwd_case(seed, dg, n=64):
+  """`_tf32_case`'s trunk with the cotangents of sigma, the head and (dg) u:
+  (JAX's case, its head, the port's segments, pack, fold and (sbar, cbar,
+  ubar or None))."""
+  case, head, segs, pack, fold = _tf32_case(seed, n=n)
+  rng = np.random.default_rng(seed + 200)
+  sbar = _t(rng.normal(size=n).astype(np.float32))
+  cbar = _t((rng.normal(size=(n, 256)) * 0.1).astype(np.float32))
+  ubar = _t(case[5]) if dg else None
+  return case, head, segs, pack, fold, (sbar, cbar, ubar)
+
+
+def _k4_tf32_model(pack, segs, fold, cots, product, faults=()):
+  """The backward as csrc/trunk_wide_bwd_tf32.cu and its wrapper
+  (`fused_mlp._wide_tf32_backward`) compute it for `pack`
+  (`fused_mlp.wide_tf32_bwd`): each product of the tile A B^T over its
+  weight panels (`fused_mlp.tf32_bwd_panels`, in the tile's order), A's
+  columns permuted within every 8 as the panels' K is; `product(a, b)`
+  computes a @ b. With u's cotangent first tp = ubar S^T against tp's panel
+  (`fused_mlp.tf32_tp_panel`) and ts = (tp xc, -(tp xs)) into a [n, 512]
+  scratch beside x's (the segments side by side); the recompute h_l =
+  relu(acc + b_l); the inner chain s_l; the head's zeta_{L-1} = relu'(h)
+  (cbar wc + sbar wd); the reverse zeta_l; the tangent chain p_l from ts's
+  two panels. The weight gradients as trunk_w1024.cu's tn product forms
+  them, product(z^T, x) over the rows: dW_l = zeta_l^T [h_{l-1} | x] +
+  s_l^T [p_{l-1} | ts] (two launches summed), db_l and dbc the column sums
+  of zeta_l and cbar, dwc = cbar^T y, dwd = sum sbar y + sum p_{L-1}.
+  Planted `faults`: 'db s-sums' (db_l from the stacked [zeta_l; s_l]), 'ts
+  own segment' (each column of ts scaled by its own segment's value).
+  Returns (y, dws, dbs, dwd, dwc, dbc)."""
+  width, d, L = 256, int(segs[0].shape[1]), pack.depth
+  sbar, cbar, ubar = cots
+  dg = ubar is not None
+  n = int(segs[0].shape[0])
+  panels = iter(fused_mlp.tf32_bwd_panels(pack, dg).reshape(-1, width,
+                                                             width))
+  s = np.arange(width)
+  perm = torch.from_numpy((s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4)
+  pad = lambda x, k: torch.nn.functional.pad(x.float(), (0, k - x.shape[1]))
+  x0, x1 = (pad(x, width) for x in segs)
+
+  def run(a_list):
+    a = torch.cat([t[:, perm] for t in a_list], 1).contiguous()
+    b = torch.cat([next(panels).t() for _ in a_list], 0).contiguous()
+    return product(a, b)
+
+  def side_by_side(a, b):  # the scratch's [n, 512]: a | b | zeros
+    return pad(torch.cat([a, b], 1), 2 * width)
+
+  xcat = side_by_side(segs[0].float(), segs[1].float())
+  if dg:
+    tp = product(pad(ubar, 32)[:, perm[:32]].contiguous(),
+                 fused_mlp.tf32_tp_panel(fold).t().contiguous())[:, :d]
+    xs, xc = (segs[1], segs[0]) if 'ts own segment' in faults else segs
+    ts = side_by_side(tp * xc.float(), -(tp * xs.float()))
+  hs, masks, act = [], [], None
+  for l in range(L):
+    act = torch.relu(run([x0, x1] if l == 0 else [act, x0, x1]
+                         if l == pack.skip else [act]) + pack.b[l])
+    hs.append(act)
+    masks.append(act > 0)
+  ss = [None] * L
+  if dg:
+    ss[-1] = masks[-1] * pack.wd
+    for l in range(L - 1, 0, -1):
+      ss[l - 1] = masks[l - 1] * run([ss[l]])
+  zs = [None] * L
+  zs[-1] = masks[-1] * (run([cbar.float()]) + sbar[:, None] * pack.wd)
+  for l in range(L - 1, 0, -1):
+    zs[l - 1] = masks[l - 1] * run([zs[l]])
+  ps = [None] * L
+  if dg:
+    for l in range(L):
+      a = ([ts[:, :width], ts[:, width:]] if l == 0 else
+           [ps[l - 1], ts[:, :width], ts[:, width:]] if l == pack.skip
+           else [ps[l - 1]])
+      ps[l] = masks[l] * run(a)
+  wg = lambda z, x: product(z.t().contiguous(), x.contiguous())
+  fin, kin = 2 * d, pack.kin
+  dws, dbs = [], []
+  for l in range(L):
+    for z, a, x in ((zs, hs, xcat), (ss, ps, ts if dg else None)):
+      if z[l] is None:
+        continue
+      xl = (x[:, :kin] if l == 0 else torch.cat([a[l - 1], x[:, :kin]], 1)
+            if l == pack.skip else a[l - 1])
+      dw = wg(z[l], xl) if z is zs else dw + wg(z[l], xl)
+    dws.append(dw[:, :(fin if l == 0 else width + (fin if l == pack.skip
+                                                   else 0))])
+    db = zs[l].sum(0)
+    dbs.append(db + ss[l].sum(0) if 'db s-sums' in faults else db)
+  dwd = (sbar[:, None] * hs[-1]).sum(0) + (ps[-1].sum(0) if dg else 0)
+  return (hs[-1], dws, dbs, dwd[None], wg(cbar.float(), hs[-1]),
+          cbar.float().sum(0))
+
+
+def _k4_reads(got, jax_case, head, cots, bound=GRAD_BOUND['float32']):
+  """How far the model's outputs (`_k4_tf32_model`) are from JAX
+  reference_encoded_trunk with density_grad=True and the 256-wide head,
+  each as a share of its bound: sigma and the bottleneck from the
+  recomputed y (exact f32 on top of it) within KERNEL_BOUND['float32'] of
+  max(1, their largest entry); the gradients of <sbar, sigma> + <cbar,
+  head> + <ubar, u> (ubar 0 without u's cotangent) through jax.vjp within
+  `bound` by relative L2 (H8)."""
+  ks, bs, wd, lm, lv, _, _ = jax_case
+  wc, bc = head
+  sbar, cbar, ubar = cots
+
+  def ref(ks_, bs_, wd_, wc_, bc_):
+    return jfused.reference_encoded_trunk(
+        jnp.asarray(lm), jnp.asarray(lv), SCALES, ks_, bs_, wd_,
+        skip_period=4, density_grad=True, head_cdt=(wc_, bc_))
+
+  (jsig, jc, ju), vjp = jax.vjp(
+      ref, [jnp.asarray(k) for k in ks], [jnp.asarray(b) for b in bs],
+      jnp.asarray(wd), jnp.asarray(wc), jnp.asarray(bc))
+  u_cot = np.zeros(ju.shape, np.float32) if ubar is None else ubar.numpy()
+  jks, jbs, jwd, jwc, jbc = vjp((jnp.asarray(sbar.numpy()).reshape(jsig.shape),
+                                 jnp.asarray(cbar.numpy()),
+                                 jnp.asarray(u_cot)))
+  y, dws, dbs, dwd, dwc, dbc = got
+  wc_t, bc_t = _t(wc), _t(bc)
+  values = [(y @ _t(wd)).reshape(-1), y @ wc_t + bc_t]
+  reads = [float((v - _t(_np(w)).reshape(v.shape)).abs().max()) /
+           max(1.0, float(np.abs(_np(w)).max())) / KERNEL_BOUND['float32']
+           for v, w in zip(values, (jsig, jc))]
+  l2 = lambda a, b: float((a.float() - b).norm() / b.norm()) / bound
+  reads += [l2(dws[l], _t(_np(jks[l]).T)) for l in range(len(dws))]
+  reads += [l2(dbs[l], _t(_np(jbs[l]))) for l in range(len(dbs))]
+  reads += [l2(dwd, _t(_np(jwd).T)), l2(dwc, _t(_np(jwc).T)),
+            l2(dbc, _t(_np(jbc)))]
+  return reads
+
+
+def test_tf32_bwd_panels_hold_every_product_of_the_backward():
+  # csrc/trunk_wide_bwd_tf32.cu's weight panels
+  # (`fused_mlp.tf32_bwd_panel_index`: 37 of 256 x 256 with u's cotangent,
+  # 19 first order, at depth 8 with the skip at layer 5 on 2 x 252 columns:
+  # the recompute, the inner chain, the head backward, the reverse and the
+  # tangent, K permuted within every 8) and tp's (`tf32_tp_index`, 256 x
+  # 32), run in the kernel's order in exact f32 (`_k4_tf32_model`): every
+  # gradient within 1e-6 of the largest entry of the port's plain f32
+  # backward (trunk_backward_reference), with and without u's cotangent.
+  # The f32 defaults' K4 routes there, 228,392 B of shared memory a CTA.
+  for dg, count in ((True, 37), (False, 19)):
+    _, _, segs, pack, fold, cots = _bwd_case(9, dg)
+    f = fold if dg else None
+    assert fused_mlp.wide_tf32_bwd(pack, fold=f)
+    assert fused_mlp.backward_library(pack, fold=f) == (
+        fused_mlp.WIDE_TF32_BWD_LIBRARY)
+    assert fused_mlp.kernel_smem(fused_mlp.WIDE_TF32_BWD_LIBRARY, pack, 256,
+                                 f) == 228392
+    idx = fused_mlp.tf32_bwd_panel_index(8, 5, 512, 252, dg)
+    assert idx.shape == (count * 256, 256)
+    assert idx.max() < pack.w.numel() + 65536
+    tp = fused_mlp.tf32_tp_index(252, NB)
+    assert tp.shape == (256, 32) and (tp >= 0).sum() == 252 * NB
+    _, dws, dbs, dwd, dwc, dbc = _k4_tf32_model(pack, segs, fold, cots,
+                                                lambda a, b: a @ b)
+    ws, bs, kw = fused_mlp.unpack_trunk(pack)
+    sbar, cbar, ubar = cots
+    want = fused_mlp.trunk_backward_reference(
+        segs, ws, bs, (sbar, None, cbar, ubar), fold=fold, **kw)
+    for g, w in zip(dws + dbs + [dwd, dwc, dbc],
+                    want[0] + want[1] + [want[2], want[5], want[6]]):
+      assert _rel(g, w) < 1e-6
+
+
+@pytest.mark.parametrize('dg', [True, False])
+@pytest.mark.parametrize('passes', [3, 1])
+def test_k4_tf32_passes_against_the_f32_bounds(passes, dg):
+  # The model with the kernel's arithmetic: every product of the tile and
+  # of the weight gradients three TF32 passes, each 32-deep slice (of K, or
+  # of the rows) summed into a fresh set added in f32 (H26,
+  # `_truncated_product`), with and without u's cotangent, against JAX
+  # reference_encoded_trunk with density_grad=True and the 256-wide head at
+  # 64 rows (`_k4_reads`): the recomputed y's sigma and bottleneck within
+  # KERNEL_BOUND, every gradient within GRAD_BOUND by relative L2, and
+  # within it of the port's plain f32 backward too. One pass (hi.hi alone)
+  # reads above a bound.
+  case, head, segs, pack, fold, cots = _bwd_case(10, dg)
+  if passes == 3:
+    product = lambda a, b: torch.from_numpy(
+        _truncated_product(a, b, 32)).float()
+  else:
+    product = lambda a, b: _tf32_product(a, b, passes=1)
+  got = _k4_tf32_model(pack, segs, fold, cots, product)
+  reads = _k4_reads(got, case, head, cots)
+  if passes == 3:
+    assert max(reads) < 1, reads
+    ws, bs, kw = fused_mlp.unpack_trunk(pack)
+    sbar, cbar, ubar = cots
+    want = fused_mlp.trunk_backward_reference(
+        segs, ws, bs, (sbar, None, cbar, ubar), fold=fold, **kw)
+    _, dws, dbs, dwd, dwc, dbc = got
+    for g, w in zip(dws + dbs + [dwd, dwc, dbc],
+                    want[0] + want[1] + [want[2], want[5], want[6]]):
+      assert float((g - w).norm() / w.norm()) < GRAD_BOUND['float32']
+  else:
+    assert max(reads) > 1, reads
+
+
+@pytest.mark.parametrize('fault', ['db s-sums', 'ts own segment'])
+def test_k4_tf32_faults_read_above_the_bound(fault):
+  # Two planted faults of the backward's design read above chip_smoke.py's
+  # GRAD_BOUND against JAX (`_k4_reads`), with three TF32 passes: the bias
+  # gradients from the product stacked over [zeta_l; s_l] (the tangent adds
+  # nothing to the biases), and ts made from each column's own segment
+  # instead of its partner's.
+  case, head, segs, pack, fold, cots = _bwd_case(11, True)
+  got = _k4_tf32_model(pack, segs, fold, cots, lambda a, b: torch.from_numpy(
+      _truncated_product(a, b, 32)).float(), faults=[fault])
+  assert max(_k4_reads(got, case, head, cots)) > 1
+
+
 # --------------------------------------------------------- the routing
 
 
@@ -586,7 +804,10 @@ def test_defaults_shape_routes_to_the_wide_instances(cdt, hc):
   # 8 x 256 on 504 columns (512 packed), the density head and a 256- or
   # 128-wide bottleneck, with and without the density gradient: the
   # wide-input pair of the dtype's libraries (the f32 density gradient with
-  # the 256-wide head on csrc/trunk_wide_tf32.cu), each launch within an
+  # the 256-wide head on csrc/trunk_wide_tf32.cu, the f32 backward with the
+  # 256-wide head, with and without it, on csrc/trunk_wide_bwd_tf32.cu:
+  # 228,392 B; the f32 forward without it stays on trunk_fwd_f32.cu), each
+  # launch within an
   # H100's shared memory (the C sums kernel_smem mirrors: bf16 forward
   # 231,480 B at two tiles and a 3-stage ring, 222,648 B with the density
   # gradient at one tile, the fold staged and a 3-stage ring; bf16 backward
@@ -601,8 +822,9 @@ def test_defaults_shape_routes_to_the_wide_instances(cdt, hc):
   tf32 = cdt == 'float32' and hc == 256
   smem = {'bfloat16': ((231480, 218440),
                        (222648, 215240 if hc == 256 else 212200)),
-          'float32': ((224392, 222600),
-                      (228896 if tf32 else 221192, 216376))}[cdt]
+          'float32': ((224392, 228392 if tf32 else 222600),
+                      (228896 if tf32 else 221192,
+                       228392 if tf32 else 216376))}[cdt]
   modes = (False, fused_mlp.DirModes(), fused_mlp.SpaModes())
   for f, sums in zip((None, fold), smem):
     assert pack.kin == 512 and fused_mlp.wide_input(pack, fold=f)
@@ -611,8 +833,10 @@ def test_defaults_shape_routes_to_the_wide_instances(cdt, hc):
             fused_mlp.backward_library(pack, fold=f))
     assert libs == (fused_mlp.WIDE_TF32_LIBRARY if tf32 and f is not None
                     else fused_mlp.FWD_LIBRARY[cdt],
-                    fused_mlp.BWD_LIBRARY[cdt])
+                    fused_mlp.WIDE_TF32_BWD_LIBRARY if tf32
+                    else fused_mlp.BWD_LIBRARY[cdt])
     assert fused_mlp.wide_tf32(pack, fold=f) == (tf32 and f is not None)
+    assert fused_mlp.wide_tf32_bwd(pack, fold=f) == tf32
     assert tuple(fused_mlp.kernel_smem(lib, pack, hc, f)
                  for lib in libs) == sums
     assert max(sums) <= fused_mlp.SMEM_LIMIT
@@ -635,6 +859,92 @@ def test_the_density_gradient_past_the_wide_basis_is_named():
     fused_mlp._kernel_for(pack, 256, 'on', fold=fold)
 
 
+def test_f32_backward_route_leaves_the_other_shapes_alone():
+  # Only the f32 trunk of `wide_tf32_bwd` (the 256-wide head, no f32 head)
+  # takes csrc/trunk_wide_bwd_tf32.cu, with or without the fold; its f32
+  # forward without the density gradient stays on trunk_fwd_f32.cu. The
+  # 128-wide head, an f32 head beside the 256-wide one and bf16 keep their
+  # wide-input routes, and the shapes still without an instance stay named
+  # (tests/test_torch_port_mipnerf360.py pins the 11).
+  fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, NB))
+  f32 = _defaults_pack('float32', 256)
+  assert fused_mlp.forward_library(f32) == 'trunk_fwd_f32'
+  for f in (None, fold):
+    assert fused_mlp.backward_library(f32, fold=f) == (
+        fused_mlp.WIDE_TF32_BWD_LIBRARY)
+    assert fused_mlp.backward_library(f32, y=True, fold=f) != (
+        fused_mlp.WIDE_TF32_BWD_LIBRARY)
+    for pack in (_defaults_pack('float32', 128), _defaults_pack('bfloat16',
+                                                                 256)):
+      assert not fused_mlp.wide_tf32_bwd(pack, fold=f)
+      assert fused_mlp.backward_library(pack, fold=f) == (
+          fused_mlp.BWD_LIBRARY[pack.compute_dtype])
+    head = f32._replace(wh=torch.zeros(3, 256), bh=torch.zeros(3))
+    assert not fused_mlp.wide_tf32_bwd(head, fold=f)
+    assert fused_mlp.backward_library(head, fold=f) == 'trunk_bwd_f32'
+
+
+def test_wide_tf32_bwd_launch_arguments_match_exports(monkeypatch):
+  # The f32 defaults' K4 through trunk_backward_kernel on CPU tensors with
+  # the libraries replaced by _ArgCheck (test_torch_port_cascade.py), with
+  # and without u's cotangent: the panels' split (37 or 19 of 65,536
+  # entries) and tp's (256 x 32, with u's cotangent), then per slab the
+  # per-tile kernel refnerf_wide_tf32_k4 (100 rows in a 128-row scratch,
+  # 252 columns a segment, depth 8, the skip at layer 5, 21 basis vectors
+  # or 0), the head's tn product (dwc, dbc) and reductions, dwd's column
+  # sums, and each layer's tn products (zeta's with the bias partials, then
+  # s's without), each with the argument list cuda_build.EXPORTS declares;
+  # the products' splits fill the SMs.
+  from refnerf_tpu_torch.ops import cuda_build
+  import contextlib
+  calls = []
+  fake = _ArgCheck(calls)
+  monkeypatch.setattr(cuda_build, 'library', lambda name: fake)
+  monkeypatch.setattr(torch.cuda, 'device',
+                      lambda dev: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, 'current_stream',
+                      lambda dev=None: type('S', (), {'cuda_stream': 0})())
+  monkeypatch.setattr(torch.cuda, 'get_device_properties',
+                      lambda dev: type('P', (), {
+                          'multi_processor_count': 132})())
+  for dg, np_ in ((True, 37), (False, 19)):
+    del calls[:]
+    _, _, segs, pack, fold, cots = _bwd_case(12, dg, n=100)
+    sbar, cbar, ubar = cots
+    out = fused_mlp.trunk_backward_kernel(segs, pack, (sbar, None, cbar, ubar),
+                                          fold if dg else None)
+    assert [tuple(t.shape) for t in out[0]] == [
+        (256, 504)] + [(256, 256)] * 4 + [(256, 760)] + [(256, 256)] * 2
+    names = [fn for fn, _ in calls]
+    assert names[:2 if dg else 1] == ['refnerf_wide_tf32_split'] * (
+        2 if dg else 1)
+    k4 = [args for fn, args in calls if fn == 'refnerf_wide_tf32_k4']
+    assert len(k4) == 1
+    assert k4[0][:6] == (100, 128, 252, 8, 5, NB if dg else 0)
+    assert k4[0][10] == np_
+    assert (k4[0][11] is None) == (not dg) and (k4[0][17] is None) == (not dg)
+    assert calls[0][1][0] == np_ * 65536
+    if dg:
+      assert calls[1][1][0] == 256 * 32 and calls[1][1][3] == 252 * NB
+    tn = [args for fn, args in calls if fn == 'refnerf_w1024_tn']
+    # the head, then per layer zeta's (and s's): (Mo, No, rows, n0)
+    assert len(tn) == 1 + 8 * (2 if dg else 1)
+    assert all(a[0] == 0 and a[3] == 100 for a in tn)
+    assert (tn[0][1], tn[0][2], tn[0][9]) == (256, 256, 256)
+    layers = tn[1:]
+    per = 2 if dg else 1
+    assert [a[2] for a in layers[::per]] == [512] + [256] * 4 + [768] + [
+        256] * 2
+    assert all(a[13] is not None for a in layers[::per])
+    if dg:
+      assert all(a[13] is None for a in layers[1::2])
+    assert names.count('refnerf_w1024_colsum') == (2 if dg else 1)
+  # The partials fill the 132 SMs once (`wide_tf32_splits`): 33, 16 and 11
+  # splits of the 256 x 256, 256 x 512 and 256 x 768 gradients.
+  assert [fused_mlp.wide_tf32_splits(256, k, 132) for k in (256, 512, 768)
+          ] == [33, 16, 11]
+
+
 # The full-width defaults in a step and a request, the kernels stubbed.
 FULL_CUT = ['Model.num_prop_samples = 8', 'Model.num_nerf_samples = 8',
             'Config.batch_size = 2']
@@ -650,12 +960,14 @@ def test_defaults_step_routes_every_trunk_to_an_instance(monkeypatch, cdt,
   # weights (test_torch_port_cascade.py `_stubbed_kernels`): every spatial
   # trunk launch at every level goes to the wide-input pair (K3 and K4 with
   # u's cotangent in the step, K1 in the request; 'K3 wide' / 'K4 wide' /
-  # 'K1 wide' 3 each; f32 K3 on trunk_wide_tf32.cu), every directional one
+  # 'K1 wide' 3 each; f32 K3 on trunk_wide_tf32.cu, f32 K4 on
+  # trunk_wide_bwd_tf32.cu), every directional one
   # to trunk_dir1.cu, none to a plain version; the step under 'on' equals
   # 'off' to the bit.
   routes, fwd_launches = _stubbed_kernels(monkeypatch)
   fwd, bwd = fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt]
   k3 = fused_mlp.WIDE_TF32_LIBRARY if cdt == 'float32' else fwd
+  k4 = fused_mlp.WIDE_TF32_BWD_LIBRARY if cdt == 'float32' else bwd
   runs = {}
   for mode in ('on', 'off'):
     config, gin = configs.parse([], CONFIGS[which] + FULL_CUT + _cdt(cdt) + [
@@ -686,7 +998,7 @@ def test_defaults_step_routes_every_trunk_to_an_instance(monkeypatch, cdt,
   assert {k: v for k, v in q_on.items() if v} == {
       'K1': 3, 'K1 wide': 3, 'K2': 3}
   dir1 = fused_mlp.DIR1_LIBRARY
-  assert sorted(set(r_on)) == sorted({('fwd', 512, k3), ('bwd', 512, bwd),
+  assert sorted(set(r_on)) == sorted({('fwd', 512, k3), ('bwd', 512, k4),
                                       ('fwd', 288, dir1), ('bwd', 288, dir1)})
   assert sorted(set(rq_on)) == sorted({('fwd', 512, fwd), ('fwd', 288, dir1)})
   assert torch.equal(on['loss'], off['loss'])
