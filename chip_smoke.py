@@ -694,7 +694,8 @@ def check_wgmma_sass(sass, kernels, count, what):
   SASS (`sass_of`), or this fails; the library's other kernels (its
   weights' TF32 split) are logged: the depth-1 directional library's four
   (bf16 and f32, forward and backward: dir1_bf16_kernel, dir1_f32_kernel),
-  the f32 density gradient's one (trunk_fwd_tf32_kernel)."""
+  the f32 forward's two (trunk_fwd_tf32_kernel, K3 and K1), the bf16
+  density gradient's one (trunk_fwd_bf16_kernel)."""
   found = []
   for block in re.split(r'\n\s*Function : ', sass)[1:]:
     name = block.split('\n', 1)[0]
@@ -5118,9 +5119,12 @@ def patched(module, attr, value, fn):
 
 def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
   """Phase 25 (a): the redesigned instances (REDESIGNED) in turns with the
-  designs they replaced, in this process: f32 K3 wide hc256 on
+  designs they replaced, in this process: f32 K3 and K1 wide hc256 on
   trunk_wide_tf32.cu (the route) and the parent's trunk_fwd_f32.cu instance
-  (`fwd_f32_wide<256, true>`, the route forced); f32 K4 wide hc256, first
+  (`fwd_f32_wide<256, true>`, `fwd_f32_wide<256, false>`, the route
+  forced); bf16 K3 wide hc256 on trunk_wide_bf16.cu (the route) and the
+  parent's trunk_fwd_tma.cu instance (`fwd_wide<256, 1>`, the route
+  forced); f32 K4 wide hc256, first
   order and with u's cotangent, on trunk_wide_bwd_tf32.cu (the route) and
   the parent's trunk_bwd_f32.cu instance (`bwd_f32_wide<256, DG>`, the
   route forced); bf16 K4 wide hc256 ubar
@@ -5129,10 +5133,11 @@ def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
   a future of cuda_build.variant), which must agree bit for bit. Returns
   {arm: ms}."""
   from refnerf_tpu_torch.ops import cuda_build
-  if which == 'K3 wide hc256':
+  if which.startswith(('K1', 'K3')):
+    was = fused_mlp.FWD_LIBRARY[cdt]
     arms = {'ms': kernel,
             'was_ms': patched(fused_mlp, 'forward_library',
-                              lambda *a, **k: 'trunk_fwd_f32', kernel)}
+                              lambda *a, **k: was, kernel)}
   elif cdt == 'float32':
     arms = {'ms': kernel,
             'was_ms': patched(fused_mlp, 'backward_library',
@@ -5160,11 +5165,38 @@ def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
 # design it replaced.
 REDESIGNED = (('K3 wide hc256', 'float32'), ('K4 wide hc256 ubar', 'bfloat16'),
               ('K4 wide hc256 1st', 'float32'),
-              ('K4 wide hc256 ubar', 'float32'))
-# The f32 backward's redesigned rows (trunk_wide_bwd_tf32.cu) are also held
-# to their plain versions at these rows, across its 64-row tiles, each rerun
+              ('K4 wide hc256 ubar', 'float32'),
+              ('K3 wide hc256', 'bfloat16'), ('K1 wide hc256', 'float32'))
+# The redesigned rows but the bf16 backward's are also held to their plain
+# versions at these rows, across their 64- and 128-row tiles, each rerun
 # bit-identical.
 REDESIGNED_ROWS = (1, 63, 64, 65, 128, 129, 257, 4097)
+
+
+def redesigned_fwd_rows(fused_mlp, which, cdt, pack, xs, ws, bs, kw, fold):
+  """Phase 25 (a): a forward row of REDESIGNED (f32 K3 and K1 on
+  trunk_wide_tf32.cu, bf16 K3 on trunk_wide_bf16.cu) against its plain
+  version at each of REDESIGNED_ROWS rows, as compare() holds it: sigma and
+  the bottleneck by KERNEL_BOUND, u by GRAD_BOUND (relative L2); a second
+  run bit-identical."""
+  worst = {}
+  for n in REDESIGNED_ROWS:
+    x = [t[:n] for t in xs]
+    with torch.no_grad():
+      got = flatten(fused_mlp.trunk_kernel(x, pack, fold))
+      again = flatten(fused_mlp.trunk_kernel(x, pack, fold))
+      want = flatten(fused_mlp.trunk_reference(
+          x, ws, bs, compute_dtype=cdt, density_grad=fold is not None,
+          fold=fold, **kw))
+    torch.cuda.synchronize()
+    worst[n] = max(r[3] for r in errors(got, want, cdt, 2))
+    if not worst[n] <= 1.0 or not all(
+        torch.equal(a, b) for a, b in zip(got, again)):
+      raise AssertionError(f'phase 25: {which} {cdt} at {n} rows: '
+                           f'{worst[n]:.3f} of its bound, or a rerun differs')
+  log(f'phase 25: {which} {cdt} at {len(worst)} row counts within its '
+      f'bound, reruns bit-identical: ' + ', '.join(
+          f'{n} {w:.3f}' for n, w in worst.items()))
 
 
 def redesigned_rows(fused_mlp, which, pack, xs, ws, bs, kw, cots, fold):
@@ -5203,6 +5235,17 @@ def check_redesigned(fused_mlp, dev):
                                 only=REDESIGNED)
 
 
+def check_redesigned_forwards(fused_mlp, dev):
+  """Phase 25's REDESIGNED forward rows alone (f32 K3 and K1 on
+  trunk_wide_tf32.cu, bf16 K3 on trunk_wide_bf16.cu: `check_defaults_kernels`
+  with `only`), each against its plain version at 524,288 rows and at
+  REDESIGNED_ROWS and in turns with the design it replaced: for
+  tools/ab_trees.py --checks check_redesigned_forwards."""
+  return check_defaults_kernels(
+      fused_mlp, dev, faults=False,
+      only=tuple(r for r in REDESIGNED if r[0].startswith(('K1', 'K3'))))
+
+
 def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True,
                            was_bwd=None, only=None):
   """Phase 25 (a): the defaults' spatial trunk against its plain versions
@@ -5237,8 +5280,9 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True,
       pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
       tf32 = cdt == 'float32' and hc == 256
       for f in (None, fold):
-        want = (fused_mlp.WIDE_TF32_LIBRARY if tf32 and f is not None else
-                fused_mlp.FWD_LIBRARY[cdt],
+        want = (fused_mlp.WIDE_TF32_LIBRARY if tf32 else
+                fused_mlp.WIDE_BF16_LIBRARY if hc == 256 and f is not None
+                else fused_mlp.FWD_LIBRARY[cdt],
                 fused_mlp.WIDE_TF32_BWD_LIBRARY if tf32 else
                 fused_mlp.BWD_LIBRARY[cdt])
         got = (fused_mlp.forward_library(pack, fold=f),
@@ -5287,9 +5331,13 @@ def check_defaults_kernels(fused_mlp, dev, ns=(N_SAMPLES,), faults=True,
                       phase=25, inputs=inputs, flops=fl, n=n,
                       library=lib() if lib is not None and n == n_max
                       else None,
-                      tf32_passes=3 if tf32 and which.startswith(('K3', 'K4'))
-                      else 0)
+                      tf32_passes=3 if tf32 and which.startswith(
+                          ('K1', 'K3', 'K4')) else 0)
           deterministic(which, kernel, phase=25, cdt=cdt)
+          if (which, cdt) in REDESIGNED and which.startswith(('K1', 'K3')) and (
+              n == n_max):
+            redesigned_fwd_rows(fused_mlp, which, cdt, pack, xs, ws, bs, kw,
+                                fold if which.startswith('K3') else None)
           if (which, cdt) in REDESIGNED and which.startswith('K4') and (
               cdt == 'float32') and n == n_max:
             redesigned_rows(fused_mlp, which, pack, xs, ws, bs, kw,
@@ -5518,11 +5566,11 @@ def variant_run(fused_mlp, dev, dtype, name):
   # 256-wide head on trunk_wide_bwd_tf32.cu); the directional trunk on
   # trunk_dir1.cu, or at a 128-wide bottleneck (155 columns) on the same
   # pair's width-128 instances.
-  bwd = (fused_mlp.WIDE_TF32_BWD_LIBRARY
-         if dtype == 'float32' and name == 'DEFAULTS_FIRST'
+  tf32 = dtype == 'float32' and name == 'DEFAULTS_FIRST'
+  bwd = (fused_mlp.WIDE_TF32_BWD_LIBRARY if tf32
          else fused_mlp.BWD_LIBRARY[dtype])
-  for way, lib in (('forward', fused_mlp.FWD_LIBRARY[dtype]),
-                   ('backward', bwd)):
+  fwd = fused_mlp.WIDE_TF32_LIBRARY if tf32 else fused_mlp.FWD_LIBRARY[dtype]
+  for way, lib in (('forward', fwd), ('backward', bwd)):
     if lib not in seen[way] or seen[way] - {lib, fused_mlp.DIR1_LIBRARY}:
       raise AssertionError(f'phase 25: {what} routed to {seen}')
   # Without density normals the 256-wide head's first-order backward: one
@@ -5546,9 +5594,10 @@ def defaults_stage(fused_mlp, dev, steps=DEFAULTS_STEPS):
   """Phase 25 (b)-(c): the defaults at full width in bf16 and in f32 under
   'on' (raising on any trunk without an instance): `steps` steps at batch
   16,384 (`defaults_train`, the routes asserted: the spatial trunks on the
-  wide-input pair, f32 K3 on trunk_wide_tf32.cu, the directional ones on
-  trunk_dir1.cu), one step against 'off' (`defaults_against_plain`), a step
-  profiled, a 4096-ray request (`defaults_request`); DEFAULTS_NORMALS
+  wide-input pair, f32 K3 on trunk_wide_tf32.cu, bf16 K3 on
+  trunk_wide_bf16.cu, the directional ones on trunk_dir1.cu), one step
+  against 'off' (`defaults_against_plain`), a step profiled, a 4096-ray
+  request (`defaults_request`); DEFAULTS_NORMALS
   likewise trained (the orientation term in the loss) and against 'off';
   DEFAULTS_VARIANTS (`variant_run`). Returns ({dtype:
   launches}, {dtype: {variant: launches}}, summary)."""
@@ -5556,9 +5605,9 @@ def defaults_stage(fused_mlp, dev, steps=DEFAULTS_STEPS):
   out, paths, variants = {}, {}, {}
   for dtype in ('bfloat16', 'float32'):
     # Training runs K3 and K4: on trunk_wide_tf32.cu and
-    # trunk_wide_bwd_tf32.cu in f32.
+    # trunk_wide_bwd_tf32.cu in f32, K3 on trunk_wide_bf16.cu in bf16.
     wide = {fused_mlp.WIDE_TF32_LIBRARY if dtype == 'float32' else
-            fused_mlp.FWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
+            fused_mlp.WIDE_BF16_LIBRARY, fused_mlp.DIR1_LIBRARY}
     bwide = {fused_mlp.WIDE_TF32_BWD_LIBRARY if dtype == 'float32' else
              fused_mlp.BWD_LIBRARY[dtype], fused_mlp.DIR1_LIBRARY}
     res = {}
@@ -5655,12 +5704,16 @@ def main():
   sass = sass_of([libs[name] for name in (
       'trunk_fwd_tma', 'trunk_bwd_tma', 'trunk_fwd_f32', 'trunk_bwd_f32',
       fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY,
-      fused_mlp.WIDE_TF32_LIBRARY, fused_mlp.WIDE_TF32_BWD_LIBRARY)])
+      fused_mlp.WIDE_TF32_LIBRARY, fused_mlp.WIDE_TF32_BWD_LIBRARY,
+      fused_mlp.WIDE_BF16_LIBRARY)])
   check_sass(sass[libs['trunk_fwd_tma']])
   check_sass(sass[libs['trunk_bwd_tma']])
-  # The f32 density gradient's TF32 products on wgmma, fed by TMA.
+  # The f32 forward's TF32 products on wgmma, fed by TMA (K3 and K1).
   check_wgmma_sass(sass[libs[fused_mlp.WIDE_TF32_LIBRARY]],
-                   r'trunk_fwd_tf32_kernel', 1, 'trunk_wide_tf32')
+                   r'trunk_fwd_tf32_kernel', 2, 'trunk_wide_tf32')
+  # The bf16 density gradient's products and its fold likewise.
+  check_wgmma_sass(sass[libs[fused_mlp.WIDE_BF16_LIBRARY]],
+                   r'trunk_fwd_bf16_kernel', 1, 'trunk_wide_bf16')
   # The f32 backward's (first order and with u's cotangent) likewise.
   check_wgmma_sass(sass[libs[fused_mlp.WIDE_TF32_BWD_LIBRARY]],
                    r'trunk_bwd_tf32_kernel', 2, 'trunk_wide_bwd_tf32')
@@ -5718,8 +5771,10 @@ def main():
   # f32 at width 256: the FMA/TMA forward and backward.
   f32fwd_src = 'refnerf_tpu_torch/csrc/trunk_fwd_f32.cu'
   f32_src = 'refnerf_tpu_torch/csrc/trunk_bwd_f32.cu'
-  # f32 K3 of the defaults' trunk: three TF32 passes of wgmma.
+  # f32 K3 and K1 of the defaults' trunk: three TF32 passes of wgmma.
   tf32_src = 'refnerf_tpu_torch/csrc/trunk_wide_tf32.cu'
+  # bf16 K3 of the defaults' trunk: one bf16 pass of wgmma, 128-row tiles.
+  wbf16_src = 'refnerf_tpu_torch/csrc/trunk_wide_bf16.cu'
   # f32 K4 of the defaults' trunk: three TF32 passes of wgmma.
   tf32_bwd_src = 'refnerf_tpu_torch/csrc/trunk_wide_bwd_tf32.cu'
   pallas = 'refnerf_tpu/ops/pallas/fused_mlp.py'
@@ -5994,11 +6049,15 @@ def main():
         **{'f32_' + k: f32[k] for k in keys},
         'f32_launches': count['float32']}
     # The redesigned instances, in turns with the designs they replaced.
-    if which == 'K3 wide hc256':
+    if which in ('K1 wide hc256', 'K3 wide hc256'):
       entry.update(f32_source=tf32_src, f32_was_source=f32fwd_src,
                    f32_fma_bound_ms=f32['fma_bound_ms'],
                    f32_route='three TF32 passes on wgmma',
                    f32_in_turns=f32['in_turns'])
+    if which == 'K3 wide hc256':
+      entry.update(source=wbf16_src, was_source=ftma_src,
+                   bf16_route='one bf16 pass of wgmma on 128-row tiles, the '
+                   'fold three TF32 passes', in_turns=b16['in_turns'])
     if which == 'K4 wide hc256 ubar':
       entry.update(was_source=f'{tma_src} (REFNERF_TS_REBUILD)',
                    in_turns=b16['in_turns'])
@@ -6008,7 +6067,8 @@ def main():
                    f32_route='three TF32 passes on wgmma',
                    f32_in_turns=f32['in_turns'])
     line.append(entry)
-    if which in ('K3 wide hc256', 'K4 wide hc256 1st', 'K4 wide hc256 ubar'):
+    if which in ('K1 wide hc256', 'K3 wide hc256', 'K4 wide hc256 1st',
+                 'K4 wide hc256 ubar'):
       # The f32 instance's library of its own, as an entry of its own.
       if not count['float32'] > 0:
         raise AssertionError(f'phase 25: {which} f32 was launched no time')
@@ -6019,6 +6079,7 @@ def main():
           **{k: f32[k] for k in keys}, 'bound_by': f32['bound_by'],
           'fma_bound_ms': f32['fma_bound_ms'], 'dtype': 'float32',
           'n_samples': N_SAMPLES, 'was_source': f32fwd_src if fwd else f32_src,
+          'f32_route': 'three TF32 passes on wgmma',
           'in_turns': f32['in_turns']})
   log(f'phase 6: train step {step_s * 1e3:.2f} ms, '
       f'{TRAIN_BATCH / step_s:.0f} train rays/s; phase 8 (fused directional '

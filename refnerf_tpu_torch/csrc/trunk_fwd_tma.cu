@@ -648,7 +648,7 @@ __device__ __forceinline__ void fwd_two_tiles(const FwdParams& p, const FwdMaps&
 // the caller adds the two warpgroups' in order. a is left scaled.
 __device__ __forceinline__ void fold_ux(float (&a)[64], int c0, int fr, int fc, int row0,
                                         const FwdParams& p, const float* fs, int nbp,
-                                        float* ust) {
+                                        float* ust PHASE_PARAM) {
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, F = p.d0, nb = p.nb;
   const bf16* x0 = static_cast<const bf16*>(p.x0);
   const bf16* x1 = static_cast<const bf16*>(p.x1);
@@ -670,6 +670,7 @@ __device__ __forceinline__ void fold_ux(float (&a)[64], int c0, int fr, int fc, 
       a[4 * j + 2 * h + 1] *= cf.y;
     }
   }
+  PHASE_MARK(5, kScal);  // the partner loads and the scaling
   for (int jb = 0; jb < nbp; jb += 8) {
     float s[2][8];
 #pragma unroll
@@ -1009,12 +1010,13 @@ __device__ __forceinline__ void fwd_wide(const FwdParams& p, const FwdMaps& m,
         for (int c0 = 0; c0 < p.kin; c0 += kW) {
           product_n<1>(acc, act_s, kW / 64, act_s, kW, ring_st);
           PHASE_MARK(3, kProd);
-          fold_ux(acc[0], c0, fr, fc, row0[0], p, fs, nbp, ust);
+          fold_ux(acc[0], c0, fr, fc, row0[0], p, fs, nbp, ust PHASE_ARG);
+          PHASE_MARK(6, kScal);  // the fold's FMA passes and shuffles
           cons_sync();
           for (int i = tid; i < kRows * p.nb; i += kCons)
             ut[i] += ust[i] + ust[kRows * p.nb + i];
           cons_sync();
-          PHASE_MARK(3, kScal);
+          PHASE_MARK(6, kStore);  // the two warpgroups' sums into u
         }
       };
       for (int l = p.depth - 1; l > 0; --l) {

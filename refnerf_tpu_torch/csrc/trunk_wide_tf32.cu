@@ -70,6 +70,12 @@
 //  - Reruns are bit-identical: every sum runs in a fixed order.
 // One CTA an SM (228,896 B of shared memory at depth 8; `kernel_smem` in
 // fused_mlp.py mirrors `smem_bytes`).
+//
+// The same kernel runs K1 of the trunk (`refnerf_wide_tf32_k1`: the f32
+// served forward, trunk_fwd_f32.cu's `fwd_f32_wide<256, false>` before):
+// the layers, sigma and the bottleneck alone, its panels the layers' and
+// the bottleneck's, without relu' bits (214,560 B), the chain or the folds.
+// K1 is a template flag, so K3's code is as it was.
 
 #define PHASE_SYNC() cons_sync()  // closes a stamped segment
 #include "wide_tf32.cuh"
@@ -83,17 +89,18 @@ namespace wtf {
 // mbarriers.
 constexpr int kSlots = kStages * kXBox;
 static_assert(kCons * 16 * 4 <= kSlots, "u's sums fit in the input slots");
-inline size_t smem_bytes(int depth) {
+inline size_t smem_bytes(int depth, bool dg = true) {
   return 1024 + static_cast<size_t>(kStages) * kStage + 4 * kRows * kWidth + kSlots +
-         8 * static_cast<size_t>(depth - 1) * 256 + 4 * 2 * kRows + 8 * 2 * kStages;
+         (dg ? 8 * static_cast<size_t>(depth - 1) * 256 : 0) + 4 * 2 * kRows + 8 * 2 * kStages;
 }
 
 // The panels of a tile in order: the layers (layer 0 one a segment, the
-// skip layer its activation's and one a segment), the bottleneck, the chain
-// (at the skip layer u_x's two before W_l^T), layer 0's u_x.
-__host__ __device__ inline int panels(int depth, int skip) {
+// skip layer its activation's and one a segment), the bottleneck, and with
+// the density gradient the chain (at the skip layer u_x's two before W_l^T),
+// layer 0's u_x.
+__host__ __device__ inline int panels(int depth, int skip, bool dg = true) {
   const int sk = skip > 0 && skip < depth ? 2 : 0;
-  return 2 + (depth - 1) + sk + 1 + (depth - 1) + sk + 2;
+  return 2 + (depth - 1) + sk + 1 + (dg ? (depth - 1) + sk + 2 : 0);
 }
 
 struct Params {
@@ -195,7 +202,8 @@ __device__ __forceinline__ void fold(const float (&acc)[64], float* us, Cons& c,
 // One 64-row tile a CTA. Threads 0-255: the consumers; 256-383: the
 // producer warpgroup
 // (thread 256 walks the panels: B's parts, and the input slices of the
-// input panels).
+// input panels). K1: no relu' bits, chain or folds.
+template <bool K1 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     trunk_fwd_tf32_kernel(const __grid_constant__ Params p, const __grid_constant__ Maps m) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -203,7 +211,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* act = reinterpret_cast<float*>(smem + kStages * kStage);
   float* slots = act + kRows * kWidth;  // kStages x [64][32] inputs; the chain's u [2][64][nb]
   uint2* masks = reinterpret_cast<uint2*>(slots + kSlots / 4);           // [depth - 1][256]
-  float* red = reinterpret_cast<float*>(masks + (p.depth - 1) * kCons);  // [2][64]
+  float* red = reinterpret_cast<float*>(masks + (K1 ? 0 : (p.depth - 1) * kCons));  // [2][64]
   const uint32_t full = smem_u32(red + 2 * kRows), empty = full + 8 * kStages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
@@ -258,14 +266,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
       panel(pn++, -1);  // the bottleneck
-      for (int l = p.depth - 1; l >= 0; --l) {
-        if (l == 0 || l == p.skip)
-          for (int seg = 0; seg < 2; ++seg) {
-            panel(pn++, -1);
-            fold_panel();
-          }
-        if (l > 0) panel(pn++, -1);
-      }
+      if constexpr (!K1)
+        for (int l = p.depth - 1; l >= 0; --l) {
+          if (l == 0 || l == p.skip)
+            for (int seg = 0; seg < 2; ++seg) {
+              panel(pn++, -1);
+              fold_panel();
+            }
+          if (l > 0) panel(pn++, -1);
+        }
     }
   } else {
     reg_alloc<kConsRegs>();
@@ -300,7 +309,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       cons_sync();  // every consumer's product has read the tile
       put_act(act, acc, cw, ra, q);
       if (l + 1 < p.depth) {
-        masks[l * kCons + ctid] = mk;
+        if constexpr (!K1) masks[l * kCons + ctid] = mk;
       } else {
         mlast = mk;
         float s[2] = {0.f, 0.f};
@@ -339,6 +348,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
     PHASE_MARK(2, kStore);
+    if constexpr (K1) return;
 
     // 3. The chain: s_{L-1} = relu'(h_{L-1}) wd, then s_{l-1} = relu'(h_{l-1})
     // (s_l Wa_l); u_x of the skip layer (before its s product) and of layer
@@ -412,12 +422,14 @@ __global__ void __launch_bounds__(256) split_kernel(int n, const int* idx, const
   }
 }
 
+template <bool K1>
 int launch(const Params& p, const Maps& m, cudaStream_t s) {
-  const size_t smem = smem_bytes(p.depth);
-  const cudaError_t e = cudaFuncSetAttribute(
-      trunk_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const size_t smem = smem_bytes(p.depth, !K1);
+  const cudaError_t e =
+      cudaFuncSetAttribute(trunk_fwd_tf32_kernel<K1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  trunk_fwd_tf32_kernel<<<(p.n + kRows - 1) / kRows, kWgThreads, smem, s>>>(p, m);
+  trunk_fwd_tf32_kernel<K1><<<(p.n + kRows - 1) / kRows, kWgThreads, smem, s>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -470,5 +482,33 @@ extern "C" int refnerf_wide_tf32_k3(int n, int d, int depth, int skip, int nb, c
                  static_cast<const float*>(bc), static_cast<float*>(sig),
                  static_cast<float*>(cout), static_cast<float*>(u)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return launch(p, m, s);
+  return launch<false>(p, m, s);
+}
+
+// K1 of the same trunk in f32: as refnerf_wide_tf32_k3 without the fold, nb
+// and u, its panels the layers' and the bottleneck's (`fused_mlp.
+// tf32_panel_index` without the density gradient): out sigma [n] and the
+// bottleneck [n][256].
+extern "C" int refnerf_wide_tf32_k1(int n, int d, int depth, int skip, const void* x0,
+                                    const void* x1, const void* bh, const void* bl, int np,
+                                    const void* b, const void* wd, const void* bc, void* sig,
+                                    void* cout, void* stream) {
+  using namespace wtf;
+  if (n <= 0 || d <= 0 || d > kWidth || d % 4 || depth < 2 || depth > kMaxDepth ||
+      np != panels(depth, skip, false) || !x0 || !x1 || !bh || !bl || !b || !wd || !bc || !sig ||
+      !cout || !aligned16(x0) || !aligned16(x1) || !aligned16(bh) || !aligned16(bl) ||
+      (reinterpret_cast<uintptr_t>(b) & 7) || (reinterpret_cast<uintptr_t>(wd) & 7) ||
+      (reinterpret_cast<uintptr_t>(bc) & 7) || (reinterpret_cast<uintptr_t>(cout) & 7))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps m;
+  memset(&m, 0, sizeof(m));
+  if (!make_map_f32(&m.bh, bh, kWidth, np * kWidth, kWidth, kWidth) ||
+      !make_map_f32(&m.bl, bl, kWidth, np * kWidth, kWidth, kWidth) ||
+      !make_map_f32(&m.x0, x0, d, n, d, kRows) || !make_map_f32(&m.x1, x1, d, n, d, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{static_cast<const float*>(x0), static_cast<const float*>(x1), d, n, depth, skip,
+                 0, np, static_cast<const float*>(b), static_cast<const float*>(wd),
+                 static_cast<const float*>(bc), static_cast<float*>(sig),
+                 static_cast<float*>(cout), nullptr};
+  return launch<true>(p, m, static_cast<cudaStream_t>(stream));
 }

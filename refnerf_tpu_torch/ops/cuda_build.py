@@ -126,15 +126,28 @@ EXPORTS = {
         'refnerf_dir1_parts': [_I, _I],
         'refnerf_dir1_split': [_I, _I, _P, _P, _P, _I, _P],
     },
-    # The f32 density-gradient forward (K3) of the wide-input spatial trunk
-    # on three TF32 passes of wgmma: a panel tensor split into its TF32
-    # parts (n, idx, w, nw, wc, hi, lo, stream) and the forward (n, d,
-    # depth, skip, nb, x0, x1, bh, bl, np, fh, fl, b, wd, bc, sig, cout, u,
-    # stream).
+    # The f32 forward (K3 with the density gradient, and K1) of the
+    # wide-input spatial trunk on three TF32 passes of wgmma: a panel tensor
+    # split into its TF32 parts (n, idx, w, nw, wc, hi, lo, stream) and K3
+    # (n, d, depth, skip, nb, x0, x1, bh, bl, np, fh, fl, b, wd, bc, sig,
+    # cout, u, stream).
     'trunk_wide_tf32': {
         'refnerf_wide_tf32_split': [_I, _P, _P, _I, _P, _P, _P, _P],
         'refnerf_wide_tf32_k3': [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
                                  _P, _P, _P, _P, _P, _P, _P, _P],
+        # K1 of the same trunk: (n, d, depth, skip, x0, x1, bh, bl, np, b,
+        # wd, bc, sig, cout, stream).
+        'refnerf_wide_tf32_k1': [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                                 _P, _P, _P, _P],
+    },
+    # The bf16 density-gradient forward (K3) of the same trunk on one bf16
+    # pass of wgmma: the fold panel's TF32 split (n, idx, fold, hi, lo,
+    # stream) and the forward (n, d, depth, skip, nb, kin, x0, x1, w, wt,
+    # wc, fh, fl, b, wd, bc, sig, cout, u, stream).
+    'trunk_wide_bf16': {
+        'refnerf_wide_bf16_fold': [_I, _P, _P, _P, _P, _P],
+        'refnerf_wide_bf16_k3': [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     # The f32 backward (K4) of the same trunk, first order or with u's
     # cotangent, on three TF32 passes of wgmma: the per-tile kernel (n, rp,

@@ -147,12 +147,17 @@ _WIDE_COLSUM_ROWS = 256  # the same in the f32 wide-input backward (dwd)
 DIR1_LIBRARY = 'trunk_dir1'
 DIR1_D0, DIR1_D1, DIR1_HEADS = 256, 29, 3
 DIR1_PARTS = DIR1_HEADS * 128 + DIR1_HEADS
-# The f32 density-gradient forward (K3) of the wide-input spatial trunk with
-# the 256-wide compute-dtype head and no f32 head (`wide_tf32`: the JAX
-# package's default MLP) runs on csrc/trunk_wide_tf32.cu, three TF32 passes
-# of wgmma over its weights laid out as 256 x 256 panels
-# (`tf32_panel_index`).
+# The f32 forward (K3 with the density gradient, and K1) of the wide-input
+# spatial trunk with the 256-wide compute-dtype head and no f32 head
+# (`wide_tf32`: the JAX package's default MLP) runs on
+# csrc/trunk_wide_tf32.cu, three TF32 passes of wgmma over its weights laid
+# out as 256 x 256 panels (`tf32_panel_index`).
 WIDE_TF32_LIBRARY = 'trunk_wide_tf32'
+# The bf16 K3 of the same trunk (`wide_bf16`) runs on
+# csrc/trunk_wide_bf16.cu: 128-row tiles on one bf16 pass of wgmma over the
+# pack's own weights, the fold three TF32 passes against its panel
+# (`bf16_fold_index`).
+WIDE_BF16_LIBRARY = 'trunk_wide_bf16'
 # The f32 backward (K4, first order and with u's cotangent) of the same
 # trunk (`wide_tf32_bwd`: the density gradient's fold not needed) runs on
 # csrc/trunk_wide_bwd_tf32.cu, three TF32 passes of wgmma over its own
@@ -979,11 +984,19 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     # csrc/trunk_wide_tf32.cu `smem_bytes`: 1 KB to align, two stages of
     # B's [256][32] f32 hi and lo (64 KB each), the activation tile [64][256]
     # f32, two [64][32] f32 input slots (then each consumer thread's 16
-    # sums of u), the relu' bits
+    # sums of u), with the density gradient the relu' bits
     # of all layers but the last, the sigma sums, 4 mbarriers (228,896 B at
-    # depth 8).
-    return (1024 + 2 * 65536 + 4 * _TILE * 256 + 2 * 8192 + 8 * (L - 1) * 256
-            + 4 * 2 * _TILE + 8 * 4)
+    # depth 8; K1 214,560 B).
+    return (1024 + 2 * 65536 + 4 * _TILE * 256 + 2 * 8192 +
+            (8 * (L - 1) * 256 if dg else 0) + 4 * 2 * _TILE + 8 * 4)
+  if lib == WIDE_BF16_LIBRARY:
+    # csrc/trunk_wide_bf16.cu `smem_bytes`: 1 KB to align, four stages of a
+    # [128][64] bf16 slice (16 KB each), two warpgroups' [64][256] bf16
+    # activation tiles and two [64][128] input buffers each, the relu' bits
+    # of all layers but the last (16 B a consumer thread and layer), 8
+    # mbarriers (226,368 B at depth 8).
+    return (1024 + 4 * 16384 + 2 * 32768 + 4 * 16384 + 16 * (L - 1) * 256 +
+            8 * 8)
   if lib == WIDE_TF32_BWD_LIBRARY:
     # csrc/trunk_wide_bwd_tf32.cu `bwd_smem_bytes`: K3's ring, activation
     # tile, input slots and relu' bits, the ring's 4 mbarriers and ts's
@@ -1156,16 +1169,35 @@ def wide_input(pack: TrunkPack, y: bool = False, fold=None,
 
 def wide_tf32(pack: TrunkPack, y: bool = False, fold=None,
               sp: SpaModes = SpaModes()) -> bool:
-  """Whether the forward of `pack` with the density gradient (`fold`) runs
-  on csrc/trunk_wide_tf32.cu: the f32 spatial trunk of `wide_input` with
-  the 256-wide compute-dtype head and no f32 head, at least 2 layers, on two
-  segments of at most 256 columns each, a multiple of 4 (the JAX package's
-  default MLP, 8 x 256 on 2 x 252 IPE columns)."""
+  """Whether the forward of `pack`, with the density gradient (`fold`, K3)
+  or without it (K1), runs on csrc/trunk_wide_tf32.cu: the f32 spatial
+  trunk of `wide_input` with the 256-wide compute-dtype head and no f32
+  head, at least 2 layers, on two segments of the same width, at most 256
+  columns and a multiple of 4 (the JAX package's default MLP, 8 x 256 on 2
+  x 252 IPE columns: trained, and served)."""
   hc = 0 if pack.wc is None else int(pack.wc.shape[0])
-  return (pack.compute_dtype == 'float32' and fold is not None and
-          pack.wh is None and hc == 256 and pack.depth >= 2 and
-          len(pack.seg_dims) == 2 and pack.seg_dims[0] <= 256 and
+  return (pack.compute_dtype == 'float32' and pack.wh is None and hc == 256
+          and pack.depth >= 2 and len(pack.seg_dims) == 2 and
+          pack.seg_dims[0] == pack.seg_dims[1] <= 256 and
           pack.seg_dims[0] % 4 == 0 and wide_input(pack, y, fold, sp))
+
+
+def wide_bf16(pack: TrunkPack, y: bool = False, fold=None,
+              sp: SpaModes = SpaModes()) -> bool:
+  """Whether the forward of `pack` with the density gradient (`fold`) runs
+  on csrc/trunk_wide_bf16.cu: the bf16 spatial trunk of `wide_input` with
+  the 256-wide compute-dtype head and no f32 head, 2 to `_TMA_DEPTH`
+  layers with the skip at a layer past the first, on two segments of the
+  same width, 193 to 256 columns and a multiple of 4 (four 128-column
+  chunks of input: the JAX package's default MLP, 8 x 256 on 2 x 252 IPE
+  columns, in training)."""
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  d = pack.seg_dims[0]
+  return (pack.compute_dtype == 'bfloat16' and fold is not None and
+          pack.wh is None and hc == 256 and pack.depth >= 2 and
+          0 < pack.skip < pack.depth and len(pack.seg_dims) == 2 and
+          192 < d == pack.seg_dims[1] <= 256 and d % 4 == 0 and
+          wide_input(pack, y, fold, sp))
 
 
 def wide_tf32_bwd(pack: TrunkPack, y: bool = False, fold=None,
@@ -1195,8 +1227,9 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   columns the spatial trunk of `wide_input` on the same two (their
   wide-input instances, a 256-wide head and K3 there too); the spatial
   trunk of `w1024` 'trunk_w1024';
-  the directional trunk of `dir1` 'trunk_dir1'; the f32 K3 of `wide_tf32`
-  'trunk_wide_tf32'; every other shape with an
+  the directional trunk of `dir1` 'trunk_dir1'; the f32 K1 and K3 of
+  `wide_tf32` 'trunk_wide_tf32'; the bf16 K3 of `wide_bf16`
+  'trunk_wide_bf16'; every other shape with an
   instance 'trunk_fwd'. (Width 128 runs the plain directional trunk alone:
   `missing_instance` refuses its other modes first.)"""
   hf = 0 if pack.wh is None else int(pack.wh.shape[0])
@@ -1206,6 +1239,8 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
     return DIR1_LIBRARY
   if wide_tf32(pack, out_y, fold, sp):
     return WIDE_TF32_LIBRARY
+  if wide_bf16(pack, out_y, fold, sp):
+    return WIDE_BF16_LIBRARY
   if wide_input(pack, out_y, fold, sp):
     return FWD_LIBRARY[pack.compute_dtype]
   if (pack.width not in (256, 128) or pack.depth > _TMA_DEPTH or
@@ -1914,14 +1949,15 @@ def _dir1_backward(segs, pack: TrunkPack, cots):
 
 
 def tf32_panel_index(depth: int, skip: int, kin: int, d: int,
-                     width: int = 256) -> np.ndarray:
+                     width: int = 256, dg: bool = True) -> np.ndarray:
   """Where each entry of csrc/trunk_wide_tf32.cu's weight panels comes from:
   [panels * width, width] indices into cat(pack.w, pack.wc.flatten()), -1
   for zeros. Each panel is a product's B [N = width][K = width], in the
   order a tile runs them: layer 0's input share one panel a segment (the
   segment's d columns, zeros to 256), each hidden layer's activation share
   and at the skip layer its input share (one a segment), the bottleneck
-  wc, then the chain: at layer l from depth - 1 down, at the skip layer
+  wc, then with the density gradient (`dg`; K1 stops at the bottleneck)
+  the chain: at layer l from depth - 1 down, at the skip layer
   u_x's [Wx_l^T] (one a segment, N the segment's columns), W_l^T's hidden
   part; last layer 0's u_x. Within every 8 of K, slot s holds column 8 (s
   // 8) + 2 (s % 4) + (s % 8) // 4, where a TF32 A fragment of the
@@ -1950,7 +1986,7 @@ def tf32_panel_index(depth: int, skip: int, kin: int, d: int,
       for g in (0, 1):
         fwd(l, width + g * d, True)
   out.append(offs[-1] + n * width + kp)  # the bottleneck wc [256][width]
-  for l in range(depth - 1, -1, -1):
+  for l in range(depth - 1, -1, -1) if dg else ():
     if l == 0 or l == skip:
       for g in (0, 1):
         rev(l, (0 if l == 0 else width) + g * d, True)
@@ -1959,10 +1995,12 @@ def tf32_panel_index(depth: int, skip: int, kin: int, d: int,
   return np.concatenate(out).astype(np.int32)
 
 
-def tf32_panels(pack: TrunkPack) -> torch.Tensor:
+def tf32_panels(pack: TrunkPack, dg: bool = True) -> torch.Tensor:
   """csrc/trunk_wide_tf32.cu's weight panels of `pack` (`wide_tf32`) in
-  f32, [panels * 256, 256], before their TF32 split."""
-  idx = tf32_panel_index(pack.depth, pack.skip, pack.kin, pack.seg_dims[0])
+  f32, [panels * 256, 256], before their TF32 split: K3's with the density
+  gradient (`dg`), else K1's."""
+  idx = tf32_panel_index(pack.depth, pack.skip, pack.kin, pack.seg_dims[0],
+                         dg=dg)
   src = torch.cat([pack.w.float(), pack.wc.float().reshape(-1),
                    pack.w.new_zeros(1, dtype=torch.float32)])
   idx = torch.from_numpy(idx).long().to(src.device)
@@ -1989,6 +2027,33 @@ def tf32_fold_panel(fold) -> torch.Tensor:
   idx = torch.from_numpy(tf32_fold_index(*fold.shape)).long().to(fold.device)
   src = torch.cat([fold.float().reshape(-1), fold.new_zeros(1,
                                                             dtype=torch.float32)])
+  return src[torch.where(idx < 0, src.numel() - 1, idx)]
+
+
+def bf16_fold_index(d: int, nb: int) -> np.ndarray:
+  """Where each entry of csrc/trunk_wide_bf16.cu's fold panel comes from:
+  [4 * 32, 128] indices into the fold S [d, nb], -1 for zeros. Rows 32 ch +
+  j (basis vector j < 32) are the B operand of the fold of input chunk ch,
+  the trunk input's columns c = 128 ch + k of [x0 | x1] (two segments of d
+  columns), K permuted within every 8 as `tf32_panel_index`'s: B[j][k'] =
+  S[c][j] for a sin column c < d, S[c - d][j] for a cos column c < 2 d."""
+  s = np.arange(128)
+  perm = (s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4
+  j = np.arange(32)[:, None]
+  rows = []
+  for ch in range(4):
+    c = 128 * ch + perm[None, :]
+    row = np.where(c < d, c, c - d)
+    rows.append(np.where((c < 2 * d) & (j < nb), row * nb + j, -1))
+  return np.concatenate(rows).astype(np.int32)
+
+
+def bf16_fold_panel(fold) -> torch.Tensor:
+  """csrc/trunk_wide_bf16.cu's fold panel of the fold S [d, nb] in f32,
+  [4 * 32, 128], before its TF32 split."""
+  idx = torch.from_numpy(bf16_fold_index(*fold.shape)).long().to(fold.device)
+  src = torch.cat([fold.float().reshape(-1),
+                   fold.new_zeros(1, dtype=torch.float32)])
   return src[torch.where(idx < 0, src.numel() - 1, idx)]
 
 
@@ -2085,8 +2150,14 @@ def _tp_index(d, nb, device):
 
 
 @functools.lru_cache(maxsize=8)
-def _panel_index(depth, skip, kin, d, device):
-  return torch.from_numpy(tf32_panel_index(depth, skip, kin, d)).to(device)
+def _panel_index(depth, skip, kin, d, dg, device):
+  return torch.from_numpy(tf32_panel_index(depth, skip, kin, d,
+                                           dg=dg)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _bf16_fold_index(d, nb, device):
+  return torch.from_numpy(bf16_fold_index(d, nb)).to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -2095,10 +2166,10 @@ def _fold_index(d, nb, device):
 
 
 def _wide_tf32_forward(segs, pack: TrunkPack, fold):
-  """K3 on csrc/trunk_wide_tf32.cu (`wide_tf32`): the weights' panels and
-  the fold panel split into their TF32 parts once a call
-  (`refnerf_wide_tf32_split`), then one launch. Returns [sigma [n], the
-  bottleneck [n, 256], u [n, nb]] f32, as trunk_kernel."""
+  """K3 (`fold` given) or K1 on csrc/trunk_wide_tf32.cu (`wide_tf32`):
+  the weights' panels and K3's fold panel split into their TF32 parts once
+  a call (`refnerf_wide_tf32_split`), then one launch. Returns [sigma [n],
+  the bottleneck [n, 256]] and with K3 u [n, nb], f32, as trunk_kernel."""
   from refnerf_tpu_torch.ops import cuda_build  # builds on first use
   lib = cuda_build.library(WIDE_TF32_LIBRARY)
   ki = _kernel_inputs(segs, pack, DirModes())
@@ -2109,33 +2180,79 @@ def _wide_tf32_forward(segs, pack: TrunkPack, fold):
                        'segments by TMA: each must start at a 16-byte '
                        'aligned address')
   n, dev, d = int(x0.shape[0]), x0.device, ki.d0
-  fold = fold.float().contiguous()
-  nb = int(fold.shape[1])
-  sig = torch.empty(n, device=dev)
-  cout = torch.empty(n, 256, device=dev)
-  u = torch.empty(n, nb, device=dev)
+  dg = fold is not None
+  outs = [torch.empty(n, device=dev), torch.empty(n, 256, device=dev)]
+  if dg:
+    fold = fold.float().contiguous()
+    outs.append(torch.empty(n, int(fold.shape[1]), device=dev))
   if n:
-    idx = _panel_index(pack.depth, pack.skip, pack.kin, d, dev)
+    idx = _panel_index(pack.depth, pack.skip, pack.kin, d, dg, dev)
+    what = 'f32 density-gradient' if dg else 'f32'
     with torch.cuda.device(dev):
       stream = torch.cuda.current_stream(dev).cuda_stream
       hi, lo = torch.empty(2, idx.numel(), device=dev)
       err = lib.refnerf_wide_tf32_split(
           idx.numel(), idx.data_ptr(), pack.w.data_ptr(), pack.w.numel(),
           pack.wc.data_ptr(), hi.data_ptr(), lo.data_ptr(), stream)
-      _check_launch(err, 'f32 density-gradient weight split')
-      fidx = _fold_index(d, nb, dev)
+      _check_launch(err, f'{what} weight split')
+      common = (x0.data_ptr(), x1.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                idx.numel() // 65536)
+      heads = (pack.b.data_ptr(), pack.wd.data_ptr(), pack.bc.data_ptr(),
+               *(t.data_ptr() for t in outs), stream)
+      if dg:
+        nb = int(fold.shape[1])
+        fidx = _fold_index(d, nb, dev)
+        fh, fl = torch.empty(2, fidx.numel(), device=dev)
+        err = lib.refnerf_wide_tf32_split(
+            fidx.numel(), fidx.data_ptr(), fold.data_ptr(), fold.numel(),
+            fold.data_ptr(), fh.data_ptr(), fl.data_ptr(), stream)
+        _check_launch(err, f'{what} fold split')
+        err = lib.refnerf_wide_tf32_k3(n, d, pack.depth, pack.skip, nb,
+                                       *common, fh.data_ptr(), fl.data_ptr(),
+                                       *heads)
+      else:
+        err = lib.refnerf_wide_tf32_k1(n, d, pack.depth, pack.skip, *common,
+                                       *heads)
+      _check_launch(err, f'{what} forward (trunk_wide_tf32)')
+  return outs
+
+
+def _wide_bf16_forward(segs, pack: TrunkPack, fold):
+  """K3 on csrc/trunk_wide_bf16.cu (`wide_bf16`): the fold panel split into
+  its TF32 parts once a call (`refnerf_wide_bf16_fold`), then one launch
+  over the pack's own weights. Returns [sigma [n] f32, the bottleneck [n,
+  256] bf16, u [n, nb] f32], as trunk_kernel."""
+  from refnerf_tpu_torch.ops import cuda_build  # builds on first use
+  lib = cuda_build.library(WIDE_BF16_LIBRARY)
+  ki = _kernel_inputs(segs, pack, DirModes())
+  x0, x1 = ki.x0, ki.x1
+  for t in (x0, x1):
+    if t.data_ptr() % 16:
+      raise ValueError('the bf16 density-gradient kernel reads the IPE '
+                       'segments 8 bytes a copy: each must start at a '
+                       '16-byte aligned address')
+  n, dev, d = int(x0.shape[0]), x0.device, ki.d0
+  fold = fold.float().contiguous()
+  nb = int(fold.shape[1])
+  sig = torch.empty(n, device=dev)
+  cout = torch.empty(n, 256, device=dev, dtype=torch.bfloat16)
+  u = torch.empty(n, nb, device=dev)
+  if n:
+    fidx = _bf16_fold_index(d, nb, dev)
+    with torch.cuda.device(dev):
+      stream = torch.cuda.current_stream(dev).cuda_stream
       fh, fl = torch.empty(2, fidx.numel(), device=dev)
-      err = lib.refnerf_wide_tf32_split(
-          fidx.numel(), fidx.data_ptr(), fold.data_ptr(), fold.numel(),
-          fold.data_ptr(), fh.data_ptr(), fl.data_ptr(), stream)
-      _check_launch(err, 'f32 density-gradient fold split')
-      err = lib.refnerf_wide_tf32_k3(
-          n, d, pack.depth, pack.skip, nb, x0.data_ptr(), x1.data_ptr(),
-          hi.data_ptr(), lo.data_ptr(), idx.numel() // 65536, fh.data_ptr(),
-          fl.data_ptr(), pack.b.data_ptr(), pack.wd.data_ptr(),
-          pack.bc.data_ptr(), sig.data_ptr(), cout.data_ptr(), u.data_ptr(),
-          stream)
-      _check_launch(err, 'f32 density-gradient forward (trunk_wide_tf32)')
+      err = lib.refnerf_wide_bf16_fold(fidx.numel(), fidx.data_ptr(),
+                                       fold.data_ptr(), fh.data_ptr(),
+                                       fl.data_ptr(), stream)
+      _check_launch(err, 'bf16 density-gradient fold split')
+      err = lib.refnerf_wide_bf16_k3(
+          n, d, pack.depth, pack.skip, nb, pack.kin, x0.data_ptr(),
+          x1.data_ptr(), pack.w.data_ptr(), pack.wt.data_ptr(),
+          pack.wc.data_ptr(), fh.data_ptr(), fl.data_ptr(),
+          pack.b.data_ptr(), pack.wd.data_ptr(), pack.bc.data_ptr(),
+          sig.data_ptr(), cout.data_ptr(), u.data_ptr(), stream)
+      _check_launch(err, 'bf16 density-gradient forward (trunk_wide_bf16)')
   return [sig, cout, u]
 
 
@@ -2336,6 +2453,8 @@ def trunk_kernel(segs: Sequence[torch.Tensor], pack: TrunkPack,
     return _dir1_forward(segs, pack)
   if route == WIDE_TF32_LIBRARY:
     return _wide_tf32_forward(segs, pack, fold)
+  if route == WIDE_BF16_LIBRARY:
+    return _wide_bf16_forward(segs, pack, fold)
   fwd_fn = getattr(_library(route, pack, hc), f'refnerf_{route}')
   head = pack.wct if route == 'trunk_fwd_f32' else pack.wc
   cdt = DTYPES[pack.compute_dtype]

@@ -55,7 +55,8 @@ PyTorch chain's library time, where measured) per arm in run order and their med
 library, whether each kernel instance of the first arm has the same SASS
 instructions in each other arm (an instance that gained trailing template
 arguments at their defaults, false flags or the width 256, is the same
-instance).
+instance, and so is a kernel that became a template whose arguments are
+all such defaults).
 """
 
 import argparse
@@ -697,6 +698,7 @@ BUSY = re.compile(r'^phase \d+: (.+?) (float32|bfloat16) N=\d+: .*?device '
                   r'busy ([\d.]+) ms', re.M)
 SASS = re.compile(r'/\*[0-9a-f]{4,}\*/\s+(.*?;)')
 NAME = re.compile(r'(\w+)<(.*)>\(')
+PLAIN = re.compile(r'(\w+)\(')  # a kernel that is no template
 
 
 def cuda_tool(name):
@@ -761,8 +763,9 @@ def functions(lib):
                          check=True).stdout.splitlines()
   found = {}
   for name, body in zip(plain, blocks[2::2]):
-    m = NAME.search(name)
-    key = (m.group(1), tuple(m.group(2).split(', '))) if m else (name, ())
+    m, p = NAME.search(name), PLAIN.search(name)
+    key = ((m.group(1), tuple(m.group(2).split(', '))) if m else
+           (p.group(1), ()) if p else (name, ()))
     found[key] = SASS.findall(body)
   return found
 

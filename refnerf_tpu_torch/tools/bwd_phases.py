@@ -4,7 +4,8 @@ From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
     python3 -m refnerf_tpu_torch.tools.bwd_phases --out chiprun_out/phases \
         [--lib trunk_bwd_tma|trunk_bwd_f32|trunk_bwd|trunk_fwd_tma|
-               trunk_fwd_f32|trunk_fwd|trunk_wide_tf32|trunk_wide_bwd_tf32]
+               trunk_fwd_f32|trunk_fwd|trunk_wide_tf32|trunk_wide_bwd_tf32|
+               trunk_wide_bf16]
         [--dtype float32]
         [--cases 'K5 W128']
 
@@ -22,8 +23,14 @@ csrc/trunk_fwd_f32.cu (float32 by default), --lib trunk_fwd the mma.sync /
 FMA forward of csrc/trunk_fwd.cu (fused_mlp.forward_library patched to send
 every shape there: the design that trunk_fwd_tma.cu (bf16) and
 trunk_fwd_f32.cu (--dtype float32) replaced); --lib trunk_wide_tf32 the f32
-density-gradient forward of csrc/trunk_wide_tf32.cu (its case 'K3 wide
-hc256', float32 by default); --lib trunk_wide_bwd_tf32 the f32 backward of
+forward of csrc/trunk_wide_tf32.cu (its cases 'K3 wide hc256' and 'K1 wide
+hc256', float32 by default); --lib trunk_wide_bf16 the bf16
+density-gradient forward of csrc/trunk_wide_bf16.cu (its case 'K3 wide
+hc256'); with --lib trunk_fwd_tma that case, and with --lib trunk_fwd_f32
+'K1 wide hc256' and 'K3 wide hc256', run on the designs those two
+replaced, `fwd_wide<256, 1>` and `fwd_f32_wide<256, DG>`
+(fused_mlp.forward_library patched to send them there); --lib
+trunk_wide_bwd_tf32 the f32 backward of
 the same trunk, csrc/trunk_wide_bwd_tf32.cu (its cases 'K4 wide hc256
 ubar' and 'K4 wide hc256 1st', float32 by default; its weight gradients
 on trunk_w1024.cu's tn product and column sums). With --lib trunk_bwd_f32
@@ -39,7 +46,9 @@ the proposal trunk on 504 columns; K4 wide hc256 ubar and K4 wide hc256
 1st, the defaults' trunk with the 256-wide bottleneck, with u's cotangent
 and first order; forward: K3 alone and with
 K6+K7, K1 alone and with K6+K7, K2 alone and with K8+K9+K10, K2 at width
-128, K11 with y out, K1 wide, K3 wide hc256; --cases picks some by name), it runs the kernel once through the phase build and reads the sums, and times the
+128, K11 with y out, K1 wide, K3 wide hc256, K1 wide hc256; --cases picks
+some by name), it runs the kernel once through the phase build and reads
+the sums, and times the
 per-tile (and for the backward the weight-gradient and reduction) kernels
 under torch.profiler through the phase build and through the normal one.
 Each
@@ -63,7 +72,9 @@ import torch
 PHASES = ('input and K6', 'recompute', 'heads', 'inner chain',
           'head backward', 'first-order reverse with dx', 'tangent')
 FWD_PHASES = ('input (K7, K8)', 'layers', 'heads (K10, bottleneck)',
-              'inner chain and fold (K3)', 'K6 scan')
+              'inner chain and fold (K3)', 'K6 scan',
+              'wide fold: the partners (loads or waits, staging)',
+              'wide fold: its product (FMA passes or TF32 wgmma), u sums')
 KINDS = ('products', 'scalar passes', 'stores')
 KERNELS = ('trunk_bwd', 'wgrad', 'tn', 'colsum', 'reduce')
 FWD_KERNELS = ('trunk_fwd',)
@@ -104,7 +115,8 @@ def device_ms(run, kernels=KERNELS, calls=2):
     us = getattr(e, 'self_device_time_total',
                  getattr(e, 'self_cuda_time_total', 0))
     for k in kernels:
-      if any(f'{k}{v}_kernel' in e.key for v in ('', '_tma', '_f32', '_tf32')):
+      if any(f'{k}{v}_kernel' in e.key for v in ('', '_tma', '_f32', '_tf32',
+                                                  '_bf16')):
         out[k] += us / 1e3 / calls
   return out
 
@@ -227,6 +239,7 @@ def fwd_cases(chip_smoke, fused_mlp, dev, cdt):
   cs7 = [s.to(tdt) for s in segs]
   pack7 = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
   yield 'K3 wide hc256', lambda: fused_mlp.trunk_kernel(cs7, pack7, fold)
+  yield 'K1 wide hc256', lambda: fused_mlp.trunk_kernel(cs7, pack7)
 
 
 def main():
@@ -235,7 +248,8 @@ def main():
   ap.add_argument('--lib', default='trunk_bwd_tma',
                   choices=('trunk_bwd_tma', 'trunk_bwd_f32', 'trunk_bwd',
                            'trunk_fwd_tma', 'trunk_fwd_f32', 'trunk_fwd',
-                           'trunk_wide_tf32', 'trunk_wide_bwd_tf32'))
+                           'trunk_wide_tf32', 'trunk_wide_bwd_tf32',
+                           'trunk_wide_bf16'))
   ap.add_argument('--dtype', default=None, choices=('bfloat16', 'float32'),
                   help='float32 for the *_f32 libraries, else bfloat16 by '
                   'default')
@@ -271,7 +285,15 @@ def main():
         else route(*a, **k))
   if a.lib == 'trunk_fwd':
     fused_mlp.forward_library = lambda pack, *modes, **kw: 'trunk_fwd'
-  forward = a.lib.startswith('trunk_fwd') or a.lib == 'trunk_wide_tf32'
+  if a.lib in ('trunk_fwd_tma', 'trunk_fwd_f32'):  # the defaults' old design
+    fwd_route = fused_mlp.forward_library
+    fused_mlp.forward_library = lambda *a_, **k: (
+        fused_mlp.FWD_LIBRARY[a_[0].compute_dtype]
+        if fwd_route(*a_, **k) in (fused_mlp.WIDE_TF32_LIBRARY,
+                                   fused_mlp.WIDE_BF16_LIBRARY)
+        else fwd_route(*a_, **k))
+  forward = a.lib.startswith('trunk_fwd') or a.lib in ('trunk_wide_tf32',
+                                                       'trunk_wide_bf16')
   phases = FWD_PHASES if forward else PHASES
   kernels = FWD_KERNELS if forward else KERNELS
   report = {'card': smi, 'n_samples': chip_smoke.N_SAMPLES, 'lib': a.lib,

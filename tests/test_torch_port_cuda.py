@@ -2204,6 +2204,7 @@ def test_defaults_wide_trunk_matches_plain(dev, n, cdt, hc):
     assert fused_mlp.wide_input(pack, fold=f)
     assert fused_mlp.forward_library(pack, fold=f) == (
         fused_mlp.WIDE_TF32_LIBRARY if fused_mlp.wide_tf32(pack, fold=f)
+        else fused_mlp.WIDE_BF16_LIBRARY if fused_mlp.wide_bf16(pack, fold=f)
         else fused_mlp.FWD_LIBRARY[cdt])
     assert fused_mlp.backward_library(pack, fold=f) == (
         fused_mlp.WIDE_TF32_BWD_LIBRARY if fused_mlp.wide_tf32_bwd(pack,
@@ -2237,13 +2238,15 @@ def test_defaults_wide_trunk_matches_plain(dev, n, cdt, hc):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('which', ['K3 f32', 'K4 bf16 ubar', 'K4 f32 1st',
-                                   'K4 f32 ubar'])
+                                   'K4 f32 ubar', 'K3 bf16', 'K1 f32'])
 @pytest.mark.parametrize('n', [1, 63, 64, 65, 128, 129, 257, 4097])
 def test_redesigned_defaults_instances_match_plain(dev, n, which):
   # The instances redesigned for the defaults' spatial trunk (8 x 256 on
   # 504 columns, the 256-wide bottleneck) at n rows, across the 64-row
-  # tiles: f32 K3 on csrc/trunk_wide_tf32.cu (three TF32 passes of wgmma),
-  # sigma and the bottleneck by BOUND, u by GRAD_BOUND; bf16
+  # tiles: f32 K3 and K1 on csrc/trunk_wide_tf32.cu (three TF32 passes of
+  # wgmma) and bf16 K3 on csrc/trunk_wide_bf16.cu (one bf16 pass of wgmma
+  # on 128-row tiles, the fold three TF32 passes), sigma and the
+  # bottleneck by BOUND, u by GRAD_BOUND; bf16
   # K4 with u's cotangent (the tangent read back at the skip layer), and
   # f32 K4 first order and with u's cotangent on
   # csrc/trunk_wide_bwd_tf32.cu (three TF32 passes of wgmma), every
@@ -2252,13 +2255,16 @@ def test_redesigned_defaults_instances_match_plain(dev, n, which):
   segs, ws, bs, kw, fold, (sbar, cbar, ubar) = _defaults_case(dev, n, 256)
   cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
   pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
-  if which.startswith('K3'):
-    assert fused_mlp.forward_library(pack, fold=fold) == (
+  if which.startswith(('K1', 'K3')):
+    f = fold if which.startswith('K3') else None
+    assert fused_mlp.forward_library(pack, fold=f) == (
+        fused_mlp.WIDE_BF16_LIBRARY if cdt == 'bfloat16' else
         fused_mlp.WIDE_TF32_LIBRARY)
     nv = 2
-    kernel = lambda: fused_mlp.trunk_kernel(cs, pack, fold)
+    kernel = lambda: fused_mlp.trunk_kernel(cs, pack, f)
     plain = lambda: fused_mlp.trunk_reference(
-        cs, ws, bs, compute_dtype=cdt, density_grad=True, fold=fold, **kw)
+        cs, ws, bs, compute_dtype=cdt, density_grad=f is not None, fold=f,
+        **kw)
   else:
     first = which.endswith('1st')
     cots = (sbar, None, cbar.to(fused_mlp.DTYPES[cdt]),

@@ -566,6 +566,318 @@ def test_k3_tf32_passes_against_the_f32_bound(passes):
     assert max(reads) > 1, reads
 
 
+# ----------------------- the f32 K1 on the tensor cores, a model
+
+
+def _k1_tf32_model(pack, segs, product):
+  """sigma and the bottleneck as csrc/trunk_wide_tf32.cu's K1 instance
+  computes them (`_k3_tf32_model` without the chain and the folds), over
+  K1's panels (`fused_mlp.tf32_panels(pack, dg=False)`: the layers' and the
+  bottleneck's, 12 at depth 8)."""
+  width, d = 256, int(segs[0].shape[1])
+  panels = iter(fused_mlp.tf32_panels(pack, dg=False).reshape(-1, width,
+                                                               width))
+  s = np.arange(width)
+  perm = torch.from_numpy((s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4)
+  x0, x1 = (torch.nn.functional.pad(x.float(), (0, width - d)) for x in segs)
+
+  def run(a_list):
+    a = torch.cat([t[:, perm] for t in a_list], 1).contiguous()
+    b = torch.cat([next(panels).t() for _ in a_list], 0).contiguous()
+    return product(a, b)
+
+  act = None
+  for l in range(pack.depth):
+    act = torch.relu(run([x0, x1] if l == 0 else [act, x0, x1]
+                         if l == pack.skip else [act]) + pack.b[l])
+  out = act @ pack.wd, run([act]) + pack.bc
+  assert next(panels, None) is None  # every panel read, none left
+  return out
+
+
+def test_tf32_k1_panels_hold_every_product_of_the_trunk():
+  # K1 on csrc/trunk_wide_tf32.cu (the f32 defaults served): its panels
+  # (`fused_mlp.tf32_panel_index(..., dg=False)`: 12 of 256 x 256 at depth
+  # 8 with the skip at layer 5, the first 12 of K3's 23) run in the
+  # kernel's order in exact f32 give sigma and the bottleneck within 1e-6
+  # of the largest entry of trunk_reference's. The f32 defaults' K1 routes
+  # there, 214,560 B of shared memory a CTA (no relu' bits).
+  _, _, segs, pack, _ = _tf32_case(9)
+  assert fused_mlp.wide_tf32(pack)
+  assert fused_mlp.forward_library(pack) == fused_mlp.WIDE_TF32_LIBRARY
+  assert fused_mlp.kernel_smem(fused_mlp.WIDE_TF32_LIBRARY, pack, 256) == (
+      214560)
+  idx = fused_mlp.tf32_panel_index(8, 5, 512, 252, dg=False)
+  assert idx.shape == (12 * 256, 256)
+  np.testing.assert_array_equal(idx, fused_mlp.tf32_panel_index(
+      8, 5, 512, 252)[:12 * 256])
+  got = _k1_tf32_model(pack, segs, lambda a, b: a @ b)
+  ws, bs, kw = fused_mlp.unpack_trunk(pack)
+  want = fused_mlp.trunk_reference(segs, ws, bs, **kw)
+  for g, w in zip(got, want):
+    assert _rel(g, w) < 1e-6
+
+
+@pytest.mark.parametrize('passes', [3, 1])
+def test_k1_tf32_passes_against_the_f32_bound(passes):
+  # The K1 model with the kernel's arithmetic (three TF32 passes, 32-deep
+  # f32 slice sums: `_truncated_product`) against JAX
+  # reference_encoded_trunk with the 256-wide head at 64 rows: sigma and
+  # the bottleneck within chip_smoke.py's KERNEL_BOUND['float32'] of
+  # max(1, their largest entry); one pass (hi.hi alone) reads above it.
+  case, (wc, bc), segs, pack, _ = _tf32_case(10)
+  ks, bs, wd, lm, lv, _, _ = case
+  if passes == 3:
+    product = lambda a, b: torch.from_numpy(
+        _truncated_product(a, b, 32)).float()
+  else:
+    product = lambda a, b: _tf32_product(a, b, passes=1)
+  got = _k1_tf32_model(pack, segs, product)
+  want = jfused.reference_encoded_trunk(
+      jnp.asarray(lm), jnp.asarray(lv), SCALES, [jnp.asarray(k) for k in ks],
+      [jnp.asarray(b) for b in bs], jnp.asarray(wd), skip_period=4,
+      head_cdt=(jnp.asarray(wc), jnp.asarray(bc)))
+  reads = [float((g - _t(_np(w)).reshape(g.shape)).abs().max()) /
+           max(1.0, float(np.abs(_np(w)).max())) / KERNEL_BOUND['float32']
+           for g, w in zip(got, want)]
+  if passes == 3:
+    assert max(reads) < 1, reads
+  else:
+    assert max(reads) > 1, reads
+
+
+def test_wide_tf32_k1_launch_arguments_match_exports(monkeypatch):
+  # The f32 defaults' K1 through trunk_kernel on CPU tensors with the
+  # libraries replaced by _ArgCheck: the panels' split (12 of 65,536
+  # entries), then refnerf_wide_tf32_k1 (100 rows, 252 columns a segment,
+  # depth 8, the skip at layer 5, 12 panels) with the argument lists
+  # cuda_build.EXPORTS declares; sigma and the bottleneck out, no u.
+  from refnerf_tpu_torch.ops import cuda_build
+  import contextlib
+  calls = []
+  fake = _ArgCheck(calls)
+  monkeypatch.setattr(cuda_build, 'library', lambda name: fake)
+  monkeypatch.setattr(torch.cuda, 'device',
+                      lambda dev: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, 'current_stream',
+                      lambda dev=None: type('S', (), {'cuda_stream': 0})())
+  _, _, segs, pack, _ = _tf32_case(11, n=100)
+  sig, cout = fused_mlp.trunk_kernel(segs, pack)
+  assert (sig.shape, cout.shape) == ((100,), (100, 256))
+  assert [fn for fn, _ in calls] == ['refnerf_wide_tf32_split',
+                                     'refnerf_wide_tf32_k1']
+  split, k1 = (args for _, args in calls)
+  assert split[0] == 12 * 65536 and split[3] == pack.w.numel()
+  assert k1[:4] == (100, 252, 8, 5) and k1[8] == 12
+
+
+# ------------------------------- the bf16 K3 on the tensor cores, a model
+
+
+def _bf16_case(seed, n=64):
+  """`_tf32_case`'s trunk in bf16: (JAX's case, its head, the port's bf16
+  segments, bf16 pack and fold)."""
+  case = _trunk_case(seed, n=n)
+  rng = np.random.default_rng(seed + 100)
+  wc = (rng.normal(size=(256, 256)) / 16).astype(np.float32)
+  bc = (rng.normal(size=256) * 0.1).astype(np.float32)
+  segs, ws, bs, wd, fold, _, _ = _port_case(case, 'bfloat16')
+  pack = fused_mlp.pack_trunk(ws, bs, (252, 252), wd=wd,
+                              head_cdt=(_t(wc.T), _t(bc)),
+                              compute_dtype='bfloat16')
+  return case, (wc, bc), segs, pack, fold
+
+
+# The fold's A fragment (TF32 m64n32k8, step j of a chunk): register e of a
+# thread (lane % 4 = q) is the accumulator 4 j + 2 (e % 2) + e // 2, column
+# 8 j + 2 q + e // 2, in K slot q + 4 (e // 2).
+_FOLD_SLOT = {(q, e): (q + 4 * (e // 2), 2 * q + e // 2)
+              for q in range(4) for e in range(4)}
+
+
+def _k3_bf16_model(pack, segs, fold, fold_product, faults=()):
+  """sigma, the bottleneck and u as csrc/trunk_wide_bf16.cu computes them
+  for `pack` (`fused_mlp.wide_bf16`), in its order: each product one bf16
+  pass over the pack's own weights, its exact products summed in f32 (the
+  input [x0 | x1] as 512 packed columns, the skip layer's [h | x]);
+  h_l = relu(cdt(cdt(acc) + b_l)), relu' = h_l > 0, sigma = f32(y) wd, the
+  bottleneck cdt(cdt(acc) + bc); the chain s_{L-1} = relu'(h) cdt(wd),
+  s_{l-1} = relu'(h_{l-1}) cdt(s_l W_l^T); u_x 128 input columns at a time
+  (chunks 0-3 at the skip layer and at layer 0), each scaled by its
+  partner values ([xc | -xs], the segments' columns swapped) and
+  folded at once by `fold_product(a, b)` (a @ b) against its rows of the
+  fold panel (`fused_mlp.bf16_fold_panel`), A's columns permuted within
+  every 8 as the panel's K is. `faults`: mlp_defaults.FAULTS' 'no skip
+  fold' (the skip layer's chunks left out of u) and 'pairing swapped' (xs
+  read as a sin column's partner, -xc as a cos one's)."""
+  bf, width, d = torch.bfloat16, 256, int(segs[0].shape[1])
+  r = lambda t: t.to(bf).float()
+  ws, wts, off = [], [], 0
+  for k in pack.k_dims():
+    ws.append(pack.w[off:off + width * k].reshape(width, k).float())
+    wts.append(pack.wt[off:off + width * k].reshape(k, width).float())
+    off += width * k
+  n = int(segs[0].shape[0])
+  x = torch.zeros(n, pack.kin)
+  x[:, :d], x[:, d:2 * d] = segs[0].float(), segs[1].float()
+  part = torch.zeros(n, 512)
+  a, b = (segs[0], segs[1]) if 'pairing swapped' in faults else (segs[1],
+                                                                  segs[0])
+  part[:, :d], part[:, d:2 * d] = a.float(), -b.float()
+  s = np.arange(128)
+  perm = torch.from_numpy((s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4)
+  fp = fused_mlp.bf16_fold_panel(fold).reshape(4, 32, 128)
+  masks, h = [], None
+  for l in range(pack.depth):
+    a_l = x if l == 0 else torch.cat([h, x], 1) if l == pack.skip else h
+    h = torch.relu(r(r(a_l @ ws[l].t()) + pack.b[l].float()))
+    masks.append(h > 0)
+  sig = h @ pack.wd
+  cout = r(r(h @ pack.wc.float().t()) + pack.bc.float())
+  s_ = torch.where(masks[-1], r(pack.wd), torch.zeros(()))
+  u = torch.zeros(n, 32)
+  for l in range(pack.depth - 1, -1, -1):
+    if l == 0 or l == pack.skip:
+      for ch in range(4):
+        c0 = (0 if l == 0 else width) + 128 * ch
+        um = part[:, 128 * ch:128 * ch + 128] * (s_ @ wts[l][c0:c0 + 128].t())
+        if not (l > 0 and 'no skip fold' in faults):
+          u = u + fold_product(um[:, perm].contiguous(), fp[ch].t().contiguous())
+    if l > 0:
+      s_ = torch.where(masks[l - 1], r(s_ @ wts[l][:width].t()),
+                       torch.zeros(()))
+  return sig, cout, u[:, :fold.shape[1]]
+
+
+def test_bf16_k3_layouts_hold_every_product():
+  # csrc/trunk_wide_bf16.cu's two layouts on the CPU. A bf16 product's
+  # m64nNk16 accumulators (d[4 j + 2 h + e]: row lane / 4 + 8 h, column 8 j
+  # + 2 (lane % 4) + e) packed in pairs are the next product's A fragments
+  # of k16 step kk (a[i]: row lane / 4 + 8 (i % 2), columns 16 kk + 2 (lane
+  # % 4) + 8 (i / 2) and the next) with no K permutation; the fold's TF32
+  # A fragments of the accumulators (`_FOLD_SLOT`) hold column 8 j + 2 q +
+  # e // 2 in slot q + 4 (e // 2), which is where the fold panel
+  # (`fused_mlp.bf16_fold_index`: [4 x 32][128], S's row of the input
+  # column, a cos column's the column less d) puts it. The model run with
+  # exact products (a @ b) against trunk_reference in bfloat16 (the same
+  # roundings, each product summed in another order): sigma and the
+  # bottleneck within 1e-2 of their largest entry (a bf16 rounding flip of
+  # an activation moves them by a fraction of 2^-8), u within 1e-5.
+  for lane in range(32):
+    q = lane % 4
+    for kk in range(8):
+      for i in range(4):
+        j, h = 2 * kk + i // 2, i % 2  # the packed pair P[2 j + h]
+        for e in range(2):
+          acc = (lane // 4 + 8 * h, 8 * j + 2 * q + e)
+          frag = (lane // 4 + 8 * (i % 2), 16 * kk + 2 * q + 8 * (i // 2) + e)
+          assert acc == frag
+  perm = [(s // 8) * 8 + 2 * (s % 4) + (s % 8) // 4 for s in range(128)]
+  for (q, e), (slot, col) in _FOLD_SLOT.items():
+    assert perm[slot] == col
+  d, nb = 252, NB
+  idx = fused_mlp.bf16_fold_index(d, nb)
+  assert idx.shape == (128, 128)
+  for ch in range(4):
+    for k in range(128):
+      c = 128 * ch + perm[k]
+      want = -1 if c >= 2 * d else (c if c < d else c - d)
+      for j in (0, nb - 1, nb, 31):
+        got = idx[32 * ch + j, k]
+        assert got == (-1 if want < 0 or j >= nb else want * nb + j)
+  _, _, segs, pack, fold = _bf16_case(12)
+  assert fused_mlp.wide_bf16(pack, fold=fold)
+  assert fused_mlp.forward_library(pack, fold=fold) == (
+      fused_mlp.WIDE_BF16_LIBRARY)
+  assert fused_mlp.kernel_smem(fused_mlp.WIDE_BF16_LIBRARY, pack, 256,
+                               fold) == 226368
+  got = _k3_bf16_model(pack, segs, fold, lambda a, b: a @ b)
+  ws, bs, kw = fused_mlp.unpack_trunk(pack)
+  want = fused_mlp.trunk_reference(segs, ws, bs, density_grad=True,
+                                   fold=fold, **kw)
+  for g, w, tol in zip(got, want, (1e-2, 1e-2, 1e-5)):
+    assert _rel(g, w) < tol
+
+
+def _bf16_reads(got, want):
+  """chip_smoke.py's reads of a K3 against its bound: sigma and the
+  bottleneck by the max error over max(1, the largest entry), against
+  KERNEL_BOUND['bfloat16']; u by relative L2, against GRAD_BOUND."""
+  want = [_t(_np(w)).reshape(g.shape) for g, w in zip(got, want)]
+  vals = [float((g.float() - w).abs().max()) / max(1.0, float(w.abs().max()))
+          / KERNEL_BOUND['bfloat16'] for g, w in zip(got[:2], want[:2])]
+  u = float((got[2] - want[2]).norm() / want[2].norm()) / GRAD_BOUND[
+      'bfloat16']
+  return vals + [u]
+
+
+def _jax_bf16_k3(case, head):
+  ks, bs, wd, lm, lv, _, _ = case
+  wc, bc = head
+  return jfused.reference_encoded_trunk(
+      jnp.asarray(lm), jnp.asarray(lv), SCALES, [jnp.asarray(k) for k in ks],
+      [jnp.asarray(b) for b in bs], jnp.asarray(wd), skip_period=4,
+      density_grad=True, head_cdt=(jnp.asarray(wc), jnp.asarray(bc)),
+      compute_dtype='bfloat16')
+
+
+def test_k3_bf16_model_against_jax():
+  # The model with the kernel's arithmetic (bf16 products, the fold three
+  # TF32 passes on the u_x accumulators, a chunk's 128-deep sum added into
+  # u in f32, `_truncated_product`; the partners' values) against JAX
+  # reference_encoded_trunk in bfloat16 with density_grad=True and the
+  # 256-wide head at 64 rows: sigma and the bottleneck within chip_smoke.py's
+  # KERNEL_BOUND['bfloat16'], u within GRAD_BOUND['bfloat16'].
+  case, head, segs, pack, fold = _bf16_case(13)
+  got = _k3_bf16_model(pack, segs, fold, lambda a, b: torch.from_numpy(
+      _truncated_product(a, b)).float())
+  reads = _bf16_reads(got, _jax_bf16_k3(case, head))
+  assert max(reads) < 1, reads
+
+
+@pytest.mark.parametrize('fault', ['no skip fold', 'pairing swapped'])
+def test_k3_bf16_faults_read_above_the_bounds(fault):
+  # mlp_defaults.FAULTS' two faults of u planted in the bf16 model (the
+  # skip layer's chunks left out of u's fold; the partners read with the
+  # segments' pairing swapped) read above GRAD_BOUND['bfloat16'] against
+  # JAX, as phase 25 requires of the kernel's bounds.
+  assert fault in mlp_defaults.FAULTS
+  case, head, segs, pack, fold = _bf16_case(14)
+  got = _k3_bf16_model(pack, segs, fold, lambda a, b: a @ b, faults=[fault])
+  reads = _bf16_reads(got, _jax_bf16_k3(case, head))
+  assert reads[2] > 1, (fault, reads)
+
+
+def test_wide_bf16_k3_launch_arguments_match_exports(monkeypatch):
+  # The bf16 defaults' K3 through trunk_kernel on CPU tensors with the
+  # libraries replaced by _ArgCheck: the fold panel's split (4 x 32 x 128
+  # entries of the 252 x 21 fold), then refnerf_wide_bf16_k3 (100 rows, 252
+  # columns a segment, depth 8, the skip at layer 5, 21 basis vectors, 512
+  # packed input columns, the pack's w, wt and wc) with the argument lists
+  # cuda_build.EXPORTS declares; sigma f32, the bottleneck bf16, u f32.
+  from refnerf_tpu_torch.ops import cuda_build
+  import contextlib
+  calls = []
+  fake = _ArgCheck(calls)
+  monkeypatch.setattr(cuda_build, 'library', lambda name: fake)
+  monkeypatch.setattr(torch.cuda, 'device',
+                      lambda dev: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, 'current_stream',
+                      lambda dev=None: type('S', (), {'cuda_stream': 0})())
+  _, _, segs, pack, fold = _bf16_case(15, n=100)
+  sig, cout, u = fused_mlp.trunk_kernel(segs, pack, fold)
+  assert (sig.shape, cout.shape, u.shape) == ((100,), (100, 256), (100, NB))
+  assert (sig.dtype, cout.dtype, u.dtype) == (torch.float32, torch.bfloat16,
+                                              torch.float32)
+  assert [fn for fn, _ in calls] == ['refnerf_wide_bf16_fold',
+                                     'refnerf_wide_bf16_k3']
+  fsplit, k3 = (args for _, args in calls)
+  assert fsplit[0] == 4 * 32 * 128
+  assert k3[:6] == (100, 252, 8, 5, NB, 512)
+  assert k3[8:11] == (pack.w.data_ptr(), pack.wt.data_ptr(),
+                      pack.wc.data_ptr())
+
+
 # ----------------------- the f32 K4 on the tensor cores, a model
 
 
@@ -803,26 +1115,33 @@ def _defaults_pack(cdt, hc):
 def test_defaults_shape_routes_to_the_wide_instances(cdt, hc):
   # 8 x 256 on 504 columns (512 packed), the density head and a 256- or
   # 128-wide bottleneck, with and without the density gradient: the
-  # wide-input pair of the dtype's libraries (the f32 density gradient with
-  # the 256-wide head on csrc/trunk_wide_tf32.cu, the f32 backward with the
-  # 256-wide head, with and without it, on csrc/trunk_wide_bwd_tf32.cu:
-  # 228,392 B; the f32 forward without it stays on trunk_fwd_f32.cu), each
-  # launch within an
+  # wide-input pair of the dtype's libraries (the f32 forward with the
+  # 256-wide head, with and without the density gradient, on
+  # csrc/trunk_wide_tf32.cu: 228,896 B with it, 214,560 B without the relu'
+  # bits; the bf16 density gradient with the 256-wide head on
+  # csrc/trunk_wide_bf16.cu, 226,368 B; the f32 backward with the 256-wide
+  # head, with and without it, on csrc/trunk_wide_bwd_tf32.cu: 228,392 B),
+  # each launch within an
   # H100's shared memory (the C sums kernel_smem mirrors: bf16 forward
   # 231,480 B at two tiles and a 3-stage ring, 222,648 B with the density
-  # gradient at one tile, the fold staged and a 3-stage ring; bf16 backward
+  # gradient and the 128-wide head at one tile, the fold staged and a
+  # 3-stage ring; bf16 backward
   # 218,440 / 212,200 B, a 3-stage ring and the fold with it (215,240 B
   # with the 256-wide head: the fold's rows padded to 24, two mbarriers for
-  # the tangent read back); f32 forward 224,392 / 221,192 B (228,896 B on
-  # trunk_wide_tf32.cu with the 256-wide head: two 64 KB stages of B's TF32
-  # parts), backward 222,600 / 216,376 B, the fold staged with it), counted
-  # under 'K1 wide', 'K3 wide' and 'K4 wide'.
+  # the tangent read back); f32 forward with the 128-wide head 224,392 /
+  # 221,192 B, backward 222,600 / 216,376 B, the fold staged with it),
+  # counted under 'K1 wide', 'K3 wide' and 'K4 wide'. Every other shape
+  # keeps its route: bf16 K1 and the 128-wide head on trunk_fwd_tma.cu,
+  # the f32 128-wide head on trunk_fwd_f32.cu.
   pack = _defaults_pack(cdt, hc)
   fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, NB))
   tf32 = cdt == 'float32' and hc == 256
+  bf = cdt == 'bfloat16' and hc == 256
   smem = {'bfloat16': ((231480, 218440),
-                       (222648, 215240 if hc == 256 else 212200)),
-          'float32': ((224392, 228392 if tf32 else 222600),
+                       (226368 if bf else 222648,
+                        215240 if hc == 256 else 212200)),
+          'float32': ((214560 if tf32 else 224392,
+                       228392 if tf32 else 222600),
                       (228896 if tf32 else 221192,
                        228392 if tf32 else 216376))}[cdt]
   modes = (False, fused_mlp.DirModes(), fused_mlp.SpaModes())
@@ -831,11 +1150,13 @@ def test_defaults_shape_routes_to_the_wide_instances(cdt, hc):
     assert fused_mlp.missing_instance(pack, hc, f) is None
     libs = (fused_mlp.forward_library(pack, fold=f),
             fused_mlp.backward_library(pack, fold=f))
-    assert libs == (fused_mlp.WIDE_TF32_LIBRARY if tf32 and f is not None
+    assert libs == (fused_mlp.WIDE_TF32_LIBRARY if tf32 else
+                    fused_mlp.WIDE_BF16_LIBRARY if bf and f is not None
                     else fused_mlp.FWD_LIBRARY[cdt],
                     fused_mlp.WIDE_TF32_BWD_LIBRARY if tf32
                     else fused_mlp.BWD_LIBRARY[cdt])
-    assert fused_mlp.wide_tf32(pack, fold=f) == (tf32 and f is not None)
+    assert fused_mlp.wide_tf32(pack, fold=f) == tf32
+    assert fused_mlp.wide_bf16(pack, fold=f) == (bf and f is not None)
     assert fused_mlp.wide_tf32_bwd(pack, fold=f) == tf32
     assert tuple(fused_mlp.kernel_smem(lib, pack, hc, f)
                  for lib in libs) == sums
@@ -862,13 +1183,14 @@ def test_the_density_gradient_past_the_wide_basis_is_named():
 def test_f32_backward_route_leaves_the_other_shapes_alone():
   # Only the f32 trunk of `wide_tf32_bwd` (the 256-wide head, no f32 head)
   # takes csrc/trunk_wide_bwd_tf32.cu, with or without the fold; its f32
-  # forward without the density gradient stays on trunk_fwd_f32.cu. The
+  # forward without the density gradient takes trunk_wide_tf32.cu's K1. The
   # 128-wide head, an f32 head beside the 256-wide one and bf16 keep their
-  # wide-input routes, and the shapes still without an instance stay named
+  # wide-input routes (the forward with the f32 head too), and the shapes
+  # still without an instance stay named
   # (tests/test_torch_port_mipnerf360.py pins the 11).
   fold = torch.as_tensor(fused_mlp.ipe_scale_fold(SCALES, NB))
   f32 = _defaults_pack('float32', 256)
-  assert fused_mlp.forward_library(f32) == 'trunk_fwd_f32'
+  assert fused_mlp.forward_library(f32) == fused_mlp.WIDE_TF32_LIBRARY
   for f in (None, fold):
     assert fused_mlp.backward_library(f32, fold=f) == (
         fused_mlp.WIDE_TF32_BWD_LIBRARY)
@@ -882,6 +1204,7 @@ def test_f32_backward_route_leaves_the_other_shapes_alone():
     head = f32._replace(wh=torch.zeros(3, 256), bh=torch.zeros(3))
     assert not fused_mlp.wide_tf32_bwd(head, fold=f)
     assert fused_mlp.backward_library(head, fold=f) == 'trunk_bwd_f32'
+    assert fused_mlp.forward_library(head, fold=f) == 'trunk_fwd_f32'
 
 
 def test_wide_tf32_bwd_launch_arguments_match_exports(monkeypatch):
@@ -960,13 +1283,16 @@ def test_defaults_step_routes_every_trunk_to_an_instance(monkeypatch, cdt,
   # weights (test_torch_port_cascade.py `_stubbed_kernels`): every spatial
   # trunk launch at every level goes to the wide-input pair (K3 and K4 with
   # u's cotangent in the step, K1 in the request; 'K3 wide' / 'K4 wide' /
-  # 'K1 wide' 3 each; f32 K3 on trunk_wide_tf32.cu, f32 K4 on
-  # trunk_wide_bwd_tf32.cu), every directional one
+  # 'K1 wide' 3 each; f32 K3 and K1 on trunk_wide_tf32.cu, f32 K4 on
+  # trunk_wide_bwd_tf32.cu, bf16 K3 on trunk_wide_bf16.cu), every
+  # directional one
   # to trunk_dir1.cu, none to a plain version; the step under 'on' equals
   # 'off' to the bit.
   routes, fwd_launches = _stubbed_kernels(monkeypatch)
   fwd, bwd = fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt]
-  k3 = fused_mlp.WIDE_TF32_LIBRARY if cdt == 'float32' else fwd
+  k3 = (fused_mlp.WIDE_TF32_LIBRARY if cdt == 'float32' else
+        fused_mlp.WIDE_BF16_LIBRARY)
+  k1 = fused_mlp.WIDE_TF32_LIBRARY if cdt == 'float32' else fwd
   k4 = fused_mlp.WIDE_TF32_BWD_LIBRARY if cdt == 'float32' else bwd
   runs = {}
   for mode in ('on', 'off'):
@@ -1000,7 +1326,7 @@ def test_defaults_step_routes_every_trunk_to_an_instance(monkeypatch, cdt,
   dir1 = fused_mlp.DIR1_LIBRARY
   assert sorted(set(r_on)) == sorted({('fwd', 512, k3), ('bwd', 512, k4),
                                       ('fwd', 288, dir1), ('bwd', 288, dir1)})
-  assert sorted(set(rq_on)) == sorted({('fwd', 512, fwd), ('fwd', 288, dir1)})
+  assert sorted(set(rq_on)) == sorted({('fwd', 512, k1), ('fwd', 288, dir1)})
   assert torch.equal(on['loss'], off['loss'])
   if which == 'normals':
     assert 'orientation' in on['losses']
