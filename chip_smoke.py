@@ -176,9 +176,15 @@ Phases, each printed on its own line:
      and distortion losses; a separate PropMLP of 4 x 256, density only,
      on 504 IPE columns): (a) its trunk at the same N against its plain
      versions, forward and backward, each run twice more bit-identical: in
-     f32 on the wide-input instances of csrc/trunk_fwd_f32.cu and
-     csrc/trunk_bwd_f32.cu, in bf16 on those of csrc/trunk_fwd_tma.cu and
-     csrc/trunk_bwd_tma.cu (depth 4 and 8, each route asserted); in bf16
+     f32 on the head-0 instances of csrc/trunk_wide_tf32.cu and
+     csrc/trunk_wide_bwd_tf32.cu (three TF32 passes of wgmma; bounds of
+     three TF32 products, the FMA pipes' beside them; also at
+     REDESIGNED_ROWS, and timed in turns with the FMA instances of
+     csrc/trunk_fwd_f32.cu and csrc/trunk_bwd_f32.cu that ran them before,
+     the routes forced; three planted faults of the design above the
+     bounds), in bf16 on the wide-input instances of csrc/trunk_fwd_tma.cu
+     and csrc/trunk_bwd_tma.cu (depth 4 and 8, each route asserted; at
+     depth 4 the PyTorch chain timed as the yardstick); in bf16
      planted faults of the input fill read above the bounds, and at depth
      4 the design the bf16 pair replaced (csrc/trunk_fwd.cu and
      csrc/trunk_bwd.cu, the routes forced) is held against the same plain
@@ -186,7 +192,8 @@ Phases, each printed on its own line:
      scene (20 + 2 views of 400 x 400), in f32 under fused_trunk='on' at
      the gin's batch of 1024: 3 warm-up and 10 timed steps (the PropMLP's
      pair 2 a step, counted under 'K1 wide' / 'K4 wide', K2-K5 the NeRF
-     level's; every forward on trunk_fwd_f32.cu, every backward on
+     level's; the PropMLP's forward on trunk_wide_tf32.cu and backward on
+     trunk_wide_bwd_tf32.cu, the NeRF level's on trunk_fwd_f32.cu and
      trunk_bwd_f32.cu), one step against 'off' with the same draws (loss,
      gradient norm, each term), one step profiled, a 4096-ray request
      against 'off'; (c) the same in bf16 with all six fuse flags at batch
@@ -277,7 +284,8 @@ Phases, each printed on its own line:
      one tile's rows missing from dW1; its chain timed likewise); then 3
      steps at batch
      16,384 in each dtype under 'on' (launches a step asserted, median ms,
-     peak memory), one step against 'off', a bf16 step profiled, 'on' and
+     peak memory; the f32 PropMLP on the TF32 libraries), one step against
+     'off', a step profiled, 'on' and
      'off' in turns, and a 4096-ray request against 'off' (spread_l2 within
      M360_SERVE_BOUND, a planted fault of the served model above it; one
      profiled).
@@ -306,8 +314,8 @@ bytes it must move (each input read once, each output written once) at 3.35
 TB/s and its operations at the card's peak for their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32;
 the fused stages' f32 work overlaps bf16 tensor work; the f32 width-1024
 pair's as three TF32 products at 495 TFLOP/s, the FMA bound beside it);
-its library_ms is null but for phase 24's and 25's rows (their PyTorch
-chains; none with the density gradient). The
+its library_ms is null but for phase 19's, 24's and 25's rows (their
+PyTorch chains; none with the density gradient). The
 line before it gives each phase's seconds.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is not 0 and no result line is printed.
@@ -694,8 +702,11 @@ def check_wgmma_sass(sass, kernels, count, what):
   SASS (`sass_of`), or this fails; the library's other kernels (its
   weights' TF32 split) are logged: the depth-1 directional library's four
   (bf16 and f32, forward and backward: dir1_bf16_kernel, dir1_f32_kernel),
-  the f32 forward's two (trunk_fwd_tf32_kernel, K3 and K1), the bf16
-  density gradient's one (trunk_fwd_bf16_kernel)."""
+  the f32 forward's three (trunk_fwd_tf32_kernel: K3, K1, and K1 at the
+  density head alone), the bf16 density gradient's one
+  (trunk_fwd_bf16_kernel), the f32 backward's three (trunk_bwd_tf32_kernel:
+  first order, with u's cotangent, and first order at the density head
+  alone)."""
   found = []
   for block in re.split(r'\n\s*Function : ', sass)[1:]:
     name = block.split('\n', 1)[0]
@@ -2940,16 +2951,90 @@ def fill_faults(fused_mlp, cdt, cs, ws, bs, kw, cots, depth):
                          f'wide input fill: {reads}')
 
 
+def prop_tf32_faults(fused_mlp, cs, ws, bs, kw, sbar):
+  """Phase 19 (a): what three planted faults of the f32 proposal trunk's
+  design on the TF32 libraries would read on the plain versions, as
+  `errors` reads the kernels (the share of KERNEL_BOUND on sigma, of
+  GRAD_BOUND on each gradient): 'one TF32 pass' (every product of the
+  plain pair as one TF32 pass, hi.hi: cuBLAS with TF32 allowed), 'head
+  unmasked' (zeta_{L-1} = sbar wd without relu'(h_{L-1}): the outer
+  product that stands in for the head's product) and 'x padded' (dW_0 from
+  an x scratch that holds each 252-column segment padded to 256, its first
+  504 columns read). Fails unless each reads above its bound. Returns the
+  reads."""
+  F = torch.nn.functional
+  L = len(ws)
+  skips = fused_mlp.skip_input_layers(L, kw['skip_period'])
+  cots = (sbar, None, None, None)
+
+  def plain():
+    with torch.no_grad():
+      return flatten(fused_mlp.trunk_reference(cs, ws, bs, **kw)) + flatten(
+          fused_mlp.trunk_backward_reference(cs, ws, bs, cots, **kw))
+
+  def chain(unmasked):  # [sigma, dws, dbs, dwd, zeta_0] by autograd
+    params = [t.detach().clone().requires_grad_()
+              for t in ws + bs + [kw['wd']]]
+    x = torch.cat(cs, -1)
+    h = x
+    for l in range(L):
+      a = F.linear(torch.cat([h, x], -1) if l in skips else h, params[l],
+                   params[L + l])
+      if l == 0:
+        pre0 = a
+      h = F.relu(a)
+      if unmasked and l == L - 1:
+        h = a + (h - a).detach()  # relu's value, the identity's derivative
+    sig = h @ params[-1].reshape(-1)
+    grads = torch.autograd.grad((sig * sbar).sum(), params + [pre0])
+    return [sig.detach()] + list(grads)
+
+  want = plain()
+  reads = {}
+  allow = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    got = plain()
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = allow
+  reads['one TF32 pass'] = max(r[3] for r in errors(got, want, 'float32', 1))
+  got = chain(True)[:-1]
+  reads['head unmasked'] = max(r[3] for r in errors(got, want, 'float32', 1))
+  got = chain(False)
+  d = cs[0].shape[1]
+  pad = torch.cat([F.pad(c, (0, 256 - d)) for c in cs], -1)[:, :2 * d]
+  got[1] = got[-1].t() @ pad  # dW_0 from the padded scratch
+  reads['x padded'] = max(r[3] for r in errors(got[:-1], want, 'float32', 1))
+  del want, got, pad
+  log(f'phase 19: K1/K4 wide float32 depth {L}: a fault of the TF32 design '
+      'would read ' + ', '.join(f'{v:.2f} ({k})' for k, v in reads.items()) +
+      ' times the bound')
+  if not min(reads.values()) > 1:
+    raise AssertionError(f'phase 19: the bounds do not see a fault of the '
+                         f'TF32 design: {reads}')
+  return reads
+
+
+PROP_FAULT_ROWS = 65536  # rows of the planted faults of the TF32 design
+
+
 def check_prop_kernels(fused_mlp, dev):
   """Phase 19 (a): the proposal trunk at N_SAMPLES rows against its plain
   versions, forward (sigma by KERNEL_BOUND) and backward (every weight and
   bias gradient by GRAD_BOUND, given a random cotangent of sigma), each
-  run twice more bit-identical, in f32 and bf16 (depth 4, and 8) on the
-  wide-input instances (f32: trunk_fwd_f32.cu and trunk_bwd_f32.cu; bf16:
-  trunk_fwd_tma.cu and trunk_bwd_tma.cu), each route asserted; in bf16
-  the planted faults of the fill (`fill_faults`) and, at depth 4, the
-  design the bf16 pair replaced (trunk_fwd.cu and trunk_bwd.cu, the routes
-  forced), checked likewise and timed: 'was_ms' (`old_prop_kernels`)."""
+  run twice more bit-identical, in f32 and bf16 (depth 4, and 8), each
+  route asserted: f32 on the head-0 instances of trunk_wide_tf32.cu and
+  trunk_wide_bwd_tf32.cu (three TF32 passes of wgmma, bounds of three TF32
+  products), also at REDESIGNED_ROWS (`redesigned_fwd_rows`,
+  `redesigned_rows`) and in turns with the FMA instances of
+  trunk_fwd_f32.cu and trunk_bwd_f32.cu that ran them before
+  (`redesigned_in_turns`, the routes forced), and at depth 4 the planted
+  faults of the design (`prop_tf32_faults`); bf16 on the wide-input
+  instances of trunk_fwd_tma.cu and trunk_bwd_tma.cu, the planted faults
+  of the fill (`fill_faults`) and, at depth 4, the design the bf16 pair
+  replaced (trunk_fwd.cu and trunk_bwd.cu, the routes forced), checked
+  likewise and timed: 'was_ms' (`old_prop_kernels`). At depth 4 the
+  PyTorch chain of each (`w1024_chain`) is timed as its yardstick."""
   gen = torch.Generator().manual_seed(SEED + 19)
   results = {}
   for depth in (4, 8):
@@ -2959,7 +3044,9 @@ def check_prop_kernels(fused_mlp, dev):
     for cdt in ('float32', 'bfloat16'):
       cs = [s.to(fused_mlp.DTYPES[cdt]) for s in segs]
       pack = fused_mlp.pack_trunk(ws, bs, (252, 252), compute_dtype=cdt, **kw)
-      want = (FWD_ROUTE[cdt], BWD_ROUTE[cdt])
+      tf32 = cdt == 'float32'
+      want = ((fused_mlp.WIDE_TF32_LIBRARY, fused_mlp.WIDE_TF32_BWD_LIBRARY)
+              if tf32 else (FWD_ROUTE[cdt], BWD_ROUTE[cdt]))
       got = (fused_mlp.forward_library(pack), fused_mlp.backward_library(pack))
       if (got != want or not fused_mlp.wide_input(pack) or
           fused_mlp.missing_instance(pack, 0) is not None):
@@ -2968,7 +3055,22 @@ def check_prop_kernels(fused_mlp, dev):
       tag = tuple(t + (' depth 8' if depth == 8 else '')
                   for t in ('K1 wide', 'K4 wide'))
       results[tag[0], cdt], results[tag[1], cdt] = prop_pair(
-          fused_mlp, tag, cdt, cs, ws, bs, kw, pack, cots)
+          fused_mlp, tag, cdt, cs, ws, bs, kw, pack, cots,
+          library=depth == 4, tf32_passes=3 if tf32 else 0)
+      if tf32:
+        redesigned_fwd_rows(fused_mlp, tag[0], cdt, pack, cs, ws, bs, kw,
+                            None, phase=19)
+        redesigned_rows(fused_mlp, tag[1], pack, cs, ws, bs, kw, cots, None,
+                        phase=19)
+        for t, run in zip(tag, (
+            lambda: fused_mlp.trunk_kernel(cs, pack),
+            lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots))):
+          results[t, cdt]['in_turns'] = redesigned_in_turns(
+              fused_mlp, t, cdt, run, None, phase=19, iters=10)
+        if depth == 4:
+          m = PROP_FAULT_ROWS
+          results[tag[1], cdt]['faults'] = prop_tf32_faults(
+              fused_mlp, [c[:m] for c in cs], ws, bs, kw, sbar[:m])
       if cdt == 'bfloat16':
         fill_faults(fused_mlp, cdt, cs, ws, bs, kw, cots, depth)
       if cdt == 'bfloat16' and depth == 4:
@@ -2981,23 +3083,30 @@ def check_prop_kernels(fused_mlp, dev):
   return results
 
 
-def prop_pair(fused_mlp, tags, cdt, cs, ws, bs, kw, pack, cots):
+def prop_pair(fused_mlp, tags, cdt, cs, ws, bs, kw, pack, cots,
+              library=False, tf32_passes=0):
   """Phase 19 (a): the proposal trunk's forward (tags[0]) and backward
   (tags[1]) on `pack` against their plain versions (compare()), each run
-  twice more bit-identical. Returns compare()'s two results."""
+  twice more bit-identical; with `library` the PyTorch chain of each
+  (`w1024_chain`) timed beside them; `tf32_passes` as compare() takes it.
+  Returns compare()'s two results."""
   kernel = lambda: fused_mlp.trunk_kernel(cs, pack)
   plain = lambda: fused_mlp.trunk_reference(cs, ws, bs, compute_dtype=cdt,
                                             **kw)
+  chain = lambda *c: (w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, *c)
+                      if library else None)
   f = compare(tags[0], cdt, kernel, plain, n_values=1, phase=19,
               inputs=cs + pack_tensors(pack),
-              flops=trunk_flops(ws, N_SAMPLES, 1))
+              flops=trunk_flops(ws, N_SAMPLES, 1), library=chain(),
+              tf32_passes=tf32_passes)
   deterministic(tags[0], kernel, phase=19, cdt=cdt)
   kernel = lambda: fused_mlp.trunk_backward_kernel(cs, pack, cots)
   plain = lambda: fused_mlp.trunk_backward_reference(
       cs, ws, bs, cots, compute_dtype=cdt, **kw)
   b = compare(tags[1], cdt, kernel, plain, n_values=0, iters=3, phase=19,
               inputs=cs + pack_tensors(pack) + [cots[0]],
-              flops=trunk_flops(ws, N_SAMPLES, 1, backward=True))
+              flops=trunk_flops(ws, N_SAMPLES, 1, backward=True),
+              library=chain(cots[:3]), tf32_passes=tf32_passes)
   deterministic(tags[1], kernel, phase=19, cdt=cdt)
   return f, b
 
@@ -3293,7 +3402,10 @@ def cascade_stage(fused_mlp, dev):
         f'{config.batch_size}, f32 trunks, randomized')
     launches, step_s, seen, _, batch = cascade_train(
         fused_mlp, run, CASCADE_PER_STEP, 'f32, on')
-    if seen != {'forward': {'trunk_fwd_f32'}, 'backward': {'trunk_bwd_f32'}}:
+    # The PropMLP's pair on the TF32 libraries, the NeRF level's on the FMA.
+    if seen != {'forward': {'trunk_fwd_f32', fused_mlp.WIDE_TF32_LIBRARY},
+                'backward': {'trunk_bwd_f32',
+                             fused_mlp.WIDE_TF32_BWD_LIBRARY}}:
       raise AssertionError(f'phase 19: the f32 trunks routed to {seen}')
     out['f32'] = dict(step_ms=step_s * 1e3, rays_s=config.batch_size / step_s)
     out['f32']['vs_plain'] = cascade_against_plain(fused_mlp, run, batch,
@@ -3304,7 +3416,8 @@ def cascade_stage(fused_mlp, dev):
       box['state'], _ = run['train_step'](box['state'], batch,
                                           run['cameras'])
     prof = profile(step, 'cascade f32 train step', 2, phase=19)
-    new_kernels(prof, 19, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel'))
+    new_kernels(prof, 19, ('trunk_fwd_f32_kernel', 'trunk_bwd_f32_kernel',
+                           'trunk_fwd_tf32_kernel', 'trunk_bwd_tf32_kernel'))
     out['f32']['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
     out['f32']['request_ms'], out['f32']['request_launches'] = (
         cascade_request(fused_mlp, dev, run, 'f32'))
@@ -4497,7 +4610,8 @@ def w1024_case(fused_mlp, gen, dev, n):
   return segs, ws, bs, kw, (rand(n), None, rand(n, 256), None)
 
 
-def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False):
+def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False,
+                out_y=False):
   """The yardstick of phase 24's trunks (`library_ms`), the nearest chain
   of PyTorch calls at the same shapes in `cdt`: the segments concatenated
   (torch.cat, inside the timed call: the kernels read them in place), the
@@ -4507,10 +4621,12 @@ def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False):
   `cots` (the heads' cotangents: sigma's, the f32 head's, the compute-dtype
   head's) autograd of that chain, its forward included (the kernel's
   backward recomputes its own), for the parameters and with `needs_dx` the
-  segments too. The width-1024 pair (eight layers, sigma, the bottleneck),
-  the directional pair (one layer, the rgb head) and, through
-  tools/ab_trees.py's `chain_rows`, the other trunks without fused stages.
-  Returns a function of no arguments; the port never calls it."""
+  segments too; with `out_y` (a forward) y itself among the outputs (K11).
+  The width-1024 pair (eight layers, sigma, the bottleneck), the
+  directional pair (one layer, the rgb head), the proposal trunk (phase
+  19) and, through tools/ab_trees.py's `chain_rows`, the other trunks
+  without fused stages. Returns a function of no arguments; the port never
+  calls it."""
   F = torch.nn.functional
   dt = fused_mlp.DTYPES[cdt]
   grad = cots is not None
@@ -4548,7 +4664,7 @@ def w1024_chain(fused_mlp, cs, ws, bs, kw, cdt, cots=None, needs_dx=False):
                      None if b is None else params[b])
             for _, w, b, f32 in heads]
     if not grad:
-      return outs
+      return [h] + outs if out_y else outs
     return torch.autograd.grad(outs, params + (segs if needs_dx else []),
                                bars)
   return run
@@ -4957,10 +5073,14 @@ def m360_stage(fused_mlp, dev):
       raise AssertionError('phase 24: the configuration is not as bound')
     what = f'MIPNERF360 {dtype}'
     launches, ms, peak, seen, last = m360_train(fused_mlp, run, what)
+    # The PropMLP's pair: in f32 on the TF32 libraries' head-0 instances.
+    f32 = dtype == 'float32'
     want_f = {fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY,
-              fused_mlp.FWD_LIBRARY[dtype]}
+              fused_mlp.WIDE_TF32_LIBRARY if f32
+              else fused_mlp.FWD_LIBRARY[dtype]}
     want_b = {fused_mlp.W1024_LIBRARY, fused_mlp.DIR1_LIBRARY,
-              fused_mlp.BWD_LIBRARY[dtype]}
+              fused_mlp.WIDE_TF32_BWD_LIBRARY if f32
+              else fused_mlp.BWD_LIBRARY[dtype]}
     if seen != {'forward': want_f, 'backward': want_b}:
       raise AssertionError(f'phase 24: {what} routed to {seen}')
     paths[dtype] = launches
@@ -4972,12 +5092,11 @@ def m360_stage(fused_mlp, dev):
 
     def step():
       box['state'], _ = run['train_step'](box['state'], run['batch'])
-    if dtype == 'bfloat16':
-      prof = profile(step, f'{what} train step', 1, phase=24)
-      if prof is not None:
-        res['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
-        res['profile']['top'] = dict(sorted(
-            prof['kernels'].items(), key=lambda kv: -kv[1])[:6])
+    prof = profile(step, f'{what} train step', 1, phase=24)
+    if prof is not None:
+      res['profile'] = {k: prof[k] for k in ('wall_ms', 'busy_ms')}
+      res['profile']['top'] = dict(sorted(
+          prof['kernels'].items(), key=lambda kv: -kv[1])[:6])
     torch.cuda.reset_peak_memory_stats()
     times = in_turns(step, {'on': (model, {'fused_trunk': 'on'}),
                             'off': (model, {'fused_trunk': 'off'})},
@@ -5117,9 +5236,13 @@ def patched(module, attr, value, fn):
   return run
 
 
-def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
+def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd, phase=25,
+                        iters=2):
   """Phase 25 (a): the redesigned instances (REDESIGNED) in turns with the
-  designs they replaced, in this process: f32 K3 and K1 wide hc256 on
+  designs they replaced, in this process (phase 19 (a) likewise the f32
+  proposal trunk's, K1 wide and K4 wide on the TF32 libraries' head-0
+  instances against `fwd_f32_wide<0, false>` and `bwd_f32_wide<0, false>`):
+  f32 K3 and K1 wide hc256 on
   trunk_wide_tf32.cu (the route) and the parent's trunk_fwd_f32.cu instance
   (`fwd_f32_wide<256, true>`, `fwd_f32_wide<256, false>`, the route
   forced); bf16 K3 wide hc256 on trunk_wide_bf16.cu (the route) and the
@@ -5130,8 +5253,8 @@ def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
   route forced); bf16 K4 wide hc256 ubar
   with the tangent read back at the skip layer and the parent's, which
   made it again (trunk_bwd_tma.cu built with REFNERF_TS_REBUILD: `was_bwd`,
-  a future of cuda_build.variant), which must agree bit for bit. Returns
-  {arm: ms}."""
+  a future of cuda_build.variant), which must agree bit for bit. `iters`:
+  calls an arm's block (`in_turns_ms`). Returns {arm: ms}."""
   from refnerf_tpu_torch.ops import cuda_build
   if which.startswith(('K1', 'K3')):
     was = fused_mlp.FWD_LIBRARY[cdt]
@@ -5155,8 +5278,8 @@ def redesigned_in_turns(fused_mlp, which, cdt, kernel, was_bwd):
         raise AssertionError(f'phase 25: {which} {cdt}: the tangent read '
                              'back differs from the one made again')
       del a, b
-  ms = in_turns_ms(arms)
-  log(f'phase 25: {which} {cdt} in turns with the design it replaced '
+  ms = in_turns_ms(arms, iters)
+  log(f'phase {phase}: {which} {cdt} in turns with the design it replaced '
       f'[{CARD}]: ' + ', '.join(f'{k} {v:.3f}' for k, v in ms.items()))
   return ms
 
@@ -5173,9 +5296,11 @@ REDESIGNED = (('K3 wide hc256', 'float32'), ('K4 wide hc256 ubar', 'bfloat16'),
 REDESIGNED_ROWS = (1, 63, 64, 65, 128, 129, 257, 4097)
 
 
-def redesigned_fwd_rows(fused_mlp, which, cdt, pack, xs, ws, bs, kw, fold):
+def redesigned_fwd_rows(fused_mlp, which, cdt, pack, xs, ws, bs, kw, fold,
+                        phase=25):
   """Phase 25 (a): a forward row of REDESIGNED (f32 K3 and K1 on
-  trunk_wide_tf32.cu, bf16 K3 on trunk_wide_bf16.cu) against its plain
+  trunk_wide_tf32.cu, bf16 K3 on trunk_wide_bf16.cu; phase 19 (a): the f32
+  proposal trunk's K1 on its head-0 instance) against its plain
   version at each of REDESIGNED_ROWS rows, as compare() holds it: sigma and
   the bottleneck by KERNEL_BOUND, u by GRAD_BOUND (relative L2); a second
   run bit-identical."""
@@ -5192,17 +5317,20 @@ def redesigned_fwd_rows(fused_mlp, which, cdt, pack, xs, ws, bs, kw, fold):
     worst[n] = max(r[3] for r in errors(got, want, cdt, 2))
     if not worst[n] <= 1.0 or not all(
         torch.equal(a, b) for a, b in zip(got, again)):
-      raise AssertionError(f'phase 25: {which} {cdt} at {n} rows: '
+      raise AssertionError(f'phase {phase}: {which} {cdt} at {n} rows: '
                            f'{worst[n]:.3f} of its bound, or a rerun differs')
-  log(f'phase 25: {which} {cdt} at {len(worst)} row counts within its '
+  log(f'phase {phase}: {which} {cdt} at {len(worst)} row counts within its '
       f'bound, reruns bit-identical: ' + ', '.join(
           f'{n} {w:.3f}' for n, w in worst.items()))
 
 
-def redesigned_rows(fused_mlp, which, pack, xs, ws, bs, kw, cots, fold):
-  """Phase 25 (a): an f32 K4 row of REDESIGNED (trunk_wide_bwd_tf32.cu)
-  against its plain version at each of REDESIGNED_ROWS rows, every gradient
-  within GRAD_BOUND by relative L2, a second run bit-identical."""
+def redesigned_rows(fused_mlp, which, pack, xs, ws, bs, kw, cots, fold,
+                    phase=25):
+  """Phase 25 (a): an f32 K4 row of REDESIGNED (trunk_wide_bwd_tf32.cu;
+  phase 19 (a): the f32 proposal trunk's first-order K4 on its head-0
+  instance) against its plain version at each of REDESIGNED_ROWS rows,
+  every gradient within GRAD_BOUND by relative L2, a second run
+  bit-identical."""
   fold = fold if cots[3] is not None else None
   worst = {}
   for n in REDESIGNED_ROWS:
@@ -5217,9 +5345,9 @@ def redesigned_rows(fused_mlp, which, pack, xs, ws, bs, kw, cots, fold):
     worst[n] = max(r[3] for r in errors(got, want, 'float32', 0))
     if not worst[n] <= 1.0 or not all(
         torch.equal(a, b) for a, b in zip(got, again)):
-      raise AssertionError(f'phase 25: {which} float32 at {n} rows: '
+      raise AssertionError(f'phase {phase}: {which} float32 at {n} rows: '
                            f'{worst[n]:.3f} of its bound, or a rerun differs')
-  log(f'phase 25: {which} float32 at {len(worst)} row counts within its '
+  log(f'phase {phase}: {which} float32 at {len(worst)} row counts within its '
       f'bound, reruns bit-identical: ' + ', '.join(
           f'{n} {w:.3f}' for n, w in worst.items()))
 
@@ -5708,15 +5836,17 @@ def main():
       fused_mlp.WIDE_BF16_LIBRARY)])
   check_sass(sass[libs['trunk_fwd_tma']])
   check_sass(sass[libs['trunk_bwd_tma']])
-  # The f32 forward's TF32 products on wgmma, fed by TMA (K3 and K1).
+  # The f32 forward's TF32 products on wgmma, fed by TMA (K3, K1 and the
+  # proposal trunk's K1 at the density head alone).
   check_wgmma_sass(sass[libs[fused_mlp.WIDE_TF32_LIBRARY]],
-                   r'trunk_fwd_tf32_kernel', 2, 'trunk_wide_tf32')
+                   r'trunk_fwd_tf32_kernel', 3, 'trunk_wide_tf32')
   # The bf16 density gradient's products and its fold likewise.
   check_wgmma_sass(sass[libs[fused_mlp.WIDE_BF16_LIBRARY]],
                    r'trunk_fwd_bf16_kernel', 1, 'trunk_wide_bf16')
-  # The f32 backward's (first order and with u's cotangent) likewise.
+  # The f32 backward's (first order, with u's cotangent, and the proposal
+  # trunk's first order at the density head alone) likewise.
   check_wgmma_sass(sass[libs[fused_mlp.WIDE_TF32_BWD_LIBRARY]],
-                   r'trunk_bwd_tf32_kernel', 2, 'trunk_wide_bwd_tf32')
+                   r'trunk_bwd_tf32_kernel', 3, 'trunk_wide_bwd_tf32')
   for name in ('trunk_fwd_f32', 'trunk_bwd_f32'):
     check_sass(sass[libs[name]], need=('FFMA', 'UTMALDG'),
                refuse=('HMMA', 'HGMMA'))
@@ -5927,16 +6057,20 @@ def main():
                               for k in keys}}
                        for c in more_cases[which]}
     line.append(entry)
-  # Phase 19's: the wide-input instances (the PropMLP over 504 IPE
-  # columns), launched by (b)'s f32 steps and (c)'s bf16 steps; the bf16
-  # times with those of the design they replaced (trunk_fwd.cu /
+  # Phase 19's: the PropMLP over 504 IPE columns, launched by (b)'s f32
+  # steps (on the TF32 libraries' head-0 instances, in turns with the FMA
+  # instances they replaced: 'in_turns'; the bound three TF32 products',
+  # the FMA pipes' beside it) and (c)'s bf16 steps (the wide-input
+  # instances; the times of the design they replaced, trunk_fwd.cu /
   # trunk_bwd.cu, measured in this run: 'was'), the depth-8 trunk's beside
-  # them.
-  for which, desc, src, at, b16_src, was_src in (
+  # them; the PyTorch chain's time as library_ms.
+  for which, desc, src, at, fma_src, b16_src, was_src in (
       ('K1 wide', 'spatial trunk forward on 504 input columns, the density '
-       'head alone (the PropMLP)', f32fwd_src, 612, ftma_src, fwd_src),
+       'head alone (the PropMLP)', tf32_src, 612, f32fwd_src, ftma_src,
+       fwd_src),
       ('K4 wide', 'spatial trunk backward on 504 input columns, the density '
-       'head alone (the PropMLP)', f32_src, 668, tma_src, bwd_src)):
+       'head alone (the PropMLP)', tf32_bwd_src, 668, f32_src, tma_src,
+       bwd_src)):
     f32, b16 = kernels[which, 'float32'], kernels[which, 'bfloat16']
     d8, b16_d8 = (kernels[which + ' depth 8', cdt]
                   for cdt in ('float32', 'bfloat16'))
@@ -5945,13 +6079,18 @@ def main():
         'replaces': f'{pallas}:{at}', 'launches': cascade_path[which],
         'max_abs_err': f32['max_abs_err'], 'ms': f32['ms'],
         'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_ms'],
-        'bound_by': f32['bound_by'], 'library_ms': None, 'dtype': 'float32',
-        'n_samples': N_SAMPLES, 'case': 'depth 4',
+        'bound_by': f32['bound_by'], 'library_ms': f32['library_ms'],
+        'dtype': 'float32', 'n_samples': N_SAMPLES, 'case': 'depth 4',
+        'fma_bound_ms': f32['fma_bound_ms'],
+        'f32_route': 'three TF32 passes on wgmma', 'was_source': fma_src,
+        'in_turns': f32['in_turns'],
+        **({'faults': f32['faults']} if 'faults' in f32 else {}),
         'depth8': {k: d8[k] for k in ('ms', 'plain_ms', 'bound_ms',
-                                      'max_abs_err')},
+                                      'max_abs_err', 'in_turns')},
         'bf16_source': b16_src, 'bf16_ms': b16['ms'],
         'bf16_plain_ms': b16['plain_ms'], 'bf16_bound_ms': b16['bound_ms'],
         'bf16_max_abs_err': b16['max_abs_err'],
+        'bf16_library_ms': b16['library_ms'],
         'bf16_was_source': was_src, 'bf16_was_ms': b16['was_ms'],
         'bf16_depth8': {k: b16_d8[k] for k in ('ms', 'plain_ms', 'bound_ms',
                                                'max_abs_err')},

@@ -69,6 +69,20 @@
 //    reruns are bit-identical.
 // One CTA an SM (228,392 B of shared memory at depth 8; `kernel_smem` in
 // fused_mlp.py mirrors `bwd_smem_bytes`).
+//
+// The same kernel runs the first-order K4 of mip-NeRF 360's proposal trunk
+// (`refnerf_wide_tf32_k4h0`: the f32 PropMLP, 4 x 256 on 2 x 252 IPE
+// columns with the density head alone, no skip layer; trunk_bwd_f32.cu's
+// `bwd_f32_wide<0, false>` before) under a flag, H0: without a
+// compute-dtype head the head backward is no product, zeta_{L-1} =
+// relu'(h_{L-1}) (sbar wd), an outer product made in the recompute's last
+// epilogue; no cbar, wc panel or tensor map (8 panels at depth 4: the
+// recompute's 5 and the reverse's 3). The wrapper forms dW_l and db_l as
+// above; dwd = sum sbar y is summed in the kernel, a tile's share from y
+// in registers (never stored), and the wrapper sums the tiles' shares in a
+// fixed order; there is no dwc or dbc. Bound at 524,288
+// rows (0.890 TFLOP at depth 4): as three TF32 products 5.39 ms (13.28 ms
+// on the FMA pipes).
 
 #define PHASE_SYNC() cons_sync()  // closes a stamped segment
 #include "wide_tf32.cuh"
@@ -88,11 +102,11 @@ inline size_t bwd_smem_bytes(int depth) {
 // The weight panels of a tile in order: the recompute (layer 0 one a
 // segment, each hidden layer's activation share, the skip layer's input one
 // a segment), with u's cotangent the inner chain's W_l^T (depth - 1), the
-// head's wc, the reverse's W_l^T (depth - 1), with u's cotangent the
-// tangent's layers (as the recompute's).
-__host__ __device__ inline int bwd_panels(int depth, int skip, bool dg) {
+// head's wc (not without the head: `head`), the reverse's W_l^T (depth -
+// 1), with u's cotangent the tangent's layers (as the recompute's).
+__host__ __device__ inline int bwd_panels(int depth, int skip, bool dg, bool head = true) {
   const int layers = 2 + (depth - 1) + (skip > 0 && skip < depth ? 2 : 0);
-  return layers + 1 + (depth - 1) + (dg ? (depth - 1) + layers : 0);
+  return layers + (head ? 1 : 0) + (depth - 1) + (dg ? (depth - 1) + layers : 0);
 }
 
 struct BwdParams {
@@ -109,6 +123,7 @@ struct BwdParams {
   float* ps;          // [depth][rp][256] p_l (with u's cotangent)
   float* xs;          // [rp][kInLd] x
   float* ts;          // [rp][kInLd] ts (with u's cotangent)
+  float* dwd;         // H0: [rp / 64][256] each tile's sum of sbar y
 };
 
 struct BwdMaps {
@@ -239,10 +254,12 @@ __device__ __forceinline__ void tp_product(float (&acc)[64], Cons& c, const BwdP
 
 // One 64-row tile a CTA. Threads 0-255: the consumers; 256-383: the
 // producer warpgroup (thread 256 walks the panels: B's parts, and the A
-// boxes of the input panels). DG: with u's cotangent.
-template <bool DG>
+// boxes of the input panels). DG: with u's cotangent. H0 (first order):
+// no compute-dtype head, zeta_{L-1} an outer product.
+template <bool DG, bool H0 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     trunk_bwd_tf32_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ BwdMaps m) {
+  static_assert(!(DG && H0), "the head-0 instance is first order");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* act = smem + kStages * kStage;           // 8 x [64][32]
@@ -301,7 +318,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       layers(&m.x0, &m.x1, 0);                         // the recompute
       if (DG)
         for (int l = p.depth - 1; l > 0; --l) panel(nullptr, 0);  // the inner chain
-      panel(&m.cbar, 0);                                          // the head backward
+      if constexpr (!H0) panel(&m.cbar, 0);                       // the head backward
       for (int l = p.depth - 1; l > 0; --l) panel(nullptr, 0);    // the reverse
       if (DG) {
         mbar_wait(ts_ready, 0);        // the tile's ts stored and fenced
@@ -415,7 +432,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         masks[l * kCons + ctid] = mk;
       else
         mlast = mk;
-      to_act(acc, &m.hs, l);
+      if (!H0 || l + 1 < p.depth) to_act(acc, &m.hs, l);  // H0: y stays here
       PHASE_MARK(1, kScal);
     }
 
@@ -444,9 +461,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
 
     // 4. The head backward: zeta_{L-1} = relu'(h_{L-1}) (cbar wc + sbar wd),
-    // cbar's slices by TMA.
-    product_bwd<false>(acc, part, c, 1, 1);
-    PHASE_MARK(4, kProd);
+    // cbar's slices by TMA; H0: relu'(h_{L-1}) (sbar wd), no product.
+    if constexpr (!H0) {
+      product_bwd<false>(acc, part, c, 1, 1);
+      PHASE_MARK(4, kProd);
+    }
     {
       float sb[2];
 #pragma unroll
@@ -454,14 +473,39 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const int row = row0 + ra + 8 * h;
         sb[h] = row < p.n ? __ldg(p.sbar + row) : 0.f;
       }
+      if constexpr (H0) {
+        // dwd's share of the tile from y in acc (never stored): each
+        // thread's two rows, the 8 lanes of its columns (xor 4, 8, 16),
+        // the 4 warps of its warpgroup through the input slots (free: the
+        // reverse reads no input), in that order.
+        float* red = reinterpret_cast<float*>(slots);  // [4 warps][256]
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = fmaf(sb[1], acc[4 * j + 2 + e], sb[0] * acc[4 * j + e]);
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (g == 0) red[cwarp * kWidth + 128 * cw + 8 * j + 2 * q + e] = v;
+          }
+        cons_sync();
+        p.dwd[blockIdx.x * kWidth + ctid] =
+            red[ctid] + red[kWidth + ctid] + red[2 * kWidth + ctid] + red[3 * kWidth + ctid];
+      }
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const float2 w = __ldg(reinterpret_cast<const float2*>(p.wd + 128 * cw + 8 * j + 2 * q));
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = 4 * j + 2 * h;
-          acc[i] = bit(mlast, i) ? acc[i] + sb[h] * w.x : 0.f;
-          acc[i + 1] = bit(mlast, i + 1) ? acc[i + 1] + sb[h] * w.y : 0.f;
+          if constexpr (H0) {
+            acc[i] = bit(mlast, i) ? sb[h] * w.x : 0.f;
+            acc[i + 1] = bit(mlast, i + 1) ? sb[h] * w.y : 0.f;
+          } else {
+            acc[i] = bit(mlast, i) ? acc[i] + sb[h] * w.x : 0.f;
+            acc[i + 1] = bit(mlast, i + 1) ? acc[i + 1] + sb[h] * w.y : 0.f;
+          }
         }
       }
     }
@@ -494,14 +538,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-template <bool DG>
+template <bool DG, bool H0 = false>
 int launch_bwd(const BwdParams& p, const BwdMaps& m, cudaStream_t s) {
   const size_t smem = bwd_smem_bytes(p.depth);
-  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_tf32_kernel<DG>,
+  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_tf32_kernel<DG, H0>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  trunk_bwd_tf32_kernel<DG><<<p.rp / kRows, kWgThreads, smem, s>>>(p, m);
+  trunk_bwd_tf32_kernel<DG, H0><<<p.rp / kRows, kWgThreads, smem, s>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -562,4 +606,40 @@ extern "C" int refnerf_wide_tf32_k4(int n, int rp, int d, int depth, int skip, i
                     static_cast<float*>(ps), static_cast<float*>(xs), static_cast<float*>(ts)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dg ? launch_bwd<true>(p, m, s) : launch_bwd<false>(p, m, s);
+}
+
+// The first-order backward of the proposal trunk in f32 (the density head
+// alone, H0): as refnerf_wide_tf32_k4 without cbar, ubar and their
+// outputs, its panels `fused_mlp.tf32_bwd_panel_index` without the head's
+// (np = bwd_panels(depth, skip, false, false)); out the scratch regions hs,
+// zs [depth][rp][256] (hs of layers 0 to depth - 2: y is not stored) and
+// xs [rp][512], and dwd [rp / 64][256], each 64-row tile's sum of sbar y.
+extern "C" int refnerf_wide_tf32_k4h0(int n, int rp, int d, int depth, int skip,
+                                      const void* x0, const void* x1, const void* bh,
+                                      const void* bl, int np, const void* b, const void* wd,
+                                      const void* sbar, void* hs, void* zs, void* xs, void* dwd,
+                                      void* stream) {
+  using namespace wtf;
+  if (n <= 0 || rp < n || rp % kRows || d <= 0 || d > kWidth || d % 4 || depth < 2 ||
+      depth > kMaxDepth || np != bwd_panels(depth, skip, false, false) || !x0 || !x1 || !bh ||
+      !bl || !b || !wd || !sbar || !hs || !zs || !xs || !dwd || !aligned16(x0) || !aligned16(x1) ||
+      !aligned16(bh) || !aligned16(bl) || !aligned8(b) || !aligned8(wd) || !aligned16(hs) ||
+      !aligned16(zs) || !aligned8(xs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bwd_smem_bytes(depth) > 232448) return static_cast<int>(cudaErrorInvalidConfiguration);
+  BwdMaps m;
+  memset(&m, 0, sizeof(m));
+  const int lrows = depth * rp;
+  if (!make_map_f32(&m.bh, bh, kWidth, np * kWidth, kWidth, kWidth) ||
+      !make_map_f32(&m.bl, bl, kWidth, np * kWidth, kWidth, kWidth) ||
+      !make_map_f32(&m.x0, x0, d, n, d, kRows) || !make_map_f32(&m.x1, x1, d, n, d, kRows) ||
+      !make_map_f32(&m.hs, hs, kWidth, lrows, kWidth, kRows) ||
+      !make_map_f32(&m.zs, zs, kWidth, lrows, kWidth, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams p{static_cast<const float*>(x0), static_cast<const float*>(x1), d, n, rp, depth,
+                    skip, 0, static_cast<const float*>(b), static_cast<const float*>(wd),
+                    static_cast<const float*>(sbar), nullptr, static_cast<float*>(hs),
+                    static_cast<float*>(zs), nullptr, nullptr, static_cast<float*>(xs), nullptr,
+                    static_cast<float*>(dwd)};
+  return launch_bwd<false, true>(p, m, static_cast<cudaStream_t>(stream));
 }

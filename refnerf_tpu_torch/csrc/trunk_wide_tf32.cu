@@ -76,6 +76,16 @@
 // the layers, sigma and the bottleneck alone, its panels the layers' and
 // the bottleneck's, without relu' bits (214,560 B), the chain or the folds.
 // K1 is a template flag, so K3's code is as it was.
+//
+// And K1 of mip-NeRF 360's proposal trunk (`refnerf_wide_tf32_k1h0`: the
+// f32 PropMLP, 4 x 256 on the same 2 x 252 IPE columns with the density
+// head alone, no skip layer; trunk_fwd_f32.cu's `fwd_f32_wide<0, false>`
+// before): a second flag, NH, under which the tile runs the layers' panels
+// alone (5 at depth 4, 11 at depth 8 with the skip at layer 5), stores
+// sigma, summed as K1 sums it, and nothing else: no bottleneck panel, bc
+// or cout, and the last layer's activations stay in registers. Bound at
+// 524,288 rows (0.342 TFLOP at depth 4): as three TF32 products 2.07 ms
+// (5.10 ms on the FMA pipes).
 
 #define PHASE_SYNC() cons_sync()  // closes a stamped segment
 #include "wide_tf32.cuh"
@@ -202,10 +212,12 @@ __device__ __forceinline__ void fold(const float (&acc)[64], float* us, Cons& c,
 // One 64-row tile a CTA. Threads 0-255: the consumers; 256-383: the
 // producer warpgroup
 // (thread 256 walks the panels: B's parts, and the input slices of the
-// input panels). K1: no relu' bits, chain or folds.
-template <bool K1 = false>
+// input panels). K1: no relu' bits, chain or folds. NH (with K1): no
+// bottleneck either, sigma the only output.
+template <bool K1 = false, bool NH = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
     trunk_fwd_tf32_kernel(const __grid_constant__ Params p, const __grid_constant__ Maps m) {
+  static_assert(K1 || !NH, "the head-0 instance is a K1");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   float* act = reinterpret_cast<float*>(smem + kStages * kStage);
@@ -265,7 +277,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           panel(pn++, 1);
         }
       }
-      panel(pn++, -1);  // the bottleneck
+      if constexpr (!NH) panel(pn++, -1);  // the bottleneck
       if constexpr (!K1)
         for (int l = p.depth - 1; l >= 0; --l) {
           if (l == 0 || l == p.skip)
@@ -307,7 +319,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
       cons_sync();  // every consumer's product has read the tile
-      put_act(act, acc, cw, ra, q);
+      if (!NH || l + 1 < p.depth) put_act(act, acc, cw, ra, q);  // NH: no y
       if (l + 1 < p.depth) {
         if constexpr (!K1) masks[l * kCons + ctid] = mk;
       } else {
@@ -331,6 +343,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       PHASE_MARK(1, kScal);
     }
     if (ctid < kRows && row0 + ctid < p.n) p.sig[row0 + ctid] = red[ctid] + red[kRows + ctid];
+    if constexpr (NH) return;
 
     // 2. The bottleneck y wc^T + bc from its accumulators.
     product(acc, part, c, 1, 0);
@@ -422,14 +435,14 @@ __global__ void __launch_bounds__(256) split_kernel(int n, const int* idx, const
   }
 }
 
-template <bool K1>
+template <bool K1, bool NH = false>
 int launch(const Params& p, const Maps& m, cudaStream_t s) {
   const size_t smem = smem_bytes(p.depth, !K1);
   const cudaError_t e =
-      cudaFuncSetAttribute(trunk_fwd_tf32_kernel<K1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+      cudaFuncSetAttribute(trunk_fwd_tf32_kernel<K1, NH>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  trunk_fwd_tf32_kernel<K1><<<(p.n + kRows - 1) / kRows, kWgThreads, smem, s>>>(p, m);
+  trunk_fwd_tf32_kernel<K1, NH><<<(p.n + kRows - 1) / kRows, kWgThreads, smem, s>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,4 +524,28 @@ extern "C" int refnerf_wide_tf32_k1(int n, int d, int depth, int skip, const voi
                  static_cast<const float*>(bc), static_cast<float*>(sig),
                  static_cast<float*>(cout), nullptr};
   return launch<true>(p, m, static_cast<cudaStream_t>(stream));
+}
+
+// K1 of the proposal trunk in f32 (the density head alone): as
+// refnerf_wide_tf32_k1 without the bottleneck, its panels the layers'
+// alone (`fused_mlp.tf32_panel_index` without the head): out sigma [n].
+extern "C" int refnerf_wide_tf32_k1h0(int n, int d, int depth, int skip, const void* x0,
+                                      const void* x1, const void* bh, const void* bl, int np,
+                                      const void* b, const void* wd, void* sig, void* stream) {
+  using namespace wtf;
+  if (n <= 0 || d <= 0 || d > kWidth || d % 4 || depth < 2 || depth > kMaxDepth ||
+      np != panels(depth, skip, false) - 1 || !x0 || !x1 || !bh || !bl || !b || !wd || !sig ||
+      !aligned16(x0) || !aligned16(x1) || !aligned16(bh) || !aligned16(bl) ||
+      (reinterpret_cast<uintptr_t>(b) & 7) || (reinterpret_cast<uintptr_t>(wd) & 7))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps m;
+  memset(&m, 0, sizeof(m));
+  if (!make_map_f32(&m.bh, bh, kWidth, np * kWidth, kWidth, kWidth) ||
+      !make_map_f32(&m.bl, bl, kWidth, np * kWidth, kWidth, kWidth) ||
+      !make_map_f32(&m.x0, x0, d, n, d, kRows) || !make_map_f32(&m.x1, x1, d, n, d, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{static_cast<const float*>(x0), static_cast<const float*>(x1), d, n, depth, skip,
+                 0, np, static_cast<const float*>(b), static_cast<const float*>(wd), nullptr,
+                 static_cast<float*>(sig), nullptr, nullptr};
+  return launch<true, true>(p, m, static_cast<cudaStream_t>(stream));
 }

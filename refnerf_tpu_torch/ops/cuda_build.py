@@ -139,6 +139,10 @@ EXPORTS = {
         # wd, bc, sig, cout, stream).
         'refnerf_wide_tf32_k1': [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                                  _P, _P, _P, _P],
+        # K1 of the trunk with the density head alone (the proposal MLP):
+        # (n, d, depth, skip, x0, x1, bh, bl, np, b, wd, sig, stream).
+        'refnerf_wide_tf32_k1h0': [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                                   _P, _P, _P],
     },
     # The bf16 density-gradient forward (K3) of the same trunk on one bf16
     # pass of wgmma: the fold panel's TF32 split (n, idx, fold, hi, lo,
@@ -160,6 +164,11 @@ EXPORTS = {
         'refnerf_wide_tf32_k4': [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P],
+        # First order at the density head alone (the proposal MLP): (n,
+        # rp, d, depth, skip, x0, x1, bh, bl, np, b, wd, sbar, hs, zs, xs,
+        # dwd's tile sums, stream).
+        'refnerf_wide_tf32_k4h0': [_I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                   _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -49,11 +49,13 @@ first-order K4; wgmma in bf16, three TF32 passes of wgmma in f32),
 `dir1` (mip-NeRF 360's, on 256 + 27 columns) on `csrc/trunk_dir1.cu` (K2
 and K5 with dx; wgmma fed by TMA and bulk copies, three TF32 passes in
 f32; its weight gradient on trunk_w1024.cu's product), `_dir1_forward` and
-`_dir1_backward`; the f32 K3 of the wide-input spatial trunk with the
-256-wide head (`wide_tf32`, the JAX package's default MLP) on
+`_dir1_backward`; the f32 K3 and K1 of the wide-input spatial trunk with the
+256-wide head (`wide_tf32`, the JAX package's default MLP), and K1 of the
+same trunk with the density head alone (mip-NeRF 360's proposal MLP), on
 `csrc/trunk_wide_tf32.cu` (three TF32 passes of wgmma, the weights laid out
-as panels by `tf32_panel_index`), `_wide_tf32_forward`; all run for CUDA
-tensors unless `mode='off'`. A CPU
+as panels by `tf32_panel_index`), `_wide_tf32_forward`, their K4
+(`wide_tf32_bwd`) on `csrc/trunk_wide_bwd_tf32.cu`, `_wide_tf32_backward`;
+all run for CUDA tensors unless `mode='off'`. A CPU
 tensor or `mode='off'` takes the plain PyTorch versions, `trunk_reference` and `trunk_backward_reference`,
 written in the Pallas kernels' order of operations and casts:
 
@@ -149,7 +151,8 @@ DIR1_D0, DIR1_D1, DIR1_HEADS = 256, 29, 3
 DIR1_PARTS = DIR1_HEADS * 128 + DIR1_HEADS
 # The f32 forward (K3 with the density gradient, and K1) of the wide-input
 # spatial trunk with the 256-wide compute-dtype head and no f32 head
-# (`wide_tf32`: the JAX package's default MLP) runs on
+# (`wide_tf32`: the JAX package's default MLP), and K1 of the same trunk
+# with the density head alone (mip-NeRF 360's proposal MLP), runs on
 # csrc/trunk_wide_tf32.cu, three TF32 passes of wgmma over its weights laid
 # out as 256 x 256 panels (`tf32_panel_index`).
 WIDE_TF32_LIBRARY = 'trunk_wide_tf32'
@@ -158,8 +161,9 @@ WIDE_TF32_LIBRARY = 'trunk_wide_tf32'
 # pack's own weights, the fold three TF32 passes against its panel
 # (`bf16_fold_index`).
 WIDE_BF16_LIBRARY = 'trunk_wide_bf16'
-# The f32 backward (K4, first order and with u's cotangent) of the same
-# trunk (`wide_tf32_bwd`: the density gradient's fold not needed) runs on
+# The f32 backward (K4, first order and with u's cotangent; at the density
+# head alone first order) of the same trunk (`wide_tf32_bwd`: the density
+# gradient's fold not needed) runs on
 # csrc/trunk_wide_bwd_tf32.cu, three TF32 passes of wgmma over its own
 # panels (`tf32_bwd_panel_index`), its weight gradients on trunk_w1024.cu's
 # f32 tn product (`_wide_tf32_backward`).
@@ -986,7 +990,7 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
     # f32, two [64][32] f32 input slots (then each consumer thread's 16
     # sums of u), with the density gradient the relu' bits
     # of all layers but the last, the sigma sums, 4 mbarriers (228,896 B at
-    # depth 8; K1 214,560 B).
+    # depth 8; K1 214,560 B, with the density head alone too).
     return (1024 + 2 * 65536 + 4 * _TILE * 256 + 2 * 8192 +
             (8 * (L - 1) * 256 if dg else 0) + 4 * 2 * _TILE + 8 * 4)
   if lib == WIDE_BF16_LIBRARY:
@@ -1000,7 +1004,7 @@ def kernel_smem(lib: str, pack: TrunkPack, hc: int, fold=None,
   if lib == WIDE_TF32_BWD_LIBRARY:
     # csrc/trunk_wide_bwd_tf32.cu `bwd_smem_bytes`: K3's ring, activation
     # tile, input slots and relu' bits, the ring's 4 mbarriers and ts's
-    # (228,392 B at depth 8).
+    # (228,392 B at depth 8, 220,200 B at depth 4).
     return (1024 + 2 * 65536 + 4 * _TILE * 256 + 2 * 8192 + 8 * (L - 1) * 256
             + 8 * 5)
   if lib == W1024_LIBRARY:
@@ -1167,6 +1171,20 @@ def wide_input(pack: TrunkPack, y: bool = False, fold=None,
           dg and not y and not (sp.scales or sp.samples))
 
 
+def _wide_tf32_shape(pack: TrunkPack, y, fold, sp, first_order) -> bool:
+  """The f32 spatial trunk of `wide_input` that csrc/trunk_wide_tf32.cu and
+  csrc/trunk_wide_bwd_tf32.cu run: no f32 head, the 256-wide compute-dtype
+  head or (K1, first-order K4: `first_order` without `fold`) none, at least
+  2 layers, on two segments of the same width, at most 256 columns and a
+  multiple of 4."""
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  return (pack.compute_dtype == 'float32' and pack.wh is None and
+          (hc == 256 or (hc == 0 and first_order and fold is None)) and
+          pack.depth >= 2 and len(pack.seg_dims) == 2 and
+          pack.seg_dims[0] == pack.seg_dims[1] <= 256 and
+          pack.seg_dims[0] % 4 == 0 and wide_input(pack, y, fold, sp))
+
+
 def wide_tf32(pack: TrunkPack, y: bool = False, fold=None,
               sp: SpaModes = SpaModes()) -> bool:
   """Whether the forward of `pack`, with the density gradient (`fold`, K3)
@@ -1174,12 +1192,10 @@ def wide_tf32(pack: TrunkPack, y: bool = False, fold=None,
   trunk of `wide_input` with the 256-wide compute-dtype head and no f32
   head, at least 2 layers, on two segments of the same width, at most 256
   columns and a multiple of 4 (the JAX package's default MLP, 8 x 256 on 2
-  x 252 IPE columns: trained, and served)."""
-  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
-  return (pack.compute_dtype == 'float32' and pack.wh is None and hc == 256
-          and pack.depth >= 2 and len(pack.seg_dims) == 2 and
-          pack.seg_dims[0] == pack.seg_dims[1] <= 256 and
-          pack.seg_dims[0] % 4 == 0 and wide_input(pack, y, fold, sp))
+  x 252 IPE columns: trained, and served); and K1 of the same trunk with
+  the density head alone (mip-NeRF 360's proposal MLP, 4 x 256 on the same
+  columns; 8 x 256 too)."""
+  return _wide_tf32_shape(pack, y, fold, sp, fold is None)
 
 
 def wide_bf16(pack: TrunkPack, y: bool = False, fold=None,
@@ -1207,12 +1223,9 @@ def wide_tf32_bwd(pack: TrunkPack, y: bool = False, fold=None,
   and no f32 head, at least 2 layers, on two segments of the same width, at
   most 256 columns and a multiple of 4, first order or with u's cotangent
   (the JAX package's default MLP with and without density normals: K4 of
-  `wide_tf32`'s shape, `fold` given or not)."""
-  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
-  return (pack.compute_dtype == 'float32' and pack.wh is None and hc == 256
-          and pack.depth >= 2 and len(pack.seg_dims) == 2 and
-          pack.seg_dims[0] == pack.seg_dims[1] <= 256 and
-          pack.seg_dims[0] % 4 == 0 and wide_input(pack, y, fold, sp))
+  `wide_tf32`'s shape, `fold` given or not); with the density head alone
+  first order only (mip-NeRF 360's proposal MLP, no `fold`)."""
+  return _wide_tf32_shape(pack, y, fold, sp, True)
 
 
 def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
@@ -1228,7 +1241,8 @@ def forward_library(pack: TrunkPack, out_y: bool = False, fold=None,
   wide-input instances, a 256-wide head and K3 there too); the spatial
   trunk of `w1024` 'trunk_w1024';
   the directional trunk of `dir1` 'trunk_dir1'; the f32 K1 and K3 of
-  `wide_tf32` 'trunk_wide_tf32'; the bf16 K3 of `wide_bf16`
+  `wide_tf32` (K1 at the density head alone too) 'trunk_wide_tf32'; the
+  bf16 K3 of `wide_bf16`
   'trunk_wide_bf16'; every other shape with an
   instance 'trunk_fwd'. (Width 128 runs the plain directional trunk alone:
   `missing_instance` refuses its other modes first.)"""
@@ -1275,7 +1289,8 @@ def backward_library(pack: TrunkPack, y: bool = False, fold=None) -> str:
   cotangent `y`; with u's, `fold`, too) on the same two (their wide-input
   instances); the spatial trunk of `w1024` (first order) 'trunk_w1024';
   the directional trunk of `dir1` 'trunk_dir1'; the f32 trunk of
-  `wide_tf32_bwd` (with or without `fold`) 'trunk_wide_bwd_tf32'; every
+  `wide_tf32_bwd` (with or without `fold`; at the density head alone
+  without) 'trunk_wide_bwd_tf32'; every
   other shape with an instance (deeper, wider or narrower trunks)
   'trunk_bwd'."""
   if w1024(pack, y, fold):
@@ -1949,18 +1964,20 @@ def _dir1_backward(segs, pack: TrunkPack, cots):
 
 
 def tf32_panel_index(depth: int, skip: int, kin: int, d: int,
-                     width: int = 256, dg: bool = True) -> np.ndarray:
+                     width: int = 256, dg: bool = True,
+                     head: bool = True) -> np.ndarray:
   """Where each entry of csrc/trunk_wide_tf32.cu's weight panels comes from:
   [panels * width, width] indices into cat(pack.w, pack.wc.flatten()), -1
   for zeros. Each panel is a product's B [N = width][K = width], in the
   order a tile runs them: layer 0's input share one panel a segment (the
   segment's d columns, zeros to 256), each hidden layer's activation share
   and at the skip layer its input share (one a segment), the bottleneck
-  wc, then with the density gradient (`dg`; K1 stops at the bottleneck)
-  the chain: at layer l from depth - 1 down, at the skip layer
-  u_x's [Wx_l^T] (one a segment, N the segment's columns), W_l^T's hidden
-  part; last layer 0's u_x. Within every 8 of K, slot s holds column 8 (s
-  // 8) + 2 (s % 4) + (s % 8) // 4, where a TF32 A fragment of the
+  wc (not without the compute-dtype `head`: K1 of the density head alone
+  stops at the layers), then with the density gradient (`dg`; K1 stops at
+  the bottleneck) the chain: at layer l from depth - 1 down, at the skip
+  layer u_x's [Wx_l^T] (one a segment, N the segment's columns), W_l^T's
+  hidden part; last layer 0's u_x. Within every 8 of K, slot s holds column
+  8 (s // 8) + 2 (s % 4) + (s % 8) // 4, where a TF32 A fragment of the
   accumulators' layout finds it."""
   ks = [kin if l == 0 else width + (kin if l == skip else 0)
         for l in range(depth)]
@@ -1985,7 +2002,8 @@ def tf32_panel_index(depth: int, skip: int, kin: int, d: int,
     if l == skip:
       for g in (0, 1):
         fwd(l, width + g * d, True)
-  out.append(offs[-1] + n * width + kp)  # the bottleneck wc [256][width]
+  if head:
+    out.append(offs[-1] + n * width + kp)  # the bottleneck wc [256][width]
   for l in range(depth - 1, -1, -1) if dg else ():
     if l == 0 or l == skip:
       for g in (0, 1):
@@ -1995,14 +2013,22 @@ def tf32_panel_index(depth: int, skip: int, kin: int, d: int,
   return np.concatenate(out).astype(np.int32)
 
 
+def _panel_source(pack: TrunkPack) -> torch.Tensor:
+  """cat(pack.w, pack.wc.flatten(), 0) in f32: what the panel indices
+  point into, the zero last (an index of -1); wc left out without it."""
+  return torch.cat([pack.w.float()] + (
+      [] if pack.wc is None else [pack.wc.float().reshape(-1)]) +
+                   [pack.w.new_zeros(1, dtype=torch.float32)])
+
+
 def tf32_panels(pack: TrunkPack, dg: bool = True) -> torch.Tensor:
   """csrc/trunk_wide_tf32.cu's weight panels of `pack` (`wide_tf32`) in
   f32, [panels * 256, 256], before their TF32 split: K3's with the density
-  gradient (`dg`), else K1's."""
+  gradient (`dg`), else K1's (without the bottleneck's at the density head
+  alone)."""
   idx = tf32_panel_index(pack.depth, pack.skip, pack.kin, pack.seg_dims[0],
-                         dg=dg)
-  src = torch.cat([pack.w.float(), pack.wc.float().reshape(-1),
-                   pack.w.new_zeros(1, dtype=torch.float32)])
+                         dg=dg, head=pack.wc is not None)
+  src = _panel_source(pack)
   idx = torch.from_numpy(idx).long().to(src.device)
   return src[torch.where(idx < 0, src.numel() - 1, idx)]
 
@@ -2058,7 +2084,7 @@ def bf16_fold_panel(fold) -> torch.Tensor:
 
 
 def tf32_bwd_panel_index(depth: int, skip: int, kin: int, d: int, dg: bool,
-                         width: int = 256) -> np.ndarray:
+                         width: int = 256, head: bool = True) -> np.ndarray:
   """Where each entry of csrc/trunk_wide_bwd_tf32.cu's weight panels comes
   from: [panels * width, width] indices into cat(pack.w, pack.wc.flatten()),
   -1 for zeros, K permuted within every 8 as `tf32_panel_index`'s. In the
@@ -2066,7 +2092,8 @@ def tf32_bwd_panel_index(depth: int, skip: int, kin: int, d: int, dg: bool,
   segment, its d columns; each hidden layer's activation share, at the skip
   layer its input share one a segment); with u's cotangent (`dg`) the
   inner chain's W_l^T from layer depth - 1 down to 1; the head backward's wc
-  (B[n][k'] = wc[perm(k')][n]); the reverse's W_l^T likewise; with u's
+  (B[n][k'] = wc[perm(k')][n]; none without the compute-dtype `head`, whose
+  zeta_{L-1} is no product); the reverse's W_l^T likewise; with u's
   cotangent the tangent's layers, as the recompute's but for the input
   share of layer 0 and of the skip layer: two panels of 256 of the tangent's
   columns (the segments side by side, as the pack's kin), whose A the kernel
@@ -2099,7 +2126,8 @@ def tf32_bwd_panel_index(depth: int, skip: int, kin: int, d: int, dg: bool,
   if dg:
     for l in range(depth - 1, 0, -1):
       rev(l)
-  out.append(offs[-1] + kp * width + n)
+  if head:
+    out.append(offs[-1] + kp * width + n)
   for l in range(depth - 1, 0, -1):
     rev(l)
   if dg:
@@ -2111,9 +2139,8 @@ def tf32_bwd_panels(pack: TrunkPack, dg: bool) -> torch.Tensor:
   """csrc/trunk_wide_bwd_tf32.cu's weight panels of `pack`
   (`wide_tf32_bwd`) in f32, [panels * 256, 256], before their TF32 split."""
   idx = tf32_bwd_panel_index(pack.depth, pack.skip, pack.kin,
-                             pack.seg_dims[0], dg)
-  src = torch.cat([pack.w.float(), pack.wc.float().reshape(-1),
-                   pack.w.new_zeros(1, dtype=torch.float32)])
+                             pack.seg_dims[0], dg, head=pack.wc is not None)
+  src = _panel_source(pack)
   idx = torch.from_numpy(idx).long().to(src.device)
   return src[torch.where(idx < 0, src.numel() - 1, idx)]
 
@@ -2139,9 +2166,9 @@ def tf32_tp_panel(fold) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _bwd_panel_index(depth, skip, kin, d, dg, device):
-  return torch.from_numpy(tf32_bwd_panel_index(depth, skip, kin, d,
-                                               dg)).to(device)
+def _bwd_panel_index(depth, skip, kin, d, dg, head, device):
+  return torch.from_numpy(tf32_bwd_panel_index(depth, skip, kin, d, dg,
+                                               head=head)).to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -2150,9 +2177,9 @@ def _tp_index(d, nb, device):
 
 
 @functools.lru_cache(maxsize=8)
-def _panel_index(depth, skip, kin, d, dg, device):
-  return torch.from_numpy(tf32_panel_index(depth, skip, kin, d,
-                                           dg=dg)).to(device)
+def _panel_index(depth, skip, kin, d, dg, head, device):
+  return torch.from_numpy(tf32_panel_index(depth, skip, kin, d, dg=dg,
+                                           head=head)).to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -2169,7 +2196,8 @@ def _wide_tf32_forward(segs, pack: TrunkPack, fold):
   """K3 (`fold` given) or K1 on csrc/trunk_wide_tf32.cu (`wide_tf32`):
   the weights' panels and K3's fold panel split into their TF32 parts once
   a call (`refnerf_wide_tf32_split`), then one launch. Returns [sigma [n],
-  the bottleneck [n, 256]] and with K3 u [n, nb], f32, as trunk_kernel."""
+  the bottleneck [n, 256]] and with K3 u [n, nb], f32, as trunk_kernel; at
+  the density head alone (K1 of `refnerf_wide_tf32_k1h0`) [sigma [n]]."""
   from refnerf_tpu_torch.ops import cuda_build  # builds on first use
   lib = cuda_build.library(WIDE_TF32_LIBRARY)
   ki = _kernel_inputs(segs, pack, DirModes())
@@ -2180,23 +2208,31 @@ def _wide_tf32_forward(segs, pack: TrunkPack, fold):
                        'segments by TMA: each must start at a 16-byte '
                        'aligned address')
   n, dev, d = int(x0.shape[0]), x0.device, ki.d0
-  dg = fold is not None
-  outs = [torch.empty(n, device=dev), torch.empty(n, 256, device=dev)]
+  dg, head = fold is not None, pack.wc is not None
+  outs = [torch.empty(n, device=dev)]
+  if head:
+    outs.append(torch.empty(n, 256, device=dev))
   if dg:
     fold = fold.float().contiguous()
     outs.append(torch.empty(n, int(fold.shape[1]), device=dev))
   if n:
-    idx = _panel_index(pack.depth, pack.skip, pack.kin, d, dg, dev)
+    idx = _panel_index(pack.depth, pack.skip, pack.kin, d, dg, head, dev)
     what = 'f32 density-gradient' if dg else 'f32'
     with torch.cuda.device(dev):
       stream = torch.cuda.current_stream(dev).cuda_stream
       hi, lo = torch.empty(2, idx.numel(), device=dev)
       err = lib.refnerf_wide_tf32_split(
           idx.numel(), idx.data_ptr(), pack.w.data_ptr(), pack.w.numel(),
-          pack.wc.data_ptr(), hi.data_ptr(), lo.data_ptr(), stream)
+          _ptr(pack.wc), hi.data_ptr(), lo.data_ptr(), stream)
       _check_launch(err, f'{what} weight split')
       common = (x0.data_ptr(), x1.data_ptr(), hi.data_ptr(), lo.data_ptr(),
                 idx.numel() // 65536)
+      if not head:
+        err = lib.refnerf_wide_tf32_k1h0(n, d, pack.depth, pack.skip, *common,
+                                         pack.b.data_ptr(), pack.wd.data_ptr(),
+                                         outs[0].data_ptr(), stream)
+        _check_launch(err, f'{what} forward (trunk_wide_tf32)')
+        return outs
       heads = (pack.b.data_ptr(), pack.wd.data_ptr(), pack.bc.data_ptr(),
                *(t.data_ptr() for t in outs), stream)
       if dg:
@@ -2272,14 +2308,30 @@ def wide_tf32_split(rows: int, m: int, n: int, sms: int) -> int:
   return -(-rows // (wide_tf32_splits(m, n, sms) * 32)) * 32
 
 
+def wide_tf32_slab_rows(hc: int) -> int:
+  """Rows a slab of the f32 wide-input backward (`_wide_tf32_backward`)
+  takes by default: `bwd_slab_rows(256)` with the 256-wide head, four times
+  that at the density head alone (the proposal trunk: its scratch, h and
+  zeta [depth][256] and x [512] a row, then takes 2.7 GB at depth 4, 4.8 GB
+  at depth 8), whose per-slab launches (the per-tile kernel's partial last
+  wave, a tn product and two reductions a layer) cost 0.70 ms a call at
+  524,288 rows in slabs of 65,536 against 262,144 (PERF.md, PR 28 call
+  2)."""
+  return bwd_slab_rows(256) * (1 if hc else 4)
+
+
 def _wide_tf32_backward(segs, pack: TrunkPack, cots, fold=None,
                         slab: Optional[int] = None):
   """K4 on csrc/trunk_wide_bwd_tf32.cu (`wide_tf32_bwd`): first order, or
   the second-order pass too where the cotangent of u (cots' fourth, with
-  `fold`) is given. The weights' panels (`tf32_bwd_panel_index`) and tp's
-  (`tf32_tp_index`, from the fold) split into their TF32 parts once a call
-  (trunk_wide_tf32.cu's `refnerf_wide_tf32_split`); per slab of `slab` rows
-  (`bwd_slab_rows`) the per-tile kernel writes the weight gradients'
+  `fold`) is given; at the density head alone first order on the head-0
+  instance (`refnerf_wide_tf32_k4h0`: no cbar, dwc or dbc; dwd's share of
+  each 64-row tile summed in the kernel from y, which it does not store,
+  the shares then reduced in a fixed order). The weights' panels
+  (`tf32_bwd_panel_index`) and tp's (`tf32_tp_index`, from the fold) split
+  into their TF32 parts once a call (trunk_wide_tf32.cu's
+  `refnerf_wide_tf32_split`); per slab of `slab` rows
+  (`wide_tf32_slab_rows`) the per-tile kernel writes the weight gradients'
   operands (h, zeta, s, p [L][rp][256]; x, ts [rp][512]); trunk_w1024.cu's
   f32 tn product forms each gradient's partials (dW_l in two launches,
   zeta_l^T [h_{l-1} | x] with db_l, zeta_l's column sums, then s_l^T
@@ -2303,14 +2355,19 @@ def _wide_tf32_backward(segs, pack: TrunkPack, cots, fold=None,
       raise ValueError('the f32 wide-input backward reads the IPE segments '
                        'by TMA: each must start at a 16-byte aligned address')
   n, dev, d = int(x0.shape[0]), x0.device, ki.d0
-  W, L, kin, hc = pack.width, pack.depth, pack.kin, int(pack.wc.shape[0])
+  W, L, kin = pack.width, pack.depth, pack.kin
+  hc = 0 if pack.wc is None else int(pack.wc.shape[0])
+  if dg and not hc:
+    raise ValueError('the f32 wide-input backward at the density head alone '
+                     'is first order')
   f32 = lambda *shape: torch.empty(*shape, device=dev)
   sbar = (torch.zeros(n, device=dev) if sbar is None
           else sbar.float().reshape(n).contiguous())
-  cbar = (torch.zeros(n, hc, device=dev) if cbar is None
-          else cbar.float().reshape(n, hc).contiguous())
-  if cbar.data_ptr() % 16:
-    cbar = cbar.clone()
+  if hc:
+    cbar = (torch.zeros(n, hc, device=dev) if cbar is None
+            else cbar.float().reshape(n, hc).contiguous())
+    if cbar.data_ptr() % 16:
+      cbar = cbar.clone()
   nb = int(fold.shape[1]) if dg else 0
   ubar = ubar.float().reshape(n, nb).contiguous() if dg else None
   fin = sum(pack.seg_dims)
@@ -2318,13 +2375,15 @@ def _wide_tf32_backward(segs, pack: TrunkPack, cots, fold=None,
   k_out = [fin if l == 0 else W + (fin if l == pack.skip else 0)
            for l in range(L)]
   dws = [f32(W, k) for k in k_out]
-  dbs, dwd, dwc, dbc = f32(L, W), f32(1, W), f32(hc, W), f32(hc)
+  dbs, dwd = f32(L, W), f32(1, W)
+  dwc, dbc = (f32(hc, W), f32(hc)) if hc else (None, None)
   if not n:
     for t in dws + [dbs, dwd, dwc, dbc]:
-      t.zero_()
+      if t is not None:
+        t.zero_()
     return (dws, list(dbs.unbind(0)), dwd, None, None, dwc, dbc, None, None,
             None)
-  slab = max(1, min(slab or bwd_slab_rows(W), n))
+  slab = max(1, min(slab or wide_tf32_slab_rows(hc), n))
   rp_max = -(-slab // _TILE) * _TILE
   # The scratch: h, zeta (and s, p) [L][rp][W]; x (and ts) [rp][2 W].
   regions = [('hs', L * W), ('zs', L * W)]
@@ -2334,11 +2393,14 @@ def _wide_tf32_backward(segs, pack: TrunkPack, cots, fold=None,
   sms = torch.cuda.get_device_properties(dev).multi_processor_count
   # Every slab's partials fit, a short last slab's too: sized by the most
   # partials any slab makes (H24).
-  grads = [(W, k) for k in k_pack] + [(hc, W)]
+  grads = [(W, k) for k in k_pack] + ([(hc, W)] if hc else [])
   splits = {g: wide_tf32_splits(*g, sms) for g in grads}
   wpart = f32(max(splits[m, k] * m * k for m, k in grads))
   bpart = f32(max(splits[m, k] * m for m, k in grads))
-  vpart = f32(-(-slab // _WIDE_COLSUM_ROWS) * W)
+  # dwd's partials: the column sums' blocks, or at the density head alone
+  # the kernel's tiles (and their first stage's group sums).
+  vpart = f32(-(-slab // (_WIDE_COLSUM_ROWS if hc else _TILE)) * W)
+  vmid = None if hc else f32(-(-slab // _TILE) * W)
   stream = torch.cuda.current_stream(dev).cuda_stream
   at = lambda t, row, width: (None if t is None else
                               t.data_ptr() + row * width * t.element_size())
@@ -2373,10 +2435,10 @@ def _wide_tf32_backward(segs, pack: TrunkPack, cots, fold=None,
     reduce(vpart, -(-rows // _WIDE_COLSUM_ROWS), 1, W, W, dst, acc)
 
   with torch.cuda.device(dev):
-    idx = _bwd_panel_index(L, pack.skip, kin, d, dg, dev)
+    idx = _bwd_panel_index(L, pack.skip, kin, d, dg, hc > 0, dev)
     hi, lo = torch.empty(2, idx.numel(), device=dev)
     err = split_fn(idx.numel(), idx.data_ptr(), pack.w.data_ptr(),
-                   pack.w.numel(), pack.wc.data_ptr(), hi.data_ptr(),
+                   pack.w.numel(), _ptr(pack.wc), hi.data_ptr(),
                    lo.data_ptr(), stream)
     _check_launch(err, 'f32 wide-input backward weight split')
     th = tl = None
@@ -2396,19 +2458,34 @@ def _wide_tf32_backward(segs, pack: TrunkPack, cots, fold=None,
         reg[name] = scratch.data_ptr() + off * rp * 4
         off += feats
       layer = lambda name, l: reg[name] + l * W * rp * 4
-      err = lib.refnerf_wide_tf32_k4(
-          rows, rp, d, L, pack.skip, nb, at(x0, start, d), at(x1, start, d),
-          hi.data_ptr(), lo.data_ptr(), idx.numel() // (W * W), _ptr(th),
-          _ptr(tl), pack.b.data_ptr(), pack.wd.data_ptr(),
-          at(sbar, start, 1), at(cbar, start, hc), at(ubar, start, nb),
-          reg['hs'], reg['zs'], reg.get('ss'), reg.get('ps'), reg['xs'],
-          reg.get('ts'), stream)
+      if hc:
+        err = lib.refnerf_wide_tf32_k4(
+            rows, rp, d, L, pack.skip, nb, at(x0, start, d), at(x1, start, d),
+            hi.data_ptr(), lo.data_ptr(), idx.numel() // (W * W), _ptr(th),
+            _ptr(tl), pack.b.data_ptr(), pack.wd.data_ptr(),
+            at(sbar, start, 1), at(cbar, start, hc), at(ubar, start, nb),
+            reg['hs'], reg['zs'], reg.get('ss'), reg.get('ps'), reg['xs'],
+            reg.get('ts'), stream)
+      else:
+        err = lib.refnerf_wide_tf32_k4h0(
+            rows, rp, d, L, pack.skip, at(x0, start, d), at(x1, start, d),
+            hi.data_ptr(), lo.data_ptr(), idx.numel() // (W * W),
+            pack.b.data_ptr(), pack.wd.data_ptr(), at(sbar, start, 1),
+            reg['hs'], reg['zs'], reg['xs'], vpart.data_ptr(), stream)
       _check_launch(err, 'f32 wide-input backward (trunk_wide_bwd_tf32)')
       # The head: dwc = cbar^T y and dbc; dwd = sum sbar y (+ sum p_{L-1}).
       y = layer('hs', L - 1)
-      wgrad(dwc, dbc, hc, W, W, rows, at(cbar, start, hc), hc, y, W, W, None,
-            0, acc)
-      colsum(rows, y, at(sbar, start, 1), dwd, acc)
+      if hc:
+        wgrad(dwc, dbc, hc, W, W, rows, at(cbar, start, hc), hc, y, W, W,
+              None, 0, acc)
+        colsum(rows, y, at(sbar, start, 1), dwd, acc)
+      else:
+        # The tiles' sums in two fixed-order stages (`_vec_groups`), so that
+        # a thread sums tens of them and not thousands.
+        tiles = rp // _TILE
+        q = _vec_groups(tiles)
+        reduce(vpart, q, tiles // q, W, W, vmid, 0)
+        reduce(vmid, tiles // q, 1, W, W, dwd, acc)
       if dg:
         colsum(rows, layer('ps', L - 1), None, dwd, 1)
       for l in range(L):

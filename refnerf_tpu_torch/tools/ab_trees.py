@@ -41,9 +41,9 @@ peak memory); `m360_dir_pair` phase 24's directional pair (1 x 128 on
 256 + 27 columns) in --dtype against its plain versions and its PyTorch
 chain (the concatenation inside), forward and backward with dx;
 `chain_rows` the PyTorch chain of every trunk row that it computes without
-a fused stage or the density gradient (K1 hf=0, K2, K2 W128 and K1 wide
-forward; K4 first-order, K5, K5 W128 and K4 wide backward) in --dtype
-beside its kernel and plain version, the rows' library column;
+a fused stage or the density gradient (K1, K1 hf=0, K2, K2 W128, K11 and
+K1 wide forward; K4 first-order, K5, K5 W128 and K4 wide backward) in
+--dtype beside its kernel and plain version, the rows' library column;
 `forward_kernels` holds every forward case
 of phases 3, 5, 7, 9 and 11 (K2 at width 128 and K11 included) and phase
 19's proposal trunk (K1 wide) in --dtype against its plain version
@@ -625,10 +625,13 @@ def chain_rows(fused_mlp, dev):
   the heads; autograd for the backward) of every trunk row of PERF.md that
   it computes without a fused stage or the density gradient, timed between
   the kernel and its plain version through chip_smoke.compare at
-  chip_smoke's N in the run's DTYPE: the forwards K1 hf=0 (mip-NeRF's
-  spatial trunk), K2, K2 W128 and K1 wide (the proposal trunk of depth 4 on
-  504 columns); the backwards K4 first-order, K5, K5 W128 and K4 wide. Uses
-  only what every checkout's chip_smoke has since phase 19 came in."""
+  chip_smoke's N in the run's DTYPE: the forwards K1 (the flagship's
+  spatial trunk, its f32 and bf16 heads), K1 hf=0 (mip-NeRF's spatial
+  trunk), K2, K2 W128, K11 (mip-NeRF's spatial trunk with y out, the
+  chain's y among its outputs) and K1 wide (the proposal trunk of depth 4
+  on 504 columns); the backwards K4 first-order, K5, K5 W128 and K4 wide.
+  Uses only what every checkout's chip_smoke has since phase 19 came in
+  (K11's chain the `out_y` of this checkout's `w1024_chain`)."""
   import torch
   import chip_smoke as cs
   cdt = DTYPE
@@ -637,27 +640,33 @@ def chain_rows(fused_mlp, dev):
   gen = torch.Generator().manual_seed(cs.SEED + 25)
   rand = lambda *s: torch.randn(*s, generator=gen).to(dev)
   for which, trunk, backward in (
-      ('K1 hf=0', 'mip K1', False), ('K2', 'K2', False),
-      ('K2 W128', 'mip K2', False), ('K1 wide', None, False),
-      ('K4 first-order', 'mip K1', True), ('K5', 'K2', True),
-      ('K5 W128', 'mip K2', True), ('K4 wide', None, True)):
+      ('K1', 'K1', False), ('K1 hf=0', 'mip K1', False), ('K2', 'K2', False),
+      ('K2 W128', 'mip K2', False), ('K11', 'mip K11', False),
+      ('K1 wide', None, False), ('K4 first-order', 'mip K1', True),
+      ('K5', 'K2', True), ('K5 W128', 'mip K2', True),
+      ('K4 wide', None, True)):
+    y = which == 'K11'
     if trunk is None:
       segs, ws, bs, kw = cs.prop_case(fused_mlp, gen, dev, 4, cdt)
     else:
-      segs, ws, bs, kw = cs.trunk_case(trunk, gen, dev, ipe=trunk == 'mip K1')
+      segs, ws, bs, kw = cs.trunk_case(trunk, gen, dev,
+                                       ipe=trunk in ('mip K1', 'mip K11'))
     segs = [s.to(tdt) for s in segs]
     pack = fused_mlp.pack_trunk(ws, bs, [s.shape[-1] for s in segs],
                                 compute_dtype=cdt, **kw)
     heads = cs.n_heads(kw)
     if not backward:
-      cs.compare(which, cdt, lambda: fused_mlp.trunk_kernel(segs, pack),
+      cs.compare(which, cdt,
+                 lambda: fused_mlp.trunk_kernel(segs, pack, out_y=y),
                  lambda: fused_mlp.trunk_reference(segs, ws, bs,
-                                                   compute_dtype=cdt, **kw),
-                 n_values=1 + (kw['head_f32'] is not None) +
+                                                   compute_dtype=cdt,
+                                                   out_y=y, **kw),
+                 n_values=y + 1 + (kw['head_f32'] is not None) +
                  (kw['head_cdt'] is not None), phase=3,
                  inputs=segs + cs.pack_tensors(pack),
-                 flops=cs.trunk_flops(ws, n, heads),
-                 library=w1024_chain(fused_mlp, segs, ws, bs, kw, cdt))
+                 flops=cs.trunk_flops(ws, n, heads), y=0 if y else None,
+                 library=w1024_chain(fused_mlp, segs, ws, bs, kw, cdt,
+                                     out_y=y))
     else:
       spatial = kw['wd'] is not None
       hc = kw['head_cdt'][0].shape[0] if kw['head_cdt'] else 0

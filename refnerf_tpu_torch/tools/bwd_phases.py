@@ -8,6 +8,7 @@ From the root of a checkout, on a machine with an H100 and the CUDA toolkit:
                trunk_wide_bf16]
         [--dtype float32]
         [--cases 'K5 W128']
+        [--slabs 65536,131072]
 
 Builds a trunk library a second time with -DREFNERF_PHASES (its own file
 in build/, never loaded on the main path): by default the bf16 width-256
@@ -54,7 +55,11 @@ under torch.profiler through the phase build and through the normal one.
 Each
 (phase, kind) gets its share of all CTAs' cycles and that share of the
 per-tile kernel's time in the phase build (whose barriers add their own
-cost: compare its time with the normal build's).
+cost: compare its time with the normal build's). With --slabs (a
+backward's rows a slab) each case's whole call is also timed by CUDA
+events with `fused_mlp.bwd_slab_rows` (and `wide_tf32_slab_rows`) giving
+each of those slabs, in
+turns (a, b, ..., b, a; 5 calls an arm after a warm-up).
 Prints one line per case and writes <out>/phases.json.
 """
 
@@ -119,6 +124,34 @@ def device_ms(run, kernels=KERNELS, calls=2):
                                                   '_bf16')):
         out[k] += us / 1e3 / calls
   return out
+
+
+def slab_ms(fused_mlp, run, slabs, name, iters=5):
+  """{slab: CUDA-event ms of a call of run()} with
+  `fused_mlp.bwd_slab_rows` and `wide_tf32_slab_rows` giving each slab, in
+  turns (a, b, ..., b, a), each arm's mean of its two blocks of `iters`
+  calls after a warm-up."""
+  orig = fused_mlp.bwd_slab_rows, fused_mlp.wide_tf32_slab_rows
+  out = {s: [] for s in slabs}
+  try:
+    for s in slabs + slabs[::-1]:
+      fused_mlp.bwd_slab_rows = lambda width, s=s: s
+      fused_mlp.wide_tf32_slab_rows = lambda hc, s=s: s
+      run()
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      for _ in range(iters):
+        run()
+      end.record()
+      torch.cuda.synchronize()
+      out[s].append(start.elapsed_time(end) / iters)
+  finally:
+    fused_mlp.bwd_slab_rows, fused_mlp.wide_tf32_slab_rows = orig
+  ms = {s: sum(v) / len(v) for s, v in out.items()}
+  print(f'{name}: by slab rows, in turns: ' + ', '.join(
+      f'{s} {m:.3f} ms' for s, m in ms.items()), flush=True)
+  return ms
 
 
 def cases(chip_smoke, fused_mlp, dev, cdt):
@@ -255,6 +288,9 @@ def main():
                   'default')
   ap.add_argument('--cases', default='',
                   help='case names to run, comma-separated (default: all)')
+  ap.add_argument('--slabs', default='',
+                  help='backward slab rows to time each case at, in turns '
+                  '(comma-separated; none by default)')
   a = ap.parse_args()
   a.dtype = a.dtype or ('float32' if a.lib.endswith(('_f32', '_tf32'))
                         else 'bfloat16')
@@ -321,6 +357,9 @@ def main():
             if cyc[i][j]}
     report['cases'][name] = {'normal_ms': base, 'phase_build_ms': stamped,
                              'phases': rows}
+    if a.slabs:
+      report['cases'][name]['slab_ms'] = slab_ms(
+          fused_mlp, run, [int(v) for v in a.slabs.split(',')], name)
     print(f'{name}: normal build ms ' + ', '.join(
         f'{k} {v:.3f}' for k, v in base.items()) + '; phase build ms ' +
           ', '.join(f'{k} {v:.3f}' for k, v in stamped.items()), flush=True)

@@ -527,14 +527,19 @@ def _stubbed_kernels(monkeypatch):
 def test_wide_instance_routes_and_counts(monkeypatch, cdt):
   # The PropMLP at 256 wide, in f32 (the configuration's) and in bf16: with
   # the kernels stubbed by the plain versions on the pack's own weights,
-  # its forward goes to the wide-input instance of trunk_fwd_f32.cu (f32)
-  # or trunk_fwd_tma.cu (bf16) and its backward to trunk_bwd_f32.cu's or
-  # trunk_bwd_tma.cu's (both counted under 'K1 wide' / 'K4 wide': 2 a step,
-  # one a proposal level), the NerfMLP's to the same libraries' width-256
-  # instances; a step under 'on' equals 'off' to the bit; and no shape of
-  # the step is without an instance.
+  # its forward goes to trunk_wide_tf32.cu's head-0 instance (f32) or the
+  # wide-input instance of trunk_fwd_tma.cu (bf16) and its backward to
+  # trunk_wide_bwd_tf32.cu's or trunk_bwd_tma.cu's (both counted under 'K1
+  # wide' / 'K4 wide': 2 a step, one a proposal level), the NerfMLP's to
+  # the width-256 instances of trunk_fwd_f32.cu and trunk_bwd_f32.cu (f32)
+  # or trunk_fwd_tma.cu and trunk_bwd_tma.cu (bf16); a step under 'on'
+  # equals 'off' to the bit; and no shape of the step is without an
+  # instance.
   routes, fwd_launches = _stubbed_kernels(monkeypatch)
   fwd, bwd = fused_mlp.FWD_LIBRARY[cdt], fused_mlp.BWD_LIBRARY[cdt]
+  wide_fwd, wide_bwd = ((fused_mlp.WIDE_TF32_LIBRARY,
+                         fused_mlp.WIDE_TF32_BWD_LIBRARY)
+                        if cdt == 'float32' else (fwd, bwd))
   bindings = CASCADE + [
       'NerfMLP.net_depth = 2', 'NerfMLP.net_depth_viewdirs = 2',
       'NerfMLP.bottleneck_width = 128', 'Model.num_prop_samples = 8',
@@ -565,16 +570,17 @@ def test_wide_instance_routes_and_counts(monkeypatch, cdt):
   assert n_off == {k: 0 for k in n_off}
   assert n_on['K1 wide'] == n_on['K4 wide'] == 2 == n_on['K1']
   assert n_on['K3'] == n_on['K2'] == n_on['K5'] == 1 and n_on['K4'] == 3
-  assert ('fwd', 512, fwd) in routes and ('bwd', 512, bwd) in routes
-  assert {lib for _, _, lib in routes} == {fwd, bwd}
+  assert ('fwd', 512, wide_fwd) in routes and ('bwd', 512, wide_bwd) in routes
+  assert {lib for _, kin, lib in routes if kin != 512} == {fwd, bwd}
+  assert {lib for _, _, lib in routes} == {fwd, bwd, wide_fwd, wide_bwd}
   assert torch.equal(on['loss'], off['loss'])
   for k, v in p_on.items():
     assert torch.equal(v, p_off[k]), k
 
 
 @pytest.mark.parametrize('case,lib,past', [
-    ('f32 depth 4', 'trunk_fwd_f32', None),
-    ('f32 depth 8', 'trunk_fwd_f32', None),
+    ('f32 depth 4', 'trunk_wide_tf32', None),
+    ('f32 depth 8', 'trunk_wide_tf32', None),
     ('f32 density gradient', 'trunk_fwd_f32', None),
     ('f32 bottleneck head', 'trunk_fwd_f32', None),
     ('f32 past the widest', 'trunk_fwd', 'trunk_fwd'),
@@ -584,9 +590,13 @@ def test_wide_instance_routes_and_counts(monkeypatch, cdt):
     ('bf16 density gradient', 'trunk_fwd_tma', None)])
 def test_wide_input_routes_by_shape(case, lib, past):
   # The spatial trunk on 504 columns takes the wide-input instances, in f32
-  # of the FMA/TMA libraries (kernel_smem within the H100's 232,448 B:
-  # 230,792 B for the backward at depth 4, 222,600 at depth 8; 224,392 for
-  # the forward; with the density gradient 229,384 and 224,568), in bf16 of
+  # at the density head alone the TF32 libraries' head-0 instances
+  # (trunk_wide_tf32.cu and trunk_wide_bwd_tf32.cu; kernel_smem within the
+  # H100's 232,448 B: 214,560 B for the forward, 220,200 B for the backward
+  # at depth 4 and 228,392 at depth 8), with the density gradient or the
+  # 128-wide head of the FMA/TMA libraries (224,392 B for the forward with
+  # the head, 230,792 for its backward; with the density gradient 229,384
+  # and 224,568), in bf16 of
   # the wgmma/TMA ones (231,480 B for the forward, its 3-stage ring and the
   # density head's weights; 210,248 and 218,440 B for the backward at depth
   # 4 and 8; with the density gradient 214,456 and 204,008), the 128-wide
@@ -610,15 +620,16 @@ def test_wide_input_routes_by_shape(case, lib, past):
   why = fused_mlp.missing_instance(pack, 0 if head is None else 128, fold)
   if past is None:
     assert why is None
-    want = {'f32 depth 4': (224392, 230792),
-            'f32 depth 8': (224392, 222600),
+    want = {'f32 depth 4': (214560, 220200),
+            'f32 depth 8': (214560, 228392),
             'f32 density gradient': (229384, 224568),
             'f32 bottleneck head': (224392, 230792),
             'bf16 depth 4': (231480, 210248),
             'bf16 depth 8': (231480, 218440),
             'bf16 density gradient': (214456, 204008)}.get(case)
     if want:
-      bwd = lib.replace('fwd', 'bwd')
+      bwd = (fused_mlp.WIDE_TF32_BWD_LIBRARY if lib == 'trunk_wide_tf32'
+             else lib.replace('fwd', 'bwd'))
       hc = 0 if head is None else 128
       assert fused_mlp.wide_input(pack, fold=fold)
       assert fused_mlp.backward_library(pack, fold=fold) == bwd

@@ -1384,8 +1384,9 @@ def _prop_case(dev, depth, n=1000, seed=40, cdt='float32', fin=504, deg=12):
     ('bfloat16', 1008, 4), ('bfloat16', 1008, 8), ('bfloat16', 546, 4),
     ('bfloat16', 546, 8)])
 def test_wide_input_f32_trunk_matches_plain(dev, cdt, fin, depth):
-  # The wide-input instances (f32: trunk_fwd_f32.cu `fwd_f32_wide`,
-  # trunk_bwd_f32.cu `bwd_f32_wide`; bf16: trunk_fwd_tma.cu `fwd_wide`,
+  # The wide-input instances (f32: the head-0 instances of
+  # trunk_wide_tf32.cu and trunk_wide_bwd_tf32.cu, three TF32 passes of
+  # wgmma; bf16: trunk_fwd_tma.cu `fwd_wide`,
   # trunk_bwd_tma.cu's WIDE instance) on mip-NeRF 360's proposal trunk
   # (504 columns; in bf16 also 264, 1008, and 546 on 13 degrees: segments
   # of 273 columns, which wide_chunk fills by 2-byte loads, a 4-column
@@ -1397,8 +1398,11 @@ def test_wide_input_f32_trunk_matches_plain(dev, cdt, fin, depth):
   deg = 13 if fin == 546 else 12
   segs, ws, bs, kw, pack = _prop_case(dev, depth, cdt=cdt, fin=fin, deg=deg)
   assert fused_mlp.wide_input(pack) and pack.kin == -(-fin // 32) * 32
-  assert fused_mlp.forward_library(pack) == fused_mlp.FWD_LIBRARY[cdt]
-  assert fused_mlp.backward_library(pack) == fused_mlp.BWD_LIBRARY[cdt]
+  tf32 = cdt == 'float32'
+  assert fused_mlp.forward_library(pack) == (
+      fused_mlp.WIDE_TF32_LIBRARY if tf32 else fused_mlp.FWD_LIBRARY[cdt])
+  assert fused_mlp.backward_library(pack) == (
+      fused_mlp.WIDE_TF32_BWD_LIBRARY if tf32 else fused_mlp.BWD_LIBRARY[cdt])
   assert fused_mlp.missing_instance(pack, 0) is None
   sbar = torch.randn(1000, generator=torch.Generator().manual_seed(41)).to(dev)
   cots = (sbar, None, None, None)
@@ -2281,4 +2285,38 @@ def test_redesigned_defaults_instances_match_plain(dev, n, which):
     got, again, want = (_flat(f()) for f in (kernel, kernel, plain))
   torch.cuda.synchronize()
   _assert_close(got, want, cdt, f'{which} n {n}', n_values=nv)
+  assert all(torch.equal(a, b) for a, b in zip(got, again)), which
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['K1 depth 4', 'K1 depth 8', 'K4 depth 4',
+                                   'K4 depth 8'])
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 128, 129, 257, 4097])
+def test_redesigned_prop_instances_match_plain(dev, n, which):
+  # mip-NeRF 360's f32 proposal trunk (4 x 256, and 8 x 256 with the skip
+  # at layer 5, on 504 columns, the density head alone) on the head-0
+  # instances of csrc/trunk_wide_tf32.cu (K1) and
+  # csrc/trunk_wide_bwd_tf32.cu (first-order K4), three TF32 passes of
+  # wgmma, at n rows across the 64-row tiles: sigma by BOUND, every
+  # gradient by GRAD_BOUND given a random cotangent of sigma; each a second
+  # time bit-identical (H4).
+  depth = int(which.split()[-1])
+  segs, ws, bs, kw, pack = _prop_case(dev, depth, n=n, seed=44)
+  assert fused_mlp.forward_library(pack) == fused_mlp.WIDE_TF32_LIBRARY
+  assert fused_mlp.backward_library(pack) == fused_mlp.WIDE_TF32_BWD_LIBRARY
+  sbar = torch.randn(n, generator=torch.Generator().manual_seed(45)).to(dev)
+  cots = (sbar, None, None, None)
+  if which.startswith('K1'):
+    nv = 1
+    kernel = lambda: fused_mlp.trunk_kernel(segs, pack)
+    plain = lambda: fused_mlp.trunk_reference(segs, ws, bs, **kw)
+  else:
+    nv = 0
+    kernel = lambda: fused_mlp.trunk_backward_kernel(segs, pack, cots)
+    plain = lambda: fused_mlp.trunk_backward_reference(segs, ws, bs, cots,
+                                                       **kw)
+  with torch.no_grad():
+    got, again, want = (_flat(f()) for f in (kernel, kernel, plain))
+  torch.cuda.synchronize()
+  _assert_close(got, want, 'float32', f'{which} n {n}', n_values=nv)
   assert all(torch.equal(a, b) for a, b in zip(got, again)), which
